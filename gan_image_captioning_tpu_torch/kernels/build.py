@@ -1,0 +1,82 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build happens at first use, into ``build/gic_torch_kernels/`` beside the
+package (``.gitignore`` lists ``build/``).  The library's file name carries
+a hash of its source and flags, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gic_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# compiler output (ptxas register / shared-memory / spill report) per source
+BUILD_LOGS: Dict[str, str] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels are built on the machine with "
+                           "the card")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no current library, one
+    ``nvcc`` per source, all started together.  Raises with the compiler's
+    output if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, {}
+    for name in names:
+        lib = library_path(name)
+        out[name] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+        return _LIBS[name]
