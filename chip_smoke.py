@@ -1,38 +1,59 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --only train_kernels,train_timing
 
-Drives ``gan_image_captioning_tpu_torch`` at the full serving width of
-preset config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
-V = 11008, T = 36, float32) and prints one JSON line per phase:
+Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
+config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
+V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
+3/4/5 x 300; float32) and prints one JSON line per phase:
 
 1. ``device``  — the card (``nvidia-smi`` name and power limit).
 2. ``build``   — every kernel built from ``kernels/csrc`` with nvcc
    (sm_90a), with ptxas's register and shared-memory report.
-3. ``kernel``  — the decode kernel against its plain PyTorch version at
-   B = 1, 8, 64 on the same inputs: ids equal (where a row differs, each
-   kernel id must lie within 1e-4 of the plain max logit when the plain
-   version is teacher-forced on the kernel's ids), per-token logprobs
-   within 1e-4 and sequence sums within 1e-3 (float32 sums run in another
-   order).
-4. ``service`` — the serve entry point's request loop
-   (``serve.main``) on a seeded checkpoint written in the reference
-   layout: ``{"n": 1}``, ``{"n": 8}``, ``{"n": 20}``, ``{"stats": true}``.
-   Captions must match the plain decode, logprobs must be finite, and the
-   kernel's launch count must equal the service's ``device_calls``.
-5. ``timing``  — kernel and plain times (CUDA events) at B = 8 and 64,
-   the host time of one kernel call, the service's request latency, and
-   the least time the card could take.
-6. ``profile`` — device time per CUDA kernel (torch.profiler) and the
-   device's busy share over a few decode calls at B = 8 and 64.
+3. ``train_kernels`` — the four training kernels against their plain
+   PyTorch versions at B = 64 on the same inputs: the ``sample_resid``
+   decode with fed uniforms (ids equal, or each kernel id within 1e-4 of
+   the max score when the plain version is teacher-forced on the kernel's
+   ids; soft within 1e-5, h/c/gates within 1e-4), its Philox draw (seeded,
+   mean and share below 0.1 of the 25 M uniforms within 1e-3), the BPTT
+   chain (d_pre within 1e-4 of its max), the conv forward (pooled within
+   1e-5, argmax rows equal outside ties within 1e-6) and backward (dW
+   within 1e-4 of its max, dX within 1e-5).
+4. ``train_timing`` — each training kernel's time (CUDA events) beside
+   its plain version's and its bound.
+5. ``train``   — 3 MLE steps, then 4 adversarial steps (disc_train_freq
+   2, temperature 10) through ``train/steps.py`` with every launch
+   counter reset before and read after (each must equal the launches per
+   step by design); then one adversarial step through the kernels against
+   the same step through the plain versions on the same state and fed
+   noise (losses within 1e-4, every gradient within 1e-3 of its tensor's
+   max), the plain conv pooling at the kernel route's argmax rows.
+6. ``train_timing`` (steps) and ``train_profile`` — ms per MLE and
+   adversarial step on both routes, and device time per kernel and the
+   device's busy share over 3 adversarial steps (torch.profiler).
+7. ``kernel``  — the serve decode kernel against its plain version at
+   B = 1, 8, 64: ids equal (where a row differs, each kernel id within
+   1e-4 of the plain max logit when the plain version is teacher-forced
+   on the kernel's ids), per-token logprobs within 1e-4, sequence sums
+   within 1e-3.
+8. ``service`` — the serve entry point's request loop (``serve.main``) on
+   a seeded checkpoint written in the reference layout: ``{"n": 1}``,
+   ``{"n": 8}``, ``{"n": 20}``, ``{"stats": true}``.  Captions must match
+   the plain decode and the kernel's launch count the service's
+   ``device_calls``.
+9. ``timing`` / ``profile`` — the serve decode's times, request latency,
+   device time per kernel and busy share at B = 8 and 64.
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": …}``.  Any
-failed phase raises, so the script exits non-zero; without CUDA it exits
-non-zero before printing a result.  The plain version's matrix products
-run in full float32: TF32 is switched off below.
+Then the ``kernels`` line (all five kernels) and, last, ``{"ok": true,
+"device": …}``.  Any failed phase raises, so the script exits non-zero;
+without CUDA it exits non-zero before printing a result.  The plain
+versions' matrix products and convolutions run in full float32: TF32 is
+switched off below.
 """
 
+import argparse
 import contextlib
 import io
 import json
@@ -52,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
+KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -132,7 +154,7 @@ def phase_build():
     from gan_image_captioning_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    libs = build.build(["decode_serve"])
+    libs = build.build(KERNEL_SOURCES)
     ptxas = [ln.strip() for log in build.BUILD_LOGS.values()
              for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -354,7 +376,571 @@ def phase_profile(dec, device, calls=3):
     return rows
 
 
-def main():
+# ----------------------------------------------------------------- training
+
+DISC_E, DISC_R = 64, 64
+BANKS = ((300, 3), (300, 4), (300, 5))
+B_TRAIN, TEMP = 64, 10.0
+SOFT_ATOL, RESID_ATOL, CHAIN_RTOL = 1e-5, 1e-4, 1e-4
+POOL_ATOL, TIE_GAP, DW_RTOL, DX_ATOL = 1e-5, 1e-6, 1e-4, 1e-5
+TRAIN_TPU_KERNELS = {
+    "decode_sample_resid": "gan_image_captioning_tpu/kernels/decode_sample.py:121",
+    "lstm_bptt_chain": "gan_image_captioning_tpu/kernels/lstm_bptt.py:59",
+    "disc_conv_fwd": "gan_image_captioning_tpu/kernels/disc_conv.py:477",
+    "disc_conv_bwd_dx": "gan_image_captioning_tpu/kernels/disc_conv.py:515",
+}
+TRAIN_SOURCES = {
+    "decode_sample_resid": "decode_serve.cu", "lstm_bptt_chain": "lstm_bptt.cu",
+    "disc_conv_fwd": "disc_conv.cu", "disc_conv_bwd_dx": "disc_conv.cu",
+}
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def resid_work(B):
+    """sample_resid: the decode's inputs and products, and its outputs
+    (ids, soft [T, B, V], hs/cs [T, NL, B, H], gates [T, NL, B, 4H])."""
+    nbytes, flops = decode_work(B)
+    nbytes += 4 * (T * B * V + T * NL * B * 6 * H) - 4 * B * T  # no lps
+    return nbytes, flops
+
+
+def chain_work(B):
+    products = T * (2 * NL - 1)
+    nbytes = 4 * ((2 * NL - 1) * H * 4 * H + T * B * H
+                  + 2 * T * NL * B * 4 * H + T * NL * B * H)
+    return nbytes, 2 * products * B * 4 * H * H
+
+
+def conv_work(B, backward=False):
+    """One pass (all banks) of the conv forward or backward."""
+    q, maxf, lp = B * DISC_R, max(f for _, f in BANKS), T + 4
+    n_all = sum(n for n, _ in BANKS)
+    emb = 4 * B * lp * DISC_E
+    w = 4 * n_all * maxf
+    if backward:   # emb, w, idx, dpm in; d_emb, dW out
+        nbytes = 2 * emb + 2 * w + 2 * 4 * q * n_all
+        flops = sum(4 * q * n * f for n, f in BANKS)
+    else:          # emb, w, b in; pooled, idx out
+        nbytes = emb + w + 4 * n_all + 2 * 4 * q * n_all
+        flops = sum(2 * q * n * (T - f + 1) * f for n, f in BANKS)
+    return nbytes, flops
+
+
+def seeded(shape, seed, device, scale=1.0):
+    return torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        shape) * scale).astype(np.float32)).to(device)
+
+
+def resid_teacher_forced(dec, feats, ids, u, temp):
+    """The plain sample_resid arithmetic with the input at step t+1 =
+    embed[ids[:, t]] → (scores [T, B, V], soft, hs, cs, gates)."""
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+    layers = dec.lstm.layers()
+    B = feats.shape[0]
+    h = [feats.new_zeros(B, H) for _ in layers]
+    c = [feats.new_zeros(B, H) for _ in layers]
+    x, out = feats, {k: [] for k in ("scores", "soft", "hs", "cs", "gates")}
+    for t in range(ids.shape[1]):
+        inp, gs = x, []
+        for l, p in enumerate(layers):
+            g = (inp @ p["w_ih"].T + h[l] @ p["w_hh"].T
+                 + (p["b_ih"] + p["b_hh"]))
+            gi, gf, gg, go = g.chunk(4, dim=-1)
+            c[l] = torch.sigmoid(gf) * c[l] + torch.sigmoid(gi) * torch.tanh(gg)
+            h[l] = torch.sigmoid(go) * torch.tanh(c[l])
+            inp = h[l]
+            gs.append(g)
+        scores = (inp @ dec.linear.weight.T + dec.linear.bias
+                  + gumbel_noise(u[t].shape, u=u[t]))
+        out["scores"].append(scores)
+        out["soft"].append(torch.softmax(scores * temp, dim=-1))
+        out["hs"].append(torch.stack(h))
+        out["cs"].append(torch.stack(c))
+        out["gates"].append(torch.stack(gs))
+        x = dec.embed.weight[ids[:, t].long()]
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+def conv_inputs(device):
+    """Full-width conv bank inputs at unit scale: emb_pad [B, T+4, 64]
+    (zero time padding), w_all [900, 5], b_all [900]."""
+    from gan_image_captioning_tpu_torch.kernels.disc_conv import (
+        fuse_bank_params)
+
+    B = B_TRAIN
+    emb = seeded((B, T, DISC_E), 11, device)
+    convs = [(seeded((n, 1, f, 1), 12 + f, device, 1 / math.sqrt(f)),
+              seeded((n,), 20 + f, device, 0.1)) for n, f in BANKS]
+    w_all, b_all, banks = fuse_bank_params(convs, 1)
+    emb_pad = torch.nn.functional.pad(emb, (0, 0, 0, 4)).contiguous()
+    return emb_pad, w_all.contiguous(), b_all.contiguous(), banks
+
+
+def phase_train_kernels(dec, device):
+    """The four training kernels against their plain versions at the
+    training width, B = 64, on the same inputs."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample_resid, decode_sample_resid_plain)
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain, lstm_bptt_chain_plain)
+
+    B, out = B_TRAIN, {}
+    feats = seeded((B, E), 64, device)
+    args = decode_args(dec, feats)
+    gen = torch.Generator(device=device).manual_seed(5)
+    u = torch.rand((T, B, V), generator=gen, device=device)
+
+    # --- sample_resid with fed uniforms
+    k = decode_sample_resid(*args, temperature=TEMP, uniforms=u)
+    torch.cuda.synchronize()
+    p = decode_sample_resid_plain(*args, u, TEMP)
+    tf = resid_teacher_forced(dec, feats, k[0], u, TEMP)
+    chosen = tf["scores"].gather(2, k[0].T.long()[..., None])[..., 0]
+    row = {"ids_equal": bool(torch.equal(k[0], p[0])),
+           "rows_differing": int((k[0] != p[0]).any(dim=1).sum()),
+           "distinct_ids": int(k[0].unique().numel()),
+           "max_id_gap": float((tf["scores"].max(dim=2).values
+                                - chosen).max())}
+    for i, name in enumerate(("soft", "hs", "cs", "gates"), start=1):
+        row[f"max_abs_{name}_diff"] = float((k[i] - tf[name]).abs().max())
+    row["soft_finite"] = bool(torch.isfinite(k[1]).all())
+    row["soft_row_sum_err"] = float((k[1].sum(dim=2) - 1).abs().max())
+    check(row["max_id_gap"] <= ID_ATOL, f"sample_resid id gap {row}")
+    check(row["max_abs_soft_diff"] <= SOFT_ATOL, f"sample_resid soft {row}")
+    for name in ("hs", "cs", "gates"):
+        check(row[f"max_abs_{name}_diff"] <= RESID_ATOL,
+              f"sample_resid {name} {row}")
+    out["decode_sample_resid"] = row
+    emit({"phase": "train_kernels", "kernel": "decode_sample_resid", **row})
+
+    # --- the Philox draw: reproducible per seed, uniform in distribution
+    u_out = torch.empty_like(u)
+    ids_a = decode_sample_resid(*args, seed=1234, temperature=TEMP,
+                                uniforms_out=u_out)[0]
+    ids_b = decode_sample_resid(*args, seed=1234, temperature=TEMP)[0]
+    ids_c = decode_sample_resid(*args, seed=4321, temperature=TEMP)[0]
+    ids_fed = decode_sample_resid(*args, temperature=TEMP, uniforms=u_out)[0]
+    row = {"same_seed_same_ids": bool(torch.equal(ids_a, ids_b)),
+           "other_seed_other_ids": not bool(torch.equal(ids_a, ids_c)),
+           "fed_back_same_ids": bool(torch.equal(ids_a, ids_fed)),
+           "uniform_mean": float(u_out.double().mean()),
+           "share_below_0.1": float((u_out < 0.1).double().mean()),
+           "uniform_min": float(u_out.min()), "uniform_max": float(u_out.max()),
+           "samples": u_out.numel()}
+    emit({"phase": "train_kernels", "kernel": "philox", **row})
+    check(row["same_seed_same_ids"] and row["other_seed_other_ids"]
+          and row["fed_back_same_ids"], f"philox ids {row}")
+    check(abs(row["uniform_mean"] - 0.5) <= 1e-3
+          and abs(row["share_below_0.1"] - 0.1) <= 1e-3, f"philox {row}")
+    out["philox"] = row
+
+    # --- lstm_bptt_chain on the kernel's residuals
+    layers = dec.lstm.layers()
+    w_hhs = torch.stack([lp["w_hh"].T for lp in layers]).contiguous()
+    w_ihs = torch.stack([lp["w_ih"].T for lp in layers[1:]]).contiguous()
+    d_hs = seeded((T, B, H), 65, device)
+    gates, cs = k[4], k[3]
+    d_k = lstm_bptt_chain(w_hhs, w_ihs, d_hs, gates, cs)
+    torch.cuda.synchronize()
+    d_p = lstm_bptt_chain_plain(w_hhs, w_ihs, d_hs, gates, cs)
+    scale = float(d_p.abs().max())
+    row = {"max_abs_diff": float((d_k - d_p).abs().max()),
+           "max_abs_d_pre": scale}
+    row["rel"] = row["max_abs_diff"] / scale
+    emit({"phase": "train_kernels", "kernel": "lstm_bptt_chain", **row})
+    check(row["rel"] <= CHAIN_RTOL, f"lstm_bptt_chain {row}")
+    out["lstm_bptt_chain"] = row
+
+    # --- disc conv forward and backward-dX
+    emb_pad, w_all, b_all, banks = conv_inputs(device)
+    pooled_k, idx_k = disc_conv.conv_bank_forward(emb_pad, w_all, b_all,
+                                                  banks, DISC_R, 1)
+    torch.cuda.synchronize()
+    pooled_p, idx_p = disc_conv.conv_relu_maxpool_plain(
+        emb_pad, w_all, b_all, banks, DISC_R, 1)
+    x = emb_pad[:, None, :T, :]
+    idx_bad = ties = 0
+    off = 0
+    for (n, f), ik, ip in zip(banks, idx_k, idx_p):
+        z = torch.relu(torch.nn.functional.conv2d(
+            x, w_all[off:off + n, :f].reshape(n, 1, f, 1),
+            b_all[off:off + n]))                            # [B, n, lv, R]
+        top2 = z.topk(2, dim=2).values
+        clear = ((top2[:, :, 0] - top2[:, :, 1]) > TIE_GAP).transpose(1, 2)
+        live = pooled_p[..., off:off + n] > 0
+        ties += int((live & ~clear).sum())
+        idx_bad += int(((ik != ip) & live & clear).sum())
+        off += n
+    row = {"max_abs_pooled_diff": float((pooled_k - pooled_p).abs().max()),
+           "max_pooled": float(pooled_p.max()),
+           "idx_mismatch_outside_ties": idx_bad, "near_ties": ties,
+           "live_share": float((pooled_p > 0).double().mean())}
+    emit({"phase": "train_kernels", "kernel": "disc_conv_fwd", **row})
+    check(row["max_abs_pooled_diff"] <= POOL_ATOL and idx_bad == 0,
+          f"disc conv forward {row}")
+    out["disc_conv_fwd"] = row
+
+    dpms, off = [], 0
+    for i, (n, _) in enumerate(banks):
+        dp = seeded((B, DISC_R, n), 70 + i, device)
+        dpms.append(torch.where(pooled_k[..., off:off + n] > 0, dp,
+                                torch.zeros((), device=device)).contiguous())
+        off += n
+    d_emb_k, dw_k = disc_conv.conv_bank_backward(emb_pad, w_all, banks,
+                                                 DISC_R, 1, idx_k, dpms)
+    torch.cuda.synchronize()
+    d_emb_p, dw_p = disc_conv.conv_bwd_dx_plain(emb_pad, w_all, banks,
+                                                DISC_R, 1, idx_k, dpms)
+    row = {"dw_rel": float((dw_k - dw_p).abs().max() / dw_p.abs().max()),
+           "max_abs_dx_diff": float((d_emb_k - d_emb_p).abs().max()),
+           "max_abs_dx": float(d_emb_p.abs().max())}
+    emit({"phase": "train_kernels", "kernel": "disc_conv_bwd_dx", **row})
+    check(row["dw_rel"] <= DW_RTOL, f"disc conv backward dW {row}")
+    check(row["max_abs_dx_diff"] <= DX_ATOL * max(1.0, row["max_abs_dx"]),
+          f"disc conv backward dX {row}")
+    out["disc_conv_bwd_dx"] = row
+    return out
+
+
+def phase_train_kernel_timing(dec, device):
+    """Each training kernel's time (CUDA events) at B = 64 beside its plain
+    version's and its bound, in turns (plain, kernel, kernel, plain)."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample_resid, decode_sample_resid_plain)
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain, lstm_bptt_chain_plain)
+
+    B = B_TRAIN
+    feats = seeded((B, E), 64, device)
+    args = decode_args(dec, feats)
+    u = torch.rand((T, B, V), generator=torch.Generator(
+        device=device).manual_seed(5), device=device)
+    _, _, _, cs, gates = decode_sample_resid(*args, seed=3, temperature=TEMP)
+    layers = dec.lstm.layers()
+    w_hhs = torch.stack([lp["w_hh"].T for lp in layers]).contiguous()
+    w_ihs = torch.stack([lp["w_ih"].T for lp in layers[1:]]).contiguous()
+    d_hs = seeded((T, B, H), 65, device)
+    emb_pad, w_all, b_all, banks = conv_inputs(device)
+    pooled, idxs = disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
+                                               DISC_R, 1)
+    dpms, off = [], 0
+    for i, (n, _) in enumerate(banks):
+        dpms.append(torch.where(pooled[..., off:off + n] > 0,
+                                seeded((B, DISC_R, n), 70 + i, device),
+                                torch.zeros((), device=device)).contiguous())
+        off += n
+
+    cases = {
+        "decode_sample_resid": (
+            lambda: decode_sample_resid(*args, seed=3, temperature=TEMP),
+            lambda: decode_sample_resid_plain(*args, u, TEMP),
+            resid_work(B), 10, 3),
+        "lstm_bptt_chain": (
+            lambda: lstm_bptt_chain(w_hhs, w_ihs, d_hs, gates, cs),
+            lambda: lstm_bptt_chain_plain(w_hhs, w_ihs, d_hs, gates, cs),
+            chain_work(B), 10, 3),
+        "disc_conv_fwd": (
+            lambda: disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
+                                                DISC_R, 1),
+            lambda: disc_conv.conv_relu_maxpool_plain(emb_pad, w_all, b_all,
+                                                      banks, DISC_R, 1),
+            conv_work(B), 50, 20),
+        "disc_conv_bwd_dx": (
+            lambda: disc_conv.conv_bank_backward(emb_pad, w_all, banks,
+                                                 DISC_R, 1, idxs, dpms),
+            lambda: disc_conv.conv_bwd_dx_plain(emb_pad, w_all, banks, DISC_R,
+                                                1, idxs, dpms),
+            conv_work(B, backward=True), 50, 20),
+    }
+    rows = {}
+    for name, (kern, plain, (nbytes, flops), k_reps, p_reps) in cases.items():
+        p_a = cuda_ms(plain, reps=p_reps)
+        k_a = cuda_ms(kern, reps=k_reps)
+        k_b = cuda_ms(kern, reps=k_reps)
+        p_b = cuda_ms(plain, reps=p_reps)
+        b_ms, b_by = bound(nbytes, flops)
+        rows[name] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b],
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                      "flop": flops, "B": B}
+        emit({"phase": "train_timing", "kernel": name, **rows[name]})
+    return rows
+
+
+COUNTERS = ("decode_serve", "decode_sample_resid", "lstm_bptt_chain",
+            "disc_conv_fwd", "disc_conv_bwd_dx")
+MLE_STEPS, ADV_STEPS, DISC_EVERY = 3, 4, 2
+# launches per step by design: the MLE step runs one greedy decode; the
+# adversarial step one sample_resid decode, one BPTT chain, and a conv
+# forward and backward for each of its three discriminator passes
+PER_MLE_STEP = {"decode_serve": 1}
+PER_ADV_STEP = {"decode_sample_resid": 1, "lstm_bptt_chain": 1,
+                "disc_conv_fwd": 3, "disc_conv_bwd_dx": 3}
+LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
+
+
+def counters():
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_resid)
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain)
+
+    return dict(zip(COUNTERS, (decode_sample, decode_sample_resid,
+                               lstm_bptt_chain, disc_conv.conv_bank_forward,
+                               disc_conv.conv_bank_backward)))
+
+
+def train_setup(device):
+    """bench.py's config3 geometry in float32: the generator and
+    discriminator with un-swept initial weights from seed 0, and B = 64
+    captions of 30 random tokens in [4, 11000)."""
+    from gan_image_captioning_tpu_torch.config import Config
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import batch_to
+
+    config = Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                    gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN,
+                    disc_embed_dim=DISC_E, disc_num_rep=DISC_R,
+                    disc_filter_sizes=tuple(f for _, f in BANKS),
+                    disc_num_filters=tuple(n for n, _ in BANKS),
+                    disc_train_freq=DISC_EVERY)
+    disc = api.init_discriminator(torch.Generator().manual_seed(1), config,
+                                  device, sweep=False)
+    state = create_train_state(config, 0, device,
+                               gen=full_width_generator(device)
+                               .requires_grad_(True), disc=disc)
+    caps = [np.random.default_rng(i).integers(4, min(11000, V), size=30)
+            for i in range(B_TRAIN)]
+    return config, state, batch_to(make_batch(caps, None, T), device)
+
+
+def fed_noise(config, device, seed=9):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep_shape = (B_TRAIN * DISC_R, config.disc_feature_dim)
+    return {"uniforms": torch.rand((T, B_TRAIN, V), generator=gen,
+                                   device=device),
+            "keep": [torch.rand(keep_shape, generator=gen, device=device)
+                     < 0.8 for _ in range(3)]}
+
+
+def phase_train(device):
+    """3 MLE steps, then 4 adversarial steps (disc_train_freq 2,
+    temperature 10) through the entry points, with the launch counts; then
+    one adversarial step through the kernels against the same step
+    through the plain versions, on the same state and fed noise."""
+    from gan_image_captioning_tpu_torch.train.steps import (
+        adv_grads, make_adv_step, make_mle_step)
+
+    config, state, batch = train_setup(device)
+    before = {k: v.detach().clone() for m in (state.gen, state.disc)
+              for k, v in m.state_dict().items()}
+    mle, adv = make_mle_step(config), make_adv_step(config)
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(MLE_STEPS):
+        state, m = mle(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for _ in range(ADV_STEPS):
+        state, m = adv(state, batch, TEMP)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    expected = {k: MLE_STEPS * PER_MLE_STEP.get(k, 0)
+                + ADV_STEPS * PER_ADV_STEP.get(k, 0) for k in COUNTERS}
+    after = {k: v for m in (state.gen, state.disc)
+             for k, v in m.state_dict().items()}
+    moved = {k: float((after[k] - before[k]).abs().max()) for k in before}
+    row = {"metrics": metrics, "launches": launches,
+           "expected_launches": expected, "seconds": seconds,
+           "gen_steps": state.gen_steps, "disc_steps": state.disc_steps,
+           "params_unmoved": [k for k, d in moved.items() if d == 0.0]}
+    emit({"phase": "train", **row})
+    check(all(math.isfinite(x) for m in metrics for x in m.values()),
+          "non-finite training metric")
+    check(not row["params_unmoved"], f"params that did not move: "
+          f"{row['params_unmoved']}")
+    check(state.disc_steps == 2 and state.gen_steps == ADV_STEPS,
+          f"counters {state.gen_steps}, {state.disc_steps}")
+    check(launches == expected, f"launches {launches} != {expected}")
+
+    # kernels against plain versions, one adversarial step, fed noise.  The
+    # plain route pools at the kernel route's argmax rows (each within
+    # TIE_GAP of the plain max), as the decode check teacher-forces on the
+    # kernel's ids: without that, a near-tie that the two routes break
+    # differently moves a whole d_emb column.  The comparison without the
+    # replay is reported too.
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+
+    noise = fed_noise(config, device)
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    with disc_conv.argmax_record() as rows:
+        kern = adv_grads(config, state, batch, TEMP, noise)
+    with disc_conv.argmax_replay(rows) as report:
+        plain = adv_grads(plain_cfg, state, batch, TEMP, noise)
+    free = adv_grads(plain_cfg, state, batch, TEMP, noise)
+    cmp = {"replayed": compare_grads(kern, plain),
+           "not_replayed": compare_grads(kern, free),
+           "argmax_gap": max(g for g, _ in report),
+           "argmax_moved": [m for _, m in report]}
+    emit({"phase": "train", "kernels_vs_plain": cmp})
+    rep = cmp["replayed"]
+    check(rep["ids_equal"], "the routes sampled different ids")
+    check(cmp["argmax_gap"] <= TIE_GAP, f"argmax gap {cmp['argmax_gap']}")
+    for name in ("g_loss", "d_loss"):
+        a, b = rep[name]
+        check(abs(a - b) <= LOSS_RTOL * abs(b), f"{name} {a} vs {b}")
+    worst = sorted(rep["grad_rel_err"].items(), key=lambda kv: -kv[1])[:5]
+    check(rep["max_grad_rel_err"] <= GRAD_RTOL, f"gradients: {worst}")
+    row["kernels_vs_plain"] = cmp
+    return row, (config, state, batch)
+
+
+def compare_grads(a, b):
+    """Losses and per-tensor gradient error (max |a - b| over max |b|) of
+    two ``adv_grads`` results."""
+    errs = {}
+    for side, ga, gb in (("gen", a[2], b[2]), ("disc", a[3], b[3])):
+        for k in ga:
+            scale = float(gb[k].abs().max())
+            errs[f"{side}.{k}"] = (float((ga[k] - gb[k]).abs().max())
+                                   / max(scale, 1e-30))
+    return {"g_loss": [float(a[0]), float(b[0])],
+            "d_loss": [float(a[1]), float(b[1])],
+            "ids_equal": bool(torch.equal(a[4]["gen_ids"], b[4]["gen_ids"])),
+            "grad_rel_err": errs, "max_grad_rel_err": max(errs.values())}
+
+
+def step_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_train_step_timing(device, setup):
+    """ms per MLE and adversarial step (host clock, synchronised), the
+    kernel route against the plain route, in turns."""
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    config, state, batch = setup
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    out = {}
+    for kind in ("mle", "adv"):
+        fns = {}
+        for route, cfg in (("kernel", config), ("plain", plain_cfg)):
+            if kind == "mle":
+                step = make_mle_step(cfg)
+                fns[route] = lambda step=step: step(state, batch)
+            else:
+                step = make_adv_step(cfg)
+                fns[route] = lambda step=step: step(state, batch, TEMP)
+        p_a = step_ms(fns["plain"], 3)
+        k_a = step_ms(fns["kernel"], 5)
+        k_b = step_ms(fns["kernel"], 5)
+        p_b = step_ms(fns["plain"], 3)
+        out[kind] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b]}
+        emit({"phase": "train_timing", "step": kind, "B": B_TRAIN,
+              **out[kind]})
+    return out
+
+
+KERNEL_NAMES = ("lstm_layer_kernel", "proj_sample_kernel",
+                "sample_finalize_kernel", "proj_kernel", "finalize_kernel",
+                "gate_grad_kernel", "carry_kernel", "conv_fwd_kernel",
+                "conv_bwd_kernel")
+
+
+def phase_train_profile(device, setup, steps=3):
+    """Device time by kernel (torch.profiler) over 3 adversarial steps of
+    the kernel route, and the device's busy share of their wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_image_captioning_tpu_torch.train.steps import make_adv_step
+
+    config, state, batch = setup
+    step = make_adv_step(config)
+    step(state, batch, TEMP)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, batch, TEMP)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    us, count = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        key = next((n for n in KERNEL_NAMES if n in ev.key), ev.key[:60])
+        us[key] = us.get(key, 0.0) + ev.self_device_time_total / steps
+        count[key] = count.get(key, 0) + ev.count / steps
+    if not us:
+        row = {"device_time": "not measured"}
+    else:
+        busy = sum(us.values()) * steps
+        ours = sum(v for k, v in us.items() if k in KERNEL_NAMES)
+        top = sorted(us.items(), key=lambda kv: -kv[1])[:16]
+        row = {"device_us_per_step": dict(top),
+               "launches_per_step": {k: count[k] for k, _ in top},
+               "other_us_per_step": sum(us.values()) - sum(v for _, v in top),
+               "hand_written_share": ours / sum(us.values()),
+               "device_busy_share": busy / wall_us,
+               "wall_ms_per_step": wall_us / steps / 1e3}
+    emit({"phase": "train_profile", "B": B_TRAIN, **row})
+    return row
+
+
+def kernel_entries(smi, train_kernel_rows, train_times, launches):
+    """The four training kernels' entries of the ``kernels`` line."""
+    errs = {"decode_sample_resid": train_kernel_rows["decode_sample_resid"][
+                "max_abs_soft_diff"],
+            "lstm_bptt_chain": train_kernel_rows["lstm_bptt_chain"][
+                "max_abs_diff"],
+            "disc_conv_fwd": train_kernel_rows["disc_conv_fwd"][
+                "max_abs_pooled_diff"],
+            "disc_conv_bwd_dx": train_kernel_rows["disc_conv_bwd_dx"][
+                "max_abs_dx_diff"]}
+    out = []
+    for name, tpu in TRAIN_TPU_KERNELS.items():
+        t = train_times[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      + TRAIN_SOURCES[name],
+            "replaces": tpu, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": min(t["kernel_ms"]),
+            "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "B": t["B"],
+            "card": smi})
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases to run (default: all; "
+                             "the kernels line and the last line need all)")
+    only = set(filter(None, parser.parse_args(argv).only.split(",")))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on a CUDA card", file=sys.stderr)
@@ -362,6 +948,9 @@ def main():
     # the port must be importable before anything is printed: a copy of
     # this script without the repository fails here
     import gan_image_captioning_tpu_torch  # noqa: F401
+
+    def run(phase):
+        return not only or phase in only
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -371,6 +960,18 @@ def main():
     smi = phase_device()
     phase_build()
     gen = full_width_generator(device)
+    if run("train_kernels"):
+        train_kernel_rows = phase_train_kernels(gen.decoder, device)
+    if run("train_timing"):
+        train_times = phase_train_kernel_timing(gen.decoder, device)
+    if run("train"):
+        train_row, setup = phase_train(device)
+        if run("train_timing"):
+            phase_train_step_timing(device, setup)
+        if run("train_profile"):
+            phase_train_profile(device, setup)
+    if only:
+        return 0
     kernel_rows = phase_kernel(gen.decoder, device)
     service = phase_service(gen, workdir)
     times = phase_timing(gen.decoder, device, workdir)
@@ -392,7 +993,9 @@ def main():
         "ids_equal": {str(r["B"]): r["ids_equal"] for r in kernel_rows},
         "max_abs_lp_diff": {str(r["B"]): r["max_abs_lp_diff"]
                             for r in kernel_rows},
-        "card": smi}]})
+        "train_launches": train_row["launches"]["decode_serve"],
+        "card": smi}] + kernel_entries(smi, train_kernel_rows, train_times,
+                                       train_row["launches"])})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,8 @@ from gan_image_captioning_tpu_torch.data.vocab import END
 from gan_image_captioning_tpu_torch.kernels.decode_sample import decode_sample
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models import lstm as lstm_lib
-from gan_image_captioning_tpu_torch.models.generator import Generator
+from gan_image_captioning_tpu_torch.models.generator import (Generator,
+                                                            greedy_ids)
 
 
 @torch.no_grad()
@@ -25,9 +26,8 @@ def greedy(generator: Generator, features, config: Config,
            seq_len: int = None):
     """Deterministic greedy decode → ids [B, T] int32."""
     seq_len = seq_len or config.seq_len
-    cond = {"features": features, "context": None}
-    _, ids = api.generator_sample(generator, cond, seq_len, True, config)
-    return ids
+    api.require_ported(config)
+    return greedy_ids(generator.decoder, features, seq_len)
 
 
 def kernel_serve_available(features) -> bool:

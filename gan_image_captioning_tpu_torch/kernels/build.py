@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 build happens at first use, into ``build/gic_torch_kernels/`` beside the
 package (``.gitignore`` lists ``build/``).  The library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.  Nothing is built when a module is imported.
+a hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source is rebuilt and a stale library is never loaded.  Nothing
+is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count as source of every library
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
@@ -75,8 +78,37 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built if needed.  Every
+    library exports ``gic_error_string(int) -> const char*``."""
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(build([name])[name]))
+            lib.gic_error_string.argtypes = [ctypes.c_int]
+            lib.gic_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
         return _LIBS[name]
+
+
+def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel failed: CUDA error {rc} "
+                           f"({lib.gic_error_string(rc).decode()})")
+
+
+def check_tensor(fn: str, name: str, t, shape, device, dtype=None) -> None:
+    """What every kernel wrapper asks of a tensor before it passes a
+    pointer: ``device``, ``dtype`` (float32 unless given), ``shape`` and
+    contiguity.  TypeError for the dtype, ValueError otherwise."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")

@@ -1,43 +1,55 @@
-// Greedy serve-mode LSTM decode for Hopper (sm_90a), float32.
+// Stacked-LSTM free-running decode for Hopper (sm_90a), float32: the greedy
+// serve mode and the Gumbel-softmax sample mode with BPTT residuals.
 //
 // Replaces: gan_image_captioning_tpu/kernels/decode_sample.py, function
-// `_kernel` in modes "serve" and "greedy" (launched by `decode_sample`).
-// Per step t of T, for a batch of B rows:
+// `_kernel` in modes "serve", "greedy" and "sample_resid" (launched by
+// `decode_sample`).  Per step t of T, for a batch of B rows:
 //   gates_l = [x | h_l] @ [w_ih_l | w_hh_l]^T + (b_ih_l + b_hh_l)  (i, f, g, o)
 //   c_l = f*c_l + i*g ;  h_l = o*tanh(c_l) ;  x = h_l            (per layer)
 //   logits = h_top @ w_proj^T + b_proj
+// serve:
 //   ids[b, t] = argmax(logits)             (first index on ties)
 //   lps[b, t] = -log(sum(exp(logits - max)))
-//   x = embed[ids[:, t]]                   (next step's input)
+// sample_resid:
+//   u ~ U[0, 1) per (t, b, v): Philox4x32-10 keyed by the seed, counter
+//       (v, b, t, 0), top 24 bits of the first word times 2^-24 (the TPU
+//       kernel's construction from 32 random bits); or read from `u_in`
+//   g = -log(-log(u + 1e-10) + 1e-10) ;  s = logits + g
+//   ids[b, t] = argmax(s)                  (unscaled, first index on ties)
+//   soft[t, b] = softmax(temp * s)
+//   hs/cs[t, l], gates[t, l] = h_l, c_l and the pre-activation gates (both
+//   biases) of every layer: the residuals of the manual backward
+// and in both modes  x = embed[ids[:, t]]  is the next step's input.
 //
-// What bounds it on this card.  At the serving width (E = H = 512, two
-// layers, V = 11008, T = 36) one decode does 2*B*T*(2*4H*(E+H) + V*H)
-// float operations, 5.66 GFLOP at B = 8, and reads about 39 MB of weights
-// once (16.8 MB of LSTM weights, 22.5 MB of projection).  Without tensor
-// cores (float32) the operations bound it: 5.66 GFLOP at 67 TFLOP/s is
-// about 0.08 ms, against 0.012 ms for the bytes at 3.35 TB/s.  But the
-// steps are sequential and each needs every weight again, so a design that
-// streams the weights once per step moves 36 * 39 MB = 1.4 GB, about
-// 0.42 ms from device memory unless the 50 MB L2 keeps them; and each step
-// is a chain of small launches, so launch latency adds up at small B.
+// What bounds it on this card.  At the training width (E = H = 512, two
+// layers, V = 11008, T = 36, B = 64) one decode does 2*B*T*(2*4H*(E+H) +
+// V*H) = 45.3 GFLOP; without tensor cores (float32, 67 TFLOP/s) that is
+// 0.68 ms, against 0.06 ms for the bytes (39 MB of weights read once, the
+// 101 MB soft sample and 57 MB of residuals written once).  But the steps
+// are sequential, each needs every weight again, and each step is a chain
+// of small launches, so per-launch latency adds up.
 //
 // What this design does about it.  It is the simple version: the time loop
-// runs on the host inside one C call (gic_decode_serve) on the caller's
-// stream, with nl + 2 launches per step:
+// runs on the host inside one C call on the caller's stream, with nl + 2
+// launches per step:
 //   * lstm_layer_kernel: a block owns 4 hidden units (16 gate rows, read in
 //     place from the torch-layout weights) and 32 batch rows; it computes
 //     the gate tile as a register-tiled product over K = In + H in K tiles
-//     of 32 (shared memory stays at 8 KB whatever B is), prefetching the
-//     next tile into registers, then updates c in place (float32) and
-//     writes h into the other half of a ping-pong buffer, because every
-//     block reads the old h of all units.
-//   * proj_kernel: a block owns 64 vocabulary rows and 32 batch rows; it
-//     emits per (row, tile) the tile's max, its first argmax and
-//     sum(exp(l - tile max)).
-//   * finalize_kernel: one block per row combines the tiles into the
-//     global max and first index (lowest tile, then lowest lane), writes
-//     ids and lps, and gathers embed[id] into x.  The TPU kernel's one-hot
-//     matrix product is a TPU artefact; the gather gives the same values.
+//     of 32 (shared memory stays at 8 KB whatever B is), then updates c in
+//     place (float32) and writes h into the other half of a ping-pong
+//     buffer, because every block reads the old h of all units.  In sample
+//     mode it also writes the residuals; with null residual pointers it is
+//     the serve kernel unchanged.
+//   * proj_kernel (serve) / proj_sample_kernel: a block owns 64 vocabulary
+//     rows and 32 batch rows and emits per (row, tile) the statistics its
+//     finalize needs: the tile's max, first argmax and sum(exp(l - max))
+//     of the logits (serve); the max and first argmax of s, and the max
+//     and sum(exp(z - max)) of z = temp * s, with z stored into soft (sample).
+//   * finalize_kernel / sample_finalize_kernel: one block per row combines
+//     the tiles (global max, lowest tile then lowest lane on ties), writes
+//     ids (and lps), normalises the row of soft across all tiles (sample)
+//     and gathers embed[id] into x.  The TPU kernel's one-hot matrix
+//     product is a TPU artefact; the gather gives the same values.
 // Weights are re-read every step (from L2 when they stay there).  Keeping
 // them on chip across steps (one persistent kernel with a grid barrier),
 // wgmma and bf16 are later work.
@@ -46,9 +58,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tile_dot.cuh"
+
 namespace {
 
-constexpr int KT = 32;  // depth of one K tile
+using gic::KT;
+using gic::sigmoidf;
+using gic::tile_dot;
 
 // LSTM layer tile: JT hidden units -> 4*JT gate rows, L_BT batch rows.
 constexpr int JT = 4;
@@ -60,6 +76,8 @@ constexpr int P_RT = 64, P_BT = 32, P_TR = 4, P_TB = 2;
 constexpr int P_NT = (P_RT / P_TR) * (P_BT / P_TB);  // 256 threads
 
 constexpr int F_NT = 128;  // finalize threads per row
+
+constexpr float GUMBEL_EPS = 1e-10f;  // the reference's add_gumbel eps
 
 // Gate row of local row r = g*JT + u: rows j, H+j, 2H+j, 3H+j of the
 // torch-layout [4H, K] weights for hidden unit j = j0 + u; -1 past H.
@@ -79,91 +97,42 @@ struct ProjRows {
   }
 };
 
-// acc[i][j] = sum_k W(row(tr + i*NR))[k] * X(b0 + tb + j*NB)[k], where
-// W(R)[k] = k < K0 ? w0[R*K0 + k] : w1[R*K1 + k - K0] and X likewise from
-// x0 [B, K0] and x1 [B, K1].  Rows past the edge and batch rows >= B read
-// zeros.  One K tile of W and X lives in shared memory; the next one is
-// loaded into registers while the current one is consumed.
-template <int RT, int BT, int TR, int TB, class Rows>
-__device__ __forceinline__ void tile_dot(
-    Rows rows, const float* __restrict__ w0, const float* __restrict__ w1,
-    const float* __restrict__ x0, const float* __restrict__ x1, int K0,
-    int K1, int b0, int B, float (&acc)[TR][TB], float (*Ws)[KT + 1],
-    float (*Xs)[KT + 1]) {
-  constexpr int NR = RT / TR, NB = BT / TB, NT = NR * NB;
-  constexpr int WPT = RT * KT / NT, XPT = BT * KT / NT;
-  static_assert(RT * KT % NT == 0 && BT * KT % NT == 0, "tile split");
-  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
-  const int K = K0 + K1;
-  float wreg[WPT], xreg[XPT];
-
-  auto load = [&](int k0) {
+// Philox4x32-10 (Salmon et al., SC'11), first output word.
+__device__ __forceinline__ uint32_t philox_x(uint32_t c0, uint32_t c1,
+                                             uint32_t c2, uint32_t c3,
+                                             uint32_t k0, uint32_t k1) {
 #pragma unroll
-    for (int n = 0; n < WPT; ++n) {
-      const int e = tid + n * NT, r = e / KT, k = k0 + e % KT;
-      const int R = rows(r);
-      float v = 0.f;
-      if (R >= 0 && k < K)
-        v = k < K0 ? w0[(size_t)R * K0 + k] : w1[(size_t)R * K1 + (k - K0)];
-      wreg[n] = v;
-    }
-#pragma unroll
-    for (int n = 0; n < XPT; ++n) {
-      const int e = tid + n * NT, b = b0 + e / KT, k = k0 + e % KT;
-      float v = 0.f;
-      if (b < B && k < K)
-        v = k < K0 ? x0[(size_t)b * K0 + k] : x1[(size_t)b * K1 + (k - K0)];
-      xreg[n] = v;
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TB; ++j) acc[i][j] = 0.f;
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += KT) {
-#pragma unroll
-    for (int n = 0; n < WPT; ++n) {
-      const int e = tid + n * NT;
-      Ws[e / KT][e % KT] = wreg[n];
-    }
-#pragma unroll
-    for (int n = 0; n < XPT; ++n) {
-      const int e = tid + n * NT;
-      Xs[e / KT][e % KT] = xreg[n];
-    }
-    __syncthreads();
-    if (k0 + KT < K) load(k0 + KT);
-#pragma unroll 8
-    for (int kk = 0; kk < KT; ++kk) {
-      float wv[TR], xv[TB];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) wv[i] = Ws[tr + i * NR][kk];
-#pragma unroll
-      for (int j = 0; j < TB; ++j) xv[j] = Xs[tb + j * NB][kk];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TB; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
   }
+  return c0;
 }
 
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.f / (1.f + expf(-v));
+__device__ __forceinline__ float philox_uniform(uint64_t seed, int t, int b,
+                                                int v) {
+  const uint32_t bits = philox_x((uint32_t)v, (uint32_t)b, (uint32_t)t, 0u,
+                                 (uint32_t)seed, (uint32_t)(seed >> 32));
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);
 }
 
 // One layer of one step: gates for hidden units [j0, j0+JT) and batch rows
 // [b0, b0+L_BT), then the cell update.  c is updated in place; h goes to
 // h_next (the other ping-pong half) because other blocks still read h_prev.
+// hs_out / cs_out [B, H] and gates_out [B, 4H] (this step's and layer's
+// residual slices) are written when not null.
 __global__ void __launch_bounds__(L_NT) lstm_layer_kernel(
     const float* __restrict__ w_ih, const float* __restrict__ w_hh,
     const float* __restrict__ bias, const float* __restrict__ x, int In,
     const float* __restrict__ h_prev, float* __restrict__ h_next,
-    float* __restrict__ c, int B, int H) {
+    float* __restrict__ c, int B, int H, float* __restrict__ hs_out,
+    float* __restrict__ cs_out, float* __restrict__ gates_out) {
   __shared__ float Ws[L_RT][KT + 1];
   __shared__ float Xs[L_BT][KT + 1];
   __shared__ float Gs[L_RT][L_BT + 1];
@@ -183,14 +152,26 @@ __global__ void __launch_bounds__(L_NT) lstm_layer_kernel(
   for (int e = tid; e < JT * L_BT; e += L_NT) {
     const int u = e % JT, bl = e / JT, j = j0 + u, b = b0 + bl;
     if (j >= H || b >= B) continue;
-    const float gi = sigmoidf(Gs[0 * JT + u][bl] + bias[0 * H + j]);
-    const float gf = sigmoidf(Gs[1 * JT + u][bl] + bias[1 * H + j]);
-    const float gg = tanhf(Gs[2 * JT + u][bl] + bias[2 * H + j]);
-    const float go = sigmoidf(Gs[3 * JT + u][bl] + bias[3 * H + j]);
+    const float pi = Gs[0 * JT + u][bl] + bias[0 * H + j];
+    const float pf = Gs[1 * JT + u][bl] + bias[1 * H + j];
+    const float pg = Gs[2 * JT + u][bl] + bias[2 * H + j];
+    const float po = Gs[3 * JT + u][bl] + bias[3 * H + j];
+    const float gi = sigmoidf(pi), gf = sigmoidf(pf);
+    const float gg = tanhf(pg), go = sigmoidf(po);
     const size_t o = (size_t)b * H + j;
     const float cn = gf * c[o] + gi * gg;
+    const float hn = go * tanhf(cn);
     c[o] = cn;
-    h_next[o] = go * tanhf(cn);
+    h_next[o] = hn;
+    if (gates_out != nullptr) {
+      float* g = gates_out + (size_t)b * 4 * H + j;
+      g[0] = pi;
+      g[H] = pf;
+      g[2 * H] = pg;
+      g[3 * H] = po;
+      hs_out[o] = hn;
+      cs_out[o] = cn;
+    }
   }
 }
 
@@ -241,23 +222,87 @@ __global__ void __launch_bounds__(P_NT) proj_kernel(
   }
 }
 
-// One block per batch row: combine the vocabulary tiles, emit ids/lps for
-// step t, and gather the chosen embedding row as the next input.
-__global__ void __launch_bounds__(F_NT) finalize_kernel(
-    const float* __restrict__ pmax, const int* __restrict__ pidx,
-    const float* __restrict__ psum, int ntile,
-    const float* __restrict__ embed, int E, float* __restrict__ x,
-    int32_t* __restrict__ ids, float* __restrict__ lps, int t, int T) {
-  __shared__ float sm[F_NT];
-  __shared__ int si[F_NT];
-  __shared__ int s_id;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const size_t base = (size_t)b * ntile;
+// Sample-mode projection tile: s = logits + g with the Gumbel noise of
+// step t; per (row, tile) the max and first argmax of s and the max and
+// sum(exp(z - max)) of z = temp * s.  z goes into soft_t [B, V] (this
+// step's slice), which sample_finalize_kernel normalises.
+__global__ void __launch_bounds__(P_NT) proj_sample_kernel(
+    const float* __restrict__ w, const float* __restrict__ bias,
+    const float* __restrict__ h, int H, int V, int B, float temp,
+    unsigned long long seed, int t, const float* __restrict__ u_in,
+    float* __restrict__ u_out, float* __restrict__ soft_t,
+    float* __restrict__ psmax, int* __restrict__ psidx,
+    float* __restrict__ pzmax, float* __restrict__ pzsum, int ntile) {
+  __shared__ float Ws[P_RT][KT + 1];
+  __shared__ float Xs[P_BT][KT + 1];
+  __shared__ float Ls[P_BT][P_RT + 1];
+  constexpr int NR = P_RT / P_TR, NB = P_BT / P_TB;
+  const int v0 = blockIdx.x * P_RT, b0 = blockIdx.y * P_BT;
+  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
 
+  float acc[P_TR][P_TB];
+  tile_dot<P_RT, P_BT, P_TR, P_TB>(ProjRows{v0, V}, w, nullptr, h, nullptr,
+                                   H, 0, b0, B, acc, Ws, Xs);
+#pragma unroll
+  for (int i = 0; i < P_TR; ++i) {
+    const int r = tr + i * NR, v = v0 + r;
+    const float bv = v < V ? bias[v] : 0.f;
+#pragma unroll
+    for (int j = 0; j < P_TB; ++j) {
+      const int b = b0 + tb + j * NB;
+      float s = 0.f;
+      if (v < V && b < B) {
+        const size_t o = ((size_t)t * B + b) * V + v;
+        const float u = u_in != nullptr ? u_in[o] : philox_uniform(seed, t, b, v);
+        if (u_out != nullptr) u_out[o] = u;
+        const float g = -logf(-logf(u + GUMBEL_EPS) + GUMBEL_EPS);
+        s = (acc[i][j] + bv) + g;
+      }
+      Ls[tb + j * NB][r] = s;
+    }
+  }
+  __syncthreads();
+
+  const int n = min(P_RT, V - v0);
+  // z = temp * s into soft_t, coalesced along the vocabulary.  z is
+  // rounded once (__fmul_rn: no contraction into the subtractions below),
+  // so the statistics and the normalising pass see the same z.
+  for (int e = tid; e < P_BT * P_RT; e += P_NT) {
+    const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
+    if (b < B && r < n)
+      soft_t[(size_t)b * V + v0 + r] = __fmul_rn(temp, Ls[bl][r]);
+  }
+  if (tid < P_BT && b0 + tid < B) {
+    const int bl = tid, b = b0 + tid;
+    float sm = -INFINITY, zm = -INFINITY;
+    int arg = -1;
+    for (int r = 0; r < n; ++r) {
+      const float s = Ls[bl][r];
+      if (s > sm) {  // strict: the first maximum wins
+        sm = s;
+        arg = v0 + r;
+      }
+      zm = fmaxf(zm, __fmul_rn(temp, s));
+    }
+    float zs = 0.f;
+    for (int r = 0; r < n; ++r) zs += expf(__fmul_rn(temp, Ls[bl][r]) - zm);
+    const size_t o = (size_t)b * ntile + blockIdx.x;
+    psmax[o] = sm;
+    psidx[o] = arg;
+    pzmax[o] = zm;
+    pzsum[o] = zs;
+  }
+}
+
+// Block-wide first-index argmax over the row's tiles: the global max of
+// pmax and the lowest tile that reaches it.  Returns the tile (-1 if none).
+__device__ int block_first_argmax(const float* __restrict__ pmax, int ntile,
+                                  float* sm, int* si) {
+  const int tid = threadIdx.x;
   float m = -INFINITY;
   int best = -1;
   for (int i = tid; i < ntile; i += F_NT) {  // ascending i: first max kept
-    const float v = pmax[base + i];
+    const float v = pmax[i];
     if (v > m) {
       m = v;
       best = i;
@@ -279,23 +324,50 @@ __global__ void __launch_bounds__(F_NT) finalize_kernel(
     }
     __syncthreads();
   }
-  m = sm[0];
   best = si[0];
   __syncthreads();
+  return best;
+}
 
+// Block-wide sum over the row's tiles of psum * exp(pmax - m).
+__device__ float block_rescaled_sum(const float* __restrict__ pmax,
+                                    const float* __restrict__ psum, int ntile,
+                                    float m, float* sm) {
+  const int tid = threadIdx.x;
   float acc = 0.f;
-  for (int i = tid; i < ntile; i += F_NT)
-    acc += psum[base + i] * expf(pmax[base + i] - m);
+  for (int i = tid; i < ntile; i += F_NT) acc += psum[i] * expf(pmax[i] - m);
   sm[tid] = acc;
   __syncthreads();
   for (int s = F_NT / 2; s > 0; s >>= 1) {
     if (tid < s) sm[tid] += sm[tid + s];
     __syncthreads();
   }
+  const float total = sm[0];
+  __syncthreads();
+  return total;
+}
+
+// One block per batch row: combine the vocabulary tiles, emit ids/lps for
+// step t, and gather the chosen embedding row as the next input.
+__global__ void __launch_bounds__(F_NT) finalize_kernel(
+    const float* __restrict__ pmax, const int* __restrict__ pidx,
+    const float* __restrict__ psum, int ntile,
+    const float* __restrict__ embed, int E, float* __restrict__ x,
+    int32_t* __restrict__ ids, float* __restrict__ lps, int t, int T) {
+  __shared__ float sm[F_NT];
+  __shared__ int si[F_NT];
+  __shared__ int s_id;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t base = (size_t)b * ntile;
+
+  const int best = block_first_argmax(pmax + base, ntile, sm, si);
+  const float m = best >= 0 ? pmax[base + best] : 0.f;
+  const float total = block_rescaled_sum(pmax + base, psum + base, ntile, m,
+                                         sm);
   if (tid == 0) {
     const int id = best >= 0 ? pidx[base + best] : 0;
     ids[(size_t)b * T + t] = id;
-    lps[(size_t)b * T + t] = -logf(sm[0]);
+    lps[(size_t)b * T + t] = -logf(total);
     s_id = id;
   }
   __syncthreads();
@@ -303,21 +375,117 @@ __global__ void __launch_bounds__(F_NT) finalize_kernel(
   for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
 }
 
+// Sample mode, one block per batch row: the first argmax of s over all
+// tiles -> ids[b, t] and the next input embed[id]; then soft_t[b] (z on
+// entry) becomes exp(z - M) / sum(exp(z - M)) with M the row max of z.
+__global__ void __launch_bounds__(F_NT) sample_finalize_kernel(
+    const float* __restrict__ psmax, const int* __restrict__ psidx,
+    const float* __restrict__ pzmax, const float* __restrict__ pzsum,
+    int ntile, const float* __restrict__ embed, int E, int V,
+    float* __restrict__ x, int32_t* __restrict__ ids,
+    float* __restrict__ soft_t, int t, int T) {
+  __shared__ float sm[F_NT];
+  __shared__ int si[F_NT];
+  __shared__ int s_id;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const size_t base = (size_t)b * ntile;
+
+  const int best = block_first_argmax(psmax + base, ntile, sm, si);
+  if (tid == 0) {
+    const int id = best >= 0 ? psidx[base + best] : 0;
+    ids[(size_t)b * T + t] = id;
+    s_id = id;
+  }
+  // the max of z: the max of the tile maxima (no tie rule needed)
+  float m = -INFINITY;
+  for (int i = tid; i < ntile; i += F_NT) m = fmaxf(m, pzmax[base + i]);
+  sm[tid] = m;
+  __syncthreads();
+  for (int s = F_NT / 2; s > 0; s >>= 1) {
+    if (tid < s) sm[tid] = fmaxf(sm[tid], sm[tid + s]);
+    __syncthreads();
+  }
+  m = sm[0];
+  __syncthreads();
+  const float total = block_rescaled_sum(pzmax + base, pzsum + base, ntile,
+                                         m, sm);
+  float* row_soft = soft_t + (size_t)b * V;
+  for (int v = tid; v < V; v += F_NT)
+    row_soft[v] = expf(row_soft[v] - m) / total;
+  const float* row = embed + (size_t)s_id * E;
+  for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
+}
+
+struct Residuals {
+  float* hs;     // [T, nl, B, H]
+  float* cs;     // [T, nl, B, H]
+  float* gates;  // [T, nl, B, 4H]
+};
+
+// The stacked LSTM of step t (nl launches); residuals when res != null.
+cudaError_t lstm_step(const void* const* layer_ptrs, int nl, int B, int E,
+                      int H, int t, const float* x, float* h, float* c,
+                      const Residuals* res, cudaStream_t s) {
+  const size_t layer_state = (size_t)B * H;
+  const dim3 grid((H + JT - 1) / JT, (B + L_BT - 1) / L_BT);
+  const float* hp = h + (size_t)(t % 2) * nl * layer_state;
+  float* hn = h + (size_t)((t + 1) % 2) * nl * layer_state;
+  for (int l = 0; l < nl; ++l) {
+    const float* w_ih = static_cast<const float*>(layer_ptrs[3 * l]);
+    const float* w_hh = static_cast<const float*>(layer_ptrs[3 * l + 1]);
+    const float* bias = static_cast<const float*>(layer_ptrs[3 * l + 2]);
+    const float* in = l == 0 ? x : hn + (size_t)(l - 1) * layer_state;
+    float *hs = nullptr, *cs = nullptr, *gates = nullptr;
+    if (res != nullptr) {
+      const size_t tl = (size_t)t * nl + l;
+      hs = res->hs + tl * layer_state;
+      cs = res->cs + tl * layer_state;
+      gates = res->gates + tl * 4 * layer_state;
+    }
+    lstm_layer_kernel<<<grid, L_NT, 0, s>>>(
+        w_ih, w_hh, bias, in, l == 0 ? E : H, hp + l * layer_state,
+        hn + l * layer_state, c + l * layer_state, B, H, hs, cs, gates);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// x = feats, h = c = 0.
+cudaError_t init_state(const float* feats, int B, int E, int H, int nl,
+                       float* x, float* h, float* c, cudaStream_t s) {
+  const size_t layer_state = (size_t)B * H;
+  cudaError_t err = cudaMemcpyAsync(x, feats, sizeof(float) * B * E,
+                                    cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(h, 0, sizeof(float) * 2 * nl * layer_state, s);
+  if (err != cudaSuccess) return err;
+  return cudaMemsetAsync(c, 0, sizeof(float) * nl * layer_state, s);
+}
+
+// h_top of step t: the top layer's half of the ping-pong buffer written
+// in that step.
+const float* top_h(const float* h, int nl, int B, int H, int t) {
+  const size_t layer_state = (size_t)B * H;
+  return h + (size_t)((t + 1) % 2) * nl * layer_state +
+         (size_t)(nl - 1) * layer_state;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Vocabulary rows per projection tile: the wrapper sizes the per-tile
-// scratch (pmax/pidx/psum [B, ceil(V / tile)]) with it.
+// scratch ([B, ceil(V / tile)] per statistic) with it.
 int gic_proj_tile(void) { return P_RT; }
 
 const char* gic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The whole T-step decode on `stream`.  layer_ptrs holds 3*nl device
-// pointers: w_ih [4H, In], w_hh [4H, H], bias = b_ih + b_hh [4H] per layer.
-// Scratch: x [B, E], h [2, nl, B, H], c [nl, B, H], pmax/pidx/psum
+// The whole T-step greedy decode on `stream`.  layer_ptrs holds 3*nl
+// device pointers: w_ih [4H, In], w_hh [4H, H], bias = b_ih + b_hh [4H] per
+// layer.  Scratch: x [B, E], h [2, nl, B, H], c [nl, B, H], pmax/pidx/psum
 // [B, ntile].  Outputs: ids, lps [B, T].  Returns 0 or the first CUDA
 // error code; nothing synchronises.
 int gic_decode_serve(const float* feats, const float* embed,
@@ -328,40 +496,58 @@ int gic_decode_serve(const float* feats, const float* embed,
                      float* lps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ntile = (V + P_RT - 1) / P_RT;
-  const size_t layer_state = (size_t)B * H;
-  cudaError_t err;
-
-  err = cudaMemcpyAsync(x, feats, sizeof(float) * B * E,
-                        cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(h, 0, sizeof(float) * 2 * nl * layer_state, s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(c, 0, sizeof(float) * nl * layer_state, s);
+  cudaError_t err = init_state(feats, B, E, H, nl, x, h, c, s);
   if (err != cudaSuccess) return err;
 
-  const dim3 lstm_grid((H + JT - 1) / JT, (B + L_BT - 1) / L_BT);
   const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
   for (int t = 0; t < T; ++t) {
-    const float* hp = h + (size_t)(t % 2) * nl * layer_state;
-    float* hn = h + (size_t)((t + 1) % 2) * nl * layer_state;
-    for (int l = 0; l < nl; ++l) {
-      const float* w_ih = static_cast<const float*>(layer_ptrs[3 * l]);
-      const float* w_hh = static_cast<const float*>(layer_ptrs[3 * l + 1]);
-      const float* bias = static_cast<const float*>(layer_ptrs[3 * l + 2]);
-      const float* in = l == 0 ? x : hn + (size_t)(l - 1) * layer_state;
-      lstm_layer_kernel<<<lstm_grid, L_NT, 0, s>>>(
-          w_ih, w_hh, bias, in, l == 0 ? E : H, hp + l * layer_state,
-          hn + l * layer_state, c + l * layer_state, B, H);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
-    proj_kernel<<<proj_grid, P_NT, 0, s>>>(
-        w_proj, b_proj, hn + (size_t)(nl - 1) * layer_state, H, V, B, pmax,
-        pidx, psum, ntile);
+    err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, nullptr, s);
+    if (err != cudaSuccess) return err;
+    proj_kernel<<<proj_grid, P_NT, 0, s>>>(w_proj, b_proj,
+                                           top_h(h, nl, B, H, t), H, V, B,
+                                           pmax, pidx, psum, ntile);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     finalize_kernel<<<B, F_NT, 0, s>>>(pmax, pidx, psum, ntile, embed, E, x,
                                        ids, lps, t, T);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return 0;
+}
+
+// The whole T-step Gumbel-softmax sample with BPTT residuals on `stream`.
+// Weights and x/h/c scratch as gic_decode_serve; per-tile scratch
+// psmax/psidx/pzmax/pzsum [B, ntile].  Noise: u_in [T, B, V] when not null,
+// else Philox keyed by `seed`; the uniforms used are copied to u_out
+// [T, B, V] when it is not null.  Outputs: ids [B, T], soft [T, B, V],
+// hs/cs [T, nl, B, H], gates [T, nl, B, 4H].
+int gic_decode_sample_resid(
+    const float* feats, const float* embed, const float* w_proj,
+    const float* b_proj, const void* const* layer_ptrs, int B, int E, int H,
+    int V, int nl, int T, float temp, unsigned long long seed,
+    const float* u_in, float* u_out, float* x, float* h, float* c,
+    float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
+    float* soft, float* hs, float* cs, float* gates, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ntile = (V + P_RT - 1) / P_RT;
+  cudaError_t err = init_state(feats, B, E, H, nl, x, h, c, s);
+  if (err != cudaSuccess) return err;
+
+  const Residuals res{hs, cs, gates};
+  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
+  for (int t = 0; t < T; ++t) {
+    err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, &res, s);
+    if (err != cudaSuccess) return err;
+    float* soft_t = soft + (size_t)t * B * V;
+    proj_sample_kernel<<<proj_grid, P_NT, 0, s>>>(
+        w_proj, b_proj, top_h(h, nl, B, H, t), H, V, B, temp, seed, t, u_in,
+        u_out, soft_t, psmax, psidx, pzmax, pzsum, ntile);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    sample_finalize_kernel<<<B, F_NT, 0, s>>>(psmax, psidx, pzmax, pzsum,
+                                              ntile, embed, E, V, x, ids,
+                                              soft_t, t, T);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

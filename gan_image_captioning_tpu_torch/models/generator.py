@@ -5,10 +5,12 @@
 ``decoder.lstm.weight_ih_l{k}``, ``decoder.linear.weight`` …) — the layout
 ``src/export_torch.py`` writes from a JAX checkpoint.
 
-:func:`sample` is the greedy (``pretrain=True``) branch of the JAX
-package's ``_sample_fused``: LSTM step → vocab projection → argmax →
-embedding feedback, as a Python loop.  It is the plain reference decode
-that the kernel path is held against.
+:func:`sample` is the free-running decode of the JAX package's
+``_sample_kernel``: ``pretrain`` gives greedy ids from the decode kernel
+and their differentiable teacher-forced logits; otherwise
+:func:`sample_soft` gives the Gumbel-softmax sample, whose gradient is the
+manual residual backward of ``_kernel_sample_soft`` through the BPTT
+kernel.  :func:`teacher_forced` is the reference's ``Decoder.forward``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ from torch import nn
 
 from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.data.vocab import START
+from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+    decode_sample, decode_sample_plain, decode_sample_resid,
+    decode_sample_resid_plain, seeded_uniforms)
+from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+    lstm_bptt_chain, lstm_bptt_chain_plain)
 from gan_image_captioning_tpu_torch.models import lstm
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
@@ -81,27 +88,156 @@ def start_token_features(decoder: Decoder, batch: int):
     return w[ids]
 
 
-@torch.no_grad()
-def sample(decoder: Decoder, features, seq_len: int, pretrain: bool = True):
-    """Greedy free-running decode → ``(logits [B, T, V], ids [B, T] int32)``.
+def _layer_dicts(flat, nl):
+    keys = ("w_ih", "w_hh", "b_ih", "b_hh")
+    return [dict(zip(keys, flat[4 * l:4 * l + 4])) for l in range(nl)]
 
-    Only the ``pretrain`` (no Gumbel noise) branch is ported."""
-    if not pretrain:
-        raise NotImplementedError("Gumbel-softmax sampling is not ported yet")
-    batch = features.shape[0]
-    fused = lstm.fuse_layer_params(decoder.lstm.layers())
-    state = lstm.zero_state(decoder.lstm.num_layers, batch,
-                            decoder.lstm.hidden_dim, features.dtype,
-                            features.device)
-    w, b = decoder.linear.weight, decoder.linear.bias
-    x = features
-    outs, ids = [], []
-    for _ in range(seq_len):
-        h_top, state = lstm.lstm_step(fused, x, state)
-        logits = h_top @ w.T + b
-        ids_t = torch.argmax(logits, dim=-1)         # first index on ties
-        outs.append(logits)
-        ids.append(ids_t)
-        x = decoder.embed.weight[ids_t]
-    return (torch.stack(outs, dim=1),
-            torch.stack(ids, dim=1).to(torch.int32))
+
+class _SampleSoft(torch.autograd.Function):
+    """Adversarial soft sample with a manual backward from the decode's
+    residuals — the JAX package's ``_kernel_sample_soft``.
+
+    Forward: one ``sample_resid`` decode gives the soft samples, the ids
+    and the per-layer h, c and pre-activation gates.  Backward: softmax
+    VJP → projection gradients as two products → the chained BPTT
+    recurrence (``lstm_bptt_chain``) → the deferred dW/db products → the
+    embedding scatter-add.  The argmax feedback carries no gradient, as in
+    the reference (``generator.py:75``)."""
+
+    @staticmethod
+    def forward(ctx, features, temperature, seed, uniforms, seq_len, plain,
+                embed, w_proj, b_proj, *lstm_flat):
+        nl = len(lstm_flat) // 4
+        layers = _layer_dicts(lstm_flat, nl)
+        if plain:
+            if uniforms is None:
+                uniforms = seeded_uniforms(
+                    seed, (seq_len, features.shape[0], embed.shape[0]),
+                    features.device)
+            ids, soft, hs, cs, gates = decode_sample_resid_plain(
+                features, layers, w_proj, b_proj, embed, seq_len, uniforms,
+                float(temperature))
+        else:
+            ids, soft, hs, cs, gates = decode_sample_resid(
+                features, layers, w_proj, b_proj, embed, seq_len, seed,
+                temperature, uniforms)
+        ctx.save_for_backward(features, embed, w_proj, ids, soft, hs, cs,
+                              gates, *lstm_flat)
+        ctx.temperature, ctx.plain, ctx.nl = float(temperature), plain, nl
+        ctx.mark_non_differentiable(ids)
+        return soft, ids
+
+    @staticmethod
+    def backward(ctx, d_soft, _d_ids):
+        features, embed, w_proj, ids, soft, hs, cs, gates, *lstm_flat = (
+            ctx.saved_tensors)
+        nl, T, B, V = ctx.nl, *soft.shape
+        H = hs.shape[-1]
+        layers = _layer_dicts(lstm_flat, nl)
+
+        # softmax VJP: soft = softmax(temp · (logits + g))
+        inner = (d_soft * soft).sum(dim=-1, keepdim=True)
+        d_logits = (d_soft - inner).mul_(soft).mul_(ctx.temperature)
+
+        # projection: logits = h_top @ W.T + b
+        d2 = d_logits.reshape(T * B, V)
+        d_w_proj = d2.T @ hs[:, nl - 1].reshape(T * B, H)
+        d_b_proj = d2.sum(dim=0)
+        d_hs = (d2 @ w_proj).reshape(T, B, H)
+        del d_logits, d2
+
+        # the stacked recurrence, then the deferred weight products
+        w_hhs = torch.stack([lp["w_hh"].T for lp in layers]).contiguous()
+        w_ihs = torch.stack([lp["w_ih"].T for lp in layers[1:]]
+                            or [w_hhs[0]]).contiguous()
+        chain = lstm_bptt_chain_plain if ctx.plain else lstm_bptt_chain
+        d_pre = chain(w_hhs, w_ihs, d_hs, gates, cs)       # [T, NL, B, 4H]
+        ids_tm = ids.T.long()                              # [T, B]
+        xs0 = torch.cat([features[None], embed[ids_tm[:-1]]])  # [T, B, E]
+        h_prev = torch.cat([hs.new_zeros(1, nl, B, H), hs[:-1]])
+        grads = []
+        for l, lp in enumerate(layers):
+            xs_l = xs0 if l == 0 else hs[:, l - 1]
+            in_dim = xs_l.shape[-1]
+            dl = d_pre[:, l].reshape(T * B, 4 * H)
+            xh = torch.cat([xs_l, h_prev[:, l]], dim=-1).reshape(T * B, -1)
+            dw_f = xh.T @ dl                               # [in+H, 4H]
+            db = dl.sum(dim=0)
+            grads += [dw_f[:in_dim].T, dw_f[in_dim:].T, db, db.clone()]
+
+        # layer-0 input path → the embedding scatter and the features
+        d_xs0 = d_pre[:, 0] @ layers[0]["w_ih"]            # [T, B, E]
+        d_embed = torch.zeros_like(embed).index_add_(
+            0, ids_tm[:-1].reshape(-1), d_xs0[1:].reshape(-1, embed.shape[1]))
+        return (d_xs0[0], None, None, None, None, None, d_embed, d_w_proj,
+                d_b_proj, *grads)
+
+
+def sample_soft(decoder: Decoder, features, seq_len: int, temperature,
+                seed: int = 0, uniforms=None, plain: bool = False):
+    """Adversarial Gumbel-softmax sample → ``(soft [B, T, V], ids [B, T])``,
+    differentiable in the decoder's parameters and ``features``.
+
+    ``uniforms [T, B, V]`` feed the noise; otherwise the decode kernel
+    draws it with Philox keyed by ``seed`` (the plain route and the CPU:
+    ``torch.rand`` from a generator seeded with ``seed``).  ``plain=True``
+    runs the plain versions of the decode and the BPTT kernels on any
+    device."""
+    flat = [t for lp in decoder.lstm.layers()
+            for t in (lp["w_ih"], lp["w_hh"], lp["b_ih"], lp["b_hh"])]
+    soft_tm, ids = _SampleSoft.apply(
+        features, float(temperature), int(seed), uniforms, seq_len, plain,
+        decoder.embed.weight, decoder.linear.weight, decoder.linear.bias,
+        *flat)
+    return soft_tm.transpose(0, 1), ids
+
+
+def rescore(decoder: Decoder, features, ids):
+    """Differentiable teacher-forced logits ``[B, T, V]`` of a free-running
+    decode's ``ids [B, T]``: the input at step t+1 is ``embed[ids[:, t]]``
+    (the feedback the decode took, detached as in the reference)."""
+    ids_tm = ids.T.long()
+    xs_tm = torch.cat([features[None], decoder.embed.weight[ids_tm[:-1]]])
+    hs_tm = lstm.lstm_seq_tm(decoder.lstm.layers(), xs_tm)
+    logits_tm = hs_tm @ decoder.linear.weight.T + decoder.linear.bias
+    return logits_tm.transpose(0, 1)
+
+
+def greedy_ids(decoder: Decoder, features, seq_len: int,
+               plain: bool = False):
+    """Greedy ids ``[B, T]`` int32 of the decode (the serve/greedy kernel on
+    CUDA tensors, or the plain version), without gradient."""
+    args = (features.detach(), [{k: v.detach() for k, v in lp.items()}
+                                for lp in decoder.lstm.layers()],
+            decoder.linear.weight.detach(), decoder.linear.bias.detach(),
+            decoder.embed.weight.detach(), seq_len)
+    if plain:
+        return decode_sample_plain(*args)[0]
+    return decode_sample(*args, mode="greedy")
+
+
+def sample(decoder: Decoder, features, seq_len: int, pretrain: bool = True,
+           temperature=1.0, seed: int = 0, uniforms=None,
+           plain: bool = False):
+    """Free-running decode → ``(outputs [B, T, V], ids [B, T] int32)``.
+
+    ``pretrain``: greedy ids from the decode, then the differentiable
+    teacher-forced rescore of those ids — raw logits as outputs (the JAX
+    package's ``_sample_kernel``, ``generator.py:470-501``).  Otherwise the
+    soft Gumbel samples of :func:`sample_soft`."""
+    if pretrain:
+        ids = greedy_ids(decoder, features, seq_len, plain)
+        return rescore(decoder, features, ids), ids
+    return sample_soft(decoder, features, seq_len, temperature, seed,
+                       uniforms, plain)
+
+
+def teacher_forced(decoder: Decoder, features, captions):
+    """Teacher-forced logits ``[B, T+1, V]`` — the reference's
+    ``Decoder.forward`` in pretrain mode: the features at t = 0, then the
+    embeddings of ``captions [B, T]``."""
+    xs = torch.cat([features[:, None], decoder.embed.weight[captions.long()]],
+                   dim=1)
+    hs_tm = lstm.lstm_seq_tm(decoder.lstm.layers(), xs.transpose(0, 1))
+    logits_tm = hs_tm @ decoder.linear.weight.T + decoder.linear.bias
+    return logits_tm.transpose(0, 1)

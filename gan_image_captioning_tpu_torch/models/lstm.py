@@ -99,3 +99,28 @@ def zero_state(num_layers: int, batch: int, hidden_dim: int,
     shape = (num_layers, batch, hidden_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def lstm_seq_tm(params: List[dict], xs_tm, state=None):
+    """Teacher-forced stacked LSTM over a time-major sequence:
+    ``xs_tm [T, B, in]`` → top-layer outputs ``[T, B, H]``.
+
+    Layer by layer over the whole sequence, each step one product of
+    ``[x | h]`` with the layer's fused ``[in+H, 4H]`` weight, as the JAX
+    package's ``lstm_seq_tm`` computes its forward; its gradient is plain
+    autograd."""
+    batch = xs_tm.shape[1]
+    hidden_dim = params[0]["w_hh"].shape[1]
+    if state is None:
+        state = zero_state(len(params), batch, hidden_dim, xs_tm.dtype,
+                           xs_tm.device)
+    h0, c0 = state
+    x = xs_tm
+    for layer, lp in enumerate(fuse_layer_params(params)):
+        h, c = h0[layer], c0[layer]
+        outs = []
+        for x_t in x:
+            h, c = lstm_cell(lp, x_t, h, c)
+            outs.append(h)
+        x = torch.stack(outs)
+    return x

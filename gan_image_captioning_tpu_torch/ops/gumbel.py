@@ -1,0 +1,41 @@
+"""Gumbel-softmax relaxation (``gan_image_captioning_tpu/ops/gumbel.py``).
+
+The reference adds Gumbel(0,1) noise to the decoder logits and softmaxes
+the result *multiplied* by the temperature:
+
+    pred = softmax(temperature * (logits + g)),   g = -log(-log(u + eps) + eps)
+
+Every function takes the uniforms ``u`` when the caller has them (the
+tests feed the JAX package's draws) and otherwise draws them from a
+``torch.Generator`` on the logits' device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-10  # the reference's add_gumbel eps
+
+
+def _uniforms(shape, generator, device, dtype):
+    return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+
+
+def gumbel_noise(shape, generator=None, device="cpu", dtype=torch.float32,
+                 eps: float = EPS, u=None):
+    """Gumbel(0,1) noise by the reference's double-log formula, of the
+    uniforms ``u`` or of fresh ones drawn from ``generator``."""
+    if u is None:
+        u = _uniforms(shape, generator, device, dtype)
+    return -torch.log(-torch.log(u + eps) + eps)
+
+
+def gumbel_softmax(logits, temperature, generator=None, eps: float = EPS,
+                   u=None):
+    """``(soft [..., V], ids [...])``: ``softmax(temperature * (logits +
+    g))`` and its argmax (first index on ties), a categorical draw from
+    ``softmax(logits)``."""
+    g = gumbel_noise(logits.shape, generator, logits.device, logits.dtype,
+                     eps, u)
+    soft = torch.softmax((logits + g) * temperature, dim=-1)
+    return soft, torch.argmax(soft, dim=-1)

@@ -1,0 +1,183 @@
+"""The MLE and adversarial training steps
+(``gan_image_captioning_tpu/train/steps.py``).
+
+* :func:`make_mle_step` — free-running pretrain sample (greedy ids from
+  the decode kernel, then the differentiable teacher-forced rescore) or
+  teacher forcing, cross-entropy over all positions, clipped Adam at
+  ``pretrain_lr``.
+* :func:`make_adv_step` — one Gumbel-softmax sample, the reference's three
+  discriminator passes (real, detached fake, generator), both losses and
+  ONE backward of ``g_loss + d_loss`` that gives both gradient sets (the
+  JAX ``adv_losses(grad_side="both")`` single-forward pullback): the fake
+  pass reads ``soft.detach()``, the generator pass runs with detached
+  discriminator parameters and ``g_loss`` reads a detached ``d_real``, so
+  no cross term reaches either side.  The discriminator updates when
+  ``gen_steps % disc_train_freq == 0``; the generator every step.
+
+Batches are dicts of tensors on the models' device: ``captions [B, L]``
+int, optionally ``weights [B]`` (0 on pad rows).  Every random draw of a
+step can be fed through ``noise``: ``uniforms [T, B, V]`` (the Gumbel
+uniforms), ``keep`` (the three dropout keep masks ``[B·R, F]``, real /
+fake / generator pass) and ``flip [B]`` (the noisy-label swap); what is
+not fed is drawn from ``state.generator``.  A step updates the state in
+place and returns it with its metrics (0-d tensors).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.models import api
+from gan_image_captioning_tpu_torch.models.discriminator import params_of
+from gan_image_captioning_tpu_torch.ops.losses import (cross_entropy_loss,
+                                                        gan_losses)
+from gan_image_captioning_tpu_torch.train.state import (
+    TrainState, clip_adam_update, global_norm, require_ported_training)
+
+
+def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A :func:`~gan_image_captioning_tpu_torch.data.loader.make_batch`
+    dict as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _grads(loss, *modules) -> List[Dict[str, torch.Tensor]]:
+    """One backward of ``loss``; per module, its gradients by name (zeros
+    where a parameter does not reach the loss)."""
+    params = [dict(m.named_parameters()) for m in modules]
+    flat = [p for ps in params for p in ps.values()]
+    grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    return [{k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(ps.items(), grads)} for ps in params]
+
+
+def _draw_seed(state: TrainState) -> int:
+    return int(torch.randint(2 ** 62, (), generator=state.generator))
+
+
+def noisy_label_flip(flip, d_real, d_fake, num_rep: int):
+    """Swap real and fake logits of the samples where ``flip [B]`` is set;
+    a sample's ``num_rep`` logits (contiguous) flip together."""
+    flip = flip.repeat_interleave(num_rep)
+    return (torch.where(flip, d_fake, d_real),
+            torch.where(flip, d_real, d_fake))
+
+
+def _rep_weights(batch, num_rep: int):
+    w = batch.get("weights")
+    return None if w is None else w.repeat_interleave(num_rep)
+
+
+def mle_loss(config: Config, state: TrainState, batch):
+    """The MLE objective: cross-entropy of the ``--mle-objective`` logits
+    against the captions, over all positions (weighted by ``weights``)."""
+    cond, _ = api.generator_condition(config, state.gen, batch, train=True)
+    captions = batch["captions"]
+    logits = api.generator_mle_outputs(state.gen, cond, captions, config)
+    w = batch.get("weights")
+    mask = None if w is None else w[:, None].expand(captions.shape)
+    return cross_entropy_loss(logits, captions, mask)
+
+
+def make_mle_step(config: Config):
+    """Pretrain step: loss → grads → clip → Adam(``pretrain_lr``)."""
+    require_ported_training(config)
+
+    def step(state: TrainState, batch):
+        loss = mle_loss(config, state, batch)
+        grads, = _grads(loss, state.gen)
+        gnorm = clip_adam_update(state.gen, grads, state.pretrain_opt,
+                                 config.pretrain_lr, config.clip_norm)
+        return state, {"gen_pretrain_loss": loss.detach(),
+                       "gen_grad_norm": gnorm}
+
+    return step
+
+
+def adv_losses(config: Config, state: TrainState, batch, temperature,
+               noise: Optional[Dict[str, Any]] = None):
+    """One adversarial forward → ``(g_loss, d_loss, aux)`` with the
+    cross terms cut as the module docstring says."""
+    noise = noise or {}
+    cond, _ = api.generator_condition(config, state.gen, batch, train=True)
+    captions = batch["captions"]
+    device = captions.device
+    draw = torch.Generator(device=device).manual_seed(_draw_seed(state))
+    soft, gen_ids = api.generator_sample(
+        state.gen, cond, captions.shape[1], False, config, temperature,
+        seed=_draw_seed(state), uniforms=noise.get("uniforms"))
+    fake = soft.detach()
+    disc_p = params_of(state.disc)
+    keeps = noise.get("keep", (None, None, None))
+    d_real = api.discriminator_apply(disc_p, captions, config, True,
+                                     keeps[0], draw)
+    d_fake = api.discriminator_apply(disc_p, fake, config, True, keeps[1],
+                                     draw)
+    g_out = api.discriminator_apply(params_of(state.disc, detach=True), soft,
+                                    config, True, keeps[2], draw)
+
+    num_rep = api.disc_logits_per_sample(config)
+    if config.noisy_labels > 0.0:
+        flip = noise.get("flip")
+        if flip is None:
+            flip = torch.rand(captions.shape[0], generator=draw,
+                              device=device) < config.noisy_labels
+        d_real_in, d_fake_in = noisy_label_flip(flip, d_real, d_fake,
+                                                num_rep)
+    else:
+        d_real_in, d_fake_in = d_real, d_fake
+    w = _rep_weights(batch, num_rep)
+    real_label = 1.0 - config.label_smoothing
+    _, d_loss = gan_losses(d_real_in, d_fake_in, g_out, config.adv_loss_type,
+                           real_label=real_label, weights=w)
+    g_loss, _ = gan_losses(d_real.detach(), g_out, g_out,
+                           config.adv_loss_type, real_label=real_label,
+                           weights=w)
+    aux = {"gen_ids": gen_ids, "d_real_mean": d_real.detach().mean(),
+           "d_fake_mean": d_fake.detach().mean()}
+    return g_loss, d_loss, aux
+
+
+def adv_grads(config: Config, state: TrainState, batch, temperature,
+              noise: Optional[Dict[str, Any]] = None):
+    """``(g_loss, d_loss, gen_grads, disc_grads, aux)`` from one forward
+    and one backward of ``g_loss + d_loss``; the state is not changed
+    (beyond drawing from ``state.generator``)."""
+    g_loss, d_loss, aux = adv_losses(config, state, batch, temperature,
+                                     noise)
+    g_grads, d_grads = _grads(g_loss + d_loss, state.gen, state.disc)
+    return g_loss.detach(), d_loss.detach(), g_grads, d_grads, aux
+
+
+def make_adv_step(config: Config):
+    """The adversarial update: both gradients from one forward and one
+    backward, the discriminator's clipped Adam every ``disc_train_freq``
+    generator steps, the generator's every step."""
+    require_ported_training(config)
+    disc_every = max(1, int(config.disc_train_freq))
+
+    def step(state: TrainState, batch, temperature,
+             noise: Optional[Dict[str, Any]] = None):
+        g_loss, d_loss, g_grads, d_grads, aux = adv_grads(
+            config, state, batch, temperature, noise)
+        # pre-clip norms, also on steps that do not update the discriminator
+        g_norm, d_norm = global_norm(g_grads), global_norm(d_grads)
+        if state.gen_steps % disc_every == 0:
+            clip_adam_update(state.disc, d_grads, state.disc_opt,
+                             config.disc_lr, config.clip_norm, d_norm)
+            state.disc_steps += 1
+        clip_adam_update(state.gen, g_grads, state.gen_opt, config.gen_lr,
+                         config.clip_norm, g_norm)
+        state.gen_steps += 1
+        state.temperature = float(temperature)
+        return state, {"gen_adv_loss": g_loss, "disc_adv_loss": d_loss,
+                       "d_real_mean": aux["d_real_mean"],
+                       "d_fake_mean": aux["d_fake_mean"],
+                       "gen_grad_norm": g_norm, "disc_grad_norm": d_norm}
+
+    return step
