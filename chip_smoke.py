@@ -45,9 +45,34 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
    ``device_calls``.
 9. ``timing`` / ``profile`` — the serve decode's times, request latency,
    device time per kernel and busy share at B = 8 and 64.
+10. ``carry_kernel`` — the carried-state serve kernel at B = 8 and 64:
+    ceil(36 / 8) chained chunks (K = 8, the last one 4 steps) against one
+    full-T kernel call (ids equal, logprobs within 1e-6: the same
+    operations), and one chunk from a carried state against the plain
+    version (ids equal or the teacher-forced rule, logprobs and hT / cT
+    within 1e-4).
+11. ``qserve_kernel`` — the quantized serve kernel, int8 and int4, B = 8
+    and 64, full T and one carried chunk: against its plain version (ids
+    equal or the teacher-forced rule, logprobs within 1e-4) and against
+    the dense serve kernel on the dequantized weights (ids equal,
+    logprobs within 1e-4).
+12. ``continuous_service`` — ``serve.main --serve-continuous`` (dense,
+    ``--quantize int8`` and ``--quantize int4``): ``{"n": 1}``,
+    ``{"n": 8}``, ``{"n": 20}``, a ``{"stream": true}`` request and
+    ``{"stats": true}``; captions equal to the full-T kernel decode of the
+    same decoder, the stream's last partial equal to its caption, and the
+    carried (dense) or quantized kernel's launch count equal to the
+    engine's ``device_calls``.  Then ``--serve-exact`` on 20 random rows:
+    ids equal to the full-T decode (or the teacher-forced rule).
+13. ``continuous_timing`` / ``continuous_profile`` — CUDA-event times of
+    one chunk (B = 8, K = 8) and of the full-T quantized decode at B = 8
+    and 64 beside the plain versions, the dense kernel and the bounds;
+    request p50 / p90 of the continuous service; device time by kernel
+    and busy share of the quantized decode and of a continuous request.
 
-Then the ``kernels`` line (all five kernels) and, last, ``{"ok": true,
-"device": …}``.  Any failed phase raises, so the script exits non-zero;
+Then the ``kernels`` line (every ported kernel: the five of the training
+and serving paths, the carried serve kernel, the quantized serve kernel at
+8 and 4 bits) and, last, ``{"ok": true, "device": …}``.  Any failed phase raises, so the script exits non-zero;
 without CUDA it exits non-zero before printing a result.  The plain
 versions' matrix products and convolutions run in full float32: TF32 is
 switched off below.
@@ -73,7 +98,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
-KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv"]
+Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
+KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "decode_qserve"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -123,18 +149,45 @@ def bound_ms(B):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def teacher_forced_logits(dec, feats, ids):
-    """Plain logits [B, T, V] with the input at step t+1 = embed[ids[:, t]]."""
+def teacher_forced(layers, w_proj, b_proj, embed, x0, ids, state=None):
+    """The plain decode with the input at step t+1 = embed[ids[:, t]],
+    from ``state = (h, c)`` (zeros when None) and the first input ``x0``
+    → (logits [B, T, V], (hT, cT))."""
     from gan_image_captioning_tpu_torch.models import lstm
 
-    fused = lstm.fuse_layer_params(dec.lstm.layers())
-    state = lstm.zero_state(NL, feats.shape[0], H, feats.dtype, feats.device)
-    x, out = feats, []
+    fused = lstm.fuse_layer_params(layers)
+    if state is None:
+        state = lstm.zero_state(len(layers), x0.shape[0],
+                                layers[0]["w_hh"].shape[1], x0.dtype,
+                                x0.device)
+    x, out = x0, []
     for t in range(ids.shape[1]):
         h_top, state = lstm.lstm_step(fused, x, state)
-        out.append(h_top @ dec.linear.weight.T + dec.linear.bias)
-        x = dec.embed.weight[ids[:, t].long()]
-    return torch.stack(out, dim=1)
+        out.append(h_top @ w_proj.T + b_proj)
+        x = embed[ids[:, t].long()]
+    return torch.stack(out, dim=1), state
+
+
+def teacher_forced_logits(dec, feats, ids):
+    """Plain logits [B, T, V] with the input at step t+1 = embed[ids[:, t]]."""
+    return teacher_forced(dec.lstm.layers(), dec.linear.weight,
+                          dec.linear.bias, dec.embed.weight, feats, ids)[0]
+
+
+def tf_errors(weights, x0, ids, lps, state=None, final=None):
+    """The teacher-forced rule of a kernel's ``ids``/``lps`` (and final
+    state ``(hT, cT)``): each kernel id's gap below the plain max logit,
+    and the logprob (and state) differences against the plain decode fed
+    the kernel's ids."""
+    logits, (h, c) = teacher_forced(*weights, x0, ids, state)
+    chosen = logits.gather(2, ids.long()[..., None])[..., 0]
+    out = {"max_id_gap": float((logits.max(dim=2).values - chosen).max()),
+           "max_abs_lp_diff": float((lps - (chosen - torch.logsumexp(
+               logits, dim=2))).abs().max())}
+    if final is not None:
+        out["max_abs_h_diff"] = float((final[0] - h).abs().max())
+        out["max_abs_c_diff"] = float((final[1] - c).abs().max())
+    return out
 
 
 def phase_device():
@@ -234,11 +287,8 @@ def phase_service(gen, workdir):
         decode_sample, decode_sample_plain)
     from gan_image_captioning_tpu_torch.models.generator import (
         start_token_features)
-    from gan_image_captioning_tpu_torch.train.checkpoint import (
-        save_generator_checkpoint)
 
     ckpt = workdir / "gen_full_width.ckpt"
-    save_generator_checkpoint(str(ckpt), gen)
     reqs = [{"n": 1}, {"n": 8}, {"n": 20}, {"stats": True}]
     stdin = io.StringIO("".join(json.dumps(r) + "\n" for r in reqs))
     out = io.StringIO()
@@ -335,45 +385,480 @@ def phase_timing(dec, device, workdir):
     return out
 
 
-def phase_profile(dec, device, calls=3):
-    """Device time by kernel (torch.profiler, CUPTI) over a few decode
-    calls, and the device's busy share of that window's wall time."""
+SERVE_KERNEL_NAMES = ("qlstm_layer_kernel", "qproj_kernel", "qfinalize_kernel",
+                      "lstm_layer_kernel", "proj_kernel", "finalize_kernel")
+
+
+def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES):
+    """Device time by kernel (torch.profiler, CUPTI) over ``calls`` calls
+    of ``fn`` after one warm call, and the device's busy share of that
+    window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    us, count = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        key = next((n for n in names if n in ev.key), ev.key[:40])
+        us[key] = us.get(key, 0.0) + ev.self_device_time_total / calls
+        count[key] = count.get(key, 0) + ev.count / calls
+    if not us:
+        return {"device_time": "not measured"}
+    return {"device_us_per_call": us, "launches_per_call": count,
+            "device_busy_share": sum(us.values()) * calls / wall_us,
+            "wall_ms_per_call": wall_us / calls / 1e3}
+
+
+def phase_profile(dec, device, calls=3):
+    """Device time by kernel and busy share of the serve decode."""
     from gan_image_captioning_tpu_torch.kernels.decode_sample import (
         decode_sample)
 
-    names = ("lstm_layer_kernel", "proj_kernel", "finalize_kernel")
     rows = {}
     for B in (8, 64):
         feats = torch.from_numpy(np.random.default_rng(B).standard_normal(
             (B, E)).astype(np.float32)).to(device)
         args = decode_args(dec, feats)
-        decode_sample(*args, mode="serve")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                decode_sample(*args, mode="serve")
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        us, count = {}, {}
-        for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            key = next((n for n in names if n in ev.key), ev.key[:40])
-            us[key] = us.get(key, 0.0) + ev.self_device_time_total / calls
-            count[key] = count.get(key, 0) + ev.count / calls
-        busy = sum(us.values()) * calls
-        row = ({"device_us_per_call": us, "launches_per_call": count,
-                "device_busy_share": busy / wall_us,
-                "wall_ms_per_call": wall_us / calls / 1e3}
-               if us else {"device_time": "not measured"})
-        rows[B] = row
-        emit({"phase": "profile", "B": B, **row})
+        rows[B] = profile_calls(lambda: decode_sample(*args, mode="serve"),
+                                calls)
+        emit({"phase": "profile", "B": B, **rows[B]})
     return rows
+
+
+# ------------------------------------------- continuous and quantized serving
+
+K_CHUNK = 8
+CHAIN_ATOL = 1e-6
+QUANT_BITS = {"int8": 8, "int4": 4}
+
+
+def dense_weights(dec):
+    return (dec.lstm.layers(), dec.linear.weight, dec.linear.bias,
+            dec.embed.weight)
+
+
+def chunk_work(B, steps, weight_bytes):
+    """Bytes and operations of ``steps`` serve steps at batch B: the
+    weights read once, features or the carried state in and out, one
+    embedding row per token, ids and logprobs out."""
+    _, flops_t = decode_work(B)
+    flops = flops_t * steps // T
+    state = 4 * (2 * NL * B * H + B * E)
+    nbytes = weight_bytes + 2 * state + 4 * B * steps * E + 8 * B * steps
+    return nbytes, flops
+
+
+def weight_bytes(qdec=None):
+    """The decoder's weight bytes: float32 (dense), or each quantized
+    payload, scale and bias as stored."""
+    if qdec is None:
+        layer_w = sum(4 * H * ((E if l == 0 else H) + H) + 2 * 4 * H
+                      for l in range(NL))
+        return 4 * (layer_w + V * H + V + V * E)
+    tensors = [qdec["embed"].q, qdec["embed"].scale, qdec["linear"]["w"].q,
+               qdec["linear"]["w"].scale, qdec["linear"]["b"]]
+    for lq in qdec["lstm_q"]:
+        tensors += [lq["w"].q, lq["w"].scale, lq["b"]]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_carry_kernel(dec, device):
+    """Chained chunks of the carried kernel against one full-T call, and
+    one carried chunk against the carried plain version."""
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_plain)
+
+    w = dense_weights(dec)
+    rows = []
+    for B in (8, 64):
+        feats = seeded((B, E), 100 + B, device)
+        ids, lps = decode_sample(feats, *w, T, mode="serve")
+        h = torch.zeros(NL, B, H, device=device)
+        c, x, parts, states, t = h.clone(), feats, [], [], 0
+        while t < T:
+            k = min(K_CHUNK, T - t)
+            i, lp, (h, c, x) = decode_sample(x, *w, k, mode="serve",
+                                             init_state=(h, c, x))
+            parts.append((i, lp))
+            states.append((h, c, x))
+            t += k
+        torch.cuda.synchronize()
+        ids_c = torch.cat([p[0] for p in parts], dim=1)
+        lps_c = torch.cat([p[1] for p in parts], dim=1)
+        row = {"B": B, "chunks": [p[0].shape[1] for p in parts],
+               "chain_ids_equal": bool(torch.equal(ids_c, ids)),
+               "chain_max_abs_lp_diff": float((lps_c - lps).abs().max())}
+        # one chunk from the state after the first, kernel against plain
+        st = states[0]
+        ik, lk, (hk, ck, xk) = decode_sample(st[2], *w, K_CHUNK,
+                                             mode="serve", init_state=st)
+        torch.cuda.synchronize()
+        ip, lp_, (hp, cp, _) = decode_sample_plain(st[2], *w, K_CHUNK,
+                                                   init_state=st)
+        row["ids_equal"] = bool(torch.equal(ik, ip))
+        row["rows_differing"] = int((ik != ip).any(dim=1).sum())
+        row["distinct_ids"] = int(ik.unique().numel())
+        row.update(tf_errors(w, st[2], ik, lk, st[:2], (hk, ck)))
+        row["xT_is_embed_of_last_id"] = bool(torch.equal(
+            xk, w[3][ik[:, -1].long()]))
+        rows.append(row)
+        emit({"phase": "carry_kernel", **row})
+        check(row["chain_ids_equal"], f"B={B}: chained chunk ids differ")
+        check(row["chain_max_abs_lp_diff"] <= CHAIN_ATOL,
+              f"B={B}: chained chunk lps {row['chain_max_abs_lp_diff']}")
+        check(row["max_id_gap"] <= ID_ATOL, f"B={B}: carried id gap {row}")
+        for key in ("max_abs_lp_diff", "max_abs_h_diff", "max_abs_c_diff"):
+            check(row[key] <= LP_ATOL, f"B={B}: carried {key} {row}")
+        check(row["xT_is_embed_of_last_id"], f"B={B}: xT")
+    return rows
+
+
+def phase_qserve_kernel(dec, device):
+    """The quantized serve kernel (int8, int4) against its plain version
+    and against the dense kernel on the dequantized weights, full T and
+    one carried chunk."""
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_q_serve, decode_sample_q_serve_plain,
+        dequantized_decoder)
+    from gan_image_captioning_tpu_torch.ops.quantize import (
+        quantize_lstm_decoder)
+
+    out = {}
+    for name, bits in QUANT_BITS.items():
+        qdec = quantize_lstm_decoder(dec, bits)
+        deq = dequantized_decoder(qdec, bits)
+        rows = []
+        for B in (8, 64):
+            feats = seeded((B, E), 200 + B, device)
+            _, _, st = decode_sample_q_serve(
+                feats, qdec, K_CHUNK, bits=bits, init_state=(
+                    torch.zeros(NL, B, H, device=device),
+                    torch.zeros(NL, B, H, device=device), feats))
+            for carry in (False, True):
+                state = st if carry else None
+                x0 = st[2] if carry else feats
+                steps = K_CHUNK if carry else T
+                res = decode_sample_q_serve(x0, qdec, steps, bits=bits,
+                                            init_state=state)
+                dense = decode_sample(x0, *deq, steps, mode="serve",
+                                      init_state=state)
+                torch.cuda.synchronize()
+                plain = decode_sample_q_serve_plain(x0, qdec, steps,
+                                                    init_state=state,
+                                                    bits=bits)
+                row = {"bits": bits, "B": B, "carry": carry, "steps": steps,
+                       "ids_equal": bool(torch.equal(res[0], plain[0])),
+                       "rows_differing": int((res[0] != plain[0]).any(
+                           dim=1).sum()),
+                       "distinct_ids": int(res[0].unique().numel()),
+                       "dense_ids_equal": bool(torch.equal(res[0], dense[0])),
+                       "dense_max_abs_lp_diff": float(
+                           (res[1] - dense[1]).abs().max())}
+                row.update(tf_errors(deq, x0, res[0], res[1],
+                                     state[:2] if carry else None,
+                                     res[2][:2] if carry else None))
+                rows.append(row)
+                emit({"phase": "qserve_kernel", **row})
+                check(row["max_id_gap"] <= ID_ATOL, f"qserve id gap {row}")
+                for key in ("max_abs_lp_diff", "max_abs_h_diff",
+                            "max_abs_c_diff", "dense_max_abs_lp_diff"):
+                    check(row.get(key, 0.0) <= LP_ATOL, f"qserve {key} {row}")
+                check(row["dense_ids_equal"],
+                      f"qserve ids != the dense kernel's {row}")
+        out[name] = rows
+    return out
+
+
+def continuous_reference(gen_or_q, feats):
+    """The full-T serve kernel decode of the dense or quantized decoder."""
+    from gan_image_captioning_tpu_torch.eval.decode import decoder_of
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_q_serve)
+    from gan_image_captioning_tpu_torch.ops.quantize import (is_quantized,
+                                                             payload_bits)
+
+    dec = decoder_of(gen_or_q)
+    if is_quantized(dec):
+        return decode_sample_q_serve(feats, dec, T, bits=payload_bits(dec))
+    return decode_sample(feats, *dense_weights(dec), T, mode="serve")
+
+
+def phase_continuous_service(gen, workdir):
+    """``serve.main --serve-continuous`` over stdin, dense and quantized,
+    with the launch count of its kernel; then ``--serve-exact`` ids."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.config import Config
+    from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
+    from gan_image_captioning_tpu_torch.eval.decode import masked_logprob_sum
+    from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
+                                                             strip_caption)
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_carry, decode_sample_q_serve)
+    from gan_image_captioning_tpu_torch.models.generator import (
+        start_token_features)
+    from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
+
+    ckpt = workdir / "gen_full_width.ckpt"
+    i2w = synthetic_vocab()[1]
+    reqs = [{"n": 1}, {"n": 8}, {"n": 20}, {"n": 2, "stream": True},
+            {"stats": True}]
+    counters = {"carry": decode_sample_carry, "qserve": decode_sample_q_serve,
+                "full": decode_sample}
+    out = {}
+    for variant in ("dense", "int8", "int4"):
+        quant = [] if variant == "dense" else ["--quantize", variant]
+        argv = ["--checkpoint", str(ckpt), *MODEL_FLAGS, "--serve-continuous",
+                *quant]
+        stdin = io.StringIO("".join(json.dumps(r) + "\n" for r in reqs))
+        buf = io.StringIO()
+        old_stdin = sys.stdin
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            sys.stdin = stdin
+            with contextlib.redirect_stdout(buf):
+                serve.main(argv)
+        finally:
+            sys.stdin = old_stdin
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        check(lines[0].get("status") == "ready", f"{variant}: {lines[0]}")
+        resps, stream = [], []
+        for ln in lines[1:]:
+            (stream if "row" in ln else resps).append(ln)
+        stats = resps[-1]
+        cont = stats["continuous"]
+
+        # the reference: the full-T kernel decode of the same decoder on
+        # the <S> row (every row of an unconditional request)
+        config = Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                        gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN,
+                        quantize=variant if quant else "none")
+        params = gen if not quant else quantize_generator(gen, config)
+        feats = start_token_features(gen.decoder, 1)
+        ids_r, lps_r = continuous_reference(params, feats)
+        want_cap = " ".join(ids_to_words(strip_caption(ids_r[0].tolist()),
+                                         i2w))
+        want_lp = float(masked_logprob_sum(ids_r, lps_r)[0])
+        for req, resp in zip(reqs[:4], resps[:4]):
+            check("captions" in resp, f"{variant} {req}: {resp}")
+            check(len(resp["captions"]) == req["n"], f"{variant} {req}")
+            check(all(c == want_cap for c in resp["captions"]),
+                  f"{variant} {req}: caption differs from the full decode")
+            check(all(abs(x - want_lp) <= SEQ_ATOL
+                      for x in resp["logprobs"]), f"{variant} {req}: lp")
+        for j in range(2):
+            rows = [ln for ln in stream if ln["row"] == j]
+            check(rows and rows[-1]["done"]
+                  and rows[-1]["partial"] == resps[3]["captions"][j],
+                  f"{variant}: stream of row {j}: {rows}")
+        key = "carry" if variant == "dense" else "qserve"
+        check(launches[key] > 0, f"{variant}: no {key} kernel launch")
+        check(launches[key] == cont["device_calls"],
+              f"{variant}: {key} launches {launches[key]} != device_calls "
+              f"{cont['device_calls']}")
+        check(cont["completed"] == 1 + 1 + 8 + 20 + 2,
+              f"{variant}: completed {cont}")
+        row = {"variant": variant, "caption": want_cap, "logprob": want_lp,
+               "latency_ms": [r["latency_ms"] for r in resps[:4]],
+               "stream_lines": len(stream), "stats": stats,
+               "launches": launches, "seconds": seconds}
+        emit({"phase": "continuous_service", **row})
+        out[variant] = row
+
+    # --serve-exact on random rows: ids equal to the full-T decode (each
+    # differing row held to the teacher-forced rule)
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        dequantized_decoder)
+
+    for variant in ("dense", "int8"):
+        quant = [] if variant == "dense" else ["--quantize", variant]
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", str(ckpt), *MODEL_FLAGS, "--serve-continuous",
+             "--serve-exact", *quant]))
+        try:
+            feats = seeded((20, E), 300, torch.device("cpu"))
+            ids, lps = service._continuous(feats.numpy(), None)
+            params = service.dec_params
+        finally:
+            service.close()
+        dev_feats = feats.to(gen.decoder.embed.weight.device)
+        ids_r, _ = continuous_reference(params, dev_feats)
+        ids_t = torch.from_numpy(ids).to(dev_feats.device)
+        weights = (dense_weights(gen.decoder) if variant == "dense" else
+                   dequantized_decoder(params["decoder"], 8))
+        lps_t = torch.zeros(ids_t.shape, device=dev_feats.device)
+        tf = tf_errors(weights, dev_feats, ids_t, lps_t)
+        row = {"variant": variant, "exact": True, "rows": 20,
+               "ids_equal": bool(torch.equal(ids_t, ids_r)),
+               "rows_differing": int((ids_t != ids_r).any(dim=1).sum()),
+               "max_id_gap": tf["max_id_gap"],
+               "distinct_ids": int(ids_t.unique().numel())}
+        emit({"phase": "continuous_service", **row})
+        check(row["max_id_gap"] <= ID_ATOL, f"exact-mode ids {row}")
+        out[f"{variant}_exact"] = row
+    return out
+
+
+def phase_continuous_timing(dec, device, workdir):
+    """CUDA-event times of one chunk and of the full-T quantized decode,
+    in turns with their plain versions, beside the dense kernel and the
+    bounds; request latency of the continuous service."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_plain, decode_sample_q_serve,
+        decode_sample_q_serve_plain)
+    from gan_image_captioning_tpu_torch.ops.quantize import (
+        quantize_lstm_decoder)
+
+    w = dense_weights(dec)
+    qdecs = {n: quantize_lstm_decoder(dec, b) for n, b in QUANT_BITS.items()}
+    wbytes = {"dense": weight_bytes(),
+              **{n: weight_bytes(q) for n, q in qdecs.items()}}
+    emit({"phase": "continuous_timing", "weight_bytes": wbytes})
+    out = {"weight_bytes": wbytes}
+
+    def kern_plain(variant, x0, steps, state):
+        if variant == "dense":
+            return (lambda: decode_sample(x0, *w, steps, mode="serve",
+                                          init_state=state),
+                    lambda: decode_sample_plain(x0, *w, steps, state))
+        bits = QUANT_BITS[variant]
+        q = qdecs[variant]
+        return (lambda: decode_sample_q_serve(x0, q, steps, state, bits),
+                lambda: decode_sample_q_serve_plain(x0, q, steps, state,
+                                                    bits))
+
+    for B, steps, variants in ((8, K_CHUNK, ("dense", "int8", "int4")),
+                               (8, T, ("dense", "int8", "int4")),
+                               (64, T, ("dense", "int8", "int4"))):
+        feats = seeded((B, E), 400 + B, device)
+        _, _, st = decode_sample(feats, *w, K_CHUNK, mode="serve",
+                                 init_state=(
+                                     torch.zeros(NL, B, H, device=device),
+                                     torch.zeros(NL, B, H, device=device),
+                                     feats))
+        state = st if steps == K_CHUNK else None
+        x0 = st[2] if state is not None else feats
+        for variant in variants:
+            kern, plain = kern_plain(variant, x0, steps, state)
+            k_reps, p_reps = (100, 10) if steps == K_CHUNK else (30, 5)
+            p_a = cuda_ms(plain, reps=p_reps)
+            k_a = cuda_ms(kern, reps=k_reps)
+            k_b = cuda_ms(kern, reps=k_reps)
+            p_b = cuda_ms(plain, reps=p_reps)
+            nbytes, flops = chunk_work(B, steps, wbytes[variant])
+            b_ms, b_by = bound(nbytes, flops)
+            key = f"{variant}_B{B}_T{steps}"
+            out[key] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b],
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                        "flop": flops, "B": B, "steps": steps,
+                        "carried": state is not None}
+            emit({"phase": "continuous_timing", "variant": variant,
+                  **out[key]})
+
+    lat = {}
+    for variant in ("dense", "int8"):
+        quant = [] if variant == "dense" else ["--quantize", variant]
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", str(workdir / "gen_full_width.ckpt"),
+             *MODEL_FLAGS, "--serve-continuous", *quant]))
+        try:
+            for n in (1, 8):
+                ms = [service.handle_request({"n": n})["latency_ms"]
+                      for _ in range(40)]
+                lat[f"{variant}_n{n}"] = {
+                    "p50_ms": float(np.percentile(ms, 50)),
+                    "p90_ms": float(np.percentile(ms, 90)),
+                    "samples": len(ms)}
+            lat[f"{variant}_stats"] = service.continuous.stats()
+        finally:
+            service.close()
+    emit({"phase": "continuous_timing", "service_request_latency": lat,
+          "note": "sequential requests, host clock, 8 slots, 8-step chunks, "
+                  "early exit"})
+    out["service"] = lat
+    return out
+
+
+def phase_continuous_profile(dec, device, workdir, calls=3):
+    """Device time by kernel and busy share of the full-T quantized decode
+    (B = 8) and of a ``{"n": 8}`` request on the continuous service."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample_q_serve)
+    from gan_image_captioning_tpu_torch.ops.quantize import (
+        quantize_lstm_decoder)
+
+    out = {}
+    feats = seeded((8, E), 408, device)
+    for name, bits in QUANT_BITS.items():
+        qdec = quantize_lstm_decoder(dec, bits)
+        out[name] = profile_calls(
+            lambda: decode_sample_q_serve(feats, qdec, T, bits=bits), calls)
+        emit({"phase": "continuous_profile", "variant": name, "B": 8,
+              **out[name]})
+    for variant in ("dense", "int8"):
+        quant = [] if variant == "dense" else ["--quantize", variant]
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", str(workdir / "gen_full_width.ckpt"),
+             *MODEL_FLAGS, "--serve-continuous", *quant]))
+        try:
+            row = profile_calls(lambda: service.handle_request({"n": 8}),
+                                calls)
+        finally:
+            service.close()
+        out[f"service_{variant}"] = row
+        emit({"phase": "continuous_profile", "request": {"n": 8},
+              "variant": variant, **row})
+    return out
+
+
+def continuous_entries(smi, carry_rows, q_rows, times, service):
+    """The kernels-line entries of the carried serve kernel and of the
+    quantized serve kernel at 8 and 4 bits."""
+    src = "gan_image_captioning_tpu_torch/kernels/csrc/"
+    chunk = times[f"dense_B8_T{K_CHUNK}"]
+    out = [{
+        "name": "decode_serve_carry", "route": "cuda",
+        "source": src + "decode_serve.cu", "replaces": TPU_KERNEL,
+        "launches": service["dense"]["launches"]["carry"],
+        "max_abs_err": max(max(r["max_abs_lp_diff"], r["max_abs_h_diff"],
+                               r["max_abs_c_diff"]) for r in carry_rows),
+        "ms": min(chunk["kernel_ms"]), "plain_ms": min(chunk["plain_ms"]),
+        "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
+        "library_ms": None, "B": 8, "steps": K_CHUNK, "card": smi}]
+    for name, bits in QUANT_BITS.items():
+        full = times[f"{name}_B8_T{T}"]
+        full64 = times[f"{name}_B64_T{T}"]
+        out.append({
+            "name": f"decode_qserve_{name}", "route": "cuda",
+            "source": src + "decode_qserve.cu", "replaces": Q_TPU_KERNEL,
+            "launches": service[name]["launches"]["qserve"],
+            "max_abs_err": max(max(r["max_abs_lp_diff"],
+                                   r.get("max_abs_h_diff", 0.0),
+                                   r.get("max_abs_c_diff", 0.0))
+                               for r in q_rows[name]),
+            "ms": min(full["kernel_ms"]), "plain_ms": min(full["plain_ms"]),
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": None, "B": 8, "steps": T, "bits": bits,
+            "ms_b64": min(full64["kernel_ms"]),
+            "plain_ms_b64": min(full64["plain_ms"]),
+            "bound_ms_b64": full64["bound_ms"],
+            "weight_bytes": times["weight_bytes"][name], "card": smi})
+    return out
 
 
 # ----------------------------------------------------------------- training
@@ -970,12 +1455,32 @@ def main(argv=None):
             phase_train_step_timing(device, setup)
         if run("train_profile"):
             phase_train_profile(device, setup)
+    if run("kernel"):
+        kernel_rows = phase_kernel(gen.decoder, device)
+    if any(run(p) for p in ("service", "timing", "continuous_service",
+                            "continuous_timing", "continuous_profile")):
+        # the services read this checkpoint
+        from gan_image_captioning_tpu_torch.train.checkpoint import (
+            save_generator_checkpoint)
+        save_generator_checkpoint(str(workdir / "gen_full_width.ckpt"), gen)
+    if run("service"):
+        service = phase_service(gen, workdir)
+    if run("timing"):
+        times = phase_timing(gen.decoder, device, workdir)
+    if run("profile"):
+        phase_profile(gen.decoder, device)
+    if run("carry_kernel"):
+        carry_rows = phase_carry_kernel(gen.decoder, device)
+    if run("qserve_kernel"):
+        q_rows = phase_qserve_kernel(gen.decoder, device)
+    if run("continuous_service"):
+        cont_service = phase_continuous_service(gen, workdir)
+    if run("continuous_timing"):
+        cont_times = phase_continuous_timing(gen.decoder, device, workdir)
+    if run("continuous_profile"):
+        phase_continuous_profile(gen.decoder, device, workdir)
     if only:
         return 0
-    kernel_rows = phase_kernel(gen.decoder, device)
-    service = phase_service(gen, workdir)
-    times = phase_timing(gen.decoder, device, workdir)
-    phase_profile(gen.decoder, device)
 
     t8 = times[8]
     emit({"kernels": [{
@@ -995,7 +1500,9 @@ def main(argv=None):
                             for r in kernel_rows},
         "train_launches": train_row["launches"]["decode_serve"],
         "card": smi}] + kernel_entries(smi, train_kernel_rows, train_times,
-                                       train_row["launches"])})
+                                       train_row["launches"])
+        + continuous_entries(smi, carry_rows, q_rows, cont_times,
+                             cont_service)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -118,11 +118,25 @@ def add_global_args(parser):
                         "'cuda:N' or 'cpu'")
 
 
+def add_extension_args(parser):
+    """The decode extensions of the JAX package's ``add_tpu_args`` that
+    the port has."""
+    g = parser.add_argument_group("extensions")
+    g.add_argument("--quantize", type=str, default="none",
+                   choices=["none", "int8", "int4"],
+                   help="weight-only quantization of the decode path "
+                        "(serve): int8 stores the decoder (embedding, LSTM "
+                        "stack, vocab projection) as symmetric "
+                        "per-channel int8, int4 as int4 packed two per "
+                        "byte (ops/quantize.py); training stays float32")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("GAN captioning (PyTorch port)")
     add_data_args(parser)
     add_model_args(parser)
     add_training_args(parser)
+    add_extension_args(parser)
     add_global_args(parser)
     return parser
 
@@ -169,6 +183,7 @@ class Config:
     lr_schedule: str = "constant"
     grad_accum: int = 1
     ema_decay: float = 0.0
+    quantize: str = "none"
     # kernel routes (see the class docstring)
     decode_impl: str = "kernel"
     disc_engine: str = "mxu"

@@ -1,39 +1,144 @@
 """Greedy caption decoding (``gan_image_captioning_tpu/eval/decode.py``).
 
-:func:`greedy_with_logprobs` is the serving decode: on CUDA tensors it is
-one call of the serve-mode decode kernel (greedy ids and per-token
-logprobs together); on the CPU it is the plain composition
-:func:`greedy` + :func:`sequence_logprob`, as the JAX package does off
-the TPU.  Beam search, sampling and the adaptive chunked decode are not
-ported yet.
+A generator here is a port :class:`Generator` or the quantized twin
+``{"decoder": qdec}`` of ``ops/quantize.py:quantize_generator``.
+
+* :func:`greedy_with_logprobs` is the serving decode.  On CUDA tensors it
+  is one call of a serve-mode decode kernel (greedy ids and per-token
+  logprobs together): the dense one, or the quantized one for a quantized
+  decoder.  On the CPU a dense decoder takes the plain composition
+  :func:`greedy` + :func:`sequence_logprob`, as the JAX package does off
+  the TPU, and a quantized one the quantized kernel's plain version.
+* :func:`greedy_with_logprobs_adaptive` decodes in K-step chunks that
+  resume from the carried ``(h, c, x)`` (:func:`decode_chunk`, the same
+  wrapper call as the continuous engine's) and stops once every row has
+  emitted ``<E>``.
+* The steppers (:func:`make_stepper`) are the per-step plain math of
+  either decoder, for teacher-forced scoring.
+
+Beam search and sampling are not ported yet.
 """
 
 from __future__ import annotations
 
+from typing import Any, Callable, NamedTuple
+
 import torch
 
 from gan_image_captioning_tpu_torch.config import Config
-from gan_image_captioning_tpu_torch.data.vocab import END
-from gan_image_captioning_tpu_torch.kernels.decode_sample import decode_sample
+from gan_image_captioning_tpu_torch.data.vocab import END, PAD
+from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+    decode_sample, decode_sample_q_serve)
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models import lstm as lstm_lib
-from gan_image_captioning_tpu_torch.models.generator import (Generator,
-                                                            greedy_ids)
+from gan_image_captioning_tpu_torch.models.generator import greedy_ids
+from gan_image_captioning_tpu_torch.ops import quantize as q_lib
 
 
-@torch.no_grad()
-def greedy(generator: Generator, features, config: Config,
-           seq_len: int = None):
-    """Deterministic greedy decode → ids [B, T] int32."""
-    seq_len = seq_len or config.seq_len
-    api.require_ported(config)
-    return greedy_ids(generator.decoder, features, seq_len)
+class Stepper(NamedTuple):
+    init_state: Callable[[int], Any]           # n → state
+    step: Callable[[Any, Any, Any], Any]       # (state, x [N, E], t) → (logits, state)
+    gather: Callable[[Any, Any], Any]          # (state, idx [N]) → state
+    embed: Callable[[Any], Any]                # ids [N] → [N, E]
+
+
+def decoder_of(generator):
+    """The decoder of a :class:`Generator` or of a quantized twin."""
+    return generator["decoder"] if isinstance(generator, dict) \
+        else generator.decoder
+
+
+def _gather(state, idx):
+    h, c = state
+    return h[:, idx], c[:, idx]        # the row axis is 1 of [L, N, H]
+
+
+def lstm_stepper(decoder) -> Stepper:
+    """Stepper over a dense port ``Decoder``."""
+    layers = decoder.lstm.layers()
+    fused = lstm_lib.fuse_layer_params(layers)
+    hidden = layers[0]["w_hh"].shape[1]
+    weight = decoder.embed.weight
+
+    def init_state(n):
+        return lstm_lib.zero_state(len(layers), n, hidden, weight.dtype,
+                                   weight.device)
+
+    def step(state, x, t):
+        h_top, state = lstm_lib.lstm_step(fused, x, state)
+        return h_top @ decoder.linear.weight.T + decoder.linear.bias, state
+
+    return Stepper(init_state, step, _gather, lambda ids: weight[ids.long()])
+
+
+def quantized_lstm_stepper(qdec: dict) -> Stepper:
+    """Stepper over a quantized decoder: every weight read is the int8
+    payload, its scale applied after the product (``qmatmul``).  A packed
+    int4 decoder is unpacked once to int8 nibble values."""
+    if q_lib.payload_bits(qdec) == 4:
+        unpack = q_lib.unpack_int4_rows
+        qdec = dict(
+            qdec,
+            lstm_q=[{"w": q_lib.QTensor(unpack(lq["w"].q), lq["w"].scale),
+                     "b": lq["b"]} for lq in qdec["lstm_q"]],
+            linear={"w": q_lib.QTensor(unpack(qdec["linear"]["w"].q),
+                                       qdec["linear"]["w"].scale),
+                    "b": qdec["linear"]["b"]},
+            embed=q_lib.QTensor(unpack(qdec["embed"].q),
+                                qdec["embed"].scale))
+    layers = len(qdec["lstm_q"])
+    hidden = qdec["lstm_q"][0]["w"].q.shape[1] // 4
+    device = qdec["linear"]["b"].device
+
+    def init_state(n):
+        return lstm_lib.zero_state(layers, n, hidden, torch.float32, device)
+
+    def step(state, x, t):
+        h_top, state = q_lib.quantized_lstm_step(qdec, x.to(torch.float32),
+                                                 state)
+        return (q_lib.qmatmul(h_top, qdec["linear"]["w"])
+                + qdec["linear"]["b"]), state
+
+    return Stepper(init_state, step, _gather,
+                   lambda ids: q_lib.quantized_embed(qdec, ids))
+
+
+def make_stepper(generator, config: Config = None) -> Stepper:
+    """The stepper of a generator's decoder (``config``: the JAX
+    signature's; both LSTM steppers need only the weights)."""
+    dec = decoder_of(generator)
+    if q_lib.is_quantized(dec):
+        return quantized_lstm_stepper(dec)
+    return lstm_stepper(dec)
+
+
+def _stepper_greedy(stepper: Stepper, features, seq_len: int):
+    """Greedy argmax decode through a Stepper → ids [B, T] int32."""
+    state = stepper.init_state(features.shape[0])
+    x, ids = features, []
+    for t in range(seq_len):
+        logits, state = stepper.step(state, x, t)
+        ids_t = torch.argmax(logits, dim=-1)
+        ids.append(ids_t)
+        x = stepper.embed(ids_t)
+    return torch.stack(ids, dim=1).to(torch.int32)
 
 
 def kernel_serve_available(features) -> bool:
-    """The serve-mode decode kernel runs where the tensors are: on a CUDA
+    """The serve-mode decode kernels run where the tensors are: on a CUDA
     device."""
     return features.is_cuda
+
+
+def kernel_quantized_available(dec) -> bool:
+    """The quantized serve kernel reads int8 payloads (int8, or the
+    row-packed int4 carrier): true for a quantized decoder whose every
+    payload is int8."""
+    if not q_lib.is_quantized(dec):
+        return False
+    payloads = [lq["w"].q for lq in dec["lstm_q"]]
+    payloads += [dec["linear"]["w"].q, dec["embed"].q]
+    return all(q.dtype == torch.int8 for q in payloads)
 
 
 def masked_logprob_sum(ids, lps):
@@ -45,14 +150,47 @@ def masked_logprob_sum(ids, lps):
     return torch.where(keep, lps, torch.zeros_like(lps)).sum(dim=1)
 
 
+def decode_chunk(dec, x, h, c, steps: int):
+    """``steps`` serve-mode decode steps from the carried ``(h, c, x)``:
+    one call of the dense or the quantized serve wrapper (the kernel on
+    CUDA tensors, its plain version on CPU ones) → ``(ids [B, K],
+    lps [B, K], (hT, cT, xT))``."""
+    if q_lib.is_quantized(dec):
+        return decode_sample_q_serve(x, dec, steps, init_state=(h, c, x),
+                                     bits=q_lib.payload_bits(dec))
+    return decode_sample(x, dec.lstm.layers(), dec.linear.weight,
+                         dec.linear.bias, dec.embed.weight, steps,
+                         mode="serve", init_state=(h, c, x))
+
+
+def _quantized_serve(dec, features, seq_len):
+    return decode_sample_q_serve(features, dec, seq_len,
+                                 bits=q_lib.payload_bits(dec))
+
+
 @torch.no_grad()
-def greedy_with_logprobs(generator: Generator, features, config: Config,
+def greedy(generator, features, config: Config, seq_len: int = None):
+    """Deterministic greedy decode → ids [B, T] int32 (the serve kernels
+    on CUDA tensors)."""
+    seq_len = seq_len or config.seq_len
+    api.require_ported(config)
+    dec = decoder_of(generator)
+    if q_lib.is_quantized(dec):
+        return _quantized_serve(dec, features, seq_len)[0]
+    return greedy_ids(dec, features, seq_len)
+
+
+@torch.no_grad()
+def greedy_with_logprobs(generator, features, config: Config,
                          seq_len: int = None):
     """``(ids [B, T] int32, seq_logprob [B])``."""
     seq_len = seq_len or config.seq_len
     api.require_ported(config)
+    dec = decoder_of(generator)
+    if q_lib.is_quantized(dec):
+        ids, lps = _quantized_serve(dec, features, seq_len)
+        return ids, masked_logprob_sum(ids, lps)
     if kernel_serve_available(features):
-        dec = generator.decoder
         ids, lps = decode_sample(features, dec.lstm.layers(),
                                  dec.linear.weight, dec.linear.bias,
                                  dec.embed.weight, seq_len, mode="serve")
@@ -62,23 +200,63 @@ def greedy_with_logprobs(generator: Generator, features, config: Config,
 
 
 @torch.no_grad()
-def sequence_logprob(generator: Generator, features, ids, config: Config):
+def greedy_with_logprobs_adaptive(generator, features, config: Config,
+                                  seq_len: int = None, chunk: int = 8):
+    """``(ids [B, T] int32, seq_logprob [B])`` with early stopping.
+
+    Same contract as :func:`greedy_with_logprobs` up to and including each
+    row's first ``<E>``; the tail after it is ``<PAD>`` (it is outside the
+    logprob mask anyway).  The decode runs ``chunk``-step blocks, each one
+    :func:`decode_chunk` call resuming from the carried ``(h, c, x)``, and
+    stops once every row has emitted ``<E>``: ``ceil(longest caption /
+    chunk)`` blocks instead of the full ``seq_len`` steps.  The JAX
+    package's ``lax.while_loop`` keeps that condition on the device; here
+    the loop is Python, so every chunk costs one host read of the ``done``
+    flags (a device synchronisation) before the next is launched.
+    """
+    seq_len = seq_len or config.seq_len
+    api.require_ported(config)
+    dec = decoder_of(generator)
+    B, device = features.shape[0], features.device
+    K = max(1, min(chunk, seq_len))
+    t_pad = -(-seq_len // K) * K
+    stepper = make_stepper(generator, config)
+    h, c = stepper.init_state(B)
+    x = features
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    ids_buf = torch.full((B, t_pad), PAD, dtype=torch.int32, device=device)
+    lps_buf = torch.zeros((B, t_pad), dtype=torch.float32, device=device)
+    t = 0
+    while t < seq_len:
+        ids_k, lps_k, (h, c, x) = decode_chunk(dec, x, h, c, K)
+        is_end = ids_k == END
+        # void rows already done and positions after the chunk's first <E>
+        after = torch.cumsum(is_end.to(torch.int32), dim=1) - is_end.int()
+        void = done[:, None] | (after > 0)
+        ids_buf[:, t:t + K] = torch.where(void, PAD, ids_k)
+        lps_buf[:, t:t + K] = torch.where(void, 0.0, lps_k)
+        done = done | is_end.any(dim=1)
+        t += K
+        if bool(done.all()):            # the one host read of this chunk
+            break
+    return ids_buf[:, :seq_len], lps_buf[:, :seq_len].sum(dim=1)
+
+
+@torch.no_grad()
+def sequence_logprob(generator, features, ids, config: Config):
     """Greedy-path log-probability of given token sequences under the
     model, teacher-forcing the ids; positions after the first ``<E>`` do
     not count."""
     api.require_ported(config)
-    dec = generator.decoder
-    fused = lstm_lib.fuse_layer_params(dec.lstm.layers())
-    B, T = ids.shape
-    state = lstm_lib.zero_state(dec.lstm.num_layers, B, dec.lstm.hidden_dim,
-                                features.dtype, features.device)
+    stepper = make_stepper(generator, config)
+    T = ids.shape[1]
+    state = stepper.init_state(ids.shape[0])
     ids_l = ids.to(torch.long)
     x = features
     lps = []
     for t in range(T):
-        h_top, state = lstm_lib.lstm_step(fused, x, state)
-        logits = h_top @ dec.linear.weight.T + dec.linear.bias
+        logits, state = stepper.step(state, x, t)
         logp = torch.log_softmax(logits, dim=-1)
         lps.append(logp.gather(1, ids_l[:, t:t + 1])[:, 0])
-        x = dec.embed.weight[ids_l[:, t]]
+        x = stepper.embed(ids_l[:, t])
     return masked_logprob_sum(ids, torch.stack(lps, dim=1))

@@ -5,7 +5,7 @@ The JAX package keeps its params in torch layouts already (generator
 b [V]}``; discriminator ``embeddings.w [Ed, V]``, ``convs[i].w
 [n, 1, f, eds]`` …), so the bridge only renames: it takes trees as numpy
 arrays and returns the port's ``state_dict``s in the reference layout, the
-loaded modules, or a whole
+loaded modules, a quantized decoder (:func:`qdec_from_jax`), or a whole
 :class:`~gan_image_captioning_tpu_torch.train.state.TrainState`.  Nothing
 here imports JAX; the caller converts its arrays with ``numpy.asarray``
 (``jax.tree_util.tree_map(np.asarray, tree)`` keeps the named tuples of a
@@ -47,6 +47,28 @@ def generator_from_jax(tree: dict, config: Config, device="cpu") -> Generator:
     gen = Generator(config, device)
     gen.load_state_dict(params_from_jax(tree), strict=True)
     return gen
+
+
+def qdec_from_jax(qdec: dict) -> dict:
+    """A JAX quantized decoder (``ops/quantize.py:quantize_lstm_decoder``;
+    its ``QTensor``s with numpy ``q`` / ``scale``) → the port's form, the
+    same payloads, scales and shapes (int4 must be the row-packed int8
+    carrier: torch has no int4 dtype)."""
+    from gan_image_captioning_tpu_torch.ops.quantize import QTensor
+
+    def qt(x):
+        q = np.asarray(x.q)
+        if q.dtype != np.int8:
+            raise TypeError(f"quantized payload of dtype {q.dtype}: only "
+                            "int8 (or int4 packed into int8) converts")
+        return QTensor(_t(q), _t(np.asarray(x.scale, np.float32)))
+
+    return {"embed": qt(qdec["embed"]),
+            "lstm_q": [{"w": qt(lq["w"]),
+                        "b": _t(np.asarray(lq["b"], np.float32))}
+                       for lq in qdec["lstm_q"]],
+            "linear": {"w": qt(qdec["linear"]["w"]),
+                       "b": _t(np.asarray(qdec["linear"]["b"], np.float32))}}
 
 
 def disc_params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:

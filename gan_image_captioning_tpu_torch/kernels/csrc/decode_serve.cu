@@ -20,6 +20,10 @@
 //   hs/cs[t, l], gates[t, l] = h_l, c_l and the pre-activation gates (both
 //   biases) of every layer: the residuals of the manual backward
 // and in both modes  x = embed[ids[:, t]]  is the next step's input.
+// serve with carried state (the `init_state` variant, which the continuous
+// engine's chunks and the adaptive decode run): the decode starts from a
+// given (h0, c0, x0) instead of (0, 0, features) and hands back the state
+// after its last step, (hT, cT, xT), xT = embed[last ids].
 //
 // What bounds it on this card.  At the training width (E = H = 512, two
 // layers, V = 11008, T = 36, B = 64) one decode does 2*B*T*(2*4H*(E+H) +
@@ -50,52 +54,26 @@
 //     ids (and lps), normalises the row of soft across all tiles (sample)
 //     and gathers embed[id] into x.  The TPU kernel's one-hot matrix
 //     product is a TPU artefact; the gather gives the same values.
+// The carried state costs a device-to-device copy of (h, c, x) in and
+// out of the scratch buffers, nothing in the step loop: a chain of chunks
+// runs the same launches, on the same values, as one full decode.
 // Weights are re-read every step (from L2 when they stay there).  Keeping
 // them on chip across steps (one persistent kernel with a grid barrier),
-// wgmma and bf16 are later work.
+// wgmma and bf16 are later work.  decode_common.cuh holds what this file
+// shares with the quantized serve decode (decode_qserve.cu).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
 #include "tile_dot.cuh"
+
+using namespace gic;
 
 namespace {
 
-using gic::KT;
-using gic::sigmoidf;
-using gic::tile_dot;
-
-// LSTM layer tile: JT hidden units -> 4*JT gate rows, L_BT batch rows.
-constexpr int JT = 4;
-constexpr int L_RT = 4 * JT, L_BT = 32, L_TR = 2, L_TB = 2;
-constexpr int L_NT = (L_RT / L_TR) * (L_BT / L_TB);  // 128 threads
-
-// Projection tile: P_RT vocabulary rows, P_BT batch rows.
-constexpr int P_RT = 64, P_BT = 32, P_TR = 4, P_TB = 2;
-constexpr int P_NT = (P_RT / P_TR) * (P_BT / P_TB);  // 256 threads
-
-constexpr int F_NT = 128;  // finalize threads per row
-
 constexpr float GUMBEL_EPS = 1e-10f;  // the reference's add_gumbel eps
-
-// Gate row of local row r = g*JT + u: rows j, H+j, 2H+j, 3H+j of the
-// torch-layout [4H, K] weights for hidden unit j = j0 + u; -1 past H.
-struct LstmRows {
-  int j0, H;
-  __device__ int operator()(int r) const {
-    const int j = j0 + r % JT;
-    return j < H ? (r / JT) * H + j : -1;
-  }
-};
-
-struct ProjRows {
-  int v0, V;
-  __device__ int operator()(int r) const {
-    const int v = v0 + r;
-    return v < V ? v : -1;
-  }
-};
 
 // Philox4x32-10 (Salmon et al., SC'11), first output word.
 __device__ __forceinline__ uint32_t philox_x(uint32_t c0, uint32_t c1,
@@ -148,31 +126,8 @@ __global__ void __launch_bounds__(L_NT) lstm_layer_kernel(
 #pragma unroll
     for (int j = 0; j < L_TB; ++j) Gs[tr + i * NR][tb + j * NB] = acc[i][j];
   __syncthreads();
-
-  for (int e = tid; e < JT * L_BT; e += L_NT) {
-    const int u = e % JT, bl = e / JT, j = j0 + u, b = b0 + bl;
-    if (j >= H || b >= B) continue;
-    const float pi = Gs[0 * JT + u][bl] + bias[0 * H + j];
-    const float pf = Gs[1 * JT + u][bl] + bias[1 * H + j];
-    const float pg = Gs[2 * JT + u][bl] + bias[2 * H + j];
-    const float po = Gs[3 * JT + u][bl] + bias[3 * H + j];
-    const float gi = sigmoidf(pi), gf = sigmoidf(pf);
-    const float gg = tanhf(pg), go = sigmoidf(po);
-    const size_t o = (size_t)b * H + j;
-    const float cn = gf * c[o] + gi * gg;
-    const float hn = go * tanhf(cn);
-    c[o] = cn;
-    h_next[o] = hn;
-    if (gates_out != nullptr) {
-      float* g = gates_out + (size_t)b * 4 * H + j;
-      g[0] = pi;
-      g[H] = pf;
-      g[2 * H] = pg;
-      g[3 * H] = po;
-      hs_out[o] = hn;
-      cs_out[o] = cn;
-    }
-  }
+  lstm_cell_tile(Gs, bias, j0, b0, B, H, c, h_next, hs_out, cs_out,
+                 gates_out);
 }
 
 // Vocabulary projection of one (64-row vocabulary tile, 32-row batch tile)
@@ -200,26 +155,7 @@ __global__ void __launch_bounds__(P_NT) proj_kernel(
     for (int j = 0; j < P_TB; ++j) Ls[tb + j * NB][r] = acc[i][j] + bv;
   }
   __syncthreads();
-
-  if (tid < P_BT && b0 + tid < B) {
-    const int bl = tid, b = b0 + tid;
-    const int n = min(P_RT, V - v0);
-    float m = -INFINITY;
-    int arg = -1;
-    for (int r = 0; r < n; ++r) {
-      const float l = Ls[bl][r];
-      if (l > m) {  // strict: the first maximum wins
-        m = l;
-        arg = v0 + r;
-      }
-    }
-    float s = 0.f;
-    for (int r = 0; r < n; ++r) s += expf(Ls[bl][r] - m);
-    const size_t o = (size_t)b * ntile + blockIdx.x;
-    pmax[o] = m;
-    pidx[o] = arg;
-    psum[o] = s;
-  }
+  proj_tile_stats(Ls, v0, V, b0, B, pmax, pidx, psum, ntile);
 }
 
 // Sample-mode projection tile: s = logits + g with the Gumbel noise of
@@ -292,59 +228,6 @@ __global__ void __launch_bounds__(P_NT) proj_sample_kernel(
     pzmax[o] = zm;
     pzsum[o] = zs;
   }
-}
-
-// Block-wide first-index argmax over the row's tiles: the global max of
-// pmax and the lowest tile that reaches it.  Returns the tile (-1 if none).
-__device__ int block_first_argmax(const float* __restrict__ pmax, int ntile,
-                                  float* sm, int* si) {
-  const int tid = threadIdx.x;
-  float m = -INFINITY;
-  int best = -1;
-  for (int i = tid; i < ntile; i += F_NT) {  // ascending i: first max kept
-    const float v = pmax[i];
-    if (v > m) {
-      m = v;
-      best = i;
-    }
-  }
-  sm[tid] = m;
-  si[tid] = best;
-  __syncthreads();
-  for (int s = F_NT / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      const float m2 = sm[tid + s];
-      const int i2 = si[tid + s];
-      const float m1 = sm[tid];
-      const int i1 = si[tid];
-      if (i2 >= 0 && (i1 < 0 || m2 > m1 || (m2 == m1 && i2 < i1))) {
-        sm[tid] = m2;
-        si[tid] = i2;
-      }
-    }
-    __syncthreads();
-  }
-  best = si[0];
-  __syncthreads();
-  return best;
-}
-
-// Block-wide sum over the row's tiles of psum * exp(pmax - m).
-__device__ float block_rescaled_sum(const float* __restrict__ pmax,
-                                    const float* __restrict__ psum, int ntile,
-                                    float m, float* sm) {
-  const int tid = threadIdx.x;
-  float acc = 0.f;
-  for (int i = tid; i < ntile; i += F_NT) acc += psum[i] * expf(pmax[i] - m);
-  sm[tid] = acc;
-  __syncthreads();
-  for (int s = F_NT / 2; s > 0; s >>= 1) {
-    if (tid < s) sm[tid] += sm[tid + s];
-    __syncthreads();
-  }
-  const float total = sm[0];
-  __syncthreads();
-  return total;
 }
 
 // One block per batch row: combine the vocabulary tiles, emit ids/lps for
@@ -428,8 +311,8 @@ cudaError_t lstm_step(const void* const* layer_ptrs, int nl, int B, int E,
                       const Residuals* res, cudaStream_t s) {
   const size_t layer_state = (size_t)B * H;
   const dim3 grid((H + JT - 1) / JT, (B + L_BT - 1) / L_BT);
-  const float* hp = h + (size_t)(t % 2) * nl * layer_state;
-  float* hn = h + (size_t)((t + 1) % 2) * nl * layer_state;
+  const float* hp = h_read(h, nl, B, H, t);
+  float* hn = h_write(h, nl, B, H, t);
   for (int l = 0; l < nl; ++l) {
     const float* w_ih = static_cast<const float*>(layer_ptrs[3 * l]);
     const float* w_hh = static_cast<const float*>(layer_ptrs[3 * l + 1]);
@@ -451,26 +334,6 @@ cudaError_t lstm_step(const void* const* layer_ptrs, int nl, int B, int E,
   return cudaSuccess;
 }
 
-// x = feats, h = c = 0.
-cudaError_t init_state(const float* feats, int B, int E, int H, int nl,
-                       float* x, float* h, float* c, cudaStream_t s) {
-  const size_t layer_state = (size_t)B * H;
-  cudaError_t err = cudaMemcpyAsync(x, feats, sizeof(float) * B * E,
-                                    cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(h, 0, sizeof(float) * 2 * nl * layer_state, s);
-  if (err != cudaSuccess) return err;
-  return cudaMemsetAsync(c, 0, sizeof(float) * nl * layer_state, s);
-}
-
-// h_top of step t: the top layer's half of the ping-pong buffer written
-// in that step.
-const float* top_h(const float* h, int nl, int B, int H, int t) {
-  const size_t layer_state = (size_t)B * H;
-  return h + (size_t)((t + 1) % 2) * nl * layer_state +
-         (size_t)(nl - 1) * layer_state;
-}
-
 }  // namespace
 
 extern "C" {
@@ -485,18 +348,23 @@ const char* gic_error_string(int err) {
 
 // The whole T-step greedy decode on `stream`.  layer_ptrs holds 3*nl
 // device pointers: w_ih [4H, In], w_hh [4H, H], bias = b_ih + b_hh [4H] per
-// layer.  Scratch: x [B, E], h [2, nl, B, H], c [nl, B, H], pmax/pidx/psum
-// [B, ntile].  Outputs: ids, lps [B, T].  Returns 0 or the first CUDA
-// error code; nothing synchronises.
+// layer.  Carried state (each pointer may be null): h0, c0 [nl, B, H] and
+// x0 [B, E] in place of h = c = 0 and x = feats; hT, cT [nl, B, H] and
+// xT [B, E] receive the state after the last step.  Scratch: x [B, E],
+// h [2, nl, B, H], c [nl, B, H], pmax/pidx/psum [B, ntile].  Outputs:
+// ids, lps [B, T].  Returns 0 or the first CUDA error code; nothing
+// synchronises.
 int gic_decode_serve(const float* feats, const float* embed,
                      const float* w_proj, const float* b_proj,
                      const void* const* layer_ptrs, int B, int E, int H,
-                     int V, int nl, int T, float* x, float* h, float* c,
+                     int V, int nl, int T, const float* h0, const float* c0,
+                     const float* x0, float* x, float* h, float* c,
                      float* pmax, int* pidx, float* psum, int32_t* ids,
-                     float* lps, void* stream) {
+                     float* lps, float* hT, float* cT, float* xT,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ntile = (V + P_RT - 1) / P_RT;
-  cudaError_t err = init_state(feats, B, E, H, nl, x, h, c, s);
+  cudaError_t err = init_state(feats, h0, c0, x0, B, E, H, nl, x, h, c, s);
   if (err != cudaSuccess) return err;
 
   const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
@@ -513,7 +381,7 @@ int gic_decode_serve(const float* feats, const float* embed,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return 0;
+  return emit_state(h, c, x, B, E, H, nl, T, hT, cT, xT, s);
 }
 
 // The whole T-step Gumbel-softmax sample with BPTT residuals on `stream`.
@@ -531,7 +399,8 @@ int gic_decode_sample_resid(
     float* soft, float* hs, float* cs, float* gates, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ntile = (V + P_RT - 1) / P_RT;
-  cudaError_t err = init_state(feats, B, E, H, nl, x, h, c, s);
+  cudaError_t err = init_state(feats, nullptr, nullptr, nullptr, B, E, H, nl,
+                               x, h, c, s);
   if (err != cudaSuccess) return err;
 
   const Residuals res{hs, cs, gates};

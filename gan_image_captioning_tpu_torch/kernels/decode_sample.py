@@ -1,21 +1,33 @@
-"""Stacked-LSTM free-running decode: the CUDA kernel and its plain version.
+"""Stacked-LSTM free-running decode: the CUDA kernels and their plain
+versions.
 
 Counterpart of ``gan_image_captioning_tpu/kernels/decode_sample.py``
-(``decode_sample`` modes ``serve``, ``greedy`` and ``sample_resid``).  One
-call runs the whole T-step decode: stacked LSTM gates, vocabulary
-projection, first-index argmax and embedding feedback, with the per-token
-greedy log-probability (``serve``) or with Gumbel noise, the soft sample
+(``decode_sample`` modes ``serve``, ``greedy`` and ``sample_resid``, the
+carried-state ``serve`` variant, and ``decode_sample_q_serve``).  One call
+runs the whole T-step decode: stacked LSTM gates, vocabulary projection,
+first-index argmax and embedding feedback, with the per-token greedy
+log-probability (``serve``) or with Gumbel noise, the soft sample
 ``softmax(temp * (logits + g))`` and the BPTT residuals (``sample_resid``).
+``serve`` with ``init_state=(h0, c0, x0)`` resumes from a carried state
+and returns the state after its last step (the K-step chunks of the
+continuous engine and the adaptive decode); :func:`decode_sample_q_serve`
+is ``serve`` on an int8 / packed-int4 quantized decoder
+(``ops/quantize.py``).
 
-* On CUDA tensors :func:`decode_sample` launches the hand-written kernel
-  (``csrc/decode_serve.cu``, built at first use) or raises.
-* On CPU tensors it runs :func:`decode_sample_plain` /
-  :func:`decode_sample_resid_plain`, the same arithmetic as a Python loop
-  of PyTorch operations.  Nothing falls back from one to the other.
+* On CUDA tensors the wrappers launch the hand-written kernels
+  (``csrc/decode_serve.cu``, ``csrc/decode_qserve.cu``, built at first
+  use) or raise.
+* On CPU tensors they run :func:`decode_sample_plain` /
+  :func:`decode_sample_resid_plain` / :func:`decode_sample_q_serve_plain`,
+  the same arithmetic as a Python loop of PyTorch operations.  Nothing
+  falls back from one to the other.
 
-``decode_sample.launches`` counts the serve/greedy kernel launches and
-``decode_sample_resid.launches`` the sample-mode ones (one per call that
-reached the card).
+Launch counters (one per call that reached the card):
+``decode_sample.launches`` (serve / greedy, full decode),
+``decode_sample_carry.launches`` (serve with carried state),
+``decode_sample_resid.launches`` (sample mode) and
+``decode_sample_q_serve.launches`` (quantized serve, any bits, with or
+without carry).
 """
 
 from __future__ import annotations
@@ -28,19 +40,28 @@ import torch
 
 from gan_image_captioning_tpu_torch.kernels import build
 from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+# pack_int4_rows is re-exported: the JAX package defines it in this module
+from gan_image_captioning_tpu_torch.ops.quantize import (  # noqa: F401
+    pack_int4_rows, unpack_int4_rows)
 
 _PORTED_MODES = ("serve", "greedy", "sample_resid")
 _count_lock = threading.Lock()
 
 
 def decode_sample_plain(features, lstm_layers: Sequence[dict], w_proj, b_proj,
-                        embed, seq_len: int):
-    """Plain PyTorch version → ``(ids [B, T] int32, lps [B, T] f32)``."""
+                        embed, seq_len: int, init_state=None):
+    """Plain PyTorch version → ``(ids [B, T] int32, lps [B, T] f32)``; with
+    ``init_state=(h0 [nl, B, H], c0 [nl, B, H], x0 [B, E])`` the decode
+    starts there (``features`` unread) and ``(hT, cT, xT)`` follows."""
     B = features.shape[0]
     H = lstm_layers[0]["w_hh"].shape[1]
-    h = [features.new_zeros(B, H) for _ in lstm_layers]
-    c = [features.new_zeros(B, H) for _ in lstm_layers]
-    x = features
+    if init_state is None:
+        h = [features.new_zeros(B, H) for _ in lstm_layers]
+        c = [features.new_zeros(B, H) for _ in lstm_layers]
+        x = features
+    else:
+        h, c = list(init_state[0]), list(init_state[1])
+        x = init_state[2]
     ids, lps = [], []
     with torch.no_grad():
         for _ in range(seq_len):
@@ -58,8 +79,10 @@ def decode_sample_plain(features, lstm_layers: Sequence[dict], w_proj, b_proj,
             ids_t = torch.argmax(logits, dim=-1)      # first index on ties
             ids.append(ids_t)
             x = embed[ids_t]
-    return (torch.stack(ids, dim=1).to(torch.int32),
-            torch.stack(lps, dim=1))
+    out = (torch.stack(ids, dim=1).to(torch.int32), torch.stack(lps, dim=1))
+    if init_state is None:
+        return out
+    return out + ((torch.stack(h), torch.stack(c), x),)
 
 
 def seeded_uniforms(seed: int, shape, device):
@@ -111,17 +134,34 @@ def _check(name, t, shape, device):
     build.check_tensor("decode_sample", name, t, shape, device)
 
 
+def _validate_batch(fn, features, seq_len):
+    if features.ndim != 2:
+        raise ValueError(f"{fn}: features must be [B, E]")
+    B = features.shape[0]
+    if B < 1 or seq_len < 1:
+        raise ValueError(f"{fn}: batch {B} and seq_len {seq_len} must be "
+                         "positive")
+
+
+def _validate_state(fn, init_state, nl, B, E, H, device):
+    """``init_state = (h0 [nl, B, H], c0 [nl, B, H], x0 [B, E])``."""
+    if init_state is None:
+        return
+    if len(init_state) != 3:
+        raise ValueError(f"{fn}: init_state must be (h0, c0, x0)")
+    for name, t, shape in zip(("h0", "c0", "x0"), init_state,
+                              ((nl, B, H), (nl, B, H), (B, E))):
+        build.check_tensor(fn, name, t, shape, device)
+
+
 def _validate(features, lstm_layers, w_proj, b_proj, embed, seq_len):
-    if features.ndim != 2 or not lstm_layers:
-        raise ValueError("decode_sample: features must be [B, E] and "
-                         "lstm_layers non-empty")
+    if not lstm_layers:
+        raise ValueError("decode_sample: lstm_layers must be non-empty")
+    _validate_batch("decode_sample", features, seq_len)
     B, E = features.shape
     V = embed.shape[0]
     H = lstm_layers[0]["w_hh"].shape[1]
     device = features.device
-    if B < 1 or seq_len < 1:
-        raise ValueError(f"decode_sample: batch {B} and seq_len {seq_len} "
-                         "must be positive")
     _check("features", features, (B, E), device)
     _check("embed", embed, (V, E), device)
     _check("w_proj", w_proj, (V, H), device)
@@ -142,7 +182,7 @@ def _library() -> ctypes.CDLL:
         lib.gic_proj_tile.argtypes = []
         lib.gic_proj_tile.restype = i
         lib.gic_decode_serve.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [vp] * 9)
+            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [vp] * 15)
         lib.gic_decode_serve.restype = i
         lib.gic_decode_sample_resid.argtypes = (
             [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6
@@ -169,33 +209,63 @@ def _empty_on(device):
     return empty
 
 
-def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry):
+    """Scratch (x, h ping-pong, c, per-tile statistics), outputs (ids,
+    lps) and, with ``carry``, the state outputs (hT, cT, xT)."""
+    bufs = {"x": empty(B, E), "h": empty(2, nl, B, H), "c": empty(nl, B, H),
+            "pmax": empty(B, ntile), "psum": empty(B, ntile),
+            "pidx": empty(B, ntile, dtype=torch.int32),
+            "ids": empty(B, seq_len, dtype=torch.int32),
+            "lps": empty(B, seq_len)}
+    if carry:
+        bufs.update(hT=empty(nl, B, H), cT=empty(nl, B, H), xT=empty(B, E))
+    return bufs
+
+
+def _outputs(bufs, carry):
+    if not carry:
+        return bufs["ids"], bufs["lps"]
+    return bufs["ids"], bufs["lps"], (bufs["hT"], bufs["cT"], bufs["xT"])
+
+
+def _count(fn):
+    with _count_lock:
+        fn.launches += 1
+
+
+def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
+            init_state=None):
     """The serve-mode CUDA kernel: validates, allocates outputs and scratch
-    with ``torch.empty`` and runs the decode on the current stream."""
+    with ``torch.empty`` and runs the decode on the current stream; with
+    ``init_state`` it resumes from it and returns the final state too."""
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
                            seq_len)
     device = features.device
     nl = len(lstm_layers)
+    _validate_state("decode_sample", init_state, nl, B, E, H, device)
+    carry = init_state is not None
+    h0, c0, x0 = init_state if carry else (None, None, None)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
     biases, layer_ptrs = _layer_pointers(lstm_layers)
-    empty = _empty_on(device)
-    x, h, c = empty(B, E), empty(2, nl, B, H), empty(nl, B, H)
-    pmax, psum = empty(B, ntile), empty(B, ntile)
-    pidx = empty(B, ntile, dtype=torch.int32)
-    ids, lps = empty(B, seq_len, dtype=torch.int32), empty(B, seq_len)
+    bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
+                          carry)
+    p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_serve(
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
-            x.data_ptr(), h.data_ptr(), c.data_ptr(), pmax.data_ptr(),
-            pidx.data_ptr(), psum.data_ptr(), ids.data_ptr(), lps.data_ptr(),
-            stream)
+            _ptr(h0), _ptr(c0), _ptr(x0), p["x"], p["h"], p["c"], p["pmax"],
+            p["pidx"], p["psum"], p["ids"], p["lps"], p.get("hT"),
+            p.get("cT"), p.get("xT"), stream)
     build.raise_on_error(lib, rc, "decode_serve")
-    with _count_lock:
-        decode_sample.launches += 1
-    return ids, lps
+    _count(decode_sample_carry if carry else decode_sample)
+    return _outputs(bufs, carry)
 
 
 def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
@@ -238,10 +308,7 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
     soft = empty(seq_len, B, V)
     hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
     gates = empty(seq_len, nl, B, 4 * H)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    ptr = _ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_sample_resid(
@@ -253,9 +320,28 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
             pzsum.data_ptr(), ids.data_ptr(), soft.data_ptr(), hs.data_ptr(),
             cs.data_ptr(), gates.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_sample_resid")
-    with _count_lock:
-        decode_sample_resid.launches += 1
+    _count(decode_sample_resid)
     return ids, soft, hs, cs, gates
+
+
+def decode_sample_carry(features, lstm_layers: Sequence[dict], w_proj,
+                        b_proj, embed, seq_len: int, init_state):
+    """Mode ``serve`` resuming from ``init_state = (h0 [nl, B, H], c0
+    [nl, B, H], x0 [B, E])`` (float32; ``x0`` is the first step's input,
+    ``features`` is unread) → ``(ids [B, T], lps [B, T], (hT, cT, xT))``,
+    ``xT = embed[ids[:, -1]]``: the state the next chunk resumes from."""
+    device = features.device
+    if device.type == "cuda":
+        return _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
+                       init_state)
+    if device.type != "cpu":
+        raise ValueError(f"decode_sample: unsupported device {device}")
+    B, E, H, _ = _validate(features, lstm_layers, w_proj, b_proj, embed,
+                           seq_len)
+    _validate_state("decode_sample", init_state, len(lstm_layers), B, E, H,
+                    device)
+    return decode_sample_plain(features, lstm_layers, w_proj, b_proj, embed,
+                               seq_len, init_state)
 
 
 def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
@@ -267,18 +353,23 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     Args mirror the JAX ``decode_sample``: ``features [B, E]`` (the t=0
     input), per-layer ``{w_ih [4H, In], w_hh [4H, H], b_ih, b_hh}``,
     ``w_proj [V, H]``, ``b_proj [V]``, ``embed [V, E]``, all float32;
+    ``init_state`` (mode ``serve`` only, see :func:`decode_sample_carry`);
     ``seed``, ``temperature`` and ``uniforms`` are read by
     ``sample_resid`` only (see :func:`decode_sample_resid`).
     Returns ``ids [B, T]`` (``greedy``), ``(ids [B, T] int32,
-    lps [B, T] f32)`` (``serve``) or ``(ids, soft, hs, cs, gates)``
-    (``sample_resid``).
+    lps [B, T] f32)`` (``serve``; with ``init_state`` also ``(hT, cT,
+    xT)``) or ``(ids, soft, hs, cs, gates)`` (``sample_resid``).
     """
     if mode not in _PORTED_MODES:
         raise NotImplementedError(f"decode_sample mode {mode!r} is not "
                                   "ported yet")
     if init_state is not None:
-        raise NotImplementedError("decode_sample with init_state (the "
-                                  "carried-state variant) is not ported yet")
+        if mode != "serve":
+            raise NotImplementedError(
+                f"decode_sample mode {mode!r} with init_state: the carried "
+                "state is ported for mode 'serve' only")
+        return decode_sample_carry(features, lstm_layers, w_proj, b_proj,
+                                   embed, seq_len, init_state)
     if mode == "sample_resid":
         return decode_sample_resid(features, lstm_layers, w_proj, b_proj,
                                    embed, seq_len, seed, temperature,
@@ -296,5 +387,155 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     return ids if mode == "greedy" else (ids, lps)
 
 
+# ------------------------------------------------------- quantized serve
+
+def _q_library() -> ctypes.CDLL:
+    lib = build.load("decode_qserve")
+    if not getattr(lib, "_gic_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.gic_proj_tile.argtypes = []
+        lib.gic_proj_tile.restype = i
+        lib.gic_decode_qserve.argtypes = (
+            [vp, ctypes.POINTER(vp)] + [vp] * 5 + [i] * 8 + [vp] * 15)
+        lib.gic_decode_qserve.restype = i
+        lib._gic_typed = True
+    return lib
+
+
+def _q_check(name, t, shape, device, dtype=None):
+    build.check_tensor("decode_sample_q_serve", name, t, shape, device, dtype)
+
+
+def _q_scale(name, qt, n, device):
+    """A QTensor's per-column scale ([1, n] in the JAX package's shapes)
+    as the flat [n] the kernel reads."""
+    scale = qt.scale.reshape(-1)
+    _q_check(f"{name} scale", scale, (n,), device)
+    return scale
+
+
+def _q_validate(features, qdec, seq_len, bits, init_state):
+    """Shapes, dtypes and devices of a quantized decoder against
+    ``features`` and ``bits``; returns ``(B, E, H, V, nl, R_emb, flat
+    scales)``."""
+    fn = "decode_sample_q_serve"
+    if bits not in (4, 8):
+        raise ValueError(f"{fn}: bits must be 4 or 8, got {bits}")
+    if not qdec.get("lstm_q"):
+        raise ValueError(f"{fn}: qdec needs a non-empty 'lstm_q'")
+    _validate_batch(fn, features, seq_len)
+    B, E = features.shape
+    device = features.device
+    _q_check("features", features, (B, E), device)
+    nl = len(qdec["lstm_q"])
+    H = qdec["lstm_q"][0]["w"].q.shape[1] // 4
+    lin, emb = qdec["linear"], qdec["embed"]
+    V = lin["b"].shape[0]
+
+    def rows(n, name):
+        if bits == 8:
+            return n
+        if n % 2:
+            raise ValueError(f"{fn}: {name} has {n} rows to pack two per "
+                             "byte: the row count must be even")
+        return n // 2
+
+    scales = []
+    for l, lq in enumerate(qdec["lstm_q"]):
+        k = (E if l == 0 else H) + H
+        _q_check(f"layer {l} w", lq["w"].q, (rows(k, f"layer {l} w"), 4 * H),
+                 device, torch.int8)
+        scales.append(_q_scale(f"layer {l} w", lq["w"], 4 * H, device))
+        _q_check(f"layer {l} b", lq["b"], (4 * H,), device)
+    _q_check("linear w", lin["w"].q, (rows(H, "linear w"), V), device,
+             torch.int8)
+    scales.append(_q_scale("linear w", lin["w"], V, device))
+    _q_check("linear b", lin["b"], (V,), device)
+    r_emb = V if bits == 8 else -(-V // 2)
+    _q_check("embed", emb.q, (r_emb, E), device, torch.int8)
+    scales.append(_q_scale("embed", emb, E, device))
+    _validate_state(fn, init_state, nl, B, E, H, device)
+    return B, E, H, V, nl, r_emb, scales
+
+
+def dequantized_decoder(qdec: dict, bits: int = 8):
+    """A quantized decoder → the dense decode's arguments ``(lstm_layers,
+    w_proj [V, H], b_proj [V], embed [V, E])``, each weight
+    ``float(q) * scale`` (contiguous): ``w_ih`` / ``w_hh`` the transposed
+    input / hidden rows of the fused ``[in+H, 4H]`` matrix, ``b_ih`` its
+    bias and ``b_hh`` zero."""
+    def deq(qt):
+        q = unpack_int4_rows(qt.q) if bits == 4 else qt.q
+        return q.to(torch.float32) * qt.scale
+
+    V = qdec["linear"]["b"].shape[0]
+    layers = []
+    for lq in qdec["lstm_q"]:
+        w = deq(lq["w"])
+        in_dim = w.shape[0] - w.shape[1] // 4
+        layers.append({"w_ih": w[:in_dim].T.contiguous(),
+                       "w_hh": w[in_dim:].T.contiguous(),
+                       "b_ih": lq["b"], "b_hh": torch.zeros_like(lq["b"])})
+    return (layers, deq(qdec["linear"]["w"]).T.contiguous(),
+            qdec["linear"]["b"], deq(qdec["embed"])[:V].contiguous())
+
+
+def decode_sample_q_serve_plain(features, qdec: dict, seq_len: int,
+                                init_state=None, bits: int = 8):
+    """Plain version of :func:`decode_sample_q_serve`: dequantize every
+    weight once (as the TPU kernel does into VMEM), then the dense plain
+    decode."""
+    layers, w_proj, b_proj, embed = dequantized_decoder(qdec, bits)
+    return decode_sample_plain(features, layers, w_proj, b_proj, embed,
+                               seq_len, init_state)
+
+
+def decode_sample_q_serve(features, qdec: dict, seq_len: int,
+                          init_state=None, bits: int = 8):
+    """Mode ``serve`` on a quantized decoder (``ops/quantize.py``
+    ``quantize_lstm_decoder`` layout: fused ``lstm_q`` ``[in+H, 4H]``
+    QTensors, pre-transposed ``linear.w`` ``[H, V]``, ``embed [V, E]``;
+    ``bits`` 4: every payload row-packed, :func:`pack_int4_rows`) →
+    ``(ids [B, T], lps [B, T])``, with ``init_state`` also ``(hT, cT,
+    xT)`` — the return contract of :func:`decode_sample` mode ``serve``.
+    CUDA tensors launch ``csrc/decode_qserve.cu``; CPU tensors run
+    :func:`decode_sample_q_serve_plain`."""
+    B, E, H, V, nl, r_emb, scales = _q_validate(features, qdec, seq_len,
+                                                bits, init_state)
+    device = features.device
+    if device.type == "cpu":
+        return decode_sample_q_serve_plain(features, qdec, seq_len,
+                                           init_state, bits)
+    if device.type != "cuda":
+        raise ValueError(f"decode_sample_q_serve: unsupported device "
+                         f"{device}")
+    carry = init_state is not None
+    h0, c0, x0 = init_state if carry else (None, None, None)
+    lib = _q_library()
+    ntile = -(-V // lib.gic_proj_tile())
+    ptrs = []
+    for lq, scale in zip(qdec["lstm_q"], scales):
+        ptrs += [lq["w"].q.data_ptr(), scale.data_ptr(), lq["b"].data_ptr()]
+    layer_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    lin, emb = qdec["linear"], qdec["embed"]
+    bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
+                          carry)
+    p = {k: v.data_ptr() for k, v in bufs.items()}
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gic_decode_qserve(
+            features.data_ptr(), layer_ptrs, lin["w"].q.data_ptr(),
+            scales[-2].data_ptr(), lin["b"].data_ptr(), emb.q.data_ptr(),
+            scales[-1].data_ptr(), bits, B, E, H, V, r_emb, nl, seq_len,
+            _ptr(h0), _ptr(c0), _ptr(x0), p["x"], p["h"], p["c"], p["pmax"],
+            p["pidx"], p["psum"], p["ids"], p["lps"], p.get("hT"),
+            p.get("cT"), p.get("xT"), stream)
+    build.raise_on_error(lib, rc, "decode_qserve")
+    _count(decode_sample_q_serve)
+    return _outputs(bufs, carry)
+
+
 decode_sample.launches = 0
+decode_sample_carry.launches = 0
 decode_sample_resid.launches = 0
+decode_sample_q_serve.launches = 0

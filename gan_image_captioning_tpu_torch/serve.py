@@ -1,11 +1,23 @@
 """Caption serving entry point (the PyTorch port of ``src/serve.py``).
 
-Requests arrive as JSON lines (stdin, or TCP with ``--port``), coalesce in
-one dispatcher (:class:`~gan_image_captioning_tpu_torch.serving.CoalescingBatcher`)
-into fixed-shape greedy decode batches, and are answered as JSON lines.
-On the card each batch is one call of the serve-mode decode kernel.  A warm
-request runs at startup, so the first client request finds the kernel
-built and loaded.
+Requests arrive as JSON lines (stdin, or TCP with ``--port``) and are
+answered as JSON lines.  Two engines (``serving.py``):
+
+* by default one dispatcher
+  (:class:`~gan_image_captioning_tpu_torch.serving.CoalescingBatcher`)
+  coalesces requests into fixed-shape greedy decode batches, each one call
+  of the serve-mode decode kernel on the card (``--serve-adaptive-chunk K``:
+  K-step chunks of the carried-state kernel until every row has emitted
+  ``<E>``);
+* ``--serve-continuous``: a pool of ``--serve-batch-size`` decode slots
+  (:class:`~gan_image_captioning_tpu_torch.serving.ContinuousBatcher`)
+  advances ``--serve-chunk-steps`` tokens per call of the carried-state
+  kernel, and requests join it at chunk boundaries.  A slot frees at the
+  first chunk with ``<E>`` (the tail is ``<PAD>``) unless ``--serve-exact``.
+
+``--quantize int8|int4`` serves the quantized decoder (``ops/quantize.py``)
+through the quantized serve kernel in either engine.  A warm request runs
+at startup, so the first client request finds the kernel built and loaded.
 
     # a checkpoint in the reference state_dict layout (src/export_torch.py
     # writes one from a JAX checkpoint):
@@ -16,19 +28,31 @@ built and loaded.
     # or a seeded start with random weights:
     python -m gan_image_captioning_tpu_torch.serve --init-seed 0 --dataset synthetic --port 7777
 
+    # continuous batching on int8 weights, streaming one request:
+    printf '{"n": 2, "stream": true}\\n' | python -m gan_image_captioning_tpu_torch.serve \\
+        --init-seed 0 --dataset synthetic --serve-continuous --quantize int8
+
 Request forms:
-  {"n": k}         → k unconditional captions
-  {"stats": true}  → dispatcher counters
-  {"image": …}     → an error: only unconditional serving is ported
+  {"n": k}                  → k unconditional captions
+  {"n": k, "stream": true}  → (--serve-continuous) first one
+                              {"row": j, "partial": "...", "done": bool}
+                              line per chunk that commits tokens, then the
+                              response
+  {"stats": true}           → engine counters ("coalescing", and
+                              "continuous" when that engine runs)
+  {"image": …}              → an error: only unconditional serving is ported
 Response: {"captions": [...], "logprobs": [...], "latency_ms": t}
 
 The service runs on ``--device cuda`` (the default) and raises when CUDA
-is missing; ``--device cpu`` runs the plain PyTorch decode.
+is missing; ``--device cpu`` runs the plain PyTorch decode.  Not ported:
+``--decode-mode speculative``, HTTP, ``{"reload"}``, ``--serve-watch``,
+``--mesh``.
 """
 
 from __future__ import annotations
 
 import json
+import queue
 import socketserver
 import sys
 import time
@@ -47,7 +71,9 @@ from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
 from gan_image_captioning_tpu_torch.models.api import require_ported
 from gan_image_captioning_tpu_torch.models.generator import (
     init_generator_params, start_token_features)
-from gan_image_captioning_tpu_torch.serving import CoalescingBatcher
+from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
+from gan_image_captioning_tpu_torch.serving import (CoalescingBatcher,
+                                                    ContinuousBatcher)
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
 
 
@@ -73,6 +99,22 @@ def parse_args(argv=None):
     parser.add_argument("--serve-max-pending", type=int, default=0,
                         help="reject a request at once when the pending "
                              "queue holds this many entries (0 = unbounded)")
+    parser.add_argument("--serve-continuous", action="store_true",
+                        help="slot-based continuous batching: requests join "
+                             "the decode pool at chunk boundaries instead "
+                             "of waiting for whole batches")
+    parser.add_argument("--serve-chunk-steps", type=int, default=8,
+                        help="decode steps per device call in "
+                             "--serve-continuous mode")
+    parser.add_argument("--serve-exact", action="store_true",
+                        help="--serve-continuous: no early slot release, so "
+                             "ids equal the full-T batch greedy decode (by "
+                             "default a slot frees at the first chunk with "
+                             "<E> and the tail is <PAD>)")
+    parser.add_argument("--serve-adaptive-chunk", type=int, default=0,
+                        help="coalescing decode in K-step chunks that stop "
+                             "once every row has emitted <E> (0 = the full "
+                             "T-step decode); the tail after <E> is <PAD>")
     args = parser.parse_args(argv)
     if bool(args.checkpoint) == (args.init_seed is not None):
         parser.error("exactly one of --checkpoint or --init-seed is required")
@@ -122,15 +164,30 @@ class CaptionService:
                                               sweep=args.init_sweep)
             self.checkpoint_path = f"init-seed:{args.init_seed}"
         self.generator = generator.requires_grad_(False)
+        # the decode reads the quantized twin under --quantize; the start
+        # token's feature row stays the full-precision embedding
+        self.dec_params = (quantize_generator(self.generator, self.config)
+                           if self.config.quantize != "none"
+                           else self.generator)
+        self.adaptive_chunk = int(args.serve_adaptive_chunk)
+        self.continuous = None
         self.batcher = CoalescingBatcher(
             self._run_decode, self.batch_size, self.config.gen_embed_dim,
             bucket_sizes=_parse_buckets(args.serve_buckets, self.batch_size),
             max_pending=args.serve_max_pending)
         try:
-            # warm through the real request path, every bucket shape
+            if args.serve_continuous:
+                self.continuous = ContinuousBatcher(
+                    self.dec_params, self.config, num_slots=self.batch_size,
+                    chunk_steps=args.serve_chunk_steps,
+                    early_exit=not args.serve_exact,
+                    max_pending=args.serve_max_pending)
+            # warm through the real request path, every bucket shape (the
+            # slot pool has one shape)
             self.handle_request({"n": 1})
-            for b in self.batcher.bucket_sizes[1:]:
-                self.handle_request({"n": b})
+            if self.continuous is None:
+                for b in self.batcher.bucket_sizes[1:]:
+                    self.handle_request({"n": b})
         except BaseException:
             self.close()
             raise
@@ -138,40 +195,89 @@ class CaptionService:
     def _run_decode(self, feats: np.ndarray):
         """One dispatched batch → ``(ids, seq_logprob)`` on the device."""
         x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
-        return decode_lib.greedy_with_logprobs(self.generator, x, self.config)
+        if self.adaptive_chunk > 0:
+            return decode_lib.greedy_with_logprobs_adaptive(
+                self.dec_params, x, self.config, chunk=self.adaptive_chunk)
+        return decode_lib.greedy_with_logprobs(self.dec_params, x,
+                                               self.config)
 
     def _features_unconditional(self, n: int) -> np.ndarray:
         return start_token_features(self.generator.decoder, n).cpu().numpy()
 
-    def handle_request(self, req: dict) -> dict:
-        """One request → one response dict."""
+    def _caption(self, ids) -> str:
+        return " ".join(ids_to_words(strip_caption(ids), self.index_to_word))
+
+    def handle_request(self, req: dict, emit=None) -> dict:
+        """One request → one response dict.
+
+        ``emit`` (optional): a callable the line transports pass so that
+        ``{"stream": true}`` on a ``--serve-continuous`` service sends an
+        intermediate ``{"row": j, "partial": "<caption so far>", "done":
+        bool}`` line for every chunk that commits tokens for the request,
+        before the response."""
         t0 = time.perf_counter()
         if req.get("stats"):
-            return {"coalescing": self.batcher.stats(),
-                    "checkpoint": self.checkpoint_path}
+            out = {"coalescing": self.batcher.stats(),
+                   "checkpoint": self.checkpoint_path}
+            if self.continuous is not None:
+                out["continuous"] = self.continuous.stats()
+            return out
         if "image" in req:
             return {"error": "checkpoint is unconditional; use {'n': k}"}
         n = int(req.get("n", 1))
         if n < 1:
             return {"error": "'n' must be a positive integer"}
+        stream = bool(req.get("stream"))
+        if stream and (self.continuous is None or emit is None):
+            return {"error": "streaming needs --serve-continuous (and a "
+                             "streaming transport: stdin or --port TCP)"}
         feats = self._features_unconditional(n)
-        ids, lps = self.batcher.submit(feats).result(timeout=120)
-        captions = [" ".join(ids_to_words(strip_caption(row),
-                                          self.index_to_word))
-                    for row in ids]
-        return {"captions": captions,
+        if self.continuous is not None:
+            ids, lps = self._continuous(feats, emit if stream else None)
+        else:
+            ids, lps = self.batcher.submit(feats).result(timeout=120)
+        return {"captions": [self._caption(row) for row in ids],
                 "logprobs": [round(float(x), 4) for x in lps],
                 "latency_ms": round((time.perf_counter() - t0) * 1e3, 2)}
 
-    def handle_line(self, line: str) -> dict:
+    def _continuous(self, feats: np.ndarray, emit):
+        """Each row takes a decode slot (the whole request is admitted or
+        rejected at once); with ``emit``, chunk progress is relayed until
+        every row has resolved."""
+        events = queue.Queue() if emit is not None else None
+        on_tokens = (None if events is None else
+                     (lambda j, ids, done: events.put((j, ids, done))))
+        futs = self.continuous.submit_many(list(feats), on_tokens=on_tokens)
+        if events is not None:
+            def relay(ev):
+                j, ids_now, done = ev
+                emit({"row": j, "partial": self._caption(ids_now),
+                      "done": bool(done)})
+
+            deadline = time.monotonic() + 120
+            while (any(not f.done() for f in futs)
+                   and time.monotonic() < deadline):
+                try:
+                    relay(events.get(timeout=0.1))
+                except queue.Empty:
+                    pass
+            while not events.empty():    # what landed after the last future
+                relay(events.get_nowait())
+        results = [f.result(timeout=120) for f in futs]
+        return (np.stack([r[0] for r in results]),
+                np.asarray([r[1] for r in results]))
+
+    def handle_line(self, line: str, emit=None) -> dict:
         """A request line → its response; a malformed request or a failed
         decode answers with an error instead of ending the loop."""
         try:
-            return self.handle_request(json.loads(line))
+            return self.handle_request(json.loads(line), emit=emit)
         except Exception as exc:  # the serving loop must keep running
             return {"error": f"{type(exc).__name__}: {exc}"}
 
     def close(self):
+        if self.continuous is not None:
+            self.continuous.close()
         self.batcher.close()
 
 
@@ -179,12 +285,13 @@ def make_tcp_server(service: CaptionService, port: int):
     """JSON-lines TCP front end on 127.0.0.1 over the same dispatcher."""
     class Handler(socketserver.StreamRequestHandler):
         def handle(self):
-            for line in self.rfile:
-                if not line.strip():
-                    continue
-                resp = service.handle_line(line.decode())
-                self.wfile.write((json.dumps(resp) + "\n").encode())
+            def emit(obj):
+                self.wfile.write((json.dumps(obj) + "\n").encode())
                 self.wfile.flush()
+
+            for line in self.rfile:
+                if line.strip():
+                    emit(service.handle_line(line.decode(), emit=emit))
 
     return socketserver.ThreadingTCPServer(("127.0.0.1", port), Handler)
 
@@ -200,9 +307,12 @@ def main(argv=None):
             with make_tcp_server(service, args.port) as srv:
                 srv.serve_forever()
         else:
+            def emit(obj):
+                print(json.dumps(obj), flush=True)
+
             for line in sys.stdin:
                 if line.strip():
-                    print(json.dumps(service.handle_line(line)), flush=True)
+                    emit(service.handle_line(line, emit=emit))
     finally:
         service.close()
 

@@ -87,8 +87,10 @@ def test_cpu_call_counts_no_launch(setup):
     assert decode_sample.launches == before
 
 
+# the carried state is ported for mode "serve" only
+# (tests/test_torch_port_qserve.py holds it against the JAX package)
 @pytest.mark.parametrize("kwargs", [{"mode": "sample"}, {"mode": "pretrain"},
-                                    {"mode": "serve", "init_state": ()}])
+                                    {"mode": "greedy", "init_state": ()}])
 def test_unported_variants_raise(setup, kwargs):
     _, gen, feats = setup
     with pytest.raises(NotImplementedError):
