@@ -70,16 +70,54 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     request p50 / p90 of the continuous service; device time by kernel
     and busy share of the quantized decode and of a continuous request.
 
+14. ``image_norm_kernel`` — the ``image_norm`` kernel against its plain
+    version at B = 64, 3 x 256 x 256, at B = 3, 3 x 37 x 37 (a plane of
+    H*W % 4 = 1: the scalar tail and groups that span two planes) and on
+    a view at an odd byte offset (the scalar kernel): max |diff| <= 1e-6,
+    one launch per call; its time beside the plain version's, one
+    ``torch.addcmul`` (the library call) and the bound.
+15. ``cond_service`` — preset config2 (conditional, ResNet-18, E = H = 512,
+    2 layers, 256 x 256 images) greedy (``--beam-size 1``), V = 11008:
+    ``serve.CaptionService`` with seeded weights, the device part of
+    ``{"image": …}`` (``caption_images`` on seeded normalized images,
+    N = 1 and 8) on the coalescing and the continuous engine; captions
+    equal to the full-T kernel decode of the same features, sequence
+    logprobs within 1e-3, the decode kernels' launches equal to the
+    engines' ``device_calls``; the encoder's features on the card against
+    the same module on the CPU (max |diff| / max |feature| <= 1e-4, TF32
+    off); request p50 / p90.
+16. ``cond_train`` — config3 + ``--conditional-gan 1`` at B = 64 on uint8
+    images (``images_u8``, normalized by ``image_norm`` in the step): two
+    MLE steps (free), two (teacher) and two adversarial steps with the
+    launch counts (``image_norm`` once per step); then each step's losses,
+    gradients and updated running statistics through the kernels against
+    the plain route on the same state (losses within 1e-4, gradients
+    within 1e-3 of the largest gradient of their side, statistics within
+    1e-4; the per-tensor errors are reported too: at initialization the
+    discriminator's gradient is a difference of nearly equal real and
+    fake terms, and the head projection's bias has a zero gradient under
+    train-mode BatchNorm, so a tensor's own max can be rounding), a
+    ``--trainable-backbone 1`` adversarial step likewise; ms per step on
+    both routes; the encoder pass's time and share of the step (also with
+    cuDNN's TF32 convolutions, PyTorch's default), device time by kernel
+    and busy share (torch.profiler).
+17. ``loop`` — ``gan_image_captioning_tpu_torch.main`` in this process:
+    synthetic conditional data (256 items), preset config3 at the bench
+    geometry, one pretrain and one adversarial epoch on the card; every
+    kernel of the path launched, every logged loss finite, and both
+    checkpoints served through ``caption_images``.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
-8 and 4 bits) and, last, ``{"ok": true, "device": …}``.  Any failed phase raises, so the script exits non-zero;
-without CUDA it exits non-zero before printing a result.  The plain
-versions' matrix products and convolutions run in full float32: TF32 is
-switched off below.
+8 and 4 bits, ``image_norm``) and, last, ``{"ok": true, "device": …}``.
+Any failed phase raises, so the script exits non-zero; without CUDA it
+exits non-zero before printing a result.  The plain versions' matrix
+products and convolutions run in full float32: TF32 is switched off below.
 """
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import math
@@ -99,7 +137,8 @@ F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
 Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
-KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "decode_qserve"]
+KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "decode_qserve",
+                  "image_norm"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -1296,17 +1335,22 @@ def phase_train(device):
 
 def compare_grads(a, b):
     """Losses and per-tensor gradient error (max |a - b| over max |b|) of
-    two ``adv_grads`` results."""
-    errs = {}
+    two ``adv_grads`` results; and each side's largest error over the
+    side's largest gradient."""
+    errs, side_errs = {}, {}
     for side, ga, gb in (("gen", a[2], b[2]), ("disc", a[3], b[3])):
+        diffs = {k: float((ga[k] - gb[k]).abs().max()) for k in ga}
+        scales = {k: float(gb[k].abs().max()) for k in ga}
         for k in ga:
-            scale = float(gb[k].abs().max())
-            errs[f"{side}.{k}"] = (float((ga[k] - gb[k]).abs().max())
-                                   / max(scale, 1e-30))
+            errs[f"{side}.{k}"] = diffs[k] / max(scales[k], 1e-30)
+        if ga:
+            side_errs[side] = max(diffs.values()) / max(max(scales.values()),
+                                                        1e-30)
     return {"g_loss": [float(a[0]), float(b[0])],
             "d_loss": [float(a[1]), float(b[1])],
             "ids_equal": bool(torch.equal(a[4]["gen_ids"], b[4]["gen_ids"])),
-            "grad_rel_err": errs, "max_grad_rel_err": max(errs.values())}
+            "grad_rel_err": errs, "max_grad_rel_err": max(errs.values()),
+            "grad_side_rel_err": side_errs}
 
 
 def step_ms(fn, reps):
@@ -1420,6 +1464,528 @@ def kernel_entries(smi, train_kernel_rows, train_times, launches):
     return out
 
 
+# ------------------------------------------------ conditional captioning
+
+IMG_S = 256
+NORM_ATOL, ENC_RTOL, STAT_RTOL = 1e-6, 1e-4, 1e-4
+NORM_TPU_KERNEL = "gan_image_captioning_tpu/kernels/image_norm.py:34"
+COND_FLAGS = ["--preset", "config2", "--beam-size", "1", *MODEL_FLAGS,
+              "--image-size", str(IMG_S)]
+
+
+def seeded_u8(shape, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, shape, dtype=np.uint8)).to(device)
+
+
+def norm_work(n):
+    """image_norm: one byte read and four written per element; a multiply
+    and an add."""
+    return 5 * n, 2 * n
+
+
+def phase_image_norm_kernel(device):
+    """The image_norm kernel against its plain version, with one launch
+    per call; times at B = 64, 256 x 256."""
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+
+    rows = []
+    big = seeded_u8((3 * 3 * 37 * 37 + 1,), 37, device)
+    cases = [("b64", seeded_u8((B_TRAIN, 3, IMG_S, IMG_S), 64, device)),
+             ("odd", seeded_u8((3, 3, 37, 37), 3, device)),
+             ("offset_view", big[1:].view(3, 3, 37, 37))]
+    for name, u8 in cases:
+        inorm.normalize_images.launches = 0
+        out_k = inorm.normalize_images(u8)
+        torch.cuda.synchronize()
+        launches = inorm.normalize_images.launches
+        out_p = inorm.normalize_images_plain(u8)
+        row = {"case": name, "shape": list(u8.shape), "launches": launches,
+               "max_abs_diff": float((out_k - out_p).abs().max()),
+               "bit_equal": bool(torch.equal(out_k, out_p)),
+               "finite": bool(torch.isfinite(out_k).all())}
+        rows.append(row)
+        emit({"phase": "image_norm_kernel", **row})
+        check(launches == 1, f"image_norm launches {launches} != 1")
+        check(row["finite"] and row["max_abs_diff"] <= NORM_ATOL,
+              f"image_norm {row}")
+
+    u8 = cases[0][1]
+    scale, shift = inorm._affine(device)
+    lib = torch.addcmul(shift, u8, scale)
+    lib_err = float((lib - inorm.normalize_images_plain(u8)).abs().max())
+    kern = lambda: inorm.normalize_images(u8)               # noqa: E731
+    plain = lambda: inorm.normalize_images_plain(u8)       # noqa: E731
+    library = lambda: torch.addcmul(shift, u8, scale)      # noqa: E731
+    p_a, k_a, l_a = (cuda_ms(f, reps=50) for f in (plain, kern, library))
+    l_b, k_b, p_b = (cuda_ms(f, reps=50) for f in (library, kern, plain))
+    nbytes, flops = norm_work(u8.numel())
+    b_ms, b_by = bound(nbytes, flops)
+    times = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b],
+             "library_ms": [l_a, l_b], "library": "torch.addcmul(shift, u8, "
+             "scale), [1, 3, 1, 1] float32 operands",
+             "library_max_abs_diff": lib_err, "bound_ms": b_ms,
+             "bound_by": b_by, "bytes": nbytes, "flop": flops,
+             "shape": list(u8.shape)}
+    emit({"phase": "image_norm_kernel", **times})
+    return {"rows": rows, "times": times}
+
+
+def phase_cond_service(device):
+    """config2's conditional service, seeded: the device part of an image
+    request on both engines against the full-T kernel decode of the same
+    features, with the decode kernels' launch counts; the encoder on the
+    card against the CPU; request latency."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
+    from gan_image_captioning_tpu_torch.eval.decode import masked_logprob_sum
+    from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
+                                                             strip_caption)
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample, decode_sample_carry)
+    from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
+
+    i2w = synthetic_vocab()[1]
+    images = {n: seeded((n, 3, IMG_S, IMG_S), 500 + n,
+                        torch.device("cpu")).numpy() for n in (1, 8)}
+    out = {}
+    for engine in ("coalescing", "continuous"):
+        extra = [] if engine == "coalescing" else ["--serve-continuous"]
+        service = serve.CaptionService(serve.parse_args(
+            ["--init-seed", "0", *COND_FLAGS, *extra]))
+        try:
+            counter = (decode_sample if engine == "coalescing"
+                       else decode_sample_carry)
+            stats = (service.batcher.stats if engine == "coalescing"
+                     else service.continuous.stats)
+            calls0 = stats()["device_calls"]
+            counter.launches = 0
+            resps = {n: service.caption_images(images[n]) for n in (1, 8)}
+            launches = counter.launches
+            calls = stats()["device_calls"] - calls0
+            row = {"engine": engine, "launches": launches,
+                   "device_calls": calls,
+                   "latency_ms": {n: r["latency_ms"]
+                                  for n, r in resps.items()}}
+            for n, resp in resps.items():
+                feats = torch.from_numpy(service.features_from_images(
+                    images[n])).to(device)
+                ids_r, lps_r = continuous_reference(service.dec_params, feats)
+                want = [" ".join(ids_to_words(strip_caption(r.tolist()), i2w))
+                        for r in ids_r]
+                want_lp = masked_logprob_sum(ids_r, lps_r).tolist()
+                check(resp["captions"] == want,
+                      f"{engine} N={n}: captions differ from the kernel "
+                      f"decode: {resp['captions']} vs {want}")
+                lp_diff = max(abs(a - b) for a, b in zip(resp["logprobs"],
+                                                        want_lp))
+                check(lp_diff <= SEQ_ATOL, f"{engine} N={n}: lp {lp_diff}")
+                row[f"n{n}"] = {"distinct_captions": len(set(want)),
+                                "distinct_logprobs": len(set(
+                                    resp["logprobs"])),
+                                "max_abs_seq_lp_diff": lp_diff,
+                                "caption_0": want[0]}
+            check(launches > 0 and launches == calls,
+                  f"{engine}: decode launches {launches} != device_calls "
+                  f"{calls}")
+            if engine == "coalescing":
+                # the encoder on the card against the same module on the CPU
+                enc_cpu = copy.deepcopy(service.generator.encoder).cpu()
+                with torch.no_grad():
+                    f_cpu = encoder_lib.encode(
+                        enc_cpu, torch.from_numpy(images[8]), service.config,
+                        train=False)
+                f_dev = torch.from_numpy(service.features_from_images(
+                    images[8]))
+                rel = float((f_dev - f_cpu).abs().max() / f_cpu.abs().max())
+                row["encoder_card_vs_cpu_rel"] = rel
+                check(rel <= ENC_RTOL, f"encoder card vs CPU: {rel}")
+            lat = {}
+            for n in (1, 8):
+                ms = [service.caption_images(images[n])["latency_ms"]
+                      for _ in range(20)]
+                lat[n] = {"p50_ms": float(np.percentile(ms, 50)),
+                          "p90_ms": float(np.percentile(ms, 90)),
+                          "samples": len(ms)}
+            row["request_latency"] = lat
+        finally:
+            service.close()
+        emit({"phase": "cond_service", **row,
+              "note": f"caption_images: normalized {IMG_S} x {IMG_S} images in, one "
+                      "eval-mode encoder pass, greedy decode; host clock"})
+        out[engine] = row
+    return out
+
+
+COND_COUNTERS = COUNTERS + ("image_norm",)
+
+
+def cond_counters():
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+
+    return {**counters(), "image_norm": inorm.normalize_images}
+
+
+def cond_setup(device, **overrides):
+    """config3 + --conditional-gan 1 at bench.py's geometry, float32, with
+    un-swept initial weights, B = 64 captions and seeded uint8 images."""
+    from gan_image_captioning_tpu_torch.config import Config
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.models.generator import (
+        init_generator_params)
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import batch_to
+
+    config = Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                    gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN,
+                    disc_embed_dim=DISC_E, disc_num_rep=DISC_R,
+                    disc_filter_sizes=tuple(f for _, f in BANKS),
+                    disc_num_filters=tuple(n for n, _ in BANKS),
+                    disc_train_freq=DISC_EVERY, conditional_gan=1,
+                    image_size=IMG_S, **overrides)
+    gen = init_generator_params(torch.Generator().manual_seed(0), config,
+                                device, sweep=False)
+    disc = api.init_discriminator(torch.Generator().manual_seed(1), config,
+                                  device, sweep=False)
+    state = create_train_state(config, 0, device, gen=gen, disc=disc)
+    caps = [np.random.default_rng(i).integers(4, min(11000, V), size=30)
+            for i in range(B_TRAIN)]
+    imgs = [np.random.default_rng(1000 + i).integers(
+        0, 256, (3, IMG_S, IMG_S), dtype=np.uint8) for i in range(B_TRAIN)]
+    batch = batch_to(make_batch(caps, imgs, T), device)
+    check("images_u8" in batch, "the batch is not uint8")
+    return config, state, batch
+
+
+def running_stats(gen):
+    return {k: v.detach().clone() for k, v in gen.state_dict().items()
+            if "running" in k}
+
+
+def restore_stats(gen, stats):
+    sd = gen.state_dict()
+    with torch.no_grad():
+        for k, v in stats.items():
+            sd[k].copy_(v)
+
+
+def stats_rel_err(a, b):
+    return max(float((a[k] - b[k]).abs().max())
+               / max(float(b[k].abs().max()), 1e-30) for k in b)
+
+
+def cond_grads(kind, config, state, batch, noise):
+    """One forward and backward of a conditional step without the update:
+    ``(g_loss, d_loss, gen_grads, disc_grads, aux)`` like ``adv_grads``
+    (the MLE kinds fill the generator side only)."""
+    from gan_image_captioning_tpu_torch.train import steps
+
+    if kind == "adv":
+        return steps.adv_grads(config, state, batch, TEMP, noise)
+    cfg = config.replace(mle_objective=kind.split("_")[1])
+    loss = steps.mle_loss(cfg, state, batch)
+    gen_grads, = steps._grads(loss, state.gen)
+    return loss.detach(), loss.detach() * 0, gen_grads, {}, {
+        "gen_ids": torch.zeros(1)}
+
+
+def float64_copy(config, state, batch, noise):
+    """The state's models, the batch (its images normalized by the plain
+    version) and the fed noise in float64, for a reference gradient."""
+    import dataclasses
+
+    from gan_image_captioning_tpu_torch.kernels.image_norm import (
+        normalize_images_plain)
+
+    state64 = dataclasses.replace(state,
+                                  gen=copy.deepcopy(state.gen).double(),
+                                  disc=copy.deepcopy(state.disc).double())
+    batch64 = {k: v for k, v in batch.items() if k != "images_u8"}
+    batch64["images"] = normalize_images_plain(batch["images_u8"]).double()
+    batch64["weights"] = batch["weights"].double()
+    noise64 = {"uniforms": noise["uniforms"].double(), "keep": noise["keep"]}
+    return state64, batch64, noise64
+
+
+def compare_routes(kind, config, state, batch):
+    """A step's losses, gradients and new running statistics through the
+    kernels against the plain route, from the same state and noise; for
+    the adversarial step also both routes against the plain route in
+    float64 (the conv pools at the kernel route's rows in both)."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+
+    noise = fed_noise(config, device=batch["captions"].device)
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain",
+                               image_norm_impl="plain")
+    start = running_stats(state.gen)
+    with disc_conv.argmax_record() as rows:
+        kern = cond_grads(kind, config, state, batch, noise)
+    stats_k = running_stats(state.gen)
+    restore_stats(state.gen, start)
+    with disc_conv.argmax_replay(rows) as report:
+        plain = cond_grads(kind, plain_cfg, state, batch, noise)
+    stats_p = running_stats(state.gen)
+    restore_stats(state.gen, start)
+    cmp = compare_grads(kern, plain)
+    cmp["stats_rel_err"] = stats_rel_err(stats_k, stats_p)
+    cmp["stats_moved"] = any(not torch.equal(stats_k[k], start[k])
+                             for k in start)
+    if kind == "adv":
+        cmp["argmax_gap"] = max([g for g, _ in report] or [0.0])
+        with disc_conv.argmax_replay(rows):
+            ref = cond_grads(kind, plain_cfg,
+                             *float64_copy(config, state, batch, noise))
+        cmp["kernel_vs_float64"] = compare_grads(kern, ref)[
+            "grad_side_rel_err"]
+        cmp["plain_vs_float64"] = compare_grads(plain, ref)[
+            "grad_side_rel_err"]
+    return cmp
+
+
+def routes_agree(cmp):
+    """Each side's gradients within GRAD_RTOL of the side's largest
+    gradient; or, for the adversarial step, the kernel route no further
+    from the float64 plain route than twice the float32 plain route."""
+    for side, err in cmp["grad_side_rel_err"].items():
+        if err <= GRAD_RTOL:
+            continue
+        if "kernel_vs_float64" not in cmp:
+            return False
+        if (cmp["kernel_vs_float64"][side]
+                > 2 * cmp["plain_vs_float64"][side]):
+            return False
+    return True
+
+
+def phase_cond_train(device):
+    """Conditional MLE (free, teacher) and adversarial steps on uint8
+    batches with the launch counts; each against the plain route; a
+    trainable-backbone step; times and the profile."""
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+    from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    config, state, batch = cond_setup(device)
+    steps = {"mle_free": make_mle_step(config),
+             "mle_teacher": make_mle_step(config.replace(
+                 mle_objective="teacher")),
+             "adv": make_adv_step(config)}
+    stats0 = running_stats(state.gen)
+    conv1 = state.gen.encoder.resnet.conv1.weight.detach().clone()
+    cnt = cond_counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for kind in ("mle_free", "mle_free", "mle_teacher", "mle_teacher", "adv",
+                 "adv"):
+        args = (TEMP,) if kind == "adv" else ()
+        state, m = steps[kind](state, batch, *args)
+        metrics.append({"step": kind, **{k: float(v) for k, v in m.items()}})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    expected = {"image_norm": 6, "decode_serve": 2, "decode_sample_resid": 2,
+                "lstm_bptt_chain": 2, "disc_conv_fwd": 6,
+                "disc_conv_bwd_dx": 6}
+    row = {"metrics": metrics, "launches": launches,
+           "expected_launches": expected, "seconds": seconds,
+           "stats_moved_max_abs": max(
+               float((v - stats0[k]).abs().max())
+               for k, v in running_stats(state.gen).items()),
+           "frozen_backbone_unchanged": bool(torch.equal(
+               state.gen.encoder.resnet.conv1.weight, conv1))}
+    emit({"phase": "cond_train", **row})
+    check(all(math.isfinite(v) for m in metrics for k, v in m.items()
+              if k != "step"), "non-finite conditional metric")
+    check(launches == expected, f"launches {launches} != {expected}")
+    check(row["stats_moved_max_abs"] > 0, "running statistics did not move")
+    check(row["frozen_backbone_unchanged"], "the frozen backbone moved")
+
+    routes = {}
+    for kind in ("mle_free", "mle_teacher", "adv"):
+        cmp = compare_routes(kind, config, state, batch)
+        routes[kind] = cmp
+        worst = sorted(cmp["grad_rel_err"].items(), key=lambda kv: -kv[1])[:3]
+        emit({"phase": "cond_train", "kernels_vs_plain": kind,
+              "g_loss": cmp["g_loss"], "d_loss": cmp["d_loss"],
+              "ids_equal": cmp["ids_equal"],
+              "max_grad_rel_err": cmp["max_grad_rel_err"], "worst": worst,
+              "grad_side_rel_err": cmp["grad_side_rel_err"],
+              **{k: cmp[k] for k in ("argmax_gap", "kernel_vs_float64",
+                                     "plain_vs_float64") if k in cmp},
+              "stats_rel_err": cmp["stats_rel_err"],
+              "stats_moved": cmp["stats_moved"]})
+        for name in ("g_loss", "d_loss"):
+            a, b = cmp[name]
+            check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30),
+                  f"{kind} {name} {a} vs {b}")
+        check(cmp["ids_equal"], f"{kind}: the routes sampled different ids")
+        check(routes_agree(cmp), f"{kind}: {cmp['grad_side_rel_err']}, "
+              f"{cmp.get('kernel_vs_float64')}, "
+              f"{cmp.get('plain_vs_float64')}, {worst}")
+        check(cmp["stats_moved"] and cmp["stats_rel_err"] <= STAT_RTOL,
+              f"{kind}: running statistics {cmp['stats_rel_err']}")
+
+    # --trainable-backbone 1: one adversarial step, and against plain
+    cfg_t, state_t, batch_t = cond_setup(device, trainable_backbone=1)
+    cmp = compare_routes("adv", cfg_t, state_t, batch_t)
+    check(any(k.startswith("gen.encoder.resnet.")
+              for k in cmp["grad_rel_err"]),
+          "no backbone gradient under --trainable-backbone 1")
+    worst = sorted(cmp["grad_rel_err"].items(), key=lambda kv: -kv[1])[:3]
+    check(routes_agree(cmp), f"trainable: {cmp['grad_side_rel_err']}, "
+          f"{cmp.get('kernel_vs_float64')}, {cmp.get('plain_vs_float64')}, "
+          f"{worst}")
+    check(cmp["stats_rel_err"] <= STAT_RTOL, f"trainable stats {cmp}")
+    conv1 = state_t.gen.encoder.resnet.conv1.weight.detach().clone()
+    inorm.normalize_images.launches = 0
+    state_t, m = make_adv_step(cfg_t)(state_t, batch_t, TEMP)
+    torch.cuda.synchronize()
+    moved = not torch.equal(state_t.gen.encoder.resnet.conv1.weight, conv1)
+    trainable = {"max_grad_rel_err": cmp["max_grad_rel_err"], "worst": worst,
+                 "grad_side_rel_err": cmp["grad_side_rel_err"],
+                 "kernel_vs_float64": cmp["kernel_vs_float64"],
+                 "plain_vs_float64": cmp["plain_vs_float64"],
+                 "stats_rel_err": cmp["stats_rel_err"],
+                 "backbone_moved": moved,
+                 "image_norm_launches": inorm.normalize_images.launches,
+                 "metrics": {k: float(v) for k, v in m.items()}}
+    emit({"phase": "cond_train", "trainable_backbone": trainable})
+    check(moved and trainable["image_norm_launches"] == 1,
+          f"trainable step {trainable}")
+    del state_t, batch_t
+
+    # ms per step, kernel route against plain route, in turns
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain",
+                               image_norm_impl="plain")
+    times = {}
+    for kind in ("mle_free", "mle_teacher", "adv"):
+        fns = {}
+        for route, cfg in (("kernel", config), ("plain", plain_cfg)):
+            if kind == "adv":
+                step = make_adv_step(cfg)
+                fns[route] = lambda step=step: step(state, batch, TEMP)
+            else:
+                step = make_mle_step(cfg.replace(
+                    mle_objective=kind.split("_")[1]))
+                fns[route] = lambda step=step: step(state, batch)
+        p_a = step_ms(fns["plain"], 2)
+        k_a = step_ms(fns["kernel"], 4)
+        k_b = step_ms(fns["kernel"], 4)
+        p_b = step_ms(fns["plain"], 2)
+        times[kind] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b]}
+        emit({"phase": "cond_train", "timing": kind, "B": B_TRAIN,
+              **times[kind]})
+    # the encoder pass alone (image_norm + train-mode ResNet-18 + head);
+    # then it and the adversarial step with cuDNN's TF32 convolutions,
+    # PyTorch's default outside this script
+    def encoder_pass():
+        return encoder_lib.encode(state.gen.encoder,
+                                  inorm.normalize_images(batch["images_u8"]),
+                                  config, train=True)
+
+    enc_ms = cuda_ms(encoder_pass, reps=5)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        enc_tf32 = cuda_ms(encoder_pass, reps=5)
+        adv_tf32 = step_ms(lambda: steps["adv"](state, batch, TEMP), 4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    enc = {"encoder_ms": enc_ms,
+           "share_of_step": {k: enc_ms / min(v["kernel_ms"])
+                             for k, v in times.items()},
+           "cudnn_tf32": {"encoder_ms": enc_tf32, "adv_step_ms": adv_tf32,
+                          "share_of_adv_step": enc_tf32 / adv_tf32}}
+    emit({"phase": "cond_train", "encoder_pass": enc})
+    prof = profile_calls(lambda: steps["adv"](state, batch, TEMP), 3,
+                         KERNEL_NAMES + ("image_norm",))
+    emit({"phase": "cond_train", "profile": "adv", **prof})
+    return {"launches": launches, "routes": routes, "times": times,
+            "encoder": enc, "profile": prof, "trainable": trainable}
+
+
+def phase_loop(device, workdir):
+    """``main.main`` in this process: one pretrain and one adversarial
+    epoch of conditional synthetic data at the bench geometry; then both
+    checkpoints through the conditional service."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch import serve
+
+    save = workdir / "loop"
+    shutil.rmtree(save, ignore_errors=True)
+    geometry = ["--preset", "config3", "--conditional-gan", "1",
+                *MODEL_FLAGS, "--image-size", str(IMG_S),
+                "--disc-embed-dim", str(DISC_E), "--disc-num-rep", str(DISC_R),
+                "--disc-filter-sizes", ",".join(str(f) for _, f in BANKS),
+                "--disc-num-filters", ",".join(str(n) for n, _ in BANKS)]
+    argv = [*geometry, "--synthetic-items", "256", "--pretrain-epochs", "1",
+            "--adv-epochs", "1", "--save-dir", str(save), "--expt-name",
+            "smoke"]
+    cnt = cond_counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        inst = train_main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    rows = [json.loads(ln) for ln in open(Path(inst.config.save_dir)
+                                          / "metrics.jsonl")]
+    losses = [r for r in rows if r["tag"].endswith("_loss")]
+    row = {"seconds": seconds, "launches": launches,
+           "pretrain_steps": inst.pretrain_steps,
+           "gen_steps": inst.state.gen_steps,
+           "disc_steps": inst.state.disc_steps,
+           "temperature": inst.state.temperature,
+           "logged_losses": len(losses),
+           "all_finite": all(math.isfinite(r["value"]) for r in rows),
+           "log_tail": log.getvalue().splitlines()[-4:]}
+    for kernel in ("decode_serve", "decode_sample_resid", "lstm_bptt_chain",
+                   "disc_conv_fwd", "disc_conv_bwd_dx"):
+        check(launches[kernel] > 0, f"loop: {kernel} never launched")
+    check(row["all_finite"] and len(losses) > 0, "loop: non-finite metric")
+    check(inst.pretrain_steps == 4 and inst.state.gen_steps == 4,
+          f"loop counters {row}")
+    images = seeded((2, 3, IMG_S, IMG_S), 900, torch.device("cpu")).numpy()
+    served = {}
+    for name in ("pretrained_model.ckpt", "adv_model.ckpt"):
+        path = Path(inst.config.model_dir) / name
+        check(path.is_file(), f"loop: {name} missing")
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", str(path), *geometry]))
+        try:
+            resp = service.caption_images(images)
+        finally:
+            service.close()
+        check(len(resp["captions"]) == 2
+              and all(math.isfinite(x) for x in resp["logprobs"]),
+              f"loop: {name} served {resp}")
+        served[name] = resp
+    row["served"] = served
+    emit({"phase": "loop", **row})
+    return row
+
+
+def image_norm_entry(smi, norm, cond_train):
+    times = norm["times"]
+    return {
+        "name": "image_norm", "route": "cuda",
+        "source": "gan_image_captioning_tpu_torch/kernels/csrc/image_norm.cu",
+        "replaces": NORM_TPU_KERNEL,
+        "launches": cond_train["launches"]["image_norm"],
+        "max_abs_err": max(r["max_abs_diff"] for r in norm["rows"]),
+        "ms": min(times["kernel_ms"]), "plain_ms": min(times["plain_ms"]),
+        "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
+        "library_ms": min(times["library_ms"]), "shape": times["shape"],
+        "card": smi}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -1479,6 +2045,14 @@ def main(argv=None):
         cont_times = phase_continuous_timing(gen.decoder, device, workdir)
     if run("continuous_profile"):
         phase_continuous_profile(gen.decoder, device, workdir)
+    if run("image_norm_kernel"):
+        norm = phase_image_norm_kernel(device)
+    if run("cond_service"):
+        phase_cond_service(device)
+    if run("cond_train"):
+        cond_train = phase_cond_train(device)
+    if run("loop"):
+        phase_loop(device, workdir)
     if only:
         return 0
 
@@ -1502,7 +2076,8 @@ def main(argv=None):
         "card": smi}] + kernel_entries(smi, train_kernel_rows, train_times,
                                        train_row["launches"])
         + continuous_entries(smi, carry_rows, q_rows, cont_times,
-                             cont_service)})
+                             cont_service)
+        + [image_norm_entry(smi, norm, cond_train)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

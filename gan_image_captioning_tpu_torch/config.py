@@ -1,9 +1,13 @@
-"""The serving and training subset of the flag system.
+"""The flag system of the port's entry points.
 
 Counterpart of ``gan_image_captioning_tpu/config.py``: the same flag names
-and defaults for what the serving path and the MLE / adversarial training
-steps read, parsed into a frozen :class:`Config`.  ``--device`` defaults to
-``cuda``; :func:`resolve_device` turns it into a ``torch.device`` and
+and defaults for what the serving path, the training steps and the
+training loop read, parsed into a frozen :class:`Config`, with the JAX
+package's ``--preset`` bundles ``config1``-``config3`` and its
+experiment-dir side effects (:func:`make_experiment_dirs`).  Flags of the
+JAX package that the port does not honour yet are parsed and refused when
+set (:func:`require_ported_flags`), never ignored.  ``--device`` defaults
+to ``cuda``; :func:`resolve_device` turns it into a ``torch.device`` and
 refuses to fall back to the CPU.
 """
 
@@ -11,7 +15,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,6 +27,57 @@ def _int_list(text):
     if isinstance(text, (list, tuple)):
         return [int(x) for x in text]
     return [int(x) for x in str(text).replace(" ", "").split(",") if x]
+
+
+# The JAX package's presets (``config.py:PRESETS``) as flag defaults;
+# explicit flags still win.  config2 asks for beam search (beam_size 4),
+# which is not ported: run it with ``--beam-size 1``.
+PRESETS = {
+    "config1": dict(conditional_gan=1, pretrain_epochs=20, adv_epochs=0,
+                    dataset_percent=0.01, captions_per_image=5, beam_size=1,
+                    pre_train_batch_size=32, pre_eval_batch_size=32,
+                    mle_objective="teacher"),
+    "config2": dict(conditional_gan=1, pretrain_epochs=50, adv_epochs=0,
+                    captions_per_image=5, beam_size=4,
+                    gen_embed_dim=512, gen_num_layers=2),
+    "config3": dict(gen_embed_dim=512, gen_num_layers=2, pretrain_epochs=50,
+                    adv_epochs=50, pretrain_lr=1e-2, gen_lr=1e-4,
+                    disc_lr=1e-4, dataset_percent=0.1, captions_per_image=5),
+}
+UNPORTED_PRESETS = {
+    "config4": "the transformer generator and discriminator with REINFORCE",
+    "config5": "the ViT encoder and the GPT-2 generator",
+}
+
+
+def _scan_preset(argv) -> Optional[str]:
+    if argv is None:
+        import sys
+
+        argv = sys.argv[1:]
+    for i, tok in enumerate(argv):
+        if tok == "--preset":
+            return argv[i + 1] if i + 1 < len(argv) else None
+        if tok.startswith("--preset="):
+            return tok.split("=", 1)[1]
+    return None
+
+
+class _PresetParser(argparse.ArgumentParser):
+    """Resolves ``--preset`` as flag defaults before the real parse (the
+    JAX package's two-pass ``_PresetParser``)."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        name = _scan_preset(args)
+        if name in UNPORTED_PRESETS:
+            raise NotImplementedError(
+                f"--preset {name}: {UNPORTED_PRESETS[name]} are not ported "
+                "yet")
+        if name is not None:
+            if name not in PRESETS:
+                self.error(f"unknown --preset {name!r}")
+            self.set_defaults(**PRESETS[name])
+        return super().parse_known_args(args, namespace)
 
 
 def add_model_args(parser):
@@ -95,6 +151,23 @@ def add_training_args(parser):
     g.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="compute dtype (only float32 is ported yet)")
+    g.add_argument("--pretrain-epochs", type=int, default=0,
+                   help="number of epochs for pretraining generator")
+    g.add_argument("--pre-train-batch-size", type=int, default=64,
+                   help="batch size for pretrain training")
+    g.add_argument("--pre-eval-batch-size", type=int, default=64,
+                   help="batch size for pretrain evaluation")
+    g.add_argument("--adv-epochs", type=int, default=30,
+                   help="number of epochs for adversarial training")
+    g.add_argument("--adv-train-batch-size", type=int, default=64,
+                   help="batch size for adversarial training")
+    g.add_argument("--adv-eval-batch-size", type=int, default=64,
+                   help="batch size for adversarial evaluation")
+    g.add_argument("--seed", type=int, default=1008,
+                   help="global seed (reference main.py:14 hardcodes 1008)")
+    g.add_argument("--init-gen-ckpt", type=str, default="",
+                   help="warm-start the generator from a checkpoint of the "
+                        "port (optimizers and counters fresh)")
 
 
 def add_data_args(parser):
@@ -109,6 +182,26 @@ def add_data_args(parser):
                    help="round the dataset vocab size up to a multiple of "
                         "this; padded ids are never produced by data and "
                         "decode maps them to <UNK>")
+    g.add_argument("--image-size", type=int, default=256,
+                   help="resize dim of images")
+    g.add_argument("--captions-per-image", type=int, default=1,
+                   help="no of captions to use per image")
+    # the reference's underscore spelling, and the dashed one
+    g.add_argument("--dataset_percent", "--dataset-percent", type=float,
+                   default=1.0, dest="dataset_percent",
+                   help="percentage of dataset to use for training")
+    g.add_argument("--synthetic-items", type=int, default=512,
+                   help="train items for --dataset synthetic (val gets 1/4)")
+    g.add_argument("--device-preprocess", type=int, default=0, choices=[0, 1],
+                   help="ship resized uint8 images to the device and "
+                        "normalize there (the image_norm kernel)")
+    g.add_argument("--num-workers", type=int, default=4,
+                   help="accepted; the port's loader is single-threaded "
+                        "(this changes overlap, never results)")
+    g.add_argument("--device-prefetch", type=int, default=2,
+                   help="accepted; batches are copied to the device in the "
+                        "step's thread (this changes overlap, never "
+                        "results)")
 
 
 def add_global_args(parser):
@@ -116,6 +209,20 @@ def add_global_args(parser):
     g.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on: 'cuda' (default), "
                         "'cuda:N' or 'cpu'")
+    g.add_argument("--expt-name", type=str, default="debug",
+                   help="Name of the experiment")
+    g.add_argument("--model-dir", type=str, default="models",
+                   help="directory to save models")
+    g.add_argument("--data-dir", type=str, default="./data",
+                   help="directory where data is stored")
+    g.add_argument("--save-dir", type=str, default="./save",
+                   help="directory to save the expt logs")
+    g.add_argument("--adv-log-step", type=int, default=1,
+                   help="Log step frequency for adversarial training")
+    g.add_argument("--pre-log-step", type=int, default=1,
+                   help="Log step frequency for pretraining")
+    g.add_argument("--log-file", type=str, default="log",
+                   help="Log file to save logs")
 
 
 def add_extension_args(parser):
@@ -129,10 +236,52 @@ def add_extension_args(parser):
                         "stack, vocab projection) as symmetric "
                         "per-channel int8, int4 as int4 packed two per "
                         "byte (ops/quantize.py); training stays float32")
+    g.add_argument("--encoder-arch", type=str, default="resnet18",
+                   choices=["resnet18", "vit"],
+                   help="image encoder backbone (vit is not ported yet)")
+    g.add_argument("--trainable-backbone", type=int, default=0,
+                   choices=[0, 1],
+                   help="train the image backbone instead of freezing it")
+    g.add_argument("--beam-size", type=int, default=1,
+                   help="beam width for caption decoding (1 = greedy; beam "
+                        "search is not ported yet)")
+    g.add_argument("--preset", type=str, default=None,
+                   choices=sorted(PRESETS) + sorted(UNPORTED_PRESETS),
+                   help="a named benchmark configuration as flag defaults "
+                        "(config4 and config5 are not ported yet)")
+    # The JAX package's flags that the port does not honour yet: each is
+    # parsed with its JAX default and refused when set
+    # (require_ported_flags).
+    for flag, kw in _UNPORTED_FLAG_ARGS:
+        g.add_argument(flag, **kw, help="not ported yet: raises when set")
+
+
+# flag → argparse keywords (the JAX names, types and defaults)
+_UNPORTED_FLAG_ARGS = (
+    ("--random-flip", dict(type=int, default=0, choices=[0, 1])),
+    ("--random-crop-pad", dict(type=int, default=0)),
+    ("--cache-features", dict(type=int, default=0, choices=[0, 1])),
+    ("--resume", dict(type=str, default="")),
+    ("--checkpoint-every", dict(type=int, default=0)),
+    ("--early-stop-patience", dict(type=int, default=0)),
+    ("--eval-bleu-every", dict(type=int, default=0)),
+    ("--scst-epochs", dict(type=int, default=0)),
+    ("--steps-per-call", dict(type=int, default=1)),
+    ("--length-buckets", dict(type=str, default="")),
+    ("--mesh", dict(type=str, default="")),
+    ("--profile-dir", dict(type=str, default="")),
+    ("--precollate", dict(type=str, default="auto",
+                          choices=["auto", "on", "off"])),
+    ("--ema-decay", dict(type=float, default=0.0)),
+    ("--lr-schedule", dict(type=str, default="constant",
+                           choices=["constant", "cosine", "linear",
+                                    "exponential"])),
+    ("--grad-accum", dict(type=int, default=1)),
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser("GAN captioning (PyTorch port)")
+    parser = _PresetParser("GAN captioning (PyTorch port)")
     add_data_args(parser)
     add_model_args(parser)
     add_training_args(parser)
@@ -150,7 +299,9 @@ class Config:
     defaults) call the decode, BPTT and conv wrappers, which launch the
     CUDA kernels on CUDA tensors and run the plain versions on CPU ones;
     ``"plain"`` runs the plain PyTorch versions on any device, to compare
-    a step through the kernels with the same step without them."""
+    a step through the kernels with the same step without them.
+    ``image_norm_impl`` does the same for the ``image_norm`` kernel of
+    ``images_u8`` batches."""
 
     vocab_size: int = -1
     gen_embed_dim: int = 32
@@ -160,6 +311,11 @@ class Config:
     gen_arch: str = "lstm"
     gen_init: str = "uniform"
     conditional_gan: int = 0
+    # image encoder
+    encoder_arch: str = "resnet18"
+    trainable_backbone: int = 0
+    image_size: int = 256
+    device_preprocess: int = 0
     # discriminator
     disc_arch: str = "cnn"
     disc_embed_dim: int = 64
@@ -184,9 +340,48 @@ class Config:
     grad_accum: int = 1
     ema_decay: float = 0.0
     quantize: str = "none"
+    beam_size: int = 1
+    # the training loop (train/instructor.py, main.py)
+    dataset: str = "coco"
+    captions_per_image: int = 1
+    dataset_percent: float = 1.0
+    synthetic_items: int = 512
+    pretrain_epochs: int = 0
+    pre_train_batch_size: int = 64
+    pre_eval_batch_size: int = 64
+    adv_epochs: int = 30
+    adv_train_batch_size: int = 64
+    adv_eval_batch_size: int = 64
+    seed: int = 1008
+    init_gen_ckpt: str = ""
+    num_workers: int = 4
+    device_prefetch: int = 2
+    device: str = "cuda"
+    expt_name: str = "debug"
+    model_dir: str = "models"
+    data_dir: str = "./data"
+    save_dir: str = "./save"
+    adv_log_step: int = 1
+    pre_log_step: int = 1
+    log_file: str = "log"
+    # the JAX package's options that are not ported (require_ported_flags)
+    random_flip: int = 0
+    random_crop_pad: int = 0
+    cache_features: int = 0
+    resume: str = ""
+    checkpoint_every: int = 0
+    early_stop_patience: int = 0
+    eval_bleu_every: int = 0
+    scst_epochs: int = 0
+    steps_per_call: int = 1
+    length_buckets: str = ""
+    mesh: str = ""
+    profile_dir: str = ""
+    precollate: str = "auto"
     # kernel routes (see the class docstring)
     decode_impl: str = "kernel"
     disc_engine: str = "mxu"
+    image_norm_impl: str = "kernel"
 
     @property
     def cgan(self) -> bool:
@@ -215,6 +410,40 @@ def config_from_args(args: argparse.Namespace) -> Config:
     fields = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: tuple(v) if isinstance(v, list) else v
                      for k, v in vars(args).items() if k in fields})
+
+
+def require_ported_flags(config: Config) -> None:
+    """Raise for a flag of the JAX package that the port parses but does
+    not honour yet, when it is set; and for ``--beam-size`` above 1 and
+    ``--encoder-arch vit``."""
+    for flag, kw in _UNPORTED_FLAG_ARGS:
+        name = flag[2:].replace("-", "_")
+        value = getattr(config, name)
+        if value != kw["default"]:
+            raise NotImplementedError(f"{flag} {value}: not ported yet")
+    if config.beam_size != 1:
+        raise NotImplementedError(
+            f"--beam-size {config.beam_size}: beam search is not ported yet "
+            "(pass --beam-size 1 for greedy decoding)")
+    if config.encoder_arch != "resnet18":
+        raise NotImplementedError(f"--encoder-arch {config.encoder_arch}: "
+                                  "only the ResNet-18 encoder is ported yet")
+
+
+def make_experiment_dirs(args: argparse.Namespace) -> argparse.Namespace:
+    """The reference's experiment dirs (``args.py:261-273``): the first free
+    ``{save_dir}/{expt_name}_{n}`` and its ``{model_dir}``; ``save_dir``,
+    ``model_dir``, ``expt_name`` and ``log_file`` are rewritten into it."""
+    n = 1
+    while os.path.exists(os.path.join(args.save_dir, f"{args.expt_name}_{n}")):
+        n += 1
+    args.expt_name = f"{args.expt_name}_{n}"
+    args.save_dir = os.path.join(args.save_dir, args.expt_name)
+    os.makedirs(args.save_dir)
+    args.model_dir = os.path.join(args.save_dir, args.model_dir)
+    os.makedirs(args.model_dir)
+    args.log_file = os.path.join(args.save_dir, args.log_file)
+    return args
 
 
 def padded_vocab_size(vocab_size: int, multiple: int) -> int:

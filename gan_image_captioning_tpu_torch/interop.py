@@ -2,10 +2,13 @@
 
 The JAX package keeps its params in torch layouts already (generator
 ``embed [V, E]``, per-layer ``w_ih [4H, In]`` …, ``linear {w [V, H],
-b [V]}``; discriminator ``embeddings.w [Ed, V]``, ``convs[i].w
-[n, 1, f, eds]`` …), so the bridge only renames: it takes trees as numpy
-arrays and returns the port's ``state_dict``s in the reference layout, the
-loaded modules, a quantized decoder (:func:`qdec_from_jax`), or a whole
+b [V]}``; encoder convs OIHW, ``proj {w [E, 512], b}``, BatchNorm
+``scale``/``bias`` with the running statistics in a parallel ``bn_stats``
+tree; discriminator ``embeddings.w [Ed, V]``, ``convs[i].w [n, 1, f,
+eds]`` …), so the bridge only renames: it takes trees as numpy arrays and
+returns the port's ``state_dict``s (the encoder's backbone under
+torchvision's names), the loaded modules, a quantized decoder
+(:func:`qdec_from_jax`), or a whole
 :class:`~gan_image_captioning_tpu_torch.train.state.TrainState`.  Nothing
 here imports JAX; the caller converts its arrays with ``numpy.asarray``
 (``jax.tree_util.tree_map(np.asarray, tree)`` keeps the named tuples of a
@@ -28,8 +31,54 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _bn_from_jax(out: dict, name: str, weights: dict, stats: dict) -> None:
+    out[f"{name}.weight"] = _t(weights["scale"])
+    out[f"{name}.bias"] = _t(weights["bias"])
+    out[f"{name}.running_mean"] = _t(stats["mean"])
+    out[f"{name}.running_var"] = _t(stats["var"])
+    out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def encoder_params_from_jax(enc: dict,
+                            prefix: str = "encoder.") -> Dict[str, torch.Tensor]:
+    """A JAX ``encoder`` tree (``backbone``, ``proj``, ``head_bn``,
+    ``bn_stats``) → the port's :class:`Encoder` ``state_dict`` (backbone
+    under torchvision's names, ``num_batches_tracked`` zero)."""
+    bw, bs = enc["backbone"], enc["bn_stats"]["backbone"]
+    r = prefix + "resnet."
+    out = {r + "conv1.weight": _t(bw["conv1"]["w"])}
+    _bn_from_jax(out, r + "bn1", bw["bn1"], bs["bn1"])
+    for s in range(1, 5):
+        for b, (blk, st) in enumerate(zip(bw[f"layer{s}"], bs[f"layer{s}"])):
+            base = f"{r}layer{s}.{b}"
+            out[f"{base}.conv1.weight"] = _t(blk["conv1"]["w"])
+            out[f"{base}.conv2.weight"] = _t(blk["conv2"]["w"])
+            _bn_from_jax(out, f"{base}.bn1", blk["bn1"], st["bn1"])
+            _bn_from_jax(out, f"{base}.bn2", blk["bn2"], st["bn2"])
+            if "downsample" in blk:
+                out[f"{base}.downsample.0.weight"] = _t(blk["downsample"]["w"])
+                _bn_from_jax(out, f"{base}.downsample.1", blk["downsample_bn"],
+                             st["downsample_bn"])
+    out[prefix + "linear.weight"] = _t(enc["proj"]["w"])
+    out[prefix + "linear.bias"] = _t(enc["proj"]["b"])
+    _bn_from_jax(out, prefix + "bn", enc["head_bn"], enc["bn_stats"]["head"])
+    return out
+
+
+def encoder_from_jax(enc: dict, config: Config, device="cpu"):
+    """A port :class:`Encoder` holding a JAX ``encoder`` tree's weights
+    and running statistics."""
+    from gan_image_captioning_tpu_torch.models.encoder import Encoder
+
+    encoder = Encoder(config, device)
+    encoder.load_state_dict(encoder_params_from_jax(enc, prefix=""),
+                            strict=True)
+    return encoder
+
+
 def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """JAX generator params (numpy leaves) → reference-layout state_dict."""
+    """JAX generator params (numpy leaves) → reference-layout state_dict
+    (with the encoder's keys when the tree has an ``encoder``)."""
     dec = tree["decoder"] if "decoder" in tree else tree
     out = {"decoder.embed.weight": _t(dec["embed"]),
            "decoder.linear.weight": _t(dec["linear"]["w"]),
@@ -39,6 +88,8 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
         out[f"decoder.lstm.weight_hh_l{k}"] = _t(layer["w_hh"])
         out[f"decoder.lstm.bias_ih_l{k}"] = _t(layer["b_ih"])
         out[f"decoder.lstm.bias_hh_l{k}"] = _t(layer["b_hh"])
+    if tree.get("encoder") is not None:
+        out.update(encoder_params_from_jax(tree["encoder"]))
     return out
 
 
@@ -92,35 +143,47 @@ def discriminator_from_jax(tree: dict, config: Config,
     return disc
 
 
-def _adam_from_jax(opt_state, rename, device):
+def _adam_from_jax(opt_state, rename, module, device):
     """The ``ScaleByAdamState`` of a JAX ``clip → adam`` chain state
-    (``opt_state[1][0]``) → the port's ``AdamState``."""
-    from gan_image_captioning_tpu_torch.train.state import AdamState
+    (``opt_state[1][0]``) → the port's ``AdamState`` over ``module``'s
+    trainable parameters.  The JAX moments of what the port keeps out of
+    its optimizer — the encoder's running statistics and a frozen
+    backbone, whose gradients are zero there, so their moments are zero
+    and their updates exactly zero — are dropped."""
+    from gan_image_captioning_tpu_torch.train.state import (
+        AdamState, trainable_parameters)
 
     adam = opt_state[1][0]
+    keys = trainable_parameters(module).keys()
+    mu, nu = rename(adam.mu), rename(adam.nu)
     return AdamState(int(np.asarray(adam.count)),
-                     {k: v.to(device) for k, v in rename(adam.mu).items()},
-                     {k: v.to(device) for k, v in rename(adam.nu).items()})
+                     {k: mu[k].to(device) for k in keys},
+                     {k: nu[k].to(device) for k in keys})
 
 
 def train_state_from_jax(state, config: Config, device="cpu"):
     """A JAX ``TrainState`` (numpy leaves) → the port's ``TrainState``:
-    params, the three Adam states (count and moments), the step counters
-    and the temperature, so that a port run continues it.  The JAX PRNG
-    stream cannot be carried over; the port's generator is seeded from the
-    key's bits instead."""
-    from gan_image_captioning_tpu_torch.train.state import TrainState
+    params (and a conditional generator's running statistics), the three
+    Adam states (count and moments, see :func:`_adam_from_jax`), the step
+    counters and the temperature, so that a port run continues it.  The
+    JAX PRNG stream cannot be carried over; the port's generator is seeded
+    from the key's bits instead."""
+    from gan_image_captioning_tpu_torch.train.state import (TrainState,
+                                                            freeze_backbone)
 
     key = np.asarray(state.rng).astype(np.uint64).reshape(-1)
     seed = int(key[-2]) << 32 | int(key[-1]) if key.size > 1 else int(key[0])
+    gen = freeze_backbone(generator_from_jax(state.gen_params, config,
+                                             device), config)
+    disc = discriminator_from_jax(state.disc_params, config, device)
     return TrainState(
-        gen=generator_from_jax(state.gen_params, config, device),
-        disc=discriminator_from_jax(state.disc_params, config, device),
+        gen=gen, disc=disc,
         pretrain_opt=_adam_from_jax(state.pretrain_opt_state,
-                                    params_from_jax, device),
-        gen_opt=_adam_from_jax(state.gen_opt_state, params_from_jax, device),
+                                    params_from_jax, gen, device),
+        gen_opt=_adam_from_jax(state.gen_opt_state, params_from_jax, gen,
+                               device),
         disc_opt=_adam_from_jax(state.disc_opt_state, disc_params_from_jax,
-                                device),
+                                disc, device),
         generator=torch.Generator().manual_seed(seed),
         pretrain_steps=int(np.asarray(state.pretrain_steps)),
         gen_steps=int(np.asarray(state.gen_steps)),

@@ -1,7 +1,8 @@
 """Architecture dispatch (``gan_image_captioning_tpu/models/api.py``).
 
-Only the unconditional LSTM generator and the CNN discriminator are
-ported; :func:`require_ported` turns any other configuration away.
+Only the LSTM generator (unconditional, or conditional on the ResNet-18
+encoder) and the CNN discriminator are ported; :func:`require_ported`
+turns any other configuration away.
 """
 
 from __future__ import annotations
@@ -11,17 +12,20 @@ from typing import Any, Dict
 import torch
 
 from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.kernels.image_norm import (
+    normalize_images, normalize_images_plain)
 from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
+from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
 from gan_image_captioning_tpu_torch.models import generator as gen_lstm
 
 
 def require_ported(config: Config, disc: bool = False) -> None:
     """Raise for a configuration whose path is not ported yet (``disc``:
     the discriminator's too)."""
-    if config.cgan:
+    if config.cgan and config.encoder_arch != "resnet18":
         raise NotImplementedError(
-            "--conditional-gan 1: the conditional image encoder is not "
-            "ported yet")
+            f"--encoder-arch {config.encoder_arch}: only the ResNet-18 "
+            "encoder is ported yet")
     if config.gen_arch != "lstm":
         raise NotImplementedError(
             f"--gen-arch {config.gen_arch}: only the LSTM generator is "
@@ -39,11 +43,42 @@ def _plain_decode(config: Config) -> bool:
     return config.decode_impl == "plain"
 
 
+def _images(config: Config, batch: Dict[str, Any]):
+    """The batch's float32 images: ``images``, or ``images_u8`` normalized
+    on the device (the ``image_norm`` kernel, or its plain version under
+    ``image_norm_impl="plain"``)."""
+    if "backbone_feats" in batch:
+        raise NotImplementedError("cached backbone features "
+                                  "(--cache-features) are not ported yet")
+    if "images_u8" in batch:
+        if config.dtype != "float32":
+            raise NotImplementedError(f"--dtype {config.dtype}: only float32 "
+                                      "images are ported yet")
+        if config.image_norm_impl not in ("kernel", "plain"):
+            raise ValueError(f"image_norm_impl {config.image_norm_impl!r}: "
+                             "expected 'kernel' or 'plain'")
+        norm = (normalize_images_plain if config.image_norm_impl == "plain"
+                else normalize_images)
+        return norm(batch["images_u8"])
+    return batch["images"]
+
+
 def generator_condition(config: Config, generator: gen_lstm.Generator,
                         batch: Dict[str, Any], train: bool = False):
-    """Unconditional conditioning bundle ``({'features': [B, E],
-    'context': None}, None)`` — ``<S>``-token embeddings per row."""
+    """The conditioning bundle ``({'features': [B, E], 'context': None},
+    new_bn_stats)``.
+
+    Conditional: one encoder pass over the batch's images (``images``, or
+    ``images_u8`` through ``image_norm``); in train mode it moves every
+    running statistic once, and ``new_bn_stats`` are the encoder's running
+    statistics after it.  Unconditional: ``<S>``-token embeddings per row
+    and ``None``."""
     require_ported(config)
+    if config.cgan:
+        feats = encoder_lib.encode(generator.encoder, _images(config, batch),
+                                   config, train)
+        return ({"features": feats, "context": None},
+                encoder_lib.bn_stats(generator.encoder))
     batch_size = batch["captions"].shape[0]
     return ({"features": gen_lstm.start_token_features(generator.decoder,
                                                        batch_size),

@@ -1,9 +1,12 @@
 """LSTM caption decoder (``gan_image_captioning_tpu/models/generator.py``).
 
-:class:`Generator` holds a :class:`Decoder` under ``decoder``, so its
-``state_dict`` has the reference's keys (``decoder.embed.weight``,
-``decoder.lstm.weight_ih_l{k}``, ``decoder.linear.weight`` …) — the layout
-``src/export_torch.py`` writes from a JAX checkpoint.
+:class:`Generator` holds a :class:`Decoder` under ``decoder`` and, when
+conditional, an image :class:`~gan_image_captioning_tpu_torch.models.
+encoder.Encoder` under ``encoder``, so its ``state_dict`` has the
+reference's keys (``decoder.embed.weight``, ``decoder.lstm.weight_ih_l{k}``,
+``decoder.linear.weight``, ``encoder.linear.weight`` …; the backbone under
+``encoder.resnet.*`` with torchvision's names, which the checkpoint renames
+to the reference's ``nn.Sequential`` numbers).
 
 :func:`sample` is the free-running decode of the JAX package's
 ``_sample_kernel``: ``pretrain`` gives greedy ids from the decode kernel
@@ -16,6 +19,7 @@ kernel.  :func:`teacher_forced` is the reference's ``Decoder.forward``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -27,6 +31,7 @@ from gan_image_captioning_tpu_torch.kernels.decode_sample import (
     decode_sample_resid_plain, seeded_uniforms)
 from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
     lstm_bptt_chain, lstm_bptt_chain_plain)
+from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
 from gan_image_captioning_tpu_torch.models import lstm
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
@@ -46,12 +51,17 @@ class Decoder(nn.Module):
 
 
 class Generator(nn.Module):
-    """The unconditional generator: a decoder only (the conditional image
-    encoder is not ported yet)."""
+    """The decoder, and the image encoder when ``with_encoder`` (by
+    default: when the configuration is conditional)."""
 
-    def __init__(self, config: Config, device="cpu", dtype=torch.float32):
+    def __init__(self, config: Config, device="cpu", dtype=torch.float32,
+                 with_encoder: Optional[bool] = None):
         super().__init__()
         self.decoder = Decoder(config, device, dtype)
+        if config.cgan if with_encoder is None else with_encoder:
+            self.encoder = encoder_lib.Encoder(config, device, dtype)
+        else:
+            self.encoder = None
 
 
 @torch.no_grad()
@@ -70,12 +80,17 @@ def init_decoder_params(generator: torch.Generator, decoder: Decoder) -> Decoder
 
 
 def init_generator_params(generator: torch.Generator, config: Config,
-                          device="cpu", sweep: bool = True) -> Generator:
+                          device="cpu", sweep: bool = True,
+                          with_encoder: Optional[bool] = None) -> Generator:
     """A seeded generator; ``sweep`` applies the reference's init sweep
     (``config.gen_init``) over every parameter, as the JAX package's
-    ``init_generator_params`` does."""
-    gen = Generator(config, device)
+    ``init_generator_params`` does: the encoder's weights too (BatchNorm
+    scales included; the running statistics are buffers, which it does
+    not touch)."""
+    gen = Generator(config, device, with_encoder=with_encoder)
     init_decoder_params(generator, gen.decoder)
+    if gen.encoder is not None:
+        encoder_lib.init_encoder_params(generator, gen.encoder)
     if sweep:
         init_param_tree(generator, gen, config.gen_init)
     return gen

@@ -28,19 +28,29 @@ at startup, so the first client request finds the kernel built and loaded.
     # or a seeded start with random weights:
     python -m gan_image_captioning_tpu_torch.serve --init-seed 0 --dataset synthetic --port 7777
 
+    # conditional: captions of images (a checkpoint of main.py's run on
+    # data/mini_coco, here on the CPU):
+    printf '{"image": "data/mini_coco/val2014/mini_val_0000.jpg"}\\n' | \\
+        python -m gan_image_captioning_tpu_torch.serve --checkpoint \\
+        save/debug_1/models/pretrained_model.ckpt --dataset coco \\
+        --data-dir data/mini_coco --conditional-gan 1 --device cpu …
+
     # continuous batching on int8 weights, streaming one request:
     printf '{"n": 2, "stream": true}\\n' | python -m gan_image_captioning_tpu_torch.serve \\
         --init-seed 0 --dataset synthetic --serve-continuous --quantize int8
 
 Request forms:
-  {"n": k}                  → k unconditional captions
+  {"n": k}                  → k captions from the <S>-token features
+  {"image": path | [paths]} → (conditional service) one caption per image:
+                              host decode and normalize (Pillow), one
+                              eval-mode encoder pass on the device, then
+                              the rows enter the engine like {"n": k} rows
   {"n": k, "stream": true}  → (--serve-continuous) first one
                               {"row": j, "partial": "...", "done": bool}
                               line per chunk that commits tokens, then the
                               response
   {"stats": true}           → engine counters ("coalescing", and
                               "continuous" when that engine runs)
-  {"image": …}              → an error: only unconditional serving is ported
 Response: {"captions": [...], "logprobs": [...], "latency_ms": t}
 
 The service runs on ``--device cuda`` (the default) and raises when CUDA
@@ -52,6 +62,7 @@ is missing; ``--device cpu`` runs the plain PyTorch decode.  Not ported:
 from __future__ import annotations
 
 import json
+import os
 import queue
 import socketserver
 import sys
@@ -63,12 +74,14 @@ import torch
 from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    config_from_args,
                                                    padded_vocab_size,
+                                                   require_ported_flags,
                                                    resolve_device)
 from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
 from gan_image_captioning_tpu_torch.eval import decode as decode_lib
 from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
                                                          strip_caption)
-from gan_image_captioning_tpu_torch.models.api import require_ported
+from gan_image_captioning_tpu_torch.models.api import (generator_condition,
+                                                       require_ported)
 from gan_image_captioning_tpu_torch.models.generator import (
     init_generator_params, start_token_features)
 from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
@@ -137,22 +150,29 @@ def _parse_buckets(spec: str, batch_size: int):
 
 def build_vocab(args) -> dict:
     """The dataset's ``index_to_word``; sets ``args.vocab_size`` with the
-    ``--vocab-multiple`` padding (``src/main.py:inject_vocab_size``)."""
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: only the synthetic vocabulary is "
-            "ported yet")
-    w2i, i2w = synthetic_vocab()
-    args.vocab_size = padded_vocab_size(len(w2i), args.vocab_multiple)
-    return i2w
+    ``--vocab-multiple`` padding (``src/main.py:inject_vocab_size``).  COCO
+    reads the train split's vocabulary (the pickle cache under
+    ``--data-dir``)."""
+    if args.dataset == "synthetic":
+        w2i, i2w = synthetic_vocab()
+        args.vocab_size = padded_vocab_size(len(w2i), args.vocab_multiple)
+        return i2w
+    from gan_image_captioning_tpu_torch.data.coco import CocoCaptions
+
+    train = CocoCaptions(os.path.join(args.data_dir, "dataset_coco.json"),
+                         args.data_dir, "train", args.image_size,
+                         args.captions_per_image, conditional=False)
+    args.vocab_size = padded_vocab_size(train.vocab_size, args.vocab_multiple)
+    return train.index_to_word
 
 
 class CaptionService:
     def __init__(self, args):
+        for check in (require_ported_flags, require_ported):
+            check(config_from_args(args))
+        self.device = resolve_device(args.device)
         self.index_to_word = build_vocab(args)
         self.config = config_from_args(args)
-        require_ported(self.config)
-        self.device = resolve_device(args.device)
         self.batch_size = args.serve_batch_size
         if args.checkpoint:
             generator, _ = ckpt_lib.load_generator_checkpoint(
@@ -183,8 +203,11 @@ class CaptionService:
                     early_exit=not args.serve_exact,
                     max_pending=args.serve_max_pending)
             # warm through the real request path, every bucket shape (the
-            # slot pool has one shape)
+            # slot pool has one shape), and the encoder at one image
             self.handle_request({"n": 1})
+            if self.config.cgan:
+                s = self.config.image_size
+                self.features_from_images(np.zeros((1, 3, s, s), np.float32))
             if self.continuous is None:
                 for b in self.batcher.bucket_sizes[1:]:
                     self.handle_request({"n": b})
@@ -203,6 +226,26 @@ class CaptionService:
 
     def _features_unconditional(self, n: int) -> np.ndarray:
         return start_token_features(self.generator.decoder, n).cpu().numpy()
+
+    @torch.no_grad()
+    def features_from_images(self, images: np.ndarray) -> np.ndarray:
+        """The device part of an image request: normalized ``[N, 3, S, S]``
+        float32 images → ``[N, E]`` features from one eval-mode encoder
+        pass (``generator_condition(train=False)``)."""
+        batch = {"images": torch.from_numpy(
+            np.ascontiguousarray(images, np.float32)).to(self.device)}
+        cond, _ = generator_condition(self.config, self.generator, batch,
+                                      train=False)
+        return cond["features"].cpu().numpy()
+
+    def _load_images(self, paths) -> np.ndarray:
+        """The host part of an image request: decode, resize and normalize
+        each file (``data/images.py``, Pillow) → ``[N, 3, S, S]``."""
+        from gan_image_captioning_tpu_torch.data.images import (
+            load_and_preprocess)
+
+        return np.stack([load_and_preprocess(p, self.config.image_size)
+                         for p in paths])
 
     def _caption(self, ids) -> str:
         return " ".join(ids_to_words(strip_caption(ids), self.index_to_word))
@@ -223,17 +266,40 @@ class CaptionService:
                 out["continuous"] = self.continuous.stats()
             return out
         if "image" in req:
-            return {"error": "checkpoint is unconditional; use {'n': k}"}
-        n = int(req.get("n", 1))
-        if n < 1:
-            return {"error": "'n' must be a positive integer"}
+            if not self.config.cgan:
+                return {"error": "checkpoint is unconditional; use {'n': k}"}
+            paths = req["image"]
+            if isinstance(paths, str):
+                paths = [paths]
+            if not paths:
+                return {"error": "'image' must be a path or non-empty list"}
+            n = len(paths)
+        else:
+            paths = None
+            n = int(req.get("n", 1))
+            if n < 1:
+                return {"error": "'n' must be a positive integer"}
         stream = bool(req.get("stream"))
         if stream and (self.continuous is None or emit is None):
             return {"error": "streaming needs --serve-continuous (and a "
                              "streaming transport: stdin or --port TCP)"}
-        feats = self._features_unconditional(n)
+        if paths is not None:
+            return self.caption_images(self._load_images(list(paths)),
+                                       emit if stream else None, t0)
+        return self._respond(self._features_unconditional(n),
+                             emit if stream else None, t0)
+
+    def caption_images(self, images: np.ndarray, emit=None,
+                       t0: float = None) -> dict:
+        """The device part of an image request: normalized ``[N, 3, S, S]``
+        float32 images → one eval-mode encoder pass → the rows enter the
+        engine like ``{"n": k}`` rows → the response."""
+        t0 = time.perf_counter() if t0 is None else t0
+        return self._respond(self.features_from_images(images), emit, t0)
+
+    def _respond(self, feats: np.ndarray, emit, t0: float) -> dict:
         if self.continuous is not None:
-            ids, lps = self._continuous(feats, emit if stream else None)
+            ids, lps = self._continuous(feats, emit)
         else:
             ids, lps = self.batcher.submit(feats).result(timeout=120)
         return {"captions": [self._caption(row) for row in ids],

@@ -11,7 +11,11 @@ Gumbel temperature and a ``torch.Generator`` for the noise the steps draw.
 ``scale = clip / max(gnorm, clip)`` (not ``clip_grad_norm_``'s
 ``clip / (gnorm + 1e-6)``), betas 0.9 / 0.999, eps 1e-8, bias-corrected,
 constant learning rate.  Parameters and moments are updated in place under
-``no_grad``, where the JAX package builds new trees.  Learning-rate
+``no_grad``, where the JAX package builds new trees.  Only parameters that
+require gradients have moments: a frozen image backbone
+(``--trainable-backbone 0``) stays out of the optimizer, where the JAX
+package's Adam sees its zero gradients (under ``stop_gradient``) and makes
+exactly zero updates, and adds nothing to the global norm.  Learning-rate
 schedules, EMA, bfloat16 first moments, gradient accumulation and
 ``--dtype bfloat16`` are not ported yet and raise.
 """
@@ -43,8 +47,14 @@ class AdamState:
     nu: Dict[str, torch.Tensor]
 
 
+def trainable_parameters(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s parameters that require gradients, by name."""
+    return {k: p for k, p in module.named_parameters() if p.requires_grad}
+
+
 def adam_init(module: nn.Module) -> AdamState:
-    zeros = {k: torch.zeros_like(p) for k, p in module.named_parameters()}
+    zeros = {k: torch.zeros_like(p)
+             for k, p in trainable_parameters(module).items()}
     return AdamState(0, zeros, {k: torch.zeros_like(v)
                                 for k, v in zeros.items()})
 
@@ -58,14 +68,16 @@ def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
 def clip_adam_update(module: nn.Module, grads: Dict[str, torch.Tensor],
                      state: AdamState, lr: float, clip_norm: float,
                      gnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One clip → Adam → apply update of ``module``'s parameters, in place.
-    Returns the pre-clip global norm."""
+    """One clip → Adam → apply update of ``module``'s parameters that have
+    moments in ``state``, in place.  Returns the pre-clip global norm."""
     if gnorm is None:
         gnorm = global_norm(grads)
     scale = clip_norm / torch.clamp(gnorm, min=clip_norm)
     state.count += 1
     bc1, bc2 = 1.0 - B1 ** state.count, 1.0 - B2 ** state.count
-    for name, p in module.named_parameters():
+    params = dict(module.named_parameters())
+    for name in state.mu:
+        p = params[name]
         g = grads[name] * scale
         mu, nu = state.mu[name], state.nu[name]
         mu.mul_(B1).add_(g, alpha=1.0 - B1)
@@ -103,6 +115,14 @@ class TrainState:
     temperature: float = 1.0
 
 
+def freeze_backbone(gen: Generator, config: Config) -> Generator:
+    """A conditional generator's backbone requires gradients only under
+    ``--trainable-backbone 1``."""
+    if gen.encoder is not None:
+        gen.encoder.resnet.requires_grad_(bool(config.trainable_backbone))
+    return gen
+
+
 def create_train_state(config: Config, seed: int, device="cpu",
                        gen: Optional[Generator] = None,
                        disc: Optional[Discriminator] = None,
@@ -115,6 +135,16 @@ def create_train_state(config: Config, seed: int, device="cpu",
         gen = init_generator_params(init, config, device, sweep)
     if disc is None:
         disc = api.init_discriminator(init, config, device, sweep)
+    freeze_backbone(gen, config)
     return TrainState(gen=gen, disc=disc, pretrain_opt=adam_init(gen),
                       gen_opt=adam_init(gen), disc_opt=adam_init(disc),
                       generator=torch.Generator().manual_seed(seed + 1))
+
+
+def with_generator(state: TrainState, gen: Generator,
+                   config: Config) -> TrainState:
+    """``state`` with ``gen`` in place of its generator and fresh
+    generator optimizers (``--init-gen-ckpt``)."""
+    freeze_backbone(gen, config)
+    return dataclasses.replace(state, gen=gen, pretrain_opt=adam_init(gen),
+                               gen_opt=adam_init(gen))

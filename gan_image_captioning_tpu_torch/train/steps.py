@@ -5,6 +5,15 @@
   the decode kernel, then the differentiable teacher-forced rescore) or
   teacher forcing, cross-entropy over all positions, clipped Adam at
   ``pretrain_lr``.
+* Conditional (``--conditional-gan 1``): each step runs the image encoder
+  exactly once, in train mode (``api.generator_condition``), so every
+  BatchNorm running statistic moves once per step, as the JAX steps merge
+  one ``new_stats`` per step (``steps.py:230,292,411,665``); the decode
+  and its rescore read the features and never re-run it.  ``images_u8``
+  batches go through the ``image_norm`` kernel first.
+* :func:`make_mle_eval_step` / :func:`make_adv_eval_step` — the losses in
+  eval mode (running statistics read, not moved; no dropout, no label
+  noise; no update), without gradients.
 * :func:`make_adv_step` — one Gumbel-softmax sample, the reference's three
   discriminator passes (real, detached fake, generator), both losses and
   ONE backward of ``g_loss + d_loss`` that gives both gradient sets (the
@@ -36,7 +45,8 @@ from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.ops.losses import (cross_entropy_loss,
                                                         gan_losses)
 from gan_image_captioning_tpu_torch.train.state import (
-    TrainState, clip_adam_update, global_norm, require_ported_training)
+    TrainState, clip_adam_update, global_norm, require_ported_training,
+    trainable_parameters)
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -47,9 +57,10 @@ def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def _grads(loss, *modules) -> List[Dict[str, torch.Tensor]]:
-    """One backward of ``loss``; per module, its gradients by name (zeros
-    where a parameter does not reach the loss)."""
-    params = [dict(m.named_parameters()) for m in modules]
+    """One backward of ``loss``; per module, the gradients of its trainable
+    parameters by name (zeros where a parameter does not reach the
+    loss)."""
+    params = [trainable_parameters(m) for m in modules]
     flat = [p for ps in params for p in ps.values()]
     grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
     return [{k: torch.zeros_like(p) if g is None else g
@@ -73,10 +84,10 @@ def _rep_weights(batch, num_rep: int):
     return None if w is None else w.repeat_interleave(num_rep)
 
 
-def mle_loss(config: Config, state: TrainState, batch):
+def mle_loss(config: Config, state: TrainState, batch, train: bool = True):
     """The MLE objective: cross-entropy of the ``--mle-objective`` logits
     against the captions, over all positions (weighted by ``weights``)."""
-    cond, _ = api.generator_condition(config, state.gen, batch, train=True)
+    cond, _ = api.generator_condition(config, state.gen, batch, train=train)
     captions = batch["captions"]
     logits = api.generator_mle_outputs(state.gen, cond, captions, config)
     w = batch.get("weights")
@@ -99,12 +110,26 @@ def make_mle_step(config: Config):
     return step
 
 
+def make_mle_eval_step(config: Config):
+    """Eval-mode MLE loss (reference ``genpretrain_loop('val')``): no
+    gradient, no update, running statistics read."""
+    require_ported_training(config)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch):
+        return state, {"gen_pretrain_loss": mle_loss(config, state, batch,
+                                                     train=False)}
+
+    return step
+
+
 def adv_losses(config: Config, state: TrainState, batch, temperature,
-               noise: Optional[Dict[str, Any]] = None):
+               noise: Optional[Dict[str, Any]] = None, train: bool = True):
     """One adversarial forward → ``(g_loss, d_loss, aux)`` with the
-    cross terms cut as the module docstring says."""
+    cross terms cut as the module docstring says (``train=False``: eval
+    mode, no dropout, no label noise)."""
     noise = noise or {}
-    cond, _ = api.generator_condition(config, state.gen, batch, train=True)
+    cond, _ = api.generator_condition(config, state.gen, batch, train=train)
     captions = batch["captions"]
     device = captions.device
     draw = torch.Generator(device=device).manual_seed(_draw_seed(state))
@@ -114,15 +139,15 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     fake = soft.detach()
     disc_p = params_of(state.disc)
     keeps = noise.get("keep", (None, None, None))
-    d_real = api.discriminator_apply(disc_p, captions, config, True,
+    d_real = api.discriminator_apply(disc_p, captions, config, train,
                                      keeps[0], draw)
-    d_fake = api.discriminator_apply(disc_p, fake, config, True, keeps[1],
+    d_fake = api.discriminator_apply(disc_p, fake, config, train, keeps[1],
                                      draw)
     g_out = api.discriminator_apply(params_of(state.disc, detach=True), soft,
-                                    config, True, keeps[2], draw)
+                                    config, train, keeps[2], draw)
 
     num_rep = api.disc_logits_per_sample(config)
-    if config.noisy_labels > 0.0:
+    if config.noisy_labels > 0.0 and train:
         flip = noise.get("flip")
         if flip is None:
             flip = torch.rand(captions.shape[0], generator=draw,
@@ -179,5 +204,22 @@ def make_adv_step(config: Config):
                        "d_real_mean": aux["d_real_mean"],
                        "d_fake_mean": aux["d_fake_mean"],
                        "gen_grad_norm": g_norm, "disc_grad_norm": d_norm}
+
+    return step
+
+
+def make_adv_eval_step(config: Config):
+    """Eval-mode adversarial losses (reference ``adv_loop('val')``): no
+    gradient, no update; the Gumbel sample still draws its noise."""
+    require_ported_training(config)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch, temperature,
+             noise: Optional[Dict[str, Any]] = None):
+        g_loss, d_loss, aux = adv_losses(config, state, batch, temperature,
+                                         noise, train=False)
+        return state, {"gen_adv_loss": g_loss, "disc_adv_loss": d_loss,
+                       "d_real_mean": aux["d_real_mean"],
+                       "d_fake_mean": aux["d_fake_mean"]}
 
     return step

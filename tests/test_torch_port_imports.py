@@ -49,11 +49,17 @@ def test_fresh_import_adds_no_jax_module():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     added = result["added"]
     for name in ("serve", "serving", "ops.quantize", "eval.decode",
-                 "kernels.decode_sample"):
+                 "kernels.decode_sample", "main", "kernels.image_norm",
+                 "models.resnet", "models.encoder", "data.coco",
+                 "data.images", "data.loader", "data.synthetic",
+                 "data.vocab", "train.instructor", "train.checkpoint",
+                 "utils.logging"):
         assert f"gan_image_captioning_tpu_torch.{name}" in added
     assert "torch" in added or "torch" in sys.modules
     assert [m for m in added if _forbidden(m)] == []
     assert not any(m == "triton" or m.startswith("triton.") for m in added)
+    # Pillow is imported where an image is decoded, never at import
+    assert not any(m == "PIL" or m.startswith("PIL.") for m in added)
     assert result["libs"] == 0
 
 

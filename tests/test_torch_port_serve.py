@@ -148,9 +148,10 @@ def test_needs_exactly_one_weight_source(exported):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--conditional-gan", "1"], NotImplementedError),
+    (["--beam-size", "4"], NotImplementedError),
     (["--gen-arch", "transformer"], NotImplementedError),
-    (["--dataset", "coco"], NotImplementedError),
+    (["--conditional-gan", "1", "--encoder-arch", "vit"],
+     NotImplementedError),
     (["--device", "tpu"], RuntimeError)])
 def test_unported_options_raise_at_startup(extra, err):
     with pytest.raises(err):
