@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only train_kernels,train_timing
+    python3 chip_smoke.py --only tf_kernels,tf_train,tf_service,tf_loop
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
 V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
-3/4/5 x 300; float32) and prints one JSON line per phase:
+3/4/5 x 300; float32), of config2 and config3 conditional, and of config4
+(the transformer GAN), and prints one JSON line per phase:
 
 1. ``device``  — the card (``nvidia-smi`` name and power limit).
 2. ``build``   — every kernel built from ``kernels/csrc`` with nvcc
@@ -107,9 +109,34 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     kernel of the path launched, every logged loss finite, and both
     checkpoints served through ``caption_images``.
 
+18. ``tf_kernels`` — preset config4's kernels against their plain
+    versions: flash forward, dQ and dK/dV at the generator's MLE shape
+    [64, 37, 8, 32] (causal, lengths + 1) and log-prob pass (causal), the
+    discriminator's [64, 36, 8, 16] and the rollouts' [256, 36, 8, 16]
+    (full): outputs within 2e-6, gradients within 1e-5 of their largest;
+    the Gumbel sampler at [64, 11008] on fed uniforms (soft within 1e-6,
+    ids equal outside near-ties), its Philox draw (reproducible, the
+    sample_resid decode's stream, a histogram of 2^18 ids within 0.01 of
+    softmax(logits)); times beside the plain versions', the bounds and
+    ``scaled_dot_product_attention`` (forward, and forward + backward).
+19. ``tf_train`` — config4 at full width (V = 11008, T = 36, B = 64,
+    rollouts 4 every 4, greedy baseline): 2 MLE and 2 REINFORCE steps
+    with the launch counts (each equal to the design's per step); one MLE
+    and one REINFORCE step through the kernels against the plain route on
+    the same state and fed noise (losses within 1e-4, gradients by
+    ``routes_agree``); ms per step on both routes; device time by kernel
+    and busy share.
+20. ``tf_service`` — config4's generator behind the coalescing engine,
+    ``{"n": 1}`` and ``{"n": 8}``: captions whose ids are the argmax of the
+    flash causal pass over them, sequence logprobs within 1e-3; p50 / p90.
+21. ``tf_loop`` — ``main.py --preset config4`` on 256 synthetic items:
+    one pretrain and one REINFORCE epoch, every kernel launched, losses
+    finite, both checkpoints served.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
-8 and 4 bits, ``image_norm``) and, last, ``{"ok": true, "device": …}``.
+8 and 4 bits, ``image_norm``, the three flash-attention kernels and the
+Gumbel sampler) and, last, ``{"ok": true, "device": …}``.
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits non-zero before printing a result.  The plain versions' matrix
 products and convolutions run in full float32: TF32 is switched off below.
@@ -138,7 +165,7 @@ LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
 Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
 KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "decode_qserve",
-                  "image_norm"]
+                  "image_norm", "flash_attention", "gumbel_sample"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -1972,6 +1999,619 @@ def phase_loop(device, workdir):
     return row
 
 
+# ------------------------------------------- the transformer GAN (config4)
+
+TF_D, TF_MLP, TF_NL, TF_HEADS = 256, 256, 4, 8
+TF_DISC_E, TF_DISC_D, TF_DISC_NL, TF_DISC_HEADS = 64, 128, 4, 8
+TF_ROLLOUT_NUM, TF_ROLLOUT_STRIDE = 4, 4
+FLASH_OUT_ATOL, FLASH_GRAD_RTOL, GUMBEL_SOFT_ATOL = 2e-6, 1e-5, 1e-6
+HIST_ATOL = 0.01
+FLASH_TPU = "gan_image_captioning_tpu/kernels/flash_attention.py"
+TF_TPU_KERNELS = {"flash_fwd": f"{FLASH_TPU}:81",
+                  "flash_dq": f"{FLASH_TPU}:156",
+                  "flash_dkv": f"{FLASH_TPU}:193",
+                  "gumbel_sample": "gan_image_captioning_tpu/kernels/"
+                                   "gumbel_sample.py:36"}
+TF_SOURCES = {"flash_fwd": "flash_attention.cu",
+              "flash_dq": "flash_attention.cu",
+              "flash_dkv": "flash_attention.cu",
+              "gumbel_sample": "gumbel_sample.cu"}
+TF_MODEL_FLAGS = ["--preset", "config4", "--dataset", "synthetic",
+                  "--vocab-multiple", str(V),
+                  "--max-seq-len", str(MAX_SEQ_LEN)]
+# launches per step by design (disc_train_freq 1): the MLE step is one
+# causal pass over the generator's 4 layers and its backward; a REINFORCE
+# step samples T = 36 steps through the Gumbel kernel and runs the
+# discriminator's 4 layers forward for real and sampled ids (2 passes, with
+# backward), for each of the 8 rollout prefixes and the full sequence
+# (9 passes) and for the greedy baseline (1), then the generator's 4
+# layers for the log-probs (with backward)
+TF_PER_MLE_STEP = {"flash_fwd": TF_NL, "flash_dq": TF_NL, "flash_dkv": TF_NL,
+                   "gumbel_sample": 0}
+TF_PREFIXES = len(range(TF_ROLLOUT_STRIDE, T, TF_ROLLOUT_STRIDE))
+TF_PER_RL_STEP = {"gumbel_sample": T,
+                  "flash_fwd": TF_DISC_NL * (2 + TF_PREFIXES + 1 + 1) + TF_NL,
+                  "flash_dq": 2 * TF_DISC_NL + TF_NL,
+                  "flash_dkv": 2 * TF_DISC_NL + TF_NL}
+
+
+def tf_counters():
+    from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
+    from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
+
+    return {"flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
+            "flash_dkv": fa.flash_dkv, "gumbel_sample": gs.gumbel_sample}
+
+
+def attention_pairs(b, t, h, causal, lengths):
+    """(query, key) pairs the mask lets through, over all heads."""
+    i = torch.arange(t)
+    ok = torch.ones((b, t, t), dtype=torch.bool)
+    if causal:
+        ok &= (i[None, :] <= i[:, None])[None]
+    if lengths is not None:
+        ok &= (i[None, None, :] < lengths.cpu()[:, None, None])
+    return int(ok.sum()) * h
+
+
+def flash_work(kind, b, t, h, d, pairs):
+    """Bytes (each input read once, each output written once) and float
+    operations of one flash kernel call."""
+    x, vec = 4 * b * t * h * d, 4 * b * t * h
+    if kind == "flash_fwd":      # q, k, v in; out, lse out
+        return 4 * x + vec, 4 * d * pairs
+    if kind == "flash_dq":       # q, k, v, dO, lse, delta in; dq out
+        return 5 * x + 2 * vec, 6 * d * pairs
+    return 6 * x + 2 * vec, 8 * d * pairs    # + dk, dv out
+
+
+SPIN_CYCLES = 100_000_000   # about 50 ms of one SM's clock
+
+
+def device_ms(fn, calls=20):
+    """Device time per call of ``fn``: ``calls`` calls enqueued behind a
+    spin kernel (``torch.cuda._sleep``), so that they run back to back on
+    the device whatever the host's pace, timed with CUDA events.  CUDA
+    events around calls issued one after another would measure the host's
+    pace for calls of a few tens of microseconds.  Fails when enqueueing
+    outlasted the spin (the device would have waited for the host)."""
+    fn()
+    torch.cuda.synchronize()
+    spin0 = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin0.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    spin_ms = spin0.elapsed_time(start)
+    check(host_ms < spin_ms, f"enqueueing {calls} calls took {host_ms} ms, "
+          f"longer than the {spin_ms} ms spin")
+    return start.elapsed_time(end) / calls
+
+
+def phase_tf_kernels(device):
+    """The four kernels against their plain versions at config4's shapes:
+    flash forward, dQ and dK/dV at the three masks (the generator's MLE
+    pass, causal with lengths + 1; its log-prob pass, causal; the
+    discriminator, full, at B = 64 and the rollouts' 256), and the Gumbel
+    sampler on fed uniforms and on its Philox draw; their device times
+    (``device_ms``) beside the plain versions', the bounds and
+    scaled_dot_product_attention's, and the per-call rate of calls issued
+    one after another (CUDA events)."""
+    import torch.nn.functional as F
+
+    from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
+    from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample_resid)
+
+    rng = np.random.default_rng(55)
+    lens_gen = torch.from_numpy(rng.integers(3, T + 1, B_TRAIN).astype(
+        np.int32) + 1).to(device)
+    hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
+    cases = {"gen_mle": ((B_TRAIN, T + 1, TF_HEADS, hd), True, lens_gen),
+             "gen_logprob": ((B_TRAIN, T + 1, TF_HEADS, hd), True, None),
+             "disc": ((B_TRAIN, T, TF_DISC_HEADS, dd), False, None),
+             "disc_rollout": ((B_TRAIN * TF_ROLLOUT_NUM, T, TF_DISC_HEADS, dd),
+                              False, None)}
+    cnt = tf_counters()
+    rows, times = {}, {}
+    for name, (shape, causal, lens) in cases.items():
+        q, k, v = (seeded(shape, 60 + i, device).requires_grad_(True)
+                   for i in range(3))
+        g = seeded(shape, 63, device)
+        for fn in cnt.values():
+            fn.launches = 0
+        out = fa.flash_attention(q, k, v, causal, lens)
+        grads = torch.autograd.grad(out, (q, k, v), g)
+        torch.cuda.synchronize()
+        launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_dq",
+                                                 "flash_dkv")}
+        ref = fa.attention_plain(q, k, v, causal, lens)
+        ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+        row = {"shape": list(shape), "causal": causal,
+               "lengths": lens is not None, "launches": launches,
+               "max_abs_out_diff": float((out - ref).detach().abs().max()),
+               "out_finite": bool(torch.isfinite(out).all())}
+        for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+            row[f"{n}_max_abs_diff"] = float((a - b).abs().max())
+            row[f"{n}_rel"] = row[f"{n}_max_abs_diff"] / float(b.abs().max())
+        emit({"phase": "tf_kernels", "kernel": "flash", "case": name, **row})
+        check(launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1},
+              f"flash {name}: launches {launches}")
+        check(row["out_finite"] and row["max_abs_out_diff"] <= FLASH_OUT_ATOL,
+              f"flash {name} forward {row}")
+        for n in ("dq", "dk", "dv"):
+            check(row[f"{n}_rel"] <= FLASH_GRAD_RTOL,
+                  f"flash {name} {n} {row}")
+        rows[name] = row
+
+        # times: each kernel alone, the plain version forward and forward +
+        # backward, and the library call (boolean mask, [B, H, T, D] views
+        # made contiguous outside the timing)
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        o, lse = fa.flash_fwd(qd, kd, vd, causal, lens)
+        delta = (g * o).sum(dim=-1)
+        b_, t_, h_, d_ = shape
+        mask = torch.ones((1, 1, t_, t_), dtype=torch.bool, device=device)
+        if causal:
+            mask = torch.tril(mask)
+        if lens is not None:
+            mask = mask & (torch.arange(t_, device=device)[None, :]
+                           < lens[:, None])[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (qd, kd, vd))
+        gt = g.transpose(1, 2).contiguous()
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_err = float((lib.transpose(1, 2) - ref).detach().abs().max())
+
+        def lib_fwd_bwd():
+            o_ = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            torch.autograd.grad(o_, (qt, kt, vt), gt)
+
+        def plain_fwd_bwd():
+            o_ = fa.attention_plain(q, k, v, causal, lens)
+            torch.autograd.grad(o_, (q, k, v), g)
+
+        fns = {"flash_fwd": lambda: fa.flash_fwd(qd, kd, vd, causal, lens),
+               "flash_dq": lambda: fa.flash_dq(qd, kd, vd, g, lse, delta,
+                                               causal, lens),
+               "flash_dkv": lambda: fa.flash_dkv(qd, kd, vd, g, lse, delta,
+                                                 causal, lens)}
+        with torch.no_grad():
+            def plain_f():
+                return fa.attention_plain(qd, kd, vd, causal, lens)
+
+            def lib_f():
+                return F.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach(), attn_mask=mask)
+
+            # device time in turns, and CUDA events around 50 calls issued
+            # one after another (the host's pace at these sizes)
+            p_a, l_a = device_ms(plain_f), device_ms(lib_f)
+            k_ms = {n: [device_ms(f), device_ms(f)] for n, f in fns.items()}
+            l_b, p_b = device_ms(lib_f), device_ms(plain_f)
+            ev_ms = {n: cuda_ms(f, 50) for n, f in fns.items()}
+            ev_ms["plain_fwd"] = cuda_ms(plain_f, 20)
+            ev_ms["library_fwd"] = cuda_ms(lib_f, 20)
+        pb = [device_ms(plain_fwd_bwd, 10), device_ms(plain_fwd_bwd, 10)]
+        lb = [device_ms(lib_fwd_bwd, 10), device_ms(lib_fwd_bwd, 10)]
+        pairs = attention_pairs(b_, t_, h_, causal, lens)
+        t_row = {"kernel_ms": k_ms, "plain_fwd_ms": [p_a, p_b],
+                 "plain_fwd_bwd_ms": pb, "library_fwd_ms": [l_a, l_b],
+                 "library_fwd_bwd_ms": lb, "event_ms_per_call": ev_ms,
+                 "library_max_abs_diff": lib_err, "pairs": pairs}
+        for n in fns:
+            nbytes, flops = flash_work(n, b_, t_, h_, d_, pairs)
+            t_row[n] = dict(zip(("bound_ms", "bound_by"), bound(nbytes,
+                                                               flops)),
+                            bytes=nbytes, flop=flops)
+        emit({"phase": "tf_kernels", "timing": "flash", "case": name,
+              **t_row})
+        times[name] = t_row
+
+    # --- the Gumbel sampler at [64, V]
+    logits = seeded((B_TRAIN, V), 70, device, 3.0)
+    u = torch.rand((B_TRAIN, V), generator=torch.Generator(
+        device=device).manual_seed(71), device=device)
+    g_rows = []
+    for temp in (1.0, TEMP):
+        gs.gumbel_sample.launches = 0
+        soft, ids = gs.gumbel_sample(logits, temp, uniforms=u)
+        torch.cuda.synchronize()
+        launches = gs.gumbel_sample.launches
+        soft_p, ids_p = gs.gumbel_sample_plain(logits, temp, u)
+        x = (logits - torch.log(-torch.log(u + gs.EPS) + gs.EPS)) * temp
+        top2 = x.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        differ = ids != ids_p
+        row = {"temperature": temp, "launches": launches,
+               "max_abs_soft_diff": float((soft - soft_p).abs().max()),
+               "soft_row_sum_err": float((soft.sum(dim=-1) - 1).abs().max()),
+               "ids_differing": int(differ.sum()),
+               "ids_differing_outside_ties": int(
+                   (differ & (gap > ID_ATOL * temp)).sum()),
+               "distinct_ids": int(ids.unique().numel())}
+        emit({"phase": "tf_kernels", "kernel": "gumbel_sample", **row})
+        check(launches == 1, f"gumbel launches {launches}")
+        check(row["max_abs_soft_diff"] <= GUMBEL_SOFT_ATOL
+              and row["ids_differing_outside_ties"] == 0, f"gumbel {row}")
+        g_rows.append(row)
+
+    # Philox: reproducible per (seed, step), the sample_resid decode's
+    # stream, and categorical in distribution
+    u_out = torch.empty_like(u)
+    ids_a = gs.gumbel_sample(logits, 1.0, seed=99, step=3,
+                             uniforms_out=u_out)[1]
+    ids_b = gs.gumbel_sample(logits, 1.0, seed=99, step=3)[1]
+    ids_c = gs.gumbel_sample(logits, 1.0, seed=99, step=4)[1]
+    small = {"w_ih": seeded((4 * 8, 8), 72, device),
+             "w_hh": seeded((4 * 8, 8), 73, device),
+             "b_ih": torch.zeros(32, device=device),
+             "b_hh": torch.zeros(32, device=device)}
+    u_resid = torch.empty((4, B_TRAIN, V), device=device)
+    decode_sample_resid(torch.zeros((B_TRAIN, 8), device=device), [small],
+                        torch.zeros((V, 8), device=device),
+                        torch.zeros(V, device=device),
+                        torch.zeros((V, 8), device=device), 4, seed=99,
+                        uniforms_out=u_resid)
+    n_hist, v_hist = 1 << 18, 16
+    h_logits = torch.linspace(-2, 2, v_hist, device=device)
+    h_ids = gs.gumbel_sample(h_logits.expand(n_hist, v_hist).contiguous(),
+                             1.0, seed=5)[1]
+    hist = torch.bincount(h_ids.long(), minlength=v_hist).double() / n_hist
+    want = torch.softmax(h_logits.double(), dim=0)
+    torch.cuda.synchronize()
+    philox = {"same_seed_same_ids": bool(torch.equal(ids_a, ids_b)),
+              "other_step_other_ids": not bool(torch.equal(ids_a, ids_c)),
+              "uniforms_equal_sample_resid_step_3": bool(torch.equal(
+                  u_out, u_resid[3])),
+              "uniform_mean": float(u_out.double().mean()),
+              "hist_max_abs_diff": float((hist - want).abs().max()),
+              "hist_rows": n_hist, "hist_V": v_hist}
+    emit({"phase": "tf_kernels", "kernel": "gumbel_philox", **philox})
+    check(philox["same_seed_same_ids"] and philox["other_step_other_ids"]
+          and philox["uniforms_equal_sample_resid_step_3"], f"philox {philox}")
+    check(abs(philox["uniform_mean"] - 0.5) <= 2e-3
+          and philox["hist_max_abs_diff"] <= HIST_ATOL, f"philox {philox}")
+
+    kern = lambda: gs.gumbel_sample(logits, 1.0, seed=7)        # noqa: E731
+    fed = lambda: gs.gumbel_sample(logits, 1.0, uniforms=u)     # noqa: E731
+    plain = lambda: gs.gumbel_sample_plain(logits, 1.0, u)      # noqa: E731
+    p_a, k_a, f_a = device_ms(plain), device_ms(kern), device_ms(fed)
+    f_b, k_b, p_b = device_ms(fed), device_ms(kern), device_ms(plain)
+    ev_ms = {"kernel": cuda_ms(kern, 50), "plain": cuda_ms(plain, 50)}
+    n = B_TRAIN * V
+    # logits read, soft written, ids; two logs, an exp, add, multiply,
+    # subtract and divide per element (Philox's integer rounds not counted)
+    nbytes, flops = 8 * n + 4 * B_TRAIN, 7 * n
+    b_ms, b_by = bound(nbytes, flops)
+    times["gumbel_sample"] = {"kernel_ms": [k_a, k_b],
+                              "kernel_fed_uniforms_ms": [f_a, f_b],
+                              "plain_ms": [p_a, p_b],
+                              "event_ms_per_call": ev_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "bytes": nbytes, "flop": flops,
+                              "shape": [B_TRAIN, V]}
+    emit({"phase": "tf_kernels", "timing": "gumbel_sample",
+          **times["gumbel_sample"]})
+    return {"flash": rows, "gumbel": g_rows, "philox": philox, "times": times}
+
+
+def tf_config(**overrides):
+    from gan_image_captioning_tpu_torch.config import (build_parser,
+                                                       config_from_args)
+
+    args = build_parser().parse_args([*TF_MODEL_FLAGS, "--device", "cuda"])
+    args.vocab_size = V
+    return config_from_args(args).replace(disc_train_freq=1, **overrides)
+
+
+def tf_setup(device):
+    """config4 at full width (gen 256/256, 4 layers, 8 heads; disc 64/128,
+    4 layers, 8 heads; V = 11008, T = 36, rollouts 4 every 4), float32, un-
+    swept initial weights from seed 0, and B = 64 captions of 3-34 random
+    tokens (ragged lengths for the MLE pass's masks)."""
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import batch_to
+
+    config = tf_config()
+    state = create_train_state(config, 0, device, sweep=False)
+    rng = np.random.default_rng(77)
+    caps = [rng.integers(4, min(11000, V), size=rng.integers(3, 35))
+            for _ in range(B_TRAIN)]
+    return config, state, batch_to(make_batch(caps, None, T), device)
+
+
+def tf_noise(config, device, seed=81, dtype=torch.float32):
+    """Every draw of one REINFORCE step: the sample's uniforms, each
+    rollout prefix's, the two dropout masks."""
+    from gan_image_captioning_tpu_torch.models.api import disc_keep_shape
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = B_TRAIN * config.rollout_num
+    keep_shape = disc_keep_shape(config, B_TRAIN)
+    return {"uniforms": torch.rand((T, B_TRAIN, V), generator=gen,
+                                   device=device, dtype=dtype),
+            "rollout_uniforms": [torch.rand((T, rows, V), generator=gen,
+                                            device=device, dtype=dtype)
+                                 for _ in range(TF_PREFIXES)],
+            "keep": [torch.rand(keep_shape, generator=gen, device=device)
+                     < 0.8 for _ in range(2)], "seed": seed}
+
+
+def tf_grads(kind, config, state, batch, noise):
+    from gan_image_captioning_tpu_torch.train import steps
+
+    if kind == "rl":
+        return steps.adv_grads(config, state, batch, 1.0, noise)
+    loss = steps.mle_loss(config, state, batch)
+    gen_grads, = steps._grads(loss, state.gen)
+    return loss.detach(), loss.detach() * 0, gen_grads, {}, {
+        "gen_ids": torch.zeros(1)}
+
+
+def phase_tf_train(device):
+    """config4 at full width: 2 MLE and 2 REINFORCE steps through the entry
+    points with the launch counts; each step's losses and gradients through
+    the kernels against the plain route (attn_impl and decode_impl plain)
+    on the same state and fed noise, and against the plain route in float64
+    where a side's gradients differ by more than 1e-3 of its largest; ms
+    per step on both routes; the device's busy share (torch.profiler)."""
+    import dataclasses
+
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    config, state, batch = tf_setup(device)
+    mle, adv = make_mle_step(config), make_adv_step(config)
+    cnt = tf_counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for kind in ("mle", "mle", "rl", "rl"):
+        state, m = (mle(state, batch) if kind == "mle"
+                    else adv(state, batch, 1.0))
+        metrics.append({"step": kind, **{k: float(v) for k, v in m.items()}})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    expected = {k: 2 * TF_PER_MLE_STEP[k] + 2 * TF_PER_RL_STEP[k]
+                for k in cnt}
+    row = {"metrics": metrics, "launches": launches,
+           "expected_launches": expected, "seconds": seconds,
+           "gen_steps": state.gen_steps, "disc_steps": state.disc_steps}
+    emit({"phase": "tf_train", **row})
+    check(all(math.isfinite(v) for m in metrics for k, v in m.items()
+              if k != "step"), "non-finite config4 metric")
+    check(launches == expected, f"launches {launches} != {expected}")
+    check(state.gen_steps == 2 and state.disc_steps == 2,
+          f"counters {state.gen_steps}, {state.disc_steps}")
+
+    plain_cfg = config.replace(attn_impl="plain", decode_impl="plain")
+    routes = {}
+    for kind in ("mle", "rl"):
+        noise = tf_noise(config, device)
+        kern = tf_grads(kind, config, state, batch, noise)
+        plain = tf_grads(kind, plain_cfg, state, batch, noise)
+        cmp = compare_grads(kern, plain)
+        if any(e > GRAD_RTOL for e in cmp["grad_side_rel_err"].values()):
+            state64 = dataclasses.replace(
+                state, gen=copy.deepcopy(state.gen).double(),
+                disc=copy.deepcopy(state.disc).double())
+            batch64 = dict(batch, weights=batch["weights"].double())
+            noise64 = dict(noise, uniforms=noise["uniforms"].double(),
+                           rollout_uniforms=[u.double() for u in
+                                             noise["rollout_uniforms"]])
+            ref = tf_grads(kind, plain_cfg, state64, batch64, noise64)
+            cmp["kernel_vs_float64"] = compare_grads(kern, ref)[
+                "grad_side_rel_err"]
+            cmp["plain_vs_float64"] = compare_grads(plain, ref)[
+                "grad_side_rel_err"]
+            del state64, ref
+        worst = sorted(cmp["grad_rel_err"].items(), key=lambda kv: -kv[1])[:3]
+        emit({"phase": "tf_train", "kernels_vs_plain": kind,
+              "g_loss": cmp["g_loss"], "d_loss": cmp["d_loss"],
+              "ids_equal": cmp["ids_equal"],
+              "max_grad_rel_err": cmp["max_grad_rel_err"], "worst": worst,
+              "grad_side_rel_err": cmp["grad_side_rel_err"],
+              **{k: cmp[k] for k in ("kernel_vs_float64", "plain_vs_float64")
+                 if k in cmp}})
+        for name in ("g_loss", "d_loss"):
+            a, b = cmp[name]
+            check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30),
+                  f"{kind} {name} {a} vs {b}")
+        check(cmp["ids_equal"], f"{kind}: the routes sampled different ids")
+        check(routes_agree(cmp), f"{kind}: {cmp['grad_side_rel_err']}, "
+              f"{cmp.get('kernel_vs_float64')}, "
+              f"{cmp.get('plain_vs_float64')}, {worst}")
+        routes[kind] = {k: cmp[k] for k in ("g_loss", "d_loss",
+                                            "grad_side_rel_err")}
+        del noise, kern, plain
+
+    times = {}
+    for kind in ("mle", "rl"):
+        fns = {}
+        for route, cfg in (("kernel", config), ("plain", plain_cfg)):
+            if kind == "mle":
+                step = make_mle_step(cfg)
+                fns[route] = lambda step=step: step(state, batch)
+            else:
+                step = make_adv_step(cfg)
+                fns[route] = lambda step=step: step(state, batch, 1.0)
+        p_a = step_ms(fns["plain"], 2)
+        k_a = step_ms(fns["kernel"], 3)
+        k_b = step_ms(fns["kernel"], 3)
+        p_b = step_ms(fns["plain"], 2)
+        times[kind] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b]}
+        emit({"phase": "tf_train", "timing": kind, "B": B_TRAIN,
+              **times[kind]})
+    names = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+             "gumbel_sample_kernel")
+    prof = {"mle": profile_calls(lambda: mle(state, batch), 3, names),
+            "rl": profile_calls(lambda: adv(state, batch, 1.0), 2, names)}
+    for kind, p in prof.items():
+        emit({"phase": "tf_train", "profile": kind, **p})
+    return {"launches": launches, "routes": routes, "times": times,
+            "profile": prof}
+
+
+def phase_tf_service(device):
+    """config4's generator (seeded, full width, V = 11008) behind the
+    coalescing engine: ``{"n": 1}`` and ``{"n": 8}``; every caption's ids
+    are the argmax of the parallel causal pass over them (flash attention
+    on the card: an independent route), and the sequence logprobs agree
+    with it within 1e-3; request p50 / p90."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.eval.decode import masked_logprob_sum
+    from gan_image_captioning_tpu_torch.models import transformer as ttf
+
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "0", *TF_MODEL_FLAGS]))
+    try:
+        row = {}
+        for n in (1, 8):
+            resp = service.handle_request({"n": n})
+            feats = torch.from_numpy(service._features_unconditional(
+                service.batch_size)).to(device)
+            ids, lps = service._run_decode(feats.cpu().numpy())
+            with torch.no_grad():
+                logits = ttf.teacher_forced(service.generator.decoder, feats,
+                                            ids, service.config)[:, :T]
+            chosen = logits.gather(2, ids.long()[..., None])[..., 0]
+            gap = float((logits.max(dim=2).values - chosen).max())
+            lp_ref = masked_logprob_sum(ids, chosen - torch.logsumexp(
+                logits, dim=2))
+            lp_diff = float((lp_ref - lps).abs().max())
+            want = [service._caption(r.tolist()) for r in ids[:n]]
+            check(resp["captions"] == want, f"n={n}: captions {resp}")
+            check(gap <= ID_ATOL, f"n={n}: id {gap} below the max")
+            check(lp_diff <= SEQ_ATOL, f"n={n}: logprob {lp_diff}")
+            row[f"n{n}"] = {"caption_0": want[0], "max_id_gap": gap,
+                            "max_abs_seq_lp_diff": lp_diff,
+                            "distinct_ids": int(ids.unique().numel())}
+        lat = {}
+        for n in (1, 8):
+            ms = [service.handle_request({"n": n})["latency_ms"]
+                  for _ in range(20)]
+            lat[n] = {"p50_ms": float(np.percentile(ms, 50)),
+                      "p90_ms": float(np.percentile(ms, 90)),
+                      "samples": len(ms)}
+        row["request_latency"] = lat
+        row["stats"] = service.batcher.stats()
+    finally:
+        service.close()
+    emit({"phase": "tf_service", **row,
+          "note": "coalescing engine, batch 8, sequential requests, host "
+                  "clock; the cache decode is dense attention (no kernel of "
+                  "this slice runs in it, as in the JAX package)"})
+    return row
+
+
+def phase_tf_loop(device, workdir):
+    """``main.main --preset config4`` in this process on 256 synthetic
+    items at full width: one pretrain and one adversarial (REINFORCE)
+    epoch; every kernel of the path launched, every logged loss finite,
+    both checkpoints served."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch import serve
+
+    save = workdir / "tf_loop"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = [*TF_MODEL_FLAGS, "--synthetic-items", "256", "--pretrain-epochs",
+            "1", "--adv-epochs", "1", "--save-dir", str(save), "--expt-name",
+            "smoke"]
+    cnt = tf_counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        inst = train_main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    rows = [json.loads(ln) for ln in open(Path(inst.config.save_dir)
+                                          / "metrics.jsonl")]
+    losses = [r for r in rows if r["tag"].endswith("_loss")]
+    row = {"seconds": seconds, "launches": launches,
+           "pretrain_steps": inst.pretrain_steps,
+           "gen_steps": inst.state.gen_steps,
+           "disc_steps": inst.state.disc_steps,
+           "logged_losses": len(losses),
+           "all_finite": all(math.isfinite(r["value"]) for r in rows),
+           "log_tail": log.getvalue().splitlines()[-4:]}
+    for kernel, n in launches.items():
+        check(n > 0, f"tf_loop: {kernel} never launched")
+    check(row["all_finite"] and len(losses) > 0, "tf_loop: non-finite metric")
+    check(inst.pretrain_steps == 4 and inst.state.gen_steps == 4,
+          f"tf_loop counters {row}")
+    served = {}
+    for name in ("pretrained_model.ckpt", "adv_model.ckpt"):
+        path = Path(inst.config.model_dir) / name
+        check(path.is_file(), f"tf_loop: {name} missing")
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", str(path), *TF_MODEL_FLAGS]))
+        try:
+            resp = service.handle_request({"n": 2})
+        finally:
+            service.close()
+        check(len(resp["captions"]) == 2
+              and all(math.isfinite(x) for x in resp["logprobs"]),
+              f"tf_loop: {name} served {resp}")
+        served[name] = resp
+    row["served"] = served
+    emit({"phase": "tf_loop", **row})
+    return row
+
+
+def tf_entries(smi, tfk, tf_train):
+    """The four kernels' entries of the ``kernels`` line: times and bounds
+    at the generator's MLE shape (flash) and at [64, V] (Gumbel)."""
+    mle = tfk["times"]["gen_mle"]
+    errs = {"flash_fwd": max(r["max_abs_out_diff"]
+                             for r in tfk["flash"].values()),
+            "flash_dq": max(r["dq_max_abs_diff"]
+                            for r in tfk["flash"].values()),
+            "flash_dkv": max(max(r["dk_max_abs_diff"], r["dv_max_abs_diff"])
+                             for r in tfk["flash"].values()),
+            "gumbel_sample": max(r["max_abs_soft_diff"]
+                                 for r in tfk["gumbel"])}
+    out = []
+    for name, tpu in TF_TPU_KERNELS.items():
+        if name == "gumbel_sample":
+            t = tfk["times"]["gumbel_sample"]
+            ms, plain_ms, lib_ms = min(t["kernel_ms"]), min(t["plain_ms"]), None
+            b_ms, b_by, shape = t["bound_ms"], t["bound_by"], t["shape"]
+        else:
+            ms, lib_ms = min(mle["kernel_ms"][name]), None
+            plain_ms = min(mle["plain_fwd_ms"] if name == "flash_fwd"
+                           else mle["plain_fwd_bwd_ms"])
+            lib_ms = min(mle["library_fwd_ms"] if name == "flash_fwd"
+                         else mle["library_fwd_bwd_ms"])
+            b_ms, b_by = mle[name]["bound_ms"], mle[name]["bound_by"]
+            shape = tfk["flash"]["gen_mle"]["shape"]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      + TF_SOURCES[name],
+            "replaces": tpu, "launches": tf_train["launches"][name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": shape, "card": smi,
+            "note": None if name in ("flash_fwd", "gumbel_sample") else
+            "plain_ms and library_ms are the whole forward + backward"})
+    return out
+
+
 def image_norm_entry(smi, norm, cond_train):
     times = norm["times"]
     return {
@@ -2053,6 +2693,14 @@ def main(argv=None):
         cond_train = phase_cond_train(device)
     if run("loop"):
         phase_loop(device, workdir)
+    if run("tf_kernels"):
+        tfk = phase_tf_kernels(device)
+    if run("tf_train"):
+        tf_train = phase_tf_train(device)
+    if run("tf_service"):
+        phase_tf_service(device)
+    if run("tf_loop"):
+        phase_tf_loop(device, workdir)
     if only:
         return 0
 
@@ -2077,7 +2725,8 @@ def main(argv=None):
                                        train_row["launches"])
         + continuous_entries(smi, carry_rows, q_rows, cont_times,
                              cont_service)
-        + [image_norm_entry(smi, norm, cond_train)]})
+        + [image_norm_entry(smi, norm, cond_train)]
+        + tf_entries(smi, tfk, tf_train)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,7 @@
 Counterpart of ``gan_image_captioning_tpu/config.py``: the same flag names
 and defaults for what the serving path, the training steps and the
 training loop read, parsed into a frozen :class:`Config`, with the JAX
-package's ``--preset`` bundles ``config1``-``config3`` and its
+package's ``--preset`` bundles ``config1``-``config4`` and its
 experiment-dir side effects (:func:`make_experiment_dirs`).  Flags of the
 JAX package that the port does not honour yet are parsed and refused when
 set (:func:`require_ported_flags`), never ignored.  ``--device`` defaults
@@ -43,9 +43,15 @@ PRESETS = {
     "config3": dict(gen_embed_dim=512, gen_num_layers=2, pretrain_epochs=50,
                     adv_epochs=50, pretrain_lr=1e-2, gen_lr=1e-4,
                     disc_lr=1e-4, dataset_percent=0.1, captions_per_image=5),
+    "config4": dict(gen_arch="transformer", disc_arch="transformer",
+                    gen_embed_dim=256, gen_hidden_dim=256, gen_num_layers=4,
+                    gen_num_heads=8, disc_embed_dim=64, disc_hidden_dim=128,
+                    disc_num_heads=8, disc_num_layers=4,
+                    adv_objective="reinforce", rollout_num=4,
+                    rollout_stride=4, pretrain_epochs=50, adv_epochs=50,
+                    dataset_percent=0.1, captions_per_image=5),
 }
 UNPORTED_PRESETS = {
-    "config4": "the transformer generator and discriminator with REINFORCE",
     "config5": "the ViT encoder and the GPT-2 generator",
 }
 
@@ -97,7 +103,19 @@ def add_model_args(parser):
                    help="is the gan conditional?")
     g.add_argument("--gen-arch", type=str, default="lstm",
                    choices=["lstm", "transformer", "gpt2"],
-                   help="generator architecture")
+                   help="generator architecture (gpt2 is not ported yet)")
+    g.add_argument("--gen-num-heads", type=int, default=8,
+                   help="attention heads for the transformer generator")
+    g.add_argument("--disc-arch", type=str, default="cnn",
+                   choices=["cnn", "transformer", "ar_transformer", "bilstm"],
+                   help="discriminator architecture (bilstm is not ported "
+                        "yet)")
+    g.add_argument("--disc-hidden-dim", type=int, default=128,
+                   help="hidden dim of the transformer discriminator")
+    g.add_argument("--disc-num-heads", type=int, default=8,
+                   help="attention heads for the transformer discriminator")
+    g.add_argument("--disc-num-layers", type=int, default=4,
+                   help="layers of the transformer discriminator")
     g.add_argument("--disc-embed-dim", type=int, default=64,
                    help="embeddings dimension to use in discriminator")
     g.add_argument("--disc-num-rep", type=int, default=64,
@@ -143,6 +161,21 @@ def add_training_args(parser):
     g.add_argument("--noisy-labels", type=float, default=0.0,
                    help="probability of flipping real/fake labels for the "
                         "discriminator")
+    g.add_argument("--adv-objective", type=str, default="gumbel",
+                   choices=["gumbel", "reinforce"],
+                   help="adversarial generator objective: 'gumbel' = the "
+                        "reference's Gumbel-softmax relaxation; 'reinforce' "
+                        "= policy gradient with rollout-based rewards")
+    g.add_argument("--rollout-num", type=int, default=0,
+                   help="Monte-Carlo completions per prefix for rollout "
+                        "rewards (reinforce); 0 = terminal-only reward")
+    g.add_argument("--rollout-stride", type=int, default=4,
+                   help="evaluate rollout rewards every N prefix positions")
+    g.add_argument("--rl-baseline", type=str, default="greedy",
+                   choices=["greedy", "batch_mean"],
+                   help="REINFORCE baseline: 'greedy' = the greedy decode's "
+                        "discriminator score, 'batch_mean' = the batch's "
+                        "mean reward")
     g.add_argument("--mle-objective", type=str, default="free",
                    choices=["free", "teacher", "scheduled"],
                    help="LSTM pretrain forward: 'free' = free-running sample "
@@ -248,7 +281,7 @@ def add_extension_args(parser):
     g.add_argument("--preset", type=str, default=None,
                    choices=sorted(PRESETS) + sorted(UNPORTED_PRESETS),
                    help="a named benchmark configuration as flag defaults "
-                        "(config4 and config5 are not ported yet)")
+                        "(config5 is not ported yet)")
     # The JAX package's flags that the port does not honour yet: each is
     # parsed with its JAX default and refused when set
     # (require_ported_flags).
@@ -293,15 +326,18 @@ def build_parser() -> argparse.ArgumentParser:
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Frozen view of the flags (field names and defaults as in the JAX
-    package's ``Config``, except the two kernel routes below).
+    package's ``Config``, except the kernel routes below).
 
     ``decode_impl`` / ``disc_engine``: ``"kernel"`` / ``"mxu"`` (the
-    defaults) call the decode, BPTT and conv wrappers, which launch the
-    CUDA kernels on CUDA tensors and run the plain versions on CPU ones;
-    ``"plain"`` runs the plain PyTorch versions on any device, to compare
-    a step through the kernels with the same step without them.
-    ``image_norm_impl`` does the same for the ``image_norm`` kernel of
-    ``images_u8`` batches."""
+    defaults) call the decode, BPTT, conv and Gumbel-sampler wrappers,
+    which launch the CUDA kernels on CUDA tensors and run the plain
+    versions on CPU ones; ``"plain"`` runs the plain PyTorch versions on
+    any device, to compare a step through the kernels with the same step
+    without them.  ``image_norm_impl`` does the same for the
+    ``image_norm`` kernel of ``images_u8`` batches, and ``attn_impl`` for
+    the flash-attention kernels of the transformers' self-attention
+    (``"plain"``: the dense attention with an explicit mask, the JAX
+    package's path without ``GIC_FLASH_ATTN``)."""
 
     vocab_size: int = -1
     gen_embed_dim: int = 32
@@ -309,6 +345,7 @@ class Config:
     gen_num_layers: int = 1
     max_seq_len: int = 34
     gen_arch: str = "lstm"
+    gen_num_heads: int = 8
     gen_init: str = "uniform"
     conditional_gan: int = 0
     # image encoder
@@ -323,6 +360,9 @@ class Config:
     disc_filter_sizes: Tuple[int, ...] = (3, 4, 5)
     disc_num_filters: Tuple[int, ...] = (300, 300, 300)
     disc_init: str = "uniform"
+    disc_hidden_dim: int = 128
+    disc_num_heads: int = 8
+    disc_num_layers: int = 4
     # training
     pretrain_lr: float = 1e-2
     gen_lr: float = 1e-4
@@ -335,6 +375,10 @@ class Config:
     label_smoothing: float = 0.0
     noisy_labels: float = 0.0
     mle_objective: str = "free"
+    adv_objective: str = "gumbel"
+    rollout_num: int = 0
+    rollout_stride: int = 4
+    rl_baseline: str = "greedy"
     dtype: str = "float32"
     lr_schedule: str = "constant"
     grad_accum: int = 1
@@ -382,6 +426,7 @@ class Config:
     decode_impl: str = "kernel"
     disc_engine: str = "mxu"
     image_norm_impl: str = "kernel"
+    attn_impl: str = "kernel"
 
     @property
     def cgan(self) -> bool:
@@ -412,10 +457,34 @@ def config_from_args(args: argparse.Namespace) -> Config:
                      for k, v in vars(args).items() if k in fields})
 
 
+def require_ported_arch(config: Config) -> None:
+    """Raise for a model the port does not have yet: the GPT-2 generator,
+    the conditional transformer, the BiLSTM discriminator, the ViT
+    encoder."""
+    if config.gen_arch not in ("lstm", "transformer"):
+        raise NotImplementedError(f"--gen-arch {config.gen_arch}: only the "
+                                  "LSTM and transformer generators are "
+                                  "ported yet")
+    if config.gen_arch == "transformer" and config.cgan:
+        raise NotImplementedError(
+            "--gen-arch transformer --conditional-gan 1: the conditional "
+            "transformer (cross-attention over the image grid) is not "
+            "ported yet")
+    if config.disc_arch not in ("cnn", "transformer", "ar_transformer"):
+        raise NotImplementedError(f"--disc-arch {config.disc_arch}: only the "
+                                  "CNN and transformer discriminators are "
+                                  "ported yet")
+    if config.cgan and config.encoder_arch != "resnet18":
+        raise NotImplementedError(
+            f"--encoder-arch {config.encoder_arch}: only the ResNet-18 "
+            "encoder is ported yet")
+
+
 def require_ported_flags(config: Config) -> None:
     """Raise for a flag of the JAX package that the port parses but does
-    not honour yet, when it is set; and for ``--beam-size`` above 1 and
-    ``--encoder-arch vit``."""
+    not honour yet, when it is set; for ``--beam-size`` above 1 and
+    ``--encoder-arch vit``; and for a model :func:`require_ported_arch`
+    refuses."""
     for flag, kw in _UNPORTED_FLAG_ARGS:
         name = flag[2:].replace("-", "_")
         value = getattr(config, name)
@@ -428,6 +497,7 @@ def require_ported_flags(config: Config) -> None:
     if config.encoder_arch != "resnet18":
         raise NotImplementedError(f"--encoder-arch {config.encoder_arch}: "
                                   "only the ResNet-18 encoder is ported yet")
+    require_ported_arch(config)
 
 
 def make_experiment_dirs(args: argparse.Namespace) -> argparse.Namespace:

@@ -14,7 +14,12 @@ A generator here is a port :class:`Generator` or the quantized twin
   wrapper call as the continuous engine's) and stops once every row has
   emitted ``<E>``.
 * The steppers (:func:`make_stepper`) are the per-step plain math of
-  either decoder, for teacher-forced scoring.
+  each decoder, for teacher-forced scoring.
+* A transformer generator decodes greedily through its KV-cache
+  ``sample(pretrain=True)`` (JAX ``eval/decode.py:209-222``); its
+  logprobs come from the same pass's logits (the teacher-forced logits of
+  the greedy ids, which the JAX package recomputes with a second scan).
+  The transformer has no serve kernel and no adaptive decode here.
 
 Beam search and sampling are not ported yet.
 """
@@ -31,6 +36,8 @@ from gan_image_captioning_tpu_torch.kernels.decode_sample import (
     decode_sample, decode_sample_q_serve)
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models import lstm as lstm_lib
+from gan_image_captioning_tpu_torch.models import transformer as tf_lib
+from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.models.generator import greedy_ids
 from gan_image_captioning_tpu_torch.ops import quantize as q_lib
 
@@ -71,6 +78,26 @@ def lstm_stepper(decoder) -> Stepper:
     return Stepper(init_state, step, _gather, lambda ids: weight[ids.long()])
 
 
+def transformer_stepper(decoder, config: Config) -> Stepper:
+    """Stepper over a transformer decoder: the state is the KV cache, one
+    ``[N, t, heads, head_dim]`` key and value tensor per layer."""
+    p = params_of(decoder)
+
+    def init_state(n):
+        return tf_lib._init_kv_cache(config, n, p["embed"].dtype,
+                                     p["embed"].device)
+
+    def step(state, x, t):
+        logits, k, v = tf_lib.decode_step(p, config, x, state[0], state[1], t)
+        return logits, (k, v)
+
+    def gather(state, idx):
+        return ([k[idx] for k in state[0]], [v[idx] for v in state[1]])
+
+    return Stepper(init_state, step, gather,
+                   lambda ids: p["embed"][ids.long()])
+
+
 def quantized_lstm_stepper(qdec: dict) -> Stepper:
     """Stepper over a quantized decoder: every weight read is the int8
     payload, its scale applied after the product (``qmatmul``).  A packed
@@ -104,12 +131,18 @@ def quantized_lstm_stepper(qdec: dict) -> Stepper:
 
 
 def make_stepper(generator, config: Config = None) -> Stepper:
-    """The stepper of a generator's decoder (``config``: the JAX
-    signature's; both LSTM steppers need only the weights)."""
+    """The stepper of a generator's decoder (``config``: the transformer's
+    heads; both LSTM steppers need only the weights)."""
     dec = decoder_of(generator)
     if q_lib.is_quantized(dec):
         return quantized_lstm_stepper(dec)
+    if isinstance(dec, tf_lib.TransformerDecoder):
+        return transformer_stepper(dec, config)
     return lstm_stepper(dec)
+
+
+def _is_transformer(generator) -> bool:
+    return isinstance(decoder_of(generator), tf_lib.TransformerDecoder)
 
 
 def _stepper_greedy(stepper: Stepper, features, seq_len: int):
@@ -177,6 +210,8 @@ def greedy(generator, features, config: Config, seq_len: int = None):
     dec = decoder_of(generator)
     if q_lib.is_quantized(dec):
         return _quantized_serve(dec, features, seq_len)[0]
+    if _is_transformer(generator):
+        return tf_lib.sample(dec, features, seq_len, True, config)[1]
     return greedy_ids(dec, features, seq_len)
 
 
@@ -189,6 +224,11 @@ def greedy_with_logprobs(generator, features, config: Config,
     dec = decoder_of(generator)
     if q_lib.is_quantized(dec):
         ids, lps = _quantized_serve(dec, features, seq_len)
+        return ids, masked_logprob_sum(ids, lps)
+    if _is_transformer(generator):
+        logits, ids = tf_lib.sample(dec, features, seq_len, True, config)
+        lps = torch.log_softmax(logits, dim=-1).gather(
+            2, ids.long()[..., None])[..., 0]
         return ids, masked_logprob_sum(ids, lps)
     if kernel_serve_available(features):
         ids, lps = decode_sample(features, dec.lstm.layers(),
@@ -216,6 +256,9 @@ def greedy_with_logprobs_adaptive(generator, features, config: Config,
     """
     seq_len = seq_len or config.seq_len
     api.require_ported(config)
+    if _is_transformer(generator):
+        raise NotImplementedError("the adaptive (early-stopping) decode of a "
+                                  "transformer generator is not ported yet")
     dec = decoder_of(generator)
     B, device = features.shape[0], features.device
     K = max(1, min(chunk, seq_len))

@@ -9,7 +9,11 @@ eds]`` …), so the bridge only renames: it takes trees as numpy arrays and
 returns the port's ``state_dict``s (the encoder's backbone under
 torchvision's names), the loaded modules, a quantized decoder
 (:func:`qdec_from_jax`), or a whole
-:class:`~gan_image_captioning_tpu_torch.train.state.TrainState`.  Nothing
+:class:`~gan_image_captioning_tpu_torch.train.state.TrainState`.  The
+transformer generator and discriminators keep the JAX trees' own names and
+layouts (dense ``w [in, out]``, ``linear.w [V, d]``, ``embeddings.w
+[Ed, V]``), so their bridge (:func:`flatten_jax`) only joins the path into
+a dotted name.  Nothing
 here imports JAX; the caller converts its arrays with ``numpy.asarray``
 (``jax.tree_util.tree_map(np.asarray, tree)`` keeps the named tuples of a
 JAX ``TrainState`` and its optax states, which are read by attribute).
@@ -93,6 +97,50 @@ def params_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flatten_jax(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A nested JAX tree (dicts, lists) → ``{dotted path: tensor}``: the
+    ``state_dict`` of the port's transformer modules."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: _t(tree)}
+    out = {}
+    for k, v in items:
+        if v is not None:
+            out.update(flatten_jax(v, f"{prefix}{k}."))
+    return out
+
+
+def _transformer_gen_params(tree: dict) -> Dict[str, torch.Tensor]:
+    return flatten_jax({"decoder": tree["decoder"]})
+
+
+def transformer_generator_from_jax(tree: dict, config: Config,
+                                   device="cpu"):
+    """A port ``TransformerGenerator`` holding a JAX transformer
+    generator's weights (``{"decoder": …}``)."""
+    from gan_image_captioning_tpu_torch.models.transformer import (
+        TransformerGenerator)
+
+    gen = TransformerGenerator(config, device)
+    gen.load_state_dict(_transformer_gen_params(tree), strict=True)
+    return gen
+
+
+def transformer_discriminator_from_jax(tree: dict, config: Config,
+                                       device="cpu"):
+    """A port ``TransformerDiscriminator`` holding a JAX transformer
+    discriminator's weights (either variant: they share the tree)."""
+    from gan_image_captioning_tpu_torch.models.discriminator_transformer \
+        import TransformerDiscriminator
+
+    disc = TransformerDiscriminator(config, device)
+    disc.load_state_dict(flatten_jax(tree), strict=True)
+    return disc
+
+
 def generator_from_jax(tree: dict, config: Config, device="cpu") -> Generator:
     """A port :class:`Generator` holding the JAX tree's weights."""
     gen = Generator(config, device)
@@ -173,17 +221,27 @@ def train_state_from_jax(state, config: Config, device="cpu"):
 
     key = np.asarray(state.rng).astype(np.uint64).reshape(-1)
     seed = int(key[-2]) << 32 | int(key[-1]) if key.size > 1 else int(key[0])
-    gen = freeze_backbone(generator_from_jax(state.gen_params, config,
-                                             device), config)
-    disc = discriminator_from_jax(state.disc_params, config, device)
+    if config.gen_arch == "transformer":
+        gen = transformer_generator_from_jax(state.gen_params, config, device)
+        gen_rename = _transformer_gen_params
+    else:
+        gen = freeze_backbone(generator_from_jax(state.gen_params, config,
+                                                 device), config)
+        gen_rename = params_from_jax
+    if config.disc_arch == "cnn":
+        disc = discriminator_from_jax(state.disc_params, config, device)
+        disc_rename = disc_params_from_jax
+    else:
+        disc = transformer_discriminator_from_jax(state.disc_params, config,
+                                                  device)
+        disc_rename = flatten_jax
     return TrainState(
         gen=gen, disc=disc,
-        pretrain_opt=_adam_from_jax(state.pretrain_opt_state,
-                                    params_from_jax, gen, device),
-        gen_opt=_adam_from_jax(state.gen_opt_state, params_from_jax, gen,
-                               device),
-        disc_opt=_adam_from_jax(state.disc_opt_state, disc_params_from_jax,
-                                disc, device),
+        pretrain_opt=_adam_from_jax(state.pretrain_opt_state, gen_rename,
+                                    gen, device),
+        gen_opt=_adam_from_jax(state.gen_opt_state, gen_rename, gen, device),
+        disc_opt=_adam_from_jax(state.disc_opt_state, disc_rename, disc,
+                                device),
         generator=torch.Generator().manual_seed(seed),
         pretrain_steps=int(np.asarray(state.pretrain_steps)),
         gen_steps=int(np.asarray(state.gen_steps)),

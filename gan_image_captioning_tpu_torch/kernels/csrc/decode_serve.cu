@@ -73,33 +73,6 @@ using namespace gic;
 
 namespace {
 
-constexpr float GUMBEL_EPS = 1e-10f;  // the reference's add_gumbel eps
-
-// Philox4x32-10 (Salmon et al., SC'11), first output word.
-__device__ __forceinline__ uint32_t philox_x(uint32_t c0, uint32_t c1,
-                                             uint32_t c2, uint32_t c3,
-                                             uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c0;
-}
-
-__device__ __forceinline__ float philox_uniform(uint64_t seed, int t, int b,
-                                                int v) {
-  const uint32_t bits = philox_x((uint32_t)v, (uint32_t)b, (uint32_t)t, 0u,
-                                 (uint32_t)seed, (uint32_t)(seed >> 32));
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
 // One layer of one step: gates for hidden units [j0, j0+JT) and batch rows
 // [b0, b0+L_BT), then the cell update.  c is updated in place; h goes to
 // h_next (the other ping-pong half) because other blocks still read h_prev.

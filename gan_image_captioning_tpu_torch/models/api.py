@@ -1,8 +1,9 @@
 """Architecture dispatch (``gan_image_captioning_tpu/models/api.py``).
 
-Only the LSTM generator (unconditional, or conditional on the ResNet-18
-encoder) and the CNN discriminator are ported; :func:`require_ported`
-turns any other configuration away.
+Ported: the LSTM generator (unconditional, or conditional on the ResNet-18
+encoder), the unconditional transformer generator, and the CNN,
+transformer and autoregressive-transformer discriminators;
+:func:`require_ported` turns any other configuration away.
 """
 
 from __future__ import annotations
@@ -11,29 +12,32 @@ from typing import Any, Dict
 
 import torch
 
-from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.config import Config, require_ported_arch
 from gan_image_captioning_tpu_torch.kernels.image_norm import (
     normalize_images, normalize_images_plain)
 from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
+from gan_image_captioning_tpu_torch.models import (
+    discriminator_transformer as disc_tf)
 from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
 from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+from gan_image_captioning_tpu_torch.models import transformer as gen_tf
 
 
-def require_ported(config: Config, disc: bool = False) -> None:
-    """Raise for a configuration whose path is not ported yet (``disc``:
-    the discriminator's too)."""
-    if config.cgan and config.encoder_arch != "resnet18":
-        raise NotImplementedError(
-            f"--encoder-arch {config.encoder_arch}: only the ResNet-18 "
-            "encoder is ported yet")
-    if config.gen_arch != "lstm":
-        raise NotImplementedError(
-            f"--gen-arch {config.gen_arch}: only the LSTM generator is "
-            "ported yet")
-    if disc and config.disc_arch != "cnn":
-        raise NotImplementedError(
-            f"--disc-arch {config.disc_arch}: only the CNN discriminator is "
-            "ported yet")
+def require_ported(config: Config) -> None:
+    """Raise for a configuration whose models are not ported yet
+    (``config.require_ported_arch``)."""
+    require_ported_arch(config)
+
+
+def init_generator(generator: torch.Generator, config: Config, device="cpu",
+                   sweep: bool = True):
+    """A seeded generator of ``config.gen_arch``."""
+    require_ported(config)
+    if config.gen_arch == "lstm":
+        return gen_lstm.init_generator_params(generator, config, device,
+                                              sweep)
+    return gen_tf.init_transformer_generator_params(generator, config,
+                                                    device, sweep)
 
 
 def _plain_decode(config: Config) -> bool:
@@ -72,7 +76,7 @@ def generator_condition(config: Config, generator: gen_lstm.Generator,
     ``images_u8`` through ``image_norm``); in train mode it moves every
     running statistic once, and ``new_bn_stats`` are the encoder's running
     statistics after it.  Unconditional: ``<S>``-token embeddings per row
-    and ``None``."""
+    and ``None``, for either generator."""
     require_ported(config)
     if config.cgan:
         feats = encoder_lib.encode(generator.encoder, _images(config, batch),
@@ -80,9 +84,15 @@ def generator_condition(config: Config, generator: gen_lstm.Generator,
         return ({"features": feats, "context": None},
                 encoder_lib.bn_stats(generator.encoder))
     batch_size = batch["captions"].shape[0]
-    return ({"features": gen_lstm.start_token_features(generator.decoder,
-                                                       batch_size),
+    return ({"features": start_token_features(config, generator, batch_size),
              "context": None}, None)
+
+
+def start_token_features(config: Config, generator, batch: int):
+    """The ``<S>`` embedding per row, from either generator's table."""
+    if config.gen_arch == "lstm":
+        return gen_lstm.start_token_features(generator.decoder, batch)
+    return gen_tf.start_token_features(generator.decoder, batch)
 
 
 def generator_sample(generator: gen_lstm.Generator, cond: Dict[str, Any],
@@ -92,18 +102,28 @@ def generator_sample(generator: gen_lstm.Generator, cond: Dict[str, Any],
     logits (``pretrain``) or the soft Gumbel sample with Philox noise
     keyed by ``seed`` or the fed ``uniforms [T, B, V]``."""
     require_ported(config)
+    plain = _plain_decode(config)
+    if config.gen_arch == "transformer":
+        return gen_tf.sample(generator.decoder, cond["features"], seq_len,
+                             pretrain, config, temperature, seed, uniforms)
     return gen_lstm.sample(generator.decoder, cond["features"], seq_len,
-                           pretrain, temperature, seed, uniforms,
-                           plain=_plain_decode(config))
+                           pretrain, temperature, seed, uniforms, plain=plain)
 
 
 def generator_mle_outputs(generator: gen_lstm.Generator,
-                          cond: Dict[str, Any], captions, config: Config):
-    """MLE-phase logits ``[B, T, V]`` (targets = ``captions``), by
+                          cond: Dict[str, Any], captions, config: Config,
+                          lengths=None):
+    """MLE-phase logits ``[B, T, V]`` (targets = ``captions``).  LSTM, by
     ``--mle-objective``: ``free`` (the reference's free-running pretrain
-    sample) or ``teacher`` (teacher forcing)."""
+    sample) or ``teacher`` (teacher forcing).  Transformer: the parallel
+    causal pass with the keys past each caption's ``lengths`` masked,
+    whatever ``--mle-objective`` says."""
     require_ported(config)
     seq_len = captions.shape[1]
+    if config.gen_arch == "transformer":
+        return gen_tf.teacher_forced(generator.decoder, cond["features"],
+                                     captions, config,
+                                     lengths=lengths)[:, :seq_len]
     dec = generator.decoder
     if config.mle_objective == "teacher":
         return gen_lstm.teacher_forced(dec, cond["features"],
@@ -118,22 +138,47 @@ def generator_mle_outputs(generator: gen_lstm.Generator,
 
 def init_discriminator(generator: torch.Generator, config: Config,
                        device="cpu", sweep: bool = True):
-    require_ported(config, disc=True)
-    return disc_cnn.init_discriminator_params(generator, config, device,
-                                              sweep)
+    require_ported(config)
+    if config.disc_arch == "cnn":
+        return disc_cnn.init_discriminator_params(generator, config, device,
+                                                  sweep)
+    return disc_tf.init_transformer_discriminator_params(generator, config,
+                                                         device, sweep)
 
 
 def discriminator_apply(params, inp, config: Config, train: bool = False,
                         keep=None, generator=None):
-    """Logits ``[B·R]`` of soft ``[B, L, V]`` or int ``[B, L]`` input."""
-    require_ported(config, disc=True)
+    """Flat logits of soft ``[B, L, V]`` or int ``[B, L]`` input: CNN
+    ``[B·R]``, transformer ``[B]``, ar_transformer ``[B·L]``.  ``keep``:
+    the dropout keep mask (CNN ``[B·R, F]``, transformer ``[B, d_model]``,
+    ar_transformer ``[B, L, d_model]``)."""
+    require_ported(config)
+    if config.disc_arch == "transformer":
+        return disc_tf.apply(params, inp, config, train, keep, generator)
+    if config.disc_arch == "ar_transformer":
+        return disc_tf.apply_autoregressive(params, inp, config, train, keep,
+                                            generator)
     if config.disc_engine not in ("mxu", "plain"):
         raise ValueError(f"disc_engine {config.disc_engine!r}: expected "
                          "'mxu' or 'plain'")
     return disc_cnn.apply(params, inp, config, train, keep, generator)
 
 
+def disc_keep_shape(config: Config, batch: int):
+    """The shape of one discriminator pass's dropout keep mask."""
+    if config.disc_arch == "cnn":
+        return (batch * config.disc_num_rep, config.disc_feature_dim)
+    if config.disc_arch == "ar_transformer":
+        return (batch, config.seq_len, config.disc_hidden_dim)
+    return (batch, config.disc_hidden_dim)
+
+
 def disc_logits_per_sample(config: Config) -> int:
-    """How many logits each sample contributes: ``num_rep`` for the CNN."""
-    require_ported(config, disc=True)
-    return config.disc_num_rep
+    """How many logits each sample contributes: ``num_rep`` for the CNN,
+    ``seq_len`` for ar_transformer, 1 for transformer."""
+    require_ported(config)
+    if config.disc_arch == "cnn":
+        return config.disc_num_rep
+    if config.disc_arch == "ar_transformer":
+        return config.seq_len
+    return 1

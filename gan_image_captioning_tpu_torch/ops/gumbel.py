@@ -14,6 +14,9 @@ from __future__ import annotations
 
 import torch
 
+from gan_image_captioning_tpu_torch.kernels.gumbel_sample import (
+    fused_gumbel_sample)
+
 EPS = 1e-10  # the reference's add_gumbel eps
 
 
@@ -31,10 +34,20 @@ def gumbel_noise(shape, generator=None, device="cpu", dtype=torch.float32,
 
 
 def gumbel_softmax(logits, temperature, generator=None, eps: float = EPS,
-                   u=None):
+                   u=None, kernel: bool = False, seed: int = 0,
+                   step: int = 0):
     """``(soft [..., V], ids [...])``: ``softmax(temperature * (logits +
     g))`` and its argmax (first index on ties), a categorical draw from
-    ``softmax(logits)``."""
+    ``softmax(logits)``.
+
+    ``kernel`` (the ``decode_impl="kernel"`` route, the JAX package's
+    ``set_use_pallas``): 2-D logits go through the fused sampler
+    (``kernels/gumbel_sample.py``): on CUDA tensors its kernel, with the
+    fed uniforms ``u`` or Philox keyed by ``(seed, step)``; on CPU ones its
+    plain version.  Its ids are the argmax of ``(logits + g) *
+    temperature``, as the TPU kernel's; this route's, of the soft row."""
+    if kernel and logits.ndim == 2:
+        return fused_gumbel_sample(logits, seed, temperature, step, u)
     g = gumbel_noise(logits.shape, generator, logits.device, logits.dtype,
                      eps, u)
     soft = torch.softmax((logits + g) * temperature, dim=-1)

@@ -16,7 +16,10 @@ answered as JSON lines.  Two engines (``serving.py``):
   first chunk with ``<E>`` (the tail is ``<PAD>``) unless ``--serve-exact``.
 
 ``--quantize int8|int4`` serves the quantized decoder (``ops/quantize.py``)
-through the quantized serve kernel in either engine.  A warm request runs
+through the quantized serve kernel in either engine.  A transformer
+generator (``--gen-arch transformer``, e.g. ``--preset config4``) is served
+by the coalescing engine through its KV-cache greedy decode; the continuous
+engine, the adaptive decode and ``--quantize`` refuse it.  A warm request runs
 at startup, so the first client request finds the kernel built and loaded.
 
     # a checkpoint in the reference state_dict layout (src/export_torch.py
@@ -81,9 +84,9 @@ from gan_image_captioning_tpu_torch.eval import decode as decode_lib
 from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
                                                          strip_caption)
 from gan_image_captioning_tpu_torch.models.api import (generator_condition,
-                                                       require_ported)
-from gan_image_captioning_tpu_torch.models.generator import (
-    init_generator_params, start_token_features)
+                                                       init_generator,
+                                                       require_ported,
+                                                       start_token_features)
 from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
 from gan_image_captioning_tpu_torch.serving import (CoalescingBatcher,
                                                     ContinuousBatcher)
@@ -180,8 +183,8 @@ class CaptionService:
             self.checkpoint_path = args.checkpoint
         else:
             rng = torch.Generator().manual_seed(args.init_seed)
-            generator = init_generator_params(rng, self.config, self.device,
-                                              sweep=args.init_sweep)
+            generator = init_generator(rng, self.config, self.device,
+                                       sweep=args.init_sweep)
             self.checkpoint_path = f"init-seed:{args.init_seed}"
         self.generator = generator.requires_grad_(False)
         # the decode reads the quantized twin under --quantize; the start
@@ -225,7 +228,8 @@ class CaptionService:
                                                self.config)
 
     def _features_unconditional(self, n: int) -> np.ndarray:
-        return start_token_features(self.generator.decoder, n).cpu().numpy()
+        return start_token_features(self.config, self.generator,
+                                    n).cpu().numpy()
 
     @torch.no_grad()
     def features_from_images(self, images: np.ndarray) -> np.ndarray:

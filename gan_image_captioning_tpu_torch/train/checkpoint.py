@@ -14,6 +14,12 @@ BatchNorm running statistics (``models/torch_export.py:43-102``).
 checkpoint is conditional when its ``conditional`` flag says so, or, in
 the plain form, when it holds encoder keys; loading it under the other
 ``--conditional-gan`` raises.
+
+A transformer generator (``--gen-arch transformer``) is saved under its
+JAX tree paths (``decoder.embed``, ``decoder.blocks.{i}.attn.wq.w`` …); the
+adversarial form carries ``"gen_arch": "transformer"``, the plain form is
+recognised by its ``decoder.pos`` key, and loading a checkpoint under the
+other ``--gen-arch`` raises.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch
 
 from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.models.generator import Generator
+from gan_image_captioning_tpu_torch.models.transformer import (
+    TransformerGenerator)
 
 # torchvision resnet18 module names → the reference Encoder's nn.Sequential
 # indices (resnet18 children minus avgpool/fc: conv1, bn1, relu, maxpool,
@@ -58,8 +66,13 @@ def save_generator_checkpoint(path: str, generator: Generator,
         "generator": gen_sd,
         "discriminator": {k: v.detach().cpu()
                           for k, v in discriminator_state.items()},
-        "conditional": generator.encoder is not None}
+        "conditional": generator.encoder is not None,
+        "gen_arch": _arch_of(gen_sd)}
     torch.save(obj, path)
+
+
+def _arch_of(gen_sd) -> str:
+    return "transformer" if "decoder.pos" in gen_sd else "lstm"
 
 
 def load_generator_checkpoint(path: str, config: Config, device="cpu"):
@@ -70,11 +83,16 @@ def load_generator_checkpoint(path: str, config: Config, device="cpu"):
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path}")
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    disc, conditional = None, None
+    disc, conditional, arch = None, None, None
     if isinstance(obj.get("generator"), dict):
         disc = obj.get("discriminator")
         conditional = obj.get("conditional")
+        arch = obj.get("gen_arch")
         obj = obj["generator"]
+    arch = arch or _arch_of(obj)
+    if arch != config.gen_arch:
+        raise ValueError(f"{path}: a {arch} generator checkpoint does not "
+                         f"match --gen-arch {config.gen_arch}")
     if conditional is None:
         conditional = any(k.startswith("encoder.") for k in obj)
     if bool(conditional) != config.cgan:
@@ -83,6 +101,7 @@ def load_generator_checkpoint(path: str, config: Config, device="cpu"):
             f"not match --conditional-gan {config.conditional_gan}")
     state = {_rename_backbone(k, _FROM_SEQUENTIAL): v for k, v in obj.items()
              if k.startswith(("decoder.", "encoder."))}
-    gen = Generator(config, device)
+    gen = (TransformerGenerator(config, device) if arch == "transformer"
+           else Generator(config, device))
     gen.load_state_dict(state, strict=True)
     return gen, disc

@@ -31,8 +31,7 @@ from torch import nn
 from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models.discriminator import Discriminator
-from gan_image_captioning_tpu_torch.models.generator import (
-    Generator, init_generator_params)
+from gan_image_captioning_tpu_torch.models.generator import Generator
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # torch Adam / optax.adam defaults
 
@@ -96,12 +95,15 @@ def require_ported_training(config: Config) -> None:
         if getattr(config, name) != default:
             raise NotImplementedError(f"{name} = {getattr(config, name)!r}:"
                                       " not ported yet")
-    api.require_ported(config, disc=True)
+    api.require_ported(config)
 
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a training step changes (the JAX ``TrainState``)."""
+    """Everything a training step changes (the JAX ``TrainState``).  The
+    models are those of ``config.gen_arch`` / ``config.disc_arch``: an LSTM
+    ``Generator`` or a ``TransformerGenerator``, a CNN ``Discriminator`` or
+    a ``TransformerDiscriminator``."""
 
     gen: Generator
     disc: Discriminator
@@ -132,7 +134,7 @@ def create_train_state(config: Config, seed: int, device="cpu",
     require_ported_training(config)
     init = torch.Generator().manual_seed(seed)
     if gen is None:
-        gen = init_generator_params(init, config, device, sweep)
+        gen = api.init_generator(init, config, device, sweep)
     if disc is None:
         disc = api.init_discriminator(init, config, device, sweep)
     freeze_backbone(gen, config)

@@ -14,6 +14,12 @@
 * :func:`make_mle_eval_step` / :func:`make_adv_eval_step` — the losses in
   eval mode (running statistics read, not moved; no dropout, no label
   noise; no update), without gradients.
+* The transformer generator's MLE step is the parallel causal pass with
+  the keys past each caption's ``lengths`` masked (flash attention).
+* ``--adv-objective reinforce`` (``train/reinforce.py``): the sampled ids,
+  rollout rewards, the REINFORCE generator loss and the discriminator's
+  loss on real against sampled ids; one backward of ``g_loss + d_loss``
+  gives both gradient sets there too, since no cross term exists.
 * :func:`make_adv_step` — one Gumbel-softmax sample, the reference's three
   discriminator passes (real, detached fake, generator), both losses and
   ONE backward of ``g_loss + d_loss`` that gives both gradient sets (the
@@ -24,11 +30,13 @@
   ``gen_steps % disc_train_freq == 0``; the generator every step.
 
 Batches are dicts of tensors on the models' device: ``captions [B, L]``
-int, optionally ``weights [B]`` (0 on pad rows).  Every random draw of a
-step can be fed through ``noise``: ``uniforms [T, B, V]`` (the Gumbel
-uniforms), ``keep`` (the three dropout keep masks ``[B·R, F]``, real /
-fake / generator pass) and ``flip [B]`` (the noisy-label swap); what is
-not fed is drawn from ``state.generator``.  A step updates the state in
+int, optionally ``lengths [B]`` and ``weights [B]`` (0 on pad rows).
+Every random draw of a step can be fed through ``noise``: ``uniforms [T,
+B, V]`` (the Gumbel uniforms), ``keep`` (the dropout keep masks, real /
+fake / generator pass, of ``api.disc_keep_shape``: ``[B·R, F]`` for the
+CNN) and ``flip [B]`` (the noisy-label swap), and for REINFORCE
+``rollout_uniforms`` and a ``seed`` (``train/reinforce.py``); what is not
+fed is drawn from ``state.generator``.  A step updates the state in
 place and returns it with its metrics (0-d tensors).
 """
 
@@ -44,6 +52,7 @@ from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.ops.losses import (cross_entropy_loss,
                                                         gan_losses)
+from gan_image_captioning_tpu_torch.train.reinforce import reinforce_losses
 from gan_image_captioning_tpu_torch.train.state import (
     TrainState, clip_adam_update, global_norm, require_ported_training,
     trainable_parameters)
@@ -89,7 +98,8 @@ def mle_loss(config: Config, state: TrainState, batch, train: bool = True):
     against the captions, over all positions (weighted by ``weights``)."""
     cond, _ = api.generator_condition(config, state.gen, batch, train=train)
     captions = batch["captions"]
-    logits = api.generator_mle_outputs(state.gen, cond, captions, config)
+    logits = api.generator_mle_outputs(state.gen, cond, captions, config,
+                                       lengths=batch.get("lengths"))
     w = batch.get("weights")
     mask = None if w is None else w[:, None].expand(captions.shape)
     return cross_entropy_loss(logits, captions, mask)
@@ -129,6 +139,14 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     cross terms cut as the module docstring says (``train=False``: eval
     mode, no dropout, no label noise)."""
     noise = noise or {}
+    if config.adv_objective == "reinforce":
+        seed = noise.get("seed")
+        return reinforce_losses(
+            config, state, batch, _draw_seed(state) if seed is None else seed,
+            noise, train)
+    if config.adv_objective != "gumbel":
+        raise ValueError(f"adv_objective {config.adv_objective!r}: expected "
+                         "'gumbel' or 'reinforce'")
     cond, _ = api.generator_condition(config, state.gen, batch, train=train)
     captions = batch["captions"]
     device = captions.device

@@ -53,7 +53,9 @@ def test_fresh_import_adds_no_jax_module():
                  "models.resnet", "models.encoder", "data.coco",
                  "data.images", "data.loader", "data.synthetic",
                  "data.vocab", "train.instructor", "train.checkpoint",
-                 "utils.logging"):
+                 "utils.logging", "kernels.flash_attention",
+                 "kernels.gumbel_sample", "models.transformer",
+                 "models.discriminator_transformer", "train.reinforce"):
         assert f"gan_image_captioning_tpu_torch.{name}" in added
     assert "torch" in added or "torch" in sys.modules
     assert [m for m in added if _forbidden(m)] == []

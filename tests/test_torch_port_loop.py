@@ -223,5 +223,13 @@ def test_config2_needs_greedy_decoding():
 
 @pytest.mark.parametrize("preset", ["config4", "config5"])
 def test_unported_presets_raise(preset):
+    """config5 is refused as it is parsed; config4 (the transformer GAN)
+    is ported, and only its conditional form is refused."""
+    if preset == "config4":
+        args = build_parser().parse_args(["--preset", preset,
+                                          "--conditional-gan", "1"])
+        with pytest.raises(NotImplementedError, match="conditional"):
+            require_ported_flags(config_from_args(args))
+        return
     with pytest.raises(NotImplementedError):
         build_parser().parse_args(["--preset", preset])

@@ -149,7 +149,7 @@ def test_needs_exactly_one_weight_source(exported):
 
 @pytest.mark.parametrize("extra,err", [
     (["--beam-size", "4"], NotImplementedError),
-    (["--gen-arch", "transformer"], NotImplementedError),
+    (["--gen-arch", "gpt2"], NotImplementedError),
     (["--conditional-gan", "1", "--encoder-arch", "vit"],
      NotImplementedError),
     (["--device", "tpu"], RuntimeError)])

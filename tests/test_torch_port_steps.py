@@ -174,7 +174,7 @@ def test_steps_draw_their_own_noise_and_train():
 
 @pytest.mark.parametrize("override", [
     {"dtype": "bfloat16"}, {"lr_schedule": "cosine"}, {"ema_decay": 0.99},
-    {"grad_accum": 2}, {"disc_arch": "transformer"}])
+    {"grad_accum": 2}, {"disc_arch": "bilstm"}])
 def test_unported_training_options_raise(override):
     config = Config(**KW).replace(**override)
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,145 @@
+"""``--preset config4`` end to end on the CPU: the port's training entry
+point (``python -m gan_image_captioning_tpu_torch.main``) against the JAX
+package's ``GANInstructor`` on the same synthetic data, at a small width.
+The JAX instructor's initial transformer generator is carried in through
+``--init-gen-ckpt`` (``interop`` then the port's checkpoint); both run one
+pretrain epoch (the parallel causal pass with padding masks: no noise, so
+the per-epoch train and val losses must agree within 1e-4 relative) and
+one REINFORCE epoch (each side draws its own noise: the step counters and
+temperatures must agree, every loss must be finite).  The checkpoints must
+exist, carry the transformer flag and serve ``{"n": k}``.  The preset is
+the JAX flag bundle, and what config4 still lacks raises."""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from gan_image_captioning_tpu.config import Config as JConfig
+from gan_image_captioning_tpu.config import get_args
+from gan_image_captioning_tpu.data.synthetic import (
+    SyntheticCaptions as JSynthetic)
+from gan_image_captioning_tpu.train.instructor import GANInstructor
+from gan_image_captioning_tpu_torch import interop
+from gan_image_captioning_tpu_torch import main as tmain
+from gan_image_captioning_tpu_torch import serve
+from gan_image_captioning_tpu_torch.config import (build_parser,
+                                                   config_from_args,
+                                                   require_ported_flags)
+from gan_image_captioning_tpu_torch.train.checkpoint import (
+    save_generator_checkpoint)
+
+ITEMS, BS = 16, 8
+MODEL = dict(gen_embed_dim=16, gen_hidden_dim=16, gen_num_layers=1,
+             gen_num_heads=2, disc_embed_dim=8, disc_hidden_dim=16,
+             disc_num_heads=2, disc_num_layers=1, max_seq_len=6,
+             rollout_num=2, rollout_stride=3, pre_train_batch_size=BS,
+             pre_eval_batch_size=BS, adv_train_batch_size=BS,
+             adv_eval_batch_size=BS, pretrain_epochs=1, adv_epochs=1)
+FLAGS = ["--preset", "config4", "--dataset", "synthetic",
+         "--synthetic-items", str(ITEMS)] + [
+    f"--{k.replace('_', '-')}={v}" for k, v in MODEL.items()]
+
+
+def _metrics(save_dir):
+    out = {}
+    for ln in open(os.path.join(save_dir, "metrics.jsonl")):
+        r = json.loads(ln)
+        out.setdefault(r["tag"], []).append((r["step"], r["value"]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("tfloop")
+    jdir = str(tmp / "jax")
+    train = JSynthetic("train", num_items=ITEMS, seed=1008)
+    val = JSynthetic("val", num_items=16, seed=1008)
+    jargs = get_args(["--preset", "config4"], make_dirs=False)
+    preset = {k: getattr(jargs, k) for k in (
+        "gen_arch", "disc_arch", "adv_objective", "rl_baseline")}
+    jconfig = JConfig(vocab_size=train.vocab_size, num_workers=0,
+                      device_prefetch=0, save_dir=jdir,
+                      model_dir=os.path.join(jdir, "models"),
+                      log_file=os.path.join(jdir, "log"), **preset, **MODEL)
+    jinst = GANInstructor(jconfig, train, val, silent=True)
+    args = build_parser().parse_args(FLAGS)
+    args.vocab_size = train.vocab_size
+    gen = interop.transformer_generator_from_jax(
+        jax.tree_util.tree_map(np.asarray, jinst.state.gen_params),
+        config_from_args(args))
+    init = str(tmp / "jax_init_generator.ckpt")
+    save_generator_checkpoint(init, gen)
+    jinst._run()
+    inst = tmain.main([*FLAGS, "--init-gen-ckpt", init, "--device", "cpu",
+                       "--save-dir", str(tmp / "port"), "--expt-name", "run",
+                       "--num-workers", "0", "--device-prefetch", "0"])
+    return jinst, inst
+
+
+def test_pretrain_epoch_losses_match_jax(runs):
+    jinst, inst = runs
+    jm, tm = _metrics(jinst.config.save_dir), _metrics(inst.config.save_dir)
+    for tag in ("GenPreTraining_train_loss", "GenPreTraining_val_loss"):
+        want = np.mean([v for _, v in jm[tag]])
+        got = np.mean([v for _, v in tm[tag]])
+        np.testing.assert_allclose(got, want, rtol=1e-4, err_msg=tag)
+        assert [s for s, _ in tm[tag]] == [s for s, _ in jm[tag]], tag
+    assert inst.pretrain_steps == jinst.pretrain_steps == ITEMS // BS
+
+
+def test_reinforce_epoch_counters_match_jax(runs):
+    jinst, inst = runs
+    assert inst.config.adv_objective == "reinforce"
+    assert inst.state.gen_steps == int(jinst.state.gen_steps) == ITEMS // BS
+    assert inst.state.disc_steps == int(jinst.state.disc_steps)
+    np.testing.assert_allclose(inst.state.temperature,
+                               float(jinst.state.temperature), rtol=1e-6)
+    tm = _metrics(inst.config.save_dir)
+    assert set(tm) == set(_metrics(jinst.config.save_dir))
+    assert all(np.isfinite(v) for rows in tm.values() for _, v in rows)
+
+
+def test_checkpoints_are_transformer_and_serve(runs):
+    _, inst = runs
+    adv = os.path.join(inst.config.model_dir, "adv_model.ckpt")
+    assert torch.load(adv, weights_only=True)["gen_arch"] == "transformer"
+    for name in ("pretrained_model.ckpt", "adv_model.ckpt"):
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", os.path.join(inst.config.model_dir, name),
+             *FLAGS, "--device", "cpu"]))
+        try:
+            resp = service.handle_request({"n": 3})
+            assert len(resp["captions"]) == 3
+            assert all(np.isfinite(resp["logprobs"]))
+        finally:
+            service.close()
+
+
+def test_config4_is_the_jax_flag_bundle():
+    args = build_parser().parse_args(["--preset", "config4"])
+    jargs = get_args(["--preset", "config4"], make_dirs=False)
+    for k in ("gen_arch", "disc_arch", "gen_embed_dim", "gen_hidden_dim",
+              "gen_num_layers", "gen_num_heads", "disc_embed_dim",
+              "disc_hidden_dim", "disc_num_heads", "disc_num_layers",
+              "adv_objective", "rollout_num", "rollout_stride", "rl_baseline",
+              "pretrain_epochs", "adv_epochs", "dataset_percent",
+              "captions_per_image"):
+        assert getattr(args, k) == getattr(jargs, k), k
+    require_ported_flags(config_from_args(args))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--disc-arch", "bilstm"], ["--gen-arch", "gpt2"],
+    ["--conditional-gan", "1"]])
+def test_what_config4_still_lacks_raises(extra, tmp_path):
+    args = build_parser().parse_args(["--preset", "config4", *extra])
+    with pytest.raises(NotImplementedError):
+        require_ported_flags(config_from_args(args))
+    with pytest.raises(NotImplementedError):
+        tmain.main([*FLAGS, *extra, "--device", "cpu", "--save-dir",
+                    str(tmp_path / "s")])
+    assert not os.path.exists(tmp_path / "s")
