@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only train_kernels,train_timing
     python3 chip_smoke.py --only tf_kernels,tf_train,tf_service,tf_loop
+    python3 chip_smoke.py --only disc_engines,bptt_reverse
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -91,7 +92,8 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
 16. ``cond_train`` — config3 + ``--conditional-gan 1`` at B = 64 on uint8
     images (``images_u8``, normalized by ``image_norm`` in the step): two
     MLE steps (free), two (teacher) and two adversarial steps with the
-    launch counts (``image_norm`` once per step); then each step's losses,
+    launch counts (``image_norm`` once per step, the reverse BPTT once per
+    layer in each MLE step's backward); then each step's losses,
     gradients and updated running statistics through the kernels against
     the plain route on the same state (losses within 1e-4, gradients
     within 1e-3 of the largest gradient of their side, statistics within
@@ -133,10 +135,34 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     one pretrain and one REINFORCE epoch, every kernel launched, losses
     finite, both checkpoints served.
 
+22. ``disc_engines`` — the ``--disc-engine`` kernels at config3 width
+    (``conv_inputs``): the per-batch-row forward against its plain version
+    and the ``mxu`` forward (pooled within 1e-5, argmax rows equal outside
+    ties within 1e-6), the per-batch-row backward (``d_emb`` and ``db``
+    within 1e-5 times the larger of 1 and their largest entry, as the
+    ``mxu`` backward's dX is held; ``dW`` within 1e-4 of its max) and the
+    DXS backward (DXS, and the overlap-added ``d_emb`` against the ``mxu``
+    backward's, within 1e-5 likewise; ``dW`` within 1e-4 of its max)
+    against their plain versions;
+    one adversarial step under each of ``auto``, ``xla``, ``pallas``,
+    ``hybrid``, ``mxu`` and ``mxu_dxs`` with the launch counts of its
+    engine, and its losses (within 1e-4) and gradients (``routes_agree``)
+    against the plain route on the same state and fed noise; ms per step;
+    ``device_ms`` of the new kernels and, re-timed the same way, of the
+    ``mxu`` conv kernels and the BPTT chain, beside the plain versions and
+    the bounds.
+23. ``bptt_reverse`` — the single-layer reverse BPTT kernel at
+    [36, 64, 512] from a non-zero (h0, c0) against its plain version
+    (``d_pre`` within 1e-4 of its max, ``dh0`` and ``dc0`` within 1e-4);
+    the unconditional config3 ``--mle-objective teacher`` step through it
+    (``NL`` launches) against the plain route (loss within 1e-4, gradients
+    by ``routes_agree``); ms per step on both routes; its ``device_ms``.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
-8 and 4 bits, ``image_norm``, the three flash-attention kernels and the
-Gumbel sampler) and, last, ``{"ok": true, "device": …}``.
+8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
+Gumbel sampler, the per-batch-row conv forward and backward, the DXS
+backward and the reverse BPTT) and, last, ``{"ok": true, "device": …}``.
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits non-zero before printing a result.  The plain versions' matrix
 products and convolutions run in full float32: TF32 is switched off below.
@@ -165,7 +191,8 @@ LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
 Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
 KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "decode_qserve",
-                  "image_norm", "flash_attention", "gumbel_sample"]
+                  "image_norm", "flash_attention", "gumbel_sample",
+                  "disc_conv_rows"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -1033,6 +1060,26 @@ def conv_inputs(device):
     return emb_pad, w_all.contiguous(), b_all.contiguous(), banks
 
 
+def idx_mismatch(emb_pad, w_all, b_all, banks, pooled, idx_a, idx_b):
+    """Argmax rows of two conv forwards (eds = 1): how many live (r, n)
+    differ where the top two time rows are more than TIE_GAP apart, and how
+    many live ones are near-ties."""
+    x = emb_pad[:, None, :T, :]
+    idx_bad = ties = 0
+    off = 0
+    for (n, f), ia, ib in zip(banks, idx_a, idx_b):
+        z = torch.relu(torch.nn.functional.conv2d(
+            x, w_all[off:off + n, :f].reshape(n, 1, f, 1),
+            b_all[off:off + n]))                            # [B, n, lv, R]
+        top2 = z.topk(2, dim=2).values
+        clear = ((top2[:, :, 0] - top2[:, :, 1]) > TIE_GAP).transpose(1, 2)
+        live = pooled[..., off:off + n] > 0
+        ties += int((live & ~clear).sum())
+        idx_bad += int(((ia != ib) & live & clear).sum())
+        off += n
+    return idx_bad, ties
+
+
 def phase_train_kernels(dec, device):
     """The four training kernels against their plain versions at the
     training width, B = 64, on the same inputs."""
@@ -1116,19 +1163,8 @@ def phase_train_kernels(dec, device):
     torch.cuda.synchronize()
     pooled_p, idx_p = disc_conv.conv_relu_maxpool_plain(
         emb_pad, w_all, b_all, banks, DISC_R, 1)
-    x = emb_pad[:, None, :T, :]
-    idx_bad = ties = 0
-    off = 0
-    for (n, f), ik, ip in zip(banks, idx_k, idx_p):
-        z = torch.relu(torch.nn.functional.conv2d(
-            x, w_all[off:off + n, :f].reshape(n, 1, f, 1),
-            b_all[off:off + n]))                            # [B, n, lv, R]
-        top2 = z.topk(2, dim=2).values
-        clear = ((top2[:, :, 0] - top2[:, :, 1]) > TIE_GAP).transpose(1, 2)
-        live = pooled_p[..., off:off + n] > 0
-        ties += int((live & ~clear).sum())
-        idx_bad += int(((ik != ip) & live & clear).sum())
-        off += n
+    idx_bad, ties = idx_mismatch(emb_pad, w_all, b_all, banks, pooled_p,
+                                 idx_k, idx_p)
     row = {"max_abs_pooled_diff": float((pooled_k - pooled_p).abs().max()),
            "max_pooled": float(pooled_p.max()),
            "idx_mismatch_outside_ties": idx_bad, "near_ties": ties,
@@ -1226,12 +1262,14 @@ def phase_train_kernel_timing(dec, device):
 
 
 COUNTERS = ("decode_serve", "decode_sample_resid", "lstm_bptt_chain",
-            "disc_conv_fwd", "disc_conv_bwd_dx")
+            "disc_conv_fwd", "disc_conv_bwd_dx", "lstm_bptt_reverse",
+            "disc_conv_rows_fwd", "disc_conv_rows_bwd", "disc_conv_bwd_dxs")
 MLE_STEPS, ADV_STEPS, DISC_EVERY = 3, 4, 2
-# launches per step by design: the MLE step runs one greedy decode; the
-# adversarial step one sample_resid decode, one BPTT chain, and a conv
-# forward and backward for each of its three discriminator passes
-PER_MLE_STEP = {"decode_serve": 1}
+# launches per step by design: the MLE step runs one greedy decode and the
+# rescore's backward, one reverse recurrence per layer; the adversarial
+# step one sample_resid decode, one BPTT chain, and a conv forward and
+# backward for each of its three discriminator passes
+PER_MLE_STEP = {"decode_serve": 1, "lstm_bptt_reverse": NL}
 PER_ADV_STEP = {"decode_sample_resid": 1, "lstm_bptt_chain": 1,
                 "disc_conv_fwd": 3, "disc_conv_bwd_dx": 3}
 LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
@@ -1242,11 +1280,15 @@ def counters():
     from gan_image_captioning_tpu_torch.kernels.decode_sample import (
         decode_sample, decode_sample_resid)
     from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
-        lstm_bptt_chain)
+        lstm_bptt_chain, lstm_bptt_reverse)
 
     return dict(zip(COUNTERS, (decode_sample, decode_sample_resid,
                                lstm_bptt_chain, disc_conv.conv_bank_forward,
-                               disc_conv.conv_bank_backward)))
+                               disc_conv.conv_bank_backward,
+                               lstm_bptt_reverse,
+                               disc_conv.conv_rows_forward,
+                               disc_conv.conv_rows_backward,
+                               disc_conv.conv_bank_dxs)))
 
 
 def train_setup(device):
@@ -1814,9 +1856,12 @@ def phase_cond_train(device):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in cnt.items()}
-    expected = {"image_norm": 6, "decode_serve": 2, "decode_sample_resid": 2,
+    # the free steps' rescore and the teacher steps' pass run the reverse
+    # recurrence once per layer
+    expected = {**{k: 0 for k in COND_COUNTERS}, "image_norm": 6,
+                "decode_serve": 2, "decode_sample_resid": 2,
                 "lstm_bptt_chain": 2, "disc_conv_fwd": 6,
-                "disc_conv_bwd_dx": 6}
+                "disc_conv_bwd_dx": 6, "lstm_bptt_reverse": 4 * NL}
     row = {"metrics": metrics, "launches": launches,
            "expected_launches": expected, "seconds": seconds,
            "stats_moved_max_abs": max(
@@ -1974,7 +2019,7 @@ def phase_loop(device, workdir):
            "all_finite": all(math.isfinite(r["value"]) for r in rows),
            "log_tail": log.getvalue().splitlines()[-4:]}
     for kernel in ("decode_serve", "decode_sample_resid", "lstm_bptt_chain",
-                   "disc_conv_fwd", "disc_conv_bwd_dx"):
+                   "disc_conv_fwd", "disc_conv_bwd_dx", "lstm_bptt_reverse"):
         check(launches[kernel] > 0, f"loop: {kernel} never launched")
     check(row["all_finite"] and len(losses) > 0, "loop: non-finite metric")
     check(inst.pretrain_steps == 4 and inst.state.gen_steps == 4,
@@ -2074,7 +2119,9 @@ def device_ms(fn, calls=20):
     the device whatever the host's pace, timed with CUDA events.  CUDA
     events around calls issued one after another would measure the host's
     pace for calls of a few tens of microseconds.  Fails when enqueueing
-    outlasted the spin (the device would have waited for the host)."""
+    outlasted the spin (the device would have waited for the host): so
+    does a function of more launches than the card's launch queue holds
+    (about a thousand), which blocks the host until the spin ends."""
     fn()
     torch.cuda.synchronize()
     spin0 = torch.cuda.Event(enable_timing=True)
@@ -2626,6 +2673,361 @@ def image_norm_entry(smi, norm, cond_train):
         "card": smi}
 
 
+# ------------------------------------------- the engines of --disc-engine
+
+DISC_TPU = "gan_image_captioning_tpu/kernels/disc_conv.py"
+ENGINE_TPU_KERNELS = {
+    "disc_conv_rows_fwd": f"{DISC_TPU}:76",
+    "disc_conv_rows_bwd": f"{DISC_TPU}:115",
+    "disc_conv_bwd_dxs": f"{DISC_TPU}:496",
+    "lstm_bptt_reverse": "gan_image_captioning_tpu/kernels/lstm_bptt.py:163",
+}
+ENGINE_SOURCES = {"disc_conv_rows_fwd": "disc_conv_rows.cu",
+                  "disc_conv_rows_bwd": "disc_conv_rows.cu",
+                  "disc_conv_bwd_dxs": "disc_conv.cu",
+                  "lstm_bptt_reverse": "lstm_bptt.cu"}
+DB_ATOL, DXS_ATOL, BPTT_ATOL = 1e-5, 1e-5, 1e-4
+# conv launches per adversarial step by design (three discriminator
+# passes), besides one sample_resid decode and one BPTT chain
+PER_ENGINE_STEP = {
+    "auto": {"disc_conv_fwd": 3, "disc_conv_bwd_dx": 3},
+    "xla": {},
+    "pallas": {"disc_conv_rows_fwd": 3, "disc_conv_rows_bwd": 3},
+    "hybrid": {"disc_conv_rows_bwd": 3},
+    "mxu": {"disc_conv_fwd": 3, "disc_conv_bwd_dx": 3},
+    "mxu_dxs": {"disc_conv_fwd": 3, "disc_conv_bwd_dxs": 3},
+}
+
+
+def rows_bwd_work(B):
+    """The per-batch-row backward: emb, w, pooled, idx, dpool in; d_emb,
+    dW, db out."""
+    q, n_all = B * DISC_R, sum(n for n, _ in BANKS)
+    emb, w = 4 * B * (T + 4) * DISC_E, 4 * n_all * max(f for _, f in BANKS)
+    return (2 * emb + 2 * w + 3 * 4 * q * n_all + 4 * n_all,
+            sum(4 * q * n * f for n, f in BANKS))
+
+
+def dxs_work(B):
+    """The DXS backward: emb, w, idx, dpm in; DXS [lv, Q, f] and dW out."""
+    q, n_all = B * DISC_R, sum(n for n, _ in BANKS)
+    emb, w = 4 * B * (T + 4) * DISC_E, 4 * n_all * max(f for _, f in BANKS)
+    dxs = sum(4 * (T - f + 1) * q * f for _, f in BANKS)
+    return (emb + 2 * w + 2 * 4 * q * n_all + dxs,
+            sum(4 * q * n * f for n, f in BANKS))
+
+
+def reverse_work(B):
+    """One layer's reverse recurrence: w_hh, d_hs, gates, c_prev, cs in;
+    d_pre, dh0, dc0 out."""
+    nbytes = 4 * (4 * H * H + 3 * T * B * H + 2 * T * B * 4 * H + 2 * B * H)
+    return nbytes, 2 * T * B * 4 * H * H
+
+
+def time_pair(kern, plain, work, k_calls=20, p_calls=20, plain_events=False):
+    """device_ms of a kernel and its plain version in turns (plain,
+    kernel, kernel, plain), with the bound of ``work``.  ``plain_events``:
+    a plain version of thousands of launches (the BPTT loops), more than
+    the launch queue holds behind the spin, is timed by CUDA events around
+    ``p_calls`` calls issued one after another (``cuda_ms``): the host's
+    pace, an upper bound on its device time."""
+    def plain_ms():
+        if plain_events:
+            return cuda_ms(plain, reps=p_calls, warmup=1)
+        return device_ms(plain, p_calls)
+
+    p_a = plain_ms()
+    k_a = device_ms(kern, k_calls)
+    k_b = device_ms(kern, k_calls)
+    p_b = plain_ms()
+    b_ms, b_by = bound(*work)
+    return {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b], "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": work[0], "flop": work[1],
+            "plain_timer": "cuda_ms" if plain_events else "device_ms"}
+
+
+def phase_disc_engines(device):
+    """The per-batch-row conv kernels and the DXS backward against their
+    plain versions (and the mxu kernels) at config3 width; one adversarial
+    step under each --disc-engine value with the launch counts, and its
+    gradients against the plain route; device_ms times of the new kernels
+    and, re-timed the same way, of the mxu conv kernels and the chain."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.train.steps import (adv_grads,
+                                                            make_adv_step)
+
+    B, out = B_TRAIN, {"rows": {}}
+    emb_pad, w_all, b_all, banks = conv_inputs(device)
+    args = (emb_pad, w_all, b_all, banks, DISC_R, 1)
+    pooled_k, idx_k = disc_conv.conv_rows_forward(*args)
+    torch.cuda.synchronize()
+    pooled_p, idx_p = disc_conv.conv_relu_maxpool_plain(*args)
+    pooled_m, idx_m = disc_conv.conv_bank_forward(*args)
+    bad_p, ties = idx_mismatch(emb_pad, w_all, b_all, banks, pooled_p, idx_k,
+                               idx_p)
+    bad_m, _ = idx_mismatch(emb_pad, w_all, b_all, banks, pooled_p, idx_k,
+                            idx_m)
+    row = {"max_abs_pooled_diff": float((pooled_k - pooled_p).abs().max()),
+           "max_abs_pooled_diff_vs_mxu": float(
+               (pooled_k - pooled_m).abs().max()),
+           "idx_mismatch_outside_ties": bad_p,
+           "idx_mismatch_vs_mxu_outside_ties": bad_m, "near_ties": ties}
+    emit({"phase": "disc_engines", "kernel": "disc_conv_rows_fwd", **row})
+    check(row["max_abs_pooled_diff"] <= POOL_ATOL and bad_p == 0
+          and row["max_abs_pooled_diff_vs_mxu"] <= POOL_ATOL and bad_m == 0,
+          f"rows forward {row}")
+    out["rows"]["disc_conv_rows_fwd"] = row
+
+    d_pooled = seeded(tuple(pooled_p.shape), 71, device)
+    bwd_args = (emb_pad, w_all, banks, DISC_R, 1, pooled_p, idx_p, d_pooled)
+    d_emb, dw, db = disc_conv.conv_rows_backward(*bwd_args)
+    torch.cuda.synchronize()
+    w_emb, w_dw, w_db = disc_conv.conv_rows_backward_plain(*bwd_args)
+    row = {"max_abs_dx_diff": float((d_emb - w_emb).abs().max()),
+           "max_abs_dx": float(w_emb.abs().max()),
+           "dw_rel": float((dw - w_dw).abs().max() / w_dw.abs().max()),
+           "max_abs_db_diff": float((db - w_db).abs().max()),
+           "max_abs_db": float(w_db.abs().max())}
+    emit({"phase": "disc_engines", "kernel": "disc_conv_rows_bwd", **row})
+    # d_emb and db are sums of hundreds (of thousands, for db) of terms:
+    # held as the mxu backward's dX is, within the tolerance times the
+    # larger of 1 and their largest entry
+    check(row["max_abs_dx_diff"] <= DX_ATOL * max(1.0, row["max_abs_dx"])
+          and row["dw_rel"] <= DW_RTOL
+          and row["max_abs_db_diff"] <= DB_ATOL * max(1.0, row["max_abs_db"]),
+          f"rows backward {row}")
+    out["rows"]["disc_conv_rows_bwd"] = row
+
+    dpms, _ = disc_conv._masked(pooled_p, d_pooled, banks)
+    dxs_args = (emb_pad, w_all, banks, DISC_R, 1, idx_p, dpms)
+    dxss, dw = disc_conv.conv_bank_dxs(*dxs_args)
+    torch.cuda.synchronize()
+    w_dxss, w_dw = disc_conv.conv_dxs_plain(*dxs_args)
+    d_emb = disc_conv.overlap_add(dxss, banks, emb_pad.shape, DISC_R, 1)
+    dx_emb, _ = disc_conv.conv_bank_backward(*dxs_args)
+    row = {"max_abs_dxs_diff": max(float((a - b).abs().max())
+                                   for a, b in zip(dxss, w_dxss)),
+           "max_abs_dxs": max(float(b.abs().max()) for b in w_dxss),
+           "dw_rel": float((dw - w_dw).abs().max() / w_dw.abs().max()),
+           "max_abs_dx_diff_vs_mxu": float((d_emb - dx_emb).abs().max()),
+           "max_abs_dx": float(dx_emb.abs().max()),
+           "dxs_mb": sum(d.numel() for d in dxss) * 4 / 1e6}
+    emit({"phase": "disc_engines", "kernel": "disc_conv_bwd_dxs", **row})
+    check(row["max_abs_dxs_diff"] <= DXS_ATOL * max(1.0, row["max_abs_dxs"])
+          and row["dw_rel"] <= DW_RTOL
+          and row["max_abs_dx_diff_vs_mxu"]
+          <= DX_ATOL * max(1.0, row["max_abs_dx"]), f"DXS {row}")
+    out["rows"]["disc_conv_bwd_dxs"] = row
+
+    # one adversarial step per engine value through make_adv_step, with the
+    # launch counts; then its gradients against the plain route
+    config, state, batch = train_setup(device)
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    cnt = counters()
+    out["steps"] = {}
+    for engine, per_step in PER_ENGINE_STEP.items():
+        cfg = config.replace(disc_engine=engine)
+        for fn in cnt.values():
+            fn.launches = 0
+        state, m = make_adv_step(cfg)(state, batch, TEMP)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in cnt.items()}
+        expected = {**{k: 0 for k in COUNTERS}, "decode_sample_resid": 1,
+                    "lstm_bptt_chain": 1, **per_step}
+        noise = fed_noise(config, device)
+        with disc_conv.argmax_record() as rows:
+            kern = adv_grads(cfg, state, batch, TEMP, noise)
+        with disc_conv.argmax_replay(rows) as report:
+            plain = adv_grads(plain_cfg, state, batch, TEMP, noise)
+        cmp = compare_grads(kern, plain)
+        row = {"launches": launches, "expected_launches": expected,
+               "metrics": {k: float(v) for k, v in m.items()},
+               "g_loss": cmp["g_loss"], "d_loss": cmp["d_loss"],
+               "ids_equal": cmp["ids_equal"],
+               "grad_side_rel_err": cmp["grad_side_rel_err"],
+               "max_grad_rel_err": cmp["max_grad_rel_err"],
+               "argmax_gap": max(g for g, _ in report),
+               "argmax_moved": [mv for _, mv in report]}
+        emit({"phase": "disc_engines", "engine": engine, **row})
+        check(launches == expected, f"{engine}: launches {launches} != "
+              f"{expected}")
+        check(all(math.isfinite(v) for v in row["metrics"].values()),
+              f"{engine}: non-finite metric")
+        check(cmp["ids_equal"], f"{engine}: the routes sampled different ids")
+        check(row["argmax_gap"] <= TIE_GAP, f"{engine}: argmax gap")
+        for name in ("g_loss", "d_loss"):
+            a, b = cmp[name]
+            check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30),
+                  f"{engine} {name} {a} vs {b}")
+        check(routes_agree(cmp), f"{engine}: {cmp['grad_side_rel_err']}")
+        step = make_adv_step(cfg)
+        row["step_ms"] = [step_ms(lambda: step(state, batch, TEMP), 3)
+                          for _ in range(2)]
+        emit({"phase": "disc_engines", "engine": engine, "B": B,
+              "step_ms": row["step_ms"]})
+        out["steps"][engine] = row
+    del state, batch
+
+    # device times: the new kernels, and the mxu conv kernels and the BPTT
+    # chain re-timed by the same method
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample_resid)
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain, lstm_bptt_chain_plain)
+
+    gen = full_width_generator(device)
+    _, _, _, cs, gates = decode_sample_resid(
+        *decode_args(gen.decoder, seeded((B, E), 64, device)), seed=3,
+        temperature=TEMP)
+    layers = gen.decoder.lstm.layers()
+    w_hhs = torch.stack([lp["w_hh"].T for lp in layers]).contiguous()
+    w_ihs = torch.stack([lp["w_ih"].T for lp in layers[1:]]).contiguous()
+    d_hs = seeded((T, B, H), 65, device)
+    cases = {
+        "disc_conv_rows_fwd": (
+            lambda: disc_conv.conv_rows_forward(*args),
+            lambda: disc_conv.conv_relu_maxpool_plain(*args),
+            conv_work(B), 20, 20),
+        "disc_conv_rows_bwd": (
+            lambda: disc_conv.conv_rows_backward(*bwd_args),
+            lambda: disc_conv.conv_rows_backward_plain(*bwd_args),
+            rows_bwd_work(B), 20, 4),
+        "disc_conv_bwd_dxs": (
+            lambda: disc_conv.conv_bank_dxs(*dxs_args),
+            lambda: disc_conv.conv_dxs_plain(*dxs_args),
+            dxs_work(B), 20, 4),
+        "disc_conv_fwd": (
+            lambda: disc_conv.conv_bank_forward(*args),
+            lambda: disc_conv.conv_relu_maxpool_plain(*args),
+            conv_work(B), 20, 20),
+        "disc_conv_bwd_dx": (
+            lambda: disc_conv.conv_bank_backward(*dxs_args),
+            lambda: disc_conv.conv_bwd_dx_plain(*dxs_args),
+            conv_work(B, backward=True), 20, 4),
+        "lstm_bptt_chain": (
+            lambda: lstm_bptt_chain(w_hhs, w_ihs, d_hs, gates, cs),
+            lambda: lstm_bptt_chain_plain(w_hhs, w_ihs, d_hs, gates, cs),
+            chain_work(B), 5, 2),
+    }
+    out["times"] = {}
+    for name, (kern, plain, work, k_calls, p_calls) in cases.items():
+        out["times"][name] = time_pair(
+            kern, plain, work, k_calls, p_calls,
+            plain_events=name == "lstm_bptt_chain")
+        emit({"phase": "disc_engines", "timing": name, "B": B,
+              **out["times"][name]})
+    return out
+
+
+def phase_bptt_reverse(device):
+    """The reverse recurrence kernel at [36, 64, 512] from a non-zero
+    (h0, c0) against its plain version; the unconditional config3
+    teacher-forced MLE step through it against the plain route, with its
+    launch counts; its device time."""
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_reverse, lstm_bptt_reverse_plain)
+    from gan_image_captioning_tpu_torch.models import lstm
+    from gan_image_captioning_tpu_torch.train.steps import make_mle_step
+
+    B = B_TRAIN
+    gen = full_width_generator(device)
+    lp = lstm.fuse_layer_params(gen.decoder.lstm.layers())[0]
+    h0, c0 = seeded((B, H), 81, device, 0.5), seeded((B, H), 82, device, 0.5)
+    _, cs, gates = lstm._layer_seq_scan(lp["w"], lp["b"],
+                                        seeded((T, B, E), 80, device), h0, c0)
+    c_prev = torch.cat([c0[None], cs[:-1]])
+    w_hh = lp["w"][E:].contiguous()
+    rargs = (w_hh, seeded((T, B, H), 83, device), gates, c_prev, cs)
+    got = lstm_bptt_reverse(*rargs)
+    torch.cuda.synchronize()
+    want = lstm_bptt_reverse_plain(*rargs)
+    scale = float(want[0].abs().max())
+    row = {"max_abs_d_pre_diff": float((got[0] - want[0]).abs().max()),
+           "max_abs_d_pre": scale,
+           "max_abs_dh0_diff": float((got[1] - want[1]).abs().max()),
+           "max_abs_dc0_diff": float((got[2] - want[2]).abs().max())}
+    row["d_pre_rel"] = row["max_abs_d_pre_diff"] / scale
+    emit({"phase": "bptt_reverse", "kernel": "lstm_bptt_reverse", **row})
+    check(row["d_pre_rel"] <= BPTT_ATOL
+          and row["max_abs_dh0_diff"] <= BPTT_ATOL
+          and row["max_abs_dc0_diff"] <= BPTT_ATOL, f"reverse BPTT {row}")
+    out = {"kernel": row}
+
+    config, state, batch = train_setup(device)
+    config = config.replace(mle_objective="teacher")
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    state, m = make_mle_step(config)(state, batch)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    expected = {**{k: 0 for k in COUNTERS}, "lstm_bptt_reverse": NL}
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    cmp = compare_grads(cond_grads("mle_teacher", config, state, batch, None),
+                        cond_grads("mle_teacher", plain_cfg, state, batch,
+                                   None))
+    step = {"launches": launches, "expected_launches": expected,
+            "metrics": {k: float(v) for k, v in m.items()},
+            "loss": cmp["g_loss"],
+            "grad_side_rel_err": cmp["grad_side_rel_err"],
+            "max_grad_rel_err": cmp["max_grad_rel_err"]}
+    emit({"phase": "bptt_reverse", "step": "mle_teacher", **step})
+    check(launches == expected, f"teacher step launches {launches} != "
+          f"{expected}")
+    a, b = cmp["g_loss"]
+    check(abs(a - b) <= LOSS_RTOL * abs(b), f"teacher loss {a} vs {b}")
+    check(routes_agree(cmp), f"teacher step {cmp['grad_side_rel_err']}")
+    times = {}
+    for route, cfg in (("plain", plain_cfg), ("kernel", config),
+                       ("kernel", config), ("plain", plain_cfg)):
+        mle = make_mle_step(cfg)
+        times.setdefault(route, []).append(
+            step_ms(lambda: mle(state, batch), 3))
+    step["kernel_ms"], step["plain_ms"] = times["kernel"], times["plain"]
+    emit({"phase": "bptt_reverse", "timing": "mle_teacher", "B": B, **times})
+    out["step"] = step
+    out["time"] = time_pair(lambda: lstm_bptt_reverse(*rargs),
+                            lambda: lstm_bptt_reverse_plain(*rargs),
+                            reverse_work(B), k_calls=10, p_calls=2,
+                            plain_events=True)
+    emit({"phase": "bptt_reverse", "timing": "lstm_bptt_reverse", "B": B,
+          **out["time"]})
+    return out
+
+
+def engine_entries(smi, engines, reverse):
+    """The four kernels' entries of the ``kernels`` line: launches from the
+    adversarial step under ``pallas`` (rows forward and backward) and
+    ``mxu_dxs`` (DXS), and from the teacher-forced MLE step (reverse)."""
+    times = {**engines["times"], "lstm_bptt_reverse": reverse["time"]}
+    launches = {
+        "disc_conv_rows_fwd": engines["steps"]["pallas"]["launches"],
+        "disc_conv_rows_bwd": engines["steps"]["pallas"]["launches"],
+        "disc_conv_bwd_dxs": engines["steps"]["mxu_dxs"]["launches"],
+        "lstm_bptt_reverse": reverse["step"]["launches"]}
+    rows = engines["rows"]
+    errs = {"disc_conv_rows_fwd": rows["disc_conv_rows_fwd"][
+                "max_abs_pooled_diff"],
+            "disc_conv_rows_bwd": rows["disc_conv_rows_bwd"][
+                "max_abs_dx_diff"],
+            "disc_conv_bwd_dxs": rows["disc_conv_bwd_dxs"]["max_abs_dxs_diff"],
+            "lstm_bptt_reverse": reverse["kernel"]["max_abs_d_pre_diff"]}
+    out = []
+    for name, tpu in ENGINE_TPU_KERNELS.items():
+        t = times[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      + ENGINE_SOURCES[name],
+            "replaces": tpu, "launches": launches[name][name],
+            "max_abs_err": errs[name], "ms": min(t["kernel_ms"]),
+            "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "B": B_TRAIN,
+            "card": smi})
+        check(out[-1]["launches"] > 0, f"{name} never launched")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -2701,6 +3103,10 @@ def main(argv=None):
         phase_tf_service(device)
     if run("tf_loop"):
         phase_tf_loop(device, workdir)
+    if run("disc_engines"):
+        engines = phase_disc_engines(device)
+    if run("bptt_reverse"):
+        reverse = phase_bptt_reverse(device)
     if only:
         return 0
 
@@ -2726,7 +3132,8 @@ def main(argv=None):
         + continuous_entries(smi, carry_rows, q_rows, cont_times,
                              cont_service)
         + [image_norm_entry(smi, norm, cond_train)]
-        + tf_entries(smi, tfk, tf_train)})
+        + tf_entries(smi, tfk, tf_train)
+        + engine_entries(smi, engines, reverse)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

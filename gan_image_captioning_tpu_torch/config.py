@@ -282,35 +282,113 @@ def add_extension_args(parser):
                    choices=sorted(PRESETS) + sorted(UNPORTED_PRESETS),
                    help="a named benchmark configuration as flag defaults "
                         "(config5 is not ported yet)")
+    g.add_argument("--disc-engine", type=str, default="auto",
+                   choices=["auto", "xla", "pallas", "hybrid", "mxu"],
+                   help="discriminator conv/ReLU/max-pool engine: 'auto' "
+                        "= 'mxu' (the matmul-formulated kernels, "
+                        "csrc/disc_conv.cu); 'xla' = the plain PyTorch "
+                        "versions; 'pallas' = the per-batch-row kernels "
+                        "(csrc/disc_conv_rows.cu) forward and backward; "
+                        "'hybrid' = the plain forward (cuDNN conv, ReLU, "
+                        "max) and the per-batch-row backward kernel.  CPU "
+                        "tensors always take the plain versions")
+    g.add_argument("--decode-impl", type=str, default="fused",
+                   choices=["fused", "decoupled", "kernel"],
+                   help="LSTM decode route: 'fused' and 'kernel' (the "
+                        "same function in the JAX package) both take the "
+                        "decode, BPTT and sampler kernels on CUDA tensors; "
+                        "'decoupled' is not ported yet")
+    g.add_argument("--no-jit", action="store_true",
+                   help="accepted: the port runs eagerly, as the JAX "
+                        "package does under this flag")
+    # parsed as the JAX package parses them; neither package reads them
+    # (--vocab-size is overwritten by the dataset's vocabulary)
+    g.add_argument("--vocab-size", type=int, default=-1,
+                   help="accepted; set from the dataset")
+    g.add_argument("--padding-idx", type=int, default=0,
+                   help="accepted; <PAD> is id 0")
+    g.add_argument("--device-ids", type=int, default=0,
+                   help="accepted; pick a card with --device cuda:N")
+    g.add_argument("--test-log-step", type=int, default=1,
+                   help="accepted; no test phase logs")
     # The JAX package's flags that the port does not honour yet: each is
     # parsed with its JAX default and refused when set
     # (require_ported_flags).
-    for flag, kw in _UNPORTED_FLAG_ARGS:
+    for flag, kw, _ in _UNPORTED_FLAG_ARGS:
         g.add_argument(flag, **kw, help="not ported yet: raises when set")
 
 
-# flag → argparse keywords (the JAX names, types and defaults)
+# flag → (argparse keywords with the JAX name, type and default; the
+# values the port honours, None for the default only)
 _UNPORTED_FLAG_ARGS = (
-    ("--random-flip", dict(type=int, default=0, choices=[0, 1])),
-    ("--random-crop-pad", dict(type=int, default=0)),
-    ("--cache-features", dict(type=int, default=0, choices=[0, 1])),
-    ("--resume", dict(type=str, default="")),
-    ("--checkpoint-every", dict(type=int, default=0)),
-    ("--early-stop-patience", dict(type=int, default=0)),
-    ("--eval-bleu-every", dict(type=int, default=0)),
-    ("--scst-epochs", dict(type=int, default=0)),
-    ("--steps-per-call", dict(type=int, default=1)),
-    ("--length-buckets", dict(type=str, default="")),
-    ("--mesh", dict(type=str, default="")),
-    ("--profile-dir", dict(type=str, default="")),
+    ("--random-flip", dict(type=int, default=0, choices=[0, 1]), None),
+    ("--random-crop-pad", dict(type=int, default=0), None),
+    ("--cache-features", dict(type=int, default=0, choices=[0, 1]), None),
+    ("--resume", dict(type=str, default=""), None),
+    ("--resume-schedule", dict(type=int, default=1), None),
+    ("--checkpoint-every", dict(type=int, default=0), None),
+    ("--keep-checkpoints", dict(type=int, default=0), None),
+    ("--early-stop-patience", dict(type=int, default=0), None),
+    ("--eval-bleu-every", dict(type=int, default=0), None),
+    ("--length-penalty", dict(type=float, default=0.0), None),
+    ("--scst-epochs", dict(type=int, default=0), None),
+    ("--scst-reward", dict(type=str, default="cider",
+                           choices=["cider", "bleu"]), None),
+    ("--scst-multi-ref", dict(action="store_true"), None),
+    ("--scst-lr", dict(type=float, default=0.0), None),
+    ("--steps-per-call", dict(type=int, default=1), None),
+    ("--length-buckets", dict(type=str, default=""), None),
+    ("--mesh", dict(type=str, default=""), None),
+    ("--cp-mode", dict(type=str, default="gspmd",
+                       choices=["gspmd", "ring", "ulysses"]), None),
+    ("--pp-microbatches", dict(type=int, default=4), None),
+    ("--zero1", dict(action="store_true"), None),
+    ("--profile-dir", dict(type=str, default=""), None),
     ("--precollate", dict(type=str, default="auto",
-                          choices=["auto", "on", "off"])),
-    ("--ema-decay", dict(type=float, default=0.0)),
+                          choices=["auto", "on", "off"]), None),
+    ("--ema-decay", dict(type=float, default=0.0), None),
     ("--lr-schedule", dict(type=str, default="constant",
                            choices=["constant", "cosine", "linear",
-                                    "exponential"])),
-    ("--grad-accum", dict(type=int, default=1)),
+                                    "exponential"]), None),
+    ("--lr-warmup-steps", dict(type=int, default=0), None),
+    ("--lr-decay-steps", dict(type=int, default=0), None),
+    ("--lr-min-ratio", dict(type=float, default=0.0), None),
+    ("--grad-accum", dict(type=int, default=1), None),
+    ("--skip-nonfinite-grads", dict(type=int, default=0), None),
+    ("--ss-max-prob", dict(type=float, default=1.0), None),
+    ("--debug-nans", dict(action="store_true"), None),
+    ("--tokenizer", dict(type=str, default="word", choices=["word", "bpe"]),
+     None),
+    ("--bpe-vocab", dict(type=str, default=""), None),
+    ("--bpe-merges", dict(type=str, default=""), None),
+    ("--encoder-init", dict(type=str, default="sweep",
+                            choices=["sweep", "natural"]), None),
+    ("--use-pallas", dict(type=str, default="auto",
+                          choices=["auto", "on", "off"]), None),
 )
+
+
+def refuse_unported(table, values) -> None:
+    """Raise ``NotImplementedError`` for each flag of ``table`` (entries as
+    in ``_UNPORTED_FLAG_ARGS``) whose value on ``values`` (a Config or a
+    parsed namespace) is not one the port honours."""
+    for flag, kw, honoured in table:
+        value = getattr(values, flag[2:].replace("-", "_"))
+        if value not in (honoured or (kw.get("default", False),)):
+            raise NotImplementedError(f"{flag} {value}: not ported yet")
+
+
+def plain_decode(config) -> bool:
+    """The LSTM decode and BPTT route of ``config.decode_impl``: the JAX
+    package's ``fused`` and ``kernel`` (the same function there) take the
+    kernels (False), the port's own ``plain`` the plain versions on any
+    device (True); ``decoupled`` is not ported yet."""
+    if config.decode_impl == "decoupled":
+        raise NotImplementedError("--decode-impl decoupled: not ported yet")
+    if config.decode_impl not in ("fused", "kernel", "plain"):
+        raise ValueError(f"decode_impl {config.decode_impl!r}: expected "
+                         "'fused', 'kernel' or 'plain'")
+    return config.decode_impl == "plain"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -326,16 +404,30 @@ def build_parser() -> argparse.ArgumentParser:
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Frozen view of the flags (field names and defaults as in the JAX
-    package's ``Config``, except the kernel routes below).
+    package's ``Config``, with the port's own values of the kernel routes
+    below).
 
-    ``decode_impl`` / ``disc_engine``: ``"kernel"`` / ``"mxu"`` (the
-    defaults) call the decode, BPTT, conv and Gumbel-sampler wrappers,
-    which launch the CUDA kernels on CUDA tensors and run the plain
-    versions on CPU ones; ``"plain"`` runs the plain PyTorch versions on
-    any device, to compare a step through the kernels with the same step
-    without them.  ``image_norm_impl`` does the same for the
-    ``image_norm`` kernel of ``images_u8`` batches, and ``attn_impl`` for
-    the flash-attention kernels of the transformers' self-attention
+    ``decode_impl``: the JAX package's ``"fused"`` (the default) and
+    ``"kernel"`` both call the decode, BPTT (the stacked chain and the
+    single-layer reverse of the teacher-forced pass) and Gumbel-sampler
+    wrappers, which launch the CUDA kernels on CUDA tensors and run the
+    plain versions on CPU ones; ``"decoupled"`` raises (not ported yet);
+    the port's ``"plain"`` runs the plain PyTorch versions on any device,
+    to compare a step through the kernels with the same step without them.
+
+    ``disc_engine`` (the conv banks, ``kernels/disc_conv.py``): ``"auto"``
+    (the default) is ``"mxu"``, the matmul-formulated forward and
+    backward-dX kernels; ``"pallas"`` the per-batch-row forward and
+    backward kernels; ``"hybrid"`` the plain forward (cuDNN) with the
+    per-batch-row backward kernel; ``"mxu_dxs"`` (not a CLI choice: the
+    JAX package's ``GIC_MXU_DX=0``) the ``mxu`` forward with the DXS
+    backward kernel and the overlap-add in torch; ``"xla"`` and the port's
+    ``"plain"`` the plain versions on any device.  Every engine takes the
+    plain versions on CPU tensors.
+
+    ``image_norm_impl`` does what ``"kernel"`` / ``"plain"`` do above for
+    the ``image_norm`` kernel of ``images_u8`` batches, and ``attn_impl``
+    for the flash-attention kernels of the transformers' self-attention
     (``"plain"``: the dense attention with an explicit mask, the JAX
     package's path without ``GIC_FLASH_ATTN``)."""
 
@@ -408,23 +500,48 @@ class Config:
     adv_log_step: int = 1
     pre_log_step: int = 1
     log_file: str = "log"
+    # parsed, read by neither package
+    no_jit: bool = False
+    padding_idx: int = 0
+    device_ids: int = 0
+    test_log_step: int = 1
     # the JAX package's options that are not ported (require_ported_flags)
     random_flip: int = 0
     random_crop_pad: int = 0
     cache_features: int = 0
     resume: str = ""
+    resume_schedule: int = 1
     checkpoint_every: int = 0
+    keep_checkpoints: int = 0
     early_stop_patience: int = 0
     eval_bleu_every: int = 0
+    length_penalty: float = 0.0
     scst_epochs: int = 0
+    scst_reward: str = "cider"
+    scst_multi_ref: bool = False
+    scst_lr: float = 0.0
     steps_per_call: int = 1
     length_buckets: str = ""
     mesh: str = ""
+    cp_mode: str = "gspmd"
+    pp_microbatches: int = 4
+    zero1: bool = False
     profile_dir: str = ""
     precollate: str = "auto"
+    lr_warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    lr_min_ratio: float = 0.0
+    skip_nonfinite_grads: int = 0
+    ss_max_prob: float = 1.0
+    debug_nans: bool = False
+    tokenizer: str = "word"
+    bpe_vocab: str = ""
+    bpe_merges: str = ""
+    encoder_init: str = "sweep"
+    use_pallas: str = "auto"
     # kernel routes (see the class docstring)
-    decode_impl: str = "kernel"
-    disc_engine: str = "mxu"
+    decode_impl: str = "fused"
+    disc_engine: str = "auto"
     image_norm_impl: str = "kernel"
     attn_impl: str = "kernel"
 
@@ -484,12 +601,9 @@ def require_ported_flags(config: Config) -> None:
     """Raise for a flag of the JAX package that the port parses but does
     not honour yet, when it is set; for ``--beam-size`` above 1 and
     ``--encoder-arch vit``; and for a model :func:`require_ported_arch`
-    refuses."""
-    for flag, kw in _UNPORTED_FLAG_ARGS:
-        name = flag[2:].replace("-", "_")
-        value = getattr(config, name)
-        if value != kw["default"]:
-            raise NotImplementedError(f"{flag} {value}: not ported yet")
+    refuses; and for ``--decode-impl decoupled``."""
+    refuse_unported(_UNPORTED_FLAG_ARGS, config)
+    plain_decode(config)
     if config.beam_size != 1:
         raise NotImplementedError(
             f"--beam-size {config.beam_size}: beam search is not ported yet "

@@ -1,7 +1,10 @@
-// Stacked-LSTM backward recurrence for Hopper (sm_90a), float32.
+// LSTM backward recurrences for Hopper (sm_90a), float32: the stacked
+// chain of the decode backward and the single-layer reverse loop of the
+// teacher-forced pass.
 //
-// Replaces: gan_image_captioning_tpu/kernels/lstm_bptt.py, function
-// `_chain_kernel` (launched by `lstm_bptt_chain`).  For t = T-1 .. 0 and,
+// gic_lstm_bptt_chain replaces gan_image_captioning_tpu/kernels/
+// lstm_bptt.py, function `_chain_kernel` (launched by `lstm_bptt_chain`).
+// For t = T-1 .. 0 and,
 // inside each step, l = NL-1 .. 0 (the upper layer first, because it feeds
 // the lower one in the same step):
 //   dh = dh_carry[l] + (l == NL-1 ? d_hs[t] : dx_upper)
@@ -32,6 +35,16 @@
 // in L2 between steps when they fit (12.6 MB here).  Fusing the gate
 // gradients into the products' load phase, or one persistent kernel for
 // the whole recurrence, is later work.
+//
+// gic_bptt_reverse replaces the same file's `_kernel` (launched by
+// `lstm_bptt_reverse`; caller `models/lstm.py:_layer_seq_bwd`): one layer's
+// reverse loop, the chain's step with NL = 1, no inter-layer input and the
+// cell state entering each step read from c_prev [T, B, H] (so a non-zero
+// initial state works); the carries start at zero and leave as (dh0, dc0).
+// At the training width (H = 512, T = 36, B = 64) its T products of
+// [B, 4H] x [4H, H] are 4.8 GFLOP, 0.072 ms at 67 TFLOP/s, against about
+// 56 MB of bytes (0.017 ms): bound by operations.  It runs the same two
+// kernels per step as the chain, so the same per-launch latency adds up.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -156,6 +169,39 @@ int gic_lstm_bptt_chain(const float* w_hhs, const float* w_ihs_upper,
       err = cudaGetLastError();
       if (err != cudaSuccess) return err;
     }
+  }
+  return 0;
+}
+
+// One layer's reverse recurrence on `stream`.  Inputs: w_hh [H, 4H] (the
+// transposed torch-layout recurrent weight), d_hs [T, B, H], gates
+// [T, B, 4H], c_prev and cs [T, B, H] (the cell state entering and
+// leaving each step).  Outputs: d_pre [T, B, 4H]; dh and dc [B, H], the
+// carries, which leave as dh0 and dc0.  Returns 0 or the first CUDA error
+// code; nothing synchronises.
+int gic_bptt_reverse(const float* w_hh, const float* d_hs, const float* gates,
+                     const float* c_prev, const float* cs, int T, int B, int H,
+                     float* dh, float* dc, float* d_pre, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t state = (size_t)B * H;
+  cudaError_t err = cudaMemsetAsync(dh, 0, sizeof(float) * state, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(dc, 0, sizeof(float) * state, s);
+  if (err != cudaSuccess) return err;
+
+  const int g_blocks = (int)((state + G_NT - 1) / G_NT);
+  const dim3 grid((H + C_RT - 1) / C_RT, (B + C_BT - 1) / C_BT, 1);
+  for (int t = T - 1; t >= 0; --t) {
+    float* dp = d_pre + (size_t)t * 4 * state;
+    gate_grad_kernel<<<g_blocks, G_NT, 0, s>>>(
+        gates + (size_t)t * 4 * state, cs + (size_t)t * state,
+        c_prev + (size_t)t * state, d_hs + (size_t)t * state, dh, dc, dp, B,
+        H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    carry_kernel<<<grid, C_NT, 0, s>>>(dp, w_hh, nullptr, dh, nullptr, B, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
   return 0;
 }

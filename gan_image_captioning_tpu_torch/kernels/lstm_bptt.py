@@ -1,15 +1,20 @@
-"""Stacked-LSTM backward recurrence: the CUDA kernel and its plain version.
+"""LSTM backward recurrences: the CUDA kernels and their plain versions.
 
-Counterpart of ``gan_image_captioning_tpu/kernels/lstm_bptt.py``
-(``lstm_bptt_chain``): the decode backward's reverse recurrence over all
-layers, with the inter-layer input gradients chained inside each step,
-emitting the gate gradients ``d_pre`` for the deferred weight products.
+Counterpart of ``gan_image_captioning_tpu/kernels/lstm_bptt.py``:
 
-* On CUDA tensors :func:`lstm_bptt_chain` launches the hand-written kernel
-  (``csrc/lstm_bptt.cu``, built at first use) or raises.
-* On CPU tensors it runs :func:`lstm_bptt_chain_plain`.
+* :func:`lstm_bptt_chain` (``lstm_bptt_chain``): the decode backward's
+  reverse recurrence over all layers, with the inter-layer input gradients
+  chained inside each step;
+* :func:`lstm_bptt_reverse` (``lstm_bptt_reverse``): one layer's reverse
+  recurrence, the backward of the teacher-forced ``lstm_seq_tm``
+  (``models/lstm.py:_LayerSeq``), from a saved initial cell state.
 
-``lstm_bptt_chain.launches`` counts the kernel launches.
+Both emit the gate gradients ``d_pre`` for the deferred weight products.
+On CUDA tensors each launches its hand-written kernel (``csrc/lstm_bptt.cu``,
+built at first use) or raises; on CPU tensors it runs its plain version
+(:func:`lstm_bptt_chain_plain`, :func:`lstm_bptt_reverse_plain`).
+``lstm_bptt_chain.launches`` and ``lstm_bptt_reverse.launches`` count the
+kernel launches (one per call).
 """
 
 from __future__ import annotations
@@ -24,6 +29,24 @@ from gan_image_captioning_tpu_torch.kernels import build
 _count_lock = threading.Lock()
 
 
+def _step_grads(gates, c, c_prev, dh, dc):
+    """One reverse step of one layer: the gate gradients ``[B, 4H]`` (i, f,
+    g, o) from the pre-activation ``gates``, the cell state ``c`` leaving
+    the step and ``c_prev`` entering it, the hidden cotangent ``dh`` and
+    the carried cell cotangent ``dc``; and the cell cotangent carried on
+    to the step before (``dc·f``)."""
+    gi, gf, gg, go = gates.chunk(4, dim=-1)
+    i_g, f_g = torch.sigmoid(gi), torch.sigmoid(gf)
+    g_g, o_g = torch.tanh(gg), torch.sigmoid(go)
+    tc = torch.tanh(c)
+    do_pre = dh * tc * o_g * (1.0 - o_g)
+    dc = dc + dh * o_g * (1.0 - tc * tc)
+    di_pre = dc * g_g * i_g * (1.0 - i_g)
+    df_pre = dc * c_prev * f_g * (1.0 - f_g)
+    dg_pre = dc * i_g * (1.0 - g_g * g_g)
+    return torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1), dc * f_g
+
+
 def lstm_bptt_chain_plain(w_hhs, w_ihs_upper, d_hs, gates, cs):
     """Plain PyTorch version → ``d_pre [T, NL, B, 4H]`` float32."""
     T, NL, B, H4 = gates.shape
@@ -34,22 +57,12 @@ def lstm_bptt_chain_plain(w_hhs, w_ihs_upper, d_hs, gates, cs):
     for t in range(T - 1, -1, -1):
         d_x_upper = None
         for l in range(NL - 1, -1, -1):
-            gi, gf, gg, go = gates[t, l].chunk(4, dim=-1)
-            i_g, f_g = torch.sigmoid(gi), torch.sigmoid(gf)
-            g_g, o_g = torch.tanh(gg), torch.sigmoid(go)
             dh_in = d_hs[t] if l == NL - 1 else d_x_upper
-            dh_l = dh[l] + dh_in
-            tc = torch.tanh(cs[t, l])
-            do_pre = dh_l * tc * o_g * (1.0 - o_g)
-            dc_l = dc[l] + dh_l * o_g * (1.0 - tc * tc)
-            cprev = cs[t - 1, l] if t > 0 else torch.zeros_like(dc_l)
-            di_pre = dc_l * g_g * i_g * (1.0 - i_g)
-            df_pre = dc_l * cprev * f_g * (1.0 - f_g)
-            dg_pre = dc_l * i_g * (1.0 - g_g * g_g)
-            d = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)
+            cprev = cs[t - 1, l] if t > 0 else torch.zeros_like(dc[l])
+            d, dc[l] = _step_grads(gates[t, l], cs[t, l], cprev,
+                                   dh[l] + dh_in, dc[l])
             d_pre[t, l] = d
             dh[l] = d @ w_hhs[l].T
-            dc[l] = dc_l * f_g
             if l > 0:
                 d_x_upper = d @ w_ihs_upper[l - 1].T
     return d_pre
@@ -80,6 +93,8 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gic_lstm_bptt_chain.argtypes = [vp] * 5 + [i] * 4 + [vp] * 5
         lib.gic_lstm_bptt_chain.restype = i
+        lib.gic_bptt_reverse.argtypes = [vp] * 5 + [i] * 3 + [vp] * 4
+        lib.gic_bptt_reverse.restype = i
         lib._gic_typed = True
     return lib
 
@@ -120,3 +135,63 @@ def lstm_bptt_chain(w_hhs, w_ihs_upper, d_hs, gates, cs):
 
 
 lstm_bptt_chain.launches = 0
+
+
+def lstm_bptt_reverse_plain(w_hh, d_hs, gates, c_prev, cs):
+    """Plain PyTorch version → ``(d_pre [T, B, 4H], dh0, dc0 [B, H])``: the
+    JAX package's ``rstep`` (``models/lstm.py:_layer_seq_bwd``) over
+    t = T-1 … 0, the carries starting at zero."""
+    T = d_hs.shape[0]
+    dh = torch.zeros_like(d_hs[0])
+    dc = torch.zeros_like(d_hs[0])
+    d_pre = d_hs.new_empty(gates.shape)
+    for t in range(T - 1, -1, -1):
+        d, dc = _step_grads(gates[t], cs[t], c_prev[t], dh + d_hs[t], dc)
+        d_pre[t] = d
+        dh = d @ w_hh.T
+    return d_pre, dh, dc
+
+
+def lstm_bptt_reverse(w_hh, d_hs, gates, c_prev, cs):
+    """One layer's reverse recurrence.
+
+    Args as the JAX ``lstm_bptt_reverse``, float32, time-major, contiguous:
+      w_hh:   [H, 4H] recurrent weight (``w_hh.T``, the ``w_fused[in:]``
+              slice).
+      d_hs:   [T, B, H] incoming hidden cotangents.
+      gates:  [T, B, 4H] saved pre-activation gates.
+      c_prev: [T, B, H] cell states entering each step.
+      cs:     [T, B, H] cell states leaving each step.
+    Returns ``(d_pre [T, B, 4H], dh0 [B, H], dc0 [B, H])`` float32.
+    """
+    if d_hs.ndim != 3:
+        raise ValueError("lstm_bptt_reverse: d_hs must be [T, B, H]")
+    T, B, H = d_hs.shape
+    device = d_hs.device
+    for name, t, shape in (("w_hh", w_hh, (H, 4 * H)),
+                           ("d_hs", d_hs, (T, B, H)),
+                           ("gates", gates, (T, B, 4 * H)),
+                           ("c_prev", c_prev, (T, B, H)),
+                           ("cs", cs, (T, B, H))):
+        build.check_tensor("lstm_bptt_reverse", name, t, shape, device)
+    if device.type == "cpu":
+        return lstm_bptt_reverse_plain(w_hh, d_hs, gates, c_prev, cs)
+    if device.type != "cuda":
+        raise ValueError(f"lstm_bptt_reverse: unsupported device {device}")
+    lib = _library()
+    dh0 = torch.empty(B, H, device=device)
+    dc0 = torch.empty(B, H, device=device)
+    d_pre = torch.empty(T, B, 4 * H, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gic_bptt_reverse(
+            w_hh.data_ptr(), d_hs.data_ptr(), gates.data_ptr(),
+            c_prev.data_ptr(), cs.data_ptr(), T, B, H, dh0.data_ptr(),
+            dc0.data_ptr(), d_pre.data_ptr(), stream)
+    build.raise_on_error(lib, rc, "lstm_bptt_reverse")
+    with _count_lock:
+        lstm_bptt_reverse.launches += 1
+    return d_pre, dh0, dc0
+
+
+lstm_bptt_reverse.launches = 0

@@ -12,7 +12,8 @@ from typing import Any, Dict
 
 import torch
 
-from gan_image_captioning_tpu_torch.config import Config, require_ported_arch
+from gan_image_captioning_tpu_torch.config import (Config, plain_decode,
+                                                   require_ported_arch)
 from gan_image_captioning_tpu_torch.kernels.image_norm import (
     normalize_images, normalize_images_plain)
 from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
@@ -38,13 +39,6 @@ def init_generator(generator: torch.Generator, config: Config, device="cpu",
                                               sweep)
     return gen_tf.init_transformer_generator_params(generator, config,
                                                     device, sweep)
-
-
-def _plain_decode(config: Config) -> bool:
-    if config.decode_impl not in ("kernel", "plain"):
-        raise ValueError(f"decode_impl {config.decode_impl!r}: expected "
-                         "'kernel' or 'plain'")
-    return config.decode_impl == "plain"
 
 
 def _images(config: Config, batch: Dict[str, Any]):
@@ -102,7 +96,7 @@ def generator_sample(generator: gen_lstm.Generator, cond: Dict[str, Any],
     logits (``pretrain``) or the soft Gumbel sample with Philox noise
     keyed by ``seed`` or the fed ``uniforms [T, B, V]``."""
     require_ported(config)
-    plain = _plain_decode(config)
+    plain = plain_decode(config)
     if config.gen_arch == "transformer":
         return gen_tf.sample(generator.decoder, cond["features"], seq_len,
                              pretrain, config, temperature, seed, uniforms)
@@ -125,14 +119,15 @@ def generator_mle_outputs(generator: gen_lstm.Generator,
                                      captions, config,
                                      lengths=lengths)[:, :seq_len]
     dec = generator.decoder
+    plain = plain_decode(config)
     if config.mle_objective == "teacher":
-        return gen_lstm.teacher_forced(dec, cond["features"],
-                                       captions)[:, :seq_len]
+        return gen_lstm.teacher_forced(dec, cond["features"], captions,
+                                       plain=plain)[:, :seq_len]
     if config.mle_objective != "free":
         raise NotImplementedError(f"--mle-objective {config.mle_objective}"
                                   " is not ported yet")
     logits, _ = gen_lstm.sample(dec, cond["features"], seq_len, True,
-                                plain=_plain_decode(config))
+                                plain=plain)
     return logits
 
 
@@ -158,9 +153,6 @@ def discriminator_apply(params, inp, config: Config, train: bool = False,
     if config.disc_arch == "ar_transformer":
         return disc_tf.apply_autoregressive(params, inp, config, train, keep,
                                             generator)
-    if config.disc_engine not in ("mxu", "plain"):
-        raise ValueError(f"disc_engine {config.disc_engine!r}: expected "
-                         "'mxu' or 'plain'")
     return disc_cnn.apply(params, inp, config, train, keep, generator)
 
 

@@ -10,7 +10,8 @@ disc.named_parameters())``), so the adversarial step can run the
 generator's pass with detached discriminator parameters:
 
   embed (gather for int ids, product for soft input) → conv banks → ReLU →
-  max over time (``kernels/disc_conv.py``) → highway → dropout(0.2) →
+  max over time (``kernels/disc_conv.py``, the engine of
+  ``--disc-engine``) → highway → dropout(0.2) →
   Linear(F→100) → Linear(100→1), one logit per (sample, representation).
 """
 
@@ -20,7 +21,8 @@ import torch
 from torch import nn
 
 from gan_image_captioning_tpu_torch.config import Config
-from gan_image_captioning_tpu_torch.kernels.disc_conv import pooled_features
+from gan_image_captioning_tpu_torch.kernels.disc_conv import (
+    ENGINES, pooled_features)
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
 DROPOUT = 0.2  # reference discriminator.py:30
@@ -82,14 +84,29 @@ def embed_tokens(params, inp):
     return inp @ w.T
 
 
+def conv_engine(config: Config) -> str:
+    """The conv-bank engine of ``kernels/disc_conv.py`` that
+    ``config.disc_engine`` names (the JAX package's ``_use_conv_kernel``):
+    ``auto`` is ``mxu`` (the JAX package's choice on its accelerator),
+    ``xla`` the plain versions; ``pallas``, ``hybrid``, ``mxu``,
+    ``mxu_dxs`` and ``plain`` name themselves.  No engine falls back to
+    another: the CUDA kernels take any row count."""
+    engine = {"auto": "mxu", "xla": "plain"}.get(config.disc_engine,
+                                                 config.disc_engine)
+    if engine not in ENGINES:
+        raise ValueError(f"disc_engine {config.disc_engine!r}: expected one "
+                         f"of auto, xla, {', '.join(ENGINES)}")
+    return engine
+
+
 def conv_pooled(params, emb, config: Config):
-    """Pooled conv features ``[(B·R), F]`` from ``emb [B, L, E]``: the
-    conv kernels on CUDA tensors, their plain versions on CPU ones (or on
-    any device with ``config.disc_engine == "plain"``)."""
+    """Pooled conv features ``[(B·R), F]`` from ``emb [B, L, E]`` through
+    :func:`conv_engine`'s engine: its kernels on CUDA tensors, the plain
+    versions on CPU ones."""
     convs = [(params[f"convs.{i}.weight"], params[f"convs.{i}.bias"])
              for i in range(len(config.disc_filter_sizes))]
     pooled = pooled_features(convs, emb, config.emb_dim_single,
-                             plain=config.disc_engine == "plain")
+                             conv_engine(config))
     return pooled.reshape(-1, config.disc_feature_dim)
 
 

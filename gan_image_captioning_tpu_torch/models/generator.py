@@ -13,7 +13,9 @@ to the reference's ``nn.Sequential`` numbers).
 and their differentiable teacher-forced logits; otherwise
 :func:`sample_soft` gives the Gumbel-softmax sample, whose gradient is the
 manual residual backward of ``_kernel_sample_soft`` through the BPTT
-kernel.  :func:`teacher_forced` is the reference's ``Decoder.forward``.
+kernel.  :func:`teacher_forced` is the reference's ``Decoder.forward``;
+it and the rescore backpropagate through the reverse BPTT kernel
+(``models/lstm.py:lstm_seq_tm``).
 """
 
 from __future__ import annotations
@@ -207,13 +209,14 @@ def sample_soft(decoder: Decoder, features, seq_len: int, temperature,
     return soft_tm.transpose(0, 1), ids
 
 
-def rescore(decoder: Decoder, features, ids):
+def rescore(decoder: Decoder, features, ids, plain: bool = False):
     """Differentiable teacher-forced logits ``[B, T, V]`` of a free-running
     decode's ``ids [B, T]``: the input at step t+1 is ``embed[ids[:, t]]``
-    (the feedback the decode took, detached as in the reference)."""
+    (the feedback the decode took, detached as in the reference).  Its
+    backward runs the reverse BPTT kernel unless ``plain``."""
     ids_tm = ids.T.long()
     xs_tm = torch.cat([features[None], decoder.embed.weight[ids_tm[:-1]]])
-    hs_tm = lstm.lstm_seq_tm(decoder.lstm.layers(), xs_tm)
+    hs_tm = lstm.lstm_seq_tm(decoder.lstm.layers(), xs_tm, plain=plain)
     logits_tm = hs_tm @ decoder.linear.weight.T + decoder.linear.bias
     return logits_tm.transpose(0, 1)
 
@@ -242,17 +245,20 @@ def sample(decoder: Decoder, features, seq_len: int, pretrain: bool = True,
     soft Gumbel samples of :func:`sample_soft`."""
     if pretrain:
         ids = greedy_ids(decoder, features, seq_len, plain)
-        return rescore(decoder, features, ids), ids
+        return rescore(decoder, features, ids, plain), ids
     return sample_soft(decoder, features, seq_len, temperature, seed,
                        uniforms, plain)
 
 
-def teacher_forced(decoder: Decoder, features, captions):
+def teacher_forced(decoder: Decoder, features, captions,
+                   plain: bool = False):
     """Teacher-forced logits ``[B, T+1, V]`` — the reference's
     ``Decoder.forward`` in pretrain mode: the features at t = 0, then the
-    embeddings of ``captions [B, T]``."""
+    embeddings of ``captions [B, T]``.  Its backward runs the reverse BPTT
+    kernel unless ``plain``."""
     xs = torch.cat([features[:, None], decoder.embed.weight[captions.long()]],
                    dim=1)
-    hs_tm = lstm.lstm_seq_tm(decoder.lstm.layers(), xs.transpose(0, 1))
+    hs_tm = lstm.lstm_seq_tm(decoder.lstm.layers(), xs.transpose(0, 1),
+                             plain=plain)
     logits_tm = hs_tm @ decoder.linear.weight.T + decoder.linear.bias
     return logits_tm.transpose(0, 1)

@@ -4,7 +4,9 @@ Weight layout and gate order (i, f, g, o) are ``torch.nn.LSTM``'s:
 ``w_ih [4H, in]``, ``w_hh [4H, H]``, ``b_ih``/``b_hh [4H]``.  :class:`LSTM`
 holds the parameters under ``nn.LSTM``'s names (``weight_ih_l{k}`` …), so a
 reference ``state_dict`` loads into it as it is; the step functions below
-are the plain math the decode uses.
+are the plain math the decode uses.  :func:`lstm_seq_tm`, the
+teacher-forced pass, has the JAX package's deferred-gradient backward
+(:class:`_LayerSeq`) through the reverse BPTT kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+
+from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+    lstm_bptt_reverse, lstm_bptt_reverse_plain)
 
 
 class LSTM(nn.Module):
@@ -101,14 +106,65 @@ def zero_state(num_layers: int, batch: int, hidden_dim: int,
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def lstm_seq_tm(params: List[dict], xs_tm, state=None):
+def _layer_seq_scan(w_fused, b_fused, xs, h0, c0):
+    """One layer over the time-major ``xs [T, B, in]`` → ``(hs, cs,
+    gates)``: each step one product of ``[x | h]`` with the fused
+    ``[in+H, 4H]`` weight (:func:`lstm_cell`'s arithmetic)."""
+    h, c = h0, c0
+    hs, cs, gates = [], [], []
+    for x_t in xs:
+        g = torch.cat([x_t, h], dim=-1) @ w_fused + b_fused
+        i, f, gg, o = g.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+        cs.append(c)
+        gates.append(g)
+    return torch.stack(hs), torch.stack(cs), torch.stack(gates)
+
+
+class _LayerSeq(torch.autograd.Function):
+    """One teacher-forced layer, ``xs [T, B, in]`` → ``hs [T, B, H]``, with
+    the JAX package's deferred-gradient backward (``_layer_seq``): the
+    reverse recurrence carries only ``(dh, dc)`` and emits the gate
+    gradients ``d_pre`` (:func:`lstm_bptt_reverse`: the CUDA kernel on CUDA
+    tensors, unless ``plain``), then every weight and input gradient is one
+    product over the stacked sequence."""
+
+    @staticmethod
+    def forward(ctx, w_fused, b_fused, xs, h0, c0, plain):
+        hs, cs, gates = _layer_seq_scan(w_fused, b_fused, xs, h0, c0)
+        ctx.save_for_backward(w_fused, xs, h0, c0, hs, cs, gates)
+        ctx.plain = plain
+        return hs
+
+    @staticmethod
+    def backward(ctx, d_hs):
+        w_fused, xs, h0, c0, hs, cs, gates = ctx.saved_tensors
+        in_dim = xs.shape[-1]
+        h_prev = torch.cat([h0[None], hs[:-1]])
+        c_prev = torch.cat([c0[None], cs[:-1]])
+        reverse = lstm_bptt_reverse_plain if ctx.plain else lstm_bptt_reverse
+        d_pre, dh0, dc0 = reverse(w_fused[in_dim:].contiguous(),
+                                  d_hs.contiguous(), gates, c_prev, cs)
+        T, B = d_pre.shape[:2]
+        d2 = d_pre.reshape(T * B, -1)
+        xh = torch.cat([xs, h_prev], dim=-1).reshape(T * B, -1)
+        dw = xh.T @ d2                  # one [in+H, 4H] product
+        db = d2.sum(dim=0)
+        dxs = (d2 @ w_fused[:in_dim].T).reshape(xs.shape)
+        return dw, db, dxs, dh0, dc0, None
+
+
+def lstm_seq_tm(params: List[dict], xs_tm, state=None, plain: bool = False):
     """Teacher-forced stacked LSTM over a time-major sequence:
     ``xs_tm [T, B, in]`` → top-layer outputs ``[T, B, H]``.
 
-    Layer by layer over the whole sequence, each step one product of
-    ``[x | h]`` with the layer's fused ``[in+H, 4H]`` weight, as the JAX
-    package's ``lstm_seq_tm`` computes its forward; its gradient is plain
-    autograd."""
+    Layer by layer over the whole sequence (:class:`_LayerSeq`), as the
+    JAX package's ``lstm_seq_tm``; each layer's backward runs the reverse
+    BPTT kernel on CUDA tensors, its plain version on CPU ones or with
+    ``plain``.  Gradients reach the torch-layout parameters through the
+    concatenation that fuses them."""
     batch = xs_tm.shape[1]
     hidden_dim = params[0]["w_hh"].shape[1]
     if state is None:
@@ -117,10 +173,5 @@ def lstm_seq_tm(params: List[dict], xs_tm, state=None):
     h0, c0 = state
     x = xs_tm
     for layer, lp in enumerate(fuse_layer_params(params)):
-        h, c = h0[layer], c0[layer]
-        outs = []
-        for x_t in x:
-            h, c = lstm_cell(lp, x_t, h, c)
-            outs.append(h)
-        x = torch.stack(outs)
+        x = _LayerSeq.apply(lp["w"], lp["b"], x, h0[layer], c0[layer], plain)
     return x

@@ -16,8 +16,8 @@ as the CNN discriminator's is.
   ``lengths``, key positions past ``1 + length`` are masked too.
 * :func:`decode_step` / :func:`sample` are the incremental decode over a KV
   cache; ``sample`` gives raw logits and argmax ids (``pretrain``) or the
-  Gumbel-softmax sample (``ops/gumbel.py``; its fused kernel under
-  ``decode_impl="kernel"``).
+  Gumbel-softmax sample (``ops/gumbel.py``; its fused kernel unless
+  ``decode_impl="plain"``).
 
 Self-attention in :func:`block_apply` goes through the flash kernels
 (``kernels/flash_attention.py``) when the caller declares the mask's
@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.config import Config, plain_decode
 from gan_image_captioning_tpu_torch.data.vocab import START
 from gan_image_captioning_tpu_torch.kernels.flash_attention import (
     flash_attention, supported)
@@ -369,13 +369,13 @@ def sample(dec, features, seq_len: int, pretrain: bool = False,
     the cached prefix, project, then raw logits and their argmax
     (``pretrain``) or the Gumbel-softmax sample of the logits, and feed
     ``embed[ids]`` back.  Gumbel noise: the fed ``uniforms [T, B, V]``, or
-    the sampler's draw for ``(seed, t)`` (the fused kernel's Philox under
-    ``config.decode_impl == "kernel"`` on CUDA, else
+    the sampler's draw for ``(seed, t)`` (the fused kernel's Philox on CUDA
+    unless ``config.decode_impl == "plain"``, else
     ``gumbel_sample.step_uniforms``)."""
     p = dec if isinstance(dec, dict) else params_of(dec)
     k_cache, v_cache = _init_kv_cache(config, features.shape[0],
                                       features.dtype, features.device)
-    kernel = config.decode_impl == "kernel"
+    kernel = not plain_decode(config)
     x, outs, ids = features, [], []
     for t in range(seq_len):
         logits, k_cache, v_cache = decode_step(p, config, x, k_cache,

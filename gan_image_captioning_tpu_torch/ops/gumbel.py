@@ -40,7 +40,7 @@ def gumbel_softmax(logits, temperature, generator=None, eps: float = EPS,
     g))`` and its argmax (first index on ties), a categorical draw from
     ``softmax(logits)``.
 
-    ``kernel`` (the ``decode_impl="kernel"`` route, the JAX package's
+    ``kernel`` (the kernel route of ``decode_impl``, the JAX package's
     ``set_use_pallas``): 2-D logits go through the fused sampler
     (``kernels/gumbel_sample.py``): on CUDA tensors its kernel, with the
     fed uniforms ``u`` or Philox keyed by ``(seed, step)``; on CPU ones its

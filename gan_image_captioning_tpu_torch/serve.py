@@ -57,9 +57,10 @@ Request forms:
 Response: {"captions": [...], "logprobs": [...], "latency_ms": t}
 
 The service runs on ``--device cuda`` (the default) and raises when CUDA
-is missing; ``--device cpu`` runs the plain PyTorch decode.  Not ported:
-``--decode-mode speculative``, HTTP, ``{"reload"}``, ``--serve-watch``,
-``--mesh``.
+is missing; ``--device cpu`` runs the plain PyTorch decode.  Every flag of
+``src/serve.py`` parses; not ported, and raising when set: ``--decode-mode``
+other than ``auto`` / ``greedy`` and the sample and draft flags, HTTP,
+``--exported``, ``--serve-watch`` (and ``{"reload"}``), ``--mesh``.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ import torch
 from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    config_from_args,
                                                    padded_vocab_size,
+                                                   refuse_unported,
                                                    require_ported_flags,
                                                    resolve_device)
 from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
@@ -91,6 +93,28 @@ from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
 from gan_image_captioning_tpu_torch.serving import (CoalescingBatcher,
                                                     ContinuousBatcher)
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
+
+
+# the flags of src/serve.py the port does not honour yet, as the training
+# flags' table in config.py: (flag, argparse keywords with the JAX name,
+# type and default, the values the port honours or None for the default)
+_UNPORTED_SERVE_ARGS = (
+    ("--exported", dict(type=str, default=""), None),
+    ("--http-port", dict(type=int, default=0), None),
+    ("--serve-watch", dict(type=float, default=0.0), None),
+    ("--decode-mode", dict(type=str, default="auto",
+                           choices=["auto", "greedy", "beam", "sample",
+                                    "speculative"]), ("auto", "greedy")),
+    ("--draft-len", dict(type=int, default=4), None),
+    ("--top-k", dict(type=int, default=0), None),
+    ("--top-p", dict(type=float, default=1.0), None),
+    ("--sample-temperature", dict(type=float, default=1.0), None),
+    ("--repetition-penalty", dict(type=float, default=1.0), None),
+    ("--no-repeat-ngram", dict(type=int, default=0, choices=[0, 2, 3]),
+     None),
+    ("--min-length", dict(type=int, default=0), None),
+    ("--sample-seed", dict(type=int, default=0), None),
+)
 
 
 def parse_args(argv=None):
@@ -131,7 +155,12 @@ def parse_args(argv=None):
                         help="coalescing decode in K-step chunks that stop "
                              "once every row has emitted <E> (0 = the full "
                              "T-step decode); the tail after <E> is <PAD>")
+    for flag, kw, honoured in _UNPORTED_SERVE_ARGS:
+        parser.add_argument(flag, **kw, help=(
+            f"honours {', '.join(honoured)}; the rest raises" if honoured
+            else "not ported yet: raises when set"))
     args = parser.parse_args(argv)
+    refuse_unported(_UNPORTED_SERVE_ARGS, args)
     if bool(args.checkpoint) == (args.init_seed is not None):
         parser.error("exactly one of --checkpoint or --init-seed is required")
     return args

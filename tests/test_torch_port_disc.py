@@ -1,4 +1,4 @@
-"""The port's conv banks (``conv_relu_maxpool_mxu``, its plain versions on
+"""The port's conv banks (``conv_relu_maxpool``, its plain versions on
 CPU tensors) and CNN discriminator against the JAX package's: the MXU
 engine run in interpret mode (value and gradients, including exact ties
 over time), the XLA path for a representation width eds > 1, and
@@ -176,7 +176,7 @@ def test_argmax_replay_reports_no_gap_on_the_same_inputs():
     with disc_conv.argmax_record() as rows:
         a = disc_conv.pooled_features(convs, e, 1)
     with disc_conv.argmax_replay(rows) as report:
-        b = disc_conv.pooled_features(convs, e, 1, plain=True)
+        b = disc_conv.pooled_features(convs, e, 1, engine="plain")
     assert torch.equal(a, b) and report == [(0.0, 0)]
 
 

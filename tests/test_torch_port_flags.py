@@ -1,0 +1,165 @@
+"""Every flag of the JAX package's parsers parses in the port's: the main
+parser (``config.build_parser``) and the serve parser (``src/serve.py``)
+against the port's.  A JAX command line at the JAX defaults parses and
+trains; each flag the port does not honour raises ``NotImplementedError``
+when set, and ``--decode-impl`` maps onto the port's routes."""
+
+import argparse
+
+import pytest
+
+import src.serve as jserve
+from gan_image_captioning_tpu.config import build_parser as jbuild_parser
+from gan_image_captioning_tpu_torch import main as tmain
+from gan_image_captioning_tpu_torch import serve as tserve
+from gan_image_captioning_tpu_torch.config import (build_parser,
+                                                   config_from_args,
+                                                   plain_decode,
+                                                   require_ported_flags)
+
+TINY = ["--dataset", "synthetic", "--synthetic-items", "16",
+        "--gen-embed-dim", "8", "--gen-hidden-dim", "8",
+        "--gen-num-layers", "1", "--max-seq-len", "5",
+        "--disc-embed-dim", "4", "--disc-num-rep", "4",
+        "--disc-filter-sizes", "2,3", "--disc-num-filters", "3,3",
+        "--pre-train-batch-size", "8", "--pre-eval-batch-size", "8",
+        "--adv-train-batch-size", "8", "--adv-eval-batch-size", "8",
+        "--pretrain-epochs", "1", "--adv-epochs", "1", "--device", "cpu"]
+
+
+class _Stop(Exception):
+    pass
+
+
+def _serve_parser(module, monkeypatch, base):
+    """The parser a serve module's ``parse_args`` builds, caught before it
+    parses."""
+    built = []
+
+    def capture():
+        parser = base()
+        built.append(parser)
+
+        def stop(*args, **kwargs):
+            raise _Stop
+
+        parser.parse_args = stop
+        return parser
+
+    monkeypatch.setattr(module, "build_parser", capture)
+    with pytest.raises(_Stop):
+        module.parse_args([])
+    return built[0]
+
+
+def _options(parser):
+    return set(parser._option_string_actions)
+
+
+def test_main_parser_knows_every_jax_option():
+    missing = _options(jbuild_parser()) - _options(build_parser())
+    assert not missing
+
+
+def test_serve_parser_knows_every_jax_option(monkeypatch):
+    jax_opts = _options(_serve_parser(jserve, monkeypatch, jbuild_parser))
+    ours = _options(_serve_parser(tserve, monkeypatch, build_parser))
+    assert not jax_opts - ours
+
+
+def _jax_defaults_argv():
+    """Every option of the JAX main parser with its default value (store
+    flags left out: naming them sets them)."""
+    argv = []
+    for action in jbuild_parser()._actions:
+        if (not action.option_strings or action.default is None
+                or isinstance(action, (argparse._StoreTrueAction,
+                                       argparse._HelpAction))):
+            continue
+        value = action.default
+        if isinstance(value, (list, tuple)):
+            value = ",".join(str(v) for v in value)
+        argv += [action.option_strings[0], str(value)]
+    return argv
+
+
+def test_jax_command_line_at_defaults_parses_and_trains(tmp_path):
+    argv = _jax_defaults_argv()
+    assert "--disc-engine" in argv and "--zero1" not in argv
+    config = config_from_args(build_parser().parse_args(argv))
+    require_ported_flags(config)
+    assert (config.disc_engine, config.decode_impl) == ("auto", "fused")
+    named = ["--disc-engine", "mxu", "--decode-impl", "fused",
+             "--tokenizer", "word", "--padding-idx", "0", "--no-jit"]
+    inst = tmain.main([*argv, *named, *TINY, "--save-dir",
+                       str(tmp_path / "s")])
+    assert inst.config.disc_engine == "mxu" and inst.state.gen_steps > 0
+
+
+# every flag the port parses and refuses when set, with a set value
+REFUSED = [("--resume-schedule", "0"), ("--keep-checkpoints", "2"),
+           ("--length-penalty", "0.6"), ("--scst-reward", "bleu"),
+           ("--scst-multi-ref", None), ("--scst-lr", "0.001"),
+           ("--cp-mode", "ring"), ("--pp-microbatches", "2"),
+           ("--zero1", None), ("--lr-warmup-steps", "10"),
+           ("--lr-decay-steps", "100"), ("--lr-min-ratio", "0.1"),
+           ("--skip-nonfinite-grads", "1"), ("--ss-max-prob", "0.5"),
+           ("--debug-nans", None), ("--tokenizer", "bpe"),
+           ("--bpe-vocab", "v.json"), ("--bpe-merges", "m.txt"),
+           ("--encoder-init", "natural"), ("--use-pallas", "off"),
+           ("--decode-impl", "decoupled")]
+
+
+@pytest.mark.parametrize("flag,value", REFUSED)
+def test_refused_flags_raise_when_set(flag, value):
+    argv = [flag] + ([] if value is None else [value])
+    config = config_from_args(build_parser().parse_args(argv))
+    with pytest.raises(NotImplementedError, match=flag):
+        require_ported_flags(config)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--vocab-size", "99"], ["--padding-idx", "1"], ["--device-ids", "1"],
+    ["--test-log-step", "5"], ["--no-jit"], ["--decode-impl", "kernel"]] + [
+    ["--disc-engine", e] for e in ("auto", "xla", "pallas", "hybrid", "mxu")])
+def test_accepted_flags_pass(argv):
+    require_ported_flags(config_from_args(build_parser().parse_args(argv)))
+
+
+def test_decode_impl_maps_onto_the_port_routes():
+    config = config_from_args(build_parser().parse_args([]))
+    assert not plain_decode(config)
+    assert not plain_decode(config.replace(decode_impl="kernel"))
+    assert plain_decode(config.replace(decode_impl="plain"))
+    with pytest.raises(NotImplementedError, match="decoupled"):
+        plain_decode(config.replace(decode_impl="decoupled"))
+    with pytest.raises(ValueError):
+        plain_decode(config.replace(decode_impl="scan"))
+
+
+SERVE_REFUSED = [("--exported", "m.gic"), ("--http-port", "8080"),
+                 ("--serve-watch", "5"), ("--decode-mode", "beam"),
+                 ("--decode-mode", "sample"), ("--decode-mode", "speculative"),
+                 ("--draft-len", "2"), ("--top-k", "5"), ("--top-p", "0.9"),
+                 ("--sample-temperature", "0.7"),
+                 ("--repetition-penalty", "1.2"), ("--no-repeat-ngram", "2"),
+                 ("--min-length", "3"), ("--sample-seed", "1")]
+
+
+@pytest.mark.parametrize("flag,value", SERVE_REFUSED)
+def test_refused_serve_flags_raise_when_set(flag, value):
+    with pytest.raises(NotImplementedError, match=flag):
+        tserve.parse_args(["--init-seed", "0", flag, value])
+
+
+@pytest.mark.parametrize("mode", ["auto", "greedy"])
+def test_greedy_decode_modes_serve(mode):
+    args = tserve.parse_args(["--init-seed", "0", "--decode-mode", mode,
+                              "--device", "cpu", "--dataset", "synthetic",
+                              "--gen-embed-dim", "8", "--gen-hidden-dim",
+                              "8", "--max-seq-len", "5"])
+    service = tserve.CaptionService(args)
+    try:
+        assert len(service.handle_request({"n": 2})["captions"]) == 2
+    finally:
+        service.close()
