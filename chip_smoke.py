@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only train_kernels,train_timing
     python3 chip_smoke.py --only tf_kernels,tf_train,tf_service,tf_loop
     python3 chip_smoke.py --only disc_engines,bptt_reverse
+    python3 chip_smoke.py --only decode_modes,decode_impls
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -158,11 +159,34 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     (``NL`` launches) against the plain route (loss within 1e-4, gradients
     by ``routes_agree``); ms per step on both routes; its ``device_ms``.
 
+24. ``decode_modes`` — the decode modes of the last slice at config3 width,
+    B = 64: ``sample`` (ids bit-equal to ``sample_resid``'s on fed
+    uniforms and on a seed; noise within 1e-5 of the plain version's),
+    ``pretrain`` (ids bit-equal to ``greedy``'s; logits within 1e-4 of the
+    plain decode fed the kernel's ids, each id within 1e-4 of that
+    decode's max), ``sample_embed`` (ids, soft, hs, cs and gates bit-equal
+    to ``sample_resid``'s; emb within 1e-5 of its largest entry against
+    the float64 product of the same soft and Wd^T) and the fused-embed
+    backward (dWp and dbp within 1e-4 of their largest entry, d_htop
+    within 1e-5); ``device_ms`` of those and, re-timed the same way, of
+    serve at B = 8 and 64, ``sample_resid`` and the carried chunk, beside
+    the plain versions and the bounds.
+25. ``decode_impls`` — one adversarial and one MLE (free) pass under each
+    decode route (``kernel``, ``kernel_rescore``, ``kernel_embed``,
+    ``decoupled``) from the same state and fed noise (uniforms, keep
+    masks, flips), the conv banks pooled at the default route's argmax
+    rows: losses within 1e-4 of the default route's and the plain
+    route's, gradients by ``routes_agree``; then the adversarial, MLE and
+    both eval steps through the entry points, each with the launch counts
+    of the design; ms per step.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
 Gumbel sampler, the per-batch-row conv forward and backward, the DXS
-backward and the reverse BPTT) and, last, ``{"ok": true, "device": …}``.
+backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
+``sample_embed`` and the fused-embed backward) and, last, ``{"ok": true,
+"device": …}``.
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits non-zero before printing a result.  The plain versions' matrix
 products and convolutions run in full float32: TF32 is switched off below.
@@ -192,7 +216,7 @@ TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
 Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
 KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "decode_qserve",
                   "image_norm", "flash_attention", "gumbel_sample",
-                  "disc_conv_rows"]
+                  "disc_conv_rows", "decode_embed_bwd"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -1263,7 +1287,9 @@ def phase_train_kernel_timing(dec, device):
 
 COUNTERS = ("decode_serve", "decode_sample_resid", "lstm_bptt_chain",
             "disc_conv_fwd", "disc_conv_bwd_dx", "lstm_bptt_reverse",
-            "disc_conv_rows_fwd", "disc_conv_rows_bwd", "disc_conv_bwd_dxs")
+            "disc_conv_rows_fwd", "disc_conv_rows_bwd", "disc_conv_bwd_dxs",
+            "decode_sample_noise", "decode_sample_logits",
+            "decode_sample_embed", "decode_sample_embed_bwd")
 MLE_STEPS, ADV_STEPS, DISC_EVERY = 3, 4, 2
 # launches per step by design: the MLE step runs one greedy decode and the
 # rescore's backward, one reverse recurrence per layer; the adversarial
@@ -1276,19 +1302,22 @@ LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
 
 
 def counters():
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
     from gan_image_captioning_tpu_torch.kernels import disc_conv
-    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
-        decode_sample, decode_sample_resid)
     from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
         lstm_bptt_chain, lstm_bptt_reverse)
 
-    return dict(zip(COUNTERS, (decode_sample, decode_sample_resid,
+    return dict(zip(COUNTERS, (ds.decode_sample, ds.decode_sample_resid,
                                lstm_bptt_chain, disc_conv.conv_bank_forward,
                                disc_conv.conv_bank_backward,
                                lstm_bptt_reverse,
                                disc_conv.conv_rows_forward,
                                disc_conv.conv_rows_backward,
-                               disc_conv.conv_bank_dxs)))
+                               disc_conv.conv_bank_dxs,
+                               ds.decode_sample_noise,
+                               ds.decode_sample_logits,
+                               ds.decode_sample_embed,
+                               ds.decode_sample_embed_bwd)))
 
 
 def train_setup(device):
@@ -3028,6 +3057,352 @@ def engine_entries(smi, engines, reverse):
     return out
 
 
+# ------------------------------------------------ decode modes and routes
+
+DECODE_TPU = "gan_image_captioning_tpu/kernels/decode_sample.py"
+MODE_TPU_KERNELS = {
+    "decode_sample_noise": f"{DECODE_TPU}:121",      # _kernel, mode sample
+    "decode_sample_logits": f"{DECODE_TPU}:121",     # mode pretrain
+    "decode_sample_embed": f"{DECODE_TPU}:121",      # mode sample_embed
+    "decode_sample_embed_bwd": f"{DECODE_TPU}:826",  # _embed_bwd_kernel
+}
+MODE_SOURCES = {"decode_sample_noise": "decode_serve.cu",
+                "decode_sample_logits": "decode_serve.cu",
+                "decode_sample_embed": "decode_serve.cu",
+                "decode_sample_embed_bwd": "decode_embed_bwd.cu"}
+NOISE_ATOL, EMB_RTOL, DWP_RTOL, DHTOP_RTOL = 1e-5, 1e-5, 1e-4, 1e-5
+# launches per step by design at config3 width (besides the conv banks'
+# 3 + 3 per adversarial step): the adversarial and MLE (free) train steps,
+# and the eval steps (no backward) of make_adv_eval_step and
+# make_mle_eval_step
+ROUTE_LAUNCHES = {
+    "kernel": {"adv": {"decode_sample_resid": 1, "lstm_bptt_chain": 1},
+               "mle": {"decode_serve": 1, "lstm_bptt_reverse": NL},
+               "adv_eval": {"decode_sample_resid": 1},
+               "mle_eval": {"decode_sample_logits": 1}},
+    "kernel_rescore": {"adv": {"decode_sample_noise": 1,
+                               "lstm_bptt_reverse": NL},
+                       "mle": {"decode_serve": 1, "lstm_bptt_reverse": NL},
+                       "adv_eval": {"decode_sample_noise": 1},
+                       "mle_eval": {"decode_sample_logits": 1}},
+    "kernel_embed": {"adv": {"decode_sample_embed": 1,
+                             "decode_sample_embed_bwd": 1,
+                             "lstm_bptt_chain": 1},
+                     "mle": {"decode_serve": 1, "lstm_bptt_reverse": NL},
+                     "adv_eval": {"decode_sample_embed": 1},
+                     "mle_eval": {"decode_sample_logits": 1}},
+    "decoupled": {"adv": {"lstm_bptt_reverse": NL},
+                  "mle": {"lstm_bptt_reverse": NL},
+                  "adv_eval": {}, "mle_eval": {}},
+}
+CONV_PER_ADV = {"disc_conv_fwd": 3, "disc_conv_bwd_dx": 3}
+
+
+def mode_work(kind, B):
+    """Bytes and operations of the mode ``kind`` at batch B (Philox noise:
+    no uniforms read)."""
+    nbytes, flops = decode_work(B)
+    nbytes -= 4 * B * T                          # no log-probabilities
+    if kind in ("noise", "logits"):              # g or the logits written
+        return nbytes + 4 * T * B * V, flops
+    nbytes, flops = resid_work(B)                # embed: + wd in, emb out
+    return (nbytes + 4 * (DISC_E * V + T * B * DISC_E),
+            flops + 2 * T * B * V * DISC_E)
+
+
+def embed_bwd_work(B):
+    """h_top, soft, d_emb, w_proj, wd in; dWp, dbp, d_htop out."""
+    nbytes = 4 * (2 * T * B * H + T * B * V + T * B * DISC_E + 2 * V * H
+                  + DISC_E * V + V)
+    return nbytes, 2 * T * B * V * (DISC_E + 2 * H)
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def phase_decode_modes(device):
+    """The decode modes sample, pretrain and sample_embed and the fused
+    embed backward at config3 width against their plain versions and the
+    ported modes; device_ms of the decode family (serve at B = 8 and 64,
+    sample_resid, the carried chunk and the new modes) beside the plain
+    versions and the bounds."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+
+    B, out = B_TRAIN, {"rows": {}}
+    dec = full_width_generator(device).decoder
+    feats = seeded((B, E), 64, device)
+    args = decode_args(dec, feats)
+    u = torch.rand((T, B, V), generator=torch.Generator(
+        device=device).manual_seed(5), device=device)
+    wd = seeded((DISC_E, V), 91, device, 0.1)
+
+    # --- sample: the ids of sample_resid on the same noise
+    ids_n, noise = ds.decode_sample_noise(*args, uniforms=u)
+    resid = ds.decode_sample_resid(*args, temperature=TEMP, uniforms=u)
+    seeded_n = ds.decode_sample_noise(*args, seed=3)[0]
+    seeded_r = ds.decode_sample_resid(*args, seed=3, temperature=TEMP)[0]
+    torch.cuda.synchronize()
+    ids_p, noise_p = ds.decode_sample_noise_plain(*args, u)
+    row = {"ids_equal_sample_resid_fed": bool(torch.equal(ids_n, resid[0])),
+           "ids_equal_sample_resid_seeded": bool(torch.equal(seeded_n,
+                                                             seeded_r)),
+           "ids_equal_plain": bool(torch.equal(ids_n, ids_p)),
+           "distinct_ids": int(ids_n.unique().numel()),
+           "max_abs_noise_diff": float((noise - noise_p).abs().max())}
+    emit({"phase": "decode_modes", "kernel": "decode_sample_noise", **row})
+    check(row["ids_equal_sample_resid_fed"]
+          and row["ids_equal_sample_resid_seeded"], f"sample ids {row}")
+    check(row["max_abs_noise_diff"] <= NOISE_ATOL, f"sample noise {row}")
+    out["rows"]["decode_sample_noise"] = row
+    del noise, noise_p
+
+    # --- pretrain: greedy's ids; logits against the plain decode fed the
+    # kernel's ids (the teacher-forced rule)
+    ids_l, logits = ds.decode_sample_logits(*args)
+    greedy = ds.decode_sample(*args, mode="greedy")
+    torch.cuda.synchronize()
+    ids_lp, logits_p = ds.decode_sample_logits_plain(*args)
+    tf = teacher_forced_logits(dec, feats, ids_l).transpose(0, 1)
+    chosen = tf.gather(2, ids_l.T.long()[..., None])[..., 0]
+    row = {"ids_equal_greedy": bool(torch.equal(ids_l, greedy)),
+           "ids_equal_plain": bool(torch.equal(ids_l, ids_lp)),
+           "rows_differing": int((ids_l != ids_lp).any(dim=1).sum()),
+           "distinct_ids": int(ids_l.unique().numel()),
+           "max_id_gap": float((tf.max(dim=2).values - chosen).max()),
+           "max_abs_logits_diff": float((logits - tf).abs().max())}
+    same = (ids_l == ids_lp).all(dim=1)
+    row["max_abs_logits_diff_vs_plain_equal_rows"] = float(
+        (logits - logits_p)[:, same].abs().max()) if same.any() else None
+    emit({"phase": "decode_modes", "kernel": "decode_sample_logits", **row})
+    check(row["ids_equal_greedy"], f"pretrain ids {row}")
+    check(row["max_id_gap"] <= ID_ATOL
+          and row["max_abs_logits_diff"] <= LP_ATOL, f"pretrain {row}")
+    out["rows"]["decode_sample_logits"] = row
+    del logits, logits_p, tf
+
+    # --- sample_embed: sample_resid's outputs bit for bit, and emb
+    got = ds.decode_sample_embed(*args, wd, temperature=TEMP, uniforms=u)
+    torch.cuda.synchronize()
+    want = (got[2].double() @ wd.double().T).float()
+    row = {"ids_equal_sample_resid": bool(torch.equal(got[0], resid[0])),
+           "resid_bit_equal": {n: bool(torch.equal(a, b)) for n, a, b in zip(
+               ("soft", "hs", "cs", "gates"), got[2:], resid[1:])},
+           "emb_rel": rel_err(got[1], want),
+           "max_abs_emb_diff": float((got[1] - want).abs().max())}
+    emit({"phase": "decode_modes", "kernel": "decode_sample_embed", **row})
+    check(row["ids_equal_sample_resid"]
+          and all(row["resid_bit_equal"].values()), f"sample_embed {row}")
+    check(row["emb_rel"] <= EMB_RTOL, f"sample_embed emb {row}")
+    out["rows"]["decode_sample_embed"] = row
+    del got, want
+
+    # --- the embed backward against its plain version
+    h_top = resid[2][:, NL - 1].contiguous()
+    soft = resid[1]
+    d_emb = seeded((T, B, DISC_E), 92, device)
+    bargs = (h_top, soft, d_emb, dec.linear.weight, wd, TEMP)
+    k = ds.decode_sample_embed_bwd(*bargs)
+    torch.cuda.synchronize()
+    p = ds.decode_sample_embed_bwd_plain(*bargs)
+    row = {"dwp_rel": rel_err(k[0], p[0]), "dbp_rel": rel_err(k[1], p[1]),
+           "d_htop_rel": rel_err(k[2], p[2]),
+           "max_abs_dwp_diff": float((k[0] - p[0]).abs().max()),
+           "max_abs_d_htop_diff": float((k[2] - p[2]).abs().max())}
+    emit({"phase": "decode_modes", "kernel": "decode_sample_embed_bwd",
+          **row})
+    check(row["dwp_rel"] <= DWP_RTOL and row["dbp_rel"] <= DWP_RTOL
+          and row["d_htop_rel"] <= DHTOP_RTOL, f"embed backward {row}")
+    out["rows"]["decode_sample_embed_bwd"] = row
+    del k, p, resid
+
+    # --- device times of the decode family (a decode is 144 launches:
+    # four calls fit the launch queue behind the spin; the plain decodes'
+    # thousands of launches are timed by CUDA events, the host's pace)
+    w = dense_weights(dec)
+    f8, f64 = seeded((8, E), 108, device), seeded((64, E), 164, device)
+    st = (seeded((NL, 8, H), 109, device, 0.1),
+          seeded((NL, 8, H), 110, device, 0.1), f8)
+    cases = {
+        "decode_sample_noise": (
+            lambda: ds.decode_sample_noise(*args, seed=3),
+            lambda: ds.decode_sample_noise_plain(*args, u),
+            mode_work("noise", B), True),
+        "decode_sample_logits": (
+            lambda: ds.decode_sample_logits(*args),
+            lambda: ds.decode_sample_logits_plain(*args),
+            mode_work("logits", B), True),
+        "decode_sample_embed": (
+            lambda: ds.decode_sample_embed(*args, wd, seed=3,
+                                           temperature=TEMP),
+            lambda: ds.decode_sample_embed_plain(*args, u, TEMP, wd),
+            mode_work("embed", B), True),
+        "decode_sample_embed_bwd": (
+            lambda: ds.decode_sample_embed_bwd(*bargs),
+            lambda: ds.decode_sample_embed_bwd_plain(*bargs),
+            embed_bwd_work(B), False),
+        "decode_sample_resid": (
+            lambda: ds.decode_sample_resid(*args, seed=3, temperature=TEMP),
+            lambda: ds.decode_sample_resid_plain(*args, u, TEMP),
+            resid_work(B), True),
+        "decode_serve_b8": (
+            lambda: ds.decode_sample(f8, *w, T, mode="serve"),
+            lambda: ds.decode_sample_plain(f8, *w, T),
+            decode_work(8), True),
+        "decode_serve_b64": (
+            lambda: ds.decode_sample(f64, *w, T, mode="serve"),
+            lambda: ds.decode_sample_plain(f64, *w, T),
+            decode_work(64), True),
+        "decode_serve_carry_chunk": (
+            lambda: ds.decode_sample(f8, *w, K_CHUNK, mode="serve",
+                                     init_state=st),
+            lambda: ds.decode_sample_plain(f8, *w, K_CHUNK, st),
+            chunk_work(8, K_CHUNK, weight_bytes()), True),
+    }
+    out["times"] = {}
+    for name, (kern, plain, work, decode) in cases.items():
+        # the chunk is 8 steps: 20 calls fit the queue like 4 full decodes
+        k_calls = 4 if decode and name != "decode_serve_carry_chunk" else 20
+        out["times"][name] = time_pair(kern, plain, work, k_calls,
+                                       p_calls=2 if decode else 10,
+                                       plain_events=decode)
+        emit({"phase": "decode_modes", "timing": name, **out["times"][name]})
+    return out
+
+
+def route_noise(config, device, seed=9):
+    """fed_noise with the noisy-label flips."""
+    noise = fed_noise(config, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    noise["flip"] = torch.rand(B_TRAIN, generator=gen, device=device) < 0.25
+    return noise
+
+
+def phase_decode_impls(device):
+    """Under each decode route, from the same state and fed noise: one
+    adversarial and one MLE (free) pass, losses and gradients against the
+    default kernel route's and the plain route's; then one adversarial and
+    one MLE train step and their eval steps with the launch counts of the
+    design, and ms per train step."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.train.steps import (
+        make_adv_eval_step, make_adv_step, make_mle_eval_step, make_mle_step)
+
+    config, state, batch = train_setup(device)
+    config = config.replace(noisy_labels=0.25, label_smoothing=0.1)
+    noise = route_noise(config, device)
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    # the references: the default route (its conv argmax rows recorded)
+    # and the plain route pooled at those rows.  Each route's adversarial
+    # pass pools at them too (the plain conv engine replaying them): a
+    # near-tie in the max-pool that two routes summing in another order
+    # break differently is not what this compares
+    with disc_conv.argmax_record() as rows:
+        ref = {"adv": cond_grads("adv", config, state, batch, noise)}
+    with disc_conv.argmax_replay(rows):
+        plain = {"adv": cond_grads("adv", plain_cfg, state, batch, noise)}
+    ref["mle"] = cond_grads("mle_free", config, state, batch, None)
+    plain["mle"] = cond_grads("mle_free", plain_cfg, state, batch, None)
+    out = {}
+    for route in ROUTE_LAUNCHES:
+        cfg = config.replace(decode_impl=route)
+        with disc_conv.argmax_replay(rows) as report:
+            got = {"adv": cond_grads("adv", cfg.replace(disc_engine="plain"),
+                                     state, batch, noise)}
+        got["mle"] = cond_grads("mle_free", cfg, state, batch, None)
+        row = {"argmax_gap": max(g for g, _ in report),
+               "vs_kernel_not_replayed": compare_grads(
+                   cond_grads("adv", cfg, state, batch, noise),
+                   ref["adv"])["grad_side_rel_err"]}
+        for kind in ("adv", "mle"):
+            for against, want in (("vs_kernel", ref), ("vs_plain", plain)):
+                cmp = compare_grads(got[kind], want[kind])
+                row[f"{kind}_{against}"] = {k: cmp[k] for k in (
+                    "g_loss", "d_loss", "ids_equal", "grad_side_rel_err",
+                    "max_grad_rel_err")}
+                tag = f"{route} {kind} {against}"
+                check(kind == "mle" or cmp["ids_equal"], f"{tag}: ids")
+                for name in ("g_loss", "d_loss"):
+                    a, b = cmp[name]
+                    check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30),
+                          f"{tag} {name} {a} vs {b}")
+                check(routes_agree(cmp), f"{tag}: "
+                      f"{cmp['grad_side_rel_err']}")
+        check(row["argmax_gap"] <= TIE_GAP, f"{route}: argmax gap")
+        emit({"phase": "decode_impls", "route": route, **row})
+        out[route] = row
+
+    # the train and eval steps through the entry points, counts reset
+    # before each and read after it
+    cnt = counters()
+    for route, per_kind in ROUTE_LAUNCHES.items():
+        cfg = config.replace(decode_impl=route)
+        steps = {"adv": (make_adv_step(cfg), (TEMP, noise)),
+                 "mle": (make_mle_step(cfg), ()),
+                 "adv_eval": (make_adv_eval_step(cfg), (TEMP, noise)),
+                 "mle_eval": (make_mle_eval_step(cfg), ())}
+        launches, metrics, expected = {}, {}, {}
+        for kind, (step, extra) in steps.items():
+            for fn in cnt.values():
+                fn.launches = 0
+            _, m = step(state, batch, *extra)
+            torch.cuda.synchronize()
+            launches[kind] = {k: fn.launches for k, fn in cnt.items()}
+            metrics[kind] = {k: float(v) for k, v in m.items()}
+            conv = {"adv": CONV_PER_ADV,
+                    "adv_eval": {"disc_conv_fwd": 3}}.get(kind, {})
+            expected[kind] = {**{k: 0 for k in COUNTERS}, **per_kind[kind],
+                              **conv}
+        row = {"launches": launches, "expected_launches": expected,
+               "metrics": metrics}
+        row["adv_step_ms"] = [step_ms(lambda: steps["adv"][0](
+            state, batch, TEMP, noise), 3) for _ in range(2)]
+        row["mle_step_ms"] = [step_ms(lambda: steps["mle"][0](state, batch),
+                                      3) for _ in range(2)]
+        emit({"phase": "decode_impls", "route": route, "B": B_TRAIN, **row})
+        check(launches == expected, f"{route}: launches {launches} != "
+              f"{expected}")
+        check(all(math.isfinite(v) for m in metrics.values()
+                  for v in m.values()), f"{route}: non-finite metric")
+        out[route].update(row)
+    return out
+
+
+def mode_entries(smi, modes, impls):
+    """The four new kernels' entries of the ``kernels`` line: launches
+    from the kernel_rescore (sample) and kernel_embed (sample_embed, embed
+    backward) adversarial steps and the default route's MLE eval step
+    (pretrain)."""
+    launches = {
+        "decode_sample_noise": impls["kernel_rescore"]["launches"]["adv"],
+        "decode_sample_logits": impls["kernel"]["launches"]["mle_eval"],
+        "decode_sample_embed": impls["kernel_embed"]["launches"]["adv"],
+        "decode_sample_embed_bwd": impls["kernel_embed"]["launches"]["adv"]}
+    rows = modes["rows"]
+    errs = {"decode_sample_noise": rows["decode_sample_noise"][
+                "max_abs_noise_diff"],
+            "decode_sample_logits": rows["decode_sample_logits"][
+                "max_abs_logits_diff"],
+            "decode_sample_embed": rows["decode_sample_embed"][
+                "max_abs_emb_diff"],
+            "decode_sample_embed_bwd": rows["decode_sample_embed_bwd"][
+                "max_abs_d_htop_diff"]}
+    out = []
+    for name, tpu in MODE_TPU_KERNELS.items():
+        t = modes["times"][name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      + MODE_SOURCES[name],
+            "replaces": tpu, "launches": launches[name][name],
+            "max_abs_err": errs[name], "ms": min(t["kernel_ms"]),
+            "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "B": B_TRAIN,
+            "card": smi})
+        check(out[-1]["launches"] > 0, f"{name} never launched")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -3107,6 +3482,10 @@ def main(argv=None):
         engines = phase_disc_engines(device)
     if run("bptt_reverse"):
         reverse = phase_bptt_reverse(device)
+    if run("decode_modes"):
+        modes = phase_decode_modes(device)
+    if run("decode_impls"):
+        impls = phase_decode_impls(device)
     if only:
         return 0
 
@@ -3133,7 +3512,8 @@ def main(argv=None):
                              cont_service)
         + [image_norm_entry(smi, norm, cond_train)]
         + tf_entries(smi, tfk, tf_train)
-        + engine_entries(smi, engines, reverse)})
+        + engine_entries(smi, engines, reverse)
+        + mode_entries(smi, modes, impls)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

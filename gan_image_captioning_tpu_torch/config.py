@@ -297,7 +297,9 @@ def add_extension_args(parser):
                    help="LSTM decode route: 'fused' and 'kernel' (the "
                         "same function in the JAX package) both take the "
                         "decode, BPTT and sampler kernels on CUDA tensors; "
-                        "'decoupled' is not ported yet")
+                        "'decoupled' samples the ids with a gradient-free "
+                        "loop of PyTorch operations, then rescores them "
+                        "(its backward through the reverse BPTT kernel)")
     g.add_argument("--no-jit", action="store_true",
                    help="accepted: the port runs eagerly, as the JAX "
                         "package does under this flag")
@@ -378,17 +380,42 @@ def refuse_unported(table, values) -> None:
             raise NotImplementedError(f"{flag} {value}: not ported yet")
 
 
-def plain_decode(config) -> bool:
-    """The LSTM decode and BPTT route of ``config.decode_impl``: the JAX
-    package's ``fused`` and ``kernel`` (the same function there) take the
-    kernels (False), the port's own ``plain`` the plain versions on any
-    device (True); ``decoupled`` is not ported yet."""
-    if config.decode_impl == "decoupled":
-        raise NotImplementedError("--decode-impl decoupled: not ported yet")
-    if config.decode_impl not in ("fused", "kernel", "plain"):
+DECODE_ROUTES = ("kernel", "kernel_rescore", "kernel_embed", "decoupled",
+                 "plain")
+
+
+def decode_route(config) -> str:
+    """The LSTM decode route that ``config.decode_impl`` names, one of
+    :data:`DECODE_ROUTES`; every caller that picks a decode, sampler or
+    BPTT route asks here.
+
+    * ``kernel``: the JAX package's ``fused`` and ``kernel`` (the same
+      function there), the default: the ``sample_resid`` decode with the
+      manual backward through the BPTT chain; greedy decode + rescore in
+      the MLE step;
+    * ``kernel_rescore`` (``Config`` value, the JAX ``--decode-impl kernel``
+      with ``GIC_KERNEL_VJP=0``): the mode ``sample`` decode, then the
+      differentiable rescore;
+    * ``kernel_embed`` (``Config`` value, the JAX ``--decode-impl kernel``
+      with ``GIC_FUSE_EMBED=1``): the ``sample_embed`` decode fused into
+      the CNN discriminator's embedding; only for an LSTM generator with
+      the CNN discriminator, as the JAX package's ``_fuse_embed_active``,
+      else ``kernel``;
+    * ``decoupled``: the JAX ``_sample_decoupled``, a gradient-free loop of
+      PyTorch operations, then the rescore;
+    * ``plain`` (the port's own): the plain PyTorch versions on any
+      device, to compare a step through the kernels with the same step
+      without them.
+    """
+    impl = {"fused": "kernel"}.get(config.decode_impl, config.decode_impl)
+    if impl not in DECODE_ROUTES:
         raise ValueError(f"decode_impl {config.decode_impl!r}: expected "
-                         "'fused', 'kernel' or 'plain'")
-    return config.decode_impl == "plain"
+                         "'fused', 'decoupled', 'kernel' or one of "
+                         f"{', '.join(DECODE_ROUTES)}")
+    if impl == "kernel_embed" and (config.gen_arch != "lstm"
+                                   or config.disc_arch != "cnn"):
+        return "kernel"
+    return impl
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -407,13 +434,15 @@ class Config:
     package's ``Config``, with the port's own values of the kernel routes
     below).
 
-    ``decode_impl``: the JAX package's ``"fused"`` (the default) and
-    ``"kernel"`` both call the decode, BPTT (the stacked chain and the
-    single-layer reverse of the teacher-forced pass) and Gumbel-sampler
-    wrappers, which launch the CUDA kernels on CUDA tensors and run the
-    plain versions on CPU ones; ``"decoupled"`` raises (not ported yet);
-    the port's ``"plain"`` runs the plain PyTorch versions on any device,
-    to compare a step through the kernels with the same step without them.
+    ``decode_impl``: the JAX package's ``"fused"`` (the default),
+    ``"kernel"`` and ``"decoupled"``, and the port's ``"kernel_rescore"``,
+    ``"kernel_embed"`` and ``"plain"``, each a route of
+    :func:`decode_route`.  The kernel routes call the decode, BPTT (the
+    stacked chain and the single-layer reverse of the teacher-forced
+    pass) and Gumbel-sampler wrappers, which launch the CUDA kernels on
+    CUDA tensors and run the plain versions on CPU ones; ``"plain"`` runs
+    the plain PyTorch versions on any device, to compare a step through
+    the kernels with the same step without them.
 
     ``disc_engine`` (the conv banks, ``kernels/disc_conv.py``): ``"auto"``
     (the default) is ``"mxu"``, the matmul-formulated forward and
@@ -601,9 +630,9 @@ def require_ported_flags(config: Config) -> None:
     """Raise for a flag of the JAX package that the port parses but does
     not honour yet, when it is set; for ``--beam-size`` above 1 and
     ``--encoder-arch vit``; and for a model :func:`require_ported_arch`
-    refuses; and for ``--decode-impl decoupled``."""
+    refuses; and for an unknown ``decode_impl``."""
     refuse_unported(_UNPORTED_FLAG_ARGS, config)
-    plain_decode(config)
+    decode_route(config)
     if config.beam_size != 1:
         raise NotImplementedError(
             f"--beam-size {config.beam_size}: beam search is not ported yet "

@@ -2,8 +2,9 @@
 // serve mode and the Gumbel-softmax sample mode with BPTT residuals.
 //
 // Replaces: gan_image_captioning_tpu/kernels/decode_sample.py, function
-// `_kernel` in modes "serve", "greedy" and "sample_resid" (launched by
-// `decode_sample`).  Per step t of T, for a batch of B rows:
+// `_kernel` in modes "serve", "greedy", "pretrain", "sample", "sample_resid"
+// and "sample_embed" (launched by `decode_sample`).  Per step t of T, for a
+// batch of B rows:
 //   gates_l = [x | h_l] @ [w_ih_l | w_hh_l]^T + (b_ih_l + b_hh_l)  (i, f, g, o)
 //   c_l = f*c_l + i*g ;  h_l = o*tanh(c_l) ;  x = h_l            (per layer)
 //   logits = h_top @ w_proj^T + b_proj
@@ -19,7 +20,13 @@
 //   soft[t, b] = softmax(temp * s)
 //   hs/cs[t, l], gates[t, l] = h_l, c_l and the pre-activation gates (both
 //   biases) of every layer: the residuals of the manual backward
-// and in both modes  x = embed[ids[:, t]]  is the next step's input.
+// pretrain: ids as serve, and logits[t, b] instead of lps
+// sample:   ids as sample_resid (the same s), and noise[t, b] = g instead
+//   of soft and the residuals
+// sample_embed: sample_resid, then emb[t, b] = soft[t, b] @ wd^T with the
+//   discriminator's embedding wd [Ed, V], one product over all T*B rows
+//   after the time loop (nothing feeds emb back into the recurrence)
+// and in every mode  x = embed[ids[:, t]]  is the next step's input.
 // serve with carried state (the `init_state` variant, which the continuous
 // engine's chunks and the adaptive decode run): the decode starts from a
 // given (h0, c0, x0) instead of (0, 0, features) and hands back the state
@@ -109,7 +116,7 @@ __global__ void __launch_bounds__(P_NT) proj_kernel(
     const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ h, int H, int V, int B,
     float* __restrict__ pmax, int* __restrict__ pidx,
-    float* __restrict__ psum, int ntile) {
+    float* __restrict__ psum, int ntile, float* __restrict__ logits_t) {
   __shared__ float Ws[P_RT][KT + 1];
   __shared__ float Xs[P_BT][KT + 1];
   __shared__ float Ls[P_BT][P_RT + 1];
@@ -128,20 +135,30 @@ __global__ void __launch_bounds__(P_NT) proj_kernel(
     for (int j = 0; j < P_TB; ++j) Ls[tb + j * NB][r] = acc[i][j] + bv;
   }
   __syncthreads();
+  if (logits_t != nullptr) {  // pretrain: this step's logits [B, V]
+    const int n = min(P_RT, V - v0);
+    for (int e = tid; e < P_BT * P_RT; e += P_NT) {
+      const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
+      if (b < B && r < n) logits_t[(size_t)b * V + v0 + r] = Ls[bl][r];
+    }
+  }
   proj_tile_stats(Ls, v0, V, b0, B, pmax, pidx, psum, ntile);
 }
 
 // Sample-mode projection tile: s = logits + g with the Gumbel noise of
-// step t; per (row, tile) the max and first argmax of s and the max and
-// sum(exp(z - max)) of z = temp * s.  z goes into soft_t [B, V] (this
-// step's slice), which sample_finalize_kernel normalises.
+// step t; per (row, tile) the max and first argmax of s and, when soft_t
+// is not null, the max and sum(exp(z - max)) of z = temp * s.  z goes into
+// soft_t [B, V] (this step's slice), which sample_finalize_kernel
+// normalises.  g_t [B, V] (this step's slice of the noise) receives g when
+// it is not null (mode sample, which passes no soft_t).
 __global__ void __launch_bounds__(P_NT) proj_sample_kernel(
     const float* __restrict__ w, const float* __restrict__ bias,
     const float* __restrict__ h, int H, int V, int B, float temp,
     unsigned long long seed, int t, const float* __restrict__ u_in,
     float* __restrict__ u_out, float* __restrict__ soft_t,
     float* __restrict__ psmax, int* __restrict__ psidx,
-    float* __restrict__ pzmax, float* __restrict__ pzsum, int ntile) {
+    float* __restrict__ pzmax, float* __restrict__ pzsum, int ntile,
+    float* __restrict__ g_t) {
   __shared__ float Ws[P_RT][KT + 1];
   __shared__ float Xs[P_BT][KT + 1];
   __shared__ float Ls[P_BT][P_RT + 1];
@@ -165,6 +182,7 @@ __global__ void __launch_bounds__(P_NT) proj_sample_kernel(
         const float u = u_in != nullptr ? u_in[o] : philox_uniform(seed, t, b, v);
         if (u_out != nullptr) u_out[o] = u;
         const float g = -logf(-logf(u + GUMBEL_EPS) + GUMBEL_EPS);
+        if (g_t != nullptr) g_t[(size_t)b * V + v] = g;
         s = (acc[i][j] + bv) + g;
       }
       Ls[tb + j * NB][r] = s;
@@ -176,10 +194,12 @@ __global__ void __launch_bounds__(P_NT) proj_sample_kernel(
   // z = temp * s into soft_t, coalesced along the vocabulary.  z is
   // rounded once (__fmul_rn: no contraction into the subtractions below),
   // so the statistics and the normalising pass see the same z.
-  for (int e = tid; e < P_BT * P_RT; e += P_NT) {
-    const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
-    if (b < B && r < n)
-      soft_t[(size_t)b * V + v0 + r] = __fmul_rn(temp, Ls[bl][r]);
+  if (soft_t != nullptr) {
+    for (int e = tid; e < P_BT * P_RT; e += P_NT) {
+      const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
+      if (b < B && r < n)
+        soft_t[(size_t)b * V + v0 + r] = __fmul_rn(temp, Ls[bl][r]);
+    }
   }
   if (tid < P_BT && b0 + tid < B) {
     const int bl = tid, b = b0 + tid;
@@ -193,18 +213,22 @@ __global__ void __launch_bounds__(P_NT) proj_sample_kernel(
       }
       zm = fmaxf(zm, __fmul_rn(temp, s));
     }
-    float zs = 0.f;
-    for (int r = 0; r < n; ++r) zs += expf(__fmul_rn(temp, Ls[bl][r]) - zm);
     const size_t o = (size_t)b * ntile + blockIdx.x;
     psmax[o] = sm;
     psidx[o] = arg;
-    pzmax[o] = zm;
-    pzsum[o] = zs;
+    if (soft_t != nullptr) {
+      float zs = 0.f;
+      for (int r = 0; r < n; ++r)
+        zs += expf(__fmul_rn(temp, Ls[bl][r]) - zm);
+      pzmax[o] = zm;
+      pzsum[o] = zs;
+    }
   }
 }
 
-// One block per batch row: combine the vocabulary tiles, emit ids/lps for
-// step t, and gather the chosen embedding row as the next input.
+// One block per batch row: combine the vocabulary tiles, emit ids (and
+// lps, when not null) for step t, and gather the chosen embedding row as
+// the next input.
 __global__ void __launch_bounds__(F_NT) finalize_kernel(
     const float* __restrict__ pmax, const int* __restrict__ pidx,
     const float* __restrict__ psum, int ntile,
@@ -223,7 +247,7 @@ __global__ void __launch_bounds__(F_NT) finalize_kernel(
   if (tid == 0) {
     const int id = best >= 0 ? pidx[base + best] : 0;
     ids[(size_t)b * T + t] = id;
-    lps[(size_t)b * T + t] = -logf(total);
+    if (lps != nullptr) lps[(size_t)b * T + t] = -logf(total);
     s_id = id;
   }
   __syncthreads();
@@ -232,8 +256,9 @@ __global__ void __launch_bounds__(F_NT) finalize_kernel(
 }
 
 // Sample mode, one block per batch row: the first argmax of s over all
-// tiles -> ids[b, t] and the next input embed[id]; then soft_t[b] (z on
-// entry) becomes exp(z - M) / sum(exp(z - M)) with M the row max of z.
+// tiles -> ids[b, t] and the next input embed[id]; then, when soft_t is not
+// null, soft_t[b] (z on entry) becomes exp(z - M) / sum(exp(z - M)) with M
+// the row max of z.
 __global__ void __launch_bounds__(F_NT) sample_finalize_kernel(
     const float* __restrict__ psmax, const int* __restrict__ psidx,
     const float* __restrict__ pzmax, const float* __restrict__ pzsum,
@@ -251,6 +276,12 @@ __global__ void __launch_bounds__(F_NT) sample_finalize_kernel(
     const int id = best >= 0 ? psidx[base + best] : 0;
     ids[(size_t)b * T + t] = id;
     s_id = id;
+  }
+  if (soft_t == nullptr) {  // mode sample: no soft sample (uniform branch)
+    __syncthreads();
+    const float* row = embed + (size_t)s_id * E;
+    for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
+    return;
   }
   // the max of z: the max of the tile maxima (no tie rule needed)
   float m = -INFINITY;
@@ -270,6 +301,34 @@ __global__ void __launch_bounds__(F_NT) sample_finalize_kernel(
     row_soft[v] = expf(row_soft[v] - m) / total;
   const float* row = embed + (size_t)s_id * E;
   for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
+}
+
+// Mode sample_embed, after the time loop: emb [R, Ed] = soft [R, V] @
+// wd^T for the R = T*B rows of the soft sample, wd [Ed, V] the
+// discriminator's embedding (torch layout).  A block owns 64 embedding
+// columns and 32 soft rows: the projection's tile, with wd in the place
+// of the projection weight and the soft rows in the place of h.
+__global__ void __launch_bounds__(P_NT) embed_kernel(
+    const float* __restrict__ wd, const float* __restrict__ soft, int V,
+    int Ed, int R, float* __restrict__ emb) {
+  __shared__ float Ws[P_RT][KT + 1];
+  __shared__ float Xs[P_BT][KT + 1];
+  constexpr int NR = P_RT / P_TR, NB = P_BT / P_TB;
+  const int e0 = blockIdx.x * P_RT, r0 = blockIdx.y * P_BT;
+  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
+
+  float acc[P_TR][P_TB];
+  tile_dot<P_RT, P_BT, P_TR, P_TB>(ProjRows{e0, Ed}, wd, nullptr, soft,
+                                   nullptr, V, 0, r0, R, acc, Ws, Xs);
+#pragma unroll
+  for (int i = 0; i < P_TR; ++i) {
+    const int e = e0 + tr + i * NR;
+#pragma unroll
+    for (int j = 0; j < P_TB; ++j) {
+      const int r = r0 + tb + j * NB;
+      if (e < Ed && r < R) emb[(size_t)r * Ed + e] = acc[i][j];
+    }
+  }
 }
 
 struct Residuals {
@@ -307,6 +366,76 @@ cudaError_t lstm_step(const void* const* layer_ptrs, int nl, int B, int E,
   return cudaSuccess;
 }
 
+// The Gumbel decode's time loop (modes sample_resid, sample_embed and,
+// with soft == null and res == null, sample): per step the stacked LSTM,
+// proj_sample_kernel and sample_finalize_kernel.  noise [T, B, V] receives
+// g when not null.
+cudaError_t sample_loop(const float* feats, const float* embed,
+                        const float* w_proj, const float* b_proj,
+                        const void* const* layer_ptrs, int B, int E, int H,
+                        int V, int nl, int T, float temp,
+                        unsigned long long seed, const float* u_in,
+                        float* u_out, float* x, float* h, float* c,
+                        float* psmax, int* psidx, float* pzmax, float* pzsum,
+                        int32_t* ids, float* soft, const Residuals* res,
+                        float* noise, cudaStream_t s) {
+  const int ntile = (V + P_RT - 1) / P_RT;
+  cudaError_t err = init_state(feats, nullptr, nullptr, nullptr, B, E, H, nl,
+                               x, h, c, s);
+  if (err != cudaSuccess) return err;
+
+  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
+  for (int t = 0; t < T; ++t) {
+    err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, res, s);
+    if (err != cudaSuccess) return err;
+    const size_t step = (size_t)t * B * V;
+    float* soft_t = soft != nullptr ? soft + step : nullptr;
+    float* g_t = noise != nullptr ? noise + step : nullptr;
+    proj_sample_kernel<<<proj_grid, P_NT, 0, s>>>(
+        w_proj, b_proj, top_h(h, nl, B, H, t), H, V, B, temp, seed, t, u_in,
+        u_out, soft_t, psmax, psidx, pzmax, pzsum, ntile, g_t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    sample_finalize_kernel<<<B, F_NT, 0, s>>>(psmax, psidx, pzmax, pzsum,
+                                              ntile, embed, E, V, x, ids,
+                                              soft_t, t, T);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The greedy time loop (modes serve, greedy and pretrain): per step the
+// stacked LSTM, proj_kernel and finalize_kernel; lps [B, T] and logits
+// [T, B, V] are written when not null.
+cudaError_t greedy_loop(const float* embed, const float* w_proj,
+                        const float* b_proj, const void* const* layer_ptrs,
+                        int B, int E, int H, int V, int nl, int T, float* x,
+                        float* h, float* c, float* pmax, int* pidx,
+                        float* psum, int32_t* ids, float* lps, float* logits,
+                        cudaStream_t s) {
+  const int ntile = (V + P_RT - 1) / P_RT;
+  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
+  for (int t = 0; t < T; ++t) {
+    cudaError_t err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, nullptr,
+                                s);
+    if (err != cudaSuccess) return err;
+    float* logits_t = logits != nullptr ? logits + (size_t)t * B * V
+                                        : nullptr;
+    proj_kernel<<<proj_grid, P_NT, 0, s>>>(w_proj, b_proj,
+                                           top_h(h, nl, B, H, t), H, V, B,
+                                           pmax, pidx, psum, ntile,
+                                           logits_t);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    finalize_kernel<<<B, F_NT, 0, s>>>(pmax, pidx, psum, ntile, embed, E, x,
+                                       ids, lps, t, T);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -336,25 +465,29 @@ int gic_decode_serve(const float* feats, const float* embed,
                      float* lps, float* hT, float* cT, float* xT,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ntile = (V + P_RT - 1) / P_RT;
   cudaError_t err = init_state(feats, h0, c0, x0, B, E, H, nl, x, h, c, s);
   if (err != cudaSuccess) return err;
-
-  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
-  for (int t = 0; t < T; ++t) {
-    err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, nullptr, s);
-    if (err != cudaSuccess) return err;
-    proj_kernel<<<proj_grid, P_NT, 0, s>>>(w_proj, b_proj,
-                                           top_h(h, nl, B, H, t), H, V, B,
-                                           pmax, pidx, psum, ntile);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    finalize_kernel<<<B, F_NT, 0, s>>>(pmax, pidx, psum, ntile, embed, E, x,
-                                       ids, lps, t, T);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  err = greedy_loop(embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, x,
+                    h, c, pmax, pidx, psum, ids, lps, nullptr, s);
+  if (err != cudaSuccess) return err;
   return emit_state(h, c, x, B, E, H, nl, T, hT, cT, xT, s);
+}
+
+// Mode pretrain: the greedy decode from (0, 0, feats) with the logits
+// [T, B, V] of every step and no log-probabilities.  Scratch as
+// gic_decode_serve.  Outputs: ids [B, T], logits [T, B, V].
+int gic_decode_pretrain(const float* feats, const float* embed,
+                        const float* w_proj, const float* b_proj,
+                        const void* const* layer_ptrs, int B, int E, int H,
+                        int V, int nl, int T, float* x, float* h, float* c,
+                        float* pmax, int* pidx, float* psum, int32_t* ids,
+                        float* logits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = init_state(feats, nullptr, nullptr, nullptr, B, E, H, nl,
+                               x, h, c, s);
+  if (err != cudaSuccess) return err;
+  return greedy_loop(embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, x,
+                     h, c, pmax, pidx, psum, ids, nullptr, logits, s);
 }
 
 // The whole T-step Gumbel-softmax sample with BPTT residuals on `stream`.
@@ -370,30 +503,50 @@ int gic_decode_sample_resid(
     const float* u_in, float* u_out, float* x, float* h, float* c,
     float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
     float* soft, float* hs, float* cs, float* gates, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ntile = (V + P_RT - 1) / P_RT;
-  cudaError_t err = init_state(feats, nullptr, nullptr, nullptr, B, E, H, nl,
-                               x, h, c, s);
-  if (err != cudaSuccess) return err;
-
   const Residuals res{hs, cs, gates};
-  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
-  for (int t = 0; t < T; ++t) {
-    err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, &res, s);
-    if (err != cudaSuccess) return err;
-    float* soft_t = soft + (size_t)t * B * V;
-    proj_sample_kernel<<<proj_grid, P_NT, 0, s>>>(
-        w_proj, b_proj, top_h(h, nl, B, H, t), H, V, B, temp, seed, t, u_in,
-        u_out, soft_t, psmax, psidx, pzmax, pzsum, ntile);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    sample_finalize_kernel<<<B, F_NT, 0, s>>>(psmax, psidx, pzmax, pzsum,
-                                              ntile, embed, E, V, x, ids,
-                                              soft_t, t, T);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return 0;
+  return sample_loop(feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V,
+                     nl, T, temp, seed, u_in, u_out, x, h, c, psmax, psidx,
+                     pzmax, pzsum, ids, soft, &res, nullptr,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Mode sample: the Gumbel-max decode, ids = argmax(logits + g) per step,
+// and the noise g [T, B, V]; no soft sample, no residuals.  Noise source
+// and scratch as gic_decode_sample_resid (no pzmax / pzsum).
+int gic_decode_sample(const float* feats, const float* embed,
+                      const float* w_proj, const float* b_proj,
+                      const void* const* layer_ptrs, int B, int E, int H,
+                      int V, int nl, int T, unsigned long long seed,
+                      const float* u_in, float* x, float* h, float* c,
+                      float* psmax, int* psidx, int32_t* ids, float* noise,
+                      void* stream) {
+  return sample_loop(feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V,
+                     nl, T, 1.f, seed, u_in, nullptr, x, h, c, psmax, psidx,
+                     nullptr, nullptr, ids, nullptr, nullptr, noise,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Mode sample_embed: gic_decode_sample_resid, then emb [T*B, Ed] = soft
+// @ wd^T with wd [Ed, V] (one launch over all rows).
+int gic_decode_sample_embed(
+    const float* feats, const float* embed, const float* w_proj,
+    const float* b_proj, const void* const* layer_ptrs, int B, int E, int H,
+    int V, int nl, int T, float temp, unsigned long long seed,
+    const float* u_in, const float* wd, int Ed, float* x, float* h, float* c,
+    float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
+    float* soft, float* hs, float* cs, float* gates, float* emb,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Residuals res{hs, cs, gates};
+  cudaError_t err = sample_loop(feats, embed, w_proj, b_proj, layer_ptrs, B,
+                                E, H, V, nl, T, temp, seed, u_in, nullptr, x,
+                                h, c, psmax, psidx, pzmax, pzsum, ids, soft,
+                                &res, nullptr, s);
+  if (err != cudaSuccess) return err;
+  const int R = T * B;
+  const dim3 grid((Ed + P_RT - 1) / P_RT, (R + P_BT - 1) / P_BT);
+  embed_kernel<<<grid, P_NT, 0, s>>>(wd, soft, V, Ed, R, emb);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

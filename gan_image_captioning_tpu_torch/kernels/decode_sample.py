@@ -2,12 +2,23 @@
 versions.
 
 Counterpart of ``gan_image_captioning_tpu/kernels/decode_sample.py``
-(``decode_sample`` modes ``serve``, ``greedy`` and ``sample_resid``, the
-carried-state ``serve`` variant, and ``decode_sample_q_serve``).  One call
-runs the whole T-step decode: stacked LSTM gates, vocabulary projection,
-first-index argmax and embedding feedback, with the per-token greedy
-log-probability (``serve``) or with Gumbel noise, the soft sample
-``softmax(temp * (logits + g))`` and the BPTT residuals (``sample_resid``).
+(``decode_sample`` in every mode, the carried-state ``serve`` variant,
+``decode_sample_q_serve`` and ``decode_sample_embed_bwd``).  One call runs
+the whole T-step decode: stacked LSTM gates, vocabulary projection,
+first-index argmax and embedding feedback, with
+
+* ``serve``: the per-token greedy log-probability; ``greedy``: ids only;
+* ``pretrain`` (:func:`decode_sample_logits`): the greedy ids and the
+  logits ``[T, B, V]``;
+* ``sample`` (:func:`decode_sample_noise`): ids ``argmax(logits + g)`` and
+  the Gumbel noise ``g [T, B, V]``;
+* ``sample_resid`` (:func:`decode_sample_resid`): those ids, the soft
+  sample ``softmax(temp * (logits + g))`` and the BPTT residuals;
+* ``sample_embed`` (:func:`decode_sample_embed`): ``sample_resid`` and the
+  soft sample contracted into the discriminator's embedding,
+  ``emb = soft @ Wd^T``; :func:`decode_sample_embed_bwd` is its
+  generator-side backward (``d_emb`` → ``dWp``, ``dbp``, ``d_htop``).
+
 ``serve`` with ``init_state=(h0, c0, x0)`` resumes from a carried state
 and returns the state after its last step (the K-step chunks of the
 continuous engine and the adaptive decode); :func:`decode_sample_q_serve`
@@ -15,19 +26,20 @@ is ``serve`` on an int8 / packed-int4 quantized decoder
 (``ops/quantize.py``).
 
 * On CUDA tensors the wrappers launch the hand-written kernels
-  (``csrc/decode_serve.cu``, ``csrc/decode_qserve.cu``, built at first
-  use) or raise.
-* On CPU tensors they run :func:`decode_sample_plain` /
-  :func:`decode_sample_resid_plain` / :func:`decode_sample_q_serve_plain`,
-  the same arithmetic as a Python loop of PyTorch operations.  Nothing
-  falls back from one to the other.
+  (``csrc/decode_serve.cu``, ``csrc/decode_qserve.cu``,
+  ``csrc/decode_embed_bwd.cu``, built at first use) or raise.
+* On CPU tensors they run the ``*_plain`` functions, the same arithmetic
+  as a Python loop of PyTorch operations.  Nothing falls back from one to
+  the other.
 
 Launch counters (one per call that reached the card):
 ``decode_sample.launches`` (serve / greedy, full decode),
 ``decode_sample_carry.launches`` (serve with carried state),
-``decode_sample_resid.launches`` (sample mode) and
-``decode_sample_q_serve.launches`` (quantized serve, any bits, with or
-without carry).
+``decode_sample_logits.launches`` (pretrain), ``decode_sample_noise.
+launches`` (sample), ``decode_sample_resid.launches`` (sample_resid),
+``decode_sample_embed.launches`` (sample_embed),
+``decode_sample_embed_bwd.launches`` and ``decode_sample_q_serve.launches``
+(quantized serve, any bits, with or without carry).
 """
 
 from __future__ import annotations
@@ -44,8 +56,30 @@ from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
 from gan_image_captioning_tpu_torch.ops.quantize import (  # noqa: F401
     pack_int4_rows, unpack_int4_rows)
 
-_PORTED_MODES = ("serve", "greedy", "sample_resid")
 _count_lock = threading.Lock()
+
+
+def _stack_step(lstm_layers, x, h, c):
+    """One step of the stacked LSTM: ``h`` and ``c`` (lists, one [B, H]
+    per layer) are updated in place; returns the pre-activation gates of
+    every layer (both biases)."""
+    inp, gates_all = x, []
+    for l, p in enumerate(lstm_layers):
+        gates = (inp @ p["w_ih"].T + h[l] @ p["w_hh"].T
+                 + (p["b_ih"] + p["b_hh"]))
+        gi, gf, gg, go = gates.chunk(4, dim=-1)
+        c[l] = torch.sigmoid(gf) * c[l] + torch.sigmoid(gi) * torch.tanh(gg)
+        h[l] = torch.sigmoid(go) * torch.tanh(c[l])
+        inp = h[l]
+        gates_all.append(gates)
+    return gates_all
+
+
+def _zero_state(features, lstm_layers):
+    B = features.shape[0]
+    H = lstm_layers[0]["w_hh"].shape[1]
+    return ([features.new_zeros(B, H) for _ in lstm_layers],
+            [features.new_zeros(B, H) for _ in lstm_layers])
 
 
 def decode_sample_plain(features, lstm_layers: Sequence[dict], w_proj, b_proj,
@@ -53,27 +87,16 @@ def decode_sample_plain(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     """Plain PyTorch version → ``(ids [B, T] int32, lps [B, T] f32)``; with
     ``init_state=(h0 [nl, B, H], c0 [nl, B, H], x0 [B, E])`` the decode
     starts there (``features`` unread) and ``(hT, cT, xT)`` follows."""
-    B = features.shape[0]
-    H = lstm_layers[0]["w_hh"].shape[1]
     if init_state is None:
-        h = [features.new_zeros(B, H) for _ in lstm_layers]
-        c = [features.new_zeros(B, H) for _ in lstm_layers]
-        x = features
+        (h, c), x = _zero_state(features, lstm_layers), features
     else:
         h, c = list(init_state[0]), list(init_state[1])
         x = init_state[2]
     ids, lps = [], []
     with torch.no_grad():
         for _ in range(seq_len):
-            inp = x
-            for l, p in enumerate(lstm_layers):
-                gates = (inp @ p["w_ih"].T + h[l] @ p["w_hh"].T
-                         + (p["b_ih"] + p["b_hh"]))
-                gi, gf, gg, go = gates.chunk(4, dim=-1)
-                c[l] = torch.sigmoid(gf) * c[l] + torch.sigmoid(gi) * torch.tanh(gg)
-                h[l] = torch.sigmoid(go) * torch.tanh(c[l])
-                inp = h[l]
-            logits = inp @ w_proj.T + b_proj
+            _stack_step(lstm_layers, x, h, c)
+            logits = h[-1] @ w_proj.T + b_proj
             m = logits.max(dim=-1, keepdim=True).values
             lps.append(-torch.log(torch.exp(logits - m).sum(dim=-1)))
             ids_t = torch.argmax(logits, dim=-1)      # first index on ties
@@ -99,25 +122,13 @@ def decode_sample_resid_plain(features, lstm_layers: Sequence[dict], w_proj,
     """Plain PyTorch version of mode ``sample_resid`` with the uniforms
     ``[T, B, V]`` given → ``(ids [B, T] int32, soft [T, B, V],
     hs [T, NL, B, H], cs [T, NL, B, H], gates [T, NL, B, 4H])``."""
-    B = features.shape[0]
-    H = lstm_layers[0]["w_hh"].shape[1]
-    h = [features.new_zeros(B, H) for _ in lstm_layers]
-    c = [features.new_zeros(B, H) for _ in lstm_layers]
+    h, c = _zero_state(features, lstm_layers)
     x = features
     ids, soft, hs, cs, gates_all = [], [], [], [], []
     with torch.no_grad():
         for t in range(seq_len):
-            inp = x
-            step_gates = []
-            for l, p in enumerate(lstm_layers):
-                gates = (inp @ p["w_ih"].T + h[l] @ p["w_hh"].T
-                         + (p["b_ih"] + p["b_hh"]))
-                gi, gf, gg, go = gates.chunk(4, dim=-1)
-                c[l] = torch.sigmoid(gf) * c[l] + torch.sigmoid(gi) * torch.tanh(gg)
-                h[l] = torch.sigmoid(go) * torch.tanh(c[l])
-                inp = h[l]
-                step_gates.append(gates)
-            scores = (inp @ w_proj.T + b_proj
+            step_gates = _stack_step(lstm_layers, x, h, c)
+            scores = (h[-1] @ w_proj.T + b_proj
                       + gumbel_noise(uniforms[t].shape, u=uniforms[t]))
             ids_t = torch.argmax(scores, dim=-1)      # first index on ties
             ids.append(ids_t)
@@ -128,6 +139,72 @@ def decode_sample_resid_plain(features, lstm_layers: Sequence[dict], w_proj,
             x = embed[ids_t]
     return (torch.stack(ids, dim=1).to(torch.int32), torch.stack(soft),
             torch.stack(hs), torch.stack(cs), torch.stack(gates_all))
+
+
+def decode_sample_noise_plain(features, lstm_layers: Sequence[dict], w_proj,
+                              b_proj, embed, seq_len: int, uniforms):
+    """Plain PyTorch version of mode ``sample`` with the uniforms
+    ``[T, B, V]`` given → ``(ids [B, T] int32, noise [T, B, V])``: ids
+    ``argmax(logits + g)`` (first index on ties), ``g`` the Gumbel noise
+    of the uniforms."""
+    h, c = _zero_state(features, lstm_layers)
+    x, ids, noise = features, [], []
+    with torch.no_grad():
+        for t in range(seq_len):
+            _stack_step(lstm_layers, x, h, c)
+            g = gumbel_noise(uniforms[t].shape, u=uniforms[t])
+            ids_t = torch.argmax(h[-1] @ w_proj.T + b_proj + g, dim=-1)
+            ids.append(ids_t)
+            noise.append(g)
+            x = embed[ids_t]
+    return torch.stack(ids, dim=1).to(torch.int32), torch.stack(noise)
+
+
+def decode_sample_logits_plain(features, lstm_layers: Sequence[dict], w_proj,
+                               b_proj, embed, seq_len: int):
+    """Plain PyTorch version of mode ``pretrain`` → ``(ids [B, T] int32,
+    logits [T, B, V])``: the greedy decode and the logits of every
+    step."""
+    h, c = _zero_state(features, lstm_layers)
+    x, ids, logits = features, [], []
+    with torch.no_grad():
+        for _ in range(seq_len):
+            _stack_step(lstm_layers, x, h, c)
+            logits_t = h[-1] @ w_proj.T + b_proj
+            ids_t = torch.argmax(logits_t, dim=-1)    # first index on ties
+            ids.append(ids_t)
+            logits.append(logits_t)
+            x = embed[ids_t]
+    return torch.stack(ids, dim=1).to(torch.int32), torch.stack(logits)
+
+
+def decode_sample_embed_plain(features, lstm_layers: Sequence[dict], w_proj,
+                              b_proj, embed, seq_len: int, uniforms,
+                              temperature: float, disc_embed):
+    """Plain PyTorch version of mode ``sample_embed`` → ``(ids, emb
+    [T, B, Ed], soft, hs, cs, gates)``: :func:`decode_sample_resid_plain`
+    and ``emb = soft @ disc_embed^T`` (``disc_embed [Ed, V]``)."""
+    ids, soft, hs, cs, gates = decode_sample_resid_plain(
+        features, lstm_layers, w_proj, b_proj, embed, seq_len, uniforms,
+        temperature)
+    with torch.no_grad():
+        emb = soft @ disc_embed.T
+    return ids, emb, soft, hs, cs, gates
+
+
+def decode_sample_embed_bwd_plain(h_top_tm, soft_tm, d_emb_tm, w_proj,
+                                  disc_embed, temperature: float):
+    """Plain PyTorch version of :func:`decode_sample_embed_bwd` →
+    ``(dWp [H, V], dbp [V], d_htop [T, B, H])``."""
+    T, B, V = soft_tm.shape
+    with torch.no_grad():
+        d_soft = d_emb_tm @ disc_embed                        # [T, B, V]
+        inner = (d_soft * soft_tm).sum(dim=-1, keepdim=True)
+        d_logits = (temperature * soft_tm * (d_soft - inner)).reshape(
+            T * B, V)
+        dwp = h_top_tm.reshape(T * B, -1).T @ d_logits
+        d_htop = (d_logits @ w_proj).reshape(T, B, -1)
+        return dwp, d_logits.sum(dim=0), d_htop
 
 
 def _check(name, t, shape, device):
@@ -188,6 +265,17 @@ def _library() -> ctypes.CDLL:
             [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6
             + [ctypes.c_float, ctypes.c_uint64] + [vp] * 15)
         lib.gic_decode_sample_resid.restype = i
+        lib.gic_decode_pretrain.argtypes = (
+            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [vp] * 9)
+        lib.gic_decode_pretrain.restype = i
+        lib.gic_decode_sample.argtypes = (
+            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [ctypes.c_uint64]
+            + [vp] * 9)
+        lib.gic_decode_sample.restype = i
+        lib.gic_decode_sample_embed.argtypes = (
+            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6
+            + [ctypes.c_float, ctypes.c_uint64, vp, vp, i] + [vp] * 14)
+        lib.gic_decode_sample_embed.restype = i
         lib._gic_typed = True
     return lib
 
@@ -268,6 +356,30 @@ def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
     return _outputs(bufs, carry)
 
 
+def _check_uniforms(uniforms, seq_len, B, V, device, name="uniforms"):
+    if uniforms is not None:
+        _check(name, uniforms, (seq_len, B, V), device)
+
+
+def _cpu_uniforms(uniforms, seed, seq_len, B, V, device):
+    """The fed uniforms, or the plain versions' seeded draw."""
+    if uniforms is None:
+        return seeded_uniforms(seed, (seq_len, B, V), device)
+    return uniforms
+
+
+def _require_cuda(device):
+    if device.type != "cuda":
+        raise ValueError(f"decode_sample: unsupported device {device}")
+
+
+def _sample_scratch(empty, nl, B, E, H, ntile):
+    """x, the h ping-pong, c and the sample-mode per-tile statistics."""
+    return (empty(B, E), empty(2, nl, B, H), empty(nl, B, H),
+            empty(B, ntile), empty(B, ntile, dtype=torch.int32),
+            empty(B, ntile), empty(B, ntile))
+
+
 def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
                         b_proj, embed, seq_len: int, seed: int = 0,
                         temperature: float = 1.0, uniforms=None,
@@ -282,28 +394,23 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
                            seq_len)
     device = features.device
-    for name, u in (("uniforms", uniforms), ("uniforms_out", uniforms_out)):
-        if u is not None:
-            _check(name, u, (seq_len, B, V), device)
+    _check_uniforms(uniforms, seq_len, B, V, device)
+    _check_uniforms(uniforms_out, seq_len, B, V, device, "uniforms_out")
     if device.type == "cpu":
-        if uniforms is None:
-            uniforms = seeded_uniforms(seed, (seq_len, B, V), device)
+        uniforms = _cpu_uniforms(uniforms, seed, seq_len, B, V, device)
         if uniforms_out is not None:
             uniforms_out.copy_(uniforms)
         return decode_sample_resid_plain(features, lstm_layers, w_proj,
                                          b_proj, embed, seq_len, uniforms,
                                          float(temperature))
-    if device.type != "cuda":
-        raise ValueError(f"decode_sample: unsupported device {device}")
+    _require_cuda(device)
     nl = len(lstm_layers)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
     biases, layer_ptrs = _layer_pointers(lstm_layers)
     empty = _empty_on(device)
-    x, h, c = empty(B, E), empty(2, nl, B, H), empty(nl, B, H)
-    psmax, pzmax, pzsum = (empty(B, ntile), empty(B, ntile),
-                           empty(B, ntile))
-    psidx = empty(B, ntile, dtype=torch.int32)
+    x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(empty, nl, B, E, H,
+                                                          ntile)
     ids = empty(B, seq_len, dtype=torch.int32)
     soft = empty(seq_len, B, V)
     hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
@@ -322,6 +429,182 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
     build.raise_on_error(lib, rc, "decode_sample_resid")
     _count(decode_sample_resid)
     return ids, soft, hs, cs, gates
+
+
+def decode_sample_noise(features, lstm_layers: Sequence[dict], w_proj,
+                        b_proj, embed, seq_len: int, seed: int = 0,
+                        uniforms=None):
+    """Mode ``sample`` → ``(ids [B, T] int32, noise [T, B, V])``: the
+    Gumbel-max decode, ``ids = argmax(logits + g)``, and the noise ``g``
+    it added.  Uniforms as :func:`decode_sample_resid` (the same Philox
+    stream, so the same ``seed`` gives the same ids)."""
+    B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
+                           seq_len)
+    device = features.device
+    _check_uniforms(uniforms, seq_len, B, V, device)
+    if device.type == "cpu":
+        return decode_sample_noise_plain(
+            features, lstm_layers, w_proj, b_proj, embed, seq_len,
+            _cpu_uniforms(uniforms, seed, seq_len, B, V, device))
+    _require_cuda(device)
+    nl = len(lstm_layers)
+    lib = _library()
+    ntile = -(-V // lib.gic_proj_tile())
+    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    empty = _empty_on(device)
+    x, h, c, psmax, psidx, _, _ = _sample_scratch(empty, nl, B, E, H, ntile)
+    ids = empty(B, seq_len, dtype=torch.int32)
+    noise = empty(seq_len, B, V)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gic_decode_sample(
+            features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
+            b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
+            int(seed) & (2 ** 64 - 1), _ptr(uniforms), x.data_ptr(),
+            h.data_ptr(), c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
+            ids.data_ptr(), noise.data_ptr(), stream)
+    build.raise_on_error(lib, rc, "decode_sample_noise")
+    _count(decode_sample_noise)
+    return ids, noise
+
+
+def decode_sample_logits(features, lstm_layers: Sequence[dict], w_proj,
+                         b_proj, embed, seq_len: int):
+    """Mode ``pretrain`` → ``(ids [B, T] int32, logits [T, B, V])``: the
+    greedy decode and every step's logits."""
+    B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
+                           seq_len)
+    device = features.device
+    if device.type == "cpu":
+        return decode_sample_logits_plain(features, lstm_layers, w_proj,
+                                          b_proj, embed, seq_len)
+    _require_cuda(device)
+    nl = len(lstm_layers)
+    lib = _library()
+    ntile = -(-V // lib.gic_proj_tile())
+    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
+                          False)
+    logits = torch.empty(seq_len, B, V, device=device)
+    p = {k: v.data_ptr() for k, v in bufs.items()}
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gic_decode_pretrain(
+            features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
+            b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len, p["x"],
+            p["h"], p["c"], p["pmax"], p["pidx"], p["psum"], p["ids"],
+            logits.data_ptr(), stream)
+    build.raise_on_error(lib, rc, "decode_sample_logits")
+    _count(decode_sample_logits)
+    return bufs["ids"], logits
+
+
+def decode_sample_embed(features, lstm_layers: Sequence[dict], w_proj,
+                        b_proj, embed, seq_len: int, disc_embed,
+                        seed: int = 0, temperature: float = 1.0,
+                        uniforms=None):
+    """Mode ``sample_embed`` → ``(ids [B, T] int32, emb [T, B, Ed],
+    soft [T, B, V], hs, cs, gates)``: :func:`decode_sample_resid` and the
+    soft sample contracted into the discriminator's embedding
+    ``disc_embed [Ed, V]`` (torch layout), ``emb = soft @ disc_embed^T``,
+    in the same C call.  Uniforms as :func:`decode_sample_resid`."""
+    B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
+                           seq_len)
+    device = features.device
+    if disc_embed is None or disc_embed.ndim != 2:
+        raise ValueError("decode_sample: mode 'sample_embed' needs "
+                         "disc_embed [Ed, V]")
+    Ed = disc_embed.shape[0]
+    _check("disc_embed", disc_embed, (Ed, V), device)
+    _check_uniforms(uniforms, seq_len, B, V, device)
+    if device.type == "cpu":
+        return decode_sample_embed_plain(
+            features, lstm_layers, w_proj, b_proj, embed, seq_len,
+            _cpu_uniforms(uniforms, seed, seq_len, B, V, device),
+            float(temperature), disc_embed)
+    _require_cuda(device)
+    nl = len(lstm_layers)
+    lib = _library()
+    ntile = -(-V // lib.gic_proj_tile())
+    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    empty = _empty_on(device)
+    x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(empty, nl, B, E, H,
+                                                          ntile)
+    ids = empty(B, seq_len, dtype=torch.int32)
+    soft, emb = empty(seq_len, B, V), empty(seq_len, B, Ed)
+    hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
+    gates = empty(seq_len, nl, B, 4 * H)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gic_decode_sample_embed(
+            features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
+            b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
+            float(temperature), int(seed) & (2 ** 64 - 1), _ptr(uniforms),
+            disc_embed.data_ptr(), Ed, x.data_ptr(), h.data_ptr(),
+            c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
+            pzmax.data_ptr(), pzsum.data_ptr(), ids.data_ptr(),
+            soft.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+            emb.data_ptr(), stream)
+    build.raise_on_error(lib, rc, "decode_sample_embed")
+    _count(decode_sample_embed)
+    return ids, emb, soft, hs, cs, gates
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("decode_embed_bwd")
+    if not getattr(lib, "_gic_typed", False):
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.gic_decode_embed_bwd.argtypes = (
+            [vp] * 5 + [i] * 4 + [ctypes.c_float] + [vp] * 5)
+        lib.gic_decode_embed_bwd.restype = i
+        lib._gic_typed = True
+    return lib
+
+
+def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
+                            temperature: float):
+    """The generator-side backward of mode ``sample_embed`` →
+    ``(dWp [H, V], dbp [V], d_htop [T, B, H])``, float32, from the top
+    layer's ``h_top_tm [T, B, H]``, the saved ``soft_tm [T, B, V]``, the
+    cotangent ``d_emb_tm [T, B, Ed]`` of ``emb``, ``w_proj [V, H]`` and
+    ``disc_embed [Ed, V]`` (the JAX ``decode_sample_embed_bwd``).  On CUDA
+    tensors ``csrc/decode_embed_bwd.cu`` (one C call: ``d_soft``, the
+    softmax backward, then ``dWp``, ``dbp`` and ``d_htop`` over all T·B
+    rows at once, each sum in a fixed order); on CPU tensors
+    :func:`decode_sample_embed_bwd_plain`."""
+    fn = "decode_sample_embed_bwd"
+    if h_top_tm.ndim != 3 or d_emb_tm.ndim != 3 or disc_embed.ndim != 2:
+        raise ValueError(f"{fn}: expected h_top [T, B, H], d_emb [T, B, Ed] "
+                         "and disc_embed [Ed, V]")
+    T, B, H = h_top_tm.shape
+    Ed, V = disc_embed.shape
+    device = h_top_tm.device
+    for name, t, shape in (("h_top", h_top_tm, (T, B, H)),
+                           ("soft", soft_tm, (T, B, V)),
+                           ("d_emb", d_emb_tm, (T, B, Ed)),
+                           ("w_proj", w_proj, (V, H)),
+                           ("disc_embed", disc_embed, (Ed, V))):
+        build.check_tensor(fn, name, t, shape, device)
+    if device.type == "cpu":
+        return decode_sample_embed_bwd_plain(h_top_tm, soft_tm, d_emb_tm,
+                                             w_proj, disc_embed,
+                                             float(temperature))
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {device}")
+    lib = _bwd_library()
+    empty = _empty_on(device)
+    d_logits = empty(T * B, V)
+    dwp, dbp, d_htop = empty(H, V), empty(V), empty(T, B, H)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gic_decode_embed_bwd(
+            h_top_tm.data_ptr(), soft_tm.data_ptr(), d_emb_tm.data_ptr(),
+            w_proj.data_ptr(), disc_embed.data_ptr(), T * B, H, V, Ed,
+            float(temperature), d_logits.data_ptr(), dwp.data_ptr(),
+            dbp.data_ptr(), d_htop.data_ptr(), stream)
+    build.raise_on_error(lib, rc, fn)
+    _count(decode_sample_embed_bwd)
+    return dwp, dbp, d_htop
 
 
 def decode_sample_carry(features, lstm_layers: Sequence[dict], w_proj,
@@ -347,22 +630,23 @@ def decode_sample_carry(features, lstm_layers: Sequence[dict], w_proj,
 def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
                   embed, seq_len: int, mode: str = "greedy",
                   init_state=None, seed: int = 0, temperature: float = 1.0,
-                  uniforms=None):
+                  uniforms=None, disc_embed=None):
     """Run the full T-step decode.
 
     Args mirror the JAX ``decode_sample``: ``features [B, E]`` (the t=0
     input), per-layer ``{w_ih [4H, In], w_hh [4H, H], b_ih, b_hh}``,
     ``w_proj [V, H]``, ``b_proj [V]``, ``embed [V, E]``, all float32;
     ``init_state`` (mode ``serve`` only, see :func:`decode_sample_carry`);
-    ``seed``, ``temperature`` and ``uniforms`` are read by
-    ``sample_resid`` only (see :func:`decode_sample_resid`).
-    Returns ``ids [B, T]`` (``greedy``), ``(ids [B, T] int32,
-    lps [B, T] f32)`` (``serve``; with ``init_state`` also ``(hT, cT,
-    xT)``) or ``(ids, soft, hs, cs, gates)`` (``sample_resid``).
+    ``seed`` and ``uniforms`` are read by the Gumbel modes (``sample``,
+    ``sample_resid``, ``sample_embed``), ``temperature`` by the soft ones
+    (``sample_resid``, ``sample_embed``), ``disc_embed [Ed, V]`` by
+    ``sample_embed``.  Returns ``ids [B, T]`` (``greedy``), ``(ids [B, T]
+    int32, lps [B, T] f32)`` (``serve``; with ``init_state`` also ``(hT,
+    cT, xT)``), ``(ids, logits [T, B, V])`` (``pretrain``), ``(ids, noise
+    [T, B, V])`` (``sample``), ``(ids, soft, hs, cs, gates)``
+    (``sample_resid``) or ``(ids, emb [T, B, Ed], soft, hs, cs, gates)``
+    (``sample_embed``).
     """
-    if mode not in _PORTED_MODES:
-        raise NotImplementedError(f"decode_sample mode {mode!r} is not "
-                                  "ported yet")
     if init_state is not None:
         if mode != "serve":
             raise NotImplementedError(
@@ -370,17 +654,23 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
                 "state is ported for mode 'serve' only")
         return decode_sample_carry(features, lstm_layers, w_proj, b_proj,
                                    embed, seq_len, init_state)
+    args = (features, lstm_layers, w_proj, b_proj, embed, seq_len)
     if mode == "sample_resid":
-        return decode_sample_resid(features, lstm_layers, w_proj, b_proj,
-                                   embed, seq_len, seed, temperature,
+        return decode_sample_resid(*args, seed, temperature, uniforms)
+    if mode == "sample":
+        return decode_sample_noise(*args, seed, uniforms)
+    if mode == "sample_embed":
+        return decode_sample_embed(*args, disc_embed, seed, temperature,
                                    uniforms)
+    if mode == "pretrain":
+        return decode_sample_logits(*args)
+    if mode not in ("serve", "greedy"):
+        raise ValueError(f"decode_sample: unknown mode {mode!r}")
     if features.device.type == "cuda":
-        ids, lps = _launch(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
+        ids, lps = _launch(*args)
     elif features.device.type == "cpu":
-        _validate(features, lstm_layers, w_proj, b_proj, embed, seq_len)
-        ids, lps = decode_sample_plain(features, lstm_layers, w_proj, b_proj,
-                                       embed, seq_len)
+        _validate(*args)
+        ids, lps = decode_sample_plain(*args)
     else:
         raise ValueError(f"decode_sample: unsupported device "
                          f"{features.device}")
@@ -537,5 +827,9 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
 
 decode_sample.launches = 0
 decode_sample_carry.launches = 0
+decode_sample_logits.launches = 0
+decode_sample_noise.launches = 0
 decode_sample_resid.launches = 0
+decode_sample_embed.launches = 0
+decode_sample_embed_bwd.launches = 0
 decode_sample_q_serve.launches = 0

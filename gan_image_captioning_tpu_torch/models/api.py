@@ -12,7 +12,7 @@ from typing import Any, Dict
 
 import torch
 
-from gan_image_captioning_tpu_torch.config import (Config, plain_decode,
+from gan_image_captioning_tpu_torch.config import (Config, decode_route,
                                                    require_ported_arch)
 from gan_image_captioning_tpu_torch.kernels.image_norm import (
     normalize_images, normalize_images_plain)
@@ -94,14 +94,15 @@ def generator_sample(generator: gen_lstm.Generator, cond: Dict[str, Any],
                      temperature=1.0, seed: int = 0, uniforms=None):
     """Free-running decode → ``(outputs [B, T, V], ids [B, T])``: raw
     logits (``pretrain``) or the soft Gumbel sample with Philox noise
-    keyed by ``seed`` or the fed ``uniforms [T, B, V]``."""
+    keyed by ``seed`` or the fed ``uniforms [T, B, V]``, on the LSTM's
+    ``decode_route(config)``."""
     require_ported(config)
-    plain = plain_decode(config)
     if config.gen_arch == "transformer":
         return gen_tf.sample(generator.decoder, cond["features"], seq_len,
                              pretrain, config, temperature, seed, uniforms)
     return gen_lstm.sample(generator.decoder, cond["features"], seq_len,
-                           pretrain, temperature, seed, uniforms, plain=plain)
+                           pretrain, temperature, seed, uniforms,
+                           route=decode_route(config))
 
 
 def generator_mle_outputs(generator: gen_lstm.Generator,
@@ -119,15 +120,15 @@ def generator_mle_outputs(generator: gen_lstm.Generator,
                                      captions, config,
                                      lengths=lengths)[:, :seq_len]
     dec = generator.decoder
-    plain = plain_decode(config)
+    route = decode_route(config)
     if config.mle_objective == "teacher":
         return gen_lstm.teacher_forced(dec, cond["features"], captions,
-                                       plain=plain)[:, :seq_len]
+                                       plain=route == "plain")[:, :seq_len]
     if config.mle_objective != "free":
         raise NotImplementedError(f"--mle-objective {config.mle_objective}"
                                   " is not ported yet")
     logits, _ = gen_lstm.sample(dec, cond["features"], seq_len, True,
-                                plain=plain)
+                                route=route)
     return logits
 
 

@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gan_image_captioning_tpu_torch.config import Config, plain_decode
+from gan_image_captioning_tpu_torch.config import Config, decode_route
 from gan_image_captioning_tpu_torch.data.vocab import START
 from gan_image_captioning_tpu_torch.kernels.flash_attention import (
     flash_attention, supported)
@@ -375,7 +375,7 @@ def sample(dec, features, seq_len: int, pretrain: bool = False,
     p = dec if isinstance(dec, dict) else params_of(dec)
     k_cache, v_cache = _init_kv_cache(config, features.shape[0],
                                       features.dtype, features.device)
-    kernel = not plain_decode(config)
+    kernel = decode_route(config) != "plain"
     x, outs, ids = features, [], []
     for t in range(seq_len):
         logits, k_cache, v_cache = decode_step(p, config, x, k_cache,

@@ -34,7 +34,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from gan_image_captioning_tpu_torch.config import Config, plain_decode
+from gan_image_captioning_tpu_torch.config import Config, decode_route
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models import lstm
 from gan_image_captioning_tpu_torch.models import transformer as gen_tf
@@ -161,7 +161,7 @@ def sequence_log_probs(config: Config, generator_model, features, ids):
         xs = torch.cat([features[None],
                         dec.embed.weight[ids.T[:-1].long()]])
         hs = lstm.lstm_seq_tm(dec.lstm.layers(), xs,
-                              plain=plain_decode(config))
+                              plain=decode_route(config) == "plain")
         logits = (hs @ dec.linear.weight.T + dec.linear.bias).transpose(0, 1)
     else:
         logits = gen_tf.teacher_forced(dec, features, ids, config)[:, :t_len]

@@ -26,7 +26,12 @@
   JAX ``adv_losses(grad_side="both")`` single-forward pullback): the fake
   pass reads ``soft.detach()``, the generator pass runs with detached
   discriminator parameters and ``g_loss`` reads a detached ``d_real``, so
-  no cross term reaches either side.  The discriminator updates when
+  no cross term reaches either side.  The sample takes the decode route
+  of ``decode_route(config)``; under ``kernel_embed`` it arrives already
+  embedded by the CNN discriminator, as two tensors of one value, the
+  fake pass's (gradient to the embedding weight only) and the generator
+  pass's (gradient to the generator only): the same cut, made at the
+  embedding.  The discriminator updates when
   ``gen_steps % disc_train_freq == 0``; the generator every step.
 
 Batches are dicts of tensors on the models' device: ``captions [B, L]``
@@ -47,8 +52,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.config import Config, decode_route
 from gan_image_captioning_tpu_torch.models import api
+from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
+from gan_image_captioning_tpu_torch.models import generator as gen_lstm
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.ops.losses import (cross_entropy_loss,
                                                         gan_losses)
@@ -151,18 +158,32 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     captions = batch["captions"]
     device = captions.device
     draw = torch.Generator(device=device).manual_seed(_draw_seed(state))
-    soft, gen_ids = api.generator_sample(
-        state.gen, cond, captions.shape[1], False, config, temperature,
-        seed=_draw_seed(state), uniforms=noise.get("uniforms"))
-    fake = soft.detach()
     disc_p = params_of(state.disc)
+    disc_ng = params_of(state.disc, detach=True)
     keeps = noise.get("keep", (None, None, None))
-    d_real = api.discriminator_apply(disc_p, captions, config, train,
-                                     keeps[0], draw)
-    d_fake = api.discriminator_apply(disc_p, fake, config, train, keeps[1],
-                                     draw)
-    g_out = api.discriminator_apply(params_of(state.disc, detach=True), soft,
-                                    config, train, keeps[2], draw)
+    sample_kw = dict(temperature=temperature, seed=_draw_seed(state),
+                     uniforms=noise.get("uniforms"))
+    if decode_route(config) == "kernel_embed":
+        # the sample arrives embedded: emb_fake carries gradient to the
+        # embedding weight only, emb_gen to the generator only
+        emb_gen, emb_fake, gen_ids = gen_lstm.sample_embed(
+            state.gen.decoder, cond["features"], captions.shape[1],
+            disc_embed=disc_p["embeddings.weight"], **sample_kw)
+        d_real = api.discriminator_apply(disc_p, captions, config, train,
+                                         keeps[0], draw)
+        d_fake = disc_cnn.apply_embedded(disc_p, emb_fake, config, train,
+                                         keeps[1], draw)
+        g_out = disc_cnn.apply_embedded(disc_ng, emb_gen, config, train,
+                                        keeps[2], draw)
+    else:
+        soft, gen_ids = api.generator_sample(
+            state.gen, cond, captions.shape[1], False, config, **sample_kw)
+        d_real = api.discriminator_apply(disc_p, captions, config, train,
+                                         keeps[0], draw)
+        d_fake = api.discriminator_apply(disc_p, soft.detach(), config,
+                                         train, keeps[1], draw)
+        g_out = api.discriminator_apply(disc_ng, soft, config, train,
+                                        keeps[2], draw)
 
     num_rep = api.disc_logits_per_sample(config)
     if config.noisy_labels > 0.0 and train:

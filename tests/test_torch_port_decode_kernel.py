@@ -1,7 +1,7 @@
-"""The port's ``decode_sample`` (serve and greedy modes; on CPU tensors its
-plain PyTorch version) against the JAX package's ``decode_sample(mode=
-"serve")`` run in interpret mode, on the same weights and random feature
-rows.  Ids exact; logprobs within atol = rtol = 1e-4, the JAX package's
+"""The port's ``decode_sample`` (serve, greedy, sample and pretrain modes;
+on CPU tensors its plain PyTorch version) against the JAX package's
+``decode_sample`` run in interpret mode, on the same weights and random
+feature rows.  Ids exact; logprobs within atol = rtol = 1e-4, the JAX package's
 own tolerance for this kernel."""
 
 import jax
@@ -89,12 +89,25 @@ def test_cpu_call_counts_no_launch(setup):
 
 # the carried state is ported for mode "serve" only
 # (tests/test_torch_port_qserve.py holds it against the JAX package)
-@pytest.mark.parametrize("kwargs", [{"mode": "sample"}, {"mode": "pretrain"},
-                                    {"mode": "greedy", "init_state": ()}])
-def test_unported_variants_raise(setup, kwargs):
+def test_unported_variants_raise(setup):
     _, gen, feats = setup
     with pytest.raises(NotImplementedError):
-        decode_sample(*_port_args(gen, feats), **kwargs)
+        decode_sample(*_port_args(gen, feats), mode="greedy", init_state=())
+
+
+# modes sample (zero uniforms: the interpreter's PRNG draws zeros) and
+# pretrain; tests/test_torch_port_decode_modes.py holds every mode
+@pytest.mark.parametrize("mode", ["sample", "pretrain"])
+def test_sample_and_pretrain_plain_versions_match_jax(setup, mode):
+    jdec, gen, feats = setup
+    want = jdecode_sample(jnp.asarray(feats), jdec["lstm"],
+                          jdec["linear"]["w"], jdec["linear"]["b"],
+                          jdec["embed"], T, mode=mode)
+    got = decode_sample(*_port_args(gen, feats), mode=mode,
+                        uniforms=torch.zeros(T, B, V))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_rejects_bad_inputs(setup):

@@ -14,7 +14,7 @@ from gan_image_captioning_tpu_torch import main as tmain
 from gan_image_captioning_tpu_torch import serve as tserve
 from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    config_from_args,
-                                                   plain_decode,
+                                                   decode_route,
                                                    require_ported_flags)
 
 TINY = ["--dataset", "synthetic", "--synthetic-items", "16",
@@ -106,8 +106,7 @@ REFUSED = [("--resume-schedule", "0"), ("--keep-checkpoints", "2"),
            ("--skip-nonfinite-grads", "1"), ("--ss-max-prob", "0.5"),
            ("--debug-nans", None), ("--tokenizer", "bpe"),
            ("--bpe-vocab", "v.json"), ("--bpe-merges", "m.txt"),
-           ("--encoder-init", "natural"), ("--use-pallas", "off"),
-           ("--decode-impl", "decoupled")]
+           ("--encoder-init", "natural"), ("--use-pallas", "off")]
 
 
 @pytest.mark.parametrize("flag,value", REFUSED)
@@ -120,7 +119,8 @@ def test_refused_flags_raise_when_set(flag, value):
 
 @pytest.mark.parametrize("argv", [
     ["--vocab-size", "99"], ["--padding-idx", "1"], ["--device-ids", "1"],
-    ["--test-log-step", "5"], ["--no-jit"], ["--decode-impl", "kernel"]] + [
+    ["--test-log-step", "5"], ["--no-jit"], ["--decode-impl", "kernel"],
+    ["--decode-impl", "decoupled"]] + [
     ["--disc-engine", e] for e in ("auto", "xla", "pallas", "hybrid", "mxu")])
 def test_accepted_flags_pass(argv):
     require_ported_flags(config_from_args(build_parser().parse_args(argv)))
@@ -128,13 +128,16 @@ def test_accepted_flags_pass(argv):
 
 def test_decode_impl_maps_onto_the_port_routes():
     config = config_from_args(build_parser().parse_args([]))
-    assert not plain_decode(config)
-    assert not plain_decode(config.replace(decode_impl="kernel"))
-    assert plain_decode(config.replace(decode_impl="plain"))
-    with pytest.raises(NotImplementedError, match="decoupled"):
-        plain_decode(config.replace(decode_impl="decoupled"))
+    assert decode_route(config) == "kernel"
+    routes = {impl: decode_route(config.replace(decode_impl=impl))
+              for impl in ("fused", "kernel", "decoupled", "kernel_rescore",
+                           "kernel_embed", "plain")}
+    assert routes == {"fused": "kernel", "kernel": "kernel",
+                      "decoupled": "decoupled",
+                      "kernel_rescore": "kernel_rescore",
+                      "kernel_embed": "kernel_embed", "plain": "plain"}
     with pytest.raises(ValueError):
-        plain_decode(config.replace(decode_impl="scan"))
+        decode_route(config.replace(decode_impl="scan"))
 
 
 SERVE_REFUSED = [("--exported", "m.gic"), ("--http-port", "8080"),

@@ -18,7 +18,8 @@ from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.data.loader import make_batch
 from gan_image_captioning_tpu_torch.kernels import disc_conv
 from gan_image_captioning_tpu_torch.kernels.decode_sample import (
-    decode_sample, decode_sample_resid, decode_sample_resid_plain)
+    decode_sample, decode_sample_noise, decode_sample_resid,
+    decode_sample_resid_plain)
 from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
     lstm_bptt_chain, lstm_bptt_chain_plain)
 from gan_image_captioning_tpu_torch.models import generator as tgen
@@ -215,12 +216,14 @@ def test_wrappers_raise_rather_than_fall_back(device):
     rng = np.random.default_rng(2)
     layers, w, b, emb = _decoder(rng, 64, 8, 8, 1, device)
     feats = _t(rng, device, 2, 8)
-    before = decode_sample_resid.launches
+    before = decode_sample_resid.launches, decode_sample_noise.launches
     with pytest.raises(TypeError):
         decode_sample_resid(feats.bfloat16(), layers, w, b, emb, 3)
-    with pytest.raises(NotImplementedError):
-        decode_sample(feats, layers, w, b, emb, 3, mode="sample")
-    assert decode_sample_resid.launches == before
+    with pytest.raises(ValueError):   # uniforms one column short
+        decode_sample(feats, layers, w, b, emb, 3, mode="sample",
+                      uniforms=torch.zeros(3, 2, 63, device=device))
+    assert (decode_sample_resid.launches,
+            decode_sample_noise.launches) == before
     emb_pad, w_all, b_all, banks, R = _conv_setup(device, 1)
     with pytest.raises(TypeError):
         disc_conv.conv_bank_forward(emb_pad.bfloat16(), w_all, b_all, banks,
