@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only tf_kernels,tf_train,tf_service,tf_loop
     python3 chip_smoke.py --only disc_engines,bptt_reverse
     python3 chip_smoke.py --only decode_modes,decode_impls
+    python3 chip_smoke.py --only persistent,kernel,carry_kernel,qserve_kernel,decode_modes,bptt_reverse
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -16,6 +17,15 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
 1. ``device``  — the card (``nvidia-smi`` name and power limit).
 2. ``build``   — every kernel built from ``kernels/csrc`` with nvcc
    (sm_90a), with ptxas's register and shared-memory report.
+2a. ``persistent`` — the persistent decode and reverse BPTT kernels at
+   config3 width: their launch plans on this card (grid, threads, dynamic
+   shared memory, the resident branch, barriers per step), registers and
+   spills; config3 and config2 (B = 64, 8, 1) must keep the LSTM weights
+   resident; one call of every decode mode and of the reverse under
+   torch.profiler must be one launch of the persistent kernel (and one
+   ``embed_kernel`` for sample_embed); block 0's clock64 cycles per phase
+   (layers, barrier waits, projection, row combine; gate gradients and
+   product in the reverse).
 3. ``train_kernels`` — the four training kernels against their plain
    PyTorch versions at B = 64 on the same inputs: the ``sample_resid``
    decode with fed uniforms (ids equal, or each kernel id within 1e-4 of
@@ -333,6 +343,147 @@ def phase_build():
           "ptxas": ptxas})
 
 
+def ptxas_report(name):
+    """ptxas's register / spill lines for the kernel ``name``."""
+    from gan_image_captioning_tpu_torch.kernels import build
+
+    out, take = [], 0
+    for log in build.BUILD_LOGS.values():
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                take = 3 if name in ln else 0
+            elif take and ("registers" in ln or "spill" in ln):
+                out.append(ln.strip())
+                take -= 1
+    return out
+
+
+def other_kernels(launches, names):
+    """Profiler keys of kernels outside ``names`` (memsets and copies are
+    not kernels: the barrier counter is zeroed by a memset)."""
+    return [k for k in launches if not any(n in k for n in names)
+            and not k.startswith(("Memset", "Memcpy"))]
+
+
+def phase_persistent(device):
+    """The persistent decode and reverse kernels at config3 width: their
+    launch plans on this card (grid, threads, dynamic shared memory, the
+    resident branch, barriers per step), registers and spills; config3
+    and config2 (the same LSTM widths) at the training and serving batch
+    must keep their weights resident; then one call of every decode mode
+    and of the reverse under torch.profiler: one launch of the persistent
+    kernel per call (sample_embed: and one embed_kernel), no other kernel
+    (a memset zeroes the barrier counter)."""
+    from gan_image_captioning_tpu_torch.kernels import build, lstm_bptt
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.models import lstm
+
+    n_sm, optin = build.device_limits(ds._library(), device)
+    dec = full_width_generator(device).decoder
+    w = dense_weights(dec)
+    f8, f64 = seeded((8, E), 108, device), seeded((B_TRAIN, E), 164, device)
+    st = (seeded((NL, 8, H), 109, device, 0.1),
+          seeded((NL, 8, H), 110, device, 0.1), f8)
+    wd = seeded((DISC_E, V), 91, device, 0.1)
+    calls = {
+        "serve_b8": lambda: ds.decode_sample(f8, *w, T, mode="serve"),
+        "serve_b64": lambda: ds.decode_sample(f64, *w, T, mode="serve"),
+        "carry_chunk_b8": lambda: ds.decode_sample(
+            f8, *w, K_CHUNK, mode="serve", init_state=st),
+        "pretrain": lambda: ds.decode_sample_logits(f64, *w, T),
+        "sample": lambda: ds.decode_sample_noise(f64, *w, T, seed=3),
+        "sample_resid": lambda: ds.decode_sample_resid(
+            f64, *w, T, seed=3, temperature=TEMP),
+        "sample_embed": lambda: ds.decode_sample_embed(
+            f64, *w, T, wd, seed=3, temperature=TEMP),
+    }
+    names = DECODE_KERNEL_NAMES + ("reverse_persistent_kernel",)
+    rows = {}
+    for preset, B in (("config3", B_TRAIN), ("config3", 8), ("config2", 8),
+                      ("config2", 1)):
+        plan = ds.persistent_plan(B, E, H, V, NL, n_sm, optin)
+        check(plan["resident"], f"{preset} B={B}: the decode's weights are "
+              f"not resident: {plan['ints']}")
+    plan = ds.persistent_plan(B_TRAIN, E, H, V, NL, n_sm, optin)
+    launches = {}
+    for mode, fn in calls.items():
+        prof = profile_calls(fn, 1, names)
+        launches[mode] = prof.get("launches_per_call", {})
+        want = {"decode_persistent_kernel": 1,
+                **({"embed_kernel": 1} if mode == "sample_embed" else {})}
+        got = {k: launches[mode].get(k, 0) for k in DECODE_KERNEL_NAMES}
+        check(got == {**{k: 0 for k in DECODE_KERNEL_NAMES}, **want}
+              and not other_kernels(launches[mode], names),
+              f"{mode}: kernel launches per call {launches[mode]}")
+    # where block 0's time goes, per phase (clock64 cycles of one call)
+    prof = torch.zeros(len(ds.PROFILE_SLOTS), dtype=torch.int64,
+                       device=device)
+    phase_share = {}
+    for mode in ("serve_b8", "serve_b64", "sample_resid"):
+        prof.zero_()
+        try:
+            ds.set_phase_profile(prof)
+            calls[mode]()
+            torch.cuda.synchronize()
+        finally:
+            ds.set_phase_profile(None)
+        cyc = prof.tolist()
+        phase_share[mode] = {"cycles": sum(cyc), **{
+            k: c / max(sum(cyc), 1) for k, c in zip(ds.PROFILE_SLOTS, cyc)}}
+    rows["decode"] = {
+        "kernel": "decode_persistent_kernel", "n_sm": n_sm,
+        "smem_optin": optin, "grid": plan["blocks"],
+        "threads": plan["threads"], "units_per_block": plan["units_per_block"],
+        "dynamic_smem_bytes": plan["smem_bytes"],
+        "resident": plan["resident"], "proj_batch_chunk":
+            plan["proj_batch_chunk"],
+        "barriers_per_step": plan["barriers_per_step"],
+        **ds.kernel_attrs(), "ptxas": ptxas_report("decode_persistent_kernel"),
+        "launches_per_call": launches, "phase_share_block0": phase_share,
+        "B": B_TRAIN}
+    emit({"phase": "persistent", **rows["decode"]})
+
+    lp = lstm.fuse_layer_params(dec.lstm.layers())[0]
+    h0, c0 = seeded((B_TRAIN, H), 81, device, 0.5), seeded((B_TRAIN, H), 82,
+                                                           device, 0.5)
+    _, cs, gates = lstm._layer_seq_scan(
+        lp["w"], lp["b"], seeded((T, B_TRAIN, E), 80, device), h0, c0)
+    rargs = (lp["w"][E:].contiguous(), seeded((T, B_TRAIN, H), 83, device),
+             gates, torch.cat([c0[None], cs[:-1]]), cs)
+    rplan = lstm_bptt.reverse_plan(B_TRAIN, H, n_sm, optin)
+    check(rplan["resident"], f"reverse: w_hh rows not resident {rplan}")
+    prof = profile_calls(lambda: lstm_bptt.lstm_bptt_reverse(*rargs), 1,
+                         names)
+    rl = prof.get("launches_per_call", {})
+    rprof = torch.zeros(len(lstm_bptt.PROFILE_SLOTS), dtype=torch.int64,
+                        device=device)
+    try:
+        lstm_bptt.set_phase_profile(rprof)
+        lstm_bptt.lstm_bptt_reverse(*rargs)
+        torch.cuda.synchronize()
+    finally:
+        lstm_bptt.set_phase_profile(None)
+    cyc = rprof.tolist()
+    rshare = {"cycles": sum(cyc), **{k: c / max(sum(cyc), 1) for k, c in
+                                     zip(lstm_bptt.PROFILE_SLOTS, cyc)}}
+    check(rl.get("reverse_persistent_kernel", 0) == 1
+          and not other_kernels(rl, ("reverse_persistent_kernel",)),
+          f"reverse: kernel launches per call {rl}")
+    rows["reverse"] = {
+        "kernel": "reverse_persistent_kernel", "grid": rplan["blocks"],
+        "threads": rplan["threads"],
+        "units_per_block": rplan["units_per_block"],
+        "dynamic_smem_bytes": rplan["smem_bytes"],
+        "resident": rplan["resident"],
+        "barriers_per_step": rplan["barriers_per_step"],
+        **lstm_bptt.kernel_attrs(),
+        "ptxas": ptxas_report("reverse_persistent_kernel"),
+        "launches_per_call": rl, "phase_share_block0": rshare,
+        "B": B_TRAIN}
+    emit({"phase": "persistent", **rows["reverse"]})
+    return rows
+
+
 def full_width_generator(device):
     from gan_image_captioning_tpu_torch.config import Config
     from gan_image_captioning_tpu_torch.models.generator import (
@@ -502,8 +653,13 @@ def phase_timing(dec, device, workdir):
     return out
 
 
-SERVE_KERNEL_NAMES = ("qlstm_layer_kernel", "qproj_kernel", "qfinalize_kernel",
-                      "lstm_layer_kernel", "proj_kernel", "finalize_kernel")
+# profiler keys are matched by substring: the quantized decode's per-step
+# kernels, and the dense decode's one persistent kernel (no dense name is a
+# substring of a quantized one)
+Q_SERVE_KERNEL_NAMES = ("qlstm_layer_kernel", "qproj_kernel",
+                        "qfinalize_kernel")
+DECODE_KERNEL_NAMES = ("decode_persistent_kernel", "embed_kernel")
+SERVE_KERNEL_NAMES = Q_SERVE_KERNEL_NAMES + DECODE_KERNEL_NAMES
 
 
 def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES):
@@ -1489,10 +1645,9 @@ def phase_train_step_timing(device, setup):
     return out
 
 
-KERNEL_NAMES = ("lstm_layer_kernel", "proj_sample_kernel",
-                "sample_finalize_kernel", "proj_kernel", "finalize_kernel",
-                "gate_grad_kernel", "carry_kernel", "conv_fwd_kernel",
-                "conv_bwd_kernel")
+KERNEL_NAMES = ("decode_persistent_kernel", "embed_kernel",
+                "reverse_persistent_kernel", "gate_grad_kernel",
+                "carry_kernel", "conv_fwd_kernel", "conv_bwd_kernel")
 
 
 def phase_train_profile(device, setup, steps=3):
@@ -3216,9 +3371,9 @@ def phase_decode_modes(device):
     out["rows"]["decode_sample_embed_bwd"] = row
     del k, p, resid
 
-    # --- device times of the decode family (a decode is 144 launches:
-    # four calls fit the launch queue behind the spin; the plain decodes'
-    # thousands of launches are timed by CUDA events, the host's pace)
+    # --- device times of the decode family (a decode is one launch; the
+    # plain decodes' thousands of launches overflow the launch queue
+    # behind the spin and are timed by CUDA events, the host's pace)
     w = dense_weights(dec)
     f8, f64 = seeded((8, E), 108, device), seeded((64, E), 164, device)
     st = (seeded((NL, 8, H), 109, device, 0.1),
@@ -3261,8 +3416,7 @@ def phase_decode_modes(device):
     }
     out["times"] = {}
     for name, (kern, plain, work, decode) in cases.items():
-        # the chunk is 8 steps: 20 calls fit the queue like 4 full decodes
-        k_calls = 4 if decode and name != "decode_serve_carry_chunk" else 20
+        k_calls = 10 if decode and name != "decode_serve_carry_chunk" else 20
         out["times"][name] = time_pair(kern, plain, work, k_calls,
                                        p_calls=2 if decode else 10,
                                        plain_events=decode)
@@ -3427,6 +3581,8 @@ def main(argv=None):
     workdir.mkdir(parents=True, exist_ok=True)
     smi = phase_device()
     phase_build()
+    if run("persistent"):
+        phase_persistent(device)
     gen = full_width_generator(device)
     if run("train_kernels"):
         train_kernel_rows = phase_train_kernels(gen.decoder, device)

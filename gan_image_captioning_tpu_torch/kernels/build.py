@@ -96,6 +96,29 @@ def raise_on_error(lib: ctypes.CDLL, rc: int, what: str) -> None:
                            f"({lib.gic_error_string(rc).decode()})")
 
 
+_LIMITS: Dict[int, tuple] = {}
+
+
+def device_limits(lib: ctypes.CDLL, device) -> tuple:
+    """``(SM count, opt-in shared memory bytes per block)`` of a CUDA
+    device, from a library that exports ``gic_device_limits`` (the ones
+    with a persistent kernel); cached per device."""
+    import torch
+
+    idx = device.index if device.index is not None else 0
+    with _LOCK:
+        if idx not in _LIMITS:
+            fn = lib.gic_device_limits
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+            fn.restype = ctypes.c_int
+            n_sm, smem = ctypes.c_int(), ctypes.c_int()
+            with torch.cuda.device(device):
+                raise_on_error(lib, fn(ctypes.byref(n_sm), ctypes.byref(smem)),
+                               "device limits")
+            _LIMITS[idx] = (n_sm.value, smem.value)
+        return _LIMITS[idx]
+
+
 def check_tensor(fn: str, name: str, t, shape, device, dtype=None) -> None:
     """What every kernel wrapper asks of a tensor before it passes a
     pointer: ``device``, ``dtype`` (float32 unless given), ``shape`` and

@@ -1,10 +1,12 @@
-// What the dense decode (decode_serve.cu) and the quantized serve decode
-// (decode_qserve.cu) share: the tile geometry, the LSTM cell update of one
-// gate tile, the per-tile softmax statistics of one projection tile, the
-// per-row combine of those statistics, and the host-side handling of the
-// (h, c, x) state, fresh or carried in from an earlier chunk.  Also the
-// Philox uniforms of the Gumbel noise, which the sample_resid decode and
-// the fused Gumbel sampler (gumbel_sample.cu) draw from one stream.
+// The quantized serve decode's (decode_qserve.cu) building blocks: the
+// tile geometry, the LSTM cell update of one gate tile, the per-tile
+// softmax statistics of one projection tile, the per-row combine of those
+// statistics, and the host-side handling of the (h, c, x) state, fresh or
+// carried in from an earlier chunk.  The dense persistent decode
+// (decode_serve.cu) repeats their arithmetic in the same order, which
+// keeps the two bit-equal on dequantized weights.  Also the Philox
+// uniforms of the Gumbel noise, which the sample_resid decode and the
+// fused Gumbel sampler (gumbel_sample.cu) draw from one stream.
 
 #pragma once
 

@@ -1,5 +1,6 @@
-// Stacked-LSTM free-running decode for Hopper (sm_90a), float32: the greedy
-// serve mode and the Gumbel-softmax sample mode with BPTT residuals.
+// Stacked-LSTM free-running decode for Hopper (sm_90a), float32, every
+// mode: greedy / serve (with or without carried state), pretrain, and the
+// Gumbel modes sample, sample_resid and sample_embed.
 //
 // Replaces: gan_image_captioning_tpu/kernels/decode_sample.py, function
 // `_kernel` in modes "serve", "greedy", "pretrain", "sample", "sample_resid"
@@ -25,289 +26,605 @@
 //   of soft and the residuals
 // sample_embed: sample_resid, then emb[t, b] = soft[t, b] @ wd^T with the
 //   discriminator's embedding wd [Ed, V], one product over all T*B rows
-//   after the time loop (nothing feeds emb back into the recurrence)
-// and in every mode  x = embed[ids[:, t]]  is the next step's input.
-// serve with carried state (the `init_state` variant, which the continuous
-// engine's chunks and the adaptive decode run): the decode starts from a
-// given (h0, c0, x0) instead of (0, 0, features) and hands back the state
-// after its last step, (hT, cT, xT), xT = embed[last ids].
+//   after the time loop (embed_kernel, a second launch: nothing feeds emb
+//   back into the recurrence)
+// and in every mode  x = embed[ids[:, t]]  is the next step's input.  serve
+// with carried state starts from a given (h0, c0, x0) instead of (0, 0,
+// features) and hands back the state after its last step (hT, cT, xT),
+// xT = embed[last ids]: the continuous engine's chunks and the adaptive
+// decode.
 //
 // What bounds it on this card.  At the training width (E = H = 512, two
 // layers, V = 11008, T = 36, B = 64) one decode does 2*B*T*(2*4H*(E+H) +
-// V*H) = 45.3 GFLOP; without tensor cores (float32, 67 TFLOP/s) that is
-// 0.68 ms, against 0.06 ms for the bytes (39 MB of weights read once, the
-// 101 MB soft sample and 57 MB of residuals written once).  But the steps
-// are sequential, each needs every weight again, and each step is a chain
-// of small launches, so per-launch latency adds up.
+// V*H) = 45.3 GFLOP: 0.68 ms at float32's 67 TFLOP/s (no tensor cores:
+// every gate and logit is one float32 FMA chain, see below), against
+// 0.06 ms for the bytes.  The steps are sequential and each needs every
+// weight again, so a decode is T dependent steps of 19 us of arithmetic
+// at best.  A host loop of nl + 2 launches per step (the previous design)
+// spent 118-161 us per step on launch latency, weight re-reads through
+// small K tiles and serial per-row statistics.
 //
-// What this design does about it.  It is the simple version: the time loop
-// runs on the host inside one C call on the caller's stream, with nl + 2
-// launches per step:
-//   * lstm_layer_kernel: a block owns 4 hidden units (16 gate rows, read in
-//     place from the torch-layout weights) and 32 batch rows; it computes
-//     the gate tile as a register-tiled product over K = In + H in K tiles
-//     of 32 (shared memory stays at 8 KB whatever B is), then updates c in
-//     place (float32) and writes h into the other half of a ping-pong
-//     buffer, because every block reads the old h of all units.  In sample
-//     mode it also writes the residuals; with null residual pointers it is
-//     the serve kernel unchanged.
-//   * proj_kernel (serve) / proj_sample_kernel: a block owns 64 vocabulary
-//     rows and 32 batch rows and emits per (row, tile) the statistics its
-//     finalize needs: the tile's max, first argmax and sum(exp(l - max))
-//     of the logits (serve); the max and first argmax of s, and the max
-//     and sum(exp(z - max)) of z = temp * s, with z stored into soft (sample).
-//   * finalize_kernel / sample_finalize_kernel: one block per row combines
-//     the tiles (global max, lowest tile then lowest lane on ties), writes
-//     ids (and lps), normalises the row of soft across all tiles (sample)
-//     and gathers embed[id] into x.  The TPU kernel's one-hot matrix
-//     product is a TPU artefact; the gather gives the same values.
-// The carried state costs a device-to-device copy of (h, c, x) in and
-// out of the scratch buffers, nothing in the step loop: a chain of chunks
-// runs the same launches, on the same values, as one full decode.
-// Weights are re-read every step (from L2 when they stay there).  Keeping
-// them on chip across steps (one persistent kernel with a grid barrier),
-// wgmma and bf16 are later work.  decode_common.cuh holds what this file
-// shares with the quantized serve decode (decode_qserve.cu).
+// What this design does about it: one persistent kernel, one cooperative
+// launch per call, the time loop inside it (persistent.cuh).  A block per
+// SM; each owns
+//   * a fixed set of hidden units [j0, j0 + upb) in every layer, and keeps
+//     their gate rows of [w_ih | w_hh] in shared memory for the whole call
+//     (config3: 4 units, 16 rows x 1024 x 2 layers = 131 KB) -- the TPU
+//     kernel's weights-resident-in-VMEM design.  When that slice does not
+//     fit (e.g. H = 1024, nl = 2) the same code streams it from global
+//     memory each step through the K-tile stage: the same arithmetic in
+//     the same order, only the source of the weights differs;
+//   * fixed 64-row tiles of the vocabulary (w_proj, 22.5 MB, does not also
+//     fit on chip; each block reads the same rows every step, from L2);
+//   * fixed batch rows for the row combine.
+// Per step three kinds of phase, with a grid barrier after each (nl + 2
+// barriers per step):
+//   1. layer l's gates and cell update, l = 0 .. nl-1: a thread owns
+//      (unit, batch row) items and accumulates the unit's four gate rows
+//      over K tiles of [x | h] that cp.async brings into a 4-slot pool
+//      (three tiles in flight; the tile as wide as the batch chunk allows,
+//      64 columns at B = 64, 512 at B = 8).  The kernel's own x and h
+//      rows are padded to 4 floats for 16-byte copies; h is ping-ponged
+//      (t % 2 read, (t+1) % 2 written) because other blocks still read
+//      the old h;
+//   2. the projection of the block's vocabulary tiles with each tile's
+//      statistics per batch row (serve: max, first argmax, sum(exp(l -
+//      max)); sample: max and first argmax of s, and max and sum(exp(z -
+//      max)) of z = temp * s, z stored into soft);
+//   3. the row combine (a block per batch row): ids, lps or the
+//      normalised soft row, and x = embed[id].
+// What stays bit-equal to the previous design, and so to the quantized
+// decode (decode_qserve.cu) on dequantized weights: each gate
+// pre-activation and each logit is one float32 accumulator running over k
+// ascending by fmaf, x before h, the bias added after (tile_dot.cuh's
+// order; no split-K: the zero pad columns add exact zeros); the cell
+// update's and the Gumbel score's expressions; each 64-row tile's exp-sum
+// serial over its rows; the tiles combined in block_rescaled_sum's order
+// (128 partial sums over tiles i = tid mod 128, then a halving tree).
+// Data another block wrote in the same launch is read through L2 only
+// (ld.cg, cp.async.cg).
+// What still bounds it (PERF.md, PR 8): each layer-step every block
+// stages all B rows of [x | h] from L2 and reads them from shared memory
+// once per unit; each K tile costs a wait and a __syncthreads; the 172
+// vocabulary tiles fall 2 / 1 on 132 blocks.  Thread-block clusters
+// sharing one staged copy, folding the row combine into the next step's
+// first layer, and bf16 weights are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "decode_common.cuh"
+#include "persistent.cuh"
 #include "tile_dot.cuh"
 
 using namespace gic;
 
 namespace {
 
-// One layer of one step: gates for hidden units [j0, j0+JT) and batch rows
-// [b0, b0+L_BT), then the cell update.  c is updated in place; h goes to
-// h_next (the other ping-pong half) because other blocks still read h_prev.
-// hs_out / cs_out [B, H] and gates_out [B, 4H] (this step's and layer's
-// residual slices) are written when not null.
-__global__ void __launch_bounds__(L_NT) lstm_layer_kernel(
-    const float* __restrict__ w_ih, const float* __restrict__ w_hh,
-    const float* __restrict__ bias, const float* __restrict__ x, int In,
-    const float* __restrict__ h_prev, float* __restrict__ h_next,
-    float* __restrict__ c, int B, int H, float* __restrict__ hs_out,
-    float* __restrict__ cs_out, float* __restrict__ gates_out) {
-  __shared__ float Ws[L_RT][KT + 1];
-  __shared__ float Xs[L_BT][KT + 1];
-  __shared__ float Gs[L_RT][L_BT + 1];
-  constexpr int NR = L_RT / L_TR, NB = L_BT / L_TB;
-  const int j0 = blockIdx.x * JT, b0 = blockIdx.y * L_BT;
-  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
+constexpr int NT = PT_NT;
+constexpr int XROWS = 64;                  // batch rows of one chunk
+// The pool: 8 slots of 2304 floats for the layers (x tiles only, 7 in
+// flight), read as 4 slots of 4608 by the projection (h_top and w_proj
+// tiles together, 3 in flight).
+constexpr int POOL_FLOATS = 18432;
+constexpr int L_DEPTH = 8, L_SLOT = POOL_FLOATS / L_DEPTH;
+constexpr int P_DEPTH = 4, SLOT = POOL_FLOATS / P_DEPTH;
+constexpr int MAX_NL = 8;
+constexpr int MAX_UNITS = 16;              // upb limit
+constexpr int LS = P_RT + 1;               // projection tile row stride
 
-  float acc[L_TR][L_TB];
-  tile_dot<L_RT, L_BT, L_TR, L_TB>(LstmRows{j0, H}, w_ih, w_hh, x, h_prev,
-                                   In, H, b0, B, acc, Ws, Xs);
-#pragma unroll
-  for (int i = 0; i < L_TR; ++i)
-#pragma unroll
-    for (int j = 0; j < L_TB; ++j) Gs[tr + i * NR][tb + j * NB] = acc[i][j];
-  __syncthreads();
-  lstm_cell_tile(Gs, bias, j0, b0, B, H, c, h_next, hs_out, cs_out,
-                 gates_out);
+// Phase clocks of block 0 (clock64 cycles, summed over the call) when the
+// caller asked for them (gic_decode_set_profile): where a step's time goes.
+enum { PROF_LOAD, PROF_LSTM, PROF_BARRIER, PROF_PROJ, PROF_COMBINE,
+       PROF_SLOTS };
+
+struct DecodeParams {
+  const float* w_ih[MAX_NL];
+  const float* w_hh[MAX_NL];
+  const float* b_ih[MAX_NL];
+  const float* b_hh[MAX_NL];
+  const float* w_proj;
+  const float* b_proj;
+  const float* embed;
+  const float* x_init;  // feats or the carried x0 [B, E]
+  const float* h0;      // [nl, B, H] or null (zeros)
+  const float* c0;      // [nl, B, H] or null (zeros)
+  float* x;             // scratch [B, Ep]  (Ep = E rounded up to 4)
+  float* h;             // scratch [2, nl, B, Hp], zero columns past H
+  float* c;             // scratch [nl, B, H]
+  float* pmax;          // [B, ntile]: max of the logits / of s
+  int* pidx;            // [B, ntile]: its first index
+  float* psum;          // [B, ntile]: sum(exp(l - max))   (greedy modes)
+  float* pzmax;         // [B, ntile]: max of z             (soft sample)
+  float* pzsum;         // [B, ntile]: sum(exp(z - max))    (soft sample)
+  unsigned int* barrier;
+  int32_t* ids;         // [B, T]
+  float* lps;           // [B, T] or null
+  float* logits;        // [T, B, V] or null (pretrain)
+  float* soft;          // [T, B, V] or null (sample_resid, sample_embed)
+  float* noise;         // [T, B, V] or null (sample)
+  float* hs;            // [T, nl, B, H] or null (residuals)
+  float* cs;            // [T, nl, B, H]
+  float* gates;         // [T, nl, B, 4H]
+  float* hT;            // [nl, B, H] or null (carried state out)
+  float* cT;
+  float* xT;            // [B, E] or null
+  const float* u_in;    // [T, B, V] or null (Philox)
+  float* u_out;         // [T, B, V] or null
+  unsigned long long* prof;  // [PROF_SLOTS] or null
+  unsigned long long seed;
+  float temp;
+  int B, E, H, V, nl, T, upb, resident, pb, sample, ntile, Ep, Hp;
+};
+
+// The padded width of layer l's input and of its [x | h] row.
+__host__ __device__ inline int in_pad(int l, int E, int H) {
+  return pad4(l ? H : E);
+}
+__host__ __device__ inline int row_pad(int l, int E, int H) {
+  return kpad(in_pad(l, E, H) + pad4(H)) + 4;
 }
 
-// Vocabulary projection of one (64-row vocabulary tile, 32-row batch tile)
-// with the tile's softmax statistics: max, first argmax, sum(exp(l - max)).
-__global__ void __launch_bounds__(P_NT) proj_kernel(
-    const float* __restrict__ w, const float* __restrict__ bias,
-    const float* __restrict__ h, int H, int V, int B,
-    float* __restrict__ pmax, int* __restrict__ pidx,
-    float* __restrict__ psum, int ntile, float* __restrict__ logits_t) {
-  __shared__ float Ws[P_RT][KT + 1];
-  __shared__ float Xs[P_BT][KT + 1];
-  __shared__ float Ls[P_BT][P_RT + 1];
-  constexpr int NR = P_RT / P_TR, NB = P_BT / P_TB;
-  const int v0 = blockIdx.x * P_RT, b0 = blockIdx.y * P_BT;
-  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
+// Floats of the resident gate rows of every layer: 4 * upb rows of
+// [w_ih | 0 | w_hh | 0] per layer, each column block padded to 4.
+__host__ __device__ inline int resident_floats(int nl, int E, int H,
+                                               int upb) {
+  int n = 0;
+  for (int l = 0; l < nl; ++l) n += 4 * upb * row_pad(l, E, H);
+  return n;
+}
 
-  float acc[P_TR][P_TB];
-  tile_dot<P_RT, P_BT, P_TR, P_TB>(ProjRows{v0, V}, w, nullptr, h, nullptr,
-                                   H, 0, b0, B, acc, Ws, Xs);
-#pragma unroll
-  for (int i = 0; i < P_TR; ++i) {
-    const int r = tr + i * NR, v = v0 + r;
-    const float bv = v < V ? bias[v] : 0.f;
-#pragma unroll
-    for (int j = 0; j < P_TB; ++j) Ls[tb + j * NB][r] = acc[i][j] + bv;
-  }
-  __syncthreads();
-  if (logits_t != nullptr) {  // pretrain: this step's logits [B, V]
-    const int n = min(P_RT, V - v0);
-    for (int e = tid; e < P_BT * P_RT; e += P_NT) {
-      const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
-      if (b < B && r < n) logits_t[(size_t)b * V + v0 + r] = Ls[bl][r];
+__device__ __forceinline__ size_t half_off(const DecodeParams& p, int t) {
+  return (size_t)(t % 2) * p.nl * p.B * p.Hp;
+}
+
+// Local gate row r = g * upb + u of the block at unit j0: global row
+// g * H + j0 + u of the [4H, K] weights, -1 past H.
+__device__ __forceinline__ int gate_row(int r, int j0, int upb, int H) {
+  const int g = r / upb, j = j0 + r % upb;
+  return r < 4 * upb && j < H ? g * H + j : -1;
+}
+
+// A read-only [rows, cols] input (row stride cols) as a stage segment.
+__device__ __forceinline__ Seg input_seg(const float* p, int cols) {
+  return Seg{p, cols, cols,
+             p != nullptr && cols % 4 == 0 &&
+                 reinterpret_cast<uintptr_t>(p) % 16 == 0};
+}
+
+// A kernel-written padded scratch matrix (stride and columns padded to 4,
+// the pad columns zero).
+__device__ __forceinline__ Seg scratch_seg(const float* p, int cols_pad) {
+  return Seg{p, cols_pad, cols_pad, true};
+}
+
+__device__ __forceinline__ unsigned long long clk() { return clock64(); }
+
+// Gate row r = g * upb + u of the block's [4H, K] weights (-1 past H).
+struct GateRows {
+  int j0, upb, H;
+  __device__ int operator()(int r) const { return gate_row(r, j0, upb, H); }
+};
+
+// The block's resident gate rows of every layer, [w_ih | 0 | w_hh | 0]
+// zero-padded to row_pad.
+__device__ void load_resident(const DecodeParams& p, float* wres) {
+  for (int l = 0; l < p.nl; ++l) {
+    const int In = l ? p.H : p.E, wa = in_pad(l, p.E, p.H);
+    const int ws = row_pad(l, p.E, p.H);
+    const int j0 = blockIdx.x * p.upb, rows = 4 * p.upb;
+    for (int e = threadIdx.x; e < rows * ws; e += NT) {
+      const int r = e / ws, k = e % ws, R = gate_row(r, j0, p.upb, p.H);
+      float v = 0.f;
+      if (R >= 0 && k < In)
+        v = p.w_ih[l][(size_t)R * In + k];
+      else if (R >= 0 && k >= wa && k - wa < p.H)
+        v = p.w_hh[l][(size_t)R * p.H + k - wa];
+      wres[e] = v;
     }
+    wres += rows * ws;
   }
-  proj_tile_stats(Ls, v0, V, b0, B, pmax, pidx, psum, ntile);
 }
 
-// Sample-mode projection tile: s = logits + g with the Gumbel noise of
-// step t; per (row, tile) the max and first argmax of s and, when soft_t
-// is not null, the max and sum(exp(z - max)) of z = temp * s.  z goes into
-// soft_t [B, V] (this step's slice), which sample_finalize_kernel
-// normalises.  g_t [B, V] (this step's slice of the noise) receives g when
-// it is not null (mode sample, which passes no soft_t).
-__global__ void __launch_bounds__(P_NT) proj_sample_kernel(
-    const float* __restrict__ w, const float* __restrict__ bias,
-    const float* __restrict__ h, int H, int V, int B, float temp,
-    unsigned long long seed, int t, const float* __restrict__ u_in,
-    float* __restrict__ u_out, float* __restrict__ soft_t,
-    float* __restrict__ psmax, int* __restrict__ psidx,
-    float* __restrict__ pzmax, float* __restrict__ pzsum, int ntile,
-    float* __restrict__ g_t) {
-  __shared__ float Ws[P_RT][KT + 1];
-  __shared__ float Xs[P_BT][KT + 1];
-  __shared__ float Ls[P_BT][P_RT + 1];
-  constexpr int NR = P_RT / P_TR, NB = P_BT / P_TB;
-  const int v0 = blockIdx.x * P_RT, b0 = blockIdx.y * P_BT;
-  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
+// Phase 1: layer l of step t for the block's hidden units, all B rows.
+// A thread owns one unit (its four gate rows) and one batch row of the
+// chunk; each K tile stages the chunk's rows of [x | h] (and, streamed,
+// the block's gate rows) in a pipeline slot.  (Two or four rows a thread
+// load less shared memory per FMA but leave too few warps: slower on the
+// card at B = 64.)
+__device__ void lstm_phase(const DecodeParams& p, int t, int l,
+                           const float* wres_l, float* pool) {
+  const int B = p.B, H = p.H, Hp = p.Hp, upb = p.upb, j0 = blockIdx.x * upb;
+  if (j0 >= H) return;  // block-uniform: no unit in this block
+  const int In = l ? H : p.E, wa = in_pad(l, p.E, H), Kp = wa + Hp;
+  const int wstride = row_pad(l, p.E, H);
+  const size_t lp = (size_t)l * B * Hp, lo = (size_t)l * B * H;
+  const Seg xs = l ? scratch_seg(p.h + half_off(p, t + 1) + lp - (size_t)B * Hp, Hp)
+                   : (t == 0 ? input_seg(p.x_init, In) : scratch_seg(p.x, wa));
+  const Seg hs_seg = t ? scratch_seg(p.h + half_off(p, t) + lp, Hp)
+                       : input_seg(p.h0 != nullptr ? p.h0 + lo : nullptr, H);
+  const Seg wi = input_seg(p.w_ih[l], In), wh = input_seg(p.w_hh[l], H);
+  float* hnew = p.h + half_off(p, t + 1) + lp;
+  // a chunk of batch rows small enough for one (unit, row) item a thread
+  const int bc = min(min(B, XROWS), NT / upb), wrows = 4 * upb;
+  // resident: x rows only in a layer slot; streamed: x rows, then gate
+  // rows in a projection-sized slot
+  const int slot_fl = p.resident ? L_SLOT : SLOT;
+  const int kt = tile_k(p.resident ? bc : bc + wrows, slot_fl, Kp);
+  const int ntiles = kpad(Kp) / kt, xfl = bc * (kt + 4);
+  const int tid = threadIdx.x, u = tid / bc, bl = tid % bc;
+  const bool active = tid < upb * bc;
 
-  float acc[P_TR][P_TB];
-  tile_dot<P_RT, P_BT, P_TR, P_TB>(ProjRows{v0, V}, w, nullptr, h, nullptr,
-                                   H, 0, b0, B, acc, Ws, Xs);
-#pragma unroll
-  for (int i = 0; i < P_TR; ++i) {
-    const int r = tr + i * NR, v = v0 + r;
-    const float bv = v < V ? bias[v] : 0.f;
-#pragma unroll
-    for (int j = 0; j < P_TB; ++j) {
-      const int b = b0 + tb + j * NB;
-      float s = 0.f;
-      if (v < V && b < B) {
-        const size_t o = ((size_t)t * B + b) * V + v;
-        const float u = u_in != nullptr ? u_in[o] : philox_uniform(seed, t, b, v);
-        if (u_out != nullptr) u_out[o] = u;
-        const float g = -logf(-logf(u + GUMBEL_EPS) + GUMBEL_EPS);
-        if (g_t != nullptr) g_t[(size_t)b * V + v] = g;
-        s = (acc[i][j] + bv) + g;
+  for (int b0 = 0; b0 < B; b0 += bc) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const auto issue = [&](int i, float* slot) {
+      stage_rows(slot, kt, bc, RowRange{b0, B}, xs, wa, hs_seg, i * kt);
+      if (!p.resident)
+        stage_rows(slot + xfl, kt, wrows, GateRows{j0, upb, H}, wi, wa, wh,
+                   i * kt);
+    };
+    const auto compute = [&](int it, const float* slot) {
+      if (!active) return;
+      const float* wbase = p.resident ? wres_l + it * kt : slot + xfl;
+      const int wst = p.resident ? wstride : kt + 4;
+      const float* w0 = wbase + (size_t)(0 * upb + u) * wst;
+      const float* w1 = wbase + (size_t)(1 * upb + u) * wst;
+      const float* w2 = wbase + (size_t)(2 * upb + u) * wst;
+      const float* w3 = wbase + (size_t)(3 * upb + u) * wst;
+      const float* xrow = slot + bl * (kt + 4);
+#pragma unroll 8
+      for (int kk = 0; kk < kt; kk += 4) {
+        const float4 xv = ld4(xrow + kk);
+        acc[0] = fma4(ld4(w0 + kk), xv, acc[0]);
+        acc[1] = fma4(ld4(w1 + kk), xv, acc[1]);
+        acc[2] = fma4(ld4(w2 + kk), xv, acc[2]);
+        acc[3] = fma4(ld4(w3 + kk), xv, acc[3]);
       }
-      Ls[tb + j * NB][r] = s;
-    }
-  }
-  __syncthreads();
+    };
+    if (p.resident)
+      k_pipeline<L_DEPTH>(pool, L_SLOT, ntiles, issue, compute);
+    else
+      k_pipeline<P_DEPTH>(pool, SLOT, ntiles, issue, compute);
 
-  const int n = min(P_RT, V - v0);
-  // z = temp * s into soft_t, coalesced along the vocabulary.  z is
-  // rounded once (__fmul_rn: no contraction into the subtractions below),
-  // so the statistics and the normalising pass see the same z.
-  if (soft_t != nullptr) {
-    for (int e = tid; e < P_BT * P_RT; e += P_NT) {
-      const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
-      if (b < B && r < n)
-        soft_t[(size_t)b * V + v0 + r] = __fmul_rn(temp, Ls[bl][r]);
-    }
-  }
-  if (tid < P_BT && b0 + tid < B) {
-    const int bl = tid, b = b0 + tid;
-    float sm = -INFINITY, zm = -INFINITY;
-    int arg = -1;
-    for (int r = 0; r < n; ++r) {
-      const float s = Ls[bl][r];
-      if (s > sm) {  // strict: the first maximum wins
-        sm = s;
-        arg = v0 + r;
+    // the cell update of the item (lstm_cell_tile's expressions)
+    const int b = b0 + bl, j = j0 + u;
+    if (active && j < H && b < B) {
+      // the bias b_ih + b_hh (one float32 add, as the previous design's
+      // wrapper formed it) after the K loop
+      const float* bi = p.b_ih[l] + j;
+      const float* bh = p.b_hh[l] + j;
+      const float pi = acc[0] + (bi[0 * H] + bh[0 * H]);
+      const float pf = acc[1] + (bi[1 * H] + bh[1 * H]);
+      const float pg = acc[2] + (bi[2 * H] + bh[2 * H]);
+      const float po = acc[3] + (bi[3 * H] + bh[3 * H]);
+      const float gi = sigmoidf(pi), gf = sigmoidf(pf);
+      const float gg = tanhf(pg), go = sigmoidf(po);
+      const size_t o = (size_t)b * H + j;
+      const float c_old = t ? p.c[lo + o]
+                            : (p.c0 != nullptr ? p.c0[lo + o] : 0.f);
+      const float cn = gf * c_old + gi * gg;
+      const float hn = go * tanhf(cn);
+      p.c[lo + o] = cn;
+      hnew[(size_t)b * Hp + j] = hn;
+      if (p.gates != nullptr) {
+        const size_t tl = (size_t)t * p.nl + l, layer = (size_t)B * H;
+        float* gr = p.gates + tl * 4 * layer + (size_t)b * 4 * H + j;
+        __stcs(gr, pi);
+        __stcs(gr + H, pf);
+        __stcs(gr + 2 * H, pg);
+        __stcs(gr + 3 * H, po);
+        __stcs(p.hs + tl * layer + o, hn);
+        __stcs(p.cs + tl * layer + o, cn);
       }
-      zm = fmaxf(zm, __fmul_rn(temp, s));
-    }
-    const size_t o = (size_t)b * ntile + blockIdx.x;
-    psmax[o] = sm;
-    psidx[o] = arg;
-    if (soft_t != nullptr) {
-      float zs = 0.f;
-      for (int r = 0; r < n; ++r)
-        zs += expf(__fmul_rn(temp, Ls[bl][r]) - zm);
-      pzmax[o] = zm;
-      pzsum[o] = zs;
+      if (t == p.T - 1) {
+        if (p.hT != nullptr) p.hT[lo + o] = hn;
+        if (p.cT != nullptr) p.cT[lo + o] = cn;
+      }
     }
   }
 }
 
-// One block per batch row: combine the vocabulary tiles, emit ids (and
-// lps, when not null) for step t, and gather the chosen embedding row as
-// the next input.
-__global__ void __launch_bounds__(F_NT) finalize_kernel(
-    const float* __restrict__ pmax, const int* __restrict__ pidx,
-    const float* __restrict__ psum, int ntile,
-    const float* __restrict__ embed, int E, float* __restrict__ x,
-    int32_t* __restrict__ ids, float* __restrict__ lps, int t, int T) {
-  __shared__ float sm[F_NT];
-  __shared__ int si[F_NT];
-  __shared__ int s_id;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const size_t base = (size_t)b * ntile;
+// Phase 2: the block's vocabulary tiles of step t and their statistics.
+// A thread owns RV rows (tr + NRL i) x TB batch rows (tb + NBL j) of a
+// 64-row tile and a chunk of PB = NBL * TB batch rows (register tiles as
+// large as the batch allows: fewer shared-memory loads per FMA); a slot
+// holds the K tile of the chunk's h_top rows, then of the tile's
+// projection rows.
+template <int RV, int TB, int NBL>
+__device__ void proj_phase(const DecodeParams& p, int t, float* pool) {
+  constexpr int NRL = P_RT / RV, PB = NBL * TB;
+  static_assert(NRL * NBL <= NT, "proj thread tile");
+  const int B = p.B, H = p.H, Hp = p.Hp, V = p.V, ntile = p.ntile;
+  const int tid = threadIdx.x, tr = tid % NRL, tb = tid / NRL;
+  const bool active = tid < NRL * NBL;
+  const Seg hx = scratch_seg(
+      p.h + half_off(p, t + 1) + (size_t)(p.nl - 1) * B * Hp, Hp);
+  const Seg wp = input_seg(p.w_proj, H), none{nullptr, 0, 0, true};
+  const int kt = tile_k(PB + P_RT, SLOT, Hp), ntiles = kpad(Hp) / kt;
+  const int xfl = PB * (kt + 4);
+  float* Ls = pool;  // [PB][LS], after the K loop
+  const size_t step = (size_t)t * B * V;
 
-  const int best = block_first_argmax(pmax + base, ntile, sm, si);
-  const float m = best >= 0 ? pmax[base + best] : 0.f;
-  const float total = block_rescaled_sum(pmax + base, psum + base, ntile, m,
-                                         sm);
-  if (tid == 0) {
-    const int id = best >= 0 ? pidx[base + best] : 0;
-    ids[(size_t)b * T + t] = id;
-    if (lps != nullptr) lps[(size_t)b * T + t] = -logf(total);
-    s_id = id;
+  for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x) {
+    const int v0 = tile * P_RT, n = min(P_RT, V - v0);
+    for (int b0 = 0; b0 < B; b0 += PB) {
+      float acc[RV][TB];
+#pragma unroll
+      for (int i = 0; i < RV; ++i)
+#pragma unroll
+        for (int j = 0; j < TB; ++j) acc[i][j] = 0.f;
+      k_pipeline<P_DEPTH>(
+          pool, SLOT, ntiles,
+          [&](int i, float* slot) {
+            stage_rows(slot, kt, PB, RowRange{b0, B}, hx, Hp, none, i * kt);
+            stage_rows(slot + xfl, kt, P_RT, RowRange{v0, V}, wp, Hp, none,
+                       i * kt);
+          },
+          [&](int, const float* slot) {
+            if (!active) return;
+            const float* xb = slot;
+            const float* wb = slot + xfl;
+#pragma unroll 4
+            for (int kk = 0; kk < kt; kk += 4) {
+              float4 wv[RV], xv[TB];
+#pragma unroll
+              for (int i = 0; i < RV; ++i)
+                wv[i] = ld4(wb + (tr + NRL * i) * (kt + 4) + kk);
+#pragma unroll
+              for (int j = 0; j < TB; ++j)
+                xv[j] = ld4(xb + (tb + NBL * j) * (kt + 4) + kk);
+#pragma unroll
+              for (int i = 0; i < RV; ++i)
+#pragma unroll
+                for (int j = 0; j < TB; ++j)
+                  acc[i][j] = fma4(wv[i], xv[j], acc[i][j]);
+            }
+          });
+
+#pragma unroll
+      for (int i = 0; i < RV; ++i) {
+        const int r = tr + NRL * i, v = v0 + r;
+        const float bv = v < V ? p.b_proj[v] : 0.f;
+#pragma unroll
+        for (int j = 0; j < TB; ++j) {
+          const int bl = tb + NBL * j, b = b0 + bl;
+          if (!active) continue;
+          float s = acc[i][j] + bv;
+          if (p.sample) {  // proj_sample_kernel's score
+            s = 0.f;
+            if (v < V && b < B) {
+              const size_t o = step + (size_t)b * V + v;
+              const float u = p.u_in != nullptr ? p.u_in[o]
+                                                : philox_uniform(p.seed, t, b, v);
+              if (p.u_out != nullptr) __stcs(p.u_out + o, u);
+              const float g = -logf(-logf(u + GUMBEL_EPS) + GUMBEL_EPS);
+              if (p.noise != nullptr) __stcs(p.noise + o, g);
+              s = (acc[i][j] + bv) + g;
+            }
+          }
+          Ls[bl * LS + r] = s;
+        }
+      }
+      __syncthreads();
+
+      // pretrain logits, or z = temp * s into soft (rounded once, as the
+      // statistics below see it), coalesced along the vocabulary
+      if (p.logits != nullptr || p.soft != nullptr) {
+        for (int e = tid; e < PB * P_RT; e += NT) {
+          const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
+          if (b >= B || r >= n) continue;
+          const size_t o = step + (size_t)b * V + v0 + r;
+          if (p.logits != nullptr)
+            __stcs(p.logits + o, Ls[bl * LS + r]);
+          else
+            p.soft[o] = __fmul_rn(p.temp, Ls[bl * LS + r]);
+        }
+      }
+      // one thread per (batch row, tile): proj_tile_stats /
+      // proj_sample_kernel's serial loops
+      if (tid < PB && b0 + tid < B) {
+        const float* row = Ls + tid * LS;
+        const size_t o = (size_t)(b0 + tid) * ntile + tile;
+        float m = -INFINITY, zm = -INFINITY;
+        int arg = -1;
+        for (int r = 0; r < n; ++r) {
+          const float l = row[r];
+          if (l > m) {  // strict: the first maximum wins
+            m = l;
+            arg = v0 + r;
+          }
+          if (p.sample) zm = fmaxf(zm, __fmul_rn(p.temp, l));
+        }
+        p.pmax[o] = m;
+        p.pidx[o] = arg;
+        if (!p.sample && p.lps != nullptr) {
+          float s = 0.f;
+          for (int r = 0; r < n; ++r) s += expf(row[r] - m);
+          p.psum[o] = s;
+        } else if (p.soft != nullptr) {
+          float zs = 0.f;
+          for (int r = 0; r < n; ++r) zs += expf(__fmul_rn(p.temp, row[r]) - zm);
+          p.pzmax[o] = zm;
+          p.pzsum[o] = zs;
+        }
+      }
+      __syncthreads();  // Ls and the buffers are reused
+    }
   }
-  __syncthreads();
-  const float* row = embed + (size_t)s_id * E;
-  for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
 }
 
-// Sample mode, one block per batch row: the first argmax of s over all
-// tiles -> ids[b, t] and the next input embed[id]; then, when soft_t is not
-// null, soft_t[b] (z on entry) becomes exp(z - M) / sum(exp(z - M)) with M
-// the row max of z.
-__global__ void __launch_bounds__(F_NT) sample_finalize_kernel(
-    const float* __restrict__ psmax, const int* __restrict__ psidx,
-    const float* __restrict__ pzmax, const float* __restrict__ pzsum,
-    int ntile, const float* __restrict__ embed, int E, int V,
-    float* __restrict__ x, int32_t* __restrict__ ids,
-    float* __restrict__ soft_t, int t, int T) {
-  __shared__ float sm[F_NT];
-  __shared__ int si[F_NT];
-  __shared__ int s_id;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const size_t base = (size_t)b * ntile;
-
-  const int best = block_first_argmax(psmax + base, ntile, sm, si);
-  if (tid == 0) {
-    const int id = best >= 0 ? psidx[base + best] : 0;
-    ids[(size_t)b * T + t] = id;
-    s_id = id;
-  }
-  if (soft_t == nullptr) {  // mode sample: no soft sample (uniform branch)
-    __syncthreads();
-    const float* row = embed + (size_t)s_id * E;
-    for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
-    return;
-  }
-  // the max of z: the max of the tile maxima (no tie rule needed)
+// The lowest tile reaching the row's max of pm (first index on ties).
+__device__ int first_argmax(const float* pm, int n, float* red_m,
+                            int* red_i) {
+  const int tid = threadIdx.x;
   float m = -INFINITY;
-  for (int i = tid; i < ntile; i += F_NT) m = fmaxf(m, pzmax[base + i]);
-  sm[tid] = m;
+  int best = -1;
+  for (int i = tid; i < n; i += NT) {
+    const float v = ld_shared_global(pm + i);
+    if (v > m) {
+      m = v;
+      best = i;
+    }
+  }
+  red_m[tid] = m;
+  red_i[tid] = best;
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    if (tid < s) {
+      const float m2 = red_m[tid + s], m1 = red_m[tid];
+      const int i2 = red_i[tid + s], i1 = red_i[tid];
+      if (i2 >= 0 && (i1 < 0 || m2 > m1 || (m2 == m1 && i2 < i1))) {
+        red_m[tid] = m2;
+        red_i[tid] = i2;
+      }
+    }
+    __syncthreads();
+  }
+  best = red_i[0];
+  __syncthreads();
+  return best;
+}
+
+// block_rescaled_sum's order exactly: 128 partial sums over the tiles
+// i = tid mod 128, then the halving tree.
+__device__ float rescaled_sum(const float* pm, const float* ps, int n,
+                              float m, float* red) {
+  const int tid = threadIdx.x;
+  if (tid < F_NT) {
+    float acc = 0.f;
+    for (int i = tid; i < n; i += F_NT) {
+      const float s = ld_shared_global(ps + i);
+      acc += s * expf(ld_shared_global(pm + i) - m);
+    }
+    red[tid] = acc;
+  }
   __syncthreads();
   for (int s = F_NT / 2; s > 0; s >>= 1) {
-    if (tid < s) sm[tid] = fmaxf(sm[tid], sm[tid + s]);
+    if (tid < s) red[tid] += red[tid + s];
     __syncthreads();
   }
-  m = sm[0];
+  const float total = red[0];
   __syncthreads();
-  const float total = block_rescaled_sum(pzmax + base, pzsum + base, ntile,
-                                         m, sm);
-  float* row_soft = soft_t + (size_t)b * V;
-  for (int v = tid; v < V; v += F_NT)
-    row_soft[v] = expf(row_soft[v] - m) / total;
-  const float* row = embed + (size_t)s_id * E;
-  for (int e = tid; e < E; e += F_NT) x[(size_t)b * E + e] = row[e];
+  return total;
+}
+
+// Phase 3: the rows of step t (a block per row): ids, lps or the soft
+// row, and the next input x = embed[id].
+__device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
+                              int* red_i, int* s_id) {
+  const int tid = threadIdx.x, ntile = p.ntile, V = p.V, E = p.E;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const size_t base = (size_t)b * ntile;
+    const int best = first_argmax(p.pmax + base, ntile, red_m, red_i);
+    const int id = best >= 0 ? ld_shared_global(p.pidx + base + best) : 0;
+    if (!p.sample && p.lps != nullptr) {
+      const float m = best >= 0 ? ld_shared_global(p.pmax + base + best) : 0.f;
+      const float total = rescaled_sum(p.pmax + base, p.psum + base, ntile, m,
+                                       red_m);
+      if (tid == 0) p.lps[(size_t)b * p.T + t] = -logf(total);
+    } else if (p.sample && p.soft != nullptr) {
+      float m = -INFINITY;  // the max of z: the max of the tile maxima
+      for (int i = tid; i < ntile; i += NT)
+        m = fmaxf(m, ld_shared_global(p.pzmax + base + i));
+      red_m[tid] = m;
+      __syncthreads();
+      for (int s = NT / 2; s > 0; s >>= 1) {
+        if (tid < s) red_m[tid] = fmaxf(red_m[tid], red_m[tid + s]);
+        __syncthreads();
+      }
+      m = red_m[0];
+      __syncthreads();
+      const float total = rescaled_sum(p.pzmax + base, p.pzsum + base, ntile,
+                                       m, red_m);
+      // a batch of loads before the stores: the row is read and written
+      // through one pointer, so one value at a time would serialise the
+      // L2 round trips
+      float* row = p.soft + ((size_t)t * p.B + b) * V;
+      constexpr int NB = 8;
+      for (int v0 = tid; v0 < V; v0 += NB * NT) {
+        float z[NB];
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          const int v = v0 + q * NT;
+          z[q] = v < V ? ld_shared_global(row + v) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          const int v = v0 + q * NT;
+          if (v < V) __stcs(row + v, expf(z[q] - m) / total);
+        }
+      }
+    }
+    if (tid == 0) {
+      p.ids[(size_t)b * p.T + t] = id;
+      *s_id = id;
+    }
+    __syncthreads();
+    const float* erow = p.embed + (size_t)*s_id * E;
+    for (int e = tid; e < p.Ep; e += NT) {  // zeros in the pad columns
+      const float v = e < E ? erow[e] : 0.f;
+      p.x[(size_t)b * p.Ep + e] = v;
+      if (t == p.T - 1 && p.xT != nullptr && e < E)
+        p.xT[(size_t)b * E + e] = v;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
+    DecodeParams p) {
+  extern __shared__ float4 dyn_smem[];
+  __shared__ float red_m[NT];
+  __shared__ int red_i[NT];
+  __shared__ int s_id;
+  float* pool = reinterpret_cast<float*>(dyn_smem);
+  float* wres = pool + POOL_FLOATS;
+  const bool timed = p.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  unsigned long long t0 = timed ? clk() : 0;
+  auto mark = [&](int slot) {
+    if (timed) {
+      const unsigned long long now = clk();
+      p.prof[slot] += now - t0;
+      t0 = now;
+    }
+  };
+  if (p.resident) load_resident(p, wres);
+  __syncthreads();
+  mark(PROF_LOAD);
+
+  unsigned int target = 0;
+  for (int t = 0; t < p.T; ++t) {
+    const float* wres_l = wres;
+    for (int l = 0; l < p.nl; ++l) {
+      lstm_phase(p, t, l, wres_l, pool);
+      wres_l += 4 * p.upb * row_pad(l, p.E, p.H);
+      mark(PROF_LSTM);
+      grid_barrier(p.barrier, target);
+      mark(PROF_BARRIER);
+    }
+    if (p.pb == 8)
+      proj_phase<4, 1, 8>(p, t, pool);
+    else if (p.pb == 16)
+      proj_phase<4, 1, 16>(p, t, pool);
+    else if (p.pb == 32)
+      proj_phase<4, 2, 16>(p, t, pool);
+    else
+      proj_phase<4, 4, 16>(p, t, pool);
+    mark(PROF_PROJ);
+    grid_barrier(p.barrier, target);
+    mark(PROF_BARRIER);
+    combine_phase(p, t, red_m, red_i, &s_id);
+    mark(PROF_COMBINE);
+    if (t + 1 < p.T) grid_barrier(p.barrier, target);
+    mark(PROF_BARRIER);
+  }
 }
 
 // Mode sample_embed, after the time loop: emb [R, Ed] = soft [R, V] @
 // wd^T for the R = T*B rows of the soft sample, wd [Ed, V] the
 // discriminator's embedding (torch layout).  A block owns 64 embedding
-// columns and 32 soft rows: the projection's tile, with wd in the place
-// of the projection weight and the soft rows in the place of h.
+// columns and 32 soft rows: the register-tiled product of tile_dot.cuh.
 __global__ void __launch_bounds__(P_NT) embed_kernel(
     const float* __restrict__ wd, const float* __restrict__ soft, int V,
     int Ed, int R, float* __restrict__ emb) {
@@ -331,109 +648,74 @@ __global__ void __launch_bounds__(P_NT) embed_kernel(
   }
 }
 
-struct Residuals {
-  float* hs;     // [T, nl, B, H]
-  float* cs;     // [T, nl, B, H]
-  float* gates;  // [T, nl, B, 4H]
+// The launch plan the wrapper computed (kernels/decode_sample.py:
+// persistent_plan): blocks, units per block, resident (0/1), projection
+// batch chunk (8, 16, 32 or 64) and dynamic shared-memory bytes.
+struct Plan {
+  int blocks, upb, resident, pb, smem;
 };
 
-// The stacked LSTM of step t (nl launches); residuals when res != null.
-cudaError_t lstm_step(const void* const* layer_ptrs, int nl, int B, int E,
-                      int H, int t, const float* x, float* h, float* c,
-                      const Residuals* res, cudaStream_t s) {
-  const size_t layer_state = (size_t)B * H;
-  const dim3 grid((H + JT - 1) / JT, (B + L_BT - 1) / L_BT);
-  const float* hp = h_read(h, nl, B, H, t);
-  float* hn = h_write(h, nl, B, H, t);
-  for (int l = 0; l < nl; ++l) {
-    const float* w_ih = static_cast<const float*>(layer_ptrs[3 * l]);
-    const float* w_hh = static_cast<const float*>(layer_ptrs[3 * l + 1]);
-    const float* bias = static_cast<const float*>(layer_ptrs[3 * l + 2]);
-    const float* in = l == 0 ? x : hn + (size_t)(l - 1) * layer_state;
-    float *hs = nullptr, *cs = nullptr, *gates = nullptr;
-    if (res != nullptr) {
-      const size_t tl = (size_t)t * nl + l;
-      hs = res->hs + tl * layer_state;
-      cs = res->cs + tl * layer_state;
-      gates = res->gates + tl * 4 * layer_state;
-    }
-    lstm_layer_kernel<<<grid, L_NT, 0, s>>>(
-        w_ih, w_hh, bias, in, l == 0 ? E : H, hp + l * layer_state,
-        hn + l * layer_state, c + l * layer_state, B, H, hs, cs, gates);
-    const cudaError_t err = cudaGetLastError();
+unsigned long long* g_prof = nullptr;  // gic_decode_set_profile
+
+cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
+                const int* plan_in, cudaStream_t s) {
+  const Plan plan{plan_in[0], plan_in[1], plan_in[2], plan_in[3],
+                  plan_in[4]};
+  if (p.nl < 1 || p.nl > MAX_NL || plan.upb < 1 || plan.upb > MAX_UNITS ||
+      (long long)plan.blocks * plan.upb < p.H ||
+      (plan.pb != 8 && plan.pb != 16 && plan.pb != 32 && plan.pb != 64))
+    return cudaErrorInvalidValue;
+  const int want = (int)sizeof(float) *
+                   (POOL_FLOATS + (plan.resident ? resident_floats(
+                                       p.nl, p.E, p.H, plan.upb) : 0));
+  if (plan.smem != want) return cudaErrorInvalidValue;
+  for (int l = 0; l < p.nl; ++l) {
+    p.w_ih[l] = static_cast<const float*>(layer_ptrs[4 * l]);
+    p.w_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 1]);
+    p.b_ih[l] = static_cast<const float*>(layer_ptrs[4 * l + 2]);
+    p.b_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 3]);
+  }
+  p.upb = plan.upb;
+  p.resident = plan.resident;
+  p.pb = plan.pb;
+  p.ntile = (p.V + P_RT - 1) / P_RT;
+  p.Ep = pad4(p.E);
+  p.Hp = pad4(p.H);
+  p.prof = g_prof;
+  if (p.Hp != p.H) {  // the pad columns of h are read (times zero weights)
+    const cudaError_t err = cudaMemsetAsync(
+        p.h, 0, sizeof(float) * 2 * p.nl * p.B * p.Hp, s);
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  return launch_persistent(decode_persistent_kernel, p, p.barrier,
+                           plan.blocks, NT, (size_t)plan.smem, s);
 }
 
-// The Gumbel decode's time loop (modes sample_resid, sample_embed and,
-// with soft == null and res == null, sample): per step the stacked LSTM,
-// proj_sample_kernel and sample_finalize_kernel.  noise [T, B, V] receives
-// g when not null.
-cudaError_t sample_loop(const float* feats, const float* embed,
-                        const float* w_proj, const float* b_proj,
-                        const void* const* layer_ptrs, int B, int E, int H,
-                        int V, int nl, int T, float temp,
-                        unsigned long long seed, const float* u_in,
-                        float* u_out, float* x, float* h, float* c,
-                        float* psmax, int* psidx, float* pzmax, float* pzsum,
-                        int32_t* ids, float* soft, const Residuals* res,
-                        float* noise, cudaStream_t s) {
-  const int ntile = (V + P_RT - 1) / P_RT;
-  cudaError_t err = init_state(feats, nullptr, nullptr, nullptr, B, E, H, nl,
-                               x, h, c, s);
-  if (err != cudaSuccess) return err;
-
-  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
-  for (int t = 0; t < T; ++t) {
-    err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, res, s);
-    if (err != cudaSuccess) return err;
-    const size_t step = (size_t)t * B * V;
-    float* soft_t = soft != nullptr ? soft + step : nullptr;
-    float* g_t = noise != nullptr ? noise + step : nullptr;
-    proj_sample_kernel<<<proj_grid, P_NT, 0, s>>>(
-        w_proj, b_proj, top_h(h, nl, B, H, t), H, V, B, temp, seed, t, u_in,
-        u_out, soft_t, psmax, psidx, pzmax, pzsum, ntile, g_t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    sample_finalize_kernel<<<B, F_NT, 0, s>>>(psmax, psidx, pzmax, pzsum,
-                                              ntile, embed, E, V, x, ids,
-                                              soft_t, t, T);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-// The greedy time loop (modes serve, greedy and pretrain): per step the
-// stacked LSTM, proj_kernel and finalize_kernel; lps [B, T] and logits
-// [T, B, V] are written when not null.
-cudaError_t greedy_loop(const float* embed, const float* w_proj,
-                        const float* b_proj, const void* const* layer_ptrs,
-                        int B, int E, int H, int V, int nl, int T, float* x,
-                        float* h, float* c, float* pmax, int* pidx,
-                        float* psum, int32_t* ids, float* lps, float* logits,
-                        cudaStream_t s) {
-  const int ntile = (V + P_RT - 1) / P_RT;
-  const dim3 proj_grid(ntile, (B + P_BT - 1) / P_BT);
-  for (int t = 0; t < T; ++t) {
-    cudaError_t err = lstm_step(layer_ptrs, nl, B, E, H, t, x, h, c, nullptr,
-                                s);
-    if (err != cudaSuccess) return err;
-    float* logits_t = logits != nullptr ? logits + (size_t)t * B * V
-                                        : nullptr;
-    proj_kernel<<<proj_grid, P_NT, 0, s>>>(w_proj, b_proj,
-                                           top_h(h, nl, B, H, t), H, V, B,
-                                           pmax, pidx, psum, ntile,
-                                           logits_t);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    finalize_kernel<<<B, F_NT, 0, s>>>(pmax, pidx, psum, ntile, embed, E, x,
-                                       ids, lps, t, T);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+DecodeParams base_params(const float* feats, const float* embed,
+                         const float* w_proj, const float* b_proj, int B,
+                         int E, int H, int V, int nl, int T, float* x,
+                         float* h, float* c, float* pmax, int* pidx,
+                         unsigned int* barrier, int32_t* ids) {
+  DecodeParams p = {};
+  p.x_init = feats;
+  p.embed = embed;
+  p.w_proj = w_proj;
+  p.b_proj = b_proj;
+  p.B = B;
+  p.E = E;
+  p.H = H;
+  p.V = V;
+  p.nl = nl;
+  p.T = T;
+  p.x = x;
+  p.h = h;
+  p.c = c;
+  p.pmax = pmax;
+  p.pidx = pidx;
+  p.barrier = barrier;
+  p.ids = ids;
+  p.temp = 1.f;
+  return p;
 }
 
 }  // namespace
@@ -448,14 +730,44 @@ const char* gic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The whole T-step greedy decode on `stream`.  layer_ptrs holds 3*nl
-// device pointers: w_ih [4H, In], w_hh [4H, H], bias = b_ih + b_hh [4H] per
-// layer.  Carried state (each pointer may be null): h0, c0 [nl, B, H] and
-// x0 [B, E] in place of h = c = 0 and x = feats; hT, cT [nl, B, H] and
-// xT [B, E] receive the state after the last step.  Scratch: x [B, E],
-// h [2, nl, B, H], c [nl, B, H], pmax/pidx/psum [B, ntile].  Outputs:
-// ids, lps [B, T].  Returns 0 or the first CUDA error code; nothing
-// synchronises.
+// The current device's SM count and opt-in shared memory per block, for
+// the wrapper's launch plan.
+int gic_device_limits(int* n_sm, int* smem_optin) {
+  return device_limits(n_sm, smem_optin);
+}
+
+// From now on the decode kernel adds its block 0's phase clocks (cycles:
+// resident load, layer phases, barrier waits, projection, row combine)
+// into prof [5] (device memory, zeroed by the caller); null turns it off.
+int gic_decode_set_profile(unsigned long long* prof) {
+  g_prof = prof;
+  return 0;
+}
+
+// Registers per thread and spilled bytes of the persistent kernel.
+int gic_decode_kernel_attrs(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, decode_persistent_kernel);
+  if (err != cudaSuccess) return err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
+}
+
+// Every entry point below is one cooperative launch of the persistent
+// kernel on `stream` (sample_embed: and one embed_kernel launch).
+// layer_ptrs holds 4*nl device pointers: w_ih [4H, In], w_hh [4H, H],
+// b_ih and b_hh [4H] per layer; plan the five ints of Plan; barrier
+// one device unsigned int.  Scratch: x [B, Ep], h [2, nl, B, Hp] (rows
+// padded to 4 floats), c [nl, B, H], the per-tile statistics
+// [B, ceil(V / 64)].  Returns 0 or
+// the first CUDA error code (cudaErrorCooperativeLaunchTooLarge when the
+// grid cannot be co-resident); nothing synchronises.
+
+// Greedy / serve.  Carried state (each pointer may be null): h0, c0
+// [nl, B, H] and x0 [B, E] in place of h = c = 0 and x = feats; hT, cT
+// [nl, B, H] and xT [B, E] receive the state after the last step.
+// Outputs: ids, lps [B, T].
 int gic_decode_serve(const float* feats, const float* embed,
                      const float* w_proj, const float* b_proj,
                      const void* const* layer_ptrs, int B, int E, int H,
@@ -463,38 +775,40 @@ int gic_decode_serve(const float* feats, const float* embed,
                      const float* x0, float* x, float* h, float* c,
                      float* pmax, int* pidx, float* psum, int32_t* ids,
                      float* lps, float* hT, float* cT, float* xT,
-                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = init_state(feats, h0, c0, x0, B, E, H, nl, x, h, c, s);
-  if (err != cudaSuccess) return err;
-  err = greedy_loop(embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, x,
-                    h, c, pmax, pidx, psum, ids, lps, nullptr, s);
-  if (err != cudaSuccess) return err;
-  return emit_state(h, c, x, B, E, H, nl, T, hT, cT, xT, s);
+                     const int* plan, unsigned int* barrier, void* stream) {
+  DecodeParams p = base_params(x0 != nullptr ? x0 : feats, embed, w_proj,
+                               b_proj, B, E, H, V, nl, T, x, h, c, pmax,
+                               pidx, barrier, ids);
+  p.h0 = h0;
+  p.c0 = c0;
+  p.psum = psum;
+  p.lps = lps;
+  p.hT = hT;
+  p.cT = cT;
+  p.xT = xT;
+  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
 // Mode pretrain: the greedy decode from (0, 0, feats) with the logits
-// [T, B, V] of every step and no log-probabilities.  Scratch as
-// gic_decode_serve.  Outputs: ids [B, T], logits [T, B, V].
+// [T, B, V] of every step and no log-probabilities.
 int gic_decode_pretrain(const float* feats, const float* embed,
                         const float* w_proj, const float* b_proj,
                         const void* const* layer_ptrs, int B, int E, int H,
                         int V, int nl, int T, float* x, float* h, float* c,
                         float* pmax, int* pidx, float* psum, int32_t* ids,
-                        float* logits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = init_state(feats, nullptr, nullptr, nullptr, B, E, H, nl,
-                               x, h, c, s);
-  if (err != cudaSuccess) return err;
-  return greedy_loop(embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, x,
-                     h, c, pmax, pidx, psum, ids, nullptr, logits, s);
+                        float* logits, const int* plan,
+                        unsigned int* barrier, void* stream) {
+  DecodeParams p = base_params(feats, embed, w_proj, b_proj, B, E, H, V, nl,
+                               T, x, h, c, pmax, pidx, barrier, ids);
+  p.psum = psum;
+  p.logits = logits;
+  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
-// The whole T-step Gumbel-softmax sample with BPTT residuals on `stream`.
-// Weights and x/h/c scratch as gic_decode_serve; per-tile scratch
-// psmax/psidx/pzmax/pzsum [B, ntile].  Noise: u_in [T, B, V] when not null,
-// else Philox keyed by `seed`; the uniforms used are copied to u_out
-// [T, B, V] when it is not null.  Outputs: ids [B, T], soft [T, B, V],
+// The Gumbel-softmax sample with BPTT residuals.  Noise: u_in [T, B, V]
+// when not null, else Philox keyed by `seed`; the uniforms used are copied
+// to u_out [T, B, V] when it is not null.  Scratch statistics psmax /
+// psidx / pzmax / pzsum [B, ntile].  Outputs: ids [B, T], soft [T, B, V],
 // hs/cs [T, nl, B, H], gates [T, nl, B, 4H].
 int gic_decode_sample_resid(
     const float* feats, const float* embed, const float* w_proj,
@@ -502,32 +816,44 @@ int gic_decode_sample_resid(
     int V, int nl, int T, float temp, unsigned long long seed,
     const float* u_in, float* u_out, float* x, float* h, float* c,
     float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
-    float* soft, float* hs, float* cs, float* gates, void* stream) {
-  const Residuals res{hs, cs, gates};
-  return sample_loop(feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V,
-                     nl, T, temp, seed, u_in, u_out, x, h, c, psmax, psidx,
-                     pzmax, pzsum, ids, soft, &res, nullptr,
-                     static_cast<cudaStream_t>(stream));
+    float* soft, float* hs, float* cs, float* gates, const int* plan,
+    unsigned int* barrier, void* stream) {
+  DecodeParams p = base_params(feats, embed, w_proj, b_proj, B, E, H, V, nl,
+                               T, x, h, c, psmax, psidx, barrier, ids);
+  p.sample = 1;
+  p.temp = temp;
+  p.seed = seed;
+  p.u_in = u_in;
+  p.u_out = u_out;
+  p.pzmax = pzmax;
+  p.pzsum = pzsum;
+  p.soft = soft;
+  p.hs = hs;
+  p.cs = cs;
+  p.gates = gates;
+  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
 // Mode sample: the Gumbel-max decode, ids = argmax(logits + g) per step,
-// and the noise g [T, B, V]; no soft sample, no residuals.  Noise source
-// and scratch as gic_decode_sample_resid (no pzmax / pzsum).
+// and the noise g [T, B, V]; no soft sample, no residuals.
 int gic_decode_sample(const float* feats, const float* embed,
                       const float* w_proj, const float* b_proj,
                       const void* const* layer_ptrs, int B, int E, int H,
                       int V, int nl, int T, unsigned long long seed,
                       const float* u_in, float* x, float* h, float* c,
                       float* psmax, int* psidx, int32_t* ids, float* noise,
-                      void* stream) {
-  return sample_loop(feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V,
-                     nl, T, 1.f, seed, u_in, nullptr, x, h, c, psmax, psidx,
-                     nullptr, nullptr, ids, nullptr, nullptr, noise,
-                     static_cast<cudaStream_t>(stream));
+                      const int* plan, unsigned int* barrier, void* stream) {
+  DecodeParams p = base_params(feats, embed, w_proj, b_proj, B, E, H, V, nl,
+                               T, x, h, c, psmax, psidx, barrier, ids);
+  p.sample = 1;
+  p.seed = seed;
+  p.u_in = u_in;
+  p.noise = noise;
+  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
 // Mode sample_embed: gic_decode_sample_resid, then emb [T*B, Ed] = soft
-// @ wd^T with wd [Ed, V] (one launch over all rows).
+// @ wd^T with wd [Ed, V] (one embed_kernel launch over all rows).
 int gic_decode_sample_embed(
     const float* feats, const float* embed, const float* w_proj,
     const float* b_proj, const void* const* layer_ptrs, int B, int E, int H,
@@ -535,14 +861,13 @@ int gic_decode_sample_embed(
     const float* u_in, const float* wd, int Ed, float* x, float* h, float* c,
     float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
     float* soft, float* hs, float* cs, float* gates, float* emb,
-    void* stream) {
+    const int* plan, unsigned int* barrier, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Residuals res{hs, cs, gates};
-  cudaError_t err = sample_loop(feats, embed, w_proj, b_proj, layer_ptrs, B,
-                                E, H, V, nl, T, temp, seed, u_in, nullptr, x,
-                                h, c, psmax, psidx, pzmax, pzsum, ids, soft,
-                                &res, nullptr, s);
-  if (err != cudaSuccess) return err;
+  const int err = gic_decode_sample_resid(
+      feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, temp, seed,
+      u_in, nullptr, x, h, c, psmax, psidx, pzmax, pzsum, ids, soft, hs, cs,
+      gates, plan, barrier, stream);
+  if (err != 0) return err;
   const int R = T * B;
   const dim3 grid((Ed + P_RT - 1) / P_RT, (R + P_BT - 1) / P_BT);
   embed_kernel<<<grid, P_NT, 0, s>>>(wd, soft, V, Ed, R, emb);

@@ -43,12 +43,28 @@
 // initial state works); the carries start at zero and leave as (dh0, dc0).
 // At the training width (H = 512, T = 36, B = 64) its T products of
 // [B, 4H] x [4H, H] are 4.8 GFLOP, 0.072 ms at 67 TFLOP/s, against about
-// 56 MB of bytes (0.017 ms): bound by operations.  It runs the same two
-// kernels per step as the chain, so the same per-launch latency adds up.
+// 56 MB of bytes (0.017 ms): bound by operations.  Two launches per step
+// (the chain's kernels) spent about 50 us a step on launch latency and on
+// re-reading w_hh through small K tiles.  So it is one persistent kernel
+// (persistent.cuh), one cooperative launch per call, the TPU kernel's
+// design: a block per SM owns hidden units [j0, j0 + upb), keeps their
+// rows of w_hh [H, 4H] in shared memory for the whole call (H = 512:
+// 4 units, 32 KB; read from global memory each step into the K-tile stage
+// when they do not fit) and their (dh, dc) carries in shared memory.  Per
+// step, t = T-1 .. 0: the gate gradients of its units from its own
+// carries, written to d_pre[t]; one grid barrier; then its units' dh
+// carry = d_pre[t] @ w_hh[j]^T over all B rows, d_pre[t] staged in K
+// tiles through L2 by cp.async.  The next step needs only the block's own carries, so
+// one barrier per step.  The reverse is held by tolerance, so each product
+// is split four ways along K inside the block (a thread owns a batch row
+// and a quarter of the K chunks of every unit: the staged row is read once
+// for all units), the partial sums added in shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "persistent.cuh"
 #include "tile_dot.cuh"
 
 namespace {
@@ -123,6 +139,170 @@ __global__ void __launch_bounds__(C_NT) carry_kernel(
   }
 }
 
+constexpr int R_MAX_UNITS = 16;
+constexpr int R_SLOT = 64 * (128 + 4);  // floats of one pipeline slot
+constexpr int R_DEPTH = 4;                 // slots in the pool
+constexpr int R_POOL = R_DEPTH * R_SLOT;
+constexpr int R_SPLIT = 4;  // K split of each product inside the block
+
+// Phase clocks of block 0 (clock64 cycles, summed over the call) when the
+// caller asked for them (gic_reverse_set_profile).
+enum { RPROF_LOAD, RPROF_GATES, RPROF_BARRIER, RPROF_PRODUCT, RPROF_SLOTS };
+
+struct ReverseParams {
+  const float* w_hh;    // [H, 4H]
+  const float* d_hs;    // [T, B, H]
+  const float* gates;   // [T, B, 4H]
+  const float* c_prev;  // [T, B, H]
+  const float* cs;      // [T, B, H]
+  float* dh;            // [B, H] out: dh0
+  float* dc;            // [B, H] out: dc0
+  float* d_pre;         // [T, B, 4H] out
+  unsigned int* barrier;
+  unsigned long long* prof;  // [RPROF_SLOTS] or null
+  int T, B, H, upb, resident;
+};
+
+__host__ __device__ inline size_t reverse_smem_floats(int B, int H, int upb,
+                                                     int resident) {
+  return R_POOL + (resident ? (size_t)upb * (gic::kpad(4 * H) + 4) : 0) +
+         2 * (size_t)B * upb;
+}
+
+// Dynamic shared memory: the K-tile pool, the block's w_hh rows
+// [upb][kpad(4H) + 4] when resident, then the carries dh, dc [B * upb]
+// each (item e = b * upb + u).
+__global__ void __launch_bounds__(gic::PT_NT, 1) reverse_persistent_kernel(
+    ReverseParams p) {
+  using namespace gic;
+  extern __shared__ float4 dyn_smem[];
+  float* pool = reinterpret_cast<float*>(dyn_smem);
+  const int B = p.B, H = p.H, K = 4 * H, upb = p.upb, tid = threadIdx.x;
+  const int j0 = blockIdx.x * upb, wst = kpad(K) + 4;
+  float* wres = pool + R_POOL;
+  float* dh_s = wres + (p.resident ? upb * wst : 0);
+  float* dc_s = dh_s + B * upb;
+  const int n_own = B * upb;
+  const bool timed = p.prof != nullptr && blockIdx.x == 0 && tid == 0;
+  unsigned long long t0 = timed ? clock64() : 0;
+  auto mark = [&](int slot) {
+    if (timed) {
+      const unsigned long long now = clock64();
+      p.prof[slot] += now - t0;
+      t0 = now;
+    }
+  };
+
+  if (p.resident) {
+    for (int e = tid; e < upb * wst; e += PT_NT) {
+      const int u = e / wst, k = e % wst, j = j0 + u;
+      wres[e] = j < H && k < K ? p.w_hh[(size_t)j * K + k] : 0.f;
+    }
+  }
+  for (int e = tid; e < n_own; e += PT_NT) dh_s[e] = dc_s[e] = 0.f;
+  __syncthreads();
+  mark(RPROF_LOAD);
+
+  // a thread owns batch row bl of the chunk and the k-quarter q (float4
+  // chunks m with m mod 4 = q) of every unit's product
+  const int bc = min(B, PT_NT / R_SPLIT), q = tid / bc, bl = tid % bc;
+  const bool active = tid < R_SPLIT * bc;
+  const int kt = tile_k(p.resident ? bc : bc + upb, R_SLOT, K);
+  const int ntiles = kpad(K) / kt, xfl = bc * (kt + 4);
+  const Seg w_seg{p.w_hh, K, K,
+                  reinterpret_cast<uintptr_t>(p.w_hh) % 16 == 0};
+  const Seg none{nullptr, 0, 0, true};
+  unsigned int target = 0;
+  for (int t = p.T - 1; t >= 0; --t) {
+    // the gate gradients of the block's units (gate_grad_kernel's)
+    for (int e = tid; e < n_own && j0 < H; e += PT_NT) {
+      const int b = e / upb, j = j0 + e % upb;
+      if (j >= H) continue;
+      const size_t sidx = ((size_t)t * B + b) * H + j;
+      const float* g = p.gates + ((size_t)t * B + b) * K + j;
+      const float ig = sigmoidf(g[0]), fg = sigmoidf(g[H]);
+      const float gg = tanhf(g[2 * H]), og = sigmoidf(g[3 * H]);
+      const float dh = dh_s[e] + p.d_hs[sidx];
+      const float tc = tanhf(p.cs[sidx]);
+      const float d_o = dh * tc * og * (1.f - og);
+      const float dc = dc_s[e] + dh * og * (1.f - tc * tc);
+      const float cp = p.c_prev[sidx];
+      float* dp = p.d_pre + ((size_t)t * B + b) * K + j;
+      dp[0] = dc * gg * ig * (1.f - ig);
+      dp[H] = dc * cp * fg * (1.f - fg);
+      dp[2 * H] = dc * ig * (1.f - gg * gg);
+      dp[3 * H] = d_o;
+      dc_s[e] = dc * fg;
+    }
+    mark(RPROF_GATES);
+    grid_barrier(p.barrier, target);
+    mark(RPROF_BARRIER);
+
+    // dh carry of the block's units: d_pre[t] @ w_hh[j]^T, each thread's
+    // k-quarter partial sums added in shared memory afterwards
+    const Seg x_seg{p.d_pre + (size_t)t * B * K, K, K, true};
+    for (int b0 = 0; b0 < B && j0 < H; b0 += bc) {
+      float acc[R_MAX_UNITS];
+#pragma unroll
+      for (int u = 0; u < R_MAX_UNITS; ++u) acc[u] = 0.f;
+      k_pipeline<R_DEPTH>(
+          pool, R_SLOT, ntiles,
+          [&](int i, float* slot) {
+            stage_rows(slot, kt, bc, RowRange{b0, B}, x_seg, K, none, i * kt);
+            if (!p.resident)
+              stage_rows(slot + xfl, kt, upb, RowRange{j0, H}, w_seg, K, none,
+                         i * kt);
+          },
+          [&](int it, const float* slot) {
+            if (!active) return;
+            const float* wbase = p.resident ? wres + it * kt : slot + xfl;
+            const int ws_row = p.resident ? wst : kt + 4;
+            const float* xrow = slot + bl * (kt + 4);
+            for (int kk = 4 * q; kk < kt; kk += 4 * R_SPLIT) {
+              const float4 x = ld4(xrow + kk);
+#pragma unroll
+              for (int u = 0; u < R_MAX_UNITS; ++u) {
+                if (u >= upb) break;
+                const float4 w = ld4(wbase + (size_t)u * ws_row + kk);
+                acc[u] = fmaf(w.x, x.x, acc[u]);
+                acc[u] = fmaf(w.y, x.y, acc[u]);
+                acc[u] = fmaf(w.z, x.z, acc[u]);
+                acc[u] = fmaf(w.w, x.w, acc[u]);
+              }
+            }
+          });
+      // partials [R_SPLIT][bc][upb] in the (now free) pool
+      if (active) {
+#pragma unroll
+        for (int u = 0; u < R_MAX_UNITS; ++u) {
+          if (u >= upb) break;
+          pool[((size_t)q * bc + bl) * upb + u] = acc[u];
+        }
+      }
+      __syncthreads();
+      for (int e = tid; e < bc * upb; e += PT_NT) {
+        const int b = b0 + e / upb;
+        if (b < B) {
+          const float* pt = pool + e;
+          const size_t qs = (size_t)bc * upb;
+          dh_s[b * upb + e % upb] = (pt[0] + pt[qs]) + (pt[2 * qs] + pt[3 * qs]);
+        }
+      }
+      __syncthreads();
+    }
+    mark(RPROF_PRODUCT);
+  }
+  for (int e = tid; e < n_own; e += PT_NT) {
+    const int b = e / upb, j = j0 + e % upb;
+    if (j < H) {
+      p.dh[(size_t)b * H + j] = dh_s[e];
+      p.dc[(size_t)b * H + j] = dc_s[e];
+    }
+  }
+}
+
+unsigned long long* g_prof = nullptr;  // gic_reverse_set_profile
+
 }  // namespace
 
 extern "C" {
@@ -173,36 +353,49 @@ int gic_lstm_bptt_chain(const float* w_hhs, const float* w_ihs_upper,
   return 0;
 }
 
-// One layer's reverse recurrence on `stream`.  Inputs: w_hh [H, 4H] (the
-// transposed torch-layout recurrent weight), d_hs [T, B, H], gates
-// [T, B, 4H], c_prev and cs [T, B, H] (the cell state entering and
-// leaving each step).  Outputs: d_pre [T, B, 4H]; dh and dc [B, H], the
-// carries, which leave as dh0 and dc0.  Returns 0 or the first CUDA error
-// code; nothing synchronises.
+// One layer's reverse recurrence on `stream`: one cooperative launch.
+// Inputs: w_hh [H, 4H] (the transposed torch-layout recurrent weight),
+// d_hs [T, B, H], gates [T, B, 4H], c_prev and cs [T, B, H] (the cell
+// state entering and leaving each step).  Outputs: d_pre [T, B, 4H]; dh
+// and dc [B, H], the carries, which leave as dh0 and dc0.  plan: blocks,
+// units per block, resident (0/1), dynamic shared-memory bytes
+// (kernels/lstm_bptt.py:reverse_plan); barrier one device unsigned int.
+// Returns 0 or the first CUDA error code (cudaErrorCooperativeLaunchTooLarge
+// when the grid cannot be co-resident); nothing synchronises.
 int gic_bptt_reverse(const float* w_hh, const float* d_hs, const float* gates,
                      const float* c_prev, const float* cs, int T, int B, int H,
-                     float* dh, float* dc, float* d_pre, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t state = (size_t)B * H;
-  cudaError_t err = cudaMemsetAsync(dh, 0, sizeof(float) * state, s);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(dc, 0, sizeof(float) * state, s);
-  if (err != cudaSuccess) return err;
+                     float* dh, float* dc, float* d_pre, const int* plan,
+                     unsigned int* barrier, void* stream) {
+  const int blocks = plan[0], upb = plan[1], resident = plan[2];
+  const int smem = plan[3];
+  if (upb < 1 || upb > R_MAX_UNITS || (long long)blocks * upb < H)
+    return cudaErrorInvalidValue;
+  if ((size_t)smem != 4 * reverse_smem_floats(B, H, upb, resident))
+    return cudaErrorInvalidValue;
+  const ReverseParams p{w_hh,    d_hs,   gates, c_prev, cs, dh, dc,
+                        d_pre,   barrier, g_prof, T,     B,  H,  upb,
+                        resident};
+  return gic::launch_persistent(reverse_persistent_kernel, p, barrier,
+                                blocks, gic::PT_NT, (size_t)smem,
+                                static_cast<cudaStream_t>(stream));
+}
 
-  const int g_blocks = (int)((state + G_NT - 1) / G_NT);
-  const dim3 grid((H + C_RT - 1) / C_RT, (B + C_BT - 1) / C_BT, 1);
-  for (int t = T - 1; t >= 0; --t) {
-    float* dp = d_pre + (size_t)t * 4 * state;
-    gate_grad_kernel<<<g_blocks, G_NT, 0, s>>>(
-        gates + (size_t)t * 4 * state, cs + (size_t)t * state,
-        c_prev + (size_t)t * state, d_hs + (size_t)t * state, dh, dc, dp, B,
-        H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    carry_kernel<<<grid, C_NT, 0, s>>>(dp, w_hh, nullptr, dh, nullptr, B, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+// From now on the reverse kernel adds its block 0's phase clocks (cycles:
+// load, gate gradients, barrier waits, product) into prof [4] (device
+// memory, zeroed by the caller); null turns it off.
+int gic_reverse_set_profile(unsigned long long* prof) {
+  g_prof = prof;
+  return 0;
+}
+
+// Registers per thread and spilled bytes of the reverse kernel.
+int gic_reverse_kernel_attrs(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&a, reverse_persistent_kernel);
+  if (err != cudaSuccess) return err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
   return 0;
 }
 

@@ -27,7 +27,11 @@ is ``serve`` on an int8 / packed-int4 quantized decoder
 
 * On CUDA tensors the wrappers launch the hand-written kernels
   (``csrc/decode_serve.cu``, ``csrc/decode_qserve.cu``,
-  ``csrc/decode_embed_bwd.cu``, built at first use) or raise.
+  ``csrc/decode_embed_bwd.cu``, built at first use) or raise.  Every mode
+  of the dense decode is one cooperative launch of one persistent kernel
+  (the time loop inside, each block's LSTM weights resident in shared
+  memory), sized by :func:`persistent_plan`; ``sample_embed`` adds one
+  launch of the embedding product.
 * On CPU tensors they run the ``*_plain`` functions, the same arithmetic
   as a Python loop of PyTorch operations.  Nothing falls back from one to
   the other.
@@ -39,7 +43,11 @@ Launch counters (one per call that reached the card):
 launches`` (sample), ``decode_sample_resid.launches`` (sample_resid),
 ``decode_sample_embed.launches`` (sample_embed),
 ``decode_sample_embed_bwd.launches`` and ``decode_sample_q_serve.launches``
-(quantized serve, any bits, with or without carry).
+(quantized serve, any bits, with or without carry).  ``branches`` counts
+the dense launches by the source of the blocks' LSTM weights
+(``resident``: shared memory for the whole call; ``streamed``: global
+memory each step, where they do not fit) and ``last_plan`` is the plan of
+the last one.
 """
 
 from __future__ import annotations
@@ -255,40 +263,145 @@ def _validate(features, lstm_layers, w_proj, b_proj, embed, seq_len):
 def _library() -> ctypes.CDLL:
     lib = build.load("decode_serve")
     if not getattr(lib, "_gic_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        head = [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6
+        tail = [ctypes.POINTER(i), vp, vp]     # plan, barrier, stream
         lib.gic_proj_tile.argtypes = []
         lib.gic_proj_tile.restype = i
-        lib.gic_decode_serve.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [vp] * 15)
-        lib.gic_decode_serve.restype = i
-        lib.gic_decode_sample_resid.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6
-            + [ctypes.c_float, ctypes.c_uint64] + [vp] * 15)
-        lib.gic_decode_sample_resid.restype = i
-        lib.gic_decode_pretrain.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [vp] * 9)
-        lib.gic_decode_pretrain.restype = i
-        lib.gic_decode_sample.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6 + [ctypes.c_uint64]
-            + [vp] * 9)
-        lib.gic_decode_sample.restype = i
-        lib.gic_decode_sample_embed.argtypes = (
-            [vp] * 4 + [ctypes.POINTER(vp)] + [i] * 6
-            + [ctypes.c_float, ctypes.c_uint64, vp, vp, i] + [vp] * 14)
-        lib.gic_decode_sample_embed.restype = i
+        lib.gic_decode_kernel_attrs.argtypes = [ctypes.POINTER(i)] * 2
+        lib.gic_decode_kernel_attrs.restype = i
+        for name, args in (
+                ("gic_decode_serve", [vp] * 14),
+                ("gic_decode_sample_resid",
+                 [f, ctypes.c_uint64] + [vp] * 14),
+                ("gic_decode_pretrain", [vp] * 8),
+                ("gic_decode_sample", [ctypes.c_uint64] + [vp] * 8),
+                ("gic_decode_sample_embed",
+                 [f, ctypes.c_uint64, vp, vp, i] + [vp] * 13)):
+            getattr(lib, name).argtypes = head + args + tail
+            getattr(lib, name).restype = i
         lib._gic_typed = True
     return lib
 
 
+# The persistent decode kernel's geometry (csrc/persistent.cuh,
+# csrc/decode_serve.cu): 256 threads; a cp.async pool of 18432 floats (K
+# tiles in flight: 8 slots for the layers, 4 for the projection); at most
+# 16 hidden units and 8 layers; 64-row
+# vocabulary tiles; rows of [x | h] padded to 4 floats per part, to a
+# multiple of 32 (K_TILE) in all.
+THREADS = 256
+K_TILE = 32
+STAGE_BYTES = 4 * 4 * 4608
+MAX_UNITS = 16
+MAX_LAYERS = 8
+PROJ_ROWS = 64
+STATIC_SMEM = 4096          # margin for the kernel's static shared memory
+MAX_BLOCKS_PER_SM = 2048 // THREADS
+
+
+def _kpad(k):
+    return -(-k // K_TILE) * K_TILE
+
+
+def _pad4(k):
+    return -(-k // 4) * 4
+
+
+def persistent_plan(B: int, E: int, H: int, V: int, nl: int, n_sm: int,
+                    smem_limit: int, blocks: int = None) -> dict:
+    """The persistent decode kernel's launch plan for batch ``B``, widths
+    ``E``, ``H``, vocabulary ``V`` and ``nl`` layers on a card of ``n_sm``
+    SMs whose blocks may opt into ``smem_limit`` bytes of shared memory.
+
+    Returns ``blocks`` (default one per SM, no more than the hidden units
+    or vocabulary tiles need), the hidden units (``units``: ``(j0, j1)``
+    per block, the same in every layer), vocabulary rows (``vocab_rows``:
+    the ``(v0, v1)`` 64-row tiles of each block) and batch rows of the row
+    combine (``batch_rows``) that each block owns, whether the blocks'
+    gate rows of ``[w_ih | w_hh]`` stay in shared memory for the whole call
+    (``resident``; otherwise they are read from global memory each step),
+    the dynamic shared-memory bytes, the projection's batch chunk and the
+    grid barriers per step.  ``ints`` is what the C call takes.  Raises
+    ValueError when the work does not fit (more than 16 units a block or 8
+    layers) or the grid cannot be co-resident."""
+    for name, v in (("B", B), ("E", E), ("H", H), ("V", V), ("nl", nl),
+                    ("n_sm", n_sm), ("smem_limit", smem_limit)):
+        if v < 1:
+            raise ValueError(f"persistent_plan: {name} = {v} must be "
+                             "positive")
+    if nl > MAX_LAYERS:
+        raise ValueError(f"persistent_plan: {nl} layers exceed "
+                         f"{MAX_LAYERS}")
+    ntile = -(-V // PROJ_ROWS)
+    grid = min(n_sm, max(H, ntile)) if blocks is None else int(blocks)
+    if grid < 1:
+        raise ValueError(f"persistent_plan: blocks = {grid} must be "
+                         "positive")
+    upb = -(-H // grid)
+    if upb > MAX_UNITS:
+        raise ValueError(f"persistent_plan: {upb} hidden units per block "
+                         f"(H = {H} over {grid} blocks) exceed {MAX_UNITS}")
+    resident_bytes = 4 * sum(
+        4 * upb * (_kpad(_pad4(E if l == 0 else H) + _pad4(H)) + 4)
+        for l in range(nl))
+    resident = STAGE_BYTES + resident_bytes + STATIC_SMEM <= smem_limit
+    smem = STAGE_BYTES + (resident_bytes if resident else 0)
+    if smem + STATIC_SMEM > smem_limit:
+        raise ValueError(f"persistent_plan: {smem} bytes of shared memory "
+                         f"exceed the limit {smem_limit}")
+    per_sm = min(MAX_BLOCKS_PER_SM, smem_limit // (smem + STATIC_SMEM))
+    if grid > per_sm * n_sm:
+        raise ValueError(f"persistent_plan: {grid} blocks cannot be "
+                         f"co-resident ({per_sm} per SM x {n_sm} SMs)")
+    pb = 8 if B <= 8 else 16 if B <= 16 else 32 if B <= 32 else 64
+    return {"blocks": grid, "threads": THREADS, "units_per_block": upb,
+            "units": [(min(b * upb, H), min((b + 1) * upb, H))
+                      for b in range(grid)],
+            "vocab_rows": [[(t * PROJ_ROWS, min((t + 1) * PROJ_ROWS, V))
+                            for t in range(b, ntile, grid)]
+                           for b in range(grid)],
+            "batch_rows": [list(range(b, B, grid)) for b in range(grid)],
+            "resident": resident, "smem_bytes": smem, "proj_batch_chunk": pb,
+            "barriers_per_step": nl + 2,
+            "ints": (grid, upb, int(resident), pb, smem)}
+
+
+def kernel_attrs():
+    """``{"registers": n, "local_bytes": n}`` of the persistent decode
+    kernel (spills show as local bytes)."""
+    lib = _library()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    build.raise_on_error(lib, lib.gic_decode_kernel_attrs(
+        ctypes.byref(regs), ctypes.byref(local)), "kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+PROFILE_SLOTS = ("load", "lstm", "barrier", "proj", "combine")
+
+
+def set_phase_profile(prof):
+    """From now on every launch adds its block 0's clock64 cycles per
+    phase (:data:`PROFILE_SLOTS`) into ``prof`` (an int64 CUDA tensor of
+    5 zeros); ``None`` turns it off."""
+    lib = _library()
+    lib.gic_decode_set_profile.argtypes = [ctypes.c_void_p]
+    lib.gic_decode_set_profile(None if prof is None else prof.data_ptr())
+
+
+def _plan_args(lib, device, B, E, H, V, nl):
+    """The launch plan on ``device``, its C ints and a barrier counter."""
+    plan = persistent_plan(B, E, H, V, nl, *build.device_limits(lib, device))
+    return (plan, (ctypes.c_int * 5)(*plan["ints"]),
+            torch.empty(1, dtype=torch.int32, device=device))
+
+
 def _layer_pointers(lstm_layers):
-    """``b_ih + b_hh`` once per call (as the TPU kernel's wrapper does) and
-    the ``(w_ih, w_hh, bias)`` pointer array; the bias tensors are returned
-    so they outlive the launch."""
-    biases = [(p["b_ih"] + p["b_hh"]).contiguous() for p in lstm_layers]
-    ptrs = []
-    for p, bias in zip(lstm_layers, biases):
-        ptrs += [p["w_ih"].data_ptr(), p["w_hh"].data_ptr(), bias.data_ptr()]
-    return biases, (ctypes.c_void_p * len(ptrs))(*ptrs)
+    """The ``(w_ih, w_hh, b_ih, b_hh)`` pointer array of the layers (the
+    kernel adds the two biases itself)."""
+    ptrs = [p[k].data_ptr() for p in lstm_layers
+            for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def _empty_on(device):
@@ -301,10 +414,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry):
+def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry,
+                   padded=False):
     """Scratch (x, h ping-pong, c, per-tile statistics), outputs (ids,
-    lps) and, with ``carry``, the state outputs (hT, cT, xT)."""
-    bufs = {"x": empty(B, E), "h": empty(2, nl, B, H), "c": empty(nl, B, H),
+    lps) and, with ``carry``, the state outputs (hT, cT, xT).  For the
+    persistent kernel (``padded``) the rows of x and h are padded to 4
+    floats."""
+    if padded:
+        x, h = _padded(empty, nl, B, E, H)
+    else:
+        x, h = empty(B, E), empty(2, nl, B, H)
+    bufs = {"x": x, "h": h, "c": empty(nl, B, H),
             "pmax": empty(B, ntile), "psum": empty(B, ntile),
             "pidx": empty(B, ntile, dtype=torch.int32),
             "ids": empty(B, seq_len, dtype=torch.int32),
@@ -320,9 +440,13 @@ def _outputs(bufs, carry):
     return bufs["ids"], bufs["lps"], (bufs["hT"], bufs["cT"], bufs["xT"])
 
 
-def _count(fn):
+def _count(fn, plan=None):
+    global last_plan
     with _count_lock:
         fn.launches += 1
+        if plan is not None:
+            branches["resident" if plan["resident"] else "streamed"] += 1
+            last_plan = plan
 
 
 def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
@@ -339,9 +463,10 @@ def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
     h0, c0, x0 = init_state if carry else (None, None, None)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
-    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
+    layer_ptrs = _layer_pointers(lstm_layers)
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
-                          carry)
+                          carry, padded=True)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -350,9 +475,9 @@ def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
             _ptr(h0), _ptr(c0), _ptr(x0), p["x"], p["h"], p["c"], p["pmax"],
             p["pidx"], p["psum"], p["ids"], p["lps"], p.get("hT"),
-            p.get("cT"), p.get("xT"), stream)
+            p.get("cT"), p.get("xT"), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_serve")
-    _count(decode_sample_carry if carry else decode_sample)
+    _count(decode_sample_carry if carry else decode_sample, plan)
     return _outputs(bufs, carry)
 
 
@@ -373,9 +498,16 @@ def _require_cuda(device):
         raise ValueError(f"decode_sample: unsupported device {device}")
 
 
+def _padded(empty, nl, B, E, H):
+    """The persistent kernel's x [B, Ep] and h ping-pong [2, nl, B, Hp],
+    rows padded to 4 floats (16-byte cp.async)."""
+    return empty(B, _pad4(E)), empty(2, nl, B, _pad4(H))
+
+
 def _sample_scratch(empty, nl, B, E, H, ntile):
-    """x, the h ping-pong, c and the sample-mode per-tile statistics."""
-    return (empty(B, E), empty(2, nl, B, H), empty(nl, B, H),
+    """x and the h ping-pong (:func:`_padded`), c and the sample-mode
+    per-tile statistics."""
+    return (*_padded(empty, nl, B, E, H), empty(nl, B, H),
             empty(B, ntile), empty(B, ntile, dtype=torch.int32),
             empty(B, ntile), empty(B, ntile))
 
@@ -407,10 +539,11 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
     nl = len(lstm_layers)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
-    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
+    layer_ptrs = _layer_pointers(lstm_layers)
     empty = _empty_on(device)
-    x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(empty, nl, B, E, H,
-                                                          ntile)
+    x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(
+        empty, nl, B, E, H, ntile)
     ids = empty(B, seq_len, dtype=torch.int32)
     soft = empty(seq_len, B, V)
     hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
@@ -425,9 +558,10 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
             ptr(uniforms_out), x.data_ptr(), h.data_ptr(), c.data_ptr(),
             psmax.data_ptr(), psidx.data_ptr(), pzmax.data_ptr(),
             pzsum.data_ptr(), ids.data_ptr(), soft.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), gates.data_ptr(), stream)
+            cs.data_ptr(), gates.data_ptr(), cplan, barrier.data_ptr(),
+            stream)
     build.raise_on_error(lib, rc, "decode_sample_resid")
-    _count(decode_sample_resid)
+    _count(decode_sample_resid, plan)
     return ids, soft, hs, cs, gates
 
 
@@ -450,9 +584,11 @@ def decode_sample_noise(features, lstm_layers: Sequence[dict], w_proj,
     nl = len(lstm_layers)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
-    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
+    layer_ptrs = _layer_pointers(lstm_layers)
     empty = _empty_on(device)
-    x, h, c, psmax, psidx, _, _ = _sample_scratch(empty, nl, B, E, H, ntile)
+    x, h, c, psmax, psidx, _, _ = _sample_scratch(empty, nl, B, E, H,
+                                                  ntile)
     ids = empty(B, seq_len, dtype=torch.int32)
     noise = empty(seq_len, B, V)
     with torch.cuda.device(device):
@@ -462,9 +598,10 @@ def decode_sample_noise(features, lstm_layers: Sequence[dict], w_proj,
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
             int(seed) & (2 ** 64 - 1), _ptr(uniforms), x.data_ptr(),
             h.data_ptr(), c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
-            ids.data_ptr(), noise.data_ptr(), stream)
+            ids.data_ptr(), noise.data_ptr(), cplan, barrier.data_ptr(),
+            stream)
     build.raise_on_error(lib, rc, "decode_sample_noise")
-    _count(decode_sample_noise)
+    _count(decode_sample_noise, plan)
     return ids, noise
 
 
@@ -482,9 +619,10 @@ def decode_sample_logits(features, lstm_layers: Sequence[dict], w_proj,
     nl = len(lstm_layers)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
-    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
+    layer_ptrs = _layer_pointers(lstm_layers)
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
-                          False)
+                          False, padded=True)
     logits = torch.empty(seq_len, B, V, device=device)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
@@ -493,9 +631,9 @@ def decode_sample_logits(features, lstm_layers: Sequence[dict], w_proj,
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len, p["x"],
             p["h"], p["c"], p["pmax"], p["pidx"], p["psum"], p["ids"],
-            logits.data_ptr(), stream)
+            logits.data_ptr(), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_sample_logits")
-    _count(decode_sample_logits)
+    _count(decode_sample_logits, plan)
     return bufs["ids"], logits
 
 
@@ -526,10 +664,11 @@ def decode_sample_embed(features, lstm_layers: Sequence[dict], w_proj,
     nl = len(lstm_layers)
     lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
-    biases, layer_ptrs = _layer_pointers(lstm_layers)
+    plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
+    layer_ptrs = _layer_pointers(lstm_layers)
     empty = _empty_on(device)
-    x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(empty, nl, B, E, H,
-                                                          ntile)
+    x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(
+        empty, nl, B, E, H, ntile)
     ids = empty(B, seq_len, dtype=torch.int32)
     soft, emb = empty(seq_len, B, V), empty(seq_len, B, Ed)
     hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
@@ -544,9 +683,9 @@ def decode_sample_embed(features, lstm_layers: Sequence[dict], w_proj,
             c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
             pzmax.data_ptr(), pzsum.data_ptr(), ids.data_ptr(),
             soft.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            emb.data_ptr(), stream)
+            emb.data_ptr(), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_sample_embed")
-    _count(decode_sample_embed)
+    _count(decode_sample_embed, plan)
     return ids, emb, soft, hs, cs, gates
 
 
@@ -824,6 +963,12 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
     _count(decode_sample_q_serve)
     return _outputs(bufs, carry)
 
+
+# persistent decode launches by where the blocks' LSTM weights came from:
+# shared memory for the whole call ("resident") or global memory each step
+# ("streamed"); and the plan of the last launch
+branches = {"resident": 0, "streamed": 0}
+last_plan = None
 
 decode_sample.launches = 0
 decode_sample_carry.launches = 0

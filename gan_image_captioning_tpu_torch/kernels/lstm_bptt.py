@@ -14,7 +14,9 @@ On CUDA tensors each launches its hand-written kernel (``csrc/lstm_bptt.cu``,
 built at first use) or raises; on CPU tensors it runs its plain version
 (:func:`lstm_bptt_chain_plain`, :func:`lstm_bptt_reverse_plain`).
 ``lstm_bptt_chain.launches`` and ``lstm_bptt_reverse.launches`` count the
-kernel launches (one per call).
+kernel launches (one per call).  The reverse is one persistent kernel, one
+cooperative launch per call (:func:`reverse_plan` sizes it;
+``lstm_bptt_reverse.branches`` counts where its weights came from).
 """
 
 from __future__ import annotations
@@ -93,8 +95,11 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gic_lstm_bptt_chain.argtypes = [vp] * 5 + [i] * 4 + [vp] * 5
         lib.gic_lstm_bptt_chain.restype = i
-        lib.gic_bptt_reverse.argtypes = [vp] * 5 + [i] * 3 + [vp] * 4
+        lib.gic_bptt_reverse.argtypes = ([vp] * 5 + [i] * 3 + [vp] * 3
+                                         + [ctypes.POINTER(i), vp, vp])
         lib.gic_bptt_reverse.restype = i
+        lib.gic_reverse_kernel_attrs.argtypes = [ctypes.POINTER(i)] * 2
+        lib.gic_reverse_kernel_attrs.restype = i
         lib._gic_typed = True
     return lib
 
@@ -135,6 +140,85 @@ def lstm_bptt_chain(w_hhs, w_ihs_upper, d_hs, gates, cs):
 
 
 lstm_bptt_chain.launches = 0
+
+# The persistent reverse kernel's geometry (csrc/persistent.cuh,
+# csrc/lstm_bptt.cu): 256 threads, a cp.async pool of 4 slots of
+# 64 x 132 floats (K tiles in flight), at most 16 units a block.
+THREADS = 256
+K_TILE = 32
+STAGE_BYTES = 4 * 4 * 64 * 132
+MAX_UNITS = 16
+STATIC_SMEM = 1024          # margin for the kernel's static shared memory
+MAX_BLOCKS_PER_SM = 2048 // THREADS
+
+
+def _kpad(k):
+    return -(-k // K_TILE) * K_TILE
+
+
+def reverse_plan(B: int, H: int, n_sm: int, smem_limit: int,
+                 blocks: int = None) -> dict:
+    """The persistent reverse kernel's launch plan at batch ``B`` and
+    width ``H`` on a card of ``n_sm`` SMs whose blocks may opt into
+    ``smem_limit`` bytes of shared memory: ``blocks`` (default one per SM,
+    at most one per hidden unit), the hidden units each block owns
+    (``units``: ``(j0, j1)`` per block), whether their ``w_hh`` rows stay
+    in shared memory for the whole call (``resident``), the dynamic
+    shared-memory bytes and the grid barriers per step.  ``ints`` is what
+    the C call takes.  Raises ValueError when the work does not fit (more
+    than 16 units a block, the carries past the shared memory) or the grid
+    cannot be co-resident."""
+    for name, v in (("B", B), ("H", H), ("n_sm", n_sm),
+                    ("smem_limit", smem_limit)):
+        if v < 1:
+            raise ValueError(f"reverse_plan: {name} = {v} must be positive")
+    grid = min(n_sm, H) if blocks is None else int(blocks)
+    if grid < 1:
+        raise ValueError(f"reverse_plan: blocks = {grid} must be positive")
+    upb = -(-H // grid)
+    if upb > MAX_UNITS:
+        raise ValueError(f"reverse_plan: {upb} hidden units per block "
+                         f"(H = {H} over {grid} blocks) exceed {MAX_UNITS}")
+    carries = 4 * 2 * B * upb
+    resident_bytes = 4 * upb * (_kpad(4 * H) + 4)
+    base = STAGE_BYTES + carries
+    resident = base + resident_bytes + STATIC_SMEM <= smem_limit
+    smem = base + (resident_bytes if resident else 0)
+    if smem + STATIC_SMEM > smem_limit:
+        raise ValueError(f"reverse_plan: {smem} bytes of shared memory "
+                         f"(B = {B}) exceed the limit {smem_limit}")
+    per_sm = min(MAX_BLOCKS_PER_SM, smem_limit // (smem + STATIC_SMEM))
+    if grid > per_sm * n_sm:
+        raise ValueError(f"reverse_plan: {grid} blocks cannot be "
+                         f"co-resident ({per_sm} per SM x {n_sm} SMs)")
+    return {"blocks": grid, "threads": THREADS, "units_per_block": upb,
+            "units": [(min(b * upb, H), min((b + 1) * upb, H))
+                      for b in range(grid)],
+            "resident": resident, "smem_bytes": smem,
+            "barriers_per_step": 1,
+            "ints": (grid, upb, int(resident), smem)}
+
+
+PROFILE_SLOTS = ("load", "gates", "barrier", "product")
+
+
+def set_phase_profile(prof):
+    """From now on every reverse launch adds its block 0's clock64 cycles
+    per phase (:data:`PROFILE_SLOTS`) into ``prof`` (an int64 CUDA tensor
+    of 4 zeros); ``None`` turns it off."""
+    lib = _library()
+    lib.gic_reverse_set_profile.argtypes = [ctypes.c_void_p]
+    lib.gic_reverse_set_profile(None if prof is None else prof.data_ptr())
+
+
+def kernel_attrs():
+    """``{"registers": n, "local_bytes": n}`` of the persistent reverse
+    kernel (spills show as local bytes)."""
+    lib = _library()
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    build.raise_on_error(lib, lib.gic_reverse_kernel_attrs(
+        ctypes.byref(regs), ctypes.byref(local)), "kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def lstm_bptt_reverse_plain(w_hh, d_hs, gates, c_prev, cs):
@@ -179,19 +263,29 @@ def lstm_bptt_reverse(w_hh, d_hs, gates, c_prev, cs):
     if device.type != "cuda":
         raise ValueError(f"lstm_bptt_reverse: unsupported device {device}")
     lib = _library()
+    plan = reverse_plan(B, H, *build.device_limits(lib, device))
     dh0 = torch.empty(B, H, device=device)
     dc0 = torch.empty(B, H, device=device)
     d_pre = torch.empty(T, B, 4 * H, device=device)
+    barrier = torch.empty(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_bptt_reverse(
             w_hh.data_ptr(), d_hs.data_ptr(), gates.data_ptr(),
             c_prev.data_ptr(), cs.data_ptr(), T, B, H, dh0.data_ptr(),
-            dc0.data_ptr(), d_pre.data_ptr(), stream)
+            dc0.data_ptr(), d_pre.data_ptr(),
+            (ctypes.c_int * 4)(*plan["ints"]), barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "lstm_bptt_reverse")
     with _count_lock:
         lstm_bptt_reverse.launches += 1
+        lstm_bptt_reverse.branches[
+            "resident" if plan["resident"] else "streamed"] += 1
+        lstm_bptt_reverse.last_plan = plan
     return d_pre, dh0, dc0
 
 
 lstm_bptt_reverse.launches = 0
+# launches by where the kernel's w_hh rows came from: shared memory for
+# the whole call ("resident") or global memory each step ("streamed")
+lstm_bptt_reverse.branches = {"resident": 0, "streamed": 0}
+lstm_bptt_reverse.last_plan = None
