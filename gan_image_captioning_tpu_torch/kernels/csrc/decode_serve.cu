@@ -34,6 +34,16 @@
 // xT = embed[last ids]: the continuous engine's chunks and the adaptive
 // decode.
 //
+// Also replaces the same file's `_qserve_kernel` (launched by
+// `decode_sample_q_serve`): mode serve, carried state or not, on a
+// weight-only quantized decoder (ops/quantize.py:quantize_lstm_decoder):
+// per layer Wq [In+H, 4H] with per-column scales [4H] and one bias
+// b [4H]; Pq [H, V] with scales [V] and the bias; Eq [V, E] with scales
+// [E]; int8, or int4 packed two rows a byte (byte row r holds row r in
+// its low nibble and row r + R in its high nibble, values in [-7, 7]; an
+// odd vocabulary's embedding has one zero pad row).  Every weight is
+// deq(Q)[k, n] = float(Q[k, n]) * scale[n], rounded once.
+//
 // What bounds it on this card.  At the training width (E = H = 512, two
 // layers, V = 11008, T = 36, B = 64) one decode does 2*B*T*(2*4H*(E+H) +
 // V*H) = 45.3 GFLOP: 0.68 ms at float32's 67 TFLOP/s (no tensor cores:
@@ -73,8 +83,19 @@
 //      max)) of z = temp * s, z stored into soft);
 //   3. the row combine (a block per batch row): ids, lps or the
 //      normalised soft row, and x = embed[id].
-// What stays bit-equal to the previous design, and so to the quantized
-// decode (decode_qserve.cu) on dequantized weights: each gate
+// The quantized decode is the same kernel (template parameter Q), only
+// the source of the weights differs: the block's gate rows are
+// dequantized once per call into the same resident slice (read along the
+// payload's K-major rows: the block's columns of one k are neighbours);
+// the projection's int8 / packed int4 rows of each K tile arrive by
+// cp.async in a byte ring beside the pool (8 KB) and are dequantized into
+// the slot's projection rows just before the FMA loop reads them, so the
+// projection reads a quarter (int8) or an eighth (int4) of the dense
+// kernel's 22.5 MB of weight bytes a step; the row combine takes
+// x = deq(Eq)[id].  Where the gate rows do not fit, they are dequantized
+// into the K-tile stage each step (without cp.async).
+// What stays bit-equal to the previous design, and so between the dense
+// decode on dequantized weights and the quantized one: each gate
 // pre-activation and each logit is one float32 accumulator running over k
 // ascending by fmaf, x before h, the bias added after (tile_dot.cuh's
 // order; no split-K: the zero pad columns add exact zeros); the cell
@@ -113,6 +134,19 @@ constexpr int P_DEPTH = 4, SLOT = POOL_FLOATS / P_DEPTH;
 constexpr int MAX_NL = 8;
 constexpr int MAX_UNITS = 16;              // upb limit
 constexpr int LS = P_RT + 1;               // projection tile row stride
+// The quantized projection's byte ring: RING_SLOTS K tiles of a
+// vocabulary tile's int8 / packed int4 rows, [PQ_KT][P_RT] bytes each.
+// Tile i + 1's bytes travel with tile i's h rows, one tile ahead, so that
+// the compute step of tile i dequantizes tile i + 1 (its bytes have
+// landed) into that tile's pool slot without a barrier of its own: one
+// slot more than the pool, because tile i + P_DEPTH's bytes are issued
+// while tile i + 1's are read.
+constexpr int PQ_KT = 32, RING_SLOTS = P_DEPTH + 1;
+constexpr int RING_FLOATS = RING_SLOTS * PQ_KT * P_RT / 4;
+// the projection's K tile is never wider than PQ_KT: a slot holds at
+// least 8 + P_RT rows; and a thread dequantizes one row of a tile
+static_assert(SLOT < (8 + P_RT) * (2 * PQ_KT + 4) && NT % P_RT == 0,
+              "projection tile geometry");
 
 // Phase clocks of block 0 (clock64 cycles, summed over the call) when the
 // caller asked for them (gic_decode_set_profile): where a step's time goes.
@@ -153,9 +187,22 @@ struct DecodeParams {
   const float* u_in;    // [T, B, V] or null (Philox)
   float* u_out;         // [T, B, V] or null
   unsigned long long* prof;  // [PROF_SLOTS] or null
+  // quantized weights (the kernel's Q instantiation): per layer the fused
+  // gate matrix wq [In+H, 4H] and its column scales [4H] (the bias in
+  // b_ih, b_hh null); the projection pq [H, V] and its scales [V] (the bias
+  // in b_proj); the embedding eq [V, E] and its scales [E].  bits 4: each
+  // payload row-packed, R rows a byte holding rows r (low nibble) and
+  // r + R (high), R = half the rows (r_emb for the embedding)
+  const int8_t* wq[MAX_NL];
+  const float* wscale[MAX_NL];
+  const int8_t* pq;
+  const float* pscale;
+  const int8_t* eq;
+  const float* escale;
   unsigned long long seed;
   float temp;
-  int B, E, H, V, nl, T, upb, resident, pb, sample, ntile, Ep, Hp;
+  int B, E, H, V, nl, T, upb, resident, pb, sample, ntile, Ep, Hp, bits,
+      r_emb;
 };
 
 // The padded width of layer l's input and of its [x | h] row.
@@ -207,9 +254,46 @@ struct GateRows {
   __device__ int operator()(int r) const { return gate_row(r, j0, upb, H); }
 };
 
-// The block's resident gate rows of every layer, [w_ih | 0 | w_hh | 0]
+// The signed value a payload byte holds: int8, or the low or high nibble
+// of packed int4, sign-extended.
+__device__ __forceinline__ int qunpack(int b, int bits, bool high) {
+  if (bits == 8) return b;
+  return high ? b >> 4 : ((b & 0x0F) ^ 8) - 8;  // >> 4: arithmetic, signed
+}
+
+// Element (k, n) of a quantized [K, N] payload: int8, or packed int4 with
+// R byte rows (row k in the low nibble of byte row k, row k + R in the
+// high nibble of byte row k).
+__device__ __forceinline__ int qval(const int8_t* q, int bits, int R, int N,
+                                    int k, int n) {
+  const bool high = bits == 4 && k >= R;
+  return qunpack(q[(size_t)(high ? k - R : k) * N + n], bits, high);
+}
+
+// float(q) * scale, rounded once, as ops/quantize.py:dequantize rounds it.
+__device__ __forceinline__ float deq(int q, float scale) {
+  return __fmul_rn((float)q, scale);
+}
+
+// Element k of gate row R (a column of the [In+H, 4H] payload) of layer l
+// in the padded [x | 0 | h | 0] row layout; zero in the pads.
+__device__ __forceinline__ float qgate(const DecodeParams& p, int l, int R,
+                                       int k) {
+  const int In = l ? p.H : p.E, wa = in_pad(l, p.E, p.H), N = 4 * p.H;
+  int kk;
+  if (k < In)
+    kk = k;
+  else if (k >= wa && k - wa < p.H)
+    kk = In + k - wa;
+  else
+    return 0.f;
+  return deq(qval(p.wq[l], p.bits, (In + p.H) / 2, N, kk, R),
+             p.wscale[l][R]);
+}
+
+// The block's dense gate rows of every layer, [w_ih | 0 | w_hh | 0]
 // zero-padded to row_pad.
-__device__ void load_resident(const DecodeParams& p, float* wres) {
+__device__ void load_dense_rows(const DecodeParams& p, float* wres) {
   for (int l = 0; l < p.nl; ++l) {
     const int In = l ? p.H : p.E, wa = in_pad(l, p.E, p.H);
     const int ws = row_pad(l, p.E, p.H);
@@ -227,12 +311,34 @@ __device__ void load_resident(const DecodeParams& p, float* wres) {
   }
 }
 
+// The block's resident gate rows of every layer, [w_ih | 0 | w_hh | 0]
+// zero-padded to row_pad; quantized (Q): dequantized once, here, each
+// element read along the payload's rows (the block's columns of one k
+// are neighbours in memory).
+template <bool Q>
+__device__ void load_resident(const DecodeParams& p, float* wres) {
+  if constexpr (Q) {
+    for (int l = 0; l < p.nl; ++l) {
+      const int ws = row_pad(l, p.E, p.H), rows = 4 * p.upb;
+      const int j0 = blockIdx.x * p.upb;
+      for (int e = threadIdx.x; e < rows * ws; e += NT) {
+        const int r = e % rows, k = e / rows, R = gate_row(r, j0, p.upb, p.H);
+        wres[(size_t)r * ws + k] = R >= 0 ? qgate(p, l, R, k) : 0.f;
+      }
+      wres += rows * ws;
+    }
+  } else {
+    load_dense_rows(p, wres);
+  }
+}
+
 // Phase 1: layer l of step t for the block's hidden units, all B rows.
 // A thread owns one unit (its four gate rows) and one batch row of the
 // chunk; each K tile stages the chunk's rows of [x | h] (and, streamed,
 // the block's gate rows) in a pipeline slot.  (Two or four rows a thread
 // load less shared memory per FMA but leave too few warps: slower on the
 // card at B = 64.)
+template <bool Q>
 __device__ void lstm_phase(const DecodeParams& p, int t, int l,
                            const float* wres_l, float* pool) {
   const int B = p.B, H = p.H, Hp = p.Hp, upb = p.upb, j0 = blockIdx.x * upb;
@@ -260,9 +366,18 @@ __device__ void lstm_phase(const DecodeParams& p, int t, int l,
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     const auto issue = [&](int i, float* slot) {
       stage_rows(slot, kt, bc, RowRange{b0, B}, xs, wa, hs_seg, i * kt);
-      if (!p.resident)
+      if (p.resident) return;
+      if constexpr (Q) {  // dequantized here, without cp.async
+        for (int c = tid; c < wrows * kt; c += NT) {
+          const int r = c % wrows, kk = c / wrows;
+          const int R = gate_row(r, j0, upb, H);
+          slot[xfl + r * (kt + 4) + kk] = R >= 0 ? qgate(p, l, R, i * kt + kk)
+                                                 : 0.f;
+        }
+      } else {
         stage_rows(slot + xfl, kt, wrows, GateRows{j0, upb, H}, wi, wa, wh,
                    i * kt);
+      }
     };
     const auto compute = [&](int it, const float* slot) {
       if (!active) return;
@@ -292,12 +407,16 @@ __device__ void lstm_phase(const DecodeParams& p, int t, int l,
     if (active && j < H && b < B) {
       // the bias b_ih + b_hh (one float32 add, as the previous design's
       // wrapper formed it) after the K loop
+      // (quantized: one bias, b_hh zero, as dequantized_decoder gives it)
       const float* bi = p.b_ih[l] + j;
-      const float* bh = p.b_hh[l] + j;
-      const float pi = acc[0] + (bi[0 * H] + bh[0 * H]);
-      const float pf = acc[1] + (bi[1 * H] + bh[1 * H]);
-      const float pg = acc[2] + (bi[2 * H] + bh[2 * H]);
-      const float po = acc[3] + (bi[3 * H] + bh[3 * H]);
+      const float* bh = p.b_hh[l] != nullptr ? p.b_hh[l] + j : nullptr;
+      const auto bias = [&](int g) {
+        return bi[g * H] + (bh != nullptr ? bh[g * H] : 0.f);
+      };
+      const float pi = acc[0] + bias(0);
+      const float pf = acc[1] + bias(1);
+      const float pg = acc[2] + bias(2);
+      const float po = acc[3] + bias(3);
       const float gi = sigmoidf(pi), gf = sigmoidf(pf);
       const float gg = tanhf(pg), go = sigmoidf(po);
       const size_t o = (size_t)b * H + j;
@@ -325,14 +444,46 @@ __device__ void lstm_phase(const DecodeParams& p, int t, int l,
   }
 }
 
+// The bytes of K tile [k0, k0 + kt) of the quantized projection's
+// vocabulary tile [v0, v0 + 64) into a ring slot, [kk][64], issued without
+// waiting where the rows are 16-byte aligned; byte row k, or k - H/2 for
+// the high nibbles of packed int4.  Columns past V are not read.
+__device__ __forceinline__ void stage_qproj(const DecodeParams& p,
+                                            int8_t* dst, int v0, int k0,
+                                            int kt) {
+  const int V = p.V, H = p.H, R = p.bits == 4 ? H / 2 : H;
+  const bool aligned =
+      V % 16 == 0 && reinterpret_cast<uintptr_t>(p.pq) % 16 == 0;
+  if (aligned) {
+    for (int c = threadIdx.x; c < kt * (P_RT / 16); c += NT) {
+      const int kk = c / (P_RT / 16), v = v0 + (c % (P_RT / 16)) * 16;
+      const int k = k0 + kk;
+      if (k >= H || v >= V) continue;
+      const int8_t* src = p.pq + (size_t)(k < R ? k : k - R) * V + v;
+      cp_async16(reinterpret_cast<float*>(dst + kk * P_RT + (v - v0)),
+                 reinterpret_cast<const float*>(src));
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < kt * P_RT; c += NT) {
+    const int kk = c / P_RT, v = v0 + c % P_RT, k = k0 + kk;
+    if (k < H && v < V) dst[c] = p.pq[(size_t)(k < R ? k : k - R) * V + v];
+  }
+}
+
 // Phase 2: the block's vocabulary tiles of step t and their statistics.
 // A thread owns RV rows (tr + NRL i) x TB batch rows (tb + NBL j) of a
 // 64-row tile and a chunk of PB = NBL * TB batch rows (register tiles as
 // large as the batch allows: fewer shared-memory loads per FMA); a slot
 // holds the K tile of the chunk's h_top rows, then of the tile's
 // projection rows.
-template <int RV, int TB, int NBL>
-__device__ void proj_phase(const DecodeParams& p, int t, float* pool) {
+// Quantized (Q): the tile's payload rows arrive as bytes in the byte ring
+// (cp.async when 16-byte aligned), one K tile ahead of the h_top rows,
+// and the compute step of K tile i dequantizes tile i + 1 into its pool
+// slot's projection rows, the floats the dense kernel reads there.
+template <bool Q, int RV, int TB, int NBL>
+__device__ void proj_phase(const DecodeParams& p, int t, float* pool,
+                           int8_t* ring) {
   constexpr int NRL = P_RT / RV, PB = NBL * TB;
   static_assert(NRL * NBL <= NT, "proj thread tile");
   const int B = p.B, H = p.H, Hp = p.Hp, V = p.V, ntile = p.ntile;
@@ -348,6 +499,32 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool) {
 
   for (int tile = blockIdx.x; tile < ntile; tile += gridDim.x) {
     const int v0 = tile * P_RT, n = min(P_RT, V - v0);
+    // quantized: the scale of the vocabulary row this thread dequantizes
+    const int qr = tid % P_RT, qv = v0 + qr;
+    const float qscale = Q && qv < V ? p.pscale[qv] : 0.f;
+    const auto ring_slot = [&](int i) {
+      return ring + (i % RING_SLOTS) * (PQ_KT * P_RT);
+    };
+    // tile i's bytes into its pool slot's projection rows: a thread owns
+    // vocabulary row qr of the tile (NT is a multiple of P_RT) and every
+    // fourth group of 4 k, stored as one float4 (neighbouring threads:
+    // neighbouring rows, no bank conflict)
+    const auto dequant = [&](int i) {
+      const int8_t* bytes = ring_slot(i);
+      float* w = pool + (i % P_DEPTH) * SLOT + xfl + qr * (kt + 4);
+      const int R = p.H / 2;
+      const auto one = [&](int kk) {
+        const int k = i * kt + kk;
+        const int q = qunpack(bytes[kk * P_RT + qr], p.bits, k >= R);
+        return qv < V && k < H ? deq(q, qscale) : 0.f;
+      };
+#pragma unroll 2
+      for (int kq = tid / P_RT; kq < kt / 4; kq += NT / P_RT) {
+        const int kk = 4 * kq;
+        *reinterpret_cast<float4*>(w + kk) =
+            make_float4(one(kk), one(kk + 1), one(kk + 2), one(kk + 3));
+      }
+    };
     for (int b0 = 0; b0 < B; b0 += PB) {
       float acc[RV][TB];
 #pragma unroll
@@ -358,27 +535,43 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool) {
           pool, SLOT, ntiles,
           [&](int i, float* slot) {
             stage_rows(slot, kt, PB, RowRange{b0, B}, hx, Hp, none, i * kt);
-            stage_rows(slot + xfl, kt, P_RT, RowRange{v0, V}, wp, Hp, none,
-                       i * kt);
+            if constexpr (Q) {
+              if (i == 0) stage_qproj(p, ring_slot(0), v0, 0, kt);
+              if (i + 1 < ntiles)
+                stage_qproj(p, ring_slot(i + 1), v0, (i + 1) * kt, kt);
+            } else {
+              stage_rows(slot + xfl, kt, P_RT, RowRange{v0, V}, wp, Hp, none,
+                         i * kt);
+            }
           },
-          [&](int, const float* slot) {
-            if (!active) return;
-            const float* xb = slot;
-            const float* wb = slot + xfl;
+          [&](int it, const float* slot) {
+            if constexpr (Q) {
+              if (it == 0) {
+                dequant(0);
+                __syncthreads();
+              }
+            }
+            if (active) {
+              const float* xb = slot;
+              const float* wb = slot + xfl;
 #pragma unroll 4
-            for (int kk = 0; kk < kt; kk += 4) {
-              float4 wv[RV], xv[TB];
+              for (int kk = 0; kk < kt; kk += 4) {
+                float4 wv[RV], xv[TB];
 #pragma unroll
-              for (int i = 0; i < RV; ++i)
-                wv[i] = ld4(wb + (tr + NRL * i) * (kt + 4) + kk);
-#pragma unroll
-              for (int j = 0; j < TB; ++j)
-                xv[j] = ld4(xb + (tb + NBL * j) * (kt + 4) + kk);
-#pragma unroll
-              for (int i = 0; i < RV; ++i)
+                for (int i = 0; i < RV; ++i)
+                  wv[i] = ld4(wb + (tr + NRL * i) * (kt + 4) + kk);
 #pragma unroll
                 for (int j = 0; j < TB; ++j)
-                  acc[i][j] = fma4(wv[i], xv[j], acc[i][j]);
+                  xv[j] = ld4(xb + (tb + NBL * j) * (kt + 4) + kk);
+#pragma unroll
+                for (int i = 0; i < RV; ++i)
+#pragma unroll
+                  for (int j = 0; j < TB; ++j)
+                    acc[i][j] = fma4(wv[i], xv[j], acc[i][j]);
+              }
+            }
+            if constexpr (Q) {
+              if (it + 1 < ntiles) dequant(it + 1);
             }
           });
 
@@ -511,6 +704,7 @@ __device__ float rescaled_sum(const float* pm, const float* ps, int n,
 
 // Phase 3: the rows of step t (a block per row): ids, lps or the soft
 // row, and the next input x = embed[id].
+template <bool Q>
 __device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
                               int* red_i, int* s_id) {
   const int tid = threadIdx.x, ntile = p.ntile, V = p.V, E = p.E;
@@ -561,9 +755,15 @@ __device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
       *s_id = id;
     }
     __syncthreads();
-    const float* erow = p.embed + (size_t)*s_id * E;
+    const int row = *s_id;
     for (int e = tid; e < p.Ep; e += NT) {  // zeros in the pad columns
-      const float v = e < E ? erow[e] : 0.f;
+      float v = 0.f;
+      if constexpr (Q) {
+        if (e < E)
+          v = deq(qval(p.eq, p.bits, p.r_emb, E, row, e), p.escale[e]);
+      } else {
+        if (e < E) v = p.embed[(size_t)row * E + e];
+      }
       p.x[(size_t)b * p.Ep + e] = v;
       if (t == p.T - 1 && p.xT != nullptr && e < E)
         p.xT[(size_t)b * E + e] = v;
@@ -572,6 +772,7 @@ __device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
   }
 }
 
+template <bool Q>
 __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
     DecodeParams p) {
   extern __shared__ float4 dyn_smem[];
@@ -579,7 +780,8 @@ __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
   __shared__ int red_i[NT];
   __shared__ int s_id;
   float* pool = reinterpret_cast<float*>(dyn_smem);
-  float* wres = pool + POOL_FLOATS;
+  int8_t* ring = reinterpret_cast<int8_t*>(pool + POOL_FLOATS);
+  float* wres = pool + POOL_FLOATS + (Q ? RING_FLOATS : 0);
   const bool timed = p.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   unsigned long long t0 = timed ? clk() : 0;
   auto mark = [&](int slot) {
@@ -589,7 +791,7 @@ __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
       t0 = now;
     }
   };
-  if (p.resident) load_resident(p, wres);
+  if (p.resident) load_resident<Q>(p, wres);
   __syncthreads();
   mark(PROF_LOAD);
 
@@ -597,24 +799,24 @@ __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
   for (int t = 0; t < p.T; ++t) {
     const float* wres_l = wres;
     for (int l = 0; l < p.nl; ++l) {
-      lstm_phase(p, t, l, wres_l, pool);
+      lstm_phase<Q>(p, t, l, wres_l, pool);
       wres_l += 4 * p.upb * row_pad(l, p.E, p.H);
       mark(PROF_LSTM);
       grid_barrier(p.barrier, target);
       mark(PROF_BARRIER);
     }
     if (p.pb == 8)
-      proj_phase<4, 1, 8>(p, t, pool);
+      proj_phase<Q, 4, 1, 8>(p, t, pool, ring);
     else if (p.pb == 16)
-      proj_phase<4, 1, 16>(p, t, pool);
+      proj_phase<Q, 4, 1, 16>(p, t, pool, ring);
     else if (p.pb == 32)
-      proj_phase<4, 2, 16>(p, t, pool);
+      proj_phase<Q, 4, 2, 16>(p, t, pool, ring);
     else
-      proj_phase<4, 4, 16>(p, t, pool);
+      proj_phase<Q, 4, 4, 16>(p, t, pool, ring);
     mark(PROF_PROJ);
     grid_barrier(p.barrier, target);
     mark(PROF_BARRIER);
-    combine_phase(p, t, red_m, red_i, &s_id);
+    combine_phase<Q>(p, t, red_m, red_i, &s_id);
     mark(PROF_COMBINE);
     if (t + 1 < p.T) grid_barrier(p.barrier, target);
     mark(PROF_BARRIER);
@@ -657,6 +859,9 @@ struct Plan {
 
 unsigned long long* g_prof = nullptr;  // gic_decode_set_profile
 
+// layer_ptrs: dense, (w_ih, w_hh, b_ih, b_hh) per layer; quantized (Q),
+// (wq, its scales, bias) per layer.
+template <bool Q>
 cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
                 const int* plan_in, cudaStream_t s) {
   const Plan plan{plan_in[0], plan_in[1], plan_in[2], plan_in[3],
@@ -666,14 +871,21 @@ cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
       (plan.pb != 8 && plan.pb != 16 && plan.pb != 32 && plan.pb != 64))
     return cudaErrorInvalidValue;
   const int want = (int)sizeof(float) *
-                   (POOL_FLOATS + (plan.resident ? resident_floats(
-                                       p.nl, p.E, p.H, plan.upb) : 0));
+                   (POOL_FLOATS + (Q ? RING_FLOATS : 0) +
+                    (plan.resident ? resident_floats(p.nl, p.E, p.H, plan.upb)
+                                   : 0));
   if (plan.smem != want) return cudaErrorInvalidValue;
   for (int l = 0; l < p.nl; ++l) {
-    p.w_ih[l] = static_cast<const float*>(layer_ptrs[4 * l]);
-    p.w_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 1]);
-    p.b_ih[l] = static_cast<const float*>(layer_ptrs[4 * l + 2]);
-    p.b_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 3]);
+    if constexpr (Q) {
+      p.wq[l] = static_cast<const int8_t*>(layer_ptrs[3 * l]);
+      p.wscale[l] = static_cast<const float*>(layer_ptrs[3 * l + 1]);
+      p.b_ih[l] = static_cast<const float*>(layer_ptrs[3 * l + 2]);
+    } else {
+      p.w_ih[l] = static_cast<const float*>(layer_ptrs[4 * l]);
+      p.w_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 1]);
+      p.b_ih[l] = static_cast<const float*>(layer_ptrs[4 * l + 2]);
+      p.b_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 3]);
+    }
   }
   p.upb = plan.upb;
   p.resident = plan.resident;
@@ -687,7 +899,7 @@ cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
         p.h, 0, sizeof(float) * 2 * p.nl * p.B * p.Hp, s);
     if (err != cudaSuccess) return err;
   }
-  return launch_persistent(decode_persistent_kernel, p, p.barrier,
+  return launch_persistent(decode_persistent_kernel<Q>, p, p.barrier,
                            plan.blocks, NT, (size_t)plan.smem, s);
 }
 
@@ -744,10 +956,13 @@ int gic_decode_set_profile(unsigned long long* prof) {
   return 0;
 }
 
-// Registers per thread and spilled bytes of the persistent kernel.
-int gic_decode_kernel_attrs(int* regs, int* local_bytes) {
+// Registers per thread and spilled bytes of the persistent kernel, dense
+// (quantized = 0) or quantized (1).
+int gic_decode_kernel_attrs(int quantized, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, decode_persistent_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, quantized ? decode_persistent_kernel<true>
+                    : decode_persistent_kernel<false>);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
@@ -786,7 +1001,8 @@ int gic_decode_serve(const float* feats, const float* embed,
   p.hT = hT;
   p.cT = cT;
   p.xT = xT;
-  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+  return run<false>(p, layer_ptrs, plan,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Mode pretrain: the greedy decode from (0, 0, feats) with the logits
@@ -802,7 +1018,8 @@ int gic_decode_pretrain(const float* feats, const float* embed,
                                T, x, h, c, pmax, pidx, barrier, ids);
   p.psum = psum;
   p.logits = logits;
-  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+  return run<false>(p, layer_ptrs, plan,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // The Gumbel-softmax sample with BPTT residuals.  Noise: u_in [T, B, V]
@@ -831,7 +1048,8 @@ int gic_decode_sample_resid(
   p.hs = hs;
   p.cs = cs;
   p.gates = gates;
-  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+  return run<false>(p, layer_ptrs, plan,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Mode sample: the Gumbel-max decode, ids = argmax(logits + g) per step,
@@ -849,7 +1067,8 @@ int gic_decode_sample(const float* feats, const float* embed,
   p.seed = seed;
   p.u_in = u_in;
   p.noise = noise;
-  return run(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+  return run<false>(p, layer_ptrs, plan,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Mode sample_embed: gic_decode_sample_resid, then emb [T*B, Ed] = soft
@@ -872,6 +1091,44 @@ int gic_decode_sample_embed(
   const dim3 grid((Ed + P_RT - 1) / P_RT, (R + P_BT - 1) / P_BT);
   embed_kernel<<<grid, P_NT, 0, s>>>(wd, soft, V, Ed, R, emb);
   return cudaGetLastError();
+}
+
+// Serve on a weight-only quantized decoder (ops/quantize.py layout):
+// layer_ptrs holds 3*nl device pointers, per layer the payload (int8
+// [In+H, 4H], or packed [(In+H)/2, 4H]), its scale [4H] and the bias
+// b_ih + b_hh [4H]; pq / ps / pb the projection (int8 [H, V], or packed
+// [H/2, V]), its scale [V] and bias [V]; eq / es the embedding (int8
+// [V, E], or packed [R_emb, E]) and its scale [E]; bits 8 or 4.  The
+// rest as gic_decode_serve (plan: kernels/decode_sample.py:
+// persistent_plan(..., quantized=True), whose shared memory holds the
+// byte ring too).  cudaErrorInvalidValue for other bits.
+int gic_decode_qserve(const float* feats, const void* const* layer_ptrs,
+                      const int8_t* pq, const float* ps, const float* pb,
+                      const int8_t* eq, const float* es, int bits, int B,
+                      int E, int H, int V, int R_emb, int nl, int T,
+                      const float* h0, const float* c0, const float* x0,
+                      float* x, float* h, float* c, float* pmax, int* pidx,
+                      float* psum, int32_t* ids, float* lps, float* hT,
+                      float* cT, float* xT, const int* plan,
+                      unsigned int* barrier, void* stream) {
+  if (bits != 8 && bits != 4) return cudaErrorInvalidValue;
+  DecodeParams p = base_params(x0 != nullptr ? x0 : feats, nullptr, nullptr,
+                               pb, B, E, H, V, nl, T, x, h, c, pmax, pidx,
+                               barrier, ids);
+  p.pq = pq;
+  p.pscale = ps;
+  p.eq = eq;
+  p.escale = es;
+  p.bits = bits;
+  p.r_emb = R_emb;
+  p.h0 = h0;
+  p.c0 = c0;
+  p.psum = psum;
+  p.lps = lps;
+  p.hT = hT;
+  p.cT = cT;
+  p.xT = xT;
+  return run<true>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -25,7 +25,7 @@
 // the thread that wrote it) with the running max; sum(exp(x - max)); the
 // normalised row.  The first index reaching the max is a block-wide
 // minimum over the columns whose x equals it: the same first-index rule as
-// block_first_argmax in decode_common.cuh, which combines per-tile maxima.
+// first_argmax in decode_serve.cu, which combines per-tile maxima.
 // At B = 64 only 64 of the 132 SMs have a block; splitting a row over
 // several blocks (a second pass for the combine) is later work.
 

@@ -8,13 +8,6 @@
 // tile of W and X lives in shared memory; the next one is loaded into
 // registers while the current one is consumed.  Rows past the edge and
 // batch rows >= B read zeros.
-//
-// tile_dot_cols is the same product for weights stored [K, rows] (the
-// quantized decoder's layout): w_at(r, k) returns the weight of local row
-// r at depth k (0 past the edge), and neighbouring threads load
-// neighbouring rows, so the loads stay coalesced.  Its FMA loop is
-// tile_dot's, in the same order: on the same weight values both give the
-// same sums, bit for bit.
 
 #pragma once
 
@@ -69,69 +62,6 @@ __device__ __forceinline__ void tile_dot(
     for (int n = 0; n < WPT; ++n) {
       const int e = tid + n * NT;
       Ws[e / KT][e % KT] = wreg[n];
-    }
-#pragma unroll
-    for (int n = 0; n < XPT; ++n) {
-      const int e = tid + n * NT;
-      Xs[e / KT][e % KT] = xreg[n];
-    }
-    __syncthreads();
-    if (k0 + KT < K) load(k0 + KT);
-#pragma unroll 8
-    for (int kk = 0; kk < KT; ++kk) {
-      float wv[TR], xv[TB];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) wv[i] = Ws[tr + i * NR][kk];
-#pragma unroll
-      for (int j = 0; j < TB; ++j) xv[j] = Xs[tb + j * NB][kk];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TB; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-template <int RT, int BT, int TR, int TB, class WAt>
-__device__ __forceinline__ void tile_dot_cols(
-    WAt w_at, const float* __restrict__ x0, const float* __restrict__ x1,
-    int K0, int K1, int b0, int B, float (&acc)[TR][TB],
-    float (*Ws)[KT + 1], float (*Xs)[KT + 1]) {
-  constexpr int NR = RT / TR, NB = BT / TB, NT = NR * NB;
-  constexpr int WPT = RT * KT / NT, XPT = BT * KT / NT;
-  static_assert(RT * KT % NT == 0 && BT * KT % NT == 0, "tile split");
-  const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
-  const int K = K0 + K1;
-  float wreg[WPT], xreg[XPT];
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int n = 0; n < WPT; ++n) {
-      const int e = tid + n * NT, k = k0 + e / RT;
-      wreg[n] = k < K ? w_at(e % RT, k) : 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < XPT; ++n) {
-      const int e = tid + n * NT, b = b0 + e / KT, k = k0 + e % KT;
-      float v = 0.f;
-      if (b < B && k < K)
-        v = k < K0 ? x0[(size_t)b * K0 + k] : x1[(size_t)b * K1 + (k - K0)];
-      xreg[n] = v;
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TB; ++j) acc[i][j] = 0.f;
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += KT) {
-#pragma unroll
-    for (int n = 0; n < WPT; ++n) {
-      const int e = tid + n * NT;
-      Ws[e % RT][e / RT] = wreg[n];
     }
 #pragma unroll
     for (int n = 0; n < XPT; ++n) {

@@ -26,12 +26,13 @@ is ``serve`` on an int8 / packed-int4 quantized decoder
 (``ops/quantize.py``).
 
 * On CUDA tensors the wrappers launch the hand-written kernels
-  (``csrc/decode_serve.cu``, ``csrc/decode_qserve.cu``,
-  ``csrc/decode_embed_bwd.cu``, built at first use) or raise.  Every mode
-  of the dense decode is one cooperative launch of one persistent kernel
-  (the time loop inside, each block's LSTM weights resident in shared
-  memory), sized by :func:`persistent_plan`; ``sample_embed`` adds one
-  launch of the embedding product.
+  (``csrc/decode_serve.cu``, ``csrc/decode_embed_bwd.cu``, built at first
+  use) or raise.  Every mode of the dense decode, and the quantized
+  serve, is one cooperative launch of one persistent kernel (the time
+  loop inside, each block's LSTM weights resident in shared memory;
+  quantized weights dequantized in the kernel), sized by
+  :func:`persistent_plan`; ``sample_embed`` adds one launch of the
+  embedding product.
 * On CPU tensors they run the ``*_plain`` functions, the same arithmetic
   as a Python loop of PyTorch operations.  Nothing falls back from one to
   the other.
@@ -44,7 +45,7 @@ launches`` (sample), ``decode_sample_resid.launches`` (sample_resid),
 ``decode_sample_embed.launches`` (sample_embed),
 ``decode_sample_embed_bwd.launches`` and ``decode_sample_q_serve.launches``
 (quantized serve, any bits, with or without carry).  ``branches`` counts
-the dense launches by the source of the blocks' LSTM weights
+the persistent launches (dense and quantized) by the source of the blocks' LSTM weights
 (``resident``: shared memory for the whole call; ``streamed``: global
 memory each step, where they do not fit) and ``last_plan`` is the plan of
 the last one.
@@ -268,8 +269,12 @@ def _library() -> ctypes.CDLL:
         tail = [ctypes.POINTER(i), vp, vp]     # plan, barrier, stream
         lib.gic_proj_tile.argtypes = []
         lib.gic_proj_tile.restype = i
-        lib.gic_decode_kernel_attrs.argtypes = [ctypes.POINTER(i)] * 2
+        lib.gic_decode_kernel_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 2
         lib.gic_decode_kernel_attrs.restype = i
+        lib.gic_decode_qserve.argtypes = (
+            [vp, ctypes.POINTER(vp)] + [vp] * 5 + [i] * 8 + [vp] * 14
+            + tail)
+        lib.gic_decode_qserve.restype = i
         for name, args in (
                 ("gic_decode_serve", [vp] * 14),
                 ("gic_decode_sample_resid",
@@ -286,13 +291,15 @@ def _library() -> ctypes.CDLL:
 
 # The persistent decode kernel's geometry (csrc/persistent.cuh,
 # csrc/decode_serve.cu): 256 threads; a cp.async pool of 18432 floats (K
-# tiles in flight: 8 slots for the layers, 4 for the projection); at most
+# tiles in flight: 8 slots for the layers, 4 for the projection), and for
+# quantized weights a ring of 5 x 32 x 64 bytes beside it; at most
 # 16 hidden units and 8 layers; 64-row
 # vocabulary tiles; rows of [x | h] padded to 4 floats per part, to a
 # multiple of 32 (K_TILE) in all.
 THREADS = 256
 K_TILE = 32
 STAGE_BYTES = 4 * 4 * 4608
+RING_BYTES = 5 * 32 * 64
 MAX_UNITS = 16
 MAX_LAYERS = 8
 PROJ_ROWS = 64
@@ -309,7 +316,8 @@ def _pad4(k):
 
 
 def persistent_plan(B: int, E: int, H: int, V: int, nl: int, n_sm: int,
-                    smem_limit: int, blocks: int = None) -> dict:
+                    smem_limit: int, blocks: int = None,
+                    quantized: bool = False) -> dict:
     """The persistent decode kernel's launch plan for batch ``B``, widths
     ``E``, ``H``, vocabulary ``V`` and ``nl`` layers on a card of ``n_sm``
     SMs whose blocks may opt into ``smem_limit`` bytes of shared memory.
@@ -321,8 +329,9 @@ def persistent_plan(B: int, E: int, H: int, V: int, nl: int, n_sm: int,
     combine (``batch_rows``) that each block owns, whether the blocks'
     gate rows of ``[w_ih | w_hh]`` stay in shared memory for the whole call
     (``resident``; otherwise they are read from global memory each step),
-    the dynamic shared-memory bytes, the projection's batch chunk and the
-    grid barriers per step.  ``ints`` is what the C call takes.  Raises
+    the dynamic shared-memory bytes (``quantized``: with the projection's
+    byte ring), the projection's batch chunk and the grid barriers per
+    step.  ``ints`` is what the C call takes.  Raises
     ValueError when the work does not fit (more than 16 units a block or 8
     layers) or the grid cannot be co-resident."""
     for name, v in (("B", B), ("E", E), ("H", H), ("V", V), ("nl", nl),
@@ -345,8 +354,9 @@ def persistent_plan(B: int, E: int, H: int, V: int, nl: int, n_sm: int,
     resident_bytes = 4 * sum(
         4 * upb * (_kpad(_pad4(E if l == 0 else H) + _pad4(H)) + 4)
         for l in range(nl))
-    resident = STAGE_BYTES + resident_bytes + STATIC_SMEM <= smem_limit
-    smem = STAGE_BYTES + (resident_bytes if resident else 0)
+    stage = STAGE_BYTES + (RING_BYTES if quantized else 0)
+    resident = stage + resident_bytes + STATIC_SMEM <= smem_limit
+    smem = stage + (resident_bytes if resident else 0)
     if smem + STATIC_SMEM > smem_limit:
         raise ValueError(f"persistent_plan: {smem} bytes of shared memory "
                          f"exceed the limit {smem_limit}")
@@ -367,13 +377,14 @@ def persistent_plan(B: int, E: int, H: int, V: int, nl: int, n_sm: int,
             "ints": (grid, upb, int(resident), pb, smem)}
 
 
-def kernel_attrs():
+def kernel_attrs(quantized: bool = False):
     """``{"registers": n, "local_bytes": n}`` of the persistent decode
-    kernel (spills show as local bytes)."""
+    kernel, dense or quantized (spills show as local bytes)."""
     lib = _library()
     regs, local = ctypes.c_int(), ctypes.c_int()
     build.raise_on_error(lib, lib.gic_decode_kernel_attrs(
-        ctypes.byref(regs), ctypes.byref(local)), "kernel attributes")
+        int(quantized), ctypes.byref(regs), ctypes.byref(local)),
+        "kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
 
@@ -389,9 +400,10 @@ def set_phase_profile(prof):
     lib.gic_decode_set_profile(None if prof is None else prof.data_ptr())
 
 
-def _plan_args(lib, device, B, E, H, V, nl):
+def _plan_args(lib, device, B, E, H, V, nl, quantized=False):
     """The launch plan on ``device``, its C ints and a barrier counter."""
-    plan = persistent_plan(B, E, H, V, nl, *build.device_limits(lib, device))
+    plan = persistent_plan(B, E, H, V, nl, *build.device_limits(lib, device),
+                           quantized=quantized)
     return (plan, (ctypes.c_int * 5)(*plan["ints"]),
             torch.empty(1, dtype=torch.int32, device=device))
 
@@ -414,16 +426,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry,
-                   padded=False):
-    """Scratch (x, h ping-pong, c, per-tile statistics), outputs (ids,
-    lps) and, with ``carry``, the state outputs (hT, cT, xT).  For the
-    persistent kernel (``padded``) the rows of x and h are padded to 4
-    floats."""
-    if padded:
-        x, h = _padded(empty, nl, B, E, H)
-    else:
-        x, h = empty(B, E), empty(2, nl, B, H)
+def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry):
+    """Scratch (x, h ping-pong with rows padded to 4 floats, c, per-tile
+    statistics), outputs (ids, lps) and, with ``carry``, the state outputs
+    (hT, cT, xT)."""
+    x, h = _padded(empty, nl, B, E, H)
     bufs = {"x": x, "h": h, "c": empty(nl, B, H),
             "pmax": empty(B, ntile), "psum": empty(B, ntile),
             "pidx": empty(B, ntile, dtype=torch.int32),
@@ -466,7 +473,7 @@ def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
     plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
     layer_ptrs = _layer_pointers(lstm_layers)
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
-                          carry, padded=True)
+                          carry)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -622,7 +629,7 @@ def decode_sample_logits(features, lstm_layers: Sequence[dict], w_proj,
     plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
     layer_ptrs = _layer_pointers(lstm_layers)
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
-                          False, padded=True)
+                          False)
     logits = torch.empty(seq_len, B, V, device=device)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
@@ -818,19 +825,6 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
 
 # ------------------------------------------------------- quantized serve
 
-def _q_library() -> ctypes.CDLL:
-    lib = build.load("decode_qserve")
-    if not getattr(lib, "_gic_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gic_proj_tile.argtypes = []
-        lib.gic_proj_tile.restype = i
-        lib.gic_decode_qserve.argtypes = (
-            [vp, ctypes.POINTER(vp)] + [vp] * 5 + [i] * 8 + [vp] * 15)
-        lib.gic_decode_qserve.restype = i
-        lib._gic_typed = True
-    return lib
-
-
 def _q_check(name, t, shape, device, dtype=None):
     build.check_tensor("decode_sample_q_serve", name, t, shape, device, dtype)
 
@@ -927,7 +921,10 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
     ``bits`` 4: every payload row-packed, :func:`pack_int4_rows`) →
     ``(ids [B, T], lps [B, T])``, with ``init_state`` also ``(hT, cT,
     xT)`` — the return contract of :func:`decode_sample` mode ``serve``.
-    CUDA tensors launch ``csrc/decode_qserve.cu``; CPU tensors run
+    CUDA tensors launch the persistent kernel of ``csrc/decode_serve.cu``
+    on the quantized weights (one cooperative launch; the weights are
+    dequantized in the kernel, bit-equal to :func:`decode_sample` on
+    :func:`dequantized_decoder`'s weights); CPU tensors run
     :func:`decode_sample_q_serve_plain`."""
     B, E, H, V, nl, r_emb, scales = _q_validate(features, qdec, seq_len,
                                                 bits, init_state)
@@ -940,8 +937,10 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
                          f"{device}")
     carry = init_state is not None
     h0, c0, x0 = init_state if carry else (None, None, None)
-    lib = _q_library()
+    lib = _library()
     ntile = -(-V // lib.gic_proj_tile())
+    plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl,
+                                      quantized=True)
     ptrs = []
     for lq, scale in zip(qdec["lstm_q"], scales):
         ptrs += [lq["w"].q.data_ptr(), scale.data_ptr(), lq["b"].data_ptr()]
@@ -958,9 +957,9 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
             scales[-1].data_ptr(), bits, B, E, H, V, r_emb, nl, seq_len,
             _ptr(h0), _ptr(c0), _ptr(x0), p["x"], p["h"], p["c"], p["pmax"],
             p["pidx"], p["psum"], p["ids"], p["lps"], p.get("hT"),
-            p.get("cT"), p.get("xT"), stream)
+            p.get("cT"), p.get("xT"), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_qserve")
-    _count(decode_sample_q_serve)
+    _count(decode_sample_q_serve, plan)
     return _outputs(bufs, carry)
 
 

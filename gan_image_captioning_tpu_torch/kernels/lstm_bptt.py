@@ -14,9 +14,10 @@ On CUDA tensors each launches its hand-written kernel (``csrc/lstm_bptt.cu``,
 built at first use) or raises; on CPU tensors it runs its plain version
 (:func:`lstm_bptt_chain_plain`, :func:`lstm_bptt_reverse_plain`).
 ``lstm_bptt_chain.launches`` and ``lstm_bptt_reverse.launches`` count the
-kernel launches (one per call).  The reverse is one persistent kernel, one
-cooperative launch per call (:func:`reverse_plan` sizes it;
-``lstm_bptt_reverse.branches`` counts where its weights came from).
+kernel launches (one per call).  Each is one persistent kernel, one
+cooperative launch per call (:func:`chain_plan` and :func:`reverse_plan`
+size them; ``branches`` on each wrapper counts where its weights came
+from).
 """
 
 from __future__ import annotations
@@ -93,13 +94,15 @@ def _library() -> ctypes.CDLL:
     lib = build.load("lstm_bptt")
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gic_lstm_bptt_chain.argtypes = [vp] * 5 + [i] * 4 + [vp] * 5
+        lib.gic_lstm_bptt_chain.argtypes = ([vp] * 5 + [i] * 4 + [vp]
+                                            + [ctypes.POINTER(i), vp, vp])
         lib.gic_lstm_bptt_chain.restype = i
         lib.gic_bptt_reverse.argtypes = ([vp] * 5 + [i] * 3 + [vp] * 3
                                          + [ctypes.POINTER(i), vp, vp])
         lib.gic_bptt_reverse.restype = i
-        lib.gic_reverse_kernel_attrs.argtypes = [ctypes.POINTER(i)] * 2
-        lib.gic_reverse_kernel_attrs.restype = i
+        for name in ("gic_reverse_kernel_attrs", "gic_chain_kernel_attrs"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(i)] * 2
+            getattr(lib, name).restype = i
         lib._gic_typed = True
     return lib
 
@@ -123,23 +126,29 @@ def lstm_bptt_chain(w_hhs, w_ihs_upper, d_hs, gates, cs):
     if device.type != "cuda":
         raise ValueError(f"lstm_bptt_chain: unsupported device {device}")
     lib = _library()
-    carries = torch.empty(2, NL, B, H, device=device)
-    dx_upper = torch.empty(B, H, device=device)
+    plan = chain_plan(B, H, NL, *build.device_limits(lib, device))
     d_pre = torch.empty(T, NL, B, 4 * H, device=device)
+    barrier = torch.empty(1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_lstm_bptt_chain(
             w_hhs.data_ptr(), w_ihs_upper.data_ptr() if NL > 1 else None,
             d_hs.data_ptr(), gates.data_ptr(), cs.data_ptr(), T, NL, B, H,
-            carries[0].data_ptr(), carries[1].data_ptr(),
-            dx_upper.data_ptr(), d_pre.data_ptr(), stream)
+            d_pre.data_ptr(), (ctypes.c_int * 5)(*plan["ints"]),
+            barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "lstm_bptt_chain")
     with _count_lock:
         lstm_bptt_chain.launches += 1
+        lstm_bptt_chain.branches[
+            "resident" if plan["resident"] else "streamed"] += 1
+        lstm_bptt_chain.last_plan = plan
     return d_pre
 
 
 lstm_bptt_chain.launches = 0
+# launches by where the kernel's weight rows came from (as the reverse's)
+lstm_bptt_chain.branches = {"resident": 0, "streamed": 0}
+lstm_bptt_chain.last_plan = None
 
 # The persistent reverse kernel's geometry (csrc/persistent.cuh,
 # csrc/lstm_bptt.cu): 256 threads, a cp.async pool of 4 slots of
@@ -199,24 +208,84 @@ def reverse_plan(B: int, H: int, n_sm: int, smem_limit: int,
             "ints": (grid, upb, int(resident), smem)}
 
 
+# The persistent chain kernel's geometry (csrc/lstm_bptt.cu): 256
+# threads, a cp.async pool of 3 slots of 72 x 132 floats; a power of two
+# units a block, taken in passes of at most 8 weight rows.
+CHAIN_STAGE_BYTES = 4 * 3 * 72 * 132
+
+
+def chain_plan(B: int, H: int, NL: int, n_sm: int, smem_limit: int,
+               blocks: int = None) -> dict:
+    """The persistent chain kernel's launch plan at batch ``B``, width
+    ``H`` and ``NL`` layers on a card of ``n_sm`` SMs whose blocks may opt
+    into ``smem_limit`` bytes of shared memory: ``blocks`` (default: as
+    many as the hidden units need at the smallest power-of-two units per
+    block that one block per SM allows), the hidden units each block owns
+    in every layer (``units``), whether its rows of ``w_hhs[l]`` and
+    ``w_ihs_upper[l-1]`` stay in shared memory for the whole call
+    (``resident``, where they fit beside the pool and the carries of at
+    least min(B, 64) batch rows; otherwise they are read from global
+    memory each step), the batch rows whose carries (dh, dc of every layer
+    and dx_upper) the shared memory left holds (``batch_chunk``: the
+    kernel runs the recurrence for one such chunk of rows after another),
+    the dynamic shared-memory bytes and the grid barriers per step
+    (``NL``).  ``ints`` is what the C call takes.  Raises ValueError when
+    not even one row's carries fit or the grid cannot be co-resident."""
+    for name, v in (("B", B), ("H", H), ("NL", NL), ("n_sm", n_sm),
+                    ("smem_limit", smem_limit)):
+        if v < 1:
+            raise ValueError(f"chain_plan: {name} = {v} must be positive")
+    if blocks is not None and int(blocks) < 1:
+        raise ValueError(f"chain_plan: blocks = {blocks} must be positive")
+    per_block = -(-H // (min(n_sm, H) if blocks is None else int(blocks)))
+    upb = 1 << (per_block - 1).bit_length()
+    grid = -(-H // upb) if blocks is None else int(blocks)
+    row_bytes = 4 * (2 * NL + 1) * upb          # the carries of one row
+    resident_bytes = 4 * upb * (_kpad(4 * H) + 4) * (2 * NL - 1)
+    free = smem_limit - STATIC_SMEM - CHAIN_STAGE_BYTES
+    resident = (free - resident_bytes) // row_bytes >= min(B, 64)
+    if resident:
+        free -= resident_bytes
+    chunk = min(B, free // row_bytes)
+    if chunk < 1:
+        raise ValueError(f"chain_plan: the carries of one batch row "
+                         f"({row_bytes} bytes) do not fit in the shared "
+                         f"memory beside the K-tile pool (limit "
+                         f"{smem_limit})")
+    smem = (CHAIN_STAGE_BYTES + (resident_bytes if resident else 0)
+            + chunk * row_bytes)
+    per_sm = min(MAX_BLOCKS_PER_SM, smem_limit // (smem + STATIC_SMEM))
+    if grid > per_sm * n_sm:
+        raise ValueError(f"chain_plan: {grid} blocks cannot be "
+                         f"co-resident ({per_sm} per SM x {n_sm} SMs)")
+    return {"blocks": grid, "threads": THREADS, "units_per_block": upb,
+            "units": [(min(b * upb, H), min((b + 1) * upb, H))
+                      for b in range(grid)],
+            "resident": resident, "batch_chunk": chunk,
+            "smem_bytes": smem, "barriers_per_step": NL,
+            "ints": (grid, upb, int(resident), smem, chunk)}
+
+
 PROFILE_SLOTS = ("load", "gates", "barrier", "product")
 
 
-def set_phase_profile(prof):
-    """From now on every reverse launch adds its block 0's clock64 cycles
-    per phase (:data:`PROFILE_SLOTS`) into ``prof`` (an int64 CUDA tensor
-    of 4 zeros); ``None`` turns it off."""
-    lib = _library()
-    lib.gic_reverse_set_profile.argtypes = [ctypes.c_void_p]
-    lib.gic_reverse_set_profile(None if prof is None else prof.data_ptr())
+def set_phase_profile(prof, kernel="reverse"):
+    """From now on every launch of the ``kernel`` (``"reverse"`` or
+    ``"chain"``) adds its block 0's clock64 cycles per phase
+    (:data:`PROFILE_SLOTS`) into ``prof`` (an int64 CUDA tensor of 4
+    zeros); ``None`` turns it off."""
+    fn = getattr(_library(), f"gic_{kernel}_set_profile")
+    fn.argtypes = [ctypes.c_void_p]
+    fn(None if prof is None else prof.data_ptr())
 
 
-def kernel_attrs():
-    """``{"registers": n, "local_bytes": n}`` of the persistent reverse
-    kernel (spills show as local bytes)."""
+def kernel_attrs(kernel="reverse"):
+    """``{"registers": n, "local_bytes": n}`` of the persistent
+    ``kernel`` (``"reverse"`` or ``"chain"``; spills show as local
+    bytes)."""
     lib = _library()
     regs, local = ctypes.c_int(), ctypes.c_int()
-    build.raise_on_error(lib, lib.gic_reverse_kernel_attrs(
+    build.raise_on_error(lib, getattr(lib, f"gic_{kernel}_kernel_attrs")(
         ctypes.byref(regs), ctypes.byref(local)), "kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
