@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only disc_engines,bptt_reverse
     python3 chip_smoke.py --only decode_modes,decode_impls
     python3 chip_smoke.py --only persistent,kernel,carry_kernel,qserve_kernel,decode_modes,bptt_reverse
+    python3 chip_smoke.py --only train_kernels,wrappers
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -36,8 +37,10 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
    ids; soft within 1e-5, h/c/gates within 1e-4), its Philox draw (seeded,
    mean and share below 0.1 of the 25 M uniforms within 1e-3), the BPTT
    chain (d_pre within 1e-4 of its max), the conv forward (pooled within
-   1e-5, argmax rows equal outside ties within 1e-6) and backward (dW
-   within 1e-4 of its max, dX within 1e-5).
+   1e-5, argmax rows equal outside ties within 1e-6, one launch a pass by
+   its plan and its wrapper's count; the profiler's kernel events are
+   reported) and backward (dW within 1e-4 of its max, dX
+   within 1e-5).
 4. ``train_timing`` — each training kernel's ``device_ms`` beside its
    plain version's (CUDA events for the decode and chain loops) and its
    bound.
@@ -182,9 +185,11 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     to ``sample_resid``'s; emb within 1e-5 of its largest entry against
     the float64 product of the same soft and Wd^T) and the fused-embed
     backward (dWp and dbp within 1e-4 of their largest entry, d_htop
-    within 1e-5); ``device_ms`` of those and, re-timed the same way, of
-    serve at B = 8 and 64, ``sample_resid`` and the carried chunk, beside
-    the plain versions and the bounds.
+    within 1e-5, two calls bit-equal); ``device_ms`` of those and,
+    re-timed the same way, of serve at B = 8 and 64, ``sample_resid``
+    and the carried chunk, beside the plain versions and the bounds (the
+    embed backward's at the 3xTF32 rate its products run at, and its
+    three cuBLAS products alone as its library time).
 25. ``decode_impls`` — one adversarial and one MLE (free) pass under each
     decode route (``kernel``, ``kernel_rescore``, ``kernel_embed``,
     ``decoupled``) from the same state and fed noise (uniforms, keep
@@ -193,6 +198,12 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     route's, gradients by ``routes_agree``; then the adversarial, MLE and
     both eval steps through the entry points, each with the launch counts
     of the design; ms per step.
+26. ``wrappers`` — at config3 width, what one call of the conv-bank
+    forward and of the fused-embed backward costs the host (argument
+    checks, launch plans, allocations, launches: ``host_us``, timed while
+    the device waits behind a spin) and its device time split by kernel
+    (torch.profiler), and the sha256 of its outputs.  It calls the
+    wrappers by their public signatures only.
 
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
@@ -209,6 +220,7 @@ products and convolutions run in full float32: TF32 is switched off below.
 import argparse
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
@@ -225,6 +237,7 @@ V, E, H, NL, MAX_SEQ_LEN = 11008, 512, 512, 2, 34
 T = MAX_SEQ_LEN + 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
 Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
@@ -797,6 +810,40 @@ def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES):
     return {"device_us_per_call": us, "launches_per_call": count,
             "device_busy_share": sum(us.values()) * calls / wall_us,
             "wall_ms_per_call": wall_us / calls / 1e3}
+
+
+def kernel_events(fn, calls):
+    """The device's kernel launches (torch.profiler) of ``calls`` calls of
+    ``fn`` after one warm call, in launch order: ``[(name, µs), ...]``
+    (memsets and copies are not kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memset", "Memcpy"))),
+                 key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in evs]
+
+
+def kernel_split(fn, calls=5):
+    """The kernels that ``calls`` calls of ``fn`` launch, by name
+    (torch.profiler; profiled again once where it saw no kernel): events
+    seen and mean device µs an event (the profiler may drop events)."""
+    us = {}
+    evs = kernel_events(fn, calls) or kernel_events(fn, calls)
+    for n, t in evs:
+        us.setdefault(n[:120], []).append(t)
+    return {"calls_profiled": calls, "kernel_events": len(evs),
+            "by_kernel": {n: {"events": len(v), "mean_us": sum(v) / len(v)}
+                          for n, v in us.items()}}
 
 
 def phase_profile(dec, device, calls=3):
@@ -1442,20 +1489,32 @@ def phase_train_kernels(dec, device):
 
     # --- disc conv forward and backward-dX
     emb_pad, w_all, b_all, banks = conv_inputs(device)
+    before = disc_conv.conv_bank_forward.launches
     pooled_k, idx_k = disc_conv.conv_bank_forward(emb_pad, w_all, b_all,
                                                   banks, DISC_R, 1)
+    counted = disc_conv.conv_bank_forward.launches - before
     torch.cuda.synchronize()
+    plan = disc_conv.conv_fwd_plan(B * DISC_R, emb_pad.shape[1] - max(
+        f for _, f in banks) + 1, 1, banks)
     pooled_p, idx_p = disc_conv.conv_relu_maxpool_plain(
         emb_pad, w_all, b_all, banks, DISC_R, 1)
     idx_bad, ties = idx_mismatch(emb_pad, w_all, b_all, banks, pooled_p,
                                  idx_k, idx_p)
+    evs = kernel_events(lambda: disc_conv.conv_bank_forward(
+        emb_pad, w_all, b_all, banks, DISC_R, 1), 3)
     row = {"max_abs_pooled_diff": float((pooled_k - pooled_p).abs().max()),
            "max_pooled": float(pooled_p.max()),
            "idx_mismatch_outside_ties": idx_bad, "near_ties": ties,
-           "live_share": float((pooled_p > 0).double().mean())}
+           "live_share": float((pooled_p > 0).double().mean()),
+           "plan_launches": len(plan["launches"]), "counted": counted,
+           "profiler_kernel_events_per_pass": len(evs) / 3,
+           "kernels": sorted({n[:60] for n, _ in evs})}
     emit({"phase": "train_kernels", "kernel": "disc_conv_fwd", **row})
     check(row["max_abs_pooled_diff"] <= POOL_ATOL and idx_bad == 0,
           f"disc conv forward {row}")
+    check(row["plan_launches"] == 1 and counted == 1,
+          f"disc conv forward: {row['plan_launches']} launches planned, "
+          f"{counted} counted for one pass, expected 1")
     out["disc_conv_fwd"] = row
 
     dpms, off = [], 0
@@ -3379,6 +3438,24 @@ def embed_bwd_work(B):
     return nbytes, 2 * T * B * V * (DISC_E + 2 * H)
 
 
+def tf32x3_bound(nbytes, flops):
+    """The bound of float32 products run as three TF32 tensor-core
+    products each (3xTF32): 3 * flops at the TF32 peak, or the bytes."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def embed_bwd_products(h_top, d_emb, w_proj, wd, d_logits):
+    """The three float32 cuBLAS products of the embed backward (TF32 off),
+    each a function: d_soft = d_emb @ wd, dWp = h_top^T @ d_logits,
+    d_htop = d_logits @ w_proj, at [T·B] rows."""
+    h2, e2 = h_top.reshape(-1, h_top.shape[-1]), d_emb.reshape(
+        -1, d_emb.shape[-1])
+    return {"d_soft": lambda: e2 @ wd, "dwp": lambda: h2.T @ d_logits,
+            "d_htop": lambda: d_logits @ w_proj}
+
+
 def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
@@ -3465,18 +3542,29 @@ def phase_decode_modes(device):
     d_emb = seeded((T, B, DISC_E), 92, device)
     bargs = (h_top, soft, d_emb, dec.linear.weight, wd, TEMP)
     k = ds.decode_sample_embed_bwd(*bargs)
+    k2 = ds.decode_sample_embed_bwd(*bargs)
     torch.cuda.synchronize()
     p = ds.decode_sample_embed_bwd_plain(*bargs)
     row = {"dwp_rel": rel_err(k[0], p[0]), "dbp_rel": rel_err(k[1], p[1]),
            "d_htop_rel": rel_err(k[2], p[2]),
            "max_abs_dwp_diff": float((k[0] - p[0]).abs().max()),
-           "max_abs_d_htop_diff": float((k[2] - p[2]).abs().max())}
+           "max_abs_d_htop_diff": float((k[2] - p[2]).abs().max()),
+           "two_calls_bit_equal": all(torch.equal(a, b)
+                                      for a, b in zip(k, k2)),
+           "plan": ds.embed_bwd_plan(T * B, H, V, DISC_E,
+                                     torch.cuda.get_device_properties(
+                                         device).multi_processor_count)[
+                                             "ints"]}
     emit({"phase": "decode_modes", "kernel": "decode_sample_embed_bwd",
           **row})
     check(row["dwp_rel"] <= DWP_RTOL and row["dbp_rel"] <= DWP_RTOL
           and row["d_htop_rel"] <= DHTOP_RTOL, f"embed backward {row}")
+    check(row["two_calls_bit_equal"], "embed backward not deterministic")
     out["rows"]["decode_sample_embed_bwd"] = row
-    del k, p, resid
+    d_logits = seeded((T * B, V), 96, device, 1e-4)
+    products = embed_bwd_products(h_top, d_emb, dec.linear.weight, wd,
+                                  d_logits)
+    del k, k2, p, resid
 
     # --- device times of the decode family (a decode is one launch; the
     # plain decodes' thousands of launches overflow the launch queue
@@ -3527,6 +3615,18 @@ def phase_decode_modes(device):
         out["times"][name] = time_pair(kern, plain, work, k_calls,
                                        p_calls=2 if decode else 10,
                                        plain_events=decode)
+        if name == "decode_sample_embed_bwd":
+            t = out["times"][name]
+            t["bound_ms_f32"] = t["bound_ms"]
+            t["bound_ms"], t["bound_by"] = tf32x3_bound(*work)
+            t["bound_peak"] = "3 x flop at 495 TFLOP/s TF32 (3xTF32)"
+            # the library yardstick: the plain version's three cuBLAS
+            # products alone, together and each
+            t["library_ms"] = [device_ms(lambda: [f() for f in
+                                                  products.values()], 10)
+                               for _ in range(2)]
+            t["library_each_ms"] = {k: device_ms(f, 10)
+                                    for k, f in products.items()}
         emit({"phase": "decode_modes", "timing": name, **out["times"][name]})
     return out
 
@@ -3658,10 +3758,71 @@ def mode_entries(smi, modes, impls):
             "replaces": tpu, "launches": launches[name][name],
             "max_abs_err": errs[name], "ms": min(t["kernel_ms"]),
             "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "B": B_TRAIN,
-            "card": smi})
+            "bound_by": t["bound_by"],
+            "library_ms": min(t["library_ms"]) if "library_ms" in t
+            else None, "B": B_TRAIN, "card": smi})
         check(out[-1]["launches"] > 0, f"{name} never launched")
     return out
+
+
+# ------------------------------------------- the wrappers' host cost
+
+def embed_bwd_inputs(device):
+    """Seeded inputs of the embed backward at config3 width: h_top, soft
+    (a softmax), d_emb, w_proj, wd and the temperature."""
+    return (seeded((T, B_TRAIN, H), 93, device),
+            torch.softmax(seeded((T, B_TRAIN, V), 94, device, 3.0), dim=-1),
+            seeded((T, B_TRAIN, DISC_E), 92, device),
+            seeded((V, H), 95, device, 1 / math.sqrt(H)),
+            seeded((DISC_E, V), 91, device, 0.1), TEMP)
+
+
+def host_us(fn, calls):
+    """Host µs per call of ``fn``, its calls enqueued while the device
+    waits behind a spin (``torch.cuda._sleep``): what a call costs the
+    host, apart from the device's own time."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def sha256(out):
+    """sha256 of the bytes of a call's output tensors, in order."""
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        if isinstance(t, (tuple, list)):
+            h.update(sha256(t).encode())
+        else:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_wrappers(device):
+    """The host's cost per call of the conv-bank forward and of the
+    fused-embed backward at config3 width (three batches of calls), each
+    call's device time split by kernel, and the sha256 of its outputs
+    (two checkouts whose digests agree give bit-equal outputs).  Only the
+    wrappers' public signatures are used."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+
+    cargs = (*conv_inputs(device), DISC_R, 1)
+    bargs = embed_bwd_inputs(device)
+    for name, fn, calls in (
+            ("disc_conv_fwd",
+             lambda: disc_conv.conv_bank_forward(*cargs), 100),
+            ("decode_sample_embed_bwd",
+             lambda: ds.decode_sample_embed_bwd(*bargs), 20)):
+        emit({"phase": "wrappers", "kernel": name, "calls": calls,
+              "sha256": sha256(fn()),
+              "host_us": [host_us(fn, calls) for _ in range(3)],
+              **kernel_split(fn)})
 
 
 def main(argv=None):
@@ -3749,6 +3910,8 @@ def main(argv=None):
         modes = phase_decode_modes(device)
     if run("decode_impls"):
         impls = phase_decode_impls(device)
+    if run("wrappers"):
+        phase_wrappers(device)
     if only:
         return 0
 

@@ -28,10 +28,27 @@
 // TPU kernel's loop over every t with a mask, and its XT transpose of the
 // input, are TPU artefacts and are not carried over.
 //
-// What this design does about it.  It is the simple version.
-//   * conv_fwd_kernel: a block owns 32 columns and 64 filters; the
-//     columns' real rows and the filters' taps sit in shared memory; one
-//     thread per (q, n) output keeps the running max and argmax over t.
+// What this design does about it.
+//   * conv_fwd_kernel: one launch for every bank of a pass (up to
+//     FW_MAX_BANKS; the wrapper's plan gives each bank its first filter
+//     tile, so blockIdx.y picks the bank).  A block owns FW_QB = 16
+//     columns and FW_NB = 64 filters of one bank; the columns' real rows
+//     sit in shared memory.  A thread owns FW_NF = 4 filters of one
+//     column: their taps (f*eds of them, up to FW_MAXT = 8, a template
+//     parameter through a block-uniform switch) and biases live in
+//     registers, so each input value read from shared memory (a
+//     broadcast: a warp reads two columns) serves 4 FMAs, rather than one
+//     shared load of a tap and one of an input per FMA.  Banks of more
+//     taps read theirs from shared memory as float4s.  Each output is one
+//     fmaf chain over k ascending from 0, then + bias, then the ReLU max
+//     over t with the first maximum winning: the order of a thread per
+//     (column, filter), so the tiling does not move a pooled bit or an
+//     argmax on a near-tie.  K = f*eds is 3-5 at the training width: far
+//     too short a product for the tensor cores (mma's k is 8 for tf32,
+//     and every tap would be padded), so none are used.  Per (column,
+//     filter, t) that leaves f FMAs, the bias add, a compare and two
+//     selects and f/4 shared loads, about 9.5 instructions at f = 4
+//     (ptxas's loop), so instruction issue bounds it.
 //   * conv_bwd_kernel: a block owns 16 columns; their idx and dpm rows,
 //     input rows and the bank's taps sit in shared memory.  One thread per
 //     (column, input row) sums w * dpm over the filters whose argmax puts
@@ -58,58 +75,142 @@
 
 namespace {
 
-constexpr int FW_QB = 32, FW_NB = 64, FW_NT = 256;
+constexpr int FW_NF = 4, FW_FG = 16, FW_NB = FW_NF * FW_FG;
+constexpr int FW_NT = 256, FW_QB = FW_NT / FW_FG;  // 16 columns
+constexpr int FW_MAXT = 8, FW_MAX_BANKS = 8;
 constexpr int BW_QB = 16, BW_NT = 256;  // both backward kernels
 
 __host__ __device__ inline int odd(int v) { return v | 1; }
 
+// The banks of one forward launch: per bank its filter count, taps per
+// row, first row in w_all / b_all / pooled's columns, first filter tile
+// (tile0[count] is the grid's y extent) and its idx [Q, n].
+struct FwdBanks {
+  int n[FW_MAX_BANKS], f[FW_MAX_BANKS], off[FW_MAX_BANKS];
+  int tile0[FW_MAX_BANKS + 1];
+  int32_t* idx[FW_MAX_BANKS];
+  int count;
+};
+
+// One thread's FW_NF filters n0 + 4*fg + j over column x (its rows in
+// shared memory): TAPS > 0 taps in registers; TAPS == 0, `taps` of them
+// from ws [taps][FW_NB].  m / best: pooled value and first argmax.
+template <int TAPS>
+__device__ __forceinline__ void conv_fwd_filters(
+    const float* __restrict__ x, const float* __restrict__ ws,
+    const float* __restrict__ w, int ldw, const float* __restrict__ bias,
+    int taps, int eds, int lv, int n, int n0, int fg, float (&m)[FW_NF],
+    int (&best)[FW_NF]) {
+  constexpr int KR = TAPS > 0 ? TAPS : 1;
+  float wr[FW_NF][KR], bv[FW_NF];
+#pragma unroll
+  for (int j = 0; j < FW_NF; ++j) {
+    const int nn = n0 + fg * FW_NF + j;
+    bv[j] = nn < n ? bias[nn] : 0.f;
+#pragma unroll
+    for (int k = 0; k < KR; ++k)
+      wr[j][k] = TAPS > 0 && nn < n ? w[(size_t)nn * ldw + k] : 0.f;
+  }
+  for (int t = 0; t < lv; ++t) {
+    const float* xt = x + t * eds;
+    float acc[FW_NF];
+#pragma unroll
+    for (int j = 0; j < FW_NF; ++j) acc[j] = 0.f;
+    if (TAPS > 0) {
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        const float xv = xt[k];
+#pragma unroll
+        for (int j = 0; j < FW_NF; ++j) acc[j] = fmaf(xv, wr[j][k], acc[j]);
+      }
+    } else {
+      for (int k = 0; k < taps; ++k) {
+        const float xv = xt[k];
+        const float4 wv =
+            *reinterpret_cast<const float4*>(ws + k * FW_NB + fg * FW_NF);
+        acc[0] = fmaf(xv, wv.x, acc[0]);
+        acc[1] = fmaf(xv, wv.y, acc[1]);
+        acc[2] = fmaf(xv, wv.z, acc[2]);
+        acc[3] = fmaf(xv, wv.w, acc[3]);
+      }
+    }
+    // relu(z) > m with m from -1 is the same test as z > m once m =
+    // relu(z at t = 0) >= 0; the first maximum wins (strict >)
+#pragma unroll
+    for (int j = 0; j < FW_NF; ++j) {
+      const float z = acc[j] + bv[j];
+      if (t == 0) {
+        m[j] = fmaxf(z, 0.f);
+        best[j] = 0;
+      } else if (z > m[j]) {
+        m[j] = z;
+        best[j] = t;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(FW_NT) conv_fwd_kernel(
-    const float* __restrict__ emb, const float* __restrict__ w, int ldw,
-    const float* __restrict__ bias, int Q, int Lp, int R, int eds, int f,
-    int L, int n, float* __restrict__ pooled, int ldp,
-    int32_t* __restrict__ idx) {
+    const float* __restrict__ emb, const float* __restrict__ w_all, int ldw,
+    const float* __restrict__ b_all, int Q, int Lp, int R, int eds, int L,
+    FwdBanks banks, float* __restrict__ pooled, int ldp) {
   extern __shared__ float smem[];
-  const int rows = L * eds, xld = odd(rows), taps = f * eds;
+  const int tile = blockIdx.y;
+  int b = 0;
+  while (b + 1 < banks.count && tile >= banks.tile0[b + 1]) ++b;
+  const int n = banks.n[b], f = banks.f[b], off = banks.off[b];
+  const int taps = f * eds, lv = L - f + 1;
+  const int n0 = (tile - banks.tile0[b]) * FW_NB;
+  const int rows = L * eds, xld = odd(rows);
   float* xs = smem;                    // [FW_QB][xld]
-  float* ws = smem + FW_QB * xld;      // [taps][FW_NB]
-  const int q0 = blockIdx.x * FW_QB, n0 = blockIdx.y * FW_NB;
-  const int tid = threadIdx.x, E = R * eds;
+  float* ws = smem + FW_QB * xld;      // [taps][FW_NB], taps > FW_MAXT only
+  const int q0 = blockIdx.x * FW_QB, tid = threadIdx.x, E = R * eds;
+  const float* w = w_all + (size_t)off * ldw;
 
   for (int e = tid; e < FW_QB * rows; e += FW_NT) {
     const int qi = e % FW_QB, p = e / FW_QB, q = q0 + qi;
     float v = 0.f;
     if (q < Q) {
-      const int b = q / R, r = q % R, t = p / eds, k = p % eds;
-      v = emb[((size_t)b * Lp + t) * E + r * eds + k];
+      const int bq = q / R, r = q % R, t = p / eds, k = p % eds;
+      v = emb[((size_t)bq * Lp + t) * E + r * eds + k];
     }
     xs[qi * xld + p] = v;
   }
-  for (int e = tid; e < taps * FW_NB; e += FW_NT) {
-    const int nl = e % FW_NB, k = e / FW_NB, nn = n0 + nl;
-    ws[k * FW_NB + nl] = nn < n ? w[(size_t)nn * ldw + k] : 0.f;
+  if (taps > FW_MAXT) {
+    for (int e = tid; e < taps * FW_NB; e += FW_NT) {
+      const int nl = e % FW_NB, k = e / FW_NB, nn = n0 + nl;
+      ws[k * FW_NB + nl] = nn < n ? w[(size_t)nn * ldw + k] : 0.f;
+    }
   }
   __syncthreads();
 
-  const int lv = L - f + 1;
-  for (int e = tid; e < FW_QB * FW_NB; e += FW_NT) {
-    const int nl = e % FW_NB, qi = e / FW_NB, q = q0 + qi, nn = n0 + nl;
-    if (q >= Q || nn >= n) continue;
-    const float bv = bias[nn];
-    const float* x = xs + qi * xld;
-    float m = -1.f;
-    int best = 0;
-    for (int t = 0; t < lv; ++t) {
-      float acc = 0.f;
-      for (int k = 0; k < taps; ++k)
-        acc = fmaf(x[t * eds + k], ws[k * FW_NB + nl], acc);
-      const float z = fmaxf(acc + bv, 0.f);
-      if (z > m) {  // strict: the first maximum wins
-        m = z;
-        best = t;
-      }
+  const int fg = tid % FW_FG, qi = tid / FW_FG, q = q0 + qi;
+  const float* x = xs + qi * xld;
+  const float* bias = b_all + off;
+  float m[FW_NF];
+  int best[FW_NF];
+  switch (taps) {  // block-uniform
+#define GIC_TAPS(K)                                                        \
+  case K:                                                                  \
+    conv_fwd_filters<K>(x, ws, w, ldw, bias, taps, eds, lv, n, n0, fg, m, \
+                        best);                                             \
+    break;
+    GIC_TAPS(1) GIC_TAPS(2) GIC_TAPS(3) GIC_TAPS(4)
+    GIC_TAPS(5) GIC_TAPS(6) GIC_TAPS(7) GIC_TAPS(8)
+#undef GIC_TAPS
+    default:
+      conv_fwd_filters<0>(x, ws, w, ldw, bias, taps, eds, lv, n, n0, fg, m,
+                          best);
+  }
+  if (q >= Q) return;
+  int32_t* idx = banks.idx[b];
+#pragma unroll
+  for (int j = 0; j < FW_NF; ++j) {
+    const int nn = n0 + fg * FW_NF + j;
+    if (nn < n) {
+      pooled[(size_t)q * ldp + off + nn] = m[j];
+      idx[(size_t)q * n + nn] = best[j];
     }
-    pooled[(size_t)q * ldp + nn] = m;
-    idx[(size_t)q * n + nn] = best;
   }
 }
 
@@ -245,8 +346,10 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-size_t fwd_smem(int L, int eds, int f) {
-  return sizeof(float) * ((size_t)FW_QB * odd(L * eds) + (size_t)f * eds * FW_NB);
+// taps: the most of any bank of the launch that reads its taps from
+// shared memory (more than FW_MAXT), else 0.
+size_t fwd_smem(int L, int eds, int taps) {
+  return sizeof(float) * ((size_t)FW_QB * odd(L * eds) + (size_t)taps * FW_NB);
 }
 
 size_t bwd_smem(int L, int eds, int f, int n) {
@@ -270,20 +373,44 @@ const char* gic_error_string(int err) {
 // Blocks of either backward: the leading dimension of dw_part.
 int gic_conv_bwd_blocks(int Q) { return (Q + BW_QB - 1) / BW_QB; }
 
-// One bank's forward on `stream`.  emb [Bn, Lp, R*eds]; w, bias this
-// bank's rows of w_all [F, ldw] and b_all; Q = Bn*R.  Outputs: pooled
-// (this bank's first column of a [Q, ldp] matrix) and idx [Q, n].
-int gic_conv_fwd(const float* emb, const float* w, int ldw,
-                 const float* bias, int Bn, int Lp, int R, int eds, int f,
-                 int L, int n, float* pooled, int ldp, int32_t* idx,
+// The forward of up to FW_MAX_BANKS banks in one launch on `stream`
+// (the wrapper's plan, disc_conv.conv_fwd_plan).  emb [Bn, Lp, R*eds];
+// w_all [F, ldw], b_all [F]; per bank i, bank_ints[4i..4i+3] = (n, f,
+// first row, first filter tile) and idx[i] [Bn*R, n]; pooled [Bn*R, ldp]
+// (each bank's columns from its first row).  filter_tiles and smem_bytes
+// are the plan's; a launch they do not match is refused
+// (cudaErrorInvalidValue).
+int gic_conv_fwd(const float* emb, const float* w_all, int ldw,
+                 const float* b_all, int Bn, int Lp, int R, int eds, int L,
+                 int n_banks, const int* bank_ints, void* const* idx,
+                 int filter_tiles, int smem_bytes, float* pooled, int ldp,
                  void* stream) {
-  const int Q = Bn * R;
-  const size_t smem = fwd_smem(L, eds, f);
+  if (n_banks < 1 || n_banks > FW_MAX_BANKS) return cudaErrorInvalidValue;
+  FwdBanks banks;
+  banks.count = n_banks;
+  int tiles = 0, gen_taps = 0;
+  for (int i = 0; i < n_banks; ++i) {
+    const int* bi = bank_ints + 4 * i;
+    banks.n[i] = bi[0];
+    banks.f[i] = bi[1];
+    banks.off[i] = bi[2];
+    banks.tile0[i] = bi[3];
+    banks.idx[i] = static_cast<int32_t*>(idx[i]);
+    if (bi[3] != tiles || bi[0] < 1 || bi[1] < 1 || bi[1] > L)
+      return cudaErrorInvalidValue;
+    tiles += (bi[0] + FW_NB - 1) / FW_NB;
+    if (bi[1] * eds > FW_MAXT && bi[1] * eds > gen_taps) gen_taps = bi[1] * eds;
+  }
+  banks.tile0[n_banks] = tiles;
+  const size_t smem = fwd_smem(L, eds, gen_taps);
+  if (tiles != filter_tiles || smem != (size_t)smem_bytes)
+    return cudaErrorInvalidValue;
   cudaError_t err = set_smem((const void*)conv_fwd_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Q + FW_QB - 1) / FW_QB, (n + FW_NB - 1) / FW_NB);
+  const int Q = Bn * R;
+  const dim3 grid((Q + FW_QB - 1) / FW_QB, tiles);
   conv_fwd_kernel<<<grid, FW_NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb, w, ldw, bias, Q, Lp, R, eds, f, L, n, pooled, ldp, idx);
+      emb, w_all, ldw, b_all, Q, Lp, R, eds, L, banks, pooled, ldp);
   return cudaGetLastError();
 }
 

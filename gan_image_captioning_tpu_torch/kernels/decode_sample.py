@@ -54,6 +54,7 @@ the last one.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Sequence
 
@@ -701,10 +702,76 @@ def _bwd_library() -> ctypes.CDLL:
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gic_decode_embed_bwd.argtypes = (
-            [vp] * 5 + [i] * 4 + [ctypes.c_float] + [vp] * 5)
+            [vp] * 5 + [i] * 4 + [ctypes.c_float, ctypes.POINTER(i)]
+            + [vp] * 5)
         lib.gic_decode_embed_bwd.restype = i
         lib._gic_typed = True
     return lib
+
+
+# The tiles (M, N, K) of csrc/decode_embed_bwd.cu's two products that are
+# split over K = V (SE_* and HT_* there): se = soft @ wd^T and d_htop.  They
+# steer the choice of splits only; the C side refuses a chunk that is not a
+# whole number of its K tiles.
+EB_SE_TILE, EB_HTOP_TILE, EB_MAX_SPLIT = (128, 64, 32), (128, 128, 64), 32
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _split_k(tiles: int, K: int, bk: int, n_sm: int):
+    """``(splits, chunk)``: K cut into chunks of whole K tiles of ``bk`` so
+    that the blocks (``tiles`` per split, one per SM at a time) take the
+    fewest waves × K tiles per block; the fewest splits among equals."""
+    k_tiles = -(-K // bk)
+    best = None
+    for s in range(1, min(k_tiles, EB_MAX_SPLIT) + 1):
+        chunk = -(-k_tiles // s)
+        s = -(-k_tiles // chunk)
+        cost = -(-tiles * s // n_sm) * chunk
+        if best is None or cost < best[0]:
+            best = (cost, s, chunk * bk)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=64)
+def embed_bwd_plan(R: int, H: int, V: int, Ed: int, n_sm: int) -> dict:
+    """The splits of :func:`decode_sample_embed_bwd` for ``R = T·B`` rows
+    on a card of ``n_sm`` SMs: ``se [R, Ed]`` and ``d_htop [R, H]``, both
+    sums over V, each with its output ``tiles`` and V cut into ``splits``
+    chunks of ``chunk``; the scratch floats (d_logits, inner, the se
+    partials and, when split, the d_htop partials, each from a multiple of
+    4 floats); the launches of one call; ``ints``, what the C call takes.
+    Cached per shape: callers must not change the dict."""
+    for name, v in (("R", R), ("H", H), ("V", V), ("Ed", Ed),
+                    ("n_sm", n_sm)):
+        if v < 1:
+            raise ValueError(f"embed_bwd_plan: {name} = {v} must be "
+                             "positive")
+    plan = {}
+    for name, N, (bm, bn, bk) in (("se", Ed, EB_SE_TILE),
+                                  ("d_htop", H, EB_HTOP_TILE)):
+        tiles = -(-R // bm) * -(-N // bn)
+        splits, chunk = _split_k(tiles, V, bk, n_sm)
+        plan[name] = {"tiles": tiles, "splits": splits, "chunk": chunk}
+    s0, s3 = plan["se"]["splits"], plan["d_htop"]["splits"]
+    scratch = (_pad4(R * V) + _pad4(R) + _pad4(s0 * R * Ed)
+               + (s3 * R * H if s3 > 1 else 0))
+    return {**plan, "scratch_floats": scratch, "launches": 5 + (s3 > 1),
+            "ints": (s0, plan["se"]["chunk"], s3, plan["d_htop"]["chunk"],
+                     scratch)}
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else 0
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
@@ -714,9 +781,9 @@ def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
     layer's ``h_top_tm [T, B, H]``, the saved ``soft_tm [T, B, V]``, the
     cotangent ``d_emb_tm [T, B, Ed]`` of ``emb``, ``w_proj [V, H]`` and
     ``disc_embed [Ed, V]`` (the JAX ``decode_sample_embed_bwd``).  On CUDA
-    tensors ``csrc/decode_embed_bwd.cu`` (one C call: ``d_soft``, the
-    softmax backward, then ``dWp``, ``dbp`` and ``d_htop`` over all T·B
-    rows at once, each sum in a fixed order); on CPU tensors
+    tensors ``csrc/decode_embed_bwd.cu`` (one C call: tensor-core 3xTF32
+    products over all T·B rows at once, sized by :func:`embed_bwd_plan`,
+    each sum in a fixed order); on CPU tensors
     :func:`decode_sample_embed_bwd_plain`."""
     fn = "decode_sample_embed_bwd"
     if h_top_tm.ndim != 3 or d_emb_tm.ndim != 3 or disc_embed.ndim != 2:
@@ -738,15 +805,17 @@ def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
     if device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {device}")
     lib = _bwd_library()
+    plan = embed_bwd_plan(T * B, H, V, Ed, _sm_count(device))
     empty = _empty_on(device)
-    d_logits = empty(T * B, V)
+    scratch = empty(plan["scratch_floats"])
     dwp, dbp, d_htop = empty(H, V), empty(V), empty(T, B, H)
+    cplan = (ctypes.c_int * 5)(*plan["ints"])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_embed_bwd(
             h_top_tm.data_ptr(), soft_tm.data_ptr(), d_emb_tm.data_ptr(),
             w_proj.data_ptr(), disc_embed.data_ptr(), T * B, H, V, Ed,
-            float(temperature), d_logits.data_ptr(), dwp.data_ptr(),
+            float(temperature), cplan, scratch.data_ptr(), dwp.data_ptr(),
             dbp.data_ptr(), d_htop.data_ptr(), stream)
     build.raise_on_error(lib, rc, fn)
     _count(decode_sample_embed_bwd)

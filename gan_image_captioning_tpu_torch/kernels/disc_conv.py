@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import threading
 from typing import List, Optional, Sequence, Tuple
 
@@ -153,8 +154,9 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gic_conv_bwd_blocks.argtypes = [i]
         lib.gic_conv_bwd_blocks.restype = i
-        lib.gic_conv_fwd.argtypes = ([vp, vp, i, vp] + [i] * 7
-                                     + [vp, i, vp, vp])
+        lib.gic_conv_fwd.argtypes = (
+            [vp, vp, i, vp] + [i] * 6
+            + [ctypes.POINTER(i), ctypes.POINTER(vp), i, i, vp, i, vp])
         lib.gic_conv_fwd.restype = i
         lib.gic_conv_bwd.argtypes = [vp, vp, i, vp, vp] + [i] * 7 + [vp] * 3
         lib.gic_conv_bwd.restype = i
@@ -169,44 +171,99 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# csrc/disc_conv.cu:conv_fwd_kernel's geometry: a block of 256 threads owns
+# FW_QB columns and FW_NB filters of one bank (4 per thread); a bank of at
+# most FW_MAXT taps keeps them in registers, a longer one in shared memory;
+# one launch takes up to FW_MAX_BANKS banks.
+FW_QB, FW_NB, FW_THREADS, FW_MAXT, FW_MAX_BANKS = 16, 64, 256, 8, 8
+SMEM_LIMIT = 232448          # H100: opt-in shared memory per block
+
+
+def _odd(v: int) -> int:
+    return v | 1
+
+
+def conv_fwd_plan(Q: int, L: int, eds: int, banks,
+                  smem_limit: int = SMEM_LIMIT) -> dict:
+    """The launches of :func:`conv_bank_forward` for ``Q = B·R`` columns of
+    ``L`` real time rows, ``eds`` values a row and ``banks ((n, f), ...)``:
+    one per group of up to ``FW_MAX_BANKS`` banks (one for every pass the
+    discriminators run).  Each launch lists its banks with their first row
+    of ``w_all`` (``off``), their first filter tile (``tile0``; blockIdx.y
+    picks the bank), tile count and whether their taps sit in registers;
+    its grid ``(column tiles, filter tiles)`` and dynamic shared-memory
+    bytes (the columns' rows, and the taps of the banks that do not fit
+    in registers).  ``ints`` is what the C call takes per bank.  Raises
+    ValueError where a launch's shared memory would pass ``smem_limit``
+    or a filter is longer than the rows.  Cached per shape: callers must
+    not change the dict."""
+    return _conv_fwd_plan(Q, L, eds, tuple(tuple(b) for b in banks),
+                          smem_limit)
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_fwd_plan(Q: int, L: int, eds: int, banks, smem_limit: int) -> dict:
+    """:func:`conv_fwd_plan`'s work, cached per shape."""
+    if Q < 1 or L < 1 or eds < 1 or not banks:
+        raise ValueError(f"conv_fwd_plan: Q {Q}, L {L}, eds {eds} and the "
+                         "banks must be positive / non-empty")
+    launches, off = [], 0
+    for g0 in range(0, len(banks), FW_MAX_BANKS):
+        group, tile, shared_taps = [], 0, 0
+        for n, f in banks[g0:g0 + FW_MAX_BANKS]:
+            if n < 1 or not 1 <= f <= L:
+                raise ValueError(f"conv_fwd_plan: bank ({n}, {f}) with "
+                                 f"{L} rows")
+            tiles = -(-n // FW_NB)
+            in_regs = f * eds <= FW_MAXT
+            if not in_regs:
+                shared_taps = max(shared_taps, f * eds)
+            group.append({"n": n, "f": f, "off": off, "tile0": tile,
+                          "tiles": tiles, "registers": in_regs})
+            tile += tiles
+            off += n
+        smem = 4 * (FW_QB * _odd(L * eds) + shared_taps * FW_NB)
+        if smem > smem_limit:
+            raise ValueError(f"conv_fwd_plan: {smem} bytes of shared memory "
+                             f"pass the limit {smem_limit}")
+        launches.append({
+            "banks": group, "grid": (-(-Q // FW_QB), tile),
+            "smem_bytes": smem,
+            "ints": [v for b in group
+                     for v in (b["n"], b["f"], b["off"], b["tile0"])]})
+    return {"threads": FW_THREADS, "launches": launches}
+
+
 def conv_bank_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     """Forward of every bank → ``(pooled [B, R, F], idxs)`` as
-    :func:`conv_relu_maxpool_plain`: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU one."""
-    _, _, L, n_all = _validate(emb_pad, w_all, banks, R, eds, b_all)
+    :func:`conv_relu_maxpool_plain`: the CUDA kernel on a CUDA tensor (one
+    launch for all banks, :func:`conv_fwd_plan`), the plain version on a
+    CPU one."""
+    b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds, b_all)
     device = emb_pad.device
     if device.type == "cpu":
         return conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R, eds)
     if device.type != "cuda":
         raise ValueError(f"disc_conv: unsupported device {device}")
     lib = _library()
-    out = _launch_forward(lib, lib.gic_conv_fwd, "disc conv forward",
-                          emb_pad, w_all, b_all, banks, R, eds, L, n_all)
+    plan = conv_fwd_plan(b_sz * R, L, eds, banks)
+    pooled = torch.empty(b_sz, R, n_all, device=device)
+    idxs = [torch.empty(b_sz, R, n, dtype=torch.int32, device=device)
+            for n, _ in banks]
+    with torch.cuda.device(device):
+        for g, launch in enumerate(plan["launches"]):
+            nb = len(launch["banks"])
+            ints = (ctypes.c_int * (4 * nb))(*launch["ints"])
+            ptrs = (ctypes.c_void_p * nb)(*[
+                i.data_ptr() for i in idxs[g * FW_MAX_BANKS:][:nb]])
+            rc = lib.gic_conv_fwd(
+                emb_pad.data_ptr(), w_all.data_ptr(), w_all.shape[1],
+                b_all.data_ptr(), b_sz, lp, R, eds, L, nb, ints, ptrs,
+                launch["grid"][1], launch["smem_bytes"], pooled.data_ptr(),
+                n_all, _stream(device))
+            build.raise_on_error(lib, rc, "disc conv forward")
     with _count_lock:
         conv_bank_forward.launches += 1
-    return out
-
-
-def _launch_forward(lib, c_fn, what, emb_pad, w_all, b_all, banks, R, eds,
-                    L, n_all):
-    """One launch of a forward kernel's C entry ``c_fn`` per bank (both
-    forwards take the same arguments) → ``(pooled, idxs)``."""
-    device = emb_pad.device
-    b_sz, lp = emb_pad.shape[:2]
-    ldw = w_all.shape[1]
-    pooled = torch.empty(b_sz, R, n_all, device=device)
-    idxs, off = [], 0
-    with torch.cuda.device(device):
-        for n, f in banks:
-            idx = torch.empty(b_sz, R, n, dtype=torch.int32, device=device)
-            rc = c_fn(
-                emb_pad.data_ptr(), w_all.data_ptr() + 4 * off * ldw, ldw,
-                b_all.data_ptr() + 4 * off, b_sz, lp, R, eds, f, L, n,
-                pooled.data_ptr() + 4 * off, n_all, idx.data_ptr(),
-                _stream(device))
-            build.raise_on_error(lib, rc, what)
-            idxs.append(idx)
-            off += n
     return pooled, idxs
 
 
@@ -345,12 +402,24 @@ def conv_rows_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     if device.type != "cuda":
         raise ValueError(f"disc_conv: unsupported device {device}")
     lib = _rows_library()
-    out = _launch_forward(lib, lib.gic_conv_rows_fwd,
-                          "disc conv rows forward", emb_pad, w_all, b_all,
-                          banks, R, eds, L, n_all)
+    b_sz, lp = emb_pad.shape[:2]
+    ldw = w_all.shape[1]
+    pooled = torch.empty(b_sz, R, n_all, device=device)
+    idxs, off = [], 0
+    with torch.cuda.device(device):
+        for n, f in banks:       # one launch per bank
+            idx = torch.empty(b_sz, R, n, dtype=torch.int32, device=device)
+            rc = lib.gic_conv_rows_fwd(
+                emb_pad.data_ptr(), w_all.data_ptr() + 4 * off * ldw, ldw,
+                b_all.data_ptr() + 4 * off, b_sz, lp, R, eds, f, L, n,
+                pooled.data_ptr() + 4 * off, n_all, idx.data_ptr(),
+                _stream(device))
+            build.raise_on_error(lib, rc, "disc conv rows forward")
+            idxs.append(idx)
+            off += n
     with _count_lock:
         conv_rows_forward.launches += 1
-    return out
+    return pooled, idxs
 
 
 def conv_rows_backward_plain(emb_pad, w_all, banks, R: int, eds: int,

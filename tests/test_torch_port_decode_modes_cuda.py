@@ -9,7 +9,8 @@ machine without JAX:
 
 Tolerances: ids exact (the plain versions' argmax on the same scores);
 noise 1e-5; logits, soft, residuals 1e-4; emb and d_htop 1e-5 and dWp /
-dbp 1e-4 of their largest entry (float32 sums in another order); step
+dbp 1e-4 of their largest entry (float32 sums in another order; the
+embed backward's products in 3xTF32, float32 to within its rounding); step
 losses 1e-5 and gradients 1e-4 of each tensor's largest entry.
 """
 
@@ -24,7 +25,7 @@ from gan_image_captioning_tpu_torch.kernels.decode_sample import (
     decode_sample, decode_sample_embed, decode_sample_embed_bwd,
     decode_sample_embed_bwd_plain, decode_sample_embed_plain,
     decode_sample_logits, decode_sample_logits_plain, decode_sample_noise,
-    decode_sample_noise_plain, decode_sample_resid)
+    decode_sample_noise_plain, decode_sample_resid, embed_bwd_plan)
 from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
     lstm_bptt_chain, lstm_bptt_reverse)
 from gan_image_captioning_tpu_torch.train import steps as tsteps
@@ -118,21 +119,36 @@ def test_sample_embed_matches_plain_and_sample_resid(device, B, V, E, H, nl,
     assert _rel(emb, want[1]) <= 1e-5
 
 
+# small shapes (4-byte copies where a row is not a multiple of 4 floats);
+# config3's width; a shape a multiple of no tile (128 rows, 64 / 128
+# columns, 32 of K) whose d_htop and se products are split over V
 @pytest.mark.parametrize("T,B,H,V,Ed", [(3, 5, 40, 300, 20),
-                                        (6, 33, 70, 130, 70)])
+                                        (6, 33, 70, 130, 70),
+                                        (36, 64, 512, 11008, 64),
+                                        (7, 29, 196, 3001, 36)])
 def test_embed_bwd_matches_plain(device, T, B, H, V, Ed):
     rng = np.random.default_rng(T * B)
     soft = torch.softmax(_t(rng, device, T, B, V, scale=3.0), dim=-1)
     args = (_t(rng, device, T, B, H), soft, _t(rng, device, T, B, Ed),
             _t(rng, device, V, H, scale=0.2), _t(rng, device, Ed, V,
                                                  scale=0.1), 4.0)
+    plan = embed_bwd_plan(T * B, H, V, Ed, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    if (T, B) == (7, 29):
+        assert plan["d_htop"]["splits"] > 1 and plan["se"]["splits"] > 1
+    before = decode_sample_embed_bwd.launches
     got = decode_sample_embed_bwd(*args)
+    again = decode_sample_embed_bwd(*args)
     want = decode_sample_embed_bwd_plain(*args)
     torch.cuda.synchronize()
+    assert decode_sample_embed_bwd.launches - before == 2
     assert got[0].shape == (H, V) and got[1].shape == (V,)
     assert got[2].shape == (T, B, H)
     assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
     assert _rel(got[2], want[2]) <= 1e-5
+    # every sum in a fixed order: two calls give the same bits
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 def test_malformed_calls_raise_and_count_no_launch(device):

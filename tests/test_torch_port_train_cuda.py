@@ -137,14 +137,28 @@ def _conv_setup(device, eds, ties=False, B=3, R=6, L=9, banks=((70, 2),
     return emb_pad, w_all.contiguous(), b_all.contiguous(), banks, R
 
 
-@pytest.mark.parametrize("eds,ties", [(1, False), (2, False), (1, True)])
-def test_conv_forward_and_backward_match_plain(device, eds, ties):
-    emb_pad, w_all, b_all, banks, R = _conv_setup(device, eds, ties)
+# besides the first three: banks of n off the 64-filter tile, 2-5 taps at
+# eds 2 and 3 (4-15 taps a filter: in registers up to 8, past that in
+# shared memory) and B*R off the 16-column tile
+@pytest.mark.parametrize("eds,ties,shape", [
+    (1, False, {}), (2, False, {}), (1, True, {}),
+    (2, False, dict(B=5, R=7, L=11, banks=((65, 2), (130, 3), (5, 5)))),
+    (3, False, dict(B=2, R=9, L=8, banks=((64, 3), (17, 5), (1, 2))))])
+def test_conv_forward_and_backward_match_plain(device, eds, ties, shape):
+    emb_pad, w_all, b_all, banks, R = _conv_setup(device, eds, ties,
+                                                  **shape)
+    before = disc_conv.conv_bank_forward.launches
     pooled, idxs = disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
                                                R, eds)
     pooled_p, idxs_p = disc_conv.conv_relu_maxpool_plain(
         emb_pad, w_all, b_all, banks, R, eds)
     torch.cuda.synchronize()
+    # one launch per pass, every bank in it: the wrapper counts one call
+    # and the plan holds one launch
+    assert disc_conv.conv_bank_forward.launches - before == 1
+    L = emb_pad.shape[1] - max(f for _, f in banks) + 1
+    plan = disc_conv.conv_fwd_plan(emb_pad.shape[0] * R, L, eds, banks)
+    assert len(plan["launches"]) == 1
     torch.testing.assert_close(pooled, pooled_p, atol=1e-5, rtol=0)
     off = 0
     for (n, _), i, ip in zip(banks, idxs, idxs_p):
