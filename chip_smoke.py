@@ -39,11 +39,15 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
    chain (d_pre within 1e-4 of its max), the conv forward (pooled within
    1e-5, argmax rows equal outside ties within 1e-6, one launch a pass by
    its plan and its wrapper's count; the profiler's kernel events are
-   reported) and backward (dW within 1e-4 of its max, dX
-   within 1e-5).
+   reported) and backward-dX, from the masked gradient and from the raw
+   one with the mask and db in the launch (the autograd route): dW within
+   1e-4 of its max, dX and db within 1e-5, two calls bit-equal, one launch
+   for the banks and one reduction a pass by its plan and one count.
 4. ``train_timing`` — each training kernel's ``device_ms`` beside its
    plain version's (CUDA events for the decode and chain loops) and its
-   bound.
+   bound; the conv backward from the masked and from the raw gradient,
+   and the ``mxu`` autograd route's two choices (the mask and db in
+   torch around the backward, or in its launch).
 5. ``train``   — 3 MLE steps, then 4 adversarial steps (disc_train_freq
    2, temperature 10) through ``train/steps.py`` with every launch
    counter reset before and read after (each must equal the launches per
@@ -52,8 +56,10 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
    noise (losses within 1e-4, every gradient within 1e-3 of its tensor's
    max), the plain conv pooling at the kernel route's argmax rows.
 6. ``train_timing`` (steps) and ``train_profile`` — ms per MLE and
-   adversarial step on both routes, and device time per kernel and the
-   device's busy share over 3 adversarial steps (torch.profiler).
+   adversarial step on both routes, and device time and launches per
+   kernel (every kernel, and their totals) and the device's busy share
+   over 4 adversarial steps, two discriminator updates (torch.profiler),
+   with the card's clocks, power draw and temperature read just after.
 7. ``kernel``  — the serve decode kernel against its plain version at
    B = 1, 8, 64: ids equal (where a row differs, each kernel id within
    1e-4 of the plain max logit when the plain version is teacher-forced
@@ -158,7 +164,8 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     and the ``mxu`` forward (pooled within 1e-5, argmax rows equal outside
     ties within 1e-6), the per-batch-row backward (``d_emb`` and ``db``
     within 1e-5 times the larger of 1 and their largest entry, as the
-    ``mxu`` backward's dX is held; ``dW`` within 1e-4 of its max) and the
+    ``mxu`` backward's dX is held; ``dW`` within 1e-4 of its max; two
+    calls bit-equal; one launch and one reduction a pass) and the
     DXS backward (DXS, and the overlap-added ``d_emb`` against the ``mxu``
     backward's, within 1e-5 likewise; ``dW`` within 1e-4 of its max)
     against their plain versions;
@@ -199,11 +206,11 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     both eval steps through the entry points, each with the launch counts
     of the design; ms per step.
 26. ``wrappers`` — at config3 width, what one call of the conv-bank
-    forward and of the fused-embed backward costs the host (argument
-    checks, launch plans, allocations, launches: ``host_us``, timed while
-    the device waits behind a spin) and its device time split by kernel
-    (torch.profiler), and the sha256 of its outputs.  It calls the
-    wrappers by their public signatures only.
+    forward, of both conv backwards and of the fused-embed backward costs
+    the host (argument checks, launch plans, allocations, launches:
+    ``host_us``, timed while the device waits behind a spin) and its
+    device time split by kernel (torch.profiler), and the sha256 of its
+    outputs.  It calls the wrappers by their public signatures only.
 
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
@@ -785,31 +792,34 @@ SERVE_KERNEL_NAMES = DECODE_KERNEL_NAMES
 def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES):
     """Device time by kernel (torch.profiler, CUPTI) over ``calls`` calls
     of ``fn`` after one warm call, and the device's busy share of that
-    window's wall time."""
+    window's wall time.  Profiled again once where the profiler recorded
+    no device event at all (it has dropped a whole window's events in a
+    long process)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    us, count = {}, {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        key = next((n for n in names if n in ev.key), ev.key[:40])
-        us[key] = us.get(key, 0.0) + ev.self_device_time_total / calls
-        count[key] = count.get(key, 0) + ev.count / calls
-    if not us:
-        return {"device_time": "not measured"}
-    return {"device_us_per_call": us, "launches_per_call": count,
-            "device_busy_share": sum(us.values()) * calls / wall_us,
-            "wall_ms_per_call": wall_us / calls / 1e3}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        us, count = {}, {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            key = next((n for n in names if n in ev.key), ev.key[:40])
+            us[key] = us.get(key, 0.0) + ev.self_device_time_total / calls
+            count[key] = count.get(key, 0) + ev.count / calls
+        if us:
+            return {"device_us_per_call": us, "launches_per_call": count,
+                    "device_busy_share": sum(us.values()) * calls / wall_us,
+                    "wall_ms_per_call": wall_us / calls / 1e3}
+    return {"device_time": "not measured"}
 
 
 def kernel_events(fn, calls):
@@ -1517,24 +1527,58 @@ def phase_train_kernels(dec, device):
           f"{counted} counted for one pass, expected 1")
     out["disc_conv_fwd"] = row
 
-    dpms, off = [], 0
-    for i, (n, _) in enumerate(banks):
-        dp = seeded((B, DISC_R, n), 70 + i, device)
-        dpms.append(torch.where(pooled_k[..., off:off + n] > 0, dp,
-                                torch.zeros((), device=device)).contiguous())
-        off += n
+    # the backward-dX from the masked gradient (the JAX package's kernel
+    # signature) and from the raw one (the autograd route: mask and db in
+    # the launch); its plan and its count: one launch for the banks and
+    # one reduction a pass
+    d_pooled = seeded(tuple(pooled_k.shape), 70, device)
+    dpms, db_p = disc_conv._masked(pooled_k, d_pooled, banks)
+    L = emb_pad.shape[1] - max(f for _, f in banks) + 1
+    before = disc_conv.conv_bank_backward.launches
     d_emb_k, dw_k = disc_conv.conv_bank_backward(emb_pad, w_all, banks,
                                                  DISC_R, 1, idx_k, dpms)
+    counted = disc_conv.conv_bank_backward.launches - before
+    raw_args = (emb_pad, w_all, banks, DISC_R, 1, pooled_k, idx_k, d_pooled)
+    raw_k = disc_conv.conv_bank_backward_raw(*raw_args)
+    again = (disc_conv.conv_bank_backward(emb_pad, w_all, banks, DISC_R, 1,
+                                          idx_k, dpms)
+             + disc_conv.conv_bank_backward_raw(*raw_args))
     torch.cuda.synchronize()
     d_emb_p, dw_p = disc_conv.conv_bwd_dx_plain(emb_pad, w_all, banks,
                                                 DISC_R, 1, idx_k, dpms)
+    plans = [disc_conv.conv_bwd_plan(B * DISC_R, L, 1, banks, raw)
+             for raw in (False, True)]
     row = {"dw_rel": float((dw_k - dw_p).abs().max() / dw_p.abs().max()),
            "max_abs_dx_diff": float((d_emb_k - d_emb_p).abs().max()),
-           "max_abs_dx": float(d_emb_p.abs().max())}
+           "max_abs_dx": float(d_emb_p.abs().max()),
+           "raw_dw_rel": float((raw_k[1] - dw_p).abs().max()
+                               / dw_p.abs().max()),
+           "raw_max_abs_dx_diff": float((raw_k[0] - d_emb_p).abs().max()),
+           "raw_max_abs_db_diff": float((raw_k[2] - db_p).abs().max()),
+           "max_abs_db": float(db_p.abs().max()),
+           "bit_equal_repeat": all(torch.equal(a, b) for a, b in zip(
+               (d_emb_k, dw_k, *raw_k), again)),
+           "bit_equal_masked_raw": bool(torch.equal(d_emb_k, raw_k[0])
+                                        and torch.equal(dw_k, raw_k[1])),
+           "plan_launches": [len(p["launches"]) for p in plans],
+           "plan_kernel_launches": [p["kernel_launches"] for p in plans],
+           "counted": counted,
+           "grid": plans[0]["blocks"], "slabs": plans[0]["slabs"]}
     emit({"phase": "train_kernels", "kernel": "disc_conv_bwd_dx", **row})
-    check(row["dw_rel"] <= DW_RTOL, f"disc conv backward dW {row}")
-    check(row["max_abs_dx_diff"] <= DX_ATOL * max(1.0, row["max_abs_dx"]),
-          f"disc conv backward dX {row}")
+    for pre in ("", "raw_"):
+        check(row[pre + "dw_rel"] <= DW_RTOL, f"disc conv backward dW {row}")
+        check(row[pre + "max_abs_dx_diff"]
+              <= DX_ATOL * max(1.0, row["max_abs_dx"]),
+              f"disc conv backward dX {row}")
+    check(row["raw_max_abs_db_diff"] <= DX_ATOL * max(1.0, row["max_abs_db"]),
+          f"disc conv backward db {row}")
+    check(row["bit_equal_repeat"] and row["bit_equal_masked_raw"],
+          f"disc conv backward: two calls differ {row}")
+    check(row["plan_launches"] == [1, 1] and row["plan_kernel_launches"]
+          == [2, 2] and counted == 1,
+          f"disc conv backward: {row['plan_launches']} launches of the banks "
+          f"planned (expected 1, and one reduction), {counted} counted for "
+          "one pass")
     out["disc_conv_bwd_dx"] = row
     return out
 
@@ -1561,12 +1605,9 @@ def phase_train_kernel_timing(dec, device):
     emb_pad, w_all, b_all, banks = conv_inputs(device)
     pooled, idxs = disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
                                                DISC_R, 1)
-    dpms, off = [], 0
-    for i, (n, _) in enumerate(banks):
-        dpms.append(torch.where(pooled[..., off:off + n] > 0,
-                                seeded((B, DISC_R, n), 70 + i, device),
-                                torch.zeros((), device=device)).contiguous())
-        off += n
+    d_pooled = seeded(tuple(pooled.shape), 70, device)
+    dpms, _ = disc_conv._masked(pooled, d_pooled, banks)
+    raw_args = (emb_pad, w_all, banks, DISC_R, 1, pooled, idxs, d_pooled)
 
     cases = {
         "decode_sample_resid": (
@@ -1589,6 +1630,11 @@ def phase_train_kernel_timing(dec, device):
             lambda: disc_conv.conv_bwd_dx_plain(emb_pad, w_all, banks, DISC_R,
                                                 1, idxs, dpms),
             conv_work(B, backward=True), 50, 4),
+        # the autograd route's: the mask and db in the launch
+        "disc_conv_bwd_dx_raw": (
+            lambda: disc_conv.conv_bank_backward_raw(*raw_args),
+            lambda: disc_conv.conv_rows_backward_plain(*raw_args),
+            rows_bwd_work(B), 50, 4),
     }
     rows = {}
     for name, (kern, plain, work, k_calls, p_calls) in cases.items():
@@ -1599,6 +1645,23 @@ def phase_train_kernel_timing(dec, device):
                                       "decode_sample_resid",
                                       "lstm_bptt_chain")), "B": B}
         emit({"phase": "train_timing", "kernel": name, **rows[name]})
+
+    # the mxu autograd route's choice: the ReLU mask and db in torch around
+    # conv_bank_backward, or in its launch (conv_bank_backward_raw)
+    def mask_outside():
+        dp, _ = disc_conv._masked(pooled, d_pooled, banks)
+        return disc_conv.conv_bank_backward(emb_pad, w_all, banks, DISC_R, 1,
+                                            idxs, dp)
+
+    def mask_in_launch():
+        return disc_conv.conv_bank_backward_raw(*raw_args)
+
+    route = {"mask_outside_ms": [device_ms(mask_outside, 50)
+                                 for _ in range(2)],
+             "mask_in_launch_ms": [device_ms(mask_in_launch, 50)
+                                   for _ in range(2)]}
+    emit({"phase": "train_timing", "kernel": "disc_conv_bwd_dx_route", "B": B,
+          **route})
     return rows
 
 
@@ -1808,12 +1871,17 @@ def phase_train_step_timing(device, setup):
 
 KERNEL_NAMES = ("decode_persistent_kernel", "embed_kernel",
                 "reverse_persistent_kernel", "chain_persistent_kernel",
-                "conv_fwd_kernel", "conv_bwd_kernel")
+                "conv_fwd_kernel", "conv_bwd_kernel",
+                "conv_bwd_reduce_kernel")
 
 
-def phase_train_profile(device, setup, steps=3):
-    """Device time by kernel (torch.profiler) over 3 adversarial steps of
-    the kernel route, and the device's busy share of their wall time."""
+def phase_train_profile(device, setup, steps=2 * DISC_EVERY):
+    """Device time and launches by kernel, and their totals
+    (torch.profiler), over 4 adversarial steps of the kernel route: two
+    cycles of the discriminator's update cadence, so the window holds two
+    of its updates whatever steps ran before; the device's busy share of
+    their wall time; the card's clocks, power draw and temperature
+    (``nvidia-smi``) just after."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1823,6 +1891,7 @@ def phase_train_profile(device, setup, steps=3):
     step = make_adv_step(config)
     step(state, batch, TEMP)
     torch.cuda.synchronize()
+    updates = state.disc_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1830,6 +1899,9 @@ def phase_train_profile(device, setup, steps=3):
             step(state, batch, TEMP)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    updates = state.disc_steps - updates
+    check(updates == steps // DISC_EVERY,
+          f"train_profile: {updates} discriminator updates in {steps} steps")
     us, count = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -1842,14 +1914,20 @@ def phase_train_profile(device, setup, steps=3):
     else:
         busy = sum(us.values()) * steps
         ours = sum(v for k, v in us.items() if k in KERNEL_NAMES)
-        top = sorted(us.items(), key=lambda kv: -kv[1])[:16]
-        row = {"device_us_per_step": dict(top),
-               "launches_per_step": {k: count[k] for k, _ in top},
-               "other_us_per_step": sum(us.values()) - sum(v for _, v in top),
+        order = sorted(us, key=lambda k: -us[k])
+        row = {"device_ms_per_step_total": sum(us.values()) / 1e3,
+               "launches_per_step_total": sum(count.values()),
+               "device_us_per_step": {k: us[k] for k in order},
+               "launches_per_step": {k: count[k] for k in order},
                "hand_written_share": ours / sum(us.values()),
                "device_busy_share": busy / wall_us,
                "wall_ms_per_step": wall_us / steps / 1e3}
-    emit({"phase": "train_profile", "B": B_TRAIN, **row})
+    row["card_after"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip()
+    emit({"phase": "train_profile", "B": B_TRAIN, "steps": steps,
+          "disc_updates": updates, **row})
     return row
 
 
@@ -1861,11 +1939,13 @@ def kernel_entries(smi, train_kernel_rows, train_times, launches):
                 "max_abs_diff"],
             "disc_conv_fwd": train_kernel_rows["disc_conv_fwd"][
                 "max_abs_pooled_diff"],
-            "disc_conv_bwd_dx": train_kernel_rows["disc_conv_bwd_dx"][
-                "max_abs_dx_diff"]}
+            "disc_conv_bwd_dx": max(train_kernel_rows["disc_conv_bwd_dx"][
+                k] for k in ("raw_max_abs_dx_diff", "raw_max_abs_db_diff"))}
     out = []
     for name, tpu in TRAIN_TPU_KERNELS.items():
-        t = train_times[name]
+        # the step's route of the conv backward: from the raw gradient
+        t = train_times[name + ("_raw" if name == "disc_conv_bwd_dx"
+                                else "")]
         out.append({
             "name": name, "route": "cuda",
             "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
@@ -1875,6 +1955,14 @@ def kernel_entries(smi, train_kernel_rows, train_times, launches):
             "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "B": t["B"],
             "card": smi})
+        if name == "disc_conv_bwd_dx":
+            # the entry from the masked gradient (the JAX kernel's
+            # signature), off the step's route
+            r, k = train_times[name], train_kernel_rows[name]
+            out[-1].update({"ms_masked": min(r["kernel_ms"]),
+                            "plain_ms_masked": min(r["plain_ms"]),
+                            "bound_ms_masked": r["bound_ms"],
+                            "max_abs_err_masked": k["max_abs_dx_diff"]})
     return out
 
 
@@ -3033,7 +3121,7 @@ ENGINE_TPU_KERNELS = {
     "lstm_bptt_reverse": "gan_image_captioning_tpu/kernels/lstm_bptt.py:163",
 }
 ENGINE_SOURCES = {"disc_conv_rows_fwd": "disc_conv_rows.cu",
-                  "disc_conv_rows_bwd": "disc_conv_rows.cu",
+                  "disc_conv_rows_bwd": "disc_conv.cu",
                   "disc_conv_bwd_dxs": "disc_conv.cu",
                   "lstm_bptt_reverse": "lstm_bptt.cu"}
 DB_ATOL, DXS_ATOL, BPTT_ATOL = 1e-5, 1e-5, 1e-4
@@ -3130,15 +3218,28 @@ def phase_disc_engines(device):
 
     d_pooled = seeded(tuple(pooled_p.shape), 71, device)
     bwd_args = (emb_pad, w_all, banks, DISC_R, 1, pooled_p, idx_p, d_pooled)
+    before = disc_conv.conv_rows_backward.launches
     d_emb, dw, db = disc_conv.conv_rows_backward(*bwd_args)
+    counted = disc_conv.conv_rows_backward.launches - before
+    again = disc_conv.conv_rows_backward(*bwd_args)
     torch.cuda.synchronize()
     w_emb, w_dw, w_db = disc_conv.conv_rows_backward_plain(*bwd_args)
+    plan = disc_conv.conv_bwd_plan(B * DISC_R, T, 1, banks, raw=True)
     row = {"max_abs_dx_diff": float((d_emb - w_emb).abs().max()),
            "max_abs_dx": float(w_emb.abs().max()),
            "dw_rel": float((dw - w_dw).abs().max() / w_dw.abs().max()),
            "max_abs_db_diff": float((db - w_db).abs().max()),
-           "max_abs_db": float(w_db.abs().max())}
+           "max_abs_db": float(w_db.abs().max()),
+           "bit_equal_repeat": all(torch.equal(a, b)
+                                   for a, b in zip((d_emb, dw, db), again)),
+           "plan_launches": len(plan["launches"]),
+           "plan_kernel_launches": plan["kernel_launches"],
+           "counted": counted}
     emit({"phase": "disc_engines", "kernel": "disc_conv_rows_bwd", **row})
+    check(row["plan_launches"] == 1 and row["plan_kernel_launches"] == 2
+          and counted == 1 and row["bit_equal_repeat"],
+          f"rows backward: one launch for the banks and one reduction a "
+          f"pass, two calls bit-equal, expected {row}")
     # d_emb and db are sums of hundreds (of thousands, for db) of terms:
     # held as the mxu backward's dX is, within the tolerance times the
     # larger of 1 and their largest entry
@@ -3804,19 +3905,34 @@ def sha256(out):
 
 
 def phase_wrappers(device):
-    """The host's cost per call of the conv-bank forward and of the
-    fused-embed backward at config3 width (three batches of calls), each
-    call's device time split by kernel, and the sha256 of its outputs
-    (two checkouts whose digests agree give bit-equal outputs).  Only the
-    wrappers' public signatures are used."""
+    """The host's cost per call of the conv-bank forward, of both conv
+    backwards (``mxu`` from the masked gradient, the per-batch-row engine's
+    from the raw one) and of the fused-embed backward at config3 width
+    (three batches of calls), each call's device time split by kernel, and
+    the sha256 of its outputs (two checkouts whose digests agree give
+    bit-equal outputs).  Only the wrappers' public signatures are used."""
     from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
     from gan_image_captioning_tpu_torch.kernels import disc_conv
 
     cargs = (*conv_inputs(device), DISC_R, 1)
     bargs = embed_bwd_inputs(device)
+    emb_pad, w_all, _, banks = cargs[:4]
+    pooled, idxs = disc_conv.conv_bank_forward(*cargs)
+    d_pooled = seeded(tuple(pooled.shape), 70, device)
+    offs = np.cumsum([0] + [n for n, _ in banks])
+    dpms = [torch.where(pooled[..., o:o + n] > 0, d_pooled[..., o:o + n],
+                        torch.zeros((), device=device)).contiguous()
+            for o, (n, _) in zip(offs, banks)]
     for name, fn, calls in (
             ("disc_conv_fwd",
              lambda: disc_conv.conv_bank_forward(*cargs), 100),
+            ("disc_conv_bwd_dx",
+             lambda: disc_conv.conv_bank_backward(
+                 emb_pad, w_all, banks, DISC_R, 1, idxs, dpms), 100),
+            ("disc_conv_rows_bwd",
+             lambda: disc_conv.conv_rows_backward(
+                 emb_pad, w_all, banks, DISC_R, 1, pooled, idxs, d_pooled),
+             100),
             ("decode_sample_embed_bwd",
              lambda: ds.decode_sample_embed_bwd(*bargs), 20)):
         emit({"phase": "wrappers", "kernel": name, "calls": calls,

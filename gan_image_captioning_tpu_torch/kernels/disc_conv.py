@@ -8,25 +8,33 @@ gradient to that one time row.  The engines (:func:`conv_relu_maxpool`):
 
 * ``"mxu"`` — ``_mxu_fwd_kernel`` / ``_mxu_bwd_dx_kernel``:
   :func:`conv_bank_forward` and :func:`conv_bank_backward`
-  (``csrc/disc_conv.cu``), the ReLU mask and ``db`` in torch around the
-  backward, as the JAX package computes them;
+  (``csrc/disc_conv.cu``); the autograd route masks the pooled gradient
+  and sums ``db`` in the backward's launch (:func:`conv_bank_backward_raw`),
+  where the JAX package computes them around its kernel;
 * ``"mxu_dxs"`` — the ``mxu`` forward with the DXS backward
   ``_mxu_bwd_kernel`` (the JAX package's ``GIC_MXU_DX=0``):
   :func:`conv_bank_dxs` (``csrc/disc_conv.cu``) writes the per-step tap
   gradients, which :func:`overlap_add` adds into ``d_emb`` in torch;
 * ``"pallas"`` — ``_fwd_kernel`` / ``_bwd_kernel``, the per-batch-row
-  engine: :func:`conv_rows_forward` and :func:`conv_rows_backward`
-  (``csrc/disc_conv_rows.cu``), the mask and the per-row ``dW`` / ``db``
-  partials in the kernel, summed in torch;
+  engine: :func:`conv_rows_forward` (``csrc/disc_conv_rows.cu``) and
+  :func:`conv_rows_backward`, the ``mxu`` backward's kernels with the mask
+  and ``db`` in the launch;
 * ``"hybrid"`` — the plain forward (the JAX package leaves it to XLA) with
-  the per-batch-row backward kernel;
+  the per-batch-row engine's backward;
 * ``"plain"`` — the plain versions on any device, for comparisons.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain version (:func:`conv_relu_maxpool_plain`,
 :func:`conv_bwd_dx_plain`, :func:`conv_dxs_plain`,
-:func:`conv_rows_backward_plain`).  Each wrapper's ``.launches`` counts its
-kernel launches: one per call, all banks.
+:func:`conv_rows_backward_plain`).  Each wrapper's ``.launches`` counts
+its calls that launched kernels, one per call.  A call of
+:func:`conv_bank_forward` is one launch for every bank (up to
+``FW_MAX_BANKS``, :func:`conv_fwd_plan`); one of :func:`conv_bank_backward`,
+:func:`conv_bank_backward_raw` (counted on ``conv_bank_backward``: the
+same kernels) or :func:`conv_rows_backward` is one launch for every bank
+(up to ``BW_MAX_BANKS``) and one reduction of the dW partials
+(:func:`conv_bwd_plan`); one of :func:`conv_rows_forward` or
+:func:`conv_bank_dxs` is one launch per bank.
 """
 
 from __future__ import annotations
@@ -158,7 +166,9 @@ def _library() -> ctypes.CDLL:
             [vp, vp, i, vp] + [i] * 6
             + [ctypes.POINTER(i), ctypes.POINTER(vp), i, i, vp, i, vp])
         lib.gic_conv_fwd.restype = i
-        lib.gic_conv_bwd.argtypes = [vp, vp, i, vp, vp] + [i] * 7 + [vp] * 3
+        lib.gic_conv_bwd.argtypes = (
+            [vp, vp] + [i] * 7 + [ctypes.POINTER(i)]
+            + [ctypes.POINTER(vp)] * 3 + [i, i, ctypes.c_size_t] + [vp] * 5)
         lib.gic_conv_bwd.restype = i
         lib.gic_conv_bwd_dxs.argtypes = ([vp, vp, i, vp, vp] + [i] * 7
                                          + [vp] * 3)
@@ -267,11 +277,117 @@ def conv_bank_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     return pooled, idxs
 
 
+# csrc/disc_conv.cu:conv_bwd_kernel's tiling, as far as the wrapper needs
+# it: a block owns BW_COLS columns of every bank of its launch and leaves
+# one row of dW (and db) partials; the filters stream in slabs of BW_SLAB
+# of one bank; one launch takes up to BW_MAX_BANKS banks.  The kernel's
+# shared memory (and whether a column's rows are accumulated in windows)
+# is the C side's own.
+BW_COLS, BW_SLAB, BW_MAX_BANKS = 32, 64, 8
+
+
+def conv_bwd_plan(Q: int, L: int, eds: int, banks, raw: bool = False) -> dict:
+    """The launches of the backward of every bank (``csrc/disc_conv.cu:
+    gic_conv_bwd``) for ``Q = B·R`` columns of ``L`` real time rows, ``eds``
+    values a row and ``banks ((n, f), ...)``: one ``conv_bwd_kernel``
+    launch per group of up to ``BW_MAX_BANKS`` banks (one for every pass
+    the discriminators run), then one fixed-order reduction of the
+    per-block partials.  ``raw``: the gradient is the raw pooled one
+    ``[Q, F]`` (masked in the launch, and ``db`` summed:
+    :func:`conv_bank_backward_raw`, :func:`conv_rows_backward`) rather
+    than one masked tensor per bank (:func:`conv_bank_backward`).
+
+    Each launch lists its banks with their first row of ``w_all``
+    (``off``), first slab (``slab0``) and slab count (``BW_SLAB`` filters
+    a slab), and whether it adds into ``d_emb`` (``accumulate``: a launch
+    after the first); ``slabs`` counts them over all launches.
+    ``blocks`` is every launch's grid (column tiles of ``BW_COLS``) and
+    the partials' rows, ``slots`` the floats of a row: dW slot ``(k, g)``
+    (tap k of filter g) at ``k·F + g``, then, when ``raw``, ``db[g]`` at
+    ``ldw·F + g``; the reduction sums each slot over the blocks in block
+    order.  ``ints`` is what the C call takes per bank (n, f, off, the row
+    stride of its gradient).  The C side checks ``slabs`` and the scratch
+    of ``blocks · slots`` floats against its own tiling.
+    ``kernel_launches`` counts the launches of a call, the reduction's
+    included.  Raises ValueError where a filter is longer than the rows.
+    Cached per shape: callers must not change the dict."""
+    return _conv_bwd_plan(Q, L, eds, tuple(tuple(b) for b in banks),
+                          bool(raw))
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_bwd_plan(Q: int, L: int, eds: int, banks, raw: bool) -> dict:
+    """:func:`conv_bwd_plan`'s work, cached per shape."""
+    if Q < 1 or L < 1 or eds < 1 or not banks:
+        raise ValueError(f"conv_bwd_plan: Q {Q}, L {L}, eds {eds} and the "
+                         "banks must be positive / non-empty")
+    n_all = sum(n for n, _ in banks)
+    ldw = max(f for _, f in banks) * eds
+    launches, ints, off, slabs = [], [], 0, 0
+    for g0 in range(0, len(banks), BW_MAX_BANKS):
+        group, slab = [], 0
+        for n, f in banks[g0:g0 + BW_MAX_BANKS]:
+            if n < 1 or not 1 <= f <= L:
+                raise ValueError(f"conv_bwd_plan: bank ({n}, {f}) with "
+                                 f"{L} rows")
+            count = -(-n // BW_SLAB)
+            group.append({"n": n, "f": f, "off": off, "slab0": slab,
+                          "slabs": count})
+            ints += [n, f, off, n_all if raw else n]
+            slab += count
+            off += n
+        launches.append({"banks": group, "slabs": slab,
+                         "accumulate": g0 > 0})
+        slabs += slab
+    return {"blocks": -(-Q // BW_COLS), "launches": launches,
+            "slabs": slabs, "slots": ldw * n_all + (n_all if raw else 0),
+            "ints": ints, "kernel_launches": len(launches) + 1}
+
+
+def _backward(emb_pad, w_all, banks, R: int, eds: int, idxs, grads,
+              pooled=None):
+    """One call of ``gic_conv_bwd``, the backward of every bank →
+    ``(d_emb, dw_all, db)``: ``grads`` the masked gradient per bank, or,
+    with ``pooled``, the raw ``d_pooled [B, R, F]`` (then ``db`` is summed
+    too; else it is None).  Every output entry is written by the
+    kernels."""
+    lib = _library()
+    b_sz, lp, e_dim = emb_pad.shape
+    L = lp - max(f for _, f in banks) + 1
+    raw = pooled is not None
+    plan = conv_bwd_plan(b_sz * R, L, eds, banks, raw)
+    device = emb_pad.device
+    n_all, nb = w_all.shape[0], len(banks)
+    d_emb = torch.empty_like(emb_pad)
+    dw_all = torch.empty_like(w_all)
+    db = torch.empty(n_all, device=device) if raw else None
+    part = torch.empty(plan["blocks"] * plan["slots"], device=device)
+    vp = ctypes.c_void_p * nb
+    if raw:
+        offs = [b["off"] for launch in plan["launches"]
+                for b in launch["banks"]]
+        d_ptrs = vp(*[grads.data_ptr() + 4 * o for o in offs])
+        p_ptrs = vp(*[pooled.data_ptr() + 4 * o for o in offs])
+    else:
+        d_ptrs, p_ptrs = vp(*[g.data_ptr() for g in grads]), None
+    with torch.cuda.device(device):
+        rc = lib.gic_conv_bwd(
+            emb_pad.data_ptr(), w_all.data_ptr(), w_all.shape[1], b_sz, lp,
+            R, eds, L, nb, (ctypes.c_int * (4 * nb))(*plan["ints"]),
+            vp(*[i.data_ptr() for i in idxs]), d_ptrs, p_ptrs, int(raw),
+            plan["slabs"], part.numel(), d_emb.data_ptr(), part.data_ptr(),
+            dw_all.data_ptr(), db.data_ptr() if raw else None,
+            _stream(device))
+        build.raise_on_error(lib, rc, "disc conv backward")
+    return d_emb, dw_all, db
+
+
 def conv_bank_backward(emb_pad, w_all, banks, R: int, eds: int,
                        idxs: List[torch.Tensor], dpms: List[torch.Tensor]):
     """Backward of every bank → ``(d_emb_pad, dw_all)`` as
-    :func:`conv_bwd_dx_plain`: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU one."""
+    :func:`conv_bwd_dx_plain`, from the masked pooled gradients: the CUDA
+    kernels on a CUDA tensor (one launch for every bank and one reduction,
+    :func:`conv_bwd_plan`), the plain version on a CPU one."""
     b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds)
     device = emb_pad.device
     for (n, _), idx, dpm in zip(banks, idxs, dpms):
@@ -281,26 +397,40 @@ def conv_bank_backward(emb_pad, w_all, banks, R: int, eds: int,
         return conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds, idxs, dpms)
     if device.type != "cuda":
         raise ValueError(f"disc_conv: unsupported device {device}")
-    lib = _library()
-    ldw = w_all.shape[1]
-    q = b_sz * R
-    d_emb = torch.zeros_like(emb_pad)
-    dw_all = torch.zeros_like(w_all)
-    off = 0
-    with torch.cuda.device(device):
-        for (n, f), idx, dpm in zip(banks, idxs, dpms):
-            part = torch.empty(lib.gic_conv_bwd_blocks(q), f * eds, n,
-                               device=device)
-            rc = lib.gic_conv_bwd(
-                emb_pad.data_ptr(), w_all.data_ptr() + 4 * off * ldw, ldw,
-                idx.data_ptr(), dpm.data_ptr(), b_sz, lp, R, eds, f, L, n,
-                d_emb.data_ptr(), part.data_ptr(), _stream(device))
-            build.raise_on_error(lib, rc, "disc conv backward")
-            dw_all[off:off + n, :f * eds] = part.sum(dim=0).T
-            off += n
+    d_emb, dw_all, _ = _backward(emb_pad, w_all, banks, R, eds, idxs, dpms)
     with _count_lock:
         conv_bank_backward.launches += 1
     return d_emb, dw_all
+
+
+def _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
+    b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds)
+    device = emb_pad.device
+    _check("pooled", pooled, (b_sz, R, n_all), torch.float32, device)
+    _check("d_pooled", d_pooled, (b_sz, R, n_all), torch.float32, device)
+    for (n, _), idx in zip(banks, idxs):
+        _check("idx", idx, (b_sz, R, n), torch.int32, device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"disc_conv: unsupported device {device}")
+    return device.type == "cpu"
+
+
+def conv_bank_backward_raw(emb_pad, w_all, banks, R: int, eds: int, pooled,
+                           idxs: List[torch.Tensor], d_pooled):
+    """The ``mxu`` engine's backward from the raw pooled gradient
+    ``d_pooled [B, R, F]`` → ``(d_emb_pad, dw_all, db_all)`` as
+    :func:`conv_rows_backward_plain`: :func:`conv_bank_backward`'s kernels
+    with the ReLU mask and ``db`` in the launch, so the autograd route
+    needs no separate mask and sum.  On a CPU tensor, the plain version.
+    It launches :func:`conv_bank_backward`'s kernels and counts on
+    ``conv_bank_backward.launches``."""
+    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
+        return conv_rows_backward_plain(emb_pad, w_all, banks, R, eds, pooled,
+                                        idxs, d_pooled)
+    out = _backward(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
+    with _count_lock:
+        conv_bank_backward.launches += 1
+    return out
 
 
 def conv_dxs_plain(emb_pad, w_all, banks, R: int, eds: int,
@@ -384,9 +514,6 @@ def _rows_library() -> ctypes.CDLL:
         lib.gic_conv_rows_fwd.argtypes = ([vp, vp, i, vp] + [i] * 7
                                           + [vp, i, vp, vp])
         lib.gic_conv_rows_fwd.restype = i
-        lib.gic_conv_rows_bwd.argtypes = ([vp, vp, i, vp, vp, i, vp]
-                                          + [i] * 7 + [vp] * 4)
-        lib.gic_conv_rows_bwd.restype = i
         lib._gic_typed = True
     return lib
 
@@ -436,44 +563,19 @@ def conv_rows_backward_plain(emb_pad, w_all, banks, R: int, eds: int,
 
 def conv_rows_backward(emb_pad, w_all, banks, R: int, eds: int, pooled,
                        idxs: List[torch.Tensor], d_pooled):
-    """The per-batch-row backward of every bank as
-    :func:`conv_rows_backward_plain`: the CUDA kernel on a CUDA tensor
-    (per-row ``dW`` / ``db`` partials summed here), the plain version on a
-    CPU one."""
-    b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds)
-    device = emb_pad.device
-    _check("pooled", pooled, (b_sz, R, n_all), torch.float32, device)
-    _check("d_pooled", d_pooled, (b_sz, R, n_all), torch.float32, device)
-    for (n, _), idx in zip(banks, idxs):
-        _check("idx", idx, (b_sz, R, n), torch.int32, device)
-    if device.type == "cpu":
+    """The per-batch-row engine's backward of every bank as
+    :func:`conv_rows_backward_plain`: on a CUDA tensor the kernels of
+    :func:`conv_bank_backward_raw` (``csrc/disc_conv.cu``, the mask and
+    ``db`` in the launch: one launch for every bank and one reduction,
+    :func:`conv_bwd_plan`), counted on ``conv_rows_backward.launches``;
+    the plain version on a CPU one."""
+    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
         return conv_rows_backward_plain(emb_pad, w_all, banks, R, eds, pooled,
                                         idxs, d_pooled)
-    if device.type != "cuda":
-        raise ValueError(f"disc_conv: unsupported device {device}")
-    lib = _rows_library()
-    ldw = w_all.shape[1]
-    d_emb = torch.zeros_like(emb_pad)
-    dw_all = torch.zeros_like(w_all)
-    db_all = torch.empty(n_all, device=device)
-    off = 0
-    with torch.cuda.device(device):
-        for (n, f), idx in zip(banks, idxs):
-            dw_part = torch.empty(b_sz, f * eds, n, device=device)
-            db_part = torch.empty(b_sz, n, device=device)
-            rc = lib.gic_conv_rows_bwd(
-                emb_pad.data_ptr(), w_all.data_ptr() + 4 * off * ldw, ldw,
-                pooled.data_ptr() + 4 * off, d_pooled.data_ptr() + 4 * off,
-                n_all, idx.data_ptr(), b_sz, lp, R, eds, f, L, n,
-                d_emb.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-                _stream(device))
-            build.raise_on_error(lib, rc, "disc conv rows backward")
-            dw_all[off:off + n, :f * eds] = dw_part.sum(dim=0).T
-            db_all[off:off + n] = db_part.sum(dim=0)
-            off += n
+    out = _backward(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
     with _count_lock:
         conv_rows_backward.launches += 1
-    return d_emb, dw_all, db_all
+    return out
 
 
 conv_bank_forward.launches = 0
@@ -544,11 +646,12 @@ class _ConvReluMaxpool(torch.autograd.Function):
     def backward(ctx, d_pooled):
         emb_pad, w_all, pooled, *idxs = ctx.saved_tensors
         banks, R, eds, engine = ctx.geometry
-        if engine in ("pallas", "hybrid"):
-            # the mask, db and the per-row partials in the kernel
-            d_emb, dw_all, db = conv_rows_backward(
-                emb_pad, w_all, banks, R, eds, pooled, idxs,
-                d_pooled.contiguous())
+        if engine in ("mxu", "pallas", "hybrid"):
+            # the ReLU mask and db in the backward's launch
+            bwd = (conv_bank_backward_raw if engine == "mxu"
+                   else conv_rows_backward)
+            d_emb, dw_all, db = bwd(emb_pad, w_all, banks, R, eds, pooled,
+                                    idxs, d_pooled.contiguous())
             return d_emb, dw_all, db, None, None, None, None
         dpms, db = _masked(pooled, d_pooled, banks)
         if engine == "mxu_dxs":
@@ -556,9 +659,8 @@ class _ConvReluMaxpool(torch.autograd.Function):
                                          dpms)
             d_emb = overlap_add(dxss, banks, emb_pad.shape, R, eds)
         else:
-            bwd = (conv_bwd_dx_plain if engine == "plain"
-                   else conv_bank_backward)
-            d_emb, dw_all = bwd(emb_pad, w_all, banks, R, eds, idxs, dpms)
+            d_emb, dw_all = conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds,
+                                              idxs, dpms)
         return d_emb, dw_all, db, None, None, None, None
 
 

@@ -1,11 +1,16 @@
 """The kernels of the ``--disc-engine`` routes and the teacher-forced
 pass's reverse BPTT against their plain versions on the card: the
-per-batch-row conv forward and backward (``csrc/disc_conv_rows.cu``), the
-DXS backward (``csrc/disc_conv.cu``) and the single-layer reverse
-recurrence (``csrc/lstm_bptt.cu``), at odd sizes (eds = 2, R not a
-multiple of 32, B = 1, lv = 1, H not a multiple of the tiles), each
-engine's autograd route, and the wrappers' refusals.  Every test skips
-without CUDA.  This file imports torch and the port only:
+per-batch-row conv forward (``csrc/disc_conv_rows.cu``), the conv
+backward of both engines (``csrc/disc_conv.cu:gic_conv_bwd``:
+``conv_bank_backward``, ``conv_bank_backward_raw``, ``conv_rows_backward``;
+two calls bit-equal, an all-zero gradient, more banks than one launch
+takes, rows in windows), the DXS backward
+(``csrc/disc_conv.cu``) and the single-layer reverse recurrence
+(``csrc/lstm_bptt.cu``), at odd sizes (eds = 2 and 3 with up to 12 taps,
+R and B·R not multiples of 32, n not a multiple of 32, B = 1, lv = 1, H
+not a multiple of the tiles), each engine's autograd route, and the
+wrappers' refusals.  Every test skips without CUDA.  This file imports
+torch and the port only:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_disc_cuda.py
 
@@ -27,6 +32,15 @@ POOL_ATOL, TIE_GAP, DX_ATOL, DW_RTOL, BPTT_TOL = 1e-5, 1e-6, 1e-5, 1e-4, 1e-4
 # (B, L, R, eds, banks ((n, f), ...)); L = f gives lv = 1
 SHAPES = [(4, 9, 5, 2, ((8, 3), (6, 4))), (1, 36, 64, 1, ((300, 3),)),
           (3, 5, 37, 1, ((40, 5), (33, 2))), (2, 12, 3, 3, ((65, 4),))]
+# the backward's edges besides SHAPES: config3's banks at B = 2 (two
+# column tiles), ten banks (two launches of conv_bwd_kernel), and rows
+# past one window of the kernel's accumulators, with the taps staged
+# (eds 1) and read from w_all (eds 16, 48 taps)
+BWD_SHAPES = SHAPES + [
+    (2, 36, 64, 1, ((300, 3), (300, 4), (300, 5))),
+    (2, 7, 6, 1, tuple((3 + 7 * i, 1 + i % 5) for i in range(10))),
+    (3, 130, 13, 1, ((70, 3), (33, 5))),
+    (2, 8, 4, 16, ((5, 2), (6, 3)))]
 
 
 @pytest.fixture
@@ -114,6 +128,64 @@ def test_rows_backward_matches_plain(device, shape):
     assert _dw_rel(dw, w_dw) <= DW_RTOL
 
 
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_bank_backward_matches_plain_and_repeats_bit_for_bit(device, shape):
+    emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled = _grads(shape,
+                                                                   device)
+    dpms, w_db = disc_conv._masked(pooled, d_pooled, banks)
+    before = disc_conv.conv_bank_backward.launches
+    got = disc_conv.conv_bank_backward(emb_pad, w_all, banks, R, eds, idxs,
+                                       dpms)
+    raw = disc_conv.conv_bank_backward_raw(emb_pad, w_all, banks, R, eds,
+                                           pooled, idxs, d_pooled)
+    torch.cuda.synchronize()
+    # each call one count: one launch for the banks (two past eight banks)
+    # and one reduction, by the plan
+    assert disc_conv.conv_bank_backward.launches == before + 2
+    L = emb_pad.shape[1] - max(f for _, f in banks) + 1
+    plan = disc_conv.conv_bwd_plan(emb_pad.shape[0] * R, L, eds, banks)
+    assert plan["kernel_launches"] == 1 + -(-len(banks) // 8)
+    w_emb, w_dw = disc_conv.conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds,
+                                              idxs, dpms)
+    for d_emb, dw in (got, raw[:2]):
+        torch.testing.assert_close(d_emb, w_emb, atol=DX_ATOL, rtol=0)
+        assert _dw_rel(dw, w_dw) <= DW_RTOL
+    torch.testing.assert_close(raw[2], w_db, atol=DX_ATOL, rtol=0)
+    # the mask in the launch and outside it: the same sums
+    assert _same_bits(got, raw[:2])
+    assert _same_bits(got, disc_conv.conv_bank_backward(
+        emb_pad, w_all, banks, R, eds, idxs, dpms))
+    assert _same_bits(raw, disc_conv.conv_bank_backward_raw(
+        emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled))
+    # the row engine runs the same kernels, counted on its own wrapper
+    before = (disc_conv.conv_bank_backward.launches,
+              disc_conv.conv_rows_backward.launches)
+    rows = disc_conv.conv_rows_backward(emb_pad, w_all, banks, R, eds, pooled,
+                                        idxs, d_pooled)
+    assert _same_bits(rows, raw)
+    assert (disc_conv.conv_bank_backward.launches,
+            disc_conv.conv_rows_backward.launches) == (before[0],
+                                                       before[1] + 1)
+
+
+@pytest.mark.parametrize("shape", [BWD_SHAPES[0], BWD_SHAPES[-1]])
+def test_backward_of_a_zero_gradient_is_zero(device, shape):
+    emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled = _grads(shape,
+                                                                   device)
+    dpms = [torch.zeros_like(i, dtype=torch.float32) for i in idxs]
+    d_emb, dw = disc_conv.conv_bank_backward(emb_pad, w_all, banks, R, eds,
+                                             idxs, dpms)
+    # every entry written, none left from the allocation: all exactly 0
+    assert int((d_emb != 0).sum()) == 0 and int((dw != 0).sum()) == 0
+    outs = disc_conv.conv_rows_backward(emb_pad, w_all, banks, R, eds,
+                                        -pooled.abs(), idxs, d_pooled)
+    assert all(int((o != 0).sum()) == 0 for o in outs)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_dxs_backward_matches_plain(device, shape):
     emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled = _grads(shape,
@@ -161,7 +233,7 @@ def test_conv_wrappers_refuse_malformed_calls(device):
     b_all = torch.zeros(w_all.shape[0], device=device)
     dpms, _ = disc_conv._masked(pooled, d_pooled, banks)
     fns = (disc_conv.conv_rows_forward, disc_conv.conv_rows_backward,
-           disc_conv.conv_bank_dxs)
+           disc_conv.conv_bank_dxs, disc_conv.conv_bank_backward)
     before = [f.launches for f in fns]
     with pytest.raises(TypeError):
         disc_conv.conv_rows_forward(emb_pad.double(), w_all, b_all, banks, R,
@@ -180,6 +252,20 @@ def test_conv_wrappers_refuse_malformed_calls(device):
     with pytest.raises(ValueError):
         disc_conv.conv_bank_dxs(emb_pad, w_all, banks, R, eds, idxs,
                                 [d[:, :2] for d in dpms])
+    with pytest.raises(TypeError):
+        disc_conv.conv_bank_backward(emb_pad, w_all, banks, R, eds, idxs,
+                                     [d.double() for d in dpms])
+    with pytest.raises(ValueError):
+        disc_conv.conv_bank_backward_raw(emb_pad, w_all, banks, R, eds,
+                                         pooled, idxs, d_pooled[:, :2])
+    with pytest.raises(ValueError):
+        disc_conv.conv_bank_backward_raw(emb_pad, w_all, banks, R, eds,
+                                         pooled.cpu(), idxs, d_pooled)
+    # 2000 time rows leave the kernel no shared memory for one row of
+    # accumulators: the C side refuses the call
+    long = _grads((1, 2000, 1, 1, ((4, 3),)), device)
+    with pytest.raises(RuntimeError):
+        disc_conv.conv_rows_backward(*long)
     assert [f.launches for f in fns] == before
 
 
