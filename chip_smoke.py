@@ -54,7 +54,9 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
    step by design); then one adversarial step through the kernels against
    the same step through the plain versions on the same state and fed
    noise (losses within 1e-4, every gradient within 1e-3 of its tensor's
-   max), the plain conv pooling at the kernel route's argmax rows.
+   max), the plain conv pooling at the kernel route's argmax rows and
+   both ReLUs of the discriminator (at the pool and in the highway)
+   taking the kernel route's decisions, each such tie within 1e-6.
 6. ``train_timing`` (steps) and ``train_profile`` — ms per MLE and
    adversarial step on both routes, and device time and launches per
    kernel (every kernel, and their totals) and the device's busy share
@@ -143,8 +145,12 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     the Gumbel sampler at [64, 11008] on fed uniforms (soft within 1e-6,
     ids equal outside near-ties), its Philox draw (reproducible, the
     sample_resid decode's stream, a histogram of 2^18 ids within 0.01 of
-    softmax(logits)); times beside the plain versions', the bounds and
-    ``scaled_dot_product_attention`` (forward, and forward + backward).
+    softmax(logits)); the forward's kernel per case as the C side reports
+    its launch (the fused kernel at the four config4 cases, the tiled one
+    at [2, 200, 2, 24]), two forward calls bit-equal, and a batch
+    row of key length 0 (out 0, lse below -1e29); times beside the plain
+    versions', the per-case bounds and ``scaled_dot_product_attention``
+    (forward, and forward + backward).
 19. ``tf_train`` — config4 at full width (V = 11008, T = 36, B = 64,
     rollouts 4 every 4, greedy baseline): 2 MLE and 2 REINFORCE steps
     with the launch counts (each equal to the design's per step); one MLE
@@ -160,9 +166,11 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     finite, both checkpoints served.
 
 22. ``disc_engines`` — the ``--disc-engine`` kernels at config3 width
-    (``conv_inputs``): the per-batch-row forward against its plain version
-    and the ``mxu`` forward (pooled within 1e-5, argmax rows equal outside
-    ties within 1e-6), the per-batch-row backward (``d_emb`` and ``db``
+    (``conv_inputs``): the per-batch-row forward (the ``mxu`` forward's
+    kernel) against its plain version (pooled within 1e-5, argmax rows
+    equal outside ties within 1e-6), bit-equal to the ``mxu`` forward, one
+    launch a pass by its plan, counted once on its own counter and not on
+    the ``mxu`` one; the per-batch-row backward (``d_emb`` and ``db``
     within 1e-5 times the larger of 1 and their largest entry, as the
     ``mxu`` backward's dX is held; ``dW`` within 1e-4 of its max; two
     calls bit-equal; one launch and one reduction a pass) and the
@@ -172,7 +180,8 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     one adversarial step under each of ``auto``, ``xla``, ``pallas``,
     ``hybrid``, ``mxu`` and ``mxu_dxs`` with the launch counts of its
     engine, and its losses (within 1e-4) and gradients (``routes_agree``)
-    against the plain route on the same state and fed noise; ms per step;
+    against the plain route on the same state and fed noise (argmax rows
+    and ReLU decisions replayed, ties within 1e-6); ms per step;
     ``device_ms`` of the new kernels and, re-timed the same way, of the
     ``mxu`` conv kernels and the BPTT chain, beside the plain versions and
     the bounds.
@@ -248,8 +257,8 @@ TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 LP_ATOL, SEQ_ATOL, ID_ATOL = 1e-4, 1e-3, 1e-4
 TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:121"
 Q_TPU_KERNEL = "gan_image_captioning_tpu/kernels/decode_sample.py:622"
-KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "image_norm", "flash_attention", "gumbel_sample",
-                  "disc_conv_rows", "decode_embed_bwd"]
+KERNEL_SOURCES = ["decode_serve", "lstm_bptt", "disc_conv", "image_norm",
+                  "flash_attention", "gumbel_sample", "decode_embed_bwd"]
 MODEL_FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),
                "--gen-embed-dim", str(E), "--gen-hidden-dim", str(H),
                "--gen-num-layers", str(NL), "--max-seq-len", str(MAX_SEQ_LEN)]
@@ -841,6 +850,17 @@ def kernel_events(fn, calls):
                   and not e.name.startswith(("Memset", "Memcpy"))),
                  key=lambda e: e.time_range.start)
     return [(e.name, e.time_range.elapsed_us()) for e in evs]
+
+
+def forward_kernels(fn):
+    """The names of the flash forward kernels that one call of ``fn``
+    launches (torch.profiler; profiled again once where it saw none)."""
+    names = []
+    for _ in range(2):
+        names = [n for n, _ in kernel_events(fn, 1) if "flash_fwd" in n]
+        if names:
+            break
+    return names
 
 
 def kernel_split(fn, calls=5):
@@ -1781,9 +1801,12 @@ def phase_train(device):
 
     # kernels against plain versions, one adversarial step, fed noise.  The
     # plain route pools at the kernel route's argmax rows (each within
-    # TIE_GAP of the plain max), as the decode check teacher-forces on the
-    # kernel's ids: without that, a near-tie that the two routes break
-    # differently moves a whole d_emb column.  The comparison without the
+    # TIE_GAP of the plain max) and takes its ReLU decisions at the pool
+    # and in the highway (where they differ, both inputs within TIE_GAP of
+    # 0), as the decode check teacher-forces on the kernel's ids: without
+    # that, a near-tie that the two routes break differently moves a whole
+    # d_emb column, or a ReLU input within rounding of 0 passes one
+    # route's gradient and stops the other's.  The comparison without the
     # replay is reported too.
     from gan_image_captioning_tpu_torch.kernels import disc_conv
 
@@ -2584,7 +2607,9 @@ def phase_tf_kernels(device):
     """The four kernels against their plain versions at config4's shapes:
     flash forward, dQ and dK/dV at the three masks (the generator's MLE
     pass, causal with lengths + 1; its log-prob pass, causal; the
-    discriminator, full, at B = 64 and the rollouts' 256), and the Gumbel
+    discriminator, full, at B = 64 and the rollouts' 256: the fused
+    forward; causal with lengths at [2, 200, 2, 24]: the tiled forward, as
+    the C side reports its launch), and the Gumbel
     sampler on fed uniforms and on its Philox draw; their device times
     (``device_ms``) beside the plain versions', the bounds and
     scaled_dot_product_attention's, and the per-call rate of calls issued
@@ -2599,15 +2624,24 @@ def phase_tf_kernels(device):
     rng = np.random.default_rng(55)
     lens_gen = torch.from_numpy(rng.integers(3, T + 1, B_TRAIN).astype(
         np.int32) + 1).to(device)
+    # a shape past the fused forward (T > 64): the tiled forward, causal
+    # with key lengths
+    lens_tiled = torch.from_numpy(rng.integers(1, 201, 2).astype(
+        np.int32)).to(device)
     hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
-    cases = {"gen_mle": ((B_TRAIN, T + 1, TF_HEADS, hd), True, lens_gen),
-             "gen_logprob": ((B_TRAIN, T + 1, TF_HEADS, hd), True, None),
-             "disc": ((B_TRAIN, T, TF_DISC_HEADS, dd), False, None),
+    kernel_names = {"fused": "flash_fwd_fused_kernel",
+                    "tiled": "flash_fwd_kernel"}
+    cases = {"gen_mle": ((B_TRAIN, T + 1, TF_HEADS, hd), True, lens_gen,
+                         "fused"),
+             "gen_logprob": ((B_TRAIN, T + 1, TF_HEADS, hd), True, None,
+                             "fused"),
+             "disc": ((B_TRAIN, T, TF_DISC_HEADS, dd), False, None, "fused"),
              "disc_rollout": ((B_TRAIN * TF_ROLLOUT_NUM, T, TF_DISC_HEADS, dd),
-                              False, None)}
+                              False, None, "fused"),
+             "tiled_t200": ((2, 200, 2, 24), True, lens_tiled, "tiled")}
     cnt = tf_counters()
     rows, times = {}, {}
-    for name, (shape, causal, lens) in cases.items():
+    for name, (shape, causal, lens, want) in cases.items():
         q, k, v = (seeded(shape, 60 + i, device).requires_grad_(True)
                    for i in range(3))
         g = seeded(shape, 63, device)
@@ -2620,16 +2654,30 @@ def phase_tf_kernels(device):
                                                  "flash_dkv")}
         ref = fa.attention_plain(q, k, v, causal, lens)
         ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        again = fa.flash_fwd(qd, kd, vd, causal, lens)
+        # the kernel the C side launched, as it reports it and as the
+        # profiler names it (the profiler drops every event at times in a
+        # long process: its names are checked where it saw the launch)
+        ran = fa.flash_fwd.last_kernel
+        seen = forward_kernels(lambda: fa.flash_fwd(qd, kd, vd, causal,
+                                                    lens))
         row = {"shape": list(shape), "causal": causal,
                "lengths": lens is not None, "launches": launches,
+               "forward_kernel": ran, "profiler_forward_kernels": seen,
                "max_abs_out_diff": float((out - ref).detach().abs().max()),
-               "out_finite": bool(torch.isfinite(out).all())}
+               "out_finite": bool(torch.isfinite(out).all()),
+               "forward_bit_equal_repeat": bool(torch.equal(again[0], out))}
         for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
             row[f"{n}_max_abs_diff"] = float((a - b).abs().max())
             row[f"{n}_rel"] = row[f"{n}_max_abs_diff"] / float(b.abs().max())
         emit({"phase": "tf_kernels", "kernel": "flash", "case": name, **row})
         check(launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1},
               f"flash {name}: launches {launches}")
+        check(ran == want and row["forward_bit_equal_repeat"]
+              and (not seen or (len(seen) == 1
+                                and kernel_names[want] in seen[0])),
+              f"flash {name} {row}")
         check(row["out_finite"] and row["max_abs_out_diff"] <= FLASH_OUT_ATOL,
               f"flash {name} forward {row}")
         for n in ("dq", "dk", "dv"):
@@ -2640,8 +2688,7 @@ def phase_tf_kernels(device):
         # times: each kernel alone, the plain version forward and forward +
         # backward, and the library call (boolean mask, [B, H, T, D] views
         # made contiguous outside the timing)
-        qd, kd, vd = (x.detach() for x in (q, k, v))
-        o, lse = fa.flash_fwd(qd, kd, vd, causal, lens)
+        o, lse = again
         delta = (g * o).sum(dim=-1)
         b_, t_, h_, d_ = shape
         mask = torch.ones((1, 1, t_, t_), dtype=torch.bool, device=device)
@@ -2700,6 +2747,23 @@ def phase_tf_kernels(device):
         emit({"phase": "tf_kernels", "timing": "flash", "case": name,
               **t_row})
         times[name] = t_row
+
+    # a batch row with no valid key (the rollouts' shape, lengths 0 and
+    # T): out 0 and lse about -1e30, the other row as the plain version
+    shape = cases["disc_rollout"][0]
+    q0, k0, v0 = (seeded(shape, 64 + i, device) for i in range(3))
+    lens0 = torch.tensor([0, T] * (shape[0] // 2), dtype=torch.int32,
+                         device=device)
+    o0, lse0 = fa.flash_fwd(q0, k0, v0, False, lens0)
+    ref0 = fa.attention_plain(q0, k0, v0, False, lens0)
+    zero = {"max_abs_out_empty": float(o0[0::2].abs().max()),
+            "max_lse_empty": float(lse0[0::2].max()),
+            "max_abs_out_diff": float((o0[1::2] - ref0[1::2]).abs().max())}
+    emit({"phase": "tf_kernels", "kernel": "flash", "case": "length_zero",
+          **zero})
+    check(zero["max_abs_out_empty"] == 0.0 and zero["max_lse_empty"] <= -1e29
+          and zero["max_abs_out_diff"] <= FLASH_OUT_ATOL,
+          f"flash length 0 {zero}")
 
     # --- the Gumbel sampler at [64, V]
     logits = seeded((B_TRAIN, V), 70, device, 3.0)
@@ -2785,7 +2849,8 @@ def phase_tf_kernels(device):
                               "shape": [B_TRAIN, V]}
     emit({"phase": "tf_kernels", "timing": "gumbel_sample",
           **times["gumbel_sample"]})
-    return {"flash": rows, "gumbel": g_rows, "philox": philox, "times": times}
+    return {"flash": rows, "length_zero": zero, "gumbel": g_rows,
+            "philox": philox, "times": times}
 
 
 def tf_config(**overrides):
@@ -2938,8 +3003,8 @@ def phase_tf_train(device):
         times[kind] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b]}
         emit({"phase": "tf_train", "timing": kind, "B": B_TRAIN,
               **times[kind]})
-    names = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-             "gumbel_sample_kernel")
+    names = ("flash_fwd_fused_kernel", "flash_fwd_kernel", "flash_dq_kernel",
+             "flash_dkv_kernel", "gumbel_sample_kernel")
     prof = {"mle": profile_calls(lambda: mle(state, batch), 3, names),
             "rl": profile_calls(lambda: adv(state, batch, 1.0), 2, names)}
     for kind, p in prof.items():
@@ -3094,6 +3159,17 @@ def tf_entries(smi, tfk, tf_train):
             "shape": shape, "card": smi,
             "note": None if name in ("flash_fwd", "gumbel_sample") else
             "plain_ms and library_ms are the whole forward + backward"})
+        if name != "gumbel_sample":     # every case: ms beside its bound
+            fwd = name == "flash_fwd"
+            out[-1]["by_case"] = {case: {
+                "shape": tfk["flash"][case]["shape"],
+                "ms": min(t["kernel_ms"][name]),
+                "bound_ms": t[name]["bound_ms"],
+                "library_ms": min(t["library_fwd_ms" if fwd
+                                    else "library_fwd_bwd_ms"]),
+                "plain_ms": min(t["plain_fwd_ms" if fwd
+                                  else "plain_fwd_bwd_ms"])}
+                for case, t in tfk["times"].items() if case in tfk["flash"]}
     return out
 
 
@@ -3120,7 +3196,7 @@ ENGINE_TPU_KERNELS = {
     "disc_conv_bwd_dxs": f"{DISC_TPU}:496",
     "lstm_bptt_reverse": "gan_image_captioning_tpu/kernels/lstm_bptt.py:163",
 }
-ENGINE_SOURCES = {"disc_conv_rows_fwd": "disc_conv_rows.cu",
+ENGINE_SOURCES = {"disc_conv_rows_fwd": "disc_conv.cu",
                   "disc_conv_rows_bwd": "disc_conv.cu",
                   "disc_conv_bwd_dxs": "disc_conv.cu",
                   "lstm_bptt_reverse": "lstm_bptt.cu"}
@@ -3197,23 +3273,28 @@ def phase_disc_engines(device):
     B, out = B_TRAIN, {"rows": {}}
     emb_pad, w_all, b_all, banks = conv_inputs(device)
     args = (emb_pad, w_all, b_all, banks, DISC_R, 1)
+    fwd_counters = (disc_conv.conv_rows_forward, disc_conv.conv_bank_forward)
+    before = [f.launches for f in fwd_counters]
     pooled_k, idx_k = disc_conv.conv_rows_forward(*args)
     torch.cuda.synchronize()
+    counted = [f.launches - b for f, b in zip(fwd_counters, before)]
     pooled_p, idx_p = disc_conv.conv_relu_maxpool_plain(*args)
     pooled_m, idx_m = disc_conv.conv_bank_forward(*args)
     bad_p, ties = idx_mismatch(emb_pad, w_all, b_all, banks, pooled_p, idx_k,
                                idx_p)
-    bad_m, _ = idx_mismatch(emb_pad, w_all, b_all, banks, pooled_p, idx_k,
-                            idx_m)
+    plan = disc_conv.conv_fwd_plan(B * DISC_R, T, 1, banks)
     row = {"max_abs_pooled_diff": float((pooled_k - pooled_p).abs().max()),
-           "max_abs_pooled_diff_vs_mxu": float(
-               (pooled_k - pooled_m).abs().max()),
-           "idx_mismatch_outside_ties": bad_p,
-           "idx_mismatch_vs_mxu_outside_ties": bad_m, "near_ties": ties}
+           "bit_equal_mxu": bool(torch.equal(pooled_k, pooled_m)) and all(
+               torch.equal(a, b) for a, b in zip(idx_k, idx_m)),
+           "idx_mismatch_outside_ties": bad_p, "near_ties": ties,
+           "plan_launches": len(plan["launches"]),
+           "counted_rows_mxu": counted}
     emit({"phase": "disc_engines", "kernel": "disc_conv_rows_fwd", **row})
+    # the mxu forward's kernel: its bits, one launch a pass, counted on the
+    # row engine's counter only
     check(row["max_abs_pooled_diff"] <= POOL_ATOL and bad_p == 0
-          and row["max_abs_pooled_diff_vs_mxu"] <= POOL_ATOL and bad_m == 0,
-          f"rows forward {row}")
+          and row["bit_equal_mxu"] and row["plan_launches"] == 1
+          and counted == [1, 0], f"rows forward {row}")
     out["rows"]["disc_conv_rows_fwd"] = row
 
     d_pooled = seeded(tuple(pooled_p.shape), 71, device)

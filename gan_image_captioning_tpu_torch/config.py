@@ -287,10 +287,11 @@ def add_extension_args(parser):
                    help="discriminator conv/ReLU/max-pool engine: 'auto' "
                         "= 'mxu' (the matmul-formulated kernels, "
                         "csrc/disc_conv.cu); 'xla' = the plain PyTorch "
-                        "versions; 'pallas' = the per-batch-row kernels "
-                        "(csrc/disc_conv_rows.cu) forward and backward; "
+                        "versions; 'pallas' = the per-batch-row engine, "
+                        "which runs the 'mxu' kernels forward and backward "
+                        "(csrc/disc_conv.cu) behind counters of its own; "
                         "'hybrid' = the plain forward (cuDNN conv, ReLU, "
-                        "max) and the per-batch-row backward kernel.  CPU "
+                        "max) and that engine's backward kernel.  CPU "
                         "tensors always take the plain versions")
     g.add_argument("--decode-impl", type=str, default="fused",
                    choices=["fused", "decoupled", "kernel"],

@@ -3,8 +3,8 @@
 //
 // Replaces: gan_image_captioning_tpu/kernels/disc_conv.py, functions
 // `_mxu_fwd_kernel` and `_mxu_bwd_dx_kernel` (launched per bank by
-// `conv_relu_maxpool_mxu` through `_mxu_bank_call`), and `_bwd_kernel`
-// (the per-batch-row engine's backward, `_bank_call`).  A column q = (b, r)
+// `conv_relu_maxpool_mxu` through `_mxu_bank_call`), and `_fwd_kernel` /
+// `_bwd_kernel` (the per-batch-row engine, `_bank_call`).  A column q = (b, r)
 // is one sequence b seen through representation r: its rows are
 // x_q[t*eds + e] = emb_pad[b, t, r*eds + e] for the L real time rows (the
 // maxf-1 rows of zero time padding are never read).  For one bank of n
@@ -21,8 +21,10 @@
 //                                                 for t = idx[q, n]
 //             dW[k, n] = sum_q x_q[idx[q, n]*eds + k] * dpm[q, n]
 //   `_bwd_kernel` computes the same from the raw d_pooled, with the mask
-//   and db in its launch: these kernels do so with MASK (the row engine's
-//   forward is in disc_conv_rows.cu).
+//   and db in its launch: these kernels do so with MASK.  The row
+//   engine's forward `_fwd_kernel` computes the same function as
+//   `_mxu_fwd_kernel`, so conv_fwd_kernel replaces both (the wrapper
+//   conv_rows_forward counts it apart).
 //
 // What bounds it on this card.  At the training width (B = 64, R = 64,
 // eds = 1, L = 36, banks 3/4/5 x 300) the forward does 0.97 GFLOP per

@@ -24,23 +24,83 @@
 // edge is masked here, where the TPU wrapper pads T to a block multiple.
 //
 // What bounds it on this card.  At the transformer GAN's shapes (T = 36-37,
-// D = 16-32, B*H = 512-2048) a pass does a few hundred MFLOP and moves a
-// few MB: about 1-3 us either way at 67 TFLOP/s float32 and 3.35 TB/s.
-// Launch latency and the serial key loop bound it, not either rate.
+// D = 16-32, B*H = 512-2048) a forward moves 4.8-19 MB (q, k, v read once,
+// out and lse written once: 1.4-5.7 us at 3.35 TB/s) and does 23-85 M FMAs
+// (under half of that time at 67 TFLOP/s): it is bound by bytes, and at
+// these sizes by how soon its blocks have their operands on chip.
 //
-// What this design does about it.  It is the simple version: float32 FMA,
-// no tensor cores.  A block of 128 threads owns one (b, h) and a tile of
+// The forward (flash_fwd_fused_kernel, every call the system makes).  Every
+// T the system runs is at most 37, so one head's whole q, k and v fit in
+// shared memory and the softmax needs no running rescale.
+//   * A block owns G heads of one batch row: the most (a power of two) that
+//     keep it within 512 threads and 48 KB, 4 at T = 36 and D = 16, 2 at
+//     T = 37 and D = 32.  Their rows of q, k and v are contiguous runs of
+//     G*D floats in the bqhd layout; they arrive by 16-byte cp.async, all
+//     in flight at once, into head-major tiles whose rows are padded by 4
+//     floats, so that the lanes reading neighbouring keys hit distinct
+//     banks.
+//   * Two threads own one query row of one head, each every other key
+//     (j = s, s + 2, ...): the q row and the thread's scores sit in
+//     registers, every slot of the block holds a real (row, slice) (only
+//     the last warp's tail idles), and a key costs D FMAs on float4
+//     broadcasts from shared memory, with no shuffle.
+//   * An exact two-pass softmax: the scores and their max (one shuffle
+//     joins the two slices), then the exponentials (ex2 of one FMA), their
+//     sum and P.V; one exchange of D/2 partial sums leaves each thread D/2
+//     columns to write.  Fixed shuffle order, no atomics: two calls give
+//     the same bits.
+//   * Float32 FMAs, no tensor cores: TF32 would not hold the outputs to
+//     2e-6 of the float32 reference, and the operations bound is under
+//     half of the bytes bound here.
+// What holds it back: in each block the copies, the two passes and the
+// stores run one after another.  Timed with parts switched off at the
+// rollouts' shape [256, 36, 8, 16] (ms, device_ms, H100 80GB HBM3 at 700
+// W; on the two-group form below): a launch of an empty kernel 0.0018,
+// the copies alone 0.0056, copies and stores 0.0096, passes and stores
+// without the copies 0.0127, all 0.0159.  A thread's stores write 16
+// bytes of each 32-byte sector.
+// Variants tried, at the rollouts' / the discriminator's [64, 36, 8, 16] /
+// the generator's causal [64, 37, 8, 32] shapes (ms, the same card; the
+// kept design 0.0155 / 0.0064 / 0.0089):
+//   * the keys of a row split over KS = 1, 2, 4 or 8 threads: 0.0197 /
+//     0.0076 / 0.0120, 0.0156 / 0.0067 / 0.0091, 0.0188 / 0.0072 / 0.0111,
+//     0.0248 / 0.0087 / 0.0143; KS picked for 2^17 threads a launch (2
+//     at the rollouts, else 8): 0.0157 / 0.0088 / 0.0143.  More slices
+//     cost a reduce-scatter and wider block ranges;
+//   * fewer registers for the scores (T <= 40), or registers capped at
+//     48 or 64 (spills): 0.0155 / 0.0066 / 0.0092, 0.0155 / 0.0074 /
+//     0.0264, 0.0158 / 0.0068 / 0.0128;
+//   * v in a second cp.async group, landing during the first pass, and
+//     key rows padded past T in place of clamped reads: 0.0160 / 0.0065 /
+//     0.0094;
+//   * out and lse staged in shared memory and written in whole sectors:
+//     0.0218 / 0.0068 / 0.0100 (100 registers, one more barrier);
+//   * persistent blocks with the next group's rows double-buffered:
+//     0.0168 / 0.0065 / 0.0096;
+//   * 1 head a block: 0.0184 / 0.0067 / 0.0088; 2 heads on the two-group
+//     form: 0.0152 / 0.0064 / 0.0094.
+// A shape the fused kernel does not take (T > FT_TMAX or D > 32) runs the
+// tiled forward (flash_fwd_kernel, the first port's design below); the
+// choice is made from the shape alone, never after a failure.  The fused
+// kernel's 16-byte copies need q, k, v and out 16-byte aligned: the
+// wrapper refuses other pointers.
+//
+// The tiled kernels (the tiled forward, dQ and dK/dV): float32 FMA, no
+// tensor cores.  A block of 128 threads owns one (b, h) and a tile of
 // rows (query rows forward and for dQ, key rows for dK/dV, so no two blocks
 // write the same row and no atomics are needed: the TPU design's
 // determinism).  A row is split over tpr = next power of two >= D / 8
 // threads that hold 8 of its D columns each in registers (D <= 256, a
 // multiple of 8); a dot product is their partial sums combined with tpr-wide
 // shuffles.  The other operand streams through shared memory in tiles of
-// 4096 floats (16 KB), read as broadcasts.  The forward keeps the running
-// max, normaliser and accumulator per row and rescales once per 4 keys.
-// When causal, the forward and dQ stop at the tile's last row and dK/dV
-// start at the tile's first key row.  wgmma (TF32 or bf16), TMA and larger
-// tiles are later work.
+// 4096 floats (16 KB), read as broadcasts.  The tiled forward keeps the
+// running max, normaliser and accumulator per row and rescales once per 4
+// keys.  When causal, the forward and dQ stop at the tile's last row and
+// dK/dV start at the tile's first key row.  What holds them back (measured
+// on the forward, which they lose to the fused kernel): at D = 16 a block
+// has 64 row slots for 36 rows, K and V arrive by 4-byte loads, and each
+// row walks its keys one dependent step (FMAs, shuffles, an exp, a
+// rescale) at a time.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -296,6 +356,188 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   }
 }
 
+// ---- the fused forward: a head's whole q, k and v on chip (T <= FT_TMAX)
+
+constexpr int FT_TMAX = 64;           // time rows the fused forward takes
+constexpr int FT_DMAX = 32;           // head dim it takes
+constexpr int FT_KS = 2;              // threads a query row (key slices)
+constexpr int FT_KPS = FT_TMAX / FT_KS;  // keys a thread scores, at most
+constexpr int FT_PAD = 4;             // floats after each staged row
+constexpr int FT_THREADS = 512;       // most threads a block
+constexpr int FT_SMEM = 48 * 1024;    // most shared-memory bytes a block
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, 2 ulp
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// q . k over DP columns (columns D..DP of both are zero), in two chains.
+template <int DP>
+__device__ __forceinline__ float dot_row(const float (&qr)[DP],
+                                         const float* kr) {
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < DP; c += 8) {
+    const float4 x = ld4(kr + c), y = ld4(kr + c + 4);
+    a0 = fmaf(qr[c], x.x, a0);
+    a1 = fmaf(qr[c + 4], y.x, a1);
+    a0 = fmaf(qr[c + 1], x.y, a0);
+    a1 = fmaf(qr[c + 5], y.y, a1);
+    a0 = fmaf(qr[c + 2], x.z, a0);
+    a1 = fmaf(qr[c + 6], y.z, a1);
+    a0 = fmaf(qr[c + 3], x.w, a0);
+    a1 = fmaf(qr[c + 7], y.w, a1);
+  }
+  return a0 + a1;
+}
+
+// Grid: B * ceil(H / G) blocks (batch row, group of G heads); block:
+// 2*G*T threads rounded up to a warp.  Dynamic shared memory: q, k and v
+// tiles of G heads, each T rows of DP + FT_PAD floats.
+template <int DP>
+__global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ lengths,
+    float* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
+    int G, int causal, float scale) {
+  constexpr int RS = DP + FT_PAD;  // staged row stride
+  constexpr int DO = DP / FT_KS;   // columns a thread writes
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) float ft_smem[];
+  const int groups = (H + G - 1) / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * G;
+  const int gh = min(G, H - h0);  // heads of this block
+  const int plane = G * T * RS;
+  float* const qs = ft_smem;
+  float* const ks = qs + plane;
+  float* const vs = ks + plane;
+
+  // rows t < T of heads h0 .. h0 + gh - 1, one run of gh*D floats a row
+  // (chunk e of the block's rows: time row e / cpr, 16 bytes e % cpr)
+  const int cpd = D / 4, cpr = gh * cpd;
+  for (int e = threadIdx.x; e < T * cpr; e += blockDim.x) {
+    const int t = e / cpr, c = e - t * cpr, g = c / cpd;
+    const size_t src = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
+    const int dst = (g * T + t) * RS + 4 * (c - g * cpd);
+    cp_async16(qs + dst, q + src);
+    cp_async16(ks + dst, k + src);
+    cp_async16(vs + dst, v + src);
+  }
+  if (D < DP) {  // pad columns enter every dot product: zero them
+    const int ppr = (DP - D) / 4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = threadIdx.x; e < gh * T * ppr; e += blockDim.x) {
+      const int row = e / ppr, dst = row * RS + D + 4 * (e - row * ppr);
+      *reinterpret_cast<float4*>(qs + dst) = z;
+      *reinterpret_cast<float4*>(ks + dst) = z;
+      *reinterpret_cast<float4*>(vs + dst) = z;
+    }
+  }
+
+  // thread -> (row slot r = (head g, query row i), key slice s): keys
+  // j = s, s + 2, ...; the two lanes of a row are neighbours.  A dead slot
+  // (past gh*T) has no keys but takes part in the shuffles.
+  const int s = threadIdx.x % FT_KS, r = threadIdx.x / FT_KS;
+  const bool live = r < gh * T;
+  const int g = live ? r / T : 0, i = live ? r - g * T : 0;
+  const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
+  const int nk = !live ? 0 : causal ? min(len, i + 1) : len;  // j < nk
+  const int mine = nk > s ? (nk - s + FT_KS - 1) / FT_KS : 0;
+  const int nwarp = static_cast<int>(__reduce_max_sync(FULL, mine));
+  const float* kh = ks + g * T * RS;
+  const float* vh = vs + g * T * RS;
+
+  cp_async_wait_all();
+  __syncthreads();
+  float sc[FT_KPS];
+  float mx = NEG;
+  {
+    float qr[DP];
+    const float* qrow = qs + (g * T + i) * RS;
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      const float4 x = ld4(qrow + c);
+      qr[c] = x.x;
+      qr[c + 1] = x.y;
+      qr[c + 2] = x.z;
+      qr[c + 3] = x.w;
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < FT_KPS; n0 += 2) {
+      if (n0 >= nwarp) break;
+#pragma unroll
+      for (int n = n0; n < n0 + 2; ++n) {
+        const int j = s + FT_KS * n;  // past T: read row T - 1, masked
+        const float d = dot_row<DP>(qr, kh + min(j, T - 1) * RS);
+        sc[n] = j < nk ? d * scale : -INFINITY;
+        mx = fmaxf(mx, sc[n]);
+      }
+    }
+  }
+  mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+
+  // exp(s - mx) = 2^(s*log2e - mx*log2e); a masked key (-inf) gives 0
+  const float nm = -mx * LOG2E;
+  float acc[DP], l = 0.f;
+#pragma unroll
+  for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int n0 = 0; n0 < FT_KPS; n0 += 2) {
+    if (n0 >= nwarp) break;
+#pragma unroll
+    for (int n = n0; n < n0 + 2; ++n) {
+      const float p = ex2(fmaf(sc[n], LOG2E, nm));
+      const float* vr = vh + min(s + FT_KS * n, T - 1) * RS;
+      l += p;
+#pragma unroll
+      for (int c = 0; c < DP; c += 4) {
+        const float4 x = ld4(vr + c);
+        acc[c] = fmaf(p, x.x, acc[c]);
+        acc[c + 1] = fmaf(p, x.y, acc[c + 1]);
+        acc[c + 2] = fmaf(p, x.z, acc[c + 2]);
+        acc[c + 3] = fmaf(p, x.w, acc[c + 3]);
+      }
+    }
+  }
+  l += __shfl_xor_sync(FULL, l, 1);
+  // reduce-scatter of the two partial rows of P.V: slice 0 keeps columns
+  // 0 .. DO, slice 1 columns DO .. DP
+#pragma unroll
+  for (int c = 0; c < DO; ++c) {
+    const float give = s ? acc[c] : acc[c + DO];
+    const float keep = s ? acc[c + DO] : acc[c];
+    acc[c] = keep + __shfl_xor_sync(FULL, give, 1);
+  }
+  if (!live) return;
+  const float l_safe = fmaxf(l, 1e-30f);
+  const size_t row = (size_t)(b * T + i) * H + h0 + g;
+  float* orow = out + row * D + s * DO;
+#pragma unroll
+  for (int c = 0; c < DO; c += 4) {  // D is a multiple of 8: whole float4s
+    if (s * DO + c < D)
+      *reinterpret_cast<float4*>(orow + c) =
+          make_float4(acc[c] / l_safe, acc[c + 1] / l_safe,
+                      acc[c + 2] / l_safe, acc[c + 3] / l_safe);
+  }
+  if (s == 0) lse[row] = mx + logf(l_safe);
+}
+
 int threads_per_row(int D) {
   int t = 1;
   while (t * DS < D) t <<= 1;
@@ -311,6 +553,26 @@ dim3 grid_of(int B, int T, int H, int D) {
   return dim3(B * H, (T + rows - 1) / rows);
 }
 
+// The fused forward's geometry: G, the most heads (a power of two) that
+// keep a block within FT_THREADS threads and FT_SMEM bytes.
+struct FusedGeometry {
+  int g, threads, smem;
+};
+
+bool fused_shape(int T, int D) { return T <= FT_TMAX && D <= FT_DMAX; }
+
+FusedGeometry fused_geometry(int T, int H, int D) {
+  const int head = 3 * 4 * T * ((D <= 16 ? 16 : 32) + FT_PAD);
+  FusedGeometry f;
+  f.g = 1;
+  while (2 * f.g <= H && 2 * f.g * FT_KS * T <= FT_THREADS &&
+         2 * f.g * head <= FT_SMEM)
+    f.g *= 2;
+  f.threads = (f.g * FT_KS * T + 31) / 32 * 32;
+  f.smem = f.g * head;
+  return f;
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,13 +583,29 @@ const char* gic_error_string(int err) {
 
 // q, k, v [B, T, H, D] contiguous float32; lengths [B] int32 or null.
 // Outputs out [B, T, H, D] and lse [B, T, H].  Each function returns 0 or
-// the CUDA error code of its launch; nothing synchronises.
+// the CUDA error code of its launch; nothing synchronises.  The forward
+// launches the fused kernel where T <= FT_TMAX and D <= 32 (q, k, v and
+// out 16-byte aligned), else the tiled one, and writes which to *fused
+// (1 or 0).
 int gic_flash_fwd(const float* q, const float* k, const float* v,
                   const int* lengths, float* out, float* lse, int B, int T,
-                  int H, int D, int causal, float scale, void* stream) {
+                  int H, int D, int causal, float scale, void* stream,
+                  int* fused) {
   if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
-  flash_fwd_kernel<<<grid_of(B, T, H, D), NT, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *fused = fused_shape(T, D);
+  if (*fused) {
+    const FusedGeometry f = fused_geometry(T, H, D);
+    const dim3 grid(B * ((H + f.g - 1) / f.g));
+    if (D <= 16)
+      flash_fwd_fused_kernel<16><<<grid, f.threads, f.smem, st>>>(
+          q, k, v, lengths, out, lse, T, H, D, f.g, causal, scale);
+    else
+      flash_fwd_fused_kernel<32><<<grid, f.threads, f.smem, st>>>(
+          q, k, v, lengths, out, lse, T, H, D, f.g, causal, scale);
+    return cudaGetLastError();
+  }
+  flash_fwd_kernel<<<grid_of(B, T, H, D), NT, 0, st>>>(
       q, k, v, lengths, out, lse, T, H, D, threads_per_row(D), causal, scale);
   return cudaGetLastError();
 }

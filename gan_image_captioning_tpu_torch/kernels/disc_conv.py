@@ -16,9 +16,9 @@ gradient to that one time row.  The engines (:func:`conv_relu_maxpool`):
   :func:`conv_bank_dxs` (``csrc/disc_conv.cu``) writes the per-step tap
   gradients, which :func:`overlap_add` adds into ``d_emb`` in torch;
 * ``"pallas"`` — ``_fwd_kernel`` / ``_bwd_kernel``, the per-batch-row
-  engine: :func:`conv_rows_forward` (``csrc/disc_conv_rows.cu``) and
-  :func:`conv_rows_backward`, the ``mxu`` backward's kernels with the mask
-  and ``db`` in the launch;
+  engine: :func:`conv_rows_forward` and :func:`conv_rows_backward`, the
+  ``mxu`` engine's kernels (``csrc/disc_conv.cu``; the backward with the
+  mask and ``db`` in the launch) behind counters of their own;
 * ``"hybrid"`` — the plain forward (the JAX package leaves it to XLA) with
   the per-batch-row engine's backward;
 * ``"plain"`` — the plain versions on any device, for comparisons.
@@ -28,13 +28,13 @@ it runs its plain version (:func:`conv_relu_maxpool_plain`,
 :func:`conv_bwd_dx_plain`, :func:`conv_dxs_plain`,
 :func:`conv_rows_backward_plain`).  Each wrapper's ``.launches`` counts
 its calls that launched kernels, one per call.  A call of
-:func:`conv_bank_forward` is one launch for every bank (up to
-``FW_MAX_BANKS``, :func:`conv_fwd_plan`); one of :func:`conv_bank_backward`,
-:func:`conv_bank_backward_raw` (counted on ``conv_bank_backward``: the
-same kernels) or :func:`conv_rows_backward` is one launch for every bank
-(up to ``BW_MAX_BANKS``) and one reduction of the dW partials
-(:func:`conv_bwd_plan`); one of :func:`conv_rows_forward` or
-:func:`conv_bank_dxs` is one launch per bank.
+:func:`conv_bank_forward` or :func:`conv_rows_forward` is one launch for
+every bank (up to ``FW_MAX_BANKS``, :func:`conv_fwd_plan`); one of
+:func:`conv_bank_backward`, :func:`conv_bank_backward_raw` (counted on
+``conv_bank_backward``: the same kernels) or :func:`conv_rows_backward` is
+one launch for every bank (up to ``BW_MAX_BANKS``) and one reduction of
+the dW partials (:func:`conv_bwd_plan`); one of :func:`conv_bank_dxs` is
+one launch per bank.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -249,13 +249,26 @@ def conv_bank_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     :func:`conv_relu_maxpool_plain`: the CUDA kernel on a CUDA tensor (one
     launch for all banks, :func:`conv_fwd_plan`), the plain version on a
     CPU one."""
-    b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds, b_all)
+    _validate(emb_pad, w_all, banks, R, eds, b_all)
     device = emb_pad.device
     if device.type == "cpu":
         return conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R, eds)
     if device.type != "cuda":
         raise ValueError(f"disc_conv: unsupported device {device}")
+    out = _forward(emb_pad, w_all, b_all, banks, R, eds)
+    with _count_lock:
+        conv_bank_forward.launches += 1
+    return out
+
+
+def _forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
+    """The ``gic_conv_fwd`` launches of :func:`conv_fwd_plan` (one for
+    every bank of a pass) → ``(pooled, idxs)``; every output entry is
+    written by the kernel."""
     lib = _library()
+    b_sz, lp, _ = emb_pad.shape
+    L = lp - max(f for _, f in banks) + 1
+    n_all, device = w_all.shape[0], emb_pad.device
     plan = conv_fwd_plan(b_sz * R, L, eds, banks)
     pooled = torch.empty(b_sz, R, n_all, device=device)
     idxs = [torch.empty(b_sz, R, n, dtype=torch.int32, device=device)
@@ -272,8 +285,6 @@ def conv_bank_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
                 launch["grid"][1], launch["smem_bytes"], pooled.data_ptr(),
                 n_all, _stream(device))
             build.raise_on_error(lib, rc, "disc conv forward")
-    with _count_lock:
-        conv_bank_forward.launches += 1
     return pooled, idxs
 
 
@@ -507,46 +518,22 @@ def conv_bank_dxs(emb_pad, w_all, banks, R: int, eds: int,
     return dxss, dw_all
 
 
-def _rows_library() -> ctypes.CDLL:
-    lib = build.load("disc_conv_rows")
-    if not getattr(lib, "_gic_typed", False):
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gic_conv_rows_fwd.argtypes = ([vp, vp, i, vp] + [i] * 7
-                                          + [vp, i, vp, vp])
-        lib.gic_conv_rows_fwd.restype = i
-        lib._gic_typed = True
-    return lib
-
-
 def conv_rows_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
-    """The per-batch-row forward of every bank → ``(pooled [B, R, F],
-    idxs)`` as :func:`conv_relu_maxpool_plain`: the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU one."""
-    _, _, L, n_all = _validate(emb_pad, w_all, banks, R, eds, b_all)
+    """The per-batch-row engine's forward of every bank → ``(pooled [B, R,
+    F], idxs)`` as :func:`conv_relu_maxpool_plain`: on a CUDA tensor the
+    kernel of :func:`conv_bank_forward` (``csrc/disc_conv.cu``, one launch
+    for every bank, :func:`conv_fwd_plan`), counted on
+    ``conv_rows_forward.launches``; the plain version on a CPU one."""
+    _validate(emb_pad, w_all, banks, R, eds, b_all)
     device = emb_pad.device
     if device.type == "cpu":
         return conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R, eds)
     if device.type != "cuda":
         raise ValueError(f"disc_conv: unsupported device {device}")
-    lib = _rows_library()
-    b_sz, lp = emb_pad.shape[:2]
-    ldw = w_all.shape[1]
-    pooled = torch.empty(b_sz, R, n_all, device=device)
-    idxs, off = [], 0
-    with torch.cuda.device(device):
-        for n, f in banks:       # one launch per bank
-            idx = torch.empty(b_sz, R, n, dtype=torch.int32, device=device)
-            rc = lib.gic_conv_rows_fwd(
-                emb_pad.data_ptr(), w_all.data_ptr() + 4 * off * ldw, ldw,
-                b_all.data_ptr() + 4 * off, b_sz, lp, R, eds, f, L, n,
-                pooled.data_ptr() + 4 * off, n_all, idx.data_ptr(),
-                _stream(device))
-            build.raise_on_error(lib, rc, "disc conv rows forward")
-            idxs.append(idx)
-            off += n
+    out = _forward(emb_pad, w_all, b_all, banks, R, eds)
     with _count_lock:
         conv_rows_forward.launches += 1
-    return pooled, idxs
+    return out
 
 
 def conv_rows_backward_plain(emb_pad, w_all, banks, R: int, eds: int,
@@ -584,20 +571,21 @@ conv_bank_dxs.launches = 0
 conv_rows_forward.launches = 0
 conv_rows_backward.launches = 0
 
-# argmax rows of the forwards inside argmax_record(); the rows the plain
-# forwards inside argmax_replay() pool at, and what each such forward
-# reports (call order)
-_recorded: Optional[List] = None
-_replay: Optional[Tuple[List, List]] = None
+# what argmax_record() collects, in call order: per conv forward its argmax
+# rows and pooled values ("pool"), per replayable_relu its input ("relu");
+# inside argmax_replay(), a copy of such a record that the plain conv
+# forwards and replayable_relu consume, and what each reports
+_recorded: Optional[Dict[str, List]] = None
+_replay: Optional[Tuple[Dict[str, List], List]] = None
 
 
 @contextlib.contextmanager
 def argmax_record():
-    """Collect, in call order, the argmax rows of every
-    :func:`conv_relu_maxpool` forward run inside the block (every
-    engine)."""
+    """Collect, in call order, the argmax rows and pooled values of every
+    :func:`conv_relu_maxpool` forward run inside the block (every engine)
+    and the input of every :func:`replayable_relu`."""
     global _recorded
-    prev, _recorded = _recorded, []
+    prev, _recorded = _recorded, {"pool": [], "relu": []}
     try:
         yield _recorded
     finally:
@@ -605,20 +593,51 @@ def argmax_record():
 
 
 @contextlib.contextmanager
-def argmax_replay(recorded: List):
+def argmax_replay(recorded: Dict[str, List]):
     """Inside the block, the plain forwards pool at the ``recorded`` rows
     (from :func:`argmax_record`, in the same call order) rather than at
-    their own argmax.  Two routes that sum in another order can disagree
-    on a max over time where two rows are within rounding of each other;
-    the replay compares them past those ties.  Yields a list of
-    ``(gap, moved)`` per forward, as :func:`conv_relu_maxpool_plain`
-    reports them with ``at``."""
+    their own argmax, and route the pooled gradient where the recorded
+    pooled value is positive; :func:`replayable_relu` takes the recorded
+    ReLU decisions.  Two routes that sum in another order can disagree
+    on a max over time where two rows are within rounding of each other,
+    or on a ReLU whose input is within rounding of 0; the replay compares
+    them past those ties.  Yields a list of ``(gap, moved)`` per replayed
+    call: for a conv forward, the larger of the gap
+    :func:`conv_relu_maxpool_plain` reports with ``at`` and the largest
+    pooled value of either route where the two disagree on its sign,
+    and the rows moved plus those disagreements; for a ReLU, the largest
+    |input| of either route where they disagree, and how many do."""
     global _replay
-    prev, _replay = _replay, (list(recorded), [])
+    prev = _replay
+    _replay = ({k: list(v) for k, v in recorded.items()}, [])
     try:
         yield _replay[1]
     finally:
         _replay = prev
+
+
+def _largest(x, where) -> float:
+    """The largest entry of ``x`` where ``where`` holds, else 0."""
+    return float(x[where].max()) if bool(where.any()) else 0.0
+
+
+def replayable_relu(x):
+    """``torch.relu(x)``; inside :func:`argmax_record` its input is
+    recorded, inside :func:`argmax_replay` it is ``x`` where the recorded
+    input was positive and 0 elsewhere (the gradient follows the recorded
+    decision)."""
+    if _replay is not None:
+        rec, report = _replay
+        was = rec["relu"].pop(0).to(x.dtype)
+        want = was > 0
+        differ = want != (x > 0)
+        report.append((_largest(torch.maximum(was.abs(), x.detach().abs()),
+                                differ), int(differ.sum())))
+        return torch.where(want, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+    if _recorded is not None:
+        _recorded["relu"].append(x.detach())
+    return torch.relu(x)
 
 
 class _ConvReluMaxpool(torch.autograd.Function):
@@ -628,18 +647,28 @@ class _ConvReluMaxpool(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, emb_pad, w_all, b_all, banks, R, eds, engine):
+        positive = None
         if engine == "plain" and _replay is not None:
-            rows, report = _replay
+            rec, report = _replay
+            at, was = rec["pool"].pop(0)
             pooled, idxs, gap, moved = conv_relu_maxpool_plain(
-                emb_pad, w_all, b_all, banks, R, eds, at=rows.pop(0))
-            report.append((gap, moved))
+                emb_pad, w_all, b_all, banks, R, eds, at=at)
+            # the pooled gradient flows where the recorded route's ReLU let
+            # it through
+            was = was.to(pooled.dtype)
+            positive = was > 0
+            differ = positive != (pooled > 0)
+            report.append((max(gap, _largest(torch.maximum(was, pooled),
+                                             differ)),
+                           moved + int(differ.sum())))
         else:
             fwd = _FORWARDS[engine]
             pooled, idxs = fwd(emb_pad, w_all, b_all, banks, R, eds)
         if _recorded is not None:
-            _recorded.append(idxs)
+            _recorded["pool"].append((idxs, pooled.detach()))
         ctx.save_for_backward(emb_pad, w_all, pooled, *idxs)
         ctx.geometry = (banks, R, eds, engine)
+        ctx.positive = positive
         return pooled
 
     @staticmethod
@@ -653,7 +682,7 @@ class _ConvReluMaxpool(torch.autograd.Function):
             d_emb, dw_all, db = bwd(emb_pad, w_all, banks, R, eds, pooled,
                                     idxs, d_pooled.contiguous())
             return d_emb, dw_all, db, None, None, None, None
-        dpms, db = _masked(pooled, d_pooled, banks)
+        dpms, db = _masked(pooled, d_pooled, banks, ctx.positive)
         if engine == "mxu_dxs":
             dxss, dw_all = conv_bank_dxs(emb_pad, w_all, banks, R, eds, idxs,
                                          dpms)
@@ -664,13 +693,16 @@ class _ConvReluMaxpool(torch.autograd.Function):
         return d_emb, dw_all, db, None, None, None, None
 
 
-def _masked(pooled, d_pooled, banks):
+def _masked(pooled, d_pooled, banks, positive=None):
     """Per bank, the ReLU-masked pooled gradient ``[B, R, n]``, and the
     bias gradient, as the JAX package computes them around its backward
-    kernels (``disc_conv.py:678-682``)."""
+    kernels (``disc_conv.py:678-682``); ``positive`` (default ``pooled >
+    0``) is the mask."""
+    if positive is None:
+        positive = pooled > 0
     dpms, db, off = [], [], 0
     for n, _ in banks:
-        dpm = torch.where(pooled[..., off:off + n] > 0,
+        dpm = torch.where(positive[..., off:off + n],
                           d_pooled[..., off:off + n],
                           torch.zeros((), device=d_pooled.device))
         dpms.append(dpm.contiguous())

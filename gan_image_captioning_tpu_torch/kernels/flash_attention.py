@@ -9,9 +9,14 @@ with or without per-sequence key lengths — and its gradient, without a
 * On CUDA tensors :func:`flash_attention` is a ``torch.autograd.Function``
   whose forward launches the forward kernel (``csrc/flash_attention.cu``,
   built at first use; it also writes the logsumexp ``lse [B, T, H]``) and
-  whose backward launches the dQ and the dK/dV kernels.  ``delta = Σ dO∘O``
-  is one PyTorch reduction, as the JAX package leaves it to XLA.  A shape
-  the kernels do not take (:func:`supported`) raises.
+  whose backward launches the dQ and the dK/dV kernels.  The forward is
+  one launch of one of two kernels, which the C side picks from the shape
+  alone: the fused one, whole heads of q, k and v in shared memory
+  (T ≤ 64 and D ≤ 32: every call the system makes), or the tiled one;
+  ``flash_fwd.last_kernel`` says which it launched.  ``delta = Σ dO∘O`` is one PyTorch reduction, as the JAX package leaves
+  it to XLA.  A shape the kernels do not take (:func:`supported`), or a
+  q, k or v that is not 16-byte aligned (a view at an odd offset; PyTorch
+  allocates on 256 bytes), raises.
 * On CPU tensors it runs :func:`attention_plain`, the dense version that
   mirrors the JAX package's ``attention_reference`` (mask fill
   ``finfo.min``), with PyTorch's autograd.
@@ -59,7 +64,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_gic_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [f, vp]
+        lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [
+            f, vp, ctypes.POINTER(i)]
         lib.gic_flash_dq.argtypes = [vp] * 8 + [i] * 5 + [f, vp]
         lib.gic_flash_dkv.argtypes = [vp] * 9 + [i] * 5 + [f, vp]
         for fn in (lib.gic_flash_fwd, lib.gic_flash_dq, lib.gic_flash_dkv):
@@ -98,24 +104,32 @@ def _validate(q, k, v, lengths):
                          f"got {device}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, (b, t, h, d), device)
+        # the fused forward stages rows by 16-byte copies
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned")
     if lengths is not None:
         _check("lengths", lengths, (b,), device, torch.int32)
     return b, t, h, d
 
 
 def flash_fwd(q, k, v, causal: bool, lengths=None):
-    """The forward kernel → ``(out [B, T, H, D], lse [B, T, H])``."""
+    """The forward kernel → ``(out [B, T, H, D], lse [B, T, H])``.
+    ``flash_fwd.last_kernel`` names the kernel the C side launched:
+    ``"fused"`` or ``"tiled"``."""
     b, t, h, d = _validate(q, k, v, lengths)
     device = q.device
     out = torch.empty_like(q)
     lse = torch.empty((b, t, h), dtype=torch.float32, device=device)
     lib = _library()
+    fused = ctypes.c_int(0)
     with torch.cuda.device(device):
         rc = lib.gic_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                _ptr(lengths), out.data_ptr(), lse.data_ptr(),
                                b, t, h, d, int(causal), 1.0 / math.sqrt(d),
-                               _stream(device))
+                               _stream(device), ctypes.byref(fused))
     build.raise_on_error(lib, rc, "flash_attention forward")
+    flash_fwd.last_kernel = "fused" if fused.value else "tiled"
     _count(flash_fwd)
     return out, lse
 
@@ -204,5 +218,6 @@ def flash_attention(q, k, v, causal: bool, lengths=None):
 
 
 flash_fwd.launches = 0
+flash_fwd.last_kernel = None
 flash_dq.launches = 0
 flash_dkv.launches = 0

@@ -22,7 +22,7 @@ from torch import nn
 
 from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.kernels.disc_conv import (
-    ENGINES, pooled_features)
+    ENGINES, pooled_features, replayable_relu)
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
 DROPOUT = 0.2  # reference discriminator.py:30
@@ -112,10 +112,11 @@ def conv_pooled(params, emb, config: Config):
 
 def _highway(params, pred):
     """``sigmoid(h) * relu(h) + (1 - sigmoid(h)) * x`` with
-    ``h = highway(x)`` (reference ``discriminator.py:53-55``)."""
+    ``h = highway(x)`` (reference ``discriminator.py:53-55``); the ReLU
+    is replayable (``disc_conv.argmax_replay``) for route comparisons."""
     hw = pred @ params["highway.weight"].T + params["highway.bias"]
     gate = torch.sigmoid(hw)
-    return gate * torch.relu(hw) + (1.0 - gate) * pred
+    return gate * replayable_relu(hw) + (1.0 - gate) * pred
 
 
 def dropout_keep(shape, generator=None, device="cpu",

@@ -180,6 +180,23 @@ def test_argmax_replay_reports_no_gap_on_the_same_inputs():
     assert torch.equal(a, b) and report == [(0.0, 0)]
 
 
+def test_relu_replay_takes_the_recorded_decisions():
+    """Inside the replay the ReLU lets the gradient through where the
+    recorded input was positive, and reports the largest |input| of either
+    side where the two disagree, and how many do."""
+    x = torch.tensor([-2.0, -1e-9, 3e-9, 3.0])
+    with disc_conv.argmax_record() as rec:
+        a = disc_conv.replayable_relu(x)
+    y = torch.tensor([-2.0, 2e-9, -1e-9, 3.0], requires_grad=True)
+    with disc_conv.argmax_replay(rec) as report:
+        b = disc_conv.replayable_relu(y)
+    b.sum().backward()
+    assert torch.equal(a, torch.relu(x))
+    assert y.grad.tolist() == [0.0, 0.0, 1.0, 1.0]
+    assert b.detach().tolist() == [0.0, 0.0, y[2].item(), 3.0]
+    assert report == [(pytest.approx(3e-9), 2)]
+
+
 def test_conv_wrappers_count_no_launch_on_cpu_and_reject_bad_inputs():
     config, params, emb, _ = _setup("eds1")
     convs = [(torch.tensor(np.asarray(c["w"])), torch.tensor(np.asarray(c["b"])))

@@ -1,6 +1,7 @@
 """The kernels of the ``--disc-engine`` routes and the teacher-forced
 pass's reverse BPTT against their plain versions on the card: the
-per-batch-row conv forward (``csrc/disc_conv_rows.cu``), the conv
+per-batch-row conv forward (the ``mxu`` forward's kernel,
+``csrc/disc_conv.cu:gic_conv_fwd``, behind its own counter), the conv
 backward of both engines (``csrc/disc_conv.cu:gic_conv_bwd``:
 ``conv_bank_backward``, ``conv_bank_backward_raw``, ``conv_rows_backward``;
 two calls bit-equal, an all-zero gradient, more banks than one launch
@@ -90,18 +91,26 @@ def _clear(emb_pad, w_all, b_all, banks, R, eds):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_rows_forward_matches_plain(device, shape):
-    args = _inputs(shape, device)
-    before = disc_conv.conv_rows_forward.launches
+    emb_pad, w_all, b_all, banks, R, eds = args = _inputs(shape, device)
+    before = [disc_conv.conv_rows_forward.launches,
+              disc_conv.conv_bank_forward.launches]
     pooled, idxs = disc_conv.conv_rows_forward(*args)
     torch.cuda.synchronize()
-    assert disc_conv.conv_rows_forward.launches == before + 1
+    # one count, on the row engine's counter only, and one launch a pass
+    assert [disc_conv.conv_rows_forward.launches,
+            disc_conv.conv_bank_forward.launches] == [before[0] + 1,
+                                                      before[1]]
+    L = emb_pad.shape[1] - max(f for _, f in banks) + 1
+    assert len(disc_conv.conv_fwd_plan(emb_pad.shape[0] * R, L, eds,
+                                       banks)["launches"]) == 1
     want, want_idx = disc_conv.conv_relu_maxpool_plain(*args)
     mxu, mxu_idx = disc_conv.conv_bank_forward(*args)
     torch.testing.assert_close(pooled, want, atol=POOL_ATOL, rtol=0)
-    torch.testing.assert_close(pooled, mxu, atol=POOL_ATOL, rtol=0)
+    # the mxu forward's kernel: the same bits
+    assert torch.equal(pooled, mxu)
     for i, iw, im, clear in zip(idxs, want_idx, mxu_idx, _clear(*args)):
         assert int(((i != iw) & clear).sum()) == 0
-        assert int(((i != im) & clear).sum()) == 0
+        assert torch.equal(i, im)
 
 
 def _grads(shape, device):

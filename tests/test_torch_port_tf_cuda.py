@@ -31,6 +31,8 @@ OUT_ATOL, GRAD_RTOL, SOFT_ATOL, TIE_GAP = 2e-6, 1e-5, 1e-6, 1e-5
 # largest head dim
 SHAPES = [(4, 37, 8, 32), (4, 36, 8, 16), (2, 35, 2, 8), (2, 200, 2, 24),
           (1, 70, 1, 256)]
+# config4's discriminator over the rollouts and over a batch, at full B
+CONFIG4_SHAPES = [(256, 36, 8, 16), (64, 36, 8, 16)]
 MASKS = [(True, True), (True, False), (False, False), (False, True)]
 
 
@@ -48,6 +50,22 @@ def _qkv(shape, seed, device):
             .to(device).requires_grad_(True) for _ in range(3)]
 
 
+def _forward_kernels(fn):
+    """Names of the forward kernels (profiler events whose name holds
+    ``flash_fwd``) that one call of ``fn`` launches; profiled again once
+    where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if "flash_fwd" in e.name]
+        if names:
+            return names
+    return names
+
+
 def _lengths(b, t, causal, seed, device):
     rng = np.random.default_rng(seed)
     # causal with lengths: the MLE pass's lengths + 1 (never 0)
@@ -55,7 +73,7 @@ def _lengths(b, t, causal, seed, device):
         device)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + CONFIG4_SHAPES)
 @pytest.mark.parametrize("causal,with_lengths", MASKS)
 def test_flash_matches_plain(device, shape, causal, with_lengths):
     q, k, v = _qkv(shape, sum(shape), device)
@@ -75,6 +93,48 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
     for name, a, b in zip("qkv", grads, ref_grads):
         err = float((a - b).abs().max() / b.abs().max())
         assert err <= GRAD_RTOL, f"d{name}: {err}"
+    # one launch of the fused forward where T <= 64 and D <= 32, else of
+    # the tiled one (as the C side reports it, and by the profiler's name
+    # where it saw the launch); the forward repeats bit for bit
+    fused = shape[1] <= 64 and shape[3] <= 32
+    assert fa.flash_fwd.last_kernel == ("fused" if fused else "tiled")
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    names = _forward_kernels(lambda: fa.flash_fwd(qd, kd, vd, causal, lens))
+    assert not names or (len(names) == 1 and (
+        ("flash_fwd_fused_kernel" in names[0]) == fused)), names
+    again = fa.flash_fwd(qd, kd, vd, causal, lens)
+    assert torch.equal(again[0], out)
+    assert torch.equal(again[1], fa.flash_fwd(qd, kd, vd, causal, lens)[1])
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[3]])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_row_of_length_zero(device, shape, causal):
+    """A batch row with no valid key: out 0 and lse about -1e30 (the TPU
+    kernel's finite fill); the other rows as the plain version."""
+    q, k, v = (x.detach() for x in _qkv(shape, 9, device))
+    lens = _lengths(shape[0], shape[1], causal, 4, device)
+    lens[1] = 0
+    out, lse = fa.flash_fwd(q, k, v, causal, lens)
+    torch.cuda.synchronize()
+    assert float(out[1].abs().max()) == 0.0
+    assert float(lse[1].max()) <= -1e29
+    keep = torch.arange(shape[0], device=device) != 1
+    ref = fa.attention_plain(q, k, v, causal, lens)
+    torch.testing.assert_close(out[keep], ref[keep], atol=OUT_ATOL, rtol=0)
+    assert bool(torch.isfinite(lse[keep]).all())
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_refuses_unaligned(device, which):
+    """A q, k or v view at an offset that is not a multiple of 16 bytes
+    raises (the fused forward copies 16 bytes at a time)."""
+    shape = (4, 36, 8, 16)
+    qkv = [x.detach() for x in _qkv(shape, 2, device)]
+    flat = torch.empty(qkv[which].numel() + 1, device=device)
+    qkv[which] = flat[1:].view(shape).copy_(qkv[which])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(*qkv, False)
 
 
 def test_flash_rows_past_length_get_no_key_gradient(device):
