@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only train_kernels,train_timing
     python3 chip_smoke.py --only tf_kernels,tf_train,tf_service,tf_loop
-    python3 chip_smoke.py --only disc_engines,bptt_reverse
+    python3 chip_smoke.py --only disc_engines,disc_profile,bptt_reverse
     python3 chip_smoke.py --only decode_modes,decode_impls
     python3 chip_smoke.py --only persistent,kernel,carry_kernel,qserve_kernel,decode_modes,bptt_reverse
     python3 chip_smoke.py --only train_kernels,wrappers
@@ -142,15 +142,21 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     [64, 37, 8, 32] (causal, lengths + 1) and log-prob pass (causal), the
     discriminator's [64, 36, 8, 16] and the rollouts' [256, 36, 8, 16]
     (full): outputs within 2e-6, gradients within 1e-5 of their largest;
-    the Gumbel sampler at [64, 11008] on fed uniforms (soft within 1e-6,
-    ids equal outside near-ties), its Philox draw (reproducible, the
-    sample_resid decode's stream, a histogram of 2^18 ids within 0.01 of
-    softmax(logits)); the forward's kernel per case as the C side reports
+    the Gumbel sampler at [64, 11008] on fed uniforms (its plan: cluster
+    size and CTAs; soft within 1e-6, ids equal outside near-ties, two calls
+    bit-equal), its Philox draw (reproducible, the sample_resid decode's
+    stream, the same bits as the kernel fed the uniforms it drew, the ids'
+    sha256 to compare checkouts, a histogram of 2^18 ids within 0.01 of
+    softmax(logits)), its times at [64, 11008] and at [64, 11007] (scalar
+    accesses, soft within 1e-6); the forward's kernel per case as the C side reports
     its launch (the fused kernel at the four config4 cases, the tiled one
     at [2, 200, 2, 24]), two forward calls bit-equal, and a batch
     row of key length 0 (out 0, lse below -1e29); times beside the plain
     versions', the per-case bounds and ``scaled_dot_product_attention``
     (forward, and forward + backward).
+18a. ``gumbel_ids`` — sha256 of the sampler's ids and drawn uniforms at
+    fixed logits and (seed, step), [64, 11008], [64, 11007] and [3, 50257],
+    by the public signature only (to compare checkouts).
 19. ``tf_train`` — config4 at full width (V = 11008, T = 36, B = 64,
     rollouts 4 every 4, greedy baseline): 2 MLE and 2 REINFORCE steps
     with the launch counts (each equal to the design's per step); one MLE
@@ -175,16 +181,23 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     ``mxu`` backward's dX is held; ``dW`` within 1e-4 of its max; two
     calls bit-equal; one launch and one reduction a pass) and the
     DXS backward (DXS, and the overlap-added ``d_emb`` against the ``mxu``
-    backward's, within 1e-5 likewise; ``dW`` within 1e-4 of its max)
-    against their plain versions;
+    backward's, within 1e-5 likewise; ``dW`` within 1e-4 of its max;
+    ``db`` within 1e-5 likewise) from the raw gradient (the autograd
+    route: mask and db in the launch) against their plain versions, two
+    calls and the masked route bit-equal, one launch for the banks and one
+    reduction a pass by its plan and one count;
     one adversarial step under each of ``auto``, ``xla``, ``pallas``,
     ``hybrid``, ``mxu`` and ``mxu_dxs`` with the launch counts of its
     engine, and its losses (within 1e-4) and gradients (``routes_agree``)
     against the plain route on the same state and fed noise (argmax rows
     and ReLU decisions replayed, ties within 1e-6); ms per step;
-    ``device_ms`` of the new kernels and, re-timed the same way, of the
-    ``mxu`` conv kernels and the BPTT chain, beside the plain versions and
-    the bounds.
+    ``device_ms`` of the new kernels (the DXS backward from the raw
+    gradient) and, re-timed the same way, of the ``mxu``
+    conv kernels and the BPTT chain, beside the plain versions and the
+    bounds.
+22a. ``disc_profile`` — device time and launches by kernel
+    (torch.profiler) of the adversarial step under ``mxu`` and
+    ``mxu_dxs``, over one discriminator update cycle (2 steps).
 23. ``bptt_reverse`` — the single-layer reverse BPTT kernel at
     [36, 64, 512] from a non-zero (h0, c0) against its plain version
     (``d_pre`` within 1e-4 of its max, ``dh0`` and ``dc0`` within 1e-4);
@@ -215,7 +228,8 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     both eval steps through the entry points, each with the launch counts
     of the design; ms per step.
 26. ``wrappers`` — at config3 width, what one call of the conv-bank
-    forward, of both conv backwards and of the fused-embed backward costs
+    forward, of both conv backwards, of the DXS backward from the raw
+    gradient and of the fused-embed backward costs
     the host (argument checks, launch plans, allocations, launches:
     ``host_us``, timed while the device waits behind a spin) and its
     device time split by kernel (torch.profiler), and the sha256 of its
@@ -2579,8 +2593,10 @@ def device_ms(fn, calls=20):
     spin kernel (``torch.cuda._sleep``), so that they run back to back on
     the device whatever the host's pace, timed with CUDA events.  CUDA
     events around calls issued one after another would measure the host's
-    pace for calls of a few tens of microseconds.  Fails when enqueueing
-    outlasted the spin (the device would have waited for the host): so
+    pace for calls of a few tens of microseconds.  A measurement where
+    enqueueing outlasted the spin (the device would have waited for the
+    host) is not taken: it is made once more behind a spin long enough for
+    the pace just seen, and fails if enqueueing outlasts that one too; so
     does a function of more launches than the card's launch queue holds
     (about a thousand), which blocks the host until the spin ends."""
     fn()
@@ -2588,19 +2604,23 @@ def device_ms(fn, calls=20):
     spin0 = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    spin0.record()
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    torch.cuda.synchronize()
-    spin_ms = spin0.elapsed_time(start)
-    check(host_ms < spin_ms, f"enqueueing {calls} calls took {host_ms} ms, "
-          f"longer than the {spin_ms} ms spin")
-    return start.elapsed_time(end) / calls
+    cycles = SPIN_CYCLES
+    for attempt in range(2):
+        spin0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        spin_ms = spin0.elapsed_time(start)
+        if host_ms < spin_ms:
+            return start.elapsed_time(end) / calls
+        cycles = int(cycles * 2 * host_ms / spin_ms) + 1
+    check(False, f"enqueueing {calls} calls took {host_ms} ms, longer than "
+          f"the {spin_ms} ms spin")
 
 
 def phase_tf_kernels(device):
@@ -2765,16 +2785,21 @@ def phase_tf_kernels(device):
           and zero["max_abs_out_diff"] <= FLASH_OUT_ATOL,
           f"flash length 0 {zero}")
 
-    # --- the Gumbel sampler at [64, V]
+    # --- the Gumbel sampler at [64, V]: its plan, fed uniforms against the
+    # plain version, two calls bit-equal
     logits = seeded((B_TRAIN, V), 70, device, 3.0)
     u = torch.rand((B_TRAIN, V), generator=torch.Generator(
         device=device).manual_seed(71), device=device)
+    plan = gs.gumbel_plan(B_TRAIN, V)
+    emit({"phase": "tf_kernels", "kernel": "gumbel_sample", "shape":
+          [B_TRAIN, V], "plan": plan})
     g_rows = []
     for temp in (1.0, TEMP):
         gs.gumbel_sample.launches = 0
         soft, ids = gs.gumbel_sample(logits, temp, uniforms=u)
         torch.cuda.synchronize()
         launches = gs.gumbel_sample.launches
+        soft_r, ids_r = gs.gumbel_sample(logits, temp, uniforms=u)
         soft_p, ids_p = gs.gumbel_sample_plain(logits, temp, u)
         x = (logits - torch.log(-torch.log(u + gs.EPS) + gs.EPS)) * temp
         top2 = x.topk(2, dim=-1).values
@@ -2786,20 +2811,27 @@ def phase_tf_kernels(device):
                "ids_differing": int(differ.sum()),
                "ids_differing_outside_ties": int(
                    (differ & (gap > ID_ATOL * temp)).sum()),
-               "distinct_ids": int(ids.unique().numel())}
+               "distinct_ids": int(ids.unique().numel()),
+               "bit_equal_repeat": bool(torch.equal(soft, soft_r)
+                                        and torch.equal(ids, ids_r))}
         emit({"phase": "tf_kernels", "kernel": "gumbel_sample", **row})
         check(launches == 1, f"gumbel launches {launches}")
         check(row["max_abs_soft_diff"] <= GUMBEL_SOFT_ATOL
-              and row["ids_differing_outside_ties"] == 0, f"gumbel {row}")
+              and row["ids_differing_outside_ties"] == 0
+              and row["bit_equal_repeat"], f"gumbel {row}")
         g_rows.append(row)
 
     # Philox: reproducible per (seed, step), the sample_resid decode's
-    # stream, and categorical in distribution
+    # stream, the same x (so the same ids and soft) as the kernel fed the
+    # uniforms it drew, and categorical in distribution; the ids' digest
+    # compares two checkouts (x's rounding is pinned, so a redesign that
+    # keeps it gives the same ids)
     u_out = torch.empty_like(u)
-    ids_a = gs.gumbel_sample(logits, 1.0, seed=99, step=3,
-                             uniforms_out=u_out)[1]
+    soft_a, ids_a = gs.gumbel_sample(logits, 1.0, seed=99, step=3,
+                                     uniforms_out=u_out)
     ids_b = gs.gumbel_sample(logits, 1.0, seed=99, step=3)[1]
     ids_c = gs.gumbel_sample(logits, 1.0, seed=99, step=4)[1]
+    soft_f, ids_f = gs.gumbel_sample(logits, 1.0, uniforms=u_out)
     small = {"w_ih": seeded((4 * 8, 8), 72, device),
              "w_hh": seeded((4 * 8, 8), 73, device),
              "b_ih": torch.zeros(32, device=device),
@@ -2821,36 +2853,78 @@ def phase_tf_kernels(device):
               "other_step_other_ids": not bool(torch.equal(ids_a, ids_c)),
               "uniforms_equal_sample_resid_step_3": bool(torch.equal(
                   u_out, u_resid[3])),
+              "bit_equal_fed_its_uniforms": bool(
+                  torch.equal(ids_a, ids_f) and torch.equal(soft_a, soft_f)),
+              "ids_sha256": sha256(ids_a),
               "uniform_mean": float(u_out.double().mean()),
               "hist_max_abs_diff": float((hist - want).abs().max()),
-              "hist_rows": n_hist, "hist_V": v_hist}
+              "hist_rows": n_hist, "hist_V": v_hist,
+              "hist_plan": gs.gumbel_plan(n_hist, v_hist)}
     emit({"phase": "tf_kernels", "kernel": "gumbel_philox", **philox})
     check(philox["same_seed_same_ids"] and philox["other_step_other_ids"]
-          and philox["uniforms_equal_sample_resid_step_3"], f"philox {philox}")
+          and philox["uniforms_equal_sample_resid_step_3"]
+          and philox["bit_equal_fed_its_uniforms"], f"philox {philox}")
     check(abs(philox["uniform_mean"] - 0.5) <= 2e-3
           and philox["hist_max_abs_diff"] <= HIST_ATOL, f"philox {philox}")
 
+    # times at [64, V] and at V - 1 (not a multiple of 4: scalar accesses)
+    times["gumbel_sample"] = gumbel_times(gs, logits, u, V)
+    odd = seeded((B_TRAIN, V - 1), 74, device, 3.0)
+    u_odd = torch.rand((B_TRAIN, V - 1), generator=torch.Generator(
+        device=device).manual_seed(75), device=device)
+    soft_o, ids_o = gs.gumbel_sample(odd, 1.0, uniforms=u_odd)
+    soft_op, _ = gs.gumbel_sample_plain(odd, 1.0, u_odd)
+    err_odd = float((soft_o - soft_op).abs().max())
+    check(err_odd <= GUMBEL_SOFT_ATOL, f"gumbel V - 1: {err_odd}")
+    times["gumbel_sample_odd_v"] = {
+        **gumbel_times(gs, odd, u_odd, V - 1), "max_abs_soft_diff": err_odd}
+    for key in ("gumbel_sample", "gumbel_sample_odd_v"):
+        emit({"phase": "tf_kernels", "timing": key, **times[key]})
+    return {"flash": rows, "length_zero": zero, "gumbel": g_rows,
+            "philox": philox, "times": times}
+
+
+def gumbel_times(gs, logits, u, v):
+    """device_ms of the sampler on its Philox draw and on fed uniforms, in
+    turns with the plain version, and its plan and bound at [B, v]."""
     kern = lambda: gs.gumbel_sample(logits, 1.0, seed=7)        # noqa: E731
     fed = lambda: gs.gumbel_sample(logits, 1.0, uniforms=u)     # noqa: E731
     plain = lambda: gs.gumbel_sample_plain(logits, 1.0, u)      # noqa: E731
     p_a, k_a, f_a = device_ms(plain), device_ms(kern), device_ms(fed)
     f_b, k_b, p_b = device_ms(fed), device_ms(kern), device_ms(plain)
     ev_ms = {"kernel": cuda_ms(kern, 50), "plain": cuda_ms(plain, 50)}
-    n = B_TRAIN * V
+    b = logits.shape[0]
+    n = b * v
     # logits read, soft written, ids; two logs, an exp, add, multiply,
     # subtract and divide per element (Philox's integer rounds not counted)
-    nbytes, flops = 8 * n + 4 * B_TRAIN, 7 * n
+    nbytes, flops = 8 * n + 4 * b, 7 * n
     b_ms, b_by = bound(nbytes, flops)
-    times["gumbel_sample"] = {"kernel_ms": [k_a, k_b],
-                              "kernel_fed_uniforms_ms": [f_a, f_b],
-                              "plain_ms": [p_a, p_b],
-                              "event_ms_per_call": ev_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "bytes": nbytes, "flop": flops,
-                              "shape": [B_TRAIN, V]}
-    emit({"phase": "tf_kernels", "timing": "gumbel_sample",
-          **times["gumbel_sample"]})
-    return {"flash": rows, "length_zero": zero, "gumbel": g_rows,
-            "philox": philox, "times": times}
+    return {"kernel_ms": [k_a, k_b], "kernel_fed_uniforms_ms": [f_a, f_b],
+            "plain_ms": [p_a, p_b], "event_ms_per_call": ev_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flop": flops, "shape": [b, v], "plan": gs.gumbel_plan(b, v)}
+
+
+def phase_gumbel_ids(device):
+    """sha256 of the sampler's ids, and of the uniforms it drew, for fixed
+    logits and (seed, step) at [64, V], [64, V - 1] and [3, 50257], at
+    temperatures 1 and TEMP, through ``gumbel_sample``'s public signature
+    only: two checkouts whose digests agree draw the same uniforms and pick
+    the same ids (a copy of this script run from an older checkout's root
+    digests that checkout's kernel)."""
+    from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
+
+    out = {}
+    for b, v in ((B_TRAIN, V), (B_TRAIN, V - 1), (3, 50257)):
+        logits = seeded((b, v), 76, device, 3.0)
+        u_out = torch.empty_like(logits)
+        ids = [gs.gumbel_sample(logits, temp, seed=99, step=step,
+                                uniforms_out=u_out)[1]
+               for temp in (1.0, TEMP) for step in (0, 3)]
+        out[f"{b}x{v}"] = {"ids_sha256": sha256(ids),
+                           "uniforms_sha256": sha256(u_out)}
+    emit({"phase": "gumbel_ids", **out})
+    return out
 
 
 def tf_config(**overrides):
@@ -3004,7 +3078,7 @@ def phase_tf_train(device):
         emit({"phase": "tf_train", "timing": kind, "B": B_TRAIN,
               **times[kind]})
     names = ("flash_fwd_fused_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-             "flash_dkv_kernel", "gumbel_sample_kernel")
+             "flash_dkv_kernel", "gumbel_cluster_kernel", "gumbel_rows_kernel")
     prof = {"mle": profile_calls(lambda: mle(state, batch), 3, names),
             "rl": profile_calls(lambda: adv(state, batch, 1.0), 2, names)}
     for kind, p in prof.items():
@@ -3223,11 +3297,12 @@ def rows_bwd_work(B):
 
 
 def dxs_work(B):
-    """The DXS backward: emb, w, idx, dpm in; DXS [lv, Q, f] and dW out."""
+    """The DXS backward: emb, w, idx, the raw pooled gradient and pooled
+    in; DXS [lv, Q, f], dW and db out."""
     q, n_all = B * DISC_R, sum(n for n, _ in BANKS)
     emb, w = 4 * B * (T + 4) * DISC_E, 4 * n_all * max(f for _, f in BANKS)
     dxs = sum(4 * (T - f + 1) * q * f for _, f in BANKS)
-    return (emb + 2 * w + 2 * 4 * q * n_all + dxs,
+    return (emb + 2 * w + 3 * 4 * q * n_all + dxs + 4 * n_all,
             sum(4 * q * n * f for n, f in BANKS))
 
 
@@ -3330,23 +3405,47 @@ def phase_disc_engines(device):
           f"rows backward {row}")
     out["rows"]["disc_conv_rows_bwd"] = row
 
+    # the DXS backward from the raw gradient (the autograd route: mask and
+    # db in the launch) and, through the same kernels, from the masked one
     dpms, _ = disc_conv._masked(pooled_p, d_pooled, banks)
     dxs_args = (emb_pad, w_all, banks, DISC_R, 1, idx_p, dpms)
-    dxss, dw = disc_conv.conv_bank_dxs(*dxs_args)
+    raw_args = (emb_pad, w_all, banks, DISC_R, 1, pooled_p, idx_p, d_pooled)
+    before = disc_conv.conv_bank_dxs.launches
+    dxss, dw, db = disc_conv.conv_bank_dxs_raw(*raw_args)
+    counted = disc_conv.conv_bank_dxs.launches - before
+    again = disc_conv.conv_bank_dxs_raw(*raw_args)
+    m_dxss, m_dw = disc_conv.conv_bank_dxs(*dxs_args)
     torch.cuda.synchronize()
-    w_dxss, w_dw = disc_conv.conv_dxs_plain(*dxs_args)
+    w_dxss, w_dw, w_db = disc_conv.conv_dxs_raw_plain(*raw_args)
     d_emb = disc_conv.overlap_add(dxss, banks, emb_pad.shape, DISC_R, 1)
     dx_emb, _ = disc_conv.conv_bank_backward(*dxs_args)
+    plan = disc_conv.conv_dxs_plan(B * DISC_R, T, 1, banks)
     row = {"max_abs_dxs_diff": max(float((a - b).abs().max())
                                    for a, b in zip(dxss, w_dxss)),
            "max_abs_dxs": max(float(b.abs().max()) for b in w_dxss),
            "dw_rel": float((dw - w_dw).abs().max() / w_dw.abs().max()),
+           "max_abs_db_diff": float((db - w_db).abs().max()),
+           "max_abs_db": float(w_db.abs().max()),
            "max_abs_dx_diff_vs_mxu": float((d_emb - dx_emb).abs().max()),
            "max_abs_dx": float(dx_emb.abs().max()),
+           "bit_equal_repeat": all(torch.equal(a, b) for a, b in zip(
+               [*dxss, dw, db], [*again[0], *again[1:]])),
+           "bit_equal_masked_route": all(torch.equal(a, b) for a, b in zip(
+               [*dxss, dw], [*m_dxss, m_dw])),
+           "plan": [{k: v for k, v in launch.items() if k != "ints"}
+                    for launch in plan["launches"]],
+           "plan_kernel_launches": plan["kernel_launches"],
+           "counted": counted,
            "dxs_mb": sum(d.numel() for d in dxss) * 4 / 1e6}
     emit({"phase": "disc_engines", "kernel": "disc_conv_bwd_dxs", **row})
+    check(len(row["plan"]) == 1 and row["plan_kernel_launches"] == 2
+          and counted == 1 and row["bit_equal_repeat"]
+          and row["bit_equal_masked_route"],
+          f"DXS: one launch for the banks and one reduction a pass, two "
+          f"calls and both routes bit-equal, expected {row}")
     check(row["max_abs_dxs_diff"] <= DXS_ATOL * max(1.0, row["max_abs_dxs"])
           and row["dw_rel"] <= DW_RTOL
+          and row["max_abs_db_diff"] <= DB_ATOL * max(1.0, row["max_abs_db"])
           and row["max_abs_dx_diff_vs_mxu"]
           <= DX_ATOL * max(1.0, row["max_abs_dx"]), f"DXS {row}")
     out["rows"]["disc_conv_bwd_dxs"] = row
@@ -3425,8 +3524,8 @@ def phase_disc_engines(device):
             lambda: disc_conv.conv_rows_backward_plain(*bwd_args),
             rows_bwd_work(B), 20, 4),
         "disc_conv_bwd_dxs": (
-            lambda: disc_conv.conv_bank_dxs(*dxs_args),
-            lambda: disc_conv.conv_dxs_plain(*dxs_args),
+            lambda: disc_conv.conv_bank_dxs_raw(*raw_args),
+            lambda: disc_conv.conv_dxs_raw_plain(*raw_args),
             dxs_work(B), 20, 4),
         "disc_conv_fwd": (
             lambda: disc_conv.conv_bank_forward(*args),
@@ -3448,6 +3547,39 @@ def phase_disc_engines(device):
             plain_events=name == "lstm_bptt_chain")
         emit({"phase": "disc_engines", "timing": name, "B": B,
               **out["times"][name]})
+    return out
+
+
+# conv_bwd_dxs_kernel: the DXS kernel's name before its redesign
+DXS_PROFILE_KEYS = KERNEL_NAMES + ("conv_dxs_kernel", "conv_bwd_dxs_kernel")
+
+
+def phase_disc_profile(device):
+    """Device time and launches by kernel (torch.profiler) of the
+    adversarial step under ``mxu`` and ``mxu_dxs``, over one cycle of the
+    discriminator's update cadence: what the DXS route adds.  It uses only
+    what every tree since the DXS route's port has (``make_adv_step``,
+    ``Config.replace``), so this function can profile an older checkout."""
+    from gan_image_captioning_tpu_torch.train.steps import make_adv_step
+
+    config, state, batch = train_setup(device)
+    out = {}
+    for engine in ("mxu", "mxu_dxs"):
+        step = make_adv_step(config.replace(disc_engine=engine))
+        prof = profile_calls(lambda: step(state, batch, TEMP), DISC_EVERY,
+                             names=DXS_PROFILE_KEYS)
+        us = prof.get("device_us_per_call", {})
+        count = prof.get("launches_per_call", {})
+        conv = {k: {"us": us[k], "launches": count[k]} for k in us
+                if k in DXS_PROFILE_KEYS and "conv" in k}
+        out[engine] = {
+            "device_ms_per_step_total": sum(us.values()) / 1e3,
+            "launches_per_step_total": sum(count.values()),
+            "conv_kernels": conv,
+            "device_busy_share": prof.get("device_busy_share"),
+            "wall_ms_per_step": prof.get("wall_ms_per_call")}
+        emit({"phase": "disc_profile", "engine": engine, "B": B_TRAIN,
+              "steps": DISC_EVERY, **out[engine]})
     return out
 
 
@@ -4014,6 +4146,10 @@ def phase_wrappers(device):
              lambda: disc_conv.conv_rows_backward(
                  emb_pad, w_all, banks, DISC_R, 1, pooled, idxs, d_pooled),
              100),
+            ("disc_conv_bwd_dxs",
+             lambda: disc_conv.conv_bank_dxs_raw(
+                 emb_pad, w_all, banks, DISC_R, 1, pooled, idxs, d_pooled),
+             100),
             ("decode_sample_embed_bwd",
              lambda: ds.decode_sample_embed_bwd(*bargs), 20)):
         emit({"phase": "wrappers", "kernel": name, "calls": calls,
@@ -4093,6 +4229,8 @@ def main(argv=None):
         phase_loop(device, workdir)
     if run("tf_kernels"):
         tfk = phase_tf_kernels(device)
+    if run("gumbel_ids"):
+        phase_gumbel_ids(device)
     if run("tf_train"):
         tf_train = phase_tf_train(device)
     if run("tf_service"):
@@ -4101,6 +4239,8 @@ def main(argv=None):
         phase_tf_loop(device, workdir)
     if run("disc_engines"):
         engines = phase_disc_engines(device)
+    if run("disc_profile"):
+        phase_disc_profile(device)
     if run("bptt_reverse"):
         reverse = phase_bptt_reverse(device)
     if run("decode_modes"):

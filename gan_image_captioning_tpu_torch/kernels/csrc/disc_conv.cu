@@ -62,30 +62,27 @@
 //     reduction of the per-block dW partials; the comment above its code
 //     says what bounds it.
 //
-// conv_bwd_dxs_kernel replaces the same file's `_mxu_bwd_kernel`, the DXS
-// variant of the MXU backward (the JAX package's GIC_MXU_DX=0).  It writes
-// per-block dW partials [blocks, f*eds, n], summed outside, and, instead of
-// d_emb, the per-step tap gradients
-//   DXS[t, q, k] = sum_n [idx[q, n] == t] * dpm[q, n] * w[n, k]
+// conv_dxs_kernel replaces the same file's `_mxu_bwd_kernel`, the DXS
+// variant of the MXU backward (the JAX package's GIC_MXU_DX=0): instead of
+// d_emb it writes, per bank, the per-step tap gradients
+//   DXS[t, q, k] = sum_n [idx[q, n] == t] * dp[q, n] * w[n, k]
 // [lv, Q, f*eds], which the caller overlap-adds into d_emb with f shifted
-// adds, as `_mxu_vjp_bwd` does.  DXS is f times the input's bytes (about
-// 6.5 MB over the three banks at the training width), so it is bound by
-// bytes.  Design: a block owns BW_QB columns, their inputs, taps, idx and
-// dpm in shared memory (load_bwd_tiles); one thread per (column, tap)
-// walks the filters once and adds each into the row idx of a [BW_QB, lv,
-// taps] accumulator in shared memory (it owns its slots: no atomics); the
-// block then writes its DXS slice, zeros included, with neighbouring
-// threads on neighbouring taps.
+// adds, as `_mxu_vjp_bwd` does, and dW and db through the same
+// fixed-order reduction as the backward above.  It takes the raw d_pooled
+// and applies the ReLU mask in its launch (the JAX package masks dp and
+// sums db around its kernel); the comment above its code says what bounds
+// it and how it is laid out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 namespace {
 
 constexpr int FW_NF = 4, FW_FG = 16, FW_NB = FW_NF * FW_FG;
 constexpr int FW_NT = 256, FW_QB = FW_NT / FW_FG;  // 16 columns
 constexpr int FW_MAXT = 8, FW_MAX_BANKS = 8;
-constexpr int BW_QB = 16, BW_NT = 256;  // the DXS backward
 
 __host__ __device__ inline int odd(int v) { return v | 1; }
 
@@ -221,102 +218,6 @@ __global__ void __launch_bounds__(FW_NT) conv_fwd_kernel(
   }
 }
 
-// The DXS block's shared tiles, for columns [q0, q0 + BW_QB): the
-// columns' input rows xs [BW_QB][xld], the bank's taps ws [taps][n], the
-// masked pooled gradient ds and argmax rows is [BW_QB][nld].
-struct BwdTiles {
-  float* xs;
-  float* ws;
-  float* ds;
-  int* is;
-  int rows, xld, taps, n, nld, eds;
-};
-
-__device__ __forceinline__ BwdTiles load_bwd_tiles(
-    float* smem, const float* __restrict__ emb, const float* __restrict__ w,
-    int ldw, const int32_t* __restrict__ idx, const float* __restrict__ dpm,
-    int Q, int Lp, int R, int eds, int f, int L, int n, int q0) {
-  BwdTiles s;
-  s.rows = L * eds, s.xld = odd(s.rows), s.taps = f * eds, s.n = n;
-  s.nld = odd(n), s.eds = eds;
-  s.xs = smem;
-  s.ws = s.xs + BW_QB * s.xld;
-  s.ds = s.ws + s.taps * n;
-  s.is = reinterpret_cast<int*>(s.ds + BW_QB * s.nld);
-  const int tid = threadIdx.x, E = R * eds;
-  for (int e = tid; e < BW_QB * s.rows; e += BW_NT) {
-    const int qi = e % BW_QB, p = e / BW_QB, q = q0 + qi;
-    float v = 0.f;
-    if (q < Q) {
-      const int b = q / R, r = q % R, t = p / eds, k = p % eds;
-      v = emb[((size_t)b * Lp + t) * E + r * eds + k];
-    }
-    s.xs[qi * s.xld + p] = v;
-  }
-  for (int e = tid; e < s.taps * n; e += BW_NT) {
-    const int nn = e % n, k = e / n;
-    s.ws[k * n + nn] = w[(size_t)nn * ldw + k];
-  }
-  for (int e = tid; e < BW_QB * n; e += BW_NT) {
-    const int nn = e % n, qi = e / n, q = q0 + qi;
-    const bool in = q < Q;
-    s.ds[qi * s.nld + nn] = in ? dpm[(size_t)q * n + nn] : 0.f;
-    s.is[qi * s.nld + nn] = in ? idx[(size_t)q * n + nn] : 0;
-  }
-  return s;
-}
-
-// The block's dW partial [taps, n]: one thread per (tap, filter) sums the
-// block's columns at their argmax rows.
-__device__ __forceinline__ void dw_partial(const BwdTiles& s,
-                                           float* __restrict__ part) {
-  for (int e = threadIdx.x; e < s.taps * s.n; e += BW_NT) {
-    const int nn = e % s.n, k = e / s.n;
-    float acc = 0.f;
-    for (int qi = 0; qi < BW_QB; ++qi)
-      acc = fmaf(s.xs[qi * s.xld + s.is[qi * s.nld + nn] * s.eds + k],
-                 s.ds[qi * s.nld + nn], acc);
-    part[(size_t)k * s.n + nn] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(BW_NT) conv_bwd_dxs_kernel(
-    const float* __restrict__ emb, const float* __restrict__ w, int ldw,
-    const int32_t* __restrict__ idx, const float* __restrict__ dpm, int Q,
-    int Lp, int R, int eds, int f, int L, int n, float* __restrict__ dxs,
-    float* __restrict__ dw_part) {
-  extern __shared__ float smem[];
-  const int q0 = blockIdx.x * BW_QB, tid = threadIdx.x, lv = L - f + 1;
-  const BwdTiles s = load_bwd_tiles(smem, emb, w, ldw, idx, dpm, Q, Lp, R,
-                                    eds, f, L, n, q0);
-  const int taps = s.taps;
-  float* acc = reinterpret_cast<float*>(s.is + BW_QB * s.nld);  // [BW_QB][lv][taps]
-  for (int e = tid; e < BW_QB * lv * taps; e += BW_NT) acc[e] = 0.f;
-  __syncthreads();
-
-  // per-step tap gradients: each (column, tap) adds every filter into the
-  // filter's argmax step
-  for (int e = tid; e < BW_QB * taps; e += BW_NT) {
-    const int k = e % taps, qi = e / taps;
-    float* a = acc + (size_t)qi * lv * taps + k;
-    for (int nn = 0; nn < n; ++nn) {
-      const float d = s.ds[qi * s.nld + nn];
-      if (d != 0.f) {
-        const int t = s.is[qi * s.nld + nn];
-        a[t * taps] = fmaf(s.ws[k * n + nn], d, a[t * taps]);
-      }
-    }
-  }
-  dw_partial(s, dw_part + (size_t)blockIdx.x * taps * n);
-  __syncthreads();
-  const int cols = min(BW_QB, Q - q0);
-  for (int e = tid; e < lv * cols * taps; e += BW_NT) {
-    const int k = e % taps, qi = (e / taps) % cols, t = e / (taps * cols);
-    dxs[((size_t)t * Q + q0 + qi) * taps + k] =
-        acc[((size_t)qi * lv + t) * taps + k];
-  }
-}
-
 // Dynamic shared memory above 48 KB must be allowed per kernel; above the
 // card's 227 KB the attribute call fails and the launch reports it.
 cudaError_t set_smem(const void* kernel, size_t bytes) {
@@ -330,13 +231,6 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 // shared memory (more than FW_MAXT), else 0.
 size_t fwd_smem(int L, int eds, int taps) {
   return sizeof(float) * ((size_t)FW_QB * odd(L * eds) + (size_t)taps * FW_NB);
-}
-
-// load_bwd_tiles' tiles and the [BW_QB, lv, taps] accumulator
-size_t dxs_smem(int L, int eds, int f, int n) {
-  return sizeof(float) * ((size_t)BW_QB * odd(L * eds) + (size_t)f * eds * n +
-                          2 * (size_t)BW_QB * odd(n) +
-                          (size_t)BW_QB * (L - f + 1) * f * eds);
 }
 
 // ---- The backward of the conv banks (conv_bwd_kernel, gic_conv_bwd), for
@@ -856,6 +750,329 @@ size_t conv_bwd_smem(int L, int eds, int ldw, int rw, bool mask) {
           (size_t)CB_STAGES * cb_stage(ldw, mask));
 }
 
+// ---- The DXS backward (conv_dxs_kernel, gic_conv_dxs): every bank of a
+// pass in one launch at the training width, then conv_bwd_reduce_kernel.
+// float32.  Per bank (n filters of f taps, taps = f*eds, lv = L - f + 1),
+// from the argmax rows idx [Q, n] and the raw pooled gradient d_pooled,
+// masked by pooled > 0 in the launch (dp), with db:
+//   DXS[t, q, k] = sum_n [idx[q, n] == t] * dp[q, n] * w[n, k]   [lv, Q, taps]
+//   dW[n, k]     = sum_q x_q[idx[q, n]*eds + k] * dp[q, n]
+//   db[n]        = sum_q dp[q, n]
+//
+// What bounds it.  idx, d_pooled and pooled are read once (44.2 MB at the
+// training width: B = R = 64, eds = 1, L = 36, banks 3/4/5 x 300) and DXS
+// written once (6.5 MB): bound by bytes, about 0.015 ms at 3.35 TB/s.  The work is 2*taps FMAs a (column, filter).
+//
+// What this design does about it.
+//   * A block owns DX_QB = 32 columns, a lane each, of every bank of its
+//     launch.  Its work items are the (bank, tap) pairs (12 at the
+//     training width), a warp each (round robin past DX_MAX_WARPS): an
+//     item owns its accumulator acc[t][lane] (lv rows of 32 columns), so
+//     no two threads ever add into one float and every sum runs over the
+//     filters in order: no atomics, and two calls are bit-equal.  An item
+//     adds one FMA per (column, filter), where a warp per filter slice
+//     would need a copy of every accumulator per warp and a combine.
+//   * idx, d and pooled stream through shared memory in steps of DX_SF
+//     = 32 filters of every bank of the launch (so that every item has
+//     work in every step), 16-byte cp.async copies into a DX_STAGES-deep
+//     ring, two steps ahead; the taps of the step's filters come too.
+//     Rows are DX_SLD = 36 floats (9 chunks of 16 bytes), so the lanes'
+//     16-byte reads of one chunk each (4 filters) are free of bank
+//     conflicts.  The columns' input rows sit in shared memory as
+//     xs[row][32], so a lane's read of its column at any row is
+//     conflict-free; so are the accumulators.
+//   * An item takes its filters four at a time: the four accumulator rows
+//     are read together and a filter that hits the row of an earlier one
+//     of the four adds to that one's sum, so the rows' read-modify-writes
+//     do not wait on each other (each row still sums in filter order).
+//   * dW: each lane forms its column's product x * dp for the step's 32
+//     filters in registers; a butterfly of 31 shuffles sums them over the
+//     lanes and leaves filter j's sum in lane j, which writes the block's
+//     partial (and, on the bank's tap 0, db and the zero slots past its
+//     taps).  conv_bwd_reduce_kernel then sums the partials over blocks in
+//     block order into dw [F, ldw] and db.
+//   * At the end the block writes each bank's DXS rows [t][q0, q0 + 32)
+//     [taps] from the accumulators, zeros included, in 16-byte stores
+//     where the run is aligned.
+//   * The accumulators take sum(taps * lv) * 32 floats (50 KB at the
+//     training width).  Where a launch's items do not fit beside the ring
+//     in the card's shared memory, the plan (disc_conv.conv_dxs_plan)
+//     splits the (bank, tap) items over several launches; each writes its
+//     own slots of the partials, and one reduction follows them all.
+// What holds it now (config3, H100): the stream of idx, d and pooled, 128
+// bytes of a row at a time, does not run at the memory's rate, and the
+// items' work (most of it the dW butterflies) does not hide behind it.
+// A deeper ring, 64-filter steps and two warps an item (halves of a step,
+// two accumulator copies) were no faster; PERF.md gives the times.
+
+constexpr int DX_QB = 32, DX_SF = 32, DX_SLD = DX_SF + 4, DX_STAGES = 3;
+constexpr int DX_AHEAD = DX_STAGES - 1, DX_MAX_SEGS = 8, DX_MAX_WARPS = 16;
+static_assert(DX_QB == 32 && DX_SF == 32,
+              "a lane per column; the dW butterfly sums 32 filters");
+
+// One segment of a launch: bank `bank`'s taps [k0, k1).  item0: its first
+// item in the launch's order; acc0: the float offset of its accumulators
+// (one of lv*32 + 1 floats per tap); idx [Q, n]; d and pooled row q at
+// q*ldd; dxs [lv, Q, taps].
+struct DxsSeg {
+  int n, f, off, ldd, k0, k1, item0, acc0;
+  const int32_t* idx;
+  const float* d;
+  const float* pooled;
+  float* dxs;
+};
+
+struct DxsLaunch {
+  DxsSeg s[DX_MAX_SEGS];
+  int count, items, steps;
+};
+
+// Floats of one bank's share of a ring stage: idx, d and pooled
+// [DX_QB][DX_SLD], then the step's taps [DX_SF][ldw] (16-byte aligned).
+__host__ __device__ inline int dxs_stage(int ldw) {
+  return 3 * DX_QB * DX_SLD + ((DX_SF * ldw + 3) & ~3);
+}
+
+__host__ __device__ inline int dxs_item_floats(int L, int f) {
+  return (L - f + 1) * DX_QB + 1;
+}
+
+// Step `step`'s slab of every segment's bank into `buf` ([count][stage]):
+// columns past Q and filters past the bank's count are zeros.
+__device__ __forceinline__ void dxs_stage_step(
+    float* buf, const DxsLaunch& ln, const float* __restrict__ w_all, int ldw,
+    int stage, int step, int q0, int Q) {
+  const int nn0 = step * DX_SF;
+  for (int sg = 0; sg < ln.count; ++sg) {
+    const DxsSeg& b = ln.s[sg];
+    if (nn0 >= b.n) continue;
+    const int cnt = min(DX_SF, b.n - nn0);
+    float* base = buf + sg * stage;
+    int* si = reinterpret_cast<int*>(base);
+    float* sd = base + DX_QB * DX_SLD;
+    float* sp = sd + DX_QB * DX_SLD;
+    float* sw = base + 3 * DX_QB * DX_SLD;
+    const int32_t* idx = b.idx + nn0;
+    const float* d = b.d + nn0;
+    const float* p = b.pooled + nn0;
+    const bool vec = ((b.n | b.ldd) & 3) == 0 && aligned16(idx) &&
+                     aligned16(d) && aligned16(p);
+    for (int e = threadIdx.x; e < DX_QB * DX_SF / 4; e += blockDim.x) {
+      const int r = e / (DX_SF / 4), gl = e % (DX_SF / 4) * 4, q = q0 + r;
+      const int o = r * DX_SLD + gl;
+      const size_t oi = (size_t)q * b.n + gl, od = (size_t)q * b.ldd + gl;
+      if (vec && q < Q && gl + 4 <= cnt) {
+        cp_async16(si + o, idx + oi);
+        cp_async16(sd + o, d + od);
+        cp_async16(sp + o, p + od);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (q < Q && gl + i < cnt) {
+          cp_async4(si + o + i, idx + oi + i);
+          cp_async4(sd + o + i, d + od + i);
+          cp_async4(sp + o + i, p + od + i);
+        } else {
+          si[o + i] = 0;
+          sd[o + i] = 0.f;
+          sp[o + i] = 0.f;
+        }
+      }
+    }
+    const float* w = w_all + (size_t)(b.off + nn0) * ldw;
+    for (int e = threadIdx.x; e < cnt * ldw; e += blockDim.x)
+      cp_async4(sw + e, w + e);
+  }
+}
+
+// One stage of lane_sums: lanes with bit S set keep the upper half of v,
+// the others the lower half, each adding its partner's copy.
+template <int S>
+__device__ __forceinline__ void lane_fold(float (&v)[32], int lane) {
+  const bool up = (lane & S) != 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    const float send = up ? v[i] : v[i + S];
+    const float keep = up ? v[i + S] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+}
+
+// v[j] summed over the warp's lanes in a fixed order (a butterfly of 31
+// shuffles); lane j gets the sum of v[j].
+__device__ __forceinline__ float lane_sums(float (&v)[32], int lane) {
+  lane_fold<16>(v, lane);
+  lane_fold<8>(v, lane);
+  lane_fold<4>(v, lane);
+  lane_fold<2>(v, lane);
+  lane_fold<1>(v, lane);
+  return v[0];
+}
+
+// Item (segment b, tap k) on one step: each of the step's filters in
+// order adds its tap into the accumulator row of its argmax step, a lane
+// per column; then the step's dW (and, on tap 0, db) partials.  Four
+// filters at a time: their four rows are read together, and a filter
+// whose row an earlier one of the four also hits adds to that one's sum,
+// so each row still takes its filters in order, one FMA each.
+__device__ __forceinline__ void dxs_item(
+    const float* base, const DxsSeg& b, int k, int step, const float* xs,
+    float* acc, int L, int eds, int ldw, int F, float* __restrict__ pb,
+    int lane) {
+  const int nn0 = step * DX_SF;
+  if (nn0 >= b.n) return;  // warp-uniform
+  const int cnt = min(DX_SF, b.n - nn0), taps = b.f * eds;
+  const unsigned lv = L - b.f + 1;
+  const int* si = reinterpret_cast<const int*>(base) + lane * DX_SLD;
+  const float* sd = base + DX_QB * DX_SLD + lane * DX_SLD;
+  const float* sp = sd + DX_QB * DX_SLD;
+  const float* sw = base + 3 * DX_QB * DX_SLD + k;
+  float* a = acc + b.acc0 + (k - b.k0) * dxs_item_floats(L, b.f) + lane;
+  const float* x = xs + k * DX_QB + lane;
+  float pv[DX_SF];
+#pragma unroll
+  for (int h = 0; h < DX_SF; h += 4) {
+    const int4 t4 = *reinterpret_cast<const int4*>(si + h);
+    const float4 d4 = *reinterpret_cast<const float4*>(sd + h);
+    const float4 p4 = *reinterpret_cast<const float4*>(sp + h);
+    const unsigned tv[4] = {(unsigned)t4.x, (unsigned)t4.y, (unsigned)t4.z,
+                            (unsigned)t4.w};
+    const float dd[4] = {masked<true>(d4.x, p4.x), masked<true>(d4.y, p4.y),
+                         masked<true>(d4.z, p4.z), masked<true>(d4.w, p4.w)};
+    bool ok[4];
+    float dp[4], av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ok[i] = h + i < cnt && tv[i] < lv;
+      dp[i] = ok[i] ? dd[i] : 0.f;
+      av[i] = ok[i] ? a[tv[i] * DX_QB] : 0.f;
+      pv[h + i] = ok[i] ? x[tv[i] * eds * DX_QB] * dp[i] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < i; ++e)  // the latest earlier filter on the row
+        if (ok[e] && tv[e] == tv[i]) av[i] = av[e];
+      av[i] = fmaf(sw[(h + i) * ldw], dp[i], av[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // in order: the last write of a row wins
+      if (ok[i]) a[tv[i] * DX_QB] = av[i];
+  }
+  const int g = b.off + nn0 + lane;
+  const float s = lane_sums(pv, lane);
+  if (lane < cnt) pb[(size_t)k * F + g] = s;
+  if (k != 0) return;
+  // the bank's own slots: zero taps past its width, and db
+  if (lane < cnt)
+    for (int kk = taps; kk < ldw; ++kk) pb[(size_t)kk * F + g] = 0.f;
+#pragma unroll
+  for (int h = 0; h < DX_SF; h += 4) {
+    const float4 d4 = *reinterpret_cast<const float4*>(sd + h);
+    const float4 p4 = *reinterpret_cast<const float4*>(sp + h);
+    const float dd[4] = {masked<true>(d4.x, p4.x), masked<true>(d4.y, p4.y),
+                         masked<true>(d4.z, p4.z), masked<true>(d4.w, p4.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[h + i] = h + i < cnt ? dd[i] : 0.f;
+  }
+  const float sb = lane_sums(pv, lane);
+  if (lane < cnt) pb[(size_t)ldw * F + g] = sb;
+}
+
+// One launch: blockIdx.x owns columns [32*blockIdx.x, +32) of every
+// segment of `ln`.  part [gridDim.x][ldw*F + F]: the launch
+// writes the slots of its items (dW (k, g) of its taps; on a bank's tap 0
+// also the zero taps and db).
+__global__ void __launch_bounds__(32 * DX_MAX_WARPS) conv_dxs_kernel(
+    const float* __restrict__ emb, const float* __restrict__ w_all, int ldw,
+    int Q, int Lp, int R, int eds, int L, int F, DxsLaunch ln,
+    float* __restrict__ part) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  const int stage = dxs_stage(ldw), rows = L * eds, E = R * eds;
+  float* ring = reinterpret_cast<float*>(smem4);  // [DX_STAGES][count][stage]
+  float* xs = ring + DX_STAGES * ln.count * stage;  // [rows][DX_QB]
+  float* acc = xs + rows * DX_QB;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nw = blockDim.x / 32, q0 = blockIdx.x * DX_QB;
+  float* pb = part + (size_t)blockIdx.x * ((size_t)ldw * F + F);
+
+  for (int s = 0; s < DX_AHEAD; ++s) {
+    if (s < ln.steps)
+      dxs_stage_step(ring + s * ln.count * stage, ln, w_all, ldw, stage,
+                           s, q0, Q);
+    cp_async_commit();
+  }
+  for (int e = tid; e < rows * DX_QB; e += blockDim.x) {
+    const int c = e % DX_QB, p = e / DX_QB, q = q0 + c;
+    xs[e] = q < Q ? emb[((size_t)(q / R) * Lp + p / eds) * E + (q % R) * eds +
+                        p % eds]
+                  : 0.f;
+  }
+  const DxsSeg& last = ln.s[ln.count - 1];
+  const int acc_floats =
+      last.acc0 + (last.k1 - last.k0) * dxs_item_floats(L, last.f);
+  for (int e = tid; e < acc_floats; e += blockDim.x) acc[e] = 0.f;
+
+  for (int s = 0; s < ln.steps; ++s) {
+    const int pre = s + DX_AHEAD;  // into the buffer read at s - 1
+    if (pre < ln.steps)
+      dxs_stage_step(ring + (pre % DX_STAGES) * ln.count * stage, ln,
+                           w_all, ldw, stage, pre, q0, Q);
+    cp_async_commit();
+    cp_async_wait<DX_AHEAD>();
+    __syncthreads();  // step s is in every view
+    const float* buf = ring + (s % DX_STAGES) * ln.count * stage;
+    for (int it = warp; it < ln.items; it += nw) {
+      int sg = 0;
+      while (sg + 1 < ln.count && it >= ln.s[sg + 1].item0) ++sg;
+      const DxsSeg& b = ln.s[sg];
+      dxs_item(buf + sg * stage, b, b.k0 + it - b.item0, s, xs, acc, L,
+                     eds, ldw, F, pb, lane);
+    }
+    __syncthreads();  // the step's buffer may be refilled
+  }
+
+  // each segment's DXS rows of the block's columns, [t][q0 + c][k] with
+  // neighbouring threads on neighbouring floats; 16-byte stores where a
+  // bank's whole row run is aligned
+  const int cols = min(DX_QB, Q - q0);
+  for (int sg = 0; sg < ln.count; ++sg) {
+    const DxsSeg& b = ln.s[sg];
+    const int taps = b.f * eds, lv = L - b.f + 1, span = b.k1 - b.k0;
+    const int item = dxs_item_floats(L, b.f), run = cols * span;
+    const float* ab = acc + b.acc0;
+    const bool vec = span == taps && run % 4 == 0 &&
+                     ((size_t)Q * taps) % 4 == 0 && (q0 * taps) % 4 == 0 &&
+                     aligned16(b.dxs);
+    if (vec) {
+      const int r4 = run / 4;
+      for (int e = tid; e < lv * r4; e += blockDim.x) {
+        const int t = e / r4, c4 = (e - t * r4) * 4;
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = (c4 + i) / taps, k = c4 + i - c * taps;
+          v[i] = ab[k * item + t * DX_QB + c];
+        }
+        *reinterpret_cast<float4*>(b.dxs + ((size_t)t * Q + q0) * taps + c4) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+      for (int e = tid; e < lv * run; e += blockDim.x) {
+        const int t = e / run, r = e - t * run, c = r / span, k = r - c * span;
+        b.dxs[((size_t)t * Q + q0 + c) * taps + b.k0 + k] =
+            ab[k * item + t * DX_QB + c];
+      }
+    }
+  }
+}
+
+size_t dxs_smem(int L, int eds, int ldw, int segs, int acc_floats) {
+  return sizeof(float) * ((size_t)DX_STAGES * segs * dxs_stage(ldw) +
+                          (size_t)L * eds * DX_QB + acc_floats);
+}
+
 }  // namespace
 
 extern "C" {
@@ -863,9 +1080,6 @@ extern "C" {
 const char* gic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
-
-// Blocks of the DXS backward: the leading dimension of dw_part.
-int gic_conv_bwd_blocks(int Q) { return (Q + BW_QB - 1) / BW_QB; }
 
 // The forward of up to FW_MAX_BANKS banks in one launch on `stream`
 // (the wrapper's plan, disc_conv.conv_fwd_plan).  emb [Bn, Lp, R*eds];
@@ -980,19 +1194,107 @@ int gic_conv_bwd(const float* emb, const float* w_all, int ldw, int Bn,
   return cudaGetLastError();
 }
 
-// One bank's DXS backward on `stream`: writes dxs [lv, Bn*R, f*eds] (every
-// entry) and dw_part [gic_conv_bwd_blocks(Q), f*eds, n].  idx, dpm [Q, n].
-int gic_conv_bwd_dxs(const float* emb, const float* w, int ldw,
-                     const int32_t* idx, const float* dpm, int Bn, int Lp,
-                     int R, int eds, int f, int L, int n, float* dxs,
-                     float* dw_part, void* stream) {
-  const int Q = Bn * R;
-  const size_t smem = dxs_smem(L, eds, f, n);
-  cudaError_t err = set_smem((const void*)conv_bwd_dxs_kernel, smem);
+// The DXS backward of every bank of a pass on `stream` (the wrapper's plan,
+// disc_conv.conv_dxs_plan): one conv_dxs_kernel launch per group of (bank,
+// tap) items (one at the training width), then the fixed-order reduction
+// of the dW (and db) partials.  Per bank i, bank_ints[4i..4i+3] = (n, f,
+// first row of w_all, row stride of d[i] / pooled[i]), idx[i] [Bn*R, n]
+// and dxs[i] [L - f + 1, Bn*R, f*eds]; d[i] the raw pooled gradient and
+// pooled[i] the pooled features (same layout): the ReLU mask and db are in
+// the launch.  launch_ints:
+// per launch (segments, shared-memory bytes), then per segment (bank,
+// first tap, end tap).  Writes every entry of each dxs[i], dw [F, ldw]
+// (zero past a bank's taps) and db [F].  The segments must
+// cover every (bank, tap) once and in order, a bank at most once a launch,
+// and the bytes must be the ones this side computes; a call that does not
+// match, or whose part_floats are not the partials' blocks x slots, is
+// refused (cudaErrorInvalidValue) before anything is launched.
+int gic_conv_dxs(const float* emb, const float* w_all, int ldw, int Bn,
+                 int Lp, int R, int eds, int L, int n_banks,
+                 const int* bank_ints, void* const* idx, void* const* d,
+                 void* const* pooled, int n_launches,
+                 const int* launch_ints, size_t part_floats,
+                 void* const* dxs, float* part, float* dw, float* db,
+                 void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_banks < 1 || n_launches < 1 || !pooled || !db)
+    return cudaErrorInvalidValue;
+  int F = 0;
+  for (int i = 0; i < n_banks; ++i) {
+    const int* bi = bank_ints + 4 * i;
+    if (bi[0] < 1 || bi[1] < 1 || bi[1] > L || bi[1] * eds > ldw ||
+        bi[2] != F || bi[3] < bi[0])
+      return cudaErrorInvalidValue;
+    F += bi[0];
+  }
+  const int Q = Bn * R, nblk = (Q + DX_QB - 1) / DX_QB;
+  const size_t M = (size_t)ldw * F + F;
+  if (Q < 1 || part_floats != (size_t)nblk * M) return cudaErrorInvalidValue;
+  std::vector<DxsLaunch> launches(n_launches);
+  size_t smem_max = 0;
+  int bank = 0, k = 0;  // the next (bank, tap) to cover
+  const int* li = launch_ints;
+  for (int l = 0; l < n_launches; ++l) {
+    const int count = li[0];
+    if (count < 1 || count > DX_MAX_SEGS) return cudaErrorInvalidValue;
+    DxsLaunch& ln = launches[l];
+    ln.count = count;
+    ln.items = ln.steps = 0;
+    int acc = 0;
+    for (int sg = 0; sg < count; ++sg) {
+      const int* si = li + 2 + 3 * sg;
+      const int b = si[0], k0 = si[1], k1 = si[2];
+      if (b != bank || k0 != k || b >= n_banks || (sg > 0 && k0 != 0))
+        return cudaErrorInvalidValue;
+      const int* bi = bank_ints + 4 * b;
+      const int taps = bi[1] * eds;
+      if (k1 <= k0 || k1 > taps) return cudaErrorInvalidValue;
+      DxsSeg& s = ln.s[sg];
+      s.n = bi[0];
+      s.f = bi[1];
+      s.off = bi[2];
+      s.ldd = bi[3];
+      s.k0 = k0;
+      s.k1 = k1;
+      s.item0 = ln.items;
+      s.acc0 = acc;
+      s.idx = static_cast<const int32_t*>(idx[b]);
+      s.d = static_cast<const float*>(d[b]);
+      s.pooled = static_cast<const float*>(pooled[b]);
+      s.dxs = static_cast<float*>(dxs[b]);
+      ln.items += k1 - k0;
+      acc += (k1 - k0) * dxs_item_floats(L, bi[1]);
+      ln.steps = max(ln.steps, (bi[0] + DX_SF - 1) / DX_SF);
+      if (k1 == taps) {
+        ++bank;
+        k = 0;
+      } else if (sg + 1 < count) {
+        return cudaErrorInvalidValue;  // a bank's taps split inside a launch
+      } else {
+        k = k1;
+      }
+    }
+    const size_t smem = dxs_smem(L, eds, ldw, count, acc);
+    if (smem != (size_t)li[1] || smem > CB_SMEM_LIMIT)
+      return cudaErrorInvalidValue;
+    smem_max = smem > smem_max ? smem : smem_max;
+    li += 2 + 3 * count;
+  }
+  if (bank != n_banks) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem((const void*)conv_dxs_kernel, smem_max);
   if (err != cudaSuccess) return err;
-  conv_bwd_dxs_kernel<<<gic_conv_bwd_blocks(Q), BW_NT, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      emb, w, ldw, idx, dpm, Q, Lp, R, eds, f, L, n, dxs, dw_part);
+  li = launch_ints;
+  for (const DxsLaunch& ln : launches) {
+    const size_t smem = (size_t)li[1];
+    li += 2 + 3 * ln.count;
+    const int threads = 32 * min(DX_MAX_WARPS, ln.items);
+    conv_dxs_kernel<<<nblk, threads, smem, st>>>(emb, w_all, ldw, Q, Lp, R,
+                                                 eds, L, F, ln, part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  conv_bwd_reduce_kernel<<<(M + CB_RD_O - 1) / CB_RD_O, CB_RD_NT, 0, st>>>(
+      part, nblk, (int)M, F, ldw, dw, db);
   return cudaGetLastError();
 }
 

@@ -13,8 +13,11 @@ gradient to that one time row.  The engines (:func:`conv_relu_maxpool`):
   where the JAX package computes them around its kernel;
 * ``"mxu_dxs"`` — the ``mxu`` forward with the DXS backward
   ``_mxu_bwd_kernel`` (the JAX package's ``GIC_MXU_DX=0``):
-  :func:`conv_bank_dxs` (``csrc/disc_conv.cu``) writes the per-step tap
-  gradients, which :func:`overlap_add` adds into ``d_emb`` in torch;
+  :func:`conv_bank_dxs_raw` (``csrc/disc_conv.cu``) writes the per-step
+  tap gradients, which :func:`overlap_add` adds into ``d_emb`` in torch,
+  from the raw pooled gradient, with the mask and ``db`` in its launch
+  (:func:`conv_bank_dxs` takes the masked gradients, as the JAX kernel
+  does, through the same kernels);
 * ``"pallas"`` — ``_fwd_kernel`` / ``_bwd_kernel``, the per-batch-row
   engine: :func:`conv_rows_forward` and :func:`conv_rows_backward`, the
   ``mxu`` engine's kernels (``csrc/disc_conv.cu``; the backward with the
@@ -26,15 +29,18 @@ gradient to that one time row.  The engines (:func:`conv_relu_maxpool`):
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain version (:func:`conv_relu_maxpool_plain`,
 :func:`conv_bwd_dx_plain`, :func:`conv_dxs_plain`,
-:func:`conv_rows_backward_plain`).  Each wrapper's ``.launches`` counts
-its calls that launched kernels, one per call.  A call of
+:func:`conv_dxs_raw_plain`, :func:`conv_rows_backward_plain`).  Each
+wrapper's ``.launches`` counts its calls that launched kernels, one per
+call.  A call of
 :func:`conv_bank_forward` or :func:`conv_rows_forward` is one launch for
 every bank (up to ``FW_MAX_BANKS``, :func:`conv_fwd_plan`); one of
 :func:`conv_bank_backward`, :func:`conv_bank_backward_raw` (counted on
 ``conv_bank_backward``: the same kernels) or :func:`conv_rows_backward` is
 one launch for every bank (up to ``BW_MAX_BANKS``) and one reduction of
-the dW partials (:func:`conv_bwd_plan`); one of :func:`conv_bank_dxs` is
-one launch per bank.
+the dW partials (:func:`conv_bwd_plan`); one of :func:`conv_bank_dxs` or
+:func:`conv_bank_dxs_raw` (counted on ``conv_bank_dxs``) is one launch for
+every bank at the training width and one reduction
+(:func:`conv_dxs_plan`).
 """
 
 from __future__ import annotations
@@ -160,8 +166,6 @@ def _library() -> ctypes.CDLL:
     lib = build.load("disc_conv")
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gic_conv_bwd_blocks.argtypes = [i]
-        lib.gic_conv_bwd_blocks.restype = i
         lib.gic_conv_fwd.argtypes = (
             [vp, vp, i, vp] + [i] * 6
             + [ctypes.POINTER(i), ctypes.POINTER(vp), i, i, vp, i, vp])
@@ -170,9 +174,12 @@ def _library() -> ctypes.CDLL:
             [vp, vp] + [i] * 7 + [ctypes.POINTER(i)]
             + [ctypes.POINTER(vp)] * 3 + [i, i, ctypes.c_size_t] + [vp] * 5)
         lib.gic_conv_bwd.restype = i
-        lib.gic_conv_bwd_dxs.argtypes = ([vp, vp, i, vp, vp] + [i] * 7
-                                         + [vp] * 3)
-        lib.gic_conv_bwd_dxs.restype = i
+        lib.gic_conv_dxs.argtypes = (
+            [vp, vp] + [i] * 7 + [ctypes.POINTER(i)]
+            + [ctypes.POINTER(vp)] * 3 + [i, ctypes.POINTER(i),
+                                          ctypes.c_size_t,
+                                          ctypes.POINTER(vp)] + [vp] * 4)
+        lib.gic_conv_dxs.restype = i
         lib._gic_typed = True
     return lib
 
@@ -482,11 +489,143 @@ def overlap_add(dxss, banks, shape, R: int, eds: int):
     return demb.reshape(shape)
 
 
+# csrc/disc_conv.cu:conv_dxs_kernel's geometry: a block owns DX_COLS
+# columns (a lane each) of every bank of its launch and a warp per (bank,
+# tap) item (round robin past DX_MAX_WARPS); idx, d and pooled stream in
+# steps of DX_SLAB filters of every bank, rows of DX_SLD floats, through a
+# DX_STAGES-deep ring; each item keeps lv·DX_COLS + 1 floats of
+# accumulators.  A launch holds at most DX_MAX_SEGS banks.
+DX_COLS, DX_SLAB, DX_SLD, DX_STAGES = 32, 32, 36, 3
+DX_MAX_SEGS, DX_MAX_WARPS = 8, 16
+
+
+def _dxs_smem(L: int, eds: int, ldw: int, segs) -> int:
+    """Bytes of shared memory of one launch of ``segs ((n, f, k0, k1),
+    ...)``: the ring, the columns' input rows and the items'
+    accumulators (``csrc/disc_conv.cu:dxs_smem``)."""
+    stage = 3 * DX_COLS * DX_SLD + (DX_SLAB * ldw + 3) // 4 * 4
+    acc = sum((k1 - k0) * ((L - f + 1) * DX_COLS + 1)
+              for _, f, k0, k1 in segs)
+    return 4 * (DX_STAGES * len(segs) * stage + L * eds * DX_COLS + acc)
+
+
+def conv_dxs_plan(Q: int, L: int, eds: int, banks) -> dict:
+    """The launches of the DXS backward of every bank (``csrc/disc_conv.cu:
+    gic_conv_dxs``) for ``Q = B·R`` columns of ``L`` real time rows,
+    ``eds`` values a row and ``banks ((n, f), ...)``: the (bank, tap)
+    items in order, packed into as few ``conv_dxs_kernel`` launches as
+    the card's shared memory allows (one at the training width), then one
+    fixed-order reduction of the per-block partials (the backward's
+    ``conv_bwd_reduce_kernel``) into dW and ``db``.  The gradient is the
+    raw pooled one ``[Q, F]``, masked in the launch.
+
+    Each launch lists its segments (``bank``, taps ``[k0, k1)``: a bank's
+    taps split over launches only where one launch cannot hold them),
+    ``items`` (its (bank, tap) pairs, a warp each up to ``DX_MAX_WARPS``:
+    ``threads``), ``steps`` (slabs of ``DX_SLAB`` filters of its largest
+    bank) and ``smem_bytes``; ``ints`` is what the C call takes per launch
+    (segments, bytes, then per segment bank, k0, k1).  ``blocks`` is
+    every launch's grid (column tiles of ``DX_COLS``) and the partials'
+    rows, ``slots`` the floats of a row, and ``ints`` what the C call takes
+    per bank (n, f, first row, the gradient's row stride), as
+    :func:`conv_bwd_plan`'s.
+    ``kernel_launches`` counts the launches of a call, the reduction's
+    included.  Raises ValueError where a filter is longer than the rows or
+    one item's accumulators do not fit.  Cached per shape: callers must
+    not change the dict."""
+    return _conv_dxs_plan(Q, L, eds, tuple(tuple(b) for b in banks))
+
+
+@functools.lru_cache(maxsize=64)
+def _conv_dxs_plan(Q: int, L: int, eds: int, banks) -> dict:
+    """:func:`conv_dxs_plan`'s work, cached per shape."""
+    if Q < 1 or L < 1 or eds < 1 or not banks:
+        raise ValueError(f"conv_dxs_plan: Q {Q}, L {L}, eds {eds} and the "
+                         "banks must be positive / non-empty")
+    n_all = sum(n for n, _ in banks)
+    ldw = max(f for _, f in banks) * eds
+    launches, segs, ints, off = [], [], [], 0
+
+    def smem(sg):  # sg: [(bank, k0, k1), ...]
+        return _dxs_smem(L, eds, ldw, [(*banks[b], k0, k1)
+                                       for b, k0, k1 in sg])
+
+    def close():
+        items, nbytes = sum(k1 - k0 for _, k0, k1 in segs), smem(segs)
+        launches.append({
+            "segments": [{"bank": b, "k0": k0, "k1": k1}
+                         for b, k0, k1 in segs],
+            "items": items, "threads": 32 * min(DX_MAX_WARPS, items),
+            "steps": max(-(-banks[b][0] // DX_SLAB) for b, _, _ in segs),
+            "smem_bytes": nbytes,
+            "ints": [len(segs), nbytes] + [v for seg in segs for v in seg]})
+
+    for b, (n, f) in enumerate(banks):
+        if n < 1 or not 1 <= f <= L:
+            raise ValueError(f"conv_dxs_plan: bank ({n}, {f}) with {L} rows")
+        ints += [n, f, off, n_all]
+        off += n
+        for k in range(f * eds):  # the item (b, k) joins the open launch
+            if segs and segs[-1][0] == b:
+                grown = segs[:-1] + [(b, segs[-1][1], k + 1)]
+            else:
+                grown = segs + [(b, k, k + 1)]
+            if len(grown) > DX_MAX_SEGS or smem(grown) > SMEM_LIMIT:
+                if segs:
+                    close()
+                grown = [(b, k, k + 1)]
+                if smem(grown) > SMEM_LIMIT:
+                    raise ValueError(
+                        f"conv_dxs_plan: one tap of bank ({n}, {f}) over {L} "
+                        f"rows needs more than {SMEM_LIMIT} bytes of shared "
+                        "memory")
+            segs = grown
+    close()
+    return {"blocks": -(-Q // DX_COLS), "launches": launches,
+            "slots": ldw * n_all + n_all,
+            "ints": ints, "kernel_launches": len(launches) + 1}
+
+
+def _dxs(emb_pad, w_all, banks, R: int, eds: int, idxs, d_pooled, pooled):
+    """One call of ``gic_conv_dxs``, the DXS backward of every bank from
+    the raw ``d_pooled [B, R, F]`` and ``pooled`` → ``(dxss, dw_all,
+    db)``.  Every output entry is written by the kernels."""
+    lib = _library()
+    b_sz, lp, _ = emb_pad.shape
+    L = lp - max(f for _, f in banks) + 1
+    q = b_sz * R
+    plan = conv_dxs_plan(q, L, eds, banks)
+    device = emb_pad.device
+    n_all, nb = w_all.shape[0], len(banks)
+    dxss = [torch.empty(L - f + 1, q, f * eds, device=device)
+            for _, f in banks]
+    dw_all = torch.empty_like(w_all)
+    db = torch.empty(n_all, device=device)
+    part = torch.empty(plan["blocks"] * plan["slots"], device=device)
+    vp = ctypes.c_void_p * nb
+    offs = plan["ints"][2::4]
+    ints = [v for launch in plan["launches"] for v in launch["ints"]]
+    with torch.cuda.device(device):
+        rc = lib.gic_conv_dxs(
+            emb_pad.data_ptr(), w_all.data_ptr(), w_all.shape[1], b_sz, lp,
+            R, eds, L, nb, (ctypes.c_int * (4 * nb))(*plan["ints"]),
+            vp(*[i.data_ptr() for i in idxs]),
+            vp(*[d_pooled.data_ptr() + 4 * o for o in offs]),
+            vp(*[pooled.data_ptr() + 4 * o for o in offs]),
+            len(plan["launches"]), (ctypes.c_int * len(ints))(*ints),
+            part.numel(), vp(*[x.data_ptr() for x in dxss]), part.data_ptr(),
+            dw_all.data_ptr(), db.data_ptr(), _stream(device))
+        build.raise_on_error(lib, rc, "disc conv DXS backward")
+    return dxss, dw_all, db
+
+
 def conv_bank_dxs(emb_pad, w_all, banks, R: int, eds: int,
                   idxs: List[torch.Tensor], dpms: List[torch.Tensor]):
-    """The DXS backward of every bank → ``(dxss, dw_all)`` as
-    :func:`conv_dxs_plain`: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU one."""
+    """The DXS backward of every bank from the masked pooled gradients
+    (the JAX kernel's inputs) → ``(dxss, dw_all)`` as
+    :func:`conv_dxs_plain`: on a CUDA tensor :func:`conv_bank_dxs_raw`'s
+    kernels on the gradients side by side, under a mask that passes every
+    entry (so the same bits); the plain version on a CPU one."""
     b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds)
     device = emb_pad.device
     for (n, _), idx, dpm in zip(banks, idxs, dpms):
@@ -496,26 +635,40 @@ def conv_bank_dxs(emb_pad, w_all, banks, R: int, eds: int,
         return conv_dxs_plain(emb_pad, w_all, banks, R, eds, idxs, dpms)
     if device.type != "cuda":
         raise ValueError(f"disc_conv: unsupported device {device}")
-    lib = _library()
-    ldw, q = w_all.shape[1], b_sz * R
-    dw_all = torch.zeros_like(w_all)
-    dxss, off = [], 0
-    with torch.cuda.device(device):
-        for (n, f), idx, dpm in zip(banks, idxs, dpms):
-            dxs = torch.empty(L - f + 1, q, f * eds, device=device)
-            part = torch.empty(lib.gic_conv_bwd_blocks(q), f * eds, n,
-                               device=device)
-            rc = lib.gic_conv_bwd_dxs(
-                emb_pad.data_ptr(), w_all.data_ptr() + 4 * off * ldw, ldw,
-                idx.data_ptr(), dpm.data_ptr(), b_sz, lp, R, eds, f, L, n,
-                dxs.data_ptr(), part.data_ptr(), _stream(device))
-            build.raise_on_error(lib, rc, "disc conv DXS backward")
-            dw_all[off:off + n, :f * eds] = part.sum(dim=0).T
-            dxss.append(dxs)
-            off += n
+    d_pooled = torch.cat(dpms, dim=-1)
+    dxss, dw_all, _ = _dxs(emb_pad, w_all, banks, R, eds, idxs, d_pooled,
+                           torch.ones_like(d_pooled))
     with _count_lock:
         conv_bank_dxs.launches += 1
     return dxss, dw_all
+
+
+def conv_dxs_raw_plain(emb_pad, w_all, banks, R: int, eds: int, pooled,
+                       idxs: List[torch.Tensor], d_pooled):
+    """Plain version of the DXS backward from the raw pooled gradient
+    ``d_pooled [B, R, F]`` → ``(dxss, dw_all, db_all)``: the ReLU mask from
+    ``pooled > 0``, ``db`` its masked sum, then :func:`conv_dxs_plain`."""
+    dpms, db = _masked(pooled, d_pooled, banks)
+    dxss, dw_all = conv_dxs_plain(emb_pad, w_all, banks, R, eds, idxs, dpms)
+    return dxss, dw_all, db
+
+
+def conv_bank_dxs_raw(emb_pad, w_all, banks, R: int, eds: int, pooled,
+                      idxs: List[torch.Tensor], d_pooled):
+    """The ``mxu_dxs`` engine's backward from the raw pooled gradient →
+    ``(dxss, dw_all, db_all)`` as :func:`conv_dxs_raw_plain`:
+    the CUDA kernels (one launch for every bank at the training width and
+    one reduction, :func:`conv_dxs_plan`) with the ReLU mask and ``db`` in
+    the launch, so the autograd route needs no separate mask and sum.  On
+    a CPU tensor, the plain version.  Counts on
+    ``conv_bank_dxs.launches``."""
+    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
+        return conv_dxs_raw_plain(emb_pad, w_all, banks, R, eds, pooled,
+                                  idxs, d_pooled)
+    out = _dxs(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
+    with _count_lock:
+        conv_bank_dxs.launches += 1
+    return out
 
 
 def conv_rows_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
@@ -682,14 +835,15 @@ class _ConvReluMaxpool(torch.autograd.Function):
             d_emb, dw_all, db = bwd(emb_pad, w_all, banks, R, eds, pooled,
                                     idxs, d_pooled.contiguous())
             return d_emb, dw_all, db, None, None, None, None
-        dpms, db = _masked(pooled, d_pooled, banks, ctx.positive)
-        if engine == "mxu_dxs":
-            dxss, dw_all = conv_bank_dxs(emb_pad, w_all, banks, R, eds, idxs,
-                                         dpms)
+        if engine == "mxu_dxs":  # likewise, then the shifted adds
+            dxss, dw_all, db = conv_bank_dxs_raw(emb_pad, w_all, banks, R,
+                                                 eds, pooled, idxs,
+                                                 d_pooled.contiguous())
             d_emb = overlap_add(dxss, banks, emb_pad.shape, R, eds)
-        else:
-            d_emb, dw_all = conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds,
-                                              idxs, dpms)
+            return d_emb, dw_all, db, None, None, None, None
+        dpms, db = _masked(pooled, d_pooled, banks, ctx.positive)
+        d_emb, dw_all = conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds,
+                                          idxs, dpms)
         return d_emb, dw_all, db, None, None, None, None
 
 

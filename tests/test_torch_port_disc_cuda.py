@@ -5,8 +5,11 @@ per-batch-row conv forward (the ``mxu`` forward's kernel,
 backward of both engines (``csrc/disc_conv.cu:gic_conv_bwd``:
 ``conv_bank_backward``, ``conv_bank_backward_raw``, ``conv_rows_backward``;
 two calls bit-equal, an all-zero gradient, more banks than one launch
-takes, rows in windows), the DXS backward
-(``csrc/disc_conv.cu``) and the single-layer reverse recurrence
+takes, rows in windows), the DXS backward (``csrc/disc_conv.cu:
+gic_conv_dxs``: ``conv_bank_dxs`` and, from the raw gradient,
+``conv_bank_dxs_raw``; the same shapes, items split over launches, two
+calls bit-equal, an all-zero gradient) and the single-layer reverse
+recurrence
 (``csrc/lstm_bptt.cu``), at odd sizes (eds = 2 and 3 with up to 12 taps,
 R and B·R not multiples of 32, n not a multiple of 32, B = 1, lv = 1, H
 not a multiple of the tiles), each engine's autograd route, and the
@@ -195,25 +198,43 @@ def test_backward_of_a_zero_gradient_is_zero(device, shape):
     assert all(int((o != 0).sum()) == 0 for o in outs)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_dxs_backward_matches_plain(device, shape):
     emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled = _grads(shape,
                                                                    device)
-    dpms, _ = disc_conv._masked(pooled, d_pooled, banks)
+    dpms, w_db = disc_conv._masked(pooled, d_pooled, banks)
+    raw_args = (emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled)
     before = disc_conv.conv_bank_dxs.launches
     dxss, dw = disc_conv.conv_bank_dxs(emb_pad, w_all, banks, R, eds, idxs,
                                        dpms)
+    raw = disc_conv.conv_bank_dxs_raw(*raw_args)
     torch.cuda.synchronize()
-    assert disc_conv.conv_bank_dxs.launches == before + 1
+    # each call one count: its launches and one reduction, by the plan
+    assert disc_conv.conv_bank_dxs.launches == before + 2
     w_dxss, w_dw = disc_conv.conv_dxs_plain(emb_pad, w_all, banks, R, eds,
                                             idxs, dpms)
     for a, b in zip(dxss, w_dxss):
         torch.testing.assert_close(a, b, atol=DX_ATOL, rtol=0)
     assert _dw_rel(dw, w_dw) <= DW_RTOL
+    # from the raw gradient: the mask in the launch gives the same sums,
+    # and db as _masked sums it
+    assert _same_bits(dxss, raw[0]) and torch.equal(dw, raw[1])
+    torch.testing.assert_close(raw[2], w_db, atol=DX_ATOL, rtol=0)
+    again = disc_conv.conv_bank_dxs_raw(*raw_args)
+    assert _same_bits(raw[0], again[0]) and _same_bits(raw[1:], again[1:])
     d_emb = disc_conv.overlap_add(dxss, banks, emb_pad.shape, R, eds)
     dx_emb, _ = disc_conv.conv_bank_backward(emb_pad, w_all, banks, R, eds,
                                              idxs, dpms)
     torch.testing.assert_close(d_emb, dx_emb, atol=DX_ATOL, rtol=0)
+
+
+def test_dxs_backward_of_a_zero_gradient_is_zero(device):
+    # every entry of DXS, dW and db written, none left from the allocation
+    emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled = _grads(
+        BWD_SHAPES[-1], device)
+    dxss, dw, db = disc_conv.conv_bank_dxs_raw(emb_pad, w_all, banks, R, eds,
+                                               -pooled.abs(), idxs, d_pooled)
+    assert all(int((o != 0).sum()) == 0 for o in (*dxss, dw, db))
 
 
 @pytest.mark.parametrize("engine", ["pallas", "hybrid", "mxu", "mxu_dxs"])
@@ -261,6 +282,12 @@ def test_conv_wrappers_refuse_malformed_calls(device):
     with pytest.raises(ValueError):
         disc_conv.conv_bank_dxs(emb_pad, w_all, banks, R, eds, idxs,
                                 [d[:, :2] for d in dpms])
+    with pytest.raises(ValueError):
+        disc_conv.conv_bank_dxs_raw(emb_pad, w_all, banks, R, eds,
+                                    pooled.cpu(), idxs, d_pooled)
+    with pytest.raises(TypeError):
+        disc_conv.conv_bank_dxs_raw(emb_pad, w_all, banks, R, eds, pooled,
+                                    idxs, d_pooled.double())
     with pytest.raises(TypeError):
         disc_conv.conv_bank_backward(emb_pad, w_all, banks, R, eds, idxs,
                                      [d.double() for d in dpms])
@@ -275,6 +302,9 @@ def test_conv_wrappers_refuse_malformed_calls(device):
     long = _grads((1, 2000, 1, 1, ((4, 3),)), device)
     with pytest.raises(RuntimeError):
         disc_conv.conv_rows_backward(*long)
+    # nor one tap's accumulators of the DXS backward: its plan refuses it
+    with pytest.raises(ValueError):
+        disc_conv.conv_bank_dxs_raw(*long)
     assert [f.launches for f in fns] == before
 
 

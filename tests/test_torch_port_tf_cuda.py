@@ -8,8 +8,9 @@ imports torch and the port only, so it runs on a machine without JAX:
 Tolerances: flash outputs within 2e-6 of the dense plain version and
 gradients within 1e-5 of the largest gradient (float32 sums in another
 order; unit-scale inputs); the sampler's soft rows within 1e-6 and its ids
-equal except where the top two ``x`` are within 1e-5; the Philox draw's
-histogram of ids within 0.01 of ``softmax(logits)`` over 2^16 rows.
+equal except where the top two ``x`` are within 1e-5 (two calls, and the
+ids of every cluster size, bit-equal); the Philox draw's histogram of ids within
+0.01 of ``softmax(logits)`` over 2^16 rows.
 """
 
 import numpy as np
@@ -163,8 +164,17 @@ def _top2_gap(x):
     return top[:, 0] - top[:, 1]
 
 
-@pytest.mark.parametrize("B,V,temp", [(64, 11008, 1.0), (64, 11008, 10.0),
-                                      (3, 1000, 100.0), (5, 257, 0.5)])
+# the sampler's plans: config4's [64, V] (clusters of 2) and one row
+# (clusters of 8), 256 rows (one CTA a row), a warp per row (V = 16),
+# GPT-2's vocabulary and V not a multiple of 4 (scalar accesses), small
+# rows; at temperatures 1 and 100, and the earlier cases
+GUMBEL_SHAPES = [(64, 11008), (1, 11008), (256, 11008), (4096, 16),
+                 (3, 50257), (64, 11007), (3, 1000), (5, 257)]
+GUMBEL_CASES = [(b, v, t) for b, v in GUMBEL_SHAPES for t in (1.0, 100.0)
+                ] + [(64, 11008, 10.0), (5, 257, 0.5)]
+
+
+@pytest.mark.parametrize("B,V,temp", GUMBEL_CASES)
 def test_gumbel_kernel_matches_plain_with_fed_uniforms(device, B, V, temp):
     rng = np.random.default_rng(V)
     logits = torch.from_numpy(rng.standard_normal((B, V)).astype(
@@ -180,6 +190,58 @@ def test_gumbel_kernel_matches_plain_with_fed_uniforms(device, B, V, temp):
     differ = ids != ids_p
     assert bool((_top2_gap(x)[differ] <= TIE_GAP * temp).all())
     assert ids.dtype == torch.int32
+    # two calls, fed or drawn: the same bits; the draw is the kernel fed
+    # the uniforms it drew
+    again = gs.gumbel_sample(logits, temp, uniforms=u)
+    assert torch.equal(soft, again[0]) and torch.equal(ids, again[1])
+    u_out = torch.empty_like(u)
+    drawn = gs.gumbel_sample(logits, temp, seed=11, step=2,
+                             uniforms_out=u_out)
+    for other in (gs.gumbel_sample(logits, temp, seed=11, step=2),
+                  gs.gumbel_sample(logits, temp, uniforms=u_out)):
+        assert torch.equal(drawn[0], other[0])
+        assert torch.equal(drawn[1], other[1])
+
+
+def test_gumbel_every_cluster_size_gives_the_same_ids(device):
+    # the plan takes 8, 4, 2 and 1 CTAs a row at 1, 32, 64 and 128 rows;
+    # row b draws Philox (seed, step, b) at any B, so the first rows of the
+    # same logits give the same x whatever the split: the same first argmax
+    V = 11008
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.standard_normal((128, V)).astype(
+        np.float32) * 3).to(device)
+    soft, ids = gs.gumbel_sample(logits, 1.0, seed=4, step=1)
+    assert gs.gumbel_plan(128, V)["cluster"] == 1
+    for B, cluster in ((1, 8), (32, 4), (64, 2)):
+        assert gs.gumbel_plan(B, V)["cluster"] == cluster
+        got = gs.gumbel_sample(logits[:B].contiguous(), 1.0, seed=4, step=1)
+        assert torch.equal(got[1], ids[:B])
+        torch.testing.assert_close(got[0], soft[:B], atol=SOFT_ATOL, rtol=0)
+
+
+def test_gumbel_refuses_a_row_past_its_registers(device):
+    logits = torch.zeros((1, gs.G_V_MAX + 4), device=device)
+    before = gs.gumbel_sample.launches
+    with pytest.raises(ValueError, match="passes"):
+        gs.gumbel_sample(logits, 1.0, seed=1)
+    assert gs.gumbel_sample.launches == before
+
+
+@pytest.mark.parametrize("B,V", [(3, 11008), (3, 11007), (3, 16)])
+def test_gumbel_rows_of_minus_inf_or_nan_take_id_0(device, B, V):
+    # row 0 all -inf (every x at the maximum: the first index), row 1 all
+    # NaN (no x reaches a maximum: 0), row 2 ordinary
+    logits = torch.randn((B, V), device=device)
+    logits[0] = -float("inf")
+    logits[1] = float("nan")
+    u = torch.rand((B, V), device=device)
+    soft, ids = gs.gumbel_sample(logits, 1.0, uniforms=u)
+    soft_p, ids_p = gs.gumbel_sample_plain(logits, 1.0, u)
+    assert ids[:2].tolist() == [0, 0]
+    assert bool(torch.isnan(soft[:2]).all())
+    assert int(ids[2]) == int(ids_p[2])
+    torch.testing.assert_close(soft[2], soft_p[2], atol=SOFT_ATOL, rtol=0)
 
 
 def test_gumbel_philox_is_reproducible_and_shared_with_sample_resid(device):
