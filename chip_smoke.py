@@ -138,10 +138,14 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     checkpoints served through ``caption_images``.
 
 18. ``tf_kernels`` — preset config4's kernels against their plain
-    versions: flash forward, dQ and dK/dV at the generator's MLE shape
+    versions: flash forward and backward at the generator's MLE shape
     [64, 37, 8, 32] (causal, lengths + 1) and log-prob pass (causal), the
     discriminator's [64, 36, 8, 16] and the rollouts' [256, 36, 8, 16]
     (full): outputs within 2e-6, gradients within 1e-5 of their largest;
+    the backward one launch of the fused kernel (delta, dQ, dK and dV)
+    at those four and the tiled dQ and dK/dV at [2, 200, 2, 24], by its
+    plan, two calls bit-equal, and zero, finite gradients for a row of
+    key length 0;
     the Gumbel sampler at [64, 11008] on fed uniforms (its plan: cluster
     size and CTAs; soft within 1e-6, ids equal outside near-ties, two calls
     bit-equal), its Philox draw (reproducible, the sample_resid decode's
@@ -153,7 +157,8 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     at [2, 200, 2, 24]), two forward calls bit-equal, and a batch
     row of key length 0 (out 0, lse below -1e29); times beside the plain
     versions', the per-case bounds and ``scaled_dot_product_attention``
-    (forward, and forward + backward).
+    (forward, backward alone, and forward + backward); the fused backward
+    beside the tiled route (delta, dQ and dK/dV) in the same process.
 18a. ``gumbel_ids`` — sha256 of the sampler's ids and drawn uniforms at
     fixed logits and (seed, step), [64, 11008], [64, 11007] and [3, 50257],
     by the public signature only (to compare checkouts).
@@ -2545,22 +2550,24 @@ TF_MODEL_FLAGS = ["--preset", "config4", "--dataset", "synthetic",
 # discriminator's 4 layers forward for real and sampled ids (2 passes, with
 # backward), for each of the 8 rollout prefixes and the full sequence
 # (9 passes) and for the greedy baseline (1), then the generator's 4
-# layers for the log-probs (with backward)
-TF_PER_MLE_STEP = {"flash_fwd": TF_NL, "flash_dq": TF_NL, "flash_dkv": TF_NL,
-                   "gumbel_sample": 0}
+# layers for the log-probs (with backward); each backward is one launch
+# of the fused kernel, none of the tiled dQ and dK/dV (T <= 64, D <= 32)
+TF_PER_MLE_STEP = {"flash_fwd": TF_NL, "flash_bwd": TF_NL, "flash_dq": 0,
+                   "flash_dkv": 0, "gumbel_sample": 0}
 TF_PREFIXES = len(range(TF_ROLLOUT_STRIDE, T, TF_ROLLOUT_STRIDE))
 TF_PER_RL_STEP = {"gumbel_sample": T,
                   "flash_fwd": TF_DISC_NL * (2 + TF_PREFIXES + 1 + 1) + TF_NL,
-                  "flash_dq": 2 * TF_DISC_NL + TF_NL,
-                  "flash_dkv": 2 * TF_DISC_NL + TF_NL}
+                  "flash_bwd": 2 * TF_DISC_NL + TF_NL,
+                  "flash_dq": 0, "flash_dkv": 0}
 
 
 def tf_counters():
     from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
     from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
 
-    return {"flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
-            "flash_dkv": fa.flash_dkv, "gumbel_sample": gs.gumbel_sample}
+    return {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
+            "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
+            "gumbel_sample": gs.gumbel_sample}
 
 
 def attention_pairs(b, t, h, causal, lengths):
@@ -2582,7 +2589,11 @@ def flash_work(kind, b, t, h, d, pairs):
         return 4 * x + vec, 4 * d * pairs
     if kind == "flash_dq":       # q, k, v, dO, lse, delta in; dq out
         return 5 * x + 2 * vec, 6 * d * pairs
-    return 6 * x + 2 * vec, 8 * d * pairs    # + dk, dv out
+    if kind == "flash_dkv":      # + dk, dv out
+        return 6 * x + 2 * vec, 8 * d * pairs
+    # the whole backward (fused, or the tiled route): q, k, v, dO, out,
+    # lse in; dq, dk, dv out; five products of D a pair
+    return 8 * x + vec, 10 * d * pairs
 
 
 SPIN_CYCLES = 100_000_000   # about 50 ms of one SM's clock
@@ -2670,8 +2681,9 @@ def phase_tf_kernels(device):
         out = fa.flash_attention(q, k, v, causal, lens)
         grads = torch.autograd.grad(out, (q, k, v), g)
         torch.cuda.synchronize()
-        launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_dq",
-                                                 "flash_dkv")}
+        launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_bwd",
+                                                 "flash_dq", "flash_dkv")}
+        bwd_ran = fa.flash_bwd.last_kernel
         ref = fa.attention_plain(q, k, v, causal, lens)
         ref_grads = torch.autograd.grad(ref, (q, k, v), g)
         qd, kd, vd = (x.detach() for x in (q, k, v))
@@ -2682,18 +2694,29 @@ def phase_tf_kernels(device):
         ran = fa.flash_fwd.last_kernel
         seen = forward_kernels(lambda: fa.flash_fwd(qd, kd, vd, causal,
                                                     lens))
+        bwd_again = [fa.flash_bwd(qd, kd, vd, again[0], g, again[1], causal,
+                                  lens) for _ in range(2)]
         row = {"shape": list(shape), "causal": causal,
                "lengths": lens is not None, "launches": launches,
                "forward_kernel": ran, "profiler_forward_kernels": seen,
+               "backward_kernel": bwd_ran,
                "max_abs_out_diff": float((out - ref).detach().abs().max()),
                "out_finite": bool(torch.isfinite(out).all()),
-               "forward_bit_equal_repeat": bool(torch.equal(again[0], out))}
+               "forward_bit_equal_repeat": bool(torch.equal(again[0], out)),
+               "backward_bit_equal_repeat": all(
+                   torch.equal(a, b) and torch.equal(b, c)
+                   for a, b, c in zip(grads, *bwd_again))}
         for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
             row[f"{n}_max_abs_diff"] = float((a - b).abs().max())
             row[f"{n}_rel"] = row[f"{n}_max_abs_diff"] / float(b.abs().max())
         emit({"phase": "tf_kernels", "kernel": "flash", "case": name, **row})
-        check(launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1},
+        fused = want == "fused"
+        check(launches == {"flash_fwd": 1, "flash_bwd": int(fused),
+                           "flash_dq": int(not fused),
+                           "flash_dkv": int(not fused)},
               f"flash {name}: launches {launches}")
+        check(bwd_ran == want and row["backward_bit_equal_repeat"],
+              f"flash {name} backward {row}")
         check(ran == want and row["forward_bit_equal_repeat"]
               and (not seen or (len(seen) == 1
                                 and kernel_names[want] in seen[0])),
@@ -2705,9 +2728,11 @@ def phase_tf_kernels(device):
                   f"flash {name} {n} {row}")
         rows[name] = row
 
-        # times: each kernel alone, the plain version forward and forward +
-        # backward, and the library call (boolean mask, [B, H, T, D] views
-        # made contiguous outside the timing)
+        # times: each kernel alone, the whole backward (fused, and the
+        # tiled route: delta, dQ, dK/dV), the plain version forward,
+        # backward alone and forward + backward, and the library call
+        # likewise (boolean mask, [B, H, T, D] views made contiguous outside
+        # the timing)
         o, lse = again
         delta = (g * o).sum(dim=-1)
         b_, t_, h_, d_ = shape
@@ -2731,7 +2756,24 @@ def phase_tf_kernels(device):
             o_ = fa.attention_plain(q, k, v, causal, lens)
             torch.autograd.grad(o_, (q, k, v), g)
 
+        # the backward alone: one forward, then its graph again and again
+        plain_o = fa.attention_plain(q, k, v, causal, lens)
+
+        def lib_bwd():
+            torch.autograd.grad(lib, (qt, kt, vt), gt, retain_graph=True)
+
+        def plain_bwd():
+            torch.autograd.grad(plain_o, (q, k, v), g, retain_graph=True)
+
+        def tiled_bwd():    # the parent's route: delta, dQ, dK/dV
+            dl = (g * o).sum(dim=-1)
+            fa.flash_dq(qd, kd, vd, g, lse, dl, causal, lens)
+            fa.flash_dkv(qd, kd, vd, g, lse, dl, causal, lens)
+
         fns = {"flash_fwd": lambda: fa.flash_fwd(qd, kd, vd, causal, lens),
+               "flash_bwd": lambda: fa.flash_bwd(qd, kd, vd, o, g, lse,
+                                                 causal, lens),
+               "tiled_bwd": tiled_bwd,
                "flash_dq": lambda: fa.flash_dq(qd, kd, vd, g, lse, delta,
                                                causal, lens),
                "flash_dkv": lambda: fa.flash_dkv(qd, kd, vd, g, lse, delta,
@@ -2754,10 +2796,14 @@ def phase_tf_kernels(device):
             ev_ms["library_fwd"] = cuda_ms(lib_f, 20)
         pb = [device_ms(plain_fwd_bwd, 10), device_ms(plain_fwd_bwd, 10)]
         lb = [device_ms(lib_fwd_bwd, 10), device_ms(lib_fwd_bwd, 10)]
+        pbo = [device_ms(plain_bwd, 10), device_ms(plain_bwd, 10)]
+        lbo = [device_ms(lib_bwd, 10), device_ms(lib_bwd, 10)]
+        del lib, plain_o
         pairs = attention_pairs(b_, t_, h_, causal, lens)
         t_row = {"kernel_ms": k_ms, "plain_fwd_ms": [p_a, p_b],
                  "plain_fwd_bwd_ms": pb, "library_fwd_ms": [l_a, l_b],
-                 "library_fwd_bwd_ms": lb, "event_ms_per_call": ev_ms,
+                 "library_fwd_bwd_ms": lb, "plain_bwd_ms": pbo,
+                 "library_bwd_ms": lbo, "event_ms_per_call": ev_ms,
                  "library_max_abs_diff": lib_err, "pairs": pairs}
         for n in fns:
             nbytes, flops = flash_work(n, b_, t_, h_, d_, pairs)
@@ -2779,11 +2825,35 @@ def phase_tf_kernels(device):
     zero = {"max_abs_out_empty": float(o0[0::2].abs().max()),
             "max_lse_empty": float(lse0[0::2].max()),
             "max_abs_out_diff": float((o0[1::2] - ref0[1::2]).abs().max())}
+    # its gradients: dq, dk and dv 0 in the empty rows (every key past the
+    # length), finite, the full rows within FLASH_GRAD_RTOL of plain's
+    qkv0 = [x.clone().requires_grad_(True) for x in (q0, k0, v0)]
+    g0 = seeded(shape, 67, device)
+    fa.flash_bwd.launches = 0
+    grads0 = torch.autograd.grad(fa.flash_attention(*qkv0, False, lens0),
+                                 qkv0, g0)
+    torch.cuda.synchronize()
+    zero["backward_launches"] = fa.flash_bwd.launches
+    zero["backward_kernel"] = fa.flash_bwd.last_kernel
+    ref0g = torch.autograd.grad(fa.attention_plain(*qkv0, False, lens0),
+                                qkv0, g0)
+    zero["max_abs_grad_empty"] = max(float(a[0::2].abs().max())
+                                     for a in grads0)
+    zero["grads_finite"] = all(bool(torch.isfinite(a).all()) for a in grads0)
+    for n, a, b in zip(("dq", "dk", "dv"), grads0, ref0g):
+        zero[f"{n}_rel"] = float((a[1::2] - b[1::2]).abs().max()
+                                 / b[1::2].abs().max())
     emit({"phase": "tf_kernels", "kernel": "flash", "case": "length_zero",
           **zero})
     check(zero["max_abs_out_empty"] == 0.0 and zero["max_lse_empty"] <= -1e29
           and zero["max_abs_out_diff"] <= FLASH_OUT_ATOL,
           f"flash length 0 {zero}")
+    check(zero["backward_launches"] == 1
+          and zero["backward_kernel"] == "fused"
+          and zero["max_abs_grad_empty"] == 0.0 and zero["grads_finite"]
+          and all(zero[f"{n}_rel"] <= FLASH_GRAD_RTOL
+                  for n in ("dq", "dk", "dv")),
+          f"flash length 0 gradients {zero}")
 
     # --- the Gumbel sampler at [64, V]: its plan, fed uniforms against the
     # plain version, two calls bit-equal
@@ -3077,8 +3147,9 @@ def phase_tf_train(device):
         times[kind] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b]}
         emit({"phase": "tf_train", "timing": kind, "B": B_TRAIN,
               **times[kind]})
-    names = ("flash_fwd_fused_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-             "flash_dkv_kernel", "gumbel_cluster_kernel", "gumbel_rows_kernel")
+    names = ("flash_fwd_fused_kernel", "flash_fwd_kernel",
+             "flash_bwd_fused_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+             "gumbel_cluster_kernel", "gumbel_rows_kernel")
     prof = {"mle": profile_calls(lambda: mle(state, batch), 3, names),
             "rl": profile_calls(lambda: adv(state, batch, 1.0), 2, names)}
     for kind, p in prof.items():
@@ -3173,8 +3244,10 @@ def phase_tf_loop(device, workdir):
            "logged_losses": len(losses),
            "all_finite": all(math.isfinite(r["value"]) for r in rows),
            "log_tail": log.getvalue().splitlines()[-4:]}
-    for kernel, n in launches.items():
-        check(n > 0, f"tf_loop: {kernel} never launched")
+    for kernel, n in launches.items():     # the tiled dQ, dK/dV: never
+        on_path = TF_PER_MLE_STEP[kernel] or TF_PER_RL_STEP[kernel]
+        check(n > 0 if on_path else n == 0,
+              f"tf_loop: {kernel} launched {n} times")
     check(row["all_finite"] and len(losses) > 0, "tf_loop: non-finite metric")
     check(inst.pretrain_steps == 4 and inst.state.gen_steps == 4,
           f"tf_loop counters {row}")
@@ -3198,8 +3271,12 @@ def phase_tf_loop(device, workdir):
 
 
 def tf_entries(smi, tfk, tf_train):
-    """The four kernels' entries of the ``kernels`` line: times and bounds
-    at the generator's MLE shape (flash) and at [64, V] (Gumbel)."""
+    """The four TPU kernels' entries of the ``kernels`` line: times and
+    bounds at the generator's MLE shape (flash) and at [64, V] (Gumbel).
+    ``_dq_kernel`` and ``_dkv_kernel`` are both redesigned as one kernel,
+    the fused backward: each entry gives its launches and its time, bound
+    and the backward alone of the plain version and of SDPA, and keeps its
+    own tiled kernel's case in ``by_case``."""
     mle = tfk["times"]["gen_mle"]
     errs = {"flash_fwd": max(r["max_abs_out_diff"]
                              for r in tfk["flash"].values()),
@@ -3216,34 +3293,49 @@ def tf_entries(smi, tfk, tf_train):
             ms, plain_ms, lib_ms = min(t["kernel_ms"]), min(t["plain_ms"]), None
             b_ms, b_by, shape = t["bound_ms"], t["bound_by"], t["shape"]
         else:
-            ms, lib_ms = min(mle["kernel_ms"][name]), None
-            plain_ms = min(mle["plain_fwd_ms"] if name == "flash_fwd"
-                           else mle["plain_fwd_bwd_ms"])
-            lib_ms = min(mle["library_fwd_ms"] if name == "flash_fwd"
-                         else mle["library_fwd_bwd_ms"])
-            b_ms, b_by = mle[name]["bound_ms"], mle[name]["bound_by"]
+            fwd = name == "flash_fwd"
+            kern = name if fwd else "flash_bwd"
+            ms = min(mle["kernel_ms"][kern])
+            plain_ms = min(mle["plain_fwd_ms" if fwd else "plain_bwd_ms"])
+            lib_ms = min(mle["library_fwd_ms" if fwd else "library_bwd_ms"])
+            b_ms, b_by = mle[kern]["bound_ms"], mle[kern]["bound_by"]
             shape = tfk["flash"]["gen_mle"]["shape"]
+        launches = tf_train["launches"][
+            name if name in ("flash_fwd", "gumbel_sample") else "flash_bwd"]
         out.append({
             "name": name, "route": "cuda",
             "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
                       + TF_SOURCES[name],
-            "replaces": tpu, "launches": tf_train["launches"][name],
+            "replaces": tpu, "launches": launches,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": shape, "card": smi,
             "note": None if name in ("flash_fwd", "gumbel_sample") else
-            "plain_ms and library_ms are the whole forward + backward"})
+            "one launch of flash_bwd_fused_kernel computes delta, dQ, dK and "
+            "dV: launches, ms, bound_ms, plain_ms and library_ms are the "
+            "whole backward's (plain and SDPA: the backward alone); by_case "
+            "tiled_t200 is this TPU kernel's own tiled launch"})
+        check(launches > 0, f"{name} never launched")
         if name != "gumbel_sample":     # every case: ms beside its bound
-            fwd = name == "flash_fwd"
-            out[-1]["by_case"] = {case: {
-                "shape": tfk["flash"][case]["shape"],
-                "ms": min(t["kernel_ms"][name]),
-                "bound_ms": t[name]["bound_ms"],
-                "library_ms": min(t["library_fwd_ms" if fwd
-                                    else "library_fwd_bwd_ms"]),
-                "plain_ms": min(t["plain_fwd_ms" if fwd
-                                  else "plain_fwd_bwd_ms"])}
-                for case, t in tfk["times"].items() if case in tfk["flash"]}
+            by_case = {}
+            for case, t in tfk["times"].items():
+                if case not in tfk["flash"]:
+                    continue
+                tiled = tfk["flash"][case][
+                    "forward_kernel" if fwd else "backward_kernel"] == "tiled"
+                kern = name if fwd or tiled else "flash_bwd"
+                by_case[case] = {
+                    "shape": tfk["flash"][case]["shape"], "kernel": kern,
+                    "ms": min(t["kernel_ms"][kern]),
+                    "bound_ms": t[kern]["bound_ms"],
+                    "library_ms": min(t["library_fwd_ms" if fwd
+                                        else "library_bwd_ms"]),
+                    "plain_ms": min(t["plain_fwd_ms" if fwd
+                                      else "plain_bwd_ms"])}
+                if not fwd:
+                    by_case[case]["tiled_route_ms"] = min(
+                        t["kernel_ms"]["tiled_bwd"])
+            out[-1]["by_case"] = by_case
     return out
 
 

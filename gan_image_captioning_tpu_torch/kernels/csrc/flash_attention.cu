@@ -1,6 +1,6 @@
 // Blocked (flash) self-attention for Hopper (sm_90a), float32: the forward
-// with its logsumexp, and the two backward kernels that recompute the
-// probabilities from it.
+// with its logsumexp, and the backward that recomputes the probabilities
+// from it.
 //
 // Replaces: gan_image_captioning_tpu/kernels/flash_attention.py, functions
 // `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` (launched by
@@ -18,10 +18,11 @@
 //            dq_i = sum_j p_ij (dp_ij - delta_i) k_j / sqrt(D)
 //   dK, dV:  dv_j = sum_i p_ij dO_i, dk_j = sum_i p_ij (dp_ij - delta_i) q_i
 //            / sqrt(D)
-// with delta_i = dO_i . out_i computed by the wrapper (one PyTorch
-// reduction, as the JAX package leaves it to XLA).  lse and delta are
-// [B, T, H] float32.  Rows i >= T are neither read nor written: the ragged
-// edge is masked here, where the TPU wrapper pads T to a block multiple.
+// with delta_i = dO_i . out_i (in the fused backward; the tiled route's
+// wrapper takes it as one PyTorch reduction, as the JAX package leaves it
+// to XLA).  lse and delta are [B, T, H] float32.  Rows i >= T are neither
+// read nor written: the ragged edge is masked here, where the TPU wrapper
+// pads T to a block multiple.
 //
 // What bounds it on this card.  At the transformer GAN's shapes (T = 36-37,
 // D = 16-32, B*H = 512-2048) a forward moves 4.8-19 MB (q, k, v read once,
@@ -85,7 +86,70 @@
 // kernel's 16-byte copies need q, k, v and out 16-byte aligned: the
 // wrapper refuses other pointers.
 //
-// The tiled kernels (the tiled forward, dQ and dK/dV): float32 FMA, no
+// The backward (flash_bwd_fused_kernel, every call the system makes: T <=
+// FT_TMAX, D <= 32) replaces both `_dq_kernel` and `_dkv_kernel`, and the
+// delta reduction, with one launch.  Its bound is bytes: q, k, v, dO and
+// out read once, dq, dk and dv written once and lse read, 8 x 4*B*T*H*D
+// bytes + 4*B*T*H, 9.5 MB at the discriminator's [64, 36, 8, 16] (2.84 us
+// at 3.35 TB/s) and 19.5 MB at the generator's [64, 37, 8, 32] (5.81 us);
+// its five products are 10*D flops a valid (query, key) pair, 106 M and
+// 84-115 M, 1.6 us at 67 TFLOP/s.  The design:
+//   * A block owns G heads of one batch row, planned from the shape alone
+//     by the wrapper's flash_bwd_plan and recomputed here (bwd_geometry):
+//     the most (a power of two) within FB_THREADS threads and FB_SMEM
+//     bytes, 2 at config4's shapes.  Their rows of q, k, v and dO arrive
+//     by 16-byte cp.async, all in flight at once, into head-major tiles
+//     padded by 4 floats a row, as in the forward; out is read in place
+//     (16-byte loads into registers while the copies land), since only
+//     the thread of its row needs it.
+//   * Phase 1, two threads a (head, query row), each every other key:
+//     delta_i from dO_i and out_i, then per key s, p (masked before the
+//     exponential: a row of no valid key has lse about -1e30), dp and ds,
+//     with q_i and dO_i in registers and k and v rows as float4
+//     broadcasts; p and ds go to shared [G, T, LD] tiles (LD % 4 == 2: a
+//     warp's 16 rows and 2 slices write 32 distinct banks), dq_i sums in
+//     registers, and one shuffle exchange joins the slices' halves.
+//   * Phase 2, after one barrier, two threads a (head, key row), each
+//     every other query: dv_j = sum_i p_ij dO_i and dk_j = sum_i ds_ij q_i
+//     read P and dS down column j (lanes on neighbouring j, neighbouring
+//     words) and dO_i and q_i as float4 broadcasts; a warp's loop spans
+//     its rows' query ranges and masks the rest.
+//   * Five products where the tiled pair runs seven, each input read from
+//     memory once, each output written once by float4.  Float32 FMAs, no
+//     tensor cores (TF32 would not hold the gradients to 1e-5 of their
+//     largest, and the operations bound is under the bytes bound); fixed
+//     sum orders, no atomics, no sum across blocks: two calls give the
+//     same bits.
+// Timed (ms, device_ms, H100 80GB HBM3 at 700 W; builds of this file
+// with other values of the FB_ constants, in one call) at the
+// discriminator's [64, 36, 8, 16] / the generator's causal [64, 37, 8, 32]
+// / with lengths / the rollouts' [256, 36, 8, 16] shapes: the kept design 0.0101 / 0.0186 /
+// 0.0177-0.0178 / 0.0314-0.0320 (the tiled route, delta, dQ and dK/dV,
+// 0.0503 / 0.0766 / 0.0654 / 0.1429 by chip_smoke.py's tf_kernels);
+// variants, each bit-equal to it but those of other threads a row:
+//   * 1 head a block: 0.0103 / 0.0184 / 0.0173 / 0.0368; 4 heads (512
+//     threads, so at most 128 registers, and spills): 0.0105 / 0.0207 /
+//     0.0193 / 0.0387;
+//   * one thread a row, all its keys (2 or 4 heads): 0.0139 / 0.0220 /
+//     0.0204 / 0.0389; and 1 head: 0.0150 / 0.0228 / 0.0194 / 0.0443;
+//   * four threads a row (1 head): 0.0139 / 0.0231 / 0.0206 / 0.0416;
+//     and 2 heads (512 threads, spills): 0.0127 / 0.0232 / 0.0217 /
+//     0.0502;
+//   * out staged in shared memory beside q, k, v and dO: 0.0105 / 0.0186
+//     / 0.0175 / 0.0323;
+//   * the slices' join written as a loop over runtime widths: the rows
+//     went to local memory (a 256-byte stack frame) and the kept design
+//     took 0.0138 / 0.0252 / 0.0238 / 0.0456.
+// What holds it back: the copies and the stores alone (both phases'
+// loops skipped) take 0.0055 /
+// 0.0088 / 0.0088 / 0.0149, about half of the whole, and a block copies,
+// computes (two phases, a barrier between) and stores in turn; at B = 64
+// the grid is 256 blocks, two a SM, too few to hide one block's copies
+// behind another's arithmetic, and a launch alone is 0.0018.  172
+// registers a thread at D = 32, 122 at D = 16.
+//
+// The tiled kernels (the tiled forward, dQ and dK/dV, for T > FT_TMAX or D
+// > 32; the backward's delta then is one PyTorch reduction): float32 FMA, no
 // tensor cores.  A block of 128 threads owns one (b, h) and a tile of
 // rows (query rows forward and for dQ, key rows for dK/dV, so no two blocks
 // write the same row and no atomics are needed: the TPU design's
@@ -538,6 +602,236 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
   if (s == 0) lse[row] = mx + logf(l_safe);
 }
 
+// ---- the fused backward: delta, dQ, dK and dV of G heads in one block
+
+// Its geometry (kernels/flash_attention.py:flash_bwd_plan mirrors these):
+constexpr int FB_THREADS = 256;       // most threads a block
+constexpr int FB_SMEM = 96 * 1024;    // most shared-memory bytes a block
+constexpr int FB_KS = 2;              // threads a row (key or query slices)
+constexpr int FB_PLANES = 4;          // staged tiles: q, k, v, dO
+
+// The P and dS tiles' row stride: the least LD >= T with LD % 4 == 2, so
+// that the 16 rows and 2 key slices of a warp's phase-1 writes fall in 32
+// distinct banks.
+__host__ __device__ inline int bwd_ld(int T) {
+  return T + ((2 - T) % 4 + 4) % 4;
+}
+
+// The two slices' partial rows joined by one shuffle exchange: slice s
+// keeps its half of the columns, s*DP/2 .., adds its partner's (lane ^ 1)
+// and ends with their sum in acc[0 .. DP/2).
+template <int DP>
+__device__ __forceinline__ void join_slices(float (&acc)[DP], int s) {
+  static_assert(FB_KS == 2, "two slices a row");
+  constexpr int W = DP / 2;
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    const float give = s ? acc[c] : acc[c + W];
+    const float keep = s ? acc[c + W] : acc[c];
+    acc[c] = keep + __shfl_xor_sync(0xffffffffu, give, 1);
+  }
+}
+
+// A thread's DP / FB_KS columns of one output row, times `mul`, by float4
+// (D is a multiple of 8, so a float4 lies wholly inside or past D).
+template <int DP>
+__device__ __forceinline__ void store_cols(float* dst, const float (&acc)[DP],
+                                           int s, int D, float mul) {
+  constexpr int DO = DP / FB_KS;
+#pragma unroll
+  for (int c = 0; c < DO; c += 4) {
+    if (s * DO + c < D)
+      *reinterpret_cast<float4*>(dst + s * DO + c) =
+          make_float4(acc[c] * mul, acc[c + 1] * mul, acc[c + 2] * mul,
+                      acc[c + 3] * mul);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void load_row_smem(float (&r)[DP], const float* p) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 x = ld4(p + c);
+    r[c] = x.x;
+    r[c + 1] = x.y;
+    r[c + 2] = x.z;
+    r[c + 3] = x.w;
+  }
+}
+
+// acc += a * row, DP columns of a staged row by float4 broadcasts.
+template <int DP>
+__device__ __forceinline__ void axpy_row(float (&acc)[DP], float a,
+                                         const float* row) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 x = ld4(row + c);
+    acc[c] = fmaf(a, x.x, acc[c]);
+    acc[c + 1] = fmaf(a, x.y, acc[c + 1]);
+    acc[c + 2] = fmaf(a, x.z, acc[c + 2]);
+    acc[c + 3] = fmaf(a, x.w, acc[c + 3]);
+  }
+}
+
+// Grid: B * ceil(H / G) blocks (batch row, group of G heads); block:
+// FB_KS*G*T threads rounded up to a warp.  Dynamic shared memory: the q,
+// k, v and dO tiles of G heads, T rows of DP + FT_PAD floats each, then
+// the P and dS tiles, [G, T, LD].
+template <int DP>
+__global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ out,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const int* __restrict__ lengths, float* __restrict__ dq,
+    float* __restrict__ dk, float* __restrict__ dv, int T, int H, int D,
+    int G, int causal, float scale) {
+  constexpr int RS = DP + FT_PAD;
+  constexpr int KS = FB_KS;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) float fb_smem[];
+  const int groups = (H + G - 1) / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * G;
+  const int gh = min(G, H - h0);  // heads of this block
+  const int LD = bwd_ld(T);
+  const int plane = G * T * RS;
+  float* const qs = fb_smem;
+  float* const ks = qs + plane;
+  float* const vs = ks + plane;
+  float* const os = vs + plane;  // dO
+  float* const ps = os + plane;
+  float* const dss = ps + G * T * LD;
+
+  // rows t < T of heads h0 .. h0 + gh - 1, one run of gh*D floats a row
+  // of each tensor, all in flight at once
+  const int cpd = D / 4, cpr = gh * cpd;
+  for (int e = threadIdx.x; e < T * cpr; e += blockDim.x) {
+    const int t = e / cpr, c = e - t * cpr, g = c / cpd;
+    const size_t src = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
+    const int dst = (g * T + t) * RS + 4 * (c - g * cpd);
+    cp_async16(qs + dst, q + src);
+    cp_async16(ks + dst, k + src);
+    cp_async16(vs + dst, v + src);
+    cp_async16(os + dst, dout + src);
+  }
+  if (D < DP) {  // pad columns enter every dot product: zero them
+    const int ppr = (DP - D) / 4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = threadIdx.x; e < gh * T * ppr; e += blockDim.x) {
+      const int row = e / ppr, dst = row * RS + D + 4 * (e - row * ppr);
+      *reinterpret_cast<float4*>(qs + dst) = z;
+      *reinterpret_cast<float4*>(ks + dst) = z;
+      *reinterpret_cast<float4*>(vs + dst) = z;
+      *reinterpret_cast<float4*>(os + dst) = z;
+    }
+  }
+
+  // thread -> (row slot r = (head g, row i), slice s); phase 1 reads i as
+  // a query row and takes keys j = s, s + KS, ...; phase 2 reads it as a
+  // key row and takes queries s, s + KS, ...  A dead slot (past gh*T) has
+  // no work but takes part in the shuffles.
+  const int s = threadIdx.x % KS, r = threadIdx.x / KS;
+  const bool live = r < gh * T;
+  const int g = live ? r / T : 0, i = live ? r - g * T : 0;
+  const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
+  const size_t row = (size_t)(b * T + i) * H + h0 + g;
+  const float* const kh = ks + g * T * RS;
+  const float* const vh = vs + g * T * RS;
+  const float* const qh = qs + g * T * RS;
+  const float* const oh = os + g * T * RS;
+  float* const ph = ps + g * T * LD;
+  float* const dsh = dss + g * T * LD;
+  const float lse_i = live ? lse[row] : 0.f;
+
+  // phase 1, query row i: delta_i, then for each of its keys s_ij, p_ij
+  // (masked before the exponential: a row of no valid key has lse about
+  // -1e30), dp_ij and ds_ij, written to P and dS; dq_i accumulated
+  {
+    float qr[DP], dor[DP], acc[DP];
+    float yr[DP];  // out_i, read in place while the copies land
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      const float4 x =
+          live && c < D ? __ldg(reinterpret_cast<const float4*>(out + row * D + c))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      yr[c] = x.x;
+      yr[c + 1] = x.y;
+      yr[c + 2] = x.z;
+      yr[c + 3] = x.w;
+    }
+    const int nk = !live ? 0 : causal ? min(len, i + 1) : len;  // j < nk
+    const int mine = nk > s ? (nk - s + KS - 1) / KS : 0;
+    const int nwarp = static_cast<int>(__reduce_max_sync(FULL, mine));
+    cp_async_wait_all();
+    __syncthreads();
+    load_row_smem<DP>(qr, qh + i * RS);
+    load_row_smem<DP>(dor, oh + i * RS);
+    float delta = 0.f;
+    {
+      float a0 = 0.f, a1 = 0.f;  // dot_row's two chains
+#pragma unroll
+      for (int c = 0; c < DP; c += 8) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a0 = fmaf(dor[c + e], yr[c + e], a0);
+          a1 = fmaf(dor[c + 4 + e], yr[c + 4 + e], a1);
+        }
+      }
+      delta = a0 + a1;
+    }
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll 2
+    for (int n = 0; n < nwarp; ++n) {
+      const int j = s + KS * n;
+      const float* kr = kh + min(j, T - 1) * RS;  // past T: masked
+      const float sc = dot_row<DP>(qr, kr) * scale;
+      const float dp = dot_row<DP>(dor, vh + min(j, T - 1) * RS);
+      const bool valid = j < nk;
+      const float p = valid ? ex2((sc - lse_i) * LOG2E) : 0.f;
+      const float ds = p * (dp - delta);
+      axpy_row<DP>(acc, ds, kr);
+      if (valid) {
+        ph[i * LD + j] = p;
+        dsh[i * LD + j] = ds;
+      }
+    }
+    join_slices<DP>(acc, s);
+    if (live) store_cols<DP>(dq + row * D, acc, s, D, scale);
+  }
+  __syncthreads();
+
+  // phase 2, key row j = i: dv_j = sum_i p_ij dO_i and dk_j = sum_i ds_ij
+  // q_i over the queries that phase 1 scored against it (the same mask),
+  // P and dS read down column j
+  {
+    const int j = i;
+    const int hi = T > s ? (T - s + KS - 1) / KS : 0;
+    const int lo0 = causal && j > s ? (j - s + KS - 1) / KS : 0;
+    const bool keys = live && j < len;
+    const int lo = keys ? lo0 : hi;
+    const int wlo = static_cast<int>(__reduce_min_sync(FULL, keys ? lo : 1 << 20));
+    const int whi = static_cast<int>(__reduce_max_sync(FULL, keys ? hi : 0));
+    float dka[DP], dva[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) dka[c] = dva[c] = 0.f;
+#pragma unroll 2
+    for (int n = wlo; n < whi; ++n) {
+      const int qi = min(s + KS * n, T - 1);
+      const bool valid = keys && n >= lo && n < hi;
+      const float p = valid ? ph[qi * LD + j] : 0.f;
+      const float ds = valid ? dsh[qi * LD + j] : 0.f;
+      axpy_row<DP>(dva, p, oh + qi * RS);
+      axpy_row<DP>(dka, ds, qh + qi * RS);
+    }
+    join_slices<DP>(dka, s);
+    join_slices<DP>(dva, s);
+    if (live) {
+      store_cols<DP>(dk + row * D, dka, s, D, scale);
+      store_cols<DP>(dv + row * D, dva, s, D, 1.f);
+    }
+  }
+}
+
 int threads_per_row(int D) {
   int t = 1;
   while (t * DS < D) t <<= 1;
@@ -571,6 +865,47 @@ FusedGeometry fused_geometry(int T, int H, int D) {
   f.threads = (f.g * FT_KS * T + 31) / 32 * 32;
   f.smem = f.g * head;
   return f;
+}
+
+// The fused backward's geometry (flash_bwd_plan in the wrapper): G, the
+// most heads (a power of two) that keep a block within FB_THREADS threads
+// and FB_SMEM bytes; one head always fits (T <= 64, D <= 32: 78 KB).
+FusedGeometry bwd_geometry(int T, int H, int D) {
+  const int head =
+      4 * (FB_PLANES * T * ((D <= 16 ? 16 : 32) + FT_PAD) + 2 * T * bwd_ld(T));
+  FusedGeometry f;
+  f.g = 1;
+  while (2 * f.g <= H && 2 * f.g * FB_KS * T <= FB_THREADS &&
+         2 * f.g * head <= FB_SMEM)
+    f.g *= 2;
+  f.threads = (f.g * FB_KS * T + 31) / 32 * 32;
+  f.smem = f.g * head;
+  return f;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Dynamic shared memory above 48 KB must be allowed per kernel.
+template <int DP>
+cudaError_t launch_bwd(const FusedGeometry& f, int B, const float* q,
+                       const float* k, const float* v, const float* out,
+                       const float* dout, const float* lse,
+                       const int* lengths, float* dq, float* dk, float* dv,
+                       int T, int H, int D, int causal, float scale,
+                       cudaStream_t st) {
+  if (f.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_fused_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, f.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(B * ((H + f.g - 1) / f.g));
+  flash_bwd_fused_kernel<DP><<<grid, f.threads, f.smem, st>>>(
+      q, k, v, out, dout, lse, lengths, dq, dk, dv, T, H, D, f.g, causal,
+      scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -634,6 +969,32 @@ int gic_flash_dkv(const float* q, const float* k, const float* v,
       q, k, v, dout, lse, delta, lengths, dk, dv, T, H, D,
       threads_per_row(D), causal, scale);
   return cudaGetLastError();
+}
+
+// The fused backward (T <= FT_TMAX, D <= 32): out, dout [B, T, H, D] and
+// lse [B, T, H] as the forward wrote it -> dq, dk, dv [B, T, H, D], delta
+// included, in one launch.  (G, threads, smem) is the caller's plan
+// (flash_bwd_plan); one that differs from bwd_geometry, another shape, or
+// a pointer of the eight tensors that is not 16-byte aligned gives
+// cudaErrorInvalidValue and launches nothing.
+int gic_flash_bwd(const float* q, const float* k, const float* v,
+                  const float* out, const float* dout, const float* lse,
+                  const int* lengths, float* dq, float* dk, float* dv, int B,
+                  int T, int H, int D, int causal, float scale, int G,
+                  int threads, int smem, void* stream) {
+  if (bad_shape(B, T, H, D) || !fused_shape(T, D)) return cudaErrorInvalidValue;
+  const FusedGeometry f = bwd_geometry(T, H, D);
+  if (f.g != G || f.threads != threads || f.smem != smem)
+    return cudaErrorInvalidValue;
+  const void* const ptrs[] = {q, k, v, out, dout, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 16)
+    return launch_bwd<16>(f, B, q, k, v, out, dout, lse, lengths, dq, dk, dv,
+                          T, H, D, causal, scale, st);
+  return launch_bwd<32>(f, B, q, k, v, out, dout, lse, lengths, dq, dk, dv, T,
+                        H, D, causal, scale, st);
 }
 
 }  // extern "C"

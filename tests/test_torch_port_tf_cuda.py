@@ -1,6 +1,6 @@
-"""The flash-attention kernels (forward, dQ, dK/dV) and the fused Gumbel
-sampler against their plain versions on the card, and the transformer
-GAN's steps through them.  Every test skips without CUDA.  This file
+"""The flash-attention kernels (forward; the fused backward, and the tiled
+dQ and dK/dV past its shapes) and the fused Gumbel sampler against their
+plain versions on the card, and the transformer GAN's steps through them.  Every test skips without CUDA.  This file
 imports torch and the port only, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_tf_cuda.py
@@ -80,14 +80,19 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
     q, k, v = _qkv(shape, sum(shape), device)
     lens = (_lengths(shape[0], shape[1], causal, 3, device) if with_lengths
             else None)
-    counts = [f.launches for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)]
+    kernels = (fa.flash_fwd, fa.flash_bwd, fa.flash_dq, fa.flash_dkv)
+    counts = [f.launches for f in kernels]
     out = fa.flash_attention(q, k, v, causal, lens)
     g = torch.randn(out.shape, device=device,
                     generator=torch.Generator(device=device).manual_seed(1))
     grads = torch.autograd.grad(out, (q, k, v), g)
     torch.cuda.synchronize()
-    assert [f.launches for f in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)] \
-        == [c + 1 for c in counts]
+    # where T <= 64 and D <= 32 one launch of the fused backward, else the
+    # tiled dQ and dK/dV, as the plan says from the shape alone
+    fused = shape[1] <= 64 and shape[3] <= 32
+    assert [f.launches - c for f, c in zip(kernels, counts)] == (
+        [1, 1, 0, 0] if fused else [1, 0, 1, 1])
+    assert fa.flash_bwd.last_kernel == ("fused" if fused else "tiled")
     ref = fa.attention_plain(q, k, v, causal, lens)
     ref_grads = torch.autograd.grad(ref, (q, k, v), g)
     torch.testing.assert_close(out, ref, atol=OUT_ATOL, rtol=0)
@@ -96,8 +101,8 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
         assert err <= GRAD_RTOL, f"d{name}: {err}"
     # one launch of the fused forward where T <= 64 and D <= 32, else of
     # the tiled one (as the C side reports it, and by the profiler's name
-    # where it saw the launch); the forward repeats bit for bit
-    fused = shape[1] <= 64 and shape[3] <= 32
+    # where it saw the launch); the forward and the backward repeat bit for
+    # bit
     assert fa.flash_fwd.last_kernel == ("fused" if fused else "tiled")
     qd, kd, vd = (x.detach() for x in (q, k, v))
     names = _forward_kernels(lambda: fa.flash_fwd(qd, kd, vd, causal, lens))
@@ -106,6 +111,41 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
     again = fa.flash_fwd(qd, kd, vd, causal, lens)
     assert torch.equal(again[0], out)
     assert torch.equal(again[1], fa.flash_fwd(qd, kd, vd, causal, lens)[1])
+    bwd = [fa.flash_bwd(qd, kd, vd, again[0], g, again[1], causal, lens)
+           for _ in range(2)]
+    for a, b, c in zip(grads, *bwd):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[3]])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradients_row_of_length_zero(device, shape, causal):
+    """A batch row with no valid key: dq, dk and dv 0 there, dk and dv 0
+    past every row's length, all finite; the other rows as the plain
+    version (whose empty row spreads a uniform softmax over v)."""
+    q, k, v = _qkv(shape, 10, device)
+    lens = _lengths(shape[0], shape[1], causal, 5, device)
+    lens[1] = 0
+    g = torch.randn(shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    grads = torch.autograd.grad(fa.flash_attention(q, k, v, causal, lens),
+                                (q, k, v), g)
+    torch.cuda.synchronize()
+    fused = shape[1] <= 64 and shape[3] <= 32
+    assert fa.flash_bwd.last_kernel == ("fused" if fused else "tiled")
+    for a in grads:
+        assert bool(torch.isfinite(a).all())
+        assert float(a[1].abs().max()) == 0.0
+    past = (torch.arange(shape[1], device=device)[None, :]
+            >= lens[:, None].long())                  # [B, T] keys past len
+    for a in grads[1:]:
+        assert float(a[past].abs().max()) == 0.0
+    keep = torch.arange(shape[0], device=device) != 1
+    ref = torch.autograd.grad(fa.attention_plain(q, k, v, causal, lens),
+                              (q, k, v), g)
+    for name, a, b in zip("qkv", grads, ref):
+        err = float((a[keep] - b[keep]).abs().max() / b[keep].abs().max())
+        assert err <= GRAD_RTOL, f"d{name}: {err}"
 
 
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[3]])
@@ -136,6 +176,30 @@ def test_flash_refuses_unaligned(device, which):
     qkv[which] = flat[1:].view(shape).copy_(qkv[which])
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_fwd(*qkv, False)
+
+
+def test_flash_bwd_refuses_unaligned_and_a_foreign_plan(device,
+                                                        monkeypatch):
+    """The fused backward stages out and dO by 16-byte copies: a view at
+    another offset raises; a plan the C side does not compute itself
+    (here one head a block where it plans two) is refused; neither
+    launches."""
+    shape = (4, 36, 8, 16)
+    q, k, v = (x.detach() for x in _qkv(shape, 6, device))
+    out, lse = fa.flash_fwd(q, k, v, False)
+    flat = torch.empty(out.numel() + 1, device=device)
+    odd = flat[1:].view(shape).copy_(out)
+    before = fa.flash_bwd.launches
+    for o, g in ((odd, out), (out, odd)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_bwd(q, k, v, o, g, lse, False)
+    plan = fa.flash_bwd_plan(36, 8, 16)
+    assert plan["heads"] == 2
+    monkeypatch.setattr(fa, "flash_bwd_plan",
+                        lambda t, h, d: {**plan, "heads": 1})
+    with pytest.raises(RuntimeError):
+        fa.flash_bwd(q, k, v, out, out, lse, False)
+    assert fa.flash_bwd.launches == before
 
 
 def test_flash_rows_past_length_get_no_key_gradient(device):
@@ -310,8 +374,8 @@ KW = dict(vocab_size=64, gen_arch="transformer", disc_arch="transformer",
 
 
 def _counts():
-    return {"fwd": fa.flash_fwd.launches, "dq": fa.flash_dq.launches,
-            "dkv": fa.flash_dkv.launches,
+    return {"fwd": fa.flash_fwd.launches, "bwd": fa.flash_bwd.launches,
+            "dq": fa.flash_dq.launches, "dkv": fa.flash_dkv.launches,
             "gumbel": gs.gumbel_sample.launches}
 
 
@@ -349,10 +413,11 @@ def test_steps_launch_the_kernels_and_match_the_plain_route(device,
     if objective == "reinforce":
         # sample T Gumbel launches; flash forward: 2 training disc passes,
         # 2 rollout prefixes + the full score, the greedy baseline, the
-        # log-prob pass; backward: the 2 training passes and the log-prob
+        # log-prob pass; backward (one fused launch a layer, no tiled dQ or
+        # dK/dV): the 2 training passes and the log-prob
         gl = config.gen_num_layers
         assert launched == {"gumbel": T, "fwd": nl * (2 + 2 + 1 + 1) + gl,
-                            "dq": 2 * nl + gl, "dkv": 2 * nl + gl}
+                            "bwd": 2 * nl + gl, "dq": 0, "dkv": 0}
     else:
-        assert launched == {"gumbel": T, "fwd": 3 * nl, "dq": 3 * nl,
-                            "dkv": 3 * nl}
+        assert launched == {"gumbel": T, "fwd": 3 * nl, "bwd": 3 * nl,
+                            "dq": 0, "dkv": 0}
