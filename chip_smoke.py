@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only decode_modes,decode_impls
     python3 chip_smoke.py --only persistent,kernel,carry_kernel,qserve_kernel,decode_modes,bptt_reverse
     python3 chip_smoke.py --only train_kernels,wrappers
+    python3 chip_smoke.py --only eval_decode
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -239,6 +240,29 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     ``host_us``, timed while the device waits behind a spin) and its
     device time split by kernel (torch.profiler), and the sha256 of its
     outputs.  It calls the wrappers by their public signatures only.
+27. ``eval_decode`` — beam search and sampling at config3 width, B = 64:
+    beam 1 against the serve kernel's greedy ids (a row that differs must
+    part at a tie within 1e-4, the decode's rule); beam 4 against greedy:
+    a row whose beam-4 score is below its greedy sequence log-probability
+    - 1e-4 (beam search can prune the greedy prefix; the JAX package's
+    beam search ends below greedy on the same rows of these weights) must
+    be below by the same margin, within 1e-4, as the plain beam search on
+    the CPU; diverse
+    search at one group and no penalty equal to beam 4; beam 4, diverse
+    (K = 4, G = 2) and ``sample_decode`` on fed Gumbel noise (plain,
+    filtered, penalized) on the card against the same calls on the CPU at
+    B = 4 / 8 (ids equal or equally scored, scores within 1e-4); top-k 1
+    sampling equal to greedy; no repeated trigram under
+    ``no_repeat_ngram=3``; ``beam_topk``'s ties to the lower index on the
+    card; host-clock ms and kernel launches per call of beam 4, the
+    diverse search, sampling and the greedy kernel; the config2 service
+    at its own beam 4 on 20 ``{"image"}`` requests (captions equal to
+    ``beam_search`` on the same features) and the config3 top-p sample
+    service on ``{"n": 8}``, p50 / p90; ``evaluate.py`` (beam 4 with every
+    metric and the discriminator score, greedy, int8 greedy) with the
+    launches of the pretrain decode (NLL_gen), the serve, quantized serve
+    and conv forward kernels; and ``main.py --eval-bleu-every 1
+    --beam-size 4`` logging ``[EVAL]`` with a finite BLEU-4.
 
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
@@ -246,7 +270,8 @@ and serving paths, the carried serve kernel, the quantized serve kernel at
 Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed`` and the fused-embed backward) and, last, ``{"ok": true,
-"device": …}``.
+"device": …}``.  The entries of the kernels on the evaluation path carry
+``eval_decode_launches`` too.
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits non-zero before printing a result.  The plain versions' matrix
 products and convolutions run in full float32: TF32 is switched off below.
@@ -4250,6 +4275,355 @@ def phase_wrappers(device):
               **kernel_split(fn)})
 
 
+# --------------------------------- evaluation decode and caption quality
+
+EVAL_B, EVAL_K, EVAL_G = 64, 4, 2
+EVAL_CPU_B, SAMPLE_CPU_B = 4, 8
+SCORE_ATOL = 1e-4
+
+
+def eval_config(**overrides):
+    from gan_image_captioning_tpu_torch.config import Config
+
+    return Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                  gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN, **overrides)
+
+
+def prefix(row):
+    """A decoded row through its first <E> (the caption and its mask)."""
+    from gan_image_captioning_tpu_torch.data.vocab import END
+
+    row = [int(t) for t in row]
+    return row[:row.index(END) + 1] if END in row else row
+
+
+def step_ties(dec, feats, a, b):
+    """Rows whose ids ``a`` and ``b`` differ before the first <E>: at the
+    first position t where they part, the gap between the two tokens'
+    plain log-probabilities after their common prefix (each must be a tie
+    within ``ID_ATOL``, the decode's rule) → (rows differing, max gap)."""
+    diff = [i for i in range(a.shape[0])
+            if prefix(a[i].tolist()) != prefix(b[i].tolist())]
+    if not diff:
+        return 0, 0.0
+    rows = torch.tensor(diff, device=feats.device)
+    logits = teacher_forced_logits(dec, feats[rows], a[rows])
+    logp = torch.log_softmax(logits, dim=-1)
+    gaps = []
+    for j, i in enumerate(diff):
+        t = int((a[i] != b[i]).nonzero()[0])
+        gaps.append(float((logp[j, t, int(a[i, t])]
+                           - logp[j, t, int(b[i, t])]).abs()))
+    return len(diff), max(gaps)
+
+
+def seq_ties(ids_a, s_a, ids_b, s_b):
+    """Rows whose decoded sequences differ must score alike (within
+    ``SCORE_ATOL``: equally good beams) → (rows differing, max score
+    gap over them, max score difference over all rows)."""
+    a, b = ids_a.reshape(-1, ids_a.shape[-1]), ids_b.reshape(-1,
+                                                              ids_b.shape[-1])
+    sa, sb = s_a.reshape(-1), s_b.reshape(-1)
+    diff = [i for i in range(a.shape[0]) if not torch.equal(a[i], b[i])]
+    gap = max((float((sa[i] - sb[i]).abs()) for i in diff), default=0.0)
+    return len(diff), gap, float((sa - sb).abs().max())
+
+
+def host_ms(fn, calls=5):
+    """Host-clock ms per synchronised call of ``fn`` (after one warm call),
+    every call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def percentiles(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p90_ms": float(np.percentile(ms, 90)), "samples": len(ms)}
+
+
+def eval_counters():
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+
+    return {"decode_serve": ds.decode_sample,
+            "decode_sample_logits": ds.decode_sample_logits,
+            "decode_qserve_int8": ds.decode_sample_q_serve,
+            "disc_conv_fwd": disc_conv.conv_bank_forward}
+
+
+def run_entry(fn, argv):
+    """An entry point's ``main(argv)`` in this process with every eval
+    counter set to 0 just before → (its stdout, seconds, launches)."""
+    cnt = eval_counters()
+    for c in cnt.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = fn(argv)
+    torch.cuda.synchronize()
+    return (out.getvalue(), result, time.perf_counter() - t0,
+            {k: c.launches for k, c in cnt.items()})
+
+
+def phase_eval_decode(gen, device, workdir):
+    """Beam search, diverse beam search and sampled decoding at config3
+    width against the serve kernel, the CPU and each other; the beam and
+    sample services; the evaluation entry point and the loop's quality
+    eval, with the launches of the kernels on their path."""
+    from gan_image_captioning_tpu_torch import evaluate as evaluate_main
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
+    from gan_image_captioning_tpu_torch.eval import decode as decode_lib
+    from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
+                                                             strip_caption)
+    from gan_image_captioning_tpu_torch.kernels.decode_sample import (
+        decode_sample)
+    from gan_image_captioning_tpu_torch.models.api import init_discriminator
+    from gan_image_captioning_tpu_torch.train.checkpoint import (
+        save_generator_checkpoint)
+
+    t_phase = time.perf_counter()
+    config, dec = eval_config(), gen.decoder
+    feats = seeded((EVAL_B, E), 1500, device)
+    row = {}
+
+    # beam 1 against the serve kernel's greedy decode
+    decode_sample.launches = 0
+    ids_k, lps_k = decode_sample(*decode_args(dec, feats), mode="serve")
+    check(decode_sample.launches == 1, "serve kernel not launched")
+    greedy_lp = decode_lib.masked_logprob_sum(ids_k, lps_k)
+    b1_ids, b1_scores = decode_lib.beam_search(gen, feats, config,
+                                               beam_size=1)
+    n_diff, gap = step_ties(dec, feats, ids_k, b1_ids)
+    row["beam1_vs_serve_kernel"] = {
+        "rows_differing": n_diff, "max_tie_gap": gap,
+        "max_abs_score_diff": float((b1_scores - greedy_lp).abs().max())}
+    check(gap <= ID_ATOL, f"beam 1 vs the serve kernel: gap {gap}")
+
+    # beam 4 against greedy: beam search may prune the greedy prefix and
+    # end below it, so every row below greedy must be one where the plain
+    # beam search on the CPU (the JAX package's algorithm) ends below it
+    # by the same margin
+    gen_cpu = copy.deepcopy(gen).cpu()
+    b4_ids, b4_scores = decode_lib.beam_search(gen, feats, config,
+                                               beam_size=EVAL_K)
+    margins = b4_scores - greedy_lp
+    below = (margins < -1e-4).nonzero()[:, 0]
+    row["beam4_vs_greedy"] = {
+        "min_score_margin": float(margins.min()),
+        "rows_better": int((margins > 1e-4).sum()),
+        "rows_below": below.tolist()}
+    if below.numel():
+        xb = feats[below].cpu()
+        ref = (decode_lib.beam_search(gen_cpu, xb, config,
+                                      beam_size=EVAL_K)[1]
+               - decode_lib.greedy_with_logprobs(gen_cpu, xb, config)[1])
+        worst = float((ref - margins[below].cpu()).abs().max())
+        row["beam4_vs_greedy"]["cpu_margins_below"] = ref.tolist()
+        row["beam4_vs_greedy"]["max_abs_margin_diff_vs_cpu"] = worst
+        check(worst <= SCORE_ATOL, f"beam 4 below greedy on the card by "
+              f"other margins than the CPU's ({worst})")
+    d1_ids, d1_scores = decode_lib.diverse_beam_search(
+        gen, feats, config, beam_size=EVAL_K, num_groups=1,
+        diversity_strength=0.0)
+    n_diff, gap, worst = seq_ties(d1_ids[:, 0], d1_scores[:, 0], b4_ids,
+                                  b4_scores)
+    row["diverse_g1_vs_beam"] = {"rows_differing": n_diff,
+                                 "max_tie_gap": gap,
+                                 "max_abs_score_diff": worst}
+    check(n_diff == 0 and worst <= 1e-5, f"diverse G=1 vs beam: {n_diff}, "
+          f"{worst}")
+
+    # the card against the CPU on the same weights, B = 4 (beam, diverse)
+    # and B = 8 (sample on fed noise)
+    xb = feats[:EVAL_CPU_B]
+    cases = {
+        "beam4": lambda g, x: decode_lib.beam_search(
+            g, x, config, beam_size=EVAL_K),
+        "diverse_k4_g2": lambda g, x: decode_lib.diverse_beam_search(
+            g, x, config, beam_size=EVAL_K, num_groups=EVAL_G)}
+    for name, fn in cases.items():
+        card = fn(gen, xb)
+        cpu = fn(gen_cpu, xb.cpu())
+        n_diff, gap, worst = seq_ties(card[0].cpu(), card[1].cpu(), *cpu)
+        row[f"{name}_card_vs_cpu"] = {"rows_differing": n_diff,
+                                      "max_tie_gap": gap,
+                                      "max_abs_score_diff": worst}
+        check(worst <= SCORE_ATOL, f"{name} card vs CPU: scores {worst}")
+        check(gap <= SCORE_ATOL, f"{name} card vs CPU: ids differ")
+    noise = seeded((T, SAMPLE_CPU_B, V), 1501, torch.device("cpu"))
+    noise = -torch.log(-torch.log(torch.sigmoid(noise)))   # Gumbel noise
+    xs = feats[:SAMPLE_CPU_B]
+    sample_cases = {"plain": {}, "filtered": dict(top_k=40, top_p=0.9,
+                                                  temperature=0.8),
+                    "penalized": dict(repetition_penalty=1.3,
+                                      no_repeat_ngram=3, min_length=4,
+                                      early_stop=True)}
+    for name, knobs in sample_cases.items():
+        card = decode_lib.sample_decode(gen, xs, config,
+                                        noise=noise.to(device), **knobs)
+        cpu = decode_lib.sample_decode(gen_cpu, xs.cpu(), config,
+                                       noise=noise, **knobs)
+        n_diff, gap, worst = seq_ties(card[0].cpu(), card[1].cpu(), *cpu)
+        row[f"sample_{name}_card_vs_cpu"] = {"rows_differing": n_diff,
+                                             "max_abs_lp_diff": worst}
+        check(n_diff == 0 and worst <= SCORE_ATOL,
+              f"sample {name} card vs CPU: {n_diff} rows, {worst}")
+    del gen_cpu
+    rng = torch.Generator(device=device).manual_seed(7)
+    top1 = decode_lib.sample_decode(gen, feats, config, rng, top_k=1)[0]
+    n_diff, gap = step_ties(dec, feats, ids_k, top1)
+    row["sample_top1_vs_serve_kernel"] = {"rows_differing": n_diff,
+                                          "max_tie_gap": gap}
+    check(gap <= ID_ATOL, f"sample top_k=1 vs greedy: gap {gap}")
+    rng = torch.Generator(device=device).manual_seed(8)
+    ng = decode_lib.sample_decode(gen, feats, config, rng,
+                                  no_repeat_ngram=3)[0].tolist()
+    repeats = sum(len(r) - 2 - len({tuple(r[i:i + 3])
+                                    for i in range(len(r) - 2)}) for r in ng)
+    row["no_repeat_trigram"] = {"repeated_trigrams": repeats,
+                                "distinct_ids": len({t for r in ng
+                                                     for t in r})}
+    check(repeats == 0, f"--no-repeat-ngram 3: {repeats} repeated trigrams")
+
+    # beam_topk's tie order on the card
+    x = seeded((EVAL_B, EVAL_K * V), 1502, device)
+    x[:, 100:140] = x.max(dim=1, keepdim=True).values + 1.0
+    x[1] = 0.5
+    vals, idx = decode_lib.beam_topk(x, 8)
+    want = torch.arange(100, 108, device=device).expand(EVAL_B, 8).clone()
+    want[1] = torch.arange(8, device=device)
+    row["beam_topk_ties"] = {"lower_index_first": bool(torch.equal(idx,
+                                                                   want))}
+    check(torch.equal(idx, want), "beam_topk: ties not to the lower index")
+
+    # ms per call (host clock, synchronised) and launches per call
+    # (torch.profiler's kernel events: library kernels included)
+    timed = {
+        "beam4": lambda: decode_lib.beam_search(gen, feats, config,
+                                                beam_size=EVAL_K),
+        "diverse_k4_g2": lambda: decode_lib.diverse_beam_search(
+            gen, feats, config, beam_size=EVAL_K, num_groups=EVAL_G),
+        "sample": lambda: decode_lib.sample_decode(
+            gen, feats, config, torch.Generator(device=device), top_p=0.9),
+        "greedy_kernel": lambda: decode_sample(*decode_args(dec, feats),
+                                               mode="serve")}
+    row["timing"] = {name: {"host_ms": host_ms(fn),
+                            "kernel_launches_per_call":
+                                len(kernel_events(fn, 1))}
+                     for name, fn in timed.items()}
+
+    # the services: config2 (conditional) at its own beam 4 answering
+    # {"image"} requests; config3 sampling with top-p answering {"n": 8}
+    i2w = synthetic_vocab()[1]
+    paths = sorted(str(p) for p in (ROOT / "data" / "mini_coco"
+                                    / "val2014").glob("*.jpg"))
+    check(len(paths) > 0, "no images under data/mini_coco/val2014")
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "0", "--preset", "config2", *MODEL_FLAGS,
+         "--image-size", str(IMG_S)]))
+    try:
+        check(service.config.beam_size == 4 and service.mode == "beam",
+              "config2 does not serve at beam 4")
+        lat, mismatched = [], 0
+        for i in range(20):
+            path = paths[i % len(paths)]
+            resp = service.handle_request({"image": path})
+            lat.append(resp["latency_ms"])
+            f = service.features_from_images(service._load_images([path]))
+            rows = torch.from_numpy(np.repeat(f, service.batch_size,
+                                              axis=0)).to(device)
+            ids = decode_lib.beam_search(service.dec_params, rows,
+                                         service.config, beam_size=4)[0]
+            want = " ".join(ids_to_words(strip_caption(ids[0].tolist()),
+                                         i2w))
+            mismatched += resp["captions"] != [want]
+        row["config2_beam_service"] = {"requests": 20,
+                                       "mismatched": mismatched,
+                                       "caption_0": resp["captions"][0],
+                                       **percentiles(lat)}
+        check(mismatched == 0, f"config2 beam service: {mismatched} "
+              "captions differ from beam_search on the same features")
+    finally:
+        service.close()
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "0", *MODEL_FLAGS, "--decode-mode", "sample",
+         "--top-p", "0.9"]))
+    try:
+        resps = [service.handle_request({"n": 8}) for _ in range(20)]
+        for resp in resps:
+            check(len(resp["captions"]) == 8 and all(
+                math.isfinite(v) for v in resp["logprobs"]),
+                f"sample service: {resp}")
+        row["config3_sample_service"] = {
+            "requests": 20, "distinct_captions": len({c for r in resps
+                                                      for c in r["captions"]}),
+            **percentiles([r["latency_ms"] for r in resps])}
+    finally:
+        service.close()
+
+    # evaluate.py on synthetic data at config3 width: a checkpoint of this
+    # phase's generator with a discriminator (seeded)
+    disc = init_discriminator(torch.Generator().manual_seed(1), config,
+                              device, sweep=False)
+    ckpt = workdir / "eval_adv_model.ckpt"
+    save_generator_checkpoint(str(ckpt), gen, disc.state_dict())
+    del disc
+    base = [*MODEL_FLAGS, "--checkpoint", str(ckpt), "--synthetic-items",
+            "256"]
+    runs = {"beam4": ["--beam-size", "4", "--diversity", "--cider",
+                      "--rouge", "--meteor", "--multi-ref", "--disc-score"],
+            "greedy": [], "greedy_int8": ["--quantize", "int8"]}
+    row["evaluate"] = {}
+    for name, extra in runs.items():
+        _, result, seconds, launches = run_entry(evaluate_main.main,
+                                                 [*base, *extra])
+        row["evaluate"][name] = {"result": result, "seconds": seconds,
+                                 "launches": launches}
+        check(all(math.isfinite(v) for v in result.values()),
+              f"evaluate {name}: {result}")
+        check(0.0 <= result["bleu4"] <= 1.0, f"evaluate {name}: BLEU")
+        check(launches["decode_sample_logits"] > 0,
+              f"evaluate {name}: NLL_gen without the pretrain decode kernel")
+        want = {"beam4": "disc_conv_fwd", "greedy": "decode_serve",
+                "greedy_int8": "decode_qserve_int8"}[name]
+        check(launches[want] > 0, f"evaluate {name}: {want} not launched")
+    check({"cider_d", "rouge_l", "meteor", "self_bleu4", "bleu4_multiref",
+           "disc_score_generated"} <= set(row["evaluate"]["beam4"]["result"]),
+          "evaluate: a metric is missing")
+
+    # the loop's quality eval: main.py --eval-bleu-every 1 --beam-size 4
+    save = workdir / "eval_loop"
+    import shutil
+
+    shutil.rmtree(save, ignore_errors=True)
+    _, inst, seconds, _ = run_entry(train_main.main, [
+        "--preset", "config3", *MODEL_FLAGS, "--synthetic-items", "128",
+        "--pretrain-epochs", "1", "--adv-epochs", "1",
+        "--eval-bleu-every", "1", "--beam-size", "4",
+        "--save-dir", str(save), "--expt-name", "eval"])
+    log = open(inst.config.log_file + ".txt").read().splitlines()
+    evals = [ln for ln in log if "[EVAL]" in ln]
+    check(len(evals) == 1, f"loop: {len(evals)} [EVAL] lines")
+    bleu = float(evals[0].split("BLEU-4")[1].split("|")[0])
+    check(math.isfinite(bleu) and 0.0 <= bleu <= 1.0, f"loop BLEU {bleu}")
+    row["loop"] = {"eval_line": evals[0].split("[EVAL]")[1].strip(),
+                   "seconds": seconds}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "eval_decode", "B": EVAL_B, "beam": EVAL_K, **row,
+          "note": "host-clock times; launches per call by torch.profiler "
+                  "(every kernel, PyTorch's included)"})
+    return row
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -4341,11 +4715,13 @@ def main(argv=None):
         impls = phase_decode_impls(device)
     if run("wrappers"):
         phase_wrappers(device)
+    if run("eval_decode"):
+        eval_row = phase_eval_decode(gen, device, workdir)
     if only:
         return 0
 
     t8 = times[8]
-    emit({"kernels": [{
+    kernels = ([{
         "name": "decode_serve", "route": "cuda",
         "source": "gan_image_captioning_tpu_torch/kernels/csrc/decode_serve.cu",
         "replaces": TPU_KERNEL,
@@ -4368,7 +4744,16 @@ def main(argv=None):
         + [image_norm_entry(smi, norm, cond_train)]
         + tf_entries(smi, tfk, tf_train)
         + engine_entries(smi, engines, reverse)
-        + mode_entries(smi, modes, impls)})
+        + mode_entries(smi, modes, impls))
+    # the evaluation path's launches (phase eval_decode, counts set to 0
+    # before each evaluate.py run): greedy, int8 greedy, beam 4 with the
+    # discriminator score; NLL_gen through the pretrain mode in each
+    runs = eval_row["evaluate"]
+    for entry in kernels:
+        if entry["name"] in eval_counters():
+            entry["eval_decode_launches"] = sum(
+                r["launches"][entry["name"]] for r in runs.values())
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

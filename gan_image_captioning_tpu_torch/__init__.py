@@ -8,9 +8,10 @@ explicit ``torch.Generator`` wherever randomness is drawn.  Every Pallas
 kernel on a ported path becomes a hand-written Hopper kernel under
 ``kernels/csrc`` with a plain PyTorch version beside it.
 
-Ported so far: unconditional greedy caption serving with the LSTM
-generator (``serve.py`` → ``serving.CoalescingBatcher`` →
-``eval.decode.greedy_with_logprobs`` → ``kernels.decode_sample``).
+Entry points: ``serve.py`` (caption serving), ``main.py`` (training),
+``evaluate.py`` (NLL_gen, BLEU-4 and the caption-quality metrics) and
+``caption.py`` (captions of a split: greedy, beam or sampled); what is
+ported and what waits is in ``ROADMAP.md``.
 
 The port imports ``torch`` and never ``jax`` or the JAX package.  Entry
 points run on the CUDA device unless the caller asks for the CPU.

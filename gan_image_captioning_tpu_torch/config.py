@@ -30,8 +30,7 @@ def _int_list(text):
 
 
 # The JAX package's presets (``config.py:PRESETS``) as flag defaults;
-# explicit flags still win.  config2 asks for beam search (beam_size 4),
-# which is not ported: run it with ``--beam-size 1``.
+# explicit flags still win.
 PRESETS = {
     "config1": dict(conditional_gan=1, pretrain_epochs=20, adv_epochs=0,
                     dataset_percent=0.01, captions_per_image=5, beam_size=1,
@@ -276,8 +275,16 @@ def add_extension_args(parser):
                    choices=[0, 1],
                    help="train the image backbone instead of freezing it")
     g.add_argument("--beam-size", type=int, default=1,
-                   help="beam width for caption decoding (1 = greedy; beam "
-                        "search is not ported yet)")
+                   help="beam width for caption decoding at eval and in "
+                        "serving (1 = greedy; eval/decode.py:beam_search)")
+    g.add_argument("--length-penalty", type=float, default=0.0,
+                   help="GNMT length-penalty alpha for beam-search final "
+                        "ranking, ((5+len)/6)^alpha (0 = rank by pure "
+                        "log-probability); used by every beam surface "
+                        "(caption/evaluate/serve/instructor BLEU eval)")
+    g.add_argument("--eval-bleu-every", type=int, default=0,
+                   help="compute BLEU-4/NLL_gen/self-BLEU on val every N "
+                        "adversarial epochs (0 = off)")
     g.add_argument("--preset", type=str, default=None,
                    choices=sorted(PRESETS) + sorted(UNPORTED_PRESETS),
                    help="a named benchmark configuration as flag defaults "
@@ -332,8 +339,6 @@ _UNPORTED_FLAG_ARGS = (
     ("--checkpoint-every", dict(type=int, default=0), None),
     ("--keep-checkpoints", dict(type=int, default=0), None),
     ("--early-stop-patience", dict(type=int, default=0), None),
-    ("--eval-bleu-every", dict(type=int, default=0), None),
-    ("--length-penalty", dict(type=float, default=0.0), None),
     ("--scst-epochs", dict(type=int, default=0), None),
     ("--scst-reward", dict(type=str, default="cider",
                            choices=["cider", "bleu"]), None),
@@ -507,6 +512,13 @@ class Config:
     ema_decay: float = 0.0
     quantize: str = "none"
     beam_size: int = 1
+    length_penalty: float = 0.0
+    # the training loop's quality eval (GANInstructor.evaluate_quality):
+    # every N adversarial epochs, and its greedy decode in chunks of this
+    # many steps that stop once every row has emitted <E> (0: the full-T
+    # decode; the JAX package's GIC_EVAL_ADAPTIVE)
+    eval_bleu_every: int = 0
+    eval_adaptive_chunk: int = 0
     # the training loop (train/instructor.py, main.py)
     dataset: str = "coco"
     captions_per_image: int = 1
@@ -544,8 +556,6 @@ class Config:
     checkpoint_every: int = 0
     keep_checkpoints: int = 0
     early_stop_patience: int = 0
-    eval_bleu_every: int = 0
-    length_penalty: float = 0.0
     scst_epochs: int = 0
     scst_reward: str = "cider"
     scst_multi_ref: bool = False
@@ -629,15 +639,11 @@ def require_ported_arch(config: Config) -> None:
 
 def require_ported_flags(config: Config) -> None:
     """Raise for a flag of the JAX package that the port parses but does
-    not honour yet, when it is set; for ``--beam-size`` above 1 and
-    ``--encoder-arch vit``; and for a model :func:`require_ported_arch`
-    refuses; and for an unknown ``decode_impl``."""
+    not honour yet, when it is set; for ``--encoder-arch vit``; and for a
+    model :func:`require_ported_arch` refuses; and for an unknown
+    ``decode_impl``."""
     refuse_unported(_UNPORTED_FLAG_ARGS, config)
     decode_route(config)
-    if config.beam_size != 1:
-        raise NotImplementedError(
-            f"--beam-size {config.beam_size}: beam search is not ported yet "
-            "(pass --beam-size 1 for greedy decoding)")
     if config.encoder_arch != "resnet18":
         raise NotImplementedError(f"--encoder-arch {config.encoder_arch}: "
                                   "only the ResNet-18 encoder is ported yet")

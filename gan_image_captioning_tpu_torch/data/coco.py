@@ -42,6 +42,12 @@ class CocoCaptions:
         # dataset_percent truncates (tasks.py:106-108)
         return int(self.dataset_percent * len(self.captions))
 
+    def image_key(self, index: int) -> str:
+        """Grouping key for multi-reference evaluation: rows are flattened
+        per caption (up to ``captions_per_image`` per image), so the file
+        name says which rows share an image."""
+        return self.captions[index]["filename"]
+
     def sample(self, index: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         ids = self._token_ids[index]
         if not self.conditional:

@@ -71,6 +71,10 @@ class SyntheticCaptions:
         base[:, y0: y0 + s // 4, x0: x0 + s // 4] += 0.5
         return base
 
+    def image_key(self, index: int) -> str:
+        """One caption per synthetic item — every row is its own image."""
+        return str(index)
+
     def sample(self, index: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         rng = np.random.default_rng(self.seed * 1_000_003 + index)
         words, color = self._caption_words(rng)

@@ -1,1 +1,2 @@
-"""Caption decoding and post-processing."""
+"""Caption decoding (greedy, beam, sampled) and the caption-quality
+metrics."""

@@ -1,4 +1,5 @@
-"""Greedy caption decoding (``gan_image_captioning_tpu/eval/decode.py``).
+"""Caption decoding: greedy, sampled and beam search
+(``gan_image_captioning_tpu/eval/decode.py``).
 
 A generator here is a port :class:`Generator` or the quantized twin
 ``{"decoder": qdec}`` of ``ops/quantize.py:quantize_generator``.
@@ -14,14 +15,40 @@ A generator here is a port :class:`Generator` or the quantized twin
   wrapper call as the continuous engine's) and stops once every row has
   emitted ``<E>``.
 * The steppers (:func:`make_stepper`) are the per-step plain math of
-  each decoder, for teacher-forced scoring.
+  each decoder (dense LSTM, int8 / int4 LSTM, transformer over its KV
+  cache), for teacher-forced scoring, sampling and beam search.
 * A transformer generator decodes greedily through its KV-cache
   ``sample(pretrain=True)`` (JAX ``eval/decode.py:209-222``); its
   logprobs come from the same pass's logits (the teacher-forced logits of
   the greedy ids, which the JAX package recomputes with a second scan).
   The transformer has no serve kernel and no adaptive decode here.
+* :func:`sample_decode` (temperature, top-k, top-p, repetition penalty,
+  no-repeat n-grams, a minimum length), :func:`beam_search` (GNMT length
+  penalty) and :func:`diverse_beam_search` run over a stepper as plain
+  PyTorch, as the JAX package runs them outside any Pallas kernel (a
+  ``lax.while_loop`` over the per-step cell): beam search reselects its
+  rows at every step, so the whole-T decode kernel cannot run it.
 
-Beam search and sampling are not ported yet.
+:func:`beam_topk` keeps ``lax.top_k``'s order (values descending, ties to
+the lower index) with one stable sort; the JAX package's
+``GIC_BEAM_TOPK`` picks between two XLA lowerings of that same order and
+has no counterpart here.
+
+Early stop.  The JAX package tests ``done.all()`` in its
+``while_loop``'s condition on the device.  Here the loop is Python, and
+each test is a host read (a device synchronisation), so the searches read
+``done`` once every :data:`DONE_READ_EVERY` steps.  The steps run past the
+point where every row is done change nothing: a finished beam extends
+only with ``<PAD>`` at zero cost (``pad_only``), so the K best
+continuations are the beams themselves in their order, and an ended
+sample row emits ``<PAD>`` at zero logprob.  The ids and scores are the
+JAX package's, and the host waits for the device once per
+:data:`DONE_READ_EVERY` steps instead of every step.
+
+Sampling noise.  ``jax.random.categorical(key, x)`` is ``argmax(x +
+gumbel(key, x.shape))``; :func:`sample_decode` adds fed Gumbel noise
+``[T, B, V]`` (the tests feed the JAX key chain's draws) or draws it from
+an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -40,6 +67,20 @@ from gan_image_captioning_tpu_torch.models import transformer as tf_lib
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.models.generator import greedy_ids
 from gan_image_captioning_tpu_torch.ops import quantize as q_lib
+from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+NEG_INF = -1e9
+DONE_READ_EVERY = 4      # steps between two host reads of the done flags
+
+
+def beam_topk(x, k: int):
+    """Top ``k`` along the last axis → ``(values, indices int64)`` in
+    ``lax.top_k``'s order: values descending, equal values by ascending
+    index (``torch.topk`` promises no order among equal values on CUDA;
+    a stable descending sort keeps the lower index first)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
 
 
 class Stepper(NamedTuple):
@@ -303,3 +344,334 @@ def sequence_logprob(generator, features, ids, config: Config):
         lps.append(logp.gather(1, ids_l[:, t:t + 1])[:, 0])
         x = stepper.embed(ids_l[:, t])
     return masked_logprob_sum(ids, torch.stack(lps, dim=1))
+
+
+# ------------------------------------------------------------------ sampling
+
+def _refuse_context(context):
+    if context is not None:
+        raise NotImplementedError("decoding with a cross-attention context "
+                                  "(the conditional transformer) is not "
+                                  "ported yet")
+
+
+def _scalar(value, like):
+    """``value`` as a one-element float32 tensor on ``like``'s device: a
+    division by it is a true division on every device (CUDA divides by a
+    host scalar as a product with its reciprocal)."""
+    return torch.full((1,), value, dtype=like.dtype, device=like.device)
+
+
+def filter_logits(logits, temperature=1.0, top_k: int = 0,
+                  top_p: float = 1.0):
+    """Temperature + top-k + nucleus (top-p) filtering of ``[N, V]``
+    logits (the GPT-2 recipe): scale by the temperature, keep the k
+    highest logits, then the smallest prefix of the sorted distribution
+    whose mass reaches ``top_p`` (the top token is always kept).  Filtered
+    entries drop to :data:`NEG_INF`."""
+    logits = logits / torch.clamp(_scalar(temperature, logits), min=1e-6)
+    if top_k and top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]      # [N, 1]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep_sorted = (cum - probs) < top_p                 # >= 1 kept a row
+        last_kept = keep_sorted.sum(dim=-1) - 1                       # [N]
+        thresh = sorted_logits.gather(1, last_kept[:, None])          # [N, 1]
+        logits = torch.where(logits < thresh, NEG_INF, logits)
+    return logits
+
+
+def _ngram_ban(ids_buf, t: int, last_ids, n: int, V: int):
+    """``[B, V]`` bool mask of the tokens that would complete, at position
+    ``t``, an n-gram already in ``ids_buf[:, :t]`` (no-repeat-ngram): for
+    every history position j whose n-1 tokens before it match the current
+    suffix, ``ids_buf[:, j]`` is banned.  One ``scatter_`` into a
+    ``[B, V+1]`` mask, column V taking the positions that ban nothing."""
+    B, T = ids_buf.shape
+    pos = torch.arange(T, device=ids_buf.device)
+    prev1 = torch.nn.functional.pad(ids_buf, (1, 0))[:, :T]  # token at j-1
+    match = prev1 == last_ids[:, None]
+    if n == 3:
+        prev2 = torch.nn.functional.pad(ids_buf, (2, 0))[:, :T]  # at j-2
+        two_back = ids_buf[:, max(t - 2, 0)]
+        match &= (prev2 == two_back[:, None]) & (pos >= 2)[None]
+    else:
+        match &= (pos >= 1)[None]
+    match &= (pos < t)[None]                                 # history only
+    banned_tok = torch.where(match, ids_buf, V).long()
+    mask = torch.zeros((B, V + 1), dtype=torch.bool, device=ids_buf.device)
+    return mask.scatter_(1, banned_tok, True)[:, :V]
+
+
+@torch.no_grad()
+def sample_decode(generator, features, config: Config, rng=None,
+                  seq_len: int = None, context=None, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 1.0,
+                  early_stop: bool = False, repetition_penalty: float = 1.0,
+                  no_repeat_ngram: int = 0, min_length: int = 0,
+                  noise=None):
+    """Stochastic decode → ``(ids [B, T] int32, seq_logprob [B])``: each
+    token drawn from the temperature / top-k / top-p filtered categorical
+    (``argmax(filtered + Gumbel noise)``).  The noise is ``noise[t]`` of
+    the fed ``[T, B, V]`` tensor, or drawn per step from the
+    ``torch.Generator`` ``rng`` on the features' device.
+
+    Reported log-probabilities are under the model's unfiltered
+    distribution, masked after the first ``<E>``.  ``top_k=1`` is greedy.
+    ``early_stop``: ended rows emit ``<PAD>`` at zero logprob and the loop
+    ends once every row has sampled ``<E>`` (read every
+    :data:`DONE_READ_EVERY` steps; the module docstring says why that is
+    the same result).  Selection-only controls, as in the JAX package:
+    ``repetition_penalty`` γ (logits of emitted tokens divided by γ, or
+    multiplied when negative), ``no_repeat_ngram`` n ∈ {2, 3} and
+    ``min_length`` (``<E>`` banned before it)."""
+    _refuse_context(context)
+    seq_len = seq_len or config.seq_len
+    if no_repeat_ngram not in (0, 2, 3):
+        raise ValueError("no_repeat_ngram must be 0, 2 or 3")
+    B, V, device = features.shape[0], config.vocab_size, features.device
+    stepper = make_stepper(generator, config)
+    state = stepper.init_state(B)
+    rep_pen = _scalar(repetition_penalty, features)
+    track_seen = repetition_penalty != 1.0
+
+    def pick(t, logits, seen, banned):
+        sel = logits
+        if seen is not None:
+            pen = torch.where(logits > 0, logits / rep_pen, logits * rep_pen)
+            sel = torch.where(seen, pen, logits)
+        if banned is not None:
+            sel = torch.where(banned, NEG_INF, sel)
+        if t < min_length:
+            sel = sel.clone()
+            sel[:, END] = NEG_INF
+        filt = filter_logits(sel, temperature, top_k, top_p)
+        g = noise[t] if noise is not None else gumbel_noise(
+            filt.shape, rng, device)
+        ids_t = torch.argmax(g + filt, dim=-1)
+        lp = torch.log_softmax(logits, dim=-1).gather(1, ids_t[:, None])[:, 0]
+        return ids_t, lp
+
+    logits0, state = stepper.step(state, features, 0)
+    ids0, lp0 = pick(0, logits0, None, None)
+    ids_buf = torch.zeros((B, seq_len), dtype=torch.int32, device=device)
+    lps_buf = torch.zeros((B, seq_len), dtype=torch.float32, device=device)
+    ids_buf[:, 0] = ids0
+    lps_buf[:, 0] = lp0
+    seen = None
+    if track_seen:
+        seen = torch.zeros((B, V), dtype=torch.bool, device=device)
+        seen.scatter_(1, ids0[:, None], True)
+    done = ids0 == END
+    last_ids = ids0
+    for t in range(1, seq_len):
+        if early_stop and (t - 1) % DONE_READ_EVERY == 0 and bool(done.all()):
+            break
+        logits, state = stepper.step(state, stepper.embed(last_ids), t)
+        banned = (None if not no_repeat_ngram else
+                  _ngram_ban(ids_buf, t, last_ids.to(torch.int32),
+                             no_repeat_ngram, V))
+        ids_t, lp = pick(t, logits, seen, banned)
+        if track_seen:
+            seen.scatter_(1, ids_t[:, None], True)
+        out_ids, out_lp = ids_t, lp
+        if early_stop:
+            # live rows draw what the full run draws (noise[t] is
+            # positional); ended rows' draws are discarded
+            out_ids = torch.where(done, PAD, ids_t)
+            out_lp = torch.where(done, 0.0, lp)
+        done = done | (ids_t == END)
+        ids_buf[:, t] = out_ids
+        lps_buf[:, t] = out_lp
+        last_ids = ids_t
+    return ids_buf, masked_logprob_sum(ids_buf, lps_buf)
+
+
+# --------------------------------------------------------------- beam search
+
+def _pad_only(V: int, like):
+    """The continuation log-probs of a finished beam: ``<PAD>`` at zero
+    cost, everything else :data:`NEG_INF`."""
+    pad_only = torch.full((V,), NEG_INF, dtype=like.dtype, device=like.device)
+    pad_only[PAD] = 0.0
+    return pad_only
+
+
+def _ban_end(logp, t: int, min_length: int):
+    """``<E>`` at :data:`NEG_INF` before ``min_length`` tokens stand
+    (selection only)."""
+    if t < min_length:
+        logp = logp.clone()
+        logp[..., END] = NEG_INF
+    return logp
+
+
+def _reselect(stepper, new_state, tokens, lengths, done, parent, token,
+              t: int):
+    """The beams' state, token buffer, lengths and done flags after each
+    beam ``k`` of row ``b`` took ``token[b, k]`` after beam
+    ``parent[b, k]``."""
+    B, K = parent.shape
+    gidx = (torch.arange(B, device=parent.device)[:, None] * K
+            + parent).reshape(-1)
+    state = stepper.gather(new_state, gidx)
+    tokens = tokens.gather(1, parent[..., None].expand(-1, -1,
+                                                        tokens.shape[2]))
+    tokens[:, :, t] = token.to(torch.int32)
+    parent_done = done.gather(1, parent)
+    parent_len = lengths.gather(1, parent)
+    done = parent_done | (token == END)
+    lengths = torch.where(parent_done, parent_len, parent_len + 1)
+    return state, tokens, lengths, done
+
+
+def _length_normalized(scores, lengths, length_penalty: float):
+    """GNMT: ``scores / ((5 + length) / 6) ** length_penalty``."""
+    return scores / ((5.0 + lengths.to(torch.float32)) / 6.0) ** length_penalty
+
+
+@torch.no_grad()
+def beam_search(generator, features, config: Config, beam_size: int = 4,
+                seq_len: int = None, context=None,
+                length_penalty: float = 0.0, early_stop: bool = True,
+                min_length: int = 0):
+    """Batched beam search → ``(ids [B, T] int32, scores [B])``.
+
+    All ``B·K`` hypotheses advance through the stepper one step at a time;
+    each row keeps the top K of its ``K·V`` continuations
+    (:func:`beam_topk`: parent ``flat // V``, token ``flat % V``) and the
+    stepper's ``gather`` reindexes the carried state (the LSTM's
+    ``(h, c)``, the transformer's per-layer KV lists).  A beam that has
+    emitted ``<E>`` extends only with ``<PAD>`` at zero cost
+    (``pad_only``), so ``early_stop`` (the loop ends once every beam of
+    every row is done) gives the full-T result.  The best beam by the
+    GNMT length penalty ``((5 + len) / 6) ** length_penalty`` is returned
+    with its normalized score."""
+    _refuse_context(context)
+    seq_len = seq_len or config.seq_len
+    K, B, V = beam_size, features.shape[0], config.vocab_size
+    device = features.device
+    stepper = make_stepper(generator, config)
+
+    # t = 0: every beam of a row reads the features; the row's top K
+    state = stepper.init_state(B * K)
+    logits0, state = stepper.step(state, features.repeat_interleave(K, 0), 0)
+    logp0 = _ban_end(torch.log_softmax(logits0.reshape(B, K, V)[:, 0], -1),
+                     0, min_length)
+    scores, ids0 = beam_topk(logp0, K)                          # [B, K]
+    done = ids0 == END
+    tokens = torch.full((B, K, seq_len), PAD, dtype=torch.int32,
+                        device=device)
+    tokens[:, :, 0] = ids0.to(torch.int32)
+    lengths = torch.ones((B, K), dtype=torch.int32, device=device)
+    pad_only = _pad_only(V, logits0)
+    last = ids0
+    for t in range(1, seq_len):
+        if early_stop and (t - 1) % DONE_READ_EVERY == 0 and bool(done.all()):
+            break
+        logits, new_state = stepper.step(state, stepper.embed(
+            last.reshape(-1)), t)
+        logp = _ban_end(torch.log_softmax(logits, -1).reshape(B, K, V), t,
+                        min_length)
+        logp = torch.where(done[..., None], pad_only, logp)
+        scores, flat_idx = beam_topk((scores[..., None] + logp).reshape(
+            B, K * V), K)
+        parent, last = flat_idx // V, flat_idx % V
+        state, tokens, lengths, done = _reselect(
+            stepper, new_state, tokens, lengths, done, parent, last, t)
+
+    final = _length_normalized(scores, lengths, length_penalty)
+    best = torch.argmax(final, dim=1)                               # [B]
+    rows = torch.arange(B, device=device)
+    return tokens[rows, best], final[rows, best]
+
+
+@torch.no_grad()
+def diverse_beam_search(generator, features, config: Config,
+                        beam_size: int = 4, num_groups: int = 2,
+                        diversity_strength: float = 0.5,
+                        seq_len: int = None, context=None,
+                        length_penalty: float = 0.0, min_length: int = 0):
+    """Diverse beam search (Vijayakumar et al. 2016) → ``(ids [B, G, T]
+    int32, scores [B, G])``, one caption per group.
+
+    ``beam_size`` beams in ``num_groups`` groups of ``beam_size / G``; at
+    every step the groups select in turn, group g's candidate log-probs
+    lowered by ``diversity_strength`` times the number of times each token
+    was chosen at this step by the groups before it (Hamming diversity,
+    ``<PAD>`` not counted).  Each group's best beam is ranked by the
+    penalized objective, but its reported score is the true length-
+    normalized log-probability.  ``G = 1``, ``diversity_strength = 0`` is
+    vanilla beam search.  The loop ends once every beam is done (read
+    every :data:`DONE_READ_EVERY` steps)."""
+    _refuse_context(context)
+    seq_len = seq_len or config.seq_len
+    K, G = beam_size, num_groups
+    if K % G:
+        raise ValueError(f"beam_size {K} must divide into num_groups {G}")
+    Kg = K // G
+    B, V, device = features.shape[0], config.vocab_size, features.device
+    lam = torch.tensor(diversity_strength, dtype=torch.float32, device=device)
+    stepper = make_stepper(generator, config)
+
+    def select(logp, scores, t0: bool):
+        """Group-sequential top-Kg → (penalized scores, parent beam,
+        token, the token's true step log-prob)."""
+        counts = torch.zeros((B, V), dtype=torch.float32, device=device)
+        out_s, out_p, out_tok = [], [], []
+        for g in range(G):
+            lp_g = logp[:, g * Kg:(g + 1) * Kg] - lam * counts[:, None, :]
+            if t0:                       # every beam of a group is alike
+                s_g, tok_g = beam_topk(lp_g[:, 0], Kg)
+                par_g = torch.full_like(tok_g, g * Kg)
+            else:
+                cand = scores[:, g * Kg:(g + 1) * Kg, None] + lp_g
+                s_g, flat = beam_topk(cand.reshape(B, Kg * V), Kg)
+                par_g, tok_g = flat // V + g * Kg, flat % V
+            live_tok = torch.where(tok_g == PAD, V, tok_g)   # V: off-table
+            hits = torch.zeros((B, V + 1), dtype=torch.float32, device=device)
+            hits.scatter_add_(1, live_tok, torch.ones_like(s_g))
+            counts = counts + hits[:, :V]
+            out_s.append(s_g)
+            out_p.append(par_g)
+            out_tok.append(tok_g)
+        parent, token = torch.cat(out_p, dim=1), torch.cat(out_tok, dim=1)
+        step_lp = logp.gather(1, parent[..., None].expand(-1, -1, V)).gather(
+            2, token[..., None])[..., 0]
+        return torch.cat(out_s, dim=1), parent, token, step_lp
+
+    state = stepper.init_state(B * K)
+    logits0, state = stepper.step(state, features.repeat_interleave(K, 0), 0)
+    logp0 = _ban_end(torch.log_softmax(logits0, -1).reshape(B, K, V), 0,
+                     min_length)
+    scores, _, last, true_scores = select(logp0, None, t0=True)
+    done = last == END
+    tokens = torch.full((B, K, seq_len), PAD, dtype=torch.int32,
+                        device=device)
+    tokens[:, :, 0] = last.to(torch.int32)
+    lengths = torch.ones((B, K), dtype=torch.int32, device=device)
+    pad_only = _pad_only(V, logits0)
+    for t in range(1, seq_len):
+        if (t - 1) % DONE_READ_EVERY == 0 and bool(done.all()):
+            break
+        logits, new_state = stepper.step(state, stepper.embed(
+            last.reshape(-1)), t)
+        logp = _ban_end(torch.log_softmax(logits, -1).reshape(B, K, V), t,
+                        min_length)
+        logp = torch.where(done[..., None], pad_only, logp)
+        scores, parent, last, step_lp = select(logp, scores, t0=False)
+        true_scores = true_scores.gather(1, parent) + step_lp
+        state, tokens, lengths, done = _reselect(
+            stepper, new_state, tokens, lengths, done, parent, last, t)
+
+    final = _length_normalized(scores, lengths, length_penalty).reshape(
+        B, G, Kg)
+    true_final = _length_normalized(true_scores, lengths,
+                                    length_penalty).reshape(B, G, Kg)
+    best = torch.argmax(final, dim=2)                                # [B, G]
+    best_tokens = tokens.reshape(B, G, Kg, seq_len).gather(
+        2, best[:, :, None, None].expand(-1, -1, 1, seq_len))[:, :, 0]
+    return best_tokens, true_final.gather(2, best[..., None])[..., 0]

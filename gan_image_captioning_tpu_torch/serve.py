@@ -5,15 +5,24 @@ answered as JSON lines.  Two engines (``serving.py``):
 
 * by default one dispatcher
   (:class:`~gan_image_captioning_tpu_torch.serving.CoalescingBatcher`)
-  coalesces requests into fixed-shape greedy decode batches, each one call
-  of the serve-mode decode kernel on the card (``--serve-adaptive-chunk K``:
-  K-step chunks of the carried-state kernel until every row has emitted
-  ``<E>``);
+  coalesces requests into fixed-shape decode batches: greedy, each one
+  call of the serve-mode decode kernel on the card
+  (``--serve-adaptive-chunk K``: K-step chunks of the carried-state kernel
+  until every row has emitted ``<E>``); beam search
+  (``--decode-mode beam``, or ``auto`` with ``--beam-size`` above 1;
+  ``--length-penalty``, ``--min-length``); or sampling (``--decode-mode
+  sample`` with ``--top-k``, ``--top-p``, ``--sample-temperature``,
+  ``--repetition-penalty``, ``--no-repeat-ngram``, ``--min-length``), its
+  noise from a ``torch.Generator`` seeded by (``--sample-seed``, the
+  dispatcher's call index), and ended rows stop early unless
+  ``--serve-exact``;
 * ``--serve-continuous``: a pool of ``--serve-batch-size`` decode slots
   (:class:`~gan_image_captioning_tpu_torch.serving.ContinuousBatcher`)
   advances ``--serve-chunk-steps`` tokens per call of the carried-state
   kernel, and requests join it at chunk boundaries.  A slot frees at the
   first chunk with ``<E>`` (the tail is ``<PAD>``) unless ``--serve-exact``.
+  It decodes greedily: with beam search or sampling the coalescing
+  engine serves, as in the JAX package.
 
 ``--quantize int8|int4`` serves the quantized decoder (``ops/quantize.py``)
 through the quantized serve kernel in either engine.  A transformer
@@ -58,9 +67,9 @@ Response: {"captions": [...], "logprobs": [...], "latency_ms": t}
 
 The service runs on ``--device cuda`` (the default) and raises when CUDA
 is missing; ``--device cpu`` runs the plain PyTorch decode.  Every flag of
-``src/serve.py`` parses; not ported, and raising when set: ``--decode-mode``
-other than ``auto`` / ``greedy`` and the sample and draft flags, HTTP,
-``--exported``, ``--serve-watch`` (and ``{"reload"}``), ``--mesh``.
+``src/serve.py`` parses; not ported, and raising when set: ``--decode-mode
+speculative`` and ``--draft-len``, HTTP, ``--exported``, ``--serve-watch``
+(and ``{"reload"}``), ``--mesh``.
 """
 
 from __future__ import annotations
@@ -104,17 +113,57 @@ _UNPORTED_SERVE_ARGS = (
     ("--serve-watch", dict(type=float, default=0.0), None),
     ("--decode-mode", dict(type=str, default="auto",
                            choices=["auto", "greedy", "beam", "sample",
-                                    "speculative"]), ("auto", "greedy")),
+                                    "speculative"]),
+     ("auto", "greedy", "beam", "sample")),
     ("--draft-len", dict(type=int, default=4), None),
-    ("--top-k", dict(type=int, default=0), None),
-    ("--top-p", dict(type=float, default=1.0), None),
-    ("--sample-temperature", dict(type=float, default=1.0), None),
-    ("--repetition-penalty", dict(type=float, default=1.0), None),
-    ("--no-repeat-ngram", dict(type=int, default=0, choices=[0, 2, 3]),
-     None),
-    ("--min-length", dict(type=int, default=0), None),
-    ("--sample-seed", dict(type=int, default=0), None),
 )
+
+
+def add_sampling_args(parser):
+    """The sampled decode's knobs (``src/serve.py`` and ``src/caption.py``
+    name them alike)."""
+    parser.add_argument("--top-k", type=int, default=0,
+                        help="sample mode: keep only the k highest-"
+                             "probability tokens per step (0 = no top-k "
+                             "filter)")
+    parser.add_argument("--top-p", type=float, default=1.0,
+                        help="sample mode: nucleus filtering, keep the "
+                             "smallest token prefix whose probability mass "
+                             "reaches p (1.0 = off)")
+    parser.add_argument("--sample-temperature", type=float, default=1.0,
+                        help="sample mode: softmax temperature (<1 sharpens, "
+                             ">1 flattens)")
+    parser.add_argument("--repetition-penalty", type=float, default=1.0,
+                        help="sample mode: CTRL-style penalty on already-"
+                             "emitted tokens (>1; with --top-k 1 this is "
+                             "penalized greedy)")
+    parser.add_argument("--no-repeat-ngram", type=int, default=0,
+                        choices=[0, 2, 3],
+                        help="sample mode: forbid completing an n-gram the "
+                             "caption already contains")
+    parser.add_argument("--min-length", type=int, default=0,
+                        help="beam/sample modes: forbid <E> until this many "
+                             "tokens stand (selection only)")
+    parser.add_argument("--sample-seed", type=int, default=0,
+                        help="sample mode: the seed of the noise generator")
+
+
+def decode_mode(args, config) -> str:
+    """``--decode-mode`` with ``auto`` resolved: beam when
+    ``--beam-size`` is above 1, else greedy."""
+    mode = args.decode_mode
+    if mode == "auto":
+        mode = "beam" if config.beam_size > 1 else "greedy"
+    return mode
+
+
+def sample_generator(seed: int, call: int, device) -> torch.Generator:
+    """The noise generator of the ``call``-th sampled decode under
+    ``--sample-seed seed``: deterministic per (seed, call), as the JAX
+    package folds its call count into its base key."""
+    state = np.random.SeedSequence([seed, call]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1]))
 
 
 def parse_args(argv=None):
@@ -142,7 +191,9 @@ def parse_args(argv=None):
     parser.add_argument("--serve-continuous", action="store_true",
                         help="slot-based continuous batching: requests join "
                              "the decode pool at chunk boundaries instead "
-                             "of waiting for whole batches")
+                             "of waiting for whole batches (greedy only: "
+                             "beam search and sampling take the coalescing "
+                             "engine)")
     parser.add_argument("--serve-chunk-steps", type=int, default=8,
                         help="decode steps per device call in "
                              "--serve-continuous mode")
@@ -150,11 +201,13 @@ def parse_args(argv=None):
                         help="--serve-continuous: no early slot release, so "
                              "ids equal the full-T batch greedy decode (by "
                              "default a slot frees at the first chunk with "
-                             "<E> and the tail is <PAD>)")
+                             "<E> and the tail is <PAD>); sample mode: no "
+                             "early stop")
     parser.add_argument("--serve-adaptive-chunk", type=int, default=0,
                         help="coalescing decode in K-step chunks that stop "
                              "once every row has emitted <E> (0 = the full "
                              "T-step decode); the tail after <E> is <PAD>")
+    add_sampling_args(parser)
     for flag, kw, honoured in _UNPORTED_SERVE_ARGS:
         parser.add_argument(flag, **kw, help=(
             f"honours {', '.join(honoured)}; the rest raises" if honoured
@@ -222,13 +275,17 @@ class CaptionService:
                            if self.config.quantize != "none"
                            else self.generator)
         self.adaptive_chunk = int(args.serve_adaptive_chunk)
+        self.mode = decode_mode(args, self.config)
+        self.args = args
+        self.sample_calls = 0        # read and advanced by the dispatcher
         self.continuous = None
         self.batcher = CoalescingBatcher(
             self._run_decode, self.batch_size, self.config.gen_embed_dim,
             bucket_sizes=_parse_buckets(args.serve_buckets, self.batch_size),
             max_pending=args.serve_max_pending)
         try:
-            if args.serve_continuous:
+            if (args.serve_continuous and self.config.beam_size == 1
+                    and self.mode != "sample"):
                 self.continuous = ContinuousBatcher(
                     self.dec_params, self.config, num_slots=self.batch_size,
                     chunk_steps=args.serve_chunk_steps,
@@ -250,6 +307,23 @@ class CaptionService:
     def _run_decode(self, feats: np.ndarray):
         """One dispatched batch → ``(ids, seq_logprob)`` on the device."""
         x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
+        a = self.args
+        if self.mode == "sample":
+            rng = sample_generator(a.sample_seed, self.sample_calls,
+                                   self.device)
+            self.sample_calls += 1
+            return decode_lib.sample_decode(
+                self.dec_params, x, self.config, rng,
+                temperature=a.sample_temperature, top_k=a.top_k,
+                top_p=a.top_p, early_stop=not a.serve_exact,
+                repetition_penalty=a.repetition_penalty,
+                no_repeat_ngram=a.no_repeat_ngram, min_length=a.min_length)
+        if self.config.beam_size > 1:
+            return decode_lib.beam_search(
+                self.dec_params, x, self.config,
+                beam_size=self.config.beam_size,
+                length_penalty=self.config.length_penalty,
+                min_length=a.min_length)
         if self.adaptive_chunk > 0:
             return decode_lib.greedy_with_logprobs_adaptive(
                 self.dec_params, x, self.config, chunk=self.adaptive_chunk)

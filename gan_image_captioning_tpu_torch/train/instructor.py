@@ -14,13 +14,18 @@ port's steps:
   ``adv_model.ckpt`` (generator, discriminator and the ``conditional``
   flag).
 
+With ``--eval-bleu-every N`` the adversarial epochs 0, N, 2N, ... end
+with :meth:`GANInstructor.evaluate_quality` (NLL_gen, BLEU-4 and self-BLEU
+on the val set, logged as ``[EVAL]`` and written as ``NLL_gen``,
+``BLEU4`` and ``SelfBLEU4``).
+
 As in the JAX package, the temperature and the step counters do not
 advance during val sweeps.  Scalars go to ``metrics.jsonl`` with the JAX
 package's tags; each sweep's metrics are read from the device once, at
 its end.  Batches are built in this thread and copied to the device before
 their step (``--num-workers`` / ``--device-prefetch`` are accepted and
 change nothing but overlap in the JAX package).  Interrupt and resume,
-snapshots, early stop, SCST, the quality eval, multi-step calls, meshes,
+snapshots, early stop, SCST, multi-step calls, meshes,
 cached features and EMA are not ported: their flags raise
 (``config.require_ported_flags``).
 """
@@ -36,6 +41,12 @@ import torch
 from gan_image_captioning_tpu_torch.config import (Config, require_ported_flags,
                                                    resolve_device)
 from gan_image_captioning_tpu_torch.data.loader import Batcher
+from gan_image_captioning_tpu_torch.eval import decode as decode_lib
+from gan_image_captioning_tpu_torch.eval.diversity import self_bleu
+from gan_image_captioning_tpu_torch.eval.metrics import (bleu4_from_batches,
+                                                         ids_to_words,
+                                                         strip_caption)
+from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.ops.temperature import get_fixed_temperature
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
 from gan_image_captioning_tpu_torch.train.state import (create_train_state,
@@ -197,6 +208,57 @@ class GANInstructor:
             self.writer.add_scalar("adv_steps_per_sec", rate, step)
         return float(np.mean(g_losses or [0])), float(np.mean(d_losses or [0]))
 
+    # ------------------------------------------------------- quality eval
+
+    @torch.no_grad()
+    def _quality_decode(self, batch):
+        """The eval decode's ids: beam search when ``beam_size > 1``, else
+        greedy (in early-stopping chunks under ``eval_adaptive_chunk``)."""
+        config, gen = self.config, self.state.gen
+        cond, _ = api.generator_condition(config, gen, batch, train=False)
+        feats = cond["features"]
+        if config.beam_size > 1:
+            return decode_lib.beam_search(
+                gen, feats, config, beam_size=config.beam_size,
+                length_penalty=config.length_penalty)[0]
+        if config.eval_adaptive_chunk > 0:
+            return decode_lib.greedy_with_logprobs_adaptive(
+                gen, feats, config, chunk=config.eval_adaptive_chunk)[0]
+        return decode_lib.greedy(gen, feats, config)
+
+    def evaluate_quality(self, max_batches=None):
+        """NLL_gen, BLEU-4 and self-BLEU on the dev set (the report's
+        metrics, NLP_Report.pdf §4.3), with two decoded captions in the log
+        as ``[SAMPLE]`` lines.  The losses and ids are read from the device
+        once, after the sweep."""
+        nll_dev, gen_dev, real_batches, weight_batches = [], [], [], []
+        for i, batch in enumerate(self.pre_eval_loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            batch_dev = batch_to(batch, self.device)
+            self.state, metrics = self.mle_eval_step(self.state, batch_dev)
+            nll_dev.append(metrics["gen_pretrain_loss"])
+            gen_dev.append(self._quality_decode(batch_dev))
+            real_batches.append(batch["captions"])
+            weight_batches.append(batch.get("weights"))
+        nll = torch.stack(nll_dev).tolist() if nll_dev else []
+        gen_batches = [ids.cpu().numpy() for ids in gen_dev]
+        bleu4 = bleu4_from_batches(gen_batches, real_batches, weight_batches)
+        # mode-collapse probe: self-BLEU of the generated corpus (1.0 =
+        # every caption identical)
+        gen_caps = [strip_caption(row)
+                    for ids_b, w_b in zip(gen_batches, weight_batches)
+                    for row, w in zip(ids_b, w_b if w_b is not None
+                                      else [1] * len(ids_b)) if w != 0]
+        i2w = getattr(self.dev_dataset, "index_to_word", None)
+        if i2w and gen_batches:
+            for row, ref in list(zip(gen_batches[0], real_batches[0]))[:2]:
+                self.log.info("[SAMPLE] gen: %s | ref: %s" % (
+                    " ".join(ids_to_words(strip_caption(row), i2w)),
+                    " ".join(ids_to_words(strip_caption(ref), i2w))))
+        return {"nll_gen": float(np.mean(nll or [0])), "bleu4": bleu4,
+                "self_bleu4": self_bleu(gen_caps)}
+
     def _run(self):
         """The full schedule — reference ``_run`` (training.py:201-235)."""
         self.pretrain_generator(self.config.pretrain_epochs)
@@ -220,6 +282,16 @@ class GANInstructor:
                     "%.4f \n\t d_loss: %.4f | %.4f  [%.1fs]" % (
                         adv_epoch, self.state.temperature, train_g, val_g,
                         train_d, val_d, time.time() - t_start))
+            if (self.config.eval_bleu_every
+                    and adv_epoch % self.config.eval_bleu_every == 0):
+                q = self.evaluate_quality()
+                step = int(self.state.gen_steps)
+                self.writer.add_scalar("NLL_gen", q["nll_gen"], step)
+                self.writer.add_scalar("BLEU4", q["bleu4"], step)
+                self.writer.add_scalar("SelfBLEU4", q["self_bleu4"], step)
+                self.log.info("[EVAL] NLL_gen %.4f | BLEU-4 %.5f | "
+                              "self-BLEU %.4f"
+                              % (q["nll_gen"], q["bleu4"], q["self_bleu4"]))
         self.writer.close()
 
 

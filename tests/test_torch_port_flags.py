@@ -98,7 +98,7 @@ def test_jax_command_line_at_defaults_parses_and_trains(tmp_path):
 
 # every flag the port parses and refuses when set, with a set value
 REFUSED = [("--resume-schedule", "0"), ("--keep-checkpoints", "2"),
-           ("--length-penalty", "0.6"), ("--scst-reward", "bleu"),
+           ("--scst-reward", "bleu"),
            ("--scst-multi-ref", None), ("--scst-lr", "0.001"),
            ("--cp-mode", "ring"), ("--pp-microbatches", "2"),
            ("--zero1", None), ("--lr-warmup-steps", "10"),
@@ -120,10 +120,13 @@ def test_refused_flags_raise_when_set(flag, value):
 @pytest.mark.parametrize("argv", [
     ["--vocab-size", "99"], ["--padding-idx", "1"], ["--device-ids", "1"],
     ["--test-log-step", "5"], ["--no-jit"], ["--decode-impl", "kernel"],
-    ["--decode-impl", "decoupled"]] + [
+    ["--decode-impl", "decoupled"], ["--length-penalty", "0.6"]] + [
     ["--disc-engine", e] for e in ("auto", "xla", "pallas", "hybrid", "mxu")])
 def test_accepted_flags_pass(argv):
-    require_ported_flags(config_from_args(build_parser().parse_args(argv)))
+    config = config_from_args(build_parser().parse_args(argv))
+    require_ported_flags(config)
+    if argv[0] == "--length-penalty":
+        assert config.length_penalty == 0.6
 
 
 def test_decode_impl_maps_onto_the_port_routes():
@@ -141,12 +144,8 @@ def test_decode_impl_maps_onto_the_port_routes():
 
 
 SERVE_REFUSED = [("--exported", "m.gic"), ("--http-port", "8080"),
-                 ("--serve-watch", "5"), ("--decode-mode", "beam"),
-                 ("--decode-mode", "sample"), ("--decode-mode", "speculative"),
-                 ("--draft-len", "2"), ("--top-k", "5"), ("--top-p", "0.9"),
-                 ("--sample-temperature", "0.7"),
-                 ("--repetition-penalty", "1.2"), ("--no-repeat-ngram", "2"),
-                 ("--min-length", "3"), ("--sample-seed", "1")]
+                 ("--serve-watch", "5"), ("--decode-mode", "speculative"),
+                 ("--draft-len", "2")]
 
 
 @pytest.mark.parametrize("flag,value", SERVE_REFUSED)
@@ -155,14 +154,45 @@ def test_refused_serve_flags_raise_when_set(flag, value):
         tserve.parse_args(["--init-seed", "0", flag, value])
 
 
-@pytest.mark.parametrize("mode", ["auto", "greedy"])
-def test_greedy_decode_modes_serve(mode):
+# every decode mode the port serves, and each sampling knob: (mode, more
+# flags, the service's resolved mode)
+SERVE_MODES = [
+    pytest.param("auto", [], "greedy", id="auto"),
+    pytest.param("greedy", [], "greedy", id="greedy"),
+    pytest.param("beam", ["--beam-size", "3"], "beam", id="beam"),
+    pytest.param("sample", [], "sample", id="sample"),
+    pytest.param("sample", ["--top-k", "5"], "sample", id="top-k"),
+    pytest.param("sample", ["--top-p", "0.9"], "sample", id="top-p"),
+    pytest.param("sample", ["--sample-temperature", "0.7"], "sample",
+                 id="sample-temperature"),
+    pytest.param("sample", ["--repetition-penalty", "1.2"], "sample",
+                 id="repetition-penalty"),
+    pytest.param("sample", ["--no-repeat-ngram", "2"], "sample",
+                 id="no-repeat-ngram"),
+    pytest.param("beam", ["--beam-size", "2", "--min-length", "3"], "beam",
+                 id="min-length"),
+    pytest.param("sample", ["--sample-seed", "1"], "sample",
+                 id="sample-seed")]
+
+
+@pytest.mark.parametrize("mode,extra,resolved", SERVE_MODES)
+def test_greedy_decode_modes_serve(mode, extra, resolved):
+    """Each decode mode and knob parses, reaches the service and answers
+    (the mode and knobs against the JAX package's decodes:
+    ``test_torch_port_{beam,sample_decode,evaluate}.py``)."""
     args = tserve.parse_args(["--init-seed", "0", "--decode-mode", mode,
                               "--device", "cpu", "--dataset", "synthetic",
                               "--gen-embed-dim", "8", "--gen-hidden-dim",
-                              "8", "--max-seq-len", "5"])
+                              "8", "--max-seq-len", "5", *extra])
     service = tserve.CaptionService(args)
     try:
-        assert len(service.handle_request({"n": 2})["captions"]) == 2
+        assert service.mode == resolved
+        for flag, value in zip(extra[::2], extra[1::2]):
+            dest = flag[2:].replace("-", "_")
+            assert str(getattr(args, dest)) == value
+        out = service.handle_request({"n": 2})
+        assert len(out["captions"]) == 2
+        if "--min-length" in extra:
+            assert all(len(c.split()) >= 3 for c in out["captions"])
     finally:
         service.close()

@@ -55,7 +55,10 @@ def test_fresh_import_adds_no_jax_module():
                  "data.vocab", "train.instructor", "train.checkpoint",
                  "utils.logging", "kernels.flash_attention",
                  "kernels.gumbel_sample", "models.transformer",
-                 "models.discriminator_transformer", "train.reinforce"):
+                 "models.discriminator_transformer", "train.reinforce",
+                 "evaluate", "caption", "eval.bleu", "eval.cider",
+                 "eval.rouge", "eval.meteor", "eval.diversity",
+                 "eval.metrics"):
         assert f"gan_image_captioning_tpu_torch.{name}" in added
     assert "torch" in added or "torch" in sys.modules
     assert [m for m in added if _forbidden(m)] == []

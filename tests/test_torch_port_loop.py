@@ -166,12 +166,12 @@ def test_main_needs_cuda_unless_told_cpu(tmp_path):
 UNPORTED = [("--random-flip", "1"), ("--random-crop-pad", "4"),
             ("--cache-features", "1"), ("--resume", "x.ckpt"),
             ("--checkpoint-every", "1"), ("--early-stop-patience", "2"),
-            ("--eval-bleu-every", "1"), ("--scst-epochs", "1"),
+            ("--scst-epochs", "1"),
             ("--steps-per-call", "4"), ("--length-buckets", "12,24"),
             ("--mesh", "data:4"), ("--profile-dir", "prof"),
             ("--precollate", "on"), ("--ema-decay", "0.999"),
             ("--lr-schedule", "cosine"), ("--grad-accum", "2"),
-            ("--beam-size", "4"), ("--encoder-arch", "vit")]
+            ("--encoder-arch", "vit")]
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED)
@@ -183,6 +183,20 @@ def test_unported_flags_raise(flag, value, tmp_path):
         tmain.main([*FLAGS, flag, value, "--device", "cpu",
                     "--save-dir", str(tmp_path / "s")])
     assert not os.path.exists(tmp_path / "s")
+
+
+@pytest.mark.parametrize("flag,value", [("--eval-bleu-every", "1"),
+                                        ("--beam-size", "4")])
+def test_quality_eval_flags_are_honoured(flag, value, tmp_path):
+    """The quality eval's flags run: each adversarial epoch ends with the
+    ``[EVAL]`` line (greedy, or beam search at ``--beam-size 4``)."""
+    argv = [flag, value] + (["--eval-bleu-every", "1"]
+                            if flag == "--beam-size" else [])
+    inst = tmain.main([*FLAGS, *argv, "--pretrain-epochs", "0",
+                       "--device", "cpu", "--save-dir", str(tmp_path / "s")])
+    assert getattr(inst.config, flag[2:].replace("-", "_")) == int(value)
+    log = open(inst.config.log_file + ".txt").read()
+    assert log.count("[EVAL] NLL_gen") == 1
 
 
 def test_loader_flags_are_accepted():
@@ -211,11 +225,14 @@ def test_presets_are_the_jax_flag_bundles(preset, want):
 
 
 def test_config2_needs_greedy_decoding():
+    """Preset config2 runs at its own beam 4 (it needed ``--beam-size 1``
+    until beam search was ported); ``--beam-size 1`` still picks greedy."""
     args = build_parser().parse_args(["--preset", "config2"])
     assert (args.conditional_gan, args.gen_embed_dim, args.beam_size) == (
         1, 512, 4)
-    with pytest.raises(NotImplementedError, match="beam"):
-        require_ported_flags(config_from_args(args))
+    config = config_from_args(args)
+    require_ported_flags(config)
+    assert config.beam_size == 4
     args = build_parser().parse_args(["--preset", "config2",
                                       "--beam-size", "1"])
     require_ported_flags(config_from_args(args))

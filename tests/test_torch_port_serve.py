@@ -147,8 +147,33 @@ def test_needs_exactly_one_weight_source(exported):
             serve.parse_args(argv)
 
 
+@pytest.mark.parametrize("extra", [["--beam-size", "4"]])
+def test_ported_decode_options_start(exported, monkeypatch, extra):
+    """``--beam-size 4`` (refused until beam search was ported) starts and
+    answers the rows with the JAX package's beam search on them."""
+    path, feats, _, _ = exported
+    jconfig = JConfig(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                      gen_num_layers=2, max_seq_len=MAX_LEN)
+    params = {"decoder": jgen.init_decoder_params(jax.random.PRNGKey(21),
+                                                  jconfig)}
+    ids, scores = jdecode.beam_search(params, jnp.asarray(feats), jconfig,
+                                      beam_size=4)
+    i2w = jvocab()[1]
+    service = _service(path, *extra)
+    try:
+        monkeypatch.setattr(service, "_features_unconditional",
+                            lambda n: feats[:n])
+        resp = service.handle_request({"n": N})
+        assert resp["captions"] == [" ".join(ids_to_words(strip_caption(r),
+                                                          i2w))
+                                    for r in np.asarray(ids)]
+        np.testing.assert_allclose(resp["logprobs"], np.asarray(scores),
+                                   atol=2e-4)
+    finally:
+        service.close()
+
+
 @pytest.mark.parametrize("extra,err", [
-    (["--beam-size", "4"], NotImplementedError),
     (["--gen-arch", "gpt2"], NotImplementedError),
     (["--conditional-gan", "1", "--encoder-arch", "vit"],
      NotImplementedError),
