@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only persistent,kernel,carry_kernel,qserve_kernel,decode_modes,bptt_reverse
     python3 chip_smoke.py --only train_kernels,wrappers
     python3 chip_smoke.py --only eval_decode
+    python3 chip_smoke.py --only resume,scst
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -263,6 +264,32 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     launches of the pretrain decode (NLL_gen), the serve, quantized serve
     and conv forward kernels; and ``main.py --eval-bleu-every 1
     --beam-size 4`` logging ``[EVAL]`` with a finite BLEU-4.
+28. ``resume`` — config3 at full width, unconditional, 256 synthetic
+    items, ``--pretrain-epochs 1 --scst-epochs 1 --adv-epochs 1
+    --checkpoint-every 1 --keep-checkpoints 2 --resume auto``, each run a
+    new process of ``main.py`` under ``torch.use_deterministic_algorithms
+    (True, warn_only=True)`` with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in
+    its environment: run A uninterrupted; run B sent SIGTERM 0.2 s after
+    its first snapshot is written, then the identical command line,
+    which resumes from the interrupt save.  The final snapshots
+    (``state_0.ckpt``: modules, Adam states, counters, generator state)
+    must be equal tensor by tensor; if not, a second uninterrupted run
+    gives the spread that bounds the difference.  Prints the interrupt's
+    phase, epoch and batch, and every op that warned it has no
+    deterministic implementation.
+29. ``scst`` — ``main.py`` at config3 width (B = 64, 256 items) with
+    ``--pretrain-epochs 1 --scst-epochs 1 --adv-epochs 0``, the counters set
+    to 0 just before the SCST phase and read just after: the serve kernel
+    once a step and once a val batch, the reverse BPTT ``NL`` times a step,
+    nothing else; then config4 (one SCST epoch): the flash forward and
+    backward 4 times a step each.  Rewards and losses finite;
+    ``scst_model.ckpt`` served by ``serve.py`` (the greedy kernel) and
+    ``caption.py``; one SCST update's loss and gradients through the
+    kernels against the plain route (loss within 1e-4, gradients by
+    ``routes_agree``, as ``bptt_reverse`` holds the teacher step); the
+    SCST step's host time split into rollout, reward and update, and its
+    launches (torch.profiler); an asynchronous full-state save followed
+    by an in-place adversarial step loads the values before the step.
 
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
@@ -271,7 +298,8 @@ Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed`` and the fused-embed backward) and, last, ``{"ok": true,
 "device": …}``.  The entries of the kernels on the evaluation path carry
-``eval_decode_launches`` too.
+``eval_decode_launches`` too, and every entry ``scst_launches``, its
+launches in the SCST phases of ``scst``.
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits non-zero before printing a result.  The plain versions' matrix
 products and convolutions run in full float32: TF32 is switched off below.
@@ -4624,6 +4652,428 @@ def phase_eval_decode(gen, device, workdir):
     return row
 
 
+# ------------------------------- interrupt and resume, and the SCST phase
+
+RESUME_ITEMS = 256
+DISC_FLAGS = ["--disc-embed-dim", str(DISC_E), "--disc-num-rep", str(DISC_R),
+              "--disc-filter-sizes", ",".join(str(f) for _, f in BANKS),
+              "--disc-num-filters", ",".join(str(n) for n, _ in BANKS)]
+CONFIG3_FLAGS = ["--preset", "config3", *MODEL_FLAGS, *DISC_FLAGS]
+RESUME_FLAGS = [*CONFIG3_FLAGS, "--synthetic-items", str(RESUME_ITEMS),
+                "--pretrain-epochs", "1", "--scst-epochs", "1",
+                "--adv-epochs", "1", "--checkpoint-every", "1",
+                "--keep-checkpoints", "2", "--resume", "auto",
+                "--expt-name", "resume"]
+# the training entry point under deterministic algorithms; an op without a
+# deterministic implementation warns (and is reported) instead of raising
+DETERMINISTIC_MAIN = (
+    "import sys, torch\n"
+    "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+    "from gan_image_captioning_tpu_torch import main\n"
+    "main.main(sys.argv[1:])\n")
+NONDETERMINISTIC = "does not have a deterministic implementation"
+RESUME_SIGNAL_DELAY_S = 0.2      # about two SCST steps at config3, B = 64
+
+
+def training_process(save, log_name):
+    """``main.py`` with ``RESUME_FLAGS`` in a new process (cuBLAS's
+    workspace fixed before CUDA starts, deterministic algorithms on) →
+    ``(Popen, its stderr path)``."""
+    import os
+
+    save.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": str(ROOT)}
+    err = save / (log_name + ".stderr")
+    with open(save / (log_name + ".stdout"), "w") as out, \
+            open(err, "w") as errf:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DETERMINISTIC_MAIN, *RESUME_FLAGS,
+             "--save-dir", str(save)], cwd=str(ROOT), env=env, stdout=out,
+            stderr=errf)
+    return proc, err
+
+
+def finish(proc, err, what, timeout=300):
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    text = err.read_text()
+    check(rc == 0, f"resume: {what} exited {rc}: {text[-2000:]}")
+    return sorted({ln.strip() for ln in text.splitlines()
+                   if NONDETERMINISTIC in ln})
+
+
+def snapshot_diff(a_path, b_path):
+    """Per tensor of two full-state files: max |a - b| / max(max |a|, 1e-30),
+    and whether every tensor and value is equal."""
+    a = torch.load(a_path, map_location="cpu", weights_only=True)
+    b = torch.load(b_path, map_location="cpu", weights_only=True)
+    diffs, equal = {}, True
+
+    def walk(x, y, key):
+        nonlocal equal
+        if isinstance(x, dict):
+            check(isinstance(y, dict) and x.keys() == y.keys(),
+                  f"resume: snapshot keys differ at {key}")
+            for k in x:
+                walk(x[k], y[k], f"{key}.{k}" if key else k)
+        elif isinstance(x, torch.Tensor):
+            same = torch.equal(x, y)
+            equal &= same
+            if not same and x.is_floating_point():
+                diffs[key] = float((x - y).abs().max()) / max(
+                    float(x.abs().max()), 1e-30)
+            elif not same:
+                diffs[key] = float("inf")
+        else:
+            equal &= x == y
+            if x != y:
+                diffs[key] = float("inf")
+
+    walk(a, b, "")
+    return equal, diffs
+
+
+def phase_resume(workdir):
+    """config3 at full width, unconditional, 256 synthetic items: one
+    pretrain, one SCST and one adversarial epoch with a snapshot every
+    epoch.  Run A uninterrupted; run B gets SIGTERM 0.2 s after its
+    first snapshot is written, then the identical command line
+    (``--resume auto``) finishes it.  The final snapshots must be
+    bit-equal; if they are not, a second uninterrupted run gives the
+    spread the resumed run is held to."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = workdir / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    started = []
+    try:
+        row = resume_runs(root, started)
+    finally:
+        for proc in started:            # a failed check leaves none behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    row["seconds"] = time.perf_counter() - t0
+    emit({"phase": "resume", **row})
+    return row
+
+
+def resume_runs(root, started):
+    """Runs A and B of :func:`phase_resume` (each process it starts goes
+    into ``started``) → the phase's row."""
+    import signal
+
+    def start(save, log_name):
+        proc, err = training_process(save, log_name)
+        started.append(proc)
+        return proc, err
+
+    row = {"nondeterministic_ops": []}
+    proc_a, err_a = start(root / "a", "run")
+    row["nondeterministic_ops"] += finish(proc_a, err_a, "run A")
+    final_a = root / "a" / "resume_1" / "models" / "state_0.ckpt"
+    check(final_a.is_file(), "resume: run A wrote no state_0.ckpt")
+
+    save_b = root / "b"
+    proc_b, err_b = start(save_b, "first")
+    models_1 = save_b / "resume_1" / "models"
+    trigger = models_1 / "state_pre_0.ckpt"     # renamed in when written
+    deadline = time.time() + 300
+    while not trigger.exists() and proc_b.poll() is None:
+        check(time.time() < deadline, "resume: run B wrote no snapshot")
+        time.sleep(0.01)
+    # a moment into the next phase, so that the signal lands in a sweep
+    time.sleep(RESUME_SIGNAL_DELAY_S)
+    check(proc_b.poll() is None, "resume: run B ended before the signal")
+    proc_b.send_signal(signal.SIGTERM)
+    row["nondeterministic_ops"] += finish(proc_b, err_b, "run B")
+    interrupt = models_1 / "interrupt_state.ckpt"
+    check(interrupt.is_file(), "resume: SIGTERM saved no interrupt state")
+    side = json.loads((models_1 / "interrupt_state.ckpt.schedule.json")
+                      .read_text())
+    row["interrupt"] = {k: side[k] for k in ("phase", "epoch",
+                                             "batches_done", "scst_step",
+                                             "pretrain_steps",
+                                             "adv_batch_steps")}
+    print("resume: interrupted at phase %s, epoch %d, batch %d"
+          % (side["phase"], side["epoch"], side["batches_done"]), flush=True)
+    proc_r, err_r = start(save_b, "resumed")
+    row["nondeterministic_ops"] += finish(proc_r, err_r, "run B resumed")
+    log = (save_b / "resumed.stdout").read_text()
+    check(f"Resumed the training state from {interrupt}" in log,
+          "resume: the second run did not resume the interrupt state")
+    final_b = save_b / "resume_2" / "models" / "state_0.ckpt"
+    if not final_b.is_file():           # the signal came after adv epoch 0
+        final_b = models_1 / "state_0.ckpt"
+    row["final_snapshot_b"] = str(final_b.relative_to(root))
+    equal, diffs = snapshot_diff(final_a, final_b)
+    row["bit_equal"] = equal
+    row["max_rel_diff"] = max(diffs.values(), default=0.0)
+    if not equal:
+        proc_c, err_c = start(root / "c", "run")
+        row["nondeterministic_ops"] += finish(proc_c, err_c, "run A'")
+        _, spread = snapshot_diff(
+            final_a, root / "c" / "resume_1" / "models" / "state_0.ckpt")
+        row["spread_max_rel_diff"] = max(spread.values(), default=0.0)
+        row["worst_tensors"] = sorted(diffs.items(), key=lambda kv: -kv[1])[:5]
+        check(row["max_rel_diff"] <= row["spread_max_rel_diff"],
+              f"resume: the resumed run differs beyond the spread of two "
+              f"uninterrupted runs {row}")
+    row["nondeterministic_ops"] = sorted(set(row["nondeterministic_ops"]))
+    return row
+
+
+SCST_STEP_CALLS = 5
+
+
+def scst_counters():
+    return {**{k: fn for k, fn in counters().items()
+               if k in ("decode_serve", "lstm_bptt_reverse",
+                        "decode_sample_logits", "decode_sample_resid",
+                        "lstm_bptt_chain")},
+            **tf_counters()}
+
+
+def run_scst_main(argv):
+    """``main.main(argv)`` in this process with every counter set to 0
+    just before the SCST phase and read just after → (instructor,
+    launches in the phase, its seconds)."""
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch.train.instructor import GANInstructor
+
+    cnt, seen = scst_counters(), {}
+    real = GANInstructor.scst_finetune
+
+    def counted(self, epochs):
+        for fn in cnt.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        real(self, epochs)
+        torch.cuda.synchronize()
+        seen["seconds"] = time.perf_counter() - t0
+        seen["launches"] = {k: fn.launches for k, fn in cnt.items()}
+
+    GANInstructor.scst_finetune = counted
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            inst = train_main.main(argv)
+    finally:
+        GANInstructor.scst_finetune = real
+    return inst, seen["launches"], seen["seconds"]
+
+
+def scst_scalars(inst):
+    rows = [json.loads(ln) for ln in open(Path(inst.config.save_dir)
+                                          / "metrics.jsonl")]
+    return {tag: [r["value"] for r in rows if r["tag"] == tag]
+            for tag in ("SCST_val_reward", "SCST_train_loss")}
+
+
+def phase_scst(device, workdir):
+    """``main.py`` with one pretrain and one SCST epoch at config3 width
+    (B = 64, 256 synthetic items), then one SCST epoch of config4: the
+    launches of the phase against the design, finite rewards; one SCST
+    update's loss and gradients through the kernels against the plain
+    route; the SCST step's host time split into rollout, reward and
+    update, and its launches; ``scst_model.ckpt`` through ``serve.py``
+    and ``caption.py``; an asynchronous full-state save followed by an
+    in-place step loads the values before the step."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch import caption as caption_main
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.eval.metrics import strip_caption
+    from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
+    from gan_image_captioning_tpu_torch.train import scst
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (_grads,
+                                                            make_adv_step)
+
+    t_phase = time.perf_counter()
+    root = workdir / "scst"
+    shutil.rmtree(root, ignore_errors=True)
+    row = {}
+    steps = RESUME_ITEMS // B_TRAIN
+    val_batches = -(-max(RESUME_ITEMS // 4, 16) // B_TRAIN)
+
+    # config3: the greedy baseline and val decodes through the serve
+    # kernel, the update's backward through the reverse BPTT kernel
+    argv = [*CONFIG3_FLAGS, "--synthetic-items", str(RESUME_ITEMS),
+            "--pretrain-epochs", "1", "--scst-epochs", "1", "--adv-epochs",
+            "0", "--save-dir", str(root / "c3"), "--expt-name", "scst"]
+    inst, launches, seconds = run_scst_main(argv)
+    expected = {k: 0 for k in launches}
+    expected.update(decode_serve=steps + val_batches,
+                    lstm_bptt_reverse=steps * NL)
+    scalars = scst_scalars(inst)
+    row["config3"] = {"launches": launches, "expected": expected,
+                      "seconds": seconds, "scst_steps": inst._scst_step,
+                      **scalars}
+    check(launches == expected, f"scst config3 launches {launches} != "
+          f"{expected}")
+    check(inst._scst_step == steps and inst.state.gen_steps == steps,
+          f"scst config3 steps {inst._scst_step}")
+    check(all(len(v) == 1 and math.isfinite(v[0]) for v in scalars.values()),
+          f"scst config3 scalars {scalars}")
+    ckpt = Path(inst.config.model_dir) / "scst_model.ckpt"
+    check(ckpt.is_file(), "scst: scst_model.ckpt missing")
+
+    # the checkpoint through serve.py (the greedy kernel) and caption.py
+    cnt = scst_counters()
+    cnt["decode_serve"].launches = 0
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", str(ckpt), *CONFIG3_FLAGS]))
+    try:
+        resp = service.handle_request({"n": 4})
+    finally:
+        service.close()
+    torch.cuda.synchronize()
+    served_launches = cnt["decode_serve"].launches
+    check(len(resp["captions"]) == 4 and served_launches > 0
+          and all(math.isfinite(x) for x in resp["logprobs"]),
+          f"scst: serve {resp}, {served_launches} launches")
+    out = root / "captions.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        caption_main.main(["--checkpoint", str(ckpt), *CONFIG3_FLAGS,
+                           "--decode-mode", "greedy", "--num-samples", "4",
+                           "--output", str(out)])
+    lines = [json.loads(ln) for ln in out.read_text().splitlines()]
+    check(len(lines) == 4 and all("caption" in ln for ln in lines),
+          f"scst: caption.py wrote {lines}")
+    row["served"] = {"serve": resp["captions"][:2],
+                     "serve_launches": served_launches,
+                     "caption": [ln["caption"] for ln in lines[:2]]}
+
+    # config4: the update's causal pass through the flash kernels
+    argv = [*TF_MODEL_FLAGS, "--synthetic-items", str(RESUME_ITEMS),
+            "--pretrain-epochs", "0", "--scst-epochs", "1", "--adv-epochs",
+            "0", "--save-dir", str(root / "c4"), "--expt-name", "scst"]
+    inst4, launches4, seconds4 = run_scst_main(argv)
+    expected4 = {k: 0 for k in launches4}
+    expected4.update(flash_fwd=steps * TF_NL, flash_bwd=steps * TF_NL)
+    scalars4 = scst_scalars(inst4)
+    row["config4"] = {"launches": launches4, "expected": expected4,
+                      "seconds": seconds4, **scalars4}
+    check(launches4 == expected4, f"scst config4 launches {launches4} != "
+          f"{expected4}")
+    check(all(len(v) == 1 and math.isfinite(v[0])
+              for v in scalars4.values()), f"scst config4 {scalars4}")
+    check((Path(inst4.config.model_dir) / "scst_model.ckpt").is_file(),
+          "scst: config4 scst_model.ckpt missing")
+
+    # one update through the kernels against the plain route
+    config, state, batch = train_setup(device)
+    roll, update, _ = scst.make_scst_programs(config)
+    sampled, greedy = roll(state.gen, batch,
+                           scst.rollout_generator(0, 0, device))
+    caps = batch["captions"].cpu().numpy()
+    row_refs = [[strip_caption(r)] for r in caps]
+    reward_fn = scst.build_reward_fn(config, None, row_refs=row_refs)
+    adv_np = scst.batch_advantage(reward_fn, sampled.cpu().numpy(),
+                                  greedy.cpu().numpy(), caps)
+    check(np.isfinite(adv_np).all(), f"scst: advantage {adv_np}")
+    adv = torch.from_numpy(adv_np).to(device)
+    if not adv_np.any():        # an untrained model may tie every row
+        adv = seeded((B_TRAIN,), 1601, device)
+    results = {}
+    for route, cfg in (("kernel", config),
+                       ("plain", config.replace(decode_impl="plain"))):
+        cnt["lstm_bptt_reverse"].launches = 0
+        loss = scst.scst_loss(cfg, state, batch, sampled, adv)
+        grads, = _grads(loss, state.gen)
+        torch.cuda.synchronize()
+        results[route] = (loss.detach(), loss.detach() * 0, grads, {},
+                          {"gen_ids": sampled})
+        row.setdefault("reverse_launches", {})[route] = \
+            cnt["lstm_bptt_reverse"].launches
+    cmp = compare_grads(results["kernel"], results["plain"])
+    row["update_vs_plain"] = {"loss": cmp["g_loss"],
+                              "grad_side_rel_err": cmp["grad_side_rel_err"],
+                              "max_grad_rel_err": cmp["max_grad_rel_err"],
+                              "reverse_launches": row.pop(
+                                  "reverse_launches")}
+    a, b = cmp["g_loss"]
+    check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30),
+          f"scst update loss {a} vs {b}")
+    check(routes_agree(cmp), f"scst update {cmp['grad_side_rel_err']}")
+    check(row["update_vs_plain"]["reverse_launches"] == {"kernel": NL,
+                                                         "plain": 0},
+          f"scst update reverse launches {row['update_vs_plain']}")
+
+    # the SCST step's host time: rollout, reward, update; its launches
+    rng = [scst.rollout_generator(0, 1, device)]
+
+    def do_rollout():
+        return roll(state.gen, batch, rng[0])
+
+    s_ids, g_ids = do_rollout()
+    s_np, g_np = s_ids.cpu().numpy(), g_ids.cpu().numpy()
+
+    def do_reward():
+        return scst.batch_advantage(reward_fn, s_np, g_np, caps)
+
+    def do_update():
+        update(state, batch, s_ids, adv)
+
+    def whole_step():
+        s, g = do_rollout()
+        a = scst.batch_advantage(reward_fn, s.cpu().numpy(),
+                                 g.cpu().numpy(), caps)
+        update(state, batch, s, torch.from_numpy(a).to(device))
+
+    timing = {"rollout_ms": host_ms(do_rollout, SCST_STEP_CALLS),
+              "reward_ms": host_ms(do_reward, SCST_STEP_CALLS),
+              "update_ms": host_ms(do_update, SCST_STEP_CALLS),
+              "step_ms": host_ms(whole_step, SCST_STEP_CALLS)}
+    timing["launches_per_step"] = len(kernel_events(whole_step, 1))
+    timing["launches_per_rollout"] = len(kernel_events(do_rollout, 1))
+    timing["launches_per_update"] = len(kernel_events(do_update, 1))
+    row["step_timing"] = timing
+    emit({"phase": "scst", "timing": "step", "B": B_TRAIN, **timing,
+          "note": "host clock, synchronised after each part; launches by "
+                  "torch.profiler (every kernel, PyTorch's included)"})
+
+    # an asynchronous save, then an in-place step: the file holds the
+    # values before the step
+    before = {k: v.detach().clone()
+              for k, v in ckpt_lib.state_dict_of(state)["gen"].items()}
+    mu_before = {k: v.clone() for k, v in state.gen_opt.mu.items()}
+    path = root / "async_state.ckpt"
+    ckpt_lib.save_state(str(path), state)
+    make_adv_step(config)(state, batch, TEMP)
+    ckpt_lib.wait_for_checkpoints()
+    loaded = ckpt_lib.load_state(str(path), create_train_state(config, 5,
+                                                               device))
+    same = all(torch.equal(loaded.gen.state_dict()[k], v)
+               for k, v in before.items())
+    same &= all(torch.equal(loaded.gen_opt.mu[k], v)
+                for k, v in mu_before.items())
+    moved = any(not torch.equal(state.gen.state_dict()[k], v)
+                for k, v in before.items())
+    row["async_save"] = {"loads_pre_step_values": same, "step_moved": moved}
+    check(same and moved, f"scst: async save {row['async_save']}")
+    row["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "scst", **{k: v for k, v in row.items()
+                              if k != "step_timing"}})
+    return row
+
+
+def scst_launches(entry, scst_row):
+    """An entry's launches in the SCST phases (config3 and config4); the
+    fused flash backward stands for the dQ and dK/dV entries."""
+    name = entry["name"]
+    if name in ("flash_dq", "flash_dkv"):
+        name = "flash_bwd"
+    return sum(scst_row[run]["launches"].get(name, 0)
+               for run in ("config3", "config4"))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -4717,6 +5167,10 @@ def main(argv=None):
         phase_wrappers(device)
     if run("eval_decode"):
         eval_row = phase_eval_decode(gen, device, workdir)
+    if run("resume"):
+        phase_resume(workdir)
+    if run("scst"):
+        scst_row = phase_scst(device, workdir)
     if only:
         return 0
 
@@ -4753,6 +5207,8 @@ def main(argv=None):
         if entry["name"] in eval_counters():
             entry["eval_decode_launches"] = sum(
                 r["launches"][entry["name"]] for r in runs.values())
+    for entry in kernels:
+        entry["scst_launches"] = scst_launches(entry, scst_row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import re
 from typing import Optional, Tuple
 
 import torch
@@ -200,6 +201,45 @@ def add_training_args(parser):
     g.add_argument("--init-gen-ckpt", type=str, default="",
                    help="warm-start the generator from a checkpoint of the "
                         "port (optimizers and counters fresh)")
+    g.add_argument("--resume", type=str, default="",
+                   help="a full training state (interrupt_state.ckpt, "
+                        "state_N.ckpt, state_pre_N.ckpt) to resume from, "
+                        "or 'auto': the newest such file under this "
+                        "experiment name's earlier run dirs (a fresh start "
+                        "when there is none; the same command line "
+                        "restarts a killed run)")
+    g.add_argument("--resume-schedule", type=int, default=1,
+                   help="with --resume, continue the schedule at the "
+                        "phase, epoch and batch its sidecar "
+                        "(<ckpt>.schedule.json) records (0 = restore the "
+                        "state only and run the schedule from the start)")
+    g.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also save a full resumable training state every N "
+                        "pretrain / adversarial epochs (0 = best-val "
+                        "checkpoints only)")
+    g.add_argument("--keep-checkpoints", type=int, default=0,
+                   help="keep only the N newest --checkpoint-every "
+                        "snapshots of each phase (0 = keep all); best-val "
+                        "checkpoints are never pruned")
+    g.add_argument("--early-stop-patience", type=int, default=0,
+                   help="stop the pretrain or adversarial phase when its "
+                        "best val loss has not improved for this many "
+                        "epochs (0 = off)")
+    g.add_argument("--scst-epochs", type=int, default=0,
+                   help="self-critical sequence training epochs between "
+                        "MLE pretraining and adversarial training: "
+                        "REINFORCE on a sentence reward with the greedy "
+                        "decode as baseline (train/scst.py; 0 = off)")
+    g.add_argument("--scst-reward", type=str, default="cider",
+                   choices=["cider", "bleu"],
+                   help="SCST reward: CIDEr-D with idf fit over the "
+                        "training captions, or smoothed sentence BLEU-4")
+    g.add_argument("--scst-multi-ref", action="store_true",
+                   help="score SCST rewards against every caption of the "
+                        "row's image instead of the row's own caption")
+    g.add_argument("--scst-lr", type=float, default=0.0,
+                   help="SCST learning rate (0 = --gen-lr); the update "
+                        "shares the adversarial generator's Adam state")
 
 
 def add_data_args(parser):
@@ -334,16 +374,6 @@ _UNPORTED_FLAG_ARGS = (
     ("--random-flip", dict(type=int, default=0, choices=[0, 1]), None),
     ("--random-crop-pad", dict(type=int, default=0), None),
     ("--cache-features", dict(type=int, default=0, choices=[0, 1]), None),
-    ("--resume", dict(type=str, default=""), None),
-    ("--resume-schedule", dict(type=int, default=1), None),
-    ("--checkpoint-every", dict(type=int, default=0), None),
-    ("--keep-checkpoints", dict(type=int, default=0), None),
-    ("--early-stop-patience", dict(type=int, default=0), None),
-    ("--scst-epochs", dict(type=int, default=0), None),
-    ("--scst-reward", dict(type=str, default="cider",
-                           choices=["cider", "bleu"]), None),
-    ("--scst-multi-ref", dict(action="store_true"), None),
-    ("--scst-lr", dict(type=float, default=0.0), None),
     ("--steps-per-call", dict(type=int, default=1), None),
     ("--length-buckets", dict(type=str, default=""), None),
     ("--mesh", dict(type=str, default=""), None),
@@ -650,10 +680,45 @@ def require_ported_flags(config: Config) -> None:
     require_ported_arch(config)
 
 
+def resolve_auto_resume(args: argparse.Namespace) -> argparse.Namespace:
+    """``--resume auto``: the newest resumable state among this experiment
+    name's earlier run dirs (``{save_dir}/{expt_name}_{n}/{model_dir}``):
+    ``interrupt_state.ckpt`` (a SIGTERM / SIGINT save) and the
+    ``state_N.ckpt`` / ``state_pre_N.ckpt`` snapshots; the newest mtime
+    wins, and none means a fresh start (``resume = ""``).  Runs before
+    :func:`make_experiment_dirs` rewrites ``save_dir`` and ``expt_name``.
+    The directories are listed and matched by regular expressions, not
+    glob: a save dir such as ``runs[2026]`` is not a character class."""
+    if getattr(args, "resume", "") != "auto":
+        return args
+    run_re = re.compile(re.escape(args.expt_name) + r"_\d+")
+    ckpt_re = re.compile(r"(interrupt_state|state_(pre_)?\d+)\.ckpt")
+    candidates = []
+    try:
+        run_dirs = os.listdir(args.save_dir)
+    except OSError:
+        run_dirs = []
+    for run in run_dirs:
+        if not run_re.fullmatch(run):
+            continue
+        mdir = os.path.join(args.save_dir, run, args.model_dir)
+        try:
+            names = os.listdir(mdir)
+        except OSError:
+            continue
+        candidates.extend(os.path.join(mdir, n) for n in names
+                          if ckpt_re.fullmatch(n))
+    args.resume = (max(candidates, key=os.path.getmtime)
+                   if candidates else "")
+    return args
+
+
 def make_experiment_dirs(args: argparse.Namespace) -> argparse.Namespace:
     """The reference's experiment dirs (``args.py:261-273``): the first free
     ``{save_dir}/{expt_name}_{n}`` and its ``{model_dir}``; ``save_dir``,
-    ``model_dir``, ``expt_name`` and ``log_file`` are rewritten into it."""
+    ``model_dir``, ``expt_name`` and ``log_file`` are rewritten into it.
+    ``--resume auto`` is resolved first (:func:`resolve_auto_resume`)."""
+    resolve_auto_resume(args)
     n = 1
     while os.path.exists(os.path.join(args.save_dir, f"{args.expt_name}_{n}")):
         n += 1

@@ -65,7 +65,10 @@ class Batcher:
     ``numpy.random.default_rng(seed + epoch)`` when ``shuffle``, cut into
     ``batch_size`` slices (the last one dropped under ``drop_last``,
     else padded with zero-weighted rows), and
-    ``epoch`` counts the iterations started.  Each batch also carries
+    ``epoch`` counts the iterations started: a resumed run sets it from
+    the schedule sidecar's ``loader_epochs`` before its first iteration
+    (``train/schedule.py``), and :meth:`iter_from` skips the batches a
+    broken sweep applied.  Each batch also carries
     ``index [B]``, the dataset row of each batch row (pad rows repeat the
     first)."""
 

@@ -5,11 +5,16 @@
         --adv-epochs 1 --device cpu
 
 Sequence (reference ``main.py:10-48``): parse the flags and refuse the ones
-not ported yet → create the experiment dirs → build the train/val
+not ported yet → resolve ``--resume auto`` and create the experiment dirs
+(``config.make_experiment_dirs``) → build the train/val
 datasets → inject ``vocab_size`` (with ``--vocab-multiple`` padding) →
 dump ``config.json`` → ``GANInstructor(...)._run()``.  ``--device``
 defaults to ``cuda`` and raises when CUDA is missing; ``--device cpu``
 runs the plain PyTorch versions of the kernels.
+
+A killed run restarts from its newest interrupt save or snapshot when the
+same command line carries ``--resume auto`` (add ``--checkpoint-every N``
+so that a hard kill finds a snapshot); ``--resume <ckpt>`` names the file.
 """
 
 from __future__ import annotations

@@ -307,8 +307,14 @@ def sample_embed(decoder: Decoder, features, seq_len: int, temperature,
 
 def rescore(decoder: Decoder, features, ids, plain: bool = False):
     """Differentiable teacher-forced logits ``[B, T, V]`` of a free-running
-    decode's ``ids [B, T]``: the input at step t+1 is ``embed[ids[:, t]]``
-    (the feedback the decode took, detached as in the reference).  Its
+    decode's ``ids [B, T]``: the input at step t+1 is ``embed[ids[:, t]]``,
+    the feedback the decode took.  The ids are integers and carry no
+    gradient, but the gathered embedding rows do, as in the JAX package's
+    rescore (``_sample_kernel`` / ``_sample_decoupled``) and its
+    ``eval/decode.sequence_logprob``: the embedding's gradient sums the
+    feedback path's over the rows each id was read from.  The
+    ``kernel_rescore`` and ``decoupled`` routes, the free MLE step, the
+    REINFORCE log-probs and the SCST update all take that gradient.  The
     backward runs the reverse BPTT kernel unless ``plain``."""
     ids_tm = ids.T.long()
     xs_tm = torch.cat([features[None], decoder.embed.weight[ids_tm[:-1]]])

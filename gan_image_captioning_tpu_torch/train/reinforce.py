@@ -36,6 +36,7 @@ import torch
 
 from gan_image_captioning_tpu_torch.config import Config, decode_route
 from gan_image_captioning_tpu_torch.models import api
+from gan_image_captioning_tpu_torch.models import generator as gen_lstm
 from gan_image_captioning_tpu_torch.models import lstm
 from gan_image_captioning_tpu_torch.models import transformer as gen_tf
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
@@ -153,16 +154,16 @@ def rollout_rewards(config: Config, generator_model, disc_params, features,
 
 def sequence_log_probs(config: Config, generator_model, features, ids):
     """Differentiable ``log π_t(y_t | y_<t)`` ``[B, T]``, teacher-forced
-    over the sampled ids (the transformer: one causal pass, flash
-    attention without lengths)."""
+    over the sampled ids: the LSTM's :func:`generator.rescore` (its
+    backward through the reverse BPTT kernel; the fed-back embedding rows
+    take gradient, the ids none), the transformer's one causal pass
+    (flash attention without lengths).  SCST's log π is its masked sum
+    (``train/scst.py``)."""
     t_len = ids.shape[1]
     dec = generator_model.decoder
     if config.gen_arch == "lstm":
-        xs = torch.cat([features[None],
-                        dec.embed.weight[ids.T[:-1].long()]])
-        hs = lstm.lstm_seq_tm(dec.lstm.layers(), xs,
-                              plain=decode_route(config) == "plain")
-        logits = (hs @ dec.linear.weight.T + dec.linear.bias).transpose(0, 1)
+        logits = gen_lstm.rescore(dec, features, ids,
+                                  plain=decode_route(config) == "plain")
     else:
         logits = gen_tf.teacher_forced(dec, features, ids, config)[:, :t_len]
     logp = torch.log_softmax(logits.float(), dim=-1)

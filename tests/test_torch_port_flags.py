@@ -2,7 +2,8 @@
 parser (``config.build_parser``) and the serve parser (``src/serve.py``)
 against the port's.  A JAX command line at the JAX defaults parses and
 trains; each flag the port does not honour raises ``NotImplementedError``
-when set, and ``--decode-impl`` maps onto the port's routes."""
+when set, the resume and SCST flags are honoured, and ``--decode-impl``
+maps onto the port's routes."""
 
 import argparse
 
@@ -10,6 +11,8 @@ import pytest
 
 import src.serve as jserve
 from gan_image_captioning_tpu.config import build_parser as jbuild_parser
+from gan_image_captioning_tpu.config import (
+    config_from_args as jconfig_from_args)
 from gan_image_captioning_tpu_torch import main as tmain
 from gan_image_captioning_tpu_torch import serve as tserve
 from gan_image_captioning_tpu_torch.config import (build_parser,
@@ -97,10 +100,7 @@ def test_jax_command_line_at_defaults_parses_and_trains(tmp_path):
 
 
 # every flag the port parses and refuses when set, with a set value
-REFUSED = [("--resume-schedule", "0"), ("--keep-checkpoints", "2"),
-           ("--scst-reward", "bleu"),
-           ("--scst-multi-ref", None), ("--scst-lr", "0.001"),
-           ("--cp-mode", "ring"), ("--pp-microbatches", "2"),
+REFUSED = [("--cp-mode", "ring"), ("--pp-microbatches", "2"),
            ("--zero1", None), ("--lr-warmup-steps", "10"),
            ("--lr-decay-steps", "100"), ("--lr-min-ratio", "0.1"),
            ("--skip-nonfinite-grads", "1"), ("--ss-max-prob", "0.5"),
@@ -115,6 +115,30 @@ def test_refused_flags_raise_when_set(flag, value):
     config = config_from_args(build_parser().parse_args(argv))
     with pytest.raises(NotImplementedError, match=flag):
         require_ported_flags(config)
+
+
+# the resume, snapshot, early-stop and SCST flags, honoured since their
+# slice: each parses into the config and passes
+HONOURED = [("--resume", "x.ckpt", "resume", "x.ckpt"),
+            ("--resume", "auto", "resume", "auto"),
+            ("--resume-schedule", "0", "resume_schedule", 0),
+            ("--checkpoint-every", "2", "checkpoint_every", 2),
+            ("--keep-checkpoints", "2", "keep_checkpoints", 2),
+            ("--early-stop-patience", "3", "early_stop_patience", 3),
+            ("--scst-epochs", "1", "scst_epochs", 1),
+            ("--scst-reward", "bleu", "scst_reward", "bleu"),
+            ("--scst-multi-ref", None, "scst_multi_ref", True),
+            ("--scst-lr", "0.001", "scst_lr", 0.001)]
+
+
+@pytest.mark.parametrize("flag,value,field,want", HONOURED)
+def test_resume_and_scst_flags_are_honoured(flag, value, field, want):
+    argv = [flag] + ([] if value is None else [value])
+    config = config_from_args(build_parser().parse_args(argv))
+    require_ported_flags(config)
+    assert getattr(config, field) == want
+    jconfig = jconfig_from_args(jbuild_parser().parse_args(argv))
+    assert getattr(jconfig, field) == want          # the JAX flag's field
 
 
 @pytest.mark.parametrize("argv", [

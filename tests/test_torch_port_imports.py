@@ -58,7 +58,7 @@ def test_fresh_import_adds_no_jax_module():
                  "models.discriminator_transformer", "train.reinforce",
                  "evaluate", "caption", "eval.bleu", "eval.cider",
                  "eval.rouge", "eval.meteor", "eval.diversity",
-                 "eval.metrics"):
+                 "eval.metrics", "train.schedule", "train.scst"):
         assert f"gan_image_captioning_tpu_torch.{name}" in added
     assert "torch" in added or "torch" in sys.modules
     assert [m for m in added if _forbidden(m)] == []

@@ -164,9 +164,7 @@ def test_main_needs_cuda_unless_told_cpu(tmp_path):
 
 
 UNPORTED = [("--random-flip", "1"), ("--random-crop-pad", "4"),
-            ("--cache-features", "1"), ("--resume", "x.ckpt"),
-            ("--checkpoint-every", "1"), ("--early-stop-patience", "2"),
-            ("--scst-epochs", "1"),
+            ("--cache-features", "1"),
             ("--steps-per-call", "4"), ("--length-buckets", "12,24"),
             ("--mesh", "data:4"), ("--profile-dir", "prof"),
             ("--precollate", "on"), ("--ema-decay", "0.999"),
