@@ -291,6 +291,43 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     launches (torch.profiler); an asynchronous full-state save followed
     by an in-place adversarial step loads the values before the step.
 
+30. ``step_options`` — the step options and batching at config3 width
+    (B = 64, T = 36, the default route): one MLE and one adversarial step
+    at ``--grad-accum 2`` with the launches of the design (the decode and
+    the chain 2 a step, the conv forward and backward 6 each, the greedy
+    decode 2 and the reverse BPTT 2 ``NL`` in the MLE step); the
+    accumulated adversarial, teacher-forced MLE and free MLE passes at 2
+    x 32 and 4 x 16 through the kernels against the plain route on fed
+    noise (losses within 1e-4, adversarial gradients within 1e-3 of each
+    tensor's max with the argmax rows and ReLU decisions replayed, MLE
+    gradients by ``routes_agree``; the free pass's greedy ids, from the
+    ``decode_serve`` kernel at each microbatch's rows and width, replayed
+    into the plain route, each id that differs a tie within 1e-4); ``--length-buckets 16,24``: one MLE
+    and one adversarial step at T = 16, 24 and 36 with the launch counts
+    and the same comparisons; scheduled sampling at p = 1 against the
+    mode-``pretrain`` kernel's logits (within 1e-4 up to a row's first
+    differing id, which must be a tie within 1e-4) and two MLE steps at
+    p = 0.5 that train; the cosine schedule with warmup against its
+    formula, the first update at lr 0 leaving the parameters; a batch of
+    NaN weights under ``--skip-nonfinite-grads 1`` with the EMA on leaving
+    parameters, moments, counts and EMA bit-equal while the step counters
+    advance, and ``--debug-nans`` raising on it; ``--steps-per-call 4``
+    bit-equal to four single adversarial steps in a new process under
+    deterministic algorithms (as ``resume``); ``main.py`` with the options
+    on (``--steps-per-call 2 --length-buckets 16,24 --grad-accum 2
+    --ema-decay --lr-schedule cosine --skip-nonfinite-grads 1
+    --profile-dir``): the Chrome trace names the decode, chain and conv
+    kernels, and ``adv_model_ema.ckpt`` serves ``{"n": 8}`` through
+    ``serve.py``; config4's Gumbel adversarial step at ``--grad-accum 2``
+    under ``--use-pallas on`` (the sampler 2 T times) and ``off`` (never);
+    conditional config3 at ``--grad-accum 2`` on ``images_u8``
+    (``image_norm`` twice, at B = 32, against its plain version; the
+    running statistics those of the last microbatch from the old ones,
+    within 1e-4); every kernel of the path launched in the counted drive;
+    the adversarial step at B = 64 against the ``--grad-accum 2`` step
+    and the step under ``--skip-nonfinite-grads 1`` (host clock in turns,
+    device time by kernel of the first two).
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
@@ -298,8 +335,10 @@ Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed`` and the fused-embed backward) and, last, ``{"ok": true,
 "device": …}``.  The entries of the kernels on the evaluation path carry
-``eval_decode_launches`` too, and every entry ``scst_launches``, its
-launches in the SCST phases of ``scst``.
+``eval_decode_launches`` too, every entry ``scst_launches``, its
+launches in the SCST phases of ``scst``, and ``step_options_launches``,
+its launches in ``step_options``' counted drive (the comparisons with the
+plain versions left out).
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits non-zero before printing a result.  The plain versions' matrix
 products and convolutions run in full float32: TF32 is switched off below.
@@ -5064,6 +5103,623 @@ def phase_scst(device, workdir):
     return row
 
 
+# ------------------------------------- step options and batching (config3)
+
+SO_ACCUMS = (2, 4)                 # microbatches of 32 and 16 rows
+SO_BUCKETS = (16, 24)              # --length-buckets: widths 16, 24, 36
+SO_MULTI_K = 4                     # --steps-per-call
+SO_EMA = 0.999
+SO_ITEMS = 128
+SO_SCHEDULE = dict(lr_schedule="cosine", lr_warmup_steps=2,
+                   lr_decay_steps=4, lr_min_ratio=0.1)
+# launches per --grad-accum 2 step by design: each microbatch runs what a
+# whole batch does (PER_MLE_STEP, PER_ADV_STEP)
+PER_ACCUM2_MLE = {k: 2 * v for k, v in PER_MLE_STEP.items()}
+PER_ACCUM2_ADV = {k: 2 * v for k, v in PER_ADV_STEP.items()}
+# the kernels this slice's path must launch at least once
+SO_PATH_KERNELS = ("decode_serve", "decode_sample_resid", "lstm_bptt_chain",
+                   "lstm_bptt_reverse", "disc_conv_fwd", "disc_conv_bwd_dx",
+                   "gumbel_sample", "flash_fwd", "flash_bwd", "image_norm")
+SO_LOOP_KERNELS = ("decode_persistent_kernel", "chain_persistent_kernel",
+                   "conv_fwd_kernel", "conv_bwd_kernel")
+
+
+def so_counters():
+    return {**cond_counters(), **tf_counters()}
+
+
+class DriveCounts:
+    """Launches of the slice's drive: each drive segment runs with every
+    counter set to 0 just before it and read just after; the comparisons
+    with the plain versions run outside the segments and do not count."""
+
+    def __init__(self):
+        self.cnt = so_counters()
+        self.total = {k: 0 for k in self.cnt}
+
+    @contextlib.contextmanager
+    def segment(self, seen=None):
+        for fn in self.cnt.values():
+            fn.launches = 0
+        yield
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in self.cnt.items()}
+        for k, v in got.items():
+            self.total[k] += v
+        if seen is not None:
+            seen.update(got)
+
+
+def so_micro_noise(config, device, rows, seed):
+    """fed_noise for a microbatch of ``rows`` rows."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep_shape = (rows * DISC_R, config.disc_feature_dim)
+    return {"uniforms": torch.rand((T, rows, V), generator=gen,
+                                   device=device),
+            "keep": [torch.rand(keep_shape, generator=gen, device=device)
+                     < 0.8 for _ in range(3)]}
+
+
+def so_grads(kind, config, state, batch, noise):
+    """The accumulated step's losses and gradients without its update, in
+    ``adv_grads``' form: ``adv_grads`` (``adv``), or ``mle_grads`` on the
+    ``mle_teacher`` or ``mle_free`` objective."""
+    from gan_image_captioning_tpu_torch.train import steps
+
+    if kind == "adv":
+        return steps.adv_grads(config, state, batch, TEMP, noise)
+    cfg = config.replace(mle_objective=kind.split("_")[1])
+    loss, grads = steps.mle_grads(cfg, state, batch)
+    return loss, loss * 0, grads, {}, {"gen_ids": torch.zeros(1)}
+
+
+@contextlib.contextmanager
+def greedy_replay(kernel_ids=None):
+    """Within it, the free MLE objective's greedy decodes
+    (``generator.greedy_ids``, one a microbatch) are recorded
+    (``kernel_ids`` None: the list yielded gathers each call's ids), or
+    replayed: each decode runs, and the recorded ids of the same call go
+    on in its place, so that both routes rescore the same ids, as the
+    decode checks teacher-force on the kernel's ids.  Replaying, the list
+    yielded gathers per call (rows whose ids differ, the largest plain
+    logit gap between the two ids at each such row's first differing
+    step, which must be a tie within ``ID_ATOL``)."""
+    from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+
+    orig, out = gen_lstm.greedy_ids, []
+
+    def record(decoder, features, seq_len, plain=False):
+        ids = orig(decoder, features, seq_len, plain)
+        out.append(ids)
+        return ids
+
+    def replay(decoder, features, seq_len, plain=False):
+        ids = orig(decoder, features, seq_len, plain)
+        want = kernel_ids[len(out)]
+        rows = (ids != want).any(1).nonzero().flatten()
+        gap = 0.0
+        if len(rows):
+            with torch.no_grad():
+                logits = teacher_forced_logits(decoder, features[rows],
+                                               want[rows])
+            t = (ids[rows] != want[rows]).int().argmax(1)
+            at = logits[torch.arange(len(rows), device=rows.device), t]
+            gap = float((at.gather(1, ids[rows, t].long()[:, None])
+                         - at.gather(1, want[rows, t].long()[:, None]))
+                        .abs().max())
+        out.append((len(rows), gap))
+        return want
+
+    gen_lstm.greedy_ids = record if kernel_ids is None else replay
+    try:
+        yield out
+    finally:
+        gen_lstm.greedy_ids = orig
+
+
+def so_route_check(tag, config, state, batch, noise):
+    """One accumulated adversarial, teacher MLE and free MLE pass through
+    the kernels against the plain route on the same state and fed noise
+    (the conv argmax rows and ReLU decisions replayed, as phase ``train``;
+    the free objective's greedy ids replayed, each differing id a tie)."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    accum = max(1, int(config.grad_accum))
+    out = {}
+    for kind in ("adv", "mle_teacher", "mle_free"):
+        stats = (running_stats(state.gen) if state.gen.encoder is not None
+                 else None)
+        with disc_conv.argmax_record() as rows, greedy_replay() as ids:
+            kern = so_grads(kind, config, state, batch, noise)
+        with disc_conv.argmax_replay(rows) as report, \
+                greedy_replay(ids) as ties:
+            plain = so_grads(kind, plain_cfg, state, batch, noise)
+        if stats:
+            restore_stats(state.gen, stats)
+        cmp = compare_grads(kern, plain)
+        gap = max([g for g, _ in report] or [0.0])
+        a, b = cmp["g_loss"]
+        res = {"loss": cmp["g_loss"], "d_loss": cmp["d_loss"],
+               "ids_equal": cmp["ids_equal"], "argmax_gap": gap,
+               "max_grad_rel_err": cmp["max_grad_rel_err"],
+               "grad_side_rel_err": cmp["grad_side_rel_err"]}
+        out[kind] = res
+        check(abs(a - b) <= LOSS_RTOL * abs(b), f"{tag} {kind} loss {a} vs "
+              f"{b}")
+        if kind == "mle_free":
+            # the greedy kernel at each microbatch's rows and width
+            res["greedy_shapes"] = [list(i.shape) for i in ids]
+            res["greedy_rows_differ"] = sum(n for n, _ in ties)
+            res["greedy_tie_gap"] = max(g for _, g in ties)
+            check(len(ids) == len(ties) == accum,
+                  f"{tag}: {len(ids)} greedy decodes for {accum} "
+                  "microbatches")
+            check(res["greedy_tie_gap"] <= ID_ATOL,
+                  f"{tag}: greedy ids {res['greedy_rows_differ']} rows, "
+                  f"gap {res['greedy_tie_gap']}")
+        if kind == "adv":
+            check(cmp["ids_equal"], f"{tag}: the routes sampled other ids")
+            check(gap <= TIE_GAP, f"{tag}: argmax gap {gap}")
+            c, d = cmp["d_loss"]
+            check(abs(c - d) <= LOSS_RTOL * abs(d), f"{tag} d_loss {c} vs "
+                  f"{d}")
+            check(cmp["max_grad_rel_err"] <= GRAD_RTOL,
+                  f"{tag} adv gradients {cmp['max_grad_rel_err']}")
+        else:
+            check(routes_agree(cmp), f"{tag} mle gradients "
+                  f"{cmp['grad_side_rel_err']}")
+    return out
+
+
+class VariedCaptions:
+    """Captions of 1-34 tokens in [4, 11000) (every bucket of
+    ``SO_BUCKETS`` and the full width gets rows), no images."""
+
+    def __init__(self, n):
+        self.lens = np.random.default_rng(61).integers(1, MAX_SEQ_LEN + 1, n)
+
+    def __len__(self):
+        return len(self.lens)
+
+    def caption_length(self, i):
+        return int(self.lens[i])
+
+    def sample(self, i):
+        rng = np.random.default_rng(7000 + i)
+        return rng.integers(4, min(11000, V), size=self.lens[i]), None
+
+
+def so_bucket_batches(device):
+    """The first batch of each width of a ``--length-buckets 16,24``
+    loader over ``VariedCaptions``."""
+    from gan_image_captioning_tpu_torch.data.loader import Batcher
+    from gan_image_captioning_tpu_torch.train.steps import batch_to
+
+    loader = Batcher(VariedCaptions(40 * B_TRAIN), B_TRAIN, T, shuffle=True,
+                     seed=5, drop_last=True, bucket_bounds=list(SO_BUCKETS))
+    by_width = {}
+    for b in loader:
+        by_width.setdefault(b["captions"].shape[1], b)
+    check(sorted(by_width) == [*SO_BUCKETS, T], f"bucket widths "
+          f"{sorted(by_width)}")
+    return {w: batch_to(b, device) for w, b in sorted(by_width.items())}
+
+
+def so_width_noise(config, device, width, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep_shape = (B_TRAIN * DISC_R, config.disc_feature_dim)
+    return {"uniforms": torch.rand((width, B_TRAIN, V), generator=gen,
+                                   device=device),
+            "keep": [torch.rand(keep_shape, generator=gen, device=device)
+                     < 0.8 for _ in range(3)]}
+
+
+def so_state_snapshot(state):
+    """Every tensor a step may change, and the counts."""
+    snap = {f"m.{k}": v.detach().clone() for m in (state.gen, state.disc)
+            for k, v in m.state_dict().items()}
+    for name in ("pretrain_opt", "gen_opt", "disc_opt"):
+        opt = getattr(state, name)
+        snap.update({f"{name}.mu.{k}": v.clone() for k, v in opt.mu.items()})
+        snap.update({f"{name}.nu.{k}": v.clone() for k, v in opt.nu.items()})
+    if state.ema_gen is not None:
+        snap.update({f"ema.{k}": v.clone() for k, v in state.ema_gen.items()})
+    counts = {name: getattr(state, name).count
+              for name in ("pretrain_opt", "gen_opt", "disc_opt")}
+    return snap, counts
+
+
+def so_changed(a, b):
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+MULTI_CHILD = (
+    "import json, sys, torch\n"
+    "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+    "import chip_smoke\n"
+    "print(json.dumps(chip_smoke.multi_step_child()))\n")
+
+
+def multi_step_child(device="cuda"):
+    """Run in a child process under deterministic algorithms: four
+    adversarial steps one by one and the same four in one
+    ``--steps-per-call 4`` call, from two equal states; are the states
+    bit-equal after?"""
+    import warnings
+
+    from gan_image_captioning_tpu_torch.data.loader import (make_batch,
+                                                            stack_batches)
+    from gan_image_captioning_tpu_torch.train.steps import (batch_to,
+                                                            make_adv_step,
+                                                            make_multi_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    hosts = []
+    for j in range(SO_MULTI_K):
+        caps = [np.random.default_rng(100 * j + i).integers(
+            4, min(11000, V), size=30) for i in range(B_TRAIN)]
+        hosts.append(make_batch(caps, None, T))
+    temps = [TEMP * (j + 1) for j in range(SO_MULTI_K)]
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        config, a, _ = train_setup(device)
+        _, b, _ = train_setup(device)
+        step = make_adv_step(config)
+        for host, temp in zip(hosts, temps):
+            a, _ = step(a, batch_to(host, device), temp)
+        stacked = batch_to(next(stack_batches(iter(hosts), SO_MULTI_K))[0],
+                           device)
+        b, metrics = make_multi_step(config, "adv")(b, stacked, temps)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    sa, ca = so_state_snapshot(a)
+    sb, cb = so_state_snapshot(b)
+    differ = so_changed(sa, sb)
+    return {"steps": SO_MULTI_K, "bit_equal": not differ and ca == cb
+            and (a.gen_steps, a.disc_steps) == (b.gen_steps, b.disc_steps)
+            and torch.equal(a.generator.get_state(), b.generator.get_state()),
+            "differing": differ[:5],
+            "max_abs_diff": max([float((sa[k] - sb[k]).abs().max())
+                                 for k in differ] or [0.0]),
+            "metric_shape": list(metrics["gen_adv_loss"].shape),
+            "nondeterministic_ops": sorted({str(w.message)[:160]
+                                            for w in warned
+                                            if NONDETERMINISTIC
+                                            in str(w.message)})}
+
+
+def so_multi_step(workdir):
+    """``multi_step_child`` in a new process (cuBLAS's workspace fixed
+    before CUDA starts, deterministic algorithms on, as phase
+    ``resume``)."""
+    import os
+
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", MULTI_CHILD], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"steps-per-call child failed: "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def cosine_lr(base, count):
+    """The cosine schedule with warmup of ``SO_SCHEDULE``, in float64:
+    ``base · c / w`` during the warmup, then ``base · ((1 - a) · (1 + cos(pi
+    · min(c - w, D) / D)) / 2 + a)``."""
+    w, d = SO_SCHEDULE["lr_warmup_steps"], SO_SCHEDULE["lr_decay_steps"]
+    a = SO_SCHEDULE["lr_min_ratio"]
+    if count < w:
+        return base * count / w
+    c = min(count - w, d)
+    return base * ((1 - a) * 0.5 * (1 + math.cos(math.pi * c / d)) + a)
+
+
+def so_timing(config, state, batch):
+    """The adversarial step at B = 64, the ``--grad-accum 2`` step at 2 x
+    32 and the B = 64 step under ``--skip-nonfinite-grads 1`` (its one
+    read of the norms a step) on the same state: ms by host clock in turns
+    (64, 2x32, guard, guard, 2x32, 64), and device time by kernel over 2
+    steps each of the first two (torch.profiler)."""
+    from gan_image_captioning_tpu_torch.train.steps import make_adv_step
+
+    fns = {"b64": make_adv_step(config),
+           "2x32": make_adv_step(config.replace(grad_accum=2)),
+           "b64_guard": make_adv_step(config.replace(skip_nonfinite_grads=1))}
+    ms = {k: [] for k in fns}
+    for key in ("b64", "2x32", "b64_guard", "b64_guard", "2x32", "b64"):
+        step = fns[key]
+        ms[key].append(step_ms(lambda: step(state, batch, TEMP), 4))
+    prof = {k: profile_calls(lambda step=fns[k]: step(state, batch, TEMP), 2,
+                             KERNEL_NAMES) for k in ("b64", "2x32")}
+    return {"host_ms": ms, "device": prof}
+
+
+def phase_step_options(device, workdir, smi=None):
+    """Step options and batching at config3 width (E = H = 512, V =
+    11008, B = 64, T = 36): see the module docstring, phase 30.  ``smi``:
+    the card's name and power limit, printed with the times."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+    from gan_image_captioning_tpu_torch.models.generator import (
+        scheduled_sample)
+    from gan_image_captioning_tpu_torch.train import state as state_lib
+    from gan_image_captioning_tpu_torch.train.steps import (
+        make_adv_step, make_mle_step, split_micro)
+
+    t_phase = time.perf_counter()
+    drive = DriveCounts()
+    row = {}
+
+    # accumulation: one MLE and one adversarial step at --grad-accum 2,
+    # then the accumulated passes at 2 x 32 and 4 x 16 against the plain
+    # route on fed noise
+    config, state, batch = train_setup(device)
+    acc2 = config.replace(grad_accum=2)
+    seen = {}
+    with drive.segment(seen):
+        state, m_mle = make_mle_step(acc2)(state, batch)
+        state, m_adv = make_adv_step(acc2)(state, batch, TEMP)
+    want = {k: PER_ACCUM2_MLE.get(k, 0) + PER_ACCUM2_ADV.get(k, 0)
+            for k in seen}
+    row["accum_launches"] = {"launches": seen, "expected": want}
+    check(seen == want, f"grad-accum 2 launches {seen} != {want}")
+    metrics = {**{k: float(v) for k, v in m_mle.items()},
+               **{k: float(v) for k, v in m_adv.items()}}
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"grad-accum 2 metrics {metrics}")
+    row["accum_routes"] = {}
+    for k in SO_ACCUMS:
+        cfg = config.replace(grad_accum=k)
+        noise = [so_micro_noise(cfg, device, B_TRAIN // k, 300 + 10 * k + i)
+                 for i in range(k)]
+        row["accum_routes"][k] = so_route_check(f"grad-accum {k}", cfg,
+                                                state, batch, noise)
+    emit({"phase": "step_options", "accumulation": row["accum_routes"],
+          "launches": row["accum_launches"]})
+
+    # buckets: the kernels at T = 16, 24 and 36, one step each through the
+    # entry points (launch counts) and against the plain route
+    row["buckets"] = {}
+    mle, adv = make_mle_step(config), make_adv_step(config)
+    for width, wbatch in so_bucket_batches(device).items():
+        seen = {}
+        with drive.segment(seen):
+            state, _ = mle(state, wbatch)
+            state, _ = adv(state, wbatch, TEMP)
+        want = {k: PER_MLE_STEP.get(k, 0) + PER_ADV_STEP.get(k, 0)
+                for k in seen}
+        check(seen == want, f"T={width} launches {seen} != {want}")
+        noise = so_width_noise(config, device, width, 400 + width)
+        res = so_route_check(f"T={width}", config, state, wbatch, noise)
+        row["buckets"][width] = {"launches": seen, **res}
+    emit({"phase": "step_options", "buckets": row["buckets"]})
+
+    # scheduled sampling: p = 1 against the greedy kernel's logits; p =
+    # 0.5 trains
+    dec = state.gen.decoder
+    feats = api.start_token_features(config, state.gen, B_TRAIN)
+    caps = batch["captions"]
+    with torch.no_grad():
+        ss = scheduled_sample(dec, feats, caps, 1.0)
+        ids_k, logits_k = ds.decode_sample_logits(
+            *gen_lstm._detached_args(dec, feats, T))
+    logits_k = logits_k.transpose(0, 1)
+    ss_ids = ss.argmax(-1)
+    same = ss_ids == ids_k.long()
+    first = torch.where(same.all(1), T, (~same).int().argmax(1))
+    t_idx = torch.arange(T, device=device)[None]
+    upto = t_idx <= first[:, None].clamp(max=T - 1)
+    diff = ((ss - logits_k).abs().amax(-1) * upto).max()
+    diverged = (first < T).nonzero().flatten().tolist()
+    gaps = [float(ss[r, first[r]].max() - ss[r, first[r], ids_k[r, first[r]]])
+            for r in diverged]
+    sched = {"max_abs_logit_diff": float(diff), "rows_diverged": diverged,
+             "tie_gaps": gaps}
+    check(float(diff) <= LP_ATOL, f"scheduled p=1 logits {sched}")
+    check(all(g <= ID_ATOL for g in gaps), f"scheduled p=1 ties {sched}")
+    ss_cfg = config.replace(mle_objective="scheduled")
+    ss_step = make_mle_step(ss_cfg)
+    before = {k: v.clone() for k, v in state.gen.state_dict().items()}
+    losses = []
+    with drive.segment():
+        for _ in range(2):
+            state, m = ss_step(state, batch, 0.5)
+            losses.append(float(m["gen_pretrain_loss"]))
+    moved = [k for k, v in state.gen.state_dict().items()
+             if not torch.equal(v, before[k])]
+    sched.update(losses_p05=losses, params_moved=len(moved))
+    check(all(math.isfinite(x) for x in losses) and moved,
+          f"scheduled p=0.5 {sched}")
+    row["scheduled"] = sched
+    emit({"phase": "step_options", "scheduled": sched})
+
+    # the cosine schedule with warmup, the guard and --debug-nans
+    cfg = config.replace(ema_decay=SO_EMA, skip_nonfinite_grads=1,
+                         **SO_SCHEDULE)
+    lrs = [state_lib.lr_at(cfg.pretrain_lr, cfg, c) for c in range(9)]
+    want_lrs = [cosine_lr(cfg.pretrain_lr, c) for c in range(9)]
+    check(all(abs(a - b) <= 1e-6 * max(abs(b), 1e-30) + 1e-12
+              for a, b in zip(lrs, want_lrs)), f"lr {lrs} vs {want_lrs}")
+    _, g_state, g_batch = train_setup(device)
+    g_state.ema_gen = state_lib.ema_init(g_state.gen)
+    mle_g, adv_g = make_mle_step(cfg), make_adv_step(cfg)
+    snap0, _ = so_state_snapshot(g_state)
+    with drive.segment():
+        g_state, _ = mle_g(g_state, g_batch)
+    snap1, counts1 = so_state_snapshot(g_state)
+    gen_params = {f"m.{k}" for k, _ in g_state.gen.named_parameters()}
+    # warmup: the first update's lr is 0, the parameters stay, the
+    # moments and the count move
+    check(not (set(so_changed(snap0, snap1)) & gen_params)
+          and counts1["pretrain_opt"] == 1, "warmup: lr 0 moved parameters")
+    poisoned = dict(g_batch, weights=torch.full_like(g_batch["weights"],
+                                                     float("nan")))
+    steps0 = (g_state.gen_steps, g_state.disc_steps)
+    with drive.segment():
+        g_state, m_bad = adv_g(g_state, poisoned, TEMP)
+        g_state, m_bad2 = mle_g(g_state, poisoned)
+    snap2, counts2 = so_state_snapshot(g_state)
+    guard = {"changed": so_changed(snap1, snap2)[:5], "counts": counts2,
+             "steps": [g_state.gen_steps, g_state.disc_steps],
+             "norms": [float(m_bad["gen_grad_norm"]),
+                       float(m_bad["disc_grad_norm"]),
+                       float(m_bad2["gen_grad_norm"])]}
+    check(not guard["changed"] and counts2 == counts1
+          and (g_state.gen_steps, g_state.disc_steps)
+          == (steps0[0] + 1, steps0[1] + 1)
+          and not any(math.isfinite(x) for x in guard["norms"]),
+          f"guard {guard}")
+    try:
+        make_mle_step(cfg.replace(debug_nans=True))(g_state, poisoned)
+        raised = None
+    except FloatingPointError as exc:
+        raised = str(exc)
+    check(raised is not None and "gen_pretrain_loss" in raised,
+          f"--debug-nans did not raise: {raised}")
+    row["schedule_and_guard"] = {"lr": lrs, "guard": guard,
+                                 "debug_nans": raised}
+    emit({"phase": "step_options", **row["schedule_and_guard"]})
+    del g_state, g_batch, poisoned
+
+    # --steps-per-call 4 against four single steps, deterministic
+    row["steps_per_call"] = so_multi_step(workdir)
+    emit({"phase": "step_options", "steps_per_call": row["steps_per_call"]})
+    check(row["steps_per_call"]["bit_equal"],
+          f"steps-per-call {row['steps_per_call']}")
+
+    # main.py with the options on: profile trace, EMA checkpoints served
+    save = workdir / "step_options"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = [*CONFIG3_FLAGS, "--synthetic-items", str(SO_ITEMS),
+            "--pretrain-epochs", "1", "--adv-epochs", "1", "--ema-decay",
+            str(SO_EMA), "--profile-dir", str(save / "profile"),
+            "--steps-per-call", "2", "--length-buckets",
+            ",".join(str(b) for b in SO_BUCKETS), "--grad-accum", "2",
+            "--lr-schedule", "cosine", "--lr-decay-steps", "8",
+            "--lr-warmup-steps", "1", "--skip-nonfinite-grads", "1",
+            "--save-dir", str(save), "--expt-name", "options"]
+    loop = {}
+    t0 = time.perf_counter()
+    with drive.segment(loop), contextlib.redirect_stdout(io.StringIO()):
+        inst = train_main.main(argv)
+    loop_s = time.perf_counter() - t0
+    trace = json.loads((save / "profile" / "adv_epoch0.trace.json")
+                       .read_text())
+    names = {ev.get("name", "") for ev in trace["traceEvents"]
+             if ev.get("cat") == "kernel"}
+    found = {k: any(k in n for n in names) for k in SO_LOOP_KERNELS}
+    mdir = Path(inst.config.model_dir)
+    cnt = drive.cnt
+    cnt["decode_serve"].launches = 0
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", str(mdir / "adv_model_ema.ckpt"), *CONFIG3_FLAGS]))
+    try:
+        resp = service.handle_request({"n": 8})
+    finally:
+        service.close()
+    torch.cuda.synchronize()
+    served = cnt["decode_serve"].launches
+    row["loop"] = {"seconds": loop_s, "launches": loop,
+                   "trace_kernels": found, "trace_kernel_names": len(names),
+                   "ema_files": sorted(p.name for p in mdir.glob("*_ema.ckpt")),
+                   "served": resp["captions"][:2], "serve_launches": served,
+                   "gen_steps": inst.state.gen_steps,
+                   "pretrain_steps": inst.pretrain_steps}
+    emit({"phase": "step_options", "loop": row["loop"]})
+    check(all(found.values()), f"profile trace kernels {found}")
+    check(row["loop"]["ema_files"] == ["adv_model_ema.ckpt",
+                                       "pretrained_model_ema.ckpt"],
+          f"EMA files {row['loop']['ema_files']}")
+    check(len(resp["captions"]) == 8 and served > 0
+          and all(math.isfinite(x) for x in resp["logprobs"]),
+          f"EMA checkpoint served {resp}, {served} launches")
+
+    # config4: a Gumbel adversarial step at --grad-accum 2 under
+    # --use-pallas on (the sampler) and off (the plain draw)
+    _, tf_state, tf_batch = tf_setup(device)
+    row["config4"] = {}
+    for mode in ("on", "off"):
+        tcfg = tf_config(adv_objective="gumbel", grad_accum=2,
+                         use_pallas=mode)
+        seen = {}
+        with drive.segment(seen):
+            tf_state, m = make_adv_step(tcfg)(tf_state, tf_batch, TEMP)
+        row["config4"][mode] = {"launches": seen,
+                                "metrics": {k: float(v)
+                                            for k, v in m.items()}}
+        want_g = 2 * T if mode == "on" else 0
+        check(seen["gumbel_sample"] == want_g and seen["flash_fwd"] > 0
+              and seen["flash_bwd"] > 0, f"config4 use-pallas {mode} "
+              f"launches {seen}")
+        check(all(math.isfinite(v) for v in
+                  row["config4"][mode]["metrics"].values()),
+              f"config4 use-pallas {mode} metrics")
+    emit({"phase": "step_options", "config4": row["config4"]})
+    del tf_state, tf_batch
+
+    # conditional config3: one adversarial step at --grad-accum 2 on
+    # uint8 images (image_norm at B = 32), the running statistics of the
+    # last microbatch from the old ones
+    c_cfg, c_state, c_batch = cond_setup(device, grad_accum=2)
+    old = running_stats(c_state.gen)
+    seen = {}
+    with drive.segment(seen):
+        c_state, m = make_adv_step(c_cfg)(c_state, c_batch, TEMP)
+    got = running_stats(c_state.gen)
+    restore_stats(c_state.gen, old)
+    last = split_micro(c_batch, 2)[1]
+    plain_cfg = c_cfg.replace(image_norm_impl="plain")
+    with torch.no_grad():
+        api.generator_condition(plain_cfg, c_state.gen, last, train=True)
+    want_stats = running_stats(c_state.gen)
+    micro_u8 = last["images_u8"]
+    norm_err = float((inorm.normalize_images(micro_u8)
+                      - inorm.normalize_images_plain(micro_u8)).abs().max())
+    cond = {"launches": seen, "stats_rel_err": stats_rel_err(got, want_stats),
+            "image_norm_b32_max_abs_err": norm_err,
+            "metrics": {k: float(v) for k, v in m.items()}}
+    row["cond"] = cond
+    emit({"phase": "step_options", "cond": cond})
+    check(seen["image_norm"] == 2 and seen["decode_sample_resid"] == 2,
+          f"conditional grad-accum launches {seen}")
+    check(cond["stats_rel_err"] <= STAT_RTOL, f"running statistics {cond}")
+    check(norm_err <= NORM_ATOL, f"image_norm at B = 32: {norm_err}")
+    del c_state, c_batch
+
+    # every kernel of the slice's path launched in the drive
+    row["launches"] = dict(drive.total)
+    missing = [k for k in SO_PATH_KERNELS if not drive.total.get(k)]
+    check(not missing, f"step_options: never launched {missing}")
+
+    # times: the adversarial step at B = 64 and at --grad-accum 2
+    row["timing"] = so_timing(config, state, batch)
+    emit({"phase": "step_options", "card": smi, "timing": row["timing"]})
+    row["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "step_options", "launches": row["launches"],
+          "seconds": row["seconds"]})
+    return row
+
+
+def step_options_launches(entry, row):
+    """An entry's launches in phase ``step_options``' drive; the fused
+    flash backward stands for the dQ and dK/dV entries."""
+    name = entry["name"]
+    if name in ("flash_dq", "flash_dkv"):
+        name = "flash_bwd"
+    return row["launches"].get(name, 0)
+
+
 def scst_launches(entry, scst_row):
     """An entry's launches in the SCST phases (config3 and config4); the
     fused flash backward stands for the dQ and dK/dV entries."""
@@ -5171,6 +5827,8 @@ def main(argv=None):
         phase_resume(workdir)
     if run("scst"):
         scst_row = phase_scst(device, workdir)
+    if run("step_options"):
+        so_row = phase_step_options(device, workdir, smi)
     if only:
         return 0
 
@@ -5209,6 +5867,7 @@ def main(argv=None):
                 r["launches"][entry["name"]] for r in runs.values())
     for entry in kernels:
         entry["scst_launches"] = scst_launches(entry, scst_row)
+        entry["step_options_launches"] = step_options_launches(entry, so_row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -178,9 +178,61 @@ def add_training_args(parser):
                         "mean reward")
     g.add_argument("--mle-objective", type=str, default="free",
                    choices=["free", "teacher", "scheduled"],
-                   help="LSTM pretrain forward: 'free' = free-running sample "
-                        "(the reference's objective), 'teacher' = teacher "
-                        "forcing; 'scheduled' is not ported yet")
+                   help="LSTM pretrain forward: 'free' = the reference's "
+                        "free-running sample objective (training.py:71), "
+                        "'teacher' = teacher forcing (the reference's unused "
+                        "Decoder.forward, generator.py:39-53), 'scheduled' = "
+                        "scheduled sampling (Bengio et al. 2015) ramping the "
+                        "model-feedback probability 0 → --ss-max-prob over "
+                        "the pretrain epochs. Transformers always run the "
+                        "report's parallel teacher-forced MLE (§3.2.2)")
+    g.add_argument("--ss-max-prob", type=float, default=1.0,
+                   help="scheduled sampling: final model-feedback "
+                        "probability of the linear per-epoch ramp")
+    g.add_argument("--lr-schedule", type=str, default="constant",
+                   choices=["constant", "cosine", "linear", "exponential"],
+                   help="learning-rate decay shape applied to all three "
+                        "optimizers' base LRs (the reference runs fixed LRs "
+                        "only, training.py:24-26); pairs with "
+                        "--lr-warmup-steps/--lr-decay-steps/--lr-min-ratio")
+    g.add_argument("--lr-warmup-steps", type=int, default=0,
+                   help="linear warmup 0 → base LR over this many optimizer "
+                        "steps before the decay shape starts")
+    g.add_argument("--lr-decay-steps", type=int, default=0,
+                   help="decay horizon in optimizer steps (required > 0 for "
+                        "non-constant --lr-schedule)")
+    g.add_argument("--lr-min-ratio", type=float, default=0.0,
+                   help="final LR as a fraction of the base LR (cosine alpha "
+                        "/ linear end / exponential per-horizon decay rate)")
+    g.add_argument("--grad-accum", type=int, default=1,
+                   help="split each batch into this many microbatches inside "
+                        "the step and apply ONE optimizer update on the "
+                        "averaged grads — large effective batches beyond "
+                        "device memory")
+    g.add_argument("--ema-decay", type=float, default=0.0,
+                   help="maintain an exponential moving average of generator "
+                        "params with this decay (0 = off); best-val "
+                        "checkpoints gain a *_ema.ckpt twin usable with "
+                        "evaluate.py --checkpoint")
+    g.add_argument("--skip-nonfinite-grads", type=int, default=0,
+                   help="skip an optimizer update (params/opt-state/EMA "
+                        "unchanged; counters still advance) when that "
+                        "side's gradient global norm is non-finite — the "
+                        "production guard for long bf16 adversarial runs "
+                        "where one poisoned batch would destroy the run. "
+                        "0 = reference behavior (apply whatever came back)")
+    g.add_argument("--debug-nans", action="store_true",
+                   help="fail loudly (FloatingPointError) at the first "
+                        "non-finite loss, module output or gradient, under "
+                        "autograd's anomaly mode")
+    g.add_argument("--steps-per-call", type=int, default=1,
+                   help="train steps run in ONE call over K stacked batches "
+                        "(one host→device copy of the K batches). "
+                        "Interrupt/mid-epoch-checkpoint granularity "
+                        "becomes K batches. 1 = reference per-batch stepping")
+    g.add_argument("--profile-dir", type=str, default="",
+                   help="if set, dump a torch.profiler trace (Chrome JSON) "
+                        "for the first adv epoch into this directory")
     g.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="compute dtype (only float32 is ported yet)")
@@ -267,6 +319,20 @@ def add_data_args(parser):
     g.add_argument("--device-preprocess", type=int, default=0, choices=[0, 1],
                    help="ship resized uint8 images to the device and "
                         "normalize there (the image_norm kernel)")
+    g.add_argument("--length-buckets", type=str, default="",
+                   help="comma-separated caption-length bucket upper bounds "
+                        "(e.g. '12,20,36'); batches are grouped per bucket "
+                        "so short captions don't pay full-width compute. "
+                        "Empty = single fixed width (max_seq_len+2).")
+    g.add_argument("--precollate", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="collate the whole dataset into dense arrays once "
+                        "so every epoch batch is a numpy row-gather "
+                        "(removes the per-batch Python collation). auto = "
+                        "on when captions + decoded images fit "
+                        "$GIC_PRECOLLATE_BUDGET bytes (default 1 GiB); "
+                        "the collation is shared by the loaders of a "
+                        "dataset, so this is lossless")
     g.add_argument("--num-workers", type=int, default=4,
                    help="accepted; the port's loader is single-threaded "
                         "(this changes overlap, never results)")
@@ -348,6 +414,12 @@ def add_extension_args(parser):
                         "'decoupled' samples the ids with a gradient-free "
                         "loop of PyTorch operations, then rescores them "
                         "(its backward through the reverse BPTT kernel)")
+    g.add_argument("--use-pallas", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="route Gumbel sampling through the fused sampler "
+                        "kernel (auto = on, as on CUDA tensors). Its PRNG "
+                        "stream differs from the plain draw's, so runs are "
+                        "not bit-comparable with --use-pallas off.")
     g.add_argument("--no-jit", action="store_true",
                    help="accepted: the port runs eagerly, as the JAX "
                         "package does under this flag")
@@ -374,35 +446,17 @@ _UNPORTED_FLAG_ARGS = (
     ("--random-flip", dict(type=int, default=0, choices=[0, 1]), None),
     ("--random-crop-pad", dict(type=int, default=0), None),
     ("--cache-features", dict(type=int, default=0, choices=[0, 1]), None),
-    ("--steps-per-call", dict(type=int, default=1), None),
-    ("--length-buckets", dict(type=str, default=""), None),
     ("--mesh", dict(type=str, default=""), None),
     ("--cp-mode", dict(type=str, default="gspmd",
                        choices=["gspmd", "ring", "ulysses"]), None),
     ("--pp-microbatches", dict(type=int, default=4), None),
     ("--zero1", dict(action="store_true"), None),
-    ("--profile-dir", dict(type=str, default=""), None),
-    ("--precollate", dict(type=str, default="auto",
-                          choices=["auto", "on", "off"]), None),
-    ("--ema-decay", dict(type=float, default=0.0), None),
-    ("--lr-schedule", dict(type=str, default="constant",
-                           choices=["constant", "cosine", "linear",
-                                    "exponential"]), None),
-    ("--lr-warmup-steps", dict(type=int, default=0), None),
-    ("--lr-decay-steps", dict(type=int, default=0), None),
-    ("--lr-min-ratio", dict(type=float, default=0.0), None),
-    ("--grad-accum", dict(type=int, default=1), None),
-    ("--skip-nonfinite-grads", dict(type=int, default=0), None),
-    ("--ss-max-prob", dict(type=float, default=1.0), None),
-    ("--debug-nans", dict(action="store_true"), None),
     ("--tokenizer", dict(type=str, default="word", choices=["word", "bpe"]),
      None),
     ("--bpe-vocab", dict(type=str, default=""), None),
     ("--bpe-merges", dict(type=str, default=""), None),
     ("--encoder-init", dict(type=str, default="sweep",
                             choices=["sweep", "natural"]), None),
-    ("--use-pallas", dict(type=str, default="auto",
-                          choices=["auto", "on", "off"]), None),
 )
 
 
@@ -577,10 +631,7 @@ class Config:
     padding_idx: int = 0
     device_ids: int = 0
     test_log_step: int = 1
-    # the JAX package's options that are not ported (require_ported_flags)
-    random_flip: int = 0
-    random_crop_pad: int = 0
-    cache_features: int = 0
+    # the resume, snapshot, early-stop and SCST options
     resume: str = ""
     resume_schedule: int = 1
     checkpoint_every: int = 0
@@ -590,25 +641,31 @@ class Config:
     scst_reward: str = "cider"
     scst_multi_ref: bool = False
     scst_lr: float = 0.0
-    steps_per_call: int = 1
-    length_buckets: str = ""
-    mesh: str = ""
-    cp_mode: str = "gspmd"
-    pp_microbatches: int = 4
-    zero1: bool = False
-    profile_dir: str = ""
-    precollate: str = "auto"
+    # step options and batching (train/state.py, train/steps.py,
+    # data/loader.py, train/instructor.py)
     lr_warmup_steps: int = 0
     lr_decay_steps: int = 0
     lr_min_ratio: float = 0.0
     skip_nonfinite_grads: int = 0
     ss_max_prob: float = 1.0
     debug_nans: bool = False
+    steps_per_call: int = 1
+    length_buckets: str = ""
+    precollate: str = "auto"
+    profile_dir: str = ""
+    use_pallas: str = "auto"
+    # the JAX package's options that are not ported (require_ported_flags)
+    random_flip: int = 0
+    random_crop_pad: int = 0
+    cache_features: int = 0
+    mesh: str = ""
+    cp_mode: str = "gspmd"
+    pp_microbatches: int = 4
+    zero1: bool = False
     tokenizer: str = "word"
     bpe_vocab: str = ""
     bpe_merges: str = ""
     encoder_init: str = "sweep"
-    use_pallas: str = "auto"
     # kernel routes (see the class docstring)
     decode_impl: str = "fused"
     disc_engine: str = "auto"
@@ -636,6 +693,11 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def bucket_bounds(self):
+        """``--length-buckets`` as ints (None when empty)."""
+        return [int(b) for b in self.length_buckets.split(",") if b] or None
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

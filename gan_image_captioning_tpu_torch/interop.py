@@ -213,7 +213,9 @@ def train_state_from_jax(state, config: Config, device="cpu"):
     """A JAX ``TrainState`` (numpy leaves) → the port's ``TrainState``:
     params (and a conditional generator's running statistics), the three
     Adam states (count and moments, see :func:`_adam_from_jax`), the step
-    counters and the temperature, so that a port run continues it.  The
+    counters, the temperature and the generator's EMA
+    (``ema_gen_params``, under the generator's ``state_dict`` names; None
+    when the JAX state has none), so that a port run continues it.  The
     JAX PRNG stream cannot be carried over; the port's generator is seeded
     from the key's bits instead."""
     from gan_image_captioning_tpu_torch.train.state import (TrainState,
@@ -235,6 +237,12 @@ def train_state_from_jax(state, config: Config, device="cpu"):
         disc = transformer_discriminator_from_jax(state.disc_params, config,
                                                   device)
         disc_rename = flatten_jax
+    ema = None
+    if state.ema_gen_params is not None:
+        sd = gen.state_dict()
+        values = gen_rename(state.ema_gen_params)
+        ema = {k: values[k].to(device) for k, v in sd.items()
+               if v.is_floating_point()}
     return TrainState(
         gen=gen, disc=disc,
         pretrain_opt=_adam_from_jax(state.pretrain_opt_state, gen_rename,
@@ -246,4 +254,5 @@ def train_state_from_jax(state, config: Config, device="cpu"):
         pretrain_steps=int(np.asarray(state.pretrain_steps)),
         gen_steps=int(np.asarray(state.gen_steps)),
         disc_steps=int(np.asarray(state.disc_steps)),
-        temperature=float(np.asarray(state.temperature)))
+        temperature=float(np.asarray(state.temperature)),
+        ema_gen=ema)

@@ -107,12 +107,15 @@ def generator_sample(generator: gen_lstm.Generator, cond: Dict[str, Any],
 
 def generator_mle_outputs(generator: gen_lstm.Generator,
                           cond: Dict[str, Any], captions, config: Config,
-                          lengths=None):
+                          lengths=None, sample_prob: float = 0.0, coins=None,
+                          draw: torch.Generator = None):
     """MLE-phase logits ``[B, T, V]`` (targets = ``captions``).  LSTM, by
     ``--mle-objective``: ``free`` (the reference's free-running pretrain
-    sample) or ``teacher`` (teacher forcing).  Transformer: the parallel
-    causal pass with the keys past each caption's ``lengths`` masked,
-    whatever ``--mle-objective`` says."""
+    sample), ``teacher`` (teacher forcing) or ``scheduled`` (scheduled
+    sampling at model-feedback probability ``sample_prob``, its per-step
+    coins ``[T, B]`` fed or drawn from ``draw``).  Transformer: the
+    parallel causal pass with the keys past each caption's ``lengths``
+    masked, whatever ``--mle-objective`` says."""
     require_ported(config)
     seq_len = captions.shape[1]
     if config.gen_arch == "transformer":
@@ -124,9 +127,12 @@ def generator_mle_outputs(generator: gen_lstm.Generator,
     if config.mle_objective == "teacher":
         return gen_lstm.teacher_forced(dec, cond["features"], captions,
                                        plain=route == "plain")[:, :seq_len]
+    if config.mle_objective == "scheduled":
+        return gen_lstm.scheduled_sample(dec, cond["features"], captions,
+                                         sample_prob, coins, draw)
     if config.mle_objective != "free":
-        raise NotImplementedError(f"--mle-objective {config.mle_objective}"
-                                  " is not ported yet")
+        raise ValueError(f"--mle-objective {config.mle_objective!r}: "
+                         "expected free, teacher or scheduled")
     logits, _ = gen_lstm.sample(dec, cond["features"], seq_len, True,
                                 route=route)
     return logits

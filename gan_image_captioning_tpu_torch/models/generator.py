@@ -27,7 +27,8 @@ differentiable teacher-forced logits (the rescore); otherwise
 
 :func:`teacher_forced` is the reference's ``Decoder.forward``; it and the
 rescore backpropagate through the reverse BPTT kernel
-(``models/lstm.py:lstm_seq_tm``).
+(``models/lstm.py:lstm_seq_tm``).  :func:`scheduled_sample`
+(``--mle-objective scheduled``) is a plain PyTorch loop between the two.
 """
 
 from __future__ import annotations
@@ -443,6 +444,39 @@ def sample(decoder: Decoder, features, seq_len: int, pretrain: bool = True,
                                      seed, uniforms)
     return sample_soft(decoder, features, seq_len, temperature, seed,
                        uniforms, plain)
+
+
+def scheduled_sample(decoder: Decoder, features, captions,
+                     sample_prob: float = 0.0, coins=None,
+                     generator: Optional[torch.Generator] = None):
+    """Scheduled sampling (Bengio et al. 2015, ``--mle-objective
+    scheduled``; the JAX ``scheduled_sample``) → logits ``[B, T, V]``
+    (targets = ``captions [B, T]``): at step t the stacked LSTM predicts
+    position t, and the input of step t + 1 is, where ``coins[t]`` is set,
+    the embedding of the model's own (detached) argmax, else of
+    ``captions[:, t]``.  ``coins [T, B]`` bool: fed, or ``uniform <
+    sample_prob`` drawn from ``generator`` (the JAX per-step Bernoulli).
+    At p = 0 it is the teacher-forced pass, at p = 1 the free-running
+    greedy sample.  A plain PyTorch loop, differentiated by autograd."""
+    batch, seq_len = captions.shape
+    if coins is None:
+        coins = torch.rand((seq_len, batch), generator=generator,
+                           device=captions.device) < sample_prob
+    layers = decoder.lstm.layers()
+    params = lstm.fuse_layer_params(layers)
+    w, b = decoder.linear.weight, decoder.linear.bias
+    embed = decoder.embed.weight
+    gt_emb = embed[captions.long()]
+    state = lstm.zero_state(len(params), batch, layers[0]["w_hh"].shape[1],
+                            features.dtype, features.device)
+    x, outs = features, []
+    for t in range(seq_len):
+        h_top, state = lstm.lstm_step(params, x, state)
+        logits = h_top @ w.T + b
+        outs.append(logits)
+        model_emb = embed[torch.argmax(logits.detach(), dim=-1)]
+        x = torch.where(coins[t][:, None], model_emb, gt_emb[:, t])
+    return torch.stack(outs, dim=1)
 
 
 def teacher_forced(decoder: Decoder, features, captions,

@@ -39,14 +39,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gan_image_captioning_tpu_torch.config import Config, decode_route
+from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.data.vocab import START
 from gan_image_captioning_tpu_torch.kernels.flash_attention import (
     flash_attention, supported)
 from gan_image_captioning_tpu_torch.kernels.gumbel_sample import (
     step_uniforms)
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
-from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_softmax
+from gan_image_captioning_tpu_torch.ops.gumbel import (gumbel_softmax,
+                                                       use_fused_sampler)
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
 CTX_DIM = 512  # the ResNet-18 encoder's grid channels (ctx_proj's input)
@@ -370,12 +371,13 @@ def sample(dec, features, seq_len: int, pretrain: bool = False,
     (``pretrain``) or the Gumbel-softmax sample of the logits, and feed
     ``embed[ids]`` back.  Gumbel noise: the fed ``uniforms [T, B, V]``, or
     the sampler's draw for ``(seed, t)`` (the fused kernel's Philox on CUDA
-    unless ``config.decode_impl == "plain"``, else
-    ``gumbel_sample.step_uniforms``)."""
+    under ``--use-pallas auto`` or ``on``, else
+    ``gumbel_sample.step_uniforms``).  The fused sampler is
+    :func:`ops.gumbel.use_fused_sampler`'s choice."""
     p = dec if isinstance(dec, dict) else params_of(dec)
     k_cache, v_cache = _init_kv_cache(config, features.shape[0],
                                       features.dtype, features.device)
-    kernel = decode_route(config) != "plain"
+    kernel = use_fused_sampler(config)
     x, outs, ids = features, [], []
     for t in range(seq_len):
         logits, k_cache, v_cache = decode_step(p, config, x, k_cache,

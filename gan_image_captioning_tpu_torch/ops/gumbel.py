@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from gan_image_captioning_tpu_torch.config import decode_route
 from gan_image_captioning_tpu_torch.kernels.gumbel_sample import (
     fused_gumbel_sample)
 
@@ -33,6 +34,20 @@ def gumbel_noise(shape, generator=None, device="cpu", dtype=torch.float32,
     return -torch.log(-torch.log(u + eps) + eps)
 
 
+def use_fused_sampler(config) -> bool:
+    """``--use-pallas`` (the JAX ``Config.resolve_use_pallas`` and
+    ``set_use_pallas``, per config here, not process-wide): ``auto`` and
+    ``on`` route the callers of :func:`gumbel_softmax` through the fused
+    sampler (its kernel on CUDA tensors, its plain version on CPU ones),
+    ``off`` through the plain draw, also on the card.  The ``plain`` decode
+    route (``config.decode_route``) takes the plain draw whatever the
+    flag says."""
+    if config.use_pallas not in ("auto", "on", "off"):
+        raise ValueError(f"--use-pallas {config.use_pallas!r}: expected "
+                         "auto, on or off")
+    return config.use_pallas != "off" and decode_route(config) != "plain"
+
+
 def gumbel_softmax(logits, temperature, generator=None, eps: float = EPS,
                    u=None, kernel: bool = False, seed: int = 0,
                    step: int = 0):
@@ -40,7 +55,7 @@ def gumbel_softmax(logits, temperature, generator=None, eps: float = EPS,
     g))`` and its argmax (first index on ties), a categorical draw from
     ``softmax(logits)``.
 
-    ``kernel`` (the kernel route of ``decode_impl``, the JAX package's
+    ``kernel`` (:func:`use_fused_sampler`, the JAX package's
     ``set_use_pallas``): 2-D logits go through the fused sampler
     (``kernels/gumbel_sample.py``): on CUDA tensors its kernel, with the
     fed uniforms ``u`` or Philox keyed by ``(seed, step)``; on CPU ones its

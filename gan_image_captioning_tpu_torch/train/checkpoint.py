@@ -26,8 +26,13 @@ save): :func:`save_state` writes the whole :class:`TrainState` as one
 ``torch.save`` file (both modules' ``state_dict``s, a conditional
 generator's BatchNorm running statistics included; the three Adam states;
 the step counters and the temperature; the host ``torch.Generator``'s
-state), :func:`load_state` reads it back into a state built from the same
-config, and :func:`prune_checkpoints` keeps the newest numbered snapshots.
+state; the generator's EMA under ``--ema-decay``, else None),
+:func:`load_state` reads it back into a state built from the same config
+(a file without the EMA entry, written before the EMA was ported, loads
+into a state without EMA), and :func:`prune_checkpoints` keeps the newest
+numbered snapshots.  :func:`save_ema_checkpoint` writes the EMA as a
+generator checkpoint in the plain reference form
+(``pretrained_model_ema.ckpt``, ``adv_model_ema.ckpt``).
 
 Saves are asynchronous unless ``sync=True``: the caller copies every
 tensor to host memory (a copy, also of CPU tensors) before the save
@@ -45,7 +50,7 @@ import os
 import re
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -140,11 +145,16 @@ def save_object(path: str, obj: Any, sync: bool = False) -> None:
         _pending.append(fut)
 
 
-def generator_state_dict(generator: Generator) -> Dict[str, torch.Tensor]:
+def generator_state_dict(generator: Generator,
+                         values: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """``generator``'s state under the reference's keys (the tensors
-    themselves, detached; :func:`save_object` copies them)."""
+    themselves, detached; :func:`save_object` copies them).  ``values``:
+    entries (under the generator's own keys) that stand in for its own,
+    as the EMA does."""
+    sd = {**generator.state_dict(), **(values or {})}
     return {_rename_backbone(k, _TO_SEQUENTIAL): v.detach()
-            for k, v in generator.state_dict().items()}
+            for k, v in sd.items()}
 
 
 def save_generator_checkpoint(path: str, generator: Generator,
@@ -161,6 +171,15 @@ def save_generator_checkpoint(path: str, generator: Generator,
         "conditional": generator.encoder is not None,
         "gen_arch": _arch_of(gen_sd)}
     save_object(path, obj, sync=sync)
+
+
+def save_ema_checkpoint(path: str, state, sync: bool = True) -> None:
+    """Write the generator's EMA (``state.ema_gen``) in the plain reference
+    form: ``state.gen``'s ``state_dict`` with the EMA's values, so that
+    every entry point that loads a generator checkpoint
+    (:func:`load_generator_checkpoint`) serves it."""
+    save_object(path, generator_state_dict(state.gen, state.ema_gen),
+                sync=sync)
 
 
 def _arch_of(gen_sd) -> str:
@@ -214,7 +233,9 @@ def state_dict_of(state) -> dict:
            "gen": dict(state.gen.state_dict()),
            "disc": dict(state.disc.state_dict()),
            "temperature": float(state.temperature),
-           "generator": state.generator.get_state()}
+           "generator": state.generator.get_state(),
+           "ema_gen": (None if state.ema_gen is None
+                       else dict(state.ema_gen))}
     for name in _OPTS:
         opt = getattr(state, name)
         obj[name] = {"count": int(opt.count), "mu": dict(opt.mu),
@@ -261,6 +282,17 @@ def load_state(path: str, template):
         setattr(template, name, int(obj[name]))
     template.temperature = float(obj["temperature"])
     template.generator.set_state(obj["generator"])
+    ema = obj.get("ema_gen")
+    if (ema is None) != (template.ema_gen is None):
+        has, flag = ("no", "is set") if ema is None else ("an", "is 0")
+        raise ValueError(f"{path}: the file holds {has} generator EMA and "
+                         f"this run's --ema-decay {flag}")
+    if ema is not None:
+        if set(ema) != set(template.ema_gen):
+            raise ValueError(f"{path}: its EMA entries do not match this "
+                             "generator's state_dict")
+        template.ema_gen = {k: v.to(template.ema_gen[k].device)
+                            for k, v in ema.items()}
     return template
 
 

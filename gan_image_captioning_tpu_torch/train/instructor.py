@@ -47,13 +47,36 @@ advance during val sweeps.  Scalars go to ``metrics.jsonl`` with the JAX
 package's tags; each sweep's metrics are read from the device once, at
 its end.  Batches are built in this thread and copied to the device before
 their step (``--num-workers`` / ``--device-prefetch`` are accepted and
-change nothing but overlap in the JAX package).  Multi-step calls,
-meshes, cached features and EMA are not ported: their flags raise
+change nothing but overlap in the JAX package).
+
+Step options and batching (the JAX instructor's):
+
+* ``--steps-per-call K``: the train sweeps take their batches in groups
+  of K (``data/loader.stack_batches``, one copy to the device a group)
+  and run each group's steps one by one, as ``steps.make_multi_step``
+  does in one call; an interrupt lands after the group in flight.
+* ``--length-buckets`` / ``--precollate``: the four loaders' buckets and
+  shared precollation (``data/loader.py``).
+* ``--mle-objective scheduled``: the pretrain epoch e feeds the train and
+  val MLE steps the model-feedback probability ``ss_max_prob · e /
+  max(1, epochs − 1)``.
+* ``--ema-decay``: each best-val save of ``pretrained_model.ckpt`` and
+  ``adv_model.ckpt`` writes the EMA beside it as ``pretrained_model_ema
+  .ckpt`` / ``adv_model_ema.ckpt`` (plain reference form; ``evaluate.py
+  --checkpoint``, ``caption.py`` and ``serve.py`` load it).
+* ``--profile-dir``: ``torch.profiler`` over the first adversarial
+  epoch's train sweep, its Chrome trace written into the directory when
+  the sweep ends, an interrupted one included.
+* ``--debug-nans``: ``steps.debug_nans`` around :meth:`_run` (forward
+  hooks, anomaly mode; put back when it ends) and the steps' own checks.
+
+Meshes and cached features are not ported: their flags raise
 (``config.require_ported_flags``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import threading
@@ -64,7 +87,7 @@ import torch
 
 from gan_image_captioning_tpu_torch.config import (Config, require_ported_flags,
                                                    resolve_device)
-from gan_image_captioning_tpu_torch.data.loader import Batcher
+from gan_image_captioning_tpu_torch.data.loader import Batcher, stack_batches
 from gan_image_captioning_tpu_torch.eval import decode as decode_lib
 from gan_image_captioning_tpu_torch.eval.diversity import self_bleu
 from gan_image_captioning_tpu_torch.eval.metrics import (bleu4_from_batches,
@@ -78,8 +101,8 @@ from gan_image_captioning_tpu_torch.train import scst as scst_lib
 from gan_image_captioning_tpu_torch.train.state import (create_train_state,
                                                         with_generator)
 from gan_image_captioning_tpu_torch.train.steps import (
-    batch_to, make_adv_eval_step, make_adv_step, make_mle_eval_step,
-    make_mle_step)
+    batch_to, debug_nans, make_adv_eval_step, make_adv_step,
+    make_mle_eval_step, make_mle_step)
 from gan_image_captioning_tpu_torch.utils.logging import (MetricWriter,
                                                           create_logger)
 
@@ -128,19 +151,23 @@ class GANInstructor:
         self.mle_eval_step = make_mle_eval_step(config)
         self.adv_step = make_adv_step(config)
         self.adv_eval_step = make_adv_eval_step(config)
+        self.steps_per_call = max(1, int(config.steps_per_call))
 
         seq = config.seq_len
+        kw = dict(bucket_bounds=config.bucket_bounds,
+                  precollate=config.precollate)
         self.pre_train_loader = Batcher(
             train_dataset, config.pre_train_batch_size, seq, shuffle=True,
-            seed=config.seed, drop_last=True)
+            seed=config.seed, drop_last=True, **kw)
         self.pre_eval_loader = Batcher(dev_dataset, config.pre_eval_batch_size,
-                                       seq)
+                                       seq, **kw)
         self.adv_train_loader = Batcher(
             train_dataset, config.adv_train_batch_size, seq, shuffle=True,
-            seed=config.seed + 1, drop_last=True)
+            seed=config.seed + 1, drop_last=True, **kw)
         self.adv_eval_loader = Batcher(dev_dataset, config.adv_eval_batch_size,
-                                       seq)
+                                       seq, **kw)
         self.pretrain_steps = 0
+        self._ss_prob = 0.0     # scheduled sampling's feedback probability
         self.adv_batch_steps = 0
         self._scst_step = 0
         # per-phase best values and patience counters: state, so that an
@@ -250,6 +277,12 @@ class GANInstructor:
             "%d (restart with --resume %s or --resume auto)"
             % (path, phase, epoch, batches_done, path))
 
+    def _save_ema(self, name: str) -> None:
+        """The EMA twin of a best-val save (``--ema-decay``)."""
+        if self.state.ema_gen is not None:
+            ckpt_lib.save_ema_checkpoint(os.path.join(self.model_dir, name),
+                                         self.state, sync=False)
+
     def _checkpoint_if_interrupted(self, phase: str, epoch: int) -> bool:
         if not self._interrupted:
             return False
@@ -260,29 +293,45 @@ class GANInstructor:
         for batch in it:
             yield batch_to(batch, self.device)
 
+    def _train_batches(self, it):
+        """``(batch on the device, ends its group)`` of a train sweep: the
+        batches in groups of ``--steps-per-call`` (``stack_batches``, one
+        copy to the device a group), one at a time."""
+        if self.steps_per_call == 1:
+            for batch in self._device_batches(it):
+                yield batch, True
+            return
+        for stacked, count in stack_batches(it, self.steps_per_call):
+            stacked = batch_to(stacked, self.device)
+            for j in range(count):
+                yield {k: v[j] for k, v in stacked.items()}, j == count - 1
+
     # ----------------------------------------------------------- MLE phase
 
     def genpretrain_loop(self, what: str, start_batch: int = 0):
         """One sweep — reference ``genpretrain_loop`` (training.py:48-97).
         Returns the sweep's per-batch losses.  A train sweep starts at
-        ``start_batch`` (the same shuffle order) and stops after the batch
-        in flight when an interrupt is requested, leaving the batches
-        applied in ``self._sweep_break``."""
+        ``start_batch`` (the same shuffle order) and stops after the
+        ``--steps-per-call`` group in flight when an interrupt is
+        requested, leaving the batches applied in ``self._sweep_break``."""
         train = what == "train"
         loader = self.pre_train_loader if train else self.pre_eval_loader
         pending = []                    # (loss, grad_norm | None, step)
         self._sweep_break = None
-        it = loader.iter_from(start_batch) if train else iter(loader)
-        for off, batch in enumerate(self._device_batches(it)):
+        p = self._ss_prob
+        batches = (self._train_batches(loader.iter_from(start_batch))
+                   if train else
+                   ((b, False) for b in self._device_batches(loader)))
+        for off, (batch, group_end) in enumerate(batches):
             if train:
-                self.state, metrics = self.mle_step(self.state, batch)
+                self.state, metrics = self.mle_step(self.state, batch, p)
                 self.pretrain_steps += 1
             else:
-                self.state, metrics = self.mle_eval_step(self.state, batch)
+                self.state, metrics = self.mle_eval_step(self.state, batch, p)
             pending.append((metrics["gen_pretrain_loss"],
                             metrics.get("gen_grad_norm"),
                             self.pretrain_steps))
-            if train and self._interrupted:
+            if group_end and self._interrupted:
                 self._sweep_break = start_batch + off + 1
                 break
         tag = ("GenPreTraining_train_loss" if train
@@ -307,6 +356,10 @@ class GANInstructor:
         for epoch in range(start_epoch, epochs):
             if self._checkpoint_if_interrupted("pretrain", epoch):
                 break
+            if self.config.mle_objective == "scheduled":
+                # the linear per-epoch ramp 0 → ss_max_prob
+                self._ss_prob = (self.config.ss_max_prob * epoch
+                                 / max(1, epochs - 1))
             sb = start_batch if epoch == start_epoch else 0
             train_loss = float(np.mean(
                 self.genpretrain_loop("train", start_batch=sb) or [0]))
@@ -321,6 +374,7 @@ class GANInstructor:
                 ckpt_lib.save_generator_checkpoint(
                     os.path.join(self.model_dir, "pretrained_model.ckpt"),
                     self.state.gen, sync=False)
+                self._save_ema("pretrained_model_ema.ckpt")
                 self.log.info("Saving Best model [Gen Loss = {}] at Epoch {}"
                               .format(best["loss"], epoch))
             else:
@@ -452,8 +506,10 @@ class GANInstructor:
         #                       step)
         t_sweep = time.time()
         self._sweep_break = None
-        it = loader.iter_from(start_batch) if train else iter(loader)
-        for off, batch in enumerate(self._device_batches(it)):
+        batches = (self._train_batches(loader.iter_from(start_batch))
+                   if train else
+                   ((b, False) for b in self._device_batches(loader)))
+        for off, (batch, group_end) in enumerate(batches):
             if train:
                 temp = self._temperature(
                     adv_epoch, (start_batch + off + 1) / num_batches)
@@ -466,7 +522,7 @@ class GANInstructor:
             pending.append((metrics["gen_adv_loss"], metrics["disc_adv_loss"],
                             metrics.get("gen_grad_norm"),
                             metrics.get("disc_grad_norm"), step))
-            if train and self._interrupted:
+            if group_end and self._interrupted:
                 self._sweep_break = start_batch + off + 1
                 break
         g_tag, d_tag = (("Generator_train_loss", "Discriminator_train_loss")
@@ -537,13 +593,43 @@ class GANInstructor:
         return {"nll_gen": float(np.mean(nll or [0])), "bleu4": bleu4,
                 "self_bleu4": self_bleu(gen_caps)}
 
+    @contextlib.contextmanager
+    def _profiling(self, adv_epoch: int):
+        """``--profile-dir``: ``torch.profiler`` (CPU and, on the card,
+        CUDA activity) around the train sweep of adversarial epoch 0; its
+        Chrome trace is written into the directory as
+        ``adv_epoch0.trace.json`` when the sweep ends, however it ends."""
+        if not self.config.profile_dir or adv_epoch != 0:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.__enter__()
+        try:
+            yield
+        finally:
+            prof.__exit__(None, None, None)
+            path = os.path.join(self.config.profile_dir,
+                                "adv_epoch0.trace.json")
+            prof.export_chrome_trace(path)
+            self.log.info("Profiler trace of adversarial epoch 0 written to "
+                          "%s" % path)
+
     def _run(self):
         """The full schedule — reference ``_run`` (training.py:201-235), with
         the SCST phase and the resume point of each phase.  Ends with the
         checkpoint barrier, the metric file closed and the previous signal
         handlers back."""
+        nans = (debug_nans(self.state) if self.config.debug_nans
+                else contextlib.nullcontext())
         try:
-            self._run_phases()
+            with nans:
+                self._run_phases()
         finally:
             self._restore_signal_handlers()
             ckpt_lib.wait_for_checkpoints()
@@ -575,8 +661,9 @@ class GANInstructor:
                 break
             t_start = time.time()
             sb = start_batch if adv_epoch == start_epoch else 0
-            train_g, train_d = self.adv_loop("train", adv_epoch,
-                                             start_batch=sb)
+            with self._profiling(adv_epoch):
+                train_g, train_d = self.adv_loop("train", adv_epoch,
+                                                 start_batch=sb)
             if self._sweep_break is not None:
                 self._save_interrupt("adv", adv_epoch, self._sweep_break)
                 break
@@ -588,6 +675,7 @@ class GANInstructor:
                 ckpt_lib.save_generator_checkpoint(
                     os.path.join(self.model_dir, "adv_model.ckpt"),
                     self.state.gen, self.state.disc.state_dict(), sync=False)
+                self._save_ema("adv_model_ema.ckpt")
                 self.log.info("Saving Best model [Gen Loss = {}] at Epoch {}"
                               .format(best["loss"], adv_epoch))
             else:

@@ -20,8 +20,9 @@ pretraining and adversarial training.
   ``eval/decode.sequence_logprob``, with its gradient.  The sampled ids,
   the rewards and the baseline carry no gradient.  The update is the
   clipped Adam of the adversarial generator's optimizer state
-  (``gen_opt``) at ``--scst-lr`` (``--gen-lr`` when 0), and adds 1 to
-  ``gen_steps``.
+  (``gen_opt``) at ``--scst-lr`` (``--gen-lr`` when 0) under the
+  ``--lr-schedule`` at that state's count, moves the EMA
+  (``--ema-decay``), and adds 1 to ``gen_steps``.
 
 The instructor draws each rollout's noise from :func:`rollout_generator`
 ``(seed, scst_step)``, as the JAX instructor folds the global SCST step
@@ -41,7 +42,7 @@ from gan_image_captioning_tpu_torch.eval.metrics import strip_caption
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.train.reinforce import sequence_log_probs
 from gan_image_captioning_tpu_torch.train.state import (
-    clip_adam_update, require_ported_training)
+    clip_adam_update, ema_update, require_ported_training)
 from gan_image_captioning_tpu_torch.train.steps import _grads
 
 ROLLOUT_SEED_OFFSET = 31        # the JAX instructor's PRNGKey(seed + 31)
@@ -100,7 +101,8 @@ def make_scst_programs(config: Config):
         loss = scst_loss(config, state, batch, sampled_ids, advantage)
         grads, = _grads(loss, state.gen)
         clip_adam_update(state.gen, grads, state.gen_opt, lr,
-                         config.clip_norm)
+                         config.clip_norm, config)
+        ema_update(config, state.ema_gen, state.gen)
         state.gen_steps += 1
         return state, loss.detach()
 

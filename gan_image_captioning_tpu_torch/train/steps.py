@@ -43,11 +43,47 @@ CNN) and ``flip [B]`` (the noisy-label swap), and for REINFORCE
 ``rollout_uniforms`` and a ``seed`` (``train/reinforce.py``); what is not
 fed is drawn from ``state.generator``.  A step updates the state in
 place and returns it with its metrics (0-d tensors).
+
+Step options (the JAX ``make_mle_step`` / ``make_adv_step`` options):
+
+* ``--grad-accum k``: the batch is cut into k contiguous microbatches
+  (:func:`split_micro`, the JAX ``_split_micro``); each runs its own
+  forward and backward with its own noise (``noise``: a sequence of k
+  dicts, one a microbatch, or draws from ``state.generator`` in turn);
+  the gradients are summed in microbatch order and divided by k, the
+  losses likewise, and ONE clipped Adam update follows.  A conditional
+  generator's BatchNorm statistics are those of the last microbatch, each
+  computed from the running statistics before the step (the JAX scan
+  keeps the last microbatch's ``new_stats``): the running buffers are put
+  back before every microbatch after the first, since each train-mode
+  forward moves them in place.
+* ``--skip-nonfinite-grads 1`` (the JAX ``_guard_nonfinite``): a side
+  whose pre-clip gradient norm is not finite keeps its parameters, Adam
+  state (its count included) and the EMA, and a conditional generator
+  its running statistics; the step counters advance.  The norms are read
+  on the host once a step (one ``.tolist()`` of both, a device sync);
+  with the flag off a step reads nothing.
+* ``--ema-decay d``: after each generator update ``state.ema_gen`` moves
+  towards the generator (``state.ema_update``).
+* ``--lr-schedule`` and its warmup: every update takes its lr from
+  ``state.lr_at`` at the optimizer's count.
+* ``--mle-objective scheduled``: the MLE steps take ``sample_prob``, the
+  model-feedback probability, and the per-step coins ``[T, B]``
+  (``noise["coins"]``, else drawn from ``state.generator``).
+* ``--debug-nans``: a step raises ``FloatingPointError`` naming the first
+  non-finite loss, and then the first non-finite gradient by parameter
+  name (:func:`check_finite`); :func:`debug_nans` adds forward hooks on
+  every submodule and autograd's anomaly mode around a run.
+* :func:`make_multi_step` (``--steps-per-call K``): K steps in one call
+  over batches stacked ``[K, ...]``, metrics stacked ``[K]``; a loop over
+  the single step, so its state after the call is the state after K
+  single steps.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import contextlib
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,14 +91,15 @@ import torch
 from gan_image_captioning_tpu_torch.config import Config, decode_route
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
+from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
 from gan_image_captioning_tpu_torch.models import generator as gen_lstm
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.ops.losses import (cross_entropy_loss,
                                                         gan_losses)
 from gan_image_captioning_tpu_torch.train.reinforce import reinforce_losses
 from gan_image_captioning_tpu_torch.train.state import (
-    TrainState, clip_adam_update, global_norm, require_ported_training,
-    trainable_parameters)
+    TrainState, clip_adam_update, ema_update, global_norm,
+    require_ported_training, trainable_parameters)
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -87,6 +124,114 @@ def _draw_seed(state: TrainState) -> int:
     return int(torch.randint(2 ** 62, (), generator=state.generator))
 
 
+def split_micro(batch: Dict[str, torch.Tensor],
+                k: int) -> List[Dict[str, torch.Tensor]]:
+    """``--grad-accum k``: the batch as k contiguous microbatches of B / k
+    rows (views), the JAX ``_split_micro``'s ``[k, B/k, ...]`` reshape."""
+    for v in batch.values():
+        if v.shape[0] % k != 0:
+            raise ValueError("--grad-accum %d does not divide batch size %d"
+                             % (k, v.shape[0]))
+    if k == 1:
+        return [batch]
+    return [{key: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))[i]
+             for key, v in batch.items()} for i in range(k)]
+
+
+def _micro_noise(noise, k: int) -> list:
+    """One noise dict (or None) a microbatch: ``noise`` itself when k is
+    1, else a sequence of k dicts."""
+    if k == 1:
+        return [noise]
+    if noise is None:
+        return [None] * k
+    if len(noise) != k:
+        raise ValueError(f"--grad-accum {k}: expected {k} noise dicts, one "
+                         f"a microbatch, got {len(noise)}")
+    return list(noise)
+
+
+def _stats_snapshot(state: TrainState):
+    """A copy of the conditional generator's BatchNorm running statistics
+    (None for an unconditional generator)."""
+    enc = getattr(state.gen, "encoder", None)
+    if enc is None:
+        return None
+    return {k: v.clone() for k, v in encoder_lib.bn_stats(enc).items()}
+
+
+@torch.no_grad()
+def _stats_restore(state: TrainState, snapshot) -> None:
+    if snapshot is None:
+        return
+    stats = encoder_lib.bn_stats(state.gen.encoder)
+    for k, v in snapshot.items():
+        stats[k].copy_(v)
+
+
+def _finite(*norms) -> List[bool]:
+    """Whether each 0-d norm is finite: one read from the device."""
+    return torch.isfinite(torch.stack(norms)).tolist()
+
+
+def check_finite(config: Config, kind: str,
+                 values: Dict[str, torch.Tensor]) -> None:
+    """``--debug-nans``: raise ``FloatingPointError`` naming the first
+    entry of ``values`` (losses, or gradients by parameter name) that has
+    a non-finite element.  Nothing is read when the flag is off."""
+    if not config.debug_nans:
+        return
+    for name, v in values.items():
+        if not bool(torch.isfinite(v).all()):
+            raise FloatingPointError(f"--debug-nans: non-finite {kind} "
+                                     f"{name}")
+
+
+@contextlib.contextmanager
+def debug_nans(state: TrainState):
+    """``--debug-nans`` around a run: a forward hook on every submodule of
+    the generator and the discriminator raises ``FloatingPointError``
+    naming the first module whose output is not finite, and autograd's
+    anomaly mode names the backward function that first returns a NaN
+    (as ``FloatingPointError``).  The hooks and the anomaly mode's
+    previous setting are put back on exit."""
+    def hook(name):
+        def check(_module, _inputs, output):
+            outs = output if isinstance(output, (tuple, list)) else (output,)
+            for o in outs:
+                if (isinstance(o, torch.Tensor) and o.is_floating_point()
+                        and not bool(torch.isfinite(o).all())):
+                    raise FloatingPointError(
+                        f"--debug-nans: non-finite output of module {name}")
+        return check
+
+    handles = [m.register_forward_hook(hook(f"{side}.{n}" if n else side))
+               for side, root in (("gen", state.gen), ("disc", state.disc))
+               for n, m in root.named_modules()]
+    was = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(True)
+    try:
+        yield
+    except RuntimeError as exc:
+        if "returned nan" in str(exc):
+            raise FloatingPointError(
+                f"--debug-nans: non-finite gradient: {exc}") from exc
+        raise
+    finally:
+        torch.autograd.set_detect_anomaly(was)
+        for h in handles:
+            h.remove()
+
+
+def _accumulate(total, part):
+    """``total + part`` per gradient name (``part`` when ``total`` is
+    None).  Out of place: autograd may hand back one tensor for two
+    parameters (an LSTM layer's two biases)."""
+    if total is None:
+        return part
+    return {k: total[k] + g for k, g in part.items()}
+
+
 def noisy_label_flip(flip, d_real, d_fake, num_rep: int):
     """Swap real and fake logits of the samples where ``flip [B]`` is set;
     a sample's ``num_rep`` logits (contiguous) flip together."""
@@ -100,42 +245,107 @@ def _rep_weights(batch, num_rep: int):
     return None if w is None else w.repeat_interleave(num_rep)
 
 
-def mle_loss(config: Config, state: TrainState, batch, train: bool = True):
+def _scheduled_coins(config: Config, state: TrainState, captions,
+                     sample_prob: float, noise):
+    """Scheduled sampling's per-step model-feedback coins ``[T, B]``: fed
+    (``noise["coins"]``) or drawn ``uniform < sample_prob`` from a device
+    generator seeded from ``state.generator``; None for any other
+    objective (the transformer's MLE is always teacher-forced)."""
+    if config.mle_objective != "scheduled" or config.gen_arch != "lstm":
+        return None
+    coins = (noise or {}).get("coins")
+    if coins is not None:
+        return coins
+    draw = torch.Generator(device=captions.device).manual_seed(
+        _draw_seed(state))
+    return torch.rand(captions.shape[::-1], generator=draw,
+                      device=captions.device) < sample_prob
+
+
+def mle_loss(config: Config, state: TrainState, batch, train: bool = True,
+             sample_prob: float = 0.0, noise: Optional[Dict[str, Any]] = None):
     """The MLE objective: cross-entropy of the ``--mle-objective`` logits
-    against the captions, over all positions (weighted by ``weights``)."""
+    against the captions, over all positions (weighted by ``weights``);
+    ``sample_prob`` and the coins of ``noise`` feed scheduled sampling."""
     cond, _ = api.generator_condition(config, state.gen, batch, train=train)
     captions = batch["captions"]
-    logits = api.generator_mle_outputs(state.gen, cond, captions, config,
-                                       lengths=batch.get("lengths"))
+    logits = api.generator_mle_outputs(
+        state.gen, cond, captions, config, lengths=batch.get("lengths"),
+        sample_prob=sample_prob,
+        coins=_scheduled_coins(config, state, captions, sample_prob, noise))
     w = batch.get("weights")
     mask = None if w is None else w[:, None].expand(captions.shape)
     return cross_entropy_loss(logits, captions, mask)
 
 
-def make_mle_step(config: Config):
-    """Pretrain step: loss → grads → clip → Adam(``pretrain_lr``)."""
-    require_ported_training(config)
+def mle_grads(config: Config, state: TrainState, batch,
+              sample_prob: float = 0.0, noise=None, stats=None):
+    """``(loss, gradients by name)`` of the MLE objective: one backward a
+    ``--grad-accum`` microbatch, the gradients and losses summed in
+    microbatch order and divided by k (with k = 1, the one backward's).
+    ``stats``: the running statistics to put back before each microbatch
+    after the first (a snapshot is taken here when needed and not
+    given).  The state is not changed beyond drawing from
+    ``state.generator`` and moving the running statistics."""
+    accum = max(1, int(config.grad_accum))
+    micro = split_micro(batch, accum)
+    if stats is None and accum > 1:
+        stats = _stats_snapshot(state)
+    loss = grads = None
+    for i, (mb, nz) in enumerate(zip(micro, _micro_noise(noise, accum))):
+        if i:
+            _stats_restore(state, stats)
+        mb_loss = mle_loss(config, state, mb, sample_prob=sample_prob,
+                           noise=nz)
+        check_finite(config, "loss", {"gen_pretrain_loss": mb_loss})
+        g, = _grads(mb_loss, state.gen)
+        check_finite(config, "gradient", g)
+        loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
+        grads = _accumulate(grads, g)
+    if accum > 1:
+        loss = loss / accum
+        grads = {k: g / accum for k, g in grads.items()}
+    return loss, grads
 
-    def step(state: TrainState, batch):
-        loss = mle_loss(config, state, batch)
-        grads, = _grads(loss, state.gen)
-        gnorm = clip_adam_update(state.gen, grads, state.pretrain_opt,
-                                 config.pretrain_lr, config.clip_norm)
-        return state, {"gen_pretrain_loss": loss.detach(),
-                       "gen_grad_norm": gnorm}
+
+def make_mle_step(config: Config):
+    """Pretrain step: :func:`mle_grads` → clip → Adam(``pretrain_lr`` at
+    the schedule's count) → EMA, under the non-finite guard.
+    ``step(state, batch, sample_prob=0.0, noise=None)``."""
+    require_ported_training(config)
+    accum = max(1, int(config.grad_accum))
+    guard = bool(config.skip_nonfinite_grads)
+
+    def step(state: TrainState, batch, sample_prob: float = 0.0,
+             noise=None):
+        stats = _stats_snapshot(state) if accum > 1 or guard else None
+        loss, grads = mle_grads(config, state, batch, sample_prob, noise,
+                                stats)
+        gnorm = global_norm(grads)
+        if guard and not _finite(gnorm)[0]:
+            _stats_restore(state, stats)
+        else:
+            clip_adam_update(state.gen, grads, state.pretrain_opt,
+                             config.pretrain_lr, config.clip_norm, config,
+                             gnorm)
+            ema_update(config, state.ema_gen, state.gen)
+        return state, {"gen_pretrain_loss": loss, "gen_grad_norm": gnorm}
 
     return step
 
 
 def make_mle_eval_step(config: Config):
     """Eval-mode MLE loss (reference ``genpretrain_loop('val')``): no
-    gradient, no update, running statistics read."""
+    gradient, no update, running statistics read.
+    ``step(state, batch, sample_prob=0.0, noise=None)``."""
     require_ported_training(config)
 
     @torch.no_grad()
-    def step(state: TrainState, batch):
-        return state, {"gen_pretrain_loss": mle_loss(config, state, batch,
-                                                     train=False)}
+    def step(state: TrainState, batch, sample_prob: float = 0.0,
+             noise=None):
+        return state, {"gen_pretrain_loss": mle_loss(
+            config, state, batch, train=False, sample_prob=sample_prob,
+            noise=noise)}
 
     return step
 
@@ -207,36 +417,87 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     return g_loss, d_loss, aux
 
 
-def adv_grads(config: Config, state: TrainState, batch, temperature,
-              noise: Optional[Dict[str, Any]] = None):
-    """``(g_loss, d_loss, gen_grads, disc_grads, aux)`` from one forward
-    and one backward of ``g_loss + d_loss``; the state is not changed
-    (beyond drawing from ``state.generator``)."""
+def _adv_grads_one(config: Config, state: TrainState, batch, temperature,
+                   noise: Optional[Dict[str, Any]] = None):
     g_loss, d_loss, aux = adv_losses(config, state, batch, temperature,
                                      noise)
+    check_finite(config, "loss", {"gen_adv_loss": g_loss,
+                                  "disc_adv_loss": d_loss})
     g_grads, d_grads = _grads(g_loss + d_loss, state.gen, state.disc)
+    check_finite(config, "gradient", {**{"gen." + k: g for k, g in
+                                         g_grads.items()},
+                                      **{"disc." + k: g for k, g in
+                                         d_grads.items()}})
     return g_loss.detach(), d_loss.detach(), g_grads, d_grads, aux
 
 
+def adv_grads(config: Config, state: TrainState, batch, temperature,
+              noise=None, stats=None):
+    """``(g_loss, d_loss, gen_grads, disc_grads, aux)`` from one forward
+    and one backward of ``g_loss + d_loss`` a ``--grad-accum``
+    microbatch (``noise``: one dict, or with k > 1 a sequence of k),
+    summed in microbatch order and divided by k, ``aux``'s means too and
+    its ``gen_ids`` joined; the state is not changed (beyond drawing from
+    ``state.generator`` and moving the running statistics, put back to
+    ``stats`` before each microbatch after the first, as
+    :func:`mle_grads`)."""
+    accum = max(1, int(config.grad_accum))
+    if accum == 1:
+        return _adv_grads_one(config, state, batch, temperature, noise)
+    if stats is None:
+        stats = _stats_snapshot(state)
+    scal = g_grads = d_grads = None
+    ids = []
+    for i, (mb, nz) in enumerate(zip(split_micro(batch, accum),
+                                     _micro_noise(noise, accum))):
+        if i:
+            _stats_restore(state, stats)
+        gl, dl, gg, dg, aux = _adv_grads_one(config, state, mb, temperature,
+                                             nz)
+        part = (gl, dl, aux["d_real_mean"], aux["d_fake_mean"])
+        scal = part if scal is None else [a + b for a, b in zip(scal, part)]
+        g_grads, d_grads = (_accumulate(g_grads, gg),
+                            _accumulate(d_grads, dg))
+        ids.append(aux["gen_ids"])
+    g_loss, d_loss, d_real, d_fake = (v / accum for v in scal)
+    aux = {"gen_ids": torch.cat(ids), "d_real_mean": d_real,
+           "d_fake_mean": d_fake}
+    return (g_loss, d_loss, {k: g / accum for k, g in g_grads.items()},
+            {k: g / accum for k, g in d_grads.items()}, aux)
+
+
 def make_adv_step(config: Config):
-    """The adversarial update: both gradients from one forward and one
-    backward, the discriminator's clipped Adam every ``disc_train_freq``
-    generator steps, the generator's every step."""
+    """The adversarial update: :func:`adv_grads` (both gradients from one
+    forward and one backward per ``--grad-accum`` microbatch), the
+    discriminator's clipped Adam every ``disc_train_freq`` generator
+    steps, the generator's every step and then its EMA, each side under
+    the non-finite guard.
+    ``step(state, batch, temperature, noise=None)``."""
     require_ported_training(config)
     disc_every = max(1, int(config.disc_train_freq))
+    accum = max(1, int(config.grad_accum))
+    guard = bool(config.skip_nonfinite_grads)
 
     def step(state: TrainState, batch, temperature,
              noise: Optional[Dict[str, Any]] = None):
+        stats = _stats_snapshot(state) if accum > 1 or guard else None
         g_loss, d_loss, g_grads, d_grads, aux = adv_grads(
-            config, state, batch, temperature, noise)
+            config, state, batch, temperature, noise, stats)
         # pre-clip norms, also on steps that do not update the discriminator
         g_norm, d_norm = global_norm(g_grads), global_norm(d_grads)
+        g_ok, d_ok = _finite(g_norm, d_norm) if guard else (True, True)
         if state.gen_steps % disc_every == 0:
-            clip_adam_update(state.disc, d_grads, state.disc_opt,
-                             config.disc_lr, config.clip_norm, d_norm)
+            if d_ok:
+                clip_adam_update(state.disc, d_grads, state.disc_opt,
+                                 config.disc_lr, config.clip_norm, config,
+                                 d_norm)
             state.disc_steps += 1
-        clip_adam_update(state.gen, g_grads, state.gen_opt, config.gen_lr,
-                         config.clip_norm, g_norm)
+        if g_ok:
+            clip_adam_update(state.gen, g_grads, state.gen_opt,
+                             config.gen_lr, config.clip_norm, config, g_norm)
+            ema_update(config, state.ema_gen, state.gen)
+        else:
+            _stats_restore(state, stats)
         state.gen_steps += 1
         state.temperature = float(temperature)
         return state, {"gen_adv_loss": g_loss, "disc_adv_loss": d_loss,
@@ -245,6 +506,36 @@ def make_adv_step(config: Config):
                        "gen_grad_norm": g_norm, "disc_grad_norm": d_norm}
 
     return step
+
+
+def make_multi_step(config: Config, kind: str):
+    """``--steps-per-call K``: ``multi(state, stacked, scalars,
+    noise=None)`` runs K steps of ``kind`` (``"mle"``: ``scalars`` are the
+    scheduled-sampling probabilities; ``"adv"``: the temperatures) on the
+    batches of ``stacked`` (every tensor ``[K, ...]``) in one call, and
+    returns the state and each metric stacked ``[K]``.  A loop over the
+    single step (the JAX ``make_multi_step``'s ``lax.scan``): the same
+    batches, scalars and draws as K separate calls.  ``noise``: None, or
+    one entry per step."""
+    if kind == "mle":
+        step = make_mle_step(config)
+    elif kind == "adv":
+        step = make_adv_step(config)
+    else:
+        raise ValueError(f"unknown multi-step kind: {kind!r}")
+
+    def multi(state: TrainState, batches: Dict[str, torch.Tensor],
+              scalars: Sequence[float], noise: Optional[Sequence] = None):
+        rows = []
+        for j, scalar in enumerate(scalars):
+            state, m = step(state, {k: v[j] for k, v in batches.items()},
+                            float(scalar),
+                            None if noise is None else noise[j])
+            rows.append(m)
+        return state, {k: torch.stack([m[k] for m in rows])
+                       for k in rows[0]}
+
+    return multi
 
 
 def make_adv_eval_step(config: Config):

@@ -2,8 +2,9 @@
 parser (``config.build_parser``) and the serve parser (``src/serve.py``)
 against the port's.  A JAX command line at the JAX defaults parses and
 trains; each flag the port does not honour raises ``NotImplementedError``
-when set, the resume and SCST flags are honoured, and ``--decode-impl``
-maps onto the port's routes."""
+when set, the resume, SCST, step-option and batching flags are honoured
+(with the JAX help text where it describes the port too), and
+``--decode-impl`` maps onto the port's routes."""
 
 import argparse
 
@@ -101,12 +102,9 @@ def test_jax_command_line_at_defaults_parses_and_trains(tmp_path):
 
 # every flag the port parses and refuses when set, with a set value
 REFUSED = [("--cp-mode", "ring"), ("--pp-microbatches", "2"),
-           ("--zero1", None), ("--lr-warmup-steps", "10"),
-           ("--lr-decay-steps", "100"), ("--lr-min-ratio", "0.1"),
-           ("--skip-nonfinite-grads", "1"), ("--ss-max-prob", "0.5"),
-           ("--debug-nans", None), ("--tokenizer", "bpe"),
+           ("--zero1", None), ("--tokenizer", "bpe"),
            ("--bpe-vocab", "v.json"), ("--bpe-merges", "m.txt"),
-           ("--encoder-init", "natural"), ("--use-pallas", "off")]
+           ("--encoder-init", "natural")]
 
 
 @pytest.mark.parametrize("flag,value", REFUSED)
@@ -139,6 +137,50 @@ def test_resume_and_scst_flags_are_honoured(flag, value, field, want):
     assert getattr(config, field) == want
     jconfig = jconfig_from_args(jbuild_parser().parse_args(argv))
     assert getattr(jconfig, field) == want          # the JAX flag's field
+
+
+# the step options and batching flags, honoured since their slice: each
+# parses into the config field of the JAX flag's name and passes
+STEP_OPTIONS = [
+    ("--lr-schedule", "cosine", "lr_schedule", "cosine"),
+    ("--lr-schedule", "linear", "lr_schedule", "linear"),
+    ("--lr-schedule", "exponential", "lr_schedule", "exponential"),
+    ("--lr-warmup-steps", "10", "lr_warmup_steps", 10),
+    ("--lr-decay-steps", "100", "lr_decay_steps", 100),
+    ("--lr-min-ratio", "0.1", "lr_min_ratio", 0.1),
+    ("--ema-decay", "0.999", "ema_decay", 0.999),
+    ("--grad-accum", "2", "grad_accum", 2),
+    ("--skip-nonfinite-grads", "1", "skip_nonfinite_grads", 1),
+    ("--debug-nans", None, "debug_nans", True),
+    ("--mle-objective", "scheduled", "mle_objective", "scheduled"),
+    ("--ss-max-prob", "0.5", "ss_max_prob", 0.5),
+    ("--use-pallas", "off", "use_pallas", "off"),
+    ("--use-pallas", "on", "use_pallas", "on"),
+    ("--steps-per-call", "4", "steps_per_call", 4),
+    ("--length-buckets", "12,24", "length_buckets", "12,24"),
+    ("--precollate", "on", "precollate", "on"),
+    ("--precollate", "off", "precollate", "off"),
+    ("--profile-dir", "prof", "profile_dir", "prof")]
+
+
+@pytest.mark.parametrize("flag,value,field,want", STEP_OPTIONS)
+def test_step_option_flags_are_honoured(flag, value, field, want):
+    argv = [flag] + ([] if value is None else [value])
+    if flag == "--lr-schedule":
+        argv += ["--lr-decay-steps", "10"] + (
+            ["--lr-min-ratio", "0.5"] if value == "exponential" else [])
+    config = config_from_args(build_parser().parse_args(argv))
+    require_ported_flags(config)
+    assert getattr(config, field) == want
+    jconfig = jconfig_from_args(jbuild_parser().parse_args(argv))
+    assert getattr(jconfig, field) == want          # the JAX flag's field
+    jhelp = {a.dest: a.help for a in jbuild_parser()._actions}
+    ours = {a.dest: a.help for a in build_parser()._actions}
+    assert "not ported" not in ours[field] and ours[field]
+    if field in ("lr_schedule", "lr_warmup_steps", "lr_decay_steps",
+                 "lr_min_ratio", "skip_nonfinite_grads", "ss_max_prob",
+                 "mle_objective", "length_buckets"):
+        assert ours[field] == jhelp[field]          # the JAX text
 
 
 @pytest.mark.parametrize("argv", [

@@ -164,11 +164,7 @@ def test_main_needs_cuda_unless_told_cpu(tmp_path):
 
 
 UNPORTED = [("--random-flip", "1"), ("--random-crop-pad", "4"),
-            ("--cache-features", "1"),
-            ("--steps-per-call", "4"), ("--length-buckets", "12,24"),
-            ("--mesh", "data:4"), ("--profile-dir", "prof"),
-            ("--precollate", "on"), ("--ema-decay", "0.999"),
-            ("--lr-schedule", "cosine"), ("--grad-accum", "2"),
+            ("--cache-features", "1"), ("--mesh", "data:4"),
             ("--encoder-arch", "vit")]
 
 

@@ -173,23 +173,15 @@ def test_steps_draw_their_own_noise_and_train():
 
 
 @pytest.mark.parametrize("override", [
-    {"dtype": "bfloat16"}, {"lr_schedule": "cosine"}, {"ema_decay": 0.99},
-    {"grad_accum": 2}, {"disc_arch": "bilstm"}])
+    {"dtype": "bfloat16"}, {"gen_arch": "gpt2"},
+    {"gen_arch": "transformer", "conditional_gan": 1},
+    {"conditional_gan": 1, "encoder_arch": "vit"}, {"disc_arch": "bilstm"}])
 def test_unported_training_options_raise(override):
     config = Config(**KW).replace(**override)
     with pytest.raises(NotImplementedError):
         tsteps.make_adv_step(config)
     with pytest.raises(NotImplementedError):
         tsteps.make_mle_step(config)
-
-
-def test_scheduled_mle_objective_raises():
-    config = Config(**KW, mle_objective="scheduled")
-    state = create_train_state(Config(**KW), 0)
-    batch = tsteps.batch_to(make_batch([np.arange(4, 8)] * B, None,
-                                       config.seq_len), "cpu")
-    with pytest.raises(NotImplementedError):
-        tsteps.make_mle_step(config)(state, batch)
 
 
 def test_teacher_mle_objective_matches_jax(start):
