@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only train_kernels,wrappers
     python3 chip_smoke.py --only eval_decode
     python3 chip_smoke.py --only resume,scst
+    python3 chip_smoke.py --only bf16
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -328,12 +329,58 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     and the step under ``--skip-nonfinite-grads 1`` (host clock in turns,
     device time by kernel of the first two).
 
+31. ``bf16`` — ``--dtype bfloat16`` on the config3 main path (B = 64,
+    T = 36). Every bfloat16 instantiation against its plain version on
+    the card, in bfloat16: ``sample_resid`` (fed uniforms; the plain
+    decode fed the kernel's ids: each kernel id a tie within 4 bfloat16
+    units of the largest |score| of the plain max score, the bfloat16
+    soft sample, hs, cs and gates within 2 units, a unit being 2^-8 of
+    the largest entry: both round the same float32 value summed in
+    another order, and a rounding of h that tips the other way moves a
+    score by up to 2 units), ``pretrain`` (ids the
+    same rule, bfloat16 logits within 2 units; ``greedy``'s ids equal
+    to ``pretrain``'s), the quantized serve at int8 and int4 (B = 8 and
+    64: ids the same rule, log-probabilities within 2 units of the
+    largest: a rounding of h that tips the other way moves them about one
+    unit), the BPTT chain on the decode's bfloat16 residuals and the
+    reverse on bfloat16 inputs (float32 ``d_pre``, ``dh0``, ``dc0`` within
+    1e-4 of their largest), the ``mxu`` conv forward (bfloat16 pooled
+    within 2 units, argmax rows equal outside ties within 1e-6) and its
+    backward from the raw bfloat16 gradient (float32 ``d_emb`` and
+    ``db`` within 1e-5 times the larger of 1 and their largest, ``dW``
+    within 1e-4 of its largest), ``image_norm`` bit-equal; each kernel's
+    ``device_ms`` beside its plain version's and its bound (bytes in their
+    dtypes; products of bfloat16 operands at 989 TFLOP/s, of float32 ones
+    at 67). Then ``--dtype bfloat16`` training with ``bf16_mu``: 3 MLE, 4
+    adversarial and one MLE eval step with the launches of the design,
+    every first moment bfloat16 and every master float32; one adversarial
+    and one MLE pass through the kernels against the plain route on the
+    same state and fed noise (the conv argmax rows, ReLU decisions and
+    sampled and greedy ids of the kernel route replayed, each a tie within
+    4 units of the largest score, pooled value or ReLU input):
+    losses within 4 units, each side's gradients within 8 units of the
+    side's largest (the routes part where a float32 sum in another order
+    tips a rounding of a residual); the conditional step on 256 x 256
+    ``images_u8`` (``image_norm``'s bfloat16 instantiation once a step,
+    the running statistics bfloat16); ``main.py --dtype bfloat16`` (its
+    config given ``bf16_mu``) for an epoch of each phase, unconditional
+    with full-state snapshots, one loaded back with bfloat16 first
+    moments, and conditional on the repository's COCO sample through
+    ``images_u8`` (batches of 8); ``serve.py --quantize int8|int4
+    --dtype bfloat16`` on ``{"n": 8}`` (captions those of the plain
+    quantized decode in bfloat16, launches equal to ``device_calls``);
+    and the float32 and bfloat16 adversarial and MLE steps on the same
+    weights in turns, device time by kernel (torch.profiler) and launches
+    by the wrappers' counters.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
 Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
-``sample_embed`` and the fused-embed backward) and, last, ``{"ok": true,
+``sample_embed``, the fused-embed backward, and the bfloat16
+instantiations of phase ``bf16``, with their launches in its drives) and,
+last, ``{"ok": true,
 "device": …}``.  The entries of the kernels on the evaluation path carry
 ``eval_decode_launches`` too, every entry ``scst_launches``, its
 launches in the SCST phases of ``scst``, and ``step_options_launches``,
@@ -1836,10 +1883,8 @@ def train_setup(device):
     discriminator with un-swept initial weights from seed 0, and B = 64
     captions of 30 random tokens in [4, 11000)."""
     from gan_image_captioning_tpu_torch.config import Config
-    from gan_image_captioning_tpu_torch.data.loader import make_batch
     from gan_image_captioning_tpu_torch.models import api
     from gan_image_captioning_tpu_torch.train.state import create_train_state
-    from gan_image_captioning_tpu_torch.train.steps import batch_to
 
     config = Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
                     gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN,
@@ -1852,9 +1897,17 @@ def train_setup(device):
     state = create_train_state(config, 0, device,
                                gen=full_width_generator(device)
                                .requires_grad_(True), disc=disc)
+    return config, state, train_batch(device)
+
+
+def train_batch(device):
+    """B = 64 captions of 30 random tokens in [4, 11000)."""
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.train.steps import batch_to
+
     caps = [np.random.default_rng(i).integers(4, min(11000, V), size=30)
             for i in range(B_TRAIN)]
-    return config, state, batch_to(make_batch(caps, None, T), device)
+    return batch_to(make_batch(caps, None, T), device)
 
 
 def fed_noise(config, device, seed=9):
@@ -5730,6 +5783,964 @@ def scst_launches(entry, scst_row):
                for run in ("config3", "config4"))
 
 
+# ------------------------------------------------------------ bfloat16
+
+BF16 = torch.bfloat16
+BF16_UNIT = 2.0 ** -8            # one rounding to bfloat16, relative
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bfloat16 (tensor cores)
+# a bfloat16 output of a kernel against its plain version on the same
+# bfloat16 inputs: the two round float32 values that differ by a float32
+# sum order, so each entry is equal or one bfloat16 step apart (a step of
+# a normal x is at most 2^-7 |x|; the least normal float32 as the floor)
+BF16_STEP = 2.0 ** -7
+# a bfloat16 carry (h, c, gates) against the plain decode's fed the same
+# ids: a rounding that tipped at one step moves the later ones too, by
+# units of the largest entry (2 of them)
+BF16_OUT_UNITS = 2
+# a float32 result computed from bfloat16 carries that a rounding of h
+# tipped the other way (each such tip moves a logit or a log-probability
+# by about one unit): 2 units of the largest |log-probability|
+BF16_LP_UNITS = 2
+# the step through the kernels against the plain route on the card: the
+# routes share the decode's outputs and every PyTorch bfloat16 operation,
+# and part only where a kernel's float32 sum in another order (the chain,
+# the conv backward) tips a rounding to bfloat16, one unit of that entry,
+# which the backward carries through B rows and T steps: losses within 4
+# units, each gradient tensor within 8 units of its own largest entry
+BF16_LOSS_UNITS, BF16_GRAD_UNITS = 4, 8
+# ids: equal, or the kernel's id a tie in the plain decode fed the
+# kernel's ids: within 4 units of the largest |score| of its max (each of
+# the two scores may sit 2 units off, as the logits do)
+BF16_ID_UNITS = 4
+BF16_ITEMS = 128
+BF16_TPU_KERNELS = {
+    "decode_sample_resid_bf16": f"{DECODE_TPU}:121",
+    "decode_serve_bf16": f"{DECODE_TPU}:121",
+    "decode_sample_logits_bf16": f"{DECODE_TPU}:121",
+    "decode_qserve_int8_bf16": Q_TPU_KERNEL,
+    "decode_qserve_int4_bf16": Q_TPU_KERNEL,
+    "lstm_bptt_chain_bf16": "gan_image_captioning_tpu/kernels/lstm_bptt.py:59",
+    "lstm_bptt_reverse_bf16":
+        "gan_image_captioning_tpu/kernels/lstm_bptt.py:163",
+    "disc_conv_fwd_bf16": f"{DISC_TPU}.py:477",
+    "disc_conv_bwd_dx_bf16": f"{DISC_TPU}.py:515",
+    "image_norm_bf16": NORM_TPU_KERNEL,
+}
+BF16_SOURCES = {k: ("decode_serve.cu" if k.startswith("decode")
+                    else "lstm_bptt.cu" if k.startswith("lstm")
+                    else "disc_conv.cu" if k.startswith("disc")
+                    else "image_norm.cu") for k in BF16_TPU_KERNELS}
+
+
+def bf16_counters():
+    """The wrappers behind each bfloat16 entry: each counts every launch
+    on ``launches`` and the bfloat16 instantiation's on
+    ``bf16_launches``, at the launch."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain, lstm_bptt_reverse)
+
+    return {"decode_sample_resid_bf16": ds.decode_sample_resid,
+            "decode_serve_bf16": ds.decode_sample,
+            "decode_sample_logits_bf16": ds.decode_sample_logits,
+            "decode_qserve_bf16": ds.decode_sample_q_serve,
+            "lstm_bptt_chain_bf16": lstm_bptt_chain,
+            "lstm_bptt_reverse_bf16": lstm_bptt_reverse,
+            "disc_conv_fwd_bf16": disc_conv.conv_bank_forward,
+            "disc_conv_bwd_dx_bf16": disc_conv.conv_bank_backward,
+            "image_norm_bf16": inorm.normalize_images}
+
+
+def bf16_reset():
+    cnt = bf16_counters()
+    for fn in cnt.values():
+        fn.launches = fn.bf16_launches = 0
+    return cnt
+
+
+def bf16_launches(cnt, what):
+    """The bfloat16 launches of each wrapper since ``bf16_reset``; fails
+    where a wrapper launched its float32 instantiation in a bfloat16
+    drive."""
+    f32 = {k: fn.launches - fn.bf16_launches for k, fn in cnt.items()
+           if fn.launches != fn.bf16_launches}
+    check(not f32, f"{what}: float32 launches in a bfloat16 drive {f32}")
+    return {k: fn.bf16_launches for k, fn in cnt.items()}
+
+
+def bf16_bound(nbytes, flops, rate=BF16_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_decode_work(B, kind):
+    """The bfloat16 decode's bytes (weights, features and gathered rows 2
+    bytes; ids 4; ``resid``: soft and residuals 2 bytes; ``pretrain``:
+    logits 2 bytes; ``serve``: lps 4) and its products, whose bfloat16
+    operands the tensor cores could take."""
+    layer_w = sum(4 * H * ((E if l == 0 else H) + H) + 2 * 4 * H
+                  for l in range(NL))
+    nbytes = 2 * (layer_w + V * H + V + B * E + B * T * E) + 4 * B * T
+    if kind == "resid":
+        nbytes += 2 * (T * B * V + T * NL * B * 6 * H)
+    elif kind == "pretrain":
+        nbytes += 2 * T * B * V
+    elif kind == "serve":
+        nbytes += 4 * B * T
+    flops = 2 * B * T * (sum(4 * H * ((E if l == 0 else H) + H)
+                             for l in range(NL)) + V * H)
+    return nbytes, flops
+
+
+def bf16_qserve_work(qdec, B):
+    """Payload bytes (int8, or two int4 a byte), float32 scales and
+    biases, bfloat16 features; ids and lps out."""
+    payload = sum(lq["w"].q.numel() for lq in qdec["lstm_q"])
+    payload += qdec["linear"]["w"].q.numel() + qdec["embed"].q.numel()
+    small = sum(lq["w"].scale.numel() + lq["b"].numel()
+                for lq in qdec["lstm_q"])
+    small += (qdec["linear"]["w"].scale.numel() + qdec["linear"]["b"].numel()
+              + qdec["embed"].scale.numel())
+    nbytes = payload + 4 * small + 2 * B * E + 8 * B * T
+    return nbytes, bf16_decode_work(B, "serve")[1]
+
+
+def bf16_chain_work(B):
+    """float32 weights, d_hs and d_pre; bfloat16 gates and cells; the
+    products float32 (d_pre is float32)."""
+    nbytes = (4 * ((2 * NL - 1) * H * 4 * H + T * B * H
+                   + T * NL * B * 4 * H)
+              + 2 * (T * NL * B * 4 * H + T * NL * B * H))
+    return nbytes, 2 * T * (2 * NL - 1) * B * 4 * H * H
+
+
+def bf16_reverse_work(B):
+    """bfloat16 w_hh, d_hs, gates, c_prev and cs in; float32 d_pre, dh0,
+    dc0 out; the products float32."""
+    nbytes = (2 * (H * 4 * H + T * B * H + T * B * 4 * H + 2 * T * B * H)
+              + 4 * (T * B * 4 * H + 2 * B * H))
+    return nbytes, 2 * T * B * 4 * H * H
+
+
+def bf16_conv_work(B, backward=False):
+    q, maxf, lp = B * DISC_R, max(f for _, f in BANKS), T + 4
+    n_all = sum(n for n, _ in BANKS)
+    emb, w = B * lp * DISC_E, n_all * maxf
+    if backward:   # emb, w, pooled, d_pooled bf16 and idx in; f32 out
+        nbytes = 2 * (emb + w + 2 * q * n_all) + 4 * q * n_all \
+            + 4 * (emb + w + n_all)
+        flops = sum(4 * q * n * f for n, f in BANKS)
+    else:          # emb, w, b in; pooled bf16, idx out
+        nbytes = 2 * (emb + w + n_all + q * n_all) + 4 * q * n_all
+        flops = sum(2 * q * n * (T - f + 1) * f for n, f in BANKS)
+    return nbytes, flops
+
+
+def bf16_close(a, b, units, what):
+    """max |a - b| (as float32) and the check that it is within ``units``
+    bfloat16 units of b's largest entry."""
+    a, b = a.float(), b.float()
+    err = float((a - b).abs().max())
+    tol = units * BF16_UNIT * float(b.abs().max())
+    check(err <= tol, f"bf16 {what}: {err} > {tol}")
+    return err
+
+
+def bf16_steps(a, b, what):
+    """bfloat16 ``a`` and ``b`` each entry equal or one bfloat16 step
+    apart (``BF16_STEP``) → max |a - b| and the largest |a - b| over its
+    bound (at most 1)."""
+    a, b = a.float(), b.float()
+    bound = (BF16_STEP * torch.maximum(a.abs(), b.abs())
+             + torch.finfo(torch.float32).tiny)
+    ratio = float(((a - b).abs() / bound).max())
+    check(ratio <= 1.0, f"bf16 {what}: an entry is {ratio} of a bfloat16 "
+          "step off")
+    return float((a - b).abs().max()), ratio
+
+
+def bf16_decoder(dec):
+    """A decoder's weights rounded to bfloat16 (the compute cast)."""
+    return ([{k: v.to(BF16) for k, v in lp.items()}
+             for lp in dec.lstm.layers()], dec.linear.weight.to(BF16),
+            dec.linear.bias.to(BF16), dec.embed.weight.to(BF16))
+
+
+def bf16_forced(weights, feats, ids, u=None, temp=1.0):
+    """The plain bfloat16 decode (``decode_sample``'s ``_stack_step`` and
+    float32 logits) fed back the given ``ids [B, T]`` → float32 scores
+    (logits, + Gumbel noise of ``u`` when given), the soft sample and the
+    residuals in bfloat16, and the log-probabilities of ``ids``."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+    layers, w_proj, b_proj, embed = weights
+    h, c = ds._zero_state(feats, layers)
+    x, out = feats, {k: [] for k in ("scores", "soft", "hs", "cs", "gates",
+                                     "lps")}
+    with torch.no_grad():
+        for t in range(ids.shape[1]):
+            gates = ds._stack_step(layers, x, h, c)
+            logits = ds._logits(h[-1], w_proj, b_proj)
+            s = logits if u is None else logits + gumbel_noise(u[t].shape,
+                                                               u=u[t])
+            idt = ids[:, t].long()
+            out["scores"].append(s)
+            out["soft"].append(torch.softmax(s * temp, dim=-1).to(BF16))
+            out["hs"].append(torch.stack(h))
+            out["cs"].append(torch.stack(c).to(BF16))
+            out["gates"].append(torch.stack(gates).to(BF16))
+            out["lps"].append(torch.log_softmax(logits, -1).gather(
+                1, idt[:, None])[:, 0])
+            x = embed[idt]
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+def bf16_id_gap(scores_tm, ids):
+    """The largest gap between a step's max score and the score of the
+    given id (0 where the id is the argmax), in bfloat16 units of the
+    largest |score|: a tie within BF16_ID_UNITS."""
+    chosen = scores_tm.gather(2, ids.T.long()[..., None])[..., 0]
+    gap = float((scores_tm.max(dim=2).values - chosen).max())
+    return gap / (BF16_UNIT * float(scores_tm.abs().max()))
+
+
+def bf16_time(kern, plain, work, rate=BF16_FLOP_PER_S, **kw):
+    """``time_pair`` with the bound of ``work`` at the flop ``rate`` of
+    its products' operands (bfloat16 by default)."""
+    out = time_pair(kern, plain, work, **kw)
+    out["bound_ms"], out["bound_by"] = bf16_bound(*work, rate)
+    return out
+
+
+def bf16_kernels(gen, device):
+    """Every bfloat16 instantiation against its plain version on the card,
+    in bfloat16, at config3 width (B = 64; the quantized decode at B = 8
+    and 64), with its device time beside the plain version's and the
+    bound."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain, lstm_bptt_chain_plain, lstm_bptt_reverse,
+        lstm_bptt_reverse_plain)
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+    from gan_image_captioning_tpu_torch.ops.quantize import (
+        quantize_lstm_decoder)
+
+    B = B_TRAIN
+    weights = bf16_decoder(gen.decoder)
+    feats = seeded((B, E), 801, device).to(BF16)
+    u = torch.rand((T, B, V), generator=torch.Generator(device=device)
+                   .manual_seed(802), device=device)
+    temp = float(torch.tensor(TEMP, dtype=BF16))
+    rows, times = {}, {}
+
+    # sample_resid: the kernel's ids replayed into the plain decode
+    ids, soft, hs, cs, gates = ds.decode_sample_resid(
+        feats, *weights, T, temperature=temp, uniforms=u)
+    check(all(t.dtype == BF16 for t in (soft, hs, cs, gates)),
+          "bf16 sample_resid outputs are not bfloat16")
+    ref = bf16_forced(weights, feats, ids, u, temp)
+    own = ds.decode_sample_resid_plain(feats, *weights, T, u, temp)
+    row = {"ids_equal": bool(torch.equal(ids, own[0])),
+           "id_gap_units": bf16_id_gap(ref["scores"], ids)}
+    check(row["id_gap_units"] <= BF16_ID_UNITS,
+          f"bf16 sample_resid ids {row}")
+    for name, a in (("hs", hs), ("cs", cs), ("gates", gates)):
+        row[f"max_abs_{name}_diff"] = bf16_close(a, ref[name],
+                                                 BF16_OUT_UNITS,
+                                                 f"sample_resid {name}")
+    # the soft sample against the plain one from the kernel's own top h
+    # (the same bfloat16 inputs): each entry within a bfloat16 step
+    s_own = ds._logits(hs[:, -1], weights[1], weights[2]) + gumbel_noise(
+        u.shape, u=u)
+    row["max_abs_soft_diff"], row["soft_step_ratio"] = bf16_steps(
+        soft, torch.softmax(s_own * temp, dim=-1).to(BF16),
+        "sample_resid soft")
+    del s_own
+    rows["decode_sample_resid_bf16"] = row
+    times["decode_sample_resid_bf16"] = bf16_time(
+        lambda: ds.decode_sample_resid(feats, *weights, T, temperature=temp,
+                                       uniforms=u),
+        lambda: ds.decode_sample_resid_plain(feats, *weights, T, u, temp),
+        bf16_decode_work(B, "resid"), k_calls=10, p_calls=3,
+        plain_events=True)
+
+    # pretrain (the MLE eval step) and greedy (the MLE step): one kernel
+    ids_p, logits = ds.decode_sample(feats, *weights, T, mode="pretrain")
+    ids_g = ds.decode_sample(feats, *weights, T, mode="greedy")
+    ref = bf16_forced(weights, feats, ids_p)
+    row = {"greedy_equals_pretrain": bool(torch.equal(ids_g, ids_p)),
+           "ids_equal": bool(torch.equal(
+               ids_p, ds.decode_sample_logits_plain(feats, *weights,
+                                                   T)[0])),
+           "id_gap_units": bf16_id_gap(ref["scores"], ids_p),
+           "max_abs_logit_diff": bf16_close(logits, ref["scores"],
+                                            BF16_OUT_UNITS, "pretrain")}
+    check(logits.dtype == BF16, "bf16 pretrain logits are not bfloat16")
+    check(row["greedy_equals_pretrain"], "bf16 greedy ids != pretrain ids")
+    check(row["id_gap_units"] <= BF16_ID_UNITS, f"bf16 pretrain ids {row}")
+    rows["decode_sample_logits_bf16"] = row
+    rows["decode_serve_bf16"] = row
+    rows["logit_scale"] = float(ref["scores"].abs().max())
+    times["decode_sample_logits_bf16"] = bf16_time(
+        lambda: ds.decode_sample(feats, *weights, T, mode="pretrain"),
+        lambda: ds.decode_sample_logits_plain(feats, *weights, T),
+        bf16_decode_work(B, "pretrain"), k_calls=10, p_calls=3,
+        plain_events=True)
+    times["decode_serve_bf16"] = bf16_time(
+        lambda: ds.decode_sample(feats, *weights, T, mode="greedy"),
+        lambda: ds.decode_sample_plain(feats, *weights, T),
+        bf16_decode_work(B, "greedy"), k_calls=10, p_calls=3,
+        plain_events=True)
+
+    # the quantized serve decode in bfloat16, int8 and int4, B = 8 and 64
+    for bits in (8, 4):
+        name = f"decode_qserve_int{bits}_bf16"
+        qdec = quantize_lstm_decoder(gen.decoder, bits)
+        qweights = ds.dequantized_decoder(qdec, bits, BF16)
+        row = {}
+        for b in (8, B):
+            f = feats[:b]
+            q_ids, q_lps = ds.decode_sample_q_serve(f, qdec, T, bits=bits)
+            ref = bf16_forced(qweights, f, q_ids)
+            row[f"id_gap_units_b{b}"] = bf16_id_gap(ref["scores"], q_ids)
+            row[f"max_abs_lp_diff_b{b}"] = bf16_close(
+                q_lps, ref["lps"].T, BF16_LP_UNITS, f"{name} lps B={b}")
+            check(row[f"id_gap_units_b{b}"] <= BF16_ID_UNITS,
+                  f"{name} ids {row}")
+        rows[name] = row
+        times[name] = bf16_time(
+            lambda: ds.decode_sample_q_serve(feats[:8], qdec, T, bits=bits),
+            lambda: ds.decode_sample_q_serve_plain(feats[:8], qdec, T,
+                                                   bits=bits),
+            bf16_qserve_work(qdec, 8), k_calls=10, p_calls=3,
+            plain_events=True)
+        times[name]["B"] = 8
+
+    # the BPTT chain on the decode's bfloat16 residuals
+    layers = weights[0]
+    w_hhs = torch.stack([lp["w_hh"].T.float() for lp in layers]).contiguous()
+    w_ihs = torch.stack([lp["w_ih"].T.float() for lp in layers[1:]]
+                        or [w_hhs[0]]).contiguous()
+    d_hs = seeded((T, B, H), 803, device, 1e-3)
+    d_pre = lstm_bptt_chain(w_hhs, w_ihs, d_hs, gates, cs)
+    d_pre_p = lstm_bptt_chain_plain(w_hhs, w_ihs, d_hs, gates, cs)
+    err = float((d_pre - d_pre_p).abs().max())
+    check(err <= CHAIN_RTOL * float(d_pre_p.abs().max()),
+          f"bf16 chain d_pre {err}")
+    rows["lstm_bptt_chain_bf16"] = {"max_abs_diff": err}
+    times["lstm_bptt_chain_bf16"] = bf16_time(
+        lambda: lstm_bptt_chain(w_hhs, w_ihs, d_hs, gates, cs),
+        lambda: lstm_bptt_chain_plain(w_hhs, w_ihs, d_hs, gates, cs),
+        bf16_chain_work(B), F32_FLOP_PER_S, k_calls=10, p_calls=3,
+        plain_events=True)
+
+    # the reverse BPTT, every input bfloat16
+    w_hh = layers[0]["w_hh"].T.contiguous()
+    g0, c0 = gates[:, 0].contiguous(), cs[:, 0].contiguous()
+    c_prev = torch.cat([torch.zeros_like(c0[:1]), c0[:-1]]).contiguous()
+    d_hs16 = d_hs.to(BF16)
+    out_k = lstm_bptt_reverse(w_hh, d_hs16, g0, c_prev, c0)
+    out_p = lstm_bptt_reverse_plain(w_hh, d_hs16, g0, c_prev, c0)
+    row = {}
+    for name, a, b in zip(("d_pre", "dh0", "dc0"), out_k, out_p):
+        row[f"max_abs_{name}_diff"] = float((a - b).abs().max())
+        check(a.dtype == torch.float32, f"bf16 reverse {name} dtype")
+        check(row[f"max_abs_{name}_diff"]
+              <= CHAIN_RTOL * max(float(b.abs().max()), 1e-30),
+              f"bf16 reverse {name} {row}")
+    rows["lstm_bptt_reverse_bf16"] = row
+    times["lstm_bptt_reverse_bf16"] = bf16_time(
+        lambda: lstm_bptt_reverse(w_hh, d_hs16, g0, c_prev, c0),
+        lambda: lstm_bptt_reverse_plain(w_hh, d_hs16, g0, c_prev, c0),
+        bf16_reverse_work(B), F32_FLOP_PER_S, k_calls=10, p_calls=3,
+        plain_events=True)
+
+    # the mxu conv forward and backward (the raw gradient: the step's
+    # route), every input bfloat16
+    emb_pad, w_all, b_all, banks = (t.to(BF16) if torch.is_tensor(t) else t
+                                    for t in conv_inputs(device))
+    pooled, idx = disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
+                                              DISC_R, 1)
+    pooled_p, idx_p = disc_conv.conv_relu_maxpool_plain(emb_pad, w_all,
+                                                        b_all, banks,
+                                                        DISC_R, 1)
+    bad, ties = idx_mismatch(emb_pad.float(), w_all.float(), b_all.float(),
+                             banks, pooled_p.float(), idx, idx_p)
+    check(pooled.dtype == BF16, "bf16 conv pooled is not bfloat16")
+    err, ratio = bf16_steps(pooled, pooled_p, "conv pooled")
+    rows["disc_conv_fwd_bf16"] = {
+        "max_abs_pooled_diff": err, "pooled_step_ratio": ratio,
+        "idx_mismatch_outside_ties": bad, "near_ties": ties}
+    check(bad == 0, f"bf16 conv argmax rows differ outside ties: {bad}")
+    times["disc_conv_fwd_bf16"] = bf16_time(
+        lambda: disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
+                                            DISC_R, 1),
+        lambda: disc_conv.conv_relu_maxpool_plain(emb_pad, w_all, b_all,
+                                                  banks, DISC_R, 1),
+        bf16_conv_work(B))
+    d_pooled = seeded(tuple(pooled.shape), 804, device).to(BF16)
+    got = disc_conv.conv_bank_backward_raw(emb_pad, w_all, banks, DISC_R, 1,
+                                           pooled, idx, d_pooled)
+    want = disc_conv.conv_rows_backward_plain(emb_pad, w_all, banks, DISC_R,
+                                              1, pooled, idx, d_pooled)
+    row = {}
+    for name, a, b, rtol in (("dx", got[0], want[0], DX_ATOL),
+                             ("dw", got[1], want[1], DW_RTOL),
+                             ("db", got[2], want[2], DX_ATOL)):
+        row[f"max_abs_{name}_diff"] = float((a - b).abs().max())
+        check(row[f"max_abs_{name}_diff"]
+              <= rtol * max(1.0, float(b.abs().max())),
+              f"bf16 conv backward {name} {row}")
+    rows["disc_conv_bwd_dx_bf16"] = row
+    times["disc_conv_bwd_dx_bf16"] = bf16_time(
+        lambda: disc_conv.conv_bank_backward_raw(
+            emb_pad, w_all, banks, DISC_R, 1, pooled, idx, d_pooled),
+        lambda: disc_conv.conv_rows_backward_plain(
+            emb_pad, w_all, banks, DISC_R, 1, pooled, idx, d_pooled),
+        bf16_conv_work(B, backward=True), p_calls=5, plain_events=True)
+
+    # image_norm into bfloat16, B = 64 at 256 x 256
+    u8 = seeded_u8((B, 3, IMG_S, IMG_S), 805, device)
+    out_k = inorm.normalize_images(u8, BF16)
+    out_p = inorm.normalize_images_plain(u8, BF16)
+    rows["image_norm_bf16"] = {
+        "bit_equal": bool(torch.equal(out_k, out_p)),
+        "max_abs_diff": float((out_k.float() - out_p.float()).abs().max())}
+    check(out_k.dtype == BF16 and rows["image_norm_bf16"]["bit_equal"],
+          f"bf16 image_norm {rows['image_norm_bf16']}")
+    n = u8.numel()
+    # the library call: torch.addcmul of the same affine map into a
+    # bfloat16 output
+    scale, shift = inorm._affine(device)
+    lib_out = torch.empty(u8.shape, dtype=BF16, device=device)
+    library = lambda: torch.addcmul(shift, u8, scale,      # noqa: E731
+                                    out=lib_out)
+    library()
+    rows["image_norm_bf16"]["library_max_abs_diff"] = float(
+        (lib_out.float() - out_p.float()).abs().max())
+    kern = lambda: inorm.normalize_images(u8, BF16)       # noqa: E731
+    k_a, l_a = (device_ms(f, 50) for f in (kern, library))
+    l_b, k_b = (device_ms(f, 50) for f in (library, kern))
+    times["image_norm_bf16"] = {
+        "kernel_ms": [k_a, k_b], "library_ms": [l_a, l_b],
+        "library": "torch.addcmul(shift, u8, scale, out=bfloat16)",
+        "plain_ms": [cuda_ms(lambda: inorm.normalize_images_plain(u8, BF16),
+                             reps=20) for _ in range(2)],
+        "plain_timer": "cuda_ms"}
+    times["image_norm_bf16"].update(zip(("bound_ms", "bound_by"),
+                                        bf16_bound(3 * n, 2 * n,
+                                                   F32_FLOP_PER_S)))
+    from gan_image_captioning_tpu_torch.kernels import lstm_bptt
+
+    emit({"phase": "bf16", "kernel_attrs": {
+        "decode_persistent_kernel": ds.kernel_attrs(bf16=True),
+        "decode_persistent_kernel_quantized": ds.kernel_attrs(True, True),
+        "chain_persistent_kernel": lstm_bptt.kernel_attrs("chain", True),
+        "reverse_persistent_kernel": lstm_bptt.kernel_attrs("reverse",
+                                                            True)}})
+    for name in BF16_TPU_KERNELS:
+        emit({"phase": "bf16", "kernel": name, **rows[name],
+              **{k: v for k, v in times[name].items()
+                 if k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                          "plain_timer", "B", "library_ms", "library")}})
+    return rows, times
+
+
+def bf16_config(**overrides):
+    from gan_image_captioning_tpu_torch.config import Config
+
+    return Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                  gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN,
+                  disc_embed_dim=DISC_E, disc_num_rep=DISC_R,
+                  disc_filter_sizes=tuple(f for _, f in BANKS),
+                  disc_num_filters=tuple(n for n, _ in BANKS),
+                  disc_train_freq=DISC_EVERY, dtype="bfloat16",
+                  bf16_mu=True, **overrides)
+
+
+@contextlib.contextmanager
+def bf16_resid_record():
+    """Within it, the kernel route's ``sample_resid`` decodes are recorded
+    in call order: ``(ids, soft, hs, cs, gates)`` each."""
+    from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+
+    orig, out = gen_lstm.decode_sample_resid, []
+
+    def record(*args, **kwargs):
+        out.append(orig(*args, **kwargs))
+        return out[-1]
+
+    gen_lstm.decode_sample_resid = record
+    try:
+        yield out
+    finally:
+        gen_lstm.decode_sample_resid = orig
+
+
+@contextlib.contextmanager
+def bf16_resid_replay(kernel_outs):
+    """Within it, the plain route's ``sample_resid`` decodes return the
+    kernel route's outputs of the same call (in call order), so the two
+    routes' steps share the sample and its residuals; each call first
+    checks them against the plain computation from the plain route's own
+    arguments: the soft sample entry by entry within a bfloat16 step of
+    the softmax of the kernel's top h (``bf16_steps``), and the kernel's
+    ids a tie of the plain decode fed those ids.  The list yielded
+    gathers ``(id gap in bfloat16 units, soft step ratio)`` a call."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+    orig, out = gen_lstm.decode_sample_resid_plain, []
+
+    def shared(features, layers, w_proj, b_proj, embed, seq_len, uniforms,
+               temperature):
+        ids, soft, hs, cs, gates = kernel_outs[len(out)]
+        ref = bf16_forced((layers, w_proj, b_proj, embed), features, ids,
+                          uniforms, temperature)
+        s = ds._logits(hs[:, -1], w_proj, b_proj) + gumbel_noise(
+            uniforms.shape, u=uniforms)
+        _, ratio = bf16_steps(soft, torch.softmax(s * temperature, dim=-1)
+                              .to(soft.dtype), "step soft sample")
+        out.append((bf16_id_gap(ref["scores"], ids), ratio))
+        return ids, soft, hs, cs, gates
+
+    gen_lstm.decode_sample_resid_plain = shared
+    try:
+        yield out
+    finally:
+        gen_lstm.decode_sample_resid_plain = orig
+
+
+def bf16_grad_errs(a, b):
+    """Each gradient tensor's largest difference over its own largest
+    entry, by ``side.name``."""
+    out = {}
+    for side, ga, gb in (("gen", a[2], b[2]), ("disc", a[3], b[3])):
+        for k in gb:
+            out[f"{side}.{k}"] = (float((ga[k] - gb[k]).abs().max())
+                                  / max(float(gb[k].abs().max()), 1e-30))
+    return out
+
+
+def bf16_train(gen, device, logit_scale):
+    """``--dtype bfloat16`` steps with ``bf16_mu`` at config3: 3 MLE steps, 4
+    adversarial steps and an MLE eval step through the kernels with the
+    launch counts of the design, none of them float32; one adversarial
+    and one MLE pass through the kernels against the plain route on the
+    same state and fed noise, each gradient tensor within
+    ``BF16_GRAD_UNITS`` of its own largest entry.  The adversarial routes
+    share the decode's outputs (``bf16_resid_replay``, which holds them
+    to the plain computation entry by entry): with two decodes the
+    discriminator's dense-layer gradients, differences of nearly equal
+    sums over the real and the fake rows at this state, magnify a
+    bfloat16 step of the soft sample to 8-14 units of their own largest
+    entry (call 10)."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (
+        adv_grads, make_adv_step, make_mle_eval_step, make_mle_step,
+        mle_grads)
+
+    config = bf16_config()
+    disc = api.init_discriminator(torch.Generator().manual_seed(1), config,
+                                  device, sweep=False)
+    g = copy.deepcopy(gen).requires_grad_(True)
+    state = create_train_state(config, 0, device, gen=g, disc=disc)
+    batch = train_batch(device)
+    mle, adv = make_mle_step(config), make_adv_step(config)
+    evals = make_mle_eval_step(config)
+    cnt = bf16_reset()
+    metrics = []
+    for _ in range(MLE_STEPS):
+        state, m = mle(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for _ in range(ADV_STEPS):
+        state, m = adv(state, batch, TEMP)
+        metrics.append({k: float(v) for k, v in m.items()})
+    _, m = evals(state, batch)
+    metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = bf16_launches(cnt, "bf16 steps")
+    expected = {"decode_serve_bf16": MLE_STEPS,
+                "lstm_bptt_reverse_bf16": MLE_STEPS * NL,
+                "decode_sample_resid_bf16": ADV_STEPS,
+                "lstm_bptt_chain_bf16": ADV_STEPS,
+                "disc_conv_fwd_bf16": 3 * ADV_STEPS,
+                "disc_conv_bwd_dx_bf16": 3 * ADV_STEPS,
+                "decode_sample_logits_bf16": 1}
+    check(all(math.isfinite(x) for m in metrics for x in m.values()),
+          f"bf16 non-finite metric {metrics}")
+    check({k: launches[k] for k in expected} == expected,
+          f"bf16 launches {launches} != {expected}")
+    check(all(v.dtype == BF16 for opt in (state.pretrain_opt, state.gen_opt,
+                                          state.disc_opt)
+              for v in opt.mu.values()), "bf16_mu: a first moment is not "
+          "bfloat16")
+    check(all(p.dtype == torch.float32 for m in (state.gen, state.disc)
+              for p in m.parameters()), "a master weight is not float32")
+    row = {"metrics": metrics, "launches": launches,
+           "expected_launches": expected}
+
+    # the routes: the plain route takes the kernel route's conv argmax
+    # rows, ReLU decisions, sampled and greedy ids
+    noise = fed_noise(config, device)
+    plain_cfg = config.replace(decode_impl="plain", disc_engine="plain")
+    with disc_conv.argmax_record() as rec, bf16_resid_record() as outs:
+        kern = adv_grads(config, state, batch, TEMP, noise)
+    with disc_conv.argmax_replay(rec) as report, \
+            bf16_resid_replay(outs) as gaps:
+        plain = adv_grads(plain_cfg, state, batch, TEMP, noise)
+    # a conv argmax or ReLU decision the routes take differently is a tie
+    # within 4 units of the largest pooled value or ReLU input recorded
+    # (the conv's inputs are bfloat16 products that may sit a unit apart)
+    tie_scale = max([float(p.abs().max()) for _, p in rec["pool"]]
+                    + [float(x.abs().max()) for x in rec["relu"]])
+    adv_cmp = {"g_loss": [float(kern[0]), float(plain[0])],
+               "d_loss": [float(kern[1]), float(plain[1])],
+               "grad_rel_err": bf16_grad_errs(kern, plain),
+               "argmax_gap_units": max(gp for gp, _ in report)
+               / (BF16_UNIT * tie_scale),
+               "id_gap_units": max(g for g, _ in gaps),
+               "soft_step_ratio": max(r for _, r in gaps)}
+    with greedy_replay() as k_ids:
+        k_loss, k_g = mle_grads(config, state, batch)
+    with greedy_replay(k_ids) as replayed:
+        p_loss, p_g = mle_grads(plain_cfg, state, batch)
+    mle_cmp = {"loss": [float(k_loss), float(p_loss)],
+               "grad_rel_err": {
+                   f"gen.{k}": float((k_g[k] - p_g[k]).abs().max())
+                   / max(float(p_g[k].abs().max()), 1e-30) for k in p_g},
+               "greedy_replay": replayed}
+    row.update(adv_vs_plain=adv_cmp, mle_vs_plain=mle_cmp)
+    emit({"phase": "bf16", "train": row})
+    check(adv_cmp["argmax_gap_units"] <= BF16_ID_UNITS
+          and adv_cmp["id_gap_units"] <= BF16_ID_UNITS,
+          f"bf16 adversarial ties {adv_cmp}")
+    # greedy_replay's gaps are of the plain route's bfloat16 logits, whose
+    # largest |entry| the phase's pretrain check measured
+    check(all(gap <= BF16_ID_UNITS * BF16_UNIT * logit_scale
+              for _, gap in replayed), f"bf16 greedy ties {replayed}")
+    for a, b in (adv_cmp["g_loss"], adv_cmp["d_loss"], mle_cmp["loss"]):
+        check(abs(a - b) <= BF16_LOSS_UNITS * BF16_UNIT * abs(b),
+              f"bf16 losses {adv_cmp} {mle_cmp}")
+    check(max(adv_cmp["grad_rel_err"].values()) <= BF16_GRAD_UNITS
+          * BF16_UNIT and max(mle_cmp["grad_rel_err"].values())
+          <= BF16_GRAD_UNITS * BF16_UNIT,
+          f"bf16 gradients {adv_cmp} {mle_cmp}")
+    return row, (config, state, batch)
+
+
+def bf16_cond(device):
+    """The conditional bfloat16 step on 256 x 256 ``images_u8``: one MLE
+    and one adversarial step, ``image_norm``'s bfloat16 instantiation
+    once each, the running statistics kept in bfloat16."""
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    config, state, batch = cond_setup(device, dtype="bfloat16",
+                                      bf16_mu=True)
+    cnt = bf16_reset()
+    state, m1 = make_mle_step(config)(state, batch)
+    state, m2 = make_adv_step(config)(state, batch, TEMP)
+    torch.cuda.synchronize()
+    launches = bf16_launches(cnt, "bf16 conditional")
+    stats = running_stats(state.gen)
+    row = {"metrics": {k: float(v) for m in (m1, m2) for k, v in m.items()},
+           "launches": launches,
+           "stats_dtypes": sorted({str(v.dtype) for v in stats.values()})}
+    emit({"phase": "bf16", "conditional": row})
+    check(all(math.isfinite(v) for v in row["metrics"].values()),
+          f"bf16 conditional {row}")
+    check(launches["image_norm_bf16"] == 2 and
+          launches["decode_sample_resid_bf16"] == 1 and
+          launches["decode_serve_bf16"] == 1,
+          f"bf16 conditional launches {launches}")
+    check(row["stats_dtypes"] == ["torch.bfloat16"],
+          f"bf16 running statistics {row['stats_dtypes']}")
+    return row
+
+
+def bf16_main(argv):
+    """``main.main(argv)`` in this process with the config given
+    ``bf16_mu`` (a ``Config`` field, as the JAX package's ``GIC_BF16_MU``
+    is no flag) → (instructor, launches, seconds, logged metrics)."""
+    from gan_image_captioning_tpu_torch import main as train_main
+
+    real = train_main.config_from_args
+    train_main.config_from_args = lambda args: real(args).replace(
+        bf16_mu=True)
+    cnt = bf16_reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            inst = train_main.main(argv)
+    finally:
+        train_main.config_from_args = real
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rows = [json.loads(ln) for ln in open(Path(inst.config.save_dir)
+                                          / "metrics.jsonl")]
+    check(inst.config.dtype == "bfloat16" and inst.config.bf16_mu,
+          "bf16 loop: the flags did not reach the config")
+    check(rows and all(math.isfinite(r["value"]) for r in rows),
+          "bf16 loop: non-finite metric")
+    return inst, bf16_launches(cnt, "bf16 loop"), seconds
+
+
+def bf16_loop(workdir):
+    """``main.py --dtype bfloat16`` (with ``bf16_mu``): one pretrain and
+    one adversarial epoch of 128 synthetic items with a full-state
+    snapshot per epoch, the snapshot then loaded back; and conditional
+    config3 on the repository's COCO sample (at ``IMG_S``, batches of 8,
+    ``--device-preprocess 1``: ``images_u8``
+    batches through ``image_norm``'s bfloat16 instantiation), one epoch
+    each; every kernel of the path launched in both."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch.train import checkpoint as ckpt
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+
+    shutil.rmtree(workdir / "bf16_loop", ignore_errors=True)
+    common = [*CONFIG3_FLAGS, "--dtype", "bfloat16", "--pretrain-epochs",
+              "1", "--adv-epochs", "1", "--save-dir",
+              str(workdir / "bf16_loop")]
+    inst, launches, seconds = bf16_main(
+        [*common, "--synthetic-items", str(BF16_ITEMS), "--checkpoint-every",
+         "1", "--expt-name", "bf16"])
+    snaps = sorted(Path(inst.config.model_dir).glob("state_*.ckpt"))
+    check(snaps, "bf16 loop: no full-state snapshot")
+    back = ckpt.load_state(str(snaps[-1]), create_train_state(
+        inst.config, 0, next(inst.state.gen.parameters()).device))
+    row = {"seconds": seconds, "launches": launches,
+           "snapshot": snaps[-1].name,
+           "pretrain_steps": inst.pretrain_steps,
+           "gen_steps": inst.state.gen_steps,
+           "mu_dtypes": sorted({str(v.dtype) for opt in (
+               back.pretrain_opt, back.gen_opt, back.disc_opt)
+               for v in opt.mu.values()})}
+    check(row["mu_dtypes"] == ["torch.bfloat16"],
+          f"bf16 loop: reloaded mu {row['mu_dtypes']}")
+    for k in ("decode_serve_bf16", "decode_sample_resid_bf16",
+              "lstm_bptt_chain_bf16", "lstm_bptt_reverse_bf16",
+              "disc_conv_fwd_bf16", "disc_conv_bwd_dx_bf16"):
+        check(launches[k] > 0, f"bf16 loop: {k} never launched")
+    # the sample's training split: batches of 8 (3 steps a phase)
+    inst, launches, seconds = bf16_main(
+        [*common, "--dataset", "coco", "--data-dir",
+         str(ROOT / "data" / "mini_coco"), "--captions-per-image", "5",
+         "--conditional-gan", "1", "--device-preprocess", "1",
+         "--image-size", str(IMG_S), "--expt-name", "bf16_cond",
+         *(x for f in ("pre-train", "pre-eval", "adv-train", "adv-eval")
+           for x in (f"--{f}-batch-size", "8"))])
+    stats = running_stats(inst.state.gen)
+    row["conditional"] = {
+        "seconds": seconds, "launches": launches,
+        "pretrain_steps": inst.pretrain_steps,
+        "gen_steps": inst.state.gen_steps,
+        "stats_dtypes": sorted({str(v.dtype) for v in stats.values()})}
+    emit({"phase": "bf16", "loop": row})
+    check(inst.pretrain_steps > 0 and inst.state.gen_steps > 0,
+          f"bf16 conditional loop steps {row['conditional']}")
+    for k in ("image_norm_bf16", "decode_serve_bf16",
+              "decode_sample_resid_bf16", "lstm_bptt_chain_bf16",
+              "lstm_bptt_reverse_bf16", "disc_conv_bwd_dx_bf16"):
+        check(launches[k] > 0, f"bf16 conditional loop: {k} never launched "
+              f"{launches}")
+    check(row["conditional"]["stats_dtypes"] == ["torch.bfloat16"],
+          f"bf16 conditional loop statistics {row['conditional']}")
+    return row
+
+
+def bf16_service(gen, workdir):
+    """``serve.main --quantize int8|int4 --dtype bfloat16``: ``{"n": 8}``
+    requests; each caption the plain quantized decode in bfloat16 of the
+    same row (ids equal, or each served id a tie), the quantized kernel's
+    launches equal to the engine's ``device_calls``."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
+    from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
+                                                             strip_caption)
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.models.generator import (
+        start_token_features)
+    from gan_image_captioning_tpu_torch.ops.quantize import (
+        quantize_lstm_decoder)
+    from gan_image_captioning_tpu_torch.train.checkpoint import (
+        save_generator_checkpoint)
+
+    path = workdir / "gen_full_width_bf16.ckpt"
+    save_generator_checkpoint(str(path), gen)
+    out = {}
+    for bits in (8, 4):
+        reqs = [{"n": 8}, {"n": 8}, {"stats": True}]
+        stdin = io.StringIO("".join(json.dumps(r) + "\n" for r in reqs))
+        buf = io.StringIO()
+        cnt = bf16_reset()
+        old = sys.stdin
+        try:
+            sys.stdin = stdin
+            with contextlib.redirect_stdout(buf):
+                serve.main(["--checkpoint", str(path), *MODEL_FLAGS,
+                            "--quantize", f"int{bits}", "--dtype",
+                            "bfloat16"])
+        finally:
+            sys.stdin = old
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        resps, stats = lines[1:3], lines[3]["coalescing"]
+        launches = bf16_launches(cnt, "bf16 service")["decode_qserve_bf16"]
+        feats = start_token_features(gen.decoder, 1).to(BF16)
+        qdec = quantize_lstm_decoder(gen.decoder, bits)
+        ids_p, _ = ds.decode_sample_q_serve_plain(feats, qdec, T, bits=bits)
+        want = " ".join(ids_to_words(strip_caption(ids_p[0].tolist()),
+                                     synthetic_vocab()[1]))
+        same = all(c == want for r in resps for c in r["captions"])
+        gap = 0.0
+        if not same:    # the kernel's ids of the same row, teacher-forced
+            ids_k, _ = ds.decode_sample_q_serve(feats, qdec, T, bits=bits)
+            ref = bf16_forced(ds.dequantized_decoder(qdec, bits, BF16),
+                              feats, ids_k)
+            gap = bf16_id_gap(ref["scores"], ids_k)
+        row = {"captions_equal_plain": same, "id_gap_units": gap,
+               "kernel_launches": launches,
+               "device_calls": stats["device_calls"],
+               "latency_ms": [r["latency_ms"] for r in resps]}
+        out[f"int{bits}"] = row
+        emit({"phase": "bf16", "service": f"int{bits}", **row})
+        check(all(len(r["captions"]) == 8 for r in resps)
+              and all(math.isfinite(x) for r in resps
+                      for x in r["logprobs"]), f"bf16 service {row}")
+        check(same or gap <= BF16_ID_UNITS, f"bf16 service captions {row}")
+        check(launches > 0 and launches == stats["device_calls"],
+              f"bf16 service launches {row}")
+    return out
+
+
+def bf16_profile(config, state, batch, kind, steps):
+    """Device time and launches by kernel (torch.profiler) and host ms per
+    step of ``kind`` (``"mle"`` / ``"adv"``), over ``steps`` steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    step = make_mle_step(config) if kind == "mle" else make_adv_step(config)
+    run = ((lambda: step(state, batch)) if kind == "mle"
+           else (lambda: step(state, batch, TEMP)))
+    run()
+    torch.cuda.synchronize()
+    cnt = bf16_reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    us, count = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        key = next((n for n in KERNEL_NAMES if n in ev.key), ev.key[:60])
+        us[key] = us.get(key, 0.0) + ev.self_device_time_total / steps
+        count[key] = count.get(key, 0) + ev.count / steps
+    row = {"host_ms_per_step": wall / steps,
+           "wrapper_launches_per_step": {
+               k.removesuffix("_bf16"): fn.launches / steps
+               for k, fn in cnt.items() if fn.launches},
+           "bf16_launches_per_step": {
+               k: fn.bf16_launches / steps for k, fn in cnt.items()
+               if fn.bf16_launches}}
+    if us:
+        order = sorted(us, key=lambda k: -us[k])
+        row.update(device_ms_per_step=sum(us.values()) / 1e3,
+                   launches_per_step=sum(count.values()),
+                   device_us_per_step={k: us[k] for k in order[:16]},
+                   busy_share=sum(us.values()) * steps / 1e3 / wall)
+    else:
+        row["device_time"] = "not measured"
+    return row
+
+
+def bf16_timing(setup):
+    """float32 against bfloat16 steps on the same weights, in turns
+    (float32, bfloat16, bfloat16, float32): two adversarial steps (one
+    discriminator update) and two MLE steps each, profiled."""
+    config, state, batch = setup
+    f32_cfg = config.replace(dtype="float32", bf16_mu=False)
+    out = {"f32": [], "bf16": []}
+    for dt, cfg in (("f32", f32_cfg), ("bf16", config), ("bf16", config),
+                    ("f32", f32_cfg)):
+        out[dt].append({kind: bf16_profile(cfg, state, batch, kind,
+                                           DISC_EVERY)
+                        for kind in ("adv", "mle")})
+    emit({"phase": "bf16", "timing": out})
+    for dt, runs in out.items():
+        for run in runs:
+            for kind, row in run.items():
+                n_all = sum(row["wrapper_launches_per_step"].values())
+                n_bf16 = sum(row["bf16_launches_per_step"].values())
+                check(n_all > 0 and n_bf16 == (n_all if dt == "bf16"
+                                               else 0),
+                      f"bf16 timing: {dt} {kind} launches {row}")
+    return out
+
+
+def phase_bf16(gen, device, workdir):
+    """``--dtype bfloat16`` on the config3 main path (the chip_smoke
+    docstring's ``bf16``)."""
+    t0 = time.perf_counter()
+    rows, times = bf16_kernels(gen, device)
+    train, setup = bf16_train(gen, device, rows["logit_scale"])
+    cond = bf16_cond(device)
+    loop = bf16_loop(workdir)
+    service = bf16_service(gen, workdir)
+    timing = bf16_timing(setup)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "bf16", "seconds": seconds})
+    return {"rows": rows, "times": times, "train": train, "cond": cond,
+            "loop": loop, "service": service, "timing": timing}
+
+
+def bf16_entries(smi, row):
+    """The bfloat16 instantiations' entries of the ``kernels`` line; each
+    one's launches from this phase's drives: the training steps (decode,
+    chain, reverse, conv, and the MLE eval step's pretrain decode), the
+    conditional step (``image_norm``) and the services (quantized
+    decode)."""
+    train = row["train"]["launches"]
+    launches = {**train,
+                "image_norm_bf16": row["cond"]["launches"]["image_norm_bf16"],
+                **{f"decode_qserve_{b}_bf16": s["kernel_launches"]
+                   for b, s in row["service"].items()}}
+    errs = {name: max((v for k, v in row["rows"][name].items()
+                       if k.startswith("max_abs")), default=0.0)
+            for name in BF16_TPU_KERNELS}
+    out = []
+    for name, tpu in BF16_TPU_KERNELS.items():
+        t = row["times"][name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      + BF16_SOURCES[name],
+            "replaces": tpu, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": min(t["kernel_ms"]),
+            "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": min(t["library_ms"]) if "library_ms" in t
+            else None,
+            "dtype": "bfloat16", "B": t.get("B", B_TRAIN), "card": smi})
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -5829,6 +6840,8 @@ def main(argv=None):
         scst_row = phase_scst(device, workdir)
     if run("step_options"):
         so_row = phase_step_options(device, workdir, smi)
+    if run("bf16"):
+        bf16_row = phase_bf16(gen, device, workdir)
     if only:
         return 0
 
@@ -5856,7 +6869,8 @@ def main(argv=None):
         + [image_norm_entry(smi, norm, cond_train)]
         + tf_entries(smi, tfk, tf_train)
         + engine_entries(smi, engines, reverse)
-        + mode_entries(smi, modes, impls))
+        + mode_entries(smi, modes, impls)
+        + bf16_entries(smi, bf16_row))
     # the evaluation path's launches (phase eval_decode, counts set to 0
     # before each evaluate.py run): greedy, int8 greedy, beam 4 with the
     # discriminator score; NLL_gen through the pretrain mode in each

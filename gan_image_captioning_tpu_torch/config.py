@@ -235,7 +235,11 @@ def add_training_args(parser):
                         "for the first adv epoch into this directory")
     g.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype (only float32 is ported yet)")
+                   help="compute dtype: bfloat16 trains in mixed precision "
+                        "(bfloat16 compute over float32 master weights, "
+                        "Adam state and checkpoints; losses reduced in "
+                        "float32) and runs the quantized decode "
+                        "(--quantize) in bfloat16")
     g.add_argument("--pretrain-epochs", type=int, default=0,
                    help="number of epochs for pretraining generator")
     g.add_argument("--pre-train-batch-size", type=int, default=64,
@@ -544,6 +548,9 @@ class Config:
     ``"plain"`` the plain versions on any device.  Every engine takes the
     plain versions on CPU tensors.
 
+    ``bf16_mu`` (the JAX package's ``GIC_BF16_MU=1``): every Adam first
+    moment is stored in bfloat16.
+
     ``image_norm_impl`` does what ``"kernel"`` / ``"plain"`` do above for
     the ``image_norm`` kernel of ``images_u8`` batches, and ``attn_impl``
     for the flash-attention kernels of the transformers' self-attention
@@ -666,6 +673,7 @@ class Config:
     bpe_vocab: str = ""
     bpe_merges: str = ""
     encoder_init: str = "sweep"
+    bf16_mu: bool = False
     # kernel routes (see the class docstring)
     decode_impl: str = "fused"
     disc_engine: str = "auto"
@@ -727,6 +735,52 @@ def require_ported_arch(config: Config) -> None:
         raise NotImplementedError(
             f"--encoder-arch {config.encoder_arch}: only the ResNet-18 "
             "encoder is ported yet")
+
+
+# What --dtype bfloat16 runs in bfloat16 through the bfloat16 kernels
+# (decode modes sample_resid / greedy / pretrain and quantized serve, the
+# BPTT chain and reverse, the mxu conv forward and backward, image_norm):
+# an LSTM generator with the CNN discriminator, the kernel decode route
+# (or the port's plain one) and these conv engines.  Everything else in
+# bfloat16 is ROADMAP.md queue 1 item 3's remainder.
+BF16_DECODE_ROUTES = ("kernel", "plain")
+BF16_DISC_ENGINES = ("auto", "mxu", "pallas", "xla", "plain")
+
+
+def compute_dtype(config: Config) -> torch.dtype:
+    """The dtype ``--dtype`` computes in: bfloat16 under ``--dtype
+    bfloat16``, else float32 (the JAX ``_compute_cast`` and
+    ``_int8_dtype``)."""
+    return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
+
+
+def require_ported_dtype(config: Config) -> None:
+    """Raise for a ``--dtype`` the port's training does not run: anything
+    but float32 and bfloat16, and bfloat16 on a route whose kernels have
+    no bfloat16 instantiation yet (NotImplementedError naming the
+    ``ROADMAP.md`` item): it never runs such a route in float32
+    instead."""
+    if config.dtype == "float32":
+        return
+    if config.dtype != "bfloat16":
+        raise ValueError(f"--dtype {config.dtype!r}: expected float32 or "
+                         "bfloat16")
+    todo = ("is not ported yet (ROADMAP.md queue 1, item 3: the rest of "
+            "bfloat16)")
+    if config.gen_arch != "lstm" or config.disc_arch != "cnn":
+        raise NotImplementedError(
+            f"--dtype bfloat16 with --gen-arch {config.gen_arch} "
+            f"--disc-arch {config.disc_arch}: the transformer family in "
+            f"bfloat16 (flash attention, the Gumbel sampler) {todo}")
+    route = decode_route(config)
+    if route not in BF16_DECODE_ROUTES:
+        raise NotImplementedError(
+            f"--dtype bfloat16 with decode_impl {config.decode_impl!r} "
+            f"(route {route}) {todo}")
+    if config.disc_engine not in BF16_DISC_ENGINES:
+        raise NotImplementedError(
+            f"--dtype bfloat16 with --disc-engine {config.disc_engine} "
+            f"{todo}")
 
 
 def require_ported_flags(config: Config) -> None:

@@ -57,7 +57,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.config import Config, compute_dtype
 from gan_image_captioning_tpu_torch.data.vocab import END, PAD
 from gan_image_captioning_tpu_torch.kernels.decode_sample import (
     decode_sample, decode_sample_q_serve)
@@ -139,10 +139,21 @@ def transformer_stepper(decoder, config: Config) -> Stepper:
                    lambda ids: p["embed"][ids.long()])
 
 
-def quantized_lstm_stepper(qdec: dict) -> Stepper:
+def int8_dtype(config: Config):
+    """The compute dtype of the quantized decodes (the JAX
+    ``_int8_dtype``): bfloat16 under ``--dtype bfloat16``, else float32.
+    The stepper and the quantized serve kernel share it."""
+    return torch.float32 if config is None else compute_dtype(config)
+
+
+def quantized_lstm_stepper(qdec: dict, config: Config = None) -> Stepper:
     """Stepper over a quantized decoder: every weight read is the int8
     payload, its scale applied after the product (``qmatmul``).  A packed
-    int4 decoder is unpacked once to int8 nibble values."""
+    int4 decoder is unpacked once to int8 nibble values.  It computes in
+    :func:`int8_dtype` of ``config``: x, the zero state (h and c), the
+    products, the biases, the logits and the embedding rows, as the JAX
+    stepper does."""
+    dtype = int8_dtype(config)
     if q_lib.payload_bits(qdec) == 4:
         unpack = q_lib.unpack_int4_rows
         qdec = dict(
@@ -159,24 +170,24 @@ def quantized_lstm_stepper(qdec: dict) -> Stepper:
     device = qdec["linear"]["b"].device
 
     def init_state(n):
-        return lstm_lib.zero_state(layers, n, hidden, torch.float32, device)
+        return lstm_lib.zero_state(layers, n, hidden, dtype, device)
 
     def step(state, x, t):
-        h_top, state = q_lib.quantized_lstm_step(qdec, x.to(torch.float32),
-                                                 state)
+        h_top, state = q_lib.quantized_lstm_step(qdec, x.to(dtype), state)
         return (q_lib.qmatmul(h_top, qdec["linear"]["w"])
-                + qdec["linear"]["b"]), state
+                + qdec["linear"]["b"].to(dtype)), state
 
     return Stepper(init_state, step, _gather,
-                   lambda ids: q_lib.quantized_embed(qdec, ids))
+                   lambda ids: q_lib.quantized_embed(qdec, ids).to(dtype))
 
 
 def make_stepper(generator, config: Config = None) -> Stepper:
     """The stepper of a generator's decoder (``config``: the transformer's
-    heads; both LSTM steppers need only the weights)."""
+    heads, and the quantized stepper's compute dtype, :func:`int8_dtype`;
+    the dense LSTM stepper needs only the weights)."""
     dec = decoder_of(generator)
     if q_lib.is_quantized(dec):
-        return quantized_lstm_stepper(dec)
+        return quantized_lstm_stepper(dec, config)
     if isinstance(dec, tf_lib.TransformerDecoder):
         return transformer_stepper(dec, config)
     return lstm_stepper(dec)
@@ -228,18 +239,24 @@ def decode_chunk(dec, x, h, c, steps: int):
     """``steps`` serve-mode decode steps from the carried ``(h, c, x)``:
     one call of the dense or the quantized serve wrapper (the kernel on
     CUDA tensors, its plain version on CPU ones) → ``(ids [B, K],
-    lps [B, K], (hT, cT, xT))``."""
+    lps [B, K], (hT, cT, xT))``.  The kernels carry c in float32; it
+    goes in widened and comes back in the carried c's dtype (bfloat16 in
+    a bfloat16 quantized decode, as the JAX engines cast it)."""
     if q_lib.is_quantized(dec):
-        return decode_sample_q_serve(x, dec, steps, init_state=(h, c, x),
-                                     bits=q_lib.payload_bits(dec))
+        ids, lps, (hT, cT, xT) = decode_sample_q_serve(
+            x, dec, steps, init_state=(h, c.to(torch.float32), x),
+            bits=q_lib.payload_bits(dec))
+        return ids, lps, (hT, cT.to(c.dtype), xT)
     return decode_sample(x, dec.lstm.layers(), dec.linear.weight,
                          dec.linear.bias, dec.embed.weight, steps,
                          mode="serve", init_state=(h, c, x))
 
 
-def _quantized_serve(dec, features, seq_len):
-    return decode_sample_q_serve(features, dec, seq_len,
-                                 bits=q_lib.payload_bits(dec))
+def _quantized_serve(dec, features, seq_len, config: Config):
+    """The quantized serve decode in :func:`int8_dtype` (the JAX
+    ``features.astype(_int8_dtype(config))``)."""
+    return decode_sample_q_serve(features.to(int8_dtype(config)), dec,
+                                 seq_len, bits=q_lib.payload_bits(dec))
 
 
 @torch.no_grad()
@@ -250,7 +267,7 @@ def greedy(generator, features, config: Config, seq_len: int = None):
     api.require_ported(config)
     dec = decoder_of(generator)
     if q_lib.is_quantized(dec):
-        return _quantized_serve(dec, features, seq_len)[0]
+        return _quantized_serve(dec, features, seq_len, config)[0]
     if _is_transformer(generator):
         return tf_lib.sample(dec, features, seq_len, True, config)[1]
     return greedy_ids(dec, features, seq_len)
@@ -264,7 +281,7 @@ def greedy_with_logprobs(generator, features, config: Config,
     api.require_ported(config)
     dec = decoder_of(generator)
     if q_lib.is_quantized(dec):
-        ids, lps = _quantized_serve(dec, features, seq_len)
+        ids, lps = _quantized_serve(dec, features, seq_len, config)
         return ids, masked_logprob_sum(ids, lps)
     if _is_transformer(generator):
         logits, ids = tf_lib.sample(dec, features, seq_len, True, config)
@@ -306,7 +323,7 @@ def greedy_with_logprobs_adaptive(generator, features, config: Config,
     t_pad = -(-seq_len // K) * K
     stepper = make_stepper(generator, config)
     h, c = stepper.init_state(B)
-    x = features
+    x = features.to(h.dtype)     # the carried x is an embedding row later
     done = torch.zeros(B, dtype=torch.bool, device=device)
     ids_buf = torch.full((B, t_pad), PAD, dtype=torch.int32, device=device)
     lps_buf = torch.zeros((B, t_pad), dtype=torch.float32, device=device)

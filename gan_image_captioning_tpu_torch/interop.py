@@ -32,7 +32,13 @@ from gan_image_captioning_tpu_torch.models.generator import Generator
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True))
+    """A numpy leaf as a tensor of its dtype; a bfloat16 leaf (the
+    ``ml_dtypes`` type JAX arrays turn into: a ``GIC_BF16_MU`` first
+    moment, ``--dtype bfloat16`` running statistics) keeps its bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _bn_from_jax(out: dict, name: str, weights: dict, stats: dict) -> None:

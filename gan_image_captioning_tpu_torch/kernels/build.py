@@ -119,6 +119,19 @@ def device_limits(lib: ctypes.CDLL, device) -> tuple:
         return _LIMITS[idx]
 
 
+def compute_dtype(fn: str, t, bf16: bool = True):
+    """The compute dtype a kernel takes from its leading tensor ``t``:
+    float32, or bfloat16 where the kernel has a bfloat16 instantiation
+    (``bf16``).  TypeError for any other."""
+    import torch
+
+    allowed = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if t.dtype not in allowed:
+        names = " or ".join(str(d) for d in allowed)
+        raise TypeError(f"{fn}: {names} expected, got {t.dtype}")
+    return t.dtype
+
+
 def check_tensor(fn: str, name: str, t, shape, device, dtype=None) -> None:
     """What every kernel wrapper asks of a tensor before it passes a
     pointer: ``device``, ``dtype`` (float32 unless given), ``shape`` and

@@ -153,16 +153,23 @@ static_assert(SLOT < (8 + P_RT) * (2 * PQ_KT + 4) && NT % P_RT == 0,
 enum { PROF_LOAD, PROF_LSTM, PROF_BARRIER, PROF_PROJ, PROF_COMBINE,
        PROF_SLOTS };
 
+// W: the element type of the weights and activations (float, or bf16 for
+// the bfloat16 instantiation: every W-typed input widened exactly, every
+// W-typed output rounded once).  Scratch, c, the statistics, the log-
+// probabilities and the uniforms are float32 in both; so are the quantized
+// decode's biases and scales.  The dense biases are W (B: const void*,
+// read by bias_at).
+template <class W>
 struct DecodeParams {
-  const float* w_ih[MAX_NL];
-  const float* w_hh[MAX_NL];
-  const float* b_ih[MAX_NL];
-  const float* b_hh[MAX_NL];
-  const float* w_proj;
-  const float* b_proj;
-  const float* embed;
-  const float* x_init;  // feats or the carried x0 [B, E]
-  const float* h0;      // [nl, B, H] or null (zeros)
+  const W* w_ih[MAX_NL];
+  const W* w_hh[MAX_NL];
+  const void* b_ih[MAX_NL];
+  const void* b_hh[MAX_NL];
+  const W* w_proj;
+  const void* b_proj;
+  const W* embed;
+  const W* x_init;      // feats or the carried x0 [B, E]
+  const W* h0;          // [nl, B, H] or null (zeros)
   const float* c0;      // [nl, B, H] or null (zeros)
   float* x;             // scratch [B, Ep]  (Ep = E rounded up to 4)
   float* h;             // scratch [2, nl, B, Hp], zero columns past H
@@ -172,18 +179,20 @@ struct DecodeParams {
   float* psum;          // [B, ntile]: sum(exp(l - max))   (greedy modes)
   float* pzmax;         // [B, ntile]: max of z             (soft sample)
   float* pzsum;         // [B, ntile]: sum(exp(z - max))    (soft sample)
+  float* zbuf;          // [B, V]: z of the step (bfloat16 soft sample; the
+                        // float32 one keeps z in soft itself)
   unsigned int* barrier;
   int32_t* ids;         // [B, T]
   float* lps;           // [B, T] or null
-  float* logits;        // [T, B, V] or null (pretrain)
-  float* soft;          // [T, B, V] or null (sample_resid, sample_embed)
-  float* noise;         // [T, B, V] or null (sample)
-  float* hs;            // [T, nl, B, H] or null (residuals)
-  float* cs;            // [T, nl, B, H]
-  float* gates;         // [T, nl, B, 4H]
-  float* hT;            // [nl, B, H] or null (carried state out)
+  W* logits;            // [T, B, V] or null (pretrain)
+  W* soft;              // [T, B, V] or null (sample_resid, sample_embed)
+  W* noise;             // [T, B, V] or null (sample)
+  W* hs;                // [T, nl, B, H] or null (residuals)
+  W* cs;                // [T, nl, B, H]
+  W* gates;             // [T, nl, B, 4H]
+  W* hT;                // [nl, B, H] or null (carried state out)
   float* cT;
-  float* xT;            // [B, E] or null
+  W* xT;                // [B, E] or null
   const float* u_in;    // [T, B, V] or null (Philox)
   float* u_out;         // [T, B, V] or null
   unsigned long long* prof;  // [PROF_SLOTS] or null
@@ -205,6 +214,15 @@ struct DecodeParams {
       r_emb;
 };
 
+// Element i of a bias: float32 in the quantized decode (Q), else W.
+template <bool Q, class W>
+__device__ __forceinline__ float bias_at(const void* b, size_t i) {
+  if constexpr (Q)
+    return static_cast<const float*>(b)[i];
+  else
+    return to_f(static_cast<const W*>(b)[i]);
+}
+
 // The padded width of layer l's input and of its [x | h] row.
 __host__ __device__ inline int in_pad(int l, int E, int H) {
   return pad4(l ? H : E);
@@ -222,7 +240,8 @@ __host__ __device__ inline int resident_floats(int nl, int E, int H,
   return n;
 }
 
-__device__ __forceinline__ size_t half_off(const DecodeParams& p, int t) {
+template <class W>
+__device__ __forceinline__ size_t half_off(const DecodeParams<W>& p, int t) {
   return (size_t)(t % 2) * p.nl * p.B * p.Hp;
 }
 
@@ -233,11 +252,18 @@ __device__ __forceinline__ int gate_row(int r, int j0, int upb, int H) {
   return r < 4 * upb && j < H ? g * H + j : -1;
 }
 
-// A read-only [rows, cols] input (row stride cols) as a stage segment.
+// A read-only [rows, cols] input (row stride cols) as a stage segment;
+// bfloat16 rows are loaded 8 bytes (4 columns) at a time and widened.
 __device__ __forceinline__ Seg input_seg(const float* p, int cols) {
   return Seg{p, cols, cols,
              p != nullptr && cols % 4 == 0 &&
                  reinterpret_cast<uintptr_t>(p) % 16 == 0};
+}
+__device__ __forceinline__ Seg input_seg(const bf16* p, int cols) {
+  return Seg{p, cols, cols,
+             p != nullptr && cols % 4 == 0 &&
+                 reinterpret_cast<uintptr_t>(p) % 8 == 0,
+             true};
 }
 
 // A kernel-written padded scratch matrix (stride and columns padded to 4,
@@ -276,8 +302,11 @@ __device__ __forceinline__ float deq(int q, float scale) {
 }
 
 // Element k of gate row R (a column of the [In+H, 4H] payload) of layer l
-// in the padded [x | 0 | h | 0] row layout; zero in the pads.
-__device__ __forceinline__ float qgate(const DecodeParams& p, int l, int R,
+// in the padded [x | 0 | h | 0] row layout; zero in the pads.  bfloat16:
+// the dequantized weight rounded to bfloat16, as the TPU kernel's
+// `_dq(...).astype(dt)` stores it.
+template <class W>
+__device__ __forceinline__ float qgate(const DecodeParams<W>& p, int l, int R,
                                        int k) {
   const int In = l ? p.H : p.E, wa = in_pad(l, p.E, p.H), N = 4 * p.H;
   int kk;
@@ -287,13 +316,14 @@ __device__ __forceinline__ float qgate(const DecodeParams& p, int l, int R,
     kk = In + k - wa;
   else
     return 0.f;
-  return deq(qval(p.wq[l], p.bits, (In + p.H) / 2, N, kk, R),
-             p.wscale[l][R]);
+  return round_to<W>(deq(qval(p.wq[l], p.bits, (In + p.H) / 2, N, kk, R),
+                         p.wscale[l][R]));
 }
 
 // The block's dense gate rows of every layer, [w_ih | 0 | w_hh | 0]
 // zero-padded to row_pad.
-__device__ void load_dense_rows(const DecodeParams& p, float* wres) {
+template <class W>
+__device__ void load_dense_rows(const DecodeParams<W>& p, float* wres) {
   for (int l = 0; l < p.nl; ++l) {
     const int In = l ? p.H : p.E, wa = in_pad(l, p.E, p.H);
     const int ws = row_pad(l, p.E, p.H);
@@ -302,9 +332,9 @@ __device__ void load_dense_rows(const DecodeParams& p, float* wres) {
       const int r = e / ws, k = e % ws, R = gate_row(r, j0, p.upb, p.H);
       float v = 0.f;
       if (R >= 0 && k < In)
-        v = p.w_ih[l][(size_t)R * In + k];
+        v = to_f(p.w_ih[l][(size_t)R * In + k]);
       else if (R >= 0 && k >= wa && k - wa < p.H)
-        v = p.w_hh[l][(size_t)R * p.H + k - wa];
+        v = to_f(p.w_hh[l][(size_t)R * p.H + k - wa]);
       wres[e] = v;
     }
     wres += rows * ws;
@@ -315,8 +345,8 @@ __device__ void load_dense_rows(const DecodeParams& p, float* wres) {
 // zero-padded to row_pad; quantized (Q): dequantized once, here, each
 // element read along the payload's rows (the block's columns of one k
 // are neighbours in memory).
-template <bool Q>
-__device__ void load_resident(const DecodeParams& p, float* wres) {
+template <bool Q, class W>
+__device__ void load_resident(const DecodeParams<W>& p, float* wres) {
   if constexpr (Q) {
     for (int l = 0; l < p.nl; ++l) {
       const int ws = row_pad(l, p.E, p.H), rows = 4 * p.upb;
@@ -338,8 +368,8 @@ __device__ void load_resident(const DecodeParams& p, float* wres) {
 // the block's gate rows) in a pipeline slot.  (Two or four rows a thread
 // load less shared memory per FMA but leave too few warps: slower on the
 // card at B = 64.)
-template <bool Q>
-__device__ void lstm_phase(const DecodeParams& p, int t, int l,
+template <bool Q, class W>
+__device__ void lstm_phase(const DecodeParams<W>& p, int t, int l,
                            const float* wres_l, float* pool) {
   const int B = p.B, H = p.H, Hp = p.Hp, upb = p.upb, j0 = blockIdx.x * upb;
   if (j0 >= H) return;  // block-uniform: no unit in this block
@@ -407,11 +437,15 @@ __device__ void lstm_phase(const DecodeParams& p, int t, int l,
     if (active && j < H && b < B) {
       // the bias b_ih + b_hh (one float32 add, as the previous design's
       // wrapper formed it) after the K loop
-      // (quantized: one bias, b_hh zero, as dequantized_decoder gives it)
-      const float* bi = p.b_ih[l] + j;
-      const float* bh = p.b_hh[l] != nullptr ? p.b_hh[l] + j : nullptr;
+      // (quantized: one bias, b_hh zero, as dequantized_decoder gives it;
+      // bfloat16: the sum rounded to bfloat16, as the TPU kernel's caller
+      // adds the two bfloat16 biases)
       const auto bias = [&](int g) {
-        return bi[g * H] + (bh != nullptr ? bh[g * H] : 0.f);
+        const size_t i = (size_t)g * H + j;
+        const float s =
+            bias_at<Q, W>(p.b_ih[l], i) +
+            (p.b_hh[l] != nullptr ? bias_at<Q, W>(p.b_hh[l], i) : 0.f);
+        return Q ? s : round_to<W>(s);
       };
       const float pi = acc[0] + bias(0);
       const float pf = acc[1] + bias(1);
@@ -424,20 +458,22 @@ __device__ void lstm_phase(const DecodeParams& p, int t, int l,
                             : (p.c0 != nullptr ? p.c0[lo + o] : 0.f);
       const float cn = gf * c_old + gi * gg;
       const float hn = go * tanhf(cn);
-      p.c[lo + o] = cn;
-      hnew[(size_t)b * Hp + j] = hn;
+      p.c[lo + o] = cn;  // float32 in both instantiations
+      // h in W: the next layer's input, the next step's h and the
+      // projection's input (the TPU kernel's bfloat16 h carry)
+      hnew[(size_t)b * Hp + j] = round_to<W>(hn);
       if (p.gates != nullptr) {
         const size_t tl = (size_t)t * p.nl + l, layer = (size_t)B * H;
-        float* gr = p.gates + tl * 4 * layer + (size_t)b * 4 * H + j;
-        __stcs(gr, pi);
-        __stcs(gr + H, pf);
-        __stcs(gr + 2 * H, pg);
-        __stcs(gr + 3 * H, po);
-        __stcs(p.hs + tl * layer + o, hn);
-        __stcs(p.cs + tl * layer + o, cn);
+        const size_t gr = tl * 4 * layer + (size_t)b * 4 * H + j;
+        store_cs(p.gates, gr, pi);
+        store_cs(p.gates, gr + H, pf);
+        store_cs(p.gates, gr + 2 * H, pg);
+        store_cs(p.gates, gr + 3 * H, po);
+        store_cs(p.hs, tl * layer + o, hn);
+        store_cs(p.cs, tl * layer + o, cn);
       }
       if (t == p.T - 1) {
-        if (p.hT != nullptr) p.hT[lo + o] = hn;
+        if (p.hT != nullptr) store_as(p.hT, lo + o, hn);
         if (p.cT != nullptr) p.cT[lo + o] = cn;
       }
     }
@@ -448,7 +484,8 @@ __device__ void lstm_phase(const DecodeParams& p, int t, int l,
 // vocabulary tile [v0, v0 + 64) into a ring slot, [kk][64], issued without
 // waiting where the rows are 16-byte aligned; byte row k, or k - H/2 for
 // the high nibbles of packed int4.  Columns past V are not read.
-__device__ __forceinline__ void stage_qproj(const DecodeParams& p,
+template <class W>
+__device__ __forceinline__ void stage_qproj(const DecodeParams<W>& p,
                                             int8_t* dst, int v0, int k0,
                                             int kt) {
   const int V = p.V, H = p.H, R = p.bits == 4 ? H / 2 : H;
@@ -481,8 +518,8 @@ __device__ __forceinline__ void stage_qproj(const DecodeParams& p,
 // (cp.async when 16-byte aligned), one K tile ahead of the h_top rows,
 // and the compute step of K tile i dequantizes tile i + 1 into its pool
 // slot's projection rows, the floats the dense kernel reads there.
-template <bool Q, int RV, int TB, int NBL>
-__device__ void proj_phase(const DecodeParams& p, int t, float* pool,
+template <bool Q, class W, int RV, int TB, int NBL>
+__device__ void proj_phase(const DecodeParams<W>& p, int t, float* pool,
                            int8_t* ring) {
   constexpr int NRL = P_RT / RV, PB = NBL * TB;
   static_assert(NRL * NBL <= NT, "proj thread tile");
@@ -516,7 +553,7 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool,
       const auto one = [&](int kk) {
         const int k = i * kt + kk;
         const int q = qunpack(bytes[kk * P_RT + qr], p.bits, k >= R);
-        return qv < V && k < H ? deq(q, qscale) : 0.f;
+        return qv < V && k < H ? round_to<W>(deq(q, qscale)) : 0.f;
       };
 #pragma unroll 2
       for (int kq = tid / P_RT; kq < kt / 4; kq += NT / P_RT) {
@@ -539,6 +576,9 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool,
               if (i == 0) stage_qproj(p, ring_slot(0), v0, 0, kt);
               if (i + 1 < ntiles)
                 stage_qproj(p, ring_slot(i + 1), v0, (i + 1) * kt, kt);
+            } else if constexpr (is_bf16<W>) {  // 16 bytes a load
+              stage_rows_bf16(slot + xfl, kt, P_RT, RowRange{v0, V}, wp,
+                              i * kt);
             } else {
               stage_rows(slot + xfl, kt, P_RT, RowRange{v0, V}, wp, Hp, none,
                          i * kt);
@@ -578,7 +618,7 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool,
 #pragma unroll
       for (int i = 0; i < RV; ++i) {
         const int r = tr + NRL * i, v = v0 + r;
-        const float bv = v < V ? p.b_proj[v] : 0.f;
+        const float bv = v < V ? bias_at<Q, W>(p.b_proj, v) : 0.f;
 #pragma unroll
         for (int j = 0; j < TB; ++j) {
           const int bl = tb + NBL * j, b = b0 + bl;
@@ -592,7 +632,7 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool,
                                                 : philox_uniform(p.seed, t, b, v);
               if (p.u_out != nullptr) __stcs(p.u_out + o, u);
               const float g = -logf(-logf(u + GUMBEL_EPS) + GUMBEL_EPS);
-              if (p.noise != nullptr) __stcs(p.noise + o, g);
+              if (p.noise != nullptr) store_cs(p.noise, o, g);
               s = (acc[i][j] + bv) + g;
             }
           }
@@ -602,16 +642,21 @@ __device__ void proj_phase(const DecodeParams& p, int t, float* pool,
       __syncthreads();
 
       // pretrain logits, or z = temp * s into soft (rounded once, as the
-      // statistics below see it), coalesced along the vocabulary
+      // statistics below see it; bfloat16: into the float32 zbuf, the
+      // soft sample is rounded only when it is normalised), coalesced
+      // along the vocabulary
       if (p.logits != nullptr || p.soft != nullptr) {
         for (int e = tid; e < PB * P_RT; e += NT) {
           const int bl = e / P_RT, r = e % P_RT, b = b0 + bl;
           if (b >= B || r >= n) continue;
           const size_t o = step + (size_t)b * V + v0 + r;
+          const float z = Ls[bl * LS + r];
           if (p.logits != nullptr)
-            __stcs(p.logits + o, Ls[bl * LS + r]);
+            store_cs(p.logits, o, z);
+          else if constexpr (is_bf16<W>)
+            p.zbuf[(size_t)b * V + v0 + r] = __fmul_rn(p.temp, z);
           else
-            p.soft[o] = __fmul_rn(p.temp, Ls[bl * LS + r]);
+            p.soft[o] = __fmul_rn(p.temp, z);
         }
       }
       // one thread per (batch row, tile): proj_tile_stats /
@@ -704,8 +749,8 @@ __device__ float rescaled_sum(const float* pm, const float* ps, int n,
 
 // Phase 3: the rows of step t (a block per row): ids, lps or the soft
 // row, and the next input x = embed[id].
-template <bool Q>
-__device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
+template <bool Q, class W>
+__device__ void combine_phase(const DecodeParams<W>& p, int t, float* red_m,
                               int* red_i, int* s_id) {
   const int tid = threadIdx.x, ntile = p.ntile, V = p.V, E = p.E;
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
@@ -733,20 +778,26 @@ __device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
                                        m, red_m);
       // a batch of loads before the stores: the row is read and written
       // through one pointer, so one value at a time would serialise the
-      // L2 round trips
-      float* row = p.soft + ((size_t)t * p.B + b) * V;
+      // L2 round trips (bfloat16: z read from zbuf, the soft row written
+      // rounded)
+      W* row = p.soft + ((size_t)t * p.B + b) * V;
+      const float* zrow;
+      if constexpr (is_bf16<W>)
+        zrow = p.zbuf + (size_t)b * V;
+      else
+        zrow = row;
       constexpr int NB = 8;
       for (int v0 = tid; v0 < V; v0 += NB * NT) {
         float z[NB];
 #pragma unroll
         for (int q = 0; q < NB; ++q) {
           const int v = v0 + q * NT;
-          z[q] = v < V ? ld_shared_global(row + v) : 0.f;
+          z[q] = v < V ? ld_shared_global(zrow + v) : 0.f;
         }
 #pragma unroll
         for (int q = 0; q < NB; ++q) {
           const int v = v0 + q * NT;
-          if (v < V) __stcs(row + v, expf(z[q] - m) / total);
+          if (v < V) store_cs(row, v, expf(z[q] - m) / total);
         }
       }
     }
@@ -760,21 +811,22 @@ __device__ void combine_phase(const DecodeParams& p, int t, float* red_m,
       float v = 0.f;
       if constexpr (Q) {
         if (e < E)
-          v = deq(qval(p.eq, p.bits, p.r_emb, E, row, e), p.escale[e]);
+          v = round_to<W>(
+              deq(qval(p.eq, p.bits, p.r_emb, E, row, e), p.escale[e]));
       } else {
-        if (e < E) v = p.embed[(size_t)row * E + e];
+        if (e < E) v = to_f(p.embed[(size_t)row * E + e]);
       }
       p.x[(size_t)b * p.Ep + e] = v;
       if (t == p.T - 1 && p.xT != nullptr && e < E)
-        p.xT[(size_t)b * E + e] = v;
+        store_as(p.xT, (size_t)b * E + e, v);
     }
     __syncthreads();
   }
 }
 
-template <bool Q>
+template <bool Q, class W>
 __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
-    DecodeParams p) {
+    DecodeParams<W> p) {
   extern __shared__ float4 dyn_smem[];
   __shared__ float red_m[NT];
   __shared__ int red_i[NT];
@@ -791,7 +843,7 @@ __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
       t0 = now;
     }
   };
-  if (p.resident) load_resident<Q>(p, wres);
+  if (p.resident) load_resident<Q, W>(p, wres);
   __syncthreads();
   mark(PROF_LOAD);
 
@@ -799,24 +851,24 @@ __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
   for (int t = 0; t < p.T; ++t) {
     const float* wres_l = wres;
     for (int l = 0; l < p.nl; ++l) {
-      lstm_phase<Q>(p, t, l, wres_l, pool);
+      lstm_phase<Q, W>(p, t, l, wres_l, pool);
       wres_l += 4 * p.upb * row_pad(l, p.E, p.H);
       mark(PROF_LSTM);
       grid_barrier(p.barrier, target);
       mark(PROF_BARRIER);
     }
     if (p.pb == 8)
-      proj_phase<Q, 4, 1, 8>(p, t, pool, ring);
+      proj_phase<Q, W, 4, 1, 8>(p, t, pool, ring);
     else if (p.pb == 16)
-      proj_phase<Q, 4, 1, 16>(p, t, pool, ring);
+      proj_phase<Q, W, 4, 1, 16>(p, t, pool, ring);
     else if (p.pb == 32)
-      proj_phase<Q, 4, 2, 16>(p, t, pool, ring);
+      proj_phase<Q, W, 4, 2, 16>(p, t, pool, ring);
     else
-      proj_phase<Q, 4, 4, 16>(p, t, pool, ring);
+      proj_phase<Q, W, 4, 4, 16>(p, t, pool, ring);
     mark(PROF_PROJ);
     grid_barrier(p.barrier, target);
     mark(PROF_BARRIER);
-    combine_phase<Q>(p, t, red_m, red_i, &s_id);
+    combine_phase<Q, W>(p, t, red_m, red_i, &s_id);
     mark(PROF_COMBINE);
     if (t + 1 < p.T) grid_barrier(p.barrier, target);
     mark(PROF_BARRIER);
@@ -861,8 +913,8 @@ unsigned long long* g_prof = nullptr;  // gic_decode_set_profile
 
 // layer_ptrs: dense, (w_ih, w_hh, b_ih, b_hh) per layer; quantized (Q),
 // (wq, its scales, bias) per layer.
-template <bool Q>
-cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
+template <bool Q, class W>
+cudaError_t run(DecodeParams<W> p, const void* const* layer_ptrs,
                 const int* plan_in, cudaStream_t s) {
   const Plan plan{plan_in[0], plan_in[1], plan_in[2], plan_in[3],
                   plan_in[4]};
@@ -879,12 +931,12 @@ cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
     if constexpr (Q) {
       p.wq[l] = static_cast<const int8_t*>(layer_ptrs[3 * l]);
       p.wscale[l] = static_cast<const float*>(layer_ptrs[3 * l + 1]);
-      p.b_ih[l] = static_cast<const float*>(layer_ptrs[3 * l + 2]);
+      p.b_ih[l] = layer_ptrs[3 * l + 2];
     } else {
-      p.w_ih[l] = static_cast<const float*>(layer_ptrs[4 * l]);
-      p.w_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 1]);
-      p.b_ih[l] = static_cast<const float*>(layer_ptrs[4 * l + 2]);
-      p.b_hh[l] = static_cast<const float*>(layer_ptrs[4 * l + 3]);
+      p.w_ih[l] = static_cast<const W*>(layer_ptrs[4 * l]);
+      p.w_hh[l] = static_cast<const W*>(layer_ptrs[4 * l + 1]);
+      p.b_ih[l] = layer_ptrs[4 * l + 2];
+      p.b_hh[l] = layer_ptrs[4 * l + 3];
     }
   }
   p.upb = plan.upb;
@@ -899,19 +951,21 @@ cudaError_t run(DecodeParams p, const void* const* layer_ptrs,
         p.h, 0, sizeof(float) * 2 * p.nl * p.B * p.Hp, s);
     if (err != cudaSuccess) return err;
   }
-  return launch_persistent(decode_persistent_kernel<Q>, p, p.barrier,
+  return launch_persistent(decode_persistent_kernel<Q, W>, p, p.barrier,
                            plan.blocks, NT, (size_t)plan.smem, s);
 }
 
-DecodeParams base_params(const float* feats, const float* embed,
-                         const float* w_proj, const float* b_proj, int B,
-                         int E, int H, int V, int nl, int T, float* x,
-                         float* h, float* c, float* pmax, int* pidx,
-                         unsigned int* barrier, int32_t* ids) {
-  DecodeParams p = {};
-  p.x_init = feats;
-  p.embed = embed;
-  p.w_proj = w_proj;
+// W-typed pointers arrive as const void* (float or bfloat16 storage).
+template <class W>
+DecodeParams<W> base_params(const void* feats, const void* embed,
+                            const void* w_proj, const void* b_proj, int B,
+                            int E, int H, int V, int nl, int T, float* x,
+                            float* h, float* c, float* pmax, int* pidx,
+                            unsigned int* barrier, int32_t* ids) {
+  DecodeParams<W> p = {};
+  p.x_init = static_cast<const W*>(feats);
+  p.embed = static_cast<const W*>(embed);
+  p.w_proj = static_cast<const W*>(w_proj);
   p.b_proj = b_proj;
   p.B = B;
   p.E = E;
@@ -928,6 +982,111 @@ DecodeParams base_params(const float* feats, const float* embed,
   p.ids = ids;
   p.temp = 1.f;
   return p;
+}
+
+// Greedy / serve.  Carried state (each pointer may be null): h0, c0
+// [nl, B, H] and x0 [B, E] in place of h = c = 0 and x = feats; hT, cT
+// [nl, B, H] and xT [B, E] receive the state after the last step.
+// Outputs: ids, lps [B, T].
+template <class W>
+int decode_serve(const void* feats, const void* embed, const void* w_proj,
+                 const void* b_proj, const void* const* layer_ptrs, int B,
+                 int E, int H, int V, int nl, int T, const void* h0,
+                 const float* c0, const void* x0, float* x, float* h,
+                 float* c, float* pmax, int* pidx, float* psum, int32_t* ids,
+                 float* lps, void* hT, float* cT, void* xT, const int* plan,
+                 unsigned int* barrier, void* stream) {
+  DecodeParams<W> p = base_params<W>(x0 != nullptr ? x0 : feats, embed,
+                                     w_proj, b_proj, B, E, H, V, nl, T, x, h,
+                                     c, pmax, pidx, barrier, ids);
+  p.h0 = static_cast<const W*>(h0);
+  p.c0 = c0;
+  p.psum = psum;
+  p.lps = lps;
+  p.hT = static_cast<W*>(hT);
+  p.cT = cT;
+  p.xT = static_cast<W*>(xT);
+  return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+}
+
+// Mode pretrain: the greedy decode from (0, 0, feats) with the logits
+// [T, B, V] of every step and no log-probabilities.
+template <class W>
+int decode_pretrain(const void* feats, const void* embed, const void* w_proj,
+                    const void* b_proj, const void* const* layer_ptrs, int B,
+                    int E, int H, int V, int nl, int T, float* x, float* h,
+                    float* c, float* pmax, int* pidx, float* psum,
+                    int32_t* ids, void* logits, const int* plan,
+                    unsigned int* barrier, void* stream) {
+  DecodeParams<W> p = base_params<W>(feats, embed, w_proj, b_proj, B, E, H, V,
+                                     nl, T, x, h, c, pmax, pidx, barrier,
+                                     ids);
+  p.psum = psum;
+  p.logits = static_cast<W*>(logits);
+  return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+}
+
+// The Gumbel-softmax sample with BPTT residuals.  Noise: u_in [T, B, V]
+// when not null, else Philox keyed by `seed`; the uniforms used are copied
+// to u_out [T, B, V] when it is not null.  Scratch statistics psmax /
+// psidx / pzmax / pzsum [B, ntile]; zbuf [B, V] float32 (bfloat16 only,
+// else null).  Outputs: ids [B, T], soft [T, B, V], hs/cs [T, nl, B, H],
+// gates [T, nl, B, 4H].
+template <class W>
+int decode_sample_resid(
+    const void* feats, const void* embed, const void* w_proj,
+    const void* b_proj, const void* const* layer_ptrs, int B, int E, int H,
+    int V, int nl, int T, float temp, unsigned long long seed,
+    const float* u_in, float* u_out, float* x, float* h, float* c,
+    float* psmax, int* psidx, float* pzmax, float* pzsum, float* zbuf,
+    int32_t* ids, void* soft, void* hs, void* cs, void* gates,
+    const int* plan, unsigned int* barrier, void* stream) {
+  if (is_bf16<W> && zbuf == nullptr) return cudaErrorInvalidValue;
+  DecodeParams<W> p = base_params<W>(feats, embed, w_proj, b_proj, B, E, H, V,
+                                     nl, T, x, h, c, psmax, psidx, barrier,
+                                     ids);
+  p.sample = 1;
+  p.temp = temp;
+  p.seed = seed;
+  p.u_in = u_in;
+  p.u_out = u_out;
+  p.pzmax = pzmax;
+  p.pzsum = pzsum;
+  p.zbuf = zbuf;
+  p.soft = static_cast<W*>(soft);
+  p.hs = static_cast<W*>(hs);
+  p.cs = static_cast<W*>(cs);
+  p.gates = static_cast<W*>(gates);
+  return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+}
+
+template <class W>
+int decode_qserve(const void* feats, const void* const* layer_ptrs,
+                  const int8_t* pq, const float* ps, const float* pb,
+                  const int8_t* eq, const float* es, int bits, int B, int E,
+                  int H, int V, int R_emb, int nl, int T, const void* h0,
+                  const float* c0, const void* x0, float* x, float* h,
+                  float* c, float* pmax, int* pidx, float* psum, int32_t* ids,
+                  float* lps, void* hT, float* cT, void* xT, const int* plan,
+                  unsigned int* barrier, void* stream) {
+  if (bits != 8 && bits != 4) return cudaErrorInvalidValue;
+  DecodeParams<W> p = base_params<W>(x0 != nullptr ? x0 : feats, nullptr,
+                                     nullptr, pb, B, E, H, V, nl, T, x, h, c,
+                                     pmax, pidx, barrier, ids);
+  p.pq = pq;
+  p.pscale = ps;
+  p.eq = eq;
+  p.escale = es;
+  p.bits = bits;
+  p.r_emb = R_emb;
+  p.h0 = static_cast<const W*>(h0);
+  p.c0 = c0;
+  p.psum = psum;
+  p.lps = lps;
+  p.hT = static_cast<W*>(hT);
+  p.cT = cT;
+  p.xT = static_cast<W*>(xT);
+  return run<true>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -957,12 +1116,16 @@ int gic_decode_set_profile(unsigned long long* prof) {
 }
 
 // Registers per thread and spilled bytes of the persistent kernel, dense
-// (quantized = 0) or quantized (1).
-int gic_decode_kernel_attrs(int quantized, int* regs, int* local_bytes) {
+// (quantized = 0) or quantized (1), float32 (bf16 = 0) or bfloat16 (1).
+int gic_decode_kernel_attrs(int quantized, int bf16_, int* regs,
+                            int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &a, quantized ? decode_persistent_kernel<true>
-                    : decode_persistent_kernel<false>);
+  const void* k =
+      quantized ? (bf16_ ? (const void*)decode_persistent_kernel<true, bf16>
+                         : (const void*)decode_persistent_kernel<true, float>)
+                : (bf16_ ? (const void*)decode_persistent_kernel<false, bf16>
+                         : (const void*)decode_persistent_kernel<false, float>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, k);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
@@ -975,85 +1138,56 @@ int gic_decode_kernel_attrs(int quantized, int* regs, int* local_bytes) {
 // b_ih and b_hh [4H] per layer; plan the five ints of Plan; barrier
 // one device unsigned int.  Scratch: x [B, Ep], h [2, nl, B, Hp] (rows
 // padded to 4 floats), c [nl, B, H], the per-tile statistics
-// [B, ceil(V / 64)].  Returns 0 or
-// the first CUDA error code (cudaErrorCooperativeLaunchTooLarge when the
-// grid cannot be co-resident); nothing synchronises.
+// [B, ceil(V / 64)].  bf16 = 1 (serve, pretrain, sample_resid, qserve):
+// the weights, the biases of the dense decode, feats, h0, x0 and the
+// outputs logits, soft, hs, cs, gates, hT and xT are bfloat16 (the
+// bfloat16 instantiation); the scratch, c0, cT, lps and the uniforms stay
+// float32.  Returns 0 or the first CUDA error code
+// (cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident);
+// nothing synchronises.
 
-// Greedy / serve.  Carried state (each pointer may be null): h0, c0
-// [nl, B, H] and x0 [B, E] in place of h = c = 0 and x = feats; hT, cT
-// [nl, B, H] and xT [B, E] receive the state after the last step.
-// Outputs: ids, lps [B, T].
-int gic_decode_serve(const float* feats, const float* embed,
-                     const float* w_proj, const float* b_proj,
+int gic_decode_serve(const void* feats, const void* embed,
+                     const void* w_proj, const void* b_proj,
                      const void* const* layer_ptrs, int B, int E, int H,
-                     int V, int nl, int T, const float* h0, const float* c0,
-                     const float* x0, float* x, float* h, float* c,
-                     float* pmax, int* pidx, float* psum, int32_t* ids,
-                     float* lps, float* hT, float* cT, float* xT,
+                     int V, int nl, int T, int bf16_, const void* h0,
+                     const float* c0, const void* x0, float* x, float* h,
+                     float* c, float* pmax, int* pidx, float* psum,
+                     int32_t* ids, float* lps, void* hT, float* cT, void* xT,
                      const int* plan, unsigned int* barrier, void* stream) {
-  DecodeParams p = base_params(x0 != nullptr ? x0 : feats, embed, w_proj,
-                               b_proj, B, E, H, V, nl, T, x, h, c, pmax,
-                               pidx, barrier, ids);
-  p.h0 = h0;
-  p.c0 = c0;
-  p.psum = psum;
-  p.lps = lps;
-  p.hT = hT;
-  p.cT = cT;
-  p.xT = xT;
-  return run<false>(p, layer_ptrs, plan,
-                    static_cast<cudaStream_t>(stream));
+  return (bf16_ ? decode_serve<bf16> : decode_serve<float>)(
+      feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, h0, c0,
+      x0, x, h, c, pmax, pidx, psum, ids, lps, hT, cT, xT, plan, barrier,
+      stream);
 }
 
-// Mode pretrain: the greedy decode from (0, 0, feats) with the logits
-// [T, B, V] of every step and no log-probabilities.
-int gic_decode_pretrain(const float* feats, const float* embed,
-                        const float* w_proj, const float* b_proj,
+int gic_decode_pretrain(const void* feats, const void* embed,
+                        const void* w_proj, const void* b_proj,
                         const void* const* layer_ptrs, int B, int E, int H,
-                        int V, int nl, int T, float* x, float* h, float* c,
-                        float* pmax, int* pidx, float* psum, int32_t* ids,
-                        float* logits, const int* plan,
+                        int V, int nl, int T, int bf16_, float* x, float* h,
+                        float* c, float* pmax, int* pidx, float* psum,
+                        int32_t* ids, void* logits, const int* plan,
                         unsigned int* barrier, void* stream) {
-  DecodeParams p = base_params(feats, embed, w_proj, b_proj, B, E, H, V, nl,
-                               T, x, h, c, pmax, pidx, barrier, ids);
-  p.psum = psum;
-  p.logits = logits;
-  return run<false>(p, layer_ptrs, plan,
-                    static_cast<cudaStream_t>(stream));
+  return (bf16_ ? decode_pretrain<bf16> : decode_pretrain<float>)(
+      feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, x, h, c,
+      pmax, pidx, psum, ids, logits, plan, barrier, stream);
 }
 
-// The Gumbel-softmax sample with BPTT residuals.  Noise: u_in [T, B, V]
-// when not null, else Philox keyed by `seed`; the uniforms used are copied
-// to u_out [T, B, V] when it is not null.  Scratch statistics psmax /
-// psidx / pzmax / pzsum [B, ntile].  Outputs: ids [B, T], soft [T, B, V],
-// hs/cs [T, nl, B, H], gates [T, nl, B, 4H].
 int gic_decode_sample_resid(
-    const float* feats, const float* embed, const float* w_proj,
-    const float* b_proj, const void* const* layer_ptrs, int B, int E, int H,
-    int V, int nl, int T, float temp, unsigned long long seed,
+    const void* feats, const void* embed, const void* w_proj,
+    const void* b_proj, const void* const* layer_ptrs, int B, int E, int H,
+    int V, int nl, int T, int bf16_, float temp, unsigned long long seed,
     const float* u_in, float* u_out, float* x, float* h, float* c,
-    float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
-    float* soft, float* hs, float* cs, float* gates, const int* plan,
-    unsigned int* barrier, void* stream) {
-  DecodeParams p = base_params(feats, embed, w_proj, b_proj, B, E, H, V, nl,
-                               T, x, h, c, psmax, psidx, barrier, ids);
-  p.sample = 1;
-  p.temp = temp;
-  p.seed = seed;
-  p.u_in = u_in;
-  p.u_out = u_out;
-  p.pzmax = pzmax;
-  p.pzsum = pzsum;
-  p.soft = soft;
-  p.hs = hs;
-  p.cs = cs;
-  p.gates = gates;
-  return run<false>(p, layer_ptrs, plan,
-                    static_cast<cudaStream_t>(stream));
+    float* psmax, int* psidx, float* pzmax, float* pzsum, float* zbuf,
+    int32_t* ids, void* soft, void* hs, void* cs, void* gates,
+    const int* plan, unsigned int* barrier, void* stream) {
+  return (bf16_ ? decode_sample_resid<bf16> : decode_sample_resid<float>)(
+      feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, temp, seed,
+      u_in, u_out, x, h, c, psmax, psidx, pzmax, pzsum, zbuf, ids, soft, hs,
+      cs, gates, plan, barrier, stream);
 }
 
-// Mode sample: the Gumbel-max decode, ids = argmax(logits + g) per step,
-// and the noise g [T, B, V]; no soft sample, no residuals.
+// Mode sample (float32 only): the Gumbel-max decode, ids = argmax(logits +
+// g) per step, and the noise g [T, B, V]; no soft sample, no residuals.
 int gic_decode_sample(const float* feats, const float* embed,
                       const float* w_proj, const float* b_proj,
                       const void* const* layer_ptrs, int B, int E, int H,
@@ -1061,18 +1195,19 @@ int gic_decode_sample(const float* feats, const float* embed,
                       const float* u_in, float* x, float* h, float* c,
                       float* psmax, int* psidx, int32_t* ids, float* noise,
                       const int* plan, unsigned int* barrier, void* stream) {
-  DecodeParams p = base_params(feats, embed, w_proj, b_proj, B, E, H, V, nl,
-                               T, x, h, c, psmax, psidx, barrier, ids);
+  DecodeParams<float> p = base_params<float>(feats, embed, w_proj, b_proj, B,
+                                             E, H, V, nl, T, x, h, c, psmax,
+                                             psidx, barrier, ids);
   p.sample = 1;
   p.seed = seed;
   p.u_in = u_in;
   p.noise = noise;
-  return run<false>(p, layer_ptrs, plan,
-                    static_cast<cudaStream_t>(stream));
+  return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
-// Mode sample_embed: gic_decode_sample_resid, then emb [T*B, Ed] = soft
-// @ wd^T with wd [Ed, V] (one embed_kernel launch over all rows).
+// Mode sample_embed (float32 only): the float32 sample_resid, then emb
+// [T*B, Ed] = soft @ wd^T with wd [Ed, V] (one embed_kernel launch over
+// all rows).
 int gic_decode_sample_embed(
     const float* feats, const float* embed, const float* w_proj,
     const float* b_proj, const void* const* layer_ptrs, int B, int E, int H,
@@ -1082,10 +1217,10 @@ int gic_decode_sample_embed(
     float* soft, float* hs, float* cs, float* gates, float* emb,
     const int* plan, unsigned int* barrier, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = gic_decode_sample_resid(
+  const int err = decode_sample_resid<float>(
       feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, temp, seed,
-      u_in, nullptr, x, h, c, psmax, psidx, pzmax, pzsum, ids, soft, hs, cs,
-      gates, plan, barrier, stream);
+      u_in, nullptr, x, h, c, psmax, psidx, pzmax, pzsum, nullptr, ids, soft,
+      hs, cs, gates, plan, barrier, stream);
   if (err != 0) return err;
   const int R = T * B;
   const dim3 grid((Ed + P_RT - 1) / P_RT, (R + P_BT - 1) / P_BT);
@@ -1098,37 +1233,26 @@ int gic_decode_sample_embed(
 // [In+H, 4H], or packed [(In+H)/2, 4H]), its scale [4H] and the bias
 // b_ih + b_hh [4H]; pq / ps / pb the projection (int8 [H, V], or packed
 // [H/2, V]), its scale [V] and bias [V]; eq / es the embedding (int8
-// [V, E], or packed [R_emb, E]) and its scale [E]; bits 8 or 4.  The
-// rest as gic_decode_serve (plan: kernels/decode_sample.py:
+// [V, E], or packed [R_emb, E]) and its scale [E]; bits 8 or 4; the
+// scales and biases float32.  bf16 = 1: the compute dtype is bfloat16
+// (the TPU kernel's `x_ref.dtype`): every dequantized weight is rounded
+// to bfloat16, feats, h0, x0, hT and xT are bfloat16; c0, cT and lps stay
+// float32.  The rest as gic_decode_serve (plan: kernels/decode_sample.py:
 // persistent_plan(..., quantized=True), whose shared memory holds the
 // byte ring too).  cudaErrorInvalidValue for other bits.
-int gic_decode_qserve(const float* feats, const void* const* layer_ptrs,
+int gic_decode_qserve(const void* feats, const void* const* layer_ptrs,
                       const int8_t* pq, const float* ps, const float* pb,
-                      const int8_t* eq, const float* es, int bits, int B,
-                      int E, int H, int V, int R_emb, int nl, int T,
-                      const float* h0, const float* c0, const float* x0,
+                      const int8_t* eq, const float* es, int bits, int bf16_,
+                      int B, int E, int H, int V, int R_emb, int nl, int T,
+                      const void* h0, const float* c0, const void* x0,
                       float* x, float* h, float* c, float* pmax, int* pidx,
-                      float* psum, int32_t* ids, float* lps, float* hT,
-                      float* cT, float* xT, const int* plan,
+                      float* psum, int32_t* ids, float* lps, void* hT,
+                      float* cT, void* xT, const int* plan,
                       unsigned int* barrier, void* stream) {
-  if (bits != 8 && bits != 4) return cudaErrorInvalidValue;
-  DecodeParams p = base_params(x0 != nullptr ? x0 : feats, nullptr, nullptr,
-                               pb, B, E, H, V, nl, T, x, h, c, pmax, pidx,
-                               barrier, ids);
-  p.pq = pq;
-  p.pscale = ps;
-  p.eq = eq;
-  p.escale = es;
-  p.bits = bits;
-  p.r_emb = R_emb;
-  p.h0 = h0;
-  p.c0 = c0;
-  p.psum = psum;
-  p.lps = lps;
-  p.hT = hT;
-  p.cT = cT;
-  p.xT = xT;
-  return run<true>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+  return (bf16_ ? decode_qserve<bf16> : decode_qserve<float>)(
+      feats, layer_ptrs, pq, ps, pb, eq, es, bits, B, E, H, V, R_emb, nl, T,
+      h0, c0, x0, x, h, c, pmax, pidx, psum, ids, lps, hT, cT, xT, plan,
+      barrier, stream);
 }
 
 }  // extern "C"

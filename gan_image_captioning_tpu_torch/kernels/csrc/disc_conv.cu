@@ -78,7 +78,14 @@
 
 #include <vector>
 
+#include "bf16.cuh"
+
 namespace {
+
+using gic::bf16;
+using gic::is_bf16;
+using gic::store_as;
+using gic::to_f;
 
 constexpr int FW_NF = 4, FW_FG = 16, FW_NB = FW_NF * FW_FG;
 constexpr int FW_NT = 256, FW_QB = FW_NT / FW_FG;  // 16 columns
@@ -99,10 +106,10 @@ struct FwdBanks {
 // One thread's FW_NF filters n0 + 4*fg + j over column x (its rows in
 // shared memory): TAPS > 0 taps in registers; TAPS == 0, `taps` of them
 // from ws [taps][FW_NB].  m / best: pooled value and first argmax.
-template <int TAPS>
+template <int TAPS, class T>
 __device__ __forceinline__ void conv_fwd_filters(
     const float* __restrict__ x, const float* __restrict__ ws,
-    const float* __restrict__ w, int ldw, const float* __restrict__ bias,
+    const T* __restrict__ w, int ldw, const T* __restrict__ bias,
     int taps, int eds, int lv, int n, int n0, int fg, float (&m)[FW_NF],
     int (&best)[FW_NF]) {
   constexpr int KR = TAPS > 0 ? TAPS : 1;
@@ -110,10 +117,10 @@ __device__ __forceinline__ void conv_fwd_filters(
 #pragma unroll
   for (int j = 0; j < FW_NF; ++j) {
     const int nn = n0 + fg * FW_NF + j;
-    bv[j] = nn < n ? bias[nn] : 0.f;
+    bv[j] = nn < n ? to_f(bias[nn]) : 0.f;
 #pragma unroll
     for (int k = 0; k < KR; ++k)
-      wr[j][k] = TAPS > 0 && nn < n ? w[(size_t)nn * ldw + k] : 0.f;
+      wr[j][k] = TAPS > 0 && nn < n ? to_f(w[(size_t)nn * ldw + k]) : 0.f;
   }
   for (int t = 0; t < lv; ++t) {
     const float* xt = x + t * eds;
@@ -154,10 +161,15 @@ __device__ __forceinline__ void conv_fwd_filters(
   }
 }
 
+// T: the element type of emb, w_all, b_all and pooled (float, or bfloat16
+// for the bfloat16 instantiation: the inputs widened as they are read,
+// every product and the max in float32, pooled rounded once, as the TPU
+// kernel's `m.astype(pooled_ref.dtype)`).
+template <class T>
 __global__ void __launch_bounds__(FW_NT) conv_fwd_kernel(
-    const float* __restrict__ emb, const float* __restrict__ w_all, int ldw,
-    const float* __restrict__ b_all, int Q, int Lp, int R, int eds, int L,
-    FwdBanks banks, float* __restrict__ pooled, int ldp) {
+    const T* __restrict__ emb, const T* __restrict__ w_all, int ldw,
+    const T* __restrict__ b_all, int Q, int Lp, int R, int eds, int L,
+    FwdBanks banks, T* __restrict__ pooled, int ldp) {
   extern __shared__ float smem[];
   const int tile = blockIdx.y;
   int b = 0;
@@ -169,28 +181,28 @@ __global__ void __launch_bounds__(FW_NT) conv_fwd_kernel(
   float* xs = smem;                    // [FW_QB][xld]
   float* ws = smem + FW_QB * xld;      // [taps][FW_NB], taps > FW_MAXT only
   const int q0 = blockIdx.x * FW_QB, tid = threadIdx.x, E = R * eds;
-  const float* w = w_all + (size_t)off * ldw;
+  const T* w = w_all + (size_t)off * ldw;
 
   for (int e = tid; e < FW_QB * rows; e += FW_NT) {
     const int qi = e % FW_QB, p = e / FW_QB, q = q0 + qi;
     float v = 0.f;
     if (q < Q) {
       const int bq = q / R, r = q % R, t = p / eds, k = p % eds;
-      v = emb[((size_t)bq * Lp + t) * E + r * eds + k];
+      v = to_f(emb[((size_t)bq * Lp + t) * E + r * eds + k]);
     }
     xs[qi * xld + p] = v;
   }
   if (taps > FW_MAXT) {
     for (int e = tid; e < taps * FW_NB; e += FW_NT) {
       const int nl = e % FW_NB, k = e / FW_NB, nn = n0 + nl;
-      ws[k * FW_NB + nl] = nn < n ? w[(size_t)nn * ldw + k] : 0.f;
+      ws[k * FW_NB + nl] = nn < n ? to_f(w[(size_t)nn * ldw + k]) : 0.f;
     }
   }
   __syncthreads();
 
   const int fg = tid % FW_FG, qi = tid / FW_FG, q = q0 + qi;
   const float* x = xs + qi * xld;
-  const float* bias = b_all + off;
+  const T* bias = b_all + off;
   float m[FW_NF];
   int best[FW_NF];
   switch (taps) {  // block-uniform
@@ -212,7 +224,7 @@ __global__ void __launch_bounds__(FW_NT) conv_fwd_kernel(
   for (int j = 0; j < FW_NF; ++j) {
     const int nn = n0 + fg * FW_NF + j;
     if (nn < n) {
-      pooled[(size_t)q * ldp + off + nn] = m[j];
+      store_as(pooled, (size_t)q * ldp + off + nn, m[j]);
       idx[(size_t)q * n + nn] = best[j];
     }
   }
@@ -350,8 +362,8 @@ struct BwdBanks {
   int n[CB_MAX_BANKS], f[CB_MAX_BANKS], off[CB_MAX_BANKS], ldd[CB_MAX_BANKS];
   int slab0[CB_MAX_BANKS + 1];
   const int32_t* idx[CB_MAX_BANKS];
-  const float* d[CB_MAX_BANKS];
-  const float* pooled[CB_MAX_BANKS];
+  const void* d[CB_MAX_BANKS];       // T (the kernel's element type)
+  const void* pooled[CB_MAX_BANKS];  // T
   int count;
 };
 
@@ -394,38 +406,55 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 
 // A slab's idx / dp (/ pooled) into `buf` (cb_slot layout), 16 bytes a
 // copy where the rows allow it, and its taps; columns past Q and filters
-// past the slab's count are zeros (they add nothing).
-template <bool MASK>
+// past the slab's count are zeros (they add nothing).  bfloat16 (T): dp,
+// pooled and the taps are loaded (4 values, 8 bytes, at a time where
+// aligned) and widened into the same float slots, without cp.async.
+template <bool MASK, class T>
 __device__ __forceinline__ void stage_slab(float* buf, const BwdBanks& bk,
                                            const Slab& sl,
-                                           const float* __restrict__ w_all,
+                                           const T* __restrict__ w_all,
                                            int ldw, int q0, int Q) {
   int* si = reinterpret_cast<int*>(buf);
   float* sd = buf + CB_QB * CB_SLD;
   float* sp = sd + CB_QB * CB_SLD;
   float* sw = buf + (MASK ? 3 : 2) * CB_QB * CB_SLD;
   const int32_t* idx = bk.idx[sl.b] + sl.nn0;
-  const float* d = bk.d[sl.b] + sl.nn0;
-  const float* p = MASK ? bk.pooled[sl.b] + sl.nn0 : nullptr;
+  const T* d = static_cast<const T*>(bk.d[sl.b]) + sl.nn0;
+  const T* p = MASK ? static_cast<const T*>(bk.pooled[sl.b]) + sl.nn0
+                    : nullptr;
   const int n = bk.n[sl.b], ldd = bk.ldd[sl.b];
-  const bool vec = ((n | ldd) & 3) == 0 && aligned16(idx) && aligned16(d) &&
-                   (!MASK || aligned16(p));
+  const auto aligned = [](const void* v) {
+    return (reinterpret_cast<uintptr_t>(v) & (is_bf16<T> ? 7 : 15)) == 0;
+  };
+  const bool vec = ((n | ldd) & 3) == 0 && aligned16(idx) && aligned(d) &&
+                   (!MASK || aligned(p));
   for (int e = threadIdx.x; e < CB_QB * CB_SF / 4; e += CB_NT) {
     const int r = e / (CB_SF / 4), gl = e % (CB_SF / 4) * 4, q = q0 + r;
     const int o = cb_slot(r, gl);
     const size_t oi = (size_t)q * n + gl, od = (size_t)q * ldd + gl;
     if (vec && q < Q && gl + 4 <= sl.cnt) {
       cp_async16(si + o, idx + oi);
-      cp_async16(sd + o, d + od);
-      if (MASK) cp_async16(sp + o, p + od);
+      if constexpr (is_bf16<T>) {
+        *reinterpret_cast<float4*>(sd + o) = gic::ld4_bf16(d + od);
+        if (MASK)
+          *reinterpret_cast<float4*>(sp + o) = gic::ld4_bf16(p + od);
+      } else {
+        cp_async16(sd + o, d + od);
+        if (MASK) cp_async16(sp + o, p + od);
+      }
       continue;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (q < Q && gl + i < sl.cnt) {
         cp_async4(si + o + i, idx + oi + i);
-        cp_async4(sd + o + i, d + od + i);
-        if (MASK) cp_async4(sp + o + i, p + od + i);
+        if constexpr (is_bf16<T>) {
+          sd[o + i] = to_f(d[od + i]);
+          if (MASK) sp[o + i] = to_f(p[od + i]);
+        } else {
+          cp_async4(sd + o + i, d + od + i);
+          if (MASK) cp_async4(sp + o + i, p + od + i);
+        }
       } else {
         si[o + i] = 0;
         sd[o + i] = 0.f;
@@ -434,10 +463,13 @@ __device__ __forceinline__ void stage_slab(float* buf, const BwdBanks& bk,
     }
   }
   if (!cb_staged(ldw)) return;
-  const float* w = w_all + (size_t)(bk.off[sl.b] + sl.nn0) * ldw;
+  const T* w = w_all + (size_t)(bk.off[sl.b] + sl.nn0) * ldw;
   for (int e = threadIdx.x; e < sl.cnt * ldw; e += CB_NT) {
     const int gl = e / ldw, k = e - gl * ldw;
-    cp_async4(sw + k * CB_SF + gl, w + e);
+    if constexpr (is_bf16<T>)
+      sw[k * CB_SF + gl] = to_f(w[e]);
+    else
+      cp_async4(sw + k * CB_SF + gl, w + e);
   }
 }
 
@@ -450,11 +482,11 @@ __device__ __forceinline__ float masked(float d, float p) {
 // t*eds - r0 at ar[0], rows CB_QB floats apart).  TAPS > 0: its taps wv,
 // every row in the window.  TAPS == 0: `taps` of them at ws, ws_ld floats
 // apart; with WIN only the rows in [0, rw) of the window.
-template <int TAPS, bool WIN>
+template <int TAPS, bool WIN, class WP>
 __device__ __forceinline__ void scatter_one(float* __restrict__ ar,
                                             const float (&wv)[TAPS > 0 ? TAPS
                                                                        : 1],
-                                            const float* ws, int ws_ld,
+                                            const WP* ws, int ws_ld,
                                             float d, int taps, int row,
                                             int rw) {
   if (TAPS > 0) {
@@ -467,7 +499,7 @@ __device__ __forceinline__ void scatter_one(float* __restrict__ ar,
   } else {
     for (int k = 0; k < taps; ++k) {
       if (WIN && (unsigned)(row + k) >= (unsigned)rw) continue;
-      ar[k * CB_QB] = fmaf(ws[k * ws_ld], d, ar[k * CB_QB]);
+      ar[k * CB_QB] = fmaf(to_f(ws[k * ws_ld]), d, ar[k * CB_QB]);
     }
   }
 }
@@ -483,10 +515,10 @@ __device__ __forceinline__ void scatter_one(float* __restrict__ ar,
 //   shuffles, on the first window only (do_dw).  dW slot (k, g) is
 //   pb[k*F + g] for every k < ldw (zero past the bank's taps), db
 //   pb[ldw*F + g].
-template <bool MASK, int TAPS, bool WIN>
+template <bool MASK, int TAPS, bool WIN, class T>
 __device__ __forceinline__ void slab_warp(
     float* __restrict__ a, const int* si, const float* sd, const float* sp,
-    const float* sw, const float* __restrict__ w_all, const float* xs,
+    const float* sw, const T* __restrict__ w_all, const float* xs,
     int xld, int ldw, int taps, int eds, int F, int g0, int gl0, int cnt,
     int r0, int rw, bool do_dw, float* __restrict__ pb, int lane) {
   const bool staged = cb_staged(ldw);
@@ -517,11 +549,15 @@ __device__ __forceinline__ void slab_warp(
         wv[k] = i == 0 ? w4[k].x : i == 1 ? w4[k].y : i == 2 ? w4[k].z
                                                             : w4[k].w;
       const int row = tv[i] * eds - r0;
-      if (gl < cnt)  // warp-uniform
-        scatter_one<TAPS, WIN>(
-            a + row * CB_QB, wv,
-            staged ? sw + gl : w_all + (size_t)(g0 + gl) * ldw,
-            staged ? CB_SF : 1, dv[i], taps, row, rw);
+      if (gl < cnt) {  // warp-uniform
+        if (staged)
+          scatter_one<TAPS, WIN>(a + row * CB_QB, wv, sw + gl, CB_SF, dv[i],
+                                 taps, row, rw);
+        else
+          scatter_one<TAPS, WIN>(a + row * CB_QB, wv,
+                                 w_all + (size_t)(g0 + gl) * ldw, 1, dv[i],
+                                 taps, row, rw);
+      }
     }
   }
   if (!do_dw) return;
@@ -587,9 +623,14 @@ __device__ __forceinline__ void slab_warp(
 // untouched) rather than write it.  rw: the rows of a column accumulated
 // at once (cb_window); with fewer than L*eds the slabs stream once per
 // window of rows, and dW only on the first.
-template <bool MASK>
+// T: the element type of emb, w_all, dp and pooled (float, or bfloat16 for
+// the bfloat16 instantiation, MASK only: each widened as it is staged;
+// every accumulator float32, as the TPU kernel accumulates dxt and dW;
+// d_emb, dW and db are written float32 and the wrapper rounds them to the
+// inputs' dtypes, as the TPU kernel's caller does).
+template <bool MASK, class T>
 __global__ void __launch_bounds__(CB_NT) conv_bwd_kernel(
-    const float* __restrict__ emb, const float* __restrict__ w_all, int ldw,
+    const T* __restrict__ emb, const T* __restrict__ w_all, int ldw,
     int Q, int Lp, int R, int eds, int L, int F, BwdBanks bk, int accumulate,
     int rw, float* __restrict__ d_emb, float* __restrict__ part) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -611,16 +652,16 @@ __global__ void __launch_bounds__(CB_NT) conv_bwd_kernel(
   for (int r0 = 0; r0 < rows; r0 += rw) {
     for (int s = 0; s < AHEAD; ++s) {
       if (s < slabs)
-        stage_slab<MASK>(ring + s * stage, bk, find_slab(bk, s), w_all, ldw,
-                         q0, Q);
+        stage_slab<MASK, T>(ring + s * stage, bk, find_slab(bk, s), w_all,
+                            ldw, q0, Q);
       cp_async_commit();
     }
     if (r0 == 0) {
       for (int e = tid; e < CB_QB * rows; e += CB_NT) {
         const int qi = e % CB_QB, p = e / CB_QB, q = q0 + qi;
         xs[qi * xld + p] =
-            q < Q ? emb[((size_t)(q / R) * Lp + p / eds) * E +
-                        (q % R) * eds + p % eds]
+            q < Q ? to_f(emb[((size_t)(q / R) * Lp + p / eds) * E +
+                             (q % R) * eds + p % eds])
                   : 0.f;
       }
     }
@@ -631,8 +672,8 @@ __global__ void __launch_bounds__(CB_NT) conv_bwd_kernel(
       for (int g = 0; g < CB_GROUPS; ++g) {  // buffers read at s0 - 1
         const int pre = s0 + AHEAD + g;
         if (pre < slabs)
-          stage_slab<MASK>(ring + (pre % CB_STAGES) * stage, bk,
-                           find_slab(bk, pre), w_all, ldw, q0, Q);
+          stage_slab<MASK, T>(ring + (pre % CB_STAGES) * stage, bk,
+                              find_slab(bk, pre), w_all, ldw, q0, Q);
         cp_async_commit();
       }
       cp_async_wait<AHEAD>();
@@ -649,8 +690,9 @@ __global__ void __launch_bounds__(CB_NT) conv_bwd_kernel(
       const int gl0 = warp % CB_GW * CB_FW;
       if (s < slabs && gl0 < sl.cnt) {  // warp-uniform
 #define GIC_SLAB(K, W)                                                   \
-  slab_warp<MASK, K, W>(a, si, sd, sp, sw, w_all, xs, xld, ldw, taps, eds, \
-                        F, g0, gl0, sl.cnt, r0, rw, r0 == 0, pb, lane)
+  slab_warp<MASK, K, W, T>(a, si, sd, sp, sw, w_all, xs, xld, ldw, taps,  \
+                           eds, F, g0, gl0, sl.cnt, r0, rw, r0 == 0, pb,  \
+                           lane)
         if (win) {  // block-uniform, as are staged and taps
           GIC_SLAB(0, true);
         } else if (!staged) {
@@ -1087,12 +1129,13 @@ const char* gic_error_string(int err) {
 // first row, first filter tile) and idx[i] [Bn*R, n]; pooled [Bn*R, ldp]
 // (each bank's columns from its first row).  filter_tiles and smem_bytes
 // are the plan's; a launch they do not match is refused
-// (cudaErrorInvalidValue).
-int gic_conv_fwd(const float* emb, const float* w_all, int ldw,
-                 const float* b_all, int Bn, int Lp, int R, int eds, int L,
+// (cudaErrorInvalidValue).  bf16 = 1: emb, w_all, b_all and pooled are
+// bfloat16 (the bfloat16 instantiation).
+int gic_conv_fwd(const void* emb, const void* w_all, int ldw,
+                 const void* b_all, int Bn, int Lp, int R, int eds, int L,
                  int n_banks, const int* bank_ints, void* const* idx,
-                 int filter_tiles, int smem_bytes, float* pooled, int ldp,
-                 void* stream) {
+                 int filter_tiles, int smem_bytes, void* pooled, int ldp,
+                 int bf16_, void* stream) {
   if (n_banks < 1 || n_banks > FW_MAX_BANKS) return cudaErrorInvalidValue;
   FwdBanks banks;
   banks.count = n_banks;
@@ -1113,12 +1156,24 @@ int gic_conv_fwd(const float* emb, const float* w_all, int ldw,
   const size_t smem = fwd_smem(L, eds, gen_taps);
   if (tiles != filter_tiles || smem != (size_t)smem_bytes)
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem((const void*)conv_fwd_kernel, smem);
+  cudaError_t err =
+      set_smem(bf16_ ? (const void*)conv_fwd_kernel<bf16>
+                     : (const void*)conv_fwd_kernel<float>,
+               smem);
   if (err != cudaSuccess) return err;
   const int Q = Bn * R;
   const dim3 grid((Q + FW_QB - 1) / FW_QB, tiles);
-  conv_fwd_kernel<<<grid, FW_NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb, w_all, ldw, b_all, Q, Lp, R, eds, L, banks, pooled, ldp);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_)
+    conv_fwd_kernel<bf16><<<grid, FW_NT, smem, st>>>(
+        static_cast<const bf16*>(emb), static_cast<const bf16*>(w_all), ldw,
+        static_cast<const bf16*>(b_all), Q, Lp, R, eds, L, banks,
+        static_cast<bf16*>(pooled), ldp);
+  else
+    conv_fwd_kernel<float><<<grid, FW_NT, smem, st>>>(
+        static_cast<const float*>(emb), static_cast<const float*>(w_all), ldw,
+        static_cast<const float*>(b_all), Q, Lp, R, eds, L, banks,
+        static_cast<float*>(pooled), ldp);
   return cudaGetLastError();
 }
 
@@ -1134,15 +1189,18 @@ int gic_conv_fwd(const float* emb, const float* w_all, int ldw,
 // taps) and db.  slabs and part_floats are the wrapper's plan
 // (disc_conv.conv_bwd_plan); a call they do not match, or whose rows leave
 // no shared memory for one row of accumulators, is refused
-// (cudaErrorInvalidValue).
-int gic_conv_bwd(const float* emb, const float* w_all, int ldw, int Bn,
+// (cudaErrorInvalidValue).  bf16 = 1 (mask = 1 only): emb, w_all, d and
+// pooled are bfloat16 (the bfloat16 instantiation); d_emb, dw and db stay
+// float32.
+int gic_conv_bwd(const void* emb, const void* w_all, int ldw, int Bn,
                  int Lp, int R, int eds, int L, int n_banks,
                  const int* bank_ints, void* const* idx, void* const* d,
-                 void* const* pooled, int mask, int slabs, size_t part_floats,
-                 float* d_emb, float* part, float* dw, float* db,
-                 void* stream) {
+                 void* const* pooled, int mask, int bf16_, int slabs,
+                 size_t part_floats, float* d_emb, float* part, float* dw,
+                 float* db, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_banks < 1 || (mask && !db)) return cudaErrorInvalidValue;
+  if (n_banks < 1 || (mask && !db) || (bf16_ && !mask))
+    return cudaErrorInvalidValue;
   int F = 0, total = 0;
   for (int i = 0; i < n_banks; ++i) {
     const int* bi = bank_ints + 4 * i;
@@ -1158,8 +1216,9 @@ int gic_conv_bwd(const float* emb, const float* w_all, int ldw, int Bn,
   if (rw < 1 || total != slabs || part_floats != (size_t)nblk * M)
     return cudaErrorInvalidValue;
   const size_t smem = conv_bwd_smem(L, eds, ldw, rw, mask != 0);
-  const void* kern = mask ? (const void*)conv_bwd_kernel<true>
-                          : (const void*)conv_bwd_kernel<false>;
+  const void* kern = bf16_  ? (const void*)conv_bwd_kernel<true, bf16>
+                     : mask ? (const void*)conv_bwd_kernel<true, float>
+                            : (const void*)conv_bwd_kernel<false, float>;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
   for (int g0 = 0; g0 < n_banks; g0 += CB_MAX_BANKS) {
@@ -1174,18 +1233,21 @@ int gic_conv_bwd(const float* emb, const float* w_all, int ldw, int Bn,
       bk.ldd[i] = bi[3];
       bk.slab0[i + 1] = bk.slab0[i] + (bi[0] + CB_SF - 1) / CB_SF;
       bk.idx[i] = static_cast<const int32_t*>(idx[g0 + i]);
-      bk.d[i] = static_cast<const float*>(d[g0 + i]);
-      bk.pooled[i] = mask ? static_cast<const float*>(pooled[g0 + i])
-                          : nullptr;
+      bk.d[i] = d[g0 + i];
+      bk.pooled[i] = mask ? pooled[g0 + i] : nullptr;
     }
-    if (mask)
-      conv_bwd_kernel<true><<<nblk, CB_NT, smem, st>>>(
-          emb, w_all, ldw, Q, Lp, R, eds, L, F, bk, g0 > 0, rw, d_emb,
-          part);
+    if (bf16_)
+      conv_bwd_kernel<true, bf16><<<nblk, CB_NT, smem, st>>>(
+          static_cast<const bf16*>(emb), static_cast<const bf16*>(w_all), ldw,
+          Q, Lp, R, eds, L, F, bk, g0 > 0, rw, d_emb, part);
+    else if (mask)
+      conv_bwd_kernel<true, float><<<nblk, CB_NT, smem, st>>>(
+          static_cast<const float*>(emb), static_cast<const float*>(w_all),
+          ldw, Q, Lp, R, eds, L, F, bk, g0 > 0, rw, d_emb, part);
     else
-      conv_bwd_kernel<false><<<nblk, CB_NT, smem, st>>>(
-          emb, w_all, ldw, Q, Lp, R, eds, L, F, bk, g0 > 0, rw, d_emb,
-          part);
+      conv_bwd_kernel<false, float><<<nblk, CB_NT, smem, st>>>(
+          static_cast<const float*>(emb), static_cast<const float*>(w_all),
+          ldw, Q, Lp, R, eds, L, F, bk, g0 > 0, rw, d_emb, part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

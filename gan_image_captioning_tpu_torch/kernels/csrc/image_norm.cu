@@ -1,4 +1,7 @@
-// Device-side image normalization for Hopper (sm_90a): uint8 -> float32.
+// Device-side image normalization for Hopper (sm_90a): uint8 -> float32,
+// or bfloat16 (the bfloat16 instantiation, `--dtype bfloat16`: the same
+// float32 affine map, each result rounded once to bfloat16, as the TPU
+// kernel's `.astype(out_ref.dtype)`).
 //
 // Replaces: gan_image_captioning_tpu/kernels/image_norm.py, function
 // `_kernel` (launched by `normalize_images`).  For u8 [B, 3, H, W]:
@@ -11,20 +14,26 @@
 //
 // What bounds it on this card.  Five bytes per element (one read, four
 // written) and two operations: at B = 64 and 3 x 256 x 256 that is 62.9 MB,
-// 18.8 us at 3.35 TB/s.  Bytes.
+// 18.8 us at 3.35 TB/s.  Bytes.  bfloat16: three bytes per element (37.7
+// MB, 11.3 us).
 //
 // What this design does about it.  It is the simple version: one thread
 // per four elements, one 4-byte uchar4 load and one 16-byte float4 store,
 // neighbouring threads on neighbouring addresses, so every warp moves whole
 // 128-byte lines.  The channel comes from the flat index; a group of four
 // that spans two planes (H*W % 4 != 0) takes each element's own channel.
+// bfloat16 stores the four as 8 bytes (two bfloat162).
 // The last N % 4 elements are a scalar tail in one thread.  An input that
 // is not 4-byte aligned (a view at an odd offset) takes a scalar kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 namespace {
+
+using gic::bf16;
 
 constexpr int NT = 256;
 
@@ -40,10 +49,21 @@ __device__ __forceinline__ int channel(long long e, long long hw) {
   return static_cast<int>((e / hw) % 3);
 }
 
+// Four results to out [4g, 4g + 4) (16-byte aligned for float, 8 for
+// bfloat16).
+__device__ __forceinline__ void store4(float* out, long long g, float4 r) {
+  reinterpret_cast<float4*>(out)[g] = r;
+}
+__device__ __forceinline__ void store4(bf16* out, long long g, float4 r) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + 4 * g);
+  o[0] = __floats2bfloat162_rn(r.x, r.y);
+  o[1] = __floats2bfloat162_rn(r.z, r.w);
+}
+
+template <class T>
 __global__ void image_norm_vec_kernel(const uchar4* __restrict__ in4,
                                       const unsigned char* __restrict__ in,
-                                      float4* __restrict__ out4,
-                                      float* __restrict__ out, long long n,
+                                      T* __restrict__ out, long long n,
                                       long long hw, Affine a) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n4 = n / 4;
@@ -60,17 +80,35 @@ __global__ void image_norm_vec_kernel(const uchar4* __restrict__ in4,
                       norm(v.z, channel(e + 2, hw), a),
                       norm(v.w, channel(e + 3, hw), a));
     }
-    out4[g] = r;
+    store4(out, g, r);
   } else if (g == n4) {
-    for (long long e = 4 * n4; e < n; ++e) out[e] = norm(in[e], channel(e, hw), a);
+    for (long long e = 4 * n4; e < n; ++e)
+      gic::store_as(out, e, norm(in[e], channel(e, hw), a));
   }
 }
 
+template <class T>
 __global__ void image_norm_scalar_kernel(const unsigned char* __restrict__ in,
-                                         float* __restrict__ out, long long n,
+                                         T* __restrict__ out, long long n,
                                          long long hw, Affine a) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < n) out[e] = norm(in[e], channel(e, hw), a);
+  if (e < n) gic::store_as(out, e, norm(in[e], channel(e, hw), a));
+}
+
+template <class T>
+int image_norm(const unsigned char* u8, T* out, long long n, int hw,
+               const Affine& a, cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(u8) & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    const long long threads = n / 4 + 1;  // the last one runs the tail
+    const unsigned blocks = (unsigned)((threads + NT - 1) / NT);
+    image_norm_vec_kernel<T><<<blocks, NT, 0, s>>>(
+        reinterpret_cast<const uchar4*>(u8), u8, out, n, hw, a);
+  } else {
+    const unsigned blocks = (unsigned)((n + NT - 1) / NT);
+    image_norm_scalar_kernel<T><<<blocks, NT, 0, s>>>(u8, out, n, hw, a);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -81,26 +119,16 @@ const char* gic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// u8 [B, 3, H, W] contiguous -> out float32 of the same shape (16-byte
-// aligned, as torch allocates it), on `stream`.  Returns 0 or the CUDA error
-// code of the launch; nothing synchronises.
-int gic_image_norm(const unsigned char* u8, float* out, long long n, int hw,
+// u8 [B, 3, H, W] contiguous -> out of the same shape (16-byte aligned, as
+// torch allocates it), float32, or bfloat16 when bf16 = 1, on `stream`.
+// Returns 0 or the CUDA error code of the launch; nothing synchronises.
+int gic_image_norm(const unsigned char* u8, void* out, long long n, int hw,
                    float scale0, float scale1, float scale2, float shift0,
-                   float shift1, float shift2, void* stream) {
+                   float shift1, float shift2, int bf16_, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Affine a = {{scale0, scale1, scale2}, {shift0, shift1, shift2}};
-  if ((reinterpret_cast<uintptr_t>(u8) & 3) == 0 &&
-      (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-    const long long threads = n / 4 + 1;  // the last one runs the tail
-    const unsigned blocks = (unsigned)((threads + NT - 1) / NT);
-    image_norm_vec_kernel<<<blocks, NT, 0, s>>>(
-        reinterpret_cast<const uchar4*>(u8), u8, reinterpret_cast<float4*>(out),
-        out, n, hw, a);
-  } else {
-    const unsigned blocks = (unsigned)((n + NT - 1) / NT);
-    image_norm_scalar_kernel<<<blocks, NT, 0, s>>>(u8, out, n, hw, a);
-  }
-  return cudaGetLastError();
+  if (bf16_) return image_norm(u8, static_cast<bf16*>(out), n, hw, a, s);
+  return image_norm(u8, static_cast<float*>(out), n, hw, a, s);
 }
 
 }  // extern "C"

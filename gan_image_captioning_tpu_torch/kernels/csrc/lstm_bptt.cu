@@ -100,12 +100,16 @@ constexpr int R_SPLIT = 4;  // K split of each product inside the block
 // caller asked for them (gic_reverse_set_profile).
 enum { RPROF_LOAD, RPROF_GATES, RPROF_BARRIER, RPROF_PRODUCT, RPROF_SLOTS };
 
+// The inputs are W (float, or bfloat16 for the bfloat16 instantiation:
+// the TPU kernel's caller casts them all to float32 in the kernel's
+// prologue, so each element is widened as it is read); the outputs are
+// float32 in both.
 struct ReverseParams {
-  const float* w_hh;    // [H, 4H]
-  const float* d_hs;    // [T, B, H]
-  const float* gates;   // [T, B, 4H]
-  const float* c_prev;  // [T, B, H]
-  const float* cs;      // [T, B, H]
+  const void* w_hh;     // [H, 4H]
+  const void* d_hs;     // [T, B, H]
+  const void* gates;    // [T, B, 4H]
+  const void* c_prev;   // [T, B, H]
+  const void* cs;       // [T, B, H]
   float* dh;            // [B, H] out: dh0
   float* dc;            // [B, H] out: dc0
   float* d_pre;         // [T, B, 4H] out
@@ -123,9 +127,15 @@ __host__ __device__ inline size_t reverse_smem_floats(int B, int H, int upb,
 // Dynamic shared memory: the K-tile pool, the block's w_hh rows
 // [upb][kpad(4H) + 4] when resident, then the carries dh, dc [B * upb]
 // each (item e = b * upb + u).
+template <class W>
 __global__ void __launch_bounds__(gic::PT_NT, 1) reverse_persistent_kernel(
     ReverseParams p) {
   using namespace gic;
+  const W* w_hh = static_cast<const W*>(p.w_hh);
+  const W* d_hs = static_cast<const W*>(p.d_hs);
+  const W* gates = static_cast<const W*>(p.gates);
+  const W* c_prev = static_cast<const W*>(p.c_prev);
+  const W* cs = static_cast<const W*>(p.cs);
   extern __shared__ float4 dyn_smem[];
   float* pool = reinterpret_cast<float*>(dyn_smem);
   const int B = p.B, H = p.H, K = 4 * H, upb = p.upb, tid = threadIdx.x;
@@ -147,7 +157,7 @@ __global__ void __launch_bounds__(gic::PT_NT, 1) reverse_persistent_kernel(
   if (p.resident) {
     for (int e = tid; e < upb * wst; e += PT_NT) {
       const int u = e / wst, k = e % wst, j = j0 + u;
-      wres[e] = j < H && k < K ? p.w_hh[(size_t)j * K + k] : 0.f;
+      wres[e] = j < H && k < K ? to_f(w_hh[(size_t)j * K + k]) : 0.f;
     }
   }
   for (int e = tid; e < n_own; e += PT_NT) dh_s[e] = dc_s[e] = 0.f;
@@ -161,7 +171,10 @@ __global__ void __launch_bounds__(gic::PT_NT, 1) reverse_persistent_kernel(
   const int kt = tile_k(p.resident ? bc : bc + upb, R_SLOT, K);
   const int ntiles = kpad(K) / kt, xfl = bc * (kt + 4);
   const Seg w_seg{p.w_hh, K, K,
-                  reinterpret_cast<uintptr_t>(p.w_hh) % 16 == 0};
+                  reinterpret_cast<uintptr_t>(p.w_hh) %
+                          (is_bf16<W> ? 8 : 16) ==
+                      0,
+                  is_bf16<W>};
   const Seg none{nullptr, 0, 0, true};
   unsigned int target = 0;
   for (int t = p.T - 1; t >= 0; --t) {
@@ -170,14 +183,14 @@ __global__ void __launch_bounds__(gic::PT_NT, 1) reverse_persistent_kernel(
       const int b = e / upb, j = j0 + e % upb;
       if (j >= H) continue;
       const size_t sidx = ((size_t)t * B + b) * H + j;
-      const float* g = p.gates + ((size_t)t * B + b) * K + j;
-      const float ig = sigmoidf(g[0]), fg = sigmoidf(g[H]);
-      const float gg = tanhf(g[2 * H]), og = sigmoidf(g[3 * H]);
-      const float dh = dh_s[e] + p.d_hs[sidx];
-      const float tc = tanhf(p.cs[sidx]);
+      const W* g = gates + ((size_t)t * B + b) * K + j;
+      const float ig = sigmoidf(to_f(g[0])), fg = sigmoidf(to_f(g[H]));
+      const float gg = tanhf(to_f(g[2 * H])), og = sigmoidf(to_f(g[3 * H]));
+      const float dh = dh_s[e] + to_f(d_hs[sidx]);
+      const float tc = tanhf(to_f(cs[sidx]));
       const float d_o = dh * tc * og * (1.f - og);
       const float dc = dc_s[e] + dh * og * (1.f - tc * tc);
-      const float cp = p.c_prev[sidx];
+      const float cp = to_f(c_prev[sidx]);
       float* dp = p.d_pre + ((size_t)t * B + b) * K + j;
       dp[0] = dc * gg * ig * (1.f - ig);
       dp[H] = dc * cp * fg * (1.f - fg);
@@ -263,12 +276,15 @@ constexpr int C_SLOT = 72 * (128 + 4), C_DEPTH = 3;
 constexpr int C_ROWS = 8;               // batch rows of one warp
 constexpr int C_WARPS = gic::PT_NT / 32;
 
+// gates and cs are G (float, or bfloat16 for the bfloat16 instantiation:
+// the TPU kernel reads the decode's bfloat16 residuals as float32); the
+// weights, d_hs and d_pre are float32 in both (the caller casts them).
 struct ChainParams {
   const float* w_hhs;        // [NL, H, 4H]
   const float* w_ihs_upper;  // [NL-1, H, 4H] or null (NL = 1)
   const float* d_hs;         // [T, B, H]
-  const float* gates;        // [T, NL, B, 4H]
-  const float* cs;           // [T, NL, B, H]
+  const void* gates;         // [T, NL, B, 4H]
+  const void* cs;            // [T, NL, B, H]
   float* d_pre;              // [T, NL, B, 4H] out
   unsigned int* barrier;
   unsigned long long* prof;  // [RPROF_SLOTS] or null
@@ -427,9 +443,12 @@ __device__ __forceinline__ void chain_product_n(int nc, const ChainParams& p,
 // chunk of p.bc rows, dh, dc [NL][bc * upb] and dx_upper [bc * upb] (item
 // e = b * upb + u).  The rows of the batch are independent: the block
 // runs the whole reverse recurrence for one chunk after another.
+template <class G>
 __global__ void __launch_bounds__(gic::PT_NT, 1) chain_persistent_kernel(
     ChainParams p) {
   using namespace gic;
+  const G* gates = static_cast<const G*>(p.gates);
+  const G* cs = static_cast<const G*>(p.cs);
   extern __shared__ float4 dyn_smem[];
   float* pool = reinterpret_cast<float*>(dyn_smem);
   const int B = p.B, H = p.H, K = 4 * H, NL = p.NL, upb = p.upb;
@@ -482,17 +501,19 @@ __global__ void __launch_bounds__(gic::PT_NT, 1) chain_persistent_kernel(
           const int b = b_lo + e / upb, j = j0 + e % upb;
           if (j >= H) continue;
           const size_t sidx = (tl * B + b) * H + j;
-          const float* g = p.gates + (tl * B + b) * K + j;
-          const float ig = sigmoidf(g[0]), fg = sigmoidf(g[H]);
-          const float gg = tanhf(g[2 * H]), og = sigmoidf(g[3 * H]);
+          const G* g = gates + (tl * B + b) * K + j;
+          const float ig = sigmoidf(to_f(g[0])), fg = sigmoidf(to_f(g[H]));
+          const float gg = tanhf(to_f(g[2 * H]));
+          const float og = sigmoidf(to_f(g[3 * H]));
           const float dh_in = l == NL - 1
                                   ? p.d_hs[((size_t)t * B + b) * H + j]
                                   : dx_s[e];
           const float dh = dh_l[e] + dh_in;
-          const float tc = tanhf(p.cs[sidx]);
+          const float tc = tanhf(to_f(cs[sidx]));
           const float d_o = dh * tc * og * (1.f - og);
           const float dc = dc_l[e] + dh * og * (1.f - tc * tc);
-          const float cp = t > 0 ? p.cs[sidx - (size_t)NL * B * H] : 0.f;
+          const float cp =
+              t > 0 ? to_f(cs[sidx - (size_t)NL * B * H]) : 0.f;
           float* dp = dp_tl + (size_t)b * K + j;
           dp[0] = dc * gg * ig * (1.f - ig);
           dp[H] = dc * cp * fg * (1.f - fg);
@@ -558,10 +579,11 @@ int gic_device_limits(int* n_sm, int* smem_optin) {
 // unsigned int.  Returns 0 or the first CUDA error code
 // (cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident);
 // nothing synchronises.
+// bf16 = 1: gates and cs are bfloat16 (the bfloat16 instantiation).
 int gic_lstm_bptt_chain(const float* w_hhs, const float* w_ihs_upper,
-                        const float* d_hs, const float* gates,
-                        const float* cs, int T, int NL, int B, int H,
-                        float* d_pre, const int* plan, unsigned int* barrier,
+                        const float* d_hs, const void* gates, const void* cs,
+                        int T, int NL, int B, int H, int bf16, float* d_pre,
+                        const int* plan, unsigned int* barrier,
                         void* stream) {
   const int blocks = plan[0], upb = plan[1], resident = plan[2];
   const int smem = plan[3], bc = plan[4];
@@ -572,9 +594,10 @@ int gic_lstm_bptt_chain(const float* w_hhs, const float* w_ihs_upper,
     return cudaErrorInvalidValue;
   const ChainParams p{w_hhs, w_ihs_upper, d_hs, gates, cs,  d_pre,
                       barrier, g_chain_prof, T, NL, B, H, upb, resident, bc};
-  return gic::launch_persistent(chain_persistent_kernel, p, barrier, blocks,
-                                gic::PT_NT, (size_t)smem,
-                                static_cast<cudaStream_t>(stream));
+  return gic::launch_persistent(
+      bf16 ? chain_persistent_kernel<gic::bf16> : chain_persistent_kernel<float>,
+      p, barrier, blocks, gic::PT_NT, (size_t)smem,
+      static_cast<cudaStream_t>(stream));
 }
 
 // From now on the chain kernel adds its block 0's phase clocks (cycles:
@@ -585,10 +608,13 @@ int gic_chain_set_profile(unsigned long long* prof) {
   return 0;
 }
 
-// Registers per thread and spilled bytes of the chain kernel.
-int gic_chain_kernel_attrs(int* regs, int* local_bytes) {
+// Registers per thread and spilled bytes of the chain kernel, float32
+// (bf16 = 0) or bfloat16 (1) residuals.
+int gic_chain_kernel_attrs(int bf16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, chain_persistent_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, bf16 ? chain_persistent_kernel<gic::bf16>
+               : chain_persistent_kernel<float>);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
@@ -604,10 +630,11 @@ int gic_chain_kernel_attrs(int* regs, int* local_bytes) {
 // (kernels/lstm_bptt.py:reverse_plan); barrier one device unsigned int.
 // Returns 0 or the first CUDA error code (cudaErrorCooperativeLaunchTooLarge
 // when the grid cannot be co-resident); nothing synchronises.
-int gic_bptt_reverse(const float* w_hh, const float* d_hs, const float* gates,
-                     const float* c_prev, const float* cs, int T, int B, int H,
-                     float* dh, float* dc, float* d_pre, const int* plan,
-                     unsigned int* barrier, void* stream) {
+// bf16 = 1: the five inputs are bfloat16 (the bfloat16 instantiation).
+int gic_bptt_reverse(const void* w_hh, const void* d_hs, const void* gates,
+                     const void* c_prev, const void* cs, int T, int B, int H,
+                     int bf16, float* dh, float* dc, float* d_pre,
+                     const int* plan, unsigned int* barrier, void* stream) {
   const int blocks = plan[0], upb = plan[1], resident = plan[2];
   const int smem = plan[3];
   if (upb < 1 || upb > R_MAX_UNITS || (long long)blocks * upb < H)
@@ -617,9 +644,11 @@ int gic_bptt_reverse(const float* w_hh, const float* d_hs, const float* gates,
   const ReverseParams p{w_hh,    d_hs,   gates, c_prev, cs, dh, dc,
                         d_pre,   barrier, g_prof, T,     B,  H,  upb,
                         resident};
-  return gic::launch_persistent(reverse_persistent_kernel, p, barrier,
-                                blocks, gic::PT_NT, (size_t)smem,
-                                static_cast<cudaStream_t>(stream));
+  return gic::launch_persistent(
+      bf16 ? reverse_persistent_kernel<gic::bf16>
+           : reverse_persistent_kernel<float>,
+      p, barrier, blocks, gic::PT_NT, (size_t)smem,
+      static_cast<cudaStream_t>(stream));
 }
 
 // From now on the reverse kernel adds its block 0's phase clocks (cycles:
@@ -630,11 +659,13 @@ int gic_reverse_set_profile(unsigned long long* prof) {
   return 0;
 }
 
-// Registers per thread and spilled bytes of the reverse kernel.
-int gic_reverse_kernel_attrs(int* regs, int* local_bytes) {
+// Registers per thread and spilled bytes of the reverse kernel, float32
+// (bf16 = 0) or bfloat16 (1) inputs.
+int gic_reverse_kernel_attrs(int bf16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err =
-      cudaFuncGetAttributes(&a, reverse_persistent_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, bf16 ? reverse_persistent_kernel<gic::bf16>
+               : reverse_persistent_kernel<float>);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -27,6 +27,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace gic {
 
 __device__ __forceinline__ unsigned int ld_acquire(const unsigned int* p) {
@@ -110,11 +112,15 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // A row-major matrix read by the stage: row R, column k at p[R * stride +
 // k] for k < cols (zeros past cols, and for a null p); aligned: stride and
-// p are multiples of 4 floats, so whole 16-byte chunks are copied.
+// p are multiples of 4 elements, so whole 16-byte chunks are copied.
+// bf16: p holds bfloat16 (a read-only input of a bfloat16 instantiation):
+// its 4 columns are loaded (8 bytes when aligned) and widened into the
+// same float slot, without cp.async.
 struct Seg {
-  const float* p;
+  const void* p;
   int stride, cols;
   bool aligned;
+  bool bf16 = false;
 };
 
 // Four columns [k, k + 4) of row R of `s` into dst (16-byte aligned).
@@ -124,7 +130,22 @@ __device__ __forceinline__ void stage_chunk(float* dst, const Seg& s, int R,
     *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
-  const float* src = s.p + (size_t)R * s.stride + k;
+  if (s.bf16) {
+    const __nv_bfloat16* src =
+        static_cast<const __nv_bfloat16*>(s.p) + (size_t)R * s.stride + k;
+    float4 v;
+    if (s.aligned) {
+      v = ld4_bf16(src);
+    } else {
+      v.x = __bfloat162float(src[0]);
+      v.y = k + 1 < s.cols ? __bfloat162float(src[1]) : 0.f;
+      v.z = k + 2 < s.cols ? __bfloat162float(src[2]) : 0.f;
+      v.w = k + 3 < s.cols ? __bfloat162float(src[3]) : 0.f;
+    }
+    *reinterpret_cast<float4*>(dst) = v;
+    return;
+  }
+  const float* src = static_cast<const float*>(s.p) + (size_t)R * s.stride + k;
   if (s.aligned) {
     cp_async16(dst, src);
     return;
@@ -155,6 +176,37 @@ __device__ __forceinline__ void stage_rows(float* buf, int kt, int rows,
       stage_chunk(dst, a, R, k, R >= 0);
     else
       stage_chunk(dst, b, R, k - wa, R >= 0);
+  }
+}
+
+// One K tile [k0, k0 + kt) of `rows` rows of the bfloat16 matrix of `s`
+// (every column from it) into buf (row stride kt + 4 floats), loaded and
+// widened by the issuing thread (no cp.async): 8 columns a load, 16 bytes
+// where the rows are 16-byte aligned, stored as two float4 (else two
+// stage_chunk); zeros past the columns and where row_of is negative.
+template <class RowOf>
+__device__ __forceinline__ void stage_rows_bf16(float* buf, int kt, int rows,
+                                                RowOf row_of, const Seg& s,
+                                                int k0) {
+  const int shift = __ffs(kt / 8) - 1;  // kt / 8 is a power of two
+  const bool wide = s.aligned && s.stride % 8 == 0 &&
+                    reinterpret_cast<uintptr_t>(s.p) % 16 == 0;
+  for (int c = threadIdx.x; c < (rows << shift); c += PT_NT) {
+    const int r = c >> shift, k = k0 + (c & ((1 << shift) - 1)) * 8;
+    const int R = row_of(r);
+    float* dst = buf + r * (kt + 4) + (k - k0);
+    if (wide && R >= 0 && k + 8 <= s.cols) {
+      float v[8];
+      ld8_bf16(static_cast<const __nv_bfloat16*>(s.p) + (size_t)R * s.stride +
+                   k,
+               v);
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+      stage_chunk(dst, s, R, k, R >= 0);
+      stage_chunk(dst + 4, s, R, k + 4, R >= 0);
+    }
   }
 }
 

@@ -69,34 +69,51 @@ from gan_image_captioning_tpu_torch.ops.quantize import (  # noqa: F401
 _count_lock = threading.Lock()
 
 
+def _f32(t):
+    """``t`` widened to float32 (a float32 tensor itself)."""
+    return t.to(torch.float32)
+
+
 def _stack_step(lstm_layers, x, h, c):
     """One step of the stacked LSTM: ``h`` and ``c`` (lists, one [B, H]
     per layer) are updated in place; returns the pre-activation gates of
-    every layer (both biases)."""
+    every layer (both biases).  The TPU kernel's dtypes: the products of
+    the weights' dtype (float32 or bfloat16) widened to float32, the bias
+    the sum of the two in their dtype, gates and ``c`` float32, ``h`` and
+    the next layer's input rounded to the weights' dtype."""
     inp, gates_all = x, []
     for l, p in enumerate(lstm_layers):
-        gates = (inp @ p["w_ih"].T + h[l] @ p["w_hh"].T
-                 + (p["b_ih"] + p["b_hh"]))
+        gates = (_f32(inp) @ _f32(p["w_ih"]).T + _f32(h[l]) @ _f32(p["w_hh"]).T
+                 + _f32(p["b_ih"] + p["b_hh"]))
         gi, gf, gg, go = gates.chunk(4, dim=-1)
         c[l] = torch.sigmoid(gf) * c[l] + torch.sigmoid(gi) * torch.tanh(gg)
-        h[l] = torch.sigmoid(go) * torch.tanh(c[l])
+        h[l] = (torch.sigmoid(go) * torch.tanh(c[l])).to(p["w_hh"].dtype)
         inp = h[l]
         gates_all.append(gates)
     return gates_all
 
 
+def _logits(h_top, w_proj, b_proj):
+    """float32 logits from h and the projection in their dtype."""
+    return _f32(h_top) @ _f32(w_proj).T + _f32(b_proj)
+
+
 def _zero_state(features, lstm_layers):
+    """``h`` zeros in the features' dtype, ``c`` float32 zeros."""
     B = features.shape[0]
     H = lstm_layers[0]["w_hh"].shape[1]
     return ([features.new_zeros(B, H) for _ in lstm_layers],
-            [features.new_zeros(B, H) for _ in lstm_layers])
+            [features.new_zeros(B, H, dtype=torch.float32)
+             for _ in lstm_layers])
 
 
 def decode_sample_plain(features, lstm_layers: Sequence[dict], w_proj, b_proj,
                         embed, seq_len: int, init_state=None):
     """Plain PyTorch version → ``(ids [B, T] int32, lps [B, T] f32)``; with
-    ``init_state=(h0 [nl, B, H], c0 [nl, B, H], x0 [B, E])`` the decode
-    starts there (``features`` unread) and ``(hT, cT, xT)`` follows."""
+    ``init_state=(h0 [nl, B, H], c0 [nl, B, H] f32, x0 [B, E])`` the
+    decode starts there (``features`` unread) and ``(hT, cT, xT)``
+    follows.  float32 or bfloat16 weights and features (see
+    :func:`_stack_step`); the log-probabilities are float32."""
     if init_state is None:
         (h, c), x = _zero_state(features, lstm_layers), features
     else:
@@ -106,7 +123,7 @@ def decode_sample_plain(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     with torch.no_grad():
         for _ in range(seq_len):
             _stack_step(lstm_layers, x, h, c)
-            logits = h[-1] @ w_proj.T + b_proj
+            logits = _logits(h[-1], w_proj, b_proj)
             m = logits.max(dim=-1, keepdim=True).values
             lps.append(-torch.log(torch.exp(logits - m).sum(dim=-1)))
             ids_t = torch.argmax(logits, dim=-1)      # first index on ties
@@ -131,21 +148,24 @@ def decode_sample_resid_plain(features, lstm_layers: Sequence[dict], w_proj,
                               temperature: float):
     """Plain PyTorch version of mode ``sample_resid`` with the uniforms
     ``[T, B, V]`` given → ``(ids [B, T] int32, soft [T, B, V],
-    hs [T, NL, B, H], cs [T, NL, B, H], gates [T, NL, B, 4H])``."""
+    hs [T, NL, B, H], cs [T, NL, B, H], gates [T, NL, B, 4H])``.  The
+    scores and the softmax are float32; soft and the residuals are
+    rounded to the features' dtype (bfloat16 under ``--dtype
+    bfloat16``)."""
     h, c = _zero_state(features, lstm_layers)
-    x = features
+    x, dt = features, features.dtype
     ids, soft, hs, cs, gates_all = [], [], [], [], []
     with torch.no_grad():
         for t in range(seq_len):
             step_gates = _stack_step(lstm_layers, x, h, c)
-            scores = (h[-1] @ w_proj.T + b_proj
+            scores = (_logits(h[-1], w_proj, b_proj)
                       + gumbel_noise(uniforms[t].shape, u=uniforms[t]))
             ids_t = torch.argmax(scores, dim=-1)      # first index on ties
             ids.append(ids_t)
-            soft.append(torch.softmax(scores * temperature, dim=-1))
+            soft.append(torch.softmax(scores * temperature, dim=-1).to(dt))
             hs.append(torch.stack(h))
-            cs.append(torch.stack(c))
-            gates_all.append(torch.stack(step_gates))
+            cs.append(torch.stack(c).to(dt))
+            gates_all.append(torch.stack(step_gates).to(dt))
             x = embed[ids_t]
     return (torch.stack(ids, dim=1).to(torch.int32), torch.stack(soft),
             torch.stack(hs), torch.stack(cs), torch.stack(gates_all))
@@ -173,17 +193,17 @@ def decode_sample_noise_plain(features, lstm_layers: Sequence[dict], w_proj,
 def decode_sample_logits_plain(features, lstm_layers: Sequence[dict], w_proj,
                                b_proj, embed, seq_len: int):
     """Plain PyTorch version of mode ``pretrain`` → ``(ids [B, T] int32,
-    logits [T, B, V])``: the greedy decode and the logits of every
-    step."""
+    logits [T, B, V])``: the greedy decode and the logits of every step
+    (argmax of the float32 logits; stored in the features' dtype)."""
     h, c = _zero_state(features, lstm_layers)
     x, ids, logits = features, [], []
     with torch.no_grad():
         for _ in range(seq_len):
             _stack_step(lstm_layers, x, h, c)
-            logits_t = h[-1] @ w_proj.T + b_proj
+            logits_t = _logits(h[-1], w_proj, b_proj)
             ids_t = torch.argmax(logits_t, dim=-1)    # first index on ties
             ids.append(ids_t)
-            logits.append(logits_t)
+            logits.append(logits_t.to(features.dtype))
             x = embed[ids_t]
     return torch.stack(ids, dim=1).to(torch.int32), torch.stack(logits)
 
@@ -217,8 +237,8 @@ def decode_sample_embed_bwd_plain(h_top_tm, soft_tm, d_emb_tm, w_proj,
         return dwp, d_logits.sum(dim=0), d_htop
 
 
-def _check(name, t, shape, device):
-    build.check_tensor("decode_sample", name, t, shape, device)
+def _check(name, t, shape, device, dtype=torch.float32):
+    build.check_tensor("decode_sample", name, t, shape, device, dtype)
 
 
 def _validate_batch(fn, features, seq_len):
@@ -230,18 +250,25 @@ def _validate_batch(fn, features, seq_len):
                          "positive")
 
 
-def _validate_state(fn, init_state, nl, B, E, H, device):
-    """``init_state = (h0 [nl, B, H], c0 [nl, B, H], x0 [B, E])``."""
+def _validate_state(fn, init_state, nl, B, E, H, device,
+                    dtype=torch.float32):
+    """``init_state = (h0 [nl, B, H], c0 [nl, B, H], x0 [B, E])``: h0 and
+    x0 in the compute ``dtype``, c0 float32."""
     if init_state is None:
         return
     if len(init_state) != 3:
         raise ValueError(f"{fn}: init_state must be (h0, c0, x0)")
-    for name, t, shape in zip(("h0", "c0", "x0"), init_state,
-                              ((nl, B, H), (nl, B, H), (B, E))):
-        build.check_tensor(fn, name, t, shape, device)
+    for name, t, shape, dt in zip(("h0", "c0", "x0"), init_state,
+                                  ((nl, B, H), (nl, B, H), (B, E)),
+                                  (dtype, torch.float32, dtype)):
+        build.check_tensor(fn, name, t, shape, device, dt)
 
 
-def _validate(features, lstm_layers, w_proj, b_proj, embed, seq_len):
+def _validate(features, lstm_layers, w_proj, b_proj, embed, seq_len,
+              bf16: bool = False):
+    """Shapes, devices and dtypes of the decode's arguments: all in the
+    features' dtype, float32, or bfloat16 where the mode has a bfloat16
+    instantiation (``bf16``); anything else is a TypeError."""
     if not lstm_layers:
         raise ValueError("decode_sample: lstm_layers must be non-empty")
     _validate_batch("decode_sample", features, seq_len)
@@ -249,16 +276,17 @@ def _validate(features, lstm_layers, w_proj, b_proj, embed, seq_len):
     V = embed.shape[0]
     H = lstm_layers[0]["w_hh"].shape[1]
     device = features.device
-    _check("features", features, (B, E), device)
-    _check("embed", embed, (V, E), device)
-    _check("w_proj", w_proj, (V, H), device)
-    _check("b_proj", b_proj, (V,), device)
+    dt = build.compute_dtype("decode_sample", features, bf16)
+    _check("features", features, (B, E), device, dt)
+    _check("embed", embed, (V, E), device, dt)
+    _check("w_proj", w_proj, (V, H), device, dt)
+    _check("b_proj", b_proj, (V,), device, dt)
     for l, p in enumerate(lstm_layers):
         in_dim = E if l == 0 else H
-        _check(f"layer {l} w_ih", p["w_ih"], (4 * H, in_dim), device)
-        _check(f"layer {l} w_hh", p["w_hh"], (4 * H, H), device)
-        _check(f"layer {l} b_ih", p["b_ih"], (4 * H,), device)
-        _check(f"layer {l} b_hh", p["b_hh"], (4 * H,), device)
+        _check(f"layer {l} w_ih", p["w_ih"], (4 * H, in_dim), device, dt)
+        _check(f"layer {l} w_hh", p["w_hh"], (4 * H, H), device, dt)
+        _check(f"layer {l} b_ih", p["b_ih"], (4 * H,), device, dt)
+        _check(f"layer {l} b_hh", p["b_hh"], (4 * H,), device, dt)
     return B, E, H, V
 
 
@@ -270,17 +298,19 @@ def _library() -> ctypes.CDLL:
         tail = [ctypes.POINTER(i), vp, vp]     # plan, barrier, stream
         lib.gic_proj_tile.argtypes = []
         lib.gic_proj_tile.restype = i
-        lib.gic_decode_kernel_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 2
+        lib.gic_decode_kernel_attrs.argtypes = [i, i] + [ctypes.POINTER(i)] * 2
         lib.gic_decode_kernel_attrs.restype = i
         lib.gic_decode_qserve.argtypes = (
-            [vp, ctypes.POINTER(vp)] + [vp] * 5 + [i] * 8 + [vp] * 14
+            [vp, ctypes.POINTER(vp)] + [vp] * 5 + [i] * 9 + [vp] * 14
             + tail)
         lib.gic_decode_qserve.restype = i
+        # the int after the head of serve, sample_resid and pretrain: 1 for
+        # the bfloat16 instantiation
         for name, args in (
-                ("gic_decode_serve", [vp] * 14),
+                ("gic_decode_serve", [i] + [vp] * 14),
                 ("gic_decode_sample_resid",
-                 [f, ctypes.c_uint64] + [vp] * 14),
-                ("gic_decode_pretrain", [vp] * 8),
+                 [i, f, ctypes.c_uint64] + [vp] * 15),
+                ("gic_decode_pretrain", [i] + [vp] * 8),
                 ("gic_decode_sample", [ctypes.c_uint64] + [vp] * 8),
                 ("gic_decode_sample_embed",
                  [f, ctypes.c_uint64, vp, vp, i] + [vp] * 13)):
@@ -378,13 +408,14 @@ def persistent_plan(B: int, E: int, H: int, V: int, nl: int, n_sm: int,
             "ints": (grid, upb, int(resident), pb, smem)}
 
 
-def kernel_attrs(quantized: bool = False):
+def kernel_attrs(quantized: bool = False, bf16: bool = False):
     """``{"registers": n, "local_bytes": n}`` of the persistent decode
-    kernel, dense or quantized (spills show as local bytes)."""
+    kernel, dense or quantized, float32 or bfloat16 (spills show as local
+    bytes)."""
     lib = _library()
     regs, local = ctypes.c_int(), ctypes.c_int()
     build.raise_on_error(lib, lib.gic_decode_kernel_attrs(
-        int(quantized), ctypes.byref(regs), ctypes.byref(local)),
+        int(quantized), int(bf16), ctypes.byref(regs), ctypes.byref(local)),
         "kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -427,10 +458,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry):
+def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry,
+                   dtype=torch.float32):
     """Scratch (x, h ping-pong with rows padded to 4 floats, c, per-tile
-    statistics), outputs (ids, lps) and, with ``carry``, the state outputs
-    (hT, cT, xT)."""
+    statistics; float32), outputs (ids, lps) and, with ``carry``, the
+    state outputs (hT and xT in the compute ``dtype``, cT float32)."""
     x, h = _padded(empty, nl, B, E, H)
     bufs = {"x": x, "h": h, "c": empty(nl, B, H),
             "pmax": empty(B, ntile), "psum": empty(B, ntile),
@@ -438,7 +470,8 @@ def _state_buffers(empty, nl, B, E, H, seq_len, ntile, carry):
             "ids": empty(B, seq_len, dtype=torch.int32),
             "lps": empty(B, seq_len)}
     if carry:
-        bufs.update(hT=empty(nl, B, H), cT=empty(nl, B, H), xT=empty(B, E))
+        bufs.update(hT=empty(nl, B, H, dtype=dtype), cT=empty(nl, B, H),
+                    xT=empty(B, E, dtype=dtype))
     return bufs
 
 
@@ -448,10 +481,14 @@ def _outputs(bufs, carry):
     return bufs["ids"], bufs["lps"], (bufs["hT"], bufs["cT"], bufs["xT"])
 
 
-def _count(fn, plan=None):
+def _count(fn, plan=None, dtype=torch.float32):
+    """One launch of ``fn``'s kernel, on ``fn.launches``, and on
+    ``fn.bf16_launches`` too where it ran the bfloat16 instantiation."""
     global last_plan
     with _count_lock:
         fn.launches += 1
+        if dtype == torch.bfloat16:
+            fn.bf16_launches += 1
         if plan is not None:
             branches["resident" if plan["resident"] else "streamed"] += 1
             last_plan = plan
@@ -463,10 +500,10 @@ def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
     with ``torch.empty`` and runs the decode on the current stream; with
     ``init_state`` it resumes from it and returns the final state too."""
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
-    device = features.device
+                           seq_len, bf16=True)
+    device, dt = features.device, features.dtype
     nl = len(lstm_layers)
-    _validate_state("decode_sample", init_state, nl, B, E, H, device)
+    _validate_state("decode_sample", init_state, nl, B, E, H, device, dt)
     carry = init_state is not None
     h0, c0, x0 = init_state if carry else (None, None, None)
     lib = _library()
@@ -474,18 +511,19 @@ def _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
     plan, cplan, barrier = _plan_args(lib, device, B, E, H, V, nl)
     layer_ptrs = _layer_pointers(lstm_layers)
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
-                          carry)
+                          carry, dt)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_serve(
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
+            int(dt == torch.bfloat16),
             _ptr(h0), _ptr(c0), _ptr(x0), p["x"], p["h"], p["c"], p["pmax"],
             p["pidx"], p["psum"], p["ids"], p["lps"], p.get("hT"),
             p.get("cT"), p.get("xT"), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_serve")
-    _count(decode_sample_carry if carry else decode_sample, plan)
+    _count(decode_sample_carry if carry else decode_sample, plan, dt)
     return _outputs(bufs, carry)
 
 
@@ -530,10 +568,12 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
     The Gumbel uniforms are ``uniforms [T, B, V]`` when given; otherwise
     the kernel draws them with Philox keyed by ``seed`` (on the CPU:
     ``torch.rand`` from a generator seeded with ``seed``).  A float32
-    ``uniforms_out [T, B, V]`` receives the uniforms used."""
+    ``uniforms_out [T, B, V]`` receives the uniforms used.  float32 or
+    bfloat16 weights and features (the bfloat16 instantiation: soft and
+    the residuals bfloat16, as the TPU kernel writes them)."""
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
-    device = features.device
+                           seq_len, bf16=True)
+    device, dt = features.device, features.dtype
     _check_uniforms(uniforms, seq_len, B, V, device)
     _check_uniforms(uniforms_out, seq_len, B, V, device, "uniforms_out")
     if device.type == "cpu":
@@ -552,24 +592,28 @@ def decode_sample_resid(features, lstm_layers: Sequence[dict], w_proj,
     empty = _empty_on(device)
     x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(
         empty, nl, B, E, H, ntile)
+    bf16 = dt == torch.bfloat16
+    zbuf = empty(B, V) if bf16 else None    # z of a step, float32
     ids = empty(B, seq_len, dtype=torch.int32)
-    soft = empty(seq_len, B, V)
-    hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
-    gates = empty(seq_len, nl, B, 4 * H)
+    soft = empty(seq_len, B, V, dtype=dt)
+    hs = empty(seq_len, nl, B, H, dtype=dt)
+    cs = empty(seq_len, nl, B, H, dtype=dt)
+    gates = empty(seq_len, nl, B, 4 * H, dtype=dt)
     ptr = _ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_sample_resid(
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
-            float(temperature), int(seed) & (2 ** 64 - 1), ptr(uniforms),
-            ptr(uniforms_out), x.data_ptr(), h.data_ptr(), c.data_ptr(),
-            psmax.data_ptr(), psidx.data_ptr(), pzmax.data_ptr(),
-            pzsum.data_ptr(), ids.data_ptr(), soft.data_ptr(), hs.data_ptr(),
+            int(bf16), float(temperature), int(seed) & (2 ** 64 - 1),
+            ptr(uniforms), ptr(uniforms_out), x.data_ptr(), h.data_ptr(),
+            c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
+            pzmax.data_ptr(), pzsum.data_ptr(), ptr(zbuf), ids.data_ptr(),
+            soft.data_ptr(), hs.data_ptr(),
             cs.data_ptr(), gates.data_ptr(), cplan, barrier.data_ptr(),
             stream)
     build.raise_on_error(lib, rc, "decode_sample_resid")
-    _count(decode_sample_resid, plan)
+    _count(decode_sample_resid, plan, features.dtype)
     return ids, soft, hs, cs, gates
 
 
@@ -616,10 +660,11 @@ def decode_sample_noise(features, lstm_layers: Sequence[dict], w_proj,
 def decode_sample_logits(features, lstm_layers: Sequence[dict], w_proj,
                          b_proj, embed, seq_len: int):
     """Mode ``pretrain`` → ``(ids [B, T] int32, logits [T, B, V])``: the
-    greedy decode and every step's logits."""
+    greedy decode and every step's logits (float32, or the bfloat16
+    instantiation's bfloat16 logits)."""
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
-    device = features.device
+                           seq_len, bf16=True)
+    device, dt = features.device, features.dtype
     if device.type == "cpu":
         return decode_sample_logits_plain(features, lstm_layers, w_proj,
                                           b_proj, embed, seq_len)
@@ -631,17 +676,18 @@ def decode_sample_logits(features, lstm_layers: Sequence[dict], w_proj,
     layer_ptrs = _layer_pointers(lstm_layers)
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
                           False)
-    logits = torch.empty(seq_len, B, V, device=device)
+    logits = torch.empty(seq_len, B, V, dtype=dt, device=device)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_pretrain(
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
-            b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len, p["x"],
+            b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
+            int(dt == torch.bfloat16), p["x"],
             p["h"], p["c"], p["pmax"], p["pidx"], p["psum"], p["ids"],
             logits.data_ptr(), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_sample_logits")
-    _count(decode_sample_logits, plan)
+    _count(decode_sample_logits, plan, dt)
     return bufs["ids"], logits
 
 
@@ -825,9 +871,10 @@ def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
 def decode_sample_carry(features, lstm_layers: Sequence[dict], w_proj,
                         b_proj, embed, seq_len: int, init_state):
     """Mode ``serve`` resuming from ``init_state = (h0 [nl, B, H], c0
-    [nl, B, H], x0 [B, E])`` (float32; ``x0`` is the first step's input,
-    ``features`` is unread) → ``(ids [B, T], lps [B, T], (hT, cT, xT))``,
-    ``xT = embed[ids[:, -1]]``: the state the next chunk resumes from."""
+    [nl, B, H], x0 [B, E])`` (h0 and x0 in the weights' dtype, c0
+    float32; ``x0`` is the first step's input, ``features`` is unread) →
+    ``(ids [B, T], lps [B, T], (hT, cT, xT))``, ``xT = embed[ids[:,
+    -1]]``: the state the next chunk resumes from."""
     device = features.device
     if device.type == "cuda":
         return _launch(features, lstm_layers, w_proj, b_proj, embed, seq_len,
@@ -835,9 +882,9 @@ def decode_sample_carry(features, lstm_layers: Sequence[dict], w_proj,
     if device.type != "cpu":
         raise ValueError(f"decode_sample: unsupported device {device}")
     B, E, H, _ = _validate(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
+                           seq_len, bf16=True)
     _validate_state("decode_sample", init_state, len(lstm_layers), B, E, H,
-                    device)
+                    device, features.dtype)
     return decode_sample_plain(features, lstm_layers, w_proj, b_proj, embed,
                                seq_len, init_state)
 
@@ -852,6 +899,9 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     input), per-layer ``{w_ih [4H, In], w_hh [4H, H], b_ih, b_hh}``,
     ``w_proj [V, H]``, ``b_proj [V]``, ``embed [V, E]``, all float32;
     ``init_state`` (mode ``serve`` only, see :func:`decode_sample_carry`);
+    ``serve``, ``greedy``, ``pretrain`` and ``sample_resid`` also take
+    them all in bfloat16 (the bfloat16 instantiation); the others raise
+    TypeError for anything but float32;
     ``seed`` and ``uniforms`` are read by the Gumbel modes (``sample``,
     ``sample_resid``, ``sample_embed``), ``temperature`` by the soft ones
     (``sample_resid``, ``sample_embed``), ``disc_embed [Ed, V]`` by
@@ -884,7 +934,7 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     if features.device.type == "cuda":
         ids, lps = _launch(*args)
     elif features.device.type == "cpu":
-        _validate(*args)
+        _validate(*args, bf16=True)
         ids, lps = decode_sample_plain(*args)
     else:
         raise ValueError(f"decode_sample: unsupported device "
@@ -909,7 +959,8 @@ def _q_scale(name, qt, n, device):
 def _q_validate(features, qdec, seq_len, bits, init_state):
     """Shapes, dtypes and devices of a quantized decoder against
     ``features`` and ``bits``; returns ``(B, E, H, V, nl, R_emb, flat
-    scales)``."""
+    scales)``.  The features' dtype (float32 or bfloat16) is the compute
+    dtype; payloads are int8, scales and biases float32."""
     fn = "decode_sample_q_serve"
     if bits not in (4, 8):
         raise ValueError(f"{fn}: bits must be 4 or 8, got {bits}")
@@ -918,7 +969,8 @@ def _q_validate(features, qdec, seq_len, bits, init_state):
     _validate_batch(fn, features, seq_len)
     B, E = features.shape
     device = features.device
-    _q_check("features", features, (B, E), device)
+    dt = build.compute_dtype(fn, features, True)
+    _q_check("features", features, (B, E), device, dt)
     nl = len(qdec["lstm_q"])
     H = qdec["lstm_q"][0]["w"].q.shape[1] // 4
     lin, emb = qdec["linear"], qdec["embed"]
@@ -946,19 +998,20 @@ def _q_validate(features, qdec, seq_len, bits, init_state):
     r_emb = V if bits == 8 else -(-V // 2)
     _q_check("embed", emb.q, (r_emb, E), device, torch.int8)
     scales.append(_q_scale("embed", emb, E, device))
-    _validate_state(fn, init_state, nl, B, E, H, device)
+    _validate_state(fn, init_state, nl, B, E, H, device, dt)
     return B, E, H, V, nl, r_emb, scales
 
 
-def dequantized_decoder(qdec: dict, bits: int = 8):
+def dequantized_decoder(qdec: dict, bits: int = 8, dtype=torch.float32):
     """A quantized decoder → the dense decode's arguments ``(lstm_layers,
     w_proj [V, H], b_proj [V], embed [V, E])``, each weight
-    ``float(q) * scale`` (contiguous): ``w_ih`` / ``w_hh`` the transposed
+    ``float(q) * scale`` rounded to ``dtype`` (contiguous; the TPU
+    kernel's ``_dq(...).astype(dt)``): ``w_ih`` / ``w_hh`` the transposed
     input / hidden rows of the fused ``[in+H, 4H]`` matrix, ``b_ih`` its
-    bias and ``b_hh`` zero."""
+    bias and ``b_hh`` zero (float32)."""
     def deq(qt):
         q = unpack_int4_rows(qt.q) if bits == 4 else qt.q
-        return q.to(torch.float32) * qt.scale
+        return (q.to(torch.float32) * qt.scale).to(dtype)
 
     V = qdec["linear"]["b"].shape[0]
     layers = []
@@ -975,9 +1028,10 @@ def dequantized_decoder(qdec: dict, bits: int = 8):
 def decode_sample_q_serve_plain(features, qdec: dict, seq_len: int,
                                 init_state=None, bits: int = 8):
     """Plain version of :func:`decode_sample_q_serve`: dequantize every
-    weight once (as the TPU kernel does into VMEM), then the dense plain
-    decode."""
-    layers, w_proj, b_proj, embed = dequantized_decoder(qdec, bits)
+    weight once into the features' dtype (as the TPU kernel does into
+    VMEM), then the dense plain decode."""
+    layers, w_proj, b_proj, embed = dequantized_decoder(qdec, bits,
+                                                        features.dtype)
     return decode_sample_plain(features, layers, w_proj, b_proj, embed,
                                seq_len, init_state)
 
@@ -990,6 +1044,10 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
     ``bits`` 4: every payload row-packed, :func:`pack_int4_rows`) →
     ``(ids [B, T], lps [B, T])``, with ``init_state`` also ``(hT, cT,
     xT)`` — the return contract of :func:`decode_sample` mode ``serve``.
+    The features' dtype is the compute dtype (the TPU kernel's
+    ``x_ref.dtype``): float32, or bfloat16, where every dequantized
+    weight, h and x are rounded to bfloat16 and c and the log-probabilities
+    stay float32 (``init_state``: h0 and x0 in it, c0 float32).
     CUDA tensors launch the persistent kernel of ``csrc/decode_serve.cu``
     on the quantized weights (one cooperative launch; the weights are
     dequantized in the kernel, bit-equal to :func:`decode_sample` on
@@ -1016,19 +1074,20 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
     layer_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     lin, emb = qdec["linear"], qdec["embed"]
     bufs = _state_buffers(_empty_on(device), nl, B, E, H, seq_len, ntile,
-                          carry)
+                          carry, features.dtype)
     p = {k: v.data_ptr() for k, v in bufs.items()}
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_qserve(
             features.data_ptr(), layer_ptrs, lin["w"].q.data_ptr(),
             scales[-2].data_ptr(), lin["b"].data_ptr(), emb.q.data_ptr(),
-            scales[-1].data_ptr(), bits, B, E, H, V, r_emb, nl, seq_len,
+            scales[-1].data_ptr(), bits, int(features.dtype == torch.bfloat16),
+            B, E, H, V, r_emb, nl, seq_len,
             _ptr(h0), _ptr(c0), _ptr(x0), p["x"], p["h"], p["c"], p["pmax"],
             p["pidx"], p["psum"], p["ids"], p["lps"], p.get("hT"),
             p.get("cT"), p.get("xT"), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_qserve")
-    _count(decode_sample_q_serve, plan)
+    _count(decode_sample_q_serve, plan, features.dtype)
     return _outputs(bufs, carry)
 
 
@@ -1038,11 +1097,7 @@ def decode_sample_q_serve(features, qdec: dict, seq_len: int,
 branches = {"resident": 0, "streamed": 0}
 last_plan = None
 
-decode_sample.launches = 0
-decode_sample_carry.launches = 0
-decode_sample_logits.launches = 0
-decode_sample_noise.launches = 0
-decode_sample_resid.launches = 0
-decode_sample_embed.launches = 0
-decode_sample_embed_bwd.launches = 0
-decode_sample_q_serve.launches = 0
+for _fn in (decode_sample, decode_sample_carry, decode_sample_logits,
+            decode_sample_noise, decode_sample_resid, decode_sample_embed,
+            decode_sample_embed_bwd, decode_sample_q_serve):
+    _fn.launches = _fn.bf16_launches = 0

@@ -10,7 +10,8 @@ gradient to that one time row.  The engines (:func:`conv_relu_maxpool`):
   :func:`conv_bank_forward` and :func:`conv_bank_backward`
   (``csrc/disc_conv.cu``); the autograd route masks the pooled gradient
   and sums ``db`` in the backward's launch (:func:`conv_bank_backward_raw`),
-  where the JAX package computes them around its kernel;
+  where the JAX package computes them around its kernel (both, and the
+  ``pallas`` engine's, also take bfloat16: the bfloat16 instantiation);
 * ``"mxu_dxs"`` — the ``mxu`` forward with the DXS backward
   ``_mxu_bwd_kernel`` (the JAX package's ``GIC_MXU_DX=0``):
   :func:`conv_bank_dxs_raw` (``csrc/disc_conv.cu``) writes the per-step
@@ -99,8 +100,15 @@ def conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R: int, eds: int,
     ``at`` (a list like ``idxs``) pools at those rows instead; the result
     then also carries the largest amount by which the max over time
     exceeds the value at a given row (0 where the rows are the argmax)
-    and how many given rows are not the plain first argmax."""
+    and how many given rows are not the plain first argmax.
+
+    bfloat16 inputs (the bfloat16 instantiation): widened to float32, the
+    convolution, ReLU and max in float32, pooled rounded to bfloat16 at
+    the end, as the TPU kernel computes them."""
     _, _, L = _geometry(emb_pad, banks, R, eds)
+    dt = emb_pad.dtype
+    emb_pad, w_all, b_all = (t.to(torch.float32)
+                             for t in (emb_pad, w_all, b_all))
     x = emb_pad[:, None, :L, :]                           # [B, 1, L, E]
     pooled, idxs, off, gap, moved = [], [], 0, 0.0, 0
     for k, (n, f) in enumerate(banks):
@@ -117,7 +125,7 @@ def conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R: int, eds: int,
         pooled.append(m.transpose(1, 2))
         idxs.append(i)
         off += n
-    pooled = torch.cat(pooled, dim=2).contiguous()
+    pooled = torch.cat(pooled, dim=2).to(dt).contiguous()
     return (pooled, idxs) if at is None else (pooled, idxs, gap, moved)
 
 
@@ -126,16 +134,18 @@ def conv_bwd_dx_plain(emb_pad, w_all, banks, R: int, eds: int,
     """Plain version of the backward: from the first-argmax rows ``idxs``
     and the ReLU-masked pooled gradients ``dpms[k] [B, R, n_k]`` →
     ``(d_emb_pad [B, Lp, E], dw_all [F, maxf·eds])``: the gradient of the
-    convolution taken at the pooled time rows only."""
+    convolution taken at the pooled time rows only, float32 (bfloat16
+    inputs widened: the TPU kernel accumulates in float32)."""
     _, _, L = _geometry(emb_pad, banks, R, eds)
+    emb_pad = emb_pad.to(torch.float32)
     with torch.enable_grad():
         x = emb_pad.detach()[:, None, :L, :].requires_grad_(True)
-        w = w_all.detach().requires_grad_(True)
+        w = w_all.detach().to(torch.float32).requires_grad_(True)
         picked, grads, off = [], [], 0
         for (n, f), idx, dpm in zip(banks, idxs, dpms):
             z = F.conv2d(x, _bank_weight(w, off, n, f, eds), stride=(1, eds))
             picked.append(z.gather(2, idx.long().transpose(1, 2)[:, :, None]))
-            grads.append(dpm.transpose(1, 2)[:, :, None])
+            grads.append(dpm.to(torch.float32).transpose(1, 2)[:, :, None])
             off += n
         d_x, dw_all = torch.autograd.grad(picked, (x, w), grads)
     d_emb = torch.zeros_like(emb_pad)
@@ -147,7 +157,10 @@ def _check(name, t, shape, dtype, device):
     build.check_tensor("disc_conv", name, t, shape, device, dtype)
 
 
-def _validate(emb_pad, w_all, banks, R, eds, b_all=None):
+def _validate(emb_pad, w_all, banks, R, eds, b_all=None, bf16=False):
+    """Shapes, devices and dtypes: float32, or bfloat16 throughout where
+    the kernel has a bfloat16 instantiation (``bf16``: the forward and the
+    raw backward); anything else is a TypeError."""
     if emb_pad.ndim != 3 or not banks:
         raise ValueError("disc_conv: emb_pad must be [B, Lp, E] and banks "
                          "non-empty")
@@ -155,10 +168,11 @@ def _validate(emb_pad, w_all, banks, R, eds, b_all=None):
     maxf = max(f for _, f in banks)
     n_all = sum(n for n, _ in banks)
     device = emb_pad.device
-    _check("emb_pad", emb_pad, emb_pad.shape, torch.float32, device)
-    _check("w_all", w_all, (n_all, maxf * eds), torch.float32, device)
+    dt = build.compute_dtype("disc_conv", emb_pad, bf16)
+    _check("emb_pad", emb_pad, emb_pad.shape, dt, device)
+    _check("w_all", w_all, (n_all, maxf * eds), dt, device)
     if b_all is not None:
-        _check("b_all", b_all, (n_all,), torch.float32, device)
+        _check("b_all", b_all, (n_all,), dt, device)
     return b_sz, lp, L, n_all
 
 
@@ -166,13 +180,16 @@ def _library() -> ctypes.CDLL:
     lib = build.load("disc_conv")
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
+        # the int before the stream (forward) / after the mask flag
+        # (backward): 1 for the bfloat16 instantiation
         lib.gic_conv_fwd.argtypes = (
             [vp, vp, i, vp] + [i] * 6
-            + [ctypes.POINTER(i), ctypes.POINTER(vp), i, i, vp, i, vp])
+            + [ctypes.POINTER(i), ctypes.POINTER(vp), i, i, vp, i, i, vp])
         lib.gic_conv_fwd.restype = i
         lib.gic_conv_bwd.argtypes = (
             [vp, vp] + [i] * 7 + [ctypes.POINTER(i)]
-            + [ctypes.POINTER(vp)] * 3 + [i, i, ctypes.c_size_t] + [vp] * 5)
+            + [ctypes.POINTER(vp)] * 3 + [i, i, i, ctypes.c_size_t]
+            + [vp] * 5)
         lib.gic_conv_bwd.restype = i
         lib.gic_conv_dxs.argtypes = (
             [vp, vp] + [i] * 7 + [ctypes.POINTER(i)]
@@ -255,8 +272,8 @@ def conv_bank_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     """Forward of every bank → ``(pooled [B, R, F], idxs)`` as
     :func:`conv_relu_maxpool_plain`: the CUDA kernel on a CUDA tensor (one
     launch for all banks, :func:`conv_fwd_plan`), the plain version on a
-    CPU one."""
-    _validate(emb_pad, w_all, banks, R, eds, b_all)
+    CPU one.  float32, or bfloat16 throughout (pooled bfloat16)."""
+    _validate(emb_pad, w_all, banks, R, eds, b_all, bf16=True)
     device = emb_pad.device
     if device.type == "cpu":
         return conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R, eds)
@@ -265,6 +282,8 @@ def conv_bank_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     out = _forward(emb_pad, w_all, b_all, banks, R, eds)
     with _count_lock:
         conv_bank_forward.launches += 1
+        if emb_pad.dtype == torch.bfloat16:
+            conv_bank_forward.bf16_launches += 1
     return out
 
 
@@ -277,7 +296,7 @@ def _forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     L = lp - max(f for _, f in banks) + 1
     n_all, device = w_all.shape[0], emb_pad.device
     plan = conv_fwd_plan(b_sz * R, L, eds, banks)
-    pooled = torch.empty(b_sz, R, n_all, device=device)
+    pooled = torch.empty(b_sz, R, n_all, dtype=emb_pad.dtype, device=device)
     idxs = [torch.empty(b_sz, R, n, dtype=torch.int32, device=device)
             for n, _ in banks]
     with torch.cuda.device(device):
@@ -290,7 +309,7 @@ def _forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
                 emb_pad.data_ptr(), w_all.data_ptr(), w_all.shape[1],
                 b_all.data_ptr(), b_sz, lp, R, eds, L, nb, ints, ptrs,
                 launch["grid"][1], launch["smem_bytes"], pooled.data_ptr(),
-                n_all, _stream(device))
+                n_all, int(emb_pad.dtype == torch.bfloat16), _stream(device))
             build.raise_on_error(lib, rc, "disc conv forward")
     return pooled, idxs
 
@@ -365,10 +384,10 @@ def _conv_bwd_plan(Q: int, L: int, eds: int, banks, raw: bool) -> dict:
 def _backward(emb_pad, w_all, banks, R: int, eds: int, idxs, grads,
               pooled=None):
     """One call of ``gic_conv_bwd``, the backward of every bank →
-    ``(d_emb, dw_all, db)``: ``grads`` the masked gradient per bank, or,
-    with ``pooled``, the raw ``d_pooled [B, R, F]`` (then ``db`` is summed
-    too; else it is None).  Every output entry is written by the
-    kernels."""
+    ``(d_emb, dw_all, db)`` float32: ``grads`` the masked gradient per
+    bank, or, with ``pooled``, the raw ``d_pooled [B, R, F]`` (then ``db``
+    is summed too; else it is None; the raw route also takes every input
+    in bfloat16).  Every output entry is written by the kernels."""
     lib = _library()
     b_sz, lp, e_dim = emb_pad.shape
     L = lp - max(f for _, f in banks) + 1
@@ -376,16 +395,18 @@ def _backward(emb_pad, w_all, banks, R: int, eds: int, idxs, grads,
     plan = conv_bwd_plan(b_sz * R, L, eds, banks, raw)
     device = emb_pad.device
     n_all, nb = w_all.shape[0], len(banks)
-    d_emb = torch.empty_like(emb_pad)
-    dw_all = torch.empty_like(w_all)
-    db = torch.empty(n_all, device=device) if raw else None
-    part = torch.empty(plan["blocks"] * plan["slots"], device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    d_emb = torch.empty(emb_pad.shape, **f32)
+    dw_all = torch.empty(w_all.shape, **f32)
+    db = torch.empty(n_all, **f32) if raw else None
+    part = torch.empty(plan["blocks"] * plan["slots"], **f32)
     vp = ctypes.c_void_p * nb
     if raw:
         offs = [b["off"] for launch in plan["launches"]
                 for b in launch["banks"]]
-        d_ptrs = vp(*[grads.data_ptr() + 4 * o for o in offs])
-        p_ptrs = vp(*[pooled.data_ptr() + 4 * o for o in offs])
+        size = grads.element_size()
+        d_ptrs = vp(*[grads.data_ptr() + size * o for o in offs])
+        p_ptrs = vp(*[pooled.data_ptr() + size * o for o in offs])
     else:
         d_ptrs, p_ptrs = vp(*[g.data_ptr() for g in grads]), None
     with torch.cuda.device(device):
@@ -393,7 +414,8 @@ def _backward(emb_pad, w_all, banks, R: int, eds: int, idxs, grads,
             emb_pad.data_ptr(), w_all.data_ptr(), w_all.shape[1], b_sz, lp,
             R, eds, L, nb, (ctypes.c_int * (4 * nb))(*plan["ints"]),
             vp(*[i.data_ptr() for i in idxs]), d_ptrs, p_ptrs, int(raw),
-            plan["slabs"], part.numel(), d_emb.data_ptr(), part.data_ptr(),
+            int(emb_pad.dtype == torch.bfloat16), plan["slabs"],
+            part.numel(), d_emb.data_ptr(), part.data_ptr(),
             dw_all.data_ptr(), db.data_ptr() if raw else None,
             _stream(device))
         build.raise_on_error(lib, rc, "disc conv backward")
@@ -418,14 +440,17 @@ def conv_bank_backward(emb_pad, w_all, banks, R: int, eds: int,
     d_emb, dw_all, _ = _backward(emb_pad, w_all, banks, R, eds, idxs, dpms)
     with _count_lock:
         conv_bank_backward.launches += 1
+        if emb_pad.dtype == torch.bfloat16:
+            conv_bank_backward.bf16_launches += 1
     return d_emb, dw_all
 
 
-def _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
-    b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds)
-    device = emb_pad.device
-    _check("pooled", pooled, (b_sz, R, n_all), torch.float32, device)
-    _check("d_pooled", d_pooled, (b_sz, R, n_all), torch.float32, device)
+def _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled,
+               bf16=True):
+    b_sz, lp, L, n_all = _validate(emb_pad, w_all, banks, R, eds, bf16=bf16)
+    device, dt = emb_pad.device, emb_pad.dtype
+    _check("pooled", pooled, (b_sz, R, n_all), dt, device)
+    _check("d_pooled", d_pooled, (b_sz, R, n_all), dt, device)
     for (n, _), idx in zip(banks, idxs):
         _check("idx", idx, (b_sz, R, n), torch.int32, device)
     if device.type not in ("cpu", "cuda"):
@@ -448,6 +473,8 @@ def conv_bank_backward_raw(emb_pad, w_all, banks, R: int, eds: int, pooled,
     out = _backward(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
     with _count_lock:
         conv_bank_backward.launches += 1
+        if emb_pad.dtype == torch.bfloat16:
+            conv_bank_backward.bf16_launches += 1
     return out
 
 
@@ -662,7 +689,8 @@ def conv_bank_dxs_raw(emb_pad, w_all, banks, R: int, eds: int, pooled,
     the launch, so the autograd route needs no separate mask and sum.  On
     a CPU tensor, the plain version.  Counts on
     ``conv_bank_dxs.launches``."""
-    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
+    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled,
+                  bf16=False):
         return conv_dxs_raw_plain(emb_pad, w_all, banks, R, eds, pooled,
                                   idxs, d_pooled)
     out = _dxs(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
@@ -676,8 +704,9 @@ def conv_rows_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     F], idxs)`` as :func:`conv_relu_maxpool_plain`: on a CUDA tensor the
     kernel of :func:`conv_bank_forward` (``csrc/disc_conv.cu``, one launch
     for every bank, :func:`conv_fwd_plan`), counted on
-    ``conv_rows_forward.launches``; the plain version on a CPU one."""
-    _validate(emb_pad, w_all, banks, R, eds, b_all)
+    ``conv_rows_forward.launches``; the plain version on a CPU one.
+    float32, or bfloat16 throughout."""
+    _validate(emb_pad, w_all, banks, R, eds, b_all, bf16=True)
     device = emb_pad.device
     if device.type == "cpu":
         return conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R, eds)
@@ -686,6 +715,8 @@ def conv_rows_forward(emb_pad, w_all, b_all, banks, R: int, eds: int):
     out = _forward(emb_pad, w_all, b_all, banks, R, eds)
     with _count_lock:
         conv_rows_forward.launches += 1
+        if emb_pad.dtype == torch.bfloat16:
+            conv_rows_forward.bf16_launches += 1
     return out
 
 
@@ -715,14 +746,14 @@ def conv_rows_backward(emb_pad, w_all, banks, R: int, eds: int, pooled,
     out = _backward(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
     with _count_lock:
         conv_rows_backward.launches += 1
+        if emb_pad.dtype == torch.bfloat16:
+            conv_rows_backward.bf16_launches += 1
     return out
 
 
-conv_bank_forward.launches = 0
-conv_bank_backward.launches = 0
-conv_bank_dxs.launches = 0
-conv_rows_forward.launches = 0
-conv_rows_backward.launches = 0
+for _fn in (conv_bank_forward, conv_bank_backward, conv_bank_dxs,
+            conv_rows_forward, conv_rows_backward):
+    _fn.launches = _fn.bf16_launches = 0
 
 # what argmax_record() collects, in call order: per conv forward its argmax
 # rows and pooled values ("pool"), per replayable_relu its input ("relu");
@@ -834,17 +865,19 @@ class _ConvReluMaxpool(torch.autograd.Function):
                    else conv_rows_backward)
             d_emb, dw_all, db = bwd(emb_pad, w_all, banks, R, eds, pooled,
                                     idxs, d_pooled.contiguous())
-            return d_emb, dw_all, db, None, None, None, None
-        if engine == "mxu_dxs":  # likewise, then the shifted adds
+        elif engine == "mxu_dxs":  # likewise, then the shifted adds
             dxss, dw_all, db = conv_bank_dxs_raw(emb_pad, w_all, banks, R,
                                                  eds, pooled, idxs,
                                                  d_pooled.contiguous())
             d_emb = overlap_add(dxss, banks, emb_pad.shape, R, eds)
-            return d_emb, dw_all, db, None, None, None, None
-        dpms, db = _masked(pooled, d_pooled, banks, ctx.positive)
-        d_emb, dw_all = conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds,
-                                          idxs, dpms)
-        return d_emb, dw_all, db, None, None, None, None
+        else:
+            dpms, db = _masked(pooled, d_pooled, banks, ctx.positive)
+            d_emb, dw_all = conv_bwd_dx_plain(emb_pad, w_all, banks, R, eds,
+                                              idxs, dpms)
+        # accumulated in float32, rounded to the inputs' dtypes (bfloat16
+        # under --dtype bfloat16), as the JAX `_mxu_vjp_bwd` casts them
+        return (d_emb.to(emb_pad.dtype), dw_all.to(w_all.dtype),
+                db.to(w_all.dtype), None, None, None, None)
 
 
 def _masked(pooled, d_pooled, banks, positive=None):
@@ -854,6 +887,7 @@ def _masked(pooled, d_pooled, banks, positive=None):
     0``) is the mask."""
     if positive is None:
         positive = pooled > 0
+    d_pooled = d_pooled.to(torch.float32)
     dpms, db, off = [], [], 0
     for n, _ in banks:
         dpm = torch.where(positive[..., off:off + n],

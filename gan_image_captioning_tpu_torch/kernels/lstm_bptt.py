@@ -51,7 +51,9 @@ def _step_grads(gates, c, c_prev, dh, dc):
 
 
 def lstm_bptt_chain_plain(w_hhs, w_ihs_upper, d_hs, gates, cs):
-    """Plain PyTorch version → ``d_pre [T, NL, B, 4H]`` float32."""
+    """Plain PyTorch version → ``d_pre [T, NL, B, 4H]`` float32 (float32
+    or bfloat16 ``gates`` and ``cs``, read as float32)."""
+    gates, cs = gates.to(torch.float32), cs.to(torch.float32)
     T, NL, B, H4 = gates.shape
     H = H4 // 4
     dh = [d_hs.new_zeros(B, H) for _ in range(NL)]
@@ -71,8 +73,8 @@ def lstm_bptt_chain_plain(w_hhs, w_ihs_upper, d_hs, gates, cs):
     return d_pre
 
 
-def _check(name, t, shape, device):
-    build.check_tensor("lstm_bptt_chain", name, t, shape, device)
+def _check(name, t, shape, device, dtype=torch.float32):
+    build.check_tensor("lstm_bptt_chain", name, t, shape, device, dtype)
 
 
 def _validate(w_hhs, w_ihs_upper, d_hs, gates, cs):
@@ -81,9 +83,10 @@ def _validate(w_hhs, w_ihs_upper, d_hs, gates, cs):
     T, NL, B, H4 = gates.shape
     H = H4 // 4
     device = d_hs.device
+    dt = build.compute_dtype("lstm_bptt_chain", gates)
     _check("d_hs", d_hs, (T, B, H), device)
-    _check("gates", gates, (T, NL, B, H4), device)
-    _check("cs", cs, (T, NL, B, H), device)
+    _check("gates", gates, (T, NL, B, H4), device, dt)
+    _check("cs", cs, (T, NL, B, H), device, dt)
     _check("w_hhs", w_hhs, (NL, H, H4), device)
     if NL > 1:
         _check("w_ihs_upper", w_ihs_upper, (NL - 1, H, H4), device)
@@ -94,14 +97,15 @@ def _library() -> ctypes.CDLL:
     lib = build.load("lstm_bptt")
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gic_lstm_bptt_chain.argtypes = ([vp] * 5 + [i] * 4 + [vp]
+        # the int after the shape: 1 for the bfloat16 instantiation
+        lib.gic_lstm_bptt_chain.argtypes = ([vp] * 5 + [i] * 5 + [vp]
                                             + [ctypes.POINTER(i), vp, vp])
         lib.gic_lstm_bptt_chain.restype = i
-        lib.gic_bptt_reverse.argtypes = ([vp] * 5 + [i] * 3 + [vp] * 3
+        lib.gic_bptt_reverse.argtypes = ([vp] * 5 + [i] * 4 + [vp] * 3
                                          + [ctypes.POINTER(i), vp, vp])
         lib.gic_bptt_reverse.restype = i
         for name in ("gic_reverse_kernel_attrs", "gic_chain_kernel_attrs"):
-            getattr(lib, name).argtypes = [ctypes.POINTER(i)] * 2
+            getattr(lib, name).argtypes = [i] + [ctypes.POINTER(i)] * 2
             getattr(lib, name).restype = i
         lib._gic_typed = True
     return lib
@@ -110,14 +114,17 @@ def _library() -> ctypes.CDLL:
 def lstm_bptt_chain(w_hhs, w_ihs_upper, d_hs, gates, cs):
     """Whole stacked-LSTM decode backward recurrence.
 
-    Args as the JAX ``lstm_bptt_chain``, float32 and contiguous:
+    Args as the JAX ``lstm_bptt_chain``, contiguous:
       w_hhs:       [NL, H, 4H] recurrent weights (``w_hh.T`` per layer).
       w_ihs_upper: [NL-1, H, 4H] input weights of layers 1..NL-1
                    (``w_ih.T``); ignored when NL = 1.
       d_hs:        [T, B, H] top-layer hidden cotangents.
       gates:       [T, NL, B, 4H] saved pre-activation gates.
       cs:          [T, NL, B, H] cell states leaving each step.
-    Returns ``d_pre [T, NL, B, 4H]`` float32.
+    The weights and ``d_hs`` are float32 (the JAX caller casts them);
+    ``gates`` and ``cs`` float32, or both bfloat16 (the bfloat16
+    decode's residuals: the kernel's bfloat16 instantiation reads them as
+    float32).  Returns ``d_pre [T, NL, B, 4H]`` float32.
     """
     T, NL, B, H = _validate(w_hhs, w_ihs_upper, d_hs, gates, cs)
     device = d_hs.device
@@ -134,18 +141,21 @@ def lstm_bptt_chain(w_hhs, w_ihs_upper, d_hs, gates, cs):
         rc = lib.gic_lstm_bptt_chain(
             w_hhs.data_ptr(), w_ihs_upper.data_ptr() if NL > 1 else None,
             d_hs.data_ptr(), gates.data_ptr(), cs.data_ptr(), T, NL, B, H,
-            d_pre.data_ptr(), (ctypes.c_int * 5)(*plan["ints"]),
+            int(gates.dtype == torch.bfloat16), d_pre.data_ptr(),
+            (ctypes.c_int * 5)(*plan["ints"]),
             barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "lstm_bptt_chain")
     with _count_lock:
         lstm_bptt_chain.launches += 1
+        if gates.dtype == torch.bfloat16:
+            lstm_bptt_chain.bf16_launches += 1
         lstm_bptt_chain.branches[
             "resident" if plan["resident"] else "streamed"] += 1
         lstm_bptt_chain.last_plan = plan
     return d_pre
 
 
-lstm_bptt_chain.launches = 0
+lstm_bptt_chain.launches = lstm_bptt_chain.bf16_launches = 0
 # launches by where the kernel's weight rows came from (as the reverse's)
 lstm_bptt_chain.branches = {"resident": 0, "streamed": 0}
 lstm_bptt_chain.last_plan = None
@@ -279,21 +289,25 @@ def set_phase_profile(prof, kernel="reverse"):
     fn(None if prof is None else prof.data_ptr())
 
 
-def kernel_attrs(kernel="reverse"):
+def kernel_attrs(kernel="reverse", bf16: bool = False):
     """``{"registers": n, "local_bytes": n}`` of the persistent
-    ``kernel`` (``"reverse"`` or ``"chain"``; spills show as local
-    bytes)."""
+    ``kernel`` (``"reverse"`` or ``"chain"``), float32 or bfloat16
+    instantiation (spills show as local bytes)."""
     lib = _library()
     regs, local = ctypes.c_int(), ctypes.c_int()
     build.raise_on_error(lib, getattr(lib, f"gic_{kernel}_kernel_attrs")(
-        ctypes.byref(regs), ctypes.byref(local)), "kernel attributes")
+        int(bf16), ctypes.byref(regs), ctypes.byref(local)),
+        "kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
 
 def lstm_bptt_reverse_plain(w_hh, d_hs, gates, c_prev, cs):
-    """Plain PyTorch version → ``(d_pre [T, B, 4H], dh0, dc0 [B, H])``: the
-    JAX package's ``rstep`` (``models/lstm.py:_layer_seq_bwd``) over
-    t = T-1 … 0, the carries starting at zero."""
+    """Plain PyTorch version → ``(d_pre [T, B, 4H], dh0, dc0 [B, H])``
+    float32: the JAX package's ``rstep`` (``models/lstm.py:_layer_seq_bwd``)
+    over t = T-1 … 0, the carries starting at zero, on its inputs widened
+    to float32 (as the TPU kernel's caller casts them)."""
+    w_hh, d_hs, gates, c_prev, cs = (t.to(torch.float32) for t in (
+        w_hh, d_hs, gates, c_prev, cs))
     T = d_hs.shape[0]
     dh = torch.zeros_like(d_hs[0])
     dc = torch.zeros_like(d_hs[0])
@@ -308,7 +322,9 @@ def lstm_bptt_reverse_plain(w_hh, d_hs, gates, c_prev, cs):
 def lstm_bptt_reverse(w_hh, d_hs, gates, c_prev, cs):
     """One layer's reverse recurrence.
 
-    Args as the JAX ``lstm_bptt_reverse``, float32, time-major, contiguous:
+    Args as the JAX ``lstm_bptt_reverse``, time-major, contiguous, all
+    float32 or all bfloat16 (the bfloat16 instantiation widens each as it
+    reads it, as the TPU kernel's caller casts them):
       w_hh:   [H, 4H] recurrent weight (``w_hh.T``, the ``w_fused[in:]``
               slice).
       d_hs:   [T, B, H] incoming hidden cotangents.
@@ -321,12 +337,13 @@ def lstm_bptt_reverse(w_hh, d_hs, gates, c_prev, cs):
         raise ValueError("lstm_bptt_reverse: d_hs must be [T, B, H]")
     T, B, H = d_hs.shape
     device = d_hs.device
+    dt = build.compute_dtype("lstm_bptt_reverse", d_hs)
     for name, t, shape in (("w_hh", w_hh, (H, 4 * H)),
                            ("d_hs", d_hs, (T, B, H)),
                            ("gates", gates, (T, B, 4 * H)),
                            ("c_prev", c_prev, (T, B, H)),
                            ("cs", cs, (T, B, H))):
-        build.check_tensor("lstm_bptt_reverse", name, t, shape, device)
+        build.check_tensor("lstm_bptt_reverse", name, t, shape, device, dt)
     if device.type == "cpu":
         return lstm_bptt_reverse_plain(w_hh, d_hs, gates, c_prev, cs)
     if device.type != "cuda":
@@ -341,19 +358,22 @@ def lstm_bptt_reverse(w_hh, d_hs, gates, c_prev, cs):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_bptt_reverse(
             w_hh.data_ptr(), d_hs.data_ptr(), gates.data_ptr(),
-            c_prev.data_ptr(), cs.data_ptr(), T, B, H, dh0.data_ptr(),
+            c_prev.data_ptr(), cs.data_ptr(), T, B, H,
+            int(dt == torch.bfloat16), dh0.data_ptr(),
             dc0.data_ptr(), d_pre.data_ptr(),
             (ctypes.c_int * 4)(*plan["ints"]), barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "lstm_bptt_reverse")
     with _count_lock:
         lstm_bptt_reverse.launches += 1
+        if dt == torch.bfloat16:
+            lstm_bptt_reverse.bf16_launches += 1
         lstm_bptt_reverse.branches[
             "resident" if plan["resident"] else "streamed"] += 1
         lstm_bptt_reverse.last_plan = plan
     return d_pre, dh0, dc0
 
 
-lstm_bptt_reverse.launches = 0
+lstm_bptt_reverse.launches = lstm_bptt_reverse.bf16_launches = 0
 # launches by where the kernel's w_hh rows came from: shared memory for
 # the whole call ("resident") or global memory each step ("streamed")
 lstm_bptt_reverse.branches = {"resident": 0, "streamed": 0}

@@ -12,7 +12,8 @@ from typing import Any, Dict
 
 import torch
 
-from gan_image_captioning_tpu_torch.config import (Config, decode_route,
+from gan_image_captioning_tpu_torch.config import (Config, compute_dtype,
+                                                   decode_route,
                                                    require_ported_arch)
 from gan_image_captioning_tpu_torch.kernels.image_norm import (
     normalize_images, normalize_images_plain)
@@ -42,22 +43,20 @@ def init_generator(generator: torch.Generator, config: Config, device="cpu",
 
 
 def _images(config: Config, batch: Dict[str, Any]):
-    """The batch's float32 images: ``images``, or ``images_u8`` normalized
-    on the device (the ``image_norm`` kernel, or its plain version under
-    ``image_norm_impl="plain"``)."""
+    """The batch's images: ``images``, or ``images_u8`` normalized on the
+    device (the ``image_norm`` kernel, or its plain version under
+    ``image_norm_impl="plain"``) into the compute dtype, float32 or, under
+    ``--dtype bfloat16``, bfloat16 (the JAX ``api.generator_condition``)."""
     if "backbone_feats" in batch:
         raise NotImplementedError("cached backbone features "
                                   "(--cache-features) are not ported yet")
     if "images_u8" in batch:
-        if config.dtype != "float32":
-            raise NotImplementedError(f"--dtype {config.dtype}: only float32 "
-                                      "images are ported yet")
         if config.image_norm_impl not in ("kernel", "plain"):
             raise ValueError(f"image_norm_impl {config.image_norm_impl!r}: "
                              "expected 'kernel' or 'plain'")
         norm = (normalize_images_plain if config.image_norm_impl == "plain"
                 else normalize_images)
-        return norm(batch["images_u8"])
+        return norm(batch["images_u8"], compute_dtype(config))
     return batch["images"]
 
 

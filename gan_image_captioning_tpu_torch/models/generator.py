@@ -128,19 +128,27 @@ def _layer_dicts(flat, nl):
 def _bptt_from_dhs(features, embed, layers, ids, hs, cs, gates, d_hs,
                    plain: bool = False):
     """The decode backward from the top layer's hidden cotangent ``d_hs
-    [T, B, H]`` (the JAX package's ``_lstm_bptt_from_dhs``, shared by the
-    soft and the embed-fused sample): the chained BPTT recurrence
-    (``lstm_bptt_chain``), the deferred dW/db products, and the layer-0
-    input gradient's embedding scatter-add and features gradient.
+    [T, B, H]`` (the JAX package's ``_lstm_bptt_from_dhs`` /
+    ``_lstm_bptt_chained``, shared by the soft and the embed-fused
+    sample): the chained BPTT recurrence (``lstm_bptt_chain``), the
+    deferred dW/db products, and the layer-0 input gradient's embedding
+    scatter-add and features gradient.  float32 throughout: under
+    ``--dtype bfloat16`` the weights, ``d_hs`` and the inputs are widened
+    and the chain reads the bfloat16 residuals ``gates`` and ``cs`` as
+    float32, as the JAX caller does (autograd rounds each gradient to its
+    parameter's dtype on the way back).
     Returns ``(d_features, d_embed, [dw_ih, dw_hh, db_ih, db_hh] * NL)``."""
     nl, (T, _, B, H) = len(layers), hs.shape
-    w_hhs = torch.stack([lp["w_hh"].T for lp in layers]).contiguous()
-    w_ihs = torch.stack([lp["w_ih"].T for lp in layers[1:]]
+    f32 = torch.float32
+    w_hhs = torch.stack([lp["w_hh"].T.to(f32) for lp in layers]).contiguous()
+    w_ihs = torch.stack([lp["w_ih"].T.to(f32) for lp in layers[1:]]
                         or [w_hhs[0]]).contiguous()
     chain = lstm_bptt_chain_plain if plain else lstm_bptt_chain
-    d_pre = chain(w_hhs, w_ihs, d_hs, gates, cs)           # [T, NL, B, 4H]
+    d_pre = chain(w_hhs, w_ihs, d_hs.to(f32), gates, cs)   # [T, NL, B, 4H]
     ids_tm = ids.T.long()                                  # [T, B]
-    xs0 = torch.cat([features[None], embed[ids_tm[:-1]]])  # [T, B, E]
+    xs0 = torch.cat([features[None],
+                     embed[ids_tm[:-1]]]).to(f32)          # [T, B, E]
+    hs = hs.to(f32)
     h_prev = torch.cat([hs.new_zeros(1, nl, B, H), hs[:-1]])
     grads = []
     for l, lp in enumerate(layers):
@@ -153,8 +161,8 @@ def _bptt_from_dhs(features, embed, layers, ids, hs, cs, gates, d_hs,
         grads += [dw_f[:in_dim].T, dw_f[in_dim:].T, db, db.clone()]
 
     # layer-0 input path → the embedding scatter and the features
-    d_xs0 = d_pre[:, 0] @ layers[0]["w_ih"]                # [T, B, E]
-    d_embed = torch.zeros_like(embed).index_add_(
+    d_xs0 = d_pre[:, 0] @ layers[0]["w_ih"].to(f32)        # [T, B, E]
+    d_embed = torch.zeros_like(embed, dtype=f32).index_add_(
         0, ids_tm[:-1].reshape(-1), d_xs0[1:].reshape(-1, embed.shape[1]))
     return d_xs0[0], d_embed, grads
 
@@ -172,7 +180,10 @@ class _SampleSoft(torch.autograd.Function):
     and the per-layer h, c and pre-activation gates.  Backward: softmax
     VJP → projection gradients as two products → :func:`_bptt_from_dhs`.
     The argmax feedback carries no gradient, as in the reference
-    (``generator.py:75``)."""
+    (``generator.py:75``).  Under ``--dtype bfloat16`` the soft sample and
+    the residuals are bfloat16 and the backward widens them, and
+    ``d_soft`` and the projection weight, to float32, as the JAX
+    ``_kernel_sample_soft_bwd`` does."""
 
     @staticmethod
     def forward(ctx, features, temperature, seed, uniforms, seq_len, plain,
@@ -203,6 +214,8 @@ class _SampleSoft(torch.autograd.Function):
             ctx.saved_tensors)
         nl, T, B, V = ctx.nl, *soft.shape
         H = hs.shape[-1]
+        f32 = torch.float32
+        soft, d_soft = soft.to(f32), d_soft.to(f32)
 
         # softmax VJP: soft = softmax(temp · (logits + g))
         inner = (d_soft * soft).sum(dim=-1, keepdim=True)
@@ -210,9 +223,9 @@ class _SampleSoft(torch.autograd.Function):
 
         # projection: logits = h_top @ W.T + b
         d2 = d_logits.reshape(T * B, V)
-        d_w_proj = d2.T @ hs[:, nl - 1].reshape(T * B, H)
+        d_w_proj = d2.T @ hs[:, nl - 1].reshape(T * B, H).to(f32)
         d_b_proj = d2.sum(dim=0)
-        d_hs = (d2 @ w_proj).reshape(T, B, H)
+        d_hs = (d2 @ w_proj.to(f32)).reshape(T, B, H)
         del d_logits, d2
 
         d_features, d_embed, grads = _bptt_from_dhs(

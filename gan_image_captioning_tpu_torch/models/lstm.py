@@ -148,17 +148,23 @@ class _LayerSeq(torch.autograd.Function):
         d_pre, dh0, dc0 = reverse(w_fused[in_dim:].contiguous(),
                                   d_hs.contiguous(), gates, c_prev, cs)
         T, B = d_pre.shape[:2]
-        d2 = d_pre.reshape(T * B, -1)
-        xh = torch.cat([xs, h_prev], dim=-1).reshape(T * B, -1)
+        d2 = d_pre.reshape(T * B, -1)   # float32
+        # bfloat16 (--dtype bfloat16): the products in float32, as the JAX
+        # backward promotes them; autograd rounds each gradient to its
+        # input's dtype
+        xh = torch.cat([xs, h_prev], dim=-1).reshape(T * B, -1).to(d2.dtype)
         dw = xh.T @ d2                  # one [in+H, 4H] product
         db = d2.sum(dim=0)
-        dxs = (d2 @ w_fused[:in_dim].T).reshape(xs.shape)
+        dxs = (d2 @ w_fused[:in_dim].T.to(d2.dtype)).reshape(xs.shape)
         return dw, db, dxs, dh0, dc0, None
 
 
 def lstm_seq_tm(params: List[dict], xs_tm, state=None, plain: bool = False):
     """Teacher-forced stacked LSTM over a time-major sequence:
-    ``xs_tm [T, B, in]`` → top-layer outputs ``[T, B, H]``.
+    ``xs_tm [T, B, in]`` → top-layer outputs ``[T, B, H]``, in the dtype
+    of the weights and inputs (bfloat16 under ``--dtype bfloat16``: each
+    operation of the forward rounds to bfloat16, the backward's reverse
+    kernel reads the bfloat16 residuals as float32).
 
     Layer by layer over the whole sequence (:class:`_LayerSeq`), as the
     JAX package's ``lstm_seq_tm``; each layer's backward runs the reverse

@@ -242,7 +242,9 @@ class ContinuousBatcher:
         embed = (self._dec["embed"].scale if q_lib.is_quantized(self._dec)
                  else self._dec.embed.weight)
         self._feat_dim = embed.shape[-1]
-        self._x = torch.zeros((self.B, self._feat_dim), dtype=torch.float32,
+        # x in the state's dtype (the JAX engine's x_dtype): bfloat16 in a
+        # bfloat16 quantized decode
+        self._x = torch.zeros((self.B, self._feat_dim), dtype=self._h.dtype,
                               device=self.device)
         # host-side slot bookkeeping
         self._slot_t = np.full((self.B,), -1, np.int32)   # -1 = free
@@ -378,7 +380,8 @@ class ContinuousBatcher:
         lps [B, K])``; the carried state stays on the device."""
         if fresh.any():
             mask = torch.from_numpy(fresh).to(self.device)
-            feats = torch.from_numpy(feats_new).to(self.device)
+            feats = torch.from_numpy(feats_new).to(self.device,
+                                                   self._x.dtype)
             zero = torch.zeros((), device=self.device)
             self._h = torch.where(mask[None, :, None], zero, self._h)
             self._c = torch.where(mask[None, :, None], zero, self._c)

@@ -18,8 +18,15 @@ trees.  Only parameters that require gradients have moments: a frozen
 image backbone (``--trainable-backbone 0``) stays out of the optimizer,
 where the JAX package's Adam sees its zero gradients (under
 ``stop_gradient``) and makes exactly zero updates, and adds nothing to the
-global norm.  bfloat16 first moments and ``--dtype bfloat16`` are not
-ported yet and raise.
+global norm.  ``Config.bf16_mu`` (the JAX package's
+``GIC_BF16_MU=1``: optax's ``mu_dtype``) stores every first moment in
+bfloat16; the update is computed in float32, ``b1' · mu + (1 − b1) · g``
+with the stored moment widened and ``b1'`` = :data:`B1_BF16`, as the
+jitted optax update computes it (``b1 · mu`` of a bfloat16 ``mu`` takes
+b1 in bfloat16, and XLA keeps the exact product in float32), the moment
+rounded back for storage, the second moment float32.  A moment's dtype is the
+tensor's own, so a state saved or converted with bfloat16 moments keeps
+them.
 
 The EMA (:func:`ema_init`, :func:`ema_update`, the JAX ``_ema_update``)
 shadows every floating-point entry of the generator's ``state_dict``: its
@@ -37,12 +44,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from gan_image_captioning_tpu_torch.config import Config
+from gan_image_captioning_tpu_torch.config import (Config,
+                                                   require_ported_dtype)
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models.discriminator import Discriminator
 from gan_image_captioning_tpu_torch.models.generator import Generator
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # torch Adam / optax.adam defaults
+# b1 as optax multiplies a bfloat16 first moment by it: JAX's weak typing
+# rounds the Python float to the moment's dtype, 0.8984375
+B1_BF16 = float(torch.tensor(B1, dtype=torch.bfloat16))
 
 
 @dataclasses.dataclass
@@ -60,11 +71,16 @@ def trainable_parameters(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: p for k, p in module.named_parameters() if p.requires_grad}
 
 
-def adam_init(module: nn.Module) -> AdamState:
-    zeros = {k: torch.zeros_like(p)
-             for k, p in trainable_parameters(module).items()}
-    return AdamState(0, zeros, {k: torch.zeros_like(v)
-                                for k, v in zeros.items()})
+def adam_init(module: nn.Module, config: Optional[Config] = None
+              ) -> AdamState:
+    """Zero moments of ``module``'s trainable parameters: float32, the
+    first moment bfloat16 under ``config.bf16_mu``."""
+    nu = {k: torch.zeros_like(p)
+          for k, p in trainable_parameters(module).items()}
+    mu_dtype = (torch.bfloat16 if config is not None and config.bf16_mu
+                else None)
+    return AdamState(0, {k: torch.zeros_like(v, dtype=mu_dtype)
+                         for k, v in nu.items()}, nu)
 
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -151,18 +167,21 @@ def clip_adam_update(module: nn.Module, grads: Dict[str, torch.Tensor],
         p = params[name]
         g = grads[name] * scale
         mu, nu = state.mu[name], state.nu[name]
-        mu.mul_(B1).add_(g, alpha=1.0 - B1)
+        if mu.dtype == torch.float32:
+            mu.mul_(B1).add_(g, alpha=1.0 - B1)
+            m = mu
+        else:   # a bfloat16 first moment: the update in float32
+            m = mu.to(torch.float32).mul_(B1_BF16).add_(g, alpha=1.0 - B1)
+            mu.copy_(m)
         nu.mul_(B2).addcmul_(g, g, value=1.0 - B2)
-        p.sub_(lr * (mu / bc1) / (torch.sqrt(nu / bc2) + EPS))
+        p.sub_(lr * (m / bc1) / (torch.sqrt(nu / bc2) + EPS))
     return gnorm
 
 
 def require_ported_training(config: Config) -> None:
     """Raise for a training option that is not ported yet, and for an
     invalid learning-rate schedule."""
-    if config.dtype != "float32":
-        raise NotImplementedError(f"--dtype {config.dtype}: only float32 "
-                                  "training is ported yet")
+    require_ported_dtype(config)
     _check_schedule(config)
     api.require_ported(config)
 
@@ -230,8 +249,9 @@ def create_train_state(config: Config, seed: int, device="cpu",
     if disc is None:
         disc = api.init_discriminator(init, config, device, sweep)
     freeze_backbone(gen, config)
-    return TrainState(gen=gen, disc=disc, pretrain_opt=adam_init(gen),
-                      gen_opt=adam_init(gen), disc_opt=adam_init(disc),
+    return TrainState(gen=gen, disc=disc, pretrain_opt=adam_init(gen, config),
+                      gen_opt=adam_init(gen, config),
+                      disc_opt=adam_init(disc, config),
                       generator=torch.Generator().manual_seed(seed + 1),
                       ema_gen=ema_init(gen) if config.ema_decay > 0 else None)
 
@@ -243,5 +263,6 @@ def with_generator(state: TrainState, gen: Generator,
     ``create_train_state`` made, as the JAX instructor keeps its
     ``ema_gen_params`` when it swaps the generator's params in."""
     freeze_backbone(gen, config)
-    return dataclasses.replace(state, gen=gen, pretrain_opt=adam_init(gen),
-                               gen_opt=adam_init(gen))
+    return dataclasses.replace(state, gen=gen,
+                               pretrain_opt=adam_init(gen, config),
+                               gen_opt=adam_init(gen, config))

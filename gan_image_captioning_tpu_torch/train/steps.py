@@ -78,6 +78,21 @@ Step options (the JAX ``make_mle_step`` / ``make_adv_step`` options):
   over batches stacked ``[K, ...]``, metrics stacked ``[K]``; a loop over
   the single step, so its state after the call is the state after K
   single steps.
+
+``--dtype bfloat16`` (the JAX ``_compute_cast``): the MLE and Gumbel
+adversarial losses, and their eval steps, run inside :func:`compute_cast`
+— every floating parameter of both models and every floating batch entry
+reads as a bfloat16 copy made by a cast that autograd differentiates, so
+the gradients come back through it to the float32 masters, which the
+Adam states and the checkpoints keep.  The losses are reduced in float32
+(the MLE logits and the three discriminator outputs are cast first), the
+Gumbel temperature is rounded to bfloat16 before the sample reads it, and
+a conditional generator's BatchNorm running statistics are kept in
+bfloat16 once a bfloat16 train step has moved them (the JAX steps merge
+the bfloat16 ``new_stats`` of the encoder pass into the state).
+REINFORCE and SCST stay float32, as in the JAX package (``reinforce_
+losses`` and ``train/scst.py`` take no cast); :func:`state.
+require_ported_training` refuses the routes without bfloat16 kernels.
 """
 
 from __future__ import annotations
@@ -88,7 +103,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from gan_image_captioning_tpu_torch.config import Config, decode_route
+from gan_image_captioning_tpu_torch.config import (Config, compute_dtype,
+                                                   decode_route)
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
 from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
@@ -100,6 +116,74 @@ from gan_image_captioning_tpu_torch.train.reinforce import reinforce_losses
 from gan_image_captioning_tpu_torch.train.state import (
     TrainState, clip_adam_update, ema_update, global_norm,
     require_ported_training, trainable_parameters)
+
+
+def _running_stats(module: torch.nn.Module):
+    """``(submodule, name)`` of every floating running statistic of
+    ``module`` (the BatchNorm buffers)."""
+    return [(m, n) for m in module.modules()
+            for n, b in m._buffers.items()
+            if b is not None and b.is_floating_point()]
+
+
+@contextlib.contextmanager
+def compute_cast(config: Config, *modules: torch.nn.Module,
+                 train: bool = True):
+    """``--dtype bfloat16``: inside the block every floating parameter of
+    ``modules`` reads as its bfloat16 copy, ``p.to(torch.bfloat16)``, one
+    cast per parameter that autograd differentiates (the gradient of the
+    float32 master is the bfloat16 gradient of its copy, widened); the
+    masters are put back on exit, so an optimizer, the EMA and a
+    checkpoint see them unchanged.  The running statistics read as
+    bfloat16 too: a train-mode block (``train``) stores them in bfloat16
+    for good, since its forward moves them, as the JAX steps keep the
+    bfloat16 statistics of their encoder pass; an eval-mode one reads
+    bfloat16 copies and puts the buffers back.  float32: nothing
+    changes."""
+    dtype = compute_dtype(config)
+    if dtype == torch.float32:
+        yield
+        return
+    swapped, casts = [], {}
+    for module in modules:
+        for m in module.modules():
+            for name, p in m._parameters.items():
+                if p is not None and p.is_floating_point():
+                    if id(p) not in casts:
+                        casts[id(p)] = p.to(dtype)
+                    swapped.append((m._parameters, name, p, casts[id(p)]))
+        for m, name in _running_stats(module):
+            buf = m._buffers[name]
+            if train:
+                m._buffers[name] = buf.to(dtype)
+            else:
+                swapped.append((m._buffers, name, buf, buf.to(dtype)))
+    for table, name, _, cast in swapped:
+        table[name] = cast
+    try:
+        yield
+    finally:
+        for table, name, master, _ in swapped:
+            table[name] = master
+
+
+def cast_batch(config: Config, batch: Dict[str, torch.Tensor]):
+    """The batch with every floating entry in bfloat16 under ``--dtype
+    bfloat16`` (the JAX ``_compute_cast`` of the batch: images), else
+    itself; captions, lengths and uint8 images keep their dtype."""
+    dtype = compute_dtype(config)
+    if dtype == torch.float32:
+        return batch
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+def compute_temperature(config: Config, temperature) -> float:
+    """The Gumbel temperature the sample reads: rounded to bfloat16 under
+    ``--dtype bfloat16`` (the JAX step keeps it in the compute dtype, and
+    its kernel gets that value as a float32 scalar), else float32."""
+    return float(torch.tensor(float(temperature),
+                              dtype=compute_dtype(config)))
 
 
 def batch_to(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -266,16 +350,22 @@ def mle_loss(config: Config, state: TrainState, batch, train: bool = True,
              sample_prob: float = 0.0, noise: Optional[Dict[str, Any]] = None):
     """The MLE objective: cross-entropy of the ``--mle-objective`` logits
     against the captions, over all positions (weighted by ``weights``);
-    ``sample_prob`` and the coins of ``noise`` feed scheduled sampling."""
-    cond, _ = api.generator_condition(config, state.gen, batch, train=train)
+    ``sample_prob`` and the coins of ``noise`` feed scheduled sampling.
+    Under ``--dtype bfloat16`` the generator runs in :func:`compute_cast`
+    and the logits are cast to float32 before the cross-entropy."""
     captions = batch["captions"]
-    logits = api.generator_mle_outputs(
-        state.gen, cond, captions, config, lengths=batch.get("lengths"),
-        sample_prob=sample_prob,
-        coins=_scheduled_coins(config, state, captions, sample_prob, noise))
+    with compute_cast(config, state.gen, train=train):
+        cond, _ = api.generator_condition(config, state.gen,
+                                          cast_batch(config, batch),
+                                          train=train)
+        logits = api.generator_mle_outputs(
+            state.gen, cond, captions, config, lengths=batch.get("lengths"),
+            sample_prob=sample_prob,
+            coins=_scheduled_coins(config, state, captions, sample_prob,
+                                   noise))
     w = batch.get("weights")
     mask = None if w is None else w[:, None].expand(captions.shape)
-    return cross_entropy_loss(logits, captions, mask)
+    return cross_entropy_loss(logits.to(torch.float32), captions, mask)
 
 
 def mle_grads(config: Config, state: TrainState, batch,
@@ -364,36 +454,45 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     if config.adv_objective != "gumbel":
         raise ValueError(f"adv_objective {config.adv_objective!r}: expected "
                          "'gumbel' or 'reinforce'")
-    cond, _ = api.generator_condition(config, state.gen, batch, train=train)
     captions = batch["captions"]
     device = captions.device
     draw = torch.Generator(device=device).manual_seed(_draw_seed(state))
-    disc_p = params_of(state.disc)
-    disc_ng = params_of(state.disc, detach=True)
     keeps = noise.get("keep", (None, None, None))
-    sample_kw = dict(temperature=temperature, seed=_draw_seed(state),
-                     uniforms=noise.get("uniforms"))
-    if decode_route(config) == "kernel_embed":
-        # the sample arrives embedded: emb_fake carries gradient to the
-        # embedding weight only, emb_gen to the generator only
-        emb_gen, emb_fake, gen_ids = gen_lstm.sample_embed(
-            state.gen.decoder, cond["features"], captions.shape[1],
-            disc_embed=disc_p["embeddings.weight"], **sample_kw)
-        d_real = api.discriminator_apply(disc_p, captions, config, train,
-                                         keeps[0], draw)
-        d_fake = disc_cnn.apply_embedded(disc_p, emb_fake, config, train,
-                                         keeps[1], draw)
-        g_out = disc_cnn.apply_embedded(disc_ng, emb_gen, config, train,
-                                        keeps[2], draw)
-    else:
-        soft, gen_ids = api.generator_sample(
-            state.gen, cond, captions.shape[1], False, config, **sample_kw)
-        d_real = api.discriminator_apply(disc_p, captions, config, train,
-                                         keeps[0], draw)
-        d_fake = api.discriminator_apply(disc_p, soft.detach(), config,
-                                         train, keeps[1], draw)
-        g_out = api.discriminator_apply(disc_ng, soft, config, train,
-                                        keeps[2], draw)
+    with compute_cast(config, state.gen, state.disc, train=train):
+        cond, _ = api.generator_condition(config, state.gen,
+                                          cast_batch(config, batch),
+                                          train=train)
+        disc_p = params_of(state.disc)
+        disc_ng = params_of(state.disc, detach=True)
+        sample_kw = dict(temperature=compute_temperature(config,
+                                                         temperature),
+                         seed=_draw_seed(state),
+                         uniforms=noise.get("uniforms"))
+        if decode_route(config) == "kernel_embed":
+            # the sample arrives embedded: emb_fake carries gradient to the
+            # embedding weight only, emb_gen to the generator only
+            emb_gen, emb_fake, gen_ids = gen_lstm.sample_embed(
+                state.gen.decoder, cond["features"], captions.shape[1],
+                disc_embed=disc_p["embeddings.weight"], **sample_kw)
+            d_real = api.discriminator_apply(disc_p, captions, config, train,
+                                             keeps[0], draw)
+            d_fake = disc_cnn.apply_embedded(disc_p, emb_fake, config, train,
+                                             keeps[1], draw)
+            g_out = disc_cnn.apply_embedded(disc_ng, emb_gen, config, train,
+                                            keeps[2], draw)
+        else:
+            soft, gen_ids = api.generator_sample(
+                state.gen, cond, captions.shape[1], False, config,
+                **sample_kw)
+            d_real = api.discriminator_apply(disc_p, captions, config, train,
+                                             keeps[0], draw)
+            d_fake = api.discriminator_apply(disc_p, soft.detach(), config,
+                                             train, keeps[1], draw)
+            g_out = api.discriminator_apply(disc_ng, soft, config, train,
+                                            keeps[2], draw)
+    # the losses are reduced in float32 (the JAX step's .astype(float32))
+    d_real, d_fake, g_out = (d.to(torch.float32)
+                             for d in (d_real, d_fake, g_out))
 
     num_rep = api.disc_logits_per_sample(config)
     if config.noisy_labels > 0.0 and train:

@@ -2,7 +2,8 @@
 ``normalize_images`` (its CPU twin, ``(u8 / 255 - mean) / std``, as
 ``tests/test_pallas_kernels.py`` runs it) on the same uint8 images, within
 2e-6 absolute; and bit-equal to the TPU kernel's arithmetic
-(``u8 * scale[c] + shift[c]`` with float32 constants).  On CPU tensors the
+(``u8 * scale[c] + shift[c]`` with float32 constants); the bfloat16
+output is that result rounded once.  On CPU tensors the
 wrapper runs the plain version and launches nothing; malformed input
 raises before any launch."""
 
@@ -85,7 +86,20 @@ def test_malformed_input_raises(make, err):
     assert tnorm.normalize_images.launches == before
 
 
-def test_bfloat16_output_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tnorm.normalize_images(torch.zeros(1, 3, 2, 2, dtype=torch.uint8),
-                               torch.bfloat16)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bfloat16_output_matches_jax(shape):
+    """``--dtype bfloat16``: the same float32 map rounded once to bfloat16
+    (the TPU kernel's ``.astype(out_ref.dtype)``), bit-equal to rounding
+    the float32 plain version, and within one bfloat16 step (2^-7 of the
+    largest |entry|) of the JAX package's bfloat16 images: its CPU twin
+    divides where the kernel multiplies, so a float32 result on a
+    rounding boundary may round to the neighbouring bfloat16."""
+    u8 = _u8(shape, 7 + sum(shape))
+    want = np.asarray(jnorm.normalize_images(jnp.asarray(u8), jnp.bfloat16)
+                      .astype(jnp.float32))
+    got = tnorm.normalize_images(torch.from_numpy(u8), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    f32 = tnorm.normalize_images_plain(torch.from_numpy(u8))
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2 ** -7 * np.abs(want).max())

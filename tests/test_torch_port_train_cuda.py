@@ -232,7 +232,7 @@ def test_wrappers_raise_rather_than_fall_back(device):
     feats = _t(rng, device, 2, 8)
     before = decode_sample_resid.launches, decode_sample_noise.launches
     with pytest.raises(TypeError):
-        decode_sample_resid(feats.bfloat16(), layers, w, b, emb, 3)
+        decode_sample_resid(feats.half(), layers, w, b, emb, 3)
     with pytest.raises(ValueError):   # uniforms one column short
         decode_sample(feats, layers, w, b, emb, 3, mode="sample",
                       uniforms=torch.zeros(3, 2, 63, device=device))
@@ -240,13 +240,13 @@ def test_wrappers_raise_rather_than_fall_back(device):
             decode_sample_noise.launches) == before
     emb_pad, w_all, b_all, banks, R = _conv_setup(device, 1)
     with pytest.raises(TypeError):
-        disc_conv.conv_bank_forward(emb_pad.bfloat16(), w_all, b_all, banks,
+        disc_conv.conv_bank_forward(emb_pad.half(), w_all, b_all, banks,
                                     R, 1)
     args = [t.to(device) for t in (torch.zeros(1, 4, 16), torch.zeros(
         1, 4, 16), torch.zeros(3, 2, 4), torch.zeros(3, 1, 2, 16),
         torch.zeros(3, 1, 2, 4))]
     with pytest.raises(TypeError):
-        lstm_bptt_chain(args[0], args[1], args[2].bfloat16(), args[3],
+        lstm_bptt_chain(args[0], args[1], args[2].half(), args[3],
                         args[4])
 
 
