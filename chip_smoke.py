@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only eval_decode
     python3 chip_smoke.py --only resume,scst
     python3 chip_smoke.py --only bf16
+    python3 chip_smoke.py --only tf_bf16
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -373,13 +374,45 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     weights in turns, device time by kernel (torch.profiler) and launches
     by the wrappers' counters.
 
+32. ``tf_bf16`` — ``--dtype bfloat16`` for the transformer family at
+    config4's full width (B = 64, T = 36). The flash kernels' bfloat16
+    instantiations at the generator's MLE shape [64, 37, 8, 32] (causal,
+    lengths + 1) and log-prob pass (causal), the discriminator's [64, 36,
+    8, 16] and the rollouts' [256, 36, 8, 16] (full; the fused forward
+    and backward) and [2, 200, 2, 24] (the tiled forward, dQ and dK/dV),
+    and the sampler's at [64, 11008] and [64, 11007], against their plain
+    versions on the same bfloat16 inputs (each output and gradient entry
+    within one bfloat16 step, plus the float32 kernels' 1e-5 of the
+    largest entry where a sum cancels; ids equal or ties within 1e-4) and
+    against the float32 instantiations on the widened inputs (bit-equal
+    once rounded); one bfloat16 launch a call; the Philox draw's ids
+    distributed as softmax(logits); ``device_ms`` beside the plain
+    versions', the bounds (bfloat16 bytes at 3.35 TB/s or float32
+    operations at 67 TFLOP/s) and ``scaled_dot_product_attention`` in
+    bfloat16 (forward, backward alone). Then one MLE, one REINFORCE and
+    one Gumbel adversarial step in bfloat16 (``bf16_mu``) with the
+    launches of the design, none float32; each step's losses (4 units)
+    and gradients through the kernels against the same step through the
+    plain versions on the same state and fed noise (sampled ids equal;
+    each gradient tensor within 8 units of its largest entry, of its
+    side's for the attention's key bias, whose gradient is zero but for
+    rounding, and where it stays below 1e-5 of that, or at least as close
+    to the float32 step as the plain route's); config3's REINFORCE step with
+    rollouts in bfloat16 (the LSTM kernels' bfloat16 instantiations only);
+    ``main.py --preset config4 --dtype bfloat16`` on 128 synthetic items,
+    an epoch of each phase, its full-state snapshot loaded back and its
+    adversarial checkpoint served; and the config4 REINFORCE and MLE steps'
+    device time and launches (torch.profiler), float32 and bfloat16 in
+    turns on the same weights.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
 Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed``, the fused-embed backward, and the bfloat16
-instantiations of phase ``bf16``, with their launches in its drives) and,
+instantiations of phases ``bf16`` and ``tf_bf16``, with their launches in
+their drives) and,
 last, ``{"ok": true,
 "device": …}``.  The entries of the kernels on the evaluation path carry
 ``eval_decode_launches`` too, every entry ``scst_launches``, its
@@ -3151,16 +3184,17 @@ def tf_config(**overrides):
     return config_from_args(args).replace(disc_train_freq=1, **overrides)
 
 
-def tf_setup(device):
+def tf_setup(device, **overrides):
     """config4 at full width (gen 256/256, 4 layers, 8 heads; disc 64/128,
-    4 layers, 8 heads; V = 11008, T = 36, rollouts 4 every 4), float32, un-
-    swept initial weights from seed 0, and B = 64 captions of 3-34 random
-    tokens (ragged lengths for the MLE pass's masks)."""
+    4 layers, 8 heads; V = 11008, T = 36, rollouts 4 every 4), float32
+    unless ``overrides`` say otherwise, un-swept initial weights from seed
+    0, and B = 64 captions of 3-34 random tokens (ragged lengths for the
+    MLE pass's masks)."""
     from gan_image_captioning_tpu_torch.data.loader import make_batch
     from gan_image_captioning_tpu_torch.train.state import create_train_state
     from gan_image_captioning_tpu_torch.train.steps import batch_to
 
-    config = tf_config()
+    config = tf_config(**overrides)
     state = create_train_state(config, 0, device, sweep=False)
     rng = np.random.default_rng(77)
     caps = [rng.integers(4, min(11000, V), size=rng.integers(3, 35))
@@ -5949,13 +5983,14 @@ def bf16_close(a, b, units, what):
     return err
 
 
-def bf16_steps(a, b, what):
+def bf16_steps(a, b, what, floor=0.0):
     """bfloat16 ``a`` and ``b`` each entry equal or one bfloat16 step
-    apart (``BF16_STEP``) → max |a - b| and the largest |a - b| over its
-    bound (at most 1)."""
+    apart (``BF16_STEP``), plus ``floor`` times b's largest entry (where a
+    float32 sum that cancels far below its terms is rounded) → max |a - b|
+    and the largest |a - b| over its bound (at most 1)."""
     a, b = a.float(), b.float()
     bound = (BF16_STEP * torch.maximum(a.abs(), b.abs())
-             + torch.finfo(torch.float32).tiny)
+             + floor * float(b.abs().max()) + torch.finfo(torch.float32).tiny)
     ratio = float(((a - b).abs() / bound).max())
     check(ratio <= 1.0, f"bf16 {what}: an entry is {ratio} of a bfloat16 "
           "step off")
@@ -6741,6 +6776,605 @@ def bf16_entries(smi, row):
     return out
 
 
+# ------------------------------------------- bfloat16, the transformer family
+
+TF_BF16_TPU_KERNELS = {"flash_fwd_bf16": f"{FLASH_TPU}:81",
+                       "flash_dq_bf16": f"{FLASH_TPU}:156",
+                       "flash_dkv_bf16": f"{FLASH_TPU}:193",
+                       "gumbel_sample_bf16": "gan_image_captioning_tpu/kernels/"
+                                             "gumbel_sample.py:36"}
+TF_BF16_COUNTERS = {"flash_fwd_bf16": "flash_fwd", "flash_dq_bf16": "flash_bwd",
+                    "flash_dkv_bf16": "flash_bwd",
+                    "gumbel_sample_bf16": "gumbel_sample"}
+# launches per config4 Gumbel adversarial step (transformer generator): the
+# sampler once a decode step, the discriminator's layers forward and
+# backward for the real, fake and generator passes; the cache decode is
+# dense
+TF_PER_GUMBEL_STEP = {"gumbel_sample": T, "flash_fwd": 3 * TF_DISC_NL,
+                      "flash_bwd": 3 * TF_DISC_NL, "flash_dq": 0,
+                      "flash_dkv": 0}
+TF_BF16_ITEMS = 128
+
+
+def tf_bf16_reset():
+    cnt = tf_counters()
+    for fn in cnt.values():
+        fn.launches = fn.bf16_launches = 0
+    return cnt
+
+
+def flash_bf16_work(kind, b, t, h, d, pairs):
+    """Bytes (bfloat16 q, k, v, out, dO, dq, dk, dv; float32 lse) and
+    float32 operations of one bfloat16 flash call: the forward, or the
+    whole backward (delta included)."""
+    x, vec = 2 * b * t * h * d, 4 * b * t * h
+    if kind == "fwd":
+        return 4 * x + vec, 4 * d * pairs
+    return 8 * x + vec, 10 * d * pairs
+
+
+def tf_bf16_flash(device):
+    """The flash kernels' bfloat16 instantiations at config4's shapes and
+    the tiled ones' [2, 200, 2, 24]: against the plain versions on the
+    same bfloat16 inputs (out, dq, dk, dv each entry within a bfloat16
+    step, plus FLASH_GRAD_RTOL of the largest entry; lse within
+    FLASH_GRAD_RTOL), against the float32 instantiation on the widened
+    inputs (bit-equal once rounded), one bfloat16 launch a call; device
+    time beside the plain versions', the bound and SDPA in bfloat16
+    (forward, and backward alone)."""
+    import torch.nn.functional as F
+
+    from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(56)
+    lens_gen = torch.from_numpy(rng.integers(3, T + 1, B_TRAIN).astype(
+        np.int32) + 1).to(device)
+    lens_tiled = torch.from_numpy(rng.integers(1, 201, 2).astype(
+        np.int32)).to(device)
+    hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
+    cases = {"gen_mle": ((B_TRAIN, T + 1, TF_HEADS, hd), True, lens_gen),
+             "gen_logprob": ((B_TRAIN, T + 1, TF_HEADS, hd), True, None),
+             "disc": ((B_TRAIN, T, TF_DISC_HEADS, dd), False, None),
+             "disc_rollout": ((B_TRAIN * TF_ROLLOUT_NUM, T, TF_DISC_HEADS,
+                               dd), False, None),
+             "tiled_t200": ((2, 200, 2, 24), True, lens_tiled)}
+    rows, times = {}, {}
+    for name, (shape, causal, lens) in cases.items():
+        t_case = time.perf_counter()
+        q, k, v, g = (seeded(shape, 90 + i, device).to(BF16)
+                      for i in range(4))
+        cnt = tf_bf16_reset()
+        out, lse = fa.flash_fwd(q, k, v, causal, lens)
+        dq, dk, dv = fa.flash_bwd(q, k, v, out, g, lse, causal, lens)
+        torch.cuda.synchronize()
+        launches = bf16_launches(cnt, f"tf_bf16 flash {name}")
+        fused = fa.flash_bwd.last_kernel == "fused"
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, causal, lens)
+        p_grads = fa.flash_bwd_plain(q, k, v, out, g, lse, causal, lens)
+        f_out, f_lse = fa.flash_fwd(q.float(), k.float(), v.float(), causal,
+                                    lens)
+        f_grads = fa.flash_bwd(q.float(), k.float(), v.float(), out.float(),
+                               g.float(), lse, causal, lens)
+        row = {"shape": list(shape), "causal": causal,
+               "lengths": lens is not None, "launches": launches,
+               "backward_kernel": fa.flash_bwd.last_kernel,
+               "lse_max_abs_diff": float((lse - p_lse).abs().max()),
+               "float32_rounded_bit_equal": bool(
+                   torch.equal(out, f_out.to(BF16)) and torch.equal(lse, f_lse)
+                   and all(torch.equal(a, b.to(BF16))
+                           for a, b in zip((dq, dk, dv), f_grads)))}
+        for n, a, b in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                           (p_out, *p_grads)):
+            row[f"{n}_max_abs_diff"], row[f"{n}_step_ratio"] = bf16_steps(
+                a, b, f"tf_bf16 flash {name} {n}", floor=FLASH_GRAD_RTOL)
+        emit({"phase": "tf_bf16", "kernel": "flash", "case": name, **row})
+        check(launches == {"flash_fwd": 1, "flash_bwd": int(fused),
+                           "flash_dq": int(not fused),
+                           "flash_dkv": int(not fused), "gumbel_sample": 0},
+              f"tf_bf16 flash {name}: launches {launches}")
+        check(fused == (name != "tiled_t200"), f"tf_bf16 flash {name} {row}")
+        check(row["lse_max_abs_diff"] <= FLASH_GRAD_RTOL
+              * float(p_lse.abs().max()), f"tf_bf16 flash {name} lse {row}")
+        check(row["float32_rounded_bit_equal"],
+              f"tf_bf16 flash {name}: not the float32 kernel rounded {row}")
+        rows[name] = row
+        t_timed = time.perf_counter()
+
+        # times, in turns: the kernels, the plain versions, SDPA in
+        # bfloat16 (boolean mask; [B, H, T, D] views made contiguous
+        # outside the timing), the forward and the backward alone
+        b_, t_, h_, d_ = shape
+        mask = torch.ones((1, 1, t_, t_), dtype=torch.bool, device=device)
+        if causal:
+            mask = torch.tril(mask)
+        if lens is not None:
+            mask = mask & (torch.arange(t_, device=device)[None, :]
+                           < lens[:, None])[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+        t_lib = time.perf_counter()
+        lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_err = float((lib.detach().transpose(1, 2).float()
+                         - p_out.float()).abs().max())
+
+        def lib_bwd():
+            torch.autograd.grad(lib, (qt, kt, vt), gt, retain_graph=True)
+
+        lib_bwd()
+        torch.cuda.synchronize()
+        t_lib = time.perf_counter() - t_lib
+
+        with torch.no_grad():
+            fns = {
+                "kernel_fwd": lambda: fa.flash_fwd(q, k, v, causal, lens),
+                "kernel_bwd": lambda: fa.flash_bwd(q, k, v, out, g, lse,
+                                                   causal, lens),
+                "plain_fwd": lambda: fa.flash_fwd_plain(q, k, v, causal,
+                                                        lens),
+                "plain_bwd": lambda: fa.flash_bwd_plain(q, k, v, out, g, lse,
+                                                        causal, lens),
+                "library_fwd": lambda: F.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach(), attn_mask=mask)}
+            ms = {n: [device_ms(f)] for n, f in fns.items()}
+            for n, f in reversed(list(fns.items())):
+                ms[n].append(device_ms(f))
+        ms["library_bwd"] = [device_ms(lib_bwd, 10), device_ms(lib_bwd, 10)]
+        del lib
+        pairs = attention_pairs(b_, t_, h_, causal, lens)
+        t_row = {"ms": ms, "library_max_abs_diff": lib_err, "pairs": pairs,
+                 "seconds": {"checks": t_timed - t_case,
+                             "library_first_call": t_lib,
+                             "timing": time.perf_counter() - t_timed}}
+        for kind in ("fwd", "bwd"):
+            nbytes, flops = flash_bf16_work(kind, b_, t_, h_, d_, pairs)
+            t_row[kind] = dict(zip(("bound_ms", "bound_by"),
+                                   bound(nbytes, flops)),
+                               bytes=nbytes, flop=flops)
+        emit({"phase": "tf_bf16", "timing": "flash", "case": name, **t_row})
+        times[name] = t_row
+    return rows, times
+
+
+def tf_bf16_gumbel(device):
+    """The sampler's bfloat16 instantiation at [64, V] (vector accesses)
+    and [64, V - 1] (scalar ones) on fed uniforms: ids equal, or each a tie
+    within ID_ATOL of the row's max score; soft within a bfloat16 step of
+    the plain version's; bit-equal to the float32 instantiation on the
+    widened logits, rounded (its Philox uniforms and ids too); one
+    bfloat16 launch a call; the Philox draw's ids distributed as
+    softmax(logits) (2^18 rows of 16 bfloat16 logits); device time beside
+    the plain version's and the bound."""
+    from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
+
+    rows, times = {}, {}
+    for b, v in ((B_TRAIN, V), (B_TRAIN, V - 1)):
+        logits = seeded((b, v), 170, device, 3.0).to(BF16)
+        u = torch.rand((b, v), generator=torch.Generator(
+            device=device).manual_seed(171), device=device)
+        cnt = tf_bf16_reset()
+        soft, ids = gs.gumbel_sample(logits, 1.0, uniforms=u)
+        torch.cuda.synchronize()
+        launches = bf16_launches(cnt, f"tf_bf16 gumbel {v}")
+        p_soft, p_ids = gs.gumbel_sample_plain(logits, 1.0, u)
+        x = (logits.float() - torch.log(-torch.log(u + gs.EPS) + gs.EPS))
+        gap = float((x.max(dim=-1).values
+                     - x.gather(1, ids.long()[:, None])[:, 0]).max())
+        f_soft, f_ids = gs.gumbel_sample(logits.float(), 1.0, uniforms=u)
+        u_a, u_b = torch.empty_like(u), torch.empty_like(u)
+        s_a, i_a = gs.gumbel_sample(logits, 1.0, seed=99, step=3,
+                                    uniforms_out=u_a)
+        s_b, i_b = gs.gumbel_sample(logits.float(), 1.0, seed=99, step=3,
+                                    uniforms_out=u_b)
+        row = {"shape": [b, v], "plan": gs.gumbel_plan(b, v),
+               "launches": launches["gumbel_sample"],
+               "ids_equal": bool(torch.equal(ids, p_ids)), "id_gap": gap,
+               "float32_rounded_bit_equal": bool(
+                   torch.equal(ids, f_ids) and torch.equal(soft,
+                                                           f_soft.to(BF16))),
+               "philox_float32_rounded_bit_equal": bool(
+                   torch.equal(u_a, u_b) and torch.equal(i_a, i_b)
+                   and torch.equal(s_a, s_b.to(BF16)))}
+        row["max_abs_soft_diff"], row["soft_step_ratio"] = bf16_steps(
+            soft, p_soft, f"tf_bf16 gumbel {v} soft")
+        emit({"phase": "tf_bf16", "kernel": "gumbel_sample", **row})
+        check(launches == {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0,
+                           "flash_dkv": 0, "gumbel_sample": 1},
+              f"tf_bf16 gumbel launches {launches}")
+        check(gap <= ID_ATOL and row["float32_rounded_bit_equal"]
+              and row["philox_float32_rounded_bit_equal"],
+              f"tf_bf16 gumbel {row}")
+        rows[v] = row
+        n = b * v
+        # bfloat16 logits read, soft written, ids; Philox noise (fed
+        # uniforms: 4 more bytes an element)
+        nbytes, flops = 4 * n + 4 * b, 7 * n
+        kern = lambda: gs.gumbel_sample(logits, 1.0, seed=7)   # noqa: E731
+        fed = lambda: gs.gumbel_sample(logits, 1.0, uniforms=u)  # noqa: E731
+        plain = lambda: gs.gumbel_sample_plain(logits, 1.0, u)  # noqa: E731
+        p_a, k_a, f_a = device_ms(plain), device_ms(kern), device_ms(fed)
+        f_b, k_b, p_b = device_ms(fed), device_ms(kern), device_ms(plain)
+        b_ms, b_by = bound(nbytes, flops)
+        times[v] = {"kernel_ms": [k_a, k_b], "kernel_fed_uniforms_ms":
+                    [f_a, f_b], "plain_ms": [p_a, p_b], "bound_ms": b_ms,
+                    "bound_by": b_by, "bytes": nbytes, "flop": flops,
+                    "shape": [b, v]}
+        emit({"phase": "tf_bf16", "timing": "gumbel_sample", **times[v]})
+    n_hist, v_hist = 1 << 18, 16
+    h_logits = torch.linspace(-2, 2, v_hist, device=device).to(BF16)
+    h_ids = gs.gumbel_sample(h_logits.expand(n_hist, v_hist).contiguous(),
+                             1.0, seed=5)[1]
+    hist = torch.bincount(h_ids.long(), minlength=v_hist).double() / n_hist
+    want = torch.softmax(h_logits.double(), dim=0)
+    rows["hist_max_abs_diff"] = float((hist - want).abs().max())
+    emit({"phase": "tf_bf16", "kernel": "gumbel_philox",
+          "hist_max_abs_diff": rows["hist_max_abs_diff"]})
+    check(rows["hist_max_abs_diff"] <= HIST_ATOL, f"tf_bf16 philox {rows}")
+    return rows, times
+
+
+@contextlib.contextmanager
+def tf_plain_versions():
+    """Within it, the transformer's flash attention is its plain version
+    (``flash_attention_plain``: in bfloat16 the kernels' arithmetic) and
+    the fused sampler its plain version on the fed uniforms: the kernel
+    route with each kernel replaced by the function it is held against."""
+    from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
+    from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
+    from gan_image_captioning_tpu_torch.models import transformer as ttf
+
+    real_attn, real_gs = ttf.flash_attention, gs.gumbel_sample
+
+    def plain_sampler(logits, temperature, seed=0, step=0, uniforms=None,
+                      uniforms_out=None):
+        check(uniforms is not None, "the plain sampler needs fed uniforms")
+        return gs.gumbel_sample_plain(logits, float(temperature), uniforms)
+
+    ttf.flash_attention, gs.gumbel_sample = fa.flash_attention_plain, \
+        plain_sampler
+    try:
+        yield
+    finally:
+        ttf.flash_attention, gs.gumbel_sample = real_attn, real_gs
+
+
+def tf_bf16_grads(kind, config, state, batch, noise):
+    from gan_image_captioning_tpu_torch.train import steps
+
+    if kind == "mle":
+        return tf_grads(kind, config, state, batch, noise)
+    return steps.adv_grads(config.replace(adv_objective=(
+        "reinforce" if kind == "rl" else "gumbel")), state, batch,
+        1.0 if kind == "rl" else TEMP, noise)
+
+
+def tf_bf16_compare(kern, plain, ref32):
+    """Per gradient tensor: max |kernel - plain| in bfloat16 units of the
+    plain route's largest entry, or of the side's largest where the
+    float32 kernel step's gradient (``ref32``) stays below
+    FLASH_GRAD_RTOL of its side's largest (the attention's key bias, zero
+    but for rounding since the softmax is invariant to a shift of a row
+    of scores; its query and key projections at initialization), as
+    ``tests/torch_bf16_parity.py:grad_misses`` holds them; and whether an
+    entry outside BF16_GRAD_UNITS is at least as close (L2) to ``ref32``
+    as the plain route's."""
+    out, misses = {}, []
+    for side, i in (("gen", 2), ("disc", 3)):
+        a, b, r = kern[i], plain[i], ref32[i]
+        if not b:
+            continue
+        top = max(float(x.abs().max()) for x in b.values())
+        top32 = max(float(x.abs().max()) for x in r.values())
+        for k in b:
+            small = float(r[k].abs().max()) < FLASH_GRAD_RTOL * top32
+            scale = top if small else float(b[k].abs().max())
+            units = float((a[k] - b[k]).abs().max()) / max(
+                BF16_UNIT * scale, 1e-30)
+            out[f"{side}.{k}"] = units
+            if units > BF16_GRAD_UNITS:
+                ours = float((a[k].float() - r[k].float()).norm())
+                theirs = float((b[k].float() - r[k].float()).norm())
+                tol = (BF16_GRAD_UNITS * BF16_UNIT * scale
+                       * math.sqrt(b[k].numel()))
+                if ours > theirs + tol:
+                    misses.append((f"{side}.{k}", units, ours, theirs))
+    return out, misses
+
+
+def tf_bf16_steps(device):
+    """config4 at full width in bfloat16 (``bf16_mu``): one MLE, one
+    REINFORCE and one Gumbel adversarial step with the launches of the
+    design, every one bfloat16; each step's losses and gradients through
+    the kernels against the plain versions (``tf_plain_versions``) on the
+    same state and fed noise: sampled ids equal, losses within
+    BF16_LOSS_UNITS, each gradient tensor within BF16_GRAD_UNITS of its
+    largest entry or at least as close to the float32 kernel step as the
+    plain route's; then config3's repaired REINFORCE step (LSTM, CNN) in
+    bfloat16: every launch a bfloat16 instantiation."""
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    config, state, batch = tf_setup(device, dtype="bfloat16", bf16_mu=True)
+    row = {}
+    for kind, cfg, per in (("mle", config, TF_PER_MLE_STEP),
+                           ("rl", config, TF_PER_RL_STEP),
+                           ("gumbel", config.replace(adv_objective="gumbel"),
+                            TF_PER_GUMBEL_STEP)):
+        cnt = tf_bf16_reset()
+        if kind == "mle":
+            state, m = make_mle_step(cfg)(state, batch)
+        else:
+            state, m = make_adv_step(cfg)(state, batch, 1.0)
+        torch.cuda.synchronize()
+        launches = bf16_launches(cnt, f"tf_bf16 {kind} step")
+        row[kind] = {"launches": launches,
+                     "metrics": {k: float(v) for k, v in m.items()}}
+        check(launches == per, f"tf_bf16 {kind} launches {launches} != {per}")
+        check(all(math.isfinite(x) for x in row[kind]["metrics"].values()),
+              f"tf_bf16 {kind} metrics {row[kind]}")
+    check(all(v.dtype == BF16 for opt in (state.pretrain_opt, state.gen_opt,
+                                          state.disc_opt)
+              for v in opt.mu.values()), "tf_bf16: a first moment is not "
+          "bfloat16")
+
+    for kind in ("mle", "rl", "gumbel"):
+        noise = tf_noise(config, device)
+        noise["keep"] = noise["keep"] + [noise["keep"][0].clone()]
+        kern = tf_bf16_grads(kind, config, state, batch, noise)
+        with tf_plain_versions():
+            plain = tf_bf16_grads(kind, config, state, batch, noise)
+        ref32 = tf_bf16_grads(kind, config.replace(dtype="float32"), state,
+                              batch, noise)
+        units, misses = tf_bf16_compare(kern, plain, ref32)
+        worst = sorted(units.items(), key=lambda kv: -kv[1])[:4]
+        cmp = {"g_loss": [float(kern[0]), float(plain[0])],
+               "d_loss": [float(kern[1]), float(plain[1])],
+               "ids_equal": bool(torch.equal(kern[4]["gen_ids"],
+                                             plain[4]["gen_ids"])),
+               "worst_grad_units": worst, "misses": misses}
+        emit({"phase": "tf_bf16", "kernels_vs_plain": kind, **cmp})
+        for a, b in (cmp["g_loss"], cmp["d_loss"]):
+            check(abs(a - b) <= BF16_LOSS_UNITS * BF16_UNIT * max(abs(b),
+                                                                  1e-30),
+                  f"tf_bf16 {kind} losses {cmp}")
+        check(cmp["ids_equal"], f"tf_bf16 {kind}: the routes sampled apart")
+        check(not misses, f"tf_bf16 {kind} gradients {cmp}")
+        row[f"{kind}_vs_plain"] = cmp
+        del kern, plain, ref32
+
+    # config3's REINFORCE step, now inside the compute cast
+    lstm_cfg = bf16_config(adv_objective="reinforce", rollout_num=4)
+    lstm_state = create_train_state(lstm_cfg, 0, device, sweep=False)
+    cnt = bf16_reset()
+    lstm_state, m = make_adv_step(lstm_cfg)(lstm_state, train_batch(device),
+                                           1.0)
+    torch.cuda.synchronize()
+    launches = bf16_launches(cnt, "tf_bf16 LSTM REINFORCE step")
+    row["lstm_reinforce"] = {"launches": launches, "metrics": {
+        k: float(v) for k, v in m.items()}}
+    emit({"phase": "tf_bf16", "lstm_reinforce": row["lstm_reinforce"]})
+    for k in ("decode_sample_resid_bf16", "decode_sample_logits_bf16",
+              "lstm_bptt_reverse_bf16", "disc_conv_fwd_bf16",
+              "disc_conv_bwd_dx_bf16"):
+        check(launches[k] > 0, f"tf_bf16 LSTM REINFORCE: {k} never launched "
+              f"{launches}")
+    check(all(math.isfinite(x) for x in row["lstm_reinforce"]["metrics"]
+              .values()), f"tf_bf16 LSTM REINFORCE {row['lstm_reinforce']}")
+    return row, (config, state, batch)
+
+
+def tf_bf16_loop(workdir):
+    """``main.py --preset config4 --dtype bfloat16`` (with ``bf16_mu``) on
+    128 synthetic items: one pretrain and one REINFORCE epoch with a
+    full-state snapshot an epoch, every launch bfloat16; the snapshot
+    loaded back (bfloat16 first moments) and the adversarial checkpoint
+    served."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.train import checkpoint as ckpt
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+
+    save = workdir / "tf_bf16_loop"
+    shutil.rmtree(save, ignore_errors=True)
+    argv = [*TF_MODEL_FLAGS, "--dtype", "bfloat16", "--synthetic-items",
+            str(TF_BF16_ITEMS), "--pretrain-epochs", "1", "--adv-epochs",
+            "1", "--checkpoint-every", "1", "--save-dir", str(save),
+            "--expt-name", "tf_bf16"]
+    real = train_main.config_from_args
+    train_main.config_from_args = lambda args: real(args).replace(
+        bf16_mu=True)
+    cnt = tf_bf16_reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            inst = train_main.main(argv)
+    finally:
+        train_main.config_from_args = real
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = bf16_launches(cnt, "tf_bf16 loop")
+    rows = [json.loads(ln) for ln in open(Path(inst.config.save_dir)
+                                          / "metrics.jsonl")]
+    snaps = sorted(Path(inst.config.model_dir).glob("state_*.ckpt"))
+    check(snaps, "tf_bf16 loop: no full-state snapshot")
+    back = ckpt.load_state(str(snaps[-1]), create_train_state(
+        inst.config, 0, next(inst.state.gen.parameters()).device))
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", str(Path(inst.config.model_dir) / "adv_model.ckpt"),
+         *TF_MODEL_FLAGS]))
+    try:
+        resp = service.handle_request({"n": 2})
+    finally:
+        service.close()
+    row = {"seconds": seconds, "launches": launches,
+           "pretrain_steps": inst.pretrain_steps,
+           "gen_steps": inst.state.gen_steps, "snapshot": snaps[-1].name,
+           "mu_dtypes": sorted({str(v.dtype) for opt in (
+               back.pretrain_opt, back.gen_opt, back.disc_opt)
+               for v in opt.mu.values()}),
+           "served_captions": resp["captions"]}
+    emit({"phase": "tf_bf16", "loop": row})
+    check(inst.config.dtype == "bfloat16" and inst.config.bf16_mu,
+          "tf_bf16 loop: the flags did not reach the config")
+    check(rows and all(math.isfinite(r["value"]) for r in rows),
+          "tf_bf16 loop: non-finite metric")
+    check(inst.pretrain_steps > 0 and inst.state.gen_steps > 0,
+          f"tf_bf16 loop steps {row}")
+    check(all(launches[k] > 0 for k in ("flash_fwd", "flash_bwd",
+                                         "gumbel_sample")),
+          f"tf_bf16 loop launches {launches}")
+    check(row["mu_dtypes"] == ["torch.bfloat16"],
+          f"tf_bf16 loop: reloaded mu {row['mu_dtypes']}")
+    check(len(resp["captions"]) == 2 and all(
+        math.isfinite(x) for x in resp["logprobs"]),
+        f"tf_bf16 loop: served {resp}")
+    return row
+
+
+def tf_bf16_profile(fn, calls):
+    """One window of ``calls`` calls of ``fn`` under torch.profiler (CUDA
+    activity only: the CPU side of a REINFORCE step's 80 000 launches would
+    take the profiler longer than the step) → device time, kernel
+    launches and busy share per step by the profiler, host ms per step,
+    the wrappers' launches per step, and whether the profiler recorded
+    every flash forward the wrapper launched (it drops events at times in
+    a long process).  The device events are read from the profiler's raw
+    results: ``key_averages`` builds an event tree first, about 16 s for
+    one REINFORCE step's 85 000 kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cnt = tf_bf16_reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    us = n = seen = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        us += ev.duration_ns() / 1e3
+        n += 1
+        seen += "flash_fwd" in ev.name()
+    return {"host_ms_per_step": wall / calls,
+            "device_ms_per_step": us / 1e3 / calls,
+            "launches_per_step": n / calls, "busy_share": us / 1e3 / wall,
+            "wrapper_launches_per_step": {k: f.launches / calls
+                                          for k, f in cnt.items()},
+            "wrapper_bf16_launches_per_step": {
+                k: f.bf16_launches / calls for k, f in cnt.items()},
+            "profiler_saw_every_flash_forward":
+                seen == cnt["flash_fwd"].launches,
+            "seconds": {"window": wall / 1e3, "stop": t1 - t0 - wall / 1e3,
+                        "read": time.perf_counter() - t1}}
+
+
+def tf_bf16_timing(setup):
+    """The config4 REINFORCE step (1 a turn) and MLE step (2 a turn):
+    device time and kernel launches (``tf_bf16_profile``) and host ms,
+    float32 against bfloat16 on the same weights, in turns (float32,
+    bfloat16, bfloat16, float32); a bfloat16 turn launches no float32
+    instantiation, a float32 one no bfloat16."""
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    config, state, batch = setup
+    f32_cfg = config.replace(dtype="float32", bf16_mu=False)
+    out = {"f32": [], "bf16": []}
+    for dt, cfg in (("f32", f32_cfg), ("bf16", config), ("bf16", config),
+                    ("f32", f32_cfg)):
+        mle, adv = make_mle_step(cfg), make_adv_step(cfg)
+        turn = {"rl": tf_bf16_profile(lambda: adv(state, batch, 1.0), 1),
+                "mle": tf_bf16_profile(lambda: mle(state, batch), 2)}
+        out[dt].append(turn)
+        for kind, row in turn.items():
+            want = (row["wrapper_launches_per_step"] if dt == "bf16"
+                    else {k: 0 for k in row["wrapper_launches_per_step"]})
+            check(row["wrapper_bf16_launches_per_step"] == want,
+                  f"tf_bf16 timing: {dt} {kind} launches {row}")
+    emit({"phase": "tf_bf16", "timing": out})
+    return out
+
+
+def phase_tf_bf16(device, workdir):
+    """``--dtype bfloat16`` for the transformer family (the chip_smoke
+    docstring's ``tf_bf16``)."""
+    marks = [("start", time.perf_counter())]
+    flash_rows, flash_times = tf_bf16_flash(device)
+    marks.append(("flash", time.perf_counter()))
+    g_rows, g_times = tf_bf16_gumbel(device)
+    marks.append(("gumbel", time.perf_counter()))
+    steps, setup = tf_bf16_steps(device)
+    marks.append(("steps", time.perf_counter()))
+    loop = tf_bf16_loop(workdir)
+    marks.append(("loop", time.perf_counter()))
+    timing = tf_bf16_timing(setup)
+    marks.append(("timing", time.perf_counter()))
+    emit({"phase": "tf_bf16", "seconds": marks[-1][1] - marks[0][1],
+          "seconds_by_part": {name: t - marks[i][1] for i, (name, t)
+                              in enumerate(marks[1:])}})
+    return {"flash": flash_rows, "flash_times": flash_times,
+            "gumbel": g_rows, "gumbel_times": g_times, "steps": steps,
+            "loop": loop, "timing": timing}
+
+
+def tf_bf16_entries(smi, row):
+    """The transformer family's bfloat16 instantiations on the ``kernels``
+    line: times at the generator's MLE shape (flash, every case under
+    ``by_case``) and at [64, V] (the sampler); launches from the phase's
+    config4 steps (MLE, REINFORCE, Gumbel).  ``_dq_kernel`` and
+    ``_dkv_kernel`` are one launch of the fused backward, as in float32."""
+    steps = row["steps"]
+    launches = {k: sum(steps[s]["launches"][k] for s in ("mle", "rl",
+                                                          "gumbel"))
+                for k in ("flash_fwd", "flash_bwd", "gumbel_sample")}
+    out = []
+    for name, tpu in TF_BF16_TPU_KERNELS.items():
+        if name == "gumbel_sample_bf16":
+            t = row["gumbel_times"][V]
+            err = max(r["max_abs_soft_diff"] for k, r in
+                      row["gumbel"].items() if isinstance(r, dict))
+            entry = {"ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": None, "shape": t["shape"]}
+        else:
+            kind = "fwd" if name == "flash_fwd_bf16" else "bwd"
+            keys = (("out",) if kind == "fwd" else
+                    ("dq",) if name == "flash_dq_bf16" else ("dk", "dv"))
+            err = max(r[f"{k}_max_abs_diff"] for r in row["flash"].values()
+                      for k in keys)
+            t = row["flash_times"]["gen_mle"]
+            entry = {"ms": min(t["ms"][f"kernel_{kind}"]),
+                     "plain_ms": min(t["ms"][f"plain_{kind}"]),
+                     "bound_ms": t[kind]["bound_ms"],
+                     "bound_by": t[kind]["bound_by"],
+                     "library_ms": min(t["ms"][f"library_{kind}"]),
+                     "shape": row["flash"]["gen_mle"]["shape"],
+                     "by_case": {c: {
+                         "ms": min(x["ms"][f"kernel_{kind}"]),
+                         "plain_ms": min(x["ms"][f"plain_{kind}"]),
+                         "library_ms": min(x["ms"][f"library_{kind}"]),
+                         "bound_ms": x[kind]["bound_ms"],
+                         "kernel": row["flash"][c]["backward_kernel"]
+                         if kind == "bwd" else None}
+                         for c, x in row["flash_times"].items()}}
+        out.append({"name": name, "route": "cuda",
+                    "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                              + ("gumbel_sample.cu" if name.startswith("gumbel")
+                                 else "flash_attention.cu"),
+                    "replaces": tpu,
+                    "launches": launches[TF_BF16_COUNTERS[name]],
+                    "max_abs_err": err, **entry, "dtype": "bfloat16",
+                    "card": smi})
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -6842,6 +7476,8 @@ def main(argv=None):
         so_row = phase_step_options(device, workdir, smi)
     if run("bf16"):
         bf16_row = phase_bf16(gen, device, workdir)
+    if run("tf_bf16"):
+        tf_bf16_row = phase_tf_bf16(device, workdir)
     if only:
         return 0
 
@@ -6870,7 +7506,8 @@ def main(argv=None):
         + tf_entries(smi, tfk, tf_train)
         + engine_entries(smi, engines, reverse)
         + mode_entries(smi, modes, impls)
-        + bf16_entries(smi, bf16_row))
+        + bf16_entries(smi, bf16_row)
+        + tf_bf16_entries(smi, tf_bf16_row))
     # the evaluation path's launches (phase eval_decode, counts set to 0
     # before each evaluate.py run): greedy, int8 greedy, beam 4 with the
     # discriminator score; NLL_gen through the pretrain mode in each

@@ -739,10 +739,11 @@ def require_ported_arch(config: Config) -> None:
 
 # What --dtype bfloat16 runs in bfloat16 through the bfloat16 kernels
 # (decode modes sample_resid / greedy / pretrain and quantized serve, the
-# BPTT chain and reverse, the mxu conv forward and backward, image_norm):
-# an LSTM generator with the CNN discriminator, the kernel decode route
-# (or the port's plain one) and these conv engines.  Everything else in
-# bfloat16 is ROADMAP.md queue 1 item 3's remainder.
+# BPTT chain and reverse, the mxu conv forward and backward, image_norm,
+# flash attention forward and backward, the Gumbel sampler): either
+# generator with any discriminator, the kernel decode route (or the port's
+# plain one) and these conv engines.  Everything else in bfloat16 is
+# ROADMAP.md queue 1 item 3's remainder.
 BF16_DECODE_ROUTES = ("kernel", "plain")
 BF16_DISC_ENGINES = ("auto", "mxu", "pallas", "xla", "plain")
 
@@ -767,11 +768,6 @@ def require_ported_dtype(config: Config) -> None:
                          "bfloat16")
     todo = ("is not ported yet (ROADMAP.md queue 1, item 3: the rest of "
             "bfloat16)")
-    if config.gen_arch != "lstm" or config.disc_arch != "cnn":
-        raise NotImplementedError(
-            f"--dtype bfloat16 with --gen-arch {config.gen_arch} "
-            f"--disc-arch {config.disc_arch}: the transformer family in "
-            f"bfloat16 (flash attention, the Gumbel sampler) {todo}")
     route = decode_route(config)
     if route not in BF16_DECODE_ROUTES:
         raise NotImplementedError(

@@ -77,4 +77,25 @@ __device__ __forceinline__ void ld8_bf16(const bf16* p, float (&out)[8]) {
   out[7] = bf16_hi(u.w);
 }
 
+// Four neighbouring elements of W, widened: 16 bytes of float32 by a
+// read-only load, 8 of bfloat16 (aligned so).
+__device__ __forceinline__ float4 ld4w(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4w(const bf16* p) { return ld4_bf16(p); }
+
+// Four floats stored as neighbouring elements of W: 16 bytes of float32, 8
+// of bfloat16, each rounded once (aligned so).
+__device__ __forceinline__ void st4w(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void st4w(bf16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 }  // namespace gic

@@ -1,6 +1,6 @@
-// Blocked (flash) self-attention for Hopper (sm_90a), float32: the forward
-// with its logsumexp, and the backward that recomputes the probabilities
-// from it.
+// Blocked (flash) self-attention for Hopper (sm_90a), float32 and
+// bfloat16: the forward with its logsumexp, and the backward that
+// recomputes the probabilities from it.
 //
 // Replaces: gan_image_captioning_tpu/kernels/flash_attention.py, functions
 // `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` (launched by
@@ -165,12 +165,31 @@
 // has 64 row slots for 36 rows, K and V arrive by 4-byte loads, and each
 // row walks its keys one dependent step (FMAs, shuffles, an exp, a
 // rescale) at a time.
+//
+// bfloat16 (--dtype bfloat16: the JAX kernels on bfloat16 inputs).  Every
+// kernel is a template of its element type W, float or __nv_bfloat16
+// (csrc/bf16.cuh): q, k, v, out and dO are W, lse and delta float32.  A
+// bfloat16 row is widened exactly as it is staged, by 8-byte loads into
+// the same float32 shared tiles the float32 kernels fill by cp.async, so
+// the launch plans and the shared memory are float32's.  Every score, P,
+// product and sum stays float32 and P is not rounded before P.V, as the
+// JAX kernels' dot_generals take preferred_element_type=float32; out, dq,
+// dk and dv are rounded once (dq and dk after the scale); delta reads the
+// stored, rounded out.  No bfloat16 mma: it would round P.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 namespace {
+
+using gic::bf16;
+using gic::ld4w;
+using gic::st4w;
+using gic::store_as;
+using gic::to_f;
 
 constexpr int NT = 128;             // threads per block
 constexpr int DS = 8;               // columns of D per thread
@@ -210,21 +229,25 @@ struct RowMap {
   }
 };
 
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
+template <class W>
+__device__ __forceinline__ void load_row(const W* __restrict__ src,
                                          const RowMap& m, int t, int T,
                                          float (&dst)[DS]) {
 #pragma unroll
   for (int i = 0; i < DS; ++i)
-    dst[i] = (m.own && t < T) ? src[m.head + t * m.rs + m.d0 + i] : 0.f;
+    dst[i] = (m.own && t < T) ? to_f(src[m.head + t * m.rs + m.d0 + i])
+                              : 0.f;
 }
 
-// Rows [t0, t0 + n) of one (b, h) of `src` into a [n, D] shared tile.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+// Rows [t0, t0 + n) of one (b, h) of `src` into a [n, D] float32 shared
+// tile.
+template <class W>
+__device__ __forceinline__ void load_tile(const W* __restrict__ src,
                                           const RowMap& m, int t0, int n,
                                           int D, float* tile) {
   for (int e = threadIdx.x; e < n * D; e += NT) {
     const int j = e / D, d = e % D;
-    tile[e] = src[m.head + (size_t)(t0 + j) * m.rs + d];
+    tile[e] = to_f(src[m.head + (size_t)(t0 + j) * m.rs + d]);
   }
 }
 
@@ -236,10 +259,11 @@ __device__ __forceinline__ float dot_part(const float (&a)[DS],
   return s;
 }
 
+template <class W>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ lengths,
-    float* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const int* __restrict__ lengths,
+    W* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
     int tpr, int causal, float scale) {
   __shared__ __align__(16) float Ks[TILE];
   __shared__ __align__(16) float Vs[TILE];
@@ -297,17 +321,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     if (m.own) {
 #pragma unroll
       for (int i = 0; i < DS; ++i)
-        out[m.head + m.row * m.rs + m.d0 + i] = acc[i] / l_safe;
+        store_as(out, m.head + m.row * m.rs + m.d0 + i, acc[i] / l_safe);
     }
     if (m.d0 == 0) lse[m.vec(m.row, T, H)] = mx + logf(l_safe);
   }
 }
 
+template <class W>
 __global__ void __launch_bounds__(NT) flash_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const W* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ lengths, float* __restrict__ dq, int T, int H,
+    const int* __restrict__ lengths, W* __restrict__ dq, int T, int H,
     int D, int tpr, int causal, float scale) {
   __shared__ __align__(16) float Ks[TILE];
   __shared__ __align__(16) float Vs[TILE];
@@ -352,16 +377,17 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(
   if (m.row < T && m.own) {
 #pragma unroll
     for (int i = 0; i < DS; ++i)
-      dq[m.head + m.row * m.rs + m.d0 + i] = acc[i] * scale;
+      store_as(dq, m.head + m.row * m.rs + m.d0 + i, acc[i] * scale);
   }
 }
 
+template <class W>
 __global__ void __launch_bounds__(NT) flash_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const W* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ lengths, float* __restrict__ dk,
-    float* __restrict__ dv, int T, int H, int D, int tpr, int causal,
+    const int* __restrict__ lengths, W* __restrict__ dk,
+    W* __restrict__ dv, int T, int H, int D, int tpr, int causal,
     float scale) {
   __shared__ __align__(16) float Qs[TILE];
   __shared__ __align__(16) float Os[TILE];  // dO rows
@@ -414,8 +440,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
   if (col < T && m.own) {
 #pragma unroll
     for (int i = 0; i < DS; ++i) {
-      dk[m.head + col * m.rs + m.d0 + i] = dka[i] * scale;
-      dv[m.head + col * m.rs + m.d0 + i] = dva[i];
+      store_as(dk, m.head + col * m.rs + m.d0 + i, dka[i] * scale);
+      store_as(dv, m.head + col * m.rs + m.d0 + i, dva[i]);
     }
   }
 }
@@ -451,6 +477,16 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// Four neighbouring elements of a global row into a float32 shared slot
+// (16-byte aligned): float32 by a 16-byte cp.async, bfloat16 by an 8-byte
+// load, widened.
+__device__ __forceinline__ void stage4(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void stage4(float* dst, const bf16* src) {
+  *reinterpret_cast<float4*>(dst) = gic::ld4_bf16(src);
+}
+
 // q . k over DP columns (columns D..DP of both are zero), in two chains.
 template <int DP>
 __device__ __forceinline__ float dot_row(const float (&qr)[DP],
@@ -474,11 +510,11 @@ __device__ __forceinline__ float dot_row(const float (&qr)[DP],
 // Grid: B * ceil(H / G) blocks (batch row, group of G heads); block:
 // 2*G*T threads rounded up to a warp.  Dynamic shared memory: q, k and v
 // tiles of G heads, each T rows of DP + FT_PAD floats.
-template <int DP>
+template <int DP, class W>
 __global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ lengths,
-    float* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const int* __restrict__ lengths,
+    W* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
     int G, int causal, float scale) {
   constexpr int RS = DP + FT_PAD;  // staged row stride
   constexpr int DO = DP / FT_KS;   // columns a thread writes
@@ -499,9 +535,9 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
     const int t = e / cpr, c = e - t * cpr, g = c / cpd;
     const size_t src = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
     const int dst = (g * T + t) * RS + 4 * (c - g * cpd);
-    cp_async16(qs + dst, q + src);
-    cp_async16(ks + dst, k + src);
-    cp_async16(vs + dst, v + src);
+    stage4(qs + dst, q + src);
+    stage4(ks + dst, k + src);
+    stage4(vs + dst, v + src);
   }
   if (D < DP) {  // pad columns enter every dot product: zero them
     const int ppr = (DP - D) / 4;
@@ -591,13 +627,12 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
   if (!live) return;
   const float l_safe = fmaxf(l, 1e-30f);
   const size_t row = (size_t)(b * T + i) * H + h0 + g;
-  float* orow = out + row * D + s * DO;
+  W* orow = out + row * D + s * DO;
 #pragma unroll
   for (int c = 0; c < DO; c += 4) {  // D is a multiple of 8: whole float4s
     if (s * DO + c < D)
-      *reinterpret_cast<float4*>(orow + c) =
-          make_float4(acc[c] / l_safe, acc[c + 1] / l_safe,
-                      acc[c + 2] / l_safe, acc[c + 3] / l_safe);
+      st4w(orow + c, make_float4(acc[c] / l_safe, acc[c + 1] / l_safe,
+                                 acc[c + 2] / l_safe, acc[c + 3] / l_safe));
   }
   if (s == 0) lse[row] = mx + logf(l_safe);
 }
@@ -634,16 +669,15 @@ __device__ __forceinline__ void join_slices(float (&acc)[DP], int s) {
 
 // A thread's DP / FB_KS columns of one output row, times `mul`, by float4
 // (D is a multiple of 8, so a float4 lies wholly inside or past D).
-template <int DP>
-__device__ __forceinline__ void store_cols(float* dst, const float (&acc)[DP],
+template <int DP, class W>
+__device__ __forceinline__ void store_cols(W* dst, const float (&acc)[DP],
                                            int s, int D, float mul) {
   constexpr int DO = DP / FB_KS;
 #pragma unroll
   for (int c = 0; c < DO; c += 4) {
     if (s * DO + c < D)
-      *reinterpret_cast<float4*>(dst + s * DO + c) =
-          make_float4(acc[c] * mul, acc[c + 1] * mul, acc[c + 2] * mul,
-                      acc[c + 3] * mul);
+      st4w(dst + s * DO + c, make_float4(acc[c] * mul, acc[c + 1] * mul,
+                                         acc[c + 2] * mul, acc[c + 3] * mul));
   }
 }
 
@@ -677,13 +711,13 @@ __device__ __forceinline__ void axpy_row(float (&acc)[DP], float a,
 // FB_KS*G*T threads rounded up to a warp.  Dynamic shared memory: the q,
 // k, v and dO tiles of G heads, T rows of DP + FT_PAD floats each, then
 // the P and dS tiles, [G, T, LD].
-template <int DP>
+template <int DP, class W>
 __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ out,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const int* __restrict__ lengths, float* __restrict__ dq,
-    float* __restrict__ dk, float* __restrict__ dv, int T, int H, int D,
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const W* __restrict__ out,
+    const W* __restrict__ dout, const float* __restrict__ lse,
+    const int* __restrict__ lengths, W* __restrict__ dq,
+    W* __restrict__ dk, W* __restrict__ dv, int T, int H, int D,
     int G, int causal, float scale) {
   constexpr int RS = DP + FT_PAD;
   constexpr int KS = FB_KS;
@@ -708,10 +742,10 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
     const int t = e / cpr, c = e - t * cpr, g = c / cpd;
     const size_t src = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
     const int dst = (g * T + t) * RS + 4 * (c - g * cpd);
-    cp_async16(qs + dst, q + src);
-    cp_async16(ks + dst, k + src);
-    cp_async16(vs + dst, v + src);
-    cp_async16(os + dst, dout + src);
+    stage4(qs + dst, q + src);
+    stage4(ks + dst, k + src);
+    stage4(vs + dst, v + src);
+    stage4(os + dst, dout + src);
   }
   if (D < DP) {  // pad columns enter every dot product: zero them
     const int ppr = (DP - D) / 4;
@@ -750,9 +784,8 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
     float yr[DP];  // out_i, read in place while the copies land
 #pragma unroll
     for (int c = 0; c < DP; c += 4) {
-      const float4 x =
-          live && c < D ? __ldg(reinterpret_cast<const float4*>(out + row * D + c))
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 x = live && c < D ? ld4w(out + row * D + c)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
       yr[c] = x.x;
       yr[c + 1] = x.y;
       yr[c + 2] = x.z;
@@ -796,7 +829,7 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
       }
     }
     join_slices<DP>(acc, s);
-    if (live) store_cols<DP>(dq + row * D, acc, s, D, scale);
+    if (live) store_cols<DP, W>(dq + row * D, acc, s, D, scale);
   }
   __syncthreads();
 
@@ -826,8 +859,8 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
     join_slices<DP>(dka, s);
     join_slices<DP>(dva, s);
     if (live) {
-      store_cols<DP>(dk + row * D, dka, s, D, scale);
-      store_cols<DP>(dv + row * D, dva, s, D, 1.f);
+      store_cols<DP, W>(dk + row * D, dka, s, D, scale);
+      store_cols<DP, W>(dv + row * D, dva, s, D, 1.f);
     }
   }
 }
@@ -888,22 +921,50 @@ bool aligned16(const void* p) {
 }
 
 // Dynamic shared memory above 48 KB must be allowed per kernel.
-template <int DP>
-cudaError_t launch_bwd(const FusedGeometry& f, int B, const float* q,
-                       const float* k, const float* v, const float* out,
-                       const float* dout, const float* lse,
-                       const int* lengths, float* dq, float* dk, float* dv,
+template <int DP, class W>
+cudaError_t launch_bwd(const FusedGeometry& f, int B, const void* q,
+                       const void* k, const void* v, const void* out,
+                       const void* dout, const float* lse,
+                       const int* lengths, void* dq, void* dk, void* dv,
                        int T, int H, int D, int causal, float scale,
                        cudaStream_t st) {
   if (f.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_fused_kernel<DP>,
+        flash_bwd_fused_kernel<DP, W>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, f.smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(B * ((H + f.g - 1) / f.g));
-  flash_bwd_fused_kernel<DP><<<grid, f.threads, f.smem, st>>>(
-      q, k, v, out, dout, lse, lengths, dq, dk, dv, T, H, D, f.g, causal,
+  flash_bwd_fused_kernel<DP, W><<<grid, f.threads, f.smem, st>>>(
+      static_cast<const W*>(q), static_cast<const W*>(k),
+      static_cast<const W*>(v), static_cast<const W*>(out),
+      static_cast<const W*>(dout), lse, lengths, static_cast<W*>(dq),
+      static_cast<W*>(dk), static_cast<W*>(dv), T, H, D, f.g, causal, scale);
+  return cudaGetLastError();
+}
+
+template <class W>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const int* lengths, void* out, float* lse, int B,
+                       int T, int H, int D, int causal, float scale,
+                       cudaStream_t st, int fused) {
+  const W* qw = static_cast<const W*>(q);
+  const W* kw = static_cast<const W*>(k);
+  const W* vw = static_cast<const W*>(v);
+  W* ow = static_cast<W*>(out);
+  if (fused) {
+    const FusedGeometry f = fused_geometry(T, H, D);
+    const dim3 grid(B * ((H + f.g - 1) / f.g));
+    if (D <= 16)
+      flash_fwd_fused_kernel<16, W><<<grid, f.threads, f.smem, st>>>(
+          qw, kw, vw, lengths, ow, lse, T, H, D, f.g, causal, scale);
+    else
+      flash_fwd_fused_kernel<32, W><<<grid, f.threads, f.smem, st>>>(
+          qw, kw, vw, lengths, ow, lse, T, H, D, f.g, causal, scale);
+    return cudaGetLastError();
+  }
+  flash_fwd_kernel<W><<<grid_of(B, T, H, D), NT, 0, st>>>(
+      qw, kw, vw, lengths, ow, lse, T, H, D, threads_per_row(D), causal,
       scale);
   return cudaGetLastError();
 }
@@ -916,72 +977,84 @@ const char* gic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q, k, v [B, T, H, D] contiguous float32; lengths [B] int32 or null.
-// Outputs out [B, T, H, D] and lse [B, T, H].  Each function returns 0 or
-// the CUDA error code of its launch; nothing synchronises.  The forward
-// launches the fused kernel where T <= FT_TMAX and D <= 32 (q, k, v and
-// out 16-byte aligned), else the tiled one, and writes which to *fused
-// (1 or 0).
-int gic_flash_fwd(const float* q, const float* k, const float* v,
-                  const int* lengths, float* out, float* lse, int B, int T,
-                  int H, int D, int causal, float scale, void* stream,
-                  int* fused) {
+// q, k, v [B, T, H, D] contiguous, float32 or (bf16 = 1) bfloat16; lengths
+// [B] int32 or null.  Outputs out [B, T, H, D] in the inputs' type and lse
+// [B, T, H] float32.  Each function returns 0 or the CUDA error code of
+// its launch; nothing synchronises.  The forward launches the fused kernel
+// where T <= FT_TMAX and D <= 32 (q, k, v and out 16-byte aligned), else
+// the tiled one, and writes which to *fused (1 or 0).
+int gic_flash_fwd(const void* q, const void* k, const void* v,
+                  const int* lengths, void* out, float* lse, int B, int T,
+                  int H, int D, int causal, float scale, int bf16_,
+                  void* stream, int* fused) {
   if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   *fused = fused_shape(T, D);
-  if (*fused) {
-    const FusedGeometry f = fused_geometry(T, H, D);
-    const dim3 grid(B * ((H + f.g - 1) / f.g));
-    if (D <= 16)
-      flash_fwd_fused_kernel<16><<<grid, f.threads, f.smem, st>>>(
-          q, k, v, lengths, out, lse, T, H, D, f.g, causal, scale);
-    else
-      flash_fwd_fused_kernel<32><<<grid, f.threads, f.smem, st>>>(
-          q, k, v, lengths, out, lse, T, H, D, f.g, causal, scale);
-    return cudaGetLastError();
-  }
-  flash_fwd_kernel<<<grid_of(B, T, H, D), NT, 0, st>>>(
-      q, k, v, lengths, out, lse, T, H, D, threads_per_row(D), causal, scale);
+  return bf16_ ? launch_fwd<bf16>(q, k, v, lengths, out, lse, B, T, H, D,
+                                  causal, scale, st, *fused)
+               : launch_fwd<float>(q, k, v, lengths, out, lse, B, T, H, D,
+                                   causal, scale, st, *fused);
+}
+
+// dout [B, T, H, D] in the inputs' type; lse, delta [B, T, H] float32 ->
+// dq [B, T, H, D] in the inputs' type.
+int gic_flash_dq(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 const int* lengths, void* dq, int B, int T, int H, int D,
+                 int causal, float scale, int bf16_, void* stream) {
+  if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
+  const dim3 grid = grid_of(B, T, H, D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_)
+    flash_dq_kernel<bf16><<<grid, NT, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+        delta, lengths, static_cast<bf16*>(dq), T, H, D, threads_per_row(D),
+        causal, scale);
+  else
+    flash_dq_kernel<float><<<grid, NT, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, lengths, static_cast<float*>(dq), T, H, D, threads_per_row(D),
+        causal, scale);
   return cudaGetLastError();
 }
 
-// dout [B, T, H, D]; lse, delta [B, T, H] -> dq [B, T, H, D].
-int gic_flash_dq(const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 const int* lengths, float* dq, int B, int T, int H, int D,
-                 int causal, float scale, void* stream) {
+// -> dk, dv [B, T, H, D] in the inputs' type.
+int gic_flash_dkv(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  const int* lengths, void* dk, void* dv, int B, int T,
+                  int H, int D, int causal, float scale, int bf16_,
+                  void* stream) {
   if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
-  flash_dq_kernel<<<grid_of(B, T, H, D), NT, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, delta, lengths, dq, T, H, D, threads_per_row(D),
-      causal, scale);
-  return cudaGetLastError();
-}
-
-// -> dk, dv [B, T, H, D].
-int gic_flash_dkv(const float* q, const float* k, const float* v,
-                  const float* dout, const float* lse, const float* delta,
-                  const int* lengths, float* dk, float* dv, int B, int T,
-                  int H, int D, int causal, float scale, void* stream) {
-  if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
-  flash_dkv_kernel<<<grid_of(B, T, H, D), NT, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, delta, lengths, dk, dv, T, H, D,
-      threads_per_row(D), causal, scale);
+  const dim3 grid = grid_of(B, T, H, D);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_)
+    flash_dkv_kernel<bf16><<<grid, NT, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+        delta, lengths, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
+        D, threads_per_row(D), causal, scale);
+  else
+    flash_dkv_kernel<float><<<grid, NT, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, lengths, static_cast<float*>(dk), static_cast<float*>(dv), T,
+        H, D, threads_per_row(D), causal, scale);
   return cudaGetLastError();
 }
 
 // The fused backward (T <= FT_TMAX, D <= 32): out, dout [B, T, H, D] and
 // lse [B, T, H] as the forward wrote it -> dq, dk, dv [B, T, H, D], delta
-// included, in one launch.  (G, threads, smem) is the caller's plan
-// (flash_bwd_plan); one that differs from bwd_geometry, another shape, or
-// a pointer of the eight tensors that is not 16-byte aligned gives
-// cudaErrorInvalidValue and launches nothing.
-int gic_flash_bwd(const float* q, const float* k, const float* v,
-                  const float* out, const float* dout, const float* lse,
-                  const int* lengths, float* dq, float* dk, float* dv, int B,
+// included, in one launch, in the inputs' type.  (G, threads, smem) is the
+// caller's plan (flash_bwd_plan); one that differs from bwd_geometry,
+// another shape, or a pointer of the eight tensors that is not 16-byte
+// aligned gives cudaErrorInvalidValue and launches nothing.
+int gic_flash_bwd(const void* q, const void* k, const void* v,
+                  const void* out, const void* dout, const float* lse,
+                  const int* lengths, void* dq, void* dk, void* dv, int B,
                   int T, int H, int D, int causal, float scale, int G,
-                  int threads, int smem, void* stream) {
+                  int threads, int smem, int bf16_, void* stream) {
   if (bad_shape(B, T, H, D) || !fused_shape(T, D)) return cudaErrorInvalidValue;
   const FusedGeometry f = bwd_geometry(T, H, D);
   if (f.g != G || f.threads != threads || f.smem != smem)
@@ -990,11 +1063,17 @@ int gic_flash_bwd(const float* q, const float* k, const float* v,
   for (const void* p : ptrs)
     if (!aligned16(p)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 16)
-    return launch_bwd<16>(f, B, q, k, v, out, dout, lse, lengths, dq, dk, dv,
-                          T, H, D, causal, scale, st);
-  return launch_bwd<32>(f, B, q, k, v, out, dout, lse, lengths, dq, dk, dv, T,
-                        H, D, causal, scale, st);
+  if (bf16_)
+    return D <= 16
+               ? launch_bwd<16, bf16>(f, B, q, k, v, out, dout, lse, lengths,
+                                      dq, dk, dv, T, H, D, causal, scale, st)
+               : launch_bwd<32, bf16>(f, B, q, k, v, out, dout, lse, lengths,
+                                      dq, dk, dv, T, H, D, causal, scale, st);
+  return D <= 16
+             ? launch_bwd<16, float>(f, B, q, k, v, out, dout, lse, lengths,
+                                     dq, dk, dv, T, H, D, causal, scale, st)
+             : launch_bwd<32, float>(f, B, q, k, v, out, dout, lse, lengths,
+                                     dq, dk, dv, T, H, D, causal, scale, st);
 }
 
 }  // extern "C"

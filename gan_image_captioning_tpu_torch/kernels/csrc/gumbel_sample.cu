@@ -1,4 +1,4 @@
-// Fused Gumbel-softmax sampler for Hopper (sm_90a), float32.
+// Fused Gumbel-softmax sampler for Hopper (sm_90a), float32 and bfloat16.
 //
 // Replaces: gan_image_captioning_tpu/kernels/gumbel_sample.py, function
 // `_kernel` (launched by `fused_gumbel_sample`).  For logits [B, V]:
@@ -48,6 +48,14 @@
 // CTAs a row move the time by under a third: a launch, a round trip to
 // memory and the reductions and cluster barrier in turn set it.  PERF.md
 // gives the times.
+//
+// bfloat16 (--dtype bfloat16): the kernels are templates of the logits'
+// and soft's element type W, float or __nv_bfloat16 (csrc/bf16.cuh).  A
+// bfloat16 logit is widened exactly, x and every sum are float32 (the JAX
+// kernel's logits.astype(float32)), soft is rounded once; ids and the
+// uniforms (fed or written) stay int32 and float32.  The vector path still
+// takes groups of 4 columns, so a bfloat16 group is one 8-byte load or
+// store (V % 4 == 0, as for float32): the plan does not change.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -55,6 +63,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "decode_common.cuh"
 
 using namespace gic;
@@ -107,9 +116,9 @@ __device__ __forceinline__ int col_of(int i, int j, int c0, int nt, int t) {
 
 // This thread's elements of row b's slice [c0, c1): x into registers, and
 // (m, first) over them.
-template <int VPT, bool VEC>
+template <int VPT, bool VEC, class W>
 __device__ __forceinline__ void draw(
-    float (&x)[4 * VPT], const float* __restrict__ logits,
+    float (&x)[4 * VPT], const W* __restrict__ logits,
     const float* __restrict__ u_in, float* __restrict__ u_out, size_t base,
     int b, int c0, int c1, int nt, int t, float temp, uint64_t seed,
     int step, float& m, int& first) {
@@ -120,7 +129,7 @@ __device__ __forceinline__ void draw(
     if (VEC) {
       const int c = col_of<true>(i, 0, c0, nt, t);
       if (c >= c1) continue;  // the slice ends on a group of 4
-      const float4 l4 = *reinterpret_cast<const float4*>(logits + base + c);
+      const float4 l4 = ld4w(logits + base + c);
       float4 u4;
       if (u_in != nullptr)
         u4 = *reinterpret_cast<const float4*>(u_in + base + c);
@@ -145,7 +154,7 @@ __device__ __forceinline__ void draw(
         const float u = u_in != nullptr ? u_in[base + c]
                                         : philox_uniform(seed, step, b, c);
         if (u_out != nullptr) u_out[base + c] = u;
-        x[4 * i + j] = gumbel_x(logits[base + c], u, temp);
+        x[4 * i + j] = gumbel_x(to_f(logits[base + c]), u, temp);
         fold(m, first, x[4 * i + j], c);
       }
     }
@@ -172,9 +181,9 @@ __device__ __forceinline__ float exps(float (&x)[4 * VPT], int c0, int c1,
 
 // soft = e * scale over the thread's elements (scale: 1 / sum, or a CTA's
 // share of the row's sum).
-template <int VPT, bool VEC>
+template <int VPT, bool VEC, class W>
 __device__ __forceinline__ void store(const float (&e)[4 * VPT],
-                                      float* __restrict__ soft, size_t base,
+                                      W* __restrict__ soft, size_t base,
                                       int c0, int c1, int nt, int t,
                                       float scale) {
 #pragma unroll
@@ -182,14 +191,14 @@ __device__ __forceinline__ void store(const float (&e)[4 * VPT],
     if (VEC) {
       const int c = col_of<true>(i, 0, c0, nt, t);
       if (c < c1)
-        *reinterpret_cast<float4*>(soft + base + c) =
-            make_float4(e[4 * i] * scale, e[4 * i + 1] * scale,
-                        e[4 * i + 2] * scale, e[4 * i + 3] * scale);
+        st4w(soft + base + c,
+             make_float4(e[4 * i] * scale, e[4 * i + 1] * scale,
+                         e[4 * i + 2] * scale, e[4 * i + 3] * scale));
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = col_of<false>(i, j, c0, nt, t);
-        if (c < c1) soft[base + c] = e[4 * i + j] * scale;
+        if (c < c1) store_as(soft, base + c, e[4 * i + j] * scale);
       }
     }
   }
@@ -213,11 +222,11 @@ __device__ __forceinline__ void cluster_wait() {
 // sum = sum_r s_r * exp(m_r - M) in rank order; soft = e * exp(m_c - M) /
 // sum.  A CTA whose slice has no finite maximum (every x -inf) adds 0;
 // a row without one gives NaN, as softmax does.
-template <int VPT, bool VEC>
+template <int VPT, bool VEC, class W>
 __global__ void __launch_bounds__(G_NT_MAX) gumbel_cluster_kernel(
-    const float* __restrict__ logits, int V, int chunk, float temp,
+    const W* __restrict__ logits, int V, int chunk, float temp,
     unsigned long long seed, int step, const float* __restrict__ u_in,
-    float* __restrict__ u_out, float* __restrict__ soft,
+    float* __restrict__ u_out, W* __restrict__ soft,
     int32_t* __restrict__ ids) {
   __shared__ float warp_m[G_NT_MAX / 32], warp_s[G_NT_MAX / 32];
   __shared__ int warp_i[G_NT_MAX / 32];
@@ -232,8 +241,8 @@ __global__ void __launch_bounds__(G_NT_MAX) gumbel_cluster_kernel(
 
   float x[4 * VPT], m;
   int first;
-  draw<VPT, VEC>(x, logits, u_in, u_out, base, b, c0, c1, nt, t, temp, seed,
-                 step, m, first);
+  draw<VPT, VEC, W>(x, logits, u_in, u_out, base, b, c0, c1, nt, t, temp,
+                    seed, step, m, first);
   warp_fold(m, first);
   if (lane == 0) {
     warp_m[warp] = m;
@@ -270,17 +279,17 @@ __global__ void __launch_bounds__(G_NT_MAX) gumbel_cluster_kernel(
   for (int r = 0; r < G_MAX_CLUSTER; ++r)
     if (r < S && mr[r] != -INFINITY) sum += sr[r] * expf(mr[r] - M);
   if (rank == 0 && t == 0) ids[b] = I == INT_MAX ? 0 : I;
-  store<VPT, VEC>(x, soft, base, c0, c1, nt, t,
-                  (m == -INFINITY ? 0.f : expf(m - M)) / sum);
+  store<VPT, VEC, W>(x, soft, base, c0, c1, nt, t,
+                     (m == -INFINITY ? 0.f : expf(m - M)) / sum);
   cluster_wait();  // nor does any peer read this CTA's cta_m / cta_s
 }
 
 // A warp per row, G_ROWS rows a CTA, the whole row of V <= G_ROW_MAX_V.
-template <int VPT, bool VEC>
+template <int VPT, bool VEC, class W>
 __global__ void __launch_bounds__(G_ROW_NT) gumbel_rows_kernel(
-    const float* __restrict__ logits, int B, int V, float temp,
+    const W* __restrict__ logits, int B, int V, float temp,
     unsigned long long seed, int step, const float* __restrict__ u_in,
-    float* __restrict__ u_out, float* __restrict__ soft,
+    float* __restrict__ u_out, W* __restrict__ soft,
     int32_t* __restrict__ ids) {
   const int lane = threadIdx.x % 32;
   const int b = blockIdx.x * G_ROWS + threadIdx.x / 32;
@@ -288,12 +297,12 @@ __global__ void __launch_bounds__(G_ROW_NT) gumbel_rows_kernel(
   const size_t base = (size_t)b * V;
   float x[4 * VPT], m;
   int first;
-  draw<VPT, VEC>(x, logits, u_in, u_out, base, b, 0, V, 32, lane, temp, seed,
-                 step, m, first);
+  draw<VPT, VEC, W>(x, logits, u_in, u_out, base, b, 0, V, 32, lane, temp,
+                    seed, step, m, first);
   warp_fold(m, first);
   if (lane == 0) ids[b] = first == INT_MAX ? 0 : first;
   const float total = warp_sum(exps<VPT, VEC>(x, 0, V, 32, lane, m));
-  store<VPT, VEC>(x, soft, base, 0, V, 32, lane, 1.f / total);
+  store<VPT, VEC, W>(x, soft, base, 0, V, 32, lane, 1.f / total);
 }
 
 // The launch of (B, V) with S CTAs a row (gumbel_sample.gumbel_plan's
@@ -329,17 +338,17 @@ bool plan_for(int B, int V, int S, Plan* p) {
   return true;
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+bool aligned(const void* p, uintptr_t bytes) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-template <int VPT, bool VEC>
-cudaError_t launch(const Plan& p, int S, const float* logits, int B, int V,
+template <int VPT, bool VEC, class W>
+cudaError_t launch(const Plan& p, int S, const W* logits, int B, int V,
                    float temp, unsigned long long seed, int step,
-                   const float* u_in, float* u_out, float* soft, int32_t* ids,
+                   const float* u_in, float* u_out, W* soft, int32_t* ids,
                    cudaStream_t st) {
   if (p.rows > 1) {
-    gumbel_rows_kernel<VPT, VEC><<<p.ctas, p.threads, 0, st>>>(
+    gumbel_rows_kernel<VPT, VEC, W><<<p.ctas, p.threads, 0, st>>>(
         logits, B, V, temp, seed, step, u_in, u_out, soft, ids);
     return cudaGetLastError();
   }
@@ -355,24 +364,43 @@ cudaError_t launch(const Plan& p, int S, const float* logits, int B, int V,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<VPT, VEC>, logits, V,
-                            p.chunk, temp, seed, step, u_in, u_out, soft, ids);
+  return cudaLaunchKernelEx(&cfg, gumbel_cluster_kernel<VPT, VEC, W>, logits,
+                            V, p.chunk, temp, seed, step, u_in, u_out, soft,
+                            ids);
 }
 
-template <bool VEC>
-cudaError_t launch_vecs(const Plan& p, int S, const float* logits, int B,
-                        int V, float temp, unsigned long long seed, int step,
-                        const float* u_in, float* u_out, float* soft,
+template <bool VEC, class W>
+cudaError_t launch_vecs(const Plan& p, int S, const W* logits, int B, int V,
+                        float temp, unsigned long long seed, int step,
+                        const float* u_in, float* u_out, W* soft,
                         int32_t* ids, cudaStream_t st) {
   switch (p.vecs) {
 #define GIC_VPT(N)                                                          \
   case N:                                                                   \
-    return launch<N, VEC>(p, S, logits, B, V, temp, seed, step, u_in, u_out, \
-                          soft, ids, st);
+    return launch<N, VEC, W>(p, S, logits, B, V, temp, seed, step, u_in,    \
+                             u_out, soft, ids, st);
     GIC_VPT(1) GIC_VPT(2) GIC_VPT(4) GIC_VPT(8)
 #undef GIC_VPT
   }
   return cudaErrorInvalidValue;
+}
+
+// 16-byte accesses of float32 (8-byte of bfloat16 W) where V % 4 == 0 and
+// every pointer is aligned so; else a column a thread.
+template <class W>
+cudaError_t launch_typed(const Plan& p, int S, const void* logits, int B,
+                         int V, float temp, unsigned long long seed,
+                         int step, const float* u_in, float* u_out,
+                         void* soft, int32_t* ids, cudaStream_t st) {
+  const W* lw = static_cast<const W*>(logits);
+  W* sw = static_cast<W*>(soft);
+  const bool vec = V % 4 == 0 && aligned(lw, 4 * sizeof(W)) &&
+                   aligned(sw, 4 * sizeof(W)) && aligned(u_in, 16) &&
+                   aligned(u_out, 16);
+  return vec ? launch_vecs<true, W>(p, S, lw, B, V, temp, seed, step, u_in,
+                                    u_out, sw, ids, st)
+             : launch_vecs<false, W>(p, S, lw, B, V, temp, seed, step, u_in,
+                                     u_out, sw, ids, st);
 }
 
 }  // namespace
@@ -383,30 +411,28 @@ const char* gic_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// logits [B, V] -> soft [B, V], ids [B] on `stream`.  Noise: u_in [B, V]
-// when not null, else Philox of (seed, step); the uniforms used go to u_out
-// [B, V] when it is not null.  cluster, threads, vecs, rows, chunk, ctas:
-// the wrapper's plan (gumbel_sample.gumbel_plan); a launch whose plan is not
-// plan_for(B, V, cluster) is refused (cudaErrorInvalidValue), and so is
-// one the card refuses (the cluster launch's own error).  16-byte accesses
-// where V % 4 == 0 and every pointer is 16-byte aligned.  Returns 0 or the
-// CUDA error code of the launch; nothing synchronises.
-int gic_gumbel_sample(const float* logits, int B, int V, float temp,
+// logits [B, V] -> soft [B, V], ids [B] on `stream`; logits and soft
+// float32, or bfloat16 when bf16 = 1.  Noise: u_in [B, V] float32 when not
+// null, else Philox of (seed, step); the uniforms used go to u_out [B, V]
+// float32 when it is not null.  cluster, threads, vecs, rows, chunk, ctas:
+// the wrapper's plan (gumbel_sample.gumbel_plan); a launch whose plan is
+// not plan_for(B, V, cluster) is refused (cudaErrorInvalidValue), and so
+// is one the card refuses (the cluster launch's own error).  Returns 0 or
+// the CUDA error code of the launch; nothing synchronises.
+int gic_gumbel_sample(const void* logits, int B, int V, float temp,
                       unsigned long long seed, int step, const float* u_in,
-                      float* u_out, float* soft, int32_t* ids, int cluster,
+                      float* u_out, void* soft, int32_t* ids, int cluster,
                       int threads, int vecs, int rows, int chunk, int ctas,
-                      void* stream) {
+                      int bf16_, void* stream) {
   Plan p;
   if (!plan_for(B, V, cluster, &p) || p.threads != threads ||
       p.vecs != vecs || p.rows != rows || p.chunk != chunk || p.ctas != ctas)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = V % 4 == 0 && aligned16(logits) && aligned16(u_in) &&
-                   aligned16(u_out) && aligned16(soft);
-  return vec ? launch_vecs<true>(p, cluster, logits, B, V, temp, seed, step,
-                                 u_in, u_out, soft, ids, st)
-             : launch_vecs<false>(p, cluster, logits, B, V, temp, seed, step,
-                                  u_in, u_out, soft, ids, st);
+  return bf16_ ? launch_typed<bf16>(p, cluster, logits, B, V, temp, seed,
+                                    step, u_in, u_out, soft, ids, st)
+               : launch_typed<float>(p, cluster, logits, B, V, temp, seed,
+                                     step, u_in, u_out, soft, ids, st);
 }
 
 }  // extern "C"

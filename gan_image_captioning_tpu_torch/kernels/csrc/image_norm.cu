@@ -49,17 +49,6 @@ __device__ __forceinline__ int channel(long long e, long long hw) {
   return static_cast<int>((e / hw) % 3);
 }
 
-// Four results to out [4g, 4g + 4) (16-byte aligned for float, 8 for
-// bfloat16).
-__device__ __forceinline__ void store4(float* out, long long g, float4 r) {
-  reinterpret_cast<float4*>(out)[g] = r;
-}
-__device__ __forceinline__ void store4(bf16* out, long long g, float4 r) {
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out + 4 * g);
-  o[0] = __floats2bfloat162_rn(r.x, r.y);
-  o[1] = __floats2bfloat162_rn(r.z, r.w);
-}
-
 template <class T>
 __global__ void image_norm_vec_kernel(const uchar4* __restrict__ in4,
                                       const unsigned char* __restrict__ in,
@@ -80,7 +69,7 @@ __global__ void image_norm_vec_kernel(const uchar4* __restrict__ in4,
                       norm(v.z, channel(e + 2, hw), a),
                       norm(v.w, channel(e + 3, hw), a));
     }
-    store4(out, g, r);
+    gic::st4w(out + 4 * g, r);
   } else if (g == n4) {
     for (long long e = 4 * n4; e < n; ++e)
       gic::store_as(out, e, norm(in[e], channel(e, hw), a));

@@ -18,9 +18,16 @@ in the kernel (the stream of the ``sample_resid`` decode at step
   or on ``torch.rand`` from a generator seeded with ``(seed, step)``
   (another stream than Philox, the same distribution).
 
+bfloat16 logits (``--dtype bfloat16``) take the kernel's bfloat16
+instantiation: each logit widened exactly, x and the softmax float32 (the
+JAX kernel's ``logits.astype(float32)``), soft rounded once to bfloat16;
+ids int32 and the uniforms, fed or written, float32.
+
 :func:`fused_gumbel_sample` is the differentiable form: its backward is the
 softmax VJP scaled by the temperature, in plain PyTorch, as the JAX
-package's is jnp.  ``gumbel_sample.launches`` counts the kernel launches.
+package's is jnp: float32 on the widened soft, the result in soft's dtype.
+``gumbel_sample.launches`` counts the kernel launches and
+``gumbel_sample.bf16_launches`` the bfloat16 ones among them.
 """
 
 from __future__ import annotations
@@ -47,11 +54,14 @@ def step_uniforms(seed: int, step: int, shape, device):
 
 
 def gumbel_sample_plain(logits, temperature, uniforms):
-    """Plain PyTorch version on the uniforms ``[B, V]`` → ``(soft [B, V],
-    ids [B] int32)``, ids the first argmax of x."""
+    """Plain PyTorch version on the float32 uniforms ``[B, V]`` →
+    ``(soft [B, V]`` in the logits' dtype, ``ids [B] int32)``: x in
+    float32 from the widened logits, ids the first argmax of x, soft
+    rounded once."""
     g = -torch.log(-torch.log(uniforms + EPS) + EPS)
-    x = (logits + g) * temperature
-    return torch.softmax(x, dim=-1), torch.argmax(x, dim=-1).to(torch.int32)
+    x = (logits.to(torch.float32) + g) * temperature
+    return (torch.softmax(x, dim=-1).to(logits.dtype),
+            torch.argmax(x, dim=-1).to(torch.int32))
 
 
 def _library() -> ctypes.CDLL:
@@ -60,7 +70,7 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gic_gumbel_sample.argtypes = ([vp, i, i, ctypes.c_float,
                                            ctypes.c_uint64, i] + [vp] * 4
-                                          + [i] * 6 + [vp])
+                                          + [i] * 7 + [vp])
         lib.gic_gumbel_sample.restype = i
         lib._gic_typed = True
     return lib
@@ -93,7 +103,11 @@ def gumbel_plan(B: int, V: int) -> dict:
     cluster.  ``chunk``: the columns of a CTA's slice of a row (CTA rank r
     takes ``[r·chunk, (r+1)·chunk)``); ``threads`` a CTA; ``vecs``: groups
     of 4 columns a thread (a power of two; the last may lie past the
-    slice); ``ctas`` in all.  The C side recomputes the plan from
+    slice); ``ctas`` in all; ``vec4``: V % 4 == 0, the groups of 4 columns
+    taken by one vector access (16 bytes of float32 logits and soft, 8 of
+    bfloat16 ones: the rule and the plan are the same for both dtypes;
+    the C side also asks each pointer to be aligned so, else it takes a
+    column a thread).  The C side recomputes the plan from
     ``(B, V, cluster)`` and refuses a launch that differs.  Raises
     ValueError where no launch fits: an empty shape, or a row of more than
     ``G_V_MAX`` columns (each thread holds its columns in registers)."""
@@ -125,9 +139,10 @@ def gumbel_plan(B: int, V: int) -> dict:
 
 def gumbel_sample(logits, temperature, seed: int = 0, step: int = 0,
                   uniforms=None, uniforms_out=None):
-    """``(soft [B, V], ids [B] int32)`` without gradient.  ``uniforms``
-    ``[B, V]`` feed the noise; a float32 ``uniforms_out [B, V]`` receives
-    the uniforms used.  On a CUDA tensor, one launch by
+    """``(soft [B, V]`` in the logits' dtype, ``ids [B] int32)`` without
+    gradient; logits float32 or bfloat16 (TypeError otherwise).  Float32
+    ``uniforms [B, V]`` feed the noise; a float32 ``uniforms_out [B, V]``
+    receives the uniforms used.  On a CUDA tensor, one launch by
     :func:`gumbel_plan`, counted; rows of more than ``G_V_MAX`` (131 072)
     columns raise ValueError there."""
     if logits.ndim != 2:
@@ -135,6 +150,7 @@ def gumbel_sample(logits, temperature, seed: int = 0, step: int = 0,
                          f"{tuple(logits.shape)}")
     B, V = logits.shape
     device = logits.device
+    dtype = build.compute_dtype("gumbel_sample", logits)
     for name, u in (("uniforms", uniforms), ("uniforms_out", uniforms_out)):
         if u is not None:
             build.check_tensor("gumbel_sample", name, u, (B, V), device)
@@ -146,7 +162,8 @@ def gumbel_sample(logits, temperature, seed: int = 0, step: int = 0,
         return gumbel_sample_plain(logits, float(temperature), uniforms)
     if device.type != "cuda":
         raise ValueError(f"gumbel_sample: unsupported device {device}")
-    build.check_tensor("gumbel_sample", "logits", logits, (B, V), device)
+    build.check_tensor("gumbel_sample", "logits", logits, (B, V), device,
+                       dtype)
     plan = gumbel_plan(B, V)
     soft = torch.empty_like(logits)
     ids = torch.empty((B,), dtype=torch.int32, device=device)
@@ -160,16 +177,19 @@ def gumbel_sample(logits, temperature, seed: int = 0, step: int = 0,
             None if uniforms_out is None else uniforms_out.data_ptr(),
             soft.data_ptr(), ids.data_ptr(), plan["cluster"],
             plan["threads"], plan["vecs"], plan["rows"], plan["chunk"],
-            plan["ctas"], stream)
+            plan["ctas"], int(dtype == torch.bfloat16), stream)
     build.raise_on_error(lib, rc, "gumbel_sample")
     with _count_lock:
         gumbel_sample.launches += 1
+        if dtype == torch.bfloat16:
+            gumbel_sample.bf16_launches += 1
     return soft, ids
 
 
 class _FusedGumbel(torch.autograd.Function):
     """Forward: :func:`gumbel_sample`; backward: ``temp · soft ∘ (d −
-    Σ d∘soft)`` (the noise is constant in the logits)."""
+    Σ d∘soft)`` (the noise is constant in the logits) in float32 on the
+    widened soft, returned in soft's dtype (the JAX ``_bwd``)."""
 
     @staticmethod
     def forward(ctx, logits, temperature, seed, step, uniforms):
@@ -182,9 +202,10 @@ class _FusedGumbel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_soft, _d_ids):
         soft, = ctx.saved_tensors
-        inner = (d_soft * soft).sum(dim=-1, keepdim=True)
-        return (ctx.temperature * soft * (d_soft - inner), None, None, None,
-                None)
+        soft32, d32 = soft.to(torch.float32), d_soft.to(torch.float32)
+        inner = (d32 * soft32).sum(dim=-1, keepdim=True)
+        d_logits = ctx.temperature * soft32 * (d32 - inner)
+        return d_logits.to(soft.dtype), None, None, None, None
 
 
 def fused_gumbel_sample(logits, seed: int, temperature, step: int = 0,
@@ -195,4 +216,4 @@ def fused_gumbel_sample(logits, seed: int, temperature, step: int = 0,
                               int(seed), int(step), uniforms)
 
 
-gumbel_sample.launches = 0
+gumbel_sample.launches = gumbel_sample.bf16_launches = 0

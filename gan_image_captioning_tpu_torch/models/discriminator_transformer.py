@@ -101,11 +101,15 @@ def trunk_embedded(params, emb, config: Config, causal: bool, lengths=None):
 
 
 def _dropout(x, train, keep, generator, dropout_rate):
+    """Inverted dropout; the keep probability in x's dtype, as the JAX
+    package's weakly typed constant (bfloat16 0.80078125 under ``--dtype
+    bfloat16``)."""
     if not (train and dropout_rate > 0.0):
         return x
     if keep is None:
         keep = dropout_keep(x.shape, generator, x.device, dropout_rate)
-    return torch.where(keep, x / (1.0 - dropout_rate),
+    return torch.where(keep, x / torch.tensor(1.0 - dropout_rate,
+                                              dtype=x.dtype),
                        torch.zeros((), device=x.device, dtype=x.dtype))
 
 

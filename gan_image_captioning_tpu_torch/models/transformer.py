@@ -28,6 +28,13 @@ cross-attention blocks and ``ctx_proj`` exist (the JAX tree has them) but
 only a conditional transformer would use them, and it is not ported.
 Context parallelism, pipelining, activation sharding, ``GIC_TF_REMAT`` and
 ``decode_step_slots`` are not ported either.
+
+Under ``--dtype bfloat16`` (``train/steps.py:compute_cast``) every
+operation runs in bfloat16 as the JAX package's does: the flash kernels'
+bfloat16 instantiations (float32 inside, outputs rounded once), the dense
+attention's scores rounded before the softmax, the layer norms' mean and
+variance reduced in float32 and rounded once, and the KV cache in the
+features' dtype.
 """
 
 from __future__ import annotations
@@ -198,9 +205,17 @@ def dense(p, name: str, x):
 
 
 def layer_norm(p, name: str, x, eps: float = 1e-5):
-    """Population variance, eps 1e-5 (the JAX ``layer_norm``)."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    """Population variance, eps 1e-5 (the JAX ``layer_norm``).  In
+    bfloat16 the mean and the variance reduce in float32 and are rounded
+    once, as ``jnp.mean`` and ``jnp.var`` do; the rest rounds at each
+    operation."""
+    if x.dtype == torch.bfloat16:
+        xf = x.to(torch.float32)
+        mu = xf.mean(dim=-1, keepdim=True).to(x.dtype)
+        var = xf.var(dim=-1, keepdim=True, correction=0).to(x.dtype)
+    else:
+        mu = x.mean(dim=-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * p[name + ".scale"] \
         + p[name + ".bias"]
 
@@ -216,7 +231,14 @@ def _split_heads(x, n_heads: int):
 
 
 def _dense_core(q, k, v, mask):
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    """softmax(QKᵀ/√D)V; ``mask`` True = attend, the rest filled with the
+    dtype's most negative value.  In bfloat16 the scores are rounded and
+    then divided by √D rounded to bfloat16, as the JAX package's weakly
+    typed constant is."""
+    root = math.sqrt(q.shape[-1])
+    if q.dtype == torch.bfloat16:
+        root = torch.tensor(root, dtype=q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / root
     if mask is not None:
         scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), v)

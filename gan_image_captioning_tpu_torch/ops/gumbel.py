@@ -60,10 +60,14 @@ def gumbel_softmax(logits, temperature, generator=None, eps: float = EPS,
     (``kernels/gumbel_sample.py``): on CUDA tensors its kernel, with the
     fed uniforms ``u`` or Philox keyed by ``(seed, step)``; on CPU ones its
     plain version.  Its ids are the argmax of ``(logits + g) *
-    temperature``, as the TPU kernel's; this route's, of the soft row."""
+    temperature``, as the TPU kernel's; this route's, of the soft row.
+    Under ``--dtype bfloat16`` this route computes in the logits' dtype,
+    fed uniforms rounded to it, as the JAX package's ``add_gumbel`` draws
+    bfloat16 uniforms and rounds at each operation."""
     if kernel and logits.ndim == 2:
         return fused_gumbel_sample(logits, seed, temperature, step, u)
+    # in the logits' dtype, as the JAX add_gumbel draws its uniforms
     g = gumbel_noise(logits.shape, generator, logits.device, logits.dtype,
-                     eps, u)
+                     eps, None if u is None else u.to(logits.dtype))
     soft = torch.softmax((logits + g) * temperature, dim=-1)
     return soft, torch.argmax(soft, dim=-1)

@@ -26,6 +26,14 @@ per-loss gradients.  Noise can be fed (``noise`` of :func:`reinforce_losses`):
 the sample's ``uniforms [T, B, V]``, the rollouts' ``rollout_uniforms``
 (one ``[T, B·K, V]`` per prefix length), the two dropout ``keep`` masks and
 a ``seed`` for whatever is drawn instead.
+
+Under ``--dtype bfloat16`` the steps run :func:`reinforce_losses` inside
+``steps.compute_cast``, as the JAX ``reinforce_losses`` casts the models
+and the batch (``_compute_cast``): the sample, the rollouts (their KV
+cache and LSTM state in the features' dtype, their Gumbel noise in the
+logits' dtype, as the JAX ``add_gumbel`` draws it), the discriminator
+passes and the log-probability pass compute in bfloat16; the
+discriminator's outputs and the log-softmax are float32.
 """
 
 from __future__ import annotations
@@ -46,10 +54,15 @@ from gan_image_captioning_tpu_torch.ops.losses import gan_losses
 
 # ----------------------------------------------------------------- sampling
 
-def _draw_u(uniforms, t, shape, generator, device):
+def _gumbel_ids(logits, uniforms, t, generator):
+    """``argmax(logits + g)`` with the Gumbel noise of ``uniforms[t]`` or
+    of uniforms drawn from ``generator``, in the logits' dtype."""
     if uniforms is not None:
-        return uniforms[t]
-    return torch.rand(shape, generator=generator, device=device)
+        u = uniforms[t].to(logits.dtype)
+    else:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device, dtype=logits.dtype)
+    return torch.argmax(logits + gumbel_noise(u.shape, u=u), dim=-1)
 
 
 @torch.no_grad()
@@ -66,8 +79,7 @@ def _prefix_decode_lstm(decoder, features, forced, prefix_len: int,
     for t in range(seq_len):
         h, state = lstm.lstm_step(fused, x, state)
         logits = h @ decoder.linear.weight.T + decoder.linear.bias
-        u = _draw_u(uniforms, t, logits.shape, generator, logits.device)
-        sampled = torch.argmax(logits + gumbel_noise(u.shape, u=u), dim=-1)
+        sampled = _gumbel_ids(logits, uniforms, t, generator)
         ids_t = forced[:, t].long() if t < prefix_len else sampled
         ids.append(ids_t)
         x = decoder.embed.weight[ids_t]
@@ -87,8 +99,7 @@ def _prefix_decode_transformer(decoder, features, forced, prefix_len: int,
     for t in range(seq_len):
         logits, k_cache, v_cache = gen_tf.decode_step(p, config, x, k_cache,
                                                       v_cache, t)
-        u = _draw_u(uniforms, t, logits.shape, generator, logits.device)
-        sampled = torch.argmax(logits + gumbel_noise(u.shape, u=u), dim=-1)
+        sampled = _gumbel_ids(logits, uniforms, t, generator)
         ids_t = forced[:, t].long() if t < prefix_len else sampled
         ids.append(ids_t)
         x = p["embed"][ids_t]
@@ -174,17 +185,21 @@ def sequence_log_probs(config: Config, generator_model, features, ids):
 
 def reinforce_losses(config: Config, state, batch, seed: int,
                      noise: Optional[Dict[str, Any]] = None,
-                     train: bool = True):
+                     train: bool = True, cond_batch=None):
     """The twin of ``steps.adv_losses`` for ``--adv-objective reinforce``
     → ``(g_loss, d_loss, aux)``.  The temperature is not used: the sample
     is an exact categorical draw.  ``seed`` keys whatever noise is not
-    fed."""
+    fed.  ``cond_batch``: the batch the generator is conditioned on
+    (default ``batch``; the compute-cast batch under ``--dtype
+    bfloat16``), while the captions and weights are ``batch``'s."""
     noise = noise or {}
     captions = batch["captions"]
     seq_len = captions.shape[1]
     device = captions.device
     draw = torch.Generator(device=device).manual_seed(seed)
-    cond, _ = api.generator_condition(config, state.gen, batch, train=train)
+    cond, _ = api.generator_condition(
+        config, state.gen, batch if cond_batch is None else cond_batch,
+        train=train)
     with torch.no_grad():
         _, gen_ids = api.generator_sample(
             state.gen, cond, seq_len, False, config, 1.0, seed=seed,

@@ -79,20 +79,22 @@ Step options (the JAX ``make_mle_step`` / ``make_adv_step`` options):
   the single step, so its state after the call is the state after K
   single steps.
 
-``--dtype bfloat16`` (the JAX ``_compute_cast``): the MLE and Gumbel
-adversarial losses, and their eval steps, run inside :func:`compute_cast`
-— every floating parameter of both models and every floating batch entry
-reads as a bfloat16 copy made by a cast that autograd differentiates, so
-the gradients come back through it to the float32 masters, which the
-Adam states and the checkpoints keep.  The losses are reduced in float32
-(the MLE logits and the three discriminator outputs are cast first), the
-Gumbel temperature is rounded to bfloat16 before the sample reads it, and
-a conditional generator's BatchNorm running statistics are kept in
-bfloat16 once a bfloat16 train step has moved them (the JAX steps merge
-the bfloat16 ``new_stats`` of the encoder pass into the state).
-REINFORCE and SCST stay float32, as in the JAX package (``reinforce_
-losses`` and ``train/scst.py`` take no cast); :func:`state.
-require_ported_training` refuses the routes without bfloat16 kernels.
+``--dtype bfloat16`` (the JAX ``_compute_cast``): the MLE, Gumbel
+adversarial and REINFORCE losses, and their eval steps, run inside
+:func:`compute_cast`, for either generator and any discriminator — every
+floating parameter of both models and every floating batch entry the
+generator is conditioned on reads as a bfloat16 copy made by a cast that
+autograd differentiates, so the gradients come back through it to the
+float32 masters, which the Adam states and the checkpoints keep.  The
+losses are reduced in float32 (the MLE logits, the discriminator outputs
+and REINFORCE's log-softmax are cast first), the Gumbel temperature is
+rounded to bfloat16 before the sample reads it, and a conditional
+generator's BatchNorm running statistics are kept in bfloat16 once a
+bfloat16 train step has moved them (the JAX steps merge the bfloat16
+``new_stats`` of the encoder pass into the state).  SCST stays float32,
+as in the JAX package (``train/scst.py`` takes no cast);
+:func:`state.require_ported_training` refuses the routes without
+bfloat16 kernels.
 """
 
 from __future__ import annotations
@@ -448,9 +450,13 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     noise = noise or {}
     if config.adv_objective == "reinforce":
         seed = noise.get("seed")
-        return reinforce_losses(
-            config, state, batch, _draw_seed(state) if seed is None else seed,
-            noise, train)
+        # in the compute cast, as the JAX reinforce_losses casts the models
+        # and the batch the generator is conditioned on
+        with compute_cast(config, state.gen, state.disc, train=train):
+            return reinforce_losses(
+                config, state, batch,
+                _draw_seed(state) if seed is None else seed, noise, train,
+                cond_batch=cast_batch(config, batch))
     if config.adv_objective != "gumbel":
         raise ValueError(f"adv_objective {config.adv_objective!r}: expected "
                          "'gumbel' or 'reinforce'")

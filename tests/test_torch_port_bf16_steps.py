@@ -492,8 +492,7 @@ def test_bf16_mu_survives_checkpoint_and_interop(env, tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    {"gen_arch": "transformer", "disc_arch": "transformer"},
-    {"disc_arch": "transformer"}, {"decode_impl": "kernel_rescore"},
+    {"decode_impl": "kernel_rescore"},
     {"decode_impl": "kernel_embed"}, {"decode_impl": "decoupled"},
     {"disc_engine": "hybrid"}, {"disc_engine": "mxu_dxs"}])
 def test_unported_bfloat16_routes_raise(override):
@@ -508,7 +507,9 @@ def test_unported_bfloat16_routes_raise(override):
 
 @pytest.mark.parametrize("override", [
     {}, {"disc_engine": "pallas"}, {"disc_engine": "xla"},
-    {"decode_impl": "plain", "disc_engine": "plain"}])
+    {"decode_impl": "plain", "disc_engine": "plain"},
+    {"gen_arch": "transformer", "disc_arch": "transformer"},
+    {"disc_arch": "transformer"}])
 def test_ported_bfloat16_routes_build(override):
     config = Config(**dict(KW, **override))
     tsteps.make_mle_step(config)

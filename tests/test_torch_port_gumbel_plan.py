@@ -95,3 +95,26 @@ def test_gumbel_plan_refuses_what_cannot_run():
     with pytest.raises(ValueError):                      # a row past registers
         gs.gumbel_plan(1, gs.G_V_MAX + 4)
     assert gs.gumbel_plan(1, gs.G_V_MAX)["vecs"] == gs.G_VPT_MAX
+
+
+@pytest.mark.parametrize("B,V", SHAPES)
+def test_bf16_vector_groups_are_whole_8_byte_words(B, V):
+    """bfloat16 logits and soft take the same plan as float32: a vector
+    group is 4 neighbouring columns, one 16-byte access of float32 and one
+    8-byte access of bfloat16, so the vector path asks, in either dtype,
+    that every group start at a multiple of 4 elements of the [B, V]
+    array (V % 4 == 0 and slices cut at multiples of 4); [64, 11007]
+    takes the scalar path in both."""
+    plan = gs.gumbel_plan(B, V)
+    assert plan["vec4"] == (V % 4 == 0)
+    if not plan["vec4"]:
+        return
+    assert plan["chunk"] % 4 == 0
+    nt = 32 if plan["mode"] == "rows" else plan["threads"]
+    ranks = 1 if plan["mode"] == "rows" else plan["cluster"]
+    i, t = np.meshgrid(np.arange(plan["vecs"]), np.arange(nt), indexing="ij")
+    for r in range(ranks):
+        starts = (r * plan["chunk"] + 4 * (i * nt + t)).ravel()
+        for b in (0, B - 1):
+            assert np.all((2 * (b * V + starts)) % 8 == 0)    # bfloat16
+            assert np.all((4 * (b * V + starts)) % 16 == 0)   # float32

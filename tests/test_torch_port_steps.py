@@ -173,7 +173,7 @@ def test_steps_draw_their_own_noise_and_train():
 
 
 @pytest.mark.parametrize("override", [
-    {"dtype": "bfloat16", "gen_arch": "transformer"}, {"gen_arch": "gpt2"},
+    {"dtype": "bfloat16", "decode_impl": "decoupled"}, {"gen_arch": "gpt2"},
     {"gen_arch": "transformer", "conditional_gan": 1},
     {"conditional_gan": 1, "encoder_arch": "vit"}, {"disc_arch": "bilstm"}])
 def test_unported_training_options_raise(override):
