@@ -12,12 +12,14 @@
     python3 chip_smoke.py --only resume,scst
     python3 chip_smoke.py --only bf16
     python3 chip_smoke.py --only tf_bf16
+    python3 chip_smoke.py --only config5
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
 V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
-3/4/5 x 300; float32), of config2 and config3 conditional, and of config4
-(the transformer GAN), and prints one JSON line per phase:
+3/4/5 x 300; float32), of config2 and config3 conditional, of config4
+(the transformer GAN) and of config5 (ViT-B encoder, GPT-2-small
+generator, bfloat16), and prints one JSON line per phase:
 
 1. ``device``  — the card (``nvidia-smi`` name and power limit).
 2. ``build``   — every kernel built from ``kernels/csrc`` with nvcc
@@ -405,14 +407,40 @@ V = 11008, T = 36; CNN discriminator with embed 64, num_rep 64, filters
     device time and launches (torch.profiler), float32 and bfloat16 in
     turns on the same weights.
 
+33. ``config5`` — preset config5 at full width, bfloat16, random weights
+    from seed 0: ViT-B/16 at 256 x 256 (frozen), the GPT-2-small generator
+    (768 / 3072, 12 layers, 12 heads) cross-attending over the patch
+    grid, V = 50261 (GPT-2's ids and the 4 specials), T = 36, B = 64, the
+    default CNN discriminator, ``images_u8``.  The tiled flash route
+    (head dim 64) at [64, 37, 12, 64], causal with lengths and causal, in
+    bfloat16 and float32, and the sampler at [64, 50261] (the scalar
+    cluster path), against their plain versions with phase ``tf_bf16``'s
+    and ``tf_kernels``' tolerances, timed beside the plain versions,
+    their bounds and SDPA; ``image_norm`` on the batch into bfloat16.
+    Then 2 MLE and 2 Gumbel adversarial steps with the launches of the
+    design (12 tiled forwards, dQ and dK/dV an MLE step; 36 sampler
+    launches, 3 conv passes a Gumbel step; ``image_norm`` once each),
+    every one bfloat16; the frozen ViT bit-unchanged after them; each
+    step's losses and gradients through the kernels against the plain
+    versions as ``tf_bf16`` holds them; each step's device time by
+    kernel, launches, busy share and peak memory (torch.profiler).
+    config4 with ``--conditional-gan 1`` (the ResNet grid): an MLE step
+    against the plain route and a REINFORCE step.  ``main.py --preset
+    config5 --dataset synthetic`` on 128 items, an epoch of each phase;
+    its checkpoint, with the decoder drawn afresh from a seed so that the
+    greedy ids are not all ``<PAD>``, served (``{"image"}`` rows with
+    their grid) and captioned by ``caption.py``: the same ids and
+    captions, ids that differ across the images, and rows decoded without
+    their grid that decode apart.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
 Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed``, the fused-embed backward, and the bfloat16
-instantiations of phases ``bf16`` and ``tf_bf16``, with their launches in
-their drives) and,
+instantiations of phases ``bf16`` and ``tf_bf16``, and config5's shapes,
+with their launches in their drives) and,
 last, ``{"ok": true,
 "device": …}``.  The entries of the kernels on the evaluation path carry
 ``eval_decode_launches`` too, every entry ``scst_launches``, its
@@ -7375,6 +7403,727 @@ def tf_bf16_entries(smi, row):
     return out
 
 
+# ------------------------------------------------------------ config5
+# preset config5 at full width: ViT-B/16 at 256 x 256, the GPT-2-small
+# generator (768 / 3072, 12 layers, 12 heads: head dim 64, past the fused
+# flash kernels' 32, so the tiled route) cross-attending over the patch
+# grid, GPT-2's 50257 ids and the 4 specials, bfloat16 compute
+C5_V = 50257 + 4
+C5_D, C5_NL, C5_HEADS = 768, 12, 12
+C5_HD = C5_D // C5_HEADS
+C5_ITEMS = 128                    # main.py's synthetic items: 2 batches
+C5_SERVE = 8                      # images served and captioned
+C5_TPU_KERNELS = {"flash_fwd_config5": f"{FLASH_TPU}:81",
+                  "flash_dq_config5": f"{FLASH_TPU}:156",
+                  "flash_dkv_config5": f"{FLASH_TPU}:193",
+                  "gumbel_sample_config5": "gan_image_captioning_tpu/kernels/"
+                                           "gumbel_sample.py:36",
+                  "image_norm_config5": NORM_TPU_KERNEL}
+C5_COUNTERS = {"flash_fwd_config5": "flash_fwd",
+               "flash_dq_config5": "flash_dq",
+               "flash_dkv_config5": "flash_dkv",
+               "gumbel_sample_config5": "gumbel_sample",
+               "image_norm_config5": "image_norm"}
+# launches per config5 step by design: the MLE step's causal pass over
+# the 12 layers on the tiled route (a forward, and dQ and dK/dV, a
+# layer), image_norm once; the Gumbel step's sampler once a decode step
+# (the cache decode is dense), image_norm once, and the CNN
+# discriminator's conv banks forward and backward for its three passes
+C5_PER_MLE = {"flash_fwd": C5_NL, "flash_bwd": 0, "flash_dq": C5_NL,
+              "flash_dkv": C5_NL, "gumbel_sample": 0, "image_norm": 1,
+              "disc_conv_fwd": 0, "disc_conv_bwd_dx": 0}
+C5_PER_GUMBEL = {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0,
+                 "flash_dkv": 0, "gumbel_sample": T, "image_norm": 1,
+                 "disc_conv_fwd": 3, "disc_conv_bwd_dx": 3}
+
+
+def c5_reset():
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+
+    cnt = {**tf_counters(), "image_norm": inorm.normalize_images,
+           "disc_conv_fwd": disc_conv.conv_bank_forward,
+           "disc_conv_bwd_dx": disc_conv.conv_bank_backward}
+    for fn in cnt.values():
+        fn.launches = fn.bf16_launches = 0
+    return cnt
+
+
+def c5_config(**overrides):
+    from gan_image_captioning_tpu_torch.config import (build_parser,
+                                                       config_from_args)
+
+    args = build_parser().parse_args(
+        ["--preset", "config5", "--dataset", "synthetic", "--max-seq-len",
+         str(MAX_SEQ_LEN), "--device", "cuda"])
+    args.vocab_size = C5_V
+    return config_from_args(args).replace(**overrides)
+
+
+def c5_batch(device, config):
+    """B = 64 captions of 3-34 random GPT-2 ids (ragged: the MLE pass's
+    key masks) and seeded 256 x 256 uint8 images."""
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.train.steps import batch_to
+
+    rng = np.random.default_rng(505)
+    caps = [rng.integers(4, C5_V, size=rng.integers(3, 35))
+            for _ in range(B_TRAIN)]
+    imgs = [np.random.default_rng(5000 + i).integers(
+        0, 256, (3, IMG_S, IMG_S), dtype=np.uint8) for i in range(B_TRAIN)]
+    batch = batch_to(make_batch(caps, imgs, T), device)
+    check("images_u8" in batch, "config5: the batch is not uint8")
+    return batch
+
+
+def c5_flash(device):
+    """The tiled flash route at the GPT-2 MLE pass's [64, 37, 12, 64]:
+    causal with the captions' lengths + 1 and causal alone, in bfloat16
+    and float32; one forward, dQ and dK/dV launch a call (the tiled
+    kernels, as the C side reports); against the plain versions on the
+    same inputs (float32: out within FLASH_OUT_ATOL, dq, dk, dv and lse
+    within FLASH_GRAD_RTOL of their largest; bfloat16: each entry within a
+    bfloat16 step plus FLASH_GRAD_RTOL); device time beside the plain
+    versions', the bound and SDPA (forward, backward alone)."""
+    import torch.nn.functional as F
+
+    from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(561)
+    lens = torch.from_numpy(rng.integers(3, T + 1, B_TRAIN).astype(np.int32)
+                            + 1).to(device)
+    shape = (B_TRAIN, T + 1, C5_HEADS, C5_HD)
+    rows, times = {}, {}
+    for dt_name, dt in (("bf16", BF16), ("f32", torch.float32)):
+        for case, ln in (("mle", lens), ("causal", None)):
+            name = f"{case}_{dt_name}"
+            q, k, v, g = (seeded(shape, 560 + i, device).to(dt)
+                          for i in range(4))
+            cnt = c5_reset()
+            out, lse = fa.flash_fwd(q, k, v, True, ln)
+            dq, dk, dv = fa.flash_bwd(q, k, v, out, g, lse, True, ln)
+            torch.cuda.synchronize()
+            launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_bwd",
+                                                      "flash_dq", "flash_dkv")}
+            p_out, p_lse = fa.flash_fwd_plain(q, k, v, True, ln)
+            p_grads = fa.flash_bwd_plain(q, k, v, out, g, lse, True, ln)
+            row = {"shape": list(shape), "dtype": dt_name,
+                   "lengths": ln is not None, "launches": launches,
+                   "forward_kernel": fa.flash_fwd.last_kernel,
+                   "backward_kernel": fa.flash_bwd.last_kernel,
+                   "lse_rel": float((lse - p_lse).abs().max())
+                   / float(p_lse.abs().max())}
+            for n, a, b in zip(("out", "dq", "dk", "dv"), (out, dq, dk, dv),
+                               (p_out, *p_grads)):
+                if dt == BF16:
+                    row[f"{n}_max_abs_diff"], row[f"{n}_step_ratio"] = \
+                        bf16_steps(a, b, f"config5 flash {name} {n}",
+                                   floor=FLASH_GRAD_RTOL)
+                else:
+                    row[f"{n}_max_abs_diff"] = float((a - b).abs().max())
+                    row[f"{n}_rel"] = (row[f"{n}_max_abs_diff"]
+                                       / float(b.abs().max()))
+            emit({"phase": "config5", "kernel": "flash", "case": name, **row})
+            check(launches == {"flash_fwd": 1, "flash_bwd": 0, "flash_dq": 1,
+                               "flash_dkv": 1}
+                  and cnt["flash_fwd"].bf16_launches == int(dt == BF16),
+                  f"config5 flash {name}: launches {launches}")
+            check(row["forward_kernel"] == row["backward_kernel"] == "tiled",
+                  f"config5 flash {name}: not the tiled route {row}")
+            check(row["lse_rel"] <= FLASH_GRAD_RTOL,
+                  f"config5 flash {name} lse {row}")
+            if dt == torch.float32:
+                check(row["out_max_abs_diff"] <= FLASH_OUT_ATOL
+                      and all(row[f"{n}_rel"] <= FLASH_GRAD_RTOL
+                              for n in ("dq", "dk", "dv")),
+                      f"config5 flash {name} {row}")
+            rows[name] = row
+
+            b_, t_, h_, d_ = shape
+            mask = torch.tril(torch.ones((1, 1, t_, t_), dtype=torch.bool,
+                                         device=device))
+            if ln is not None:
+                mask = mask & (torch.arange(t_, device=device)[None, :]
+                               < ln[:, None])[:, None, None, :]
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            gt = g.transpose(1, 2).contiguous()
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            lib_err = float((lib.detach().transpose(1, 2).float()
+                             - p_out.float()).abs().max())
+
+            def lib_bwd():
+                torch.autograd.grad(lib, (qt, kt, vt), gt, retain_graph=True)
+
+            with torch.no_grad():
+                fns = {
+                    "kernel_fwd": lambda: fa.flash_fwd(q, k, v, True, ln),
+                    "kernel_bwd": lambda: fa.flash_bwd(q, k, v, out, g, lse,
+                                                       True, ln),
+                    "plain_fwd": lambda: fa.flash_fwd_plain(q, k, v, True,
+                                                            ln),
+                    "plain_bwd": lambda: fa.flash_bwd_plain(q, k, v, out, g,
+                                                            lse, True, ln),
+                    "library_fwd": lambda: F.scaled_dot_product_attention(
+                        qt.detach(), kt.detach(), vt.detach(),
+                        attn_mask=mask)}
+                ms = {n: [device_ms(f)] for n, f in fns.items()}
+                for n, f in reversed(list(fns.items())):
+                    ms[n].append(device_ms(f))
+            lib_bwd()
+            ms["library_bwd"] = [device_ms(lib_bwd, 10),
+                                 device_ms(lib_bwd, 10)]
+            del lib
+            pairs = attention_pairs(b_, t_, h_, True, ln)
+            t_row = {"ms": ms, "library_max_abs_diff": lib_err,
+                     "pairs": pairs}
+            for kind in ("fwd", "bwd"):
+                if dt == BF16:
+                    nbytes, flops = flash_bf16_work(kind, b_, t_, h_, d_,
+                                                    pairs)
+                else:
+                    nbytes, flops = flash_work(
+                        "flash_fwd" if kind == "fwd" else "whole_bwd",
+                        b_, t_, h_, d_, pairs)
+                t_row[kind] = dict(zip(("bound_ms", "bound_by"),
+                                       bound(nbytes, flops)),
+                                   bytes=nbytes, flop=flops)
+            emit({"phase": "config5", "timing": "flash", "case": name,
+                  **t_row})
+            times[name] = t_row
+    return rows, times
+
+
+def c5_gumbel(device):
+    """The sampler at [64, 50261] (the scalar cluster path: V % 4 != 0,
+    the last CTA's slice past V), bfloat16 and float32, on fed uniforms
+    and on its Philox draw: ids equal or ties within ID_ATOL of the row's
+    max score, soft within a bfloat16 step (bfloat16) or GUMBEL_SOFT_ATOL
+    (float32) of the plain version's; the Philox uniforms fed back give
+    the same sample; equal maxima in the first, the last and the partial
+    slice go to the lowest index; one launch a call; device time beside
+    the plain version's and the bound."""
+    from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
+
+    plan = gs.gumbel_plan(B_TRAIN, C5_V)
+    check(not plan["vec4"] and plan["cluster"] > 1
+          and plan["chunk"] * (plan["cluster"] - 1) < C5_V
+          <= plan["chunk"] * plan["cluster"], f"config5 sampler plan {plan}")
+    rows, times = {"plan": plan}, {}
+    for dt_name, dt in (("bf16", BF16), ("f32", torch.float32)):
+        logits = seeded((B_TRAIN, C5_V), 570, device, 3.0).to(dt)
+        u = torch.rand((B_TRAIN, C5_V), generator=torch.Generator(
+            device=device).manual_seed(571), device=device)
+        cnt = c5_reset()
+        soft, ids = gs.gumbel_sample(logits, 1.0, uniforms=u)
+        torch.cuda.synchronize()
+        launches = (cnt["gumbel_sample"].launches,
+                    cnt["gumbel_sample"].bf16_launches)
+        p_soft, p_ids = gs.gumbel_sample_plain(logits, 1.0, u)
+        x = (logits.float() - torch.log(-torch.log(u + gs.EPS) + gs.EPS))
+        gap = float((x.max(dim=-1).values
+                     - x.gather(1, ids.long()[:, None])[:, 0]).max())
+        u_out = torch.empty_like(u)
+        s_a, i_a = gs.gumbel_sample(logits, 1.0, seed=57, step=3,
+                                    uniforms_out=u_out)
+        s_b, i_b = gs.gumbel_sample(logits, 1.0, uniforms=u_out)
+        row = {"shape": [B_TRAIN, C5_V], "dtype": dt_name,
+               "launches": launches, "ids_equal": bool(torch.equal(ids,
+                                                                   p_ids)),
+               "id_gap": gap, "philox_fed_back_equal": bool(
+                   torch.equal(i_a, i_b) and torch.equal(s_a, s_b))}
+        if dt == BF16:
+            row["max_abs_soft_diff"], row["soft_step_ratio"] = bf16_steps(
+                soft, p_soft, "config5 sampler soft")
+        else:
+            row["max_abs_soft_diff"] = float((soft - p_soft).abs().max())
+            check(row["max_abs_soft_diff"] <= GUMBEL_SOFT_ATOL,
+                  f"config5 sampler soft {row}")
+        emit({"phase": "config5", "kernel": "gumbel_sample", **row})
+        check(launches == (1, int(dt == BF16)),
+              f"config5 sampler launches {row}")
+        check(gap <= ID_ATOL and row["philox_fed_back_equal"],
+              f"config5 sampler {row}")
+        rows[dt_name] = row
+        n = B_TRAIN * C5_V
+        size = 2 if dt == BF16 else 4
+        nbytes, flops = 2 * size * n + 4 * B_TRAIN, 7 * n
+        kern = lambda: gs.gumbel_sample(logits, 1.0, seed=7)   # noqa: E731
+        fed = lambda: gs.gumbel_sample(logits, 1.0, uniforms=u)  # noqa: E731
+        plain = lambda: gs.gumbel_sample_plain(logits, 1.0, u)  # noqa: E731
+        p_a, k_a, f_a = device_ms(plain), device_ms(kern), device_ms(fed)
+        f_b, k_b, p_b = device_ms(fed), device_ms(kern), device_ms(plain)
+        b_ms, b_by = bound(nbytes, flops)
+        times[dt_name] = {"kernel_ms": [k_a, k_b],
+                          "kernel_fed_uniforms_ms": [f_a, f_b],
+                          "plain_ms": [p_a, p_b], "bound_ms": b_ms,
+                          "bound_by": b_by, "bytes": nbytes, "flop": flops,
+                          "shape": [B_TRAIN, C5_V]}
+        emit({"phase": "config5", "timing": "gumbel_sample",
+              "dtype": dt_name, **times[dt_name]})
+    cols = [5, plan["chunk"] * (plan["cluster"] - 1) + 3, C5_V - 1]
+    tied = torch.zeros((B_TRAIN, C5_V), device=device)
+    tied[:, cols] = 10.0
+    tied[1:, cols[0]] = 0.0
+    tied[2:, cols[1]] = 0.0
+    _, t_ids = gs.gumbel_sample(tied, 1.0, uniforms=torch.full_like(tied,
+                                                                    0.5))
+    want = torch.full((B_TRAIN,), cols[2], dtype=torch.int32, device=device)
+    want[0], want[1] = cols[0], cols[1]
+    rows["ties_to_lowest_index"] = bool(torch.equal(t_ids, want))
+    check(rows["ties_to_lowest_index"], f"config5 sampler ties {t_ids[:3]}")
+    return rows, times
+
+
+def c5_image_norm(device):
+    """``image_norm`` on config5's [64, 3, 256, 256] uint8 batch into
+    bfloat16: bit-equal to its plain version, one launch; device time
+    beside the plain version's, the bound and ``torch.addcmul``."""
+    from gan_image_captioning_tpu_torch.kernels import image_norm as inorm
+
+    u8 = seeded_u8((B_TRAIN, 3, IMG_S, IMG_S), 580, device)
+    cnt = c5_reset()
+    out_k = inorm.normalize_images(u8, BF16)
+    torch.cuda.synchronize()
+    out_p = inorm.normalize_images_plain(u8, BF16)
+    row = {"shape": list(u8.shape), "launches": cnt["image_norm"].launches,
+           "bit_equal": bool(torch.equal(out_k, out_p)),
+           "max_abs_diff": float((out_k.float() - out_p.float()).abs().max())}
+    check(row["launches"] == 1 and out_k.dtype == BF16 and row["bit_equal"],
+          f"config5 image_norm {row}")
+    scale, shift = inorm._affine(device)
+    lib_out = torch.empty(u8.shape, dtype=BF16, device=device)
+    library = lambda: torch.addcmul(shift, u8, scale,      # noqa: E731
+                                    out=lib_out)
+    kern = lambda: inorm.normalize_images(u8, BF16)       # noqa: E731
+    k_a, l_a = (device_ms(f, 50) for f in (kern, library))
+    l_b, k_b = (device_ms(f, 50) for f in (library, kern))
+    n = u8.numel()
+    b_ms, b_by = bf16_bound(3 * n, 2 * n, F32_FLOP_PER_S)
+    times = {"kernel_ms": [k_a, k_b], "library_ms": [l_a, l_b],
+             "plain_ms": [cuda_ms(lambda: inorm.normalize_images_plain(
+                 u8, BF16), reps=20) for _ in range(2)],
+             "plain_timer": "cuda_ms", "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "config5", "kernel": "image_norm", **row, **times})
+    return row, times
+
+
+def c5_profile(fn, calls):
+    """``calls`` calls of ``fn`` under torch.profiler (CUDA activity; the
+    raw device events): device ms, kernel launches and busy share per
+    call, the device time of the ten longest kernels by name, the host ms
+    per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, n = {}, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        key = ev.name()[:300]     # far enough to name the functor
+        by_name[key] = by_name.get(key, 0.0) + ev.duration_ns() / 1e6 / calls
+        n += 1
+    total = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    return {"host_ms_per_step": wall / calls, "device_ms_per_step": total,
+            "launches_per_step": n / calls, "busy_share": total * calls / wall,
+            "top_kernels_ms_per_step": top}
+
+
+@contextlib.contextmanager
+def float32_running_stats(module):
+    """Within it, ``module``'s floating buffers (the encoder head's
+    BatchNorm statistics, kept in bfloat16 once a bfloat16 train step has
+    moved them) read as float32 copies, for a float32 step on the same
+    state; the buffers are put back after."""
+    bufs = [(m, n, b) for m in module.modules()
+            for n, b in m._buffers.items()
+            if b is not None and b.is_floating_point()]
+    for m, n, b in bufs:
+        m._buffers[n] = b.float()
+    try:
+        yield
+    finally:
+        for m, n, b in bufs:
+            m._buffers[n] = b
+
+
+def c5_steps(device):
+    """config5 at full width in bfloat16 (random weights from seed 0):
+    2 MLE and 2 Gumbel adversarial steps through ``train/steps.py`` with
+    the launches of the design, every one bfloat16, the frozen ViT
+    bit-unchanged after them and its head moved; each step's losses and
+    gradients through the kernels against the same step through their
+    plain versions (flash, sampler, ``image_norm``, the conv banks with
+    the kernel route's argmax rows replayed) on the same state and fed
+    noise, as phase ``tf_bf16`` holds them; then each step's device time
+    by kernel, launches, busy share and the peak memory."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
+                                                            make_mle_step)
+
+    t0 = time.perf_counter()
+    config = c5_config()
+    check((config.gen_embed_dim, config.gen_num_layers, config.gen_num_heads,
+           config.encoder_arch, config.dtype, config.cgan) == (
+               C5_D, C5_NL, C5_HEADS, "vit", "bfloat16", True),
+          f"config5 config {config}")
+    state = create_train_state(config, 0, device, sweep=False)
+    batch = c5_batch(device, config)
+    t_init = time.perf_counter() - t0
+    vit0 = {k: v.clone() for k, v in state.gen.encoder.vit.state_dict()
+            .items()}
+    head0 = state.gen.encoder.linear.weight.detach().clone()
+    torch.cuda.reset_peak_memory_stats(device)
+    mle, adv = make_mle_step(config), make_adv_step(config)
+    row, metrics = {"init_seconds": t_init}, []
+    for kind, step, per in (("mle", lambda: mle(state, batch), C5_PER_MLE),
+                            ("gumbel", lambda: adv(state, batch, TEMP),
+                             C5_PER_GUMBEL)):
+        cnt = c5_reset()
+        for _ in range(2):
+            _, m = step()
+            metrics.append({"step": kind, **{k: float(v)
+                                             for k, v in m.items()}})
+        torch.cuda.synchronize()
+        launches = bf16_launches(cnt, f"config5 {kind} steps")
+        want = {k: 2 * v for k, v in per.items()}
+        row[f"{kind}_launches"] = launches
+        check(launches == want, f"config5 {kind} launches {launches} != "
+              f"{want}")
+    row["peak_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    row["metrics"] = metrics
+    row["vit_bit_unchanged"] = all(
+        torch.equal(v, vit0[k]) for k, v in
+        state.gen.encoder.vit.state_dict().items())
+    row["head_moved"] = not torch.equal(state.gen.encoder.linear.weight,
+                                        head0)
+    emit({"phase": "config5", "steps": row})
+    check(all(math.isfinite(v) for m in metrics for k, v in m.items()
+              if k != "step"), f"config5 non-finite metric {metrics}")
+    check(row["vit_bit_unchanged"] and row["head_moved"],
+          "config5: the frozen ViT moved, or the head did not")
+    check(not any(k.startswith("encoder.vit.") for k in state.gen_opt.mu),
+          "config5: the frozen ViT is in the optimizer")
+
+    plain_cfg = config.replace(disc_engine="plain", image_norm_impl="plain")
+    for kind in ("mle", "gumbel"):
+        noise = None
+        if kind == "gumbel":
+            from gan_image_captioning_tpu_torch.models.api import (
+                disc_keep_shape)
+
+            gen = torch.Generator(device=device).manual_seed(583)
+            noise = {"uniforms": torch.rand((T, B_TRAIN, C5_V),
+                                            generator=gen, device=device),
+                     "keep": [torch.rand(disc_keep_shape(config, B_TRAIN),
+                                         generator=gen, device=device) < 0.8
+                              for _ in range(3)]}
+        with disc_conv.argmax_record() as rec:
+            kern = tf_bf16_grads(kind, config, state, batch, noise)
+        with disc_conv.argmax_replay(rec) as report, tf_plain_versions():
+            plain = tf_bf16_grads(kind, plain_cfg, state, batch, noise)
+        with float32_running_stats(state.gen):
+            ref32 = tf_bf16_grads(kind, config.replace(dtype="float32"),
+                                  state, batch, noise)
+        units, misses = tf_bf16_compare(kern, plain, ref32)
+        worst = sorted(units.items(), key=lambda kv: -kv[1])[:4]
+        tie_scale = max([float(p.abs().max()) for _, p in rec["pool"]]
+                        + [float(x.abs().max()) for x in rec["relu"]]
+                        + [1e-30])
+        cmp = {"g_loss": [float(kern[0]), float(plain[0])],
+               "d_loss": [float(kern[1]), float(plain[1])],
+               "ids_equal": bool(torch.equal(kern[4]["gen_ids"],
+                                             plain[4]["gen_ids"])),
+               "argmax_gap_units": max([gp for gp, _ in report] + [0.0])
+               / (BF16_UNIT * tie_scale),
+               "worst_grad_units": worst, "misses": misses}
+        emit({"phase": "config5", "kernels_vs_plain": kind, **cmp})
+        for a, b in (cmp["g_loss"], cmp["d_loss"]):
+            check(abs(a - b) <= BF16_LOSS_UNITS * BF16_UNIT * max(abs(b),
+                                                                  1e-30),
+                  f"config5 {kind} losses {cmp}")
+        check(cmp["ids_equal"], f"config5 {kind}: the routes sampled apart")
+        check(cmp["argmax_gap_units"] <= BF16_ID_UNITS,
+              f"config5 {kind} conv ties {cmp}")
+        check(not misses, f"config5 {kind} gradients {cmp}")
+        row[f"{kind}_vs_plain"] = cmp
+        del kern, plain, ref32, noise
+
+    prof = {"mle": c5_profile(lambda: mle(state, batch), 2),
+            "gumbel": c5_profile(lambda: adv(state, batch, TEMP), 2)}
+    emit({"phase": "config5", "profile": prof})
+    row["profile"] = prof
+    return row
+
+
+def c5_cond_config4(device):
+    """config4 with ``--conditional-gan 1`` (the ResNet-18 grid of 256 x
+    256 uint8 images, 512 channels through ``ctx_proj`` into 256), float32
+    at full width: one MLE step's loss and gradients through the kernels
+    against the plain route (attention, ``image_norm``) as phase
+    ``tf_train`` holds them, and one REINFORCE step with finite metrics,
+    the cross-attention in both."""
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (batch_to,
+                                                            make_adv_step)
+
+    config = tf_config(conditional_gan=1, image_size=IMG_S)
+    state = create_train_state(config, 0, device, sweep=False)
+    rng = np.random.default_rng(591)
+    caps = [rng.integers(4, min(11000, V), size=rng.integers(3, 35))
+            for _ in range(B_TRAIN)]
+    imgs = [np.random.default_rng(5900 + i).integers(
+        0, 256, (3, IMG_S, IMG_S), dtype=np.uint8) for i in range(B_TRAIN)]
+    batch = batch_to(make_batch(caps, imgs, T), device)
+    plain_cfg = config.replace(attn_impl="plain", image_norm_impl="plain")
+    kern = tf_grads("mle", config, state, batch, None)
+    plain = tf_grads("mle", plain_cfg, state, batch, None)
+    cmp = compare_grads(kern, plain)
+    cnt = c5_reset()
+    state, m = make_adv_step(config)(state, batch, 1.0)
+    torch.cuda.synchronize()
+    row = {"g_loss": cmp["g_loss"], "grad_side_rel_err":
+           cmp["grad_side_rel_err"],
+           "ctx_proj_grad_max": float(kern[2]["decoder.ctx_proj.w"].abs()
+                                      .max()),
+           "reinforce_metrics": {k: float(v) for k, v in m.items()},
+           "reinforce_launches": {k: f.launches for k, f in cnt.items()}}
+    emit({"phase": "config5", "config4_conditional": row})
+    a, b = cmp["g_loss"]
+    check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30)
+          and routes_agree(cmp), f"config5 config4 conditional {row}")
+    check(row["ctx_proj_grad_max"] > 0, "config4 conditional: ctx_proj "
+          "has no gradient")
+    check(all(math.isfinite(v) for v in row["reinforce_metrics"].values())
+          and row["reinforce_launches"]["image_norm"] == 1
+          and row["reinforce_launches"]["gumbel_sample"] == T,
+          f"config4 conditional REINFORCE {row}")
+    return row
+
+
+def c5_main(workdir):
+    """``main.py --preset config5 --dataset synthetic`` on C5_ITEMS items
+    (full width: synthetic captions keep their own vocabulary), one
+    pretrain and one adversarial epoch.  Its adversarial checkpoint
+    greedily decodes ``<PAD>`` for every image (two steps of an MLE loss
+    that covers the padding positions), which would hide a service that
+    dropped the grid; so the checkpoint is written again with its decoder
+    drawn afresh from a seed (the projection at N(0, 1) rather than 0.02,
+    so that no argmax is a near-tie), its trained encoder kept, and that
+    one is served (``{"image"}`` rows through the
+    coalescing engine: features and grid) and captioned by ``caption.py``
+    on the same C5_SERVE val images: the same ids, text and
+    log-probabilities, ids that differ across the images, and the
+    control: the same rows decoded without their grid decode apart."""
+    import shutil
+
+    from gan_image_captioning_tpu_torch import caption as caption_main
+    from gan_image_captioning_tpu_torch import main as train_main
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.data.synthetic import (
+        SyntheticCaptions)
+    from gan_image_captioning_tpu_torch.eval import decode as decode_lib
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.models.transformer import (
+        init_transformer_decoder_params)
+    from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
+
+    save = workdir / "config5_loop"
+    shutil.rmtree(save, ignore_errors=True)
+    flags = ["--preset", "config5", "--dataset", "synthetic",
+             "--synthetic-items", str(C5_ITEMS), "--max-seq-len",
+             str(MAX_SEQ_LEN)]
+    cnt = c5_reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        inst = train_main.main([*flags, "--pretrain-epochs", "1",
+                                "--adv-epochs", "1", "--save-dir", str(save),
+                                "--expt-name", "config5"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = bf16_launches(cnt, "config5 main.py")
+    model_dir = Path(inst.config.model_dir)
+    gen, disc_sd = ckpt_lib.load_generator_checkpoint(
+        str(model_dir / "adv_model.ckpt"), inst.config)
+    init_transformer_decoder_params(torch.Generator().manual_seed(7),
+                                    gen.decoder)
+    with torch.no_grad():
+        gen.decoder.linear.w.mul_(50.0)     # N(0, 1): decisive argmaxes
+    ckpt = str(model_dir / "served_model.ckpt")
+    ckpt_lib.save_generator_checkpoint(ckpt, gen, disc_sd)
+    del gen, disc_sd
+    val = SyntheticCaptions("val", num_items=max(C5_ITEMS // 4, 16),
+                            image_size=IMG_S, conditional=True,
+                            seed=inst.config.seed)
+    images = np.stack([val.sample(i)[1] for i in range(C5_SERVE)])
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", ckpt, *flags, "--serve-batch-size",
+         str(C5_SERVE)]))
+    try:
+        served = service.caption_images(images)
+        # the engine's ids of the same rows, past each caption's <E>
+        served_ids, _ = service.batcher.submit(
+            service.features_from_images(images)).result(timeout=300)
+        # the greedy decode of the same rows with their grid and, the
+        # control, without it (what a service passing only the features
+        # decodes)
+        config = service.config
+        with torch.no_grad():
+            cond, _ = api.generator_condition(
+                config, service.generator,
+                {"images": torch.from_numpy(images).to(service.device)})
+            with_grid, without_grid = (
+                [t.cpu().numpy() for t in decode_lib.greedy_with_logprobs(
+                    service.generator, cond["features"], config,
+                    context=ctx)] for ctx in (cond["context"], None))
+    finally:
+        service.close()
+    out = save / "captions.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        caption_ids = np.stack(caption_main.main(
+            ["--checkpoint", ckpt, *flags, "--num-samples", str(C5_SERVE),
+             "--pre-eval-batch-size", str(C5_SERVE), "--output", str(out)]))
+    rows = [json.loads(ln) for ln in open(out)]
+    row = {"seconds": seconds, "launches": launches,
+           "pretrain_steps": inst.pretrain_steps,
+           "gen_steps": inst.state.gen_steps,
+           "served": served["captions"],
+           "captioned": [r["caption"] for r in rows],
+           "ids_equal": bool(np.array_equal(served_ids, caption_ids)),
+           "ids": caption_ids[:2].tolist(),
+           "distinct_id_rows": len({tuple(r) for r in caption_ids}),
+           "non_pad_ids": int((caption_ids != 0).sum()),
+           "max_abs_logprob_diff": max(
+               abs(a - r["logprob"]) for a, r in zip(served["logprobs"],
+                                                     rows)),
+           "with_grid_equal_served": bool(np.array_equal(with_grid[0],
+                                                         served_ids)),
+           "without_grid_rows_differing": int(
+               (with_grid[0] != without_grid[0]).any(axis=1).sum()),
+           "without_grid_max_abs_logprob_diff": float(
+               np.abs(with_grid[1] - without_grid[1]).max())}
+    emit({"phase": "config5", "loop": row})
+    check(inst.config.gen_embed_dim == C5_D and inst.config.cgan
+          and inst.config.dtype == "bfloat16", "config5 main.py: the preset "
+          "did not reach the config")
+    check(inst.pretrain_steps > 0 and inst.state.gen_steps > 0,
+          f"config5 main.py steps {row}")
+    check(launches["gumbel_sample"] > 0 and launches["flash_fwd"] > 0,
+          f"config5 main.py launches {launches}")
+    check(row["served"] == row["captioned"] and row["ids_equal"]
+          and row["with_grid_equal_served"]
+          and row["max_abs_logprob_diff"] <= 1e-3,
+          f"config5: serve.py and caption.py part {row}")
+    check(row["distinct_id_rows"] > 1 and row["non_pad_ids"] > 0,
+          f"config5: the served ids do not follow the image {row}")
+    check(row["without_grid_rows_differing"] > 0
+          or row["without_grid_max_abs_logprob_diff"] > 1e-3,
+          f"config5: the rows decode alike without their grid {row}")
+    return row
+
+
+def phase_config5(device, workdir):
+    """Preset config5 at full width (the chip_smoke docstring's
+    ``config5``)."""
+    marks = [("start", time.perf_counter())]
+    flash_rows, flash_times = c5_flash(device)
+    marks.append(("flash", time.perf_counter()))
+    g_rows, g_times = c5_gumbel(device)
+    marks.append(("gumbel", time.perf_counter()))
+    norm_row, norm_times = c5_image_norm(device)
+    marks.append(("image_norm", time.perf_counter()))
+    steps = c5_steps(device)
+    marks.append(("steps", time.perf_counter()))
+    torch.cuda.empty_cache()
+    cond4 = c5_cond_config4(device)
+    marks.append(("config4_conditional", time.perf_counter()))
+    torch.cuda.empty_cache()
+    loop = c5_main(workdir)
+    marks.append(("loop", time.perf_counter()))
+    emit({"phase": "config5", "seconds": marks[-1][1] - marks[0][1],
+          "seconds_by_part": {name: t - marks[i][1] for i, (name, t)
+                              in enumerate(marks[1:])}})
+    return {"flash": flash_rows, "flash_times": flash_times,
+            "gumbel": g_rows, "gumbel_times": g_times, "norm": norm_row,
+            "norm_times": norm_times, "steps": steps, "cond4": cond4,
+            "loop": loop}
+
+
+def config5_entries(smi, row):
+    """config5's kernels on the ``kernels`` line, in bfloat16 at its
+    shapes (the float32 instantiation's times under ``float32``):
+    the tiled flash at [64, 37, 12, 64] (the MLE pass's lengths), the
+    sampler at [64, 50261] and ``image_norm`` at [64, 3, 256, 256];
+    launches from the phase's counted drive (2 MLE and 2 Gumbel steps)."""
+    steps = row["steps"]
+    out = []
+    for name, tpu in C5_TPU_KERNELS.items():
+        counter = C5_COUNTERS[name]
+        launches = sum(steps[f"{k}_launches"][counter]
+                       for k in ("mle", "gumbel"))
+        if name == "gumbel_sample_config5":
+            t, t32 = row["gumbel_times"]["bf16"], row["gumbel_times"]["f32"]
+            entry = {"ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": None, "shape": t["shape"],
+                     "max_abs_err": max(row["gumbel"][d]["max_abs_soft_diff"]
+                                        for d in ("bf16", "f32")),
+                     "float32": {k: (min(t32[k]) if isinstance(t32[k], list)
+                                     else t32[k]) for k in
+                                 ("kernel_ms", "plain_ms", "bound_ms")}}
+            src = "gumbel_sample.cu"
+        elif name == "image_norm_config5":
+            t = row["norm_times"]
+            entry = {"ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": min(t["library_ms"]),
+                     "shape": row["norm"]["shape"],
+                     "max_abs_err": row["norm"]["max_abs_diff"]}
+            src = "image_norm.cu"
+        else:
+            kind = "fwd" if name == "flash_fwd_config5" else "bwd"
+            keys = (("out",) if kind == "fwd" else
+                    ("dq",) if name == "flash_dq_config5" else ("dk", "dv"))
+            t, t32 = row["flash_times"]["mle_bf16"], row["flash_times"][
+                "mle_f32"]
+            entry = {"ms": min(t["ms"][f"kernel_{kind}"]),
+                     "plain_ms": min(t["ms"][f"plain_{kind}"]),
+                     "bound_ms": t[kind]["bound_ms"],
+                     "bound_by": t[kind]["bound_by"],
+                     "library_ms": min(t["ms"][f"library_{kind}"]),
+                     "shape": row["flash"]["mle_bf16"]["shape"],
+                     "max_abs_err": max(r[f"{k}_max_abs_diff"] for r in
+                                        row["flash"].values() for k in keys),
+                     "timed_as": "the whole tiled backward (delta, dQ, dK/dV)"
+                     if kind == "bwd" else "the tiled forward",
+                     "by_case": {c: {
+                         "ms": min(x["ms"][f"kernel_{kind}"]),
+                         "plain_ms": min(x["ms"][f"plain_{kind}"]),
+                         "library_ms": min(x["ms"][f"library_{kind}"]),
+                         "bound_ms": x[kind]["bound_ms"]}
+                         for c, x in row["flash_times"].items()},
+                     "float32": {"ms": min(t32["ms"][f"kernel_{kind}"]),
+                                 "plain_ms": min(t32["ms"][f"plain_{kind}"]),
+                                 "library_ms": min(t32["ms"][
+                                     f"library_{kind}"]),
+                                 "bound_ms": t32[kind]["bound_ms"]}}
+            src = "flash_attention.cu"
+        out.append({"name": name, "route": "cuda",
+                    "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                              + src, "replaces": tpu, "launches": launches,
+                    **entry, "dtype": "bfloat16", "card": smi})
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -7478,6 +8227,8 @@ def main(argv=None):
         bf16_row = phase_bf16(gen, device, workdir)
     if run("tf_bf16"):
         tf_bf16_row = phase_tf_bf16(device, workdir)
+    if run("config5"):
+        config5_row = phase_config5(device, workdir)
     if only:
         return 0
 
@@ -7507,7 +8258,8 @@ def main(argv=None):
         + engine_entries(smi, engines, reverse)
         + mode_entries(smi, modes, impls)
         + bf16_entries(smi, bf16_row)
-        + tf_bf16_entries(smi, tf_bf16_row))
+        + tf_bf16_entries(smi, tf_bf16_row)
+        + config5_entries(smi, config5_row))
     # the evaluation path's launches (phase eval_decode, counts set to 0
     # before each evaluate.py run): greedy, int8 greedy, beam 4 with the
     # discriminator score; NLL_gen through the pretrain mode in each

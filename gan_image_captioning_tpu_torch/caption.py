@@ -8,7 +8,9 @@ Loads a generator checkpoint (``pretrained_model.ckpt``, or the generator
 of ``adv_model.ckpt``), decodes the first ``--num-samples`` rows of a
 split and writes one JSON line per caption (``caption``, ``logprob``,
 ``reference``; diverse beam search writes ``captions`` and ``logprobs``,
-one per group) to stdout or ``--output``.  ``--decode-mode``: ``greedy``
+one per group) to stdout or ``--output``, and returns the decoded id rows.
+Under ``--tokenizer bpe`` the captions are the BPE's text, as
+``serve.py``'s.  ``--decode-mode``: ``greedy``
 (the serve/greedy kernel on the card, ``--adaptive-chunk K`` its
 early-stopping chunks), ``beam`` (``--beam-groups`` above 1: diverse),
 ``sample`` (the sampling flags; noise from ``--sample-seed``, one
@@ -85,8 +87,8 @@ def main(argv=None):
 
     from gan_image_captioning_tpu_torch.data.loader import Batcher
     from gan_image_captioning_tpu_torch.eval import decode as decode_lib
-    from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
-                                                             strip_caption)
+    from gan_image_captioning_tpu_torch.eval.metrics import (caption_text,
+                                                             text_vocab)
     from gan_image_captioning_tpu_torch.main import (build_datasets,
                                                      inject_vocab_size)
     from gan_image_captioning_tpu_torch.models import api
@@ -111,20 +113,20 @@ def main(argv=None):
 
     @torch.no_grad()
     def decode_batch(batch, call):
-        feats = api.generator_condition(config, gen, batch,
-                                        train=False)[0]["features"]
+        cond = api.generator_condition(config, gen, batch, train=False)[0]
+        feats, ctx = cond["features"], cond["context"]
         if mode == "beam" and args.beam_groups > 1:
             return decode_lib.diverse_beam_search(
                 dec, feats, config, beam_size=beam,
                 num_groups=args.beam_groups,
                 diversity_strength=args.diversity_strength,
                 length_penalty=config.length_penalty,
-                min_length=args.min_length)
+                min_length=args.min_length, context=ctx)
         if mode == "beam":
             return decode_lib.beam_search(
                 dec, feats, config, beam_size=beam,
                 length_penalty=config.length_penalty,
-                min_length=args.min_length)
+                min_length=args.min_length, context=ctx)
         if mode == "sample":
             return decode_lib.sample_decode(
                 dec, feats, config,
@@ -133,19 +135,21 @@ def main(argv=None):
                 top_p=args.top_p,
                 repetition_penalty=args.repetition_penalty,
                 no_repeat_ngram=args.no_repeat_ngram,
-                min_length=args.min_length)
+                min_length=args.min_length, context=ctx)
         if args.adaptive_chunk > 0:
             return decode_lib.greedy_with_logprobs_adaptive(
                 dec, feats, config, chunk=args.adaptive_chunk)
-        ids = decode_lib.greedy(dec, feats, config)
-        return ids, decode_lib.sequence_logprob(dec, feats, ids, config)
+        ids = decode_lib.greedy(dec, feats, config, context=ctx)
+        return ids, decode_lib.sequence_logprob(dec, feats, ids, config, ctx)
+
+    vocab = text_vocab(ds)
 
     def words(ids):
-        return " ".join(ids_to_words(strip_caption(ids), ds.index_to_word))
+        return caption_text(ids, vocab)
 
     out_f = open(args.output, "w") if args.output else sys.stdout
     batch_size = min(args.num_samples, config.pre_eval_batch_size)
-    emitted = 0
+    emitted, decoded = 0, []
     for call, batch in enumerate(Batcher(ds, batch_size, config.seq_len)):
         ids, scores = decode_batch(batch_to(batch, device), call)
         ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
@@ -163,12 +167,14 @@ def main(argv=None):
                 row = {"caption": words(ids[i]),
                        "logprob": float(scores[i]), "reference": reference}
             out_f.write(json.dumps(row) + "\n")
+            decoded.append(ids[i])
             emitted += 1
         if emitted >= args.num_samples:
             break
     if args.output:
         out_f.close()
         print(f"wrote {emitted} captions to {args.output}")
+    return decoded
 
 
 if __name__ == "__main__":

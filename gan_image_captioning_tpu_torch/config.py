@@ -3,7 +3,7 @@
 Counterpart of ``gan_image_captioning_tpu/config.py``: the same flag names
 and defaults for what the serving path, the training steps and the
 training loop read, parsed into a frozen :class:`Config`, with the JAX
-package's ``--preset`` bundles ``config1``-``config4`` and its
+package's ``--preset`` bundles ``config1``-``config5`` and its
 experiment-dir side effects (:func:`make_experiment_dirs`).  Flags of the
 JAX package that the port does not honour yet are parsed and refused when
 set (:func:`require_ported_flags`), never ignored.  ``--device`` defaults
@@ -50,9 +50,11 @@ PRESETS = {
                     adv_objective="reinforce", rollout_num=4,
                     rollout_stride=4, pretrain_epochs=50, adv_epochs=50,
                     dataset_percent=0.1, captions_per_image=5),
-}
-UNPORTED_PRESETS = {
-    "config5": "the ViT encoder and the GPT-2 generator",
+    # ViT-B/16 encoder + GPT-2-small generator cross-attending over the
+    # patch grid, BPE, bfloat16, uint8 images normalized on the device
+    "config5": dict(encoder_arch="vit", gen_arch="gpt2", conditional_gan=1,
+                    tokenizer="bpe", captions_per_image=5, dtype="bfloat16",
+                    device_preprocess=1, pretrain_epochs=50, adv_epochs=50),
 }
 
 
@@ -75,10 +77,6 @@ class _PresetParser(argparse.ArgumentParser):
 
     def parse_known_args(self, args=None, namespace=None):
         name = _scan_preset(args)
-        if name in UNPORTED_PRESETS:
-            raise NotImplementedError(
-                f"--preset {name}: {UNPORTED_PRESETS[name]} are not ported "
-                "yet")
         if name is not None:
             if name not in PRESETS:
                 self.error(f"unknown --preset {name!r}")
@@ -103,7 +101,9 @@ def add_model_args(parser):
                    help="is the gan conditional?")
     g.add_argument("--gen-arch", type=str, default="lstm",
                    choices=["lstm", "transformer", "gpt2"],
-                   help="generator architecture (gpt2 is not ported yet)")
+                   help="generator architecture; 'gpt2' is the transformer "
+                        "at GPT-2-small's geometry (768 / 3072, 12 layers, "
+                        "12 heads)")
     g.add_argument("--gen-num-heads", type=int, default=8,
                    help="attention heads for the transformer generator")
     g.add_argument("--disc-arch", type=str, default="cnn",
@@ -310,6 +310,17 @@ def add_data_args(parser):
                    help="round the dataset vocab size up to a multiple of "
                         "this; padded ids are never produced by data and "
                         "decode maps them to <UNK>")
+    g.add_argument("--tokenizer", type=str, default="word",
+                   choices=["word", "bpe"],
+                   help="'word' = the reference's first-appearance word "
+                        "vocabulary; 'bpe' = GPT-2 byte-level BPE "
+                        "(data/bpe.py) over --bpe-vocab / --bpe-merges, ids "
+                        "offset by the 4 specials (COCO only: "
+                        "--dataset synthetic keeps its own vocabulary)")
+    g.add_argument("--bpe-vocab", type=str, default="",
+                   help="path to a GPT-2-format vocab.json (--tokenizer bpe)")
+    g.add_argument("--bpe-merges", type=str, default="",
+                   help="path to a GPT-2-format merges.txt (--tokenizer bpe)")
     g.add_argument("--image-size", type=int, default=256,
                    help="resize dim of images")
     g.add_argument("--captions-per-image", type=int, default=1,
@@ -380,7 +391,7 @@ def add_extension_args(parser):
                         "byte (ops/quantize.py); training stays float32")
     g.add_argument("--encoder-arch", type=str, default="resnet18",
                    choices=["resnet18", "vit"],
-                   help="image encoder backbone (vit is not ported yet)")
+                   help="image encoder backbone: ResNet-18 or ViT-B/16")
     g.add_argument("--trainable-backbone", type=int, default=0,
                    choices=[0, 1],
                    help="train the image backbone instead of freezing it")
@@ -396,9 +407,8 @@ def add_extension_args(parser):
                    help="compute BLEU-4/NLL_gen/self-BLEU on val every N "
                         "adversarial epochs (0 = off)")
     g.add_argument("--preset", type=str, default=None,
-                   choices=sorted(PRESETS) + sorted(UNPORTED_PRESETS),
-                   help="a named benchmark configuration as flag defaults "
-                        "(config5 is not ported yet)")
+                   choices=sorted(PRESETS),
+                   help="a named benchmark configuration as flag defaults")
     g.add_argument("--disc-engine", type=str, default="auto",
                    choices=["auto", "xla", "pallas", "hybrid", "mxu"],
                    help="discriminator conv/ReLU/max-pool engine: 'auto' "
@@ -455,10 +465,6 @@ _UNPORTED_FLAG_ARGS = (
                        choices=["gspmd", "ring", "ulysses"]), None),
     ("--pp-microbatches", dict(type=int, default=4), None),
     ("--zero1", dict(action="store_true"), None),
-    ("--tokenizer", dict(type=str, default="word", choices=["word", "bpe"]),
-     None),
-    ("--bpe-vocab", dict(type=str, default=""), None),
-    ("--bpe-merges", dict(type=str, default=""), None),
     ("--encoder-init", dict(type=str, default="sweep",
                             choices=["sweep", "natural"]), None),
 )
@@ -708,33 +714,39 @@ class Config:
         return [int(b) for b in self.length_buckets.split(",") if b] or None
 
 
+# --gen-arch gpt2: the transformer generator at GPT-2-small's geometry
+GPT2_GEOMETRY = dict(gen_arch="transformer", gen_embed_dim=768,
+                     gen_hidden_dim=3072, gen_num_layers=12, gen_num_heads=12)
+
+
 def config_from_args(args: argparse.Namespace) -> Config:
+    """A parsed namespace → :class:`Config`; ``--gen-arch gpt2`` expands
+    to :data:`GPT2_GEOMETRY` (the JAX ``config_from_args``), overriding
+    the width flags."""
     fields = {f.name for f in dataclasses.fields(Config)}
-    return Config(**{k: tuple(v) if isinstance(v, list) else v
-                     for k, v in vars(args).items() if k in fields})
+    config = Config(**{k: tuple(v) if isinstance(v, list) else v
+                       for k, v in vars(args).items() if k in fields})
+    if config.gen_arch == "gpt2":
+        config = config.replace(**GPT2_GEOMETRY)
+    return config
 
 
 def require_ported_arch(config: Config) -> None:
-    """Raise for a model the port does not have yet: the GPT-2 generator,
-    the conditional transformer, the BiLSTM discriminator, the ViT
-    encoder."""
+    """Raise for a model the port does not have yet: the BiLSTM
+    discriminator.  (``--gen-arch gpt2`` reaches here expanded to the
+    transformer by :func:`config_from_args`; a ``Config`` built by hand
+    with ``gen_arch="gpt2"`` must be expanded the same way.)"""
     if config.gen_arch not in ("lstm", "transformer"):
-        raise NotImplementedError(f"--gen-arch {config.gen_arch}: only the "
-                                  "LSTM and transformer generators are "
-                                  "ported yet")
-    if config.gen_arch == "transformer" and config.cgan:
-        raise NotImplementedError(
-            "--gen-arch transformer --conditional-gan 1: the conditional "
-            "transformer (cross-attention over the image grid) is not "
-            "ported yet")
+        raise ValueError(f"gen_arch {config.gen_arch!r}: expected 'lstm' "
+                         "or 'transformer' (config_from_args expands "
+                         "'gpt2')")
     if config.disc_arch not in ("cnn", "transformer", "ar_transformer"):
         raise NotImplementedError(f"--disc-arch {config.disc_arch}: only the "
                                   "CNN and transformer discriminators are "
                                   "ported yet")
-    if config.cgan and config.encoder_arch != "resnet18":
-        raise NotImplementedError(
-            f"--encoder-arch {config.encoder_arch}: only the ResNet-18 "
-            "encoder is ported yet")
+    if config.encoder_arch not in ("resnet18", "vit"):
+        raise ValueError(f"--encoder-arch {config.encoder_arch!r}: expected "
+                         "resnet18 or vit")
 
 
 # What --dtype bfloat16 runs in bfloat16 through the bfloat16 kernels
@@ -781,14 +793,10 @@ def require_ported_dtype(config: Config) -> None:
 
 def require_ported_flags(config: Config) -> None:
     """Raise for a flag of the JAX package that the port parses but does
-    not honour yet, when it is set; for ``--encoder-arch vit``; and for a
-    model :func:`require_ported_arch` refuses; and for an unknown
-    ``decode_impl``."""
+    not honour yet, when it is set; for a model :func:`require_ported_arch`
+    refuses; and for an unknown ``decode_impl``."""
     refuse_unported(_UNPORTED_FLAG_ARGS, config)
     decode_route(config)
-    if config.encoder_arch != "resnet18":
-        raise NotImplementedError(f"--encoder-arch {config.encoder_arch}: "
-                                  "only the ResNet-18 encoder is ported yet")
     require_ported_arch(config)
 
 

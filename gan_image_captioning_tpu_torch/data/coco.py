@@ -3,8 +3,10 @@ its PIL route): ``{data_dir}/dataset_coco.json``, images under
 ``{data_dir}/{filepath}/{filename}`` and the reference-compatible pickle
 cache.  Captions are tokenized to ids once, at construction.
 ``device_preprocess`` emits resized CHW uint8 (normalized on the device by
-the ``image_norm`` kernel); otherwise normalized CHW float32.  The JAX
-package's native C++ decoder and its GPT-2 BPE route are not ported."""
+the ``image_norm`` kernel); otherwise normalized CHW float32.
+``bpe_tokenizer`` (``--tokenizer bpe``, ``data/bpe.py``) tokenizes the
+captions into GPT-2's id space (offset by the 4 specials) in place of the
+word vocabulary.  The JAX package's native C++ decoder is not ported."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ class CocoCaptions:
                  image_size: int = 256, captions_per_image: int = 5,
                  vocab_dicts: Optional[Tuple[dict, dict]] = None,
                  dataset_percent: float = 1.0, conditional: bool = True,
-                 device_preprocess: bool = False):
+                 device_preprocess: bool = False, bpe_tokenizer=None):
         assert split in {"train", "val", "test"}
         self.split = split
         self.image_path = image_path
@@ -30,13 +32,21 @@ class CocoCaptions:
         self.conditional = conditional
         self.dataset_percent = dataset_percent
         self.device_preprocess = device_preprocess
+        self.bpe_tokenizer = bpe_tokenizer
         self.captions, self.word_to_index, self.index_to_word = (
             vocab_lib.build_coco_records(captions_path, image_path, split,
                                          captions_per_image, vocab_dicts))
-        self.vocab_size = len(self.word_to_index)  # tasks.py:102
-        self._token_ids = [
-            vocab_lib.tokens_to_ids(rec["tokens"], self.word_to_index)
-            for rec in self.captions]
+        if bpe_tokenizer is not None:
+            self.vocab_size = bpe_tokenizer.vocab_size
+            self._token_ids = [
+                np.asarray(bpe_tokenizer.encode(" ".join(rec["tokens"])),
+                           dtype=np.int32)
+                for rec in self.captions]
+        else:
+            self.vocab_size = len(self.word_to_index)  # tasks.py:102
+            self._token_ids = [
+                vocab_lib.tokens_to_ids(rec["tokens"], self.word_to_index)
+                for rec in self.captions]
 
     def __len__(self):
         # dataset_percent truncates (tasks.py:106-108)

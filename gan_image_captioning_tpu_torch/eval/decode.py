@@ -21,7 +21,11 @@ A generator here is a port :class:`Generator` or the quantized twin
   ``sample(pretrain=True)`` (JAX ``eval/decode.py:209-222``); its
   logprobs come from the same pass's logits (the teacher-forced logits of
   the greedy ids, which the JAX package recomputes with a second scan).
-  The transformer has no serve kernel and no adaptive decode here.
+  The transformer has no serve kernel and no adaptive decode here.  A
+  conditional transformer's decodes take the encoder's grid as
+  ``context`` (the JAX ``ctx_proj`` shape rule; beam searches repeat it
+  K times, one copy a beam); its cross-attention keys and values are made
+  once a call (``transformer.cross_kv``).
 * :func:`sample_decode` (temperature, top-k, top-p, repetition penalty,
   no-repeat n-grams, a minimum length), :func:`beam_search` (GNMT length
   penalty) and :func:`diverse_beam_search` run over a stepper as plain
@@ -119,17 +123,23 @@ def lstm_stepper(decoder) -> Stepper:
     return Stepper(init_state, step, _gather, lambda ids: weight[ids.long()])
 
 
-def transformer_stepper(decoder, config: Config) -> Stepper:
+def transformer_stepper(decoder, config: Config, context=None) -> Stepper:
     """Stepper over a transformer decoder: the state is the KV cache, one
-    ``[N, t, heads, head_dim]`` key and value tensor per layer."""
+    ``[N, t, heads, head_dim]`` key and value tensor per layer;
+    ``context [N, P, C]`` is cross-attended at every step (rows are
+    reselected only among copies of one context, so it is not
+    gathered)."""
     p = params_of(decoder)
+    cross = tf_lib.cross_kv(p, tf_lib.project_context(
+        p, context, config.gen_embed_dim), config.gen_num_heads)
 
     def init_state(n):
         return tf_lib._init_kv_cache(config, n, p["embed"].dtype,
                                      p["embed"].device)
 
     def step(state, x, t):
-        logits, k, v = tf_lib.decode_step(p, config, x, state[0], state[1], t)
+        logits, k, v = tf_lib.decode_step(p, config, x, state[0], state[1], t,
+                                          cross)
         return logits, (k, v)
 
     def gather(state, idx):
@@ -181,15 +191,17 @@ def quantized_lstm_stepper(qdec: dict, config: Config = None) -> Stepper:
                    lambda ids: q_lib.quantized_embed(qdec, ids).to(dtype))
 
 
-def make_stepper(generator, config: Config = None) -> Stepper:
+def make_stepper(generator, config: Config = None, context=None) -> Stepper:
     """The stepper of a generator's decoder (``config``: the transformer's
     heads, and the quantized stepper's compute dtype, :func:`int8_dtype`;
-    the dense LSTM stepper needs only the weights)."""
+    the dense LSTM stepper needs only the weights).  ``context``: the
+    conditional transformer's grid; the LSTM takes none."""
     dec = decoder_of(generator)
+    if isinstance(dec, tf_lib.TransformerDecoder):
+        return transformer_stepper(dec, config, context)
+    _lstm_takes_no_context(context)
     if q_lib.is_quantized(dec):
         return quantized_lstm_stepper(dec, config)
-    if isinstance(dec, tf_lib.TransformerDecoder):
-        return transformer_stepper(dec, config)
     return lstm_stepper(dec)
 
 
@@ -260,33 +272,45 @@ def _quantized_serve(dec, features, seq_len, config: Config):
 
 
 @torch.no_grad()
-def greedy(generator, features, config: Config, seq_len: int = None):
+def greedy(generator, features, config: Config, seq_len: int = None,
+           context=None):
     """Deterministic greedy decode → ids [B, T] int32 (the serve kernels
-    on CUDA tensors)."""
+    on CUDA tensors; a transformer over ``context`` when given)."""
     seq_len = seq_len or config.seq_len
     api.require_ported(config)
     dec = decoder_of(generator)
+    if _is_transformer(generator):
+        return tf_lib.sample(dec, features, seq_len, True, config,
+                             context=context)[1]
+    _lstm_takes_no_context(context)
     if q_lib.is_quantized(dec):
         return _quantized_serve(dec, features, seq_len, config)[0]
-    if _is_transformer(generator):
-        return tf_lib.sample(dec, features, seq_len, True, config)[1]
     return greedy_ids(dec, features, seq_len)
+
+
+def _lstm_takes_no_context(context):
+    if context is not None:
+        raise ValueError("a cross-attention context needs a transformer "
+                         "generator")
 
 
 @torch.no_grad()
 def greedy_with_logprobs(generator, features, config: Config,
-                         seq_len: int = None):
-    """``(ids [B, T] int32, seq_logprob [B])``."""
+                         seq_len: int = None, context=None):
+    """``(ids [B, T] int32, seq_logprob [B])``; ``context``: the
+    conditional transformer's grid."""
     seq_len = seq_len or config.seq_len
     api.require_ported(config)
     dec = decoder_of(generator)
-    if q_lib.is_quantized(dec):
-        ids, lps = _quantized_serve(dec, features, seq_len, config)
-        return ids, masked_logprob_sum(ids, lps)
     if _is_transformer(generator):
-        logits, ids = tf_lib.sample(dec, features, seq_len, True, config)
+        logits, ids = tf_lib.sample(dec, features, seq_len, True, config,
+                                    context=context)
         lps = torch.log_softmax(logits, dim=-1).gather(
             2, ids.long()[..., None])[..., 0]
+        return ids, masked_logprob_sum(ids, lps)
+    _lstm_takes_no_context(context)
+    if q_lib.is_quantized(dec):
+        ids, lps = _quantized_serve(dec, features, seq_len, config)
         return ids, masked_logprob_sum(ids, lps)
     if kernel_serve_available(features):
         ids, lps = decode_sample(features, dec.lstm.layers(),
@@ -344,12 +368,13 @@ def greedy_with_logprobs_adaptive(generator, features, config: Config,
 
 
 @torch.no_grad()
-def sequence_logprob(generator, features, ids, config: Config):
+def sequence_logprob(generator, features, ids, config: Config,
+                     context=None):
     """Greedy-path log-probability of given token sequences under the
     model, teacher-forcing the ids; positions after the first ``<E>`` do
     not count."""
     api.require_ported(config)
-    stepper = make_stepper(generator, config)
+    stepper = make_stepper(generator, config, context)
     T = ids.shape[1]
     state = stepper.init_state(ids.shape[0])
     ids_l = ids.to(torch.long)
@@ -364,13 +389,6 @@ def sequence_logprob(generator, features, ids, config: Config):
 
 
 # ------------------------------------------------------------------ sampling
-
-def _refuse_context(context):
-    if context is not None:
-        raise NotImplementedError("decoding with a cross-attention context "
-                                  "(the conditional transformer) is not "
-                                  "ported yet")
-
 
 def _scalar(value, like):
     """``value`` as a one-element float32 tensor on ``like``'s device: a
@@ -445,12 +463,11 @@ def sample_decode(generator, features, config: Config, rng=None,
     ``repetition_penalty`` γ (logits of emitted tokens divided by γ, or
     multiplied when negative), ``no_repeat_ngram`` n ∈ {2, 3} and
     ``min_length`` (``<E>`` banned before it)."""
-    _refuse_context(context)
     seq_len = seq_len or config.seq_len
     if no_repeat_ngram not in (0, 2, 3):
         raise ValueError("no_repeat_ngram must be 0, 2 or 3")
     B, V, device = features.shape[0], config.vocab_size, features.device
-    stepper = make_stepper(generator, config)
+    stepper = make_stepper(generator, config, context)
     state = stepper.init_state(B)
     rep_pen = _scalar(repetition_penalty, features)
     track_seen = repetition_penalty != 1.0
@@ -545,6 +562,10 @@ def _reselect(stepper, new_state, tokens, lengths, done, parent, token,
     return state, tokens, lengths, done
 
 
+def _repeat(context, k: int):
+    return None if context is None else context.repeat_interleave(k, 0)
+
+
 def _length_normalized(scores, lengths, length_penalty: float):
     """GNMT: ``scores / ((5 + length) / 6) ** length_penalty``."""
     return scores / ((5.0 + lengths.to(torch.float32)) / 6.0) ** length_penalty
@@ -566,12 +587,12 @@ def beam_search(generator, features, config: Config, beam_size: int = 4,
     (``pad_only``), so ``early_stop`` (the loop ends once every beam of
     every row is done) gives the full-T result.  The best beam by the
     GNMT length penalty ``((5 + len) / 6) ** length_penalty`` is returned
-    with its normalized score."""
-    _refuse_context(context)
+    with its normalized score.  ``context`` is repeated K times, one copy
+    a beam (JAX ``jnp.repeat(context, K, axis=0)``)."""
     seq_len = seq_len or config.seq_len
     K, B, V = beam_size, features.shape[0], config.vocab_size
     device = features.device
-    stepper = make_stepper(generator, config)
+    stepper = make_stepper(generator, config, _repeat(context, K))
 
     # t = 0: every beam of a row reads the features; the row's top K
     state = stepper.init_state(B * K)
@@ -623,8 +644,8 @@ def diverse_beam_search(generator, features, config: Config,
     penalized objective, but its reported score is the true length-
     normalized log-probability.  ``G = 1``, ``diversity_strength = 0`` is
     vanilla beam search.  The loop ends once every beam is done (read
-    every :data:`DONE_READ_EVERY` steps)."""
-    _refuse_context(context)
+    every :data:`DONE_READ_EVERY` steps; ``context`` repeated K times, as
+    in :func:`beam_search`)."""
     seq_len = seq_len or config.seq_len
     K, G = beam_size, num_groups
     if K % G:
@@ -632,7 +653,7 @@ def diverse_beam_search(generator, features, config: Config,
     Kg = K // G
     B, V, device = features.shape[0], config.vocab_size, features.device
     lam = torch.tensor(diversity_strength, dtype=torch.float32, device=device)
-    stepper = make_stepper(generator, config)
+    stepper = make_stepper(generator, config, _repeat(context, K))
 
     def select(logp, scores, t0: bool):
         """Group-sequential top-Kg → (penalized scores, parent beam,

@@ -29,6 +29,22 @@ def ids_to_words(ids: Sequence[int], index_to_word: dict) -> List[str]:
     return [index_to_word.get(int(i), "<UNK>") for i in ids]
 
 
+def text_vocab(dataset):
+    """What turns ``dataset``'s ids into text: its ``BPETokenizer`` under
+    ``--tokenizer bpe``, else its ``index_to_word``."""
+    return getattr(dataset, "bpe_tokenizer", None) or dataset.index_to_word
+
+
+def caption_text(ids: Sequence[int], vocab) -> str:
+    """The caption of ``ids`` (:func:`strip_caption`) as text:
+    ``vocab.decode`` for a ``BPETokenizer``, else its ``index_to_word``
+    words joined by spaces."""
+    ids = strip_caption(ids)
+    if hasattr(vocab, "decode"):
+        return vocab.decode(ids)
+    return " ".join(ids_to_words(ids, vocab))
+
+
 def bleu4_from_batches(gen_ids_batches: List[np.ndarray],
                        real_ids_batches: List[np.ndarray],
                        weights_batches: List[np.ndarray]) -> float:

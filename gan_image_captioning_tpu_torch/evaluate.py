@@ -168,7 +168,8 @@ def main(argv=None):
     @torch.no_grad()
     def eval_batch(batch):
         cond, _ = api.generator_condition(config, gen, batch, train=False)
-        feats, captions = cond["features"], batch["captions"]
+        feats, ctx, captions = (cond["features"], cond["context"],
+                                batch["captions"])
         logits = api.generator_mle_outputs(gen, cond, captions, config,
                                            lengths=batch.get("lengths"))
         w = batch.get("weights")
@@ -181,17 +182,17 @@ def main(argv=None):
                 dec, feats, config, beam_size=config.beam_size,
                 num_groups=args.beam_groups,
                 diversity_strength=args.diversity_strength,
-                length_penalty=config.length_penalty)
+                length_penalty=config.length_penalty, context=ctx)
             ids = groups[:, 0]
         elif config.beam_size > 1:
             ids, _ = decode_lib.beam_search(
                 dec, feats, config, beam_size=config.beam_size,
-                length_penalty=config.length_penalty)
+                length_penalty=config.length_penalty, context=ctx)
         elif args.adaptive_chunk > 0:
             ids, _ = decode_lib.greedy_with_logprobs_adaptive(
                 dec, feats, config, chunk=args.adaptive_chunk)
         else:
-            ids = decode_lib.greedy(dec, feats, config)
+            ids = decode_lib.greedy(dec, feats, config, context=ctx)
         d_gen = d_real = torch.zeros((), device=device)
         if disc_p is not None:
             d_gen = torch.sigmoid(api.discriminator_apply(

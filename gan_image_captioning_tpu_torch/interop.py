@@ -52,10 +52,22 @@ def _bn_from_jax(out: dict, name: str, weights: dict, stats: dict) -> None:
 def encoder_params_from_jax(enc: dict,
                             prefix: str = "encoder.") -> Dict[str, torch.Tensor]:
     """A JAX ``encoder`` tree (``backbone``, ``proj``, ``head_bn``,
-    ``bn_stats``) → the port's :class:`Encoder` ``state_dict`` (backbone
-    under torchvision's names, ``num_batches_tracked`` zero)."""
+    ``bn_stats``) → the port's :class:`Encoder` ``state_dict``: a ResNet
+    backbone under torchvision's names (``num_batches_tracked`` zero), a
+    ViT backbone (``patch_embed``, ``cls``, ``pos``, ``blocks``, ``ln_f``)
+    under its own tree paths below ``vit.``."""
     bw, bs = enc["backbone"], enc["bn_stats"]["backbone"]
-    r = prefix + "resnet."
+    if "patch_embed" in bw:
+        out = flatten_jax(bw, prefix + "vit.")
+    else:
+        out = _resnet_from_jax(bw, bs, prefix + "resnet.")
+    out[prefix + "linear.weight"] = _t(enc["proj"]["w"])
+    out[prefix + "linear.bias"] = _t(enc["proj"]["b"])
+    _bn_from_jax(out, prefix + "bn", enc["head_bn"], enc["bn_stats"]["head"])
+    return out
+
+
+def _resnet_from_jax(bw: dict, bs: dict, r: str) -> Dict[str, torch.Tensor]:
     out = {r + "conv1.weight": _t(bw["conv1"]["w"])}
     _bn_from_jax(out, r + "bn1", bw["bn1"], bs["bn1"])
     for s in range(1, 5):
@@ -69,9 +81,6 @@ def encoder_params_from_jax(enc: dict,
                 out[f"{base}.downsample.0.weight"] = _t(blk["downsample"]["w"])
                 _bn_from_jax(out, f"{base}.downsample.1", blk["downsample_bn"],
                              st["downsample_bn"])
-    out[prefix + "linear.weight"] = _t(enc["proj"]["w"])
-    out[prefix + "linear.bias"] = _t(enc["proj"]["b"])
-    _bn_from_jax(out, prefix + "bn", enc["head_bn"], enc["bn_stats"]["head"])
     return out
 
 
@@ -120,13 +129,17 @@ def flatten_jax(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def _transformer_gen_params(tree: dict) -> Dict[str, torch.Tensor]:
-    return flatten_jax({"decoder": tree["decoder"]})
+    out = flatten_jax({"decoder": tree["decoder"]})
+    if tree.get("encoder") is not None:
+        out.update(encoder_params_from_jax(tree["encoder"]))
+    return out
 
 
 def transformer_generator_from_jax(tree: dict, config: Config,
                                    device="cpu"):
     """A port ``TransformerGenerator`` holding a JAX transformer
-    generator's weights (``{"decoder": …}``)."""
+    generator's weights (``{"decoder": …}``, and a conditional one's
+    ``encoder``: ResNet-18 or ViT)."""
     from gan_image_captioning_tpu_torch.models.transformer import (
         TransformerGenerator)
 
@@ -201,9 +214,10 @@ def _adam_from_jax(opt_state, rename, module, device):
     """The ``ScaleByAdamState`` of a JAX ``clip → adam`` chain state
     (``opt_state[1][0]``) → the port's ``AdamState`` over ``module``'s
     trainable parameters.  The JAX moments of what the port keeps out of
-    its optimizer — the encoder's running statistics and a frozen
-    backbone, whose gradients are zero there, so their moments are zero
-    and their updates exactly zero — are dropped."""
+    its optimizer are dropped: the encoder's running statistics, and a
+    frozen backbone's (zero for a ResNet, whose grid the JAX package stops;
+    a frozen ViT's are not, since the JAX package differentiates into it,
+    which the port does not: ``models/encoder.py``)."""
     from gan_image_captioning_tpu_torch.train.state import (
         AdamState, trainable_parameters)
 
@@ -233,9 +247,9 @@ def train_state_from_jax(state, config: Config, device="cpu"):
         gen = transformer_generator_from_jax(state.gen_params, config, device)
         gen_rename = _transformer_gen_params
     else:
-        gen = freeze_backbone(generator_from_jax(state.gen_params, config,
-                                                 device), config)
+        gen = generator_from_jax(state.gen_params, config, device)
         gen_rename = params_from_jax
+    freeze_backbone(gen, config)
     if config.disc_arch == "cnn":
         disc = discriminator_from_jax(state.disc_params, config, device)
         disc_rename = disc_params_from_jax

@@ -31,7 +31,10 @@ from gan_image_captioning_tpu_torch.config import (build_parser,
 
 
 def build_datasets(args):
-    """``(train, val)`` datasets of ``--dataset`` (``src/main.py``)."""
+    """``(train, val)`` datasets of ``--dataset`` (``src/main.py``):
+    COCO with the word vocabulary or, under ``--tokenizer bpe``, GPT-2's
+    BPE over ``--bpe-vocab`` / ``--bpe-merges``; ``--dataset synthetic``
+    keeps its own vocabulary whatever ``--tokenizer`` says."""
     conditional = args.conditional_gan == 1
     if args.dataset == "synthetic":
         from gan_image_captioning_tpu_torch.data.synthetic import (
@@ -50,16 +53,25 @@ def build_datasets(args):
 
     captions_path = os.path.join(args.data_dir, "dataset_coco.json")
     device_pre = bool(args.device_preprocess)
+    bpe = None
+    if args.tokenizer == "bpe":
+        from gan_image_captioning_tpu_torch.data.bpe import BPETokenizer
+
+        if not (args.bpe_vocab and args.bpe_merges):
+            raise ValueError("--tokenizer bpe needs --bpe-vocab and "
+                             "--bpe-merges")
+        bpe = BPETokenizer(args.bpe_vocab, args.bpe_merges)
     train = CocoCaptions(captions_path, args.data_dir, "train",
                          args.image_size, args.captions_per_image,
                          dataset_percent=args.dataset_percent,
                          conditional=conditional,
-                         device_preprocess=device_pre)
+                         device_preprocess=device_pre, bpe_tokenizer=bpe)
     val = CocoCaptions(captions_path, args.data_dir, "val", args.image_size,
                        args.captions_per_image,
                        vocab_dicts=(train.word_to_index, train.index_to_word),
                        dataset_percent=args.dataset_percent,
-                       conditional=conditional, device_preprocess=device_pre)
+                       conditional=conditional, device_preprocess=device_pre,
+                       bpe_tokenizer=bpe)
     return train, val
 
 

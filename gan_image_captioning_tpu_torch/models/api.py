@@ -1,7 +1,8 @@
 """Architecture dispatch (``gan_image_captioning_tpu/models/api.py``).
 
-Ported: the LSTM generator (unconditional, or conditional on the ResNet-18
-encoder), the unconditional transformer generator, and the CNN,
+Ported: the LSTM and transformer generators, unconditional or
+conditional on the ResNet-18 or ViT-B/16 encoder (the conditional
+transformer cross-attends over the encoder's grid), and the CNN,
 transformer and autoregressive-transformer discriminators;
 :func:`require_ported` turns any other configuration away.
 """
@@ -62,19 +63,28 @@ def _images(config: Config, batch: Dict[str, Any]):
 
 def generator_condition(config: Config, generator: gen_lstm.Generator,
                         batch: Dict[str, Any], train: bool = False):
-    """The conditioning bundle ``({'features': [B, E], 'context': None},
-    new_bn_stats)``.
+    """The conditioning bundle ``({'features': [B, E], 'context': grid |
+    None}, new_bn_stats)``.
 
     Conditional: one encoder pass over the batch's images (``images``, or
     ``images_u8`` through ``image_norm``); in train mode it moves every
     running statistic once, and ``new_bn_stats`` are the encoder's running
-    statistics after it.  Unconditional: ``<S>``-token embeddings per row
-    and ``None``, for either generator."""
+    statistics after it.  A conditional transformer gets the features and
+    the cross-attention grid from that one pass
+    (``encoder.encode_with_grid``), the LSTM the pooled features only.
+    Unconditional: ``<S>``-token embeddings per row and ``None``, for
+    either generator."""
     require_ported(config)
     if config.cgan:
-        feats = encoder_lib.encode(generator.encoder, _images(config, batch),
-                                   config, train)
-        return ({"features": feats, "context": None},
+        images = _images(config, batch)
+        if config.gen_arch == "transformer":
+            feats, grid = encoder_lib.encode_with_grid(
+                generator.encoder, images, config, train)
+        else:
+            feats = encoder_lib.encode(generator.encoder, images, config,
+                                       train)
+            grid = None
+        return ({"features": feats, "context": grid},
                 encoder_lib.bn_stats(generator.encoder))
     batch_size = batch["captions"].shape[0]
     return ({"features": start_token_features(config, generator, batch_size),
@@ -98,7 +108,8 @@ def generator_sample(generator: gen_lstm.Generator, cond: Dict[str, Any],
     require_ported(config)
     if config.gen_arch == "transformer":
         return gen_tf.sample(generator.decoder, cond["features"], seq_len,
-                             pretrain, config, temperature, seed, uniforms)
+                             pretrain, config, temperature, seed, uniforms,
+                             context=cond.get("context"))
     return gen_lstm.sample(generator.decoder, cond["features"], seq_len,
                            pretrain, temperature, seed, uniforms,
                            route=decode_route(config))
@@ -114,13 +125,14 @@ def generator_mle_outputs(generator: gen_lstm.Generator,
     sampling at model-feedback probability ``sample_prob``, its per-step
     coins ``[T, B]`` fed or drawn from ``draw``).  Transformer: the
     parallel causal pass with the keys past each caption's ``lengths``
-    masked, whatever ``--mle-objective`` says."""
+    masked, whatever ``--mle-objective`` says, cross-attending over
+    ``cond["context"]`` when conditional."""
     require_ported(config)
     seq_len = captions.shape[1]
     if config.gen_arch == "transformer":
         return gen_tf.teacher_forced(generator.decoder, cond["features"],
-                                     captions, config,
-                                     lengths=lengths)[:, :seq_len]
+                                     captions, config, lengths=lengths,
+                                     context=cond.get("context"))[:, :seq_len]
     dec = generator.decoder
     route = decode_route(config)
     if config.mle_objective == "teacher":

@@ -116,6 +116,13 @@ class ResNet18(nn.Module):
         return self.trunk(images, train).mean(dim=(2, 3))
 
 
+def resnet18_grid(resnet: ResNet18, images, train: bool = False):
+    """``[B, 3, H, W]`` → ``[B, h·w, 512]``: the final stage's feature grid,
+    the grid the conditional transformer cross-attends over."""
+    x = resnet.trunk(images, train)
+    return x.flatten(2).transpose(1, 2)
+
+
 @torch.no_grad()
 def init_resnet18_params(generator: torch.Generator,
                          resnet: ResNet18) -> ResNet18:

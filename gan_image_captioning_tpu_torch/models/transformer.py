@@ -23,9 +23,20 @@ Self-attention in :func:`block_apply` goes through the flash kernels
 (``kernels/flash_attention.py``) when the caller declares the mask's
 structure (``flash_causal``), ``config.attn_impl`` is ``"kernel"`` and the
 shape is eligible; otherwise through the dense :func:`attention` (mask fill
-``finfo.min``).  The cache decode stays dense, as in the JAX package.  The
-cross-attention blocks and ``ctx_proj`` exist (the JAX tree has them) but
-only a conditional transformer would use them, and it is not ported.
+``finfo.min``).  The cache decode stays dense, as in the JAX package.
+
+Conditional transformer (``--conditional-gan 1``): the generator holds the
+image encoder, whose pooled features are the t = 0 token and whose grid
+(``encoder.encode_with_grid``: the ResNet's ``[B, h·w, 512]``, the ViT's
+``[B, P, 768]``) is the ``context`` every block cross-attends over after
+its self-attention (``ln_cross``, ``cross``; dense, no mask).  The JAX
+shape rule for ``ctx_proj`` is kept: the context goes through
+``ctx_proj`` only when its width differs from the features' (so config5's
+768-wide ViT grid skips it, and its ``ctx_proj`` gets zero gradients,
+while the ResNet grid at a 256-wide transformer takes it).  The cache
+decode projects the context's keys and values once per decode
+(:func:`cross_kv`), not at every step as the JAX scan does: the same
+products of the same operands.
 Context parallelism, pipelining, activation sharding, ``GIC_TF_REMAT`` and
 ``decode_step_slots`` are not ported either.
 
@@ -56,8 +67,6 @@ from gan_image_captioning_tpu_torch.models.discriminator import params_of
 from gan_image_captioning_tpu_torch.ops.gumbel import (gumbel_softmax,
                                                        use_fused_sampler)
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
-
-CTX_DIM = 512  # the ResNet-18 encoder's grid channels (ctx_proj's input)
 
 
 # --------------------------------------------------------------- modules
@@ -123,12 +132,14 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, config: Config, device="cpu", dtype=torch.float32):
         super().__init__()
+        from gan_image_captioning_tpu_torch.models.encoder import feature_dim
+
         kw = dict(device=device, dtype=dtype)
         d, d_mlp, V = (config.gen_embed_dim, config.gen_hidden_dim,
                        config.vocab_size)
         self.embed = new_param(V, d, **kw)
         self.pos = new_param(config.seq_len + 1, d, **kw)
-        self.ctx_proj = Dense(CTX_DIM, d, **kw)
+        self.ctx_proj = Dense(feature_dim(config), d, **kw)
         self.blocks = nn.ModuleList(Block(d, d_mlp, cross=True, **kw)
                                     for _ in range(config.gen_num_layers))
         self.ln_f = LayerNorm(d, **kw)
@@ -136,13 +147,15 @@ class TransformerDecoder(nn.Module):
 
 
 class TransformerGenerator(nn.Module):
-    """The decoder under ``decoder`` (``encoder`` is None: the conditional
-    transformer is not ported)."""
+    """The decoder under ``decoder``, and the image encoder under
+    ``encoder`` when the configuration is conditional, else None."""
 
     def __init__(self, config: Config, device="cpu", dtype=torch.float32):
         super().__init__()
+        from gan_image_captioning_tpu_torch.models.encoder import Encoder
+
         self.decoder = TransformerDecoder(config, device, dtype)
-        self.encoder = None
+        self.encoder = Encoder(config, device, dtype) if config.cgan else None
 
 
 @torch.no_grad()
@@ -188,11 +201,17 @@ def init_transformer_generator_params(generator: torch.Generator,
                                       config: Config, device="cpu",
                                       sweep: bool = True
                                       ) -> TransformerGenerator:
-    """A seeded transformer generator; ``sweep`` applies the reference's
-    init sweep (``config.gen_init``) over every parameter, as the JAX
-    package does."""
+    """A seeded transformer generator (with its encoder when
+    conditional); ``sweep`` applies the reference's init sweep
+    (``config.gen_init``) over every parameter, the encoder's too, as the
+    JAX package does."""
+    from gan_image_captioning_tpu_torch.models.encoder import (
+        init_encoder_params)
+
     gen = TransformerGenerator(config, device)
     init_transformer_decoder_params(generator, gen.decoder)
+    if gen.encoder is not None:
+        init_encoder_params(generator, gen.encoder)
     if sweep:
         init_param_tree(generator, gen, config.gen_init)
     return gen
@@ -277,17 +296,23 @@ def _flash_attention_block(p, name: str, x, n_heads: int, causal: bool,
 
 def block_apply(p, name: str, x, n_heads: int, mask=None,
                 flash_causal: Optional[bool] = None, flash_lengths=None,
-                attn_impl: str = "kernel"):
-    """Pre-LN block ``name`` (``"blocks.{i}"``): self-attention → MLP,
-    residual each.  ``flash_causal`` / ``flash_lengths`` declare the mask
-    as (causal | full) ∧ (key < length), the flash kernels' three forms;
-    None = an arbitrary mask, dense only."""
+                attn_impl: str = "kernel", context=None):
+    """Pre-LN block ``name`` (``"blocks.{i}"``): self-attention →
+    cross-attention over ``context [B, P, d]`` (when given; dense, no
+    mask) → MLP, residual each.  ``flash_causal`` / ``flash_lengths``
+    declare the self-attention mask as (causal | full) ∧ (key < length),
+    the flash kernels' three forms; None = an arbitrary mask, dense
+    only."""
     h1 = layer_norm(p, name + ".ln1", x)
     if flash_causal is not None and _flash_applicable(x, n_heads, attn_impl):
         x = x + _flash_attention_block(p, name + ".attn", h1, n_heads,
                                        flash_causal, flash_lengths)
     else:
         x = x + attention(p, name + ".attn", h1, h1, n_heads, mask)
+    if context is not None:
+        x = x + attention(p, name + ".cross",
+                          layer_norm(p, name + ".ln_cross", x), context,
+                          n_heads)
     h = layer_norm(p, name + ".ln2", x)
     return x + dense(p, name + ".mlp.fc2", gelu(dense(p, name + ".mlp.fc1",
                                                       h)))
@@ -310,13 +335,25 @@ def _project(p, x):
     return x @ p["linear.w"].T + p["linear.b"]
 
 
-def teacher_forced(dec, features, captions, config: Config, lengths=None):
+def project_context(p, context, d: int):
+    """The JAX shape rule: ``context`` through ``ctx_proj`` when its width
+    is not the model width ``d``, else as it is (None stays None)."""
+    if context is not None and context.shape[-1] != d:
+        return dense(p, "ctx_proj", context)
+    return context
+
+
+def teacher_forced(dec, features, captions, config: Config, lengths=None,
+                   context=None):
     """Parallel causal pass → logits ``[B, T + 1, V]``: position i of
     ``[features, embed(captions)]`` predicts ``captions[i]``.  With
     ``lengths [B]`` the keys past ``1 + length`` are masked (the flash
-    kernels get ``lengths + 1``, as the JAX package passes them).  ``dec``:
-    a :class:`TransformerDecoder` or its flat parameter dict."""
+    kernels get ``lengths + 1``, as the JAX package passes them).
+    ``context [B, P, C]``: the cross-attention grid (:func:`project_context`
+    first).  ``dec``: a :class:`TransformerDecoder` or its flat parameter
+    dict."""
     p = dec if isinstance(dec, dict) else params_of(dec)
+    context = project_context(p, context, features.shape[-1])
     x = torch.cat([features[:, None, :], p["embed"][captions.long()]], dim=1)
     t = x.shape[1]
     x = x + p["pos"][:t]
@@ -331,7 +368,7 @@ def teacher_forced(dec, features, captions, config: Config, lengths=None):
     for i in range(num_blocks(p)):
         x = block_apply(p, f"blocks.{i}", x, config.gen_num_heads, mask,
                         flash_causal=True, flash_lengths=flash_lengths,
-                        attn_impl=config.attn_impl)
+                        attn_impl=config.attn_impl, context=context)
     return _project(p, layer_norm(p, "ln_f", x))
 
 
@@ -348,11 +385,24 @@ def _init_kv_cache(config: Config, batch: int, dtype=torch.float32,
     return ([empty] * config.gen_num_layers, [empty] * config.gen_num_layers)
 
 
+def cross_kv(dec, context, n_heads: int):
+    """Per block, the cross-attention's keys and values ``[N, P, heads,
+    head_dim]`` of a projected ``context`` (None without one): what every
+    decode step attends over."""
+    if context is None:
+        return None
+    p = dec if isinstance(dec, dict) else params_of(dec)
+    return [(_split_heads(dense(p, f"blocks.{i}.cross.wk", context), n_heads),
+             _split_heads(dense(p, f"blocks.{i}.cross.wv", context), n_heads))
+            for i in range(num_blocks(p))]
+
+
 def decode_step(dec, config: Config, x_tok, k_cache: List, v_cache: List,
-                t: int):
+                t: int, cross=None):
     """One incremental decode step: ``x_tok [N, d]`` at position ``t``
     (the features at t = 0) over the cache of positions ``< t`` → ``(logits
-    [N, V], new_k, new_v)``."""
+    [N, V], new_k, new_v)``.  ``cross``: :func:`cross_kv` of the context,
+    attended after each block's self-attention."""
     p = dec if isinstance(dec, dict) else params_of(dec)
     n_heads = config.gen_num_heads
     batch = x_tok.shape[0]
@@ -370,6 +420,11 @@ def decode_step(dec, config: Config, x_tok, k_cache: List, v_cache: List,
         new_v.append(v_l)
         att = _dense_core(q, k_l, v_l, None).reshape(batch, 1, -1)
         x = x + dense(p, name + ".attn.wo", att)
+        if cross is not None:
+            qc = _split_heads(dense(p, name + ".cross.wq", layer_norm(
+                p, name + ".ln_cross", x)), n_heads)
+            att = _dense_core(qc, *cross[li], None).reshape(batch, 1, -1)
+            x = x + dense(p, name + ".cross.wo", att)
         h = layer_norm(p, name + ".ln2", x)
         x = x + dense(p, name + ".mlp.fc2", gelu(dense(p, name + ".mlp.fc1",
                                                         h)))
@@ -386,7 +441,7 @@ def start_token_features(decoder: TransformerDecoder, batch: int):
 
 def sample(dec, features, seq_len: int, pretrain: bool = False,
            config: Config = None, temperature=1.0, seed: int = 0,
-           uniforms=None):
+           uniforms=None, context=None):
     """Free-running decode over the KV cache → ``(outputs [B, T, V], ids
     [B, T])``: per step embed the previous token (+ position), attend over
     the cached prefix, project, then raw logits and their argmax
@@ -395,15 +450,19 @@ def sample(dec, features, seq_len: int, pretrain: bool = False,
     the sampler's draw for ``(seed, t)`` (the fused kernel's Philox on CUDA
     under ``--use-pallas auto`` or ``on``, else
     ``gumbel_sample.step_uniforms``).  The fused sampler is
-    :func:`ops.gumbel.use_fused_sampler`'s choice."""
+    :func:`ops.gumbel.use_fused_sampler`'s choice.  ``context``: the
+    cross-attention grid (:func:`project_context`, then :func:`cross_kv`
+    once)."""
     p = dec if isinstance(dec, dict) else params_of(dec)
+    cross = cross_kv(p, project_context(p, context, features.shape[-1]),
+                     config.gen_num_heads)
     k_cache, v_cache = _init_kv_cache(config, features.shape[0],
                                       features.dtype, features.device)
     kernel = use_fused_sampler(config)
     x, outs, ids = features, [], []
     for t in range(seq_len):
         logits, k_cache, v_cache = decode_step(p, config, x, k_cache,
-                                               v_cache, t)
+                                               v_cache, t, cross)
         if pretrain:
             out, ids_t = logits, torch.argmax(logits, dim=-1)
         else:

@@ -28,7 +28,14 @@ answered as JSON lines.  Two engines (``serving.py``):
 through the quantized serve kernel in either engine.  A transformer
 generator (``--gen-arch transformer``, e.g. ``--preset config4``) is served
 by the coalescing engine through its KV-cache greedy decode; the continuous
-engine, the adaptive decode and ``--quantize`` refuse it.  A warm request runs
+engine, the adaptive decode and ``--quantize`` refuse it.  A conditional
+transformer (``--preset config5``, or ``--gen-arch transformer
+--conditional-gan 1``) decodes an image request over the encoder's grid:
+each row the engine carries is the features and the flattened grid
+together, so ``serve.py`` and ``caption.py`` give one image the same
+caption (``src/serve.py`` passes only the features).  ``--tokenizer bpe``
+reads the vocabulary size from ``--bpe-vocab`` and writes the captions
+through the BPE decoder.  A warm request runs
 at startup, so the first client request finds the kernel built and loaded.
 
     # a checkpoint in the reference state_dict layout (src/export_torch.py
@@ -92,8 +99,8 @@ from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    resolve_device)
 from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
 from gan_image_captioning_tpu_torch.eval import decode as decode_lib
-from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
-                                                         strip_caption)
+from gan_image_captioning_tpu_torch.eval.metrics import caption_text
+from gan_image_captioning_tpu_torch.models.encoder import grid_shape
 from gan_image_captioning_tpu_torch.models.api import (generator_condition,
                                                        init_generator,
                                                        require_ported,
@@ -233,8 +240,9 @@ def _parse_buckets(spec: str, batch_size: int):
     return None
 
 
-def build_vocab(args) -> dict:
-    """The dataset's ``index_to_word``; sets ``args.vocab_size`` with the
+def build_vocab(args):
+    """The dataset's ``index_to_word`` (a ``BPETokenizer`` under
+    ``--tokenizer bpe`` on COCO); sets ``args.vocab_size`` with the
     ``--vocab-multiple`` padding (``src/main.py:inject_vocab_size``).  COCO
     reads the train split's vocabulary (the pickle cache under
     ``--data-dir``)."""
@@ -242,6 +250,13 @@ def build_vocab(args) -> dict:
         w2i, i2w = synthetic_vocab()
         args.vocab_size = padded_vocab_size(len(w2i), args.vocab_multiple)
         return i2w
+    if args.tokenizer == "bpe":
+        from gan_image_captioning_tpu_torch.data.bpe import BPETokenizer
+
+        tok = BPETokenizer(args.bpe_vocab, args.bpe_merges)
+        args.vocab_size = padded_vocab_size(tok.vocab_size,
+                                            args.vocab_multiple)
+        return tok
     from gan_image_captioning_tpu_torch.data.coco import CocoCaptions
 
     train = CocoCaptions(os.path.join(args.data_dir, "dataset_coco.json"),
@@ -279,8 +294,15 @@ class CaptionService:
         self.args = args
         self.sample_calls = 0        # read and advanced by the dispatcher
         self.continuous = None
+        # a conditional transformer's rows: features, then the grid [P, C]
+        self.context_shape = (
+            grid_shape(self.config) if self.config.cgan
+            and self.config.gen_arch == "transformer" else None)
+        row_dim = self.config.gen_embed_dim + (
+            0 if self.context_shape is None else int(np.prod(
+                self.context_shape)))
         self.batcher = CoalescingBatcher(
-            self._run_decode, self.batch_size, self.config.gen_embed_dim,
+            self._run_decode, self.batch_size, row_dim,
             bucket_sizes=_parse_buckets(args.serve_buckets, self.batch_size),
             max_pending=args.serve_max_pending)
         try:
@@ -293,20 +315,35 @@ class CaptionService:
                     max_pending=args.serve_max_pending)
             # warm through the real request path, every bucket shape (the
             # slot pool has one shape), and the encoder at one image
-            self.handle_request({"n": 1})
+            self._warm(1)
             if self.config.cgan:
                 s = self.config.image_size
                 self.features_from_images(np.zeros((1, 3, s, s), np.float32))
             if self.continuous is None:
                 for b in self.batcher.bucket_sizes[1:]:
-                    self.handle_request({"n": b})
+                    self._warm(b)
         except BaseException:
             self.close()
             raise
 
+    def _warm(self, n: int) -> None:
+        """A request of n rows: ``{"n": n}``, or n blank images for a
+        conditional transformer (its rows carry a grid)."""
+        if self.context_shape is None:
+            self.handle_request({"n": n})
+        else:
+            s = self.config.image_size
+            self.caption_images(np.zeros((n, 3, s, s), np.float32))
+
     def _run_decode(self, feats: np.ndarray):
-        """One dispatched batch → ``(ids, seq_logprob)`` on the device."""
+        """One dispatched batch → ``(ids, seq_logprob)`` on the device.
+        A conditional transformer's rows are split into the features and
+        the grid, its ``context``."""
         x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
+        ctx = None
+        if self.context_shape is not None:
+            E = self.config.gen_embed_dim
+            x, ctx = x[:, :E], x[:, E:].reshape(-1, *self.context_shape)
         a = self.args
         if self.mode == "sample":
             rng = sample_generator(a.sample_seed, self.sample_calls,
@@ -317,18 +354,19 @@ class CaptionService:
                 temperature=a.sample_temperature, top_k=a.top_k,
                 top_p=a.top_p, early_stop=not a.serve_exact,
                 repetition_penalty=a.repetition_penalty,
-                no_repeat_ngram=a.no_repeat_ngram, min_length=a.min_length)
+                no_repeat_ngram=a.no_repeat_ngram, min_length=a.min_length,
+                context=ctx)
         if self.config.beam_size > 1:
             return decode_lib.beam_search(
                 self.dec_params, x, self.config,
                 beam_size=self.config.beam_size,
                 length_penalty=self.config.length_penalty,
-                min_length=a.min_length)
+                min_length=a.min_length, context=ctx)
         if self.adaptive_chunk > 0:
             return decode_lib.greedy_with_logprobs_adaptive(
                 self.dec_params, x, self.config, chunk=self.adaptive_chunk)
         return decode_lib.greedy_with_logprobs(self.dec_params, x,
-                                               self.config)
+                                               self.config, context=ctx)
 
     def _features_unconditional(self, n: int) -> np.ndarray:
         return start_token_features(self.config, self.generator,
@@ -338,12 +376,17 @@ class CaptionService:
     def features_from_images(self, images: np.ndarray) -> np.ndarray:
         """The device part of an image request: normalized ``[N, 3, S, S]``
         float32 images → ``[N, E]`` features from one eval-mode encoder
-        pass (``generator_condition(train=False)``)."""
+        pass (``generator_condition(train=False)``); a conditional
+        transformer's rows are ``[N, E + P·C]``, the features and the
+        flattened grid."""
         batch = {"images": torch.from_numpy(
             np.ascontiguousarray(images, np.float32)).to(self.device)}
         cond, _ = generator_condition(self.config, self.generator, batch,
                                       train=False)
-        return cond["features"].cpu().numpy()
+        rows = cond["features"]
+        if self.context_shape is not None:
+            rows = torch.cat([rows, cond["context"].flatten(1)], dim=1)
+        return rows.cpu().numpy()
 
     def _load_images(self, paths) -> np.ndarray:
         """The host part of an image request: decode, resize and normalize
@@ -355,7 +398,7 @@ class CaptionService:
                          for p in paths])
 
     def _caption(self, ids) -> str:
-        return " ".join(ids_to_words(strip_caption(ids), self.index_to_word))
+        return caption_text(ids, self.index_to_word)
 
     def handle_request(self, req: dict, emit=None) -> dict:
         """One request → one response dict.
@@ -382,6 +425,9 @@ class CaptionService:
                 return {"error": "'image' must be a path or non-empty list"}
             n = len(paths)
         else:
+            if self.context_shape is not None:
+                return {"error": "a conditional transformer captions "
+                                 "images: use {'image': path}"}
             paths = None
             n = int(req.get("n", 1))
             if n < 1:

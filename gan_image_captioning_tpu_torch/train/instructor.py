@@ -91,8 +91,9 @@ from gan_image_captioning_tpu_torch.data.loader import Batcher, stack_batches
 from gan_image_captioning_tpu_torch.eval import decode as decode_lib
 from gan_image_captioning_tpu_torch.eval.diversity import self_bleu
 from gan_image_captioning_tpu_torch.eval.metrics import (bleu4_from_batches,
-                                                         ids_to_words,
-                                                         strip_caption)
+                                                         caption_text,
+                                                         strip_caption,
+                                                         text_vocab)
 from gan_image_captioning_tpu_torch.models import api
 from gan_image_captioning_tpu_torch.ops.temperature import get_fixed_temperature
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
@@ -550,15 +551,15 @@ class GANInstructor:
         greedy (in early-stopping chunks under ``eval_adaptive_chunk``)."""
         config, gen = self.config, self.state.gen
         cond, _ = api.generator_condition(config, gen, batch, train=False)
-        feats = cond["features"]
+        feats, ctx = cond["features"], cond["context"]
         if config.beam_size > 1:
             return decode_lib.beam_search(
                 gen, feats, config, beam_size=config.beam_size,
-                length_penalty=config.length_penalty)[0]
+                length_penalty=config.length_penalty, context=ctx)[0]
         if config.eval_adaptive_chunk > 0:
             return decode_lib.greedy_with_logprobs_adaptive(
                 gen, feats, config, chunk=config.eval_adaptive_chunk)[0]
-        return decode_lib.greedy(gen, feats, config)
+        return decode_lib.greedy(gen, feats, config, context=ctx)
 
     def evaluate_quality(self, max_batches=None):
         """NLL_gen, BLEU-4 and self-BLEU on the dev set (the report's
@@ -584,12 +585,11 @@ class GANInstructor:
                     for ids_b, w_b in zip(gen_batches, weight_batches)
                     for row, w in zip(ids_b, w_b if w_b is not None
                                       else [1] * len(ids_b)) if w != 0]
-        i2w = getattr(self.dev_dataset, "index_to_word", None)
-        if i2w and gen_batches:
+        if getattr(self.dev_dataset, "index_to_word", None) and gen_batches:
+            vocab = text_vocab(self.dev_dataset)
             for row, ref in list(zip(gen_batches[0], real_batches[0]))[:2]:
                 self.log.info("[SAMPLE] gen: %s | ref: %s" % (
-                    " ".join(ids_to_words(strip_caption(row), i2w)),
-                    " ".join(ids_to_words(strip_caption(ref), i2w))))
+                    caption_text(row, vocab), caption_text(ref, vocab)))
         return {"nll_gen": float(np.mean(nll or [0])), "bleu4": bleu4,
                 "self_bleu4": self_bleu(gen_caps)}
 

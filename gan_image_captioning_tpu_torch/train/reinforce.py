@@ -89,16 +89,16 @@ def _prefix_decode_lstm(decoder, features, forced, prefix_len: int,
 @torch.no_grad()
 def _prefix_decode_transformer(decoder, features, forced, prefix_len: int,
                                seq_len: int, config: Config, uniforms=None,
-                               generator=None):
+                               generator=None, cross=None):
     """The transformer twin of :func:`_prefix_decode_lstm` over the KV
-    cache."""
+    cache; ``cross``: ``transformer.cross_kv`` of the rows' context."""
     p = params_of(decoder)
     k_cache, v_cache = gen_tf._init_kv_cache(config, features.shape[0],
                                              features.dtype, features.device)
     x, ids = features, []
     for t in range(seq_len):
         logits, k_cache, v_cache = gen_tf.decode_step(p, config, x, k_cache,
-                                                      v_cache, t)
+                                                      v_cache, t, cross)
         sampled = _gumbel_ids(logits, uniforms, t, generator)
         ids_t = forced[:, t].long() if t < prefix_len else sampled
         ids.append(ids_t)
@@ -107,13 +107,14 @@ def _prefix_decode_transformer(decoder, features, forced, prefix_len: int,
 
 
 def _prefix_decode(config: Config, generator_model, features, forced,
-                   prefix_len, seq_len, uniforms=None, generator=None):
+                   prefix_len, seq_len, uniforms=None, generator=None,
+                   cross=None):
     if config.gen_arch == "lstm":
         return _prefix_decode_lstm(generator_model.decoder, features, forced,
                                    prefix_len, seq_len, uniforms, generator)
     return _prefix_decode_transformer(generator_model.decoder, features,
                                       forced, prefix_len, seq_len, config,
-                                      uniforms, generator)
+                                      uniforms, generator, cross)
 
 
 # ------------------------------------------------------------------ rewards
@@ -136,10 +137,12 @@ def position_reward_index(t_len: int, stride: int, num_positions: int):
 
 @torch.no_grad()
 def rollout_rewards(config: Config, generator_model, disc_params, features,
-                    ids, rollout_uniforms=None, generator=None):
+                    ids, rollout_uniforms=None, generator=None, context=None):
     """Monte-Carlo rollout rewards ``[B, T]`` (no gradient).
     ``rollout_uniforms``: one ``[T, B·K, V]`` per evaluated prefix length,
-    or None to draw from ``generator``."""
+    or None to draw from ``generator``.  ``context``: a conditional
+    transformer's grid, repeated K times with the features (its
+    cross-attention keys and values made once for every prefix)."""
     b, t_len = ids.shape
     k = max(1, int(config.rollout_num))
     stride = max(1, int(config.rollout_stride))
@@ -149,11 +152,17 @@ def rollout_rewards(config: Config, generator_model, disc_params, features,
         return d_full[:, None].expand(b, t_len).clone()
     feats_k = features.repeat_interleave(k, dim=0)
     forced = ids.repeat_interleave(k, dim=0)                     # [B·K, T]
+    cross = None
+    if context is not None:
+        p_dec = params_of(generator_model.decoder)
+        cross = gen_tf.cross_kv(p_dec, gen_tf.project_context(
+            p_dec, context.repeat_interleave(k, dim=0), features.shape[-1]),
+            config.gen_num_heads)
     per_pos = []
     for i, p in enumerate(positions):
         u = None if rollout_uniforms is None else rollout_uniforms[i]
         roll = _prefix_decode(config, generator_model, feats_k, forced, p,
-                              t_len, u, generator)
+                              t_len, u, generator, cross)
         per_pos.append(_disc_prob(config, disc_params, roll)
                        .reshape(b, k).mean(dim=-1))
     table = torch.stack(per_pos + [d_full])                      # [P+1, B]
@@ -163,12 +172,14 @@ def rollout_rewards(config: Config, generator_model, disc_params, features,
 
 # ---------------------------------------------------------------- log-probs
 
-def sequence_log_probs(config: Config, generator_model, features, ids):
+def sequence_log_probs(config: Config, generator_model, features, ids,
+                       context=None):
     """Differentiable ``log π_t(y_t | y_<t)`` ``[B, T]``, teacher-forced
     over the sampled ids: the LSTM's :func:`generator.rescore` (its
     backward through the reverse BPTT kernel; the fed-back embedding rows
     take gradient, the ids none), the transformer's one causal pass
-    (flash attention without lengths).  SCST's log π is its masked sum
+    (flash attention without lengths; cross-attending over ``context``
+    when conditional).  SCST's log π is its masked sum
     (``train/scst.py``)."""
     t_len = ids.shape[1]
     dec = generator_model.decoder
@@ -176,7 +187,8 @@ def sequence_log_probs(config: Config, generator_model, features, ids):
         logits = gen_lstm.rescore(dec, features, ids,
                                   plain=decode_route(config) == "plain")
     else:
-        logits = gen_tf.teacher_forced(dec, features, ids, config)[:, :t_len]
+        logits = gen_tf.teacher_forced(dec, features, ids, config,
+                                       context=context)[:, :t_len]
     logp = torch.log_softmax(logits.float(), dim=-1)
     return logp.gather(2, ids.long()[..., None])[..., 0]
 
@@ -221,19 +233,22 @@ def reinforce_losses(config: Config, state, batch, seed: int,
 
     disc_ng = params_of(state.disc, detach=True)
     feats_ng = cond["features"].detach()
+    ctx = cond.get("context")
+    ctx_ng = None if ctx is None else ctx.detach()
     rewards = rollout_rewards(config, state.gen, disc_ng, feats_ng, gen_ids,
-                              noise.get("rollout_uniforms"), draw)
+                              noise.get("rollout_uniforms"), draw, ctx_ng)
     with torch.no_grad():
         if config.rl_baseline == "greedy":
-            _, greedy = api.generator_sample(state.gen, {**cond, "features":
-                                                         feats_ng},
-                                             seq_len, True, config)
+            _, greedy = api.generator_sample(
+                state.gen, {"features": feats_ng, "context": ctx_ng},
+                seq_len, True, config)
             baseline = _disc_prob(config, disc_ng, greedy)[:, None]
         else:
             baseline = rewards.mean(dim=0, keepdim=True)
         advantage = rewards - baseline
 
-    logp = sequence_log_probs(config, state.gen, cond["features"], gen_ids)
+    logp = sequence_log_probs(config, state.gen, cond["features"], gen_ids,
+                              ctx)
     per_sample = -(advantage * logp).mean(dim=-1)
     if w is not None:
         g_loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)

@@ -56,12 +56,14 @@ def rollout_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed64)
 
 
-def sequence_logprob(config: Config, generator_model, features, ids):
+def sequence_logprob(config: Config, generator_model, features, ids,
+                     context=None):
     """Differentiable log π ``[B]`` of ``ids [B, T]``: the per-token
     teacher-forced log-probabilities summed up to and including each row's
     first ``<E>``."""
     return decode_lib.masked_logprob_sum(
-        ids, sequence_log_probs(config, generator_model, features, ids))
+        ids, sequence_log_probs(config, generator_model, features, ids,
+                                context))
 
 
 def scst_loss(config: Config, state, batch, sampled_ids, advantage):
@@ -69,7 +71,8 @@ def scst_loss(config: Config, state, batch, sampled_ids, advantage):
     train mode (a conditional generator's BatchNorm statistics move once,
     as in the JAX update)."""
     cond, _ = api.generator_condition(config, state.gen, batch, train=True)
-    lp = sequence_logprob(config, state.gen, cond["features"], sampled_ids)
+    lp = sequence_logprob(config, state.gen, cond["features"], sampled_ids,
+                          cond["context"])
     return -(advantage.detach() * lp).mean()
 
 
@@ -87,15 +90,16 @@ def make_scst_programs(config: Config):
     @torch.no_grad()
     def rollout(gen, batch, rng, noise=None):
         cond, _ = api.generator_condition(config, gen, batch, train=False)
-        feats = cond["features"]
+        feats, ctx = cond["features"], cond["context"]
         sampled, _ = decode_lib.sample_decode(gen, feats, config, rng,
-                                              noise=noise)
-        return sampled, decode_lib.greedy(gen, feats, config)
+                                              context=ctx, noise=noise)
+        return sampled, decode_lib.greedy(gen, feats, config, context=ctx)
 
     @torch.no_grad()
     def greedy_only(gen, batch):
         cond, _ = api.generator_condition(config, gen, batch, train=False)
-        return decode_lib.greedy(gen, cond["features"], config)
+        return decode_lib.greedy(gen, cond["features"], config,
+                                 context=cond["context"])
 
     def update(state, batch, sampled_ids, advantage):
         loss = scst_loss(config, state, batch, sampled_ids, advantage)

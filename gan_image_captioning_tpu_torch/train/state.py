@@ -229,10 +229,11 @@ class TrainState:
 
 
 def freeze_backbone(gen: Generator, config: Config) -> Generator:
-    """A conditional generator's backbone requires gradients only under
-    ``--trainable-backbone 1``."""
+    """A conditional generator's backbone (ResNet-18 or ViT) requires
+    gradients only under ``--trainable-backbone 1``: a frozen one stays out
+    of the optimizer."""
     if gen.encoder is not None:
-        gen.encoder.resnet.requires_grad_(bool(config.trainable_backbone))
+        gen.encoder.backbone.requires_grad_(bool(config.trainable_backbone))
     return gen
 
 

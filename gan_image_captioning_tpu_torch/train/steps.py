@@ -10,7 +10,9 @@
   BatchNorm running statistic moves once per step, as the JAX steps merge
   one ``new_stats`` per step (``steps.py:230,292,411,665``); the decode
   and its rescore read the features and never re-run it.  ``images_u8``
-  batches go through the ``image_norm`` kernel first.
+  batches go through the ``image_norm`` kernel first.  A conditional
+  transformer gets the encoder's grid from the same pass and every
+  decode, teacher-forced pass and rollout cross-attends over it.
 * :func:`make_mle_eval_step` / :func:`make_adv_eval_step` — the losses in
   eval mode (running statistics read, not moved; no dropout, no label
   noise; no update), without gradients.

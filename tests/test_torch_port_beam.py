@@ -252,10 +252,13 @@ def test_diverse_beam_scores_are_true_logprobs_and_groups_diverge():
 
 
 def test_context_is_refused():
+    """A cross-attention context needs a transformer: the LSTM's searches
+    refuse one (the conditional transformer's decodes are held against
+    the JAX package in test_torch_port_cond_transformer.py)."""
     _, _, gen, config, feats = build("lstm")
     x = torch.from_numpy(feats)
     ctx = torch.zeros(B, 3, config.gen_embed_dim)
     for fn in (tdecode.beam_search, tdecode.diverse_beam_search,
                tdecode.sample_decode):
-        with pytest.raises(NotImplementedError, match="context"):
+        with pytest.raises(ValueError, match="context"):
             fn(gen, x, config, context=ctx)

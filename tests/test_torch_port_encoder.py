@@ -253,6 +253,18 @@ def test_init_follows_the_jax_distributions():
                                                  again.parameters()))
 
 
-def test_vit_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tenc.Encoder(Config(**KW, encoder_arch="vit"))
+def test_vit_encoder_is_built():
+    """``--encoder-arch vit``: the ViT-B/16 backbone under ``vit``, the
+    768 → E projection, frozen unless ``--trainable-backbone 1`` (its
+    features are held against the JAX package in
+    test_torch_port_vit.py)."""
+    config = Config(**{**KW, "image_size": 32}, encoder_arch="vit")
+    enc = tenc.init_encoder_params(torch.Generator().manual_seed(0),
+                                   tenc.Encoder(config))
+    assert enc.backbone is enc.vit and not hasattr(enc, "resnet")
+    assert enc.linear.weight.shape == (config.gen_embed_dim, 768)
+    assert enc.vit.pos.shape == (5, 768)
+    assert not any(p.requires_grad for p in enc.vit.parameters())
+    assert tenc.grid_shape(config) == (4, 768)
+    trainable = tenc.Encoder(config.replace(trainable_backbone=1))
+    assert all(p.requires_grad for p in trainable.vit.parameters())

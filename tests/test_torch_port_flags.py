@@ -102,9 +102,27 @@ def test_jax_command_line_at_defaults_parses_and_trains(tmp_path):
 
 # every flag the port parses and refuses when set, with a set value
 REFUSED = [("--cp-mode", "ring"), ("--pp-microbatches", "2"),
-           ("--zero1", None), ("--tokenizer", "bpe"),
-           ("--bpe-vocab", "v.json"), ("--bpe-merges", "m.txt"),
-           ("--encoder-init", "natural")]
+           ("--zero1", None), ("--encoder-init", "natural")]
+
+
+# flags that were refused until the conditional transformer and config5
+# were ported, and are honoured now
+CONFIG5_HONOURED = [("--tokenizer", "bpe"), ("--bpe-vocab", "v.json"),
+            ("--bpe-merges", "m.txt"), ("--encoder-arch", "vit"),
+            ("--gen-arch", "gpt2")]
+
+
+@pytest.mark.parametrize("flag,value", CONFIG5_HONOURED)
+def test_config5_flags_are_honoured(flag, value):
+    config = config_from_args(build_parser().parse_args([flag, value]))
+    require_ported_flags(config)
+    field = flag[2:].replace("-", "_")
+    if flag == "--gen-arch":
+        assert (config.gen_arch, config.gen_embed_dim, config.gen_num_layers,
+                config.gen_num_heads, config.gen_hidden_dim) == (
+                    "transformer", 768, 12, 12, 3072)
+    else:
+        assert getattr(config, field) == value
 
 
 @pytest.mark.parametrize("flag,value", REFUSED)

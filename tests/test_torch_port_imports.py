@@ -58,7 +58,9 @@ def test_fresh_import_adds_no_jax_module():
                  "models.discriminator_transformer", "train.reinforce",
                  "evaluate", "caption", "eval.bleu", "eval.cider",
                  "eval.rouge", "eval.meteor", "eval.diversity",
-                 "eval.metrics", "train.schedule", "train.scst"):
+                 "eval.metrics", "train.schedule", "train.scst",
+                 "models.vit", "data.bpe", "models.torch_import",
+                 "import_gpt2", "import_vit"):
         assert f"gan_image_captioning_tpu_torch.{name}" in added
     assert "torch" in added or "torch" in sys.modules
     assert [m for m in added if _forbidden(m)] == []
@@ -89,3 +91,33 @@ def test_forbidden_matches_exact_package_name():
     assert _forbidden("gan_image_captioning_tpu.models.lstm")
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert not _forbidden("gan_image_captioning_tpu_torch.models.lstm")
+
+
+def _imports_of(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    return names
+
+
+def test_bpe_needs_only_the_standard_library():
+    """The port's BPE pre-tokenizer scans with ``unicodedata``: no
+    ``regex`` (the card's machine has none), nothing of JAX, and in a
+    fresh process importing it and encoding loads neither."""
+    names = _imports_of(os.path.join(PORT, "data", "bpe.py"))
+    assert not [n for n in names if n.split(".")[0] == "regex"
+                or _forbidden(n)]
+    code = ("import sys\n"
+            "from gan_image_captioning_tpu_torch.data import bpe\n"
+            "bpe.pre_tokenize(\"it's 42 caf\u00e9s!\")\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('regex', 'jax', 'gan_image_captioning_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -164,8 +164,7 @@ def test_main_needs_cuda_unless_told_cpu(tmp_path):
 
 
 UNPORTED = [("--random-flip", "1"), ("--random-crop-pad", "4"),
-            ("--cache-features", "1"), ("--mesh", "data:4"),
-            ("--encoder-arch", "vit")]
+            ("--cache-features", "1"), ("--mesh", "data:4")]
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED)
@@ -177,6 +176,32 @@ def test_unported_flags_raise(flag, value, tmp_path):
         tmain.main([*FLAGS, flag, value, "--device", "cpu",
                     "--save-dir", str(tmp_path / "s")])
     assert not os.path.exists(tmp_path / "s")
+
+
+def test_vit_encoder_trains(tmp_path, monkeypatch):
+    """``--encoder-arch vit``, refused until its port: the conditional LSTM
+    trains on the ViT-B/16 backbone's CLS features (frozen: its weights do
+    not move) and the checkpoint serves an image.  Two of the ViT's twelve
+    blocks, at its width (``test_torch_port_vit.py`` holds all twelve)."""
+    from gan_image_captioning_tpu_torch.models import vit as tvit
+
+    monkeypatch.setattr(tvit, "DEPTH", 2)
+    inst = tmain.main([*FLAGS, "--encoder-arch", "vit", "--image-size", "32",
+                       "--device", "cpu", "--save-dir", str(tmp_path / "s")])
+    gen = inst.state.gen
+    assert gen.encoder.backbone is gen.encoder.vit
+    assert not any(k.startswith("encoder.vit.")
+                   for k in inst.state.gen_opt.mu)
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", os.path.join(inst.config.model_dir,
+                                      "adv_model.ckpt"),
+         *FLAGS, "--encoder-arch", "vit", "--image-size", "32",
+         "--device", "cpu"]))
+    try:
+        resp = service.caption_images(np.zeros((2, 3, 32, 32), np.float32))
+        assert len(resp["captions"]) == 2
+    finally:
+        service.close()
 
 
 @pytest.mark.parametrize("flag,value", [("--eval-bleu-every", "1"),
@@ -233,14 +258,16 @@ def test_config2_needs_greedy_decoding():
 
 
 @pytest.mark.parametrize("preset", ["config4", "config5"])
-def test_unported_presets_raise(preset):
-    """config5 is refused as it is parsed; config4 (the transformer GAN)
-    is ported, and only its conditional form is refused."""
-    if preset == "config4":
-        args = build_parser().parse_args(["--preset", preset,
-                                          "--conditional-gan", "1"])
-        with pytest.raises(NotImplementedError, match="conditional"):
-            require_ported_flags(config_from_args(args))
-        return
-    with pytest.raises(NotImplementedError):
-        build_parser().parse_args(["--preset", preset])
+def test_conditional_transformer_presets_parse(preset):
+    """Refused until the conditional transformer's port: config4 with
+    ``--conditional-gan 1``, and config5 (ViT encoder, GPT-2 geometry,
+    BPE, bfloat16, device preprocessing) as it is parsed."""
+    extra = ["--conditional-gan", "1"] if preset == "config4" else []
+    config = config_from_args(build_parser().parse_args(
+        ["--preset", preset, *extra]))
+    require_ported_flags(config)
+    assert config.cgan and config.gen_arch == "transformer"
+    if preset == "config5":
+        assert (config.encoder_arch, config.gen_embed_dim, config.tokenizer,
+                config.dtype, config.device_preprocess) == (
+                    "vit", 768, "bpe", "bfloat16", 1)

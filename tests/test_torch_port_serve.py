@@ -174,9 +174,6 @@ def test_ported_decode_options_start(exported, monkeypatch, extra):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--gen-arch", "gpt2"], NotImplementedError),
-    (["--conditional-gan", "1", "--encoder-arch", "vit"],
-     NotImplementedError),
     (["--device", "tpu"], RuntimeError)])
 def test_unported_options_raise_at_startup(extra, err):
     with pytest.raises(err):
@@ -191,3 +188,32 @@ def test_default_device_is_cuda_and_never_falls_back():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.CaptionService(args)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--gen-arch", "gpt2"],
+    ["--conditional-gan", "1", "--encoder-arch", "vit", "--image-size", "32"]])
+def test_config5_options_serve(extra, monkeypatch):
+    """Options refused at startup until config5 was ported: the GPT-2
+    geometry serves ``{"n": k}``, the ViT-conditioned LSTM serves images
+    (random weights from the seed, plain decode on the CPU; two of the
+    ViT's blocks at its width)."""
+    from gan_image_captioning_tpu_torch.models import vit as tvit
+
+    monkeypatch.setattr(tvit, "DEPTH", 2)
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "0", *FLAGS, *extra, "--device", "cpu"]))
+    try:
+        if "--gen-arch" in extra:
+            assert (service.config.gen_embed_dim,
+                    service.config.gen_num_layers) == (768, 12)
+            resp = service.handle_request({"n": 2})
+        else:
+            assert service.generator.encoder.backbone is \
+                service.generator.encoder.vit
+            resp = service.caption_images(np.random.default_rng(0).standard_normal(
+                (2, 3, 32, 32)).astype(np.float32))
+        assert len(resp["captions"]) == 2
+        assert all(np.isfinite(resp["logprobs"]))
+    finally:
+        service.close()

@@ -173,9 +173,8 @@ def test_steps_draw_their_own_noise_and_train():
 
 
 @pytest.mark.parametrize("override", [
-    {"dtype": "bfloat16", "decode_impl": "decoupled"}, {"gen_arch": "gpt2"},
-    {"gen_arch": "transformer", "conditional_gan": 1},
-    {"conditional_gan": 1, "encoder_arch": "vit"}, {"disc_arch": "bilstm"}])
+    {"dtype": "bfloat16", "decode_impl": "decoupled"},
+    {"disc_arch": "bilstm"}])
 def test_unported_training_options_raise(override):
     config = Config(**KW).replace(**override)
     with pytest.raises(NotImplementedError):
@@ -198,3 +197,23 @@ def test_teacher_mle_objective_matches_jax(start):
         np.testing.assert_allclose(float(m[k]), float(jm[k]), err_msg=k,
                                    **METRIC)
     _assert_same_params(state, jstate, "teacher")
+
+
+@pytest.mark.parametrize("override", [
+    {"gen_arch": "gpt2"}, {"gen_arch": "transformer", "conditional_gan": 1},
+    {"conditional_gan": 1, "encoder_arch": "vit"},
+    {"gen_arch": "gpt2", "conditional_gan": 1, "encoder_arch": "vit",
+     "dtype": "bfloat16"}])
+def test_config5_training_options_build(override):
+    """The options refused until the conditional transformer was ported:
+    every step builds (``gen_arch="gpt2"`` expanded as
+    ``config_from_args`` expands it); their steps run against the JAX
+    package in test_torch_port_cond_transformer.py."""
+    from gan_image_captioning_tpu_torch.config import GPT2_GEOMETRY
+
+    config = Config(**KW).replace(**override)
+    if config.gen_arch == "gpt2":
+        config = config.replace(**GPT2_GEOMETRY)
+    for make in (tsteps.make_adv_step, tsteps.make_mle_step,
+                 tsteps.make_mle_eval_step, tsteps.make_adv_eval_step):
+        assert callable(make(config))

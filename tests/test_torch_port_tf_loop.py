@@ -19,18 +19,22 @@ import pytest
 import torch
 
 from gan_image_captioning_tpu.config import Config as JConfig
+from gan_image_captioning_tpu.config import config_from_args as jconfig_from_args
 from gan_image_captioning_tpu.config import get_args
 from gan_image_captioning_tpu.data.synthetic import (
     SyntheticCaptions as JSynthetic)
 from gan_image_captioning_tpu.train.instructor import GANInstructor
+from gan_image_captioning_tpu_torch import caption as tcaption
 from gan_image_captioning_tpu_torch import interop
 from gan_image_captioning_tpu_torch import main as tmain
 from gan_image_captioning_tpu_torch import serve
 from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    config_from_args,
                                                    require_ported_flags)
+from gan_image_captioning_tpu_torch.eval import decode as tdecode
+from gan_image_captioning_tpu_torch.models import api as tapi
 from gan_image_captioning_tpu_torch.train.checkpoint import (
-    save_generator_checkpoint)
+    load_generator_checkpoint, save_generator_checkpoint)
 
 ITEMS, BS = 16, 8
 MODEL = dict(gen_embed_dim=16, gen_hidden_dim=16, gen_num_layers=1,
@@ -132,9 +136,7 @@ def test_config4_is_the_jax_flag_bundle():
     require_ported_flags(config_from_args(args))
 
 
-@pytest.mark.parametrize("extra", [
-    ["--disc-arch", "bilstm"], ["--gen-arch", "gpt2"],
-    ["--conditional-gan", "1"]])
+@pytest.mark.parametrize("extra", [["--disc-arch", "bilstm"]])
 def test_what_config4_still_lacks_raises(extra, tmp_path):
     args = build_parser().parse_args(["--preset", "config4", *extra])
     with pytest.raises(NotImplementedError):
@@ -143,3 +145,77 @@ def test_what_config4_still_lacks_raises(extra, tmp_path):
         tmain.main([*FLAGS, *extra, "--device", "cpu", "--save-dir",
                     str(tmp_path / "s")])
     assert not os.path.exists(tmp_path / "s")
+
+
+def test_config4_with_gpt2_parses_to_its_geometry():
+    """``--preset config4 --gen-arch gpt2``, refused until config5's port:
+    the generator takes GPT-2-small's geometry over the preset's widths
+    (the JAX ``config_from_args``), and the rest of config4 stays."""
+    args = build_parser().parse_args(["--preset", "config4", "--gen-arch",
+                                      "gpt2"])
+    config = config_from_args(args)
+    jconfig = jconfig_from_args(get_args(
+        ["--preset", "config4", "--gen-arch", "gpt2"], make_dirs=False))
+    for k in ("gen_arch", "gen_embed_dim", "gen_hidden_dim",
+              "gen_num_layers", "gen_num_heads", "disc_arch",
+              "adv_objective", "rollout_num"):
+        assert getattr(config, k) == getattr(jconfig, k), k
+    require_ported_flags(config)
+
+
+def test_config4_conditional_trains(tmp_path):
+    """``--preset config4 --conditional-gan 1``, refused until its port:
+    the transformer cross-attends over the ResNet grid through MLE and
+    REINFORCE epochs, and the adversarial checkpoint is conditional.
+    Then serve.py (``{"image"}`` rows carry the grid) and caption.py give
+    the same ids and captions of the same val images, the ids differ
+    across the images, and the rows decoded without their grid decode
+    apart.  That needs captions that follow the image: the reference's
+    init sweep (``--gen-init``, the encoder's weights too) leaves the
+    eval-mode ResNet's grid the same for every image, so the served
+    checkpoint is the trained one with its generator drawn from a seed
+    without the sweep (projection N(0, 1): no near-tied argmax)."""
+    inst = tmain.main([*FLAGS, "--conditional-gan", "1", "--image-size",
+                       "64", "--device", "cpu", "--save-dir",
+                       str(tmp_path / "s")])
+    assert inst.state.gen.encoder is not None and inst.state.gen_steps > 0
+    ckpt = os.path.join(inst.config.model_dir, "adv_model.ckpt")
+    obj = torch.load(ckpt, weights_only=True)
+    assert obj["conditional"] and obj["gen_arch"] == "transformer"
+    _, disc = load_generator_checkpoint(ckpt, inst.config)
+    gen = tapi.init_generator(torch.Generator().manual_seed(7), inst.config,
+                              sweep=False)
+    with torch.no_grad():
+        gen.decoder.linear.w.mul_(50.0)
+    ckpt = str(tmp_path / "served.ckpt")
+    save_generator_checkpoint(ckpt, gen, disc)
+    flags = [*FLAGS, "--conditional-gan", "1", "--image-size", "64",
+             "--device", "cpu"]
+    val = JSynthetic("val", num_items=16, image_size=64, conditional=True,
+                     seed=inst.config.seed)
+    images = np.stack([val.sample(i)[1] for i in range(4)])
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", ckpt, *flags, "--serve-batch-size", "4"]))
+    try:
+        served = service.caption_images(images)
+        served_ids, _ = service.batcher.submit(
+            service.features_from_images(images)).result(timeout=60)
+        cond, _ = tapi.generator_condition(
+            service.config, service.generator,
+            {"images": torch.from_numpy(images)})
+        bare_ids, bare_lp = tdecode.greedy_with_logprobs(
+            service.generator, cond["features"], service.config)
+    finally:
+        service.close()
+    out = tmp_path / "captions.jsonl"
+    ids = np.stack(tcaption.main(
+        ["--checkpoint", ckpt, *flags, "--num-samples", "4",
+         "--pre-eval-batch-size", "4", "--output", str(out)]))
+    rows = [json.loads(ln) for ln in open(out)]
+    np.testing.assert_array_equal(ids, served_ids)
+    assert served["captions"] == [r["caption"] for r in rows]
+    np.testing.assert_allclose(served["logprobs"],
+                               [r["logprob"] for r in rows], atol=1e-3)
+    assert len({tuple(r) for r in ids}) > 1
+    assert (not np.array_equal(bare_ids.numpy(), ids)
+            or np.abs(bare_lp.numpy() - served["logprobs"]).max() > 1e-3)

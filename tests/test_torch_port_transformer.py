@@ -281,17 +281,62 @@ def test_service_answers_from_a_transformer(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--serve-continuous"], ["--serve-adaptive-chunk", "4"],
-    ["--quantize", "int8"], ["--conditional-gan", "1"]])
+    ["--quantize", "int8"]])
 def test_unported_transformer_serving_raises(extra):
     with pytest.raises(NotImplementedError):
         serve.CaptionService(serve.parse_args(["--init-seed", "0", *FLAGS,
                                                *extra]))
 
 
-@pytest.mark.parametrize("override", [{"gen_arch": "gpt2"},
-                                      {"disc_arch": "bilstm"},
-                                      {"conditional_gan": 1}])
+@pytest.mark.parametrize("override", [{"disc_arch": "bilstm"}])
 def test_unported_models_raise(override):
     with pytest.raises(NotImplementedError):
         tapi.init_generator(torch.Generator(), Config(**KW).replace(
             **override))
+
+
+def test_conditional_transformer_serving_captions_images():
+    """``--conditional-gan 1`` on a transformer, refused until its port:
+    ``{"image"}`` rows carry the features and the ResNet grid, and the
+    service's captions are the greedy decode over that context; ``{"n"}``
+    is answered with an error."""
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "3", *FLAGS, "--conditional-gan", "1",
+         "--image-size", "64"]))
+    try:
+        assert service.context_shape == (4, 512)
+        images = np.random.default_rng(1).standard_normal(
+            (3, 3, 64, 64)).astype(np.float32)
+        resp = service.caption_images(images)
+        cond, _ = tapi.generator_condition(
+            service.config, service.generator,
+            {"images": torch.from_numpy(images)})
+        ids, lp = tdecode.greedy_with_logprobs(
+            service.generator, cond["features"], service.config,
+            context=cond["context"])
+        assert resp["captions"] == [service._caption(r.tolist())
+                                    for r in ids]
+        np.testing.assert_allclose(resp["logprobs"], lp.numpy(), atol=1e-4)
+        assert "error" in service.handle_request({"n": 1})
+    finally:
+        service.close()
+
+
+@pytest.mark.parametrize("override", [{"gen_arch": "gpt2"},
+                                      {"conditional_gan": 1}])
+def test_config5_models_build(override):
+    """Refused until the conditional transformer's port: the GPT-2
+    geometry (``config_from_args`` expands ``--gen-arch gpt2``) and a
+    conditional transformer, whose encoder and ``ctx_proj`` (ResNet grid
+    512 → d) are in its tree (built on the meta device: the tree's
+    shapes, without drawing GPT-2's weights)."""
+    from gan_image_captioning_tpu_torch.config import GPT2_GEOMETRY
+
+    config = Config(**KW).replace(**override, image_size=32)
+    if config.gen_arch == "gpt2":
+        config = config.replace(**GPT2_GEOMETRY)
+    tapi.require_ported(config)
+    gen = ttf.TransformerGenerator(config, device="meta")
+    assert gen.decoder.ctx_proj.w.shape == (512, config.gen_embed_dim)
+    assert len(gen.decoder.blocks) == config.gen_num_layers
+    assert (gen.encoder is not None) == bool(config.conditional_gan)
