@@ -30,12 +30,14 @@
 // (under half of that time at 67 TFLOP/s): it is bound by bytes, and at
 // these sizes by how soon its blocks have their operands on chip.
 //
-// The forward (flash_fwd_fused_kernel, every call the system makes).  Every
-// T the system runs is at most 37, so one head's whole q, k and v fit in
-// shared memory and the softmax needs no running rescale.
-//   * A block owns G heads of one batch row: the most (a power of two) that
-//     keep it within 512 threads and 48 KB, 4 at T = 36 and D = 16, 2 at
-//     T = 37 and D = 32.  Their rows of q, k and v are contiguous runs of
+// The forward (flash_fwd_fused_kernel, T <= FT_TMAX and D <= 32; the
+// column-half kernel below past D = 32).  Every T the system runs is at
+// most 37, so one head's whole q, k and v fit in shared memory and the
+// softmax needs no running rescale.
+//   * A block owns G heads of one batch row, planned from the shape alone
+//     by the wrapper (flash_fwd_plan): the most (a power of two) that keep
+//     it within 512 threads and 48 KB, 4 at T = 36 and D = 16, 2 at T = 37
+//     and D = 32.  Their rows of q, k and v are contiguous runs of
 //     G*D floats in the bqhd layout; they arrive by 16-byte cp.async, all
 //     in flight at once, into head-major tiles whose rows are padded by 4
 //     floats, so that the lanes reading neighbouring keys hit distinct
@@ -80,28 +82,35 @@
 //     0.0168 / 0.0065 / 0.0096;
 //   * 1 head a block: 0.0184 / 0.0067 / 0.0088; 2 heads on the two-group
 //     form: 0.0152 / 0.0064 / 0.0094.
-// A shape the fused kernel does not take (T > FT_TMAX or D > 32) runs the
-// tiled forward (flash_fwd_kernel, the first port's design below); the
+// A shape the fused kernels do not take (T > FT_TMAX or D > FC_DP) runs
+// the tiled forward (flash_fwd_kernel, the first port's design below); the
 // choice is made from the shape alone, never after a failure.  The fused
-// kernel's 16-byte copies need q, k, v and out 16-byte aligned: the
+// kernels' 16-byte copies need q, k, v and out 16-byte aligned: the
 // wrapper refuses other pointers.
 //
-// The backward (flash_bwd_fused_kernel, every call the system makes: T <=
-// FT_TMAX, D <= 32) replaces both `_dq_kernel` and `_dkv_kernel`, and the
-// delta reduction, with one launch.  Its bound is bytes: q, k, v, dO and
-// out read once, dq, dk and dv written once and lse read, 8 x 4*B*T*H*D
-// bytes + 4*B*T*H, 9.5 MB at the discriminator's [64, 36, 8, 16] (2.84 us
-// at 3.35 TB/s) and 19.5 MB at the generator's [64, 37, 8, 32] (5.81 us);
-// its five products are 10*D flops a valid (query, key) pair, 106 M and
-// 84-115 M, 1.6 us at 67 TFLOP/s.  The design:
-//   * A block owns G heads of one batch row, planned from the shape alone
-//     by the wrapper's flash_bwd_plan and recomputed here (bwd_geometry):
-//     the most (a power of two) within FB_THREADS threads and FB_SMEM
-//     bytes, 2 at config4's shapes.  Their rows of q, k, v and dO arrive
-//     by 16-byte cp.async, all in flight at once, into head-major tiles
-//     padded by 4 floats a row, as in the forward; out is read in place
-//     (16-byte loads into registers while the copies land), since only
-//     the thread of its row needs it.
+// The plans.  Route, G, threads and bytes of every fused launch are the
+// wrapper's (kernels/flash_attention.py: flash_fwd_plan, flash_bwd_plan,
+// the only planner); this file chooses nothing: it launches the plan it is
+// given once fused_plan_ok finds that its threads cover two a row within
+// the kernel's launch bounds and its bytes cover the kernel's layout
+// within the 227 KB a block may use, else it returns cudaErrorInvalidValue
+// and launches nothing.
+//
+// The backward (flash_bwd_fused_kernel, T <= FT_TMAX and D <= 32; the
+// column-half kernel below past D = 32) replaces both `_dq_kernel` and
+// `_dkv_kernel`, and the delta reduction, with one launch.  Its bound is
+// bytes: q, k, v, dO and out read once, dq, dk and dv written once and lse
+// read, 8 x 4*B*T*H*D bytes + 4*B*T*H, 9.5 MB at the discriminator's [64,
+// 36, 8, 16] (2.84 us at 3.35 TB/s) and 19.5 MB at the generator's [64, 37,
+// 8, 32] (5.81 us); its five products are 10*D flops a valid (query, key)
+// pair, 106 M and 84-115 M, 1.6 us at 67 TFLOP/s.  The design:
+//   * A block owns G heads of one batch row, planned from the shape alone by
+//     the wrapper's flash_bwd_plan: the most (a power of two) within
+//     FB_THREADS threads and 96 KB, 2 at config4's shapes.  Their rows of q,
+//     k, v and dO arrive by 16-byte cp.async, all in flight at once, into
+//     head-major tiles padded by 4 floats a row, as in the forward; out is
+//     read in place (16-byte loads into registers while the copies land),
+//     since only the thread of its row needs it.
 //   * Phase 1, two threads a (head, query row), each every other key:
 //     delta_i from dO_i and out_i, then per key s, p (masked before the
 //     exponential: a row of no valid key has lse about -1e30), dp and ds,
@@ -148,8 +157,58 @@
 // behind another's arithmetic, and a launch alone is 0.0018.  172
 // registers a thread at D = 32, 122 at D = 16.
 //
+// The column-half kernels (flash_fwd_fused64_kernel and
+// flash_bwd_fused64_kernel, 32 < D <= FC_DP = 64: config5's GPT-2-small
+// attention, [64, 37, 12, 64]).  The key-slice kernels hold a whole row of
+// q, dO and dq in each thread's registers, 3 * DP floats: 172 registers a
+// thread at D = 32, past the 255 a thread may have at D = 64.  Here the
+// two threads of a row share it by its columns, not its keys.  Same
+// bound: bytes (8 x 2*B*T*H*D + 4*B*T*H, 29 MB, 8.7 us at 3.35 TB/s in
+// bfloat16; the forward 4 x, 4.4 us), the backward's 10*D flops a valid
+// pair 5.2 us at 67 TFLOP/s.
+//   * Thread (row, c) holds the row's float4 chunks c, c + 2, ... (32
+//     columns; the two lanes of a row load and store neighbouring 16
+//     bytes) and takes every key (forward; backward phase 1) or every
+//     query (phase 2) in order.  A dot product is its two half sums (two
+//     FMA chains each) joined by one shuffle: both lanes hold the same
+//     sum, since addition commutes.  Its columns of out, dq, dk and dv are
+//     whole sums: no join.
+//   * The forward's scores go to shared memory [G, T, T | 1] (lane 0 of a
+//     row writes; both read back after __syncwarp), so a thread keeps 32
+//     columns of q and of P.V: 71-75 registers.  The backward's (p, ds)
+//     pairs go to [G, T, T | 1] float2s, p by lane 0 and ds by lane 1 (an
+//     odd row stride: a warp's 16 rows and 2 lanes hit 32 banks), read in
+//     phase 2 down column j as one broadcast float2: 168-169 registers,
+//     no spills.
+//   * Staging as the key-slice kernels stage (stage_heads: float32 tiles
+//     of rows of 68 floats; out read in place).
+// Copies against arithmetic: a block still copies, computes and stores in
+// turn, and the overlap is between blocks.  One head a backward block (96
+// threads, 51 KB) keeps 4 blocks on an SM and 768 in the grid at B = 64,
+// so one block's copies land while the other three compute; two heads a
+// block (160 threads, 102 KB: 2 an SM) was slower.  With so few threads
+// for its bytes, the backward's bfloat16 staging keeps four rounds of
+// loads in flight (FC_BWD_STAGE_U).  Timed (ms, device_ms, H100 80GB HBM3
+// at 700 W, scripts/flash_fused64_variants.py, two runs in one call) at
+// [64, 37, 12, 64], causal with lengths / causal alone, bfloat16 (float32):
+//   * backward, 1 head a block 0.0389-0.0391 / 0.0451-0.0452 (0.0480-0.0481
+//     / 0.0576-0.0577); 2 heads 0.0402-0.0406 / 0.0486-0.0489 (0.0501-0.0502
+//     / 0.0610-0.0612); one staging round 0.0495-0.0497 / 0.0589-0.0590;
+//     the tiled route (delta, dQ, dK/dV) 0.1677-0.1685 / 0.1867-0.1872
+//     (0.1575-0.1577 / 0.1777-0.1781); SDPA's backward alone 0.0466-0.0470
+//     / 0.0467-0.0468 (0.1024-0.1027 / 0.1026-0.1027);
+//   * forward, 2 heads a block 0.0172-0.0176 / 0.0185 (0.0193-0.0194 /
+//     0.0203); 1 head 0.0176-0.0177 / 0.0191-0.0192 (0.0187-0.0195 /
+//     0.0204-0.0205); the tiled forward 0.0460-0.0465 / 0.0567-0.0569
+//     (0.0480-0.0482 / 0.0601-0.0605); SDPA 0.0515-0.0519 / 0.0508-0.0511
+//     (0.0543-0.0546 / 0.0533-0.0536).
+// What holds them back: the backward is 4.5x its bound.  A causal warp
+// runs as long as its longest row (every lane of a warp loops to the
+// warp's last key or first query), and every row reads a key's k and v
+// chunks from shared memory again: 16 bytes for 4 FMAs.
+//
 // The tiled kernels (the tiled forward, dQ and dK/dV, for T > FT_TMAX or D
-// > 32; the backward's delta then is one PyTorch reduction): float32 FMA, no
+// > FC_DP; the backward's delta then is one PyTorch reduction): float32 FMA, no
 // tensor cores.  A block of 128 threads owns one (b, h) and a tile of
 // rows (query rows forward and for dQ, key rows for dK/dV, so no two blocks
 // write the same row and no atomics are needed: the TPU design's
@@ -171,7 +230,9 @@
 // (csrc/bf16.cuh): q, k, v, out and dO are W, lse and delta float32.  A
 // bfloat16 row is widened exactly as it is staged, by 8-byte loads into
 // the same float32 shared tiles the float32 kernels fill by cp.async, so
-// the launch plans and the shared memory are float32's.  Every score, P,
+// the launch plans and the shared memory are float32's; in the fused
+// kernels (stage_heads) a thread issues four rounds of those loads before
+// their widened stores.  Every score, P,
 // product and sum stays float32 and P is not rounded before P.V, as the
 // JAX kernels' dot_generals take preferred_element_type=float32; out, dq,
 // dk and dv are rounded once (dq and dk after the scale); delta reads the
@@ -448,13 +509,12 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(
 
 // ---- the fused forward: a head's whole q, k and v on chip (T <= FT_TMAX)
 
-constexpr int FT_TMAX = 64;           // time rows the fused forward takes
-constexpr int FT_DMAX = 32;           // head dim it takes
+constexpr int FT_TMAX = 64;           // time rows the fused kernels take
+constexpr int FT_DMAX = 32;           // head dim of the key-slice kernels
 constexpr int FT_KS = 2;              // threads a query row (key slices)
 constexpr int FT_KPS = FT_TMAX / FT_KS;  // keys a thread scores, at most
 constexpr int FT_PAD = 4;             // floats after each staged row
 constexpr int FT_THREADS = 512;       // most threads a block
-constexpr int FT_SMEM = 48 * 1024;    // most shared-memory bytes a block
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -477,15 +537,79 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Four neighbouring elements of a global row into a float32 shared slot
-// (16-byte aligned): float32 by a 16-byte cp.async, bfloat16 by an 8-byte
-// load, widened.
-__device__ __forceinline__ void stage4(float* dst, const float* src) {
-  cp_async16(dst, src);
+// bfloat16 staging: rounds of 8-byte loads a thread issues before their
+// stores.  One where a block has threads enough for its bytes; four for
+// the column-half backward (one head, 96 threads, four planes of 64
+// columns): 0.0389-0.0391 against 0.0495-0.0497 ms with one at config5's
+// [64, 37, 12, 64], where four rounds cost the other fused kernels up to
+// 4 % (the rollouts' [256, 36, 8, 16] backward 0.0230-0.0232 against
+// 0.0222-0.0223; scripts/flash_fused64_variants.py --set, H100 at 700 W).
+constexpr int STAGE_U = 1;
+constexpr int FC_BWD_STAGE_U = 4;
+
+// Rows t < T of heads h0 .. h0 + gh - 1 of NP tensors into their float32
+// tiles (head-major, rows of DP + FT_PAD floats), columns D .. DP zeroed.
+// float32 arrives by 16-byte cp.async, all in flight at once (the caller
+// waits); bfloat16 by 8-byte loads, U rounds of them issued before their
+// widened stores, so that a thread has U * NP loads in flight.
+template <int NP, int DP, int U, class W>
+__device__ __forceinline__ void stage_heads(float* const (&dst)[NP],
+                                            const W* const (&src)[NP], int b,
+                                            int h0, int gh, int T, int H,
+                                            int D) {
+  constexpr int RS = DP + FT_PAD;
+  const int cpd = D / 4, cpr = gh * cpd, n = T * cpr;
+  auto offsets = [&](int e, size_t& s, int& d) {
+    const int t = e / cpr, c = e - t * cpr, g = c / cpd;
+    s = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
+    d = (g * T + t) * RS + 4 * (c - g * cpd);
+  };
+  if constexpr (!gic::is_bf16<W>) {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) {
+      size_t s;
+      int d;
+      offsets(e, s, d);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) cp_async16(dst[p] + d, src[p] + s);
+    }
+  } else {
+    for (int e0 = threadIdx.x; e0 < n; e0 += U * blockDim.x) {
+      uint2 buf[U][NP];
+      int d[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * blockDim.x;
+        if (e < n) {
+          size_t s;
+          offsets(e, s, d[u]);
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            buf[u][p] = __ldg(reinterpret_cast<const uint2*>(src[p] + s));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (e0 + u * static_cast<int>(blockDim.x) < n) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            *reinterpret_cast<float4*>(dst[p] + d[u]) = make_float4(
+                gic::bf16_lo(buf[u][p].x), gic::bf16_hi(buf[u][p].x),
+                gic::bf16_lo(buf[u][p].y), gic::bf16_hi(buf[u][p].y));
+        }
+      }
+    }
+  }
+  if (D < DP) {  // pad columns enter every dot product: zero them
+    const int ppr = (DP - D) / 4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = threadIdx.x; e < gh * T * ppr; e += blockDim.x) {
+      const int row = e / ppr, d = row * RS + D + 4 * (e - row * ppr);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) *reinterpret_cast<float4*>(dst[p] + d) = z;
+    }
+  }
 }
-__device__ __forceinline__ void stage4(float* dst, const bf16* src) {
-  *reinterpret_cast<float4*>(dst) = gic::ld4_bf16(src);
-}
+
 
 // q . k over DP columns (columns D..DP of both are zero), in two chains.
 template <int DP>
@@ -528,26 +652,10 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
   float* const ks = qs + plane;
   float* const vs = ks + plane;
 
-  // rows t < T of heads h0 .. h0 + gh - 1, one run of gh*D floats a row
-  // (chunk e of the block's rows: time row e / cpr, 16 bytes e % cpr)
-  const int cpd = D / 4, cpr = gh * cpd;
-  for (int e = threadIdx.x; e < T * cpr; e += blockDim.x) {
-    const int t = e / cpr, c = e - t * cpr, g = c / cpd;
-    const size_t src = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
-    const int dst = (g * T + t) * RS + 4 * (c - g * cpd);
-    stage4(qs + dst, q + src);
-    stage4(ks + dst, k + src);
-    stage4(vs + dst, v + src);
-  }
-  if (D < DP) {  // pad columns enter every dot product: zero them
-    const int ppr = (DP - D) / 4;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int e = threadIdx.x; e < gh * T * ppr; e += blockDim.x) {
-      const int row = e / ppr, dst = row * RS + D + 4 * (e - row * ppr);
-      *reinterpret_cast<float4*>(qs + dst) = z;
-      *reinterpret_cast<float4*>(ks + dst) = z;
-      *reinterpret_cast<float4*>(vs + dst) = z;
-    }
+  {
+    float* const dst[3] = {qs, ks, vs};
+    const W* const src[3] = {q, k, v};
+    stage_heads<3, DP, STAGE_U, W>(dst, src, b, h0, gh, T, H, D);
   }
 
   // thread -> (row slot r = (head g, query row i), key slice s): keys
@@ -639,9 +747,7 @@ __global__ void __launch_bounds__(FT_THREADS) flash_fwd_fused_kernel(
 
 // ---- the fused backward: delta, dQ, dK and dV of G heads in one block
 
-// Its geometry (kernels/flash_attention.py:flash_bwd_plan mirrors these):
 constexpr int FB_THREADS = 256;       // most threads a block
-constexpr int FB_SMEM = 96 * 1024;    // most shared-memory bytes a block
 constexpr int FB_KS = 2;              // threads a row (key or query slices)
 constexpr int FB_PLANES = 4;          // staged tiles: q, k, v, dO
 
@@ -735,28 +841,10 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
   float* const ps = os + plane;
   float* const dss = ps + G * T * LD;
 
-  // rows t < T of heads h0 .. h0 + gh - 1, one run of gh*D floats a row
-  // of each tensor, all in flight at once
-  const int cpd = D / 4, cpr = gh * cpd;
-  for (int e = threadIdx.x; e < T * cpr; e += blockDim.x) {
-    const int t = e / cpr, c = e - t * cpr, g = c / cpd;
-    const size_t src = ((size_t)(b * T + t) * H + h0) * D + 4 * c;
-    const int dst = (g * T + t) * RS + 4 * (c - g * cpd);
-    stage4(qs + dst, q + src);
-    stage4(ks + dst, k + src);
-    stage4(vs + dst, v + src);
-    stage4(os + dst, dout + src);
-  }
-  if (D < DP) {  // pad columns enter every dot product: zero them
-    const int ppr = (DP - D) / 4;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int e = threadIdx.x; e < gh * T * ppr; e += blockDim.x) {
-      const int row = e / ppr, dst = row * RS + D + 4 * (e - row * ppr);
-      *reinterpret_cast<float4*>(qs + dst) = z;
-      *reinterpret_cast<float4*>(ks + dst) = z;
-      *reinterpret_cast<float4*>(vs + dst) = z;
-      *reinterpret_cast<float4*>(os + dst) = z;
-    }
+  {
+    float* const dst[4] = {qs, ks, vs, os};
+    const W* const src[4] = {q, k, v, dout};
+    stage_heads<4, DP, STAGE_U, W>(dst, src, b, h0, gh, T, H, D);
   }
 
   // thread -> (row slot r = (head g, row i), slice s); phase 1 reads i as
@@ -865,6 +953,286 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_fused_kernel(
   }
 }
 
+// ---- the fused kernels at 32 < D <= 64: a row's columns in two halves
+
+constexpr int FC_DP = 64;                 // columns a staged row holds
+constexpr int FC_CS = 2;                  // threads a row (column halves)
+constexpr int FC_HALF = FC_DP / FC_CS;    // columns a thread holds
+constexpr int FC_RS = FC_DP + FT_PAD;     // staged row stride
+constexpr int FC_THREADS = 256;           // most threads a block
+
+// Column half c of a row is its float4 chunks c, c + 2, ..., c + 14:
+// chunk m of the half holds columns 8m + 4c .. 8m + 4c + 3, so the two
+// lanes of a row read and write neighbouring 16 bytes.
+__device__ __forceinline__ int half_col(int m, int c) { return 8 * m + 4 * c; }
+
+__device__ __forceinline__ void load_half(float (&r)[FC_HALF],
+                                          const float* row, int c) {
+#pragma unroll
+  for (int m = 0; m < FC_HALF / 4; ++m) {
+    const float4 x = ld4(row + half_col(m, c));
+    r[4 * m] = x.x;
+    r[4 * m + 1] = x.y;
+    r[4 * m + 2] = x.z;
+    r[4 * m + 3] = x.w;
+  }
+}
+
+// a . (the thread's half of a staged row) in two chains, chunks of even m
+// on one and odd m on the other, then their sum: half of a dot product,
+// which one shuffle with the row's other lane completes.
+__device__ __forceinline__ float dot_half(const float (&a)[FC_HALF],
+                                          const float* row, int c) {
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int m = 0; m < FC_HALF / 4; m += 2) {
+    const float4 x = ld4(row + half_col(m, c));
+    const float4 y = ld4(row + half_col(m + 1, c));
+    a0 = fmaf(a[4 * m], x.x, a0);
+    a1 = fmaf(a[4 * m + 4], y.x, a1);
+    a0 = fmaf(a[4 * m + 1], x.y, a0);
+    a1 = fmaf(a[4 * m + 5], y.y, a1);
+    a0 = fmaf(a[4 * m + 2], x.z, a0);
+    a1 = fmaf(a[4 * m + 6], y.z, a1);
+    a0 = fmaf(a[4 * m + 3], x.w, a0);
+    a1 = fmaf(a[4 * m + 7], y.w, a1);
+  }
+  return a0 + a1;
+}
+
+// acc += a * (the thread's half of a staged row)
+__device__ __forceinline__ void axpy_half(float (&acc)[FC_HALF], float a,
+                                          const float* row, int c) {
+#pragma unroll
+  for (int m = 0; m < FC_HALF / 4; ++m) {
+    const float4 x = ld4(row + half_col(m, c));
+    acc[4 * m] = fmaf(a, x.x, acc[4 * m]);
+    acc[4 * m + 1] = fmaf(a, x.y, acc[4 * m + 1]);
+    acc[4 * m + 2] = fmaf(a, x.z, acc[4 * m + 2]);
+    acc[4 * m + 3] = fmaf(a, x.w, acc[4 * m + 3]);
+  }
+}
+
+// The thread's half of an output row, times mul, chunk by chunk inside D
+// (D is a multiple of 8: both lanes of a row hold D / 8 chunks).
+template <class W>
+__device__ __forceinline__ void store_half(W* dst, const float (&acc)[FC_HALF],
+                                           int c, int D, float mul) {
+#pragma unroll
+  for (int m = 0; m < FC_HALF / 4; ++m) {
+    if (half_col(m, c) < D)
+      st4w(dst + half_col(m, c),
+           make_float4(acc[4 * m] * mul, acc[4 * m + 1] * mul,
+                       acc[4 * m + 2] * mul, acc[4 * m + 3] * mul));
+  }
+}
+
+// Grid: B * ceil(H / G) blocks (batch row, group of G heads); block:
+// FC_CS*G*T threads rounded up to a warp.  Dynamic shared memory: the q,
+// k and v tiles of G heads, T rows of FC_RS floats each, then the scores
+// [G, T, T | 1].
+template <class W>
+__global__ void __launch_bounds__(FC_THREADS) flash_fwd_fused64_kernel(
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const int* __restrict__ lengths,
+    W* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
+    int G, int causal, float scale) {
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) float fc_smem[];
+  const int groups = (H + G - 1) / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * G;
+  const int gh = min(G, H - h0);  // heads of this block
+  const int LS = T | 1;  // odd: a warp's 16 rows write 16 distinct banks
+  const int plane = G * T * FC_RS;
+  float* const qs = fc_smem;
+  float* const ks = qs + plane;
+  float* const vs = ks + plane;
+  float* const ss = vs + plane;
+  {
+    float* const dst[3] = {qs, ks, vs};
+    const W* const src[3] = {q, k, v};
+    stage_heads<3, FC_DP, STAGE_U, W>(dst, src, b, h0, gh, T, H, D);
+  }
+
+  // thread -> (row slot r = (head g, query row i), column half c); both
+  // lanes of a row take every key.  A dead slot (past gh*T) has no keys
+  // and writes nothing but takes part in the shuffles.
+  const int c = threadIdx.x % FC_CS, r = threadIdx.x / FC_CS;
+  const bool live = r < gh * T;
+  const int g = live ? r / T : 0, i = live ? r - g * T : 0;
+  const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
+  const int nk = !live ? 0 : causal ? min(len, i + 1) : len;  // j < nk
+  const int nwarp = static_cast<int>(__reduce_max_sync(FULL, nk));
+  const float* const kh = ks + g * T * FC_RS;
+  const float* const vh = vs + g * T * FC_RS;
+  float* const srow = ss + (g * T + i) * LS;
+
+  cp_async_wait_all();
+  __syncthreads();
+  // pass 1: the scores and their max; lane 0 keeps them in shared memory
+  float mx = NEG;
+  {
+    float qr[FC_HALF];
+    load_half(qr, qs + (g * T + i) * FC_RS, c);
+#pragma unroll 2
+    for (int j = 0; j < nwarp; ++j) {
+      float d = dot_half(qr, kh + j * FC_RS, c);
+      d += __shfl_xor_sync(FULL, d, 1);  // both lanes: the same sum
+      const float sc = j < nk ? d * scale : -INFINITY;
+      mx = fmaxf(mx, sc);
+      if (c == 0 && live) srow[j] = sc;
+    }
+  }
+  __syncwarp();
+
+  // pass 2: exp(s - mx) = 2^(s*log2e - mx*log2e), their sum and P.V on
+  // the thread's columns; a masked key (-inf) gives 0
+  const float nm = -mx * LOG2E;
+  float acc[FC_HALF], l = 0.f;
+#pragma unroll
+  for (int e = 0; e < FC_HALF; ++e) acc[e] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < nwarp; ++j) {
+    const float p = ex2(fmaf(srow[j], LOG2E, nm));
+    l += p;
+    axpy_half(acc, p, vh + j * FC_RS, c);
+  }
+  if (!live) return;
+  const float l_safe = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < FC_HALF; ++e) acc[e] /= l_safe;
+  const size_t row = (size_t)(b * T + i) * H + h0 + g;
+  store_half<W>(out + row * D, acc, c, D, 1.f);
+  if (c == 0) lse[row] = mx + logf(l_safe);
+}
+
+// Grid: B * ceil(H / G) blocks; block: FC_CS*G*T threads rounded up to a
+// warp.  Dynamic shared memory: the q, k, v and dO tiles of G heads, T rows
+// of FC_RS floats each, then the (p, ds) pairs [G, T, T | 1].
+template <class W>
+__global__ void __launch_bounds__(FC_THREADS) flash_bwd_fused64_kernel(
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const W* __restrict__ out,
+    const W* __restrict__ dout, const float* __restrict__ lse,
+    const int* __restrict__ lengths, W* __restrict__ dq,
+    W* __restrict__ dk, W* __restrict__ dv, int T, int H, int D,
+    int G, int causal, float scale) {
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) float fc_smem[];
+  const int groups = (H + G - 1) / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * G;
+  const int gh = min(G, H - h0);  // heads of this block
+  const int LP = T | 1;  // odd: a warp's 16 rows, 2 lanes each, 32 banks
+  const int plane = G * T * FC_RS;
+  float* const qs = fc_smem;
+  float* const ks = qs + plane;
+  float* const vs = ks + plane;
+  float* const os = vs + plane;  // dO
+  float2* const pds = reinterpret_cast<float2*>(os + plane);
+  {
+    float* const dst[4] = {qs, ks, vs, os};
+    const W* const src[4] = {q, k, v, dout};
+    stage_heads<4, FC_DP, FC_BWD_STAGE_U, W>(dst, src, b, h0, gh, T, H, D);
+  }
+
+  // thread -> (row slot r = (head g, row i), column half c); phase 1 reads
+  // i as a query row and takes every key, phase 2 as a key row and takes
+  // every query.  A dead slot (past gh*T) has no work but takes part in
+  // the shuffles.
+  const int c = threadIdx.x % FC_CS, r = threadIdx.x / FC_CS;
+  const bool live = r < gh * T;
+  const int g = live ? r / T : 0, i = live ? r - g * T : 0;
+  const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
+  const size_t row = (size_t)(b * T + i) * H + h0 + g;
+  const float* const kh = ks + g * T * FC_RS;
+  const float* const vh = vs + g * T * FC_RS;
+  const float* const qh = qs + g * T * FC_RS;
+  const float* const oh = os + g * T * FC_RS;
+  float2* const pdh = pds + g * T * LP;
+
+  // phase 1, query row i: delta_i, then for each key s_ij, p_ij (masked
+  // before the exponential: a row of no valid key has lse about -1e30),
+  // dp_ij and ds_ij, written as the pair (p, ds) by the row's two lanes;
+  // the thread's half of dq_i accumulated
+  {
+    float yr[FC_HALF];  // out_i's half, read in place while the copies land
+#pragma unroll
+    for (int m = 0; m < FC_HALF / 4; ++m) {
+      const float4 x = live && half_col(m, c) < D
+                           ? ld4w(out + row * D + half_col(m, c))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      yr[4 * m] = x.x;
+      yr[4 * m + 1] = x.y;
+      yr[4 * m + 2] = x.z;
+      yr[4 * m + 3] = x.w;
+    }
+    const float lse_i = live ? lse[row] : 0.f;
+    const int nk = !live ? 0 : causal ? min(len, i + 1) : len;  // j < nk
+    const int nwarp = static_cast<int>(__reduce_max_sync(FULL, nk));
+    cp_async_wait_all();
+    __syncthreads();
+    float qr[FC_HALF], dor[FC_HALF], acc[FC_HALF];
+    load_half(qr, qh + i * FC_RS, c);
+    load_half(dor, oh + i * FC_RS, c);
+    float delta;
+    {
+      float a0 = 0.f, a1 = 0.f;  // dot_half's two chains
+#pragma unroll
+      for (int m = 0; m < FC_HALF / 4; m += 2) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a0 = fmaf(dor[4 * m + e], yr[4 * m + e], a0);
+          a1 = fmaf(dor[4 * m + 4 + e], yr[4 * m + 4 + e], a1);
+        }
+      }
+      delta = a0 + a1;
+    }
+    delta += __shfl_xor_sync(FULL, delta, 1);
+#pragma unroll
+    for (int e = 0; e < FC_HALF; ++e) acc[e] = 0.f;
+#pragma unroll 2
+    for (int j = 0; j < nwarp; ++j) {
+      const float* kr = kh + j * FC_RS;
+      float sc = dot_half(qr, kr, c);
+      float dp = dot_half(dor, vh + j * FC_RS, c);
+      sc += __shfl_xor_sync(FULL, sc, 1);
+      dp += __shfl_xor_sync(FULL, dp, 1);
+      const bool valid = j < nk;
+      const float p = valid ? ex2((sc * scale - lse_i) * LOG2E) : 0.f;
+      const float ds = p * (dp - delta);
+      axpy_half(acc, ds, kr, c);
+      if (valid) reinterpret_cast<float*>(pdh + i * LP + j)[c] = c ? ds : p;
+    }
+    if (live) store_half<W>(dq + row * D, acc, c, D, scale);
+  }
+  __syncthreads();
+
+  // phase 2, key row j = i: dv_j = sum_i p_ij dO_i and dk_j = sum_i ds_ij
+  // q_i over the queries that phase 1 scored against it (the same mask),
+  // ascending; the pairs read down column j
+  {
+    const int j = i;
+    const bool keys = live && j < len;
+    const int lo = causal ? j : 0;
+    const int wlo = static_cast<int>(__reduce_min_sync(FULL, keys ? lo : T));
+    const int whi = static_cast<int>(__reduce_max_sync(FULL, keys ? T : 0));
+    float dka[FC_HALF], dva[FC_HALF];
+#pragma unroll
+    for (int e = 0; e < FC_HALF; ++e) dka[e] = dva[e] = 0.f;
+#pragma unroll 2
+    for (int qi = wlo; qi < whi; ++qi) {
+      const bool valid = keys && qi >= lo;
+      const float2 x = valid ? pdh[qi * LP + j] : make_float2(0.f, 0.f);
+      axpy_half(dva, x.x, oh + qi * FC_RS, c);
+      axpy_half(dka, x.y, qh + qi * FC_RS, c);
+    }
+    if (live) {
+      store_half<W>(dk + row * D, dka, c, D, scale);
+      store_half<W>(dv + row * D, dva, c, D, 1.f);
+    }
+  }
+}
+
 int threads_per_row(int D) {
   int t = 1;
   while (t * DS < D) t <<= 1;
@@ -880,93 +1248,104 @@ dim3 grid_of(int B, int T, int H, int D) {
   return dim3(B * H, (T + rows - 1) / rows);
 }
 
-// The fused forward's geometry: G, the most heads (a power of two) that
-// keep a block within FT_THREADS threads and FT_SMEM bytes.
-struct FusedGeometry {
-  int g, threads, smem;
-};
+constexpr int CARD_SMEM = 227 * 1024;  // shared memory a block may use
 
-bool fused_shape(int T, int D) { return T <= FT_TMAX && D <= FT_DMAX; }
-
-FusedGeometry fused_geometry(int T, int H, int D) {
-  const int head = 3 * 4 * T * ((D <= 16 ? 16 : 32) + FT_PAD);
-  FusedGeometry f;
-  f.g = 1;
-  while (2 * f.g <= H && 2 * f.g * FT_KS * T <= FT_THREADS &&
-         2 * f.g * head <= FT_SMEM)
-    f.g *= 2;
-  f.threads = (f.g * FT_KS * T + 31) / 32 * 32;
-  f.smem = f.g * head;
-  return f;
+// The dynamic shared memory of a fused block of G heads, by the kernels'
+// layouts above: float32 tiles of the staged tensors (3 forward, 4
+// backward) with rows of DP + FT_PAD floats, then the forward's scores
+// (D > 32) or the backward's P and dS.
+int fused_smem(bool bwd, int T, int D, int G) {
+  if (D > FT_DMAX)
+    return 4 * G * T * ((bwd ? 4 : 3) * FC_RS + (bwd ? 2 : 1) * (T | 1));
+  const int rs = (D <= 16 ? 16 : 32) + FT_PAD;
+  return 4 * G * T * (bwd ? FB_PLANES * rs + 2 * bwd_ld(T) : 3 * rs);
 }
 
-// The fused backward's geometry (flash_bwd_plan in the wrapper): G, the
-// most heads (a power of two) that keep a block within FB_THREADS threads
-// and FB_SMEM bytes; one head always fits (T <= 64, D <= 32: 78 KB).
-FusedGeometry bwd_geometry(int T, int H, int D) {
-  const int head =
-      4 * (FB_PLANES * T * ((D <= 16 ? 16 : 32) + FT_PAD) + 2 * T * bwd_ld(T));
-  FusedGeometry f;
-  f.g = 1;
-  while (2 * f.g <= H && 2 * f.g * FB_KS * T <= FB_THREADS &&
-         2 * f.g * head <= FB_SMEM)
-    f.g *= 2;
-  f.threads = (f.g * FB_KS * T + 31) / 32 * 32;
-  f.smem = f.g * head;
-  return f;
+// A fused launch as the wrapper planned it (flash_attention.py:
+// flash_fwd_plan, flash_bwd_plan choose G, the threads and the bytes; this
+// file chooses nothing): refused unless its threads cover two a row of G
+// heads within the kernel's launch bounds and its bytes cover the layout
+// within what a block may use.
+bool fused_plan_ok(bool bwd, int T, int H, int D, int G, int threads,
+                   int smem) {
+  const int most = D > FT_DMAX ? FC_THREADS : bwd ? FB_THREADS : FT_THREADS;
+  return T <= FT_TMAX && D <= FC_DP && G >= 1 && G <= H &&
+         threads % 32 == 0 && threads >= 2 * G * T && threads <= most &&
+         smem >= fused_smem(bwd, T, D, G) && smem <= CARD_SMEM;
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// Dynamic shared memory above 48 KB must be allowed per kernel.
-template <int DP, class W>
-cudaError_t launch_bwd(const FusedGeometry& f, int B, const void* q,
-                       const void* k, const void* v, const void* out,
-                       const void* dout, const float* lse,
-                       const int* lengths, void* dq, void* dk, void* dv,
-                       int T, int H, int D, int causal, float scale,
-                       cudaStream_t st) {
-  if (f.smem > 48 * 1024) {
+// One launch of a fused kernel; dynamic shared memory above 48 KB must be
+// allowed per kernel first.
+template <class... P, class... A>
+cudaError_t launch_fused(void (*kernel)(P...), int blocks, int threads,
+                         int smem, cudaStream_t st, A... args) {
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_fused_kernel<DP, W>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, f.smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(B * ((H + f.g - 1) / f.g));
-  flash_bwd_fused_kernel<DP, W><<<grid, f.threads, f.smem, st>>>(
-      static_cast<const W*>(q), static_cast<const W*>(k),
-      static_cast<const W*>(v), static_cast<const W*>(out),
-      static_cast<const W*>(dout), lse, lengths, static_cast<W*>(dq),
-      static_cast<W*>(dk), static_cast<W*>(dv), T, H, D, f.g, causal, scale);
+  kernel<<<blocks, threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
 template <class W>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* lengths, void* out, float* lse, int B,
-                       int T, int H, int D, int causal, float scale,
-                       cudaStream_t st, int fused) {
+                       int T, int H, int D, int causal, float scale, int G,
+                       int threads, int smem, cudaStream_t st) {
   const W* qw = static_cast<const W*>(q);
   const W* kw = static_cast<const W*>(k);
   const W* vw = static_cast<const W*>(v);
   W* ow = static_cast<W*>(out);
-  if (fused) {
-    const FusedGeometry f = fused_geometry(T, H, D);
-    const dim3 grid(B * ((H + f.g - 1) / f.g));
-    if (D <= 16)
-      flash_fwd_fused_kernel<16, W><<<grid, f.threads, f.smem, st>>>(
-          qw, kw, vw, lengths, ow, lse, T, H, D, f.g, causal, scale);
-    else
-      flash_fwd_fused_kernel<32, W><<<grid, f.threads, f.smem, st>>>(
-          qw, kw, vw, lengths, ow, lse, T, H, D, f.g, causal, scale);
+  if (G == 0) {
+    flash_fwd_kernel<W><<<grid_of(B, T, H, D), NT, 0, st>>>(
+        qw, kw, vw, lengths, ow, lse, T, H, D, threads_per_row(D), causal,
+        scale);
     return cudaGetLastError();
   }
-  flash_fwd_kernel<W><<<grid_of(B, T, H, D), NT, 0, st>>>(
-      qw, kw, vw, lengths, ow, lse, T, H, D, threads_per_row(D), causal,
-      scale);
-  return cudaGetLastError();
+  const int blocks = B * ((H + G - 1) / G);
+  return D <= 16   ? launch_fused(flash_fwd_fused_kernel<16, W>, blocks,
+                                  threads, smem, st, qw, kw, vw, lengths, ow,
+                                  lse, T, H, D, G, causal, scale)
+         : D <= 32 ? launch_fused(flash_fwd_fused_kernel<32, W>, blocks,
+                                  threads, smem, st, qw, kw, vw, lengths, ow,
+                                  lse, T, H, D, G, causal, scale)
+                   : launch_fused(flash_fwd_fused64_kernel<W>, blocks,
+                                  threads, smem, st, qw, kw, vw, lengths, ow,
+                                  lse, T, H, D, G, causal, scale);
+}
+
+template <class W>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, const float* lse,
+                       const int* lengths, void* dq, void* dk, void* dv,
+                       int B, int T, int H, int D, int causal, float scale,
+                       int G, int threads, int smem, cudaStream_t st) {
+  const W* qw = static_cast<const W*>(q);
+  const W* kw = static_cast<const W*>(k);
+  const W* vw = static_cast<const W*>(v);
+  const W* ow = static_cast<const W*>(out);
+  const W* gw = static_cast<const W*>(dout);
+  W* dqw = static_cast<W*>(dq);
+  W* dkw = static_cast<W*>(dk);
+  W* dvw = static_cast<W*>(dv);
+  const int blocks = B * ((H + G - 1) / G);
+  return D <= 16   ? launch_fused(flash_bwd_fused_kernel<16, W>, blocks,
+                                  threads, smem, st, qw, kw, vw, ow, gw, lse,
+                                  lengths, dqw, dkw, dvw, T, H, D, G, causal,
+                                  scale)
+         : D <= 32 ? launch_fused(flash_bwd_fused_kernel<32, W>, blocks,
+                                  threads, smem, st, qw, kw, vw, ow, gw, lse,
+                                  lengths, dqw, dkw, dvw, T, H, D, G, causal,
+                                  scale)
+                   : launch_fused(flash_bwd_fused64_kernel<W>, blocks,
+                                  threads, smem, st, qw, kw, vw, ow, gw, lse,
+                                  lengths, dqw, dkw, dvw, T, H, D, G, causal,
+                                  scale);
 }
 
 }  // namespace
@@ -980,20 +1359,28 @@ const char* gic_error_string(int err) {
 // q, k, v [B, T, H, D] contiguous, float32 or (bf16 = 1) bfloat16; lengths
 // [B] int32 or null.  Outputs out [B, T, H, D] in the inputs' type and lse
 // [B, T, H] float32.  Each function returns 0 or the CUDA error code of
-// its launch; nothing synchronises.  The forward launches the fused kernel
-// where T <= FT_TMAX and D <= 32 (q, k, v and out 16-byte aligned), else
-// the tiled one, and writes which to *fused (1 or 0).
+// its launch; nothing synchronises.  The forward launches the tiled kernel
+// where G is 0, else the fused one on the wrapper's plan (G heads a block,
+// `threads`, `smem` bytes; T <= FT_TMAX, D <= FC_DP, q, k, v and out
+// 16-byte aligned): a plan that fused_plan_ok refuses gives
+// cudaErrorInvalidValue and launches nothing.
 int gic_flash_fwd(const void* q, const void* k, const void* v,
                   const int* lengths, void* out, float* lse, int B, int T,
-                  int H, int D, int causal, float scale, int bf16_,
-                  void* stream, int* fused) {
+                  int H, int D, int causal, float scale, int G, int threads,
+                  int smem, int bf16_, void* stream) {
   if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
+  if (G != 0) {
+    if (!fused_plan_ok(false, T, H, D, G, threads, smem))
+      return cudaErrorInvalidValue;
+    const void* const ptrs[] = {q, k, v, out};
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  *fused = fused_shape(T, D);
   return bf16_ ? launch_fwd<bf16>(q, k, v, lengths, out, lse, B, T, H, D,
-                                  causal, scale, st, *fused)
+                                  causal, scale, G, threads, smem, st)
                : launch_fwd<float>(q, k, v, lengths, out, lse, B, T, H, D,
-                                   causal, scale, st, *fused);
+                                   causal, scale, G, threads, smem, st);
 }
 
 // dout [B, T, H, D] in the inputs' type; lse, delta [B, T, H] float32 ->
@@ -1044,36 +1431,29 @@ int gic_flash_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The fused backward (T <= FT_TMAX, D <= 32): out, dout [B, T, H, D] and
-// lse [B, T, H] as the forward wrote it -> dq, dk, dv [B, T, H, D], delta
-// included, in one launch, in the inputs' type.  (G, threads, smem) is the
-// caller's plan (flash_bwd_plan); one that differs from bwd_geometry,
-// another shape, or a pointer of the eight tensors that is not 16-byte
-// aligned gives cudaErrorInvalidValue and launches nothing.
+// The fused backward (T <= FT_TMAX, D <= FC_DP): out, dout [B, T, H, D]
+// and lse [B, T, H] as the forward wrote it -> dq, dk, dv [B, T, H, D],
+// delta included, in one launch, in the inputs' type, on the wrapper's
+// plan (G, threads, smem).  A plan that fused_plan_ok refuses, another
+// shape, or a pointer of the eight tensors that is not 16-byte aligned
+// gives cudaErrorInvalidValue and launches nothing.
 int gic_flash_bwd(const void* q, const void* k, const void* v,
                   const void* out, const void* dout, const float* lse,
                   const int* lengths, void* dq, void* dk, void* dv, int B,
                   int T, int H, int D, int causal, float scale, int G,
                   int threads, int smem, int bf16_, void* stream) {
-  if (bad_shape(B, T, H, D) || !fused_shape(T, D)) return cudaErrorInvalidValue;
-  const FusedGeometry f = bwd_geometry(T, H, D);
-  if (f.g != G || f.threads != threads || f.smem != smem)
+  if (bad_shape(B, T, H, D) || !fused_plan_ok(true, T, H, D, G, threads, smem))
     return cudaErrorInvalidValue;
   const void* const ptrs[] = {q, k, v, out, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (!aligned16(p)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16_)
-    return D <= 16
-               ? launch_bwd<16, bf16>(f, B, q, k, v, out, dout, lse, lengths,
-                                      dq, dk, dv, T, H, D, causal, scale, st)
-               : launch_bwd<32, bf16>(f, B, q, k, v, out, dout, lse, lengths,
-                                      dq, dk, dv, T, H, D, causal, scale, st);
-  return D <= 16
-             ? launch_bwd<16, float>(f, B, q, k, v, out, dout, lse, lengths,
-                                     dq, dk, dv, T, H, D, causal, scale, st)
-             : launch_bwd<32, float>(f, B, q, k, v, out, dout, lse, lengths,
-                                     dq, dk, dv, T, H, D, causal, scale, st);
+  return bf16_ ? launch_bwd<bf16>(q, k, v, out, dout, lse, lengths, dq, dk,
+                                  dv, B, T, H, D, causal, scale, G, threads,
+                                  smem, st)
+               : launch_bwd<float>(q, k, v, out, dout, lse, lengths, dq, dk,
+                                   dv, B, T, H, D, causal, scale, G, threads,
+                                   smem, st);
 }
 
 }  // extern "C"

@@ -10,14 +10,15 @@ with or without per-sequence key lengths — and its gradient, without a
   whose forward launches the forward kernel (``csrc/flash_attention.cu``,
   built at first use; it also writes the logsumexp ``lse [B, T, H]``) and
   whose backward is :func:`flash_bwd`.  The forward is one launch of one
-  of two kernels, which the C side picks from the shape alone: the fused
-  one, whole heads of q, k and v in shared memory (T ≤ 64 and D ≤ 32:
-  every call the system makes), or the tiled one; ``flash_fwd.last_kernel``
-  says which it launched.  The backward at those shapes is one launch of
-  the fused backward (delta, dQ, dK and dV of whole heads, planned by
-  :func:`flash_bwd_plan`); at other shapes it is ``delta = Σ dO∘O`` as one
-  PyTorch reduction, as the JAX package leaves it to XLA, then the tiled
-  dQ and dK/dV kernels; ``flash_bwd.last_kernel`` says which.  A shape the
+  of two kernels, which :func:`flash_fwd_plan` picks from the shape alone:
+  the fused one, whole heads of q, k and v in shared memory (T ≤ 64 and
+  D ≤ 64: every call the system makes), or the tiled one;
+  ``flash_fwd.last_kernel`` says which it launched.  The backward at those
+  shapes is one launch of the fused backward (delta, dQ, dK and dV of whole
+  heads, planned by :func:`flash_bwd_plan`); at other shapes it is
+  ``delta = Σ dO∘O`` as one PyTorch reduction, as the JAX package leaves
+  it to XLA, then the tiled dQ and dK/dV kernels;
+  ``flash_bwd.last_kernel`` says which.  A shape the
   kernels do not take (:func:`supported`), or a q, k, v, out or dO that is
   not 16-byte aligned (a view at an odd offset; PyTorch allocates on 256
   bytes), raises.
@@ -166,8 +167,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_gic_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [
-            f, i, vp, ctypes.POINTER(i)]
+        lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [f] + [i] * 4 + [
+            vp]
         lib.gic_flash_dq.argtypes = [vp] * 8 + [i] * 5 + [f, i, vp]
         lib.gic_flash_dkv.argtypes = [vp] * 9 + [i] * 5 + [f, i, vp]
         lib.gic_flash_bwd.argtypes = [vp] * 10 + [i] * 5 + [f] + [i] * 4 + [
@@ -198,42 +199,86 @@ def _check(name, t, shape, device, dtype=None):
     build.check_tensor("flash_attention", name, t, shape, device, dtype)
 
 
-# csrc/flash_attention.cu's fused backward: shapes up to FT_TMAX rows and
-# FT_DMAX columns a head; a block of G heads within FB_THREADS threads and
-# FB_SMEM bytes, FB_KS threads a row, rows padded by FT_PAD floats, q, k, v
-# and dO staged (FB_PLANES tiles; out is read in place) beside the P and dS
-# tiles.
-FT_TMAX, FT_DMAX, FT_PAD = 64, 32, 4
-FB_THREADS, FB_SMEM, FB_KS, FB_PLANES = 256, 96 * 1024, 2, 4
+# The fused kernels' launch plans.  They are made here, from the shape
+# alone, and nowhere else: csrc/flash_attention.cu launches the plan it is
+# given after checking it against its layouts and the card (fused_plan_ok).
+# The fused kernels take T <= FT_TMAX.  Up to FT_DMAX columns a head, two
+# threads a row each take every other key (the key-slice kernels; a staged
+# row holds dp = 16 or 32 columns); up to FC_DP, two threads a row each
+# take half its columns and every key (the column-half kernels, dp = 64).
+# Rows are staged as float32 with FT_PAD floats after each.
+FT_TMAX, FT_DMAX, FC_DP, FT_PAD, SLICES = 64, 32, 64, 4, 2
+# most threads a block (each kernel's launch bounds) and the budget of
+# shared memory a block within which G doubles, by direction and design;
+# the column-half kernels' budgets give config5's [·, 37, 12, 64] two heads
+# a forward block (3 blocks an SM) and one a backward block (4 an SM:
+# faster than two heads, 2 an SM, by scripts/flash_fused64_variants.py)
+BUDGETS = {("fwd", "keys"): (512, 48 * 1024),
+           ("bwd", "keys"): (256, 96 * 1024),
+           ("fwd", "columns"): (256, 80 * 1024),
+           ("bwd", "columns"): (256, 64 * 1024)}
+
+
+def _fused_head(kind: str, T: int, D: int) -> dict:
+    """One head's layout in a fused block: ``dp`` (columns a staged row
+    holds), ``split`` (what a row's two threads divide: ``"keys"`` or
+    ``"columns"``), ``ld`` (the row stride of the backward's P and dS
+    tiles, or of the column-half kernels' scores or (p, ds) pairs, in
+    their elements) and ``smem`` (bytes)."""
+    if D > FT_DMAX:
+        ld = T | 1            # odd: a warp's 16 rows write 16 banks
+        planes, extra = (4, 2) if kind == "bwd" else (3, 1)
+        return {"dp": FC_DP, "split": "columns", "ld": ld,
+                "smem": 4 * T * (planes * (FC_DP + FT_PAD) + extra * ld)}
+    dp = 16 if D <= 16 else 32
+    if kind == "fwd":
+        return {"dp": dp, "split": "keys", "ld": None,
+                "smem": 4 * 3 * T * (dp + FT_PAD)}
+    ld = T + (2 - T) % 4      # LD % 4 == 2: phase 1's writes
+    return {"dp": dp, "split": "keys", "ld": ld,
+            "smem": 4 * T * (4 * (dp + FT_PAD) + 2 * ld)}
+
+
+def _plan(kind: str, T: int, H: int, D: int) -> dict:
+    if T < 1 or H < 1 or D < 8 or not supported(T, D):
+        raise ValueError(f"flash_{kind}_plan: unsupported shape T={T} "
+                         f"H={H} D={D}")
+    if T > FT_TMAX or D > FC_DP:
+        return {"route": "tiled"}
+    head = _fused_head(kind, T, D)
+    most, budget = BUDGETS[(kind, head["split"])]
+    g = 1
+    while (2 * g <= H and 2 * g * SLICES * T <= most
+           and 2 * g * head["smem"] <= budget):
+        g *= 2
+    return {"route": "fused", "heads": g,
+            "threads": -(-g * SLICES * T // 32) * 32,
+            "smem": g * head["smem"], "dp": head["dp"],
+            "split": head["split"], "ld": head["ld"], "slices": SLICES,
+            "most_threads": most}
+
+
+@functools.lru_cache(maxsize=64)
+def flash_fwd_plan(T: int, H: int, D: int) -> dict:
+    """The forward's route for ``[·, T, H, D]``, from the shape alone:
+    ``"fused"`` (T ≤ 64 and D ≤ 64) with ``heads`` (G, the most heads, a
+    power of two, that keep a block of one batch row within its design's
+    thread and shared-memory budgets in ``BUDGETS``), ``threads``,
+    ``smem`` (bytes: the q, k and v tiles of G heads, rows of ``dp`` +
+    ``FT_PAD`` floats, and at D > 32 the scores ``[G, T, ld]``), ``dp``,
+    ``split``, ``ld``, ``slices`` (threads a row) and ``most_threads`` (the
+    kernel's launch bounds); or ``"tiled"``.  Raises ValueError for a
+    shape no kernel takes."""
+    return _plan("fwd", T, H, D)
 
 
 @functools.lru_cache(maxsize=64)
 def flash_bwd_plan(T: int, H: int, D: int) -> dict:
-    """The backward's route for ``[·, T, H, D]``, from the shape alone:
-    ``"fused"`` (T ≤ 64 and D ≤ 32) with ``heads`` (G, the most heads, a
-    power of two, that keep a block of one batch row within ``FB_THREADS``
-    threads and ``FB_SMEM`` bytes of shared memory), ``threads``, ``smem``
-    (bytes: the q, k, v and dO tiles of G heads, rows of ``dp`` +
-    ``FT_PAD`` floats, and the P and dS tiles ``[G, T, ld]``), ``dp`` (the
-    columns a staged row holds), ``ld`` and ``slices`` (threads a row); or
-    ``"tiled"``.  The C side recomputes the geometry (``bwd_geometry``) and
-    refuses a launch that differs.  Raises ValueError for a shape no kernel
-    takes."""
-    if T < 1 or H < 1 or D < 8 or not supported(T, D):
-        raise ValueError(f"flash_bwd_plan: unsupported shape T={T} H={H} "
-                         f"D={D}")
-    if T > FT_TMAX or D > FT_DMAX:
-        return {"route": "tiled"}
-    dp = 16 if D <= 16 else 32
-    ld = T + (2 - T) % 4             # LD % 4 == 2: phase 1's writes
-    head = 4 * (FB_PLANES * T * (dp + FT_PAD) + 2 * T * ld)
-    g = 1
-    while (2 * g <= H and 2 * g * FB_KS * T <= FB_THREADS
-           and 2 * g * head <= FB_SMEM):
-        g *= 2
-    return {"route": "fused", "heads": g,
-            "threads": -(-g * FB_KS * T // 32) * 32, "smem": g * head,
-            "dp": dp, "ld": ld, "slices": FB_KS}
+    """The backward's route for ``[·, T, H, D]``, as
+    :func:`flash_fwd_plan` plans the forward: ``"fused"`` (T ≤ 64 and D ≤
+    64; the tiles are q, k, v and dO, then P and dS ``[G, T, ld]``, or at
+    D > 32 the (p, ds) pairs ``[G, T, ld]``) or ``"tiled"``."""
+    return _plan("bwd", T, H, D)
 
 
 def _validate(q, k, v, lengths):
@@ -263,23 +308,26 @@ def _validate(q, k, v, lengths):
 
 
 def flash_fwd(q, k, v, causal: bool, lengths=None):
-    """The forward kernel → ``(out [B, T, H, D], lse [B, T, H])``.
-    ``flash_fwd.last_kernel`` names the kernel the C side launched:
+    """The forward kernel → ``(out [B, T, H, D], lse [B, T, H])``, on
+    :func:`flash_fwd_plan`'s route.  ``flash_fwd.last_kernel`` names it:
     ``"fused"`` or ``"tiled"``."""
     b, t, h, d, dtype = _validate(q, k, v, lengths)
     device = q.device
+    plan = flash_fwd_plan(t, h, d)
+    fused = plan["route"] == "fused"
     out = torch.empty_like(q)
     lse = torch.empty((b, t, h), dtype=torch.float32, device=device)
     lib = _library()
-    fused = ctypes.c_int(0)
     with torch.cuda.device(device):
         rc = lib.gic_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                _ptr(lengths), out.data_ptr(), lse.data_ptr(),
                                b, t, h, d, int(causal), 1.0 / math.sqrt(d),
-                               int(dtype == torch.bfloat16), _stream(device),
-                               ctypes.byref(fused))
+                               plan["heads"] if fused else 0,
+                               plan["threads"] if fused else 0,
+                               plan["smem"] if fused else 0,
+                               int(dtype == torch.bfloat16), _stream(device))
     build.raise_on_error(lib, rc, "flash_attention forward")
-    flash_fwd.last_kernel = "fused" if fused.value else "tiled"
+    flash_fwd.last_kernel = plan["route"]
     _count(flash_fwd, dtype)
     return out, lse
 

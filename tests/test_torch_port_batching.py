@@ -31,6 +31,8 @@ from gan_image_captioning_tpu_torch.data import loader as tloader
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 
 class VarLenDataset:
     """Captions of many lengths, some past the width (the truncation

@@ -29,6 +29,8 @@ from gan_image_captioning_tpu_torch.data.vocab import END, PAD
 from gan_image_captioning_tpu_torch.eval import decode as tdecode
 from gan_image_captioning_tpu_torch.eval.metrics import strip_caption
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B = 4
 PEAK = 8.0
 SCORE_ATOL = 1e-5

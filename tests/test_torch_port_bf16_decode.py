@@ -45,6 +45,8 @@ from gan_image_captioning_tpu_torch.interop import (generator_from_jax,
                                                     qdec_from_jax)
 from gan_image_captioning_tpu_torch.kernels import decode_sample as tks
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, H, E = 4, 8, 256, 32, 32
 UNIT = 2.0 ** -8           # one bfloat16 rounding, relative
 F32_UNITS, BF16_UNITS, STEPPER_UNITS = 1, 2, 4

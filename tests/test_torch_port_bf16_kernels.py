@@ -31,6 +31,8 @@ from gan_image_captioning_tpu_torch.kernels import disc_conv
 from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
     lstm_bptt_chain, lstm_bptt_reverse)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 T, B, H = 6, 3, 16
 BF = torch.bfloat16
 F32 = dict(atol=1e-5, rtol=1e-5)

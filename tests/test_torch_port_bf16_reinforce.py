@@ -58,6 +58,8 @@ from torch_bf16_parity import (B, BF, F32_FLOOR, V, env,  # noqa: F401
                                sample_uniforms, setup, spy_dtypes,
                                value_misses)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 # config3's models at small width (the LSTM generator, the CNN
 # discriminator), as tests/test_torch_port_bf16_steps.py builds them
 LSTM_KW = dict(gen_arch="lstm", disc_arch="cnn", gen_embed_dim=8,
@@ -67,6 +69,17 @@ LSTM_KW = dict(gen_arch="lstm", disc_arch="cnn", gen_embed_dim=8,
 # the discriminator the generator's side is held under (module docstring)
 SHARP = dict(disc_init="normal")
 DISC_GAIN = 10.0
+
+
+@pytest.fixture(autouse=True)
+def own_jax_states(monkeypatch):
+    """``torch_bf16_parity.jax_state`` caches a JAX initial state per
+    architecture and seed, not per ``disc_init``: the states drawn here
+    (``SHARP``) are kept apart from those another file on the same worker
+    drew with the default initialization, in both directions."""
+    import torch_bf16_parity
+
+    monkeypatch.setattr(torch_bf16_parity, "_JSTATES", {})
 
 
 def _noise(config, route, key):

@@ -76,6 +76,8 @@ from gan_image_captioning_tpu_torch.kernels import build as kbuild
 from gan_image_captioning_tpu_torch.models import api as tapi
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, V, TEMP = 4, 32, 2.0
 UNIT = 2.0 ** -8
 LOSS_UNITS, GRAD_UNITS, PARAM_UNITS = 4, 16, 2

@@ -43,6 +43,8 @@ from torch_bf16_parity import (B, BF, TEMP, bf16_pair, env, grad_misses,  # noqa
                                jax_adv, keeps, replay_ids, sample_uniforms,
                                setup, spy_dtypes, steps_apart, value_misses)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 MASKS = [(True, True), (True, False), (False, False), (False, True)]
 
 

@@ -42,6 +42,8 @@ from gan_image_captioning_tpu_torch.models import api as tapi
 from gan_image_captioning_tpu_torch.train.checkpoint import (
     save_generator_checkpoint)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 MERGES = ["t h", "th e", "a n", "an d", "i n", "Ġ th", "Ġth e", "o n", "e r",
           "Ġ a", "r e", "Ġ and", "Ġ c", "Ġc a", "Ġca t"]
 TEXTS = ["the man and the dog", "a cat, on the mat!", "it's the 42nd time",

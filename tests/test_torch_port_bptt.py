@@ -16,6 +16,8 @@ from gan_image_captioning_tpu.kernels.lstm_bptt import (
 from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
     lstm_bptt_chain, lstm_bptt_chain_plain)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 T, B, H = 6, 3, 16
 
 

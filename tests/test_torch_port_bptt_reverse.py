@@ -31,6 +31,8 @@ from gan_image_captioning_tpu_torch.kernels import lstm_bptt
 from gan_image_captioning_tpu_torch.models import lstm as tlstm
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 T, B, H, E, NL = 7, 3, 16, 8, 2
 TOL = dict(atol=1e-5, rtol=1e-4)
 

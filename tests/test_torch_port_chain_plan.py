@@ -24,6 +24,8 @@ from gan_image_captioning_tpu_torch.kernels import lstm_bptt
 from gan_image_captioning_tpu_torch.ops.quantize import (
     quantize, quantize_packed_int4)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 N_SM, SMEM = 132, 232448          # H100 SXM: SMs, opt-in bytes per block
 V3 = 11008
 

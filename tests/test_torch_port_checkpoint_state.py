@@ -48,6 +48,8 @@ from gan_image_captioning_tpu_torch.train.steps import (batch_to,
                                                         make_adv_step,
                                                         make_mle_step)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 
 @pytest.fixture
 def no_state_shardings():

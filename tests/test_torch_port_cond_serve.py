@@ -31,6 +31,8 @@ from gan_image_captioning_tpu_torch import serve
 from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MINI = os.path.join(REPO, "data", "mini_coco")
 E, H, S, MAX_LEN, CPI = 32, 32, 32, 8, 5

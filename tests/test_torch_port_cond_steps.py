@@ -33,6 +33,8 @@ from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.state import (create_train_state,
                                                         trainable_parameters)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, V, S, TEMP, FLIP = 8, 40, 32, 2.0, 0.25
 KW = dict(vocab_size=V, gen_embed_dim=16, gen_hidden_dim=16, gen_num_layers=2,
           max_seq_len=4, disc_embed_dim=8, disc_num_rep=4,

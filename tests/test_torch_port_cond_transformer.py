@@ -44,6 +44,8 @@ from gan_image_captioning_tpu_torch.models import transformer as ttf
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, V, P, S = 4, 48, 4, 64
 PEAK = 8.0
 DEC = dict(vocab_size=V, gen_arch="transformer", gen_embed_dim=64,

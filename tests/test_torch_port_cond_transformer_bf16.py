@@ -45,6 +45,8 @@ from torch_bf16_parity import (B, BF, F32_FLOOR, GRAD_UNITS, TEMP, V,  # noqa: F
                                env, f32, jax_adv, keeps, miss,
                                sample_uniforms, spy_dtypes, value_misses)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 SIZE = {"resnet18": 64, "vit": 32}
 VIT_DEPTH = 2
 KW = dict(vocab_size=V, gen_arch="transformer", disc_arch="cnn",

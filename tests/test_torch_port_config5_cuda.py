@@ -1,6 +1,6 @@
-"""The kernels at preset config5's shapes on the card: the tiled flash
-route at GPT-2-small's head dim (D = 64 > the fused kernels' 32: the tiled
-forward, dQ and dK/dV) at the MLE pass's [64, 37, 12, 64], and the Gumbel
+"""The kernels at preset config5's shapes on the card: the fused flash
+kernels at GPT-2-small's head dim (D = 64: the column-half forward and the
+one-launch backward) at the MLE pass's [64, 37, 12, 64], and the Gumbel
 sampler at GPT-2's vocabulary with the 4 specials, [64, 50261] (the scalar
 cluster path: V % 4 != 0, and the last CTA's slice runs past V).  Every
 test skips without CUDA.  This file imports torch and the port only:
@@ -54,15 +54,20 @@ def _close(got, want, dtype, what):
 
 
 def test_gpt2_head_dim_takes_the_tiled_route():
-    plan = fa.flash_bwd_plan(SHAPE[1], SHAPE[2], SHAPE[3])
-    assert plan["route"] == "tiled"
+    """GPT-2's head dim takes the tiled route only past T = 64: at the MLE
+    pass's T = 37 both directions are fused, two heads a forward block and
+    one a backward block."""
+    t, h, d = SHAPE[1:]
+    for plan, heads in ((fa.flash_fwd_plan, 2), (fa.flash_bwd_plan, 1)):
+        assert plan(t, h, d)["route"] == "fused"
+        assert plan(t, h, d)["heads"] == heads
+        assert plan(65, h, d) == {"route": "tiled"}
     assert not fa.supported(SHAPE[1], 65)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF])
 @pytest.mark.parametrize("with_lengths", [True, False])
-def test_tiled_flash_at_gpt2_shape_matches_plain(device, dtype,
-                                                 with_lengths):
+def test_flash_at_gpt2_shape_matches_plain(device, dtype, with_lengths):
     b, t = SHAPE[:2]
     q, k, v, g = (_x(SHAPE, i, device, dtype) for i in range(4))
     lens = None
@@ -77,11 +82,11 @@ def test_tiled_flash_at_gpt2_shape_matches_plain(device, dtype,
     out, lse = fa.flash_fwd(q, k, v, True, lens)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, g, lse, True, lens)
     torch.cuda.synchronize()
-    assert fa.flash_fwd.last_kernel == "tiled"
-    assert fa.flash_bwd.last_kernel == "tiled"
+    assert fa.flash_fwd.last_kernel == "fused"
+    assert fa.flash_bwd.last_kernel == "fused"
     assert (fa.flash_fwd.launches - counts[0], fa.flash_dq.launches
             - counts[1], fa.flash_dkv.launches - counts[2],
-            fa.flash_bwd.launches - counts[3]) == (1, 1, 1, 0)
+            fa.flash_bwd.launches - counts[3]) == (1, 0, 0, 1)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, True, lens)
     _close(out, p_out, dtype, "out")
     torch.testing.assert_close(lse, p_lse, atol=1e-5, rtol=1e-5)

@@ -18,6 +18,8 @@ from gan_image_captioning_tpu_torch.data.vocab import END
 from gan_image_captioning_tpu_torch.eval import decode as tdecode
 from gan_image_captioning_tpu_torch.interop import generator_from_jax
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, H, E = 5, 8, 256, 32, 24
 
 

@@ -40,6 +40,8 @@ from gan_image_captioning_tpu_torch.models import generator as tgen
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, E, H, NL = 4, 6, 64, 8, 16, 2
 TEMP = 2.0
 VAL = dict(atol=1e-5, rtol=1e-5)

@@ -20,6 +20,8 @@ from gan_image_captioning_tpu_torch.kernels.decode_sample import (
     decode_sample, decode_sample_plain)
 from gan_image_captioning_tpu_torch.models import generator as tgen
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, H, E = 4, 8, 256, 32, 32
 
 

@@ -24,6 +24,8 @@ from gan_image_captioning_tpu_torch.kernels.decode_sample import (
     decode_sample_logits, decode_sample_noise)
 from gan_image_captioning_tpu_torch.models import generator as tgen
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, E, H, NL, ED = 4, 6, 64, 8, 16, 2, 8
 TEMP = 2.0
 VAL = dict(atol=1e-5, rtol=1e-5)

@@ -23,6 +23,8 @@ from gan_image_captioning_tpu_torch.interop import discriminator_from_jax
 from gan_image_captioning_tpu_torch.kernels import disc_conv
 from gan_image_captioning_tpu_torch.models import discriminator as tdisc
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 VAL = dict(atol=1e-5, rtol=1e-5)
 GRAD = dict(atol=1e-5, rtol=1e-4)
 

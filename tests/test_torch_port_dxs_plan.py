@@ -18,6 +18,8 @@ import torch
 
 from gan_image_captioning_tpu_torch.kernels import disc_conv
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 BANKS3 = ((300, 3), (300, 4), (300, 5))
 TEN = tuple((3 + 7 * i, 1 + i % 5) for i in range(10))
 # (Q, L, eds, banks): config3, odd sizes, more banks than one launch holds,

@@ -28,6 +28,8 @@ from gan_image_captioning_tpu_torch.interop import (encoder_from_jax,
 from gan_image_captioning_tpu_torch.models import encoder as tenc
 from gan_image_captioning_tpu_torch.models import resnet as tres
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, S, E = 8, 64, 24
 KW = dict(vocab_size=40, gen_embed_dim=E, gen_hidden_dim=16,

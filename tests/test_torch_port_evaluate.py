@@ -57,6 +57,8 @@ from gan_image_captioning_tpu_torch.train.instructor import GANInstructor
 from gan_image_captioning_tpu_torch.train.state import with_generator
 from test_torch_port_beam import peaked
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 ITEMS, BS, S = 32, 8, 32
 V = JSynthetic("train", num_items=4).vocab_size
 MODEL = dict(vocab_size=V, gen_embed_dim=16, gen_hidden_dim=16,

@@ -3,7 +3,7 @@ package's ``flash_attention`` (its Pallas kernels in interpret mode, as
 ``tests/test_flash_attention.py`` runs them) and ``attention_reference``:
 the same numpy inputs, the three masks the transformer family builds
 (causal with lengths, causal, full; and full with lengths), ragged T (35,
-37, 200), outputs and the gradients of q, k and v.  On the CPU the wrapper
+37, 200), head dims 16 and 64, outputs and the gradients of q, k and v.  On the CPU the wrapper
 runs its plain version, the dense attention that the card's kernels are
 held against.
 
@@ -22,6 +22,8 @@ from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.kernels import flash_attention as tfa
 from gan_image_captioning_tpu_torch.models import transformer as ttf
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 OUT = dict(atol=5e-6, rtol=1e-5)
 GRAD = dict(atol=2e-5, rtol=1e-4)
 MASKS = [(True, True), (True, False), (False, False), (False, True)]
@@ -38,7 +40,18 @@ def _inputs(b, t, h, d, seed):
 @pytest.mark.parametrize("t", [35, 37, 200])
 @pytest.mark.parametrize("causal,with_lengths", MASKS)
 def test_forward_and_gradients_match_jax(t, causal, with_lengths):
-    (q, k, v), lens = _inputs(2, t, 2, 16, t)
+    _match_jax(t, 16, causal, with_lengths)
+
+
+def test_forward_and_gradients_match_jax_at_gpt2_head_dim():
+    """config5's mask (causal with lengths) at GPT-2's head dim 64, the
+    column-half kernels' shapes on the card."""
+    assert tfa.flash_bwd_plan(37, 2, 64)["split"] == "columns"
+    _match_jax(37, 64, True, True)
+
+
+def _match_jax(t, d, causal, with_lengths):
+    (q, k, v), lens = _inputs(2, t, 2, d, t)
     lens = lens if with_lengths else None
     g = np.random.default_rng(1).standard_normal(q.shape).astype(np.float32)
 

@@ -1,18 +1,26 @@
-"""The fused flash-attention backward's launch plan
-(``kernels/flash_attention.py:flash_bwd_plan``) and a numpy replay of its
-kernel (``csrc/flash_attention.cu:flash_bwd_fused_kernel``), on the CPU.
+"""The fused flash-attention kernels' launch plans
+(``kernels/flash_attention.py:flash_fwd_plan`` and ``flash_bwd_plan``, the
+only place their route and G are chosen) and a numpy replay of the fused
+backward (``csrc/flash_attention.cu:flash_bwd_fused_kernel`` at D ≤ 32 and
+``flash_bwd_fused64_kernel`` at 32 < D ≤ 64), on the CPU.
 
-The plan: every (b, h, row) is owned by exactly one block and one thread
-slot in each phase, a block stays within 227 KB of shared memory and 1024
-threads, the heads a block takes respect the budgets, shapes past T = 64 or
-D = 32 go to the tiled route, and a shape no kernel takes raises.
+The plans: every (b, h, row) is owned by exactly one block and one thread
+slot in each phase, a block stays within 227 KB of shared memory and its
+kernel's launch bounds, the heads a block takes respect the budgets, shapes
+past T = 64 or D = 64 go to the tiled route, and a shape no kernel takes
+raises.
 
 The replay runs the kernel's two phases in its block partition and its sum
-order, in float32: phase 1 per (head, query row, key slice) computes delta
-from out and dO, then s, p (masked before the exponential), dp and ds for
-each of the slice's keys, writes p and ds to the block's P and dS tiles
-(NaN until written) and sums dq; phase 2 per (head, key row, query slice)
-sums dv and dk from the tiles, reading only what phase 1 wrote.  It is held
+order, in float32.  At D ≤ 32 (key slices): phase 1 per (head, query row,
+key slice) computes delta from out and dO, then s, p (masked before the
+exponential), dp and ds for each of the slice's keys, writes p and ds to
+the block's P and dS tiles (NaN until written) and sums dq; phase 2 per
+(head, key row, query slice) sums dv and dk from the tiles, reading only
+what phase 1 wrote.  At D = 64 (column halves): each dot product is two
+half-row partial sums, each over its thread's float4 chunks on two chains,
+joined by one sum; phase 1 per (head, query row) takes every key in order
+and writes the (p, ds) pairs, phase 2 per (head, key row) every query in
+order, and a thread's dq, dk or dv columns are whole sums.  It is held
 against the gradients of the JAX package's ``flash_attention`` (its Pallas
 kernels in interpret mode, as ``tests/test_torch_port_flash.py`` runs them)
 on numpy inputs from a seed, at the three masks and a batch row of key
@@ -36,10 +44,18 @@ MASKS = [(True, True), (True, False), (False, False), (False, True)]
 SMEM_MAX, THREADS_MAX = 227 * 1024, 1024
 # config4's calls (generator MLE / log-prob, discriminator, rollouts), the
 # card tests' shapes, tiny ones, and the fused kernel's edges
+# config4's calls (generator MLE / log-prob, discriminator, rollouts),
+# config5's GPT-2 MLE pass, the card tests' shapes, tiny ones, and the
+# fused kernels' edges (T = 1 and 64 at each head dim past 32)
 FUSED = [(64, 37, 8, 32), (64, 36, 8, 16), (256, 36, 8, 16), (4, 37, 8, 32),
          (4, 36, 8, 16), (2, 35, 2, 8), (2, 5, 2, 8), (2, 9, 2, 8),
-         (1, 1, 1, 8), (3, 64, 3, 32), (1, 64, 8, 24), (2, 33, 5, 16)]
-TILED = [(2, 200, 2, 24), (1, 70, 1, 256), (2, 65, 2, 8), (2, 16, 2, 40)]
+         (1, 1, 1, 8), (3, 64, 3, 32), (1, 64, 8, 24), (2, 33, 5, 16),
+         (2, 16, 2, 40), (64, 37, 12, 64), (2, 9, 3, 64),
+         (1, 1, 1, 40), (2, 64, 3, 40), (1, 1, 2, 48), (2, 64, 2, 48),
+         (1, 1, 3, 56), (2, 64, 1, 56), (1, 1, 12, 64), (2, 64, 12, 64)]
+TILED = [(2, 200, 2, 24), (1, 70, 1, 256), (2, 65, 2, 8), (2, 16, 2, 72),
+         (2, 65, 2, 64), (1, 1, 1, 72)]
+PLANS = {"fwd": tfa.flash_fwd_plan, "bwd": tfa.flash_bwd_plan}
 
 
 def _slots(plan, B, T, H):
@@ -59,32 +75,66 @@ def _slots(plan, B, T, H):
             np.where(live, i, -1), s, live)
 
 
-@pytest.mark.parametrize("B,T,H,D", FUSED)
-def test_fused_plan_owns_every_row_once_within_the_card(B, T, H, D):
-    plan = tfa.flash_bwd_plan(T, H, D)
-    assert plan["route"] == "fused"
-    G, ks = plan["heads"], plan["slices"]
-    assert G >= 1 and G & (G - 1) == 0 and G <= max(1, H)
-    assert plan["threads"] % 32 == 0 and plan["threads"] >= ks * G * T
-    assert plan["threads"] <= THREADS_MAX and plan["smem"] <= SMEM_MAX
-    assert G == 1 or (plan["threads"] <= tfa.FB_THREADS
-                      and plan["smem"] <= tfa.FB_SMEM)
-    # a row's staged tiles (q, k, v, dO; out is read in place) and the P
-    # and dS tiles
-    dp, ld = plan["dp"], plan["ld"]
-    assert dp >= D and dp in (16, 32)
-    assert ld >= T and ld % 4 == 2 and ld < T + 4
-    assert plan["smem"] == 4 * G * (4 * T * (dp + tfa.FT_PAD) + 2 * T * ld)
-    # both phases read one thread map, (head, row, slice): phase 1 the row
-    # as a query row, phase 2 as a key row; each (b, h, row) has exactly
-    # one thread of each slice, in one block
+def _owns_every_row_once(plan, B, T, H):
+    """Each (b, h, row) has exactly one thread of each slice, in one
+    block (both phases read one thread map, (head, row, slice))."""
     b, h, i, s, live = _slots(plan, B, T, H)
-    for sl in range(ks):
+    for sl in range(plan["slices"]):
         own = np.zeros((B, H, T), np.int64)
         sel = live & (s == sl)
         np.add.at(own, (b[sel], h[sel], i[sel]), 1)
         assert (own == 1).all(), sl
+
+
+def _within_the_card(plan, kind, T, H, D):
+    G, ks = plan["heads"], plan["slices"]
+    most, budget = tfa.BUDGETS[(kind, plan["split"])]
+    assert G >= 1 and G & (G - 1) == 0 and G <= max(1, H)
+    assert plan["threads"] % 32 == 0 and plan["threads"] >= ks * G * T
+    assert plan["threads"] <= min(most, THREADS_MAX) == plan["most_threads"]
+    assert plan["smem"] <= SMEM_MAX
+    assert G == 1 or plan["smem"] <= budget
+    # the design by head dim: two key slices up to 32 columns (rows of 16
+    # or 32 floats), two column halves of a 64-float row past that
+    assert plan["dp"] >= D
+    assert (plan["dp"], plan["split"]) in ((16, "keys"), (32, "keys"),
+                                           (64, "columns"))
+    assert plan["split"] == ("keys" if D <= 32 else "columns")
+
+
+@pytest.mark.parametrize("B,T,H,D", FUSED)
+def test_fused_plan_owns_every_row_once_within_the_card(B, T, H, D):
+    plan = tfa.flash_bwd_plan(T, H, D)
+    assert plan["route"] == "fused"
+    _within_the_card(plan, "bwd", T, H, D)
+    G, dp, ld = plan["heads"], plan["dp"], plan["ld"]
+    rs = dp + tfa.FT_PAD
+    if plan["split"] == "keys":
+        # a row's staged tiles (q, k, v, dO; out is read in place) and the
+        # P and dS tiles
+        assert ld >= T and ld % 4 == 2 and ld < T + 4
+        assert plan["smem"] == 4 * G * T * (4 * rs + 2 * ld)
+    else:
+        # the staged tiles and the (p, ds) pairs, an odd number a row
+        assert ld in (T, T + 1) and ld % 2 == 1
+        assert plan["smem"] == 4 * G * T * (4 * rs + 2 * ld)
+    _owns_every_row_once(plan, B, T, H)
     assert tfa.flash_bwd_plan(T, H, D) is plan          # cached
+
+
+@pytest.mark.parametrize("B,T,H,D", FUSED)
+def test_forward_plan_owns_every_row_once_within_the_card(B, T, H, D):
+    plan = tfa.flash_fwd_plan(T, H, D)
+    assert plan["route"] == "fused"
+    _within_the_card(plan, "fwd", T, H, D)
+    G, rs = plan["heads"], plan["dp"] + tfa.FT_PAD
+    if plan["split"] == "keys":      # the q, k and v tiles
+        assert plan["ld"] is None and plan["smem"] == 4 * G * T * 3 * rs
+    else:                            # and the scores, an odd number a row
+        assert plan["ld"] in (T, T + 1) and plan["ld"] % 2 == 1
+        assert plan["smem"] == 4 * G * T * (3 * rs + plan["ld"])
+    _owns_every_row_once(plan, B, T, H)
+    assert tfa.flash_fwd_plan(T, H, D) is plan
 
 
 def test_fused_plan_at_config4():
@@ -94,6 +144,25 @@ def test_fused_plan_at_config4():
     assert (gen["heads"], gen["threads"], gen["smem"]) == (2, 160, 65120)
     assert (disc["heads"], disc["threads"], disc["smem"]) == (2, 160, 44928)
     assert gen["ld"] == disc["ld"] == 38
+    # the forward: two heads of the generator, four of the discriminator
+    assert [tfa.flash_fwd_plan(37, 8, 32)[k] for k in ("heads", "threads",
+                                                        "smem")] == [
+        2, 160, 31968]
+    assert [tfa.flash_fwd_plan(36, 8, 16)[k] for k in ("heads", "threads",
+                                                        "smem")] == [
+        4, 288, 34560]
+
+
+def test_fused_plans_at_config5():
+    """GPT-2's head dim 64 at the MLE pass's T = 37: two heads a forward
+    block (384 blocks at B = 64, 3 an SM), one a backward block (768
+    blocks, 4 an SM)."""
+    fwd, bwd = tfa.flash_fwd_plan(37, 12, 64), tfa.flash_bwd_plan(37, 12, 64)
+    assert fwd["split"] == bwd["split"] == "columns"
+    assert (fwd["heads"], fwd["threads"], fwd["smem"]) == (2, 160, 71336)
+    assert (bwd["heads"], bwd["threads"], bwd["smem"]) == (1, 96, 51208)
+    assert fwd["ld"] == bwd["ld"] == 37
+    assert 3 * fwd["smem"] <= SMEM_MAX and 4 * bwd["smem"] <= SMEM_MAX
 
 
 @pytest.mark.parametrize("T", [5, 9, 35, 36, 37, 64])
@@ -108,16 +177,33 @@ def test_phase1_writes_of_a_warp_fall_in_distinct_banks(T):
         assert len(np.unique(banks)) == 32
 
 
+@pytest.mark.parametrize("T", [1, 5, 9, 36, 37, 64])
+def test_pair_writes_of_a_warp_fall_in_distinct_banks(T):
+    """At D > 32, lanes (row r, half c) of a warp write word c of pair
+    (r, j): 16 rows, 2 halves, 32 banks, for rows across a head's end
+    too; the forward's lane 0 of each row writes 16 banks."""
+    ld = tfa.flash_bwd_plan(T, 1, 64)["ld"]
+    assert ld == tfa.flash_fwd_plan(T, 1, 64)["ld"]
+    for r0 in (0, 16, max(T - 8, 0)):
+        rows = np.arange(r0, r0 + 16)[:, None]
+        for j in range(min(T, 3)):
+            banks = (2 * (rows * ld + j) + np.arange(2)[None, :]) % 32
+            assert len(np.unique(banks)) == 32
+            assert len(np.unique((rows * ld + j) % 32)) == 16
+
+
 @pytest.mark.parametrize("B,T,H,D", TILED)
 def test_shapes_past_the_fused_kernel_go_tiled(B, T, H, D):
     assert tfa.flash_bwd_plan(T, H, D) == {"route": "tiled"}
+    assert tfa.flash_fwd_plan(T, H, D) == {"route": "tiled"}
 
 
 @pytest.mark.parametrize("T,H,D", [(0, 2, 8), (4, 0, 8), (4, 2, 12),
                                    (4, 2, 264), (4, 2, 0)])
 def test_impossible_shapes_raise(T, H, D):
-    with pytest.raises(ValueError):
-        tfa.flash_bwd_plan(T, H, D)
+    for plan in PLANS.values():
+        with pytest.raises(ValueError):
+            plan(T, H, D)
 
 
 # ------------------------------------------------------------ the replay
@@ -137,12 +223,74 @@ def _dot2(a, b):
     return F32(a0 + a1)
 
 
+def _dot_halves(a, b):
+    """``dot_half`` on both column halves, then the shuffle's sum: half c
+    holds float4 chunks c, c + 2, ... (columns 8m + 4c .. 8m + 4c + 3 for
+    m < 8; pad columns past D add nothing), on chain m % 2."""
+    halves = []
+    for c in range(2):
+        chains = [F32(0), F32(0)]
+        for m in range(8):
+            for col in range(8 * m + 4 * c, min(8 * m + 4 * c + 4, len(a))):
+                chains[m % 2] = F32(chains[m % 2] + F32(a[col] * b[col]))
+        halves.append(F32(chains[0] + chains[1]))
+    return F32(halves[0] + halves[1])
+
+
+def _replay_columns(q, k, v, out, dout, lse, lengths, causal, plan):
+    """The column-half kernel's two phases, block by block and row by row
+    in its order: phase 1 per (head, query row) every key ascending, the
+    (p, ds) pairs written to the block's tile (NaN until written); phase
+    2 per (head, key row) every query ascending, reading only what phase
+    1 wrote.  A thread's columns of dq, dk and dv are one sum each."""
+    B, T, H, D = q.shape
+    G, ld = plan["heads"], plan["ld"]
+    scale = F32(1.0 / math.sqrt(D))
+    dq, dk, dv = (np.full(q.shape, np.nan, F32) for _ in range(3))
+    groups = -(-H // G)
+    for blk in range(B * groups):
+        b, h0 = blk // groups, (blk % groups) * G
+        gh = min(G, H - h0)
+        length = T if lengths is None else min(max(int(lengths[b]), 0), T)
+        pairs = np.full((gh * T, ld, 2), np.nan, F32)
+        for r in range(gh * T):               # phase 1: query row i
+            g, i = divmod(r, T)
+            h = h0 + g
+            nk = min(length, i + 1) if causal else length
+            delta = _dot_halves(dout[b, i, h], out[b, i, h])
+            acc = np.zeros(D, F32)
+            for j in range(nk):
+                sc = F32(_dot_halves(q[b, i, h], k[b, j, h]) * scale)
+                dp = _dot_halves(dout[b, i, h], v[b, j, h])
+                p = F32(np.exp(F32(sc - lse[b, i, h])))
+                ds = F32(p * F32(dp - delta))
+                acc = (acc + ds * k[b, j, h]).astype(F32)
+                pairs[r, j] = p, ds
+            dq[b, i, h] = acc * scale
+        for r in range(gh * T):               # phase 2: key row j
+            g, j = divmod(r, T)
+            h = h0 + g
+            dka, dva = np.zeros(D, F32), np.zeros(D, F32)
+            if j < length:
+                for i in range(j if causal else 0, T):
+                    p, ds = pairs[g * T + i, j]
+                    assert not (np.isnan(p) or np.isnan(ds)), (i, j)
+                    dva = (dva + p * dout[b, i, h]).astype(F32)
+                    dka = (dka + ds * q[b, i, h]).astype(F32)
+            dk[b, j, h] = dka * scale
+            dv[b, j, h] = dva
+    return dq, dk, dv
+
+
 def _replay(q, k, v, out, dout, lse, lengths, causal):
     """The fused kernel's two phases, block by block and thread by thread
     in its order (a thread's sums over its keys or queries ascending; the
     slices' partial rows joined in slice order)."""
     B, T, H, D = q.shape
     plan = tfa.flash_bwd_plan(T, H, D)
+    if plan["split"] == "columns":
+        return _replay_columns(q, k, v, out, dout, lse, lengths, causal,
+                               plan)
     G, ks, ld = plan["heads"], plan["slices"], plan["ld"]
     scale = F32(1.0 / math.sqrt(D))
     dq, dk, dv = (np.full(q.shape, np.nan, F32) for _ in range(3))
@@ -214,7 +362,17 @@ def _forward(q, k, v, lengths, causal):
 @pytest.mark.parametrize("T", [5, 9])
 @pytest.mark.parametrize("causal,with_lengths", MASKS)
 def test_replay_matches_jax_gradients(T, causal, with_lengths):
-    B, H, D = 2, 2, 8
+    _check_replay(2, T, 2, 8, causal, with_lengths)
+
+
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_column_half_replay_matches_jax_gradients(causal, with_lengths):
+    """The D = 64 design, three heads (a block of two and one of one)."""
+    assert tfa.flash_bwd_plan(7, 3, 64)["heads"] == 2
+    _check_replay(2, 7, 3, 64, causal, with_lengths)
+
+
+def _check_replay(B, T, H, D, causal, with_lengths):
     rng = np.random.default_rng(100 + T)
     q, k, v, g = (rng.standard_normal((B, T, H, D)).astype(F32)
                   for _ in range(4))

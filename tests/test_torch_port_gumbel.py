@@ -20,6 +20,8 @@ from gan_image_captioning_tpu.ops import gumbel as jgumbel
 from gan_image_captioning_tpu_torch.kernels import gumbel_sample as tgs
 from gan_image_captioning_tpu_torch.ops import gumbel as tgumbel
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 TOL = dict(atol=1e-6, rtol=1e-5)
 
 

@@ -15,6 +15,8 @@ import torch
 from gan_image_captioning_tpu.kernels import image_norm as jnorm
 from gan_image_captioning_tpu_torch.kernels import image_norm as tnorm
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 ATOL = 2e-6
 # an odd plane (37 x 37: H*W % 4 == 1), a one-pixel plane, a wide one
 SHAPES = [(2, 3, 8, 16), (3, 3, 37, 37), (4, 3, 1, 1), (1, 3, 5, 130)]

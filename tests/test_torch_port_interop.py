@@ -18,6 +18,8 @@ from gan_image_captioning_tpu_torch.interop import (generator_from_jax,
 from gan_image_captioning_tpu_torch.train.checkpoint import (
     load_generator_checkpoint, save_generator_checkpoint)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 T, V, H, E = 8, 128, 16, 16
 KW = dict(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H, gen_num_layers=2,
           max_seq_len=T - 2)

@@ -31,6 +31,8 @@ from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    config_from_args,
                                                    require_ported_flags)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 ITEMS, S, BS = 32, 32, 8
 MODEL = dict(gen_embed_dim=16, gen_hidden_dim=16, gen_num_layers=2,
              max_seq_len=8, disc_embed_dim=8, disc_num_rep=4,

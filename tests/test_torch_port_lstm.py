@@ -10,6 +10,8 @@ import torch
 from gan_image_captioning_tpu.models import lstm as jlstm
 from gan_image_captioning_tpu_torch.models import lstm as tlstm
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, E, H, NL = 4, 24, 32, 2
 ATOL = 1e-5
 

@@ -18,6 +18,8 @@ from gan_image_captioning_tpu_torch.models import api as tapi
 from gan_image_captioning_tpu_torch.models import generator as tgen
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 V, E, H = 64, 48, 32
 KW = dict(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H, gen_num_layers=2,
           max_seq_len=6)

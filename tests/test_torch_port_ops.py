@@ -19,6 +19,8 @@ from gan_image_captioning_tpu_torch.ops import gumbel, losses
 from gan_image_captioning_tpu_torch.ops.temperature import (
     ADAPT_TYPES, get_fixed_temperature)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 TOL = dict(atol=1e-6, rtol=1e-6)
 
 

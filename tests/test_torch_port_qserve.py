@@ -28,6 +28,8 @@ from gan_image_captioning_tpu_torch.interop import (generator_from_jax,
 from gan_image_captioning_tpu_torch.kernels import decode_sample as tks
 from gan_image_captioning_tpu_torch.ops import quantize as tq
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, H, E = 4, 8, 256, 32, 32
 ATOL = 1e-5
 

@@ -22,6 +22,8 @@ from gan_image_captioning_tpu_torch.interop import (generator_from_jax,
                                                     qdec_from_jax)
 from gan_image_captioning_tpu_torch.ops import quantize as tq
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 V, E, H = 256, 32, 32
 SCALE_RTOL = 1e-7
 

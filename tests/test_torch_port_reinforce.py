@@ -35,6 +35,8 @@ from gan_image_captioning_tpu_torch.models import api as tapi
 from gan_image_captioning_tpu_torch.train import reinforce as trl
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, V = 3, 32
 KW = dict(vocab_size=V, gen_arch="transformer", disc_arch="transformer",
           gen_embed_dim=16, gen_hidden_dim=16, gen_num_layers=1,

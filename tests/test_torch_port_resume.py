@@ -28,6 +28,8 @@ from gan_image_captioning_tpu_torch.train import scst as scst_lib
 from gan_image_captioning_tpu_torch.train.instructor import GANInstructor
 from test_torch_port_checkpoint_state import assert_states_equal
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 ITEMS, VAL_ITEMS, BS = 32, 16, 8
 
 

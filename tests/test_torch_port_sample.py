@@ -32,6 +32,8 @@ from gan_image_captioning_tpu_torch.kernels.decode_sample import (
 from gan_image_captioning_tpu_torch.models import generator as tgen
 from gan_image_captioning_tpu_torch.models import lstm as tlstm
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, T, V, E, H, NL = 4, 6, 64, 8, 16, 2
 TEMP = 2.0
 VAL = dict(atol=1e-5, rtol=1e-5)

@@ -24,6 +24,8 @@ from gan_image_captioning_tpu_torch.data.vocab import END, PAD
 from gan_image_captioning_tpu_torch.eval import decode as tdecode
 from test_torch_port_beam import B, build
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 LP_ATOL = 1e-5
 
 

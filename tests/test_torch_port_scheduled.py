@@ -42,6 +42,8 @@ from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.instructor import GANInstructor
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, V, PEAK = 4, 32, 8.0
 KW = dict(vocab_size=V, gen_embed_dim=8, gen_hidden_dim=12,
           gen_num_layers=2, max_seq_len=5, mle_objective="scheduled",

@@ -58,6 +58,8 @@ from gan_image_captioning_tpu_torch.train import scst
 from gan_image_captioning_tpu_torch.train.state import trainable_parameters
 from gan_image_captioning_tpu_torch.train.steps import _grads
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, PEAK = 8, 8.0
 TOL = dict(atol=1e-5, rtol=1e-5)
 MINI_COCO = os.path.join(os.path.dirname(os.path.dirname(

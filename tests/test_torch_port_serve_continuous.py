@@ -30,6 +30,8 @@ from gan_image_captioning_tpu.models.torch_export import generator_to_torch
 from gan_image_captioning_tpu.ops import quantize as jq
 from gan_image_captioning_tpu_torch import serve
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 # 35 synthetic words padded to 40 (--vocab-multiple): most ids are words
 V, E, H, MAX_LEN = 40, 32, 32, 6
 FLAGS = ["--dataset", "synthetic", "--vocab-multiple", str(V),

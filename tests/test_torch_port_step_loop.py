@@ -44,6 +44,8 @@ from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.instructor import GANInstructor
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 MODEL = ["--dataset", "synthetic", "--gen-embed-dim", "8",
          "--gen-hidden-dim", "12", "--gen-num-layers", "1",
          "--max-seq-len", "7", "--disc-embed-dim", "8",

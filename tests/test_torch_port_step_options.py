@@ -40,6 +40,8 @@ from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
 from gan_image_captioning_tpu_torch.train import state as tstate
 from gan_image_captioning_tpu_torch.train import steps as tsteps
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, V, TEMP, FLIP = 4, 32, 2.0, 0.25
 LSTM = dict(vocab_size=V, gen_embed_dim=8, gen_hidden_dim=16,
             gen_num_layers=2, max_seq_len=4, disc_embed_dim=8,

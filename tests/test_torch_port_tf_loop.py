@@ -36,6 +36,8 @@ from gan_image_captioning_tpu_torch.models import api as tapi
 from gan_image_captioning_tpu_torch.train.checkpoint import (
     load_generator_checkpoint, save_generator_checkpoint)
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 ITEMS, BS = 16, 8
 MODEL = dict(gen_embed_dim=16, gen_hidden_dim=16, gen_num_layers=1,
              gen_num_heads=2, disc_embed_dim=8, disc_hidden_dim=16,

@@ -25,6 +25,8 @@ from gan_image_captioning_tpu_torch.models import torch_import as tti
 from gan_image_captioning_tpu_torch.models import vit as tvit
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 
 def _t(rng, *shape, scale=0.1):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(

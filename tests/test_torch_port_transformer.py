@@ -32,6 +32,8 @@ from gan_image_captioning_tpu_torch.models import (
 from gan_image_captioning_tpu_torch.models import transformer as ttf
 from gan_image_captioning_tpu_torch.train import checkpoint as ckpt
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 V = 40
 KW = dict(vocab_size=V, gen_arch="transformer", disc_arch="transformer",
           gen_embed_dim=16, gen_hidden_dim=24, gen_num_layers=2,

@@ -46,6 +46,8 @@ from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 from torch_bf16_parity import f32, miss
 
+torch.set_num_threads(1)  # tiny ops: a thread a core costs more than it saves
+
 B, S, V = 4, 32, 48
 FEAT = dict(atol=2e-5, rtol=1e-4)
 GRAD = dict(atol=1e-5, rtol=1e-4)
