@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only bf16
     python3 chip_smoke.py --only tf_bf16
     python3 chip_smoke.py --only config5
+    python3 chip_smoke.py --only serving_rest
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -439,6 +440,36 @@ generator, bfloat16), and prints one JSON line per phase:
     captions, ids that differ across the images, and rows decoded without
     their grid that decode apart.
 
+34. ``serving_rest`` — the rest of serving at full width, random weights
+    from seeds.  config4 (its output projection scaled by 50 so that
+    argmaxes are decisive, written as a checkpoint): 16 random feature
+    rows through the continuous engine (transformer slots) and the
+    coalescing engine of one ``--serve-continuous`` service, and through
+    ``--serve-adaptive-chunk 8``: ids equal, or where a row parts before
+    its first ``<E>`` the two tokens equally scored within 1e-4 by the
+    flash causal pass over the coalescing ids, sequence logprobs of equal
+    rows within 1e-3; ``--quantize int8`` (fake quantization) on both
+    engines against the greedy decode of the fake-quantized twin by the
+    same rule; ``{"n": 1}`` / ``{"n": 8}`` p50 / p90 on both engines in
+    turns.  config5 (ViT-B/16, GPT-2-small, V = 50261, projection scaled
+    likewise): 8 seeded images' rows (features and grid) through the slots
+    and the coalescing engine by the same rule, the slot pool's bytes and
+    the peak memory of a request, 1 / 8 image p50 / p90 on both engines.
+    config3 ``--decode-mode speculative --draft-len 4`` (the int8 twin
+    drafts) on both engines at B = 8 and 64 against the serve kernel's
+    greedy ids (the decode's tie rule), the accepted share, tokens a
+    block, host ms a call beside the greedy kernel.  An HTTP front end
+    over config3's continuous engine, dense and ``--quantize int8``:
+    ``POST {"n": 8}``, ``/stats``, ``/metrics``, a stream, ``{"reload"}``
+    to a second checkpoint (seed 1) whose captions differ, ``POST`` again:
+    captions and logprobs those of the full-T kernel decode of each
+    checkpoint, every code 200, the carried (dense) or quantized kernel's
+    launches equal to both engines' device calls and no other decode
+    kernel launched; ``POST`` latency beside ``handle_request``.  The
+    coalescing engine's reload (the full-T serve kernel, launches equal to
+    its device calls) and one ``--serve-watch`` reload of a rewritten
+    checkpoint; each reload's time.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
@@ -446,7 +477,8 @@ Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed``, the fused-embed backward, and the bfloat16
 instantiations of phases ``bf16`` and ``tf_bf16``, and config5's shapes,
-with their launches in their drives) and,
+with their launches in their drives; ``serving_rest_launches``: their
+launches in phase ``serving_rest``'s HTTP and reload drives) and,
 last, ``{"ok": true,
 "device": …}``.  The entries of the kernels on the evaluation path carry
 ``eval_decode_launches`` too, every entry ``scst_launches``, its
@@ -8171,6 +8203,542 @@ def config5_entries(smi, row):
     return out
 
 
+# ----------------------------------------------------------- serving_rest
+
+SR_ROWS = 16                       # config4 feature rows per comparison
+SR_REPS = 10                       # requests per latency cell
+SR_C5_IMAGES = 8
+SR_DRAFT_LEN = 4
+SR_C5_FLAGS = ["--preset", "config5", "--dataset", "synthetic",
+               "--vocab-multiple", str(C5_V), "--max-seq-len",
+               str(MAX_SEQ_LEN)]
+
+
+def rest_counters():
+    """The serving kernels' launch counters: the full-T serve decode, the
+    carried chunk (continuous dense) and the quantized serve decode."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+
+    return {"decode_serve": ds.decode_sample,
+            "decode_serve_carry": ds.decode_sample_carry,
+            "decode_qserve_int8": ds.decode_sample_q_serve}
+
+
+def rest_launches():
+    return {k: fn.launches for k, fn in rest_counters().items()}
+
+
+def tf_ties(dec, config, feats, ctx, a, b):
+    """``step_ties`` for a transformer: where the rows of ids ``a`` and
+    ``b`` part before their first <E>, the two tokens' log-probabilities
+    after the common prefix, by the parallel causal pass over ``a`` (the
+    flash kernels on the card: an independent route) → (rows differing,
+    max gap)."""
+    from gan_image_captioning_tpu_torch.models import transformer as ttf
+
+    diff = [i for i in range(a.shape[0])
+            if prefix(a[i].tolist()) != prefix(b[i].tolist())]
+    if not diff:
+        return 0, 0.0
+    rows = torch.tensor(diff, device=feats.device)
+    with torch.no_grad():
+        logits = ttf.teacher_forced(
+            dec, feats[rows], a.to(feats.device)[rows], config,
+            context=None if ctx is None else ctx[rows])
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gaps = []
+    for j, i in enumerate(diff):
+        t = int((a[i] != b[i]).nonzero()[0])
+        gaps.append(float((logp[j, t, int(a[i, t])]
+                           - logp[j, t, int(b[i, t])]).abs()))
+    return len(diff), max(gaps)
+
+
+def engine_latency(service, request, reps=SR_REPS):
+    """p50 / p90 of ``request()`` on each engine of a service built with
+    ``--serve-continuous`` (the coalescing one by setting its continuous
+    engine aside for the calls), in turns."""
+    cont = service.continuous
+    ms = {"continuous": [], "coalescing": []}
+    request()                                        # one warm call each
+    service.continuous = None
+    request()
+    service.continuous = cont
+    for _ in range(reps):
+        for engine in ("continuous", "coalescing"):
+            service.continuous = cont if engine == "continuous" else None
+            t0 = time.perf_counter()
+            request()
+            ms[engine].append((time.perf_counter() - t0) * 1e3)
+    service.continuous = cont
+    return {k: percentiles(v) for k, v in ms.items()}
+
+
+def engines_agree(service, rows, what):
+    """The same rows through the continuous and the coalescing engine of
+    one service → (continuous ids, coalescing ids, lps of both)."""
+    ids_c, lp_c = service._continuous(rows, None)
+    ids_b, lp_b = service.batcher.submit(rows).result(timeout=600)
+    ids_c, ids_b = torch.from_numpy(ids_c), torch.from_numpy(ids_b)
+    check(ids_c.shape == ids_b.shape, f"{what}: shapes {ids_c.shape}")
+    return ids_c, ids_b, np.asarray(lp_c), np.asarray(lp_b)
+
+
+def scaled_transformer_checkpoint(flags, path):
+    """A seeded transformer generator at a preset's full width, its output
+    projection scaled by 50 (N(0, 1): decisive argmaxes, as ``c5_main``
+    draws its served decoder), written to ``path``."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.train import checkpoint as ckpt_lib
+
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "0", *flags]))
+    try:
+        with torch.no_grad():
+            service.generator.decoder.linear.w.mul_(50.0)
+        ckpt_lib.save_generator_checkpoint(str(path), service.generator)
+    finally:
+        service.close()
+
+
+def rest_transformer(device, workdir):
+    """config4's continuous engine against its coalescing one, its
+    adaptive decode and ``--quantize int8``; config5's slots with their
+    grid, the slot pool's memory; latencies on both engines."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.eval import decode as decode_lib
+    from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
+
+    out = {}
+    c4 = workdir / "config4_served.ckpt"
+    scaled_transformer_checkpoint(TF_MODEL_FLAGS, c4)
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", str(c4), *TF_MODEL_FLAGS, "--serve-continuous"]))
+    try:
+        config = service.config
+        E4 = config.gen_embed_dim
+        rows = seeded((SR_ROWS, E4), 610, torch.device("cpu")).numpy()
+        feats = torch.from_numpy(rows).to(device)
+        ids_c, ids_b, lp_c, lp_b = engines_agree(service, rows, "config4")
+        dec = service.generator.decoder
+        n_diff, gap = tf_ties(dec, config, feats, None, ids_b, ids_c)
+        same = [i for i in range(SR_ROWS)
+                if prefix(ids_c[i].tolist()) == prefix(ids_b[i].tolist())]
+        lp_diff = max((abs(lp_c[i] - lp_b[i]) for i in same), default=0.0)
+        # the adaptive decode (coalescing, 8-step chunks)
+        service.adaptive_chunk = 8
+        ids_a, lp_a = service._run_decode(rows)
+        service.adaptive_chunk = 0
+        n_diff_a, gap_a = tf_ties(dec, config, feats, None, ids_b, ids_a.cpu())
+        row = {"rows": SR_ROWS, "continuous_rows_differing": n_diff,
+               "continuous_max_id_gap": gap,
+               "continuous_max_abs_seq_lp_diff": float(lp_diff),
+               "adaptive_rows_differing": n_diff_a,
+               "adaptive_max_id_gap": gap_a,
+               "distinct_ids": int(ids_b.unique().numel()),
+               "latency": {f"n{n}": engine_latency(
+                   service, lambda n=n: service.handle_request({"n": n}))
+                   for n in (1, 8)},
+               "stats": service.continuous.stats()}
+        check(gap <= ID_ATOL and lp_diff <= SEQ_ATOL,
+              f"config4: continuous against coalescing {row}")
+        check(gap_a <= ID_ATOL, f"config4: adaptive against full {row}")
+        check(row["distinct_ids"] > 4, f"config4: degenerate ids {row}")
+        unquant = ids_b
+    finally:
+        service.close()
+    # --quantize int8: the fake-quantized twin on both engines
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", str(c4), *TF_MODEL_FLAGS, "--serve-continuous",
+         "--quantize", "int8"]))
+    try:
+        twin = quantize_generator(service.generator, service.config)
+        ids_r, lp_r = decode_lib.greedy_with_logprobs(twin, feats,
+                                                      service.config)
+        ids_c, ids_b, _, lp_b = engines_agree(service, rows, "config4 int8")
+        changed = sum(int(not torch.equal(a, b)) for a, b in zip(
+            twin.state_dict().values(),
+            service.generator.state_dict().values()))
+        q_diff, q_gap = tf_ties(twin.decoder, service.config, feats, None,
+                                ids_r.cpu(), ids_b)
+        c_diff, c_gap = tf_ties(twin.decoder, service.config, feats, None,
+                                ids_r.cpu(), ids_c)
+        row["int8"] = {
+            "tensors_quantized": changed,
+            "coalescing_rows_differing": q_diff,
+            "coalescing_max_id_gap": q_gap,
+            "continuous_rows_differing": c_diff,
+            "continuous_max_id_gap": c_gap,
+            "rows_differing_from_float32": int(sum(
+                prefix(a.tolist()) != prefix(b.tolist())
+                for a, b in zip(ids_b, unquant)))}
+        check(changed > 0 and q_gap <= ID_ATOL and c_gap <= ID_ATOL,
+              f"config4 int8: {row['int8']}")
+    finally:
+        service.close()
+    emit({"phase": "serving_rest", "part": "config4", **row})
+    out["config4"] = row
+    torch.cuda.empty_cache()
+
+    # config5: slots that carry their grid (the projection scaled in
+    # place: both engines read the same parameters)
+    images = seeded((SR_C5_IMAGES, 3, IMG_S, IMG_S), 620,
+                    torch.device("cpu")).numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    service = serve.CaptionService(serve.parse_args(
+        ["--init-seed", "0", *SR_C5_FLAGS, "--serve-continuous",
+         "--serve-batch-size", str(SR_C5_IMAGES)]))
+    try:
+        with torch.no_grad():
+            service.generator.decoder.linear.w.mul_(50.0)
+        config = service.config
+        torch.cuda.synchronize()
+        built = torch.cuda.memory_allocated()
+        rows = service.features_from_images(images)
+        torch.cuda.reset_peak_memory_stats()
+        ids_c, ids_b, lp_c, lp_b = engines_agree(service, rows, "config5")
+        torch.cuda.synchronize()
+        request_peak = torch.cuda.max_memory_allocated()
+        E5 = config.gen_embed_dim
+        x = torch.from_numpy(rows).to(device)
+        feats, ctx = x[:, :E5], x[:, E5:].reshape(-1, *service.context_shape)
+        n_diff, gap = tf_ties(service.generator.decoder, config, feats, ctx,
+                              ids_b, ids_c)
+        same = [i for i in range(SR_C5_IMAGES)
+                if prefix(ids_c[i].tolist()) == prefix(ids_b[i].tolist())]
+        lp_diff = max((abs(lp_c[i] - lp_b[i]) for i in same), default=0.0)
+        row5 = {"images": SR_C5_IMAGES, "vocab_size": config.vocab_size,
+                "continuous_rows_differing": n_diff,
+                "continuous_max_id_gap": gap,
+                "continuous_max_abs_seq_lp_diff": float(lp_diff),
+                "distinct_id_rows": len({tuple(prefix(r.tolist()))
+                                         for r in ids_b}),
+                "slot_pool_bytes": service.continuous._slots.buffer_bytes(),
+                "allocated_after_build_bytes": built - before,
+                "request_peak_bytes": request_peak,
+                "request_peak_over_built_bytes": request_peak - built,
+                "slots": SR_C5_IMAGES,
+                "latency": {f"images{n}": engine_latency(
+                    service, lambda n=n: service.caption_images(images[:n]),
+                    reps=5) for n in (1, SR_C5_IMAGES)}}
+        check(config.gen_embed_dim == C5_D and config.cgan,
+              "config5: the preset did not reach the service")
+        check(gap <= ID_ATOL and lp_diff <= SEQ_ATOL,
+              f"config5: continuous against coalescing {row5}")
+        check(row5["distinct_id_rows"] > 1, f"config5: ids {row5}")
+    finally:
+        service.close()
+    emit({"phase": "serving_rest", "part": "config5", **row5})
+    out["config5"] = row5
+    torch.cuda.empty_cache()
+    return out
+
+
+def rest_speculative(gen, device, workdir):
+    """config3's ``--decode-mode speculative`` (the int8 twin drafting
+    SR_DRAFT_LEN tokens a block) on both engines against the serve
+    kernel's greedy ids; ms a call beside the kernel; the accepted share
+    and tokens a block."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.eval import decode as decode_lib
+    from gan_image_captioning_tpu_torch.eval.speculative import (
+        speculative_greedy)
+
+    ckpt = str(workdir / "gen_full_width.ckpt")
+    out = {}
+    for B in (8, 64):
+        feats = seeded((B, E), 630 + B, device)
+        want, _ = decode_lib.greedy_with_logprobs(gen, feats, eval_config())
+        services = {}
+        try:
+            for engine in ("coalescing", "continuous"):
+                extra = ["--serve-continuous"] if engine == "continuous" \
+                    else []
+                services[engine] = serve.CaptionService(serve.parse_args(
+                    ["--checkpoint", ckpt, *MODEL_FLAGS, "--decode-mode",
+                     "speculative", "--draft-len", str(SR_DRAFT_LEN),
+                     "--serve-batch-size", str(B), *extra]))
+            coal, cont = services["coalescing"], services["continuous"]
+            rows = feats.cpu().numpy()
+            ids_b, _ = coal._run_decode(rows)
+            ids_c, _ = cont._continuous(rows, None)
+            ids_c = torch.from_numpy(ids_c).to(device)
+            _, stats = speculative_greedy(
+                coal.generator, coal.dec_params, feats, coal.config,
+                draft_len=SR_DRAFT_LEN, early_stop=True, return_stats=True)
+            d_b, gap_b = step_ties(gen.decoder, feats, ids_b, want)
+            d_c, gap_c = step_ties(gen.decoder, feats, ids_c, want)
+            cont_stats = cont.continuous.stats()
+            calls0 = cont_stats["device_calls"]
+            ms = {"speculative_coalescing": host_ms(
+                      lambda: coal._run_decode(rows), 5),
+                  "speculative_continuous": host_ms(
+                      lambda: cont._continuous(rows, None), 5),
+                  "greedy_kernel": host_ms(
+                      lambda: decode_lib.greedy_with_logprobs(
+                          gen, feats, eval_config()), 5)}
+            cont_stats = cont.continuous.stats()
+        finally:
+            for svc in services.values():
+                svc.close()
+        row = {"B": B, "draft_len": SR_DRAFT_LEN,
+               "coalescing_rows_differing": d_b,
+               "coalescing_max_id_gap": gap_b,
+               "continuous_rows_differing": d_c,
+               "continuous_max_id_gap": gap_c,
+               "accepted_share": stats["accepted"] / max(1,
+                                                         stats["proposed"]),
+               "accepted": stats["accepted"], "proposed": stats["proposed"],
+               "continuous_tokens_per_slot_chunk": cont_stats.get(
+                   "tokens_per_slot_chunk"),
+               "continuous_device_calls_per_call": (
+                   cont_stats["device_calls"] - calls0) / 6,
+               "host_ms": {k: {"min": min(v), "max": max(v), "all": v}
+                           for k, v in ms.items()}}
+        emit({"phase": "serving_rest", "part": "speculative", **row})
+        check(gap_b <= ID_ATOL and gap_c <= ID_ATOL,
+              f"speculative ids against the serve kernel: {row}")
+        out[B] = row
+    return out
+
+
+def http_post(base, body, stream=False):
+    """``POST /`` → (status, parsed body: the JSON object, or the NDJSON
+    lines of a stream)."""
+    import http.client
+
+    host, port = base.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host[len("http://"):], int(port),
+                                      timeout=600)
+    try:
+        conn.request("POST", "/", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        text = resp.read().decode()
+    finally:
+        conn.close()
+    if stream:
+        return resp.status, [json.loads(ln) for ln in text.splitlines()]
+    return resp.status, json.loads(text)
+
+
+def http_get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(base + path, timeout=600) as r:
+        return r.status, r.headers["Content-Type"], r.read().decode()
+
+
+def reference_caption(gen_or_q, feats):
+    """The full-T kernel decode's caption and sequence logprob of the
+    first row."""
+    from gan_image_captioning_tpu_torch.data.synthetic import synthetic_vocab
+    from gan_image_captioning_tpu_torch.eval.decode import masked_logprob_sum
+    from gan_image_captioning_tpu_torch.eval.metrics import (ids_to_words,
+                                                             strip_caption)
+
+    ids, lps = continuous_reference(gen_or_q, feats)
+    return (" ".join(ids_to_words(strip_caption(ids[0].tolist()),
+                                  synthetic_vocab()[1])),
+            float(masked_logprob_sum(ids, lps)[0]))
+
+
+def rest_http(gen, gen_b, device, workdir):
+    """An HTTP front end over config3's continuous engine, dense and
+    ``--quantize int8``: ``POST``, ``/stats``, ``/metrics``, a stream and
+    ``{"reload"}`` to the second checkpoint, with the carried (dense) or
+    quantized serve kernel's launches equal to the engines' device calls;
+    ``POST`` latency beside ``handle_request``; a coalescing reload (the
+    full-T serve kernel); one ``--serve-watch`` reload; the time of each
+    reload."""
+    import shutil
+    import threading
+
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.config import Config
+    from gan_image_captioning_tpu_torch.models.generator import (
+        start_token_features)
+    from gan_image_captioning_tpu_torch.ops.quantize import quantize_generator
+
+    ckpt_a = str(workdir / "gen_full_width.ckpt")
+    ckpt_b = str(workdir / "gen_full_width_b.ckpt")
+    start = start_token_features(gen.decoder, 1)
+    start_b = start_token_features(gen_b.decoder, 1)
+    out = {}
+    for variant in ("dense", "int8"):
+        quant = [] if variant == "dense" else ["--quantize", "int8"]
+        qconfig = Config(vocab_size=V, gen_embed_dim=E, gen_hidden_dim=H,
+                         gen_num_layers=NL, max_seq_len=MAX_SEQ_LEN,
+                         quantize="int8")
+        refs = [reference_caption(g if not quant else quantize_generator(
+            g, qconfig), s) for g, s in ((gen, start), (gen_b, start_b))]
+        check(refs[0][0] != refs[1][0],
+              f"{variant}: the two checkpoints caption alike {refs}")
+        service = serve.CaptionService(serve.parse_args(
+            ["--checkpoint", ckpt_a, *MODEL_FLAGS, "--serve-continuous",
+             *quant]))
+        srv = serve.make_http_server(service, 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        key = "decode_serve_carry" if variant == "dense" \
+            else "decode_qserve_int8"
+        try:
+            calls0 = service.continuous.stats()["device_calls"]
+            for fn in rest_counters().values():
+                fn.launches = 0
+            code, before = http_post(base, {"n": 8})
+            code_s, _, stats_text = http_get(base, "/stats")
+            code_m, ctype, prom = http_get(base, "/metrics")
+            code_st, stream = http_post(base, {"n": 2, "stream": True},
+                                        stream=True)
+            old_calls = service.continuous.stats()["device_calls"] - calls0
+            code_r, reload = http_post(base, {"reload": ckpt_b})
+            code_a, after = http_post(base, {"n": 8})
+            new_calls = service.continuous.stats()["device_calls"]
+            launches = rest_launches()
+            post_ms, direct_ms = [], []
+            for _ in range(SR_REPS):
+                t0 = time.perf_counter()
+                http_post(base, {"n": 1})
+                post_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                service.handle_request({"n": 1})
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=30)
+            service.close()
+        partial = [ln for ln in stream[:-1] if ln["row"] == 0]
+        row = {"variant": variant, "codes": [code, code_s, code_m, code_st,
+                                             code_r, code_a],
+               "caption_before": before["captions"][0],
+               "caption_after": after["captions"][0],
+               "reload_ms": reload.get("latency_ms"),
+               "stream_lines": len(stream) - 1,
+               "launches": launches, "old_engine_calls": old_calls,
+               "new_engine_calls": new_calls,
+               "post_latency": percentiles(post_ms),
+               "handle_request_latency": percentiles(direct_ms),
+               "metrics_lines": len(prom.splitlines())}
+        emit({"phase": "serving_rest", "part": "http", **row})
+        check(row["codes"] == [200] * 6, f"{variant} http: codes {row}")
+        check(json.loads(stats_text)["continuous"]["device_calls"] > 0
+              and ctype.startswith("text/plain")
+              and 'gic_serving_device_calls{engine="continuous"}' in prom,
+              f"{variant} http: /stats or /metrics {prom}")
+        check(all(c == refs[0][0] for c in before["captions"])
+              and all(abs(x - refs[0][1]) <= SEQ_ATOL
+                      for x in before["logprobs"]),
+              f"{variant} http: captions before the reload {row} {refs}")
+        check(all(c == refs[1][0] for c in after["captions"])
+              and all(abs(x - refs[1][1]) <= SEQ_ATOL
+                      for x in after["logprobs"]),
+              f"{variant} http: captions after the reload {row} {refs}")
+        check(reload.get("reloaded") == ckpt_b and partial
+              and partial[-1]["done"]
+              and partial[-1]["partial"] == stream[-1]["captions"][0],
+              f"{variant} http: reload or stream {row}")
+        check(launches[key] > 0 and launches[key]
+              == old_calls + new_calls, f"{variant} http: {key} launches "
+              f"{launches} != device calls {old_calls} + {new_calls}")
+        other = "decode_qserve_int8" if variant == "dense" \
+            else "decode_serve_carry"
+        check(launches["decode_serve"] == 0 and launches[other] == 0,
+              f"{variant} http: another decode kernel ran {launches}")
+        out[variant] = row
+
+    # the coalescing engine's reload, and one --serve-watch reload
+    watched = str(workdir / "gen_watched.ckpt")
+    shutil.copy(ckpt_a, watched)
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", watched, *MODEL_FLAGS]))
+    try:
+        refs = [reference_caption(g, s) for g, s in ((gen, start),
+                                                     (gen_b, start_b))]
+        calls0 = service.batcher.stats()["device_calls"]
+        for fn in rest_counters().values():
+            fn.launches = 0
+        before = service.handle_request({"n": 8})["captions"]
+        reload = service.handle_request({"reload": ckpt_b})
+        after = service.handle_request({"n": 8})["captions"]
+        back = service.handle_request({"reload": watched})
+        launches = rest_launches()
+        calls = service.batcher.stats()["device_calls"] - calls0
+        service.start_watch(0.1)
+        try:
+            t0 = time.perf_counter()
+            shutil.copy(ckpt_b, watched + ".tmp")
+            Path(watched + ".tmp").replace(watched)
+            seen = before[0]
+            while seen == before[0] and time.perf_counter() - t0 < 120:
+                time.sleep(0.05)
+                seen = service.handle_request({"n": 1})["captions"][0]
+            watch_s = time.perf_counter() - t0
+        finally:
+            service.stop_watch()
+    finally:
+        service.close()
+    row = {"coalescing_reload_ms": reload["latency_ms"],
+           "coalescing_reload_back_ms": back["latency_ms"],
+           "launches": launches, "device_calls": calls,
+           "watch_reload_seconds": watch_s, "watch_poll_s": 0.1}
+    emit({"phase": "serving_rest", "part": "reload", **row})
+    check(all(c == refs[0][0] for c in before)
+          and all(c == refs[1][0] for c in after),
+          f"coalescing reload: captions {before[0]!r} / {after[0]!r} "
+          f"against {refs}")
+    check(launches["decode_serve"] == calls > 0,
+          f"coalescing reload: serve launches {launches} != {calls}")
+    check(seen == refs[1][0], f"--serve-watch did not reload: {seen!r}")
+    out["reload"] = row
+    return out
+
+
+def serving_rest_launches(entry, row):
+    """A kernels-line entry's launches in phase ``serving_rest``'s counted
+    drives: the HTTP front ends over the continuous engine (dense: the
+    carried chunk; int8: the quantized serve decode) with their reloads,
+    and the coalescing reload (the full-T serve decode).  The transformer
+    and speculative parts launch none of the repository's kernels (dense
+    cache attention and plain LSTM steps, as in the JAX package)."""
+    http = row["http"]
+    return {"decode_serve": http["reload"]["launches"]["decode_serve"],
+            "decode_serve_carry": http["dense"]["launches"][
+                "decode_serve_carry"],
+            "decode_qserve_int8": http["int8"]["launches"][
+                "decode_qserve_int8"]}.get(entry["name"], 0)
+
+
+def phase_serving_rest(gen, device, workdir):
+    """The serving slice at full width (the chip_smoke docstring's
+    ``serving_rest``)."""
+    from gan_image_captioning_tpu_torch.models.generator import (
+        init_generator_params)
+    from gan_image_captioning_tpu_torch.train.checkpoint import (
+        save_generator_checkpoint)
+
+    t0 = time.perf_counter()
+    gen_b = init_generator_params(torch.Generator().manual_seed(1),
+                                  eval_config(), device,
+                                  sweep=False).requires_grad_(False)
+    save_generator_checkpoint(str(workdir / "gen_full_width_b.ckpt"), gen_b)
+    marks = [("start", t0)]
+    out = {"transformer": rest_transformer(device, workdir)}
+    marks.append(("transformer", time.perf_counter()))
+    out["speculative"] = rest_speculative(gen, device, workdir)
+    marks.append(("speculative", time.perf_counter()))
+    out["http"] = rest_http(gen, gen_b, device, workdir)
+    marks.append(("http", time.perf_counter()))
+    emit({"phase": "serving_rest", "seconds": marks[-1][1] - t0,
+          "seconds_by_part": {name: t - marks[i][1] for i, (name, t)
+                              in enumerate(marks[1:])}})
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -8211,7 +8779,8 @@ def main(argv=None):
     if run("kernel"):
         kernel_rows = phase_kernel(gen.decoder, device)
     if any(run(p) for p in ("service", "timing", "continuous_service",
-                            "continuous_timing", "continuous_profile")):
+                            "continuous_timing", "continuous_profile",
+                            "serving_rest")):
         # the services read this checkpoint
         from gan_image_captioning_tpu_torch.train.checkpoint import (
             save_generator_checkpoint)
@@ -8276,6 +8845,8 @@ def main(argv=None):
         tf_bf16_row = phase_tf_bf16(device, workdir)
     if run("config5"):
         config5_row = phase_config5(device, workdir)
+    if run("serving_rest"):
+        rest_row = phase_serving_rest(gen, device, workdir)
     if only:
         return 0
 
@@ -8318,6 +8889,8 @@ def main(argv=None):
     for entry in kernels:
         entry["scst_launches"] = scst_launches(entry, scst_row)
         entry["step_options_launches"] = step_options_launches(entry, so_row)
+        entry["serving_rest_launches"] = serving_rest_launches(entry,
+                                                               rest_row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

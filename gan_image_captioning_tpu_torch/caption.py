@@ -14,11 +14,13 @@ Under ``--tokenizer bpe`` the captions are the BPE's text, as
 (the serve/greedy kernel on the card, ``--adaptive-chunk K`` its
 early-stopping chunks), ``beam`` (``--beam-groups`` above 1: diverse),
 ``sample`` (the sampling flags; noise from ``--sample-seed``, one
-generator a batch), or ``auto`` (beam when ``--beam-size`` is above 1).
+generator a batch), ``speculative`` (LSTM only: the greedy ids through
+``eval/speculative.py``, the quantized twin drafting ``--draft-len``
+tokens a block, and the logprobs of a rescoring pass), or ``auto`` (beam
+when ``--beam-size`` is above 1).
 ``--quantize int8|int4`` decodes the quantized decoder.  ``--device``
-defaults to ``cuda`` and raises without a card.  ``--exported``,
-``--decode-mode speculative`` and ``--mesh`` raise
-``NotImplementedError``.
+defaults to ``cuda`` and raises without a card.  ``--exported`` and
+``--mesh`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from gan_image_captioning_tpu_torch.config import (build_parser,
                                                    config_from_args,
                                                    require_ported_flags,
                                                    resolve_device)
-from gan_image_captioning_tpu_torch.serve import (add_sampling_args,
+from gan_image_captioning_tpu_torch.serve import (add_decode_mode_args,
+                                                  add_sampling_args,
                                                   decode_mode,
                                                   sample_generator)
 
@@ -49,13 +52,6 @@ def parse_args(argv=None):
                         help="how many captions to generate")
     parser.add_argument("--output", type=str, default="",
                         help="write captions as JSONL here (default: stdout)")
-    parser.add_argument("--decode-mode", type=str, default="auto",
-                        choices=["auto", "greedy", "beam", "sample",
-                                 "speculative"],
-                        help="'auto' = beam when --beam-size > 1 else "
-                             "greedy; 'sample' draws from the temperature/"
-                             "top-k/top-p filtered distribution "
-                             "('speculative' is not ported yet)")
     parser.add_argument("--beam-groups", type=int, default=1,
                         help="beam mode: diverse beam search with G groups "
                              "(G distinct captions per sample; 1 = vanilla "
@@ -68,13 +64,11 @@ def parse_args(argv=None):
                              "once every row emitted <E> (0 = the full-T "
                              "decode)")
     add_sampling_args(parser)
+    add_decode_mode_args(parser)
     args = parser.parse_args(argv)
     if args.exported:
         raise NotImplementedError("--exported: decoding from an exported "
                                   "artifact is not ported yet")
-    if args.decode_mode == "speculative":
-        raise NotImplementedError("--decode-mode speculative is not ported "
-                                  "yet")
     if not args.checkpoint:
         parser.error("--checkpoint is required")
     return args
@@ -89,6 +83,8 @@ def main(argv=None):
     from gan_image_captioning_tpu_torch.eval import decode as decode_lib
     from gan_image_captioning_tpu_torch.eval.metrics import (caption_text,
                                                              text_vocab)
+    from gan_image_captioning_tpu_torch.eval.speculative import (
+        speculative_greedy)
     from gan_image_captioning_tpu_torch.main import (build_datasets,
                                                      inject_vocab_size)
     from gan_image_captioning_tpu_torch.models import api
@@ -101,15 +97,19 @@ def main(argv=None):
     ds = {"train": train_ds, "val": val_ds, "test": val_ds}[args.split]
     inject_vocab_size(args, train_ds)
     config = config_from_args(args)
+    beam = max(1, config.beam_size)
+    mode = decode_mode(args, config)
+    if mode == "speculative" and config.gen_arch != "lstm":
+        raise SystemExit("--decode-mode speculative requires the LSTM "
+                         "generator (deferred-projection verify)")
     gen, _ = ckpt_lib.load_generator_checkpoint(args.checkpoint, config,
                                                 device)
     gen.requires_grad_(False)
     # --quantize: the encoder stays full precision, the decode reads the
-    # quantized decoder
-    dec = (quantize_generator(gen, config) if config.quantize != "none"
-           else gen)
-    beam = max(1, config.beam_size)
-    mode = decode_mode(args, config)
+    # quantized decoder; speculative mode: that twin (int8 under
+    # --quantize none) is the draft and gen the verify target
+    dec = (quantize_generator(gen, config)
+           if config.quantize != "none" or mode == "speculative" else gen)
 
     @torch.no_grad()
     def decode_batch(batch, call):
@@ -136,9 +136,14 @@ def main(argv=None):
                 repetition_penalty=args.repetition_penalty,
                 no_repeat_ngram=args.no_repeat_ngram,
                 min_length=args.min_length, context=ctx)
+        if mode == "speculative":
+            ids = speculative_greedy(gen, dec, feats, config,
+                                     draft_len=args.draft_len)
+            return ids, decode_lib.sequence_logprob(gen, feats, ids, config,
+                                                    ctx)
         if args.adaptive_chunk > 0:
             return decode_lib.greedy_with_logprobs_adaptive(
-                dec, feats, config, chunk=args.adaptive_chunk)
+                dec, feats, config, context=ctx, chunk=args.adaptive_chunk)
         ids = decode_lib.greedy(dec, feats, config, context=ctx)
         return ids, decode_lib.sequence_logprob(dec, feats, ids, config, ctx)
 

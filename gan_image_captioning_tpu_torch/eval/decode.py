@@ -12,8 +12,8 @@ A generator here is a port :class:`Generator` or the quantized twin
   the TPU, and a quantized one the quantized kernel's plain version.
 * :func:`greedy_with_logprobs_adaptive` decodes in K-step chunks that
   resume from the carried ``(h, c, x)`` (:func:`decode_chunk`, the same
-  wrapper call as the continuous engine's) and stops once every row has
-  emitted ``<E>``.
+  wrapper call as the continuous engine's), or from a transformer's KV
+  cache, and stops once every row has emitted ``<E>``.
 * The steppers (:func:`make_stepper`) are the per-step plain math of
   each decoder (dense LSTM, int8 / int4 LSTM, transformer over its KV
   cache), for teacher-forced scoring, sampling and beam search.
@@ -21,7 +21,8 @@ A generator here is a port :class:`Generator` or the quantized twin
   ``sample(pretrain=True)`` (JAX ``eval/decode.py:209-222``); its
   logprobs come from the same pass's logits (the teacher-forced logits of
   the greedy ids, which the JAX package recomputes with a second scan).
-  The transformer has no serve kernel and no adaptive decode here.  A
+  The transformer has no serve kernel; its adaptive decode steps its
+  stepper (the JAX stepper branch).  A
   conditional transformer's decodes take the encoder's grid as
   ``context`` (the JAX ``ctx_proj`` shape rule; beam searches repeat it
   K times, one copy a beam); its cross-attention keys and values are made
@@ -323,48 +324,93 @@ def greedy_with_logprobs(generator, features, config: Config,
 
 @torch.no_grad()
 def greedy_with_logprobs_adaptive(generator, features, config: Config,
-                                  seq_len: int = None, chunk: int = 8):
+                                  seq_len: int = None, context=None,
+                                  chunk: int = 8):
     """``(ids [B, T] int32, seq_logprob [B])`` with early stopping.
 
     Same contract as :func:`greedy_with_logprobs` up to and including each
     row's first ``<E>``; the tail after it is ``<PAD>`` (it is outside the
-    logprob mask anyway).  The decode runs ``chunk``-step blocks, each one
-    :func:`decode_chunk` call resuming from the carried ``(h, c, x)``, and
-    stops once every row has emitted ``<E>``: ``ceil(longest caption /
-    chunk)`` blocks instead of the full ``seq_len`` steps.  The JAX
-    package's ``lax.while_loop`` keeps that condition on the device; here
-    the loop is Python, so every chunk costs one host read of the ``done``
-    flags (a device synchronisation) before the next is launched.
+    logprob mask anyway).  The decode runs ``chunk``-step blocks and stops
+    once every row has emitted ``<E>``: ``ceil(longest caption / chunk)``
+    blocks instead of the full ``seq_len`` steps.  An LSTM block is one
+    :func:`decode_chunk` call resuming from the carried ``(h, c, x)``; a
+    transformer block is ``chunk`` steps of its stepper at positions ``t
+    .. t + chunk - 1`` over the KV cache (``context``: the conditional
+    transformer's grid), a row's ids and logprobs voided from the step
+    after its first ``<E>``, as the JAX stepper branch does.  The JAX
+    package's ``lax.while_loop`` keeps the stop condition on the device;
+    here the loop is Python, so every block costs one host read of the
+    ``done`` flags (a device synchronisation) before the next is launched.
     """
     seq_len = seq_len or config.seq_len
     api.require_ported(config)
-    if _is_transformer(generator):
-        raise NotImplementedError("the adaptive (early-stopping) decode of a "
-                                  "transformer generator is not ported yet")
-    dec = decoder_of(generator)
     B, device = features.shape[0], features.device
     K = max(1, min(chunk, seq_len))
     t_pad = -(-seq_len // K) * K
-    stepper = make_stepper(generator, config)
-    h, c = stepper.init_state(B)
-    x = features.to(h.dtype)     # the carried x is an embedding row later
     done = torch.zeros(B, dtype=torch.bool, device=device)
     ids_buf = torch.full((B, t_pad), PAD, dtype=torch.int32, device=device)
     lps_buf = torch.zeros((B, t_pad), dtype=torch.float32, device=device)
+    if _is_transformer(generator):
+        run_chunk = _transformer_chunks(generator, features, config, context,
+                                        seq_len, K)
+    else:
+        run_chunk = _lstm_chunks(generator, features, config, context, K)
     t = 0
     while t < seq_len:
-        ids_k, lps_k, (h, c, x) = decode_chunk(dec, x, h, c, K)
-        is_end = ids_k == END
-        # void rows already done and positions after the chunk's first <E>
-        after = torch.cumsum(is_end.to(torch.int32), dim=1) - is_end.int()
-        void = done[:, None] | (after > 0)
-        ids_buf[:, t:t + K] = torch.where(void, PAD, ids_k)
-        lps_buf[:, t:t + K] = torch.where(void, 0.0, lps_k)
-        done = done | is_end.any(dim=1)
+        ids_k, lps_k, done = run_chunk(t, done)
+        ids_buf[:, t:t + ids_k.shape[1]] = ids_k
+        lps_buf[:, t:t + ids_k.shape[1]] = lps_k
         t += K
         if bool(done.all()):            # the one host read of this chunk
             break
     return ids_buf[:, :seq_len], lps_buf[:, :seq_len].sum(dim=1)
+
+
+def _lstm_chunks(generator, features, config, context, K: int):
+    """The adaptive decode's LSTM block: one :func:`decode_chunk` call (the
+    carried-state serve kernel on CUDA tensors)."""
+    _lstm_takes_no_context(context)
+    dec = decoder_of(generator)
+    h, c = make_stepper(generator, config).init_state(features.shape[0])
+    carry = [h, c, features.to(h.dtype)]  # x becomes an embedding row later
+
+    def run_chunk(t, done):
+        ids_k, lps_k, carry[:] = decode_chunk(dec, carry[2], carry[0],
+                                              carry[1], K)
+        is_end = ids_k == END
+        # void rows already done and positions after the chunk's first <E>
+        after = torch.cumsum(is_end.to(torch.int32), dim=1) - is_end.int()
+        void = done[:, None] | (after > 0)
+        return (torch.where(void, PAD, ids_k), torch.where(void, 0.0, lps_k),
+                done | is_end.any(dim=1))
+
+    return run_chunk
+
+
+def _transformer_chunks(generator, features, config, context, seq_len: int,
+                        K: int):
+    """The adaptive decode's transformer block: up to ``K`` stepper steps
+    at their positions (the JAX scan's steps past ``seq_len`` are cut from
+    its output, so they are not run)."""
+    stepper = make_stepper(generator, config, context)
+    state = [stepper.init_state(features.shape[0])]
+    x = [features.to(stepper.embed(torch.zeros(
+        1, dtype=torch.long, device=features.device)).dtype)]
+
+    def run_chunk(t, done):
+        ids, lps = [], []
+        for pos in range(t, min(t + K, seq_len)):
+            logits, state[0] = stepper.step(state[0], x[0], pos)
+            raw = torch.argmax(logits, dim=-1)
+            lp = torch.log_softmax(logits, dim=-1).gather(
+                1, raw[:, None])[:, 0].to(torch.float32)
+            ids.append(torch.where(done, PAD, raw.to(torch.int32)))
+            lps.append(torch.where(done, 0.0, lp))
+            done = done | (raw == END)
+            x[0] = stepper.embed(raw)
+        return torch.stack(ids, dim=1), torch.stack(lps, dim=1), done
+
+    return run_chunk
 
 
 @torch.no_grad()

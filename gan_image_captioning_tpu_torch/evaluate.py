@@ -190,7 +190,7 @@ def main(argv=None):
                 length_penalty=config.length_penalty, context=ctx)
         elif args.adaptive_chunk > 0:
             ids, _ = decode_lib.greedy_with_logprobs_adaptive(
-                dec, feats, config, chunk=args.adaptive_chunk)
+                dec, feats, config, context=ctx, chunk=args.adaptive_chunk)
         else:
             ids = decode_lib.greedy(dec, feats, config, context=ctx)
         d_gen = d_real = torch.zeros((), device=device)

@@ -14,6 +14,8 @@ as the CNN discriminator's is.
 
 * :func:`teacher_forced` is the parallel causal pass (the MLE mode); with
   ``lengths``, key positions past ``1 + length`` are masked too.
+* :func:`decode_step_slots` is the continuous engine's step: a position
+  per row over a fixed ``[layers, N, T + 1, heads, head_dim]`` cache.
 * :func:`decode_step` / :func:`sample` are the incremental decode over a KV
   cache; ``sample`` gives raw logits and argmax ids (``pretrain``) or the
   Gumbel-softmax sample (``ops/gumbel.py``; its fused kernel unless
@@ -37,8 +39,8 @@ while the ResNet grid at a 256-wide transformer takes it).  The cache
 decode projects the context's keys and values once per decode
 (:func:`cross_kv`), not at every step as the JAX scan does: the same
 products of the same operands.
-Context parallelism, pipelining, activation sharding, ``GIC_TF_REMAT`` and
-``decode_step_slots`` are not ported either.
+Context parallelism, pipelining, activation sharding and ``GIC_TF_REMAT``
+are not ported either.
 
 Under ``--dtype bfloat16`` (``train/steps.py:compute_cast``) every
 operation runs in bfloat16 as the JAX package's does: the flash kernels'
@@ -430,6 +432,65 @@ def decode_step(dec, config: Config, x_tok, k_cache: List, v_cache: List,
                                                         h)))
     logits = _project(p, layer_norm(p, "ln_f", x))[:, 0, :]
     return logits, new_k, new_v
+
+
+def init_slot_cache(config: Config, batch: int, dtype=torch.float32,
+                    device="cpu"):
+    """The fixed cache of :func:`decode_step_slots`: keys and values
+    ``[layers, N, T + 1, heads, head_dim]`` (the JAX ``_init_kv_cache``),
+    zeros."""
+    h = config.gen_num_heads
+    shape = (config.gen_num_layers, batch, config.seq_len + 1, h,
+             config.gen_embed_dim // h)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def decode_step_slots(dec, config: Config, x_tok, k_cache, v_cache, t_vec,
+                      cross=None):
+    """One incremental decode step with a position per row (the JAX
+    ``decode_step_slots``, the continuous engine's slot step): row n's
+    input ``x_tok[n]`` sits at position ``t_vec[n]``, takes that
+    position's embedding, writes its keys and values at ``(n, t_vec[n])``
+    of the fixed caches ``[layers, N, T + 1, heads, head_dim]`` (written in
+    place) and attends the positions ``<= t_vec[n]``; the rest are filled
+    with the dtype's most negative score, as the JAX mask does.  ``cross``:
+    per block, the rows' cross-attention keys and values (:func:`cross_kv`
+    of each row's projected context, made when the row is admitted).
+    Returns ``(logits [N, V], k_cache, v_cache)``.
+
+    A slot's stale positions from an earlier occupant need no zeroing:
+    every position a row attends has been written since it was reset to
+    t = 0."""
+    p = dec if isinstance(dec, dict) else params_of(dec)
+    n_heads = config.gen_num_heads
+    batch = x_tok.shape[0]
+    rows = torch.arange(batch, device=x_tok.device)
+    t_vec = t_vec.to(device=x_tok.device, dtype=torch.long)
+    x = (x_tok + p["pos"][t_vec])[:, None, :]              # [N, 1, d]
+    pos_ok = (torch.arange(k_cache.shape[2], device=x.device)[None, :]
+              <= t_vec[:, None])[:, None, None, :]          # [N, 1, 1, L]
+    for li in range(k_cache.shape[0]):
+        name = f"blocks.{li}"
+        h_in = layer_norm(p, name + ".ln1", x)
+        q = _split_heads(dense(p, name + ".attn.wq", h_in), n_heads)
+        k_cache[li, rows, t_vec] = _split_heads(
+            dense(p, name + ".attn.wk", h_in), n_heads)[:, 0]
+        v_cache[li, rows, t_vec] = _split_heads(
+            dense(p, name + ".attn.wv", h_in), n_heads)[:, 0]
+        att = _dense_core(q, k_cache[li], v_cache[li],
+                          pos_ok).reshape(batch, 1, -1)
+        x = x + dense(p, name + ".attn.wo", att)
+        if cross is not None:
+            qc = _split_heads(dense(p, name + ".cross.wq", layer_norm(
+                p, name + ".ln_cross", x)), n_heads)
+            att = _dense_core(qc, *cross[li], None).reshape(batch, 1, -1)
+            x = x + dense(p, name + ".cross.wo", att)
+        h = layer_norm(p, name + ".ln2", x)
+        x = x + dense(p, name + ".mlp.fc2", gelu(dense(p, name + ".mlp.fc1",
+                                                        h)))
+    logits = _project(p, layer_norm(p, "ln_f", x))[:, 0, :]
+    return logits, k_cache, v_cache
 
 
 def start_token_features(decoder: TransformerDecoder, batch: int):

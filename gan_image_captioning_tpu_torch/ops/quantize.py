@@ -18,11 +18,14 @@ high nibble, ``R`` the packed row count (:func:`quantize_packed_int4`,
 scales), "lstm_q": [{"w": QTensor [in+H, 4H], "b": [4H]}, …],
 "linear": {"w": QTensor [H, V] (pre-transposed), "b": [V]}}`` — the layout
 ``eval/decode.py`` and ``kernels/decode_sample.py:decode_sample_q_serve``
-read.
+read.  A transformer generator's twin is fake-quantized instead
+(:func:`fake_quantize_tree`): the same module with each large weight
+rounded to its intN grid, decoded in full precision.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -148,17 +151,53 @@ def quantize_lstm_decoder(decoder, bits: int = 8) -> dict:
         }
 
 
-def quantize_generator(generator, config) -> dict:
-    """A port ``Generator`` → ``{"decoder": qdec}`` at ``--quantize``'s
-    bits.  LSTM only: the JAX package's transformer branch (fake
-    quantization) belongs to the transformer family, which is not
-    ported."""
-    if getattr(config, "gen_arch", "lstm") != "lstm":
-        raise NotImplementedError(
-            f"--quantize with --gen-arch {config.gen_arch}: only the LSTM "
-            "decoder is ported")
-    return {"decoder": quantize_lstm_decoder(generator.decoder,
-                                             config_bits(config))}
+def fake_quantize_tree(tree, channel_axis: int = -1, min_size: int = 4096,
+                       bits: int = 8):
+    """Quantize then dequantize every floating leaf of ``tree`` (tensors in
+    nested dicts, lists and tuples) that has two or more axes and at least
+    ``min_size`` elements, back in its own dtype; the rest (biases, small
+    tensors) stays as it is.  The intN storage fidelity of a decoder that
+    computes in full precision (the JAX ``fake_quantize_tree``: the same
+    scales and the same half-to-even rounding, so the values are the JAX
+    function's bit for bit)."""
+    if isinstance(tree, dict):
+        return {k: fake_quantize_tree(v, channel_axis, min_size, bits)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fake_quantize_tree(v, channel_axis, min_size, bits)
+                          for v in tree)
+    if (isinstance(tree, torch.Tensor) and tree.is_floating_point()
+            and tree.ndim >= 2 and tree.numel() >= min_size):
+        return dequantize(quantize(tree, channel_axis, bits), tree.dtype)
+    return tree
+
+
+def quantize_generator(generator, config):
+    """A port generator → its decode-quantized twin at ``--quantize``'s bits
+    (int8 when unset, as for the speculative draft).
+
+    * LSTM: ``{"decoder": qdec}`` (:func:`quantize_lstm_decoder`), read by
+      the quantized stepper and serve kernel.
+    * Transformer: a ``TransformerGenerator`` whose decoder is a
+      fake-quantized copy (:func:`fake_quantize_tree` over its
+      ``state_dict``: intN storage fidelity, full-precision compute), so it
+      decodes through the normal stepper; the encoder is shared, not
+      copied."""
+    from gan_image_captioning_tpu_torch.models.transformer import (
+        TransformerDecoder, TransformerGenerator)
+
+    if not isinstance(generator.decoder, TransformerDecoder):
+        return {"decoder": quantize_lstm_decoder(generator.decoder,
+                                                 config_bits(config))}
+
+    decoder = copy.deepcopy(generator.decoder)
+    with torch.no_grad():
+        decoder.load_state_dict(fake_quantize_tree(
+            decoder.state_dict(), bits=config_bits(config)))
+    twin = TransformerGenerator.__new__(TransformerGenerator)
+    torch.nn.Module.__init__(twin)
+    twin.decoder, twin.encoder = decoder, generator.encoder
+    return twin
 
 
 def quantized_lstm_step(qdec: dict, x, state):

@@ -558,7 +558,8 @@ class GANInstructor:
                 length_penalty=config.length_penalty, context=ctx)[0]
         if config.eval_adaptive_chunk > 0:
             return decode_lib.greedy_with_logprobs_adaptive(
-                gen, feats, config, chunk=config.eval_adaptive_chunk)[0]
+                gen, feats, config, context=ctx,
+                chunk=config.eval_adaptive_chunk)[0]
         return decode_lib.greedy(gen, feats, config, context=ctx)
 
     def evaluate_quality(self, max_batches=None):

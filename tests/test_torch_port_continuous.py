@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gan_image_captioning_tpu.config import Config as JConfig
 from gan_image_captioning_tpu.data.vocab import END
@@ -339,7 +340,18 @@ def test_many_submitting_threads_get_their_own_rows(engines):
 
 
 def test_continuous_refuses_transformer_slots():
+    """Transformer slots serve greedily (``test_torch_port_serve_tf_slots``);
+    speculative transformer slots are refused, as the JAX engine refuses
+    them (an LSTM target only), and so is a grid in an LSTM's rows."""
+    from gan_image_captioning_tpu_torch.models.transformer import (
+        init_transformer_generator_params)
+
     case = Case("dense", b=1)
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        ContinuousBatcher(case.params,
-                          case.config.replace(gen_arch="transformer"))
+    config = case.config.replace(gen_arch="transformer", gen_num_heads=2)
+    tgen = init_transformer_generator_params(torch.Generator(), config)
+    with pytest.raises(ValueError, match="LSTM"):
+        ContinuousBatcher(tgen, config, draft_params=case.params)
+    with pytest.raises(ValueError, match="LSTM"):
+        ContinuousBatcher(case.params, case.config, draft_params=tgen)
+    with pytest.raises(ValueError, match="transformer"):
+        ContinuousBatcher(case.params, case.config, context_shape=(4, 16))

@@ -207,9 +207,9 @@ def test_caption_sampling_is_seeded(checkpoints, tmp_path):
                        "--num-samples", "12"])
         runs.append([ln["caption"] for ln in _lines(out)])
     assert runs[0] == runs[1] and runs[0] != runs[2]
-    for flag in (["--exported", "m.gic"], ["--decode-mode", "speculative"]):
-        with pytest.raises(NotImplementedError):
-            tcaption.main([*FLAGS, "--checkpoint", tpath, *flag])
+    # (--decode-mode speculative is ported: test_torch_port_serve_http.py)
+    with pytest.raises(NotImplementedError):
+        tcaption.main([*FLAGS, "--checkpoint", tpath, "--exported", "m.gic"])
 
 
 @pytest.mark.parametrize("beam,adaptive", [(1, 0), (4, 0), (1, 3)])

@@ -227,15 +227,24 @@ def test_decode_impl_maps_onto_the_port_routes():
         decode_route(config.replace(decode_impl="scan"))
 
 
-SERVE_REFUSED = [("--exported", "m.gic"), ("--http-port", "8080"),
-                 ("--serve-watch", "5"), ("--decode-mode", "speculative"),
-                 ("--draft-len", "2")]
+SERVE_REFUSED = [("--exported", "m.gic")]
+# serve flags that were refused until the serving slice ported them: each
+# parses to its value (what each does: test_torch_port_serve_http.py)
+SERVE_HONOURED = [("--http-port", "8080", 8080), ("--serve-watch", "5", 5.0),
+                  ("--decode-mode", "speculative", "speculative"),
+                  ("--draft-len", "2", 2)]
 
 
 @pytest.mark.parametrize("flag,value", SERVE_REFUSED)
 def test_refused_serve_flags_raise_when_set(flag, value):
     with pytest.raises(NotImplementedError, match=flag):
         tserve.parse_args(["--init-seed", "0", flag, value])
+
+
+@pytest.mark.parametrize("flag,value,parsed", SERVE_HONOURED)
+def test_honoured_serve_flags_parse(flag, value, parsed):
+    args = tserve.parse_args(["--init-seed", "0", flag, value])
+    assert getattr(args, flag[2:].replace("-", "_")) == parsed
 
 
 # every decode mode the port serves, and each sampling knob: (mode, more

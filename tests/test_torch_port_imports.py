@@ -60,7 +60,7 @@ def test_fresh_import_adds_no_jax_module():
                  "eval.rouge", "eval.meteor", "eval.diversity",
                  "eval.metrics", "train.schedule", "train.scst",
                  "models.vit", "data.bpe", "models.torch_import",
-                 "import_gpt2", "import_vit"):
+                 "import_gpt2", "import_vit", "eval.speculative"):
         assert f"gan_image_captioning_tpu_torch.{name}" in added
     assert "torch" in added or "torch" in sys.modules
     assert [m for m in added if _forbidden(m)] == []

@@ -144,10 +144,24 @@ def test_quantize_generator_follows_the_flag(decoder, monkeypatch, quantize,
 
 
 def test_quantize_generator_refuses_a_transformer(decoder):
-    _, gen = decoder
-    with pytest.raises(NotImplementedError, match="transformer"):
-        tq.quantize_generator(gen, Config(gen_arch="transformer",
-                                          quantize="int8"))
+    """A transformer is no longer refused: its twin is a fake-quantized
+    transformer generator, not a quantized LSTM decoder (its values
+    against the JAX twin: ``test_torch_port_serve_tf_slots.py``)."""
+    from gan_image_captioning_tpu_torch.models.transformer import (
+        TransformerGenerator, init_transformer_generator_params)
+
+    config = Config(vocab_size=40, gen_arch="transformer", gen_num_heads=2,
+                    gen_embed_dim=32, gen_hidden_dim=128, gen_num_layers=1,
+                    quantize="int8")
+    gen = init_transformer_generator_params(torch.Generator(), config)
+    twin = tq.quantize_generator(gen, config)
+    assert isinstance(twin, TransformerGenerator)
+    assert not tq.is_quantized(twin.decoder)
+    w = twin.decoder.blocks[0].mlp.fc1.w
+    assert not torch.equal(w, gen.decoder.blocks[0].mlp.fc1.w)
+    scale = w.abs().amax(dim=0) / 127
+    torch.testing.assert_close(w / scale, torch.round(w / scale), atol=1e-4,
+                               rtol=0)
 
 
 def test_qmatmul_matches_jax():

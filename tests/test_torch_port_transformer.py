@@ -285,9 +285,29 @@ def test_service_answers_from_a_transformer(tmp_path):
     ["--serve-continuous"], ["--serve-adaptive-chunk", "4"],
     ["--quantize", "int8"]])
 def test_unported_transformer_serving_raises(extra):
-    with pytest.raises(NotImplementedError):
-        serve.CaptionService(serve.parse_args(["--init-seed", "0", *FLAGS,
-                                               *extra]))
+    """The continuous engine, the adaptive decode and ``--quantize`` serve
+    a transformer now: the captions of the greedy decode of the service's
+    decode weights (the fake-quantized twin under ``--quantize``).  What
+    still raises with each: ``--decode-mode speculative`` (LSTM only, as
+    in the JAX package)."""
+    service = serve.CaptionService(serve.parse_args(["--init-seed", "0",
+                                                     *FLAGS, *extra]))
+    try:
+        resp = service.handle_request({"n": 2})
+        feats = torch.from_numpy(service._features_unconditional(2))
+        ids, lp = tdecode.greedy_with_logprobs(service.dec_params, feats,
+                                               service.config)
+        assert resp["captions"] == [service._caption(r.tolist())
+                                    for r in ids]
+        np.testing.assert_allclose(resp["logprobs"], lp.numpy(), atol=1e-4)
+        assert (service.continuous is not None) == (
+            "--serve-continuous" in extra)
+    finally:
+        service.close()
+    with pytest.raises(SystemExit, match="LSTM"):
+        serve.CaptionService(serve.parse_args(
+            ["--init-seed", "0", *FLAGS, *extra, "--decode-mode",
+             "speculative"]))
 
 
 @pytest.mark.parametrize("override", [{"disc_arch": "bilstm"}])
