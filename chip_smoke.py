@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only tf_bf16
     python3 chip_smoke.py --only config5
     python3 chip_smoke.py --only serving_rest
+    python3 chip_smoke.py --only bf16_rest,extras
 
 Drives ``gan_image_captioning_tpu_torch`` at the full width of preset
 config3 with the bench's vocabulary (2-layer LSTM, E = H = 512,
@@ -470,13 +471,61 @@ generator, bfloat16), and prints one JSON line per phase:
     its device calls) and one ``--serve-watch`` reload of a rewritten
     checkpoint; each reload's time.
 
+35. ``bf16_rest`` — the rest of ``--dtype bfloat16`` at config3 width (B =
+    64, T = 36, V = 11008).  The four new bfloat16 instantiations against
+    their plain versions on the same bfloat16 inputs, with phase
+    ``bf16``'s tolerances: decode mode ``sample`` (the noise within a
+    bfloat16 step, ids ties within 4 units, ids equal to
+    ``sample_resid``'s on the same uniforms), mode ``sample_embed`` (ids,
+    residuals and soft sample as ``sample_resid``'s; emb within a step
+    plus 1e-5 of its largest entry, the float32 embedding's tolerance,
+    where a sum over V cancels), the embed backward on the decode's own
+    soft sample and top h (float32 dWp and dbp within 1e-4 of their
+    largest, bfloat16 d_htop within 2 units, two calls bit-equal) and the
+    DXS backward from the raw bfloat16 gradient (float32 DXS and db within
+    1e-5 times the larger of 1 and their largest, dW within 1e-4); each
+    one's ``device_ms`` beside its plain version's and its bound (bfloat16
+    bytes at 3.35 TB/s, bfloat16 products at 989 TFLOP/s), the embed
+    backward's three cuBLAS products in bfloat16 as its library time.
+    Then one bfloat16 adversarial step (``bf16_mu``) on each of
+    ``kernel_rescore``, ``kernel_embed``, ``decoupled``, ``hybrid`` and
+    ``mxu_dxs`` with the launches of the design, every one bfloat16, each
+    step's losses (4 units) and gradients (8 units of each tensor's
+    largest entry) through the kernels against the same step with its
+    kernels swapped for their plain versions on the same state and fed
+    noise (the decode's outputs shared after the plain computation holds
+    them; the conv argmax rows and ReLU decisions replayed); a step under
+    ``bf16_grads`` against the same step without it (the same losses, the
+    gradients float32 and within 8 units); and the int8 service at
+    ``--dtype float32`` with ``int8_dtype="bfloat16"``: ``{"n": 8}``
+    captions of the plain quantized decode in bfloat16, every quantized
+    launch bfloat16 and equal to the engine's device calls.
+
+36. ``extras`` — the data and model extras at full width: config3
+    conditional on 256 x 256 ``images_u8`` with ``--random-flip 1
+    --random-crop-pad 4`` (an MLE and an adversarial step, the fed coins
+    and offsets taken bit for bit, ``image_norm`` once a step after the
+    augmentation); an adversarial step with ``--disc-arch bilstm`` (embed
+    64, hidden 128, 4 layers a direction; the reverse BPTT kernel 24 times:
+    3 passes x 2 directions x 4 layers) against the plain route (losses
+    within 1e-4, ``routes_agree``); ``main.py --cache-features 1`` on 128
+    synthetic conditional items, an epoch of each phase, and the MLE
+    step's time on images against cached features with the precompute's
+    time per image; ``--encoder-init natural``: eval-mode features of
+    distinct images that part (spread above 1e-2 and 1000 times the swept
+    encoder's); config4's (float32) and config5's (bfloat16) MLE step under
+    ``tf_remat`` against the same step without it (the loss and every
+    gradient within 1e-6, a bfloat16 unit for config5, of their largest;
+    more launches: the recompute), each one's peak memory and device time.
+
 Then the ``kernels`` line (every ported kernel: the five of the training
 and serving paths, the carried serve kernel, the quantized serve kernel at
 8 and 4 bits, ``image_norm``, the three flash-attention kernels, the
 Gumbel sampler, the per-batch-row conv forward and backward, the DXS
 backward, the reverse BPTT, the decode modes ``sample``, ``pretrain`` and
 ``sample_embed``, the fused-embed backward, and the bfloat16
-instantiations of phases ``bf16`` and ``tf_bf16``, and config5's shapes,
+instantiations of phases ``bf16``, ``tf_bf16`` and ``bf16_rest``, and
+config5's shapes,
 with their launches in their drives; ``serving_rest_launches``: their
 launches in phase ``serving_rest``'s HTTP and reload drives) and,
 last, ``{"ok": true,
@@ -8739,6 +8788,816 @@ def phase_serving_rest(gen, device, workdir):
     return out
 
 
+# ------------------------------------------- bfloat16, the rest of it
+
+BF16_REST_TPU_KERNELS = {
+    "decode_sample_noise_bf16": f"{DECODE_TPU}:121",     # mode sample
+    "decode_sample_embed_bf16": f"{DECODE_TPU}:121",     # mode sample_embed
+    "decode_sample_embed_bwd_bf16": f"{DECODE_TPU}:826",
+    "disc_conv_bwd_dxs_bf16": f"{DISC_TPU}:496",         # _mxu_bwd_kernel
+}
+BF16_REST_SOURCES = {"decode_sample_noise_bf16": "decode_serve.cu",
+                     "decode_sample_embed_bf16": "decode_serve.cu",
+                     "decode_sample_embed_bwd_bf16": "decode_embed_bwd.cu",
+                     "disc_conv_bwd_dxs_bf16": "disc_conv.cu"}
+# the counter (``counters()``) behind each entry
+BF16_REST_COUNTERS = {"decode_sample_noise_bf16": "decode_sample_noise",
+                      "decode_sample_embed_bf16": "decode_sample_embed",
+                      "decode_sample_embed_bwd_bf16":
+                          "decode_sample_embed_bwd",
+                      "disc_conv_bwd_dxs_bf16": "disc_conv_bwd_dxs"}
+# the routes of this phase's bfloat16 adversarial steps: their Config
+# overrides and the launches of one step by design, every one bfloat16
+BF16_REST_ROUTES = {
+    "kernel_rescore": ({"decode_impl": "kernel_rescore"},
+                       {"decode_sample_noise": 1, "lstm_bptt_reverse": NL,
+                        **CONV_PER_ADV}),
+    "kernel_embed": ({"decode_impl": "kernel_embed"},
+                     {"decode_sample_embed": 1, "decode_sample_embed_bwd": 1,
+                      "lstm_bptt_chain": 1, **CONV_PER_ADV}),
+    "decoupled": ({"decode_impl": "decoupled"},
+                  {"lstm_bptt_reverse": NL, **CONV_PER_ADV}),
+    "hybrid": ({"disc_engine": "hybrid"},
+               {"decode_sample_resid": 1, "lstm_bptt_chain": 1,
+                **PER_ENGINE_STEP["hybrid"]}),
+    "mxu_dxs": ({"disc_engine": "mxu_dxs"},
+                {"decode_sample_resid": 1, "lstm_bptt_chain": 1,
+                 **PER_ENGINE_STEP["mxu_dxs"]}),
+}
+
+
+def rest_counts(cnt, what):
+    """``bf16_launches`` of the wrappers that launched."""
+    return {k: v for k, v in bf16_launches(cnt, what).items() if v}
+
+
+def rest_reset():
+    """``counters()``, every launch count set to 0."""
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = fn.bf16_launches = 0
+    return cnt
+
+
+def rest_embed_work(B):
+    """Mode sample_embed in bfloat16: the resid decode's bytes, wd in and
+    emb out (2 bytes), and the embedding product."""
+    nbytes, flops = bf16_decode_work(B, "resid")
+    return (nbytes + 2 * (DISC_E * V + T * B * DISC_E),
+            flops + 2 * T * B * V * DISC_E)
+
+
+def rest_embed_bwd_work(B):
+    """bfloat16 h_top, soft, d_emb, w_proj and wd in, d_htop out; float32
+    dWp and dbp out; the three products of bfloat16 operands."""
+    nbytes = (2 * (2 * T * B * H + T * B * V + T * B * DISC_E + V * H
+                   + DISC_E * V) + 4 * (V * H + V))
+    return nbytes, 2 * T * B * V * (DISC_E + 2 * H)
+
+
+def rest_dxs_work(B):
+    """The DXS backward on bfloat16 emb, w, pooled and d_pooled (idx
+    int32): DXS, dW and db float32 out."""
+    q, n_all = B * DISC_R, sum(n for n, _ in BANKS)
+    emb, w = B * (T + 4) * DISC_E, n_all * max(f for _, f in BANKS)
+    dxs = sum(4 * (T - f + 1) * q * f for _, f in BANKS)
+    return (2 * (emb + w + 2 * q * n_all) + 4 * q * n_all + dxs
+            + 4 * (w + n_all), sum(4 * q * n * f for n, f in BANKS))
+
+
+@contextlib.contextmanager
+def rest_decode_replay(name, check_fn):
+    """Within it, the first call of ``generator.<name>`` is recorded
+    (``out["kernel"]``); the second (the plain run's) gets the recorded
+    outputs after ``check_fn(recorded, args, kwargs)`` holds them to the
+    plain computation from its own arguments, so that both runs share the
+    sample (as ``bf16_resid_replay``)."""
+    from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+
+    orig, out = getattr(gen_lstm, name), {}
+
+    def call(*args, **kwargs):
+        if "kernel" not in out:
+            out["kernel"] = orig(*args, **kwargs)
+            return out["kernel"]
+        out["check"] = check_fn(out["kernel"], args, kwargs)
+        return out["kernel"]
+
+    setattr(gen_lstm, name, call)
+    try:
+        yield out
+    finally:
+        setattr(gen_lstm, name, orig)
+
+
+@contextlib.contextmanager
+def rest_patched(pairs):
+    """``(module, name, value)`` attributes set within it."""
+    old = [(m, n, getattr(m, n)) for m, n, _ in pairs]
+    for m, n, v in pairs:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in old:
+            setattr(m, n, v)
+
+
+def rest_noise_check(rec, args, kwargs):
+    """Mode sample's recorded (ids, noise) against the plain decode of the
+    same arguments: noise entry by entry within a bfloat16 step of the
+    plain Gumbel noise of the fed uniforms, ids ties of the plain decode
+    fed them."""
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+    ids, noise = rec
+    feats, layers, w_proj, b_proj, embed, _ = args[:6]
+    u = kwargs.get("uniforms", args[7] if len(args) > 7 else None)
+    ref = bf16_forced((layers, w_proj, b_proj, embed), feats, ids, u)
+    _, ratio = bf16_steps(noise, gumbel_noise(u.shape, u=u).to(noise.dtype),
+                          "route noise")
+    return {"id_gap_units": bf16_id_gap(ref["scores"], ids),
+            "noise_step_ratio": ratio}
+
+
+def rest_embed_check(rec, args, kwargs):
+    """Mode sample_embed's recorded outputs against the plain computation
+    from their own inputs: ids ties, the soft sample within a bfloat16
+    step of the softmax of the kernel's top h, emb within a step (plus
+    the float32 1e-5 of its largest where a sum cancels) of the product
+    of that soft sample."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+    ids, emb, soft, hs, _, _ = rec
+    # (features, layers, w_proj, b_proj, embed, seq_len, disc_embed, seed,
+    # temperature, uniforms), as _SampleEmbed passes them
+    feats, layers, w_proj, b_proj, embed, _, wd, _, temp, u = args[:10]
+    ref = bf16_forced((layers, w_proj, b_proj, embed), feats, ids, u, temp)
+    s = ds._logits(hs[:, -1], w_proj, b_proj) + gumbel_noise(u.shape, u=u)
+    _, soft_ratio = bf16_steps(soft, torch.softmax(s * temp, dim=-1)
+                               .to(soft.dtype), "route soft sample")
+    _, emb_ratio = bf16_steps(emb, (soft.float() @ wd.float().T)
+                              .to(emb.dtype), "route emb", floor=1e-5)
+    return {"id_gap_units": bf16_id_gap(ref["scores"], ids),
+            "soft_step_ratio": soft_ratio, "emb_step_ratio": emb_ratio}
+
+
+def rest_kernels(gen, device):
+    """The four new bfloat16 instantiations against their plain versions at
+    config3 width (B = 64) on the same bfloat16 inputs, with their device
+    times beside the plain versions', the bounds and (the embed backward)
+    its three cuBLAS products in bfloat16."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.ops.gumbel import gumbel_noise
+
+    B = B_TRAIN
+    weights = bf16_decoder(gen.decoder)
+    feats = seeded((B, E), 901, device).to(BF16)
+    u = torch.rand((T, B, V), generator=torch.Generator(device=device)
+                   .manual_seed(902), device=device)
+    temp = float(torch.tensor(TEMP, dtype=BF16))
+    wd = seeded((DISC_E, V), 903, device, 0.1).to(BF16)
+    rows, times = {}, {}
+
+    ids, noise = ds.decode_sample(feats, *weights, T, mode="sample",
+                                  uniforms=u)
+    check(noise.dtype == BF16, "bf16 sample: the noise is not bfloat16")
+    ref = bf16_forced(weights, feats, ids, u)
+    err, ratio = bf16_steps(noise, gumbel_noise(u.shape, u=u).to(BF16),
+                            "sample noise")
+    rows["decode_sample_noise_bf16"] = {
+        "id_gap_units": bf16_id_gap(ref["scores"], ids),
+        "ids_equal_sample_resid": bool(torch.equal(
+            ids, ds.decode_sample_resid(feats, *weights, T,
+                                        uniforms=u)[0])),
+        "max_abs_noise_diff": err, "noise_step_ratio": ratio}
+    check(rows["decode_sample_noise_bf16"]["id_gap_units"] <= BF16_ID_UNITS
+          and rows["decode_sample_noise_bf16"]["ids_equal_sample_resid"],
+          f"bf16 sample {rows['decode_sample_noise_bf16']}")
+    times["decode_sample_noise_bf16"] = bf16_time(
+        lambda: ds.decode_sample_noise(feats, *weights, T, seed=3),
+        lambda: ds.decode_sample_noise_plain(feats, *weights, T, u),
+        bf16_decode_work(B, "pretrain"), k_calls=10, p_calls=2,
+        plain_events=True)
+
+    ids, emb, soft, hs, cs, gates = ds.decode_sample(
+        feats, *weights, T, mode="sample_embed", temperature=temp,
+        uniforms=u, disc_embed=wd)
+    check(all(x.dtype == BF16 for x in (emb, soft, hs, cs, gates)),
+          "bf16 sample_embed outputs are not bfloat16")
+    ref = bf16_forced(weights, feats, ids, u, temp)
+    row = {"id_gap_units": bf16_id_gap(ref["scores"], ids)}
+    for name, a in (("hs", hs), ("cs", cs), ("gates", gates)):
+        row[f"max_abs_{name}_diff"] = bf16_close(a, ref[name],
+                                                 BF16_OUT_UNITS,
+                                                 f"sample_embed {name}")
+    s_own = ds._logits(hs[:, -1], weights[1], weights[2]) + gumbel_noise(
+        u.shape, u=u)
+    row["max_abs_soft_diff"], row["soft_step_ratio"] = bf16_steps(
+        soft, torch.softmax(s_own * temp, dim=-1).to(BF16),
+        "sample_embed soft")
+    del s_own
+    row["max_abs_emb_diff"], row["emb_step_ratio"] = bf16_steps(
+        emb, (soft.float() @ wd.float().T).to(BF16), "sample_embed emb",
+        floor=1e-5)
+    check(row["id_gap_units"] <= BF16_ID_UNITS, f"bf16 sample_embed {row}")
+    rows["decode_sample_embed_bf16"] = row
+    times["decode_sample_embed_bf16"] = bf16_time(
+        lambda: ds.decode_sample_embed(feats, *weights, T, wd, seed=3,
+                                       temperature=temp),
+        lambda: ds.decode_sample_embed_plain(feats, *weights, T, u, temp,
+                                             wd),
+        rest_embed_work(B), k_calls=10, p_calls=2, plain_events=True)
+
+    # the embed backward on the decode's own bfloat16 soft sample and top h
+    h_top = hs[:, -1].contiguous()
+    d_emb = seeded((T, B, DISC_E), 904, device, 1e-2).to(BF16)
+    bargs = (h_top, soft, d_emb, weights[1], wd, temp)
+    got = ds.decode_sample_embed_bwd(*bargs)
+    again = ds.decode_sample_embed_bwd(*bargs)
+    want = ds.decode_sample_embed_bwd_plain(*bargs)
+    row = {"two_calls_bit_equal": all(torch.equal(a, b)
+                                      for a, b in zip(got, again))}
+    for name, a, b in (("dwp", got[0], want[0]), ("dbp", got[1], want[1])):
+        row[f"max_abs_{name}_diff"] = float((a - b).abs().max())
+        row[f"{name}_rel"] = row[f"max_abs_{name}_diff"] / max(
+            float(b.abs().max()), 1e-30)
+        check(a.dtype == torch.float32 and row[f"{name}_rel"] <= DWP_RTOL,
+              f"bf16 embed backward {name} {row}")
+    check(got[2].dtype == BF16, "bf16 embed backward d_htop dtype")
+    row["max_abs_d_htop_diff"] = bf16_close(got[2], want[2], BF16_OUT_UNITS,
+                                            "embed backward d_htop")
+    check(row["two_calls_bit_equal"], "bf16 embed backward not "
+          "deterministic")
+    rows["decode_sample_embed_bwd_bf16"] = row
+    t = bf16_time(lambda: ds.decode_sample_embed_bwd(*bargs),
+                  lambda: ds.decode_sample_embed_bwd_plain(*bargs),
+                  rest_embed_bwd_work(B))
+    # the library yardstick: the plain version's three products, in
+    # bfloat16 (cuBLAS, float32 accumulation)
+    dl = seeded((T * B, V), 905, device, 1e-4).to(BF16)
+    products = embed_bwd_products(h_top, d_emb, weights[1], wd, dl)
+    t["library_ms"] = [device_ms(lambda: [f() for f in products.values()],
+                                 10) for _ in range(2)]
+    t["library"] = "three bfloat16 cuBLAS products (d_soft, dWp, d_htop)"
+    times["decode_sample_embed_bwd_bf16"] = t
+    del got, again, want, products, dl
+
+    # the DXS backward from the raw bfloat16 gradient
+    emb_pad, w_all, b_all, banks = (x.to(BF16) if torch.is_tensor(x) else x
+                                    for x in conv_inputs(device))
+    pooled, idx = disc_conv.conv_bank_forward(emb_pad, w_all, b_all, banks,
+                                              DISC_R, 1)
+    d_pooled = seeded(tuple(pooled.shape), 906, device).to(BF16)
+    got = disc_conv.conv_bank_dxs_raw(emb_pad, w_all, banks, DISC_R, 1,
+                                      pooled, idx, d_pooled)
+    want = disc_conv.conv_dxs_raw_plain(emb_pad, w_all, banks, DISC_R, 1,
+                                        pooled, idx, d_pooled)
+    row = {}
+    for name, a, b, rtol in (
+            ("dxs", torch.cat([x.flatten() for x in got[0]]),
+             torch.cat([x.flatten() for x in want[0]]), DXS_ATOL),
+            ("dw", got[1], want[1], DW_RTOL), ("db", got[2], want[2],
+                                               DB_ATOL)):
+        row[f"max_abs_{name}_diff"] = float((a - b).abs().max())
+        check(a.dtype == torch.float32 and row[f"max_abs_{name}_diff"]
+              <= rtol * max(1.0, float(b.abs().max())),
+              f"bf16 DXS backward {name} {row}")
+    rows["disc_conv_bwd_dxs_bf16"] = row
+    times["disc_conv_bwd_dxs_bf16"] = bf16_time(
+        lambda: disc_conv.conv_bank_dxs_raw(emb_pad, w_all, banks, DISC_R, 1,
+                                            pooled, idx, d_pooled),
+        lambda: disc_conv.conv_dxs_raw_plain(emb_pad, w_all, banks, DISC_R,
+                                             1, pooled, idx, d_pooled),
+        rest_dxs_work(B), p_calls=5, plain_events=True)
+    for name in BF16_REST_TPU_KERNELS:
+        emit({"phase": "bf16_rest", "kernel": name, **rows[name],
+              **{k: v for k, v in times[name].items()
+                 if k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                          "plain_timer", "library_ms", "library")}})
+    return rows, times
+
+
+def rest_plain_run(route, config, state, batch, noise, rec):
+    """``adv_grads`` of ``route`` with every kernel of the step swapped for
+    its plain version: the decode's recorded outputs replayed after the
+    plain computation holds them, the BPTT recurrences and the embed
+    backward plain, the conv banks the plain engine at the kernel run's
+    argmax rows (the hybrid engine: its own forward, the plain backward)."""
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.kernels.lstm_bptt import (
+        lstm_bptt_chain_plain, lstm_bptt_reverse_plain)
+    from gan_image_captioning_tpu_torch.models import generator as gen_lstm
+    from gan_image_captioning_tpu_torch.models import lstm as lstm_lib
+    from gan_image_captioning_tpu_torch.train.steps import adv_grads
+
+    pairs = [(lstm_lib, "lstm_bptt_reverse", lstm_bptt_reverse_plain),
+             (gen_lstm, "lstm_bptt_chain", lstm_bptt_chain_plain),
+             (gen_lstm, "decode_sample_embed_bwd",
+              ds.decode_sample_embed_bwd_plain)]
+    cfg = config.replace(disc_engine="plain")
+    if route == "hybrid":
+        cfg = config
+        pairs.append((disc_conv, "conv_rows_backward",
+                      disc_conv.conv_rows_backward_plain))
+    if route in ("hybrid", "mxu_dxs"):    # the plain decode route, shared
+        cfg = cfg.replace(decode_impl="plain")
+    with rest_patched(pairs), disc_conv.argmax_replay(rec["pool"]) as report:
+        if route in ("hybrid", "mxu_dxs"):
+            with bf16_resid_replay(rec["resid"]) as gaps:
+                out = adv_grads(cfg, state, batch, TEMP, noise)
+            checks = {"id_gap_units": max(g for g, _ in gaps),
+                      "soft_step_ratio": max(r for _, r in gaps)}
+        else:
+            out = adv_grads(cfg, state, batch, TEMP, noise)
+            checks = rec["decode"].get("check", {})
+    return out, checks, report
+
+
+def rest_routes(gen, device):
+    """One bfloat16 adversarial step (``bf16_mu``) of each route of
+    ``BF16_REST_ROUTES`` with its launches, every one bfloat16, and its
+    losses and gradients through the kernels against the same step with
+    its kernels swapped for their plain versions (``rest_plain_run``) on
+    the same state and fed noise, as ``bf16_train`` holds the kernel
+    route: losses within 4 units, each gradient tensor within 8 units of
+    its own largest entry, the conv ties within 4 units; then a step under
+    ``bf16_grads`` against the same step without it."""
+    from gan_image_captioning_tpu_torch.kernels import disc_conv
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (adv_grads,
+                                                            make_adv_step)
+
+    base = bf16_config()
+    disc = api.init_discriminator(torch.Generator().manual_seed(1), base,
+                                  device, sweep=False)
+    g = copy.deepcopy(gen).requires_grad_(True)
+    state = create_train_state(base, 0, device, gen=g, disc=disc)
+    batch = train_batch(device)
+    noise = fed_noise(base, device)
+    out, total = {}, {}
+    for route, (over, per) in BF16_REST_ROUTES.items():
+        config = base.replace(**over)
+        cnt = rest_reset()
+        snap = copy.deepcopy((state.gen.state_dict(),
+                              state.disc.state_dict()))
+        _, m = make_adv_step(config)(state, batch, TEMP, noise)
+        torch.cuda.synchronize()
+        launches = rest_counts(cnt, f"bf16 {route} step")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(launches == per, f"bf16 {route} launches {launches} != {per}")
+        check(all(math.isfinite(float(v)) for v in m.values()),
+              f"bf16 {route} metrics {m}")
+        state.gen.load_state_dict(snap[0])
+        state.disc.load_state_dict(snap[1])
+        # the kernel run, recorded, then the plain run replaying it
+        rec = {}
+        name = {"kernel_rescore": ("decode_sample_noise", rest_noise_check),
+                "kernel_embed": ("decode_sample_embed",
+                                 rest_embed_check)}.get(route)
+        ctx = (rest_decode_replay(*name) if name
+               else contextlib.nullcontext({}))
+        with ctx as dec_rec:
+            with disc_conv.argmax_record() as pool, \
+                    bf16_resid_record() as resid:
+                kern = adv_grads(config, state, batch, TEMP, noise)
+            rec = {"pool": pool, "resid": resid, "decode": dec_rec}
+            plain, checks, report = rest_plain_run(route, config, state,
+                                                   batch, noise, rec)
+        tie_scale = max([float(p.abs().max()) for _, p in pool["pool"]]
+                        + [float(x.abs().max()) for x in pool["relu"]]
+                        + [1e-30])
+        cmp = {"metrics": {k: float(v) for k, v in m.items()},
+               "launches": launches,
+               "g_loss": [float(kern[0]), float(plain[0])],
+               "d_loss": [float(kern[1]), float(plain[1])],
+               "worst_grad_units": sorted(
+                   ((k, v / BF16_UNIT) for k, v in
+                    bf16_grad_errs(kern, plain).items()),
+                   key=lambda kv: -kv[1])[:4],
+               "argmax_gap_units": max([gp for gp, _ in report] + [0.0])
+               / (BF16_UNIT * tie_scale), **checks}
+        emit({"phase": "bf16_rest", "route": route, **cmp})
+        for a, b in (cmp["g_loss"], cmp["d_loss"]):
+            check(abs(a - b) <= BF16_LOSS_UNITS * BF16_UNIT * abs(b),
+                  f"bf16 {route} losses {cmp}")
+        check(cmp["worst_grad_units"][0][1] <= BF16_GRAD_UNITS,
+              f"bf16 {route} gradients {cmp}")
+        check(cmp["argmax_gap_units"] <= BF16_ID_UNITS
+              and cmp.get("id_gap_units", 0.0) <= BF16_ID_UNITS,
+              f"bf16 {route} ties {cmp}")
+        out[route] = cmp
+        del kern, plain
+
+    # bf16_grads: bfloat16 leaves, the same values as the compute cast's
+    config = base.replace(bf16_grads=True)
+    cnt = rest_reset()
+    lv = adv_grads(config, state, batch, TEMP, noise)
+    torch.cuda.synchronize()
+    launches = rest_counts(cnt, "bf16_grads step")
+    ref = adv_grads(base, state, batch, TEMP, noise)
+    errs = bf16_grad_errs(lv, ref)
+    row = {"g_loss": [float(lv[0]), float(ref[0])],
+           "d_loss": [float(lv[1]), float(ref[1])],
+           "launches": launches,
+           "grads_float32": all(g.dtype == torch.float32 for side in lv[2:4]
+                                for g in side.values()),
+           "max_grad_units": max(errs.values()) / BF16_UNIT}
+    emit({"phase": "bf16_rest", "bf16_grads": row})
+    check(row["grads_float32"], "bf16_grads: a gradient is not float32")
+    check(row["g_loss"][0] == row["g_loss"][1]
+          and row["d_loss"][0] == row["d_loss"][1],
+          f"bf16_grads changed the forward {row}")
+    check(row["max_grad_units"] <= BF16_GRAD_UNITS, f"bf16_grads {row}")
+    out["bf16_grads"] = row
+    out["launches"] = total
+    return out
+
+
+def rest_int8_service(gen, workdir):
+    """The quantized service at ``--dtype float32`` with ``int8_dtype=
+    "bfloat16"`` (the JAX ``GIC_INT8_DTYPE=bfloat16``): ``{"n": 8}``
+    twice; captions the plain quantized decode in bfloat16 (or ties), the
+    quantized kernel's launches all bfloat16 and equal to the engine's
+    ``device_calls``."""
+    from gan_image_captioning_tpu_torch import serve
+    from gan_image_captioning_tpu_torch.kernels import decode_sample as ds
+    from gan_image_captioning_tpu_torch.models.generator import (
+        start_token_features)
+    from gan_image_captioning_tpu_torch.ops.quantize import (
+        quantize_lstm_decoder)
+    from gan_image_captioning_tpu_torch.train.checkpoint import (
+        save_generator_checkpoint)
+
+    path = workdir / "gen_full_width_int8_dtype.ckpt"
+    save_generator_checkpoint(str(path), gen)
+    # the counts from before the service's warm-up, which its
+    # device_calls count too
+    rest_reset()
+    ds.decode_sample_q_serve.launches = 0
+    ds.decode_sample_q_serve.bf16_launches = 0
+    service = serve.CaptionService(serve.parse_args(
+        ["--checkpoint", str(path), *MODEL_FLAGS, "--quantize", "int8"]),
+        int8_dtype="bfloat16")
+    try:
+        resps = [service.handle_request({"n": 8}) for _ in range(2)]
+        stats = service.handle_request({"stats": True})["coalescing"]
+        torch.cuda.synchronize()
+        launches = {"q_serve": ds.decode_sample_q_serve.bf16_launches,
+                    "q_serve_float32": ds.decode_sample_q_serve.launches
+                    - ds.decode_sample_q_serve.bf16_launches,
+                    "dense_decode": counters()["decode_serve"].launches}
+    finally:
+        service.close()
+    feats = start_token_features(gen.decoder, 1).to(BF16)
+    qdec = quantize_lstm_decoder(gen.decoder, 8)
+    ids_p, _ = ds.decode_sample_q_serve_plain(feats, qdec, T, bits=8)
+    want = [service._caption(ids_p[0].tolist())] * 8
+    same = all(r["captions"] == want for r in resps)
+    gap = 0.0
+    if not same:
+        ids_k, _ = ds.decode_sample_q_serve(feats, qdec, T, bits=8)
+        ref = bf16_forced(ds.dequantized_decoder(qdec, 8, BF16), feats,
+                          ids_k)
+        gap = bf16_id_gap(ref["scores"], ids_k)
+    row = {"config_dtype": service.config.dtype,
+           "int8_dtype": service.config.int8_dtype,
+           "captions_equal_plain": same, "id_gap_units": gap,
+           "launches": launches, "device_calls": stats["device_calls"],
+           "latency_ms": [r["latency_ms"] for r in resps]}
+    emit({"phase": "bf16_rest", "int8_dtype_service": row})
+    check(same or gap <= BF16_ID_UNITS, f"int8_dtype service {row}")
+    check(launches["q_serve"] > 0 and launches["q_serve_float32"] == 0
+          and launches["q_serve"] == stats["device_calls"]
+          and launches["dense_decode"] == 0, f"int8_dtype launches {row}")
+    return row
+
+
+def phase_bf16_rest(gen, device, workdir):
+    """The rest of ``--dtype bfloat16`` (the chip_smoke docstring's
+    ``bf16_rest``)."""
+    t0 = time.perf_counter()
+    rows, times = rest_kernels(gen, device)
+    routes = rest_routes(gen, device)
+    service = rest_int8_service(gen, workdir)
+    for name, key in BF16_REST_COUNTERS.items():
+        check(routes["launches"].get(key, 0) > 0,
+              f"{name}: no bfloat16 launch in the route steps")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "bf16_rest", "seconds": seconds})
+    return {"rows": rows, "times": times, "routes": routes,
+            "service": service, "seconds": seconds}
+
+
+def bf16_rest_entries(smi, row):
+    """The four new bfloat16 instantiations' entries of the ``kernels``
+    line, their launches those of this phase's route steps (the counts set
+    to 0 before each step and read after)."""
+    out = []
+    for name, tpu in BF16_REST_TPU_KERNELS.items():
+        t = row["times"][name]
+        errs = [v for k, v in row["rows"][name].items()
+                if k.startswith("max_abs")]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      + BF16_REST_SOURCES[name],
+            "replaces": tpu,
+            "launches": row["routes"]["launches"][BF16_REST_COUNTERS[name]],
+            "max_abs_err": max(errs), "ms": min(t["kernel_ms"]),
+            "plain_ms": min(t["plain_ms"]), "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": min(t["library_ms"]) if "library_ms" in t
+            else None, "dtype": "bfloat16", "B": B_TRAIN, "card": smi})
+    return out
+
+
+# ------------------------------------------- the data and model extras
+
+EXTRA_PAD = 4                       # --random-crop-pad
+BILSTM_PER_ADV = {"decode_sample_resid": 1, "lstm_bptt_chain": 1,
+                  # 3 passes x 2 directions x the discriminator's layers
+                  "lstm_bptt_reverse": 3 * 2 * 4}
+
+
+def extras_augment(device):
+    """config3 + ``--conditional-gan 1 --random-flip 1 --random-crop-pad
+    4`` on 256 x 256 ``images_u8``: one MLE and one adversarial step with
+    their launches (``image_norm`` once a step, after the augmentation of
+    the uint8 batch), the fed coins and offsets taken (the step's batch
+    is ``augment_images`` of them, bit for bit), the metrics finite."""
+    from gan_image_captioning_tpu_torch.ops.augment import augment_images
+    from gan_image_captioning_tpu_torch.train import steps
+
+    config, state, batch = cond_setup(device, random_flip=1,
+                                      random_crop_pad=EXTRA_PAD)
+    gen = torch.Generator(device=device).manual_seed(71)
+    aug = {"coin": torch.rand(B_TRAIN, generator=gen, device=device) < 0.5,
+           "oy": torch.randint(0, 2 * EXTRA_PAD + 1, (B_TRAIN,),
+                               generator=gen, device=device),
+           "ox": torch.randint(0, 2 * EXTRA_PAD + 1, (B_TRAIN,),
+                               generator=gen, device=device)}
+    seen = []
+    orig = steps.augment_batch
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(out.get("images_u8"))
+        return out
+
+    from gan_image_captioning_tpu_torch.kernels import image_norm
+
+    steps.augment_batch = spy
+    image_norm.normalize_images.launches = 0
+    try:
+        cnt = rest_reset()
+        state, m1 = steps.make_mle_step(config)(state, batch,
+                                                noise={"augment": aug})
+        noise = {**fed_noise(config, device), "augment": aug}
+        state, m2 = steps.make_adv_step(config)(state, batch, TEMP, noise)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in cnt.items() if fn.launches}
+    finally:
+        steps.augment_batch = orig
+    want = augment_images(batch["images_u8"], True, EXTRA_PAD, **aug)
+    row = {"metrics": {**{k: float(v) for k, v in m1.items()},
+                       **{k: float(v) for k, v in m2.items()}},
+           "launches": launches,
+           "image_norm_launches": image_norm.normalize_images.launches,
+           "augmented_as_fed": all(torch.equal(s, want) for s in seen),
+           "augment_calls": len(seen),
+           "images_moved": not torch.equal(want, batch["images_u8"])}
+    emit({"phase": "extras", "augment": row})
+    check(all(math.isfinite(v) for v in row["metrics"].values()),
+          f"extras augment metrics {row}")
+    check(row["augmented_as_fed"] and row["augment_calls"] == 2
+          and row["images_moved"] and row["image_norm_launches"] == 2,
+          f"extras augment {row}")
+    return row
+
+
+def extras_bilstm(gen, device):
+    """One adversarial step with ``--disc-arch bilstm`` (embed 64, hidden
+    128, 4 layers a direction; float32) with its launches, the reverse
+    BPTT kernel once a layer a direction in each of the three
+    discriminator passes' backward; its losses and gradients through the
+    kernels against the plain route (the BiLSTM's plain recurrences, the
+    kernel route's sample replayed) within 1e-4 and ``routes_agree``."""
+    from gan_image_captioning_tpu_torch.models import api
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (adv_grads,
+                                                            make_adv_step)
+
+    config = bf16_config(disc_arch="bilstm").replace(dtype="float32",
+                                                     bf16_mu=False)
+    disc = api.init_discriminator(torch.Generator().manual_seed(1), config,
+                                  device, sweep=False)
+    state = create_train_state(config, 0, device,
+                               gen=copy.deepcopy(gen).requires_grad_(True),
+                               disc=disc)
+    batch = train_batch(device)
+    noise = fed_noise(config, device)
+    noise["keep"] = [torch.rand(api.disc_keep_shape(config, B_TRAIN),
+                                device=device) < 0.8 for _ in range(3)]
+    cnt = rest_reset()
+    t0 = time.perf_counter()
+    state, m = make_adv_step(config)(state, batch, TEMP, noise)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in cnt.items() if fn.launches}
+    with bf16_resid_record() as outs:
+        kern = adv_grads(config, state, batch, TEMP, noise)
+    with bf16_resid_replay(outs):
+        plain = adv_grads(config.replace(decode_impl="plain"), state, batch,
+                          TEMP, noise)
+    cmp = compare_grads(kern, plain)
+    row = {"metrics": {k: float(v) for k, v in m.items()},
+           "launches": launches, "step_seconds": step_s,
+           "g_loss": cmp["g_loss"], "d_loss": cmp["d_loss"],
+           "grad_side_rel_err": cmp["grad_side_rel_err"]}
+    emit({"phase": "extras", "bilstm": row})
+    check(launches == BILSTM_PER_ADV,
+          f"bilstm launches {launches} != {BILSTM_PER_ADV}")
+    check(all(math.isfinite(v) for v in row["metrics"].values()),
+          f"bilstm metrics {row}")
+    for a, b in (cmp["g_loss"], cmp["d_loss"]):
+        check(abs(a - b) <= LOSS_RTOL * max(abs(b), 1e-30),
+              f"bilstm losses {row}")
+    check(routes_agree(cmp), f"bilstm gradients {row}")
+    return row
+
+
+def extras_cache(device, workdir):
+    """``main.py --cache-features 1`` on 128 synthetic conditional items at
+    config3 width (256 x 256 images), an epoch of each phase: the features
+    computed once per image, the loaders carrying them, losses finite, a
+    checkpoint written; and the cost it saves: an MLE step on the images
+    (the encoder's pass included) against the same step on the cached
+    features, and the precompute's time per image."""
+    from gan_image_captioning_tpu_torch import main as tmain
+    from gan_image_captioning_tpu_torch.data.feature_cache import (
+        precompute_backbone_features)
+    from gan_image_captioning_tpu_torch.data.synthetic import (
+        SyntheticCaptions)
+    from gan_image_captioning_tpu_torch.train.steps import batch_to, mle_grads
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+
+    save = workdir / "cache_features"
+    out, result, seconds, _ = run_entry(tmain.main, [
+        *CONFIG3_FLAGS, "--conditional-gan", "1", "--cache-features", "1",
+        "--image-size", str(IMG_S), "--synthetic-items", "128",
+        "--pretrain-epochs", "1", "--adv-epochs", "1",
+        "--save-dir", str(save)])
+    inst = result
+    from gan_image_captioning_tpu_torch.data.feature_cache import (
+        CachedFeatureDataset)
+    batch0 = next(iter(inst.pre_train_loader))
+    row = {"seconds": seconds,
+           "cached": isinstance(inst.train_dataset, CachedFeatureDataset),
+           "features_shape": list(inst.train_dataset.features.shape),
+           "loader_keys": sorted(batch0),
+           "checkpoint": (Path(inst.config.model_dir)
+                          / "adv_model.ckpt").exists()}
+    # the step on the images against the step on their cached features
+    config, state, batch = cond_setup(device)
+    ds = SyntheticCaptions("train", num_items=B_TRAIN, image_size=IMG_S,
+                           conditional=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = precompute_backbone_features(ds, state.gen.encoder, 32)
+    torch.cuda.synchronize()
+    row["precompute_ms_per_image"] = (time.perf_counter() - t0) * 1e3 / len(
+        ds)
+    caps = [ds.sample(i)[0] for i in range(B_TRAIN)]
+    cached = batch_to(make_batch(caps, list(feats), T), device)
+    imaged = batch_to(make_batch(caps, [ds.sample(i)[1]
+                                        for i in range(B_TRAIN)], T), device)
+    step = {"images": lambda: mle_grads(config, state, imaged),
+            "cached": lambda: mle_grads(config, state, cached)}
+    ms = {k: [] for k in step}
+    for k in ("images", "cached", "cached", "images"):
+        ms[k].append(step_ms(step[k], 3))
+    row["mle_step_ms"] = ms
+    emit({"phase": "extras", "cache_features": row})
+    check(row["cached"] and row["features_shape"] == [128, 512]
+          and "backbone_feats" in row["loader_keys"]
+          and "images" not in row["loader_keys"] and row["checkpoint"],
+          f"cache_features {row}")
+    check("nan" not in out.lower(), "cache_features: a NaN was logged")
+    return row
+
+
+def extras_natural(device):
+    """``--encoder-init natural`` on config3's conditional generator: the
+    eval-mode features of 8 distinct seeded images part (their spread
+    across images, mean over features, above 1e-2 and 1000 times the
+    swept encoder's)."""
+    from gan_image_captioning_tpu_torch.kernels.image_norm import (
+        normalize_images)
+    from gan_image_captioning_tpu_torch.models import encoder as enc_lib
+    from gan_image_captioning_tpu_torch.models.generator import (
+        init_generator_params)
+
+    u8 = torch.stack([seeded_u8((3, IMG_S, IMG_S), 300 + i, device)
+                      for i in range(8)])
+    images = normalize_images(u8)
+    spread = {}
+    for init in ("sweep", "natural"):
+        config = bf16_config(conditional_gan=1, image_size=IMG_S,
+                             encoder_init=init).replace(dtype="float32")
+        g = init_generator_params(torch.Generator().manual_seed(0), config,
+                                  device)
+        with torch.no_grad():
+            feats = enc_lib.encode(g.encoder, images, config, train=False)
+        spread[init] = float(feats.std(dim=0).mean())
+    row = {"feature_spread": spread}
+    emit({"phase": "extras", "encoder_init": row})
+    check(spread["natural"] > 1e-2
+          and spread["natural"] > 1e3 * spread["sweep"],
+          f"encoder_init natural {row}")
+    return row
+
+
+def extras_remat(device):
+    """config4's MLE step (float32) and config5's (bfloat16) under
+    ``tf_remat`` against the same step without it, from the same state:
+    the loss and every gradient (the recompute runs the same
+    deterministic kernels on the same inputs: expected bit-equal, held to
+    1e-6 of each tensor's largest entry, a bfloat16 unit for config5),
+    the recompute's extra launches, and each pass's peak memory and device
+    time (torch.profiler)."""
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+
+    out = {}
+    for name in ("config4", "config5"):
+        if name == "config4":
+            config, state, batch = tf_setup(device)
+        else:
+            config = c5_config()
+            state = create_train_state(config, 0, device, sweep=False)
+            batch = c5_batch(device, config)
+        res = {}
+        for remat in (False, True):
+            cfg = config.replace(tf_remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            loss, _, grads, _, _ = tf_grads("mle", cfg, state, batch, None)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) - base
+            prof = c5_profile(lambda: tf_grads("mle", cfg, state, batch,
+                                               None), 1)
+            res[remat] = {"loss": float(loss), "grads": grads,
+                          "peak_gib": peak / 2 ** 30,
+                          "device_ms": prof["device_ms_per_step"],
+                          "launches": prof["launches_per_step"]}
+        a, b = res[False], res[True]
+        row = {"loss": [a["loss"], b["loss"]],
+               "grads_bit_equal": all(torch.equal(a["grads"][k],
+                                                  b["grads"][k])
+                                      for k in a["grads"]),
+               "max_grad_rel_diff": max(
+                   float((a["grads"][k] - b["grads"][k]).abs().max())
+                   / max(float(a["grads"][k].abs().max()), 1e-30)
+                   for k in a["grads"]),
+               "peak_gib": [a["peak_gib"], b["peak_gib"]],
+               "device_ms": [a["device_ms"], b["device_ms"]],
+               "launches": [a["launches"], b["launches"]],
+               "dtype": config.dtype}
+        emit({"phase": "extras", "tf_remat": name, **row})
+        tol = BF16_UNIT if config.dtype == "bfloat16" else 1e-6
+        check(abs(row["loss"][0] - row["loss"][1])
+              <= tol * abs(row["loss"][0])
+              and row["max_grad_rel_diff"] <= tol,
+              f"{name} tf_remat changed the step {row}")
+        check(row["launches"][1] > row["launches"][0],
+              f"{name} tf_remat recomputed nothing {row}")
+        out[name] = row
+        del state, res, a, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_extras(gen, device, workdir):
+    """The data and model extras (the chip_smoke docstring's
+    ``extras``)."""
+    t0 = time.perf_counter()
+    row = {"augment": extras_augment(device),
+           "bilstm": extras_bilstm(gen, device),
+           "cache_features": extras_cache(device, workdir),
+           "encoder_init": extras_natural(device),
+           "tf_remat": extras_remat(device)}
+    row["seconds"] = time.perf_counter() - t0
+    emit({"phase": "extras", "seconds": row["seconds"]})
+    return row
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
@@ -8847,6 +9706,10 @@ def main(argv=None):
         config5_row = phase_config5(device, workdir)
     if run("serving_rest"):
         rest_row = phase_serving_rest(gen, device, workdir)
+    if run("bf16_rest"):
+        bf16_rest_row = phase_bf16_rest(gen, device, workdir)
+    if run("extras"):
+        phase_extras(gen, device, workdir)
     if only:
         return 0
 
@@ -8877,7 +9740,8 @@ def main(argv=None):
         + mode_entries(smi, modes, impls)
         + bf16_entries(smi, bf16_row)
         + tf_bf16_entries(smi, tf_bf16_row)
-        + config5_entries(smi, config5_row))
+        + config5_entries(smi, config5_row)
+        + bf16_rest_entries(smi, bf16_rest_row))
     # the evaluation path's launches (phase eval_decode, counts set to 0
     # before each evaluate.py run): greedy, int8 greedy, beam 4 with the
     # discriminator score; NLL_gen through the pretrain mode in each

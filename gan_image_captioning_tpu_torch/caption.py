@@ -68,7 +68,8 @@ def parse_args(argv=None):
     args = parser.parse_args(argv)
     if args.exported:
         raise NotImplementedError("--exported: decoding from an exported "
-                                  "artifact is not ported yet")
+                                  "artifact is not ported yet (ROADMAP.md "
+                                  "queue 1, item 5)")
     if not args.checkpoint:
         parser.error("--checkpoint is required")
     return args

@@ -108,8 +108,9 @@ def add_model_args(parser):
                    help="attention heads for the transformer generator")
     g.add_argument("--disc-arch", type=str, default="cnn",
                    choices=["cnn", "transformer", "ar_transformer", "bilstm"],
-                   help="discriminator architecture (bilstm is not ported "
-                        "yet)")
+                   help="discriminator architecture: the RelGAN CNN, the "
+                        "bidirectional or autoregressive transformer, or "
+                        "the bidirectional LSTM")
     g.add_argument("--disc-hidden-dim", type=int, default=128,
                    help="hidden dim of the transformer discriminator")
     g.add_argument("--disc-num-heads", type=int, default=8,
@@ -447,6 +448,25 @@ def add_extension_args(parser):
                    help="accepted; pick a card with --device cuda:N")
     g.add_argument("--test-log-step", type=int, default=1,
                    help="accepted; no test phase logs")
+    g.add_argument("--random-flip", type=int, default=0, choices=[0, 1],
+                   help="train-time random horizontal image flip, on the "
+                        "device inside the step (ops/augment.py; the "
+                        "reference's transform chain is deterministic)")
+    g.add_argument("--random-crop-pad", type=int, default=0,
+                   help="train-time random translation: reflect-pad images "
+                        "by N pixels then crop back to size at a random "
+                        "offset per image (0 = off)")
+    g.add_argument("--encoder-init", type=str, default="sweep",
+                   choices=["sweep", "natural"],
+                   help="'sweep' = reference parity: the init sweep "
+                        "overwrites every encoder weight, BatchNorm scales "
+                        "included; 'natural' keeps the encoder's own "
+                        "kaiming / BatchNorm-ones initialization")
+    g.add_argument("--cache-features", type=int, default=0, choices=[0, 1],
+                   help="precompute the frozen backbone's pooled features "
+                        "once per image (eval-mode BatchNorm) and train "
+                        "the head on them; conditional LSTM generator with "
+                        "a frozen backbone only (data/feature_cache.py)")
     # The JAX package's flags that the port does not honour yet: each is
     # parsed with its JAX default and refused when set
     # (require_ported_flags).
@@ -456,28 +476,26 @@ def add_extension_args(parser):
 
 # flag → (argparse keywords with the JAX name, type and default; the
 # values the port honours, None for the default only)
+# (ROADMAP.md queue 1, item 4: parallelism)
 _UNPORTED_FLAG_ARGS = (
-    ("--random-flip", dict(type=int, default=0, choices=[0, 1]), None),
-    ("--random-crop-pad", dict(type=int, default=0), None),
-    ("--cache-features", dict(type=int, default=0, choices=[0, 1]), None),
     ("--mesh", dict(type=str, default=""), None),
     ("--cp-mode", dict(type=str, default="gspmd",
                        choices=["gspmd", "ring", "ulysses"]), None),
     ("--pp-microbatches", dict(type=int, default=4), None),
     ("--zero1", dict(action="store_true"), None),
-    ("--encoder-init", dict(type=str, default="sweep",
-                            choices=["sweep", "natural"]), None),
 )
 
 
-def refuse_unported(table, values) -> None:
+def refuse_unported(table, values, item: str = "4: parallelism") -> None:
     """Raise ``NotImplementedError`` for each flag of ``table`` (entries as
     in ``_UNPORTED_FLAG_ARGS``) whose value on ``values`` (a Config or a
-    parsed namespace) is not one the port honours."""
+    parsed namespace) is not one the port honours, naming ``ROADMAP.md``
+    queue 1's ``item``."""
     for flag, kw, honoured in table:
         value = getattr(values, flag[2:].replace("-", "_"))
         if value not in (honoured or (kw.get("default", False),)):
-            raise NotImplementedError(f"{flag} {value}: not ported yet")
+            raise NotImplementedError(f"{flag} {value}: not ported yet "
+                                      f"(ROADMAP.md queue 1, item {item})")
 
 
 DECODE_ROUTES = ("kernel", "kernel_rescore", "kernel_embed", "decoupled",
@@ -555,7 +573,18 @@ class Config:
     plain versions on CPU tensors.
 
     ``bf16_mu`` (the JAX package's ``GIC_BF16_MU=1``): every Adam first
-    moment is stored in bfloat16.
+    moment is stored in bfloat16.  ``bf16_grads`` (``GIC_BF16_GRADS=1``,
+    under ``--dtype bfloat16`` only): the adversarial step differentiates
+    with respect to bfloat16 copies of the parameters, so the gradients
+    accumulate in bfloat16, and casts them to the float32 masters.
+    ``int8_dtype`` (``GIC_INT8_DTYPE``): the compute dtype of the quantized
+    decodes, ``"float32"`` or ``"bfloat16"``; ``""`` follows ``--dtype``.
+    ``tf_remat`` (``GIC_TF_REMAT=1``), ``scan_remat``
+    (``GIC_SCAN_REMAT=1``) and ``disc_remat`` (``GIC_DISC_REMAT=1``):
+    ``torch.utils.checkpoint`` around each transformer block, the
+    scheduled-sampling decode's per-step cell and the CNN discriminator's
+    conv trunk, which then keep only their inputs and recompute the rest
+    in the backward.
 
     ``image_norm_impl`` does what ``"kernel"`` / ``"plain"`` do above for
     the ``image_norm`` kernel of ``images_u8`` batches, and ``attn_impl``
@@ -667,10 +696,12 @@ class Config:
     precollate: str = "auto"
     profile_dir: str = ""
     use_pallas: str = "auto"
-    # the JAX package's options that are not ported (require_ported_flags)
+    # train-time augmentation (ops/augment.py) and the frozen backbone's
+    # cached features (data/feature_cache.py)
     random_flip: int = 0
     random_crop_pad: int = 0
     cache_features: int = 0
+    # the JAX package's options that are not ported (require_ported_flags)
     mesh: str = ""
     cp_mode: str = "gspmd"
     pp_microbatches: int = 4
@@ -679,7 +710,14 @@ class Config:
     bpe_vocab: str = ""
     bpe_merges: str = ""
     encoder_init: str = "sweep"
+    # the JAX package's environment switches, as fields (no flags: every
+    # flag of the port is one of the JAX package's)
     bf16_mu: bool = False
+    bf16_grads: bool = False
+    int8_dtype: str = ""
+    tf_remat: bool = False
+    scan_remat: bool = False
+    disc_remat: bool = False
     # kernel routes (see the class docstring)
     decode_impl: str = "fused"
     disc_engine: str = "auto"
@@ -732,63 +770,47 @@ def config_from_args(args: argparse.Namespace) -> Config:
 
 
 def require_ported_arch(config: Config) -> None:
-    """Raise for a model the port does not have yet: the BiLSTM
-    discriminator.  (``--gen-arch gpt2`` reaches here expanded to the
-    transformer by :func:`config_from_args`; a ``Config`` built by hand
-    with ``gen_arch="gpt2"`` must be expanded the same way.)"""
+    """Raise for a model the port does not have.  (``--gen-arch gpt2``
+    reaches here expanded to the transformer by :func:`config_from_args`;
+    a ``Config`` built by hand with ``gen_arch="gpt2"`` must be expanded
+    the same way.)"""
     if config.gen_arch not in ("lstm", "transformer"):
         raise ValueError(f"gen_arch {config.gen_arch!r}: expected 'lstm' "
                          "or 'transformer' (config_from_args expands "
                          "'gpt2')")
-    if config.disc_arch not in ("cnn", "transformer", "ar_transformer"):
-        raise NotImplementedError(f"--disc-arch {config.disc_arch}: only the "
-                                  "CNN and transformer discriminators are "
-                                  "ported yet")
+    if config.disc_arch not in ("cnn", "transformer", "ar_transformer",
+                                "bilstm"):
+        raise ValueError(f"--disc-arch {config.disc_arch!r}: expected cnn, "
+                         "transformer, ar_transformer or bilstm")
     if config.encoder_arch not in ("resnet18", "vit"):
         raise ValueError(f"--encoder-arch {config.encoder_arch!r}: expected "
                          "resnet18 or vit")
+    if config.encoder_init not in ("sweep", "natural"):
+        raise ValueError(f"--encoder-init {config.encoder_init!r}: expected "
+                         "sweep or natural")
 
 
-# What --dtype bfloat16 runs in bfloat16 through the bfloat16 kernels
-# (decode modes sample_resid / greedy / pretrain and quantized serve, the
-# BPTT chain and reverse, the mxu conv forward and backward, image_norm,
-# flash attention forward and backward, the Gumbel sampler): either
-# generator with any discriminator, the kernel decode route (or the port's
-# plain one) and these conv engines.  Everything else in bfloat16 is
-# ROADMAP.md queue 1 item 3's remainder.
-BF16_DECODE_ROUTES = ("kernel", "plain")
-BF16_DISC_ENGINES = ("auto", "mxu", "pallas", "xla", "plain")
+INT8_DTYPES = ("", "float32", "bfloat16")
 
 
 def compute_dtype(config: Config) -> torch.dtype:
     """The dtype ``--dtype`` computes in: bfloat16 under ``--dtype
-    bfloat16``, else float32 (the JAX ``_compute_cast`` and
-    ``_int8_dtype``)."""
+    bfloat16``, else float32 (the JAX ``_compute_cast``)."""
     return torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
 
 
 def require_ported_dtype(config: Config) -> None:
-    """Raise for a ``--dtype`` the port's training does not run: anything
-    but float32 and bfloat16, and bfloat16 on a route whose kernels have
-    no bfloat16 instantiation yet (NotImplementedError naming the
-    ``ROADMAP.md`` item): it never runs such a route in float32
-    instead."""
-    if config.dtype == "float32":
-        return
-    if config.dtype != "bfloat16":
+    """Raise ValueError for a ``--dtype`` other than float32 and bfloat16,
+    and for an ``int8_dtype`` other than ``""``, ``"float32"`` and
+    ``"bfloat16"``.  Every decode route and every conv engine runs in
+    bfloat16: through the kernels' bfloat16 instantiations, or on the
+    plain and decoupled routes through PyTorch's bfloat16 operations."""
+    if config.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--dtype {config.dtype!r}: expected float32 or "
                          "bfloat16")
-    todo = ("is not ported yet (ROADMAP.md queue 1, item 3: the rest of "
-            "bfloat16)")
-    route = decode_route(config)
-    if route not in BF16_DECODE_ROUTES:
-        raise NotImplementedError(
-            f"--dtype bfloat16 with decode_impl {config.decode_impl!r} "
-            f"(route {route}) {todo}")
-    if config.disc_engine not in BF16_DISC_ENGINES:
-        raise NotImplementedError(
-            f"--dtype bfloat16 with --disc-engine {config.disc_engine} "
-            f"{todo}")
+    if config.int8_dtype not in INT8_DTYPES:
+        raise ValueError(f"int8_dtype {config.int8_dtype!r}: expected '', "
+                         "'float32' or 'bfloat16'")
 
 
 def require_ported_flags(config: Config) -> None:

@@ -5,7 +5,8 @@ three channels, ImageNet mean/std — as CHW arrays.
 
 Pillow decodes the files and is imported inside the functions: without it
 an image request or an image dataset raises ``ImportError``.  The JAX
-package's native C++ decoder (``data/native.py``) is not ported.
+package's native C++ decoder (``data/native.py``) is not ported
+(``ROADMAP.md`` queue 1, item 5).
 """
 
 from __future__ import annotations

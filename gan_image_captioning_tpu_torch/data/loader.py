@@ -22,7 +22,8 @@ caller's thread.
   Batchers of one dataset share it.
 * :func:`stack_batches` groups K batches for ``--steps-per-call``.
 
-Host sharding (``--mesh``) is not ported.
+Host sharding (``--mesh``) is not ported (``ROADMAP.md`` queue 1, item
+4).
 """
 
 from __future__ import annotations
@@ -58,9 +59,9 @@ def make_batch(captions_list, images_list, seq_len: int,
     ``captions_list``: 1-D int arrays (token ids, no specials), truncated
     to ``seq_len - 2``.  ``images_list``: None (unconditional), or one
     array per row: ``[3, S, S]`` float32 → ``images``, ``[3, S, S]`` uint8
-    → ``images_u8`` (normalized on the device), ``[512]`` → cached
-    ``backbone_feats`` (which the port's steps refuse: ``--cache-features``
-    is not ported).  Pad rows get zero images."""
+    → ``images_u8`` (normalized on the device), ``[F]`` → cached
+    ``backbone_feats`` (``--cache-features``, ``data/feature_cache.py``).
+    Pad rows get zero images."""
     n = len(captions_list)
     batch_size = batch_size or n
     captions = np.full((batch_size, seq_len), PAD, dtype=np.int32)

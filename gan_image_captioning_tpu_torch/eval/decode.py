@@ -152,9 +152,16 @@ def transformer_stepper(decoder, config: Config, context=None) -> Stepper:
 
 def int8_dtype(config: Config):
     """The compute dtype of the quantized decodes (the JAX
-    ``_int8_dtype``): bfloat16 under ``--dtype bfloat16``, else float32.
-    The stepper and the quantized serve kernel share it."""
-    return torch.float32 if config is None else compute_dtype(config)
+    ``_int8_dtype``): ``config.int8_dtype`` when set (``"float32"`` or
+    ``"bfloat16"``, the JAX ``GIC_INT8_DTYPE``, on either ``--dtype``), else
+    bfloat16 under ``--dtype bfloat16`` and float32 otherwise.  The
+    stepper and the quantized serve kernel share it."""
+    if config is None:
+        return torch.float32
+    if config.int8_dtype:
+        return (torch.bfloat16 if config.int8_dtype == "bfloat16"
+                else torch.float32)
+    return compute_dtype(config)
 
 
 def quantized_lstm_stepper(qdec: dict, config: Config = None) -> Stepper:

@@ -10,10 +10,10 @@ returns the port's ``state_dict``s (the encoder's backbone under
 torchvision's names), the loaded modules, a quantized decoder
 (:func:`qdec_from_jax`), or a whole
 :class:`~gan_image_captioning_tpu_torch.train.state.TrainState`.  The
-transformer generator and discriminators keep the JAX trees' own names and
-layouts (dense ``w [in, out]``, ``linear.w [V, d]``, ``embeddings.w
-[Ed, V]``), so their bridge (:func:`flatten_jax`) only joins the path into
-a dotted name.  Nothing
+transformer generator and the transformer and BiLSTM discriminators keep
+the JAX trees' own names and layouts (dense ``w [in, out]``, ``linear.w
+[V, d]``, ``embeddings.w [Ed, V]``, ``fwd.{k}.w_ih``), so their bridge
+(:func:`flatten_jax`) only joins the path into a dotted name.  Nothing
 here imports JAX; the caller converts its arrays with ``numpy.asarray``
 (``jax.tree_util.tree_map(np.asarray, tree)`` keeps the named tuples of a
 JAX ``TrainState`` and its optax states, which are read by attribute).
@@ -160,6 +160,18 @@ def transformer_discriminator_from_jax(tree: dict, config: Config,
     return disc
 
 
+def bilstm_discriminator_from_jax(tree: dict, config: Config,
+                                  device="cpu"):
+    """A port ``BiLSTMDiscriminator`` holding a JAX BiLSTM discriminator
+    tree (its names are the JAX paths: :func:`flatten_jax`)."""
+    from gan_image_captioning_tpu_torch.models.discriminator_bilstm import (
+        BiLSTMDiscriminator)
+
+    disc = BiLSTMDiscriminator(config, device)
+    disc.load_state_dict(flatten_jax(tree), strict=True)
+    return disc
+
+
 def generator_from_jax(tree: dict, config: Config, device="cpu") -> Generator:
     """A port :class:`Generator` holding the JAX tree's weights."""
     gen = Generator(config, device)
@@ -253,6 +265,10 @@ def train_state_from_jax(state, config: Config, device="cpu"):
     if config.disc_arch == "cnn":
         disc = discriminator_from_jax(state.disc_params, config, device)
         disc_rename = disc_params_from_jax
+    elif config.disc_arch == "bilstm":
+        disc = bilstm_discriminator_from_jax(state.disc_params, config,
+                                             device)
+        disc_rename = flatten_jax
     else:
         disc = transformer_discriminator_from_jax(state.disc_params, config,
                                                   device)

@@ -54,9 +54,31 @@
 // same inputs give the same bits.  The splits and the scratch layout come
 // from the wrapper's plan (decode_sample.embed_bwd_plan); the C side
 // recomputes what it relies on and refuses a plan that does not match.
+//
+// bfloat16 (--dtype bfloat16, the TPU kernel under dt = bfloat16): h_top,
+// soft, d_emb, w_proj and wd are bfloat16; d_soft, inner and d_logits are
+// float32, and d_logits is rounded to bfloat16 (dl) before the two
+// products that read it, as the TPU kernel's dl_c; dbp sums the float32
+// d_logits; dWp and dbp come back float32, d_htop bfloat16.  Its
+// operands need no 3xTF32 split: bfloat16 goes to the tensor cores as it
+// is, mma.sync.m16n8k16 bf16 with float32 accumulators (each K tile into
+// a fresh accumulator, as above).  Tiles are staged by 16-byte loads where
+// every row is 16-byte aligned (else element by element), one tile at a
+// time: a right kernel first.  Seven launches in one C call: the se
+// partials, inner, d_logits (dl, and per 64-row tile its float32 column
+// sums), dbp (those sums in tile order), dWp = h_top^T @ dl, the d_htop
+// partials = dl @ w_proj (always into scratch) and their reduction,
+// rounded once.  At the training width the three products are the same
+// 55.2 GFLOP: 0.056 ms at 989 TFLOP/s, against 0.09 GB of bfloat16 inputs
+// and outputs (0.027 ms), so the bound is the operations still.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16.cuh"
+
+using gic::bf16;
+using gic::to_f;
 
 namespace {
 
@@ -425,9 +447,11 @@ __global__ void __launch_bounds__(DL_NT) d_logits_kernel(
 }
 
 // inner[r] = sum_e d_emb[r, e] * (sum_s part[s, r, e]): one warp per row,
-// the splits in order, lanes over e, then a fixed shuffle tree.
+// the splits in order, lanes over e, then a fixed shuffle tree.  d_emb in
+// T (float, or bfloat16 widened).
+template <class T>
 __global__ void __launch_bounds__(R_NT) inner_kernel(
-    const float* __restrict__ part, int splits, const float* __restrict__ d_emb,
+    const float* __restrict__ part, int splits, const T* __restrict__ d_emb,
     int R, int Ed, float* __restrict__ inner) {
   const int r = blockIdx.x * (R_NT / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -436,22 +460,326 @@ __global__ void __launch_bounds__(R_NT) inner_kernel(
   for (int e = lane; e < Ed; e += 32) {
     float se = 0.f;
     for (int s = 0; s < splits; ++s) se += part[((size_t)s * R + r) * Ed + e];
-    acc = fmaf(d_emb[(size_t)r * Ed + e], se, acc);
+    acc = fmaf(to_f(d_emb[(size_t)r * Ed + e]), se, acc);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) inner[r] = acc;
 }
 
-// out[i] = sum_s part[s * n + i], the splits in order.
+// out[i] = sum_s part[s * n + i], the splits in order, stored as T (a
+// bfloat16 out rounded once).
+template <class T>
 __global__ void __launch_bounds__(R_NT) reduce_kernel(
     const float* __restrict__ part, int splits, size_t n,
-    float* __restrict__ out) {
+    T* __restrict__ out) {
   const size_t i = (size_t)blockIdx.x * R_NT + threadIdx.x;
   if (i >= n) return;
   float acc = 0.f;
   for (int s = 0; s < splits; ++s) acc += part[(size_t)s * n + i];
-  out[i] = acc;
+  gic::store_as(out, i, acc);
+}
+
+// ---------------------------------------------------------------- bfloat16
+
+// The bfloat16 products' operands: raw 16-bit words (A [M, K] or, A_KM,
+// [K, M]; B [K, N] or, B_NK, [N, K]); C float32 as GemmArgs's.
+struct GemmArgs16 {
+  const uint16_t* A;
+  const uint16_t* B;
+  int lda, ldb, M, N, K, k_chunk;
+  float* C;
+  int ldc;
+  size_t split_stride;
+  int m_fast;
+};
+
+// One tile of each operand in shared memory, rows padded by 8 words (16
+// bytes, so 16-byte stores stay aligned).
+template <int BM, int BN, int BK, bool A_KM, bool B_NK>
+struct Tiles16 {
+  static constexpr int ALD = A_KM ? BM + 8 : BK + 8;
+  static constexpr int BLD = B_NK ? BK + 8 : BN + 8;
+  static constexpr int A_TILE = A_KM ? BK * ALD : BM * ALD;
+  static constexpr int B_TILE = B_NK ? BN * BLD : BK * BLD;
+};
+
+// A ROWS x COLS tile (COLS contiguous in global, row stride ld) at (row0,
+// col0) into s (row stride LD), zeros past row_lim / col_lim.  VEC: 16
+// bytes (8 words) a load; ld, the base and col_lim multiples of 8 words.
+template <int ROWS, int COLS, int LD, int NT, bool VEC>
+__device__ __forceinline__ void load_tile16(uint16_t* s, const uint16_t* g,
+                                            int ld, int row0, int row_lim,
+                                            int col0, int col_lim) {
+  if (VEC) {
+    constexpr int CH = COLS / 8;
+    for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+      const int r = i / CH, c = i % CH * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < row_lim && col0 + c < col_lim)
+        v = __ldg(reinterpret_cast<const uint4*>(
+            g + (size_t)(row0 + r) * ld + col0 + c));
+      *reinterpret_cast<uint4*>(s + r * LD + c) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
+      const int r = i / COLS, c = i % COLS;
+      s[r * LD + c] = row0 + r < row_lim && col0 + c < col_lim
+                          ? g[(size_t)(row0 + r) * ld + col0 + c]
+                          : (uint16_t)0;
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack16(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | (uint32_t)hi << 16;
+}
+
+// d += a * b in bfloat16 with a float32 accumulator (ZERO: d = a * b).
+template <bool ZERO = false>
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if (ZERO)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// C = A @ B over the block's K chunk, bfloat16 operands, float32 sums.
+// Block, warp and grid layout as gemm_3xtf32_kernel's; a warp's (WM/16) x
+// (WN/8) mma tiles take k 16 at a time.  Fragments (PTX m16n8k16): A's
+// register c holds row gq + 8 (c & 1), columns 2 tq + 8 (c >> 1) and the
+// next; B's register c rows 2 tq + 8 c and the next, column gq; C's
+// entries 2h, 2h + 1 row gq + 8 h, columns 2 tq and the next.
+template <int BM, int BN, int BK, int WM, int WN, int MINB, bool A_KM,
+          bool B_NK, bool VEC>
+__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32, MINB)
+    gemm_bf16_kernel(GemmArgs16 g) {
+  constexpr int NT = (BM / WM) * (BN / WN) * 32, MI = WM / 16, NJ = WN / 8;
+  using Ti = Tiles16<BM, BN, BK, A_KM, B_NK>;
+  static_assert(BK % 16 == 0, "k steps of 16");
+  __shared__ __align__(16) uint16_t As[Ti::A_TILE];
+  __shared__ __align__(16) uint16_t Bs[Ti::B_TILE];
+
+  const int mt = (g.M + BM - 1) / BM, nt = (g.N + BN - 1) / BN;
+  const int tiles = mt * nt, split = blockIdx.x / tiles;
+  const int tile = blockIdx.x % tiles;
+  const int tm = g.m_fast ? tile % mt : tile / nt;
+  const int tn = g.m_fast ? tile / mt : tile % nt;
+  const int m0 = tm * BM, n0 = tn * BN;
+  const int k_begin = split * g.k_chunk;
+  const int k_end = min(g.K, k_begin + g.k_chunk);
+  const int n_kt = (k_end - k_begin + BK - 1) / BK;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wm = (warp % (BM / WM)) * WM, wn = (warp / (BM / WM)) * WN;
+  auto a_at = [&](int m, int k) -> uint16_t {
+    return A_KM ? As[k * Ti::ALD + m] : As[m * Ti::ALD + k];
+  };
+  auto b_at = [&](int k, int n) -> uint16_t {
+    return B_NK ? Bs[n * Ti::BLD + k] : Bs[k * Ti::BLD + n];
+  };
+
+  float acc[MI][NJ][4], part[MI][NJ][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = k_begin + kt * BK;
+    if (A_KM)
+      load_tile16<BK, BM, Ti::ALD, NT, VEC>(As, g.A, g.lda, k0, k_end, m0,
+                                            g.M);
+    else
+      load_tile16<BM, BK, Ti::ALD, NT, VEC>(As, g.A, g.lda, m0, g.M, k0,
+                                            k_end);
+    if (B_NK)
+      load_tile16<BN, BK, Ti::BLD, NT, VEC>(Bs, g.B, g.ldb, n0, g.N, k0,
+                                            k_end);
+    else
+      load_tile16<BK, BN, Ti::BLD, NT, VEC>(Bs, g.B, g.ldb, k0, k_end, n0,
+                                            g.N);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = wm + i * 16 + gq + (c & 1) * 8;
+          const int k = kk + 2 * tq + (c >> 1) * 8;
+          a[i][c] = pack16(a_at(m, k), a_at(m, k + 1));
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = wn + j * 8 + gq, k = kk + 2 * tq;
+        const uint32_t b0 = pack16(b_at(k, n), b_at(k + 1, n));
+        const uint32_t b1 = pack16(b_at(k + 8, n), b_at(k + 9, n));
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          if (kk == 0)  // the tile's first product starts its sum
+            mma_bf16<true>(part[i][j], a[i], b0, b1);
+          else
+            mma_bf16(part[i][j], a[i], b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] += part[i][j][c];
+    __syncthreads();  // the tiles are refilled
+  }
+
+  float* C = g.C + (size_t)split * g.split_stride;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wm + i * 16 + gq + h * 8;
+        const int n = n0 + wn + j * 8 + tq * 2;
+        if (r >= g.M) continue;
+        const size_t at = (size_t)r * g.ldc + n;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (VEC && n + 1 < g.N) {
+          *reinterpret_cast<float2*>(C + at) = make_float2(v0, v1);
+        } else {
+          if (n < g.N) C[at] = v0;
+          if (n + 1 < g.N) C[at + 1] = v1;
+        }
+      }
+}
+
+// d_logits = temp * soft * (d_emb @ wd - inner) from bfloat16 d_emb, wd
+// and soft: d_logits_kernel's layout and float32 FMA chains, dl written
+// rounded to bfloat16, and the block's float32 column sums of d_logits
+// over its DL_BM rows (rows in order, then the 16 thread rows in order)
+// into colpart [row tile, V].
+template <bool VEC>
+__global__ void __launch_bounds__(DL_NT) d_logits_bf16_kernel(
+    const bf16* __restrict__ d_emb, const bf16* __restrict__ wd,
+    const bf16* __restrict__ soft, const float* __restrict__ inner, int R,
+    int V, int Ed, float temp, bf16* __restrict__ dl,
+    float* __restrict__ colpart) {
+  __shared__ __align__(16) float es[DL_BE][DL_BM + 4];
+  __shared__ __align__(16) float ws[DL_BE][DL_BN];
+  __shared__ float cs[DL_NT / 16][DL_BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * DL_BM, n0 = blockIdx.x * DL_BN;
+  float acc[4][8] = {};
+  for (int e0 = 0; e0 < Ed; e0 += DL_BE) {
+    for (int i = tid; i < DL_BM * DL_BE; i += DL_NT) {
+      const int m = i / DL_BE, e = i % DL_BE;
+      es[e][m] = m0 + m < R && e0 + e < Ed
+                     ? to_f(d_emb[(size_t)(m0 + m) * Ed + e0 + e]) : 0.f;
+    }
+    if (VEC) {
+      for (int i = tid; i < DL_BE * DL_BN / 4; i += DL_NT) {
+        const int e = i / (DL_BN / 4), n = (i % (DL_BN / 4)) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (e0 + e < Ed && n0 + n < V)  // V % 8 == 0: whole runs of 4
+          v = gic::ld4_bf16(wd + (size_t)(e0 + e) * V + n0 + n);
+        *reinterpret_cast<float4*>(&ws[e][n]) = v;
+      }
+    } else {
+      for (int i = tid; i < DL_BE * DL_BN; i += DL_NT) {
+        const int e = i / DL_BN, n = i % DL_BN;
+        ws[e][n] = e0 + e < Ed && n0 + n < V
+                       ? to_f(wd[(size_t)(e0 + e) * V + n0 + n]) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int e = 0; e < DL_BE; ++e) {
+      const float4 a = *reinterpret_cast<const float4*>(&es[e][ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&ws[e][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&ws[e][64 + tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float csum[8] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty * 4 + i;
+    if (r >= R) continue;
+    const float in = inner[r];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;
+      const size_t at = (size_t)r * V + n;
+      const float* a = acc[i] + h * 4;
+      if (VEC && n + 3 < V) {
+        const float4 sv = gic::ld4_bf16(soft + at);
+        const float4 d = make_float4(
+            temp * sv.x * (a[0] - in), temp * sv.y * (a[1] - in),
+            temp * sv.z * (a[2] - in), temp * sv.w * (a[3] - in));
+        gic::st4w(dl + at, d);
+        csum[h * 4 + 0] += d.x;
+        csum[h * 4 + 1] += d.y;
+        csum[h * 4 + 2] += d.z;
+        csum[h * 4 + 3] += d.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (n + c < V) {
+            const float d = temp * to_f(soft[at + c]) * (a[c] - in);
+            gic::store_as(dl, at + c, d);
+            csum[h * 4 + c] += d;
+          }
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cs[ty][h * 64 + tx * 4 + c] = csum[h * 4 + c];
+  __syncthreads();
+  if (tid < DL_BN && n0 + tid < V) {
+    float sum = 0.f;
+#pragma unroll
+    for (int y = 0; y < DL_NT / 16; ++y) sum += cs[y][tid];
+    colpart[(size_t)blockIdx.y * V + n0 + tid] = sum;
+  }
+}
+
+template <int BM, int BN, int BK, int WM, int WN, int MINB, bool A_KM,
+          bool B_NK>
+cudaError_t gemm16(const GemmArgs16& g, int splits, bool vec,
+                   cudaStream_t s) {
+  constexpr int NT = (BM / WM) * (BN / WN) * 32;
+  const int tiles = ((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN);
+  const dim3 grid(tiles * splits);
+  if (vec)
+    gemm_bf16_kernel<BM, BN, BK, WM, WN, MINB, A_KM, B_NK,
+                     true><<<grid, NT, 0, s>>>(g);
+  else
+    gemm_bf16_kernel<BM, BN, BK, WM, WN, MINB, A_KM, B_NK,
+                     false><<<grid, NT, 0, s>>>(g);
+  return cudaGetLastError();
 }
 
 template <int BM, int BN, int BK, int WM, int WN, int MINB, bool A_KM,
@@ -494,35 +822,14 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace
 
-extern "C" {
-
-const char* gic_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// The generator-side backward of mode sample_embed on `stream`, R = T*B
-// rows: h_top [R, H], soft [R, V], d_emb [R, Ed], w_proj [V, H], wd [Ed, V]
-// in; dwp [H, V], dbp [V], d_htop [R, H] out.  plan = (se splits, se
-// chunk, d_htop splits, d_htop chunk, scratch floats) from
-// decode_sample.embed_bwd_plan; scratch holds d_logits [R, V], inner [R],
-// the se partials [splits, R, Ed] and, when split, the d_htop partials
-// [splits, R, H], each from a multiple of 4 floats.  Returns 0 or the
-// first CUDA error code (cudaErrorInvalidValue for a plan that does not
-// cover K or a scratch too small); nothing synchronises.
-int gic_decode_embed_bwd(const float* h_top, const float* soft,
-                         const float* d_emb, const float* w_proj,
-                         const float* wd, int R, int H, int V, int Ed,
-                         float temp, const int* plan, float* scratch,
-                         float* dwp, float* dbp, float* d_htop,
-                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The float32 backward (the six launches of the header).
+int embed_bwd_f32(const float* h_top, const float* soft, const float* d_emb,
+                  const float* w_proj, const float* wd, int R, int H, int V,
+                  int Ed, float temp, const int* plan, float* scratch,
+                  float* dwp, float* dbp, float* d_htop, cudaStream_t s) {
   const int s0 = plan[0], c0 = plan[1], s3 = plan[2], c3 = plan[3];
   const size_t scratch_floats = (size_t)plan[4];
-  if (R < 1 || H < 1 || V < 1 || Ed < 1 || !split_ok(V, s0, c0, SE_BK) ||
-      !split_ok(V, s3, c3, HT_BK))
-    return cudaErrorInvalidValue;
   float* d_logits = scratch;
   float* inner = d_logits + pad4((size_t)R * V);
   float* part0 = inner + pad4(R);
@@ -543,7 +850,7 @@ int gic_decode_embed_bwd(const float* h_top, const float* soft,
                          false>(g, s0, vec, s);
   if (err != cudaSuccess) return err;
   // 2. inner[r]
-  inner_kernel<<<(R + R_NT / 32 - 1) / (R_NT / 32), R_NT, 0, s>>>(
+  inner_kernel<float><<<(R + R_NT / 32 - 1) / (R_NT / 32), R_NT, 0, s>>>(
       part0, s0, d_emb, R, Ed, inner);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 3. d_logits
@@ -573,9 +880,121 @@ int gic_decode_embed_bwd(const float* h_top, const float* soft,
   if (err != cudaSuccess || s3 == 1) return err;
   // 6. d_htop
   const size_t n = (size_t)R * H;
-  reduce_kernel<<<(unsigned)((n + R_NT - 1) / R_NT), R_NT, 0, s>>>(
+  reduce_kernel<float><<<(unsigned)((n + R_NT - 1) / R_NT), R_NT, 0, s>>>(
       part3, s3, n, d_htop);
   return cudaGetLastError();
+}
+
+// The bfloat16 backward (the seven launches of the header).  Scratch: dl
+// [R, V] bfloat16 (in pad4(ceil(R*V / 2)) floats), inner [R], the se
+// partials [s0, R, Ed], the column sums [ceil(R / DL_BM), V] and the d_htop
+// partials [s3, R, H], each from a multiple of 4 floats.
+int embed_bwd_bf16(const bf16* h_top, const bf16* soft, const bf16* d_emb,
+                   const bf16* w_proj, const bf16* wd, int R, int H, int V,
+                   int Ed, float temp, const int* plan, float* scratch,
+                   float* dwp, float* dbp, bf16* d_htop, cudaStream_t s) {
+  const int s0 = plan[0], c0 = plan[1], s3 = plan[2], c3 = plan[3];
+  const size_t scratch_floats = (size_t)plan[4];
+  const int row_tiles = (R + DL_BM - 1) / DL_BM;
+  bf16* dl = reinterpret_cast<bf16*>(scratch);
+  float* inner = scratch + pad4(((size_t)R * V + 1) / 2);
+  float* part0 = inner + pad4(R);
+  float* colpart = part0 + pad4((size_t)s0 * R * Ed);
+  float* part3 = colpart + pad4((size_t)row_tiles * V);
+  const size_t need = (size_t)(part3 - scratch) + (size_t)s3 * R * H;
+  if (need > scratch_floats) return cudaErrorInvalidValue;
+  const bool vec = H % 8 == 0 && V % 8 == 0 && Ed % 8 == 0 &&
+                   aligned16(h_top) && aligned16(soft) && aligned16(d_emb) &&
+                   aligned16(w_proj) && aligned16(wd) && aligned16(scratch);
+  const auto u16 = [](const bf16* p) {
+    return reinterpret_cast<const uint16_t*>(p);
+  };
+
+  // 1. se partials = soft @ wd^T, split over V
+  GemmArgs16 g{};
+  g.A = u16(soft), g.lda = V, g.B = u16(wd), g.ldb = V;
+  g.M = R, g.N = Ed, g.K = V, g.k_chunk = c0;
+  g.C = part0, g.ldc = Ed, g.split_stride = (size_t)R * Ed, g.m_fast = 1;
+  cudaError_t err =
+      gemm16<SE_BM, SE_BN, SE_BK, 32, 32, 2, false, true>(g, s0, vec, s);
+  if (err != cudaSuccess) return err;
+  // 2. inner[r]
+  inner_kernel<bf16><<<(R + R_NT / 32 - 1) / (R_NT / 32), R_NT, 0, s>>>(
+      part0, s0, d_emb, R, Ed, inner);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 3. dl and the column sums of d_logits
+  const dim3 dl_grid((V + DL_BN - 1) / DL_BN, row_tiles);
+  if (vec)
+    d_logits_bf16_kernel<true><<<dl_grid, DL_NT, 0, s>>>(
+        d_emb, wd, soft, inner, R, V, Ed, temp, dl, colpart);
+  else
+    d_logits_bf16_kernel<false><<<dl_grid, DL_NT, 0, s>>>(
+        d_emb, wd, soft, inner, R, V, Ed, temp, dl, colpart);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 4. dbp: the row tiles' sums in order
+  reduce_kernel<float><<<(V + R_NT - 1) / R_NT, R_NT, 0, s>>>(
+      colpart, row_tiles, (size_t)V, dbp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 5. dWp = h_top^T @ dl
+  g = GemmArgs16{};
+  g.A = u16(h_top), g.lda = H, g.B = u16(dl), g.ldb = V;
+  g.M = H, g.N = V, g.K = R, g.k_chunk = R;
+  g.C = dwp, g.ldc = V, g.m_fast = 1;
+  err = gemm16<128, 128, 64, 64, 32, 1, true, false>(g, 1, vec, s);
+  if (err != cudaSuccess) return err;
+  // 6. d_htop partials = dl @ w_proj, split over V
+  g = GemmArgs16{};
+  g.A = u16(dl), g.lda = V, g.B = u16(w_proj), g.ldb = H;
+  g.M = R, g.N = H, g.K = V, g.k_chunk = c3;
+  g.C = part3, g.ldc = H, g.split_stride = (size_t)R * H, g.m_fast = 0;
+  err = gemm16<HT_BM, HT_BN, HT_BK, 64, 32, 1, false, false>(g, s3, vec, s);
+  if (err != cudaSuccess) return err;
+  // 7. d_htop, rounded once
+  const size_t n = (size_t)R * H;
+  reduce_kernel<bf16><<<(unsigned)((n + R_NT - 1) / R_NT), R_NT, 0, s>>>(
+      part3, s3, n, d_htop);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* gic_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The generator-side backward of mode sample_embed on `stream`, R = T*B
+// rows: h_top [R, H], soft [R, V], d_emb [R, Ed], w_proj [V, H], wd [Ed, V]
+// in; dwp [H, V], dbp [V], d_htop [R, H] out.  bf16 = 1: every input and
+// d_htop bfloat16, dwp and dbp float32 (the bfloat16 instantiation).  plan
+// = (se splits, se chunk, d_htop splits, d_htop chunk, scratch floats)
+// from decode_sample.embed_bwd_plan; scratch as embed_bwd_f32 /
+// embed_bwd_bf16 lay it out.  Returns 0 or the first CUDA error code
+// (cudaErrorInvalidValue for a plan that does not cover K or a scratch too
+// small); nothing synchronises.
+int gic_decode_embed_bwd(const void* h_top, const void* soft,
+                         const void* d_emb, const void* w_proj,
+                         const void* wd, int R, int H, int V, int Ed,
+                         int bf16_, float temp, const int* plan,
+                         float* scratch, float* dwp, float* dbp,
+                         void* d_htop, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R < 1 || H < 1 || V < 1 || Ed < 1 ||
+      !split_ok(V, plan[0], plan[1], SE_BK) ||
+      !split_ok(V, plan[2], plan[3], HT_BK))
+    return cudaErrorInvalidValue;
+  if (bf16_)
+    return embed_bwd_bf16(
+        static_cast<const bf16*>(h_top), static_cast<const bf16*>(soft),
+        static_cast<const bf16*>(d_emb), static_cast<const bf16*>(w_proj),
+        static_cast<const bf16*>(wd), R, H, V, Ed, temp, plan, scratch, dwp,
+        dbp, static_cast<bf16*>(d_htop), s);
+  return embed_bwd_f32(
+      static_cast<const float*>(h_top), static_cast<const float*>(soft),
+      static_cast<const float*>(d_emb), static_cast<const float*>(w_proj),
+      static_cast<const float*>(wd), R, H, V, Ed, temp, plan, scratch, dwp,
+      dbp, static_cast<float*>(d_htop), s);
 }
 
 }  // extern "C"

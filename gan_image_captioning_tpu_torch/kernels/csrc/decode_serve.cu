@@ -1,6 +1,7 @@
-// Stacked-LSTM free-running decode for Hopper (sm_90a), float32, every
-// mode: greedy / serve (with or without carried state), pretrain, and the
-// Gumbel modes sample, sample_resid and sample_embed.
+// Stacked-LSTM free-running decode for Hopper (sm_90a), float32 or
+// bfloat16 (a template parameter, bf16.cuh), every mode: greedy / serve
+// (with or without carried state), pretrain, and the Gumbel modes sample,
+// sample_resid and sample_embed.
 //
 // Replaces: gan_image_captioning_tpu/kernels/decode_sample.py, function
 // `_kernel` in modes "serve", "greedy", "pretrain", "sample", "sample_resid"
@@ -879,9 +880,13 @@ __global__ void __launch_bounds__(NT, 1) decode_persistent_kernel(
 // wd^T for the R = T*B rows of the soft sample, wd [Ed, V] the
 // discriminator's embedding (torch layout).  A block owns 64 embedding
 // columns and 32 soft rows: the register-tiled product of tile_dot.cuh.
+// bfloat16 (W): the rounded soft sample and wd widened, the sum float32,
+// emb rounded once (the TPU kernel's dot of soft.astype(bf16) with
+// preferred_element_type=float32, then astype).
+template <class W>
 __global__ void __launch_bounds__(P_NT) embed_kernel(
-    const float* __restrict__ wd, const float* __restrict__ soft, int V,
-    int Ed, int R, float* __restrict__ emb) {
+    const W* __restrict__ wd, const W* __restrict__ soft, int V, int Ed,
+    int R, W* __restrict__ emb) {
   __shared__ float Ws[P_RT][KT + 1];
   __shared__ float Xs[P_BT][KT + 1];
   constexpr int NR = P_RT / P_TR, NB = P_BT / P_TB;
@@ -889,15 +894,16 @@ __global__ void __launch_bounds__(P_NT) embed_kernel(
   const int tid = threadIdx.x, tr = tid % NR, tb = tid / NR;
 
   float acc[P_TR][P_TB];
-  tile_dot<P_RT, P_BT, P_TR, P_TB>(ProjRows{e0, Ed}, wd, nullptr, soft,
-                                   nullptr, V, 0, r0, R, acc, Ws, Xs);
+  tile_dot<P_RT, P_BT, P_TR, P_TB, ProjRows, W>(
+      ProjRows{e0, Ed}, wd, static_cast<const W*>(nullptr), soft,
+      static_cast<const W*>(nullptr), V, 0, r0, R, acc, Ws, Xs);
 #pragma unroll
   for (int i = 0; i < P_TR; ++i) {
     const int e = e0 + tr + i * NR;
 #pragma unroll
     for (int j = 0; j < P_TB; ++j) {
       const int r = r0 + tb + j * NB;
-      if (e < Ed && r < R) emb[(size_t)r * Ed + e] = acc[i][j];
+      if (e < Ed && r < R) store_as(emb, (size_t)r * Ed + e, acc[i][j]);
     }
   }
 }
@@ -1060,6 +1066,26 @@ int decode_sample_resid(
   return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
 }
 
+// Mode sample: ids = argmax(logits + g) and the noise g [T, B, V] (W).
+template <class W>
+int decode_sample_noise(const void* feats, const void* embed,
+                        const void* w_proj, const void* b_proj,
+                        const void* const* layer_ptrs, int B, int E, int H,
+                        int V, int nl, int T, unsigned long long seed,
+                        const float* u_in, float* x, float* h, float* c,
+                        float* psmax, int* psidx, int32_t* ids, void* noise,
+                        const int* plan, unsigned int* barrier,
+                        void* stream) {
+  DecodeParams<W> p = base_params<W>(feats, embed, w_proj, b_proj, B, E, H, V,
+                                     nl, T, x, h, c, psmax, psidx, barrier,
+                                     ids);
+  p.sample = 1;
+  p.seed = seed;
+  p.u_in = u_in;
+  p.noise = static_cast<W*>(noise);
+  return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+}
+
 template <class W>
 int decode_qserve(const void* feats, const void* const* layer_ptrs,
                   const int8_t* pq, const float* ps, const float* pb,
@@ -1138,11 +1164,11 @@ int gic_decode_kernel_attrs(int quantized, int bf16_, int* regs,
 // b_ih and b_hh [4H] per layer; plan the five ints of Plan; barrier
 // one device unsigned int.  Scratch: x [B, Ep], h [2, nl, B, Hp] (rows
 // padded to 4 floats), c [nl, B, H], the per-tile statistics
-// [B, ceil(V / 64)].  bf16 = 1 (serve, pretrain, sample_resid, qserve):
+// [B, ceil(V / 64)].  bf16 = 1 (every mode, and qserve):
 // the weights, the biases of the dense decode, feats, h0, x0 and the
-// outputs logits, soft, hs, cs, gates, hT and xT are bfloat16 (the
-// bfloat16 instantiation); the scratch, c0, cT, lps and the uniforms stay
-// float32.  Returns 0 or the first CUDA error code
+// outputs logits, noise, soft, emb, hs, cs, gates, hT and xT are bfloat16
+// (the bfloat16 instantiation); the scratch, c0, cT, lps and the uniforms
+// stay float32.  Returns 0 or the first CUDA error code
 // (cudaErrorCooperativeLaunchTooLarge when the grid cannot be co-resident);
 // nothing synchronises.
 
@@ -1186,45 +1212,53 @@ int gic_decode_sample_resid(
       cs, gates, plan, barrier, stream);
 }
 
-// Mode sample (float32 only): the Gumbel-max decode, ids = argmax(logits +
-// g) per step, and the noise g [T, B, V]; no soft sample, no residuals.
-int gic_decode_sample(const float* feats, const float* embed,
-                      const float* w_proj, const float* b_proj,
+// Mode sample: the Gumbel-max decode, ids = argmax(logits + g) per step,
+// and the noise g [T, B, V]; no soft sample, no residuals.  bf16 = 1: the
+// weights, their biases and feats bfloat16, the scores float32 and the
+// noise rounded to bfloat16 (the TPU kernel's out_refs[1] in the compute
+// dtype); the uniforms stay float32.
+int gic_decode_sample(const void* feats, const void* embed,
+                      const void* w_proj, const void* b_proj,
                       const void* const* layer_ptrs, int B, int E, int H,
-                      int V, int nl, int T, unsigned long long seed,
-                      const float* u_in, float* x, float* h, float* c,
-                      float* psmax, int* psidx, int32_t* ids, float* noise,
-                      const int* plan, unsigned int* barrier, void* stream) {
-  DecodeParams<float> p = base_params<float>(feats, embed, w_proj, b_proj, B,
-                                             E, H, V, nl, T, x, h, c, psmax,
-                                             psidx, barrier, ids);
-  p.sample = 1;
-  p.seed = seed;
-  p.u_in = u_in;
-  p.noise = noise;
-  return run<false>(p, layer_ptrs, plan, static_cast<cudaStream_t>(stream));
+                      int V, int nl, int T, int bf16_,
+                      unsigned long long seed, const float* u_in, float* x,
+                      float* h, float* c, float* psmax, int* psidx,
+                      int32_t* ids, void* noise, const int* plan,
+                      unsigned int* barrier, void* stream) {
+  return (bf16_ ? decode_sample_noise<bf16> : decode_sample_noise<float>)(
+      feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, seed,
+      u_in, x, h, c, psmax, psidx, ids, noise, plan, barrier, stream);
 }
 
-// Mode sample_embed (float32 only): the float32 sample_resid, then emb
-// [T*B, Ed] = soft @ wd^T with wd [Ed, V] (one embed_kernel launch over
-// all rows).
+// Mode sample_embed: sample_resid, then emb [T*B, Ed] = soft @ wd^T with
+// wd [Ed, V] (one embed_kernel launch over all rows).  bf16 = 1: as
+// gic_decode_sample_resid's bfloat16 instantiation (zbuf [B, V] float32
+// required), with wd and emb bfloat16.
 int gic_decode_sample_embed(
-    const float* feats, const float* embed, const float* w_proj,
-    const float* b_proj, const void* const* layer_ptrs, int B, int E, int H,
-    int V, int nl, int T, float temp, unsigned long long seed,
-    const float* u_in, const float* wd, int Ed, float* x, float* h, float* c,
-    float* psmax, int* psidx, float* pzmax, float* pzsum, int32_t* ids,
-    float* soft, float* hs, float* cs, float* gates, float* emb,
+    const void* feats, const void* embed, const void* w_proj,
+    const void* b_proj, const void* const* layer_ptrs, int B, int E, int H,
+    int V, int nl, int T, int bf16_, float temp, unsigned long long seed,
+    const float* u_in, const void* wd, int Ed, float* x, float* h, float* c,
+    float* psmax, int* psidx, float* pzmax, float* pzsum, float* zbuf,
+    int32_t* ids, void* soft, void* hs, void* cs, void* gates, void* emb,
     const int* plan, unsigned int* barrier, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = decode_sample_resid<float>(
-      feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, temp, seed,
-      u_in, nullptr, x, h, c, psmax, psidx, pzmax, pzsum, nullptr, ids, soft,
-      hs, cs, gates, plan, barrier, stream);
+  const int err =
+      (bf16_ ? decode_sample_resid<bf16> : decode_sample_resid<float>)(
+          feats, embed, w_proj, b_proj, layer_ptrs, B, E, H, V, nl, T, temp,
+          seed, u_in, nullptr, x, h, c, psmax, psidx, pzmax, pzsum, zbuf, ids,
+          soft, hs, cs, gates, plan, barrier, stream);
   if (err != 0) return err;
   const int R = T * B;
   const dim3 grid((Ed + P_RT - 1) / P_RT, (R + P_BT - 1) / P_BT);
-  embed_kernel<<<grid, P_NT, 0, s>>>(wd, soft, V, Ed, R, emb);
+  if (bf16_)
+    embed_kernel<bf16><<<grid, P_NT, 0, s>>>(
+        static_cast<const bf16*>(wd), static_cast<const bf16*>(soft), V, Ed,
+        R, static_cast<bf16*>(emb));
+  else
+    embed_kernel<float><<<grid, P_NT, 0, s>>>(
+        static_cast<const float*>(wd), static_cast<const float*>(soft), V, Ed,
+        R, static_cast<float*>(emb));
   return cudaGetLastError();
 }
 

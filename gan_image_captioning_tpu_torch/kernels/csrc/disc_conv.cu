@@ -846,6 +846,11 @@ size_t conv_bwd_smem(int L, int eds, int ldw, int rw, bool mask) {
 // items' work (most of it the dW butterflies) does not hide behind it.
 // A deeper ring, 64-filter steps and two warps an item (halves of a step,
 // two accumulator copies) were no faster; PERF.md gives the times.
+// bfloat16 (T, --dtype bfloat16): emb, w_all, d and pooled are bfloat16,
+// loaded (4 values, 8 bytes, at a time where aligned) and widened into
+// the same float slots, without cp.async; the accumulators, DXS, dW and db
+// stay float32, as the TPU kernel's (its dxs and dw outputs are float32;
+// the overlap-add and the rounding of d_emb follow in the wrapper).
 
 constexpr int DX_QB = 32, DX_SF = 32, DX_SLD = DX_SF + 4, DX_STAGES = 3;
 constexpr int DX_AHEAD = DX_STAGES - 1, DX_MAX_SEGS = 8, DX_MAX_WARPS = 16;
@@ -859,8 +864,8 @@ static_assert(DX_QB == 32 && DX_SF == 32,
 struct DxsSeg {
   int n, f, off, ldd, k0, k1, item0, acc0;
   const int32_t* idx;
-  const float* d;
-  const float* pooled;
+  const void* d;       // T
+  const void* pooled;  // T
   float* dxs;
 };
 
@@ -880,9 +885,11 @@ __host__ __device__ inline int dxs_item_floats(int L, int f) {
 }
 
 // Step `step`'s slab of every segment's bank into `buf` ([count][stage]):
-// columns past Q and filters past the bank's count are zeros.
+// columns past Q and filters past the bank's count are zeros.  bfloat16
+// (T): d, pooled and the taps widened (stage_slab's way).
+template <class T>
 __device__ __forceinline__ void dxs_stage_step(
-    float* buf, const DxsLaunch& ln, const float* __restrict__ w_all, int ldw,
+    float* buf, const DxsLaunch& ln, const T* __restrict__ w_all, int ldw,
     int stage, int step, int q0, int Q) {
   const int nn0 = step * DX_SF;
   for (int sg = 0; sg < ln.count; ++sg) {
@@ -895,26 +902,39 @@ __device__ __forceinline__ void dxs_stage_step(
     float* sp = sd + DX_QB * DX_SLD;
     float* sw = base + 3 * DX_QB * DX_SLD;
     const int32_t* idx = b.idx + nn0;
-    const float* d = b.d + nn0;
-    const float* p = b.pooled + nn0;
+    const T* d = static_cast<const T*>(b.d) + nn0;
+    const T* p = static_cast<const T*>(b.pooled) + nn0;
+    const auto aligned = [](const void* v) {
+      return (reinterpret_cast<uintptr_t>(v) & (is_bf16<T> ? 7 : 15)) == 0;
+    };
     const bool vec = ((b.n | b.ldd) & 3) == 0 && aligned16(idx) &&
-                     aligned16(d) && aligned16(p);
+                     aligned(d) && aligned(p);
     for (int e = threadIdx.x; e < DX_QB * DX_SF / 4; e += blockDim.x) {
       const int r = e / (DX_SF / 4), gl = e % (DX_SF / 4) * 4, q = q0 + r;
       const int o = r * DX_SLD + gl;
       const size_t oi = (size_t)q * b.n + gl, od = (size_t)q * b.ldd + gl;
       if (vec && q < Q && gl + 4 <= cnt) {
         cp_async16(si + o, idx + oi);
-        cp_async16(sd + o, d + od);
-        cp_async16(sp + o, p + od);
+        if constexpr (is_bf16<T>) {
+          *reinterpret_cast<float4*>(sd + o) = gic::ld4_bf16(d + od);
+          *reinterpret_cast<float4*>(sp + o) = gic::ld4_bf16(p + od);
+        } else {
+          cp_async16(sd + o, d + od);
+          cp_async16(sp + o, p + od);
+        }
         continue;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (q < Q && gl + i < cnt) {
           cp_async4(si + o + i, idx + oi + i);
-          cp_async4(sd + o + i, d + od + i);
-          cp_async4(sp + o + i, p + od + i);
+          if constexpr (is_bf16<T>) {
+            sd[o + i] = to_f(d[od + i]);
+            sp[o + i] = to_f(p[od + i]);
+          } else {
+            cp_async4(sd + o + i, d + od + i);
+            cp_async4(sp + o + i, p + od + i);
+          }
         } else {
           si[o + i] = 0;
           sd[o + i] = 0.f;
@@ -922,9 +942,13 @@ __device__ __forceinline__ void dxs_stage_step(
         }
       }
     }
-    const float* w = w_all + (size_t)(b.off + nn0) * ldw;
-    for (int e = threadIdx.x; e < cnt * ldw; e += blockDim.x)
-      cp_async4(sw + e, w + e);
+    const T* w = w_all + (size_t)(b.off + nn0) * ldw;
+    for (int e = threadIdx.x; e < cnt * ldw; e += blockDim.x) {
+      if constexpr (is_bf16<T>)
+        sw[e] = to_f(w[e]);
+      else
+        cp_async4(sw + e, w + e);
+    }
   }
 }
 
@@ -1026,9 +1050,10 @@ __device__ __forceinline__ void dxs_item(
 // segment of `ln`.  part [gridDim.x][ldw*F + F]: the launch
 // writes the slots of its items (dW (k, g) of its taps; on a bank's tap 0
 // also the zero taps and db).
+template <class T>
 __global__ void __launch_bounds__(32 * DX_MAX_WARPS) conv_dxs_kernel(
-    const float* __restrict__ emb, const float* __restrict__ w_all, int ldw,
-    int Q, int Lp, int R, int eds, int L, int F, DxsLaunch ln,
+    const T* __restrict__ emb, const T* __restrict__ w_all, int ldw, int Q,
+    int Lp, int R, int eds, int L, int F, DxsLaunch ln,
     float* __restrict__ part) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   const int stage = dxs_stage(ldw), rows = L * eds, E = R * eds;
@@ -1041,14 +1066,14 @@ __global__ void __launch_bounds__(32 * DX_MAX_WARPS) conv_dxs_kernel(
 
   for (int s = 0; s < DX_AHEAD; ++s) {
     if (s < ln.steps)
-      dxs_stage_step(ring + s * ln.count * stage, ln, w_all, ldw, stage,
-                           s, q0, Q);
+      dxs_stage_step<T>(ring + s * ln.count * stage, ln, w_all, ldw, stage,
+                        s, q0, Q);
     cp_async_commit();
   }
   for (int e = tid; e < rows * DX_QB; e += blockDim.x) {
     const int c = e % DX_QB, p = e / DX_QB, q = q0 + c;
-    xs[e] = q < Q ? emb[((size_t)(q / R) * Lp + p / eds) * E + (q % R) * eds +
-                        p % eds]
+    xs[e] = q < Q ? to_f(emb[((size_t)(q / R) * Lp + p / eds) * E +
+                             (q % R) * eds + p % eds])
                   : 0.f;
   }
   const DxsSeg& last = ln.s[ln.count - 1];
@@ -1059,8 +1084,8 @@ __global__ void __launch_bounds__(32 * DX_MAX_WARPS) conv_dxs_kernel(
   for (int s = 0; s < ln.steps; ++s) {
     const int pre = s + DX_AHEAD;  // into the buffer read at s - 1
     if (pre < ln.steps)
-      dxs_stage_step(ring + (pre % DX_STAGES) * ln.count * stage, ln,
-                           w_all, ldw, stage, pre, q0, Q);
+      dxs_stage_step<T>(ring + (pre % DX_STAGES) * ln.count * stage, ln,
+                        w_all, ldw, stage, pre, q0, Q);
     cp_async_commit();
     cp_async_wait<DX_AHEAD>();
     __syncthreads();  // step s is in every view
@@ -1270,14 +1295,16 @@ int gic_conv_bwd(const void* emb, const void* w_all, int ldw, int Bn,
 // cover every (bank, tap) once and in order, a bank at most once a launch,
 // and the bytes must be the ones this side computes; a call that does not
 // match, or whose part_floats are not the partials' blocks x slots, is
-// refused (cudaErrorInvalidValue) before anything is launched.
-int gic_conv_dxs(const float* emb, const float* w_all, int ldw, int Bn,
+// refused (cudaErrorInvalidValue) before anything is launched.  bf16 = 1:
+// emb, w_all, d and pooled are bfloat16 (the bfloat16 instantiation); dxs,
+// dw and db stay float32.
+int gic_conv_dxs(const void* emb, const void* w_all, int ldw, int Bn,
                  int Lp, int R, int eds, int L, int n_banks,
                  const int* bank_ints, void* const* idx, void* const* d,
                  void* const* pooled, int n_launches,
                  const int* launch_ints, size_t part_floats,
                  void* const* dxs, float* part, float* dw, float* db,
-                 void* stream) {
+                 int bf16_, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_banks < 1 || n_launches < 1 || !pooled || !db)
     return cudaErrorInvalidValue;
@@ -1321,8 +1348,8 @@ int gic_conv_dxs(const float* emb, const float* w_all, int ldw, int Bn,
       s.item0 = ln.items;
       s.acc0 = acc;
       s.idx = static_cast<const int32_t*>(idx[b]);
-      s.d = static_cast<const float*>(d[b]);
-      s.pooled = static_cast<const float*>(pooled[b]);
+      s.d = d[b];
+      s.pooled = pooled[b];
       s.dxs = static_cast<float*>(dxs[b]);
       ln.items += k1 - k0;
       acc += (k1 - k0) * dxs_item_floats(L, bi[1]);
@@ -1343,15 +1370,23 @@ int gic_conv_dxs(const float* emb, const float* w_all, int ldw, int Bn,
     li += 2 + 3 * count;
   }
   if (bank != n_banks) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem((const void*)conv_dxs_kernel, smem_max);
+  cudaError_t err = set_smem(bf16_ ? (const void*)conv_dxs_kernel<bf16>
+                                   : (const void*)conv_dxs_kernel<float>,
+                             smem_max);
   if (err != cudaSuccess) return err;
   li = launch_ints;
   for (const DxsLaunch& ln : launches) {
     const size_t smem = (size_t)li[1];
     li += 2 + 3 * ln.count;
     const int threads = 32 * min(DX_MAX_WARPS, ln.items);
-    conv_dxs_kernel<<<nblk, threads, smem, st>>>(emb, w_all, ldw, Q, Lp, R,
-                                                 eds, L, F, ln, part);
+    if (bf16_)
+      conv_dxs_kernel<bf16><<<nblk, threads, smem, st>>>(
+          static_cast<const bf16*>(emb), static_cast<const bf16*>(w_all), ldw,
+          Q, Lp, R, eds, L, F, ln, part);
+    else
+      conv_dxs_kernel<float><<<nblk, threads, smem, st>>>(
+          static_cast<const float*>(emb), static_cast<const float*>(w_all),
+          ldw, Q, Lp, R, eds, L, F, ln, part);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

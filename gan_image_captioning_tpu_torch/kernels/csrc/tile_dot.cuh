@@ -2,6 +2,8 @@
 //
 // tile_dot computes, for one block, an (RT rows) x (BT batch rows) tile of
 //   acc[row][b] = sum_k W(row)[k] * X(b)[k]
+// with W and X of element type T (float, or bfloat16 widened exactly as it
+// is loaded: bf16.cuh's to_f), every product and sum in float32.
 // where W(R)[k] = k < K0 ? w0[R*K0 + k] : w1[R*K1 + k - K0] and X(b)[k]
 // likewise from x0 [B, K0] and x1 [B, K1] (a row split over two matrices
 // is how the LSTM kernel reads [x | h] without a concatenation).  One K
@@ -14,14 +16,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bf16.cuh"
+
 namespace gic {
 
 constexpr int KT = 32;  // depth of one K tile
 
-template <int RT, int BT, int TR, int TB, class Rows>
+template <int RT, int BT, int TR, int TB, class Rows, class T = float>
 __device__ __forceinline__ void tile_dot(
-    Rows rows, const float* __restrict__ w0, const float* __restrict__ w1,
-    const float* __restrict__ x0, const float* __restrict__ x1, int K0,
+    Rows rows, const T* __restrict__ w0, const T* __restrict__ w1,
+    const T* __restrict__ x0, const T* __restrict__ x1, int K0,
     int K1, int b0, int B, float (&acc)[TR][TB], float (*Ws)[KT + 1],
     float (*Xs)[KT + 1]) {
   constexpr int NR = RT / TR, NB = BT / TB, NT = NR * NB;
@@ -38,7 +42,8 @@ __device__ __forceinline__ void tile_dot(
       const int R = rows(r);
       float v = 0.f;
       if (R >= 0 && k < K)
-        v = k < K0 ? w0[(size_t)R * K0 + k] : w1[(size_t)R * K1 + (k - K0)];
+        v = to_f(k < K0 ? w0[(size_t)R * K0 + k]
+                        : w1[(size_t)R * K1 + (k - K0)]);
       wreg[n] = v;
     }
 #pragma unroll
@@ -46,7 +51,8 @@ __device__ __forceinline__ void tile_dot(
       const int e = tid + n * NT, b = b0 + e / KT, k = k0 + e % KT;
       float v = 0.f;
       if (b < B && k < K)
-        v = k < K0 ? x0[(size_t)b * K0 + k] : x1[(size_t)b * K1 + (k - K0)];
+        v = to_f(k < K0 ? x0[(size_t)b * K0 + k]
+                        : x1[(size_t)b * K1 + (k - K0)]);
       xreg[n] = v;
     }
   };

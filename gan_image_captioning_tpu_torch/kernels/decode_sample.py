@@ -175,17 +175,18 @@ def decode_sample_noise_plain(features, lstm_layers: Sequence[dict], w_proj,
                               b_proj, embed, seq_len: int, uniforms):
     """Plain PyTorch version of mode ``sample`` with the uniforms
     ``[T, B, V]`` given → ``(ids [B, T] int32, noise [T, B, V])``: ids
-    ``argmax(logits + g)`` (first index on ties), ``g`` the Gumbel noise
-    of the uniforms."""
+    ``argmax(logits + g)`` of the float32 scores (first index on ties),
+    ``g`` the Gumbel noise of the uniforms, stored in the features' dtype
+    (bfloat16 under ``--dtype bfloat16``, as the TPU kernel writes it)."""
     h, c = _zero_state(features, lstm_layers)
     x, ids, noise = features, [], []
     with torch.no_grad():
         for t in range(seq_len):
             _stack_step(lstm_layers, x, h, c)
             g = gumbel_noise(uniforms[t].shape, u=uniforms[t])
-            ids_t = torch.argmax(h[-1] @ w_proj.T + b_proj + g, dim=-1)
+            ids_t = torch.argmax(_logits(h[-1], w_proj, b_proj) + g, dim=-1)
             ids.append(ids_t)
-            noise.append(g)
+            noise.append(g.to(features.dtype))
             x = embed[ids_t]
     return torch.stack(ids, dim=1).to(torch.int32), torch.stack(noise)
 
@@ -213,27 +214,34 @@ def decode_sample_embed_plain(features, lstm_layers: Sequence[dict], w_proj,
                               temperature: float, disc_embed):
     """Plain PyTorch version of mode ``sample_embed`` → ``(ids, emb
     [T, B, Ed], soft, hs, cs, gates)``: :func:`decode_sample_resid_plain`
-    and ``emb = soft @ disc_embed^T`` (``disc_embed [Ed, V]``)."""
+    and ``emb = soft @ disc_embed^T`` (``disc_embed [Ed, V]``), the stored
+    soft sample and ``disc_embed`` widened, the sum float32, ``emb``
+    rounded to their dtype."""
     ids, soft, hs, cs, gates = decode_sample_resid_plain(
         features, lstm_layers, w_proj, b_proj, embed, seq_len, uniforms,
         temperature)
     with torch.no_grad():
-        emb = soft @ disc_embed.T
+        emb = (_f32(soft) @ _f32(disc_embed).T).to(soft.dtype)
     return ids, emb, soft, hs, cs, gates
 
 
 def decode_sample_embed_bwd_plain(h_top_tm, soft_tm, d_emb_tm, w_proj,
                                   disc_embed, temperature: float):
     """Plain PyTorch version of :func:`decode_sample_embed_bwd` →
-    ``(dWp [H, V], dbp [V], d_htop [T, B, H])``."""
+    ``(dWp [H, V], dbp [V], d_htop [T, B, H])``.  bfloat16 inputs: the
+    products of the widened operands, d_logits float32 and rounded to
+    bfloat16 before the two products that read it, dbp its float32 sum,
+    d_htop rounded to bfloat16 (the TPU kernel's ``dl_c``)."""
     T, B, V = soft_tm.shape
+    dt = h_top_tm.dtype
     with torch.no_grad():
-        d_soft = d_emb_tm @ disc_embed                        # [T, B, V]
-        inner = (d_soft * soft_tm).sum(dim=-1, keepdim=True)
-        d_logits = (temperature * soft_tm * (d_soft - inner)).reshape(
-            T * B, V)
-        dwp = h_top_tm.reshape(T * B, -1).T @ d_logits
-        d_htop = (d_logits @ w_proj).reshape(T, B, -1)
+        d_soft = _f32(d_emb_tm) @ _f32(disc_embed)            # [T, B, V]
+        soft = _f32(soft_tm)
+        inner = (d_soft * soft).sum(dim=-1, keepdim=True)
+        d_logits = (temperature * soft * (d_soft - inner)).reshape(T * B, V)
+        dl = _f32(d_logits.to(dt))
+        dwp = _f32(h_top_tm).reshape(T * B, -1).T @ dl
+        d_htop = (dl @ _f32(w_proj)).reshape(T, B, -1).to(dt)
         return dwp, d_logits.sum(dim=0), d_htop
 
 
@@ -304,16 +312,16 @@ def _library() -> ctypes.CDLL:
             [vp, ctypes.POINTER(vp)] + [vp] * 5 + [i] * 9 + [vp] * 14
             + tail)
         lib.gic_decode_qserve.restype = i
-        # the int after the head of serve, sample_resid and pretrain: 1 for
-        # the bfloat16 instantiation
+        # the int after the head of every mode: 1 for the bfloat16
+        # instantiation
         for name, args in (
                 ("gic_decode_serve", [i] + [vp] * 14),
                 ("gic_decode_sample_resid",
                  [i, f, ctypes.c_uint64] + [vp] * 15),
                 ("gic_decode_pretrain", [i] + [vp] * 8),
-                ("gic_decode_sample", [ctypes.c_uint64] + [vp] * 8),
+                ("gic_decode_sample", [i, ctypes.c_uint64] + [vp] * 8),
                 ("gic_decode_sample_embed",
-                 [f, ctypes.c_uint64, vp, vp, i] + [vp] * 13)):
+                 [i, f, ctypes.c_uint64, vp, vp, i] + [vp] * 14)):
             getattr(lib, name).argtypes = head + args + tail
             getattr(lib, name).restype = i
         lib._gic_typed = True
@@ -623,10 +631,12 @@ def decode_sample_noise(features, lstm_layers: Sequence[dict], w_proj,
     """Mode ``sample`` → ``(ids [B, T] int32, noise [T, B, V])``: the
     Gumbel-max decode, ``ids = argmax(logits + g)``, and the noise ``g``
     it added.  Uniforms as :func:`decode_sample_resid` (the same Philox
-    stream, so the same ``seed`` gives the same ids)."""
+    stream, so the same ``seed`` gives the same ids).  float32 or bfloat16
+    weights and features (the bfloat16 instantiation: the scores float32,
+    the noise bfloat16)."""
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
-    device = features.device
+                           seq_len, bf16=True)
+    device, dt = features.device, features.dtype
     _check_uniforms(uniforms, seq_len, B, V, device)
     if device.type == "cpu":
         return decode_sample_noise_plain(
@@ -642,18 +652,19 @@ def decode_sample_noise(features, lstm_layers: Sequence[dict], w_proj,
     x, h, c, psmax, psidx, _, _ = _sample_scratch(empty, nl, B, E, H,
                                                   ntile)
     ids = empty(B, seq_len, dtype=torch.int32)
-    noise = empty(seq_len, B, V)
+    noise = empty(seq_len, B, V, dtype=dt)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_sample(
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
-            int(seed) & (2 ** 64 - 1), _ptr(uniforms), x.data_ptr(),
+            int(dt == torch.bfloat16), int(seed) & (2 ** 64 - 1),
+            _ptr(uniforms), x.data_ptr(),
             h.data_ptr(), c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
             ids.data_ptr(), noise.data_ptr(), cplan, barrier.data_ptr(),
             stream)
     build.raise_on_error(lib, rc, "decode_sample_noise")
-    _count(decode_sample_noise, plan)
+    _count(decode_sample_noise, plan, dt)
     return ids, noise
 
 
@@ -699,15 +710,17 @@ def decode_sample_embed(features, lstm_layers: Sequence[dict], w_proj,
     soft [T, B, V], hs, cs, gates)``: :func:`decode_sample_resid` and the
     soft sample contracted into the discriminator's embedding
     ``disc_embed [Ed, V]`` (torch layout), ``emb = soft @ disc_embed^T``,
-    in the same C call.  Uniforms as :func:`decode_sample_resid`."""
+    in the same C call.  Uniforms as :func:`decode_sample_resid`.  float32
+    or bfloat16 weights, features and ``disc_embed`` (the bfloat16
+    instantiation: emb, soft and the residuals bfloat16)."""
     B, E, H, V = _validate(features, lstm_layers, w_proj, b_proj, embed,
-                           seq_len)
-    device = features.device
+                           seq_len, bf16=True)
+    device, dt = features.device, features.dtype
     if disc_embed is None or disc_embed.ndim != 2:
         raise ValueError("decode_sample: mode 'sample_embed' needs "
                          "disc_embed [Ed, V]")
     Ed = disc_embed.shape[0]
-    _check("disc_embed", disc_embed, (Ed, V), device)
+    _check("disc_embed", disc_embed, (Ed, V), device, dt)
     _check_uniforms(uniforms, seq_len, B, V, device)
     if device.type == "cpu":
         return decode_sample_embed_plain(
@@ -723,23 +736,27 @@ def decode_sample_embed(features, lstm_layers: Sequence[dict], w_proj,
     empty = _empty_on(device)
     x, h, c, psmax, psidx, pzmax, pzsum = _sample_scratch(
         empty, nl, B, E, H, ntile)
+    bf16 = dt == torch.bfloat16
+    zbuf = empty(B, V) if bf16 else None    # z of a step, float32
     ids = empty(B, seq_len, dtype=torch.int32)
-    soft, emb = empty(seq_len, B, V), empty(seq_len, B, Ed)
-    hs, cs = empty(seq_len, nl, B, H), empty(seq_len, nl, B, H)
-    gates = empty(seq_len, nl, B, 4 * H)
+    soft = empty(seq_len, B, V, dtype=dt)
+    emb = empty(seq_len, B, Ed, dtype=dt)
+    hs = empty(seq_len, nl, B, H, dtype=dt)
+    cs = empty(seq_len, nl, B, H, dtype=dt)
+    gates = empty(seq_len, nl, B, 4 * H, dtype=dt)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_sample_embed(
             features.data_ptr(), embed.data_ptr(), w_proj.data_ptr(),
             b_proj.data_ptr(), layer_ptrs, B, E, H, V, nl, seq_len,
-            float(temperature), int(seed) & (2 ** 64 - 1), _ptr(uniforms),
-            disc_embed.data_ptr(), Ed, x.data_ptr(), h.data_ptr(),
-            c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
-            pzmax.data_ptr(), pzsum.data_ptr(), ids.data_ptr(),
+            int(bf16), float(temperature), int(seed) & (2 ** 64 - 1),
+            _ptr(uniforms), disc_embed.data_ptr(), Ed, x.data_ptr(),
+            h.data_ptr(), c.data_ptr(), psmax.data_ptr(), psidx.data_ptr(),
+            pzmax.data_ptr(), pzsum.data_ptr(), _ptr(zbuf), ids.data_ptr(),
             soft.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
             emb.data_ptr(), cplan, barrier.data_ptr(), stream)
     build.raise_on_error(lib, rc, "decode_sample_embed")
-    _count(decode_sample_embed, plan)
+    _count(decode_sample_embed, plan, dt)
     return ids, emb, soft, hs, cs, gates
 
 
@@ -748,7 +765,7 @@ def _bwd_library() -> ctypes.CDLL:
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.gic_decode_embed_bwd.argtypes = (
-            [vp] * 5 + [i] * 4 + [ctypes.c_float, ctypes.POINTER(i)]
+            [vp] * 5 + [i] * 5 + [ctypes.c_float, ctypes.POINTER(i)]
             + [vp] * 5)
         lib.gic_decode_embed_bwd.restype = i
         lib._gic_typed = True
@@ -758,8 +775,10 @@ def _bwd_library() -> ctypes.CDLL:
 # The tiles (M, N, K) of csrc/decode_embed_bwd.cu's two products that are
 # split over K = V (SE_* and HT_* there): se = soft @ wd^T and d_htop.  They
 # steer the choice of splits only; the C side refuses a chunk that is not a
-# whole number of its K tiles.
+# whole number of its K tiles.  EB_DL_ROWS: the rows of a d_logits block
+# (DL_BM), whose column sums the bfloat16 backward keeps for dbp.
 EB_SE_TILE, EB_HTOP_TILE, EB_MAX_SPLIT = (128, 64, 32), (128, 128, 64), 32
+EB_DL_ROWS = 64
 
 
 def _pad4(n: int) -> int:
@@ -782,14 +801,17 @@ def _split_k(tiles: int, K: int, bk: int, n_sm: int):
 
 
 @functools.lru_cache(maxsize=64)
-def embed_bwd_plan(R: int, H: int, V: int, Ed: int, n_sm: int) -> dict:
+def embed_bwd_plan(R: int, H: int, V: int, Ed: int, n_sm: int,
+                   bf16: bool = False) -> dict:
     """The splits of :func:`decode_sample_embed_bwd` for ``R = T·B`` rows
     on a card of ``n_sm`` SMs: ``se [R, Ed]`` and ``d_htop [R, H]``, both
     sums over V, each with its output ``tiles`` and V cut into ``splits``
-    chunks of ``chunk``; the scratch floats (d_logits, inner, the se
-    partials and, when split, the d_htop partials, each from a multiple of
-    4 floats); the launches of one call; ``ints``, what the C call takes.
-    Cached per shape: callers must not change the dict."""
+    chunks of ``chunk``; the scratch floats (float32: d_logits, inner, the
+    se partials and, when split, the d_htop partials; ``bf16``: the
+    bfloat16 d_logits, inner, the se partials, the column sums of each
+    ``EB_DL_ROWS`` rows and the d_htop partials, split or not; each from a
+    multiple of 4 floats); the launches of one call; ``ints``, what the C
+    call takes.  Cached per shape: callers must not change the dict."""
     for name, v in (("R", R), ("H", H), ("V", V), ("Ed", Ed),
                     ("n_sm", n_sm)):
         if v < 1:
@@ -802,9 +824,15 @@ def embed_bwd_plan(R: int, H: int, V: int, Ed: int, n_sm: int) -> dict:
         splits, chunk = _split_k(tiles, V, bk, n_sm)
         plan[name] = {"tiles": tiles, "splits": splits, "chunk": chunk}
     s0, s3 = plan["se"]["splits"], plan["d_htop"]["splits"]
-    scratch = (_pad4(R * V) + _pad4(R) + _pad4(s0 * R * Ed)
-               + (s3 * R * H if s3 > 1 else 0))
-    return {**plan, "scratch_floats": scratch, "launches": 5 + (s3 > 1),
+    if bf16:
+        scratch = (_pad4(-(-R * V // 2)) + _pad4(R) + _pad4(s0 * R * Ed)
+                   + _pad4(-(-R // EB_DL_ROWS) * V) + s3 * R * H)
+        launches = 7
+    else:
+        scratch = (_pad4(R * V) + _pad4(R) + _pad4(s0 * R * Ed)
+                   + (s3 * R * H if s3 > 1 else 0))
+        launches = 5 + (s3 > 1)
+    return {**plan, "scratch_floats": scratch, "launches": launches,
             "ints": (s0, plan["se"]["chunk"], s3, plan["d_htop"]["chunk"],
                      scratch)}
 
@@ -823,14 +851,16 @@ def _sm_count(device) -> int:
 def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
                             temperature: float):
     """The generator-side backward of mode ``sample_embed`` →
-    ``(dWp [H, V], dbp [V], d_htop [T, B, H])``, float32, from the top
-    layer's ``h_top_tm [T, B, H]``, the saved ``soft_tm [T, B, V]``, the
-    cotangent ``d_emb_tm [T, B, Ed]`` of ``emb``, ``w_proj [V, H]`` and
-    ``disc_embed [Ed, V]`` (the JAX ``decode_sample_embed_bwd``).  On CUDA
-    tensors ``csrc/decode_embed_bwd.cu`` (one C call: tensor-core 3xTF32
-    products over all T·B rows at once, sized by :func:`embed_bwd_plan`,
-    each sum in a fixed order); on CPU tensors
-    :func:`decode_sample_embed_bwd_plain`."""
+    ``(dWp [H, V], dbp [V], d_htop [T, B, H])`` from the top layer's
+    ``h_top_tm [T, B, H]``, the saved ``soft_tm [T, B, V]``, the cotangent
+    ``d_emb_tm [T, B, Ed]`` of ``emb``, ``w_proj [V, H]`` and ``disc_embed
+    [Ed, V]`` (the JAX ``decode_sample_embed_bwd``), all float32 or all
+    bfloat16 (the bfloat16 instantiation, the TPU kernel under ``dt =
+    bfloat16``: dWp and dbp float32, d_htop bfloat16).  On CUDA tensors
+    ``csrc/decode_embed_bwd.cu`` (one C call: tensor-core products over all
+    T·B rows at once, 3xTF32 on float32 operands, bfloat16 ``mma.sync`` on
+    bfloat16 ones, sized by :func:`embed_bwd_plan`, each sum in a fixed
+    order); on CPU tensors :func:`decode_sample_embed_bwd_plain`."""
     fn = "decode_sample_embed_bwd"
     if h_top_tm.ndim != 3 or d_emb_tm.ndim != 3 or disc_embed.ndim != 2:
         raise ValueError(f"{fn}: expected h_top [T, B, H], d_emb [T, B, Ed] "
@@ -838,33 +868,36 @@ def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
     T, B, H = h_top_tm.shape
     Ed, V = disc_embed.shape
     device = h_top_tm.device
+    dt = build.compute_dtype(fn, h_top_tm, True)
     for name, t, shape in (("h_top", h_top_tm, (T, B, H)),
                            ("soft", soft_tm, (T, B, V)),
                            ("d_emb", d_emb_tm, (T, B, Ed)),
                            ("w_proj", w_proj, (V, H)),
                            ("disc_embed", disc_embed, (Ed, V))):
-        build.check_tensor(fn, name, t, shape, device)
+        build.check_tensor(fn, name, t, shape, device, dt)
     if device.type == "cpu":
         return decode_sample_embed_bwd_plain(h_top_tm, soft_tm, d_emb_tm,
                                              w_proj, disc_embed,
                                              float(temperature))
     if device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {device}")
+    bf16 = dt == torch.bfloat16
     lib = _bwd_library()
-    plan = embed_bwd_plan(T * B, H, V, Ed, _sm_count(device))
+    plan = embed_bwd_plan(T * B, H, V, Ed, _sm_count(device), bf16)
     empty = _empty_on(device)
     scratch = empty(plan["scratch_floats"])
-    dwp, dbp, d_htop = empty(H, V), empty(V), empty(T, B, H)
+    dwp, dbp = empty(H, V), empty(V)
+    d_htop = empty(T, B, H, dtype=dt)
     cplan = (ctypes.c_int * 5)(*plan["ints"])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gic_decode_embed_bwd(
             h_top_tm.data_ptr(), soft_tm.data_ptr(), d_emb_tm.data_ptr(),
             w_proj.data_ptr(), disc_embed.data_ptr(), T * B, H, V, Ed,
-            float(temperature), cplan, scratch.data_ptr(), dwp.data_ptr(),
-            dbp.data_ptr(), d_htop.data_ptr(), stream)
+            int(bf16), float(temperature), cplan, scratch.data_ptr(),
+            dwp.data_ptr(), dbp.data_ptr(), d_htop.data_ptr(), stream)
     build.raise_on_error(lib, rc, fn)
-    _count(decode_sample_embed_bwd)
+    _count(decode_sample_embed_bwd, dtype=dt)
     return dwp, dbp, d_htop
 
 
@@ -899,9 +932,8 @@ def decode_sample(features, lstm_layers: Sequence[dict], w_proj, b_proj,
     input), per-layer ``{w_ih [4H, In], w_hh [4H, H], b_ih, b_hh}``,
     ``w_proj [V, H]``, ``b_proj [V]``, ``embed [V, E]``, all float32;
     ``init_state`` (mode ``serve`` only, see :func:`decode_sample_carry`);
-    ``serve``, ``greedy``, ``pretrain`` and ``sample_resid`` also take
-    them all in bfloat16 (the bfloat16 instantiation); the others raise
-    TypeError for anything but float32;
+    every mode also takes them all in bfloat16 (the bfloat16
+    instantiation), and raises TypeError for any other dtype;
     ``seed`` and ``uniforms`` are read by the Gumbel modes (``sample``,
     ``sample_resid``, ``sample_embed``), ``temperature`` by the soft ones
     (``sample_resid``, ``sample_embed``), ``disc_embed [Ed, V]`` by

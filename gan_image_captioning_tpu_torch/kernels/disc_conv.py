@@ -15,15 +15,17 @@ gradient to that one time row.  The engines (:func:`conv_relu_maxpool`):
 * ``"mxu_dxs"`` — the ``mxu`` forward with the DXS backward
   ``_mxu_bwd_kernel`` (the JAX package's ``GIC_MXU_DX=0``):
   :func:`conv_bank_dxs_raw` (``csrc/disc_conv.cu``) writes the per-step
-  tap gradients, which :func:`overlap_add` adds into ``d_emb`` in torch,
-  from the raw pooled gradient, with the mask and ``db`` in its launch
-  (:func:`conv_bank_dxs` takes the masked gradients, as the JAX kernel
-  does, through the same kernels);
+  tap gradients, float32, which :func:`overlap_add` adds into ``d_emb``
+  in torch, from the raw pooled gradient, with the mask and ``db`` in its
+  launch (:func:`conv_bank_dxs` takes the masked gradients, as the JAX
+  kernel does, through the same kernels; the raw route also takes
+  bfloat16 inputs);
 * ``"pallas"`` — ``_fwd_kernel`` / ``_bwd_kernel``, the per-batch-row
   engine: :func:`conv_rows_forward` and :func:`conv_rows_backward`, the
   ``mxu`` engine's kernels (``csrc/disc_conv.cu``; the backward with the
   mask and ``db`` in the launch) behind counters of their own;
-* ``"hybrid"`` — the plain forward (the JAX package leaves it to XLA) with
+* ``"hybrid"`` — the plain forward (the JAX package leaves it to XLA; in
+  bfloat16 with XLA's roundings, :func:`conv_relu_maxpool_hybrid`) with
   the per-batch-row engine's backward;
 * ``"plain"`` — the plain versions on any device, for comparisons.
 
@@ -91,7 +93,7 @@ def _bank_weight(w_all, off: int, n: int, f: int, eds: int):
 
 
 def conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R: int, eds: int,
-                            at=None):
+                            at=None, round_conv: bool = False):
     """Plain version of the forward → ``(pooled [B, R, F], idxs)`` with
     ``idxs[k] [B, R, n_k]`` int32, the first argmax over the real time
     rows.  A convolution over the L real rows (a tap into the zero time
@@ -104,7 +106,12 @@ def conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R: int, eds: int,
 
     bfloat16 inputs (the bfloat16 instantiation): widened to float32, the
     convolution, ReLU and max in float32, pooled rounded to bfloat16 at
-    the end, as the TPU kernel computes them."""
+    the end, as the TPU kernel computes them.  ``round_conv`` (the
+    ``hybrid`` engine, whose forward the JAX package leaves to XLA): the
+    roundings of XLA's bfloat16 operations instead, the convolution's
+    output rounded, the bias added and rounded again, then ReLU and the
+    max over the bfloat16 values (first index on ties).  float32: the
+    same values either way."""
     _, _, L = _geometry(emb_pad, banks, R, eds)
     dt = emb_pad.dtype
     emb_pad, w_all, b_all = (t.to(torch.float32)
@@ -112,8 +119,14 @@ def conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R: int, eds: int,
     x = emb_pad[:, None, :L, :]                           # [B, 1, L, E]
     pooled, idxs, off, gap, moved = [], [], 0, 0.0, 0
     for k, (n, f) in enumerate(banks):
-        z = torch.relu(F.conv2d(x, _bank_weight(w_all, off, n, f, eds),
-                                b_all[off:off + n], stride=(1, eds)))
+        w = _bank_weight(w_all, off, n, f, eds)
+        if round_conv and dt != torch.float32:
+            z = F.conv2d(x, w, stride=(1, eds)).to(dt).to(torch.float32)
+            z = (z + b_all[off:off + n, None, None]).to(dt).to(torch.float32)
+            z = torch.relu(z)
+        else:
+            z = torch.relu(F.conv2d(x, w, b_all[off:off + n],
+                                    stride=(1, eds)))
         m, i = z.max(dim=2)                               # first max
         i = i.transpose(1, 2).to(torch.int32).contiguous()  # [B, R, n]
         if at is not None:
@@ -180,8 +193,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("disc_conv")
     if not getattr(lib, "_gic_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        # the int before the stream (forward) / after the mask flag
-        # (backward): 1 for the bfloat16 instantiation
+        # the int before the stream (forward, DXS backward) / after the
+        # mask flag (backward): 1 for the bfloat16 instantiation
         lib.gic_conv_fwd.argtypes = (
             [vp, vp, i, vp] + [i] * 6
             + [ctypes.POINTER(i), ctypes.POINTER(vp), i, i, vp, i, i, vp])
@@ -195,7 +208,8 @@ def _library() -> ctypes.CDLL:
             [vp, vp] + [i] * 7 + [ctypes.POINTER(i)]
             + [ctypes.POINTER(vp)] * 3 + [i, ctypes.POINTER(i),
                                           ctypes.c_size_t,
-                                          ctypes.POINTER(vp)] + [vp] * 4)
+                                          ctypes.POINTER(vp)] + [vp] * 3
+            + [i, vp])
         lib.gic_conv_dxs.restype = i
         lib._gic_typed = True
     return lib
@@ -483,8 +497,10 @@ def conv_dxs_plain(emb_pad, w_all, banks, R: int, eds: int,
     """Plain version of the DXS backward → ``(dxss, dw_all)``: per bank the
     per-step tap gradients ``DXS [lv, B·R, f·eds]``, ``DXS[t, q, k] = Σ_n
     [idx[q, n] = t]·dpm[q, n]·w[n, k]``, and ``dw_all [F, maxf·eds]`` — the
-    JAX ``_mxu_bwd_kernel``'s arithmetic with a one-hot over time."""
+    JAX ``_mxu_bwd_kernel``'s arithmetic with a one-hot over time, float32
+    (bfloat16 inputs widened, as the TPU kernel reads them)."""
     b_sz, lp, L = _geometry(emb_pad, banks, R, eds)
+    emb_pad, w_all = emb_pad.to(torch.float32), w_all.to(torch.float32)
     emb4 = emb_pad.reshape(b_sz, lp, R, eds)
     dw_all = torch.zeros_like(w_all)
     dxss, off = [], 0
@@ -616,7 +632,8 @@ def _conv_dxs_plan(Q: int, L: int, eds: int, banks) -> dict:
 def _dxs(emb_pad, w_all, banks, R: int, eds: int, idxs, d_pooled, pooled):
     """One call of ``gic_conv_dxs``, the DXS backward of every bank from
     the raw ``d_pooled [B, R, F]`` and ``pooled`` → ``(dxss, dw_all,
-    db)``.  Every output entry is written by the kernels."""
+    db)``, float32 (the inputs float32, or bfloat16: the bfloat16
+    instantiation).  Every output entry is written by the kernels."""
     lib = _library()
     b_sz, lp, _ = emb_pad.shape
     L = lp - max(f for _, f in banks) + 1
@@ -626,8 +643,9 @@ def _dxs(emb_pad, w_all, banks, R: int, eds: int, idxs, d_pooled, pooled):
     n_all, nb = w_all.shape[0], len(banks)
     dxss = [torch.empty(L - f + 1, q, f * eds, device=device)
             for _, f in banks]
-    dw_all = torch.empty_like(w_all)
+    dw_all = torch.empty(w_all.shape, device=device)
     db = torch.empty(n_all, device=device)
+    size = d_pooled.element_size()
     part = torch.empty(plan["blocks"] * plan["slots"], device=device)
     vp = ctypes.c_void_p * nb
     offs = plan["ints"][2::4]
@@ -637,11 +655,12 @@ def _dxs(emb_pad, w_all, banks, R: int, eds: int, idxs, d_pooled, pooled):
             emb_pad.data_ptr(), w_all.data_ptr(), w_all.shape[1], b_sz, lp,
             R, eds, L, nb, (ctypes.c_int * (4 * nb))(*plan["ints"]),
             vp(*[i.data_ptr() for i in idxs]),
-            vp(*[d_pooled.data_ptr() + 4 * o for o in offs]),
-            vp(*[pooled.data_ptr() + 4 * o for o in offs]),
+            vp(*[d_pooled.data_ptr() + size * o for o in offs]),
+            vp(*[pooled.data_ptr() + size * o for o in offs]),
             len(plan["launches"]), (ctypes.c_int * len(ints))(*ints),
             part.numel(), vp(*[x.data_ptr() for x in dxss]), part.data_ptr(),
-            dw_all.data_ptr(), db.data_ptr(), _stream(device))
+            dw_all.data_ptr(), db.data_ptr(),
+            int(emb_pad.dtype == torch.bfloat16), _stream(device))
         build.raise_on_error(lib, rc, "disc conv DXS backward")
     return dxss, dw_all, db
 
@@ -687,15 +706,17 @@ def conv_bank_dxs_raw(emb_pad, w_all, banks, R: int, eds: int, pooled,
     the CUDA kernels (one launch for every bank at the training width and
     one reduction, :func:`conv_dxs_plan`) with the ReLU mask and ``db`` in
     the launch, so the autograd route needs no separate mask and sum.  On
-    a CPU tensor, the plain version.  Counts on
-    ``conv_bank_dxs.launches``."""
-    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled,
-                  bf16=False):
+    a CPU tensor, the plain version.  float32, or bfloat16 inputs (the
+    bfloat16 instantiation; the outputs float32 either way).  Counts on
+    ``conv_bank_dxs.launches`` (and ``.bf16_launches``)."""
+    if _check_raw(emb_pad, w_all, banks, R, eds, pooled, idxs, d_pooled):
         return conv_dxs_raw_plain(emb_pad, w_all, banks, R, eds, pooled,
                                   idxs, d_pooled)
     out = _dxs(emb_pad, w_all, banks, R, eds, idxs, d_pooled, pooled)
     with _count_lock:
         conv_bank_dxs.launches += 1
+        if emb_pad.dtype == torch.bfloat16:
+            conv_bank_dxs.bf16_launches += 1
     return out
 
 
@@ -899,9 +920,18 @@ def _masked(pooled, d_pooled, banks, positive=None):
     return dpms, torch.cat(db)
 
 
+def conv_relu_maxpool_hybrid(emb_pad, w_all, b_all, banks, R: int,
+                             eds: int):
+    """The ``hybrid`` engine's forward: :func:`conv_relu_maxpool_plain`
+    with XLA's roundings of a bfloat16 convolution (``round_conv``), on
+    any device: the JAX package leaves this forward to XLA."""
+    return conv_relu_maxpool_plain(emb_pad, w_all, b_all, banks, R, eds,
+                                   round_conv=True)
+
+
 _FORWARDS = {"mxu": conv_bank_forward, "mxu_dxs": conv_bank_forward,
              "pallas": conv_rows_forward,
-             "hybrid": conv_relu_maxpool_plain,
+             "hybrid": conv_relu_maxpool_hybrid,
              "plain": conv_relu_maxpool_plain}
 ENGINES = tuple(_FORWARDS)
 

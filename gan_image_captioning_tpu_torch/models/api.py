@@ -2,9 +2,11 @@
 
 Ported: the LSTM and transformer generators, unconditional or
 conditional on the ResNet-18 or ViT-B/16 encoder (the conditional
-transformer cross-attends over the encoder's grid), and the CNN,
-transformer and autoregressive-transformer discriminators;
-:func:`require_ported` turns any other configuration away.
+transformer cross-attends over the encoder's grid; the LSTM can take the
+frozen backbone's cached features, ``--cache-features``), and the CNN,
+transformer, autoregressive-transformer and bidirectional-LSTM
+discriminators; :func:`require_ported` turns any other configuration
+away.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from gan_image_captioning_tpu_torch.config import (Config, compute_dtype,
 from gan_image_captioning_tpu_torch.kernels.image_norm import (
     normalize_images, normalize_images_plain)
 from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
+from gan_image_captioning_tpu_torch.models import (
+    discriminator_bilstm as disc_bilstm)
 from gan_image_captioning_tpu_torch.models import (
     discriminator_transformer as disc_tf)
 from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
@@ -48,9 +52,6 @@ def _images(config: Config, batch: Dict[str, Any]):
     device (the ``image_norm`` kernel, or its plain version under
     ``image_norm_impl="plain"``) into the compute dtype, float32 or, under
     ``--dtype bfloat16``, bfloat16 (the JAX ``api.generator_condition``)."""
-    if "backbone_feats" in batch:
-        raise NotImplementedError("cached backbone features "
-                                  "(--cache-features) are not ported yet")
     if "images_u8" in batch:
         if config.image_norm_impl not in ("kernel", "plain"):
             raise ValueError(f"image_norm_impl {config.image_norm_impl!r}: "
@@ -75,6 +76,13 @@ def generator_condition(config: Config, generator: gen_lstm.Generator,
     Unconditional: ``<S>``-token embeddings per row and ``None``, for
     either generator."""
     require_ported(config)
+    if config.cgan and "backbone_feats" in batch:
+        # a frozen backbone's pooled features, cached once per image
+        # (data/feature_cache.py): only the trainable head runs
+        feats = encoder_lib.project_head(generator.encoder,
+                                         batch["backbone_feats"], train)
+        return ({"features": feats, "context": None},
+                encoder_lib.bn_stats(generator.encoder))
     if config.cgan:
         images = _images(config, batch)
         if config.gen_arch == "transformer":
@@ -140,7 +148,8 @@ def generator_mle_outputs(generator: gen_lstm.Generator,
                                        plain=route == "plain")[:, :seq_len]
     if config.mle_objective == "scheduled":
         return gen_lstm.scheduled_sample(dec, cond["features"], captions,
-                                         sample_prob, coins, draw)
+                                         sample_prob, coins, draw,
+                                         remat=config.scan_remat)
     if config.mle_objective != "free":
         raise ValueError(f"--mle-objective {config.mle_objective!r}: "
                          "expected free, teacher or scheduled")
@@ -155,6 +164,9 @@ def init_discriminator(generator: torch.Generator, config: Config,
     if config.disc_arch == "cnn":
         return disc_cnn.init_discriminator_params(generator, config, device,
                                                   sweep)
+    if config.disc_arch == "bilstm":
+        return disc_bilstm.init_bilstm_discriminator_params(
+            generator, config, device, sweep)
     return disc_tf.init_transformer_discriminator_params(generator, config,
                                                          device, sweep)
 
@@ -162,10 +174,12 @@ def init_discriminator(generator: torch.Generator, config: Config,
 def discriminator_apply(params, inp, config: Config, train: bool = False,
                         keep=None, generator=None):
     """Flat logits of soft ``[B, L, V]`` or int ``[B, L]`` input: CNN
-    ``[B·R]``, transformer ``[B]``, ar_transformer ``[B·L]``.  ``keep``:
-    the dropout keep mask (CNN ``[B·R, F]``, transformer ``[B, d_model]``,
-    ar_transformer ``[B, L, d_model]``)."""
+    ``[B·R]``, transformer and bilstm ``[B]``, ar_transformer ``[B·L]``.
+    ``keep``: the dropout keep mask (CNN ``[B·R, F]``, transformer ``[B,
+    d_model]``, ar_transformer ``[B, L, d_model]``, bilstm ``[B, 2H]``)."""
     require_ported(config)
+    if config.disc_arch == "bilstm":
+        return disc_bilstm.apply(params, inp, config, train, keep, generator)
     if config.disc_arch == "transformer":
         return disc_tf.apply(params, inp, config, train, keep, generator)
     if config.disc_arch == "ar_transformer":
@@ -180,12 +194,14 @@ def disc_keep_shape(config: Config, batch: int):
         return (batch * config.disc_num_rep, config.disc_feature_dim)
     if config.disc_arch == "ar_transformer":
         return (batch, config.seq_len, config.disc_hidden_dim)
+    if config.disc_arch == "bilstm":
+        return (batch, 2 * config.disc_hidden_dim)
     return (batch, config.disc_hidden_dim)
 
 
 def disc_logits_per_sample(config: Config) -> int:
     """How many logits each sample contributes: ``num_rep`` for the CNN,
-    ``seq_len`` for ar_transformer, 1 for transformer."""
+    ``seq_len`` for ar_transformer, 1 for transformer and bilstm."""
     require_ported(config)
     if config.disc_arch == "cnn":
         return config.disc_num_rep

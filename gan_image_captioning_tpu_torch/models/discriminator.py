@@ -13,11 +13,17 @@ generator's pass with detached discriminator parameters:
   max over time (``kernels/disc_conv.py``, the engine of
   ``--disc-engine``) → highway → dropout(0.2) →
   Linear(F→100) → Linear(100→1), one logit per (sample, representation).
+
+``Config.disc_remat`` (the JAX ``GIC_DISC_REMAT=1``) runs the conv trunk
+under ``torch.utils.checkpoint``: the backward runs the engine's forward
+again (the same bits: every engine's forward is deterministic) and keeps
+only the embeddings in between.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from gan_image_captioning_tpu_torch.config import Config
@@ -130,7 +136,12 @@ def apply_embedded(params, emb, config: Config, train: bool = False,
     """Trunk from embeddings ``[B, L, E]`` → ``[B·R]`` logits.  With
     ``train``, dropout keeps the entries of ``keep [B·R, F]`` (drawn from
     ``generator`` when not given) and scales them by ``1/(1 - rate)``."""
-    pred = _highway(params, conv_pooled(params, emb, config))
+    if config.disc_remat:
+        pooled = torch.utils.checkpoint.checkpoint(
+            conv_pooled, params, emb, config, use_reentrant=False)
+    else:
+        pooled = conv_pooled(params, emb, config)
+    pred = _highway(params, pooled)
     if train and dropout_rate > 0.0:
         if keep is None:
             keep = dropout_keep(pred.shape, generator, pred.device,

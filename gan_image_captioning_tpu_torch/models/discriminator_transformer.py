@@ -16,7 +16,7 @@ d_model]``, ``blocks.{i}.*`` without cross-attention, ``ln_f``, ``head``);
 the compute is functional over a flat parameter dict, so the adversarial
 step can run the generator's pass with detached parameters.  The blocks'
 self-attention takes the flash kernels under ``config.attn_impl ==
-"kernel"``.  Dropout keeps the entries of a fed ``keep`` mask (the JAX
+"kernel"``; ``config.tf_remat`` checkpoints each block.  Dropout keeps the entries of a fed ``keep`` mask (the JAX
 package's Bernoulli(0.8) draw) or of one drawn from ``generator``.
 """
 
@@ -28,8 +28,8 @@ from torch import nn
 from gan_image_captioning_tpu_torch.config import Config
 from gan_image_captioning_tpu_torch.models.discriminator import dropout_keep
 from gan_image_captioning_tpu_torch.models.transformer import (
-    Block, Dense, LayerNorm, block_apply, dense, init_blocks_, layer_norm,
-    new_param, normal_init_)
+    Block, Dense, LayerNorm, dense, init_blocks_, layer_norm, new_param,
+    normal_init_, remat_block_apply)
 from gan_image_captioning_tpu_torch.ops.initializers import init_param_tree
 
 DROPOUT = 0.2
@@ -94,9 +94,11 @@ def trunk_embedded(params, emb, config: Config, causal: bool, lengths=None):
                   < lengths[:, None])[:, None, None, :]
         mask = key_ok if mask is None else mask & key_ok
     for i in range(config.disc_num_layers):
-        x = block_apply(params, f"blocks.{i}", x, config.disc_num_heads, mask,
-                        flash_causal=causal, flash_lengths=lengths,
-                        attn_impl=config.attn_impl)
+        x = remat_block_apply(params, f"blocks.{i}", x,
+                              config.disc_num_heads, mask,
+                              flash_causal=causal, flash_lengths=lengths,
+                              attn_impl=config.attn_impl,
+                              remat=config.tf_remat)
     return layer_norm(params, "ln_f", x)
 
 

@@ -23,8 +23,9 @@ purpose: its ``encode_grid`` stops the ResNet grid's gradient only, so its
 loss differentiates into a frozen ViT and its optimizer, which has no
 mask, updates it.  The port keeps the flag's contract for the ViT too.
 
-The cached-feature head (``project_head``, ``--cache-features``) is not
-ported.
+:func:`project_head` runs the head alone on cached backbone features
+(``--cache-features``, ``data/feature_cache.py``).  ``--encoder-init
+natural`` keeps the encoder out of the init sweep (:func:`sweep_skip`).
 """
 
 from __future__ import annotations
@@ -146,6 +147,24 @@ def encode_with_grid(encoder: Encoder, images, config: Config,
     grid = encode_grid(encoder, images, config, train)
     pooled = grid.to(torch.float32).mean(dim=1).to(grid.dtype)
     return encoder.bn(encoder.linear(pooled), train), grid
+
+
+def project_head(encoder: Encoder, pooled, train: bool = False):
+    """The trainable head alone, ``Linear(F → E)`` + ``BatchNorm1d(0.01)``
+    (the JAX ``project_head``), on cached backbone features ``pooled [B,
+    F]`` → ``[B, E]``: the backbone's running statistics stay as they are,
+    the head's move once in train mode."""
+    return encoder.bn(encoder.linear(pooled), train)
+
+
+def sweep_skip(config: Config):
+    """The init sweep's skip predicate for a generator: under
+    ``--encoder-init natural`` every ``encoder.*`` parameter keeps its own
+    initialization (the JAX ``init_generator_params``' ``_skip``); else
+    None (the sweep overwrites the encoder too, the reference's parity)."""
+    if config.encoder_init != "natural":
+        return None
+    return lambda name, _p: name.startswith("encoder.")
 
 
 def bn_stats(encoder: Encoder) -> dict:

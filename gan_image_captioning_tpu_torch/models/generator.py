@@ -37,6 +37,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from gan_image_captioning_tpu_torch.config import Config
@@ -103,13 +104,15 @@ def init_generator_params(generator: torch.Generator, config: Config,
     (``config.gen_init``) over every parameter, as the JAX package's
     ``init_generator_params`` does: the encoder's weights too (BatchNorm
     scales included; the running statistics are buffers, which it does
-    not touch)."""
+    not touch), unless ``--encoder-init natural`` keeps the whole encoder
+    at its own initialization (:func:`encoder.sweep_skip`)."""
     gen = Generator(config, device, with_encoder=with_encoder)
     init_decoder_params(generator, gen.decoder)
     if gen.encoder is not None:
         encoder_lib.init_encoder_params(generator, gen.encoder)
     if sweep:
-        init_param_tree(generator, gen, config.gen_init)
+        init_param_tree(generator, gen, config.gen_init,
+                        encoder_lib.sweep_skip(config))
     return gen
 
 
@@ -289,9 +292,9 @@ class _SampleEmbed(torch.autograd.Function):
          *lstm_flat) = ctx.saved_tensors
         nl, T, B, V = ctx.nl, *soft.shape
         d_disc = None
-        if d_fake is not None:
-            d_disc = (d_fake.reshape(T * B, -1).T
-                      @ soft.reshape(T * B, V))            # [Ed, V]
+        if d_fake is not None:   # float32 sums (autograd rounds to Wd's dtype)
+            d_disc = (d_fake.reshape(T * B, -1).T.to(torch.float32)
+                      @ soft.reshape(T * B, V).to(torch.float32))  # [Ed, V]
         if d_gen is None:
             return (None,) * 5 + (d_disc,) + (None,) * (3 + 4 * nl)
         d_w_proj_t, d_b_proj, d_htop = decode_sample_embed_bwd(
@@ -411,15 +414,18 @@ def sample_decoupled(decoder: Decoder, features, seq_len: int,
     ``seed``; none when ``pretrain``), then the differentiable rescore of
     the ids, its backward through the reverse BPTT kernel: raw logits
     (``pretrain``) or ``softmax((logits + noise) · temp)`` on the same
-    noise."""
+    noise.  The noise is computed in the weights' dtype from the
+    uniforms rounded to it (under ``--dtype bfloat16``: bfloat16, as the
+    JAX ``add_gumbel`` draws bfloat16 uniforms for bfloat16 logits)."""
     if pretrain:
         ids = _decoupled_ids(decoder, features, seq_len)
         return rescore(decoder, features, ids), ids
+    dt = decoder.embed.weight.dtype
     if uniforms is None:
         uniforms = seeded_uniforms(seed, (seq_len, features.shape[0],
                                           decoder.embed.weight.shape[0]),
                                    features.device)
-    noise = gumbel_noise(uniforms.shape, u=uniforms)
+    noise = gumbel_noise(uniforms.shape, u=uniforms.to(dt))
     ids = _decoupled_ids(decoder, features, seq_len, noise)
     return _soft_of_rescore(decoder, features, ids, noise, temperature), ids
 
@@ -459,9 +465,17 @@ def sample(decoder: Decoder, features, seq_len: int, pretrain: bool = True,
                        uniforms, plain)
 
 
+def _scheduled_step(params, w, b, x, h, c):
+    """One step of :func:`scheduled_sample`: the stacked LSTM and the
+    projection → ``(logits, h, c)``."""
+    h_top, (h, c) = lstm.lstm_step(params, x, (h, c))
+    return h_top @ w.T + b, h, c
+
+
 def scheduled_sample(decoder: Decoder, features, captions,
                      sample_prob: float = 0.0, coins=None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     remat: bool = False):
     """Scheduled sampling (Bengio et al. 2015, ``--mle-objective
     scheduled``; the JAX ``scheduled_sample``) → logits ``[B, T, V]``
     (targets = ``captions [B, T]``): at step t the stacked LSTM predicts
@@ -470,7 +484,11 @@ def scheduled_sample(decoder: Decoder, features, captions,
     ``captions[:, t]``.  ``coins [T, B]`` bool: fed, or ``uniform <
     sample_prob`` drawn from ``generator`` (the JAX per-step Bernoulli).
     At p = 0 it is the teacher-forced pass, at p = 1 the free-running
-    greedy sample.  A plain PyTorch loop, differentiated by autograd."""
+    greedy sample.  A plain PyTorch loop, differentiated by autograd;
+    ``remat`` (``Config.scan_remat``, the JAX ``GIC_SCAN_REMAT=1``) runs
+    each step's cell under ``torch.utils.checkpoint``, which keeps only
+    the step's inputs and recomputes its activations in the backward (the
+    same values: the step draws nothing)."""
     batch, seq_len = captions.shape
     if coins is None:
         coins = torch.rand((seq_len, batch), generator=generator,
@@ -482,10 +500,13 @@ def scheduled_sample(decoder: Decoder, features, captions,
     gt_emb = embed[captions.long()]
     state = lstm.zero_state(len(params), batch, layers[0]["w_hh"].shape[1],
                             features.dtype, features.device)
-    x, outs = features, []
+    (h, c), x, outs = state, features, []
     for t in range(seq_len):
-        h_top, state = lstm.lstm_step(params, x, state)
-        logits = h_top @ w.T + b
+        if remat:
+            logits, h, c = torch.utils.checkpoint.checkpoint(
+                _scheduled_step, params, w, b, x, h, c, use_reentrant=False)
+        else:
+            logits, h, c = _scheduled_step(params, w, b, x, h, c)
         outs.append(logits)
         model_emb = embed[torch.argmax(logits.detach(), dim=-1)]
         x = torch.where(coins[t][:, None], model_emb, gt_emb[:, t])

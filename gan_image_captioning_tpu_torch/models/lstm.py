@@ -6,7 +6,8 @@ holds the parameters under ``nn.LSTM``'s names (``weight_ih_l{k}`` …), so a
 reference ``state_dict`` loads into it as it is; the step functions below
 are the plain math the decode uses.  :func:`lstm_seq_tm`, the
 teacher-forced pass, has the JAX package's deferred-gradient backward
-(:class:`_LayerSeq`) through the reverse BPTT kernel.
+(:class:`_LayerSeq`) through the reverse BPTT kernel; so does each
+direction of :func:`bilstm_forward`.
 """
 
 from __future__ import annotations
@@ -181,3 +182,17 @@ def lstm_seq_tm(params: List[dict], xs_tm, state=None, plain: bool = False):
     for layer, lp in enumerate(fuse_layer_params(params)):
         x = _LayerSeq.apply(lp["w"], lp["b"], x, h0[layer], c0[layer], plain)
     return x
+
+
+def bilstm_forward(fwd_params: List[dict], bwd_params: List[dict], xs,
+                   plain: bool = False):
+    """Bidirectional stacked LSTM over a batch-major sequence ``xs [B, T,
+    in]`` → ``[B, T, 2H]``, the forward stack's outputs then the backward
+    stack's (run over the time-reversed sequence, flipped back), the JAX
+    ``bilstm_forward``.  Each direction is one :func:`lstm_seq_tm`, so its
+    backward runs the reverse BPTT kernel on CUDA tensors (unless
+    ``plain``)."""
+    xs_tm = xs.transpose(0, 1)
+    fwd = lstm_seq_tm(fwd_params, xs_tm, plain=plain)
+    bwd = lstm_seq_tm(bwd_params, xs_tm.flip(0), plain=plain).flip(0)
+    return torch.cat([fwd, bwd], dim=-1).transpose(0, 1)

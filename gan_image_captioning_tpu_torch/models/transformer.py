@@ -39,8 +39,11 @@ while the ResNet grid at a 256-wide transformer takes it).  The cache
 decode projects the context's keys and values once per decode
 (:func:`cross_kv`), not at every step as the JAX scan does: the same
 products of the same operands.
-Context parallelism, pipelining, activation sharding and ``GIC_TF_REMAT``
-are not ported either.
+Context parallelism, pipelining and activation sharding are not ported
+(``ROADMAP.md`` queue 1, item 4).  ``Config.tf_remat`` (the JAX
+``GIC_TF_REMAT=1``) runs each block of the parallel passes (the MLE
+pass, the discriminators' trunks) under ``torch.utils.checkpoint``
+(:func:`remat_block_apply`).
 
 Under ``--dtype bfloat16`` (``train/steps.py:compute_cast``) every
 operation runs in bfloat16 as the JAX package's does: the flash kernels'
@@ -57,6 +60,7 @@ from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from gan_image_captioning_tpu_torch.config import Config
@@ -206,16 +210,18 @@ def init_transformer_generator_params(generator: torch.Generator,
     """A seeded transformer generator (with its encoder when
     conditional); ``sweep`` applies the reference's init sweep
     (``config.gen_init``) over every parameter, the encoder's too, as the
-    JAX package does."""
+    JAX package does (the encoder's not under ``--encoder-init
+    natural``)."""
     from gan_image_captioning_tpu_torch.models.encoder import (
-        init_encoder_params)
+        init_encoder_params, sweep_skip)
 
     gen = TransformerGenerator(config, device)
     init_transformer_decoder_params(generator, gen.decoder)
     if gen.encoder is not None:
         init_encoder_params(generator, gen.encoder)
     if sweep:
-        init_param_tree(generator, gen, config.gen_init)
+        init_param_tree(generator, gen, config.gen_init,
+                        sweep_skip(config))
     return gen
 
 
@@ -320,6 +326,25 @@ def block_apply(p, name: str, x, n_heads: int, mask=None,
                                                       h)))
 
 
+def remat_block_apply(p, name: str, x, n_heads: int, mask=None,
+                      flash_causal: Optional[bool] = None,
+                      flash_lengths=None, attn_impl: str = "kernel",
+                      context=None, remat: bool = False):
+    """:func:`block_apply`, under ``remat`` (``Config.tf_remat``, the JAX
+    ``remat_block_apply``) inside ``torch.utils.checkpoint``
+    (``use_reentrant=False``): the block keeps only its input and
+    recomputes its activations in the backward.  The recompute gives the
+    same values: a block draws no noise (dropout is the discriminators'
+    head's, outside the blocks; checkpoint restores the RNG state all the
+    same) and the flash forward kernel sums in a fixed order."""
+    if not remat:
+        return block_apply(p, name, x, n_heads, mask, flash_causal,
+                           flash_lengths, attn_impl, context)
+    return torch.utils.checkpoint.checkpoint(
+        block_apply, p, name, x, n_heads, mask, flash_causal, flash_lengths,
+        attn_impl, context, use_reentrant=False)
+
+
 def causal_mask(t: int, device="cpu"):
     """Lower-triangular ``[1, 1, T, T]`` attend-mask."""
     return torch.tril(torch.ones((t, t), dtype=torch.bool,
@@ -368,9 +393,11 @@ def teacher_forced(dec, features, captions, config: Config, lengths=None,
         mask = mask & key_ok[:, None, None, :]
         flash_lengths = lengths + 1
     for i in range(num_blocks(p)):
-        x = block_apply(p, f"blocks.{i}", x, config.gen_num_heads, mask,
-                        flash_causal=True, flash_lengths=flash_lengths,
-                        attn_impl=config.attn_impl, context=context)
+        x = remat_block_apply(p, f"blocks.{i}", x, config.gen_num_heads,
+                              mask, flash_causal=True,
+                              flash_lengths=flash_lengths,
+                              attn_impl=config.attn_impl, context=context,
+                              remat=config.tf_remat)
     return _project(p, layer_norm(p, "ln_f", x))
 
 

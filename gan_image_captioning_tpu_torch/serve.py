@@ -268,7 +268,7 @@ def parse_args(argv=None):
             f"honours {', '.join(honoured)}; the rest raises" if honoured
             else "not ported yet: raises when set"))
     args = parser.parse_args(argv)
-    refuse_unported(_UNPORTED_SERVE_ARGS, args)
+    refuse_unported(_UNPORTED_SERVE_ARGS, args, "5: export and tools")
     if bool(args.checkpoint) == (args.init_seed is not None):
         parser.error("exactly one of --checkpoint or --init-seed is required")
     return args
@@ -315,12 +315,17 @@ def build_vocab(args):
 
 
 class CaptionService:
-    def __init__(self, args):
+    """The caption service over parsed ``args``; ``fields``: ``Config``
+    fields that no flag sets (the JAX package's environment switches, e.g.
+    ``int8_dtype``, the quantized decodes' compute dtype), for a caller
+    that builds the service in its own process."""
+
+    def __init__(self, args, **fields):
         for check in (require_ported_flags, require_ported):
-            check(config_from_args(args))
+            check(config_from_args(args).replace(**fields))
         self.device = resolve_device(args.device)
         self.index_to_word = build_vocab(args)
-        self.config = config_from_args(args)
+        self.config = config_from_args(args).replace(**fields)
         self.batch_size = args.serve_batch_size
         self.args = args
         self.mode = decode_mode(args, self.config)

@@ -57,6 +57,10 @@ Step options and batching (the JAX instructor's):
   does in one call; an interrupt lands after the group in flight.
 * ``--length-buckets`` / ``--precollate``: the four loaders' buckets and
   shared precollation (``data/loader.py``).
+* ``--cache-features 1`` (conditional LSTM, frozen backbone): the train
+  and dev sets' backbone features are computed once
+  (``data/feature_cache.py``) and the loaders carry them in place of the
+  images; augmentation then has nothing to act on, and a warning says so.
 * ``--mle-objective scheduled``: the pretrain epoch e feeds the train and
   val MLE steps the model-feedback probability ``ss_max_prob · e /
   max(1, epochs − 1)``.
@@ -70,8 +74,8 @@ Step options and batching (the JAX instructor's):
 * ``--debug-nans``: ``steps.debug_nans`` around :meth:`_run` (forward
   hooks, anomaly mode; put back when it ends) and the steps' own checks.
 
-Meshes and cached features are not ported: their flags raise
-(``config.require_ported_flags``).
+Meshes are not ported (``ROADMAP.md`` queue 1, item 4): their flags
+raise (``config.require_ported_flags``).
 """
 
 from __future__ import annotations
@@ -87,6 +91,8 @@ import torch
 
 from gan_image_captioning_tpu_torch.config import (Config, require_ported_flags,
                                                    resolve_device)
+from gan_image_captioning_tpu_torch.data.feature_cache import (
+    CachedFeatureDataset, precompute_backbone_features)
 from gan_image_captioning_tpu_torch.data.loader import Batcher, stack_batches
 from gan_image_captioning_tpu_torch.eval import decode as decode_lib
 from gan_image_captioning_tpu_torch.eval.diversity import self_bleu
@@ -153,6 +159,23 @@ class GANInstructor:
         self.adv_step = make_adv_step(config)
         self.adv_eval_step = make_adv_eval_step(config)
         self.steps_per_call = max(1, int(config.steps_per_call))
+
+        if (config.cache_features and config.cgan
+                and not config.trainable_backbone
+                and config.gen_arch == "lstm"):
+            if config.random_flip or config.random_crop_pad:
+                self.log.warning(
+                    "--cache-features precomputes backbone features from "
+                    "unaugmented images; --random-flip/--random-crop-pad "
+                    "will have no effect on this run")
+            self.log.info("Caching frozen-backbone features (one pass per "
+                          "image)...")
+            for name in ("train_dataset", "dev_dataset"):
+                base = getattr(self, name)
+                setattr(self, name, CachedFeatureDataset(
+                    base, precompute_backbone_features(
+                        base, self.state.gen.encoder)))
+            train_dataset, dev_dataset = self.train_dataset, self.dev_dataset
 
         seq = config.seq_len
         kw = dict(bucket_bounds=config.bucket_bounds,

@@ -179,8 +179,9 @@ def clip_adam_update(module: nn.Module, grads: Dict[str, torch.Tensor],
 
 
 def require_ported_training(config: Config) -> None:
-    """Raise for a training option that is not ported yet, and for an
-    invalid learning-rate schedule."""
+    """Raise for a dtype the port does not run (``require_ported_dtype``),
+    a model it does not have (``api.require_ported``) and an invalid
+    learning-rate schedule."""
     require_ported_dtype(config)
     _check_schedule(config)
     api.require_ported(config)

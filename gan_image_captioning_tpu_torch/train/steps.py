@@ -94,9 +94,19 @@ rounded to bfloat16 before the sample reads it, and a conditional
 generator's BatchNorm running statistics are kept in bfloat16 once a
 bfloat16 train step has moved them (the JAX steps merge the bfloat16
 ``new_stats`` of the encoder pass into the state).  SCST stays float32,
-as in the JAX package (``train/scst.py`` takes no cast);
-:func:`state.require_ported_training` refuses the routes without
-bfloat16 kernels.
+as in the JAX package (``train/scst.py`` takes no cast).
+``Config.bf16_grads`` (the JAX ``GIC_BF16_GRADS=1``, under ``--dtype
+bfloat16``): the adversarial step differentiates with respect to
+bfloat16 copies of the parameters (:func:`bf16_grad_leaves`), so every
+gradient accumulates in bfloat16, then casts it to the float32 master;
+master weights and Adam moments stay float32.
+
+Augmentation (``--random-flip`` / ``--random-crop-pad``, the JAX
+``_augment_batch``): a conditional train step flips and translates its
+``images`` or ``images_u8`` (``ops/augment.py``) after the cast and
+before the encoder; ``noise["augment"]`` feeds the coins and offsets
+(``{"coin", "oy", "ox"}``), else they are drawn from a device generator
+seeded from ``state.generator``.  With both flags off nothing is drawn.
 """
 
 from __future__ import annotations
@@ -114,6 +124,7 @@ from gan_image_captioning_tpu_torch.models import discriminator as disc_cnn
 from gan_image_captioning_tpu_torch.models import encoder as encoder_lib
 from gan_image_captioning_tpu_torch.models import generator as gen_lstm
 from gan_image_captioning_tpu_torch.models.discriminator import params_of
+from gan_image_captioning_tpu_torch.ops.augment import augment_images
 from gan_image_captioning_tpu_torch.ops.losses import (cross_entropy_loss,
                                                         gan_losses)
 from gan_image_captioning_tpu_torch.train.reinforce import reinforce_losses
@@ -180,6 +191,60 @@ def cast_batch(config: Config, batch: Dict[str, torch.Tensor]):
         return batch
     return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def bf16_grad_leaves(config: Config, *modules: torch.nn.Module):
+    """``Config.bf16_grads`` under ``--dtype bfloat16`` (the JAX
+    ``_grad_boundary``): inside the block every floating parameter of
+    ``modules`` is a bfloat16 leaf, a detached copy that requires
+    gradients as its master does, so a backward run there accumulates
+    bfloat16 gradients (:func:`compute_cast` then reads the leaves as they
+    are); the masters are put back on exit.  Yields whether it swapped:
+    the caller casts the gradients to the masters' dtype.  Otherwise
+    nothing changes."""
+    if not (config.bf16_grads and compute_dtype(config) == torch.bfloat16):
+        yield False
+        return
+    swapped = []
+    for module in modules:
+        for m in module.modules():
+            for name, p in m._parameters.items():
+                if p is not None and p.is_floating_point():
+                    leaf = p.detach().to(torch.bfloat16).requires_grad_(
+                        p.requires_grad)
+                    swapped.append((m._parameters, name, p))
+                    m._parameters[name] = leaf
+    try:
+        yield True
+    finally:
+        for table, name, master in swapped:
+            table[name] = master
+
+
+def augment_batch(config: Config, state: TrainState, batch,
+                  train: bool = True, noise=None):
+    """The JAX ``_augment_batch``: a conditional train step's ``images``
+    or ``images_u8`` through ``ops/augment.augment_images`` under
+    ``--random-flip`` / ``--random-crop-pad``, with the coins and offsets
+    of ``noise["augment"]`` or drawn from a device generator seeded from
+    ``state.generator``; else (eval, unconditional, both flags off, cached
+    features) the batch itself, and nothing is drawn."""
+    if not (train and config.cgan
+            and (config.random_flip or config.random_crop_pad)):
+        return batch
+    key = next((k for k in ("images", "images_u8") if k in batch), None)
+    if key is None:
+        return batch
+    fed = (noise or {}).get("augment") or {}
+    imgs = batch[key]
+    draw = None
+    if any(fed.get(k) is None for k in ("coin", "oy", "ox")):
+        draw = torch.Generator(device=imgs.device).manual_seed(
+            _draw_seed(state))
+    return dict(batch, **{key: augment_images(
+        imgs, bool(config.random_flip), int(config.random_crop_pad),
+        fed.get("coin"), fed.get("oy"), fed.get("ox"), draw)})
 
 
 def compute_temperature(config: Config, temperature) -> float:
@@ -359,9 +424,10 @@ def mle_loss(config: Config, state: TrainState, batch, train: bool = True,
     and the logits are cast to float32 before the cross-entropy."""
     captions = batch["captions"]
     with compute_cast(config, state.gen, train=train):
-        cond, _ = api.generator_condition(config, state.gen,
-                                          cast_batch(config, batch),
-                                          train=train)
+        cond, _ = api.generator_condition(
+            config, state.gen, augment_batch(config, state,
+                                             cast_batch(config, batch),
+                                             train, noise), train=train)
         logits = api.generator_mle_outputs(
             state.gen, cond, captions, config, lengths=batch.get("lengths"),
             sample_prob=sample_prob,
@@ -467,9 +533,10 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
     draw = torch.Generator(device=device).manual_seed(_draw_seed(state))
     keeps = noise.get("keep", (None, None, None))
     with compute_cast(config, state.gen, state.disc, train=train):
-        cond, _ = api.generator_condition(config, state.gen,
-                                          cast_batch(config, batch),
-                                          train=train)
+        cond, _ = api.generator_condition(
+            config, state.gen, augment_batch(config, state,
+                                             cast_batch(config, batch),
+                                             train, noise), train=train)
         disc_p = params_of(state.disc)
         disc_ng = params_of(state.disc, detach=True)
         sample_kw = dict(temperature=compute_temperature(config,
@@ -526,11 +593,15 @@ def adv_losses(config: Config, state: TrainState, batch, temperature,
 
 def _adv_grads_one(config: Config, state: TrainState, batch, temperature,
                    noise: Optional[Dict[str, Any]] = None):
-    g_loss, d_loss, aux = adv_losses(config, state, batch, temperature,
-                                     noise)
-    check_finite(config, "loss", {"gen_adv_loss": g_loss,
-                                  "disc_adv_loss": d_loss})
-    g_grads, d_grads = _grads(g_loss + d_loss, state.gen, state.disc)
+    with bf16_grad_leaves(config, state.gen, state.disc) as leaves:
+        g_loss, d_loss, aux = adv_losses(config, state, batch, temperature,
+                                         noise)
+        check_finite(config, "loss", {"gen_adv_loss": g_loss,
+                                      "disc_adv_loss": d_loss})
+        g_grads, d_grads = _grads(g_loss + d_loss, state.gen, state.disc)
+    if leaves:   # bfloat16 gradients → the float32 masters' dtype
+        g_grads, d_grads = ({k: g.to(torch.float32) for k, g in gs.items()}
+                            for gs in (g_grads, d_grads))
     check_finite(config, "gradient", {**{"gen." + k: g for k, g in
                                          g_grads.items()},
                                       **{"disc." + k: g for k, g in

@@ -307,18 +307,26 @@ def test_wrappers_raise_on_float16_and_launch_nothing(device):
     feats = _t(rng, device, 2, 8, dtype=torch.float16)
     counters = [ds.decode_sample, ds.decode_sample_resid,
                 ds.decode_sample_logits, ds.decode_sample_noise,
+                ds.decode_sample_embed, ds.decode_sample_embed_bwd,
                 ds.decode_sample_q_serve, lstm_bptt_chain,
                 lstm_bptt_reverse, disc_conv.conv_bank_forward,
-                disc_conv.conv_bank_backward, inorm.normalize_images]
+                disc_conv.conv_bank_backward, disc_conv.conv_bank_dxs,
+                inorm.normalize_images]
     before = [f.launches for f in counters]
     for mode in ("greedy", "serve", "pretrain", "sample_resid", "sample"):
         with pytest.raises(TypeError):
             ds.decode_sample(feats, *half, 3, mode=mode)
-    # the float32-only modes refuse bfloat16 too
+    # every mode has a bfloat16 instantiation now; float16 is refused by
+    # the sample_embed decode and its backward too
     with pytest.raises(TypeError):
-        ds.decode_sample(feats.to(BF), *(
-            [{k: v.to(BF) for k, v in lp.items()} for lp in half[0]],
-            *(t.to(BF) for t in half[1:])), 3, mode="sample")
+        ds.decode_sample(feats, *half, 3, mode="sample_embed",
+                         disc_embed=torch.zeros(4, 64, device=device,
+                                                dtype=torch.float16))
+    with pytest.raises(TypeError):
+        ds.decode_sample_embed_bwd(*(
+            torch.zeros(s, device=device, dtype=torch.float16)
+            for s in ((3, 2, 8), (3, 2, 64), (3, 2, 4), (64, 8), (4, 64))),
+            1.0)
     with pytest.raises(TypeError):
         lstm_bptt_chain(*(torch.zeros(s, device=device, dtype=torch.float16)
                           for s in ((1, 4, 16), (1, 4, 16), (3, 2, 4),
@@ -331,6 +339,13 @@ def test_wrappers_raise_on_float16_and_launch_nothing(device):
                                  for t in _conv(device, rng))
     with pytest.raises(TypeError):
         disc_conv.conv_bank_forward(emb16, w16, b16, banks, R, 1)
+    pooled16 = torch.zeros(emb16.shape[0], R, w16.shape[0], device=device,
+                           dtype=torch.float16)
+    idx = [torch.zeros(emb16.shape[0], R, n, device=device,
+                       dtype=torch.int32) for n, _ in banks]
+    with pytest.raises(TypeError):
+        disc_conv.conv_bank_dxs_raw(emb16, w16, banks, R, 1, pooled16, idx,
+                                    pooled16)
     with pytest.raises(TypeError):
         inorm.normalize_images(torch.zeros(1, 3, 4, 4, dtype=torch.uint8,
                                            device=device), torch.float16)

@@ -284,18 +284,35 @@ def test_greedy_and_pretrain_bfloat16_plain_match_jax(mode):
 
 
 def test_float32_only_modes_refuse_bfloat16():
-    """Modes without a bfloat16 instantiation (``sample``, ``sample_embed``
-    and the embed backward: the ``kernel_rescore`` and ``kernel_embed``
-    routes) raise TypeError on bfloat16, on the CPU as on the card."""
+    """Modes ``sample`` and ``sample_embed`` and the embed backward (the
+    ``kernel_rescore`` and ``kernel_embed`` routes) were float32 only
+    until their bfloat16 instantiations: they take bfloat16 now, with the
+    TPU kernel's output dtypes (the noise, the embedding, the soft sample
+    and d_htop bfloat16; dWp and dbp float32), and refuse float16 with a
+    TypeError, as every mode does, on the CPU as on the card
+    (``tests/test_torch_port_bf16_routes.py`` holds their values against
+    the JAX package)."""
     _, gen = _decoders()
     layers, wp, bp, emb = _bf16_layers(gen)
     feats = torch.zeros(B, E, dtype=BF)
+    u = torch.full((T, B, V), 0.5)
+    wd = torch.zeros(4, V, dtype=BF)
+    _, noise = tks.decode_sample(feats, layers, wp, bp, emb, T,
+                                 mode="sample", uniforms=u)
+    _, emb_s, soft, *res = tks.decode_sample(
+        feats, layers, wp, bp, emb, T, mode="sample_embed", uniforms=u,
+        disc_embed=wd)
+    assert all(t.dtype == BF for t in (noise, emb_s, soft, *res))
+    dwp, dbp, d_htop = tks.decode_sample_embed_bwd(
+        res[0][:, -1].contiguous(), soft, emb_s, wp, wd, 2.0)
+    assert (dwp.dtype, dbp.dtype, d_htop.dtype) == (
+        torch.float32, torch.float32, BF)
+    half = ([{k: v.to(torch.float16) for k, v in lp.items()}
+             for lp in layers], wp.half(), bp.half(), emb.half())
+    for mode in ("greedy", "sample", "sample_embed"):
+        with pytest.raises(TypeError, match="float32"):
+            tks.decode_sample(feats.to(torch.float16), *half, T, mode=mode,
+                              disc_embed=wd.half())
     with pytest.raises(TypeError, match="float32"):
-        tks.decode_sample(feats, layers, wp, bp, emb, T, mode="sample")
-    with pytest.raises(TypeError, match="float32"):
-        tks.decode_sample(feats, layers, wp, bp, emb, T, mode="sample_embed",
-                          disc_embed=torch.zeros(4, V, dtype=BF))
-    with pytest.raises(TypeError, match="float32"):
-        tks.decode_sample(feats.to(torch.float16), *(
-            [{k: v.to(torch.float16) for k, v in lp.items()} for lp in layers],
-            wp.half(), bp.half(), emb.half()), T, mode="greedy")
+        tks.decode_sample_embed_bwd(d_htop.half(), soft.half(),
+                                    emb_s.half(), wp.half(), wd.half(), 2.0)

@@ -71,17 +71,6 @@ SHARP = dict(disc_init="normal")
 DISC_GAIN = 10.0
 
 
-@pytest.fixture(autouse=True)
-def own_jax_states(monkeypatch):
-    """``torch_bf16_parity.jax_state`` caches a JAX initial state per
-    architecture and seed, not per ``disc_init``: the states drawn here
-    (``SHARP``) are kept apart from those another file on the same worker
-    drew with the default initialization, in both directions."""
-    import torch_bf16_parity
-
-    monkeypatch.setattr(torch_bf16_parity, "_JSTATES", {})
-
-
 def _noise(config, route, key):
     """The draws of the JAX ``reinforce_losses(rng=key, train=True)``: the
     sample's (zeros for the LSTM: the interpret-mode decode draws zero

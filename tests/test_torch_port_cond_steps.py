@@ -242,12 +242,28 @@ def test_train_state_from_jax_drops_the_frozen_backbone_moments():
     assert "encoder.resnet.conv1.weight" in state.pretrain_opt.mu
 
 
-def test_cached_backbone_features_are_not_ported():
-    config = Config(**KW)
-    state = create_train_state(config, 0)
-    caps = [np.arange(4, 8)] * B
-    feats = [np.zeros(512, np.float32)] * B
+def test_cached_backbone_features_train_the_head():
+    """Refused until the slice that ported ``--cache-features``: a batch of
+    cached backbone features (``backbone_feats [B, 512]``) trains the
+    head alone (``encoder.project_head``), as the JAX step does: the MLE
+    step's metrics, parameters and running statistics match (the
+    backbone's statistics do not move)."""
+    jconfig, config, jstate, state, _, _ = _start("images")
+    rng = np.random.default_rng(4)
+    caps = [rng.integers(4, V, size=rng.integers(1, 5)) for _ in range(B)]
+    feats = [rng.standard_normal(512).astype(np.float32) for _ in range(B)]
+    jbatch = {k: jnp.asarray(v)
+              for k, v in jmake_batch(caps, feats, config.seq_len).items()}
     batch = tsteps.batch_to(make_batch(caps, feats, config.seq_len), "cpu")
-    assert "backbone_feats" in batch
-    with pytest.raises(NotImplementedError):
-        tsteps.make_mle_step(config)(state, batch)
+    assert "backbone_feats" in batch and "backbone_feats" in jbatch
+    before = {k: v.clone() for k, v in tenc.bn_stats(state.gen.encoder)
+              .items() if k.startswith("resnet.")}
+    jstate, jm = jsteps.make_mle_step(jconfig)(jstate, jbatch)
+    state, m = tsteps.make_mle_step(config)(state, batch)
+    for k in jm:
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), err_msg=k,
+                                   **METRIC)
+    _assert_same_state(state, jstate, "cached")
+    after = tenc.bn_stats(state.gen.encoder)
+    assert len(before) == 40
+    assert all(torch.equal(v, after[k]) for k, v in before.items())

@@ -102,7 +102,11 @@ def test_jax_command_line_at_defaults_parses_and_trains(tmp_path):
 
 # every flag the port parses and refuses when set, with a set value
 REFUSED = [("--cp-mode", "ring"), ("--pp-microbatches", "2"),
-           ("--zero1", None), ("--encoder-init", "natural")]
+           ("--zero1", None)]
+# the data and model extras, refused until their slice ported them: each
+# parses into the config and passes (what each does:
+# test_torch_port_extras.py and test_torch_port_loop.py)
+EXTRAS_HONOURED = [("--encoder-init", "natural", "encoder_init", "natural")]
 
 
 # flags that were refused until the conditional transformer and config5
@@ -131,6 +135,15 @@ def test_refused_flags_raise_when_set(flag, value):
     config = config_from_args(build_parser().parse_args(argv))
     with pytest.raises(NotImplementedError, match=flag):
         require_ported_flags(config)
+
+
+@pytest.mark.parametrize("flag,value,field,want", EXTRAS_HONOURED)
+def test_extras_flags_are_honoured(flag, value, field, want):
+    config = config_from_args(build_parser().parse_args([flag, value]))
+    require_ported_flags(config)
+    assert getattr(config, field) == want
+    jconfig = jconfig_from_args(jbuild_parser().parse_args([flag, value]))
+    assert getattr(jconfig, field) == want
 
 
 # the resume, snapshot, early-stop and SCST flags, honoured since their

@@ -165,8 +165,25 @@ def test_main_needs_cuda_unless_told_cpu(tmp_path):
                                                "--dataset", "synthetic"]))
 
 
-UNPORTED = [("--random-flip", "1"), ("--random-crop-pad", "4"),
-            ("--cache-features", "1"), ("--mesh", "data:4")]
+UNPORTED = [("--mesh", "data:4")]
+# refused until the data extras' slice, honoured now: each trains a
+# conditional run (augmentation on its images; with --cache-features the
+# loaders carry backbone features in their place)
+EXTRAS = [("--random-flip", "1"), ("--random-crop-pad", "4"),
+          ("--cache-features", "1")]
+
+
+@pytest.mark.parametrize("flag,value", EXTRAS)
+def test_extras_flags_train(flag, value, tmp_path):
+    config = config_from_args(build_parser().parse_args([flag, value]))
+    require_ported_flags(config)
+    inst = tmain.main([*FLAGS, flag, value, "--pretrain-epochs", "1",
+                       "--device", "cpu", "--save-dir", str(tmp_path / "s")])
+    assert inst.state.gen_steps > 0
+    batch = next(iter(inst.pre_train_loader))
+    cached = flag == "--cache-features"
+    assert ("backbone_feats" in batch) == cached
+    assert ("images" in batch) != cached
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED)

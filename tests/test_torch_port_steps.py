@@ -177,12 +177,19 @@ def test_steps_draw_their_own_noise_and_train():
 @pytest.mark.parametrize("override", [
     {"dtype": "bfloat16", "decode_impl": "decoupled"},
     {"disc_arch": "bilstm"}])
-def test_unported_training_options_raise(override):
+def test_ported_training_options_take_a_step(override):
+    """Refused until this slice, honoured now: the bfloat16 decoupled
+    route and the BiLSTM discriminator each take an MLE and an
+    adversarial step with finite losses (their values are held against
+    the JAX package in tests/test_torch_port_bf16_routes.py and
+    tests/test_torch_port_extras.py)."""
     config = Config(**KW).replace(**override)
-    with pytest.raises(NotImplementedError):
-        tsteps.make_adv_step(config)
-    with pytest.raises(NotImplementedError):
-        tsteps.make_mle_step(config)
+    state = create_train_state(config, 3)
+    host = make_batch([np.arange(4, 8)] * 4, None, config.seq_len)
+    batch = tsteps.batch_to(host, "cpu")
+    state, m = tsteps.make_mle_step(config)(state, batch)
+    state, m2 = tsteps.make_adv_step(config)(state, batch, TEMP)
+    assert all(np.isfinite(float(v)) for v in (*m.values(), *m2.values()))
 
 
 def test_teacher_mle_objective_matches_jax(start):

@@ -139,14 +139,16 @@ def test_config4_is_the_jax_flag_bundle():
 
 
 @pytest.mark.parametrize("extra", [["--disc-arch", "bilstm"]])
-def test_what_config4_still_lacks_raises(extra, tmp_path):
+def test_what_config4_lacked_now_trains(extra, tmp_path):
+    """Refused until the BiLSTM discriminator's port: config4's
+    transformer generator trains against it (REINFORCE, one epoch of
+    each phase)."""
     args = build_parser().parse_args(["--preset", "config4", *extra])
-    with pytest.raises(NotImplementedError):
-        require_ported_flags(config_from_args(args))
-    with pytest.raises(NotImplementedError):
-        tmain.main([*FLAGS, *extra, "--device", "cpu", "--save-dir",
-                    str(tmp_path / "s")])
-    assert not os.path.exists(tmp_path / "s")
+    require_ported_flags(config_from_args(args))
+    inst = tmain.main([*FLAGS, *extra, "--device", "cpu", "--save-dir",
+                       str(tmp_path / "s")])
+    assert inst.config.disc_arch == "bilstm" and inst.state.gen_steps > 0
+    assert "fwd.0.w_ih" in dict(inst.state.disc.named_parameters())
 
 
 def test_config4_with_gpt2_parses_to_its_geometry():

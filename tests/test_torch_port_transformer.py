@@ -311,10 +311,13 @@ def test_unported_transformer_serving_raises(extra):
 
 
 @pytest.mark.parametrize("override", [{"disc_arch": "bilstm"}])
-def test_unported_models_raise(override):
-    with pytest.raises(NotImplementedError):
-        tapi.init_generator(torch.Generator(), Config(**KW).replace(
-            **override))
+def test_models_refused_until_ported_build(override):
+    """The BiLSTM discriminator, refused until its port: a transformer
+    generator's config builds both models."""
+    config = Config(**KW).replace(**override)
+    tapi.init_generator(torch.Generator(), config)
+    disc = tapi.init_discriminator(torch.Generator(), config)
+    assert type(disc).__name__ == "BiLSTMDiscriminator"
 
 
 def test_conditional_transformer_serving_captions_images():

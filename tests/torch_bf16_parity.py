@@ -127,9 +127,11 @@ _JSTATES = {}
 
 
 def jax_state(jconfig, seed):
-    """The JAX initial state of ``jconfig``'s models (cached per
-    architecture and seed: the JAX functions here only read it)."""
-    key = (jconfig.gen_arch, jconfig.disc_arch, seed)
+    """The JAX initial state of ``jconfig``'s models (cached per whole
+    config and seed: the JAX functions here only read it, and two configs
+    that differ in anything, an initialization flag included, never share
+    one)."""
+    key = (jconfig, seed)
     if key not in _JSTATES:
         _JSTATES[key] = jax.jit(lambda k: jcreate_train_state(
             jconfig, k))(jax.random.PRNGKey(seed))
