@@ -151,10 +151,13 @@ generator, bfloat16), and prints one JSON line per phase:
     discriminator's [64, 36, 8, 16] and the rollouts' [256, 36, 8, 16]
     (full), GPT-2's head dim at [8, 37, 12, 64] (causal, lengths + 1):
     outputs within 2e-6, gradients within 1e-5 of their largest;
-    the backward one launch of the fused kernel (delta, dQ, dK and dV)
-    at those five and the tiled dQ and dK/dV at [2, 200, 2, 24] and [2,
-    37, 2, 72], by its plan, two calls bit-equal, and zero, finite
-    gradients for a row of key length 0;
+    the backward one launch (delta, dQ, dK and dV), by its plan: the fused
+    kernel at those five, the tiled one at [2, 200, 2, 24], [2, 37, 2, 72]
+    and the long captions of ``--max-seq-len 126`` (config4's generator
+    [64, 129, 8, 32], causal, lengths + 1; its discriminator [64, 128, 8,
+    16] and rollouts [256, 128, 8, 16], full; config5's generator [64,
+    129, 12, 64], causal, lengths + 1), two calls bit-equal, and zero,
+    finite gradients for a row of key length 0;
     the Gumbel sampler at [64, 11008] on fed uniforms (its plan: cluster
     size and CTAs; soft within 1e-6, ids equal outside near-ties, two calls
     bit-equal), its Philox draw (reproducible, the sample_resid decode's
@@ -164,11 +167,12 @@ generator, bfloat16), and prints one JSON line per phase:
     accesses, soft within 1e-6); the forward's kernel per case as the
     wrapper reports its launch and the profiler names it (the fused
     kernels at the four config4 cases and at D = 64, the tiled one at [2,
-    200, 2, 24] and D = 72), two forward calls bit-equal, and a batch
-    row of key length 0 (out 0, lse below -1e29); times beside the plain
-    versions', the per-case bounds and ``scaled_dot_product_attention``
-    (forward, backward alone, and forward + backward); the fused backward
-    beside the tiled route (delta, dQ and dK/dV) in the same process.
+    200, 2, 24], D = 72 and the long captions), two forward calls
+    bit-equal, and a batch row of key length 0 (out 0, lse below -1e29);
+    times beside the plain versions', the per-case bounds (the tiled
+    backward's products at the TF32 rate) and
+    ``scaled_dot_product_attention`` (forward, backward alone, and
+    forward + backward).
 18a. ``gumbel_ids`` — sha256 of the sampler's ids and drawn uniforms at
     fixed logits and (seed, step), [64, 11008], [64, 11007] and [3, 50257],
     by the public signature only (to compare checkouts).
@@ -386,8 +390,8 @@ generator, bfloat16), and prints one JSON line per phase:
     lengths + 1) and log-prob pass (causal), the discriminator's [64, 36,
     8, 16] and the rollouts' [256, 36, 8, 16] (full; the fused forward
     and backward), GPT-2's head dim at [8, 37, 12, 64] (causal, lengths
-    + 1; the column-half fused kernels) and [2, 200, 2, 24] (the tiled
-    forward, dQ and dK/dV),
+    + 1; the column-half fused kernels), [2, 200, 2, 24] and the long
+    captions of ``tf_kernels`` (the tiled forward and backward),
     and the sampler's at [64, 11008] and [64, 11007], against their plain
     versions on the same bfloat16 inputs (each output and gradient entry
     within one bfloat16 step, plus the float32 kernels' 1e-5 of the
@@ -409,9 +413,13 @@ generator, bfloat16), and prints one JSON line per phase:
     rollouts in bfloat16 (the LSTM kernels' bfloat16 instantiations only);
     ``main.py --preset config4 --dtype bfloat16`` on 128 synthetic items,
     an epoch of each phase, its full-state snapshot loaded back and its
-    adversarial checkpoint served; and the config4 REINFORCE and MLE steps'
+    adversarial checkpoint served; the config4 REINFORCE and MLE steps'
     device time and launches (torch.profiler), float32 and bfloat16 in
-    turns on the same weights.
+    turns on the same weights; and at ``--max-seq-len 126`` (B = 64
+    captions of 3-126 tokens; rollouts every 32 positions) one bfloat16
+    MLE and one REINFORCE step: the launches of the design at T = 128,
+    every backward one launch of the tiled kernel, device ms, launches
+    and busy share (torch.profiler).
 
 33. ``config5`` — preset config5 at full width, bfloat16, random weights
     from seed 0: ViT-B/16 at 256 x 256 (frozen), the GPT-2-small generator
@@ -423,10 +431,10 @@ generator, bfloat16), and prints one JSON line per phase:
     sampler at [64, 50261] (the scalar cluster path), against their plain
     versions with phase ``tf_bf16``'s and ``tf_kernels``' tolerances,
     timed beside the plain versions, their bounds, SDPA and (flash) the
-    tiled route; ``image_norm`` on the batch into bfloat16.
-    Then 2 MLE and 2 Gumbel adversarial steps with the launches of the
-    design (12 fused forwards and 12 fused backwards an MLE step, no
-    tiled dQ or dK/dV; 36 sampler
+    tiled kernels at the same shape; ``image_norm`` on the batch into
+    bfloat16.  Then 2 MLE and 2 Gumbel adversarial steps with the launches
+    of the design (12 fused forwards and 12 fused backwards an MLE step;
+    36 sampler
     launches, 3 conv passes a Gumbel step; ``image_norm`` once each),
     every one bfloat16; the frozen ViT bit-unchanged after them; each
     step's losses and gradients through the kernels against the plain
@@ -486,7 +494,9 @@ generator, bfloat16), and prints one JSON line per phase:
     1e-5 times the larger of 1 and their largest, dW within 1e-4); each
     one's ``device_ms`` beside its plain version's and its bound (bfloat16
     bytes at 3.35 TB/s, bfloat16 products at 989 TFLOP/s), the embed
-    backward's three cuBLAS products in bfloat16 as its library time.
+    backward's three cuBLAS products in bfloat16 as its library time
+    (together and one by one) and its six launches one by one
+    (torch.profiler) against its plan's count.
     Then one bfloat16 adversarial step (``bf16_mu``) on each of
     ``kernel_rescore``, ``kernel_embed``, ``decoupled``, ``hybrid`` and
     ``mxu_dxs`` with the launches of the design, every one bfloat16, each
@@ -2844,14 +2854,13 @@ TF_MODEL_FLAGS = ["--preset", "config4", "--dataset", "synthetic",
 # backward), for each of the 8 rollout prefixes and the full sequence
 # (9 passes) and for the greedy baseline (1), then the generator's 4
 # layers for the log-probs (with backward); each backward is one launch
-# of the fused kernel, none of the tiled dQ and dK/dV (T <= 64, D <= 64)
-TF_PER_MLE_STEP = {"flash_fwd": TF_NL, "flash_bwd": TF_NL, "flash_dq": 0,
-                   "flash_dkv": 0, "gumbel_sample": 0}
+# (the fused kernel at T <= 64, D <= 64; the tiled one past them)
+TF_PER_MLE_STEP = {"flash_fwd": TF_NL, "flash_bwd": TF_NL,
+                   "gumbel_sample": 0}
 TF_PREFIXES = len(range(TF_ROLLOUT_STRIDE, T, TF_ROLLOUT_STRIDE))
 TF_PER_RL_STEP = {"gumbel_sample": T,
                   "flash_fwd": TF_DISC_NL * (2 + TF_PREFIXES + 1 + 1) + TF_NL,
-                  "flash_bwd": 2 * TF_DISC_NL + TF_NL,
-                  "flash_dq": 0, "flash_dkv": 0}
+                  "flash_bwd": 2 * TF_DISC_NL + TF_NL}
 
 
 def tf_counters():
@@ -2859,7 +2868,6 @@ def tf_counters():
     from gan_image_captioning_tpu_torch.kernels import gumbel_sample as gs
 
     return {"flash_fwd": fa.flash_fwd, "flash_bwd": fa.flash_bwd,
-            "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
             "gumbel_sample": gs.gumbel_sample}
 
 
@@ -2880,13 +2888,26 @@ def flash_work(kind, b, t, h, d, pairs):
     x, vec = 4 * b * t * h * d, 4 * b * t * h
     if kind == "flash_fwd":      # q, k, v in; out, lse out
         return 4 * x + vec, 4 * d * pairs
-    if kind == "flash_dq":       # q, k, v, dO, lse, delta in; dq out
-        return 5 * x + 2 * vec, 6 * d * pairs
-    if kind == "flash_dkv":      # + dk, dv out
-        return 6 * x + 2 * vec, 8 * d * pairs
-    # the whole backward (fused, or the tiled route): q, k, v, dO, out,
-    # lse in; dq, dk, dv out; five products of D a pair
+    # the whole backward (fused or tiled): q, k, v, dO, out, lse in; dq,
+    # dk, dv out; five products of D a pair
     return 8 * x + vec, 10 * d * pairs
+
+
+def tiled_bwd_bound(b, t, h, d, pairs, bf16):
+    """The tiled backward's bound (ms, what bounds it): its bytes (float32
+    or bfloat16 q, k, v, dO, out, dq, dk, dv; float32 lse) at 3.35 TB/s,
+    or its products at the card's rate for their operands: S and dP (4 D a
+    pair) at 989 TFLOP/s on bfloat16 operands, as 3xTF32 (three TF32
+    products at 495) on float32 ones; dV, dK and dQ (6 D a pair) have the
+    float32 P or dS as an operand: two TF32 products on bfloat16 (the other
+    operand is exact in TF32), three on float32."""
+    esz = 2 if bf16 else 4
+    nbytes = 8 * esz * b * t * h * d + 4 * b * t * h
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = d * pairs * ((4 / BF16_FLOP_PER_S + 12 / TF32_FLOP_PER_S) if bf16
+                         else 30 / TF32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 SPIN_CYCLES = 100_000_000   # about 50 ms of one SM's clock
@@ -2927,13 +2948,40 @@ def device_ms(fn, calls=20):
           f"the {spin_ms} ms spin")
 
 
+# the long captions of --max-seq-len 126 (seq_len 128: paragraph-length
+# captions of up to 126 words): past T = 64 every transformer backward
+# takes the tiled kernel
+LONG_MAX_SEQ_LEN = 126
+LONG_T = LONG_MAX_SEQ_LEN + 2
+
+
+def long_caption_cases(device, rng):
+    """The flash cases of the long captions → ``{name: (shape, causal,
+    lengths, route)}``: config4's generator MLE pass [64, 129, 8, 32]
+    (causal, the captions' lengths + 1), its discriminator [64, 128, 8, 16]
+    and rollouts [256, 128, 8, 16] (full), and config5's generator [64,
+    129, 12, 64] (causal, lengths + 1); every one on the tiled route."""
+    lens = torch.from_numpy(rng.integers(3, LONG_T + 1, B_TRAIN).astype(
+        np.int32) + 1).to(device)
+    hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
+    return {"long_gen": ((B_TRAIN, LONG_T + 1, TF_HEADS, hd), True, lens,
+                         "tiled"),
+            "long_disc": ((B_TRAIN, LONG_T, TF_DISC_HEADS, dd), False, None,
+                          "tiled"),
+            "long_rollout": ((B_TRAIN * TF_ROLLOUT_NUM, LONG_T,
+                              TF_DISC_HEADS, dd), False, None, "tiled"),
+            "long_c5_gen": ((B_TRAIN, LONG_T + 1, C5_HEADS, C5_HD), True,
+                            lens, "tiled")}
+
+
 def phase_tf_kernels(device):
     """The four kernels against their plain versions at config4's shapes:
-    flash forward, dQ and dK/dV at the three masks (the generator's MLE
+    flash forward and backward at the three masks (the generator's MLE
     pass, causal with lengths + 1; its log-prob pass, causal; the
     discriminator, full, at B = 64 and the rollouts' 256: the fused
-    forward; causal with lengths at [2, 200, 2, 24]: the tiled forward, as
-    the C side reports its launch), and the Gumbel
+    kernels; causal with lengths at [2, 200, 2, 24], and the long captions
+    of ``--max-seq-len 126`` (``long_caption_cases``): the tiled kernels,
+    as the C side reports their launches), and the Gumbel
     sampler on fed uniforms and on its Philox draw; their device times
     (``device_ms``) beside the plain versions', the bounds and
     scaled_dot_product_attention's, and the per-call rate of calls issued
@@ -2966,7 +3014,8 @@ def phase_tf_kernels(device):
              # GPT-2's head dim (the column-half kernels) and one past it
              "fused_d64": ((8, T + 1, C5_HEADS, C5_HD), True, lens_gen[:8],
                            "fused"),
-             "tiled_d72": ((2, T + 1, 2, 72), True, lens_gen[:2], "tiled")}
+             "tiled_d72": ((2, T + 1, 2, 72), True, lens_gen[:2], "tiled"),
+             **long_caption_cases(device, rng)}
     cnt = tf_counters()
     rows, times = {}, {}
     for name, (shape, causal, lens, want) in cases.items():
@@ -2978,8 +3027,7 @@ def phase_tf_kernels(device):
         out = fa.flash_attention(q, k, v, causal, lens)
         grads = torch.autograd.grad(out, (q, k, v), g)
         torch.cuda.synchronize()
-        launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_bwd",
-                                                 "flash_dq", "flash_dkv")}
+        launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_bwd")}
         bwd_ran = fa.flash_bwd.last_kernel
         ref = fa.attention_plain(q, k, v, causal, lens)
         ref_grads = torch.autograd.grad(ref, (q, k, v), g)
@@ -3007,10 +3055,8 @@ def phase_tf_kernels(device):
             row[f"{n}_max_abs_diff"] = float((a - b).abs().max())
             row[f"{n}_rel"] = row[f"{n}_max_abs_diff"] / float(b.abs().max())
         emit({"phase": "tf_kernels", "kernel": "flash", "case": name, **row})
-        fused = want == "fused"
-        check(launches == {"flash_fwd": 1, "flash_bwd": int(fused),
-                           "flash_dq": int(not fused),
-                           "flash_dkv": int(not fused)},
+        check(launches == {"flash_fwd": 1, "flash_bwd": 1}
+              and want == fa.flash_bwd_plan(*shape[1:])["route"],
               f"flash {name}: launches {launches}")
         check(bwd_ran == want and row["backward_bit_equal_repeat"],
               f"flash {name} backward {row}")
@@ -3031,7 +3077,6 @@ def phase_tf_kernels(device):
         # likewise (boolean mask, [B, H, T, D] views made contiguous outside
         # the timing)
         o, lse = again
-        delta = (g * o).sum(dim=-1)
         b_, t_, h_, d_ = shape
         mask = torch.ones((1, 1, t_, t_), dtype=torch.bool, device=device)
         if causal:
@@ -3062,18 +3107,8 @@ def phase_tf_kernels(device):
         def plain_bwd():
             torch.autograd.grad(plain_o, (q, k, v), g, retain_graph=True)
 
-        def tiled_bwd():    # the parent's route: delta, dQ, dK/dV
-            dl = (g * o).sum(dim=-1)
-            fa.flash_dq(qd, kd, vd, g, lse, dl, causal, lens)
-            fa.flash_dkv(qd, kd, vd, g, lse, dl, causal, lens)
-
         fns = {"flash_fwd": lambda: fa.flash_fwd(qd, kd, vd, causal, lens),
                "flash_bwd": lambda: fa.flash_bwd(qd, kd, vd, o, g, lse,
-                                                 causal, lens),
-               "tiled_bwd": tiled_bwd,
-               "flash_dq": lambda: fa.flash_dq(qd, kd, vd, g, lse, delta,
-                                               causal, lens),
-               "flash_dkv": lambda: fa.flash_dkv(qd, kd, vd, g, lse, delta,
                                                  causal, lens)}
         with torch.no_grad():
             def plain_f():
@@ -3107,6 +3142,10 @@ def phase_tf_kernels(device):
             t_row[n] = dict(zip(("bound_ms", "bound_by"), bound(nbytes,
                                                                flops)),
                             bytes=nbytes, flop=flops)
+        if want == "tiled":     # the tiled backward's products: TF32 terms
+            t_row["flash_bwd"].update(zip(("bound_ms", "bound_by"),
+                                          tiled_bwd_bound(b_, t_, h_, d_,
+                                                          pairs, False)))
         emit({"phase": "tf_kernels", "timing": "flash", "case": name,
               **t_row})
         times[name] = t_row
@@ -3446,7 +3485,7 @@ def phase_tf_train(device):
         emit({"phase": "tf_train", "timing": kind, "B": B_TRAIN,
               **times[kind]})
     names = ("flash_fwd_fused_kernel", "flash_fwd_kernel",
-             "flash_bwd_fused_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+             "flash_bwd_fused_kernel", "flash_bwd_tiled_kernel",
              "gumbel_cluster_kernel", "gumbel_rows_kernel")
     prof = {"mle": profile_calls(lambda: mle(state, batch), 3, names),
             "rl": profile_calls(lambda: adv(state, batch, 1.0), 2, names)}
@@ -3571,10 +3610,11 @@ def phase_tf_loop(device, workdir):
 def tf_entries(smi, tfk, tf_train):
     """The four TPU kernels' entries of the ``kernels`` line: times and
     bounds at the generator's MLE shape (flash) and at [64, V] (Gumbel).
-    ``_dq_kernel`` and ``_dkv_kernel`` are both redesigned as one kernel,
-    the fused backward: each entry gives its launches and its time, bound
-    and the backward alone of the plain version and of SDPA, and keeps its
-    own tiled kernel's case in ``by_case``."""
+    ``_dq_kernel`` and ``_dkv_kernel`` are both redesigned as one launch,
+    the fused backward (T <= 64, D <= 64) or the tiled one (past them: the
+    long captions): each entry gives its launches and its time, bound and
+    the backward alone of the plain version and of SDPA, and every case's,
+    the tiled ones among them, in ``by_case``."""
     mle = tfk["times"]["gen_mle"]
     errs = {"flash_fwd": max(r["max_abs_out_diff"]
                              for r in tfk["flash"].values()),
@@ -3609,30 +3649,29 @@ def tf_entries(smi, tfk, tf_train):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": shape, "card": smi,
             "note": None if name in ("flash_fwd", "gumbel_sample") else
-            "one launch of flash_bwd_fused_kernel computes delta, dQ, dK and "
-            "dV: launches, ms, bound_ms, plain_ms and library_ms are the "
-            "whole backward's (plain and SDPA: the backward alone); by_case "
-            "tiled_t200 is this TPU kernel's own tiled launch"})
+            "one launch computes delta, dQ, dK and dV (flash_bwd_fused_kernel "
+            "at T <= 64 and D <= 64, flash_bwd_tiled_kernel past them): "
+            "launches, ms, bound_ms, plain_ms and library_ms are the whole "
+            "backward's (plain and SDPA: the backward alone); by_case long_* "
+            "are the tiled kernel at the long captions of --max-seq-len "
+            "126"})
         check(launches > 0, f"{name} never launched")
         if name != "gumbel_sample":     # every case: ms beside its bound
             by_case = {}
             for case, t in tfk["times"].items():
                 if case not in tfk["flash"]:
                     continue
-                tiled = tfk["flash"][case][
-                    "forward_kernel" if fwd else "backward_kernel"] == "tiled"
-                kern = name if fwd or tiled else "flash_bwd"
+                kern = name if fwd else "flash_bwd"
                 by_case[case] = {
                     "shape": tfk["flash"][case]["shape"], "kernel": kern,
+                    "route": tfk["flash"][case][
+                        "forward_kernel" if fwd else "backward_kernel"],
                     "ms": min(t["kernel_ms"][kern]),
                     "bound_ms": t[kern]["bound_ms"],
                     "library_ms": min(t["library_fwd_ms" if fwd
                                         else "library_bwd_ms"]),
                     "plain_ms": min(t["plain_fwd_ms" if fwd
                                       else "plain_bwd_ms"])}
-                if not fwd:
-                    by_case[case]["tiled_route_ms"] = min(
-                        t["kernel_ms"]["tiled_bwd"])
             out[-1]["by_case"] = by_case
     return out
 
@@ -6910,8 +6949,7 @@ TF_BF16_COUNTERS = {"flash_fwd_bf16": "flash_fwd", "flash_dq_bf16": "flash_bwd",
 # backward for the real, fake and generator passes; the cache decode is
 # dense
 TF_PER_GUMBEL_STEP = {"gumbel_sample": T, "flash_fwd": 3 * TF_DISC_NL,
-                      "flash_bwd": 3 * TF_DISC_NL, "flash_dq": 0,
-                      "flash_dkv": 0}
+                      "flash_bwd": 3 * TF_DISC_NL}
 TF_BF16_ITEMS = 128
 
 
@@ -6935,7 +6973,8 @@ def flash_bf16_work(kind, b, t, h, d, pairs):
 def tf_bf16_flash(device):
     """The flash kernels' bfloat16 instantiations at config4's shapes,
     GPT-2's head dim at [8, 37, 12, 64] (the column-half kernels) and the
-    tiled ones' [2, 200, 2, 24]: against the plain versions on the
+    tiled ones' [2, 200, 2, 24] and long captions (``long_caption_cases``):
+    against the plain versions on the
     same bfloat16 inputs (out, dq, dk, dv each entry within a bfloat16
     step, plus FLASH_GRAD_RTOL of the largest entry; lse within
     FLASH_GRAD_RTOL), against the float32 instantiation on the widened
@@ -6958,7 +6997,8 @@ def tf_bf16_flash(device):
              "disc_rollout": ((B_TRAIN * TF_ROLLOUT_NUM, T, TF_DISC_HEADS,
                                dd), False, None),
              "tiled_t200": ((2, 200, 2, 24), True, lens_tiled),
-             "fused_d64": ((8, T + 1, C5_HEADS, C5_HD), True, lens_gen[:8])}
+             "fused_d64": ((8, T + 1, C5_HEADS, C5_HD), True, lens_gen[:8]),
+             **{n: c[:3] for n, c in long_caption_cases(device, rng).items()}}
     rows, times = {}, {}
     for name, (shape, causal, lens) in cases.items():
         t_case = time.perf_counter()
@@ -6989,11 +7029,11 @@ def tf_bf16_flash(device):
             row[f"{n}_max_abs_diff"], row[f"{n}_step_ratio"] = bf16_steps(
                 a, b, f"tf_bf16 flash {name} {n}", floor=FLASH_GRAD_RTOL)
         emit({"phase": "tf_bf16", "kernel": "flash", "case": name, **row})
-        check(launches == {"flash_fwd": 1, "flash_bwd": int(fused),
-                           "flash_dq": int(not fused),
-                           "flash_dkv": int(not fused), "gumbel_sample": 0},
+        check(launches == {"flash_fwd": 1, "flash_bwd": 1,
+                           "gumbel_sample": 0},
               f"tf_bf16 flash {name}: launches {launches}")
-        check(fused == (name != "tiled_t200"), f"tf_bf16 flash {name} {row}")
+        check(fused == (name != "tiled_t200" and not name.startswith("long")),
+              f"tf_bf16 flash {name} {row}")
         check(fa.flash_fwd.last_kernel == row["backward_kernel"],
               f"tf_bf16 flash {name}: the forward's route {row}")
         check(row["lse_max_abs_diff"] <= FLASH_GRAD_RTOL
@@ -7054,6 +7094,10 @@ def tf_bf16_flash(device):
             t_row[kind] = dict(zip(("bound_ms", "bound_by"),
                                    bound(nbytes, flops)),
                                bytes=nbytes, flop=flops)
+        if not fused:           # the tiled backward's products: TF32 terms
+            t_row["bwd"].update(zip(("bound_ms", "bound_by"),
+                                    tiled_bwd_bound(b_, t_, h_, d_, pairs,
+                                                    True)))
         emit({"phase": "tf_bf16", "timing": "flash", "case": name, **t_row})
         times[name] = t_row
     return rows, times
@@ -7101,8 +7145,8 @@ def tf_bf16_gumbel(device):
         row["max_abs_soft_diff"], row["soft_step_ratio"] = bf16_steps(
             soft, p_soft, f"tf_bf16 gumbel {v} soft")
         emit({"phase": "tf_bf16", "kernel": "gumbel_sample", **row})
-        check(launches == {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0,
-                           "flash_dkv": 0, "gumbel_sample": 1},
+        check(launches == {"flash_fwd": 0, "flash_bwd": 0,
+                           "gumbel_sample": 1},
               f"tf_bf16 gumbel launches {launches}")
         check(gap <= ID_ATOL and row["float32_rounded_bit_equal"]
               and row["philox_float32_rounded_bit_equal"],
@@ -7425,6 +7469,71 @@ def tf_bf16_timing(setup):
     return out
 
 
+# the long-caption REINFORCE step's rollouts: every 32 positions (3
+# prefixes of 128-step decodes; config4's stride of 4 would run 31 of them)
+LONG_ROLLOUT_STRIDE = 32
+
+
+def tf_bf16_long_steps(device):
+    """config4 at full width in bfloat16 at ``--max-seq-len 126`` (B = 64
+    captions of 3-126 random tokens, batch width 128): one MLE and one
+    REINFORCE step (rollouts every LONG_ROLLOUT_STRIDE positions), each
+    under torch.profiler after a warm step (device ms, kernel launches and
+    busy share a step); the wrappers' launches as the design gives them at
+    T = 128, every backward one launch of the tiled kernel (no PyTorch
+    delta), every launch bfloat16, the losses finite."""
+    from gan_image_captioning_tpu_torch.data.loader import make_batch
+    from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
+    from gan_image_captioning_tpu_torch.train.state import create_train_state
+    from gan_image_captioning_tpu_torch.train.steps import (batch_to,
+                                                            make_adv_step,
+                                                            make_mle_step)
+
+    config = tf_config(dtype="bfloat16", bf16_mu=True,
+                       max_seq_len=LONG_MAX_SEQ_LEN,
+                       rollout_stride=LONG_ROLLOUT_STRIDE)
+    state = create_train_state(config, 0, device, sweep=False)
+    rng = np.random.default_rng(78)
+    caps = [rng.integers(4, min(11000, V),
+                         size=rng.integers(3, LONG_MAX_SEQ_LEN + 1))
+            for _ in range(B_TRAIN)]
+    batch = batch_to(make_batch(caps, None, LONG_T), device)
+    prefixes = len(range(LONG_ROLLOUT_STRIDE, LONG_T, LONG_ROLLOUT_STRIDE))
+    per = {"mle": {"flash_fwd": TF_NL, "flash_bwd": TF_NL,
+                   "gumbel_sample": 0},
+           "rl": {"gumbel_sample": LONG_T,
+                  "flash_fwd": TF_DISC_NL * (2 + prefixes + 1 + 1) + TF_NL,
+                  "flash_bwd": 2 * TF_DISC_NL + TF_NL}}
+    hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
+    routes = {"generator": fa.flash_bwd_plan(LONG_T + 1, TF_HEADS,
+                                             hd)["route"],
+              "discriminator": fa.flash_bwd_plan(LONG_T, TF_DISC_HEADS,
+                                                 dd)["route"]}
+    check(routes == {"generator": "tiled", "discriminator": "tiled"},
+          f"tf_bf16 long captions: routes {routes}")
+    mle, adv = make_mle_step(config), make_adv_step(config)
+    out = {"max_seq_len": LONG_MAX_SEQ_LEN, "rollout_stride":
+           LONG_ROLLOUT_STRIDE, "routes": routes}
+    for kind, fn in (("mle", lambda: mle(state, batch)),
+                     ("rl", lambda: adv(state, batch, 1.0))):
+        cnt = tf_bf16_reset()
+        _, m = fn()
+        torch.cuda.synchronize()
+        launches = bf16_launches(cnt, f"tf_bf16 long {kind} step")
+        check(launches == per[kind],
+              f"tf_bf16 long {kind} launches {launches} != {per[kind]}")
+        check(all(math.isfinite(float(x)) for x in m.values()),
+              f"tf_bf16 long {kind} metrics {m}")
+        out[kind] = {"launches": launches,
+                     "metrics": {k: float(x) for k, x in m.items()},
+                     **tf_bf16_profile(fn, 1)}
+        check(out[kind]["wrapper_launches_per_step"]
+              == {k: float(x) for k, x in per[kind].items()},
+              f"tf_bf16 long {kind} profiled launches {out[kind]}")
+    emit({"phase": "tf_bf16", "long_captions": out})
+    return out
+
+
 def phase_tf_bf16(device, workdir):
     """``--dtype bfloat16`` for the transformer family (the chip_smoke
     docstring's ``tf_bf16``)."""
@@ -7439,12 +7548,14 @@ def phase_tf_bf16(device, workdir):
     marks.append(("loop", time.perf_counter()))
     timing = tf_bf16_timing(setup)
     marks.append(("timing", time.perf_counter()))
+    long_steps = tf_bf16_long_steps(device)
+    marks.append(("long_steps", time.perf_counter()))
     emit({"phase": "tf_bf16", "seconds": marks[-1][1] - marks[0][1],
           "seconds_by_part": {name: t - marks[i][1] for i, (name, t)
                               in enumerate(marks[1:])}})
     return {"flash": flash_rows, "flash_times": flash_times,
             "gumbel": g_rows, "gumbel_times": g_times, "steps": steps,
-            "loop": loop, "timing": timing}
+            "loop": loop, "timing": timing, "long_steps": long_steps}
 
 
 def tf_bf16_entries(smi, row):
@@ -7452,7 +7563,8 @@ def tf_bf16_entries(smi, row):
     line: times at the generator's MLE shape (flash, every case under
     ``by_case``) and at [64, V] (the sampler); launches from the phase's
     config4 steps (MLE, REINFORCE, Gumbel).  ``_dq_kernel`` and
-    ``_dkv_kernel`` are one launch of the fused backward, as in float32."""
+    ``_dkv_kernel`` are one launch of the backward (fused, or tiled past
+    T = 64), as in float32; ``long_steps``: the long-caption steps."""
     steps = row["steps"]
     launches = {k: sum(steps[s]["launches"][k] for s in ("mle", "rl",
                                                           "gumbel"))
@@ -7521,15 +7633,15 @@ C5_COUNTERS = {"flash_fwd_config5": "flash_fwd",
                "image_norm_config5": "image_norm"}
 # launches per config5 step by design: the MLE step's causal pass over
 # the 12 layers on the fused kernels (a forward and one backward launch a
-# layer, none of the tiled dQ or dK/dV), image_norm once; the Gumbel
+# layer), image_norm once; the Gumbel
 # step's sampler once a decode step (the cache decode is dense),
 # image_norm once, and the CNN discriminator's conv banks forward and
 # backward for its three passes
-C5_PER_MLE = {"flash_fwd": C5_NL, "flash_bwd": C5_NL, "flash_dq": 0,
-              "flash_dkv": 0, "gumbel_sample": 0, "image_norm": 1,
+C5_PER_MLE = {"flash_fwd": C5_NL, "flash_bwd": C5_NL,
+              "gumbel_sample": 0, "image_norm": 1,
               "disc_conv_fwd": 0, "disc_conv_bwd_dx": 0}
-C5_PER_GUMBEL = {"flash_fwd": 0, "flash_bwd": 0, "flash_dq": 0,
-                 "flash_dkv": 0, "gumbel_sample": T, "image_norm": 1,
+C5_PER_GUMBEL = {"flash_fwd": 0, "flash_bwd": 0,
+                 "gumbel_sample": T, "image_norm": 1,
                  "disc_conv_fwd": 3, "disc_conv_bwd_dx": 3}
 
 
@@ -7576,14 +7688,14 @@ def c5_flash(device):
     """The fused flash kernels at the GPT-2 MLE pass's [64, 37, 12, 64]
     (head dim 64: the column-half forward and backward): causal with the
     captions' lengths + 1 and causal alone, in bfloat16 and float32; one
-    forward and one backward launch a call, none of the tiled dQ or
-    dK/dV (the fused route, as the wrapper reports); against the plain
+    forward and one backward launch a call (the fused route, as the
+    wrapper reports); against the plain
     versions on the same inputs (float32: out within FLASH_OUT_ATOL, dq,
     dk, dv and lse within FLASH_GRAD_RTOL of their largest; bfloat16: each
     entry within a bfloat16 step plus FLASH_GRAD_RTOL); two calls
     bit-equal; device time beside the plain versions', the bound, SDPA
-    (forward, backward alone) and the tiled route (the tiled forward;
-    delta, dQ and dK/dV)."""
+    (forward, backward alone) and the tiled kernels at the same shape
+    (their plans swapped in for the fused ones)."""
     import torch.nn.functional as F
 
     from gan_image_captioning_tpu_torch.kernels import flash_attention as fa
@@ -7602,8 +7714,8 @@ def c5_flash(device):
             out, lse = fa.flash_fwd(q, k, v, True, ln)
             dq, dk, dv = fa.flash_bwd(q, k, v, out, g, lse, True, ln)
             torch.cuda.synchronize()
-            launches = {n: cnt[n].launches for n in ("flash_fwd", "flash_bwd",
-                                                      "flash_dq", "flash_dkv")}
+            launches = {n: cnt[n].launches for n in ("flash_fwd",
+                                                      "flash_bwd")}
             routes = (fa.flash_fwd.last_kernel, fa.flash_bwd.last_kernel)
             bf16_counted = (cnt["flash_fwd"].bf16_launches,
                             cnt["flash_bwd"].bf16_launches)
@@ -7631,8 +7743,7 @@ def c5_flash(device):
                     row[f"{n}_rel"] = (row[f"{n}_max_abs_diff"]
                                        / float(b.abs().max()))
             emit({"phase": "config5", "kernel": "flash", "case": name, **row})
-            check(launches == {"flash_fwd": 1, "flash_bwd": 1, "flash_dq": 0,
-                               "flash_dkv": 0}
+            check(launches == {"flash_fwd": 1, "flash_bwd": 1}
                   and bf16_counted == (int(dt == BF16),) * 2,
                   f"config5 flash {name}: launches {launches}")
             check(row["forward_kernel"] == row["backward_kernel"] == "fused"
@@ -7663,7 +7774,7 @@ def c5_flash(device):
             def lib_bwd():
                 torch.autograd.grad(lib, (qt, kt, vt), gt, retain_graph=True)
 
-            def tiled_fwd():    # the parent's route: the tiled forward
+            def tiled_fwd():    # the tiled forward at this shape
                 real = fa.flash_fwd_plan
                 fa.flash_fwd_plan = lambda t, h, d: {"route": "tiled"}
                 try:
@@ -7671,10 +7782,13 @@ def c5_flash(device):
                 finally:
                     fa.flash_fwd_plan = real
 
-            def tiled_bwd():    # and delta, dQ, dK/dV
-                dl = (g.float() * out.float()).sum(dim=-1)
-                fa.flash_dq(q, k, v, g, lse, dl, True, ln)
-                fa.flash_dkv(q, k, v, g, lse, dl, True, ln)
+            def tiled_bwd():    # and the tiled backward
+                real = fa.flash_bwd_plan
+                fa.flash_bwd_plan = lambda t, h, d: fa._tiled_bwd(t, d)
+                try:
+                    fa.flash_bwd(q, k, v, out, g, lse, True, ln)
+                finally:
+                    fa.flash_bwd_plan = real
 
             with torch.no_grad():
                 fns = {
@@ -8184,7 +8298,7 @@ def config5_entries(smi, row):
     """config5's kernels on the ``kernels`` line, in bfloat16 at its
     shapes (the float32 instantiation's times under ``float32``):
     the fused flash at [64, 37, 12, 64] (the MLE pass's lengths; the
-    parent's tiled route under ``tiled_route_ms``), the
+    tiled kernels at the same shape under ``tiled_route_ms``), the
     sampler at [64, 50261] and ``image_norm`` at [64, 3, 256, 256];
     launches from the phase's counted drive (2 MLE and 2 Gumbel steps)."""
     steps = row["steps"]
@@ -9042,6 +9156,18 @@ def rest_kernels(gen, device):
     t["library_ms"] = [device_ms(lambda: [f() for f in products.values()],
                                  10) for _ in range(2)]
     t["library"] = "three bfloat16 cuBLAS products (d_soft, dWp, d_htop)"
+    t["library_by_product_ms"] = {n: device_ms(f, 10)
+                                  for n, f in products.items()}
+    # its launches, one by one (torch.profiler), against its plan's count
+    plan = ds.embed_bwd_plan(T * B, H, V, DISC_E, ds._sm_count(device), True)
+    t["split"] = kernel_split(lambda: ds.decode_sample_embed_bwd(*bargs))
+    t["plan_launches"] = plan["launches"]
+    # the profiler drops events at a window's edges and in a long
+    # process: the kernels it saw, by name, are the plan's count
+    seen = t["split"]["by_kernel"]
+    check(not seen or len(seen) == plan["launches"],
+          f"bf16 embed backward: {t['split']} against {plan['launches']} "
+          "launches a call")
     times["decode_sample_embed_bwd_bf16"] = t
     del got, again, want, products, dl
 
@@ -9076,7 +9202,9 @@ def rest_kernels(gen, device):
         emit({"phase": "bf16_rest", "kernel": name, **rows[name],
               **{k: v for k, v in times[name].items()
                  if k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                          "plain_timer", "library_ms", "library")}})
+                          "plain_timer", "library_ms", "library",
+                          "library_by_product_ms", "split",
+                          "plan_launches")}})
     return rows, times
 
 

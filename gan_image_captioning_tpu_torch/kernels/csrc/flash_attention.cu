@@ -18,9 +18,9 @@
 //            dq_i = sum_j p_ij (dp_ij - delta_i) k_j / sqrt(D)
 //   dK, dV:  dv_j = sum_i p_ij dO_i, dk_j = sum_i p_ij (dp_ij - delta_i) q_i
 //            / sqrt(D)
-// with delta_i = dO_i . out_i (in the fused backward; the tiled route's
-// wrapper takes it as one PyTorch reduction, as the JAX package leaves it
-// to XLA).  lse and delta are [B, T, H] float32.  Rows i >= T are neither
+// with delta_i = dO_i . out_i, computed in the backward's launch from the
+// stored out (the JAX package leaves it to XLA).  lse and delta are
+// [B, T, H] float32.  Rows i >= T are neither
 // read nor written: the ragged edge is masked here, where the TPU wrapper
 // pads T to a block multiple.
 //
@@ -207,23 +207,21 @@
 // warp's last key or first query), and every row reads a key's k and v
 // chunks from shared memory again: 16 bytes for 4 FMAs.
 //
-// The tiled kernels (the tiled forward, dQ and dK/dV, for T > FT_TMAX or D
-// > FC_DP; the backward's delta then is one PyTorch reduction): float32 FMA, no
-// tensor cores.  A block of 128 threads owns one (b, h) and a tile of
-// rows (query rows forward and for dQ, key rows for dK/dV, so no two blocks
-// write the same row and no atomics are needed: the TPU design's
-// determinism).  A row is split over tpr = next power of two >= D / 8
-// threads that hold 8 of its D columns each in registers (D <= 256, a
-// multiple of 8); a dot product is their partial sums combined with tpr-wide
-// shuffles.  The other operand streams through shared memory in tiles of
-// 4096 floats (16 KB), read as broadcasts.  The tiled forward keeps the
-// running max, normaliser and accumulator per row and rescales once per 4
-// keys.  When causal, the forward and dQ stop at the tile's last row and
-// dK/dV start at the tile's first key row.  What holds them back (measured
-// on the forward, which they lose to the fused kernel): at D = 16 a block
-// has 64 row slots for 36 rows, K and V arrive by 4-byte loads, and each
-// row walks its keys one dependent step (FMAs, shuffles, an exp, a
-// rescale) at a time.
+// The tiled forward (flash_fwd_kernel, for T > FT_TMAX or D > FC_DP: the
+// long captions of --max-seq-len 62 and up, whose generator attends over
+// max_seq_len + 3 positions): float32 FMA, no tensor cores.  A block of 128
+// threads owns one (b, h) and a tile of query rows.  A row is split over
+// tpr = next power of two >= D / 8 threads that hold 8 of its D columns
+// each in registers (D <= 256, a multiple of 8); a dot product is their
+// partial sums combined with tpr-wide shuffles.  K and V stream through
+// shared memory in tiles of 4096 floats (16 KB), read as broadcasts.  It
+// keeps the running max, normaliser and accumulator per row and rescales
+// once per 4 keys; when causal it stops at the tile's last row.  What
+// holds it back: at D = 16 a block has 64 row slots for 36 rows, K and V
+// arrive by 4-byte loads, and each row walks its keys one dependent step
+// (FMAs, shuffles, an exp, a rescale) at a time (ROADMAP queue 2, the next
+// kernel item).  The tiled backward (flash_bwd_tiled_kernel, below the
+// fused kernels) is one launch of its own design.
 //
 // bfloat16 (--dtype bfloat16: the JAX kernels on bfloat16 inputs).  Every
 // kernel is a template of its element type W, float or __nv_bfloat16
@@ -236,7 +234,11 @@
 // product and sum stays float32 and P is not rounded before P.V, as the
 // JAX kernels' dot_generals take preferred_element_type=float32; out, dq,
 // dk and dv are rounded once (dq and dk after the scale); delta reads the
-// stored, rounded out.  No bfloat16 mma: it would round P.
+// stored, rounded out.  No bfloat16 mma: it would round P.  The tiled
+// backward stages bfloat16 rows as they are (cp.async) and multiplies on
+// TF32 tensor cores, where a widened bfloat16 is exact: its float32
+// instantiation runs the same terms and exact zeros, so the two agree
+// bit for bit once rounded, as the other kernels do.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -255,7 +257,6 @@ using gic::to_f;
 constexpr int NT = 128;             // threads per block
 constexpr int DS = 8;               // columns of D per thread
 constexpr int TILE = 4096;          // floats per shared-memory operand tile
-constexpr int MAX_ROWS = TILE / DS; // rows of a tile at the smallest D
 constexpr int KC = 4;               // keys (or queries) per batch of shuffles
 constexpr float NEG = -1e30f;       // the TPU kernel's finite mask fill
 
@@ -385,125 +386,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
         store_as(out, m.head + m.row * m.rs + m.d0 + i, acc[i] / l_safe);
     }
     if (m.d0 == 0) lse[m.vec(m.row, T, H)] = mx + logf(l_safe);
-  }
-}
-
-template <class W>
-__global__ void __launch_bounds__(NT) flash_dq_kernel(
-    const W* __restrict__ q, const W* __restrict__ k,
-    const W* __restrict__ v, const W* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ lengths, W* __restrict__ dq, int T, int H,
-    int D, int tpr, int causal, float scale) {
-  __shared__ __align__(16) float Ks[TILE];
-  __shared__ __align__(16) float Vs[TILE];
-  const RowMap m(lengths, T, H, D, tpr);
-  const int q0 = blockIdx.y * (NT / tpr);
-  float qr[DS], dor[DS], acc[DS];
-  load_row(q, m, m.row, T, qr);
-  load_row(dout, m, m.row, T, dor);
-#pragma unroll
-  for (int i = 0; i < DS; ++i) acc[i] = 0.f;
-  const float lse_r = m.row < T ? lse[m.vec(m.row, T, H)] : 0.f;
-  const float dl_r = m.row < T ? delta[m.vec(m.row, T, H)] : 0.f;
-
-  const int kv_end = causal ? min(m.len, q0 + NT / tpr) : m.len;
-  const int bk = TILE / D;
-  for (int k0 = 0; k0 < kv_end; k0 += bk) {
-    const int nk = min(bk, kv_end - k0);
-    __syncthreads();
-    load_tile(k, m, k0, nk, D, Ks);
-    load_tile(v, m, k0, nk, D, Vs);
-    __syncthreads();
-    for (int jj = 0; jj < nk; jj += KC) {
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const int j = k0 + jj + c;
-        const bool in = jj + c < nk;
-        const bool use = m.own && in;
-        const float* kr = Ks + (jj + c) * D + m.d0;
-        const float s = group_sum(use ? dot_part(qr, kr) : 0.f, tpr);
-        const float dp = group_sum(
-            use ? dot_part(dor, Vs + (jj + c) * D + m.d0) : 0.f, tpr);
-        const bool valid = in && (!causal || j <= m.row);
-        const float p = valid ? expf(s * scale - lse_r) : 0.f;
-        const float ds = p * (dp - dl_r);
-        if (valid && m.own) {
-#pragma unroll
-          for (int i = 0; i < DS; ++i) acc[i] = fmaf(ds, kr[i], acc[i]);
-        }
-      }
-    }
-  }
-  if (m.row < T && m.own) {
-#pragma unroll
-    for (int i = 0; i < DS; ++i)
-      store_as(dq, m.head + m.row * m.rs + m.d0 + i, acc[i] * scale);
-  }
-}
-
-template <class W>
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(
-    const W* __restrict__ q, const W* __restrict__ k,
-    const W* __restrict__ v, const W* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ lengths, W* __restrict__ dk,
-    W* __restrict__ dv, int T, int H, int D, int tpr, int causal,
-    float scale) {
-  __shared__ __align__(16) float Qs[TILE];
-  __shared__ __align__(16) float Os[TILE];  // dO rows
-  __shared__ float Ls[MAX_ROWS];
-  __shared__ float Dl[MAX_ROWS];
-  const RowMap m(lengths, T, H, D, tpr);  // m.row is this thread's key row
-  const int j0 = blockIdx.y * (NT / tpr);
-  const int col = m.row;
-  float kr[DS], vr[DS], dka[DS], dva[DS];
-  load_row(k, m, col, T, kr);
-  load_row(v, m, col, T, vr);
-#pragma unroll
-  for (int i = 0; i < DS; ++i) dka[i] = dva[i] = 0.f;
-  const bool col_ok = col < m.len;
-
-  const int bq = TILE / D;
-  for (int i0 = causal ? j0 : 0; i0 < T; i0 += bq) {
-    const int nq = min(bq, T - i0);
-    __syncthreads();
-    load_tile(q, m, i0, nq, D, Qs);
-    load_tile(dout, m, i0, nq, D, Os);
-    for (int e = threadIdx.x; e < nq; e += NT) {
-      Ls[e] = lse[m.vec(i0 + e, T, H)];
-      Dl[e] = delta[m.vec(i0 + e, T, H)];
-    }
-    __syncthreads();
-    for (int ii = 0; ii < nq; ii += KC) {
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const int i = i0 + ii + c;
-        const bool in = ii + c < nq;
-        const bool use = m.own && in;
-        const float* qi = Qs + (ii + c) * D + m.d0;
-        const float* oi = Os + (ii + c) * D + m.d0;
-        const float s = group_sum(use ? dot_part(kr, qi) : 0.f, tpr);
-        const float dp = group_sum(use ? dot_part(vr, oi) : 0.f, tpr);
-        const bool valid = in && col_ok && (!causal || col <= i);
-        const float p = valid ? expf(s * scale - Ls[ii + c]) : 0.f;
-        const float ds = valid ? p * (dp - Dl[ii + c]) : 0.f;
-        if (valid && m.own) {
-#pragma unroll
-          for (int d = 0; d < DS; ++d) {
-            dva[d] = fmaf(p, oi[d], dva[d]);
-            dka[d] = fmaf(ds, qi[d], dka[d]);
-          }
-        }
-      }
-    }
-  }
-  if (col < T && m.own) {
-#pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      store_as(dk, m.head + col * m.rs + m.d0 + i, dka[i] * scale);
-      store_as(dv, m.head + col * m.rs + m.d0 + i, dva[i]);
-    }
   }
 }
 
@@ -1233,6 +1115,399 @@ __global__ void __launch_bounds__(FC_THREADS) flash_bwd_fused64_kernel(
   }
 }
 
+// ---- the tiled backward: every shape the fused kernels do not take
+
+// One block of four warps owns one (b, h) and walks its key tiles in
+// order, and for each the query tiles that can see them; a step is one
+// (query tile, key tile) pair of TB_ROWS x TB_ROWS.  Staged rows are the
+// inputs' type W, 16 bytes of pad after each; P and dS float32.
+constexpr int TB_ROWS = 32;            // queries of a query tile, keys of a key tile
+constexpr int TB_THREADS = 128;        // four warps
+constexpr int TB_PLD = TB_ROWS + 4;    // P and dS rows, floats
+
+// The tiled backward's layout at head dim DP (the power of two >= D, at
+// least 16) in element type W: staged tiles of q and dO (two buffers
+// each), k and v, then P and dS (tiled_smem counts the bytes).  ws (the
+// dQ sums, rows of WLD floats, then delta) is per (b, h): in shared memory
+// after them, or in scratch.
+template <int DP, class W>
+struct TiledBwd {
+  static constexpr int EPC = 16 / sizeof(W);  // elements a 16-byte copy
+  static constexpr int LD = DP + EPC;         // a staged row
+  static constexpr int TILE = TB_ROWS * LD;   // elements a staged tile
+  static constexpr int WLD = DP + 4;          // a dQ sum row
+  static constexpr int NJ = DP / 16;          // n8 tiles of half of D
+};
+
+// floats of one (b, h)'s ws: the dQ sums of the padded rows and delta
+__host__ __device__ inline size_t tb_ws_floats(int T, int DP) {
+  const size_t rows = (size_t)(T + TB_ROWS - 1) / TB_ROWS * TB_ROWS;
+  return rows * (DP + 4) + rows;
+}
+
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+// Rows t0 .. t0 + TB_ROWS - 1 of one (b, h) (head: the offset of (b, 0, h,
+// 0); rs: elements between two time rows) into a staged tile by 16-byte
+// cp.async, zero-filled past T and past D.
+template <int DP, class W>
+__device__ __forceinline__ void tb_stage(W* dst, const W* src, size_t head,
+                                         size_t rs, int t0, int T, int D) {
+  using L = TiledBwd<DP, W>;
+  constexpr int CPR = DP / L::EPC;
+  for (int c = threadIdx.x; c < TB_ROWS * CPR; c += TB_THREADS) {
+    const int r = c / CPR, col = c % CPR * L::EPC, t = t0 + r;
+    const bool ok = t < T && col < D;
+    cp_async16z(dst + r * L::LD + col,
+                ok ? src + head + (size_t)t * rs + col : src, ok ? 16 : 0);
+  }
+}
+
+// x = big + small for 3xTF32 (as csrc/decode_embed_bwd.cu splits it: big
+// is x cut to TF32, small the exact rest).  EXACT: x is a widened bfloat16,
+// exact in TF32 (small is 0 and never used).
+template <bool EXACT>
+__device__ __forceinline__ void tf32_parts(float x, uint32_t& big,
+                                           uint32_t& small) {
+  if (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    big = __float_as_uint(x) & 0xffffe000u;
+    small = __float_as_uint(x - __uint_as_float(big));
+  }
+}
+
+// d += a * b on the tensor cores (m16n8k8, TF32 in, float32 sums; ZERO:
+// d = a * b).
+template <bool ZERO>
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if (ZERO)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
+  else
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment (m16n8k8 TF32: register c holds row gq + 8 (c & 1), column tq
+// + 4 (c >> 1)) split into its TF32 parts.
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// d (+)= a * b in 3xTF32, a_small b_big + a_big b_small + a_big b_big,
+// without the terms whose small part is zero by construction (AX, BX: the
+// operand is a widened bfloat16).  ZERO: the first term run starts d.  The
+// float32 instantiation on widened bfloat16 inputs runs the same terms
+// plus exact zeros, so the two give the same sums.
+template <bool AX, bool BX, bool ZERO>
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  if constexpr (!AX) mma_tf32<ZERO>(d, a.small, b.big[0], b.big[1]);
+  if constexpr (!BX) mma_tf32<ZERO && AX>(d, a.big, b.small[0], b.small[1]);
+  mma_tf32<ZERO && AX && BX>(d, a.big, b.big[0], b.big[1]);
+}
+
+// The A fragment at (m0, k0) of a row-major tile (row stride ld) of T_
+// (float, or bfloat16 widened); TRANS: of the transposed tile (entry (m, k)
+// at s[k * ld + m]).
+template <bool EXACT, bool TRANS, class T_>
+__device__ __forceinline__ void frag_a(FragA& f, const T_* s, int ld, int m0,
+                                       int k0, int gq, int tq) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int m = m0 + gq + (c & 1) * 8, k = k0 + tq + (c >> 1) * 4;
+    tf32_parts<EXACT>(to_f(TRANS ? s[k * ld + m] : s[m * ld + k]), f.big[c],
+                      f.small[c]);
+  }
+}
+
+// The B fragment (register c: row tq + 4 c, column gq) at (k0, n0) of a
+// [K][N] tile (row stride ld); NK: of an [N][K] one.
+template <bool EXACT, bool NK, class T_>
+__device__ __forceinline__ void frag_b(FragB& f, const T_* s, int ld, int k0,
+                                       int n0, int gq, int tq) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int k = k0 + tq + c * 4, n = n0 + gq;
+    tf32_parts<EXACT>(to_f(NK ? s[n * ld + k] : s[k * ld + n]), f.big[c],
+                      f.small[c]);
+  }
+}
+
+// The tiled backward of one (b, h) a block: delta, dQ, dK and dV in one
+// launch, for T > FT_TMAX or D > FC_DP (the long captions of
+// --max-seq-len past 61: config4's [64, 129, 8, 32] generator and [64 or
+// 256, 128, 8, 16] discriminator, config5's [64, 129, 12, 64]).
+//   * delta_i = dO_i . out_i first, from the stored (rounded) out, one warp
+//     a row (fixed shuffle tree), into ws.
+//   * Key tiles j in order, each with its K and V tile staged once; for
+//     each, the query tiles i that can see it (from j on when causal;
+//     none past the key length), Q_i and dO_i double-buffered by 16-byte
+//     cp.async (the next tile lands while this one is multiplied).
+//   * A step: S = Q K^T and dP = dO V^T (each warp 16 x 16 of the 32 x 32
+//     tile), then P = exp(S / sqrt(D) - lse) where valid and dS = P (dP -
+//     delta), into shared P and dS tiles (float32, never rounded); then dV
+//     += P^T dO and dK += dS^T Q (a warp's 16 keys x half of D, summed in
+//     registers over the key tile's steps) and dQ_i += dS K (its 16 queries
+//     x half of D, summed into ws: an entry is always summed by the same
+//     thread, in key-tile order).
+//   * Every product on the tensor cores (mma.sync m16n8k8): 3xTF32 where
+//     an operand is float32 (P and dS, and every operand of the float32
+//     instantiation), one TF32 term where both are widened bfloat16; each
+//     product of K <= 32 into a fresh accumulator, added to its running sum
+//     with a float32 add.
+//   * dK and dV of a key tile leave when its last step ends, dQ when every
+//     key tile has; key rows past the length get zeros.  No atomics, no
+//     sum across blocks: two calls give the same bits.
+template <int DP, class W>
+__global__ void __launch_bounds__(TB_THREADS) flash_bwd_tiled_kernel(
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const W* __restrict__ out,
+    const W* __restrict__ dout, const float* __restrict__ lse,
+    const int* __restrict__ lengths, W* __restrict__ dq,
+    W* __restrict__ dk, W* __restrict__ dv, float* __restrict__ ws_global,
+    int T, int H, int D, int causal, float scale) {
+  using L = TiledBwd<DP, W>;
+  constexpr bool X = gic::is_bf16<W>;   // staged operands exact in TF32
+  constexpr int KC = DP < 32 ? DP : 32;  // D per fresh accumulator
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  W* const qs = reinterpret_cast<W*>(tb_smem);   // [2][TILE]
+  W* const os = qs + 2 * L::TILE;                 // dO [2][TILE]
+  W* const ks = os + 2 * L::TILE;
+  W* const vs = ks + L::TILE;
+  float* const ps = reinterpret_cast<float*>(vs + L::TILE);
+  float* const ss = ps + TB_ROWS * TB_PLD;        // dS
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int nq = (T + TB_ROWS - 1) / TB_ROWS, rows = nq * TB_ROWS;
+  float* const wsq =
+      ws_global != nullptr ? ws_global + (size_t)bh * tb_ws_floats(T, DP)
+                           : ss + TB_ROWS * TB_PLD;
+  float* const delta = wsq + (size_t)rows * L::WLD;
+  const size_t rs = (size_t)H * D, head = ((size_t)b * T * H + h) * D;
+  const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
+  const int nkv = (len + TB_ROWS - 1) / TB_ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = (warp >> 1) * 16;        // the warp's 16 rows of a tile
+  const int wc = (warp & 1) * 16;         // its 16 keys of S and dP
+  const int wd = (warp & 1) * (DP / 2);   // its half of D
+
+  // the first tiles start landing while delta is summed
+  auto first_i = [&](int j) { return causal ? j : 0; };
+  if (nkv > 0) {
+    tb_stage<DP>(ks, k, head, rs, 0, T, D);
+    tb_stage<DP>(vs, v, head, rs, 0, T, D);
+    tb_stage<DP>(qs, q, head, rs, first_i(0) * TB_ROWS, T, D);
+    tb_stage<DP>(os, dout, head, rs, first_i(0) * TB_ROWS, T, D);
+  }
+  for (int i = tid; i < rows * L::WLD; i += TB_THREADS) wsq[i] = 0.f;
+  for (int r = warp; r < rows; r += TB_THREADS / 32) {
+    float acc = 0.f;
+    if (r < T)
+      for (int d = lane; d < D; d += 32)
+        acc = fmaf(to_f(dout[head + (size_t)r * rs + d]),
+                   to_f(out[head + (size_t)r * rs + d]), acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) delta[r] = acc;
+  }
+
+  float dka[L::NJ][4], dva[L::NJ][4];
+#pragma unroll
+  for (int n = 0; n < L::NJ; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[n][c] = dva[n][c] = 0.f;
+
+  int buf = 0;
+  for (int j = 0; j < nkv; ++j) {
+    const int k0 = j * TB_ROWS;
+    for (int i = first_i(j); i < nq; ++i) {
+      cp_async_wait_all();
+      __syncthreads();  // this step's tiles landed; the last step is done
+      if (i + 1 < nq) {
+        tb_stage<DP>(qs + (buf ^ 1) * L::TILE, q, head, rs,
+                     (i + 1) * TB_ROWS, T, D);
+        tb_stage<DP>(os + (buf ^ 1) * L::TILE, dout, head, rs,
+                     (i + 1) * TB_ROWS, T, D);
+      }
+      const W* const qt = qs + buf * L::TILE;
+      const W* const ot = os + buf * L::TILE;
+      const int q0 = i * TB_ROWS;
+
+      // S and dP: the warp's rows wr.., keys wc.. (two n8 tiles)
+      float sa[2][4], pa[2][4];
+#pragma unroll
+      for (int dc = 0; dc < DP; dc += KC) {
+        float sp[2][4], pp[2][4];
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 8) {
+          FragA aq, ao;
+          frag_a<X, false>(aq, qt, L::LD, wr, dc + kk, gq, tq);
+          frag_a<X, false>(ao, ot, L::LD, wr, dc + kk, gq, tq);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            FragB bk, bv;
+            frag_b<X, true>(bk, ks, L::LD, dc + kk, wc + n * 8, gq, tq);
+            frag_b<X, true>(bv, vs, L::LD, dc + kk, wc + n * 8, gq, tq);
+            if (kk == 0) {
+              mma3<X, X, true>(sp[n], aq, bk);
+              mma3<X, X, true>(pp[n], ao, bv);
+            } else {
+              mma3<X, X, false>(sp[n], aq, bk);
+              mma3<X, X, false>(pp[n], ao, bv);
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            sa[n][c] = dc == 0 ? sp[n][c] : sa[n][c] + sp[n][c];
+            pa[n][c] = dc == 0 ? pp[n][c] : pa[n][c] + pp[n][c];
+          }
+      }
+      // P and dS (masked before the exponential: a row of no valid key
+      // has lse about -1e30)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rl = wr + gq + hh * 8, qi = q0 + rl;
+        const float l_q = qi < T ? lse[((size_t)b * T + qi) * H + h] : 0.f;
+        const float d_q = delta[qi];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cl = wc + n * 8 + tq * 2 + e, key = k0 + cl;
+            const bool valid = qi < T && key < len && (!causal || key <= qi);
+            const float p =
+                valid ? ex2((sa[n][2 * hh + e] * scale - l_q) * LOG2E)
+                      : 0.f;
+            ps[rl * TB_PLD + cl] = p;
+            ss[rl * TB_PLD + cl] = p * (pa[n][2 * hh + e] - d_q);
+          }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q: keys wr.. of the key tile, D
+      // columns wd.. (A: P and dS read transposed; B: dO and Q [q][d])
+      FragA ap[TB_ROWS / 8], as_[TB_ROWS / 8];
+#pragma unroll
+      for (int kk = 0; kk < TB_ROWS; kk += 8) {
+        frag_a<false, true>(ap[kk / 8], ps, TB_PLD, wr, kk, gq, tq);
+        frag_a<false, true>(as_[kk / 8], ss, TB_PLD, wr, kk, gq, tq);
+      }
+#pragma unroll
+      for (int n = 0; n < L::NJ; ++n) {
+        float vp[4], kp[4];
+#pragma unroll
+        for (int kk = 0; kk < TB_ROWS; kk += 8) {
+          FragB bo, bq;
+          frag_b<X, false>(bo, ot, L::LD, kk, wd + n * 8, gq, tq);
+          frag_b<X, false>(bq, qt, L::LD, kk, wd + n * 8, gq, tq);
+          if (kk == 0) {
+            mma3<false, X, true>(vp, ap[0], bo);
+            mma3<false, X, true>(kp, as_[0], bq);
+          } else {
+            mma3<false, X, false>(vp, ap[kk / 8], bo);
+            mma3<false, X, false>(kp, as_[kk / 8], bq);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          dva[n][c] += vp[c];
+          dka[n][c] += kp[c];
+        }
+      }
+      // dQ_i += dS K: queries wr.. of the query tile, D columns wd..
+      FragA ad[TB_ROWS / 8];
+#pragma unroll
+      for (int kk = 0; kk < TB_ROWS; kk += 8)
+        frag_a<false, false>(ad[kk / 8], ss, TB_PLD, wr, kk, gq, tq);
+#pragma unroll
+      for (int n = 0; n < L::NJ; ++n) {
+        float qp[4];
+#pragma unroll
+        for (int kk = 0; kk < TB_ROWS; kk += 8) {
+          FragB bk;
+          frag_b<X, false>(bk, ks, L::LD, kk, wd + n * 8, gq, tq);
+          if (kk == 0)
+            mma3<false, X, true>(qp, ad[0], bk);
+          else
+            mma3<false, X, false>(qp, ad[kk / 8], bk);
+        }
+        float* const row = wsq + (size_t)(q0 + wr + gq) * L::WLD + wd +
+                           n * 8 + tq * 2;
+        row[0] += qp[0];
+        row[1] += qp[1];
+        row[8 * L::WLD] += qp[2];
+        row[8 * L::WLD + 1] += qp[3];
+      }
+      buf ^= 1;
+    }
+
+    // dK and dV of key tile j
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + wr + gq + hh * 8;
+#pragma unroll
+      for (int n = 0; n < L::NJ; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = wd + n * 8 + tq * 2 + e;
+          if (key < T && col < D) {
+            store_as(dk, head + (size_t)key * rs + col,
+                     dka[n][2 * hh + e] * scale);
+            store_as(dv, head + (size_t)key * rs + col, dva[n][2 * hh + e]);
+          }
+          dka[n][2 * hh + e] = dva[n][2 * hh + e] = 0.f;
+        }
+    }
+    if (j + 1 < nkv) {
+      __syncthreads();  // every warp is done with this key tile
+      tb_stage<DP>(ks, k, head, rs, (j + 1) * TB_ROWS, T, D);
+      tb_stage<DP>(vs, v, head, rs, (j + 1) * TB_ROWS, T, D);
+      tb_stage<DP>(qs + buf * L::TILE, q, head, rs,
+                   first_i(j + 1) * TB_ROWS, T, D);
+      tb_stage<DP>(os + buf * L::TILE, dout, head, rs,
+                   first_i(j + 1) * TB_ROWS, T, D);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every dQ sum is in
+
+  // key rows of no step (past the length) get zeros; dQ leaves scaled
+  constexpr int C4 = DP / 4;
+  for (int i = tid; i < T * C4; i += TB_THREADS) {
+    const int r = i / C4, c = i % C4 * 4;
+    if (c >= D) continue;
+    const size_t at = head + (size_t)r * rs + c;
+    const float* a = wsq + (size_t)r * L::WLD + c;
+    st4w(dq + at, make_float4(a[0] * scale, a[1] * scale, a[2] * scale,
+                              a[3] * scale));
+    if (r >= nkv * TB_ROWS) {
+      st4w(dk + at, make_float4(0.f, 0.f, 0.f, 0.f));
+      st4w(dv + at, make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  }
+}
+
 int threads_per_row(int D) {
   int t = 1;
   while (t * DS < D) t <<= 1;
@@ -1274,11 +1549,37 @@ bool fused_plan_ok(bool bwd, int T, int H, int D, int G, int threads,
          smem >= fused_smem(bwd, T, D, G) && smem <= CARD_SMEM;
 }
 
+// The tiled backward's head dim: the power of two >= D, at least 16.
+int tiled_dp(int D) {
+  int dp = 16;
+  while (dp < D) dp <<= 1;
+  return dp;
+}
+
+// The shared memory a tiled backward block uses (TiledBwd's layout): the
+// staged tiles, P and dS, and, where ws_shared, one (b, h)'s ws.
+size_t tiled_smem(bool bf16, int T, int dp, bool ws_shared) {
+  const size_t esz = bf16 ? 2 : 4, ld = dp + 16 / esz;
+  return 6 * TB_ROWS * ld * esz + 2 * TB_ROWS * TB_PLD * 4 +
+         (ws_shared ? 4 * tb_ws_floats(T, dp) : 0);
+}
+
+// A tiled backward launch as the wrapper planned it (flash_bwd_plan):
+// refused unless it is TB_THREADS threads of the kernel for D's head dim
+// and its bytes cover the layout (ws in shared memory where no scratch is
+// given) within what a block may use.
+bool tiled_plan_ok(bool bf16, int T, int D, int dp, int threads, int smem,
+                   bool ws_shared) {
+  return dp == tiled_dp(D) && dp <= 256 && threads == TB_THREADS &&
+         (size_t)smem >= tiled_smem(bf16, T, dp, ws_shared) &&
+         smem <= CARD_SMEM;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// One launch of a fused kernel; dynamic shared memory above 48 KB must be
+// One launch of a planned kernel; dynamic shared memory above 48 KB must be
 // allowed per kernel first.
 template <class... P, class... A>
 cudaError_t launch_fused(void (*kernel)(P...), int blocks, int threads,
@@ -1323,8 +1624,9 @@ template <class W>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* out, const void* dout, const float* lse,
                        const int* lengths, void* dq, void* dk, void* dv,
-                       int B, int T, int H, int D, int causal, float scale,
-                       int G, int threads, int smem, cudaStream_t st) {
+                       float* scratch, int B, int T, int H, int D,
+                       int causal, float scale, int G, int dp, int threads,
+                       int smem, cudaStream_t st) {
   const W* qw = static_cast<const W*>(q);
   const W* kw = static_cast<const W*>(k);
   const W* vw = static_cast<const W*>(v);
@@ -1333,6 +1635,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   W* dqw = static_cast<W*>(dq);
   W* dkw = static_cast<W*>(dk);
   W* dvw = static_cast<W*>(dv);
+  if (G == 0) {  // the tiled backward, one (b, h) a block
+    switch (dp) {
+      case 16:
+        return launch_fused(flash_bwd_tiled_kernel<16, W>, B * H, threads,
+                            smem, st, qw, kw, vw, ow, gw, lse, lengths, dqw,
+                            dkw, dvw, scratch, T, H, D, causal, scale);
+      case 32:
+        return launch_fused(flash_bwd_tiled_kernel<32, W>, B * H, threads,
+                            smem, st, qw, kw, vw, ow, gw, lse, lengths, dqw,
+                            dkw, dvw, scratch, T, H, D, causal, scale);
+      case 64:
+        return launch_fused(flash_bwd_tiled_kernel<64, W>, B * H, threads,
+                            smem, st, qw, kw, vw, ow, gw, lse, lengths, dqw,
+                            dkw, dvw, scratch, T, H, D, causal, scale);
+      case 128:
+        return launch_fused(flash_bwd_tiled_kernel<128, W>, B * H, threads,
+                            smem, st, qw, kw, vw, ow, gw, lse, lengths, dqw,
+                            dkw, dvw, scratch, T, H, D, causal, scale);
+      default:
+        return launch_fused(flash_bwd_tiled_kernel<256, W>, B * H, threads,
+                            smem, st, qw, kw, vw, ow, gw, lse, lengths, dqw,
+                            dkw, dvw, scratch, T, H, D, causal, scale);
+    }
+  }
   const int blocks = B * ((H + G - 1) / G);
   return D <= 16   ? launch_fused(flash_bwd_fused_kernel<16, W>, blocks,
                                   threads, smem, st, qw, kw, vw, ow, gw, lse,
@@ -1383,77 +1709,38 @@ int gic_flash_fwd(const void* q, const void* k, const void* v,
                                    causal, scale, G, threads, smem, st);
 }
 
-// dout [B, T, H, D] in the inputs' type; lse, delta [B, T, H] float32 ->
-// dq [B, T, H, D] in the inputs' type.
-int gic_flash_dq(const void* q, const void* k, const void* v,
-                 const void* dout, const float* lse, const float* delta,
-                 const int* lengths, void* dq, int B, int T, int H, int D,
-                 int causal, float scale, int bf16_, void* stream) {
-  if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
-  const dim3 grid = grid_of(B, T, H, D);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16_)
-    flash_dq_kernel<bf16><<<grid, NT, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, lengths, static_cast<bf16*>(dq), T, H, D, threads_per_row(D),
-        causal, scale);
-  else
-    flash_dq_kernel<float><<<grid, NT, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, lengths, static_cast<float*>(dq), T, H, D, threads_per_row(D),
-        causal, scale);
-  return cudaGetLastError();
-}
-
-// -> dk, dv [B, T, H, D] in the inputs' type.
-int gic_flash_dkv(const void* q, const void* k, const void* v,
-                  const void* dout, const float* lse, const float* delta,
-                  const int* lengths, void* dk, void* dv, int B, int T,
-                  int H, int D, int causal, float scale, int bf16_,
-                  void* stream) {
-  if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
-  const dim3 grid = grid_of(B, T, H, D);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16_)
-    flash_dkv_kernel<bf16><<<grid, NT, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, lengths, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H,
-        D, threads_per_row(D), causal, scale);
-  else
-    flash_dkv_kernel<float><<<grid, NT, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, lengths, static_cast<float*>(dk), static_cast<float*>(dv), T,
-        H, D, threads_per_row(D), causal, scale);
-  return cudaGetLastError();
-}
-
-// The fused backward (T <= FT_TMAX, D <= FC_DP): out, dout [B, T, H, D]
-// and lse [B, T, H] as the forward wrote it -> dq, dk, dv [B, T, H, D],
-// delta included, in one launch, in the inputs' type, on the wrapper's
-// plan (G, threads, smem).  A plan that fused_plan_ok refuses, another
-// shape, or a pointer of the eight tensors that is not 16-byte aligned
-// gives cudaErrorInvalidValue and launches nothing.
+// The backward: out, dout [B, T, H, D] and lse [B, T, H] as the forward
+// wrote them -> dq, dk, dv [B, T, H, D], delta included, in one launch, in
+// the inputs' type, on the wrapper's plan (flash_bwd_plan): the fused
+// kernel where G >= 1 (G heads a block, `threads`, `smem`; T <= FT_TMAX,
+// D <= FC_DP), the tiled one where G is 0 (one (b, h) a block, TB_THREADS
+// threads, head dim dp; its dQ sums and delta in shared memory, or in
+// `scratch`, B * H * tb_ws_floats(T, dp) floats, where that is not null).
+// A plan that fused_plan_ok / tiled_plan_ok refuses, another shape, or a
+// pointer of the eight tensors that is not 16-byte aligned gives
+// cudaErrorInvalidValue and launches nothing.
 int gic_flash_bwd(const void* q, const void* k, const void* v,
                   const void* out, const void* dout, const float* lse,
-                  const int* lengths, void* dq, void* dk, void* dv, int B,
-                  int T, int H, int D, int causal, float scale, int G,
-                  int threads, int smem, int bf16_, void* stream) {
-  if (bad_shape(B, T, H, D) || !fused_plan_ok(true, T, H, D, G, threads, smem))
+                  const int* lengths, void* dq, void* dk, void* dv,
+                  float* scratch, int B, int T, int H, int D, int causal,
+                  float scale, int G, int dp, int threads, int smem,
+                  int bf16_, void* stream) {
+  if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
+  if (G == 0 ? !tiled_plan_ok(bf16_ != 0, T, D, dp, threads, smem,
+                              scratch == nullptr)
+             : dp != (D <= 16 ? 16 : D <= FT_DMAX ? FT_DMAX : FC_DP) ||
+                   !fused_plan_ok(true, T, H, D, G, threads, smem))
     return cudaErrorInvalidValue;
   const void* const ptrs[] = {q, k, v, out, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (!aligned16(p)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16_ ? launch_bwd<bf16>(q, k, v, out, dout, lse, lengths, dq, dk,
-                                  dv, B, T, H, D, causal, scale, G, threads,
-                                  smem, st)
+                                  dv, scratch, B, T, H, D, causal, scale, G,
+                                  dp, threads, smem, st)
                : launch_bwd<float>(q, k, v, out, dout, lse, lengths, dq, dk,
-                                   dv, B, T, H, D, causal, scale, G, threads,
-                                   smem, st);
+                                   dv, scratch, B, T, H, D, causal, scale, G,
+                                   dp, threads, smem, st);
 }
 
 }  // extern "C"

@@ -779,22 +779,29 @@ def _bwd_library() -> ctypes.CDLL:
 # (DL_BM), whose column sums the bfloat16 backward keeps for dbp.
 EB_SE_TILE, EB_HTOP_TILE, EB_MAX_SPLIT = (128, 64, 32), (128, 128, 64), 32
 EB_DL_ROWS = 64
+# The bfloat16 backward's tiles of the same two products, both on wgmma
+# with K tiles of 64 (WG_BK there): se in 128 x 64 blocks, two an SM;
+# d_htop in 128 x 256 blocks, one an SM.  Its splits stay within one wave
+# of blocks: a split more only adds partial sums to write and reduce.
+EB_BF16_TILES = {"se": ((128, 64, 64), 2), "d_htop": ((128, 256, 64), 1)}
 
 
 def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _split_k(tiles: int, K: int, bk: int, n_sm: int):
+def _split_k(tiles: int, K: int, bk: int, slots: int,
+             max_split: int = EB_MAX_SPLIT):
     """``(splits, chunk)``: K cut into chunks of whole K tiles of ``bk`` so
-    that the blocks (``tiles`` per split, one per SM at a time) take the
-    fewest waves × K tiles per block; the fewest splits among equals."""
+    that the blocks (``tiles`` per split, ``slots`` at a time on the card)
+    take the fewest waves × K tiles per block; the fewest splits among
+    equals."""
     k_tiles = -(-K // bk)
     best = None
-    for s in range(1, min(k_tiles, EB_MAX_SPLIT) + 1):
+    for s in range(1, min(k_tiles, max_split) + 1):
         chunk = -(-k_tiles // s)
         s = -(-k_tiles // chunk)
-        cost = -(-tiles * s // n_sm) * chunk
+        cost = -(-tiles * s // slots) * chunk
         if best is None or cost < best[0]:
             best = (cost, s, chunk * bk)
     return best[1], best[2]
@@ -810,24 +817,31 @@ def embed_bwd_plan(R: int, H: int, V: int, Ed: int, n_sm: int,
     se partials and, when split, the d_htop partials; ``bf16``: the
     bfloat16 d_logits, inner, the se partials, the column sums of each
     ``EB_DL_ROWS`` rows and the d_htop partials, split or not; each from a
-    multiple of 4 floats); the launches of one call; ``ints``, what the C
-    call takes.  Cached per shape: callers must not change the dict."""
+    multiple of 4 floats); the launches of one call (float32: five, six
+    where d_htop is split; bfloat16: six, dbp summed in the dWp launch);
+    ``ints``, what the C call takes.  Cached per shape: callers must not
+    change the dict."""
     for name, v in (("R", R), ("H", H), ("V", V), ("Ed", Ed),
                     ("n_sm", n_sm)):
         if v < 1:
             raise ValueError(f"embed_bwd_plan: {name} = {v} must be "
                              "positive")
     plan = {}
-    for name, N, (bm, bn, bk) in (("se", Ed, EB_SE_TILE),
-                                  ("d_htop", H, EB_HTOP_TILE)):
+    for name, N in (("se", Ed), ("d_htop", H)):
+        (bm, bn, bk), per_sm = (EB_BF16_TILES[name] if bf16 else
+                                ({"se": EB_SE_TILE,
+                                  "d_htop": EB_HTOP_TILE}[name], 1))
         tiles = -(-R // bm) * -(-N // bn)
-        splits, chunk = _split_k(tiles, V, bk, n_sm)
+        slots = n_sm * per_sm
+        splits, chunk = _split_k(tiles, V, bk, slots,
+                                 max(1, min(EB_MAX_SPLIT, slots // tiles))
+                                 if bf16 else EB_MAX_SPLIT)
         plan[name] = {"tiles": tiles, "splits": splits, "chunk": chunk}
     s0, s3 = plan["se"]["splits"], plan["d_htop"]["splits"]
     if bf16:
         scratch = (_pad4(-(-R * V // 2)) + _pad4(R) + _pad4(s0 * R * Ed)
                    + _pad4(-(-R // EB_DL_ROWS) * V) + s3 * R * H)
-        launches = 7
+        launches = 6
     else:
         scratch = (_pad4(R * V) + _pad4(R) + _pad4(s0 * R * Ed)
                    + (s3 * R * H if s3 > 1 else 0))
@@ -858,9 +872,10 @@ def decode_sample_embed_bwd(h_top_tm, soft_tm, d_emb_tm, w_proj, disc_embed,
     bfloat16 (the bfloat16 instantiation, the TPU kernel under ``dt =
     bfloat16``: dWp and dbp float32, d_htop bfloat16).  On CUDA tensors
     ``csrc/decode_embed_bwd.cu`` (one C call: tensor-core products over all
-    T·B rows at once, 3xTF32 on float32 operands, bfloat16 ``mma.sync`` on
-    bfloat16 ones, sized by :func:`embed_bwd_plan`, each sum in a fixed
-    order); on CPU tensors :func:`decode_sample_embed_bwd_plain`."""
+    T·B rows at once, 3xTF32 on float32 operands, bfloat16 ``mma.sync`` fed
+    by ``ldmatrix`` from a cp.async ring on bfloat16 ones, sized by
+    :func:`embed_bwd_plan`, each sum in a fixed order); on CPU tensors
+    :func:`decode_sample_embed_bwd_plain`."""
     fn = "decode_sample_embed_bwd"
     if h_top_tm.ndim != 3 or d_emb_tm.ndim != 3 or disc_embed.ndim != 2:
         raise ValueError(f"{fn}: expected h_top [T, B, H], d_emb [T, B, Ed] "

@@ -12,12 +12,12 @@ with or without per-sequence key lengths — and its gradient, without a
   whose backward is :func:`flash_bwd`.  The forward is one launch of one
   of two kernels, which :func:`flash_fwd_plan` picks from the shape alone:
   the fused one, whole heads of q, k and v in shared memory (T ≤ 64 and
-  D ≤ 64: every call the system makes), or the tiled one;
-  ``flash_fwd.last_kernel`` says which it launched.  The backward at those
-  shapes is one launch of the fused backward (delta, dQ, dK and dV of whole
-  heads, planned by :func:`flash_bwd_plan`); at other shapes it is
-  ``delta = Σ dO∘O`` as one PyTorch reduction, as the JAX package leaves
-  it to XLA, then the tiled dQ and dK/dV kernels;
+  D ≤ 64: every call at the default ``--max-seq-len``), or the tiled one;
+  ``flash_fwd.last_kernel`` says which it launched.  The backward is one
+  launch too, delta included, planned by :func:`flash_bwd_plan`: at those
+  shapes the fused backward (dQ, dK and dV of whole heads), at any other
+  (the long captions of ``--max-seq-len`` past 61, or D > 64) the tiled
+  one (one (b, h) a block walking key tiles, tensor-core products);
   ``flash_bwd.last_kernel`` says which.  A shape the
   kernels do not take (:func:`supported`), or a q, k, v, out or dO that is
   not 16-byte aligned (a view at an odd offset; PyTorch allocates on 256
@@ -36,9 +36,8 @@ before P·V), out, dq, dk and dv rounded once, lse and delta float32 and
 delta read from the stored, rounded out; the JAX kernels' arithmetic on
 bfloat16 inputs.
 
-``flash_fwd.launches``, ``flash_bwd.launches`` (the fused backward),
-``flash_dq.launches`` and ``flash_dkv.launches`` (the tiled pair) count
-the kernel launches, and ``.bf16_launches`` the bfloat16 ones among them.
+``flash_fwd.launches`` and ``flash_bwd.launches`` count the kernel
+launches, and ``.bf16_launches`` the bfloat16 ones among them.
 """
 
 from __future__ import annotations
@@ -169,12 +168,9 @@ def _library() -> ctypes.CDLL:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [f] + [i] * 4 + [
             vp]
-        lib.gic_flash_dq.argtypes = [vp] * 8 + [i] * 5 + [f, i, vp]
-        lib.gic_flash_dkv.argtypes = [vp] * 9 + [i] * 5 + [f, i, vp]
-        lib.gic_flash_bwd.argtypes = [vp] * 10 + [i] * 5 + [f] + [i] * 4 + [
+        lib.gic_flash_bwd.argtypes = [vp] * 11 + [i] * 5 + [f] + [i] * 5 + [
             vp]
-        for fn in (lib.gic_flash_fwd, lib.gic_flash_dq, lib.gic_flash_dkv,
-                   lib.gic_flash_bwd):
+        for fn in (lib.gic_flash_fwd, lib.gic_flash_bwd):
             fn.restype = i
         lib._gic_typed = True
     return lib
@@ -208,6 +204,12 @@ def _check(name, t, shape, device, dtype=None):
 # take half its columns and every key (the column-half kernels, dp = 64).
 # Rows are staged as float32 with FT_PAD floats after each.
 FT_TMAX, FT_DMAX, FC_DP, FT_PAD, SLICES = 64, 32, 64, 4, 2
+# The tiled backward (csrc/flash_attention.cu: flash_bwd_tiled_kernel, every
+# shape the fused kernels do not take): one (b, h) a block of TB_THREADS
+# threads, query and key tiles of TB_ROWS rows, P and dS rows of TB_PLD
+# floats; staged rows of dp + 4 floats (float32: the plan is sized for it,
+# bfloat16's rows of dp + 8 halves are smaller).
+TB_ROWS, TB_THREADS, TB_PLD = 32, 128, 36
 # most threads a block (each kernel's launch bounds) and the budget of
 # shared memory a block within which G doubles, by direction and design;
 # the column-half kernels' budgets give config5's [·, 37, 12, 64] two heads
@@ -216,7 +218,8 @@ FT_TMAX, FT_DMAX, FC_DP, FT_PAD, SLICES = 64, 32, 64, 4, 2
 BUDGETS = {("fwd", "keys"): (512, 48 * 1024),
            ("bwd", "keys"): (256, 96 * 1024),
            ("fwd", "columns"): (256, 80 * 1024),
-           ("bwd", "columns"): (256, 64 * 1024)}
+           ("bwd", "columns"): (256, 64 * 1024),
+           ("bwd", "tiled"): (TB_THREADS, 113 * 1024)}
 
 
 def _fused_head(kind: str, T: int, D: int) -> dict:
@@ -239,12 +242,33 @@ def _fused_head(kind: str, T: int, D: int) -> dict:
             "smem": 4 * T * (4 * (dp + FT_PAD) + 2 * ld)}
 
 
+def _tiled_bwd(T: int, D: int) -> dict:
+    """The tiled backward's plan: head dim ``dp`` (the power of two ≥ D,
+    at least 16), ``threads``, the dQ sums and delta of one (b, h)
+    (``ws_floats``: the rows padded to whole query tiles, rows of dp + 4
+    floats, then delta) in shared memory where the block then stays within
+    its budget (``ws`` = ``"shared"``), else in a scratch of ``ws_floats``
+    a (b, h) (``"global"``); ``smem`` bytes."""
+    dp = 16
+    while dp < D:
+        dp *= 2
+    rows = -(-T // TB_ROWS) * TB_ROWS
+    ws_floats = rows * (dp + 4) + rows
+    tiles = 6 * TB_ROWS * (dp + 4) * 4 + 2 * TB_ROWS * TB_PLD * 4
+    most, budget = BUDGETS[("bwd", "tiled")]
+    shared = tiles + 4 * ws_floats <= budget
+    return {"route": "tiled", "dp": dp, "threads": most,
+            "smem": tiles + (4 * ws_floats if shared else 0),
+            "ws": "shared" if shared else "global", "ws_floats": ws_floats,
+            "rows": TB_ROWS}
+
+
 def _plan(kind: str, T: int, H: int, D: int) -> dict:
     if T < 1 or H < 1 or D < 8 or not supported(T, D):
         raise ValueError(f"flash_{kind}_plan: unsupported shape T={T} "
                          f"H={H} D={D}")
     if T > FT_TMAX or D > FC_DP:
-        return {"route": "tiled"}
+        return _tiled_bwd(T, D) if kind == "bwd" else {"route": "tiled"}
     head = _fused_head(kind, T, D)
     most, budget = BUDGETS[(kind, head["split"])]
     g = 1
@@ -277,7 +301,9 @@ def flash_bwd_plan(T: int, H: int, D: int) -> dict:
     """The backward's route for ``[·, T, H, D]``, as
     :func:`flash_fwd_plan` plans the forward: ``"fused"`` (T ≤ 64 and D ≤
     64; the tiles are q, k, v and dO, then P and dS ``[G, T, ld]``, or at
-    D > 32 the (p, ds) pairs ``[G, T, ld]``) or ``"tiled"``."""
+    D > 32 the (p, ds) pairs ``[G, T, ld]``) or ``"tiled"`` (one (b, h) a
+    block; ``dp``, ``threads``, ``smem``, ``ws``, ``ws_floats`` and
+    ``rows`` as :func:`_tiled_bwd` gives them).  Either is one launch."""
     return _plan("bwd", T, H, D)
 
 
@@ -332,83 +358,40 @@ def flash_fwd(q, k, v, causal: bool, lengths=None):
     return out, lse
 
 
-def flash_dq(q, k, v, dout, lse, delta, causal: bool, lengths=None):
-    """The dQ kernel → ``dq [B, T, H, D]``."""
-    b, t, h, d, dtype = _validate(q, k, v, lengths)
-    device = q.device
-    _check("dout", dout, (b, t, h, d), device, dtype)
-    _check("lse", lse, (b, t, h), device)
-    _check("delta", delta, (b, t, h), device)
-    dq = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.gic_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              dout.data_ptr(), lse.data_ptr(),
-                              delta.data_ptr(), _ptr(lengths), dq.data_ptr(),
-                              b, t, h, d, int(causal), 1.0 / math.sqrt(d),
-                              int(dtype == torch.bfloat16), _stream(device))
-    build.raise_on_error(lib, rc, "flash_attention dQ")
-    _count(flash_dq, dtype)
-    return dq
-
-
-def flash_dkv(q, k, v, dout, lse, delta, causal: bool, lengths=None):
-    """The dK/dV kernel → ``(dk, dv)``, each ``[B, T, H, D]``."""
-    b, t, h, d, dtype = _validate(q, k, v, lengths)
-    device = q.device
-    _check("dout", dout, (b, t, h, d), device, dtype)
-    _check("lse", lse, (b, t, h), device)
-    _check("delta", delta, (b, t, h), device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _library()
-    with torch.cuda.device(device):
-        rc = lib.gic_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               dout.data_ptr(), lse.data_ptr(),
-                               delta.data_ptr(), _ptr(lengths),
-                               dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                               int(causal), 1.0 / math.sqrt(d),
-                               int(dtype == torch.bfloat16), _stream(device))
-    build.raise_on_error(lib, rc, "flash_attention dK/dV")
-    _count(flash_dkv, dtype)
-    return dk, dv
-
-
 def flash_bwd(q, k, v, out, dout, lse, causal: bool, lengths=None):
     """The backward → ``(dq, dk, dv)``, each ``[B, T, H, D]``, from the
-    forward's ``out`` and ``lse`` and the gradient ``dout``.  By
-    :func:`flash_bwd_plan`: one launch of the fused backward (delta
-    included), counted on ``flash_bwd.launches``; or the tiled route,
-    ``delta`` as one PyTorch reduction, then :func:`flash_dq` and
-    :func:`flash_dkv`.  ``flash_bwd.last_kernel`` names the route."""
+    forward's ``out`` and ``lse`` and the gradient ``dout``: one launch
+    (delta included) on :func:`flash_bwd_plan`'s route, the fused kernel
+    or the tiled one, counted on ``flash_bwd.launches``;
+    ``flash_bwd.last_kernel`` names the route."""
     b, t, h, d, dtype = _validate(q, k, v, lengths)
     device = q.device
     _check("out", out, (b, t, h, d), device, dtype)
     _check("dout", dout, (b, t, h, d), device, dtype)
     _check("lse", lse, (b, t, h), device)
-    plan = flash_bwd_plan(t, h, d)
-    if plan["route"] == "tiled":
-        # float32 from the stored out, as the JAX package's delta
-        delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
-        dq = flash_dq(q, k, v, dout, lse, delta, causal, lengths)
-        dk, dv = flash_dkv(q, k, v, dout, lse, delta, causal, lengths)
-        flash_bwd.last_kernel = "tiled"
-        return dq, dk, dv
     for name, x in (("out", out), ("dout", dout)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be 16-byte "
                              f"aligned")
+    plan = flash_bwd_plan(t, h, d)
+    fused = plan["route"] == "fused"
+    scratch = None
+    if not fused and plan["ws"] == "global":
+        scratch = torch.empty(b * h * plan["ws_floats"], dtype=torch.float32,
+                              device=device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _library()
     with torch.cuda.device(device):
         rc = lib.gic_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(), dout.data_ptr(),
                                lse.data_ptr(), _ptr(lengths), dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                               int(causal), 1.0 / math.sqrt(d),
-                               plan["heads"], plan["threads"], plan["smem"],
+                               dk.data_ptr(), dv.data_ptr(), _ptr(scratch),
+                               b, t, h, d, int(causal), 1.0 / math.sqrt(d),
+                               plan["heads"] if fused else 0, plan["dp"],
+                               plan["threads"], plan["smem"],
                                int(dtype == torch.bfloat16), _stream(device))
     build.raise_on_error(lib, rc, "flash_attention backward")
-    flash_bwd.last_kernel = "fused"
+    flash_bwd.last_kernel = plan["route"]
     _count(flash_bwd, dtype)
     return dq, dk, dv
 
@@ -455,6 +438,6 @@ def flash_attention(q, k, v, causal: bool, lengths=None):
                                  v.contiguous(), lens, bool(causal))
 
 
-for _fn in (flash_fwd, flash_bwd, flash_dq, flash_dkv):
+for _fn in (flash_fwd, flash_bwd):
     _fn.launches = _fn.bf16_launches = 0
 flash_fwd.last_kernel = flash_bwd.last_kernel = None

@@ -10,7 +10,8 @@ it runs, in turns (every variant, then again in reverse order):
   ``flash_fwd_plan`` / ``flash_bwd_plan`` with ``heads``, ``threads`` and
   ``smem`` for that G), each held against the plain version and checked
   bit-equal to the planned G's outputs;
-* the tiled route (the tiled forward; delta, dQ and dK/dV);
+* the tiled kernels (the tiled forward, and the tiled backward's one
+  launch) at the same shape;
 * ``scaled_dot_product_attention`` forward, and its backward alone.
 
 ``--set NAME=VALUE`` (repeatable) times a build of ``flash_attention.cu``
@@ -166,9 +167,8 @@ def time_shape(shape, device, sets):
                     return fa.flash_fwd(q, k, v, True, ln)
 
             def tiled_bwd():
-                delta = (g.float() * out.float()).sum(dim=-1)
-                fa.flash_dq(q, k, v, g, lse, delta, True, ln)
-                fa.flash_dkv(q, k, v, g, lse, delta, True, ln)
+                with planned("bwd", fa._tiled_bwd(t, d)):
+                    return fa.flash_bwd(q, k, v, out, g, lse, True, ln)
 
             fns.update(tiled_fwd=tiled_fwd, tiled_bwd=tiled_bwd)
             mask = torch.tril(torch.ones((1, 1, t, t), dtype=torch.bool,

@@ -515,16 +515,20 @@ def test_int8_dtype_reaches_the_service():
 
 
 def test_embed_bwd_plan_of_both_dtypes():
-    """The bfloat16 backward's plan: the same splits as float32, seven
-    launches, and a scratch of the bfloat16 d_logits, inner, the se
-    partials, the column sums of each 64-row tile and the d_htop partials
-    (split or not), each from a multiple of 4 floats."""
+    """The bfloat16 backward's plan: splits of its own tiles (se two
+    blocks an SM, d_htop's wgmma blocks of 128 x 256, each within one wave;
+    float32 keeps its own), six launches (dbp summed in the dWp launch), and a scratch of the
+    bfloat16 d_logits, inner, the se partials, the column sums of each
+    64-row tile and the d_htop partials (split or not), each from a
+    multiple of 4 floats."""
     R, H, Vv, Ed, n_sm = 36 * 64, 512, 11008, 64, 132
     f32 = tks.embed_bwd_plan(R, H, Vv, Ed, n_sm)
     bf = tks.embed_bwd_plan(R, H, Vv, Ed, n_sm, True)
-    assert (bf["se"], bf["d_htop"]) == (f32["se"], f32["d_htop"])
+    assert (f32["se"]["splits"], f32["d_htop"]["splits"]) == (22, 11)
+    assert (bf["se"]["splits"], bf["d_htop"]["splits"]) == (14, 3)
+    assert bf["d_htop"]["tiles"] == 18 * 2
     assert (f32["launches"], bf["launches"]) == (
-        5 + (f32["d_htop"]["splits"] > 1), 7)
+        5 + (f32["d_htop"]["splits"] > 1), 6)
 
     def pad4(n):
         return -(-n // 4) * 4

@@ -172,10 +172,16 @@ def test_sample_embed_bf16_matches_plain(device, B, V, E, H, nl, T, Ed):
 
 
 @pytest.mark.parametrize("T,B,H,V,Ed", [
-    (3, 5, 40, 300, 20), (2, 7, 130, 1001, 12), (36, 64, 512, 11008, 64)])
+    (3, 5, 40, 300, 20), (2, 7, 130, 1001, 12), (5, 13, 200, 1544, 72),
+    (36, 64, 512, 11008, 64)])
 def test_embed_bwd_bf16_matches_plain(device, T, B, H, V, Ed):
     """Aligned rows (16-byte tile loads) and unaligned ones (element
-    loads), and config3's [36 x 64 rows, V = 11008, H = 512, Ed = 64]."""
+    loads); 65 rows, H = 200, V = 1544 and Ed = 72 (aligned, but no
+    multiple of the products' 128-row, 128-column and 32-deep tiles: every
+    ragged edge); and config3's [36 x 64 rows, V = 11008, H = 512, Ed =
+    64].  One call counts one launch on the wrapper and runs the plan's
+    launches (the distinct kernels torch.profiler saw over three calls,
+    where it saw any: it drops events at a window's start)."""
     rng = np.random.default_rng(T * V)
     h_top = _t(rng, device, T, B, H, scale=0.5)
     soft = torch.softmax(_t(rng, device, T, B, V, scale=3.0, dtype=torch
@@ -195,6 +201,31 @@ def test_embed_bwd_bf16_matches_plain(device, T, B, H, V, Ed):
     # every sum in a fixed order: a second call gives the same bits
     again = ds.decode_sample_embed_bwd(*args)
     assert all(torch.equal(a, b) for a, b in zip((dwp, dbp, d_htop), again))
+    plan = ds.embed_bwd_plan(T * B, H, V, Ed, ds._sm_count(device), True)
+    assert plan["launches"] == 6
+    names = _kernel_names(lambda: ds.decode_sample_embed_bwd(*args), 3)
+    assert not names or len(names) == plan["launches"], names
+
+
+def _kernel_names(fn, calls):
+    """The distinct device kernels that ``calls`` calls of ``fn`` launch
+    (torch.profiler; profiled again once where it saw none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith(("Memset", "Memcpy"))}
+        if names:
+            break
+    return names
 
 
 def _grads(device, rng, B, R, T, banks):

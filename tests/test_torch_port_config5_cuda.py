@@ -61,7 +61,7 @@ def test_gpt2_head_dim_takes_the_tiled_route():
     for plan, heads in ((fa.flash_fwd_plan, 2), (fa.flash_bwd_plan, 1)):
         assert plan(t, h, d)["route"] == "fused"
         assert plan(t, h, d)["heads"] == heads
-        assert plan(65, h, d) == {"route": "tiled"}
+        assert plan(65, h, d)["route"] == "tiled"
     assert not fa.supported(SHAPE[1], 65)
 
 
@@ -77,16 +77,14 @@ def test_flash_at_gpt2_shape_matches_plain(device, dtype, with_lengths):
             1, t + 1, b).astype(np.int32))
         lens[0], lens[1] = 1, t
         lens = lens.to(device)
-    counts = (fa.flash_fwd.launches, fa.flash_dq.launches,
-              fa.flash_dkv.launches, fa.flash_bwd.launches)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd.launches)
     out, lse = fa.flash_fwd(q, k, v, True, lens)
     dq, dk, dv = fa.flash_bwd(q, k, v, out, g, lse, True, lens)
     torch.cuda.synchronize()
     assert fa.flash_fwd.last_kernel == "fused"
     assert fa.flash_bwd.last_kernel == "fused"
-    assert (fa.flash_fwd.launches - counts[0], fa.flash_dq.launches
-            - counts[1], fa.flash_dkv.launches - counts[2],
-            fa.flash_bwd.launches - counts[3]) == (1, 0, 0, 1)
+    assert (fa.flash_fwd.launches - counts[0],
+            fa.flash_bwd.launches - counts[1]) == (1, 1)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, True, lens)
     _close(out, p_out, dtype, "out")
     torch.testing.assert_close(lse, p_lse, atol=1e-5, rtol=1e-5)

@@ -4,10 +4,12 @@
 here on the CPU.
 
 The embed backward's plan splits the sums over V of two products (se and
-d_htop): every V index falls in exactly one split, each chunk whole K
-tiles, and the scratch holds what the C side lays out in it (the tiles'
-shared memory is checked where they are defined, by a static_assert in
-``csrc/decode_embed_bwd.cu``).  The conv forward's block map repeats the
+d_htop), in float32 by the float32 kernels' tiles and in bfloat16 by the
+bfloat16 ones': every V index falls in exactly one split, each chunk whole
+K tiles, the bfloat16 column sums cover every row once, and the scratch
+holds what the C side lays out in it (the tiles' shared memory is checked
+where they are defined, by static_asserts in ``csrc/decode_embed_bwd.cu``
+against the 227 KB a block may use).  The conv forward's block map repeats the
 kernel's index arithmetic (``csrc/disc_conv.cu:conv_fwd_kernel``: the bank
 from blockIdx.y and the banks' first tiles): every (column, filter) of
 every bank is owned by one thread; shared memory stays under an H100's
@@ -59,6 +61,61 @@ def test_embed_bwd_plan_covers_every_output_and_k_once(R, H, V, Ed):
     assert ds.embed_bwd_plan(R, H, V, Ed, N_SM) is plan     # cached
 
 
+@pytest.mark.parametrize("R,H,V,Ed", [
+    (36 * 64, 512, 11008, 64),     # config3
+    (15, 40, 300, 20),             # under one tile everywhere
+    (198, 70, 1300, 70),           # no dimension a multiple of a tile
+    (65, 200, 1544, 72),           # aligned rows, ragged tiles
+    (1, 1, 1, 1),
+    (36 * 64, 1024, 30000, 128),   # a wider model
+])
+def test_embed_bwd_bf16_plan_covers_every_output_and_k_once(R, H, V, Ed):
+    """The bfloat16 plan: the splits of its own tiles (se two blocks an
+    SM, d_htop's wgmma blocks of 128 x 256) cover V once in whole K tiles
+    of 64; six launches; the d_logits pass's column-sum tiles of
+    EB_DL_ROWS rows cover every row once (dbp sums them in order); the
+    scratch holds dl, inner, the se partials, the column sums and the
+    d_htop partials."""
+    plan = ds.embed_bwd_plan(R, H, V, Ed, N_SM, True)
+    (se_tile, se_per_sm), (ht_tile, ht_per_sm) = (
+        ds.EB_BF16_TILES["se"], ds.EB_BF16_TILES["d_htop"])
+    assert (se_per_sm, ht_per_sm) == (2, 1)
+    _check_split(plan["se"], R, Ed, V, se_tile)
+    _check_split(plan["d_htop"], R, H, V, ht_tile)
+    # one wave of blocks a product (or one split where the tiles exceed it)
+    for name, per_sm in (("se", se_per_sm), ("d_htop", ht_per_sm)):
+        p = plan[name]
+        assert p["splits"] == 1 or p["tiles"] * p["splits"] <= N_SM * per_sm
+    # the C side's K tiles of 32 (se's split check) and 64 (d_htop's)
+    assert plan["se"]["chunk"] % ds.EB_SE_TILE[2] == 0
+    assert plan["d_htop"]["chunk"] % ds.EB_HTOP_TILE[2] == 0
+    rows = np.zeros(R, dtype=np.int64)
+    for t in range(-(-R // ds.EB_DL_ROWS)):
+        rows[t * ds.EB_DL_ROWS:(t + 1) * ds.EB_DL_ROWS] += 1
+    assert (rows == 1).all()
+    s0, c0, s3, c3, scratch = plan["ints"]
+    pad = lambda n: -(-n // 4) * 4  # noqa: E731
+    assert scratch == plan["scratch_floats"] == (
+        pad(-(-R * V // 2)) + pad(R) + pad(s0 * R * Ed)
+        + pad(-(-R // ds.EB_DL_ROWS) * V) + s3 * R * H)
+    assert plan["launches"] == 6
+    assert ds.embed_bwd_plan(R, H, V, Ed, N_SM, True) is plan
+
+
+def test_embed_bwd_bf16_plan_at_config3():
+    """One wave of blocks each: se's 18 tiles split 14 ways (13 K tiles of
+    64 a chunk) on 264 slots (two blocks an SM), 252 blocks; d_htop's 18 x
+    2 wgmma tiles 3 ways (58 K tiles of 64), 108 blocks on 132 SMs."""
+    plan = ds.embed_bwd_plan(**CONFIG3, n_sm=N_SM, bf16=True)
+    se, d_htop = plan["se"], plan["d_htop"]
+    assert (se["tiles"], se["splits"], se["chunk"]) == (18, 14, 832)
+    assert (d_htop["tiles"], d_htop["splits"], d_htop["chunk"]) == (36, 3,
+                                                                    3712)
+    assert se["tiles"] * se["splits"] <= 2 * N_SM
+    assert d_htop["tiles"] * d_htop["splits"] <= N_SM
+    assert plan["ints"][:4] == (14, 832, 3, 3712)
+
+
 def test_embed_bwd_plan_at_config3():
     plan = ds.embed_bwd_plan(**CONFIG3, n_sm=N_SM)
     # d_htop's 18 x 4 tiles split 11 ways over V (16 K tiles of 64 a
@@ -86,11 +143,12 @@ def test_embed_bwd_split_is_no_worse_than_none(n_sm):
     assert 1 <= splits <= ds.EB_MAX_SPLIT
 
 
-def test_embed_bwd_plan_refuses_empty_shapes():
+@pytest.mark.parametrize("bf16", [False, True])
+def test_embed_bwd_plan_refuses_empty_shapes(bf16):
     with pytest.raises(ValueError):
-        ds.embed_bwd_plan(0, 512, 11008, 64, N_SM)
+        ds.embed_bwd_plan(0, 512, 11008, 64, N_SM, bf16)
     with pytest.raises(ValueError):
-        ds.embed_bwd_plan(2304, 512, 11008, 64, 0)
+        ds.embed_bwd_plan(2304, 512, 11008, 64, 0, bf16)
 
 
 def _conv_outputs(plan, Q):

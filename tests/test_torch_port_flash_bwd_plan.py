@@ -7,8 +7,11 @@ backward (``csrc/flash_attention.cu:flash_bwd_fused_kernel`` at D ≤ 32 and
 The plans: every (b, h, row) is owned by exactly one block and one thread
 slot in each phase, a block stays within 227 KB of shared memory and its
 kernel's launch bounds, the heads a block takes respect the budgets, shapes
-past T = 64 or D = 64 go to the tiled route, and a shape no kernel takes
-raises.
+past T = 64 or D = 64 go to the tiled route (``flash_bwd_tiled_kernel``:
+one (b, h) a block, within the card at any T, its walk over (key tile,
+query tile) steps covering every valid pair, row and K chunk once, and a
+float32 replay of that walk against the JAX gradients), and a shape no
+kernel takes raises.
 
 The replay runs the kernel's two phases in its block partition and its sum
 order, in float32.  At D ≤ 32 (key slices): phase 1 per (head, query row,
@@ -55,6 +58,10 @@ FUSED = [(64, 37, 8, 32), (64, 36, 8, 16), (256, 36, 8, 16), (4, 37, 8, 32),
          (1, 1, 3, 56), (2, 64, 1, 56), (1, 1, 12, 64), (2, 64, 12, 64)]
 TILED = [(2, 200, 2, 24), (1, 70, 1, 256), (2, 65, 2, 8), (2, 16, 2, 72),
          (2, 65, 2, 64), (1, 1, 1, 72)]
+# the long captions of --max-seq-len 126: config4's generator,
+# discriminator and rollouts, config5's generator
+LONG = [(64, 129, 8, 32), (64, 128, 8, 16), (256, 128, 8, 16),
+        (64, 129, 12, 64)]
 PLANS = {"fwd": tfa.flash_fwd_plan, "bwd": tfa.flash_bwd_plan}
 
 
@@ -192,10 +199,152 @@ def test_pair_writes_of_a_warp_fall_in_distinct_banks(T):
             assert len(np.unique((rows * ld + j) % 32)) == 16
 
 
-@pytest.mark.parametrize("B,T,H,D", TILED)
+@pytest.mark.parametrize("B,T,H,D", TILED + LONG)
 def test_shapes_past_the_fused_kernel_go_tiled(B, T, H, D):
-    assert tfa.flash_bwd_plan(T, H, D) == {"route": "tiled"}
+    """Past T = 64 or D = 64 both directions take the tiled route; the
+    backward's plan is one launch of TB_THREADS threads a (b, h) within
+    the card, its dQ sums and delta in shared memory exactly where the
+    block then stays within its budget."""
     assert tfa.flash_fwd_plan(T, H, D) == {"route": "tiled"}
+    plan = tfa.flash_bwd_plan(T, H, D)
+    _tiled_within_the_card(plan, T, D)
+
+
+def _tiled_within_the_card(plan, T, D):
+    assert plan["route"] == "tiled" and plan["rows"] == tfa.TB_ROWS
+    dp = plan["dp"]
+    assert dp >= max(D, 16) and dp & (dp - 1) == 0 and dp < 2 * max(D, 16)
+    most, budget = tfa.BUDGETS[("bwd", "tiled")]
+    assert plan["threads"] == most == 128 <= THREADS_MAX
+    rows = -(-T // tfa.TB_ROWS) * tfa.TB_ROWS
+    assert plan["ws_floats"] == rows * (dp + 4) + rows
+    # float32 staging (bfloat16's is smaller): q and dO twice, k, v; P, dS
+    tiles = 6 * tfa.TB_ROWS * (dp + 4) * 4 + 2 * tfa.TB_ROWS * tfa.TB_PLD * 4
+    shared = tiles + 4 * plan["ws_floats"] <= budget
+    assert plan["ws"] == ("shared" if shared else "global")
+    assert plan["smem"] == tiles + (4 * plan["ws_floats"] if shared else 0)
+    assert plan["smem"] <= SMEM_MAX
+
+
+@pytest.mark.parametrize("T", [65, 128, 129, 200, 513, 1024, 4096])
+@pytest.mark.parametrize("D", [8, 16, 24, 32, 64, 72, 128, 256])
+def test_tiled_plan_fits_the_card_at_any_length(T, D):
+    _tiled_within_the_card(tfa.flash_bwd_plan(T, 8, D), T, D)
+
+
+def _tiled_walk(T, length, causal):
+    """The tiled kernel's steps for one (b, h), as it walks them: key tiles
+    j below the length in order, for each the query tiles i from j
+    (causal) or 0 to the last → ``[(j, i), ...]``."""
+    nq = -(-T // tfa.TB_ROWS)
+    nkv = -(-length // tfa.TB_ROWS)
+    return [(j, i) for j in range(nkv) for i in range(j if causal else 0,
+                                                      nq)]
+
+
+@pytest.mark.parametrize("B,T,H,D", TILED + LONG)
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_tiled_walk_covers_every_pair_row_and_chunk_once(B, T, H, D,
+                                                         causal,
+                                                         with_lengths):
+    """Every valid (query, key) pair falls in exactly one step; every key
+    row's dK and dV are written once (from its key tile's registers, or as
+    zeros past the length), every query row's dQ once; each product's K
+    (D in chunks of at most 32, or 32 queries or keys) is covered once."""
+    n = tfa.TB_ROWS
+    dp = tfa.flash_bwd_plan(T, H, D)["dp"]
+    for length in ([0, 1, T // 2 + 1, T] if with_lengths else [T]):
+        steps = _tiled_walk(T, length, causal)
+        assert len(set(steps)) == len(steps)
+        seen = np.zeros((T, T), np.int64)
+        for j, i in steps:
+            qi = np.arange(i * n, min(i * n + n, T))[:, None]
+            kj = np.arange(j * n, min(j * n + n, T))[None, :]
+            ok = (kj < length) & ((kj <= qi) if causal
+                                  else np.ones_like(qi, bool))
+            np.add.at(seen, (np.broadcast_to(qi, ok.shape)[ok],
+                             np.broadcast_to(kj, ok.shape)[ok]), 1)
+        i_, j_ = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+        valid = (j_ < length) & ((j_ <= i_) if causal else True)
+        assert (seen[valid] == 1).all() and (seen[~valid] == 0).all()
+        nkv = -(-length // n)
+        written = np.zeros(T, np.int64)
+        for j in range(nkv):                         # the register stores
+            written[j * n:min(j * n + n, T)] += 1
+        written[nkv * n:] += 1                       # the zero fill
+        assert (written == 1).all()
+    kc = min(dp, 32)
+    chunks = [(dc + kk, dc + kk + 8) for dc in range(0, dp, kc)
+              for kk in range(0, kc, 8)]
+    assert [c for c in chunks] == [(x, x + 8) for x in range(0, dp, 8)]
+    assert D <= dp
+
+
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_tiled_replay_matches_jax_gradients(causal, with_lengths):
+    """The tiled kernel's walk replayed in float32 (delta from the stored
+    out; per step S and dP, P masked before the exponential, dS; dV and dK
+    summed per key tile, each step's dQ added into its rows in key-tile
+    order) against the JAX package's gradients at T = 70 (three query
+    tiles, the last of 6 rows) and D = 24 (a 32-column head dim)."""
+    B, T, H, D = 2, 70, 2, 24
+    assert tfa.flash_bwd_plan(T, H, D)["route"] == "tiled"
+    rng = np.random.default_rng(170)
+    q, k, v, g = (rng.standard_normal((B, T, H, D)).astype(F32)
+                  for _ in range(4))
+    lens = (np.array([0, 37], np.int32) if with_lengths else None)
+    out, lse = _forward(q, k, v, lens, causal)
+    got = _tiled_replay(q, k, v, out, g, lse, lens, causal)
+    jl = None if lens is None else jnp.asarray(lens)
+    want = jax.jit(jax.grad(
+        lambda a, b_, c: jnp.sum(jfa.flash_attention(a, b_, c, causal, jl)
+                                 * g), (0, 1, 2)))(q, k, v)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, np.asarray(b_), err_msg=name, **GRAD)
+    if with_lengths:
+        for a in got:
+            assert (a[0] == 0).all()
+
+
+def _tiled_replay(q, k, v, out, dout, lse, lengths, causal):
+    B, T, H, D = q.shape
+    n, scale = tfa.TB_ROWS, F32(1.0 / math.sqrt(D))
+    dq, dk, dv = (np.zeros_like(q) for _ in range(3))
+    for b in range(B):
+        length = T if lengths is None else min(max(int(lengths[b]), 0), T)
+        for h in range(H):
+            delta = np.einsum("td,td->t", dout[b, :, h], out[b, :, h],
+                              dtype=F32)
+            acc_q = np.zeros((T, D), F32)
+            last_j = None
+            dka = dva = None
+            for j, i in _tiled_walk(T, length, causal):
+                if j != last_j:
+                    if last_j is not None:
+                        ks = slice(last_j * n, min(last_j * n + n, T))
+                        dk[b, ks, h], dv[b, ks, h] = dka * scale, dva
+                    dka = np.zeros((min(j * n + n, T) - j * n, D), F32)
+                    dva = np.zeros_like(dka)
+                    last_j = j
+                qs = slice(i * n, min(i * n + n, T))
+                ks = slice(j * n, min(j * n + n, T))
+                qi = np.arange(qs.start, qs.stop)[:, None]
+                kj = np.arange(ks.start, ks.stop)[None, :]
+                ok = (kj < length) & ((kj <= qi) if causal else True)
+                s = (q[b, qs, h] @ k[b, ks, h].T).astype(F32)
+                dp = (dout[b, qs, h] @ v[b, ks, h].T).astype(F32)
+                p = np.where(ok, np.exp(np.where(ok, s * scale - lse[
+                    b, qs, h][:, None], 0.0)), 0.0).astype(F32)
+                ds = (p * (dp - delta[qs][:, None])).astype(F32)
+                dva += (p.T @ dout[b, qs, h]).astype(F32)
+                dka += (ds.T @ q[b, qs, h]).astype(F32)
+                acc_q[qs] += (ds @ k[b, ks, h]).astype(F32)
+            if last_j is not None:
+                ks = slice(last_j * n, min(last_j * n + n, T))
+                dk[b, ks, h], dv[b, ks, h] = dka * scale, dva
+            dq[b, :, h] = acc_q * scale
+    return dq, dk, dv
 
 
 @pytest.mark.parametrize("T,H,D", [(0, 2, 8), (4, 0, 8), (4, 2, 12),

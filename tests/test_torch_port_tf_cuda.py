@@ -1,6 +1,6 @@
 """The flash-attention kernels (the fused forward and backward, key slices
-up to D = 32 and column halves up to 64; the tiled forward, dQ and dK/dV
-past their shapes) and the fused Gumbel sampler against their
+up to D = 32 and column halves up to 64; the tiled forward and backward
+past their shapes: the long captions of ``--max-seq-len 126``) and the fused Gumbel sampler against their
 plain versions on the card, and the transformer GAN's steps through them.  Every test skips without CUDA.  This file
 imports torch and the port only, so it runs on a machine without JAX:
 
@@ -28,11 +28,18 @@ from gan_image_captioning_tpu_torch.train import steps as tsteps
 from gan_image_captioning_tpu_torch.train.state import create_train_state
 
 OUT_ATOL, GRAD_RTOL, SOFT_ATOL, TIE_GAP = 2e-6, 1e-5, 1e-6, 1e-5
+# the long captions of --max-seq-len 126 (seq_len 128, the tiled kernels):
+# config4's generator, discriminator and rollouts, config5's generator;
+# in SHAPES at B = 4, as the config4 shapes there, and at full B in
+# test_flash_bwd_at_long_captions_matches_plain
+LONG_SHAPES = [(64, 129, 8, 32), (64, 128, 8, 16), (256, 128, 8, 16),
+               (64, 129, 12, 64)]
 # (B, T, H, D): the generator's and the discriminator's shapes, ragged
 # lengths, a head dim whose row needs a non-power-of-two thread count, the
 # largest head dim
 SHAPES = [(4, 37, 8, 32), (4, 36, 8, 16), (2, 35, 2, 8), (2, 200, 2, 24),
-          (1, 70, 1, 256)]
+          (1, 70, 1, 256), (4, 129, 8, 32), (4, 128, 8, 16),
+          (4, 129, 12, 64)]
 # config4's discriminator over the rollouts and over a batch, at full B
 CONFIG4_SHAPES = [(256, 36, 8, 16), (64, 36, 8, 16)]
 # the column-half kernels (32 < D <= 64) at T = 1, 37 and 64, GPT-2's
@@ -93,19 +100,19 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
     q, k, v = _qkv(shape, sum(shape), device)
     lens = (_lengths(shape[0], shape[1], causal, 3, device) if with_lengths
             else None)
-    kernels = (fa.flash_fwd, fa.flash_bwd, fa.flash_dq, fa.flash_dkv)
+    kernels = (fa.flash_fwd, fa.flash_bwd)
     counts = [f.launches for f in kernels]
     out = fa.flash_attention(q, k, v, causal, lens)
     g = torch.randn(out.shape, device=device,
                     generator=torch.Generator(device=device).manual_seed(1))
     grads = torch.autograd.grad(out, (q, k, v), g)
     torch.cuda.synchronize()
-    # where T <= 64 and D <= 64 one launch of the fused backward, else the
-    # tiled dQ and dK/dV, as the plan says from the shape alone
+    # one launch of the backward: where T <= 64 and D <= 64 the fused
+    # kernel, else the tiled one, as the plan says from the shape alone
     fused = _fused(shape)
-    assert [f.launches - c for f, c in zip(kernels, counts)] == (
-        [1, 1, 0, 0] if fused else [1, 0, 1, 1])
+    assert [f.launches - c for f, c in zip(kernels, counts)] == [1, 1]
     assert fa.flash_bwd.last_kernel == ("fused" if fused else "tiled")
+    assert fa.flash_bwd.last_kernel == fa.flash_bwd_plan(*shape[1:])["route"]
     ref = fa.attention_plain(q, k, v, causal, lens)
     ref_grads = torch.autograd.grad(ref, (q, k, v), g)
     torch.testing.assert_close(out, ref, atol=OUT_ATOL, rtol=0)
@@ -134,6 +141,36 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
            for _ in range(2)]
     for a, b, c in zip(grads, *bwd):
         assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES)
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_flash_bwd_at_long_captions_matches_plain(device, shape, causal,
+                                                  with_lengths):
+    """The tiled backward at the long captions' full batch: one launch,
+    no PyTorch delta (the kernel's own out and lse in, its gradients
+    within GRAD_RTOL of the plain version's autograd on the same inputs),
+    and a second call bit-equal.  The forward at these shapes is held in
+    test_flash_matches_plain at B = 4 and by chip_smoke.py's tf_kernels at
+    full B."""
+    q, k, v = (x.detach() for x in _qkv(shape, sum(shape) + 1, device))
+    lens = (_lengths(shape[0], shape[1], causal, 3, device) if with_lengths
+            else None)
+    g = torch.randn(shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(4))
+    out, lse = fa.flash_fwd(q, k, v, causal, lens)
+    before = fa.flash_bwd.launches
+    grads = fa.flash_bwd(q, k, v, out, g, lse, causal, lens)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd.launches - before == 1
+    assert fa.flash_bwd.last_kernel == "tiled"
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = torch.autograd.grad(fa.attention_plain(*qkv, causal, lens), qkv, g)
+    for name, a, b in zip("qkv", grads, ref):
+        err = float((a - b).abs().max())
+        assert err <= GRAD_RTOL * float(b.abs().max()), f"d{name}: {err}"
+    again = fa.flash_bwd(q, k, v, out, g, lse, causal, lens)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[3]]
@@ -225,6 +262,28 @@ def test_flash_bwd_refuses_unaligned_and_a_foreign_plan(device, monkeypatch,
                             lambda t_, h_, d_, bad=bad: {**plan, **bad})
         with pytest.raises(RuntimeError):
             fa.flash_bwd(q, k, v, out, out, lse, False)
+    assert fa.flash_bwd.launches == before
+
+
+@pytest.mark.parametrize("shape", [(2, 129, 8, 32), (1, 70, 1, 256)])
+def test_flash_tiled_bwd_refuses_a_foreign_plan(device, monkeypatch, shape):
+    """The tiled backward's plan is checked as the fused one's: a byte of
+    shared memory short, other threads or another head dim is refused and
+    launches nothing; its dQ sums in shared memory (config4's generator)
+    or in scratch (D = 256) as the plan says."""
+    t, h, d = shape[1:]
+    q, k, v = (x.detach() for x in _qkv(shape, 8, device))
+    out, lse = fa.flash_fwd(q, k, v, True)
+    plan = fa.flash_bwd_plan(t, h, d)
+    assert plan["route"] == "tiled"
+    assert plan["ws"] == ("shared" if d <= 64 else "global")
+    before = fa.flash_bwd.launches
+    for bad in ({"smem": plan["smem"] - 1}, {"threads": 256},
+                {"dp": 2 * plan["dp"]}, {"smem": 228 * 1024}):
+        monkeypatch.setattr(fa, "flash_bwd_plan",
+                            lambda t_, h_, d_, bad=bad: {**plan, **bad})
+        with pytest.raises(RuntimeError):
+            fa.flash_bwd(q, k, v, out, out, lse, True)
     assert fa.flash_bwd.launches == before
 
 
@@ -414,14 +473,21 @@ KW = dict(vocab_size=64, gen_arch="transformer", disc_arch="transformer",
 
 def _counts():
     return {"fwd": fa.flash_fwd.launches, "bwd": fa.flash_bwd.launches,
-            "dq": fa.flash_dq.launches, "dkv": fa.flash_dkv.launches,
             "gumbel": gs.gumbel_sample.launches}
 
 
+@pytest.mark.parametrize("max_seq_len", [6, 126])
 @pytest.mark.parametrize("objective", ["reinforce", "gumbel"])
 def test_steps_launch_the_kernels_and_match_the_plain_route(device,
-                                                             objective):
-    config = Config(**KW).replace(adv_objective=objective)
+                                                             objective,
+                                                             max_seq_len):
+    """At the default caption length every attention takes the fused
+    kernels; at --max-seq-len 126 (T + 1 = 129 generator positions, 128
+    discriminator ones) every backward takes the tiled kernel, one launch
+    a layer as before (no PyTorch delta)."""
+    config = Config(**KW).replace(adv_objective=objective,
+                                  max_seq_len=max_seq_len,
+                                  rollout_stride=max(3, max_seq_len // 2))
     B, T = 4, config.seq_len
     rng = np.random.default_rng(0)
     caps = [rng.integers(4, 64, size=rng.integers(1, 6)) for _ in range(B)]
@@ -449,14 +515,21 @@ def test_steps_launch_the_kernels_and_match_the_plain_route(device,
                   for k in plain[side])
         assert err <= 1e-4 * scale, (side, err, scale)
     nl = config.disc_num_layers
+    want_route = "fused" if T <= 64 else "tiled"
+    for t_, h_, e_ in ((T, config.disc_num_heads, config.disc_hidden_dim),
+                       (T + 1, config.gen_num_heads, config.gen_hidden_dim)):
+        assert fa.flash_bwd_plan(t_, h_, e_ // h_)["route"] == want_route
     if objective == "reinforce":
         # sample T Gumbel launches; flash forward: 2 training disc passes,
-        # 2 rollout prefixes + the full score, the greedy baseline, the
-        # log-prob pass; backward (one fused launch a layer, no tiled dQ or
-        # dK/dV): the 2 training passes and the log-prob
+        # the rollout prefixes + the full score, the greedy baseline, the
+        # log-prob pass; backward (one launch a layer): the 2 training
+        # passes and the log-prob
         gl = config.gen_num_layers
-        assert launched == {"gumbel": T, "fwd": nl * (2 + 2 + 1 + 1) + gl,
-                            "bwd": 2 * nl + gl, "dq": 0, "dkv": 0}
+        prefixes = len(range(config.rollout_stride, T,
+                             config.rollout_stride))
+        assert launched == {"gumbel": T,
+                            "fwd": nl * (2 + prefixes + 1 + 1) + gl,
+                            "bwd": 2 * nl + gl}
     else:
-        assert launched == {"gumbel": T, "fwd": 3 * nl, "bwd": 3 * nl,
-                            "dq": 0, "dkv": 0}
+        assert launched == {"gumbel": T, "fwd": 3 * nl, "bwd": 3 * nl}
+        assert fa.flash_bwd.last_kernel == want_route
