@@ -757,10 +757,10 @@ def phase_persistent(device):
     plan = ds.persistent_plan(B_TRAIN, E, H, V, NL, n_sm, optin)
     launches = {}
     for mode, fn in calls.items():
-        prof = profile_calls(fn, 1, names)
-        launches[mode] = prof.get("launches_per_call", {})
         want = {"decode_persistent_kernel": 1,
                 **({"embed_kernel": 1} if mode == "sample_embed" else {})}
+        prof = profile_calls(fn, 1, names, want)
+        launches[mode] = prof.get("launches_per_call", {})
         got = {k: launches[mode].get(k, 0) for k in DECODE_KERNEL_NAMES}
         check(got == {**{k: 0 for k in DECODE_KERNEL_NAMES}, **want}
               and not other_kernels(launches[mode], names),
@@ -792,7 +792,7 @@ def phase_persistent(device):
     rplan = lstm_bptt.reverse_plan(B_TRAIN, H, n_sm, optin)
     check(rplan["resident"], f"reverse: w_hh rows not resident {rplan}")
     prof = profile_calls(lambda: lstm_bptt.lstm_bptt_reverse(*rargs), 1,
-                         names)
+                         names, {"reverse_persistent_kernel": 1})
     rl = prof.get("launches_per_call", {})
     rshare = block0_share(lstm_bptt.set_phase_profile,
                           lstm_bptt.PROFILE_SLOTS,
@@ -853,7 +853,7 @@ def persistent_chain(dec, device, n_sm, optin, f64, w):
             seeded((T, B_TRAIN, H), 65, device), gates, cs)
     name = "chain_persistent_kernel"
     launches = profile_calls(lambda: lstm_bptt.lstm_bptt_chain(*args), 1,
-                             (name,)).get("launches_per_call", {})
+                             (name,), {name: 1}).get("launches_per_call", {})
     check(launches.get(name, 0) == 1 and not other_kernels(launches, (name,)),
           f"chain: kernel launches per call {launches}")
     row = {"kernel": name, "grid": plan["blocks"],
@@ -923,8 +923,9 @@ def persistent_qserve(dec, device, n_sm, optin, f8, f64):
                      st[2], q, K_CHUNK, st, bits)}
         launches, share = {}, {}
         for mode, fn in calls.items():
-            launches[mode] = profile_calls(fn, 1, DECODE_KERNEL_NAMES).get(
-                "launches_per_call", {})
+            launches[mode] = profile_calls(
+                fn, 1, DECODE_KERNEL_NAMES,
+                {"decode_persistent_kernel": 1}).get("launches_per_call", {})
             check(launches[mode].get("decode_persistent_kernel", 0) == 1
                   and not other_kernels(launches[mode],
                                         ("decode_persistent_kernel",)),
@@ -1114,20 +1115,122 @@ DECODE_KERNEL_NAMES = ("decode_persistent_kernel", "embed_kernel")
 SERVE_KERNEL_NAMES = DECODE_KERNEL_NAMES
 
 
-def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES):
-    """Device time by kernel (torch.profiler, CUPTI) over ``calls`` calls
-    of ``fn`` after one warm call, and the device's busy share of that
-    window's wall time.  Profiled again once where the profiler recorded
-    no device event at all (it has dropped a whole window's events in a
-    long process)."""
+# windows a profile is taken in, at most: torch.profiler has dropped whole
+# windows' events in a long process, two in a row once, and the first
+# events of a window (the persistent decode's memset and kernel, beside its
+# embed_kernel, kept) in every window, in one run.  It keeps a device event
+# only where the event's timestamp falls inside the window, and the
+# device's timestamps as it reports them drift off the host's clock over
+# the process: kernels have been placed before their own launch call, by
+# tens of milliseconds some minutes in.  So a window opens and closes on an
+# idle device for a settle time: PROFILE_SETTLE_S plus twice a marker
+# kernel's lead over its launch call, measured every PROFILE_RECHECK_S
+# seconds and where a window is first taken again; each window taken again
+# waits 4x longer.  PROFILE_WINDOWS counts the windows, those
+# taken again, the seconds they idled and the seconds they held open (the
+# profiler's start and stop and the measures included), and keeps each
+# measured offset; the script prints it at its end.
+PROFILE_TRIES = 4
+PROFILE_SETTLE_S = 0.02
+PROFILE_SETTLE_MAX_S = 5.0
+PROFILE_RECHECK_S = 15.0
+PROFILE_WINDOWS = {"windows": 0, "taken_again": 0, "settle_seconds": 0.0,
+                   "window_seconds": 0.0, "offsets": []}
+_PROFILE_CLOCK = {"at": None, "settle_s": PROFILE_SETTLE_S}
+
+
+def profile_clock_offset(settle_s):
+    """Seconds by which torch.profiler places one marker kernel (warmed
+    first) before its own launch call, in a window that idles ``settle_s``
+    at each edge; None where it dropped the marker's events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(settle_s)
+        x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(settle_s)
+    PROFILE_WINDOWS["window_seconds"] += time.perf_counter() - t0
+    evs = list(prof.profiler.kineto_results.events())
+    gpu = {e.correlation_id(): e for e in evs
+           if e.device_type() == DeviceType.CUDA}
+    launch = [e for e in evs if e.device_type() == DeviceType.CPU
+              and e.correlation_id() in gpu and "aunch" in e.name()]
+    if not launch:
+        return None
+    return (launch[0].start_ns()
+            - gpu[launch[0].correlation_id()].start_ns()) / 1e9
+
+
+def profile_settle_s(measure=False):
+    """The settle time of a profiler window: PROFILE_SETTLE_S plus twice
+    the marker's lead over its launch, measured again where ``measure`` or
+    the last measure is PROFILE_RECHECK_S old (in a window of
+    PROFILE_SETTLE_S, then 4x longer ones, up to PROFILE_SETTLE_MAX_S,
+    where it lost the marker).  A marker that starts after its launch call
+    adds nothing: it is the launch's own latency."""
+    now = time.perf_counter()
+    if (measure or _PROFILE_CLOCK["at"] is None
+            or now - _PROFILE_CLOCK["at"] > PROFILE_RECHECK_S):
+        wait = PROFILE_SETTLE_S
+        off = profile_clock_offset(wait)
+        while off is None and wait < PROFILE_SETTLE_MAX_S:
+            wait *= 4
+            off = profile_clock_offset(wait)
+        PROFILE_WINDOWS["offsets"].append(
+            None if off is None else round(off * 1e3, 3))
+        _PROFILE_CLOCK.update(at=time.perf_counter(), settle_s=(
+            wait if off is None else PROFILE_SETTLE_S + 2 * max(off, 0.0)))
+    return _PROFILE_CLOCK["settle_s"]
+
+
+@contextlib.contextmanager
+def settled_profile(cuda_only=False, retry=0):
+    """A torch.profiler window (CPU and CUDA activity, or CUDA alone) whose
+    body starts, on an idle device, a settle time after it opens
+    (``profile_settle_s``, measured again at the first ``retry`` and 4x
+    longer for each), and which closes as long after the body's last kernel: the
+    body's device events stay inside it under the measured clock offset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    settle_s = profile_settle_s(measure=retry == 1) * 4 ** retry
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]
+    PROFILE_WINDOWS["windows"] += 1
+    PROFILE_WINDOWS["taken_again"] += retry > 0
+    PROFILE_WINDOWS["settle_seconds"] += 2 * settle_s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        time.sleep(settle_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(settle_s)
+    PROFILE_WINDOWS["window_seconds"] += time.perf_counter() - t0
+
+
+def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES, want=None):
+    """Device time by kernel (torch.profiler, CUPTI) over ``calls`` calls
+    of ``fn`` after one warm call, and the device's busy share of that
+    window's wall time.  Profiled again, up to PROFILE_TRIES windows, each
+    settled longer, where the profiler recorded no device event at all, or
+    fewer launches per call of a kernel in ``want`` ({name: launches})
+    than it holds: a dropped event only lowers a count, so the caller's
+    check still sees a window with more launches, or a foreign kernel, as
+    it was recorded."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    out = None
+    for attempt in range(PROFILE_TRIES):
+        with settled_profile(retry=attempt) as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
@@ -1140,24 +1243,25 @@ def profile_calls(fn, calls, names=SERVE_KERNEL_NAMES):
             key = next((n for n in names if n in ev.key), ev.key[:40])
             us[key] = us.get(key, 0.0) + ev.self_device_time_total / calls
             count[key] = count.get(key, 0) + ev.count / calls
-        if us:
-            return {"device_us_per_call": us, "launches_per_call": count,
-                    "device_busy_share": sum(us.values()) * calls / wall_us,
-                    "wall_ms_per_call": wall_us / calls / 1e3}
-    return {"device_time": "not measured"}
+        if not us:
+            continue
+        out = {"device_us_per_call": us, "launches_per_call": count,
+               "device_busy_share": sum(us.values()) * calls / wall_us,
+               "wall_ms_per_call": wall_us / calls / 1e3}
+        if not any(count.get(k, 0) < n for k, n in (want or {}).items()):
+            return out
+    return out or {"device_time": "not measured"}
 
 
-def kernel_events(fn, calls):
+def kernel_events(fn, calls, retry=0):
     """The device's kernel launches (torch.profiler) of ``calls`` calls of
     ``fn`` after one warm call, in launch order: ``[(name, µs), ...]``
     (memsets and copies are not kernels)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with settled_profile(retry=retry) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -1170,21 +1274,28 @@ def kernel_events(fn, calls):
 
 def forward_kernels(fn):
     """The names of the flash forward kernels that one call of ``fn``
-    launches (torch.profiler; profiled again once where it saw none)."""
+    launches (torch.profiler; profiled again, up to PROFILE_TRIES windows,
+    each settled longer, where it saw none)."""
     names = []
-    for _ in range(2):
-        names = [n for n, _ in kernel_events(fn, 1) if "flash_fwd" in n]
+    for attempt in range(PROFILE_TRIES):
+        names = [n for n, _ in kernel_events(fn, 1, attempt)
+                 if "flash_fwd" in n]
         if names:
             break
     return names
 
 
-def kernel_split(fn, calls=5):
+def kernel_split(fn, calls=5, kinds=1):
     """The kernels that ``calls`` calls of ``fn`` launch, by name
-    (torch.profiler; profiled again once where it saw no kernel): events
-    seen and mean device µs an event (the profiler may drop events)."""
+    (torch.profiler; profiled again, up to PROFILE_TRIES windows, each
+    settled longer, where it saw fewer than ``kinds`` kernels by name):
+    events seen and mean device µs an event (the profiler may drop
+    events)."""
     us = {}
-    evs = kernel_events(fn, calls) or kernel_events(fn, calls)
+    for attempt in range(PROFILE_TRIES):
+        evs = kernel_events(fn, calls, attempt)
+        if len({n[:120] for n, _ in evs}) >= kinds:
+            break
     for n, t in evs:
         us.setdefault(n[:120], []).append(t)
     return {"calls_profiled": calls, "kernel_events": len(evs),
@@ -2228,7 +2339,6 @@ def phase_train_profile(device, setup, steps=2 * DISC_EVERY):
     their wall time; the card's clocks, power draw and temperature
     (``nvidia-smi``) just after."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from gan_image_captioning_tpu_torch.train.steps import make_adv_step
 
@@ -2237,8 +2347,7 @@ def phase_train_profile(device, setup, steps=2 * DISC_EVERY):
     step(state, batch, TEMP)
     torch.cuda.synchronize()
     updates = state.disc_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with settled_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(state, batch, TEMP)
@@ -2910,6 +3019,22 @@ def tiled_bwd_bound(b, t, h, d, pairs, bf16):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def tiled_fwd_bound(b, t, h, d, pairs, bf16):
+    """The tiled forward's bound (ms, what bounds it): its bytes (float32
+    or bfloat16 q, k, v and out; float32 lse) at 3.35 TB/s, or its
+    products at the card's rate for their operands: S (2 D a pair) at 989
+    TFLOP/s on bfloat16 operands, as 3xTF32 (three TF32 products at 495)
+    on float32 ones; P V (2 D a pair) has the float32 P as an operand: two
+    TF32 products on bfloat16 (V is exact in TF32), three on float32."""
+    esz = 2 if bf16 else 4
+    nbytes = 4 * esz * b * t * h * d + 4 * b * t * h
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = d * pairs * ((2 / BF16_FLOP_PER_S + 4 / TF32_FLOP_PER_S) if bf16
+                         else 12 / TF32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 SPIN_CYCLES = 100_000_000   # about 50 ms of one SM's clock
 
 
@@ -3002,7 +3127,8 @@ def phase_tf_kernels(device):
         np.int32)).to(device)
     hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
     # (flash_fwd_fused_kernel up to D = 32, flash_fwd_fused64_kernel past)
-    kernel_names = {"fused": "flash_fwd_fused", "tiled": "flash_fwd_kernel"}
+    kernel_names = {"fused": "flash_fwd_fused",
+                    "tiled": "flash_fwd_tiled_kernel"}
     cases = {"gen_mle": ((B_TRAIN, T + 1, TF_HEADS, hd), True, lens_gen,
                          "fused"),
              "gen_logprob": ((B_TRAIN, T + 1, TF_HEADS, hd), True, None,
@@ -3032,6 +3158,12 @@ def phase_tf_kernels(device):
         ref = fa.attention_plain(q, k, v, causal, lens)
         ref_grads = torch.autograd.grad(ref, (q, k, v), g)
         qd, kd, vd = (x.detach() for x in (q, k, v))
+        # the tiled forward's out is held to the dense answer in float64
+        # (at the long captions' full batch the float32 plain version is
+        # itself up to 2.1e-6 from it), the fused one's to the float32 one
+        ref_out = (fa.attention_plain(qd.double(), kd.double(), vd.double(),
+                                      causal, lens) if want == "tiled"
+                   else ref.detach())
         again = fa.flash_fwd(qd, kd, vd, causal, lens)
         # the kernel the C side launched, as it reports it and as the
         # profiler names it (the profiler drops every event at times in a
@@ -3045,12 +3177,14 @@ def phase_tf_kernels(device):
                "lengths": lens is not None, "launches": launches,
                "forward_kernel": ran, "profiler_forward_kernels": seen,
                "backward_kernel": bwd_ran,
-               "max_abs_out_diff": float((out - ref).detach().abs().max()),
+               "max_abs_out_diff": float((out.detach()
+                                          - ref_out).abs().max()),
                "out_finite": bool(torch.isfinite(out).all()),
                "forward_bit_equal_repeat": bool(torch.equal(again[0], out)),
                "backward_bit_equal_repeat": all(
                    torch.equal(a, b) and torch.equal(b, c)
                    for a, b, c in zip(grads, *bwd_again))}
+        del ref_out
         for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
             row[f"{n}_max_abs_diff"] = float((a - b).abs().max())
             row[f"{n}_rel"] = row[f"{n}_max_abs_diff"] / float(b.abs().max())
@@ -3142,7 +3276,10 @@ def phase_tf_kernels(device):
             t_row[n] = dict(zip(("bound_ms", "bound_by"), bound(nbytes,
                                                                flops)),
                             bytes=nbytes, flop=flops)
-        if want == "tiled":     # the tiled backward's products: TF32 terms
+        if want == "tiled":     # the tiled kernels' own products
+            t_row["flash_fwd"].update(zip(("bound_ms", "bound_by"),
+                                          tiled_fwd_bound(b_, t_, h_, d_,
+                                                          pairs, False)))
             t_row["flash_bwd"].update(zip(("bound_ms", "bound_by"),
                                           tiled_bwd_bound(b_, t_, h_, d_,
                                                           pairs, False)))
@@ -3179,8 +3316,27 @@ def phase_tf_kernels(device):
     for n, a, b in zip(("dq", "dk", "dv"), grads0, ref0g):
         zero[f"{n}_rel"] = float((a[1::2] - b[1::2]).abs().max()
                                  / b[1::2].abs().max())
+    # and the tiled forward's (the rollouts' long-caption shape)
+    shape_t = cases["long_rollout"][0]
+    qt0, kt0, vt0 = (seeded(shape_t, 68 + i, device) for i in range(3))
+    lens_t = torch.tensor([0, LONG_T] * (shape_t[0] // 2), dtype=torch.int32,
+                          device=device)
+    o_t, lse_t = fa.flash_fwd(qt0, kt0, vt0, False, lens_t)
+    ref_t = fa.attention_plain(qt0.double(), kt0.double(), vt0.double(),
+                               False, lens_t)   # float64, as above
+    zero.update(tiled_forward_kernel=fa.flash_fwd.last_kernel,
+                tiled_max_abs_out_empty=float(o_t[0::2].abs().max()),
+                tiled_max_lse_empty=float(lse_t[0::2].max()),
+                tiled_max_abs_out_diff=float((o_t[1::2]
+                                              - ref_t[1::2]).abs().max()))
+    del qt0, kt0, vt0, o_t, ref_t
     emit({"phase": "tf_kernels", "kernel": "flash", "case": "length_zero",
           **zero})
+    check(zero["tiled_forward_kernel"] == "tiled"
+          and zero["tiled_max_abs_out_empty"] == 0.0
+          and zero["tiled_max_lse_empty"] <= -1e29
+          and zero["tiled_max_abs_out_diff"] <= FLASH_OUT_ATOL,
+          f"flash length 0, tiled forward {zero}")
     check(zero["max_abs_out_empty"] == 0.0 and zero["max_lse_empty"] <= -1e29
           and zero["max_abs_out_diff"] <= FLASH_OUT_ATOL,
           f"flash length 0 {zero}")
@@ -3484,7 +3640,7 @@ def phase_tf_train(device):
         times[kind] = {"kernel_ms": [k_a, k_b], "plain_ms": [p_a, p_b]}
         emit({"phase": "tf_train", "timing": kind, "B": B_TRAIN,
               **times[kind]})
-    names = ("flash_fwd_fused_kernel", "flash_fwd_kernel",
+    names = ("flash_fwd_fused_kernel", "flash_fwd_tiled_kernel",
              "flash_bwd_fused_kernel", "flash_bwd_tiled_kernel",
              "gumbel_cluster_kernel", "gumbel_rows_kernel")
     prof = {"mle": profile_calls(lambda: mle(state, batch), 3, names),
@@ -6820,7 +6976,6 @@ def bf16_profile(config, state, batch, kind, steps):
     """Device time and launches by kernel (torch.profiler) and host ms per
     step of ``kind`` (``"mle"`` / ``"adv"``), over ``steps`` steps."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from gan_image_captioning_tpu_torch.train.steps import (make_adv_step,
                                                             make_mle_step)
@@ -6831,8 +6986,7 @@ def bf16_profile(config, state, batch, kind, steps):
     run()
     torch.cuda.synchronize()
     cnt = bf16_reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with settled_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
@@ -7094,7 +7248,10 @@ def tf_bf16_flash(device):
             t_row[kind] = dict(zip(("bound_ms", "bound_by"),
                                    bound(nbytes, flops)),
                                bytes=nbytes, flop=flops)
-        if not fused:           # the tiled backward's products: TF32 terms
+        if not fused:           # the tiled kernels' own products
+            t_row["fwd"].update(zip(("bound_ms", "bound_by"),
+                                    tiled_fwd_bound(b_, t_, h_, d_, pairs,
+                                                    True)))
             t_row["bwd"].update(zip(("bound_ms", "bound_by"),
                                     tiled_bwd_bound(b_, t_, h_, d_, pairs,
                                                     True)))
@@ -7412,23 +7569,23 @@ def tf_bf16_profile(fn, calls):
     results: ``key_averages`` builds an event tree first, about 16 s for
     one REINFORCE step's 85 000 kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     cnt = tf_bf16_reset()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with settled_profile(cuda_only=True) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
-    us = n = seen = 0
+    us = n = seen = tiled = 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != DeviceType.CUDA:
             continue
         us += ev.duration_ns() / 1e3
         n += 1
         seen += "flash_fwd" in ev.name()
+        tiled += "flash_fwd_tiled_kernel" in ev.name()
     return {"host_ms_per_step": wall / calls,
             "device_ms_per_step": us / 1e3 / calls,
             "launches_per_step": n / calls, "busy_share": us / 1e3 / wall,
@@ -7438,6 +7595,7 @@ def tf_bf16_profile(fn, calls):
                 k: f.bf16_launches / calls for k, f in cnt.items()},
             "profiler_saw_every_flash_forward":
                 seen == cnt["flash_fwd"].launches,
+            "profiler_tiled_forwards_per_step": tiled / calls,
             "seconds": {"window": wall / 1e3, "stop": t1 - t0 - wall / 1e3,
                         "read": time.perf_counter() - t1}}
 
@@ -7505,11 +7663,13 @@ def tf_bf16_long_steps(device):
                   "flash_fwd": TF_DISC_NL * (2 + prefixes + 1 + 1) + TF_NL,
                   "flash_bwd": 2 * TF_DISC_NL + TF_NL}}
     hd, dd = TF_D // TF_HEADS, TF_DISC_D // TF_DISC_HEADS
-    routes = {"generator": fa.flash_bwd_plan(LONG_T + 1, TF_HEADS,
-                                             hd)["route"],
-              "discriminator": fa.flash_bwd_plan(LONG_T, TF_DISC_HEADS,
-                                                 dd)["route"]}
-    check(routes == {"generator": "tiled", "discriminator": "tiled"},
+    routes = {f"{part}_{kind}": plan(t, heads, d)["route"]
+              for part, t, heads, d in (
+                  ("generator", LONG_T + 1, TF_HEADS, hd),
+                  ("discriminator", LONG_T, TF_DISC_HEADS, dd))
+              for kind, plan in (("fwd", fa.flash_fwd_plan),
+                                 ("bwd", fa.flash_bwd_plan))}
+    check(set(routes.values()) == {"tiled"},
           f"tf_bf16 long captions: routes {routes}")
     mle, adv = make_mle_step(config), make_adv_step(config)
     out = {"max_seq_len": LONG_MAX_SEQ_LEN, "rollout_stride":
@@ -7530,6 +7690,13 @@ def tf_bf16_long_steps(device):
         check(out[kind]["wrapper_launches_per_step"]
               == {k: float(x) for k, x in per[kind].items()},
               f"tf_bf16 long {kind} profiled launches {out[kind]}")
+        # every forward there is the tiled kernel, where the profiler saw
+        # every one
+        check(not out[kind]["profiler_saw_every_flash_forward"]
+              or out[kind]["profiler_tiled_forwards_per_step"]
+              == per[kind]["flash_fwd"],
+              f"tf_bf16 long {kind}: forwards off the tiled kernel "
+              f"{out[kind]}")
     emit({"phase": "tf_bf16", "long_captions": out})
     return out
 
@@ -7608,6 +7775,54 @@ def tf_bf16_entries(smi, row):
                     "max_abs_err": err, **entry, "dtype": "bfloat16",
                     "card": smi})
     return out
+
+
+def tiled_fwd_entry(smi, tfk, tf_bf16_row):
+    """The tiled forward (``flash_fwd_tiled_kernel``, the long-caption
+    route of ``_fwd_kernel``, redesigned) on the ``kernels`` line: its
+    launches in the long-caption bfloat16 MLE and REINFORCE steps
+    (``tf_bf16``'s ``long_steps``, where every forward takes it), its time
+    beside its bound, the plain version and SDPA at config4's long
+    generator [64, 129, 8, 32] in float32 (``tf_kernels``), and every tiled
+    case of both dtypes under ``by_case``."""
+    long_steps = tf_bf16_row["long_steps"]
+    launches = sum(long_steps[k]["launches"]["flash_fwd"]
+                   for k in ("mle", "rl"))
+    tiled = {c: r for c, r in tfk["flash"].items()
+             if r["forward_kernel"] == "tiled"}
+    by_case = {}
+    for c in tiled:
+        x = tfk["times"][c]
+        by_case[c] = {"dtype": "float32", "shape": tiled[c]["shape"],
+                      "ms": min(x["kernel_ms"]["flash_fwd"]),
+                      "bound_ms": x["flash_fwd"]["bound_ms"],
+                      "bound_by": x["flash_fwd"]["bound_by"],
+                      "plain_ms": min(x["plain_fwd_ms"]),
+                      "library_ms": min(x["library_fwd_ms"])}
+    for c, x in tf_bf16_row["flash_times"].items():
+        r = tf_bf16_row["flash"][c]
+        if r["backward_kernel"] == "tiled":
+            by_case[f"{c}_bf16"] = {
+                "dtype": "bfloat16", "shape": r["shape"],
+                "ms": min(x["ms"]["kernel_fwd"]),
+                "bound_ms": x["fwd"]["bound_ms"],
+                "bound_by": x["fwd"]["bound_by"],
+                "plain_ms": min(x["ms"]["plain_fwd"]),
+                "library_ms": min(x["ms"]["library_fwd"])}
+    check(launches > 0, "flash_fwd_tiled_kernel never launched")
+    gen = by_case["long_gen"]
+    return {"name": "flash_fwd_tiled_kernel", "route": "cuda",
+            "source": "gan_image_captioning_tpu_torch/kernels/csrc/"
+                      "flash_attention.cu",
+            "replaces": TF_TPU_KERNELS["flash_fwd"], "launches": launches,
+            "max_abs_err": max(r["max_abs_out_diff"] for r in tiled.values()),
+            "ms": gen["ms"], "plain_ms": gen["plain_ms"],
+            "bound_ms": gen["bound_ms"], "bound_by": gen["bound_by"],
+            "library_ms": gen["library_ms"], "shape": gen["shape"],
+            "card": smi, "by_case": by_case,
+            "note": "the flash forward past T = 64 or D = 64; launches are "
+                    "the long-caption bfloat16 steps' (tf_bf16 long_steps); "
+                    "max_abs_err over the float32 tiled cases of tf_kernels"}
 
 
 # ------------------------------------------------------------ config5
@@ -7776,9 +7991,9 @@ def c5_flash(device):
 
             def tiled_fwd():    # the tiled forward at this shape
                 real = fa.flash_fwd_plan
-                fa.flash_fwd_plan = lambda t, h, d: {"route": "tiled"}
+                fa.flash_fwd_plan = lambda t, h, d: fa._tiled_fwd(t, d)
                 try:
-                    fa.flash_fwd(q, k, v, True, ln)
+                    return fa.flash_fwd(q, k, v, True, ln)
                 finally:
                     fa.flash_fwd_plan = real
 
@@ -7790,6 +8005,31 @@ def c5_flash(device):
                 finally:
                     fa.flash_bwd_plan = real
 
+            # the tiled forward checked as the fused one is
+            t_out, t_lse = tiled_fwd()
+            trow = {"forward_kernel": fa.flash_fwd.last_kernel,
+                    "lse_rel": float((t_lse - p_lse).abs().max())
+                    / float(p_lse.abs().max()),
+                    "bit_equal_repeat": all(torch.equal(a, b) for a, b in
+                                            zip(tiled_fwd(), (t_out, t_lse)))}
+            if dt == BF16:
+                trow["out_max_abs_diff"], trow["out_step_ratio"] = bf16_steps(
+                    t_out, p_out, f"config5 tiled forward {name}",
+                    floor=FLASH_GRAD_RTOL)
+            else:   # float64 reference, as tf_kernels holds it
+                trow["out_max_abs_diff"] = float((
+                    t_out - fa.attention_plain(q.double(), k.double(),
+                                               v.double(), True, ln)
+                ).abs().max())
+            emit({"phase": "config5", "kernel": "flash_tiled_fwd",
+                  "case": name, **trow})
+            check(trow["forward_kernel"] == "tiled" and trow[
+                "bit_equal_repeat"] and trow["lse_rel"] <= FLASH_GRAD_RTOL
+                  and (dt == BF16
+                       or trow["out_max_abs_diff"] <= FLASH_OUT_ATOL),
+                  f"config5 tiled forward {name} {trow}")
+            row["tiled_fwd"] = trow
+            del t_out, t_lse
             with torch.no_grad():
                 fns = {
                     "kernel_fwd": lambda: fa.flash_fwd(q, k, v, True, ln),
@@ -7813,6 +8053,10 @@ def c5_flash(device):
             pairs = attention_pairs(b_, t_, h_, True, ln)
             t_row = {"ms": ms, "library_max_abs_diff": lib_err,
                      "pairs": pairs}
+            for kind, fn in (("tiled_fwd", tiled_fwd_bound),
+                             ("tiled_bwd", tiled_bwd_bound)):
+                t_row[kind] = dict(zip(("bound_ms", "bound_by"),
+                                       fn(b_, t_, h_, d_, pairs, dt == BF16)))
             for kind in ("fwd", "bwd"):
                 if dt == BF16:
                     nbytes, flops = flash_bf16_work(kind, b_, t_, h_, d_,
@@ -7950,9 +8194,8 @@ def c5_profile(fn, calls):
     call, the device time of the ten longest kernels by name, the host ms
     per call."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with settled_profile(cuda_only=True) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -9160,7 +9403,8 @@ def rest_kernels(gen, device):
                                   for n, f in products.items()}
     # its launches, one by one (torch.profiler), against its plan's count
     plan = ds.embed_bwd_plan(T * B, H, V, DISC_E, ds._sm_count(device), True)
-    t["split"] = kernel_split(lambda: ds.decode_sample_embed_bwd(*bargs))
+    t["split"] = kernel_split(lambda: ds.decode_sample_embed_bwd(*bargs),
+                              kinds=plan["launches"])
     t["plan_launches"] = plan["launches"]
     # the profiler drops events at a window's edges and in a long
     # process: the kernels it saw, by name, are the plan's count
@@ -9838,6 +10082,7 @@ def main(argv=None):
         bf16_rest_row = phase_bf16_rest(gen, device, workdir)
     if run("extras"):
         phase_extras(gen, device, workdir)
+    emit({"phase": "profiler", **PROFILE_WINDOWS})
     if only:
         return 0
 
@@ -9868,6 +10113,7 @@ def main(argv=None):
         + mode_entries(smi, modes, impls)
         + bf16_entries(smi, bf16_row)
         + tf_bf16_entries(smi, tf_bf16_row)
+        + [tiled_fwd_entry(smi, tfk, tf_bf16_row)]
         + config5_entries(smi, config5_row)
         + bf16_rest_entries(smi, bf16_rest_row))
     # the evaluation path's launches (phase eval_decode, counts set to 0

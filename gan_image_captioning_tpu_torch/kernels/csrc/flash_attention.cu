@@ -83,8 +83,8 @@
 //   * 1 head a block: 0.0184 / 0.0067 / 0.0088; 2 heads on the two-group
 //     form: 0.0152 / 0.0064 / 0.0094.
 // A shape the fused kernels do not take (T > FT_TMAX or D > FC_DP) runs
-// the tiled forward (flash_fwd_kernel, the first port's design below); the
-// choice is made from the shape alone, never after a failure.  The fused
+// the tiled forward (flash_fwd_tiled_kernel, below); the choice is made
+// from the shape alone, never after a failure.  The fused
 // kernels' 16-byte copies need q, k, v and out 16-byte aligned: the
 // wrapper refuses other pointers.
 //
@@ -207,22 +207,70 @@
 // warp's last key or first query), and every row reads a key's k and v
 // chunks from shared memory again: 16 bytes for 4 FMAs.
 //
-// The tiled forward (flash_fwd_kernel, for T > FT_TMAX or D > FC_DP: the
-// long captions of --max-seq-len 62 and up, whose generator attends over
-// max_seq_len + 3 positions): float32 FMA, no tensor cores.  A block of 128
-// threads owns one (b, h) and a tile of query rows.  A row is split over
-// tpr = next power of two >= D / 8 threads that hold 8 of its D columns
-// each in registers (D <= 256, a multiple of 8); a dot product is their
-// partial sums combined with tpr-wide shuffles.  K and V stream through
-// shared memory in tiles of 4096 floats (16 KB), read as broadcasts.  It
-// keeps the running max, normaliser and accumulator per row and rescales
-// once per 4 keys; when causal it stops at the tile's last row.  What
-// holds it back: at D = 16 a block has 64 row slots for 36 rows, K and V
-// arrive by 4-byte loads, and each row walks its keys one dependent step
-// (FMAs, shuffles, an exp, a rescale) at a time (ROADMAP queue 2, the next
-// kernel item).  The tiled backward (flash_bwd_tiled_kernel, below the
-// fused kernels) is one launch of its own design.
-//
+// The tiled forward (flash_fwd_tiled_kernel, for T > FT_TMAX or D > FC_DP:
+// the long captions of --max-seq-len 62 and up, whose generator attends
+// over max_seq_len + 3 positions; `_fwd_kernel` at those shapes).  What
+// bounds it: at the long captions its bytes (q, k, v and out once, lse)
+// take 0.0026-0.0304 ms at 3.35 TB/s; its products (S at 989 TFLOP/s on
+// bfloat16 operands or as 3xTF32 at 495 on float32, P.V as two or three
+// TF32 terms) take about half that, so the bytes bound it at every long
+// shape (chip_smoke.py tiled_fwd_bound).  The design:
+//   * A block of four warps takes one (b, h) and a tile of 64 query rows,
+//     16 a warp.  The query tiles farthest down (the most keys when
+//     causal) launch first, so T = 129's one-row last tile (every key,
+//     one warp busy) runs in the first wave instead of trailing the last.
+//     The Q tile lands once; K and V stream in tiles of 32 keys,
+//     double-buffered by 16-byte cp.async
+//     (tb_stage, zero-filled past T and D), the next tile in flight while
+//     this one is multiplied.
+//   * Key tiles past the row's length, or above the query tile's diagonal,
+//     are neither staged nor multiplied; a warp wholly above the diagonal
+//     skips the tile, an n8 block of keys wholly above its rows is skipped,
+//     and masks are applied only on tiles that straddle an edge.
+//   * S = Q K^T and O += P V on the tensor cores (mma.sync m16n8k8, TF32
+//     in, float32 sums; the tiled backward's tf32_parts, mma3, frag_a and
+//     frag_b): S in 3xTF32, one term in bfloat16 (a widened bfloat16 is
+//     exact in TF32), scaled in float32 after the sum; P V with P float32
+//     and never rounded, three terms, two in bfloat16 (P's big and small
+//     parts against the exact V).  Each k8 step goes into a fresh
+//     accumulator added in float32 (the tensor cores' sums truncate).  The
+//     float32 instantiation on widened bfloat16 inputs runs the same terms
+//     plus exact zeros, so the two agree bit for bit once rounded.
+//   * P's A fragment is S's C fragment in place: C holds key columns 2tq
+//     and 2tq + 1 where A wants contraction rows tq and tq + 4, so V's B
+//     fragment is read at keys 2tq and 2tq + 1: no shuffle, no trip
+//     through shared memory.
+//   * The online softmax rescales once a key tile: the tile's row maxima
+//     joined across the quad by shuffles in a fixed order, P = ex2 of one
+//     FMA; at the end out = O / max(l, 1e-30), a division, and lse = m +
+//     log(l_safe), so a row with no valid key gives out 0 and lse about
+//     -1e30.  No atomics, no sum across blocks: two calls give the same
+//     bits.
+//   * Its float32 out is held to the dense answer in float64 at 2e-6: at
+//     the card test's full-batch inputs the float32 plain version is
+//     itself up to 2.09e-6 from that answer.
+// Variants timed (scripts/flash_fused64_variants.py --set TF_KROWS=32, then
+// 64, in one call; device_ms, NVIDIA H100 80GB HBM3, 700.00 W; float32 /
+// bfloat16, no mask): key tiles of 32 against 64 at config4's generator
+// [64, 129, 8, 32] 0.0601 / 0.0405 against 0.0772 / 0.0496, the
+// discriminator [64, 128, 8, 16] 0.0269 / 0.0181 against 0.0257 / 0.0199,
+// the rollouts [256, 128, 8, 16] 0.0900 / 0.0616 against 0.0870 / 0.0641,
+// config5's generator [64, 129, 12, 64] 0.1842 / 0.1067 against 0.2943 /
+// 0.1718; with lengths 32 is ahead at every shape (the rollouts 0.0696 /
+// 0.0490 against 0.0795 / 0.0576), and 64 spills at dp 16 and 32 in
+// float32.  ptxas at 32, float32: 66 / 79 / 96 registers at dp 16 / 32 /
+// 64, no spills (255 at dp 256, no spills).  The grid (a block a (b, h,
+// query tile) against a block a (b, h) walking its query tiles) and P's
+// route (in place against quad shuffles and shared memory) were timed on
+// this design's first draft by knob builds not kept: the choices above were
+// as fast or faster at every long shape.
+// What still holds it back: 3.4-7.0x its bound (bytes) at the long shapes.
+// Every fragment comes by scalar shared loads and is split into TF32 parts
+// (cvt.rna and a subtract an element) each time it is used, Q's again for
+// every key tile; at dp 16 a key tile's S is two k8 steps, so the softmax
+// (shuffles, exponentials, the rescale) outweighs the products.  wgmma for
+// S (Q and K are both K-major) is the next lever; P V's V is N-major.
+
 // bfloat16 (--dtype bfloat16: the JAX kernels on bfloat16 inputs).  Every
 // kernel is a template of its element type W, float or __nv_bfloat16
 // (csrc/bf16.cuh): q, k, v, out and dO are W, lse and delta float32.  A
@@ -254,140 +302,7 @@ using gic::st4w;
 using gic::store_as;
 using gic::to_f;
 
-constexpr int NT = 128;             // threads per block
-constexpr int DS = 8;               // columns of D per thread
-constexpr int TILE = 4096;          // floats per shared-memory operand tile
-constexpr int KC = 4;               // keys (or queries) per batch of shuffles
 constexpr float NEG = -1e30f;       // the TPU kernel's finite mask fill
-
-__device__ __forceinline__ float group_sum(float x, int tpr) {
-  for (int off = tpr >> 1; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// What every kernel derives from its block and thread index.
-struct RowMap {
-  int b, h, tpr, r, d0, row, len;
-  bool own;  // the thread's 8 columns lie inside D
-  size_t rs; // floats between two time rows of one (b, h)
-  size_t head; // offset of (b, t = 0, h, d = 0)
-
-  __device__ RowMap(const int* lengths, int T, int H, int D, int tpr_) {
-    const int bh = blockIdx.x;
-    b = bh / H;
-    h = bh % H;
-    tpr = tpr_;
-    r = threadIdx.x / tpr;
-    d0 = (threadIdx.x % tpr) * DS;
-    own = d0 < D;
-    row = blockIdx.y * (NT / tpr) + r;
-    len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
-    rs = (size_t)H * D;
-    head = ((size_t)b * T * H + h) * D;
-  }
-  __device__ size_t vec(int t, int T, int H) const {  // lse / delta index
-    return ((size_t)b * T + t) * H + h;
-  }
-};
-
-template <class W>
-__device__ __forceinline__ void load_row(const W* __restrict__ src,
-                                         const RowMap& m, int t, int T,
-                                         float (&dst)[DS]) {
-#pragma unroll
-  for (int i = 0; i < DS; ++i)
-    dst[i] = (m.own && t < T) ? to_f(src[m.head + t * m.rs + m.d0 + i])
-                              : 0.f;
-}
-
-// Rows [t0, t0 + n) of one (b, h) of `src` into a [n, D] float32 shared
-// tile.
-template <class W>
-__device__ __forceinline__ void load_tile(const W* __restrict__ src,
-                                          const RowMap& m, int t0, int n,
-                                          int D, float* tile) {
-  for (int e = threadIdx.x; e < n * D; e += NT) {
-    const int j = e / D, d = e % D;
-    tile[e] = to_f(src[m.head + (size_t)(t0 + j) * m.rs + d]);
-  }
-}
-
-__device__ __forceinline__ float dot_part(const float (&a)[DS],
-                                          const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < DS; ++i) s = fmaf(a[i], b[i], s);
-  return s;
-}
-
-template <class W>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const W* __restrict__ q, const W* __restrict__ k,
-    const W* __restrict__ v, const int* __restrict__ lengths,
-    W* __restrict__ out, float* __restrict__ lse, int T, int H, int D,
-    int tpr, int causal, float scale) {
-  __shared__ __align__(16) float Ks[TILE];
-  __shared__ __align__(16) float Vs[TILE];
-  const RowMap m(lengths, T, H, D, tpr);
-  const int q0 = blockIdx.y * (NT / tpr);
-  float qr[DS], acc[DS];
-  load_row(q, m, m.row, T, qr);
-#pragma unroll
-  for (int i = 0; i < DS; ++i) acc[i] = 0.f;
-  float mx = NEG, l = 0.f;
-
-  const int kv_end = causal ? min(m.len, q0 + NT / tpr) : m.len;
-  const int bk = TILE / D;
-  for (int k0 = 0; k0 < kv_end; k0 += bk) {
-    const int nk = min(bk, kv_end - k0);
-    __syncthreads();
-    load_tile(k, m, k0, nk, D, Ks);
-    load_tile(v, m, k0, nk, D, Vs);
-    __syncthreads();
-    for (int jj = 0; jj < nk; jj += KC) {
-      float s[KC];
-      float m_new = mx;
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const int j = k0 + jj + c;
-        const bool in = jj + c < nk;
-        const float part = (m.own && in) ? dot_part(qr, Ks + (jj + c) * D + m.d0)
-                                         : 0.f;
-        const float dot = group_sum(part, tpr);
-        const bool valid = in && (!causal || j <= m.row);
-        s[c] = valid ? dot * scale : NEG;
-        m_new = fmaxf(m_new, s[c]);
-      }
-      const float corr = expf(mx - m_new);
-      l *= corr;
-#pragma unroll
-      for (int i = 0; i < DS; ++i) acc[i] *= corr;
-#pragma unroll
-      for (int c = 0; c < KC; ++c) {
-        const int j = k0 + jj + c;
-        const bool valid = jj + c < nk && (!causal || j <= m.row);
-        const float p = valid ? expf(s[c] - m_new) : 0.f;
-        l += p;
-        if (valid && m.own) {
-          const float* vr = Vs + (jj + c) * D + m.d0;
-#pragma unroll
-          for (int i = 0; i < DS; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
-        }
-      }
-      mx = m_new;
-    }
-  }
-  if (m.row < T) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    if (m.own) {
-#pragma unroll
-      for (int i = 0; i < DS; ++i)
-        store_as(out, m.head + m.row * m.rs + m.d0 + i, acc[i] / l_safe);
-    }
-    if (m.d0 == 0) lse[m.vec(m.row, T, H)] = mx + logf(l_safe);
-  }
-}
 
 // ---- the fused forward: a head's whole q, k and v on chip (T <= FT_TMAX)
 
@@ -1152,15 +1067,16 @@ __device__ __forceinline__ void cp_async16z(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
-// Rows t0 .. t0 + TB_ROWS - 1 of one (b, h) (head: the offset of (b, 0, h,
-// 0); rs: elements between two time rows) into a staged tile by 16-byte
-// cp.async, zero-filled past T and past D.
-template <int DP, class W>
+// Rows t0 .. t0 + ROWS - 1 of one (b, h) (head: the offset of (b, 0, h,
+// 0); rs: elements between two time rows) into a staged tile (rows of
+// TiledBwd's LD) by 16-byte cp.async, zero-filled past T and past D, by a
+// block of TB_THREADS threads.
+template <int DP, int ROWS = TB_ROWS, class W>
 __device__ __forceinline__ void tb_stage(W* dst, const W* src, size_t head,
                                          size_t rs, int t0, int T, int D) {
   using L = TiledBwd<DP, W>;
   constexpr int CPR = DP / L::EPC;
-  for (int c = threadIdx.x; c < TB_ROWS * CPR; c += TB_THREADS) {
+  for (int c = threadIdx.x; c < ROWS * CPR; c += TB_THREADS) {
     const int r = c / CPR, col = c % CPR * L::EPC, t = t0 + r;
     const bool ok = t < T && col < D;
     cp_async16z(dst + r * L::LD + col,
@@ -1169,16 +1085,21 @@ __device__ __forceinline__ void tb_stage(W* dst, const W* src, size_t head,
 }
 
 // x = big + small for 3xTF32 (as csrc/decode_embed_bwd.cu splits it: big
-// is x cut to TF32, small the exact rest).  EXACT: x is a widened bfloat16,
-// exact in TF32 (small is 0 and never used).
-template <bool EXACT>
+// is x cut to TF32, small the exact rest; ROUND: big is x rounded to the
+// nearest TF32, so small is half as large and the tensor cores' cut of it
+// loses half as much).  EXACT: x is a widened bfloat16, exact in TF32
+// (small is 0 and never used).
+template <bool EXACT, bool ROUND = false>
 __device__ __forceinline__ void tf32_parts(float x, uint32_t& big,
                                            uint32_t& small) {
   if (EXACT) {
     big = __float_as_uint(x);
     small = 0u;
   } else {
-    big = __float_as_uint(x) & 0xffffe000u;
+    if (ROUND)
+      asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+    else
+      big = __float_as_uint(x) & 0xffffe000u;
     small = __float_as_uint(x - __uint_as_float(big));
   }
 }
@@ -1225,28 +1146,28 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
 
 // The A fragment at (m0, k0) of a row-major tile (row stride ld) of T_
 // (float, or bfloat16 widened); TRANS: of the transposed tile (entry (m, k)
-// at s[k * ld + m]).
-template <bool EXACT, bool TRANS, class T_>
+// at s[k * ld + m]); ROUND as tf32_parts.
+template <bool EXACT, bool TRANS, bool ROUND = false, class T_>
 __device__ __forceinline__ void frag_a(FragA& f, const T_* s, int ld, int m0,
                                        int k0, int gq, int tq) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int m = m0 + gq + (c & 1) * 8, k = k0 + tq + (c >> 1) * 4;
-    tf32_parts<EXACT>(to_f(TRANS ? s[k * ld + m] : s[m * ld + k]), f.big[c],
-                      f.small[c]);
+    tf32_parts<EXACT, ROUND>(to_f(TRANS ? s[k * ld + m] : s[m * ld + k]),
+                             f.big[c], f.small[c]);
   }
 }
 
 // The B fragment (register c: row tq + 4 c, column gq) at (k0, n0) of a
-// [K][N] tile (row stride ld); NK: of an [N][K] one.
-template <bool EXACT, bool NK, class T_>
+// [K][N] tile (row stride ld); NK: of an [N][K] one; ROUND as tf32_parts.
+template <bool EXACT, bool NK, bool ROUND = false, class T_>
 __device__ __forceinline__ void frag_b(FragB& f, const T_* s, int ld, int k0,
                                        int n0, int gq, int tq) {
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int k = k0 + tq + c * 4, n = n0 + gq;
-    tf32_parts<EXACT>(to_f(NK ? s[n * ld + k] : s[k * ld + n]), f.big[c],
-                      f.small[c]);
+    tf32_parts<EXACT, ROUND>(to_f(NK ? s[n * ld + k] : s[k * ld + n]),
+                             f.big[c], f.small[c]);
   }
 }
 
@@ -1508,19 +1429,210 @@ __global__ void __launch_bounds__(TB_THREADS) flash_bwd_tiled_kernel(
   }
 }
 
-int threads_per_row(int D) {
-  int t = 1;
-  while (t * DS < D) t <<= 1;
-  return t;
+// ---- the tiled forward: every shape the fused forwards do not take
+
+// A block of four warps takes one (b, h) and a query tile of TF_QROWS rows
+// (16 a warp) and walks its key tiles of TF_KROWS keys, K and V
+// double-buffered in the inputs' type W with TiledBwd's rows.
+constexpr int TF_QROWS = 64;        // query rows of a query tile
+constexpr int TF_KROWS = 32;        // keys of a K / V tile
+static_assert(TF_QROWS == 16 * (TB_THREADS / 32), "16 query rows a warp");
+
+// Grid: B * H * ceil(T / TF_QROWS) blocks, the query tiles farthest down
+// (which see the most keys when causal) first; TB_THREADS threads.
+// Dynamic shared memory: the Q tile [TF_QROWS][LD] and K and V
+// [2][TF_KROWS][LD] each, in W.
+template <int DP, class W>
+__global__ void __launch_bounds__(TB_THREADS) flash_fwd_tiled_kernel(
+    const W* __restrict__ q, const W* __restrict__ k,
+    const W* __restrict__ v, const int* __restrict__ lengths,
+    W* __restrict__ out, float* __restrict__ lse, int B, int T, int H,
+    int D, int causal, float scale) {
+  using L = TiledBwd<DP, W>;
+  constexpr bool X = gic::is_bf16<W>;   // staged operands exact in TF32
+  constexpr int KR = TF_KROWS;
+  constexpr int NS = KR / 8;            // n8 tiles of a warp's S (its keys)
+  constexpr int NO = DP / 8;            // n8 tiles of a warp's O (its D)
+  constexpr int KTILE = KR * L::LD;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char tf_smem[];
+  W* const qs = reinterpret_cast<W*>(tf_smem);
+  W* const ks = qs + TF_QROWS * L::LD;
+  W* const vs = ks + 2 * KTILE;
+
+  const int BH = B * H, blk = static_cast<int>(blockIdx.x);
+  const int qt = (T + TF_QROWS - 1) / TF_QROWS - 1 - blk / BH;
+  const int b = blk % BH / H, h = blk % BH % H;
+  const size_t rs = (size_t)H * D, head = ((size_t)b * T * H + h) * D;
+  const int len = lengths != nullptr ? min(max(lengths[b], 0), T) : T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int q0 = qt * TF_QROWS, r0 = q0 + warp * 16;  // the warp's rows
+  const int row_a = r0 + gq, row_b = row_a + 8;       // the thread's two
+  // keys j < kend; no tile past the length, or above the diagonal
+  const int kend = causal ? min(len, q0 + TF_QROWS) : len;
+  const int nkt = (kend + KR - 1) / KR;
+  if (nkt > 0) {
+    tb_stage<DP, TF_QROWS>(qs, q, head, rs, q0, T, D);
+    tb_stage<DP, KR>(ks, k, head, rs, 0, T, D);
+    tb_stage<DP, KR>(vs, v, head, rs, 0, T, D);
+  }
+  // the running max and normaliser of rows a and b, and O
+  float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
+  float acc[NO][4];
+#pragma unroll
+  for (int o = 0; o < NO; ++o)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[o][c] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j + 1 < nkt) {  // tile j + 1 lands while this one is multiplied
+      const int nb = (j + 1) & 1;
+      tb_stage<DP, KR>(ks + nb * KTILE, k, head, rs, (j + 1) * KR, T, D);
+      tb_stage<DP, KR>(vs + nb * KTILE, v, head, rs, (j + 1) * KR, T, D);
+    }
+    const int k0 = j * KR;
+    // a warp past T, or wholly above the diagonal, has no pair here
+    if (r0 >= T || (causal && k0 > r0 + 15)) continue;
+    const W* const kt = ks + (j & 1) * KTILE;
+    const W* const vt = vs + (j & 1) * KTILE;
+    // masks only where the tile straddles the length or the diagonal
+    const bool edge = k0 + KR > len || (causal && k0 + KR - 1 > r0);
+    // an n8 block of keys wholly above the warp's diagonal is skipped (n =
+    // 0 never is: the warp's first row sees key k0)
+    auto live = [&](int n) { return !causal || k0 + 8 * n <= r0 + 15; };
+
+    // S = Q K^T: the warp's 16 rows x KR keys, each k8 step of D into a
+    // fresh accumulator added in float32; 3xTF32 (big parts rounded to
+    // the nearest TF32), one term in bfloat16
+    float sa[NS][4];
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 8) {
+      FragA aq;
+      frag_a<X, false, true>(aq, qs, L::LD, warp * 16, kk, gq, tq);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        if (!live(n)) continue;
+        FragB bk;
+        frag_b<X, true, true>(bk, kt, L::LD, kk, 8 * n, gq, tq);
+        float f[4];
+        mma3<X, X, true>(f, aq, bk);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sa[n][c] = kk ? sa[n][c] + f[c] : f[c];
+      }
+    }
+
+    // scaled, masked to NEG where no pair; the tile's row maxima, joined
+    // across the quad that holds a row's keys
+    float mx_a = NEG, mx_b = NEG;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * n + 2 * tq + e;
+        const bool va = !edge || (key < len && (!causal || key <= row_a));
+        const bool vb = !edge || (key < len && (!causal || key <= row_b));
+        sa[n][e] = va ? sa[n][e] * scale : NEG;
+        sa[n][2 + e] = vb ? sa[n][2 + e] * scale : NEG;
+        mx_a = fmaxf(mx_a, sa[n][e]);
+        mx_b = fmaxf(mx_b, sa[n][2 + e]);
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, o));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, o));
+    }
+    // the online softmax, rescaled once a tile: P = 2^(s log2e - m log2e)
+    // where a pair, else 0 (a row of no pair yet has m = NEG)
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = ex2((m_a - mn_a) * LOG2E);
+    const float corr_b = ex2((m_b - mn_b) * LOG2E);
+    const float nm_a = -mn_a * LOG2E, nm_b = -mn_b * LOG2E;
+    m_a = mn_a;
+    m_b = mn_b;
+    float ts_a = 0.f, ts_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * n + 2 * tq + e;
+        const bool va = !edge || (key < len && (!causal || key <= row_a));
+        const bool vb = !edge || (key < len && (!causal || key <= row_b));
+        sa[n][e] = va ? ex2(fmaf(sa[n][e], LOG2E, nm_a)) : 0.f;
+        sa[n][2 + e] = vb ? ex2(fmaf(sa[n][2 + e], LOG2E, nm_b)) : 0.f;
+        ts_a += sa[n][e];
+        ts_b += sa[n][2 + e];
+      }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      ts_a += __shfl_xor_sync(FULL, ts_a, o);
+      ts_b += __shfl_xor_sync(FULL, ts_b, o);
+    }
+    l_a = fmaf(l_a, corr_a, ts_a);
+    l_b = fmaf(l_b, corr_b, ts_b);
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      acc[o][0] *= corr_a;
+      acc[o][1] *= corr_a;
+      acc[o][2] *= corr_b;
+      acc[o][3] *= corr_b;
+    }
+
+    // O += P V, P float32 and unrounded (3xTF32; two terms in bfloat16,
+    // V exact).  P's A fragment is S's C fragment in place: C holds key
+    // columns 2tq and 2tq + 1 where A wants contraction rows tq and tq + 4,
+    // so V's B fragment is read at keys 2tq and 2tq + 1.  Each k8 step of
+    // keys into a fresh accumulator, added to the rescaled O in float32.
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      if (!live(n)) continue;
+      FragA ap;
+      const float x[4] = {sa[n][0], sa[n][2], sa[n][1], sa[n][3]};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        tf32_parts<false, true>(x[c], ap.big[c], ap.small[c]);
+      const W* const vr = vt + (8 * n + 2 * tq) * L::LD + gq;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        FragB bv;
+        tf32_parts<X, true>(to_f(vr[8 * o]), bv.big[0], bv.small[0]);
+        tf32_parts<X, true>(to_f(vr[8 * o + L::LD]), bv.big[1],
+                            bv.small[1]);
+        float f[4];
+        mma3<false, X, true>(f, ap, bv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[o][c] += f[c];
+      }
+    }
+  }
+
+  // out = O / max(l, 1e-30) (a division), lse = m + log(max(l, 1e-30)); a
+  // row of no pair: out 0, lse about -1e30
+  if (r0 < T) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = hh ? row_b : row_a;
+      if (row >= T) continue;
+      const float l_safe = fmaxf(hh ? l_b : l_a, 1e-30f);
+      const size_t at = head + (size_t)row * rs;
+#pragma unroll
+      for (int o = 0; o < NO; ++o) {
+        const int col = 8 * o + 2 * tq;
+        if (col < D) {  // D is a multiple of 8: col + 1 < D too
+          store_as(out, at + col, acc[o][2 * hh] / l_safe);
+          store_as(out, at + col + 1, acc[o][2 * hh + 1] / l_safe);
+        }
+      }
+      if (tq == 0)
+        lse[((size_t)b * T + row) * H + h] = (hh ? m_b : m_a) + logf(l_safe);
+    }
+  }
 }
 
 bool bad_shape(int B, int T, int H, int D) {
-  return B < 1 || T < 1 || H < 1 || D < DS || D % DS != 0 || D > 256;
-}
-
-dim3 grid_of(int B, int T, int H, int D) {
-  const int rows = NT / threads_per_row(D);
-  return dim3(B * H, (T + rows - 1) / rows);
+  return B < 1 || T < 1 || H < 1 || D < 8 || D % 8 != 0 || D > 256;
 }
 
 constexpr int CARD_SMEM = 227 * 1024;  // shared memory a block may use
@@ -1575,6 +1687,25 @@ bool tiled_plan_ok(bool bf16, int T, int D, int dp, int threads, int smem,
          smem <= CARD_SMEM;
 }
 
+// The shared memory a tiled forward block uses (its layout above): the Q
+// tile and two K and two V tiles in the inputs' type, rows of dp + 16
+// bytes.
+size_t tiled_fwd_smem(bool bf16, int dp) {
+  const size_t esz = bf16 ? 2 : 4, ld = dp + 16 / esz;
+  return (TF_QROWS + 4 * TF_KROWS) * ld * esz;
+}
+
+// A tiled forward launch as the wrapper planned it (flash_fwd_plan):
+// refused unless it is TB_THREADS threads of the kernel for D's head dim,
+// with this file's query and key tiles, and its bytes cover the layout
+// within what a block may use.
+bool tiled_fwd_plan_ok(bool bf16, int D, int dp, int q_rows, int k_rows,
+                       int threads, int smem) {
+  return dp == tiled_dp(D) && dp <= 256 && q_rows == TF_QROWS &&
+         k_rows == TF_KROWS && threads == TB_THREADS &&
+         (size_t)smem >= tiled_fwd_smem(bf16, dp) && smem <= CARD_SMEM;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -1597,16 +1728,20 @@ template <class W>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* lengths, void* out, float* lse, int B,
                        int T, int H, int D, int causal, float scale, int G,
-                       int threads, int smem, cudaStream_t st) {
+                       int dp, int threads, int smem, cudaStream_t st) {
   const W* qw = static_cast<const W*>(q);
   const W* kw = static_cast<const W*>(k);
   const W* vw = static_cast<const W*>(v);
   W* ow = static_cast<W*>(out);
-  if (G == 0) {
-    flash_fwd_kernel<W><<<grid_of(B, T, H, D), NT, 0, st>>>(
-        qw, kw, vw, lengths, ow, lse, T, H, D, threads_per_row(D), causal,
-        scale);
-    return cudaGetLastError();
+  if (G == 0) {  // the tiled forward, a block a (b, h, query tile)
+    const auto kernel = dp == 16    ? &flash_fwd_tiled_kernel<16, W>
+                        : dp == 32  ? &flash_fwd_tiled_kernel<32, W>
+                        : dp == 64  ? &flash_fwd_tiled_kernel<64, W>
+                        : dp == 128 ? &flash_fwd_tiled_kernel<128, W>
+                                    : &flash_fwd_tiled_kernel<256, W>;
+    return launch_fused(kernel, B * H * ((T + TF_QROWS - 1) / TF_QROWS),
+                        threads, smem, st, qw, kw, vw, lengths, ow, lse, B,
+                        T, H, D, causal, scale);
   }
   const int blocks = B * ((H + G - 1) / G);
   return D <= 16   ? launch_fused(flash_fwd_fused_kernel<16, W>, blocks,
@@ -1685,28 +1820,34 @@ const char* gic_error_string(int err) {
 // q, k, v [B, T, H, D] contiguous, float32 or (bf16 = 1) bfloat16; lengths
 // [B] int32 or null.  Outputs out [B, T, H, D] in the inputs' type and lse
 // [B, T, H] float32.  Each function returns 0 or the CUDA error code of
-// its launch; nothing synchronises.  The forward launches the tiled kernel
-// where G is 0, else the fused one on the wrapper's plan (G heads a block,
-// `threads`, `smem` bytes; T <= FT_TMAX, D <= FC_DP, q, k, v and out
-// 16-byte aligned): a plan that fused_plan_ok refuses gives
+// its launch; nothing synchronises.  The forward launches the wrapper's
+// plan (flash_fwd_plan): the fused kernel where G >= 1 (G heads a block,
+// `threads`, `smem`, head dim dp; T <= FT_TMAX, D <= FC_DP, q, k, v and out
+// 16-byte aligned; q_rows and k_rows unused), the tiled one where G is 0
+// (TB_THREADS threads, head dim dp, query tiles of q_rows and key tiles of
+// k_rows as TF_QROWS and TF_KROWS say, `smem`; q, k and v 16-byte
+// aligned).  A plan that fused_plan_ok /
+// tiled_fwd_plan_ok refuses, another shape or an unaligned pointer gives
 // cudaErrorInvalidValue and launches nothing.
 int gic_flash_fwd(const void* q, const void* k, const void* v,
                   const int* lengths, void* out, float* lse, int B, int T,
-                  int H, int D, int causal, float scale, int G, int threads,
-                  int smem, int bf16_, void* stream) {
+                  int H, int D, int causal, float scale, int G, int dp,
+                  int q_rows, int k_rows, int threads, int smem, int bf16_,
+                  void* stream) {
   if (bad_shape(B, T, H, D)) return cudaErrorInvalidValue;
-  if (G != 0) {
-    if (!fused_plan_ok(false, T, H, D, G, threads, smem))
-      return cudaErrorInvalidValue;
-    const void* const ptrs[] = {q, k, v, out};
-    for (const void* p : ptrs)
-      if (!aligned16(p)) return cudaErrorInvalidValue;
-  }
+  if (G == 0 ? !tiled_fwd_plan_ok(bf16_ != 0, D, dp, q_rows, k_rows,
+                                  threads, smem)
+             : dp != (D <= 16 ? 16 : D <= FT_DMAX ? FT_DMAX : FC_DP) ||
+                   !fused_plan_ok(false, T, H, D, G, threads, smem))
+    return cudaErrorInvalidValue;
+  const void* const ptrs[] = {q, k, v, out};
+  for (int i = 0; i < (G == 0 ? 3 : 4); ++i)
+    if (!aligned16(ptrs[i])) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16_ ? launch_fwd<bf16>(q, k, v, lengths, out, lse, B, T, H, D,
-                                  causal, scale, G, threads, smem, st)
+                                  causal, scale, G, dp, threads, smem, st)
                : launch_fwd<float>(q, k, v, lengths, out, lse, B, T, H, D,
-                                   causal, scale, G, threads, smem, st);
+                                   causal, scale, G, dp, threads, smem, st);
 }
 
 // The backward: out, dout [B, T, H, D] and lse [B, T, H] as the forward

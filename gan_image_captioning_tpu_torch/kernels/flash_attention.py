@@ -12,12 +12,15 @@ with or without per-sequence key lengths — and its gradient, without a
   whose backward is :func:`flash_bwd`.  The forward is one launch of one
   of two kernels, which :func:`flash_fwd_plan` picks from the shape alone:
   the fused one, whole heads of q, k and v in shared memory (T ≤ 64 and
-  D ≤ 64: every call at the default ``--max-seq-len``), or the tiled one;
-  ``flash_fwd.last_kernel`` says which it launched.  The backward is one
-  launch too, delta included, planned by :func:`flash_bwd_plan`: at those
-  shapes the fused backward (dQ, dK and dV of whole heads), at any other
-  (the long captions of ``--max-seq-len`` past 61, or D > 64) the tiled
-  one (one (b, h) a block walking key tiles, tensor-core products);
+  D ≤ 64: every call at the default ``--max-seq-len``), or the tiled one
+  (a (b, h) and query tile a block walking key tiles, S and P·V on the
+  tensor cores in TF32 terms); ``flash_fwd.last_kernel`` says which it
+  launched.
+  The backward is one launch too, delta included, planned by
+  :func:`flash_bwd_plan`: at those shapes the fused backward (dQ, dK and
+  dV of whole heads), at any other (the long captions of
+  ``--max-seq-len`` past 61, or D > 64) the tiled one (one (b, h) a
+  block walking key tiles, tensor-core products);
   ``flash_bwd.last_kernel`` says which.  A shape the
   kernels do not take (:func:`supported`), or a q, k, v, out or dO that is
   not 16-byte aligned (a view at an odd offset; PyTorch allocates on 256
@@ -166,7 +169,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_gic_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [f] + [i] * 4 + [
+        lib.gic_flash_fwd.argtypes = [vp] * 6 + [i] * 5 + [f] + [i] * 7 + [
             vp]
         lib.gic_flash_bwd.argtypes = [vp] * 11 + [i] * 5 + [f] + [i] * 5 + [
             vp]
@@ -210,6 +213,12 @@ FT_TMAX, FT_DMAX, FC_DP, FT_PAD, SLICES = 64, 32, 64, 4, 2
 # floats; staged rows of dp + 4 floats (float32: the plan is sized for it,
 # bfloat16's rows of dp + 8 halves are smaller).
 TB_ROWS, TB_THREADS, TB_PLD = 32, 128, 36
+# The tiled forward (flash_fwd_tiled_kernel, the same shapes): one (b, h) and
+# query tile of TF_QROWS rows a block of TB_THREADS threads, 16 rows a warp,
+# walking key tiles of TF_KROWS keys, K and V double-buffered; staged rows
+# of dp + 4 floats (float32, as above).  The C side builds these tiles only
+# and refuses a plan of others.
+TF_QROWS, TF_KROWS = 64, 32
 # most threads a block (each kernel's launch bounds) and the budget of
 # shared memory a block within which G doubles, by direction and design;
 # the column-half kernels' budgets give config5's [·, 37, 12, 64] two heads
@@ -249,9 +258,7 @@ def _tiled_bwd(T: int, D: int) -> dict:
     floats, then delta) in shared memory where the block then stays within
     its budget (``ws`` = ``"shared"``), else in a scratch of ``ws_floats``
     a (b, h) (``"global"``); ``smem`` bytes."""
-    dp = 16
-    while dp < D:
-        dp *= 2
+    dp = _tiled_dp(D)
     rows = -(-T // TB_ROWS) * TB_ROWS
     ws_floats = rows * (dp + 4) + rows
     tiles = 6 * TB_ROWS * (dp + 4) * 4 + 2 * TB_ROWS * TB_PLD * 4
@@ -263,12 +270,32 @@ def _tiled_bwd(T: int, D: int) -> dict:
             "rows": TB_ROWS}
 
 
+def _tiled_dp(D: int) -> int:
+    """The tiled kernels' head dim: the power of two ≥ D, at least 16."""
+    dp = 16
+    while dp < D:
+        dp *= 2
+    return dp
+
+
+def _tiled_fwd(T: int, D: int) -> dict:
+    """The tiled forward's plan: head dim ``dp``, ``threads``, the query
+    tile's ``q_rows`` and the key tiles' ``k_rows``, ``smem`` bytes (the Q
+    tile, then two K and two V tiles, rows of dp + 4 floats) and
+    ``q_tiles`` (query tiles of a (b, h): a block each)."""
+    dp = _tiled_dp(D)
+    return {"route": "tiled", "dp": dp, "threads": TB_THREADS,
+            "q_rows": TF_QROWS, "k_rows": TF_KROWS,
+            "smem": (TF_QROWS + 4 * TF_KROWS) * (dp + 4) * 4,
+            "q_tiles": -(-T // TF_QROWS)}
+
+
 def _plan(kind: str, T: int, H: int, D: int) -> dict:
     if T < 1 or H < 1 or D < 8 or not supported(T, D):
         raise ValueError(f"flash_{kind}_plan: unsupported shape T={T} "
                          f"H={H} D={D}")
     if T > FT_TMAX or D > FC_DP:
-        return _tiled_bwd(T, D) if kind == "bwd" else {"route": "tiled"}
+        return _tiled_bwd(T, D) if kind == "bwd" else _tiled_fwd(T, D)
     head = _fused_head(kind, T, D)
     most, budget = BUDGETS[(kind, head["split"])]
     g = 1
@@ -291,8 +318,10 @@ def flash_fwd_plan(T: int, H: int, D: int) -> dict:
     ``smem`` (bytes: the q, k and v tiles of G heads, rows of ``dp`` +
     ``FT_PAD`` floats, and at D > 32 the scores ``[G, T, ld]``), ``dp``,
     ``split``, ``ld``, ``slices`` (threads a row) and ``most_threads`` (the
-    kernel's launch bounds); or ``"tiled"``.  Raises ValueError for a
-    shape no kernel takes."""
+    kernel's launch bounds); or ``"tiled"`` (a block a (b, h) and query
+    tile; ``dp``, ``threads``, ``q_rows``, ``k_rows``, ``smem`` and
+    ``q_tiles`` as :func:`_tiled_fwd` gives them).  Raises ValueError for
+    a shape no kernel takes."""
     return _plan("fwd", T, H, D)
 
 
@@ -348,9 +377,9 @@ def flash_fwd(q, k, v, causal: bool, lengths=None):
         rc = lib.gic_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                _ptr(lengths), out.data_ptr(), lse.data_ptr(),
                                b, t, h, d, int(causal), 1.0 / math.sqrt(d),
-                               plan["heads"] if fused else 0,
-                               plan["threads"] if fused else 0,
-                               plan["smem"] if fused else 0,
+                               plan["heads"] if fused else 0, plan["dp"],
+                               plan.get("q_rows", 0), plan.get("k_rows", 0),
+                               plan["threads"], plan["smem"],
                                int(dtype == torch.bfloat16), _stream(device))
     build.raise_on_error(lib, rc, "flash_attention forward")
     flash_fwd.last_kernel = plan["route"]

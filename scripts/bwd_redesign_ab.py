@@ -1,6 +1,6 @@
-"""Times the port's bfloat16 embed backward and its flash backward at the
-long-caption shapes, beside the library calls, for one or more checkouts
-of the repository in turns, on one CUDA card.
+"""Times the port's bfloat16 embed backward and its flash backward and
+forward at the long-caption shapes, beside the library calls, for one or
+more checkouts of the repository in turns, on one CUDA card.
 
 Each checkout's ``gan_image_captioning_tpu_torch`` runs in a process of
 its own (its kernels built from its own sources), through the wrappers'
@@ -18,13 +18,18 @@ public signatures only, so a parent commit unpacked beside this one
   8, 32] causal, its discriminator [64, 128, 8, 16] full and the
   rollouts' [256, 128, 8, 16], config5's generator [64, 129, 12, 64]
   causal; beside ``scaled_dot_product_attention``'s backward alone
-  (boolean mask), and its kernels by name (torch.profiler).
+  (boolean mask), and its kernels by name (torch.profiler);
+* ``flash_fwd`` (on the route its plan picks) in float32 and bfloat16,
+  with and without key lengths, at the same shapes and at [2, 200, 2, 24]
+  causal; beside ``scaled_dot_product_attention``'s forward, and its
+  kernel by name.
 
-Times are device milliseconds a call: calls queued behind a spin kernel
+``--only fwd`` times the flash forward alone.  Times are device
+milliseconds a call: calls queued behind a spin kernel
 (``torch.cuda._sleep``) and timed with CUDA events.  One JSON line a
 measurement, then the card's name and power limit:
 
-    python scripts/bwd_redesign_ab.py --roots build/parent,.,.,build/parent
+    python scripts/bwd_redesign_ab.py --roots build/parent,.,.,build/parent [--only fwd]
 """
 
 import argparse
@@ -42,6 +47,8 @@ FLASH_SHAPES = [("c4_gen", (64, 129, 8, 32), True),
                 ("c4_disc", (64, 128, 8, 16), False),
                 ("c4_rollout", (256, 128, 8, 16), False),
                 ("c5_gen", (64, 129, 12, 64), True)]
+# the tiled forward's shapes: those, and the tiled route's [2, 200, 2, 24]
+FWD_SHAPES = FLASH_SHAPES + [("t200", (2, 200, 2, 24), True)]
 EMBED = (36, 64, 512, 11008, 64)      # T, B, H, V, Ed
 
 
@@ -101,8 +108,9 @@ def seeded(torch, np, shape, seed, device, scale=1.0, dtype=None):
     return x if dtype is None else x.to(dtype)
 
 
-def child(root, tag):
-    """Every measurement on the checkout at ``root``."""
+def child(root, tag, only=""):
+    """Every measurement on the checkout at ``root`` (``only`` "fwd": the
+    flash forward's)."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -118,6 +126,13 @@ def child(root, tag):
     def emit(obj):
         print(json.dumps({"tree": tag, **obj}), flush=True)
 
+    if only != "fwd":
+        embed_and_bwd(torch, np, F, ds, fa, dev, bf, emit)
+    flash_forward(torch, np, F, fa, dev, bf, emit)
+
+
+def embed_and_bwd(torch, np, F, ds, fa, dev, bf, emit):
+    """The embed backward and the flash backward, as the module says."""
     # --- the bfloat16 embed backward and its three cuBLAS products
     T, B, H, V, Ed = EMBED
     args = (seeded(torch, np, (T, B, H), 93, dev, 1.0, bf),
@@ -187,6 +202,44 @@ def child(root, tag):
                 del lo, qt, kt, vt
 
 
+def flash_forward(torch, np, F, fa, dev, bf, emit):
+    """The flash forward at FWD_SHAPES, and SDPA's."""
+    rng = np.random.default_rng(58)
+    for name, shape, causal in FWD_SHAPES:
+        b, t, h, d = shape
+        lens_all = torch.from_numpy(rng.integers(3, t + 1, b).astype(
+            np.int32)).to(dev)
+        for dtype in (torch.float32, bf):
+            for lens in (None, lens_all):
+                q, k, v = (seeded(torch, np, shape, 70 + i, dev, 1.0, dtype)
+                           for i in range(3))
+                kfn = lambda: fa.flash_fwd(q, k, v, causal,  # noqa: E731
+                                           lens)
+                mask = torch.ones((1, 1, t, t), dtype=torch.bool,
+                                  device=dev)
+                if causal:
+                    mask = torch.tril(mask)
+                if lens is not None:
+                    mask = mask & (torch.arange(t, device=dev)[None, :]
+                                   < lens[:, None])[:, None, None, :]
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                lfn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, attn_mask=mask)
+                ms = {"kernel": [], "sdpa_fwd": []}
+                with torch.no_grad():
+                    for _ in range(2):
+                        ms["kernel"].append(device_ms(torch, kfn))
+                        ms["sdpa_fwd"].append(device_ms(torch, lfn))
+                emit({"what": "flash_fwd", "case": name,
+                      "shape": list(shape),
+                      "dtype": str(dtype).split(".")[-1], "causal": causal,
+                      "lengths": lens is not None, "ms": ms,
+                      "route": fa.flash_fwd_plan(t, h, d)["route"],
+                      "kernels": kernel_split(torch, kfn, 3)})
+                del qt, kt, vt
+
+
 def _launches(fn_obj, fn):
     before = fn_obj.launches
     fn()
@@ -197,11 +250,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--roots", default=".",
                     help="checkouts to time, comma-separated, in turns")
+    ap.add_argument("--only", default="", choices=("", "fwd"),
+                    help="fwd: the flash forward alone")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tag", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
-        child(Path(args.child).resolve(), args.tag)
+        child(Path(args.child).resolve(), args.tag, args.only)
         return 0
     rc = 0
     for i, root in enumerate(args.roots.split(",")):
@@ -209,7 +264,8 @@ def main(argv=None):
         tag = f"{i}:{root}"
         print(json.dumps({"turn": i, "root": root}), flush=True)
         rc |= subprocess.run([sys.executable, __file__, "--child", str(path),
-                              "--tag", tag], cwd=path).returncode
+                              "--tag", tag, "--only", args.only],
+                             cwd=path).returncode
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

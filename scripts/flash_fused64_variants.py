@@ -1,9 +1,11 @@
-"""Times the port's fused flash kernels at head dim 64 under other launch
-plans, beside the tiled route and PyTorch's SDPA, on one CUDA card.
+"""Times the port's flash kernels under other launch plans, beside
+PyTorch's SDPA, on one CUDA card: the fused kernels at head dim 64, and
+the tiled kernels past the fused shapes.
 
 At config5's MLE shape [64, 37, 12, 64], or the shapes given (causal
-with the captions' lengths + 1, and causal alone; bfloat16 and float32),
-it runs, in turns (every variant, then again in reverse order):
+with the captions' lengths + 1, and causal alone; with ``--all-masks``
+also non-causal with and without lengths; bfloat16 and float32), it
+runs, in turns (every variant, then again in reverse order):
 
 * the forward and the backward of ``kernels/flash_attention.py`` on
   every plan of G heads a block that the card takes (the plan of
@@ -14,16 +16,18 @@ it runs, in turns (every variant, then again in reverse order):
   launch) at the same shape;
 * ``scaled_dot_product_attention`` forward, and its backward alone.
 
-``--set NAME=VALUE`` (repeatable) times a build of ``flash_attention.cu``
-with those ``constexpr int`` constants set to other values (for instance
-``STAGE_U=4``, the bfloat16 staging's rounds of loads), loaded in place of
-the committed build.  Times are ``chip_smoke.device_ms`` (calls queued
-behind a spin kernel, CUDA events).  It prints one JSON line a case, then
-the ptxas report of ``flash_attention.cu`` and the card's name and power
-limit:
+The float32 out is also held against the dense answer in float64
+(``out_f64``).  ``--set NAME=VALUE`` (repeatable) times a build of
+``flash_attention.cu`` with those ``constexpr int`` constants set to
+other values (for instance ``STAGE_U=4``, the bfloat16 staging's rounds
+of loads, or ``TF_KROWS=64``, the tiled forward's key tiles, which the
+wrapper's plans then follow), loaded in place of the committed build.
+Times are ``chip_smoke.device_ms`` (calls queued behind a spin kernel,
+CUDA events).  It prints one JSON line a case, then the ptxas report of
+``flash_attention.cu`` and the card's name and power limit:
 
     python scripts/flash_fused64_variants.py [--shapes 64,37,12,64 ...] \
-        [--set NAME=VALUE ...]
+        [--all-masks] [--set NAME=VALUE ...]
 """
 
 import argparse
@@ -78,6 +82,8 @@ def use_variant(sets):
                          f"constexpr int {name} = {value};", src)
         if n != 1:
             raise SystemExit(f"flash_attention.cu has no constant {name}")
+        if hasattr(fa, name):   # the wrapper plans by its copy (TF_KROWS)
+            setattr(fa, name, int(value))
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = build.BUILD_DIR / ("flash_attention_variant_"
                             + hashlib.sha1(src.encode()).hexdigest()[:12]
@@ -100,6 +106,7 @@ def main():
     parser.add_argument("--shapes", nargs="+", default=["64,37,12,64"])
     parser.add_argument("--set", action="append", default=[],
                         metavar="NAME=VALUE")
+    parser.add_argument("--all-masks", action="store_true")
     args = parser.parse_args()
     shapes = [tuple(map(int, x.split(","))) for x in args.shapes]
     if not torch.cuda.is_available():
@@ -109,7 +116,7 @@ def main():
     if args.set:
         use_variant(args.set)
     for shape in shapes:
-        time_shape(shape, torch.device("cuda", 0), args.set)
+        time_shape(shape, torch.device("cuda", 0), args.set, args.all_masks)
     print(json.dumps({"ptxas": build.BUILD_LOGS.get("flash_attention",
                                                     "").splitlines()}),
           flush=True)
@@ -119,29 +126,38 @@ def main():
     return 0
 
 
-def time_shape(shape, device, sets):
+def time_shape(shape, device, sets, all_masks=False):
     b, t, h, d = shape
     rng = np.random.default_rng(561)
     lens = torch.from_numpy(rng.integers(3, t, b).astype(np.int32)
                             + 1).to(device)
     fwd_plan, bwd_plan = fa.flash_fwd_plan(t, h, d), fa.flash_bwd_plan(t, h,
                                                                         d)
-    heads = [g for g in (1, 2, 4) if g <= h]
+    tiled = fwd_plan["route"] == "tiled"
+    heads = [] if tiled else [g for g in (1, 2, 4) if g <= h]
+    cases = [("mle", lens, True), ("causal", None, True)]
+    if all_masks:
+        cases += [("lengths", lens, False), ("full", None, False)]
     for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        for case, ln in (("mle", lens), ("causal", None)):
+        for case, ln, causal in cases:
             q, k, v, g = (cs.seeded(shape, 560 + i, device).to(dt)
                           for i in range(4))
-            out, lse = fa.flash_fwd(q, k, v, True, ln)
-            grads = fa.flash_bwd(q, k, v, out, g, lse, True, ln)
-            p_out, _ = fa.flash_fwd_plain(q, k, v, True, ln)
-            p_grads = fa.flash_bwd_plain(q, k, v, out, g, lse, True, ln)
+            out, lse = fa.flash_fwd(q, k, v, causal, ln)
+            grads = fa.flash_bwd(q, k, v, out, g, lse, causal, ln)
+            p_out, _ = fa.flash_fwd_plain(q, k, v, causal, ln)
+            p_grads = fa.flash_bwd_plain(q, k, v, out, g, lse, causal, ln)
             row = {"case": case, "dtype": dt_name, "shape": list(shape),
-                   "set": sets,
+                   "causal": causal, "set": sets,
                    "plans": {"fwd": fwd_plan, "bwd": bwd_plan},
                    "max_abs_diff": {
                        n: float((a.float() - r.float()).abs().max())
                        for n, a, r in zip(("out", "dq", "dk", "dv"),
                                           (out, *grads), (p_out, *p_grads))}}
+            if dt == torch.float32:     # and from the answer in float64
+                row["max_abs_diff"]["out_f64"] = float((
+                    out - fa.attention_plain(q.double(), k.double(),
+                                             v.double(), causal, ln)
+                ).abs().max())
             fns, bit_equal = {}, {}
             for gh in heads:
                 fp, bp = with_heads(fwd_plan, gh, t), with_heads(bwd_plan,
@@ -149,30 +165,31 @@ def time_shape(shape, device, sets):
                 if fp["threads"] <= fp["most_threads"]:
                     def fwd(fp=fp):
                         with planned("fwd", fp):
-                            return fa.flash_fwd(q, k, v, True, ln)
+                            return fa.flash_fwd(q, k, v, causal, ln)
                     bit_equal[f"fwd_g{gh}"] = all(
                         torch.equal(a, r) for a, r in zip(fwd(), (out, lse)))
                     fns[f"fwd_g{gh}"] = fwd
                 if bp["threads"] <= bp["most_threads"]:
                     def bwd(bp=bp):
                         with planned("bwd", bp):
-                            return fa.flash_bwd(q, k, v, out, g, lse, True,
+                            return fa.flash_bwd(q, k, v, out, g, lse, causal,
                                                 ln)
                     bit_equal[f"bwd_g{gh}"] = all(
                         torch.equal(a, r) for a, r in zip(bwd(), grads))
                     fns[f"bwd_g{gh}"] = bwd
 
             def tiled_fwd():
-                with planned("fwd", {"route": "tiled"}):
-                    return fa.flash_fwd(q, k, v, True, ln)
+                with planned("fwd", fa._tiled_fwd(t, d)):
+                    return fa.flash_fwd(q, k, v, causal, ln)
 
             def tiled_bwd():
                 with planned("bwd", fa._tiled_bwd(t, d)):
-                    return fa.flash_bwd(q, k, v, out, g, lse, True, ln)
+                    return fa.flash_bwd(q, k, v, out, g, lse, causal, ln)
 
             fns.update(tiled_fwd=tiled_fwd, tiled_bwd=tiled_bwd)
-            mask = torch.tril(torch.ones((1, 1, t, t), dtype=torch.bool,
-                                         device=device))
+            mask = torch.ones((1, 1, t, t), dtype=torch.bool, device=device)
+            if causal:
+                mask = torch.tril(mask)
             if ln is not None:
                 mask = mask & (torch.arange(t, device=device)[None, :]
                                < ln[:, None])[:, None, None, :]
@@ -190,14 +207,21 @@ def time_shape(shape, device, sets):
                     with torch.no_grad() if n != "sdpa_bwd" else \
                             torch.enable_grad():
                         ms[n].append(cs.device_ms(fns[n]))
-            pairs = cs.attention_pairs(b, t, h, True, ln)
-            width = 2 if dt == torch.bfloat16 else 4
+            pairs = cs.attention_pairs(b, t, h, causal, ln)
+            bf = dt == torch.bfloat16
+            width = 2 if bf else 4
             x, vec = width * b * t * h * d, 4 * b * t * h
             row.update(bit_equal_across_heads=bit_equal, ms=ms, pairs=pairs,
                        bound_ms={
                            "fwd": cs.bound(4 * x + vec, 4 * d * pairs)[0],
                            "bwd": cs.bound(8 * x + vec, 10 * d * pairs)[0]})
+            if tiled:
+                row["bound_ms"]["fwd"] = cs.tiled_fwd_bound(b, t, h, d,
+                                                            pairs, bf)[0]
+                row["bound_ms"]["bwd"] = cs.tiled_bwd_bound(b, t, h, d,
+                                                            pairs, bf)[0]
             print(json.dumps(row), flush=True)
+            del lib, qt, kt, vt, gt
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from gan_image_captioning_tpu.kernels import flash_attention as jfa
 from gan_image_captioning_tpu_torch.kernels import flash_attention as tfa
 
 GRAD = dict(atol=2e-5, rtol=1e-4)
+OUT = dict(atol=5e-6, rtol=1e-5)
 MASKS = [(True, True), (True, False), (False, False), (False, True)]
 SMEM_MAX, THREADS_MAX = 227 * 1024, 1024
 # config4's calls (generator MLE / log-prob, discriminator, rollouts), the
@@ -204,10 +205,174 @@ def test_shapes_past_the_fused_kernel_go_tiled(B, T, H, D):
     """Past T = 64 or D = 64 both directions take the tiled route; the
     backward's plan is one launch of TB_THREADS threads a (b, h) within
     the card, its dQ sums and delta in shared memory exactly where the
-    block then stays within its budget."""
-    assert tfa.flash_fwd_plan(T, H, D) == {"route": "tiled"}
+    block then stays within its budget; the forward's one launch of
+    TB_THREADS threads a (b, h) and query tile within the card."""
+    _tiled_fwd_within_the_card(tfa.flash_fwd_plan(T, H, D), T, D)
     plan = tfa.flash_bwd_plan(T, H, D)
     _tiled_within_the_card(plan, T, D)
+
+
+def _tiled_fwd_within_the_card(plan, T, D):
+    assert plan["route"] == "tiled"
+    dp = plan["dp"]
+    assert dp >= max(D, 16) and dp & (dp - 1) == 0 and dp < 2 * max(D, 16)
+    assert plan["dp"] == tfa.flash_bwd_plan(T, 1, D)["dp"]
+    # four warps of 16 query rows; key tiles of 32
+    assert plan["threads"] == tfa.TB_THREADS == 128 <= THREADS_MAX
+    assert plan["q_rows"] == tfa.TF_QROWS == 16 * plan["threads"] // 32
+    assert plan["k_rows"] == tfa.TF_KROWS == 32
+    assert plan["q_tiles"] == -(-T // plan["q_rows"])
+    # float32 staging (bfloat16's is smaller): the Q tile, K and V twice
+    assert plan["smem"] == (plan["q_rows"] + 4 * plan["k_rows"]) * (
+        dp + 4) * 4
+    assert plan["smem"] <= SMEM_MAX
+
+
+@pytest.mark.parametrize("T", [65, 128, 129, 200, 513, 1024, 4096])
+@pytest.mark.parametrize("D", [8, 16, 24, 32, 64, 72, 128, 256])
+def test_tiled_fwd_plan_fits_the_card_at_any_length(T, D):
+    plan = tfa.flash_fwd_plan(T, 8, D)
+    _tiled_fwd_within_the_card(plan, T, D)
+    assert tfa.flash_fwd_plan(T, 8, D) is plan          # cached
+
+
+def _tiled_fwd_walk(plan, T, length, causal):
+    """The tiled forward's work for one (b, h), as its blocks do it: per
+    query tile qt (a block), its key tiles j below the length and, when
+    causal, not past the tile's last row; within a step, each warp w of 16
+    rows below T that is not wholly above the diagonal, and of its n8
+    tiles of keys those not wholly above its last row → ``[(qt, j, w,
+    [n, ...]), ...]``."""
+    qr, kr = plan["q_rows"], plan["k_rows"]
+    out = []
+    for qt in range(plan["q_tiles"]):
+        q0 = qt * qr
+        kend = min(length, q0 + qr) if causal else length
+        for j in range(-(-kend // kr)):
+            k0 = j * kr
+            for w in range(qr // 16):
+                r0 = q0 + 16 * w
+                if r0 >= T or (causal and k0 > r0 + 15):
+                    continue
+                out.append((qt, j, w, [n for n in range(kr // 8)
+                                       if not causal
+                                       or k0 + 8 * n <= r0 + 15]))
+    return out
+
+
+@pytest.mark.parametrize("B,T,H,D", TILED + LONG)
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_tiled_fwd_walk_covers_every_pair_and_row_once(B, T, H, D, causal,
+                                                       with_lengths):
+    """Every valid (query, key) pair falls in exactly one (query tile, key
+    tile, warp, n8 tile) the forward multiplies, no skipped tile holds
+    one, and every query row is written once (by its query tile's block,
+    whatever its length)."""
+    plan = tfa.flash_fwd_plan(T, H, D)
+    qr, kr = plan["q_rows"], plan["k_rows"]
+    for length in ([0, 1, T // 2 + 1, T] if with_lengths else [T]):
+        seen = np.zeros((T, T), np.int64)
+        for qt, j, w, tiles in _tiled_fwd_walk(plan, T, length, causal):
+            r0 = qt * qr + 16 * w
+            qi = np.arange(r0, min(r0 + 16, T))[:, None]
+            for n in tiles:
+                k0 = j * kr + 8 * n
+                kj = np.arange(k0, min(k0 + 8, T))[None, :]
+                ok = (kj < length) & ((kj <= qi) if causal
+                                      else np.ones_like(qi, bool))
+                np.add.at(seen, (np.broadcast_to(qi, ok.shape)[ok],
+                                 np.broadcast_to(kj, ok.shape)[ok]), 1)
+        i_, j_ = np.meshgrid(np.arange(T), np.arange(T), indexing="ij")
+        valid = (j_ < length) & ((j_ <= i_) if causal else True)
+        assert (seen[valid] == 1).all() and (seen[~valid] == 0).all()
+        written = np.zeros(T, np.int64)
+        for qt in range(plan["q_tiles"]):
+            written[qt * qr:min(qt * qr + qr, T)] += 1
+        assert (written == 1).all()
+
+
+def _tiled_fwd_replay(q, k, v, lengths, causal):
+    """The tiled forward's walk in float32: per (b, h) and query tile, its
+    key tiles in order (``_tiled_fwd_walk``'s tiles), S = Q Kᵀ / √D
+    masked to -1e30, the running max per key tile, the rescale of O and
+    l, P = exp(s - m) where valid, a fresh P V sum added to the rescaled
+    O, and at the end out = O / max(l, 1e-30), lse = m + log(max(l,
+    1e-30))."""
+    B, T, H, D = q.shape
+    plan = tfa.flash_fwd_plan(T, H, D)
+    qr, kr = plan["q_rows"], plan["k_rows"]
+    scale = F32(1.0 / math.sqrt(D))
+    out = np.full(q.shape, np.nan, F32)
+    lse = np.full((B, T, H), np.nan, F32)
+    for b in range(B):
+        length = T if lengths is None else min(max(int(lengths[b]), 0), T)
+        for h in range(H):
+            for qt in range(plan["q_tiles"]):
+                rows = np.arange(qt * qr, min(qt * qr + qr, T))
+                steps = sorted({j for t, j, _, _ in _tiled_fwd_walk(
+                    plan, T, length, causal) if t == qt})
+                m = np.full((len(rows), 1), F32(tfa.NEG), F32)
+                l = np.zeros((len(rows), 1), F32)
+                acc = np.zeros((len(rows), D), F32)
+                for j in steps:
+                    keys = np.arange(j * kr, min(j * kr + kr, T))
+                    ok = (keys[None, :] < length) & (
+                        (keys[None, :] <= rows[:, None]) if causal
+                        else True)
+                    s = (q[b, rows, h] @ k[b, keys, h].T).astype(F32)
+                    s = np.where(ok, s * scale, F32(tfa.NEG)).astype(F32)
+                    m_new = np.maximum(m, s.max(1, keepdims=True))
+                    corr = np.exp(m - m_new).astype(F32)
+                    p = np.where(ok, np.exp(s - m_new), 0.0).astype(F32)
+                    l = (l * corr + p.sum(1, keepdims=True)).astype(F32)
+                    acc = (acc * corr + (p @ v[b, keys, h])).astype(F32)
+                    m = m_new
+                l_safe = np.maximum(l, F32(1e-30))
+                out[b, rows, h] = acc / l_safe
+                lse[b, rows, h] = (m + np.log(l_safe))[:, 0]
+    return out, lse
+
+
+@pytest.mark.parametrize("shape", [(2, 70, 2, 24), (2, 129, 2, 32)])
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_tiled_fwd_replay_matches_jax(shape, causal, with_lengths):
+    """The tiled forward's walk replayed in float32 against the JAX
+    package's out and lse (its Pallas forward in interpret mode) at T =
+    70 (a 6-row last query tile, a 32-column head dim) and T = 129
+    (config4's generator: a 1-row last query tile), the four masks, with
+    lengths a batch row of key length 0 (out 0, lse about -1e30).
+    Tolerance ``OUT`` of tests/test_torch_port_flash.py."""
+    B, T, H, D = shape
+    assert tfa.flash_fwd_plan(T, H, D)["route"] == "tiled"
+    rng = np.random.default_rng(T + D)
+    q, k, v = (rng.standard_normal(shape).astype(F32) for _ in range(3))
+    lens = (np.array([0, T // 2 + 3], np.int32) if with_lengths else None)
+    got_out, got_lse = _tiled_fwd_replay(q, k, v, lens, causal)
+    want_out, want_lse = _jax_forward(q, k, v, lens, causal)
+    np.testing.assert_allclose(got_out, want_out, **OUT)
+    np.testing.assert_allclose(got_lse, want_lse, **OUT)
+    if with_lengths:
+        assert (got_out[0] == 0).all() and (got_lse[0] <= -1e29).all()
+
+
+def _jax_forward(q, k, v, lengths, causal):
+    """out and lse [B, T, H] of the JAX package's forward kernel
+    (``_forward`` on the rows its ``flash_attention`` makes: heads
+    major, T padded to its block, lengths per row)."""
+    B, T, H, D = q.shape
+    t_pad = -(-T // jfa.pick_block(T)) * jfa.pick_block(T)
+
+    def rows(x):
+        x = np.transpose(x, (0, 2, 1, 3)).reshape(B * H, T, D)
+        return jnp.asarray(np.pad(x, ((0, 0), (0, t_pad - T), (0, 0))))
+
+    lens = np.full(B * H, T, np.int32) if lengths is None else np.repeat(
+        np.minimum(lengths, T), H).astype(np.int32)
+    out, lse = jax.jit(jfa._forward, static_argnums=4)(
+        rows(q), rows(k), rows(v), jnp.asarray(lens), causal)
+    out = np.asarray(out)[:, :T].reshape(B, H, T, D).transpose(0, 2, 1, 3)
+    lse = np.asarray(lse)[:, :T, 0].reshape(B, H, T).transpose(0, 2, 1)
+    return out, lse
 
 
 def _tiled_within_the_card(plan, T, D):

@@ -31,6 +31,7 @@ OUT_ATOL, GRAD_RTOL, SOFT_ATOL, TIE_GAP = 2e-6, 1e-5, 1e-6, 1e-5
 # the long captions of --max-seq-len 126 (seq_len 128, the tiled kernels):
 # config4's generator, discriminator and rollouts, config5's generator;
 # in SHAPES at B = 4, as the config4 shapes there, and at full B in
+# test_flash_fwd_at_long_captions_matches_plain and
 # test_flash_bwd_at_long_captions_matches_plain
 LONG_SHAPES = [(64, 129, 8, 32), (64, 128, 8, 16), (256, 128, 8, 16),
                (64, 129, 12, 64)]
@@ -131,8 +132,9 @@ def test_flash_matches_plain(device, shape, causal, with_lengths):
     assert fa.flash_fwd.last_kernel == ("fused" if fused else "tiled")
     qd, kd, vd = (x.detach() for x in (q, k, v))
     names = _forward_kernels(lambda: fa.flash_fwd(qd, kd, vd, causal, lens))
-    want = ("flash_fwd_kernel" if not fused else "flash_fwd_fused_kernel"
-            if shape[3] <= 32 else "flash_fwd_fused64_kernel")
+    want = ("flash_fwd_tiled_kernel" if not fused else
+            "flash_fwd_fused_kernel" if shape[3] <= 32 else
+            "flash_fwd_fused64_kernel")
     assert not names or (len(names) == 1 and want in names[0]), names
     again = fa.flash_fwd(qd, kd, vd, causal, lens)
     assert torch.equal(again[0], out)
@@ -150,9 +152,8 @@ def test_flash_bwd_at_long_captions_matches_plain(device, shape, causal,
     """The tiled backward at the long captions' full batch: one launch,
     no PyTorch delta (the kernel's own out and lse in, its gradients
     within GRAD_RTOL of the plain version's autograd on the same inputs),
-    and a second call bit-equal.  The forward at these shapes is held in
-    test_flash_matches_plain at B = 4 and by chip_smoke.py's tf_kernels at
-    full B."""
+    and a second call bit-equal.  The forward at these shapes: in
+    test_flash_fwd_at_long_captions_matches_plain."""
     q, k, v = (x.detach() for x in _qkv(shape, sum(shape) + 1, device))
     lens = (_lengths(shape[0], shape[1], causal, 3, device) if with_lengths
             else None)
@@ -171,6 +172,36 @@ def test_flash_bwd_at_long_captions_matches_plain(device, shape, causal,
         assert err <= GRAD_RTOL * float(b.abs().max()), f"d{name}: {err}"
     again = fa.flash_bwd(q, k, v, out, g, lse, causal, lens)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES)
+@pytest.mark.parametrize("causal,with_lengths", MASKS)
+def test_flash_fwd_at_long_captions_matches_plain(device, shape, causal,
+                                                  with_lengths):
+    """The tiled forward at the long captions' full batch: one launch of
+    flash_fwd_tiled_kernel (as the wrapper reports it, and by the
+    profiler's name where it saw the launch), out within OUT_ATOL of the
+    dense plain version on the same inputs in float64 (the exact answer:
+    at these 4-6 M outputs the float32 plain version is itself up to
+    2.1e-6 from it), and a second call bit-equal (out and lse)."""
+    q, k, v = (x.detach() for x in _qkv(shape, sum(shape) + 2, device))
+    lens = (_lengths(shape[0], shape[1], causal, 5, device) if with_lengths
+            else None)
+    before = fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(q, k, v, causal, lens)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches - before == 1
+    assert fa.flash_fwd.last_kernel == "tiled"
+    assert fa.flash_fwd_plan(*shape[1:])["route"] == "tiled"
+    ref = fa.attention_plain(q.double(), k.double(), v.double(), causal,
+                             lens)
+    torch.testing.assert_close(out.double(), ref, atol=OUT_ATOL, rtol=0)
+    del ref
+    names = _forward_kernels(lambda: fa.flash_fwd(q, k, v, causal, lens))
+    assert not names or (len(names) == 1
+                         and "flash_fwd_tiled_kernel" in names[0]), names
+    again = fa.flash_fwd(q, k, v, causal, lens)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
 
 
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[3]]
@@ -285,6 +316,27 @@ def test_flash_tiled_bwd_refuses_a_foreign_plan(device, monkeypatch, shape):
         with pytest.raises(RuntimeError):
             fa.flash_bwd(q, k, v, out, out, lse, True)
     assert fa.flash_bwd.launches == before
+
+
+@pytest.mark.parametrize("shape", [(2, 129, 8, 32), (1, 70, 1, 256)])
+def test_flash_tiled_fwd_refuses_a_foreign_plan(device, monkeypatch, shape):
+    """The tiled forward's plan is checked as the tiled backward's: a byte
+    of shared memory short, other threads, another head dim, more than a
+    block may use, or query or key tiles the C side does not build is
+    refused and launches nothing."""
+    t, h, d = shape[1:]
+    q, k, v = (x.detach() for x in _qkv(shape, 9, device))
+    plan = fa.flash_fwd_plan(t, h, d)
+    assert plan["route"] == "tiled"
+    before = fa.flash_fwd.launches
+    for bad in ({"smem": plan["smem"] - 1}, {"threads": 256},
+                {"dp": 2 * plan["dp"]}, {"smem": 228 * 1024},
+                {"q_rows": 32}, {"k_rows": 16}, {"k_rows": 64}):
+        monkeypatch.setattr(fa, "flash_fwd_plan",
+                            lambda t_, h_, d_, bad=bad: {**plan, **bad})
+        with pytest.raises(RuntimeError):
+            fa.flash_fwd(q, k, v, True)
+    assert fa.flash_fwd.launches == before
 
 
 def test_flash_fwd_refuses_a_foreign_plan(device, monkeypatch):
